@@ -1,0 +1,240 @@
+"""Device scene representation: plain dataclasses of tensors.
+
+Counterpart of ``akari_tpu/scene/arrays.py``. Pointers of the reference's
+compiled scene are integer ids into flat tables; every table is a tensor
+field. Each dataclass has an explicit ``.to(device)`` that returns a copy
+with every tensor field moved; static fields (counts, flags, names) stay
+Python values.
+
+``from_numpy_scene`` carries the reference's compiled state across: it
+takes any object with the reference ``SceneArrays`` attribute names
+holding arrays (the tests pass the JAX compile's leaves through
+``np.asarray``) and returns the port's dataclass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# Material kinds (ref: Material variant, kernel/material.h:249)
+MAT_DIFFUSE = 0
+MAT_GLOSSY = 1
+MAT_EMISSIVE = 2
+MAT_MIX = 3
+MAT_MIRROR = 4
+MAT_GLASS = 5
+
+# Texture kinds (constant only until image textures, slice 4)
+TEX_CONSTANT = 0
+
+# How many nested Mix levels select_material unrolls.
+MAX_MIX_DEPTH = 4
+
+
+def _move(obj, device):
+    """dataclasses.replace with every tensor / dataclass field moved."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v.to(device)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = v.to(device)
+    return dataclasses.replace(obj, **changes)
+
+
+def _t(a, dtype=None):
+    """Host array -> CPU tensor owning a copy (None passes through)."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C", copy=True))
+
+
+@dataclass
+class TextureTable:
+    """All textures, SoA. Only constant textures exist in this slice
+    (``has_images`` is always False; image textures arrive with slice 4)."""
+
+    kind: torch.Tensor       # [X] int32
+    value: torch.Tensor      # [X, 3] float32 constant color
+    has_images: bool = False
+
+    def to(self, device):
+        return _move(self, device)
+
+
+@dataclass
+class MaterialTable:
+    """All materials, SoA. ``has_mix`` gates the Mix-tree selection walk."""
+
+    kind: torch.Tensor          # [M] int32
+    color_tex: torch.Tensor     # [M] int32
+    roughness_tex: torch.Tensor # [M] int32
+    fraction_tex: torch.Tensor  # [M] int32
+    mix_a: torch.Tensor         # [M] int32
+    mix_b: torch.Tensor         # [M] int32
+    double_sided: torch.Tensor  # [M] bool
+    ior: torch.Tensor = None    # [M] float32 (None = all 1.5)
+    has_mix: bool = False
+
+    def to(self, device):
+        return _move(self, device)
+
+
+@dataclass
+class LightTable:
+    """Emissive-triangle area lights + power CDF."""
+
+    tri_id: torch.Tensor        # [L] int32 storage triangle of each light
+    cdf: torch.Tensor           # [L+1] float32 power CDF
+    pdf: torch.Tensor           # [L] float32 selection pmf
+    tri_to_light: torch.Tensor  # [T] int32 (-1 if not a light)
+    n_lights: int = 0           # 0 => no lights (arrays are padded >= 1)
+
+    def to(self, device):
+        return _move(self, device)
+
+
+@dataclass
+class BVHArrays:
+    """Threaded BVH as compiled (DFS-ordered nodes with skip links). The
+    dense intersector does not read it; it records the storage order."""
+
+    node_lo: torch.Tensor  # [Nn, 3] float32
+    node_hi: torch.Tensor  # [Nn, 3] float32
+    first: torch.Tensor    # [Nn] int32
+    count: torch.Tensor    # [Nn] int32
+    miss: torch.Tensor     # [Nn] int32
+
+    def to(self, device):
+        return _move(self, device)
+
+
+@dataclass
+class SceneArrays:
+    """The compiled flat scene. Triangle storage is in BVH order.
+
+    tri_v0/e1/e2: Moeller-Trumbore-ready vertices (v0, v1-v0, v2-v0).
+    prim_table: [T, 32] per-triangle shading rows, columns v0(0:3) e1(3:6)
+    e2(6:9) normals(9:18) uvs(18:24) mat_id(24) light_sel_pdf(25)
+    pad(26:32). Its first nine columns are also the dense kernel's
+    triangle rows.
+
+    The reference's cluster/tree tables (slice 2), instancing tables
+    (slice 3) and environment light (slice 4) have no fields yet.
+    """
+
+    tri_v0: torch.Tensor    # [T, 3]
+    tri_e1: torch.Tensor    # [T, 3]
+    tri_e2: torch.Tensor    # [T, 3]
+    normals: torch.Tensor   # [T, 3, 3] per-corner shading normals
+    uvs: torch.Tensor       # [T, 3, 2]
+    mat_id: torch.Tensor    # [T] int32
+    materials: MaterialTable
+    textures: TextureTable
+    lights: LightTable
+    bvh: BVHArrays = None
+    prim_table: torch.Tensor = None    # [T, 32] float32
+    prim_to_orig: torch.Tensor = None  # [T] int32 storage slot -> original tri
+    n_tris: int = 0
+    n_materials: int = 0
+    intersector: str = "dense"  # "dense" | "brute"
+
+    @property
+    def device(self):
+        return self.tri_v0.device
+
+    def to(self, device):
+        return _move(self, device)
+
+
+@dataclass
+class Camera:
+    """Perspective pinhole/thin-lens camera; looks down local -Z.
+
+    Host metadata only: ``c2w`` is a float32 NumPy [4, 4] and
+    ``tan_half_fov`` a NumPy float32, read as exact float32 constants by
+    the ray generator.
+    """
+
+    c2w: np.ndarray
+    tan_half_fov: np.float32
+    width: int = 0
+    height: int = 0
+    lens_radius: float = 0.0
+    focal_distance: float = 0.0
+
+
+def make_camera(c2w, fov_deg, width, height, lens_radius=0.0, focal_distance=0.0):
+    return Camera(
+        c2w=np.asarray(c2w, dtype=np.float32),
+        tan_half_fov=np.float32(np.tan(np.radians(fov_deg) / 2.0)),
+        width=int(width),
+        height=int(height),
+        lens_radius=float(lens_radius),
+        focal_distance=float(focal_distance),
+    )
+
+
+def from_numpy_scene(obj, intersector="dense"):
+    """Reference-shaped compiled scene (arrays under the reference's
+    ``SceneArrays`` attribute names) -> the port's CPU ``SceneArrays``.
+
+    Flat scenes with constant textures and no environment only; anything
+    else raises ``NotImplementedError`` naming the slice that adds it.
+    """
+    if getattr(obj, "instances", None) is not None:
+        raise NotImplementedError("instanced scenes arrive with slice 3")
+    if getattr(obj, "env_image", None) is not None:
+        raise NotImplementedError("environment lights arrive with slice 4")
+    tex, mat, li = obj.textures, obj.materials, obj.lights
+    if bool(tex.has_images):
+        raise NotImplementedError("image textures arrive with slice 4")
+    bvh = getattr(obj, "bvh", None)
+    return SceneArrays(
+        tri_v0=_t(obj.tri_v0, np.float32),
+        tri_e1=_t(obj.tri_e1, np.float32),
+        tri_e2=_t(obj.tri_e2, np.float32),
+        normals=_t(obj.normals, np.float32),
+        uvs=_t(obj.uvs, np.float32),
+        mat_id=_t(obj.mat_id, np.int32),
+        materials=MaterialTable(
+            kind=_t(mat.kind, np.int32),
+            color_tex=_t(mat.color_tex, np.int32),
+            roughness_tex=_t(mat.roughness_tex, np.int32),
+            fraction_tex=_t(mat.fraction_tex, np.int32),
+            mix_a=_t(mat.mix_a, np.int32),
+            mix_b=_t(mat.mix_b, np.int32),
+            double_sided=_t(mat.double_sided, bool),
+            ior=_t(mat.ior, np.float32),
+            has_mix=bool(mat.has_mix),
+        ),
+        textures=TextureTable(
+            kind=_t(tex.kind, np.int32),
+            value=_t(tex.value, np.float32),
+            has_images=False,
+        ),
+        lights=LightTable(
+            tri_id=_t(li.tri_id, np.int32),
+            cdf=_t(li.cdf, np.float32),
+            pdf=_t(li.pdf, np.float32),
+            tri_to_light=_t(li.tri_to_light, np.int32),
+            n_lights=int(li.n_lights),
+        ),
+        bvh=None if bvh is None else BVHArrays(
+            node_lo=_t(bvh.node_lo, np.float32),
+            node_hi=_t(bvh.node_hi, np.float32),
+            first=_t(bvh.first, np.int32),
+            count=_t(bvh.count, np.int32),
+            miss=_t(bvh.miss, np.int32),
+        ),
+        prim_table=_t(obj.prim_table, np.float32),
+        prim_to_orig=_t(obj.prim_to_orig, np.int32),
+        n_tris=int(obj.n_tris),
+        n_materials=int(obj.n_materials),
+        intersector=intersector,
+    )

@@ -1,0 +1,76 @@
+"""Built-in scenes: the Cornell box (``akari_tpu/scene/builtin.py``).
+
+The Cornell box asset (scenes/cornell_box/) is the public-domain data set
+by Guedis Cardenas and Morgan McGuire (Williams College, 2011).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..core import transform as xform
+from .arrays import make_camera
+from .nodes import DiffuseMaterial, EmissiveMaterial, Mesh, Scene
+from .obj import load_obj
+
+_ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "scenes")
+
+
+def cornell_box_mesh():
+    path = os.path.join(_ASSET_DIR, "cornell_box", "CornellBox-Original.obj")
+    if os.path.exists(path):
+        return load_obj(path)
+    return _cornell_box_fallback()
+
+
+def cornell_box(width=256, height=256, fov_deg=15.0):
+    """The canonical workload scene: camera fov 15 at (0, 1, 9)."""
+    mesh = cornell_box_mesh()
+    c2w = xform.translate((0.0, 1.0, 9.0))  # identity rotation, looks down -Z
+    cam = make_camera(c2w, fov_deg, width, height)
+    return Scene(shapes=[mesh], camera=cam)
+
+
+def _quad(p0, p1, p2, p3):
+    """Two CCW triangles for the quad p0 p1 p2 p3."""
+    return [np.asarray([p0, p1, p2], np.float32), np.asarray([p0, p2, p3], np.float32)]
+
+
+def _cornell_box_fallback():
+    """Programmatic Cornell box with the classic dimensions (x,z in [-1,1],
+    y in [0,2]; light quad just under the ceiling). Used if the bundled OBJ
+    asset is missing."""
+    white = DiffuseMaterial((0.725, 0.71, 0.68))
+    red = DiffuseMaterial((0.63, 0.065, 0.05))
+    green = DiffuseMaterial((0.14, 0.45, 0.091))
+    light = EmissiveMaterial((17.0, 12.0, 4.0))
+
+    tris = []
+    mats = []
+
+    def add(quads, m):
+        for t in quads:
+            tris.append(t)
+            mats.append(m)
+
+    add(_quad((-1, 0, 1), (1, 0, 1), (1, 0, -1), (-1, 0, -1)), white)    # floor
+    add(_quad((-1, 2, 1), (-1, 2, -1), (1, 2, -1), (1, 2, 1)), white)    # ceiling
+    add(_quad((-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1)), white)  # back
+    add(_quad((1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1)), green)      # right
+    add(_quad((-1, 0, 1), (-1, 0, -1), (-1, 2, -1), (-1, 2, 1)), red)    # left
+    add(
+        _quad(
+            (-0.24, 1.98, 0.16), (-0.24, 1.98, -0.22),
+            (0.23, 1.98, -0.22), (0.23, 1.98, 0.16),
+        ),
+        light,
+    )
+
+    p = np.stack(tris)  # [F,3,3]
+    materials = [white, red, green, light]
+    mat_ids = np.asarray([materials.index(m) for m in mats], np.int64)
+    verts = p.reshape(-1, 3)
+    idx = np.arange(verts.shape[0], dtype=np.int64).reshape(-1, 3)
+    return Mesh(vertices=verts, indices=idx, materials=materials, material_ids=mat_ids)

@@ -1,0 +1,390 @@
+"""Host-side scene graph and the flat compile to ``SceneArrays``.
+
+Counterpart of ``akari_tpu/scene/nodes.py`` (node dataclasses and the
+flat branch of ``compile_scene``): meshes are merged, materials and
+textures become flat tables, triangles are stored in SBVH leaf order,
+emissive triangles become the light table with a power CDF, and the
+``[T, 32]`` ``prim_table`` gathers every per-hit attribute into one row.
+
+The compile runs on the host in NumPy and returns CPU tensors; call
+``.to(device)`` on the result to move it.
+
+Intersector names of the port: ``"auto"`` and ``"dense"`` both select the
+dense intersector (the CUDA kernel on CUDA tensors, its plain PyTorch
+version on CPU tensors); ``"brute"`` selects the all-pairs CPU oracle.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+
+from ..bvh.build import build_bvh
+from ..core.distribution import build_cdf
+from ..core.spectrum import luminance
+from .arrays import (
+    MAT_DIFFUSE,
+    MAT_EMISSIVE,
+    MAT_GLASS,
+    MAT_GLOSSY,
+    MAT_MIRROR,
+    MAT_MIX,
+    TEX_CONSTANT,
+    from_numpy_scene,
+)
+
+INTERSECTORS = {"auto": "dense", "dense": "dense", "brute": "brute"}
+
+
+# --------------------------------------------------------------------------
+# Texture and material nodes
+# --------------------------------------------------------------------------
+
+@dataclass
+class ConstantTexture:
+    value: tuple  # rgb
+
+    @staticmethod
+    def coerce(v):
+        """Scalar/3-tuple/texture -> texture."""
+        if isinstance(v, ConstantTexture):
+            return v
+        if np.isscalar(v):
+            return ConstantTexture((float(v),) * 3)
+        v = tuple(float(x) for x in np.asarray(v).reshape(-1)[:3])
+        return ConstantTexture(v)
+
+
+@dataclass
+class DiffuseMaterial:
+    color: object = (0.8, 0.8, 0.8)
+
+
+@dataclass
+class GlossyMaterial:
+    color: object = (1.0, 1.0, 1.0)
+    roughness: object = 0.1
+
+
+@dataclass
+class EmissiveMaterial:
+    color: object = (1.0, 1.0, 1.0)
+    double_sided: bool = False
+
+
+@dataclass
+class MirrorMaterial:
+    """Perfect mirror (delta reflection with a tint)."""
+
+    color: object = (0.9, 0.9, 0.9)
+
+
+@dataclass
+class GlassMaterial:
+    """Smooth dielectric (delta reflect + refract, Fresnel-weighted)."""
+
+    color: object = (1.0, 1.0, 1.0)
+    ior: float = 1.5
+
+
+@dataclass
+class MixMaterial:
+    fraction: object  # scalar/texture; probability of picking material B
+    material_a: object = None
+    material_b: object = None
+
+
+# --------------------------------------------------------------------------
+# Shape and scene nodes
+# --------------------------------------------------------------------------
+
+@dataclass
+class Mesh:
+    """Triangle mesh: indexed vertices with optional per-vertex attributes.
+
+    ``material_ids`` maps each face to an entry of ``materials``.
+    """
+
+    vertices: np.ndarray            # [V, 3]
+    indices: np.ndarray             # [F, 3] int
+    materials: list = field(default_factory=list)
+    material_ids: Optional[np.ndarray] = None  # [F] int into materials
+    normals: Optional[np.ndarray] = None       # [V, 3] per-vertex
+    uvs: Optional[np.ndarray] = None           # [V, 2] per-vertex
+    corner_normals: Optional[np.ndarray] = None  # [F, 3, 3]
+    corner_uvs: Optional[np.ndarray] = None      # [F, 3, 2]
+    transform: Optional[np.ndarray] = None       # [4, 4]
+
+
+@dataclass
+class Scene:
+    shapes: list = field(default_factory=list)   # [Mesh]
+    camera: object = None                        # arrays.Camera
+    integrator: object = None                    # PathConfig
+    environment: object = None                   # not supported yet
+    output: str = "out.png"
+
+    def compile(self, intersector="auto"):
+        return compile_scene(
+            self.shapes, intersector=intersector,
+            environment=self.environment,
+        )
+
+
+def _flatten_mesh(mesh):
+    """Mesh -> per-triangle (p0,p1,p2, corner normals, corner uvs)."""
+    from ..core import transform as xform
+
+    verts = np.asarray(mesh.vertices, dtype=np.float32)
+    idx = np.asarray(mesh.indices, dtype=np.int64).reshape(-1, 3)
+    if mesh.transform is not None:
+        verts = xform.apply_point(np.asarray(mesh.transform, np.float32), verts)
+    p = verts[idx]  # [F, 3, 3]
+
+    if mesh.corner_normals is not None:
+        n = np.asarray(mesh.corner_normals, dtype=np.float32)
+        if mesh.transform is not None:
+            n = xform.apply_normal(mesh.transform, n.reshape(-1, 3)).reshape(n.shape)
+    elif mesh.normals is not None:
+        nv = np.asarray(mesh.normals, dtype=np.float32)
+        if mesh.transform is not None:
+            nv = xform.apply_normal(mesh.transform, nv)
+        n = nv[idx]
+    else:
+        e1 = p[:, 1] - p[:, 0]
+        e2 = p[:, 2] - p[:, 0]
+        ng = np.cross(e1, e2)
+        norm = np.linalg.norm(ng, axis=-1, keepdims=True)
+        ng = ng / np.where(norm > 0, norm, 1.0)
+        n = np.repeat(ng[:, None, :], 3, axis=1)
+    norm = np.linalg.norm(n, axis=-1, keepdims=True)
+    n = (n / np.where(norm > 0, norm, 1.0)).astype(np.float32)
+
+    if mesh.corner_uvs is not None:
+        uv = np.asarray(mesh.corner_uvs, dtype=np.float32)
+    elif mesh.uvs is not None:
+        uv = np.asarray(mesh.uvs, dtype=np.float32)[idx]
+    else:
+        uv = np.zeros((idx.shape[0], 3, 2), dtype=np.float32)
+
+    mat_ids = (
+        np.zeros(idx.shape[0], dtype=np.int64)
+        if mesh.material_ids is None
+        else np.asarray(mesh.material_ids, dtype=np.int64)
+    )
+    return p, n, uv, mat_ids
+
+
+class _TableBuilder:
+    """Assigns ids while deduplicating by object identity."""
+
+    def __init__(self):
+        self.ids = {}
+        self.items = []
+
+    def add(self, obj):
+        key = id(obj)
+        if key not in self.ids:
+            self.ids[key] = len(self.items)
+            self.items.append(obj)
+        return self.ids[key]
+
+
+def _compile_textures_materials(materials):
+    """Walk the material graph -> (mats, material table, texture table, texs)
+    as NumPy namespaces with the reference's attribute names."""
+    mats = _TableBuilder()
+    texs = _TableBuilder()
+
+    def tex_id(t):
+        if not isinstance(t, ConstantTexture) and not (
+            np.isscalar(t) or isinstance(t, (tuple, list, np.ndarray))
+        ):
+            raise NotImplementedError(
+                f"texture {type(t).__name__}: image textures arrive with slice 4"
+            )
+        return texs.add(ConstantTexture.coerce(t))
+
+    # Seed: walk mix graphs to register everything.
+    pending = list(materials)
+    seen = set()
+    while pending:
+        m = pending.pop()
+        if id(m) in seen:
+            continue
+        seen.add(id(m))
+        mats.add(m)
+        if isinstance(m, MixMaterial):
+            pending.append(m.material_a)
+            pending.append(m.material_b)
+
+    M = len(mats.items)
+    kind = np.zeros(M, np.int32)
+    color_tex = np.zeros(M, np.int32)
+    roughness_tex = np.zeros(M, np.int32)
+    fraction_tex = np.zeros(M, np.int32)
+    mix_a = np.zeros(M, np.int32)
+    mix_b = np.zeros(M, np.int32)
+    double_sided = np.zeros(M, bool)
+    ior = np.full(M, 1.5, np.float32)
+
+    for i, m in enumerate(list(mats.items)):
+        if isinstance(m, DiffuseMaterial):
+            kind[i] = MAT_DIFFUSE
+            color_tex[i] = tex_id(m.color)
+        elif isinstance(m, GlossyMaterial):
+            kind[i] = MAT_GLOSSY
+            color_tex[i] = tex_id(m.color)
+            roughness_tex[i] = tex_id(m.roughness)
+        elif isinstance(m, EmissiveMaterial):
+            kind[i] = MAT_EMISSIVE
+            color_tex[i] = tex_id(m.color)
+            double_sided[i] = bool(m.double_sided)
+        elif isinstance(m, MirrorMaterial):
+            kind[i] = MAT_MIRROR
+            color_tex[i] = tex_id(m.color)
+        elif isinstance(m, GlassMaterial):
+            kind[i] = MAT_GLASS
+            color_tex[i] = tex_id(m.color)
+            ior[i] = float(m.ior)
+        elif isinstance(m, MixMaterial):
+            kind[i] = MAT_MIX
+            fraction_tex[i] = tex_id(m.fraction)
+            mix_a[i] = mats.ids[id(m.material_a)]
+            mix_b[i] = mats.ids[id(m.material_b)]
+        else:
+            raise TypeError(f"unknown material node {type(m)}")
+
+    X = len(texs.items)
+    t_kind = np.full(X, TEX_CONSTANT, np.int32)
+    t_value = np.ones((X, 3), np.float32)
+    for i, t in enumerate(texs.items):
+        t_value[i] = np.asarray(t.value, np.float32)
+
+    mat_table = SimpleNamespace(
+        kind=kind, color_tex=color_tex, roughness_tex=roughness_tex,
+        fraction_tex=fraction_tex, mix_a=mix_a, mix_b=mix_b,
+        double_sided=double_sided, ior=ior,
+        has_mix=bool((kind == MAT_MIX).any()),
+    )
+    tex_table = SimpleNamespace(kind=t_kind, value=t_value, has_images=False)
+    return mats, mat_table, tex_table, texs
+
+
+def _texture_mean(texs, tex_idx):
+    """Host-side mean luminance of a (constant) texture, for light power."""
+    t = texs.items[tex_idx]
+    return float(luminance(np.asarray(t.value, np.float32)))
+
+
+def compile_scene(shapes, intersector="auto", environment=None):
+    """Merge meshes, build materials/lights/BVH -> CPU ``SceneArrays``."""
+    if intersector not in INTERSECTORS:
+        raise ValueError(
+            f"intersector {intersector!r}: expected one of {sorted(INTERSECTORS)}"
+        )
+    if environment is not None:
+        raise NotImplementedError("environment lights arrive with slice 4")
+    for s in shapes:
+        if not isinstance(s, Mesh):
+            raise NotImplementedError(
+                f"shape {type(s).__name__}: instanced scenes arrive with slice 3"
+            )
+    all_p, all_n, all_uv, all_mid = [], [], [], []
+    global_materials = []
+    for mesh in shapes:
+        p, n, uv, mid = _flatten_mesh(mesh)
+        base = len(global_materials)
+        global_materials.extend(mesh.materials or [DiffuseMaterial()])
+        all_p.append(p)
+        all_n.append(n)
+        all_uv.append(uv)
+        all_mid.append(mid + base)
+    p = np.concatenate(all_p) if all_p else np.zeros((0, 3, 3), np.float32)
+    n = np.concatenate(all_n)
+    uv = np.concatenate(all_uv)
+    mid = np.concatenate(all_mid)
+
+    mats, mat_table, tex_table, texs = _compile_textures_materials(global_materials)
+    top_ids = np.asarray([mats.ids[id(m)] for m in global_materials], np.int32)
+    face_mat = top_ids[mid]
+
+    bvh, order = build_bvh(p[:, 0], p[:, 1], p[:, 2])
+    order = np.asarray(order, np.int64)
+    n_orig = p.shape[0]
+    # With SBVH spatial splits a triangle may occupy several storage slots.
+    # Lights are enumerated over ORIGINAL triangles, so a duplicated
+    # emitter's power is counted once.
+    emissive_orig = mat_table.kind[face_mat] == MAT_EMISSIVE
+    light_orig = np.nonzero(emissive_orig)[0]
+    # canonical (first) storage copy of each original triangle
+    first_copy = np.full(n_orig, -1, np.int64)
+    rev = np.arange(order.shape[0] - 1, -1, -1, dtype=np.int64)
+    first_copy[order[rev]] = rev
+    p, n, uv, face_mat = p[order], n[order], uv[order], face_mat[order]
+
+    v0 = p[:, 0]
+    e1 = p[:, 1] - p[:, 0]
+    e2 = p[:, 2] - p[:, 0]
+
+    # Light table: every emissive triangle is an area light with power
+    # emission_mean * area. tri_id is the canonical storage copy;
+    # tri_to_light maps EVERY storage copy to the same light.
+    light_tris = first_copy[light_orig].astype(np.int32)
+    if light_tris.size > 0:
+        areas = 0.5 * np.linalg.norm(
+            np.cross(e1[light_tris], e2[light_tris]), axis=-1
+        )
+        power = np.asarray(
+            [
+                _texture_mean(texs, mat_table.color_tex[face_mat[t]])
+                for t in light_tris
+            ]
+        ) * areas
+        pdf, cdf = build_cdf(power)
+        light_of_orig = np.full(n_orig, -1, np.int32)
+        light_of_orig[light_orig] = np.arange(light_orig.size, dtype=np.int32)
+        lights = SimpleNamespace(
+            tri_id=light_tris, cdf=cdf, pdf=pdf,
+            tri_to_light=light_of_orig[order],
+            n_lights=int(light_tris.size),
+        )
+    else:
+        lights = SimpleNamespace(
+            tri_id=np.zeros(1, np.int32),
+            cdf=np.asarray([0.0, 1.0], np.float32),
+            pdf=np.ones(1, np.float32),
+            tri_to_light=np.full(max(v0.shape[0], 1), -1, np.int32),
+            n_lights=0,
+        )
+
+    # Fat shading table: all per-hit attributes behind ONE row gather.
+    t_count = v0.shape[0]
+    light_sel_pdf = np.where(
+        lights.tri_to_light >= 0,
+        np.asarray(lights.pdf)[np.maximum(lights.tri_to_light, 0)],
+        0.0,
+    ).astype(np.float32)
+    prim_table = np.zeros((t_count, 32), np.float32)
+    prim_table[:, 0:3] = v0
+    prim_table[:, 3:6] = e1
+    prim_table[:, 6:9] = e2
+    prim_table[:, 9:18] = n.reshape(t_count, 9)
+    prim_table[:, 18:24] = uv.reshape(t_count, 6)
+    prim_table[:, 24] = face_mat.astype(np.float32)  # exact for < 2^24 mats
+    prim_table[:, 25] = light_sel_pdf
+
+    compiled = SimpleNamespace(
+        tri_v0=v0, tri_e1=e1, tri_e2=e2,
+        normals=n, uvs=uv, mat_id=face_mat,
+        materials=mat_table, textures=tex_table, lights=lights,
+        bvh=SimpleNamespace(**bvh),
+        prim_table=prim_table,
+        prim_to_orig=order.astype(np.int32),
+        n_tris=int(v0.shape[0]),
+        n_materials=len(mats.items),
+    )
+    return from_numpy_scene(compiled, intersector=INTERSECTORS[intersector])
