@@ -1,18 +1,21 @@
 """Host-side SBVH construction (NumPy): the storage order of a compiled scene.
 
 Counterpart of the NumPy builder in ``akari_tpu/bvh/build.py``. The port
-does not traverse this BVH (the dense CUDA kernel sweeps every triangle),
-but compile needs it all the same: triangle storage order, and with it
-every prim id, is the BVH leaf order, so the port's compiled arrays equal
-the reference's only if it builds the very same tree.
+does not traverse this BVH (the dense kernel sweeps every triangle; the
+tree kernel walks ``bvh/cluster_tree.py``'s BVH2 over 128-triangle runs
+of this order), but compile needs it all the same: triangle storage
+order, and with it every prim id, is the BVH leaf order, so the port's
+compiled arrays equal the reference's only if it builds the very same
+tree.
 
 Binned SAH object splits (N_BINS buckets) plus SBVH spatial splits with
 triangle clipping and cost-based reference unsplitting; nodes in DFS
 preorder with threaded miss links; leaves of at most MAX_LEAF references.
 
-Scenes of 20 000 triangles or more take the reference's native C++
-builder, which orders triangles differently; the port has no counterpart
-yet and refuses them rather than silently building another order.
+Scenes of NATIVE_MIN_TRIS (20 000) triangles or more take the native C++
+builder (``native/bvh_builder.cpp``, a copy of the reference's), as the
+reference does. It orders triangles differently from this NumPy builder,
+so a failed native build or call raises instead of falling back here.
 """
 
 from __future__ import annotations
@@ -390,6 +393,51 @@ def _subtree_size(node):
 NATIVE_MIN_TRIS = 20_000
 
 
+def _build_native(p0, p1, p2):
+    """The native builder (``akari_tpu/bvh/build.py::_build_native``);
+    raises where the reference returns None and falls back."""
+    import ctypes
+
+    from ..native.loader import load
+
+    lib = load()
+    p0 = np.ascontiguousarray(p0, dtype=np.float32)
+    p1 = np.ascontiguousarray(p1, dtype=np.float32)
+    p2 = np.ascontiguousarray(p2, dtype=np.float32)
+    t = p0.shape[0]
+    max_nodes = 2 * t + 8
+    node_lo = np.empty((max_nodes, 3), np.float32)
+    node_hi = np.empty((max_nodes, 3), np.float32)
+    first = np.empty(max_nodes, np.int32)
+    count = np.empty(max_nodes, np.int32)
+    miss = np.empty(max_nodes, np.int32)
+    order = np.empty(t, np.int32)
+    n_nodes = ctypes.c_int64(0)
+
+    def ptr(a, ty):
+        return a.ctypes.data_as(ctypes.POINTER(ty))
+
+    rc = lib.akr_bvh_build(
+        ptr(p0, ctypes.c_float), ptr(p1, ctypes.c_float), ptr(p2, ctypes.c_float),
+        ctypes.c_int64(t), ctypes.c_int(MAX_LEAF),
+        ptr(node_lo, ctypes.c_float), ptr(node_hi, ctypes.c_float),
+        ptr(first, ctypes.c_int32), ptr(count, ctypes.c_int32),
+        ptr(miss, ctypes.c_int32), ptr(order, ctypes.c_int32),
+        ctypes.c_int64(max_nodes), ctypes.byref(n_nodes),
+    )
+    if rc != 0:
+        raise RuntimeError(f"native BVH builder returned {rc} on {t} triangles")
+    m = n_nodes.value
+    bvh = dict(
+        node_lo=node_lo[:m].copy(),
+        node_hi=node_hi[:m].copy(),
+        first=first[:m].copy(),
+        count=count[:m].copy(),
+        miss=miss[:m].copy(),
+    )
+    return bvh, order.astype(np.int64)
+
+
 def build_bvh(p0, p1, p2, spatial=True):
     """Build a threaded BVH/SBVH over triangles given [T,3] vertex arrays.
 
@@ -400,11 +448,7 @@ def build_bvh(p0, p1, p2, spatial=True):
     """
     n = np.asarray(p0).shape[0]
     if n >= NATIVE_MIN_TRIS:
-        raise NotImplementedError(
-            f"scene has {n} triangles: scenes of {NATIVE_MIN_TRIS} or more "
-            "use the native BVH builder, which the port adds in slice 2 "
-            "(large flat scenes)"
-        )
+        return _build_native(p0, p1, p2)
     p0 = np.asarray(p0, dtype=np.float64)
     p1 = np.asarray(p1, dtype=np.float64)
     p2 = np.asarray(p2, dtype=np.float64)

@@ -1,7 +1,7 @@
 """Render CLI of the port (``akari_tpu/cli/render.py``).
 
 Usage: python -m akari_torch.cli.render -i scene.akari [-o out.png]
-       [--spp N] [--max-depth D] [--intersector auto|dense|brute]
+       [--spp N] [--max-depth D] [--intersector auto|dense|tree|brute]
        [--width W] [--height H] [--seed S] [--device cuda|cpu] [-v]
 
 ``--device`` defaults to ``cuda`` and never falls back: without a CUDA
@@ -34,7 +34,7 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=None, help="override spp")
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--intersector", default="auto",
-                    choices=["auto", "dense", "brute"])
+                    choices=["auto", "dense", "tree", "brute"])
     ap.add_argument("--width", type=int, default=None,
                     help="override output width (camera resolution)")
     ap.add_argument("--height", type=int, default=None,
@@ -84,8 +84,8 @@ def main(argv=None):
             height=args.height or camera.height,
         )
     log.info(
-        f"scene compiled: {scene.n_tris} tris, {scene.n_materials} materials "
-        f"({time.perf_counter() - t0:.2f}s) on {device}"
+        f"scene compiled: {scene.n_tris} tris, {scene.n_materials} materials, "
+        f"intersector {scene.intersector} ({time.perf_counter() - t0:.2f}s) on {device}"
     )
 
     cfg = scene_node.integrator or PathConfig()

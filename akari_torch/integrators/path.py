@@ -7,9 +7,10 @@ ints. The math and the order of floating-point operations follow the
 reference line for line, so the port draws the same random numbers, hits
 the same triangles and agrees in radiance to float32 rounding.
 
-Intersection: on a flat scene with the dense intersector, each bounce
-answers its shadow ray and its next extension ray in ONE closest-hit
-launch of 2N rays (shadow rays bounded by ``t_max``), so a
+Intersection: on a flat scene with the dense or the tree intersector,
+each bounce answers its shadow ray and its next extension ray in ONE
+closest-hit launch of 2N rays (shadow rays bounded by ``t_max``), as
+the reference does for every flat Pallas scene, so a
 ``trace_paths`` call launches the kernel exactly ``1 + max_depth`` times.
 """
 
@@ -23,7 +24,6 @@ import torch
 from .. import sampling
 from ..core import rng
 from ..core.v3 import V3, from_rows, v3where
-from ..ops import dense_intersect
 from ..ops.intersect import T_MAX, intersect_soa, occlude_soa
 from ..shading import soa
 
@@ -130,7 +130,7 @@ def _intersectors_soa(scene):
     """(intersect_fn, occlude_fn, fused_fn) for the scene's intersector.
 
     ``fused_fn`` answers a bounce's shadow rays and its extension rays in
-    a single closest-hit query (dense intersector only)."""
+    a single closest-hit query (dense and tree intersectors)."""
 
     def intersect_fn(o, d):
         h = intersect_soa(scene, o, d)
@@ -140,23 +140,16 @@ def _intersectors_soa(scene):
         return occlude_soa(scene, o, d, t_min, t_max)
 
     fused_fn = None
-    if scene.intersector == "dense":
+    if scene.intersector in ("dense", "tree"):
         def fused_fn(shadow_o, shadow_d, shadow_tmax, o2, d2, ext_tmax):
             n = o2.x.shape[0]
-            zero = torch.zeros_like(shadow_tmax)
-            rays = torch.cat(
-                [
-                    dense_intersect.pack_rays(shadow_o, shadow_d, zero, shadow_tmax),
-                    dense_intersect.pack_rays(o2, d2, zero, ext_tmax),
-                ],
-                dim=1,
-            )
-            t, u, v, prim = dense_intersect.closest(
-                rays.detach(), scene.prim_table.detach()
-            )
-            valid = prim >= 0
-            occluded = valid[:n]
-            hit = (t[n:], prim[n:], u[n:], v[n:], valid[n:])
+            cat = torch.cat
+            o = V3(*(cat([a, b]) for a, b in zip(shadow_o, o2)))
+            d = V3(*(cat([a, b]) for a, b in zip(shadow_d, d2)))
+            t_max = cat([shadow_tmax, ext_tmax])
+            h = intersect_soa(scene, o, d, t_max=t_max)
+            occluded = h.valid[:n]
+            hit = (h.t[n:], h.prim[n:], h.u[n:], h.v[n:], h.valid[n:])
             return occluded, hit
 
     return intersect_fn, occlude_fn, fused_fn

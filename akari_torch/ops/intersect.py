@@ -1,9 +1,16 @@
 """Ray-scene intersection on V3 rays (``akari_tpu/ops/intersect.py``).
 
-Two interchangeable backends behind ``intersect_soa`` / ``occlude_soa``:
+Three interchangeable backends behind ``intersect_soa`` / ``occlude_soa``:
 
 - ``dense``: the hand-written CUDA all-pairs kernel on CUDA tensors, its
   plain PyTorch version on CPU tensors (ops/dense_intersect.py);
+- ``tree``: the hand-written CUDA BVH2 tree walk on CUDA tensors, its
+  plain PyTorch walk on CPU tensors (ops/tree_intersect.py); the route of
+  ``pallas_intersect.intersect_pallas_soa`` for flat scenes above
+  ``DENSE_MAX_TRIS``. The reference sorts the rays by a coherence key
+  first (its tiles share one walk); the port's walk is per ray and the
+  sort did not pay for itself on the H100 (PERF.md), so the route
+  launches on the rays as they come;
 - ``brute``: the reference's all-pairs oracle, tiled over triangles, for
   CPU tensors only.
 
@@ -19,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.vecmath import cross, dot
-from . import dense_intersect
+from . import dense_intersect, tree_intersect
 from .dense_intersect import HIT_EPS, T_MAX
 
 
@@ -64,7 +71,7 @@ def brute_closest(scene, o, d, t_min, t_max, tri_chunk=2048):
     if o.is_cuda:
         raise ValueError(
             "the brute intersector is the CPU oracle; compile with "
-            "intersector='dense' for CUDA tensors"
+            "intersector='auto', 'dense' or 'tree' for CUDA tensors"
         )
     n = o.shape[0]
     best_t = torch.clamp(t_max, max=float(T_MAX)).to(torch.float32)
@@ -106,6 +113,17 @@ def _limits(o3, t_min, t_max):
     return t_min, t_max
 
 
+def _tree_query(scene, o3, d3, t_min, t_max, any_hit):
+    """Pack the rays and walk the tree (closest: (t, u, v, prim))."""
+    if scene.tri_tree is None:
+        raise ValueError("intersector 'tree' needs a scene compiled with its tree")
+    rays = dense_intersect.pack_rays(o3, d3, t_min, t_max).detach().contiguous()
+    args = (scene.tri_tree, scene.tree_tris, scene.tree_leaf_span)
+    if any_hit:
+        return tree_intersect.any_hit(rays, *args)
+    return tree_intersect.closest(rays, *args)
+
+
 @torch.no_grad()
 def intersect_soa(scene, o3, d3, t_min=None, t_max=None):
     """Closest-hit query on V3 rays -> HitSoA. Gradients detached."""
@@ -114,6 +132,9 @@ def intersect_soa(scene, o3, d3, t_min=None, t_max=None):
         o = o3.stack().detach()
         d = d3.stack().detach()
         return HitSoA(*brute_closest(scene, o, d, t_min, t_max))
+    if scene.intersector == "tree":
+        t, u, v, prim = _tree_query(scene, o3, d3, t_min, t_max, False)
+        return HitSoA(t, prim, u, v, prim >= 0)
     rays = dense_intersect.pack_rays(o3, d3, t_min, t_max).detach()
     t, u, v, prim = dense_intersect.closest(rays, scene.prim_table.detach())
     return HitSoA(t, prim, u, v, prim >= 0)
@@ -127,5 +148,7 @@ def occlude_soa(scene, o3, d3, t_min, t_max):
         o = o3.stack().detach()
         d = d3.stack().detach()
         return brute_closest(scene, o, d, t_min, t_max)[4]
+    if scene.intersector == "tree":
+        return _tree_query(scene, o3, d3, t_min, t_max, True)
     rays = dense_intersect.pack_rays(o3, d3, t_min, t_max).detach()
     return dense_intersect.any_hit(rays, scene.prim_table.detach())

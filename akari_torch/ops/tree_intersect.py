@@ -1,0 +1,311 @@
+"""BVH2 tree-walk ray-triangle intersection: CUDA kernel and plain twin.
+
+Counterpart of ``akari_tpu/ops/pallas_tree.py::run_tree`` (the TPU kernel
+``_tree_kernel``) for flat scenes above ``DENSE_MAX_TRIS``. The kernel is
+``kernels/csrc/tree_intersect.cu``, one thread per ray with its own ref
+stack; its note says what bounds it on the H100 and what its design does
+about that. The plain PyTorch version lives beside it here: the same walk
+over the same tables, vectorized over rays.
+
+``closest(rays, nodes, tris, leaf_span)`` and ``any_hit(...)`` take
+
+- ``rays``: ``[8, N]`` float32, rows ox oy oz dx dy dz tmin tmax;
+- ``nodes``: ``[Nn, 16]`` float32, ``bvh/cluster_tree.build_cluster_tree``;
+- ``tris``: ``[T, 12]`` float32, ``bvh/cluster_tree.tree_tris`` (cluster k
+  is rows ``128 k .. 128 k + 127``, the last one cut at T);
+- ``leaf_span``: clusters per leaf block.
+
+On CUDA tensors they launch the kernel or raise; on CPU tensors they run
+the plain version. There is no fallback from one to the other.
+``LAUNCHES`` counts kernel launches per variant.
+
+Closest hit takes ``t < best_t or (t == best_t and prim < best_prim)``,
+so ties go to the lowest triangle index whatever order leaves are
+visited in (the dense kernel's answer; the Pallas walk keeps the first
+cluster its tile visits, a divergence recorded in ROADMAP Queue 3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..bvh.cluster_tree import STACK_DEPTH, TRI_TILE
+from .dense_intersect import HIT_EPS, T_MAX
+
+DIR_EPS = 1e-12
+
+# Kernel launches since the last reset, per variant (CUDA tensors only).
+LAUNCHES = {"closest": 0, "any_hit": 0}
+
+# Rays walked together by the plain version (bounds its [chunk, 64] stack).
+PLAIN_RAYS_PER_CHUNK = 1 << 18
+# Ray x triangle pairs per leaf sub-batch of the plain version.
+PLAIN_LEAF_PAIRS = 1 << 21
+
+_LIB = "tree_intersect"
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------ plain twin ----------------------------------
+
+def _safe_inv(c):
+    s = torch.where(
+        torch.abs(c) < DIR_EPS,
+        torch.where(c < 0, -DIR_EPS, DIR_EPS).to(c.dtype), c,
+    )
+    return 1.0 / s
+
+
+def _slab(box, o, inv, tmin, best_t):
+    """[L, 6] boxes (lo.xyz hi.xyz) x per-ray [L] terms -> [L] bool, in
+    the operation order of ``pallas_tree.py`` ``slab_mask``."""
+    t0 = [(box[:, a] - o[a]) * inv[a] for a in range(3)]
+    t1 = [(box[:, 3 + a] - o[a]) * inv[a] for a in range(3)]
+    mn = [torch.minimum(t0[a], t1[a]) for a in range(3)]
+    mx = [torch.maximum(t0[a], t1[a]) for a in range(3)]
+    near = torch.maximum(torch.maximum(mn[0], mn[1]), torch.maximum(mn[2], tmin))
+    far = torch.minimum(torch.minimum(mx[0], mx[1]), torch.minimum(mx[2], best_t))
+    return (near <= far) & (best_t > tmin)
+
+
+def _leaf_mt(o, d, tmin, tri_rows):
+    """Per-ray o/d/tmin [L] x [L, C, 12] triangle rows -> (ok, t, u, v)
+    [L, C], in the operation order of ``_pairwise_mt_t`` (``ok`` leaves
+    out the comparison against the running best t)."""
+    ox, oy, oz = (a[:, None] for a in o)
+    dx, dy, dz = (a[:, None] for a in d)
+    v0x, v0y, v0z = tri_rows[..., 0], tri_rows[..., 1], tri_rows[..., 2]
+    e1x, e1y, e1z = tri_rows[..., 3], tri_rows[..., 4], tri_rows[..., 5]
+    e2x, e2y, e2z = tri_rows[..., 6], tri_rows[..., 7], tri_rows[..., 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / torch.where(torch.abs(det) < HIT_EPS, 1.0, det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = (
+        (torch.abs(det) >= HIT_EPS)
+        & (u >= 0.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t > tmin[:, None])
+    )
+    return ok, t, u, v
+
+
+def _walk(rays, nodes, tris, leaf_span, any_hit):
+    """The kernel's walk, vectorized over one chunk of rays: every ray
+    with a non-empty stack pops one ref per step."""
+    dev = rays.device
+    n = rays.shape[1]
+    n_tris = tris.shape[0]
+    n_cl = (n_tris + TRI_TILE - 1) // TRI_TILE
+    o = [rays[0], rays[1], rays[2]]
+    d = [rays[3], rays[4], rays[5]]
+    tmin, tmax = rays[6], rays[7]
+    inv = [_safe_inv(c) for c in d]
+    neg = torch.stack([c < 0 for c in d], dim=1)  # [n, 3]
+    best_t = tmax.clone() if any_hit else torch.clamp(tmax, max=T_MAX)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)  # the root, ref 0
+    col = torch.arange(TRI_TILE, device=dev)
+    leaf_rays = max(1, PLAIN_LEAF_PAIRS // TRI_TILE)
+    while True:
+        live = (sp > 0) & ~occ
+        idx = live.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        sp[idx] -= 1
+        ref = stack[idx, sp[idx]]
+        inner = ref >= 0
+
+        ii, rr = idx[inner], ref[inner]
+        if ii.numel():
+            row = nodes[rr]
+            oi = [a[ii] for a in o]
+            vi = [a[ii] for a in inv]
+            bt, tm = best_t[ii], tmin[ii]
+            h0 = _slab(row[:, 0:6], oi, vi, tm, bt)
+            h1 = _slab(row[:, 6:12], oi, vi, tm, bt)
+            c0, c1 = row[:, 12].long(), row[:, 13].long()
+            flip = neg[ii, row[:, 14].long()]
+            near_r, far_r = torch.where(flip, c1, c0), torch.where(flip, c0, c1)
+            near_h, far_h = torch.where(flip, h1, h0), torch.where(flip, h0, h1)
+            p = sp[ii]
+            stack[ii[far_h], p[far_h]] = far_r[far_h]  # far first: near pops first
+            p = p + far_h
+            stack[ii[near_h], p[near_h]] = near_r[near_h]
+            sp[ii] = p + near_h
+
+        blk = -ref[~inner] - 1
+        li_all = idx[~inner]
+        for j in range(leaf_span):
+            k_all = blk * leaf_span + j
+            keep = k_all < n_cl
+            for s in range(0, int(keep.sum()), leaf_rays):
+                li = li_all[keep][s:s + leaf_rays]
+                k = k_all[keep][s:s + leaf_rays]
+                rows = k[:, None] * TRI_TILE + col          # [L, 128]
+                real = rows < n_tris                        # real-count guard
+                tri_rows = tris[torch.clamp(rows, max=n_tris - 1)]
+                ok, t, u, v = _leaf_mt(
+                    [a[li] for a in o], [a[li] for a in d], tmin[li], tri_rows
+                )
+                ok = ok & real
+                if any_hit:
+                    occ[li] |= (ok & (t < best_t[li][:, None])).any(dim=1)
+                    continue
+                # lexicographic minimum of (t, prim) over the leaf's hits,
+                # then the tie rule against the running best
+                t_m = torch.where(ok, t, float("inf"))
+                t_leaf = t_m.min(dim=1).values
+                first = torch.where(ok & (t_m == t_leaf[:, None]), col, TRI_TILE)
+                jj = first.min(dim=1).values
+                found = jj < TRI_TILE
+                jc = torch.clamp(jj, max=TRI_TILE - 1)[:, None]
+                prim = k * TRI_TILE + jj
+                bt, bp = best_t[li], best_prim[li]
+                take = found & ((t_leaf < bt) | ((t_leaf == bt) & (prim < bp)))
+                best_t[li] = torch.where(take, t_leaf, bt)
+                best_u[li] = torch.where(take, u.gather(1, jc)[:, 0], best_u[li])
+                best_v[li] = torch.where(take, v.gather(1, jc)[:, 0], best_v[li])
+                best_prim[li] = torch.where(take, prim, bp)
+    if any_hit:
+        return occ
+    valid = best_prim >= 0
+    t_out = torch.where(valid, best_t, T_MAX)
+    return t_out, best_u, best_v, best_prim.to(torch.int32)
+
+
+def _chunked_walk(rays, nodes, tris, leaf_span, any_hit):
+    step = PLAIN_RAYS_PER_CHUNK
+    return [
+        _walk(rays[:, s:s + step], nodes, tris, leaf_span, any_hit)
+        for s in range(0, max(rays.shape[1], 1), step)
+    ]
+
+
+def closest_plain(rays, nodes, tris, leaf_span=1):
+    """Plain version of the closest-hit kernel -> (t, u, v, prim int32)."""
+    parts = _chunked_walk(rays, nodes, tris, leaf_span, False)
+    return tuple(torch.cat(cols) for cols in zip(*parts))
+
+
+def any_hit_plain(rays, nodes, tris, leaf_span=1):
+    """Plain version of the any-hit kernel -> [N] bool occluded."""
+    return torch.cat(_chunked_walk(rays, nodes, tris, leaf_span, True))
+
+
+# ------------------------------ CUDA wrapper --------------------------------
+
+def _check(rays, nodes, tris, leaf_span):
+    ts = (rays, nodes, tris)
+    if not all(isinstance(x, torch.Tensor) for x in ts):
+        raise TypeError("rays, nodes and tris must be tensors")
+    if len({x.device for x in ts}) != 1:
+        raise ValueError(
+            f"rays on {rays.device}, nodes on {nodes.device}, tris on {tris.device}"
+        )
+    if any(x.dtype != torch.float32 for x in ts):
+        raise TypeError(
+            "expected float32 rays, nodes and tris, got "
+            f"{rays.dtype}, {nodes.dtype}, {tris.dtype}"
+        )
+    if rays.dim() != 2 or rays.shape[0] != 8:
+        raise ValueError(f"rays must be [8, N], got {tuple(rays.shape)}")
+    if nodes.dim() != 2 or nodes.shape[1] != 16 or nodes.shape[0] == 0:
+        raise ValueError(f"nodes must be [Nn>0, 16], got {tuple(nodes.shape)}")
+    if tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] == 0:
+        raise ValueError(f"tris must be [T>0, 12], got {tuple(tris.shape)}")
+    if tris.shape[0] >= 2 ** 31 - TRI_TILE:
+        raise ValueError("too many triangles for int32 prim ids")
+    if int(leaf_span) < 1:
+        raise ValueError(f"leaf_span must be >= 1, got {leaf_span}")
+    if rays.is_cuda:
+        if not all(x.is_contiguous() for x in ts):
+            raise ValueError("the CUDA kernel needs contiguous rays, nodes and tris")
+        if nodes.data_ptr() % 16 or tris.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned nodes and tris")
+
+
+def _lib():
+    from ..kernels.build import load
+
+    lib = load(_LIB)
+    if not getattr(lib, "_akr_typed", False):
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.akr_tree_closest.argtypes = [
+            vp, i64, vp, vp, i32, i32, vp, vp, vp, vp, i32, vp,
+        ]
+        lib.akr_tree_closest.restype = i32
+        lib.akr_tree_anyhit.argtypes = [vp, i64, vp, vp, i32, i32, vp, i32, vp]
+        lib.akr_tree_anyhit.restype = i32
+        lib._akr_typed = True
+    return lib
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def closest(rays, nodes, tris, leaf_span=1):
+    """Closest hit -> (t [N] f32, u [N] f32, v [N] f32, prim [N] int32).
+
+    A miss gives prim -1, t = T_MAX, u = v = 0."""
+    _check(rays, nodes, tris, leaf_span)
+    if not rays.is_cuda:
+        return closest_plain(rays, nodes, tris, leaf_span)
+    n = rays.shape[1]
+    dev = rays.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, u, v, prim
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().akr_tree_closest(
+        rays.data_ptr(), n, nodes.data_ptr(), tris.data_ptr(), tris.shape[0],
+        int(leaf_span), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+        prim.data_ptr(), dev.index, stream,
+    )
+    _raise_on(err, "tree closest-hit")
+    LAUNCHES["closest"] += 1
+    return t, u, v, prim
+
+
+def any_hit(rays, nodes, tris, leaf_span=1):
+    """Any hit in (t_min, t_max) -> [N] bool occluded."""
+    _check(rays, nodes, tris, leaf_span)
+    if not rays.is_cuda:
+        return any_hit_plain(rays, nodes, tris, leaf_span)
+    n = rays.shape[1]
+    dev = rays.device
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().akr_tree_anyhit(
+        rays.data_ptr(), n, nodes.data_ptr(), tris.data_ptr(), tris.shape[0],
+        int(leaf_span), occ.data_ptr(), dev.index, stream,
+    )
+    _raise_on(err, "tree any-hit")
+    LAUNCHES["any_hit"] += 1
+    return occ

@@ -20,6 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..bvh.cluster_tree import tree_tris
+
 # Material kinds (ref: Material variant, kernel/material.h:249)
 MAT_DIFFUSE = 0
 MAT_GLOSSY = 1
@@ -124,8 +126,16 @@ class SceneArrays:
     pad(26:32). Its first nine columns are also the dense kernel's
     triangle rows.
 
-    The reference's cluster/tree tables (slice 2), instancing tables
-    (slice 3) and environment light (slice 4) have no fields yet.
+    Tree-walk tables (``bvh/cluster_tree.py``), built at compile for
+    scenes above DENSE_MAX_TRIS (4096) triangles or on request, else None:
+    tri_clusters: [Kpad, 8] cluster AABBs over 128-triangle runs (the
+    reference's array); tri_tree: [Nn, 16] BVH2 node rows over
+    tree_leaf_span-cluster blocks (the reference's array); tree_tris:
+    [T, 12] triangle store of the tree kernel (v0 e1 e2, 3 pad floats),
+    which walks faster over these 48 B rows than over prim_table's 128 B.
+
+    The reference's instancing tables (slice 3) and environment light
+    (slice 4) have no fields yet.
     """
 
     tri_v0: torch.Tensor    # [T, 3]
@@ -140,9 +150,16 @@ class SceneArrays:
     bvh: BVHArrays = None
     prim_table: torch.Tensor = None    # [T, 32] float32
     prim_to_orig: torch.Tensor = None  # [T] int32 storage slot -> original tri
+    tri_clusters: torch.Tensor = None  # [Kpad, 8] float32
+    tri_tree: torch.Tensor = None      # [Nn, 16] float32
+    tree_tris: torch.Tensor = None     # [T, 12] float32
+    tree_leaf_span: int = 1
     n_tris: int = 0
     n_materials: int = 0
-    intersector: str = "dense"  # "dense" | "brute"
+    intersector: str = "dense"  # "dense" | "tree" | "brute"
+    # host seconds of compile_scene: "bvh" (storage order), "tree"
+    # (cluster boxes + BVH2) and "total"; None when built otherwise
+    compile_seconds: dict = None
 
     @property
     def device(self):
@@ -184,6 +201,10 @@ def from_numpy_scene(obj, intersector="dense"):
     """Reference-shaped compiled scene (arrays under the reference's
     ``SceneArrays`` attribute names) -> the port's CPU ``SceneArrays``.
 
+    The tree tables are carried when ``obj.tri_tree`` is set (the
+    reference builds them above DENSE_MAX_TRIS); ``tree_tris`` is made
+    from ``tri_v0/e1/e2``.
+
     Flat scenes with constant textures and no environment only; anything
     else raises ``NotImplementedError`` naming the slice that adds it.
     """
@@ -195,6 +216,9 @@ def from_numpy_scene(obj, intersector="dense"):
     if bool(tex.has_images):
         raise NotImplementedError("image textures arrive with slice 4")
     bvh = getattr(obj, "bvh", None)
+    tree = getattr(obj, "tri_tree", None)
+    if intersector == "tree" and tree is None:
+        raise ValueError("intersector 'tree' needs the scene's tri_tree table")
     return SceneArrays(
         tri_v0=_t(obj.tri_v0, np.float32),
         tri_e1=_t(obj.tri_e1, np.float32),
@@ -234,6 +258,12 @@ def from_numpy_scene(obj, intersector="dense"):
         ),
         prim_table=_t(obj.prim_table, np.float32),
         prim_to_orig=_t(obj.prim_to_orig, np.int32),
+        tri_clusters=None if tree is None else _t(obj.tri_clusters, np.float32),
+        tri_tree=_t(tree, np.float32),
+        tree_tris=None if tree is None else torch.from_numpy(
+            tree_tris(obj.tri_v0, obj.tri_e1, obj.tri_e2)
+        ),
+        tree_leaf_span=int(getattr(obj, "tree_leaf_span", 1) or 1),
         n_tris=int(obj.n_tris),
         n_materials=int(obj.n_materials),
         intersector=intersector,

@@ -1,4 +1,5 @@
-"""Built-in scenes: the Cornell box (``akari_tpu/scene/builtin.py``).
+"""Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box and
+the procedural terrain.
 
 The Cornell box asset (scenes/cornell_box/) is the public-domain data set
 by Guedis Cardenas and Morgan McGuire (Williams College, 2011).
@@ -31,6 +32,58 @@ def cornell_box(width=256, height=256, fov_deg=15.0):
     c2w = xform.translate((0.0, 1.0, 9.0))  # identity rotation, looks down -Z
     cam = make_camera(c2w, fov_deg, width, height)
     return Scene(shapes=[mesh], camera=cam)
+
+
+def terrain_mesh(n=512, seed=0):
+    """Procedural heightfield: (n-1)^2 quads -> 2*(n-1)^2 triangles.
+
+    The large-scene workload (n=512 -> 522,242 triangles, n=1024 ->
+    2,093,058). Deterministic: a fixed sum-of-sines displacement plus
+    seeded jitter.
+    """
+    r = np.random.default_rng(seed)
+    xs = np.linspace(-1.0, 1.0, n, dtype=np.float64)
+    zs = np.linspace(-1.0, 1.0, n, dtype=np.float64)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    Y = 0.22 * (
+        np.sin(3.1 * np.pi * X) * np.cos(2.3 * np.pi * Z)
+        + 0.55 * np.sin(7.9 * np.pi * X + 1.1) * np.sin(6.1 * np.pi * Z)
+        + 0.3 * np.cos(13.0 * np.pi * (X + Z))
+    ) + 0.35
+    Y += 0.01 * r.standard_normal(Y.shape)
+    verts = np.stack([X, Y, Z], axis=-1).reshape(-1, 3).astype(np.float32)
+
+    i = np.arange(n - 1)
+    jj, ii = np.meshgrid(i, i, indexing="ij")
+    a = (ii * n + jj).ravel()
+    b = a + 1
+    c = a + n
+    d = c + 1
+    idx = np.concatenate(
+        [np.stack([a, c, b], axis=-1), np.stack([b, c, d], axis=-1)]
+    ).astype(np.int64)
+
+    white = DiffuseMaterial((0.73, 0.71, 0.68))
+    return Mesh(vertices=verts, indices=idx, materials=[white],
+                material_ids=np.zeros(idx.shape[0], np.int64))
+
+
+def terrain_scene(width=256, height=256, n=512):
+    """Terrain + overhead area light; camera looks down at the relief."""
+    terrain = terrain_mesh(n)
+    light = EmissiveMaterial((14.0, 13.0, 11.0))
+    lq = _quad((-0.5, 2.4, 0.5), (-0.5, 2.4, -0.5),
+               (0.5, 2.4, -0.5), (0.5, 2.4, 0.5))
+    lverts = np.stack(lq).reshape(-1, 3)
+    lmesh = Mesh(
+        vertices=lverts,
+        indices=np.arange(6, dtype=np.int64).reshape(-1, 3),
+        materials=[light],
+        material_ids=np.zeros(2, np.int64),
+    )
+    c2w = xform.look_at((1.6, 1.9, 2.3), (0.0, 0.25, 0.0))
+    cam = make_camera(c2w, 40.0, width, height)
+    return Scene(shapes=[terrain, lmesh], camera=cam)
 
 
 def _quad(p0, p1, p2, p3):

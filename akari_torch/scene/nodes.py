@@ -9,13 +9,20 @@ emissive triangles become the light table with a power CDF, and the
 The compile runs on the host in NumPy and returns CPU tensors; call
 ``.to(device)`` on the result to move it.
 
-Intersector names of the port: ``"auto"`` and ``"dense"`` both select the
-dense intersector (the CUDA kernel on CUDA tensors, its plain PyTorch
-version on CPU tensors); ``"brute"`` selects the all-pairs CPU oracle.
+Intersector names of the port: ``"dense"`` selects the dense all-pairs
+intersector and ``"tree"`` the BVH2 tree walk (each the CUDA kernel on CUDA
+tensors, its plain PyTorch version on CPU tensors); ``"auto"`` resolves
+to ``"dense"`` at or under DENSE_MAX_TRIS (4096) storage triangles and to
+``"tree"`` above, the reference's route (``pallas_intersect.py:381-385``)
+without its TPU backend gate and TPU ceilings; ``"brute"`` selects the
+all-pairs CPU oracle. The tree tables are built for every scene above
+DENSE_MAX_TRIS, as the reference builds them, and for ``"tree"`` at any
+size.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Optional
@@ -23,6 +30,7 @@ from typing import Optional
 import numpy as np
 
 from ..bvh.build import build_bvh
+from ..bvh.cluster_tree import build_cluster_tree, build_clusters
 from ..core.distribution import build_cdf
 from ..core.spectrum import luminance
 from .arrays import (
@@ -36,7 +44,18 @@ from .arrays import (
     from_numpy_scene,
 )
 
-INTERSECTORS = {"auto": "dense", "dense": "dense", "brute": "brute"}
+INTERSECTORS = ("auto", "dense", "tree", "brute")
+
+# Above this many storage triangles "auto" takes the tree walk
+# (``akari_tpu/ops/pallas_intersect.py:250``).
+DENSE_MAX_TRIS = 4096
+
+
+def resolve_intersector(intersector, n_tris):
+    """"auto" -> "dense" at or under DENSE_MAX_TRIS triangles, else "tree"."""
+    if intersector != "auto":
+        return intersector
+    return "dense" if n_tris <= DENSE_MAX_TRIS else "tree"
 
 
 # --------------------------------------------------------------------------
@@ -282,9 +301,10 @@ def _texture_mean(texs, tex_idx):
 
 def compile_scene(shapes, intersector="auto", environment=None):
     """Merge meshes, build materials/lights/BVH -> CPU ``SceneArrays``."""
+    t_start = time.perf_counter()
     if intersector not in INTERSECTORS:
         raise ValueError(
-            f"intersector {intersector!r}: expected one of {sorted(INTERSECTORS)}"
+            f"intersector {intersector!r}: expected one of {list(INTERSECTORS)}"
         )
     if environment is not None:
         raise NotImplementedError("environment lights arrive with slice 4")
@@ -312,7 +332,9 @@ def compile_scene(shapes, intersector="auto", environment=None):
     top_ids = np.asarray([mats.ids[id(m)] for m in global_materials], np.int32)
     face_mat = top_ids[mid]
 
+    t_bvh = time.perf_counter()
     bvh, order = build_bvh(p[:, 0], p[:, 1], p[:, 2])
+    t_bvh = time.perf_counter() - t_bvh
     order = np.asarray(order, np.int64)
     n_orig = p.shape[0]
     # With SBVH spatial splits a triangle may occupy several storage slots.
@@ -361,8 +383,19 @@ def compile_scene(shapes, intersector="auto", environment=None):
             n_lights=0,
         )
 
-    # Fat shading table: all per-hit attributes behind ONE row gather.
     t_count = v0.shape[0]
+    intersector = resolve_intersector(intersector, t_count)
+    # Cluster boxes and the BVH2 over them (the tree walk's tables), built
+    # past the dense sweep's break-even as the reference builds them.
+    tri_clusters = tri_tree = None
+    tree_leaf_span = 1
+    t_tree = time.perf_counter()
+    if t_count > DENSE_MAX_TRIS or intersector == "tree":
+        tri_clusters = build_clusters(v0, e1, e2)
+        tri_tree, tree_leaf_span = build_cluster_tree(tri_clusters, t_count)
+    t_tree = time.perf_counter() - t_tree
+
+    # Fat shading table: all per-hit attributes behind ONE row gather.
     light_sel_pdf = np.where(
         lights.tri_to_light >= 0,
         np.asarray(lights.pdf)[np.maximum(lights.tri_to_light, 0)],
@@ -384,7 +417,14 @@ def compile_scene(shapes, intersector="auto", environment=None):
         bvh=SimpleNamespace(**bvh),
         prim_table=prim_table,
         prim_to_orig=order.astype(np.int32),
+        tri_clusters=tri_clusters,
+        tri_tree=tri_tree,
+        tree_leaf_span=tree_leaf_span,
         n_tris=int(v0.shape[0]),
         n_materials=len(mats.items),
     )
-    return from_numpy_scene(compiled, intersector=INTERSECTORS[intersector])
+    scene = from_numpy_scene(compiled, intersector=intersector)
+    scene.compile_seconds = dict(
+        bvh=t_bvh, tree=t_tree, total=time.perf_counter() - t_start
+    )
+    return scene

@@ -4,8 +4,8 @@ Run on a machine with a CUDA device (no JAX needed):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q
 
-Tolerance: none. The kernel is built with --fmad=false and follows the
-plain version's operation order, so outputs are equal bit for bit.
+Tolerance: none. The kernels are built with --fmad=false and follow their
+plain versions' operation order, so outputs are equal bit for bit.
 """
 
 import pytest
@@ -13,8 +13,10 @@ import torch
 
 from akari_torch.core.v3 import V3
 from akari_torch.integrators.path import PathConfig, trace_paths
+from akari_torch.bvh import cluster_tree as ct
 from akari_torch.ops import dense_intersect as di
-from akari_torch.scene.builtin import cornell_box
+from akari_torch.ops import tree_intersect as ti
+from akari_torch.scene.builtin import cornell_box, terrain_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -22,7 +24,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the dense kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     return torch.device("cuda", 0)
 
 
@@ -90,3 +92,80 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
         di.closest(rays[:, ::2], tris)  # not contiguous
     with pytest.raises(ValueError):
         di.closest(rays, tris.cpu())  # devices differ
+
+
+def _tree_soup(dev, n=20_000, seed=7):
+    """A spatially sorted random soup with exact duplicates in far
+    clusters (they pin the lowest-index tie rule); its tree tables."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    v0 = torch.rand((n, 3), generator=g) * 2 - 1
+    v0 = v0[torch.argsort(v0[:, 0] * 64 + (v0[:, 1] > 0) * 2 + (v0[:, 2] > 0))]
+    e = torch.randn((n, 6), generator=g) * 0.05
+    tris = torch.cat([v0, e], dim=1)
+    tris[n - 300:n - 200] = tris[100:200]        # copies in far clusters
+    tris[n // 2:n // 2 + 50] = tris[n - 50:n]     # copies of later triangles
+    t = tris.numpy()
+    clusters = ct.build_clusters(t[:, 0:3], t[:, 3:6], t[:, 6:9])
+    nodes, span = ct.build_cluster_tree(clusters, n)
+    store = ct.tree_tris(t[:, 0:3], t[:, 3:6], t[:, 6:9])
+    return (tris.to(dev), torch.from_numpy(nodes).to(dev),
+            torch.from_numpy(store).to(dev), span)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 40_000])
+def test_tree_kernel_equals_plain_on_soup(dev, n):
+    tris, nodes, store, span = _tree_soup(dev)
+    rays = _rays(n, dev, seed=n)
+    before = dict(ti.LAUNCHES)
+    got = ti.closest(rays, nodes, store, span)
+    occ = ti.any_hit(rays, nodes, store, span)
+    torch.cuda.synchronize()
+    assert ti.LAUNCHES["closest"] == before["closest"] + 1
+    assert ti.LAUNCHES["any_hit"] == before["any_hit"] + 1
+    want = ti.closest_plain(rays, nodes, store, span)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ti.any_hit_plain(rays, nodes, store, span))
+    assert torch.equal(occ, want[3] >= 0)
+    dense = di.closest_plain(rays, tris)  # the tie rule: lowest index wins
+    assert torch.equal(got[3], dense[3])
+
+
+def test_tree_kernel_equals_plain_on_terrain(dev):
+    scene = terrain_scene(8, 8, n=128).compile().to(dev)
+    assert scene.intersector == "tree"
+    rays = _rays(30_000, dev, seed=9)
+    args = (scene.tri_tree, scene.tree_tris, scene.tree_leaf_span)
+    for a, b in zip(ti.closest(rays, *args), ti.closest_plain(rays, *args)):
+        assert torch.equal(a, b)
+    assert torch.equal(ti.any_hit(rays, *args), ti.any_hit_plain(rays, *args))
+
+
+def test_tree_trace_paths_launches_once_per_query(dev):
+    sc = terrain_scene(16, 16, n=64)
+    scene = sc.compile().to(dev)
+    assert scene.intersector == "tree"
+    cfg = PathConfig(spp=1, max_depth=3)
+    px = torch.arange(16 * 16, device=dev)
+    di.reset_launches()
+    ti.reset_launches()
+    li = trace_paths(scene, sc.camera, cfg, 0, torch.zeros_like(px), px)
+    torch.cuda.synchronize()
+    assert ti.LAUNCHES == {"closest": 1 + cfg.max_depth, "any_hit": 0}
+    assert di.LAUNCHES == {"closest": 0, "any_hit": 0}
+    assert bool(torch.isfinite(li).all())
+
+
+def test_tree_wrapper_refuses_what_the_kernel_cannot_take(dev):
+    _, nodes, store, span = _tree_soup(dev, n=3000)
+    rays = _rays(64, dev)
+    with pytest.raises(ValueError):
+        ti.closest(rays[:, ::2], nodes, store, span)  # not contiguous
+    with pytest.raises(ValueError):
+        ti.closest(rays, nodes.t().contiguous().t(), store, span)
+    with pytest.raises(TypeError):
+        ti.any_hit(rays, nodes.double(), store, span)
+    with pytest.raises(ValueError):
+        ti.any_hit(rays, nodes, store.cpu(), span)  # devices differ
+    with pytest.raises(ValueError):
+        ti.closest(rays, nodes, store.view(-1)[1:1201].view(100, 12), span)  # off 16 B

@@ -208,9 +208,86 @@ def test_unported_scene_state_is_refused():
         cornell_box(4, 4).compile(intersector="pallas")
 
 
-def test_bvh_refuses_native_sized_scenes():
+def _needs_gxx():
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain (g++) for the native BVH builder")
+
+
+@pytest.fixture(scope="module")
+def terrain_pair():
+    """The 32,260-triangle terrain compiled by both packages: above
+    NATIVE_MIN_TRIS, so both take the native builder."""
+    _needs_gxx()
+    from akari_torch.scene.builtin import terrain_scene
+
+    ref = jax.tree_util.tree_map(
+        np.asarray, ref_builtin.terrain_scene(8, 8, n=128).compile(intersector="pallas")
+    )
+    port = terrain_scene(8, 8, n=128).compile()
+    assert port.n_tris == ref.n_tris == 32_260 >= NATIVE_MIN_TRIS
+    return ref, port
+
+
+@pytest.mark.parametrize(
+    "field", ["prim_to_orig", "prim_table", "tri_clusters", "tri_tree", "bvh.first",
+              "bvh.miss", "lights.tri_to_light"],
+)
+def test_native_terrain_compile_equal(terrain_pair, field):
+    ref, port = terrain_pair
+    a, b = _np(_get(port, field)), np.asarray(_get(ref, field))
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(a, b.astype(a.dtype))
+
+
+def test_native_terrain_routes_to_the_tree(terrain_pair):
+    ref, port = terrain_pair
+    assert port.intersector == "tree"
+    assert port.tree_leaf_span == ref.tree_leaf_span == 1
+
+
+def test_native_builder_matches_reference_on_soup():
+    _needs_gxx()
+    from akari_tpu.bvh.build import build_bvh as ref_build_bvh
+
+    r = np.random.default_rng(6)
+    n = NATIVE_MIN_TRIS
+    base = r.uniform(-5, 5, size=(n, 1, 3))
+    tris = (base + r.normal(scale=0.2, size=(n, 3, 3))).astype(np.float32)
+    bvh_p, order_p = build_bvh(tris[:, 0], tris[:, 1], tris[:, 2])
+    bvh_r, order_r = ref_build_bvh(tris[:, 0], tris[:, 1], tris[:, 2], use_native=True)
+    np.testing.assert_array_equal(order_p, order_r)
+    for k in bvh_r:
+        np.testing.assert_array_equal(bvh_p[k], bvh_r[k])
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    """A compiler that fails raises: no fallback to the NumPy builder,
+    which would store the triangles in another order."""
+    from akari_torch.native import loader
+
+    monkeypatch.setattr(loader, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(loader, "CXX_FLAGS", loader.CXX_FLAGS + ["--no-such-flag"])
     p = np.zeros((NATIVE_MIN_TRIS, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(RuntimeError, match="failed"):
+        build_bvh(p, p + np.float32([1, 0, 0]), p + np.float32([0, 1, 0]))
+    monkeypatch.setattr(loader, "CXX", "no-such-compiler-akari")
+    with pytest.raises(RuntimeError, match="not found"):
+        loader.build()
+
+
+def test_native_nonzero_return_raises(monkeypatch):
+    from akari_torch.native import loader
+
+    class _Fake:
+        @staticmethod
+        def akr_bvh_build(*args):
+            return 1
+
+    monkeypatch.setattr(loader, "load", lambda: _Fake)
+    p = np.zeros((NATIVE_MIN_TRIS, 3), np.float32)
+    with pytest.raises(RuntimeError, match="returned 1"):
         build_bvh(p, p, p)
 
 
