@@ -482,6 +482,48 @@ def build_bvh(p0, p1, p2, spatial=True):
     return bvh, order
 
 
+def _aabb_rec(prim, lo, hi, max_leaf, depth=0):
+    node = _Node(lo.min(axis=0), hi.max(axis=0))
+    n = prim.shape[0]
+    if n <= max_leaf or depth >= MAX_DEPTH:
+        node.prims = prim.copy()
+        return node
+    c = (lo + hi) * 0.5
+    children = None
+    if n > 2:
+        obj = _object_split(prim, lo, hi, c)
+        if obj is not None:
+            go_left = obj[1]
+            if go_left.any() and not go_left.all():
+                children = (
+                    (prim[go_left], lo[go_left], hi[go_left]),
+                    (prim[~go_left], lo[~go_left], hi[~go_left]),
+                )
+    if children is None:
+        children = _median_split(prim, lo, hi, c)
+    node.left = _aabb_rec(*children[0], max_leaf, depth + 1)
+    node.right = _aabb_rec(*children[1], max_leaf, depth + 1)
+    return node
+
+
+def build_aabb_bvh(lo, hi, max_leaf=1):
+    """Threaded BVH over boxes: the TLAS over instance world boxes of a
+    two-level scene (``akari_tpu/bvh/build.py::build_aabb_bvh``). Returns
+    (bvh_dict, order); leaf ``first`` indexes ``order`` (box ids). The
+    port's instanced kernels loop over instances in index order and do
+    not walk it; compile keeps it so the tables equal the reference's."""
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    root = _aabb_rec(np.arange(lo.shape[0]), lo, hi, max_leaf)
+    lo_, hi_, first, count, miss, order = _flatten(root)
+    eps = np.float32(1e-6) * np.maximum(1.0, np.abs(lo_) + np.abs(hi_)).astype(np.float32)
+    bvh = dict(
+        node_lo=lo_ - eps, node_hi=hi_ + eps,
+        first=first, count=count, miss=miss,
+    )
+    return bvh, order
+
+
 def _split_fat_leaves(node, tri_lo, tri_hi):
     """Guarantee leaf count <= MAX_LEAF by median-splitting oversized leaves."""
     if node.prims is None:

@@ -1,15 +1,17 @@
-"""Host-side tables of the tree walk: cluster boxes and the BVH2 over them.
+"""Host-side tables of the tree walk and the linear sweeps: cluster and
+supercluster boxes and the BVH2 over clusters.
 
-Counterpart of ``akari_tpu/ops/pallas_cluster.py::build_clusters`` and
-``akari_tpu/ops/pallas_tree.py::{pick_leaf_span, build_cluster_tree,
-_tree_rec, _row_of}``; the arrays are equal to the reference's, array for
-array.
+Counterpart of ``akari_tpu/ops/pallas_cluster.py::{build_clusters,
+build_superclusters}`` and ``akari_tpu/ops/pallas_tree.py::{pick_leaf_span,
+build_cluster_tree, _tree_rec, _row_of}``; the arrays are equal to the
+reference's, array for array.
 
 Hierarchy:
 
-  triangle -> cluster = TRI_TILE (128) consecutive storage-order triangles
-  cluster  -> leaf    = leaf_span consecutive clusters
-  leaf     -> BVH2    = binned-SAH binary tree, one node row per split
+  triangle -> cluster      = TRI_TILE (128) consecutive storage-order triangles
+  cluster  -> leaf         = leaf_span consecutive clusters (tree walk)
+  leaf     -> BVH2         = binned-SAH binary tree, one node row per split
+  cluster  -> supercluster = SUPER (32) consecutive clusters (linear sweeps)
 
 Node row layout ([Nn, 16] float32, ``pallas_tree.py:21-31``):
 
@@ -29,9 +31,13 @@ import numpy as np
 from .build import _object_split
 
 TRI_TILE = 128
-# Clusters per supercluster: only pads the cluster table's row count, as
-# in the reference (the tree walk reads the first ceil(T / 128) rows).
+# Clusters per supercluster (``pallas_cluster.SUPER``): the linear sweeps
+# test one supercluster box before its 32 cluster boxes; the cluster table's
+# row count is padded to a multiple of it, as in the reference.
 SUPER = 32
+# The supercluster table's row count is padded to a multiple of this with
+# inverted boxes (``pallas_cluster.SUPER_CHUNK``), as in the reference.
+SUPER_CHUNK = 128
 # Ref stack entries per ray in the walk (``pallas_tree.STACK_DEPTH``).
 STACK_DEPTH = 64
 # The reference's TPU VMEM budget for the node table, kept so that
@@ -68,6 +74,31 @@ def build_clusters(tri_v0, tri_e1, tri_e2):
     out = np.zeros((kpad, 8), np.float32)
     out[:k, :3] = lo - eps
     out[:k, 3:6] = hi + eps
+    return out
+
+
+def n_superclusters(n_tris):
+    """Real supercluster count: ceil(clusters / SUPER)."""
+    return (n_clusters(n_tris) + SUPER - 1) // SUPER
+
+
+def build_superclusters(clusters, n_tris):
+    """[Spad, 8] supercluster AABBs over SUPER-cluster runs of the real
+    clusters; rows past the real count, up to a SUPER_CHUNK multiple, are
+    inverted boxes (lo = 1e30, hi = -1e30), as in the reference."""
+    cl = np.asarray(clusters, np.float64)
+    k = n_clusters(n_tris)
+    s = n_superclusters(n_tris)
+    lo = np.full((s * SUPER, 3), np.inf)
+    hi = np.full((s * SUPER, 3), -np.inf)
+    lo[:k] = cl[:k, 0:3]
+    hi[:k] = cl[:k, 3:6]
+    spad = ((s + SUPER_CHUNK - 1) // SUPER_CHUNK) * SUPER_CHUNK
+    out = np.zeros((spad, 8), np.float32)
+    out[:, 0:3] = 1e30
+    out[:, 3:6] = -1e30
+    out[:s, :3] = lo.reshape(s, SUPER, 3).min(axis=1)
+    out[:s, 3:6] = hi.reshape(s, SUPER, 3).max(axis=1)
     return out
 
 

@@ -106,6 +106,11 @@ def from_rows(arr, row0=0):
     return V3(arr[row0], arr[row0 + 1], arr[row0 + 2])
 
 
+def from_stack(arr):
+    """[N, 3] -> V3 of its columns."""
+    return V3(arr[..., 0], arr[..., 1], arr[..., 2])
+
+
 def reflect3(w, n):
     """Mirror w about n (both away from surface): -w + 2*dot(w,n)*n."""
     return -w + n * (2.0 * w.dot(n))

@@ -7,11 +7,11 @@ ints. The math and the order of floating-point operations follow the
 reference line for line, so the port draws the same random numbers, hits
 the same triangles and agrees in radiance to float32 rounding.
 
-Intersection: on a flat scene with the dense or the tree intersector,
-each bounce answers its shadow ray and its next extension ray in ONE
-closest-hit launch of 2N rays (shadow rays bounded by ``t_max``), as
-the reference does for every flat Pallas scene, so a
-``trace_paths`` call launches the kernel exactly ``1 + max_depth`` times.
+Intersection: with the dense or the tree intersector (flat or two-level
+scenes), each bounce answers its shadow ray and its next extension ray in
+ONE closest-hit launch of 2N rays (shadow rays bounded by ``t_max``), as
+the reference does for every Pallas scene, so a ``trace_paths`` call
+launches the kernel exactly ``1 + max_depth`` times.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ import torch
 
 from .. import sampling
 from ..core import rng
-from ..core.v3 import V3, from_rows, v3where
+from ..core.v3 import V3, from_rows, from_stack, v3where
 from ..ops.intersect import T_MAX, intersect_soa, occlude_soa
+from ..scene import geom
 from ..shading import soa
 
 RAY_EPS = 1e-4
@@ -97,21 +98,37 @@ def camera_rays_soa(camera, seed, sample_idx, pixel_idx):
 
 
 def _vertex_data(scene, prim, bu, bv):
-    """Gather all hit-surface attributes for [N] prim ids + [N] barys from
-    ONE row gather of ``scene.prim_table`` (flat scenes).
+    """Gather all hit-surface attributes for [N] prim ids + [N] barys:
+    ONE row gather of ``scene.prim_table`` on a flat scene; on a two-level
+    scene, virtual ids decoded and prototype geometry moved to world space
+    (scene/geom.py).
 
     Returns a dict of V3/[N]: p, ng, ns, uv_u, uv_v, mat_id, e1, e2,
     light_pdf (the hit triangle's NEE selection pmf; 0 for non-lights).
     """
     pid = torch.clamp(prim, min=0)
-    fat = soa.gather_rows_t(scene.prim_table, pid)
-    v0, e1, e2 = from_rows(fat, 0), from_rows(fat, 3), from_rows(fat, 6)
-    n0, n1, n2 = from_rows(fat, 9), from_rows(fat, 12), from_rows(fat, 15)
-    uv0u, uv0v, uv1u, uv1v, uv2u, uv2v = (
-        fat[18], fat[19], fat[20], fat[21], fat[22], fat[23]
-    )
-    mat_id = fat[24].to(torch.int32)
-    light_pdf = fat[25]
+    if scene.instances is None:
+        fat = soa.gather_rows_t(scene.prim_table, pid)
+        v0, e1, e2 = from_rows(fat, 0), from_rows(fat, 3), from_rows(fat, 6)
+        n0, n1, n2 = from_rows(fat, 9), from_rows(fat, 12), from_rows(fat, 15)
+        uv0u, uv0v, uv1u, uv1v, uv2u, uv2v = (
+            fat[18], fat[19], fat[20], fat[21], fat[22], fat[23]
+        )
+        mat_id = fat[24].to(torch.int32)
+        light_pdf = fat[25]
+    else:
+        v0, e1, e2 = (from_stack(a) for a in geom.tri_world(scene, pid))
+        ns_c = geom.normals_world(scene, pid)  # [N, 3, 3]
+        n0, n1, n2 = (from_stack(ns_c[:, c]) for c in range(3))
+        uv_c = geom.uvs_of_prim(scene, pid)  # [N, 3, 2]
+        uv0u, uv0v = uv_c[:, 0, 0], uv_c[:, 0, 1]
+        uv1u, uv1v = uv_c[:, 1, 0], uv_c[:, 1, 1]
+        uv2u, uv2v = uv_c[:, 2, 0], uv_c[:, 2, 1]
+        mat_id = geom.mat_of_prim(scene, pid)
+        li = geom.light_of_prim(scene, pid)
+        light_pdf = torch.where(
+            li >= 0, scene.lights.pdf.index_select(0, torch.clamp(li, min=0)), 0.0
+        )
     p = v0 + e1 * bu + e2 * bv
     ng = e1.cross(e2).normalized(eps=1e-20)
     w0 = 1.0 - bu - bv
@@ -130,7 +147,8 @@ def _intersectors_soa(scene):
     """(intersect_fn, occlude_fn, fused_fn) for the scene's intersector.
 
     ``fused_fn`` answers a bounce's shadow rays and its extension rays in
-    a single closest-hit query (dense and tree intersectors)."""
+    a single closest-hit query (dense and tree intersectors, two-level
+    scenes included)."""
 
     def intersect_fn(o, d):
         h = intersect_soa(scene, o, d)

@@ -3,7 +3,8 @@
 Each kernel source under ``kernels/csrc`` has a plain C interface. It is
 compiled by ``nvcc`` into a shared library under
 ``build/akari_torch_kernels/<hash>/`` at the repository root, keyed by a
-hash of the source and the flags, and loaded with ``ctypes``. Nothing is
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, and
+loaded with ``ctypes``. Nothing is
 built at import time: the CPU tests import every module without ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``--fmad=false`` so that float
@@ -59,8 +60,11 @@ def find_nvcc():
 
 def _library_path(name):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     key = digest.hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, key, f"lib{name}.so")
 

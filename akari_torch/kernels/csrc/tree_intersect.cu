@@ -28,11 +28,6 @@
 //     visits first; a stated divergence, ROADMAP Queue 3.) A miss gives
 //     prim -1, t = T_MAX, u = v = 0.
 //   any-hit: 1 at the first triangle hit in (t_min, t_max), else 0.
-// A ray with a NaN component never hits (every Moller-Trumbore test fails),
-// so fmaxf/fminf in the slab test, which drop NaNs where the reference's
-// maximum/minimum keep them, change which boxes such a ray enters but
-// never an output.
-//
 // Design. The TPU kernel walks a 512-ray tile with one scalar stack in
 // SMEM, per-128-ray subtile masks and a 1-deep leaf DMA pipeline: answers
 // to VMEM and lane constraints Hopper does not have. Here each thread owns
@@ -45,7 +40,9 @@
 // makes the kernel 14-16 % faster at the fused launch (PERF.md).
 //
 // Arithmetic. Built with --fmad=false and IEEE division, so the kernel
-// equals its plain PyTorch version (ops/tree_intersect.py) bit for bit.
+// equals its plain PyTorch version (ops/tree_intersect.py) bit for bit. The
+// slab and Moller-Trumbore tests are ray_common.cuh's, shared with the
+// instanced and linear cluster kernels.
 //
 // What bounds it on the H100. Leaves are 128-triangle clusters, so a ray
 // spends most of its time in dense Moller-Trumbore work (~40 float ops per
@@ -56,43 +53,11 @@
 // shared through L1/L2 by the rays of a warp that enter it. A per-cluster
 // sub-tree, wide nodes and persistent threads are later work.
 
-#include <cuda_runtime.h>
+#include "ray_common.cuh"
 
 namespace {
 
-constexpr int BLOCK = 128;         // threads (rays) per block
-constexpr int STACK_DEPTH = 64;    // refs per ray (cluster_tree.STACK_DEPTH)
-constexpr int TRI_TILE = 128;      // triangles per cluster
-constexpr float HIT_EPS = 1e-9f;
-constexpr float T_MAX = 1e30f;
-constexpr float DIR_EPS = 1e-12f;
-
-__device__ __forceinline__ float safe_inv(float c) {
-  const float s = fabsf(c) < DIR_EPS ? (c < 0.f ? -DIR_EPS : DIR_EPS) : c;
-  return 1.0f / s;
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tmin;
-  float ix, iy, iz;
-};
-
-// pallas_tree.py slab_mask, per ray
-__device__ __forceinline__ bool slab(const Ray& r, float lx, float ly,
-                                     float lz, float hx, float hy, float hz,
-                                     float best_t) {
-  const float t0x = (lx - r.ox) * r.ix;
-  const float t1x = (hx - r.ox) * r.ix;
-  const float t0y = (ly - r.oy) * r.iy;
-  const float t1y = (hy - r.oy) * r.iy;
-  const float t0z = (lz - r.oz) * r.iz;
-  const float t1z = (hz - r.oz) * r.iz;
-  const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), r.tmin));
-  const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fminf(fmaxf(t0z, t1z), best_t));
-  return (near <= far) && (best_t > r.tmin);
-}
+using namespace akr;
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(BLOCK)
@@ -105,26 +70,11 @@ tree_intersect_kernel(const float* __restrict__ rays, long long n,
                       unsigned char* __restrict__ occ_out) {
   const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
-  Ray r;
-  r.ox = rays[i];
-  r.oy = rays[n + i];
-  r.oz = rays[2 * n + i];
-  r.dx = rays[3 * n + i];
-  r.dy = rays[4 * n + i];
-  r.dz = rays[5 * n + i];
-  r.tmin = rays[6 * n + i];
-  const float tmax = rays[7 * n + i];
-  r.ix = safe_inv(r.dx);
-  r.iy = safe_inv(r.dy);
-  r.iz = safe_inv(r.dz);
+  float tmax;
+  const Ray r = load_ray(rays, n, i, &tmax);
   const bool neg_x = r.dx < 0.f, neg_y = r.dy < 0.f, neg_z = r.dz < 0.f;
   const int n_clusters = (n_tris + TRI_TILE - 1) / TRI_TILE;
-
-  // init_state: best_t = minimum(t_max, T_MAX) (NaN stays NaN: never hits)
-  float best_t = ANY_HIT ? tmax : (tmax > T_MAX ? T_MAX : tmax);
-  float best_u = 0.f, best_v = 0.f;
-  int best_prim = -1;
-  bool occluded = false;
+  Best best = init_best<ANY_HIT>(tmax);
 
   int stack[STACK_DEPTH];
   int sp = 0;
@@ -135,8 +85,8 @@ tree_intersect_kernel(const float* __restrict__ rays, long long n,
       const float4* row = nodes + 4 * (long long)ref;
       const float4 a = __ldg(row), b = __ldg(row + 1);
       const float4 c = __ldg(row + 2), e = __ldg(row + 3);
-      const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, best_t);
-      const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, best_t);
+      const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, best.t);
+      const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, best.t);
       const int c0 = (int)e.x, c1 = (int)e.y, ax = (int)e.z;
       const bool neg = ax == 0 ? neg_x : (ax == 1 ? neg_y : neg_z);
       const int near_ref = neg ? c1 : c0, far_ref = neg ? c0 : c1;
@@ -147,61 +97,18 @@ tree_intersect_kernel(const float* __restrict__ rays, long long n,
       continue;
     }
     const int blk = -ref - 1;
-    for (int j = 0; j < leaf_span; ++j) {
+    bool done = false;
+    for (int j = 0; j < leaf_span && !done; ++j) {
       const int k = blk * leaf_span + j;
       if (k >= n_clusters) break;
       const int first = k * TRI_TILE;
-      const int last = min(first + TRI_TILE, n_tris);
-      for (int p = first; p < last; ++p) {
-        const float4* tr = tris + 3 * (long long)p;
-        const float4 ta = __ldg(tr), tb = __ldg(tr + 1), tc = __ldg(tr + 2);
-        const float v0x = ta.x, v0y = ta.y, v0z = ta.z;
-        const float e1x = ta.w, e1y = tb.x, e1z = tb.y;
-        const float e2x = tb.z, e2y = tb.w, e2z = tc.x;
-        // pvec = d x e2
-        const float px = r.dy * e2z - r.dz * e2y;
-        const float py = r.dz * e2x - r.dx * e2z;
-        const float pz = r.dx * e2y - r.dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv_det = 1.0f / (fabsf(det) < HIT_EPS ? 1.0f : det);
-        const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        // qvec = tvec x e1
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool ok = (fabsf(det) >= HIT_EPS) && (u >= 0.f) && (v >= 0.f) &&
-                        (u + v <= 1.f) && (t > r.tmin);
-        if (ANY_HIT) {
-          if (ok && t < best_t) {
-            occluded = true;
-            break;
-          }
-        } else if (ok && (t < best_t || (t == best_t && p < best_prim))) {
-          best_t = t;
-          best_u = u;
-          best_v = v;
-          best_prim = p;
-        }
-      }
-      if (ANY_HIT && occluded) break;
+      done = tri_run<ANY_HIT>(r, tris, first, min(TRI_TILE, n_tris - first),
+                              first, best);
     }
-    if (ANY_HIT && occluded) break;
+    if (done) break;
   }
-  if (ANY_HIT) {
-    occ_out[i] = occluded ? 1 : 0;
-  } else {
-    const bool valid = best_prim >= 0;
-    t_out[i] = valid ? best_t : T_MAX;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
-    prim_out[i] = best_prim;
-  }
+  store_best<ANY_HIT>(best, i, t_out, u_out, v_out, prim_out, occ_out);
 }
-
-int launch_blocks(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 
 }  // namespace
 

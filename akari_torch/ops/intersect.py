@@ -1,6 +1,6 @@
 """Ray-scene intersection on V3 rays (``akari_tpu/ops/intersect.py``).
 
-Three interchangeable backends behind ``intersect_soa`` / ``occlude_soa``:
+Interchangeable backends behind ``intersect_soa`` / ``occlude_soa``:
 
 - ``dense``: the hand-written CUDA all-pairs kernel on CUDA tensors, its
   plain PyTorch version on CPU tensors (ops/dense_intersect.py);
@@ -10,9 +10,17 @@ Three interchangeable backends behind ``intersect_soa`` / ``occlude_soa``:
   ``DENSE_MAX_TRIS``. The reference sorts the rays by a coherence key
   first (its tiles share one walk); the port's walk is per ray and the
   sort did not pay for itself on the H100 (PERF.md), so the route
-  launches on the rays as they come;
+  launches on the rays as they come. A flat scene whose ``tri_tree`` is
+  None (its box tables only) takes the linear supercluster sweep
+  (ops/cluster_intersect.py), as the reference does; nothing the port
+  compiles is such a scene, and the tests reach it by nulling the table;
+- two-level scenes (``scene.instances`` set; intersector ``tree``): the
+  instanced tree walk (ops/instanced_tree_intersect.py), or the linear
+  instanced sweep when ``tri_tree`` is None, the choice of
+  ``pallas_intersect.intersect_pallas_instanced``, on the rays as they
+  come; hits carry virtual prim ids (scene/geom.py);
 - ``brute``: the reference's all-pairs oracle, tiled over triangles, for
-  CPU tensors only.
+  flat scenes on CPU tensors only.
 
 Hits carry no gradient (the detached-hit convention): the queries run
 under ``torch.no_grad()`` on detached inputs, so no autograd Function is
@@ -26,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.vecmath import cross, dot
-from . import dense_intersect, tree_intersect
+from . import cluster_intersect, dense_intersect, instanced_tree_intersect, tree_intersect
 from .dense_intersect import HIT_EPS, T_MAX
 
 
@@ -68,10 +76,11 @@ def brute_closest(scene, o, d, t_min, t_max, tri_chunk=2048):
     The CPU oracle: ties within a tile go to the lowest index (argmin
     returns the first minimum), later tiles need a strictly smaller t.
     """
-    if o.is_cuda:
+    if o.is_cuda or getattr(scene, "instances", None) is not None:
         raise ValueError(
-            "the brute intersector is the CPU oracle; compile with "
-            "intersector='auto', 'dense' or 'tree' for CUDA tensors"
+            "the brute intersector is the CPU oracle of flat scenes; compile "
+            "with intersector='auto', 'dense' or 'tree' for CUDA tensors or "
+            "two-level scenes"
         )
     n = o.shape[0]
     best_t = torch.clamp(t_max, max=float(T_MAX)).to(torch.float32)
@@ -114,14 +123,25 @@ def _limits(o3, t_min, t_max):
 
 
 def _tree_query(scene, o3, d3, t_min, t_max, any_hit):
-    """Pack the rays and walk the tree (closest: (t, u, v, prim))."""
-    if scene.tri_tree is None:
-        raise ValueError("intersector 'tree' needs a scene compiled with its tree")
+    """Pack the rays and run the scene's traversal kernel (closest: (t, u,
+    v, prim))."""
     rays = dense_intersect.pack_rays(o3, d3, t_min, t_max).detach().contiguous()
-    args = (scene.tri_tree, scene.tree_tris, scene.tree_leaf_span)
-    if any_hit:
-        return tree_intersect.any_hit(rays, *args)
-    return tree_intersect.closest(rays, *args)
+    if scene.instances is not None:
+        inst = (scene.inst_f32, scene.inst_i32)
+        if scene.tri_tree is not None:
+            m = instanced_tree_intersect
+            fn = m.any_hit if any_hit else m.closest
+            return fn(rays, *inst, scene.tri_tree, scene.inst_tris, scene.tree_leaf_span)
+        m = cluster_intersect
+        fn = m.instanced_any_hit if any_hit else m.instanced_closest
+        return fn(rays, *inst, scene.tri_superclusters, scene.tri_clusters, scene.inst_tris)
+    if scene.tri_tree is not None:
+        fn = tree_intersect.any_hit if any_hit else tree_intersect.closest
+        return fn(rays, scene.tri_tree, scene.tree_tris, scene.tree_leaf_span)
+    if scene.tri_superclusters is None:
+        raise ValueError("intersector 'tree' needs a scene compiled with its tree tables")
+    fn = cluster_intersect.any_hit if any_hit else cluster_intersect.closest
+    return fn(rays, scene.tri_superclusters, scene.tri_clusters, scene.tree_tris)
 
 
 @torch.no_grad()

@@ -63,10 +63,11 @@ def _safe_inv(c):
 
 
 def _slab(box, o, inv, tmin, best_t):
-    """[L, 6] boxes (lo.xyz hi.xyz) x per-ray [L] terms -> [L] bool, in
-    the operation order of ``pallas_tree.py`` ``slab_mask``."""
-    t0 = [(box[:, a] - o[a]) * inv[a] for a in range(3)]
-    t1 = [(box[:, 3 + a] - o[a]) * inv[a] for a in range(3)]
+    """[L, (W,) >=6] boxes (lo.xyz hi.xyz ...) x per-ray [L] (or [L, 1])
+    terms -> [L] (or [L, W]) bool, in the operation order of
+    ``pallas_tree.py`` ``slab_mask``."""
+    t0 = [(box[..., a] - o[a]) * inv[a] for a in range(3)]
+    t1 = [(box[..., 3 + a] - o[a]) * inv[a] for a in range(3)]
     mn = [torch.minimum(t0[a], t1[a]) for a in range(3)]
     mx = [torch.maximum(t0[a], t1[a]) for a in range(3)]
     near = torch.maximum(torch.maximum(mn[0], mn[1]), torch.maximum(mn[2], tmin))
@@ -105,7 +106,81 @@ def _leaf_mt(o, d, tmin, tri_rows):
     return ok, t, u, v
 
 
-def _walk(rays, nodes, tris, leaf_span, any_hit):
+class Best:
+    """Per-ray running answer of a plain walk (``ray_common.cuh`` Best):
+    closest hit from min(t_max, T_MAX), or the any-hit flag."""
+
+    def __init__(self, tmax, any_hit):
+        n, dev = tmax.shape[0], tmax.device
+        self.any_hit = any_hit
+        self.t = tmax.clone() if any_hit else torch.clamp(tmax, max=T_MAX)
+        self.u = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.v = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        self.occ = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def result(self):
+        """[N] occluded, or (t, u, v, prim int32) with t = T_MAX on a miss."""
+        if self.any_hit:
+            return self.occ
+        valid = self.prim >= 0
+        t_out = torch.where(valid, self.t, T_MAX)
+        return t_out, self.u, self.v, self.prim.to(torch.int32)
+
+    def update(self, li, o, d, tmin, tri_rows, real, prim0, stats=None):
+        """Moller-Trumbore of rays ``li`` (o/d/tmin: their [L] terms)
+        against [L, C, 12] rows, where row j of ray l is prim prim0[l] + j
+        and ``real[l, j]`` says it exists. Closest: the lexicographic
+        minimum of (t, prim) over the rows' hits, then the tie rule against
+        the running best, which is what the kernel's in-order loop keeps."""
+        ok, t, u, v = _leaf_mt(o, d, tmin, tri_rows)
+        ok = ok & real
+        if stats is not None:
+            stats.mt += int(real.sum())
+        if self.any_hit:
+            self.occ[li] |= (ok & (t < self.t[li][:, None])).any(dim=1)
+            return
+        c = tri_rows.shape[1]
+        col = torch.arange(c, device=t.device)
+        t_m = torch.where(ok, t, float("inf"))
+        t_leaf = t_m.min(dim=1).values
+        first = torch.where(ok & (t_m == t_leaf[:, None]), col, c)
+        jj = first.min(dim=1).values
+        found = jj < c
+        jc = torch.clamp(jj, max=c - 1)[:, None]
+        prim = prim0 + jj
+        bt, bp = self.t[li], self.prim[li]
+        take = found & ((t_leaf < bt) | ((t_leaf == bt) & (prim < bp)))
+        self.t[li] = torch.where(take, t_leaf, bt)
+        self.u[li] = torch.where(take, u.gather(1, jc)[:, 0], self.u[li])
+        self.v[li] = torch.where(take, v.gather(1, jc)[:, 0], self.v[li])
+        self.prim[li] = torch.where(take, prim, bp)
+
+
+class WalkStats:
+    """Work a plain version did on its inputs, for the card's lower bound
+    (``chip_smoke.py``): box slab tests, Moller-Trumbore tests, instance
+    transforms, and the distinct rows read of each table. Pass one as
+    ``stats`` to a plain version; the kernels count nothing."""
+
+    def __init__(self):
+        self.slab = 0
+        self.mt = 0
+        self.xform = 0
+        self.rows = {}  # table name -> [rows] bool, read at least once
+
+    def touch(self, name, size, idx):
+        mask = self.rows.get(name)
+        if mask is None:
+            mask = self.rows[name] = torch.zeros(size, dtype=torch.bool, device=idx.device)
+        mask[idx] = True
+
+    def distinct(self, name):
+        mask = self.rows.get(name)
+        return 0 if mask is None else int(mask.sum())
+
+
+def _walk(rays, nodes, tris, leaf_span, any_hit, stats=None):
     """The kernel's walk, vectorized over one chunk of rays: every ray
     with a non-empty stack pops one ref per step."""
     dev = rays.device
@@ -114,20 +189,16 @@ def _walk(rays, nodes, tris, leaf_span, any_hit):
     n_cl = (n_tris + TRI_TILE - 1) // TRI_TILE
     o = [rays[0], rays[1], rays[2]]
     d = [rays[3], rays[4], rays[5]]
-    tmin, tmax = rays[6], rays[7]
+    tmin = rays[6]
     inv = [_safe_inv(c) for c in d]
     neg = torch.stack([c < 0 for c in d], dim=1)  # [n, 3]
-    best_t = tmax.clone() if any_hit else torch.clamp(tmax, max=T_MAX)
-    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
-    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
-    best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    best = Best(rays[7], any_hit)
     stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)  # the root, ref 0
     col = torch.arange(TRI_TILE, device=dev)
     leaf_rays = max(1, PLAIN_LEAF_PAIRS // TRI_TILE)
     while True:
-        live = (sp > 0) & ~occ
+        live = (sp > 0) & ~best.occ
         idx = live.nonzero()[:, 0]
         if idx.numel() == 0:
             break
@@ -137,21 +208,11 @@ def _walk(rays, nodes, tris, leaf_span, any_hit):
 
         ii, rr = idx[inner], ref[inner]
         if ii.numel():
-            row = nodes[rr]
-            oi = [a[ii] for a in o]
-            vi = [a[ii] for a in inv]
-            bt, tm = best_t[ii], tmin[ii]
-            h0 = _slab(row[:, 0:6], oi, vi, tm, bt)
-            h1 = _slab(row[:, 6:12], oi, vi, tm, bt)
-            c0, c1 = row[:, 12].long(), row[:, 13].long()
-            flip = neg[ii, row[:, 14].long()]
-            near_r, far_r = torch.where(flip, c1, c0), torch.where(flip, c0, c1)
-            near_h, far_h = torch.where(flip, h1, h0), torch.where(flip, h0, h1)
-            p = sp[ii]
-            stack[ii[far_h], p[far_h]] = far_r[far_h]  # far first: near pops first
-            p = p + far_h
-            stack[ii[near_h], p[near_h]] = near_r[near_h]
-            sp[ii] = p + near_h
+            push_children(stack, sp, ii, nodes[rr], [a[ii] for a in o],
+                          [a[ii] for a in inv], tmin[ii], best.t[ii], neg[ii])
+            if stats is not None:
+                stats.slab += 2 * ii.numel()
+                stats.touch("nodes", nodes.shape[0], rr)
 
         blk = -ref[~inner] - 1
         li_all = idx[~inner]
@@ -164,52 +225,73 @@ def _walk(rays, nodes, tris, leaf_span, any_hit):
                 rows = k[:, None] * TRI_TILE + col          # [L, 128]
                 real = rows < n_tris                        # real-count guard
                 tri_rows = tris[torch.clamp(rows, max=n_tris - 1)]
-                ok, t, u, v = _leaf_mt(
-                    [a[li] for a in o], [a[li] for a in d], tmin[li], tri_rows
+                best.update(
+                    li, [a[li] for a in o], [a[li] for a in d], tmin[li],
+                    tri_rows, real, k * TRI_TILE, stats,
                 )
-                ok = ok & real
-                if any_hit:
-                    occ[li] |= (ok & (t < best_t[li][:, None])).any(dim=1)
-                    continue
-                # lexicographic minimum of (t, prim) over the leaf's hits,
-                # then the tie rule against the running best
-                t_m = torch.where(ok, t, float("inf"))
-                t_leaf = t_m.min(dim=1).values
-                first = torch.where(ok & (t_m == t_leaf[:, None]), col, TRI_TILE)
-                jj = first.min(dim=1).values
-                found = jj < TRI_TILE
-                jc = torch.clamp(jj, max=TRI_TILE - 1)[:, None]
-                prim = k * TRI_TILE + jj
-                bt, bp = best_t[li], best_prim[li]
-                take = found & ((t_leaf < bt) | ((t_leaf == bt) & (prim < bp)))
-                best_t[li] = torch.where(take, t_leaf, bt)
-                best_u[li] = torch.where(take, u.gather(1, jc)[:, 0], best_u[li])
-                best_v[li] = torch.where(take, v.gather(1, jc)[:, 0], best_v[li])
-                best_prim[li] = torch.where(take, prim, bp)
-    if any_hit:
-        return occ
-    valid = best_prim >= 0
-    t_out = torch.where(valid, best_t, T_MAX)
-    return t_out, best_u, best_v, best_prim.to(torch.int32)
+                if stats is not None:
+                    stats.touch("tris", n_tris, rows[real])
+    return best.result()
 
 
-def _chunked_walk(rays, nodes, tris, leaf_span, any_hit):
+def first_box_hit(boxes, start, count, o, inv, tmin, best_t, window, stats=None, name=None):
+    """Slab-test rows ``start[l] + w`` of ``boxes`` for ``w < min(count[l],
+    window)`` with ray l's best t, and return ([L] offset of the first hit
+    or -1, [L] boxes tested up to and including it). A kernel tests these
+    boxes one after another, and a miss changes no best t, so this is its
+    sequence of tests up to its first hit."""
+    w = torch.arange(window, device=start.device)
+    valid = w < count[:, None]                                  # [L, W]
+    rows = torch.clamp(start[:, None] + w, min=0, max=boxes.shape[0] - 1)
+    hit = _slab(boxes[rows], [a[:, None] for a in o], [a[:, None] for a in inv],
+                tmin[:, None], best_t[:, None]) & valid
+    found = hit.any(dim=1)
+    first = torch.where(found, hit.int().argmax(dim=1), -1)
+    tested = torch.where(found, first + 1, valid.sum(dim=1))
+    if stats is not None:
+        stats.slab += int(tested.sum())
+        stats.touch(name, boxes.shape[0], rows[w < tested[:, None]])
+    return first, tested
+
+
+def push_children(stack, sp, ii, row, o, inv, tmin, best_t, neg):
+    """One inner-node step of rays ``ii`` (the kernel's): slab-test both
+    children of their popped node rows [L, 16] and push the hit ones, far
+    first, near/far by each ray's direction sign ``neg`` [L, 3] on the
+    node's split axis."""
+    h0 = _slab(row[:, 0:6], o, inv, tmin, best_t)
+    h1 = _slab(row[:, 6:12], o, inv, tmin, best_t)
+    c0, c1 = row[:, 12].long(), row[:, 13].long()
+    flip = neg.gather(1, row[:, 14].long()[:, None])[:, 0]
+    near_r, far_r = torch.where(flip, c1, c0), torch.where(flip, c0, c1)
+    near_h, far_h = torch.where(flip, h1, h0), torch.where(flip, h0, h1)
+    p = sp[ii]
+    stack[ii[far_h], p[far_h]] = far_r[far_h]  # far first: near pops first
+    p = p + far_h
+    stack[ii[near_h], p[near_h]] = near_r[near_h]
+    sp[ii] = p + near_h
+
+
+def chunked(walk, rays, any_hit):
+    """Run a plain walk ``walk(rays_chunk)`` over chunks of at most
+    PLAIN_RAYS_PER_CHUNK rays and join the answers."""
     step = PLAIN_RAYS_PER_CHUNK
-    return [
-        _walk(rays[:, s:s + step], nodes, tris, leaf_span, any_hit)
-        for s in range(0, max(rays.shape[1], 1), step)
-    ]
-
-
-def closest_plain(rays, nodes, tris, leaf_span=1):
-    """Plain version of the closest-hit kernel -> (t, u, v, prim int32)."""
-    parts = _chunked_walk(rays, nodes, tris, leaf_span, False)
+    parts = [walk(rays[:, s:s + step]) for s in range(0, max(rays.shape[1], 1), step)]
+    if any_hit:
+        return torch.cat(parts)
     return tuple(torch.cat(cols) for cols in zip(*parts))
 
 
-def any_hit_plain(rays, nodes, tris, leaf_span=1):
+def closest_plain(rays, nodes, tris, leaf_span=1, stats=None):
+    """Plain version of the closest-hit kernel -> (t, u, v, prim int32)."""
+    return chunked(lambda r: _walk(r, nodes, tris, leaf_span, False, stats),
+                   rays, False)
+
+
+def any_hit_plain(rays, nodes, tris, leaf_span=1, stats=None):
     """Plain version of the any-hit kernel -> [N] bool occluded."""
-    return torch.cat(_chunked_walk(rays, nodes, tris, leaf_span, True))
+    return chunked(lambda r: _walk(r, nodes, tris, leaf_span, True, stats),
+                   rays, True)
 
 
 # ------------------------------ CUDA wrapper --------------------------------

@@ -9,7 +9,7 @@ Python values.
 ``from_numpy_scene`` carries the reference's compiled state across: it
 takes any object with the reference ``SceneArrays`` attribute names
 holding arrays (the tests pass the JAX compile's leaves through
-``np.asarray``) and returns the port's dataclass.
+``np.asarray``) and returns the port's dataclass, flat or two-level.
 """
 
 from __future__ import annotations
@@ -117,6 +117,31 @@ class BVHArrays:
 
 
 @dataclass
+class InstanceTable:
+    """Two-level instancing tables (``akari_tpu/scene/arrays.py``
+    ``InstanceTable``).
+
+    ``SceneArrays.bvh`` holds ``[TLAS | BLAS_0 | BLAS_1 ...]``; TLAS leaves
+    hold one instance (``first`` indexes ``tlas_inst``). Hits carry a
+    VIRTUAL prim id: instance ``i`` owns ``[prim_ends[i-1], prim_ends[i])``
+    and ``storage = virtual + tri_offset[i]`` (``scene/geom.py``).
+    """
+
+    o2w: torch.Tensor         # [I, 3, 4] object -> world rows
+    w2o: torch.Tensor         # [I, 3, 4] world -> object
+    nrm: torch.Tensor         # [I, 3, 3] normal matrix (w2o rotation^T)
+    blas_root: torch.Tensor   # [I] int32 node of the instance's BLAS root
+    tri_offset: torch.Tensor  # [I] int32 virtual + offset = storage prim
+    prim_ends: torch.Tensor   # [I] int32 exclusive ends of virtual ranges
+    light_base: torch.Tensor  # [I] int32 first light id of the instance
+    tlas_inst: torch.Tensor   # [I] int32 TLAS leaf order -> instance
+    n_instances: int = 0
+
+    def to(self, device):
+        return _move(self, device)
+
+
+@dataclass
 class SceneArrays:
     """The compiled flat scene. Triangle storage is in BVH order.
 
@@ -132,10 +157,23 @@ class SceneArrays:
     reference's array); tri_tree: [Nn, 16] BVH2 node rows over
     tree_leaf_span-cluster blocks (the reference's array); tree_tris:
     [T, 12] triangle store of the tree kernel (v0 e1 e2, 3 pad floats),
-    which walks faster over these 48 B rows than over prim_table's 128 B.
+    which walks faster over these 48 B rows than over prim_table's 128 B;
+    tri_superclusters: [Spad, 8] boxes over 32-cluster runs (the linear
+    cluster sweep's table when tri_tree is None; the reference's array).
 
-    The reference's instancing tables (slice 3) and environment light
-    (slice 4) have no fields yet.
+    Two-level scenes (``instances`` set; storage holds object-space
+    prototype triangles and hits carry virtual prim ids, ``scene/geom.py``)
+    have no prim_table. Their kernel tables, each the reference's: inst_f32
+    [I, 20] (world box lo 0:3 hi 3:6, w2o rows 6:18) and inst_i32 [I, 8]
+    (supercluster base, real supercluster count, cluster base, cluster
+    count, tile base, prim base, tree base, 0) of ``inst_pallas_f32/i32``;
+    tri_clusters, tri_superclusters and tri_tree are the per-prototype
+    tables concatenated; inst_tris is the [sum Kp*128, 12] triangle store
+    (tree_tris rows, each prototype padded to whole clusters with zero
+    rows that never hit), so cluster ``tile_base + k`` is rows
+    ``128 (tile_base + k)`` onward.
+
+    The environment light (slice 4) has no fields yet.
     """
 
     tri_v0: torch.Tensor    # [T, 3]
@@ -151,10 +189,15 @@ class SceneArrays:
     prim_table: torch.Tensor = None    # [T, 32] float32
     prim_to_orig: torch.Tensor = None  # [T] int32 storage slot -> original tri
     tri_clusters: torch.Tensor = None  # [Kpad, 8] float32
+    tri_superclusters: torch.Tensor = None  # [Spad, 8] float32
     tri_tree: torch.Tensor = None      # [Nn, 16] float32
     tree_tris: torch.Tensor = None     # [T, 12] float32
+    instances: InstanceTable = None
+    inst_f32: torch.Tensor = None      # [I, 20] float32
+    inst_i32: torch.Tensor = None      # [I, 8] int32
+    inst_tris: torch.Tensor = None     # [sum Kp*128, 12] float32
     tree_leaf_span: int = 1
-    n_tris: int = 0
+    n_tris: int = 0             # storage triangles; virtual ones if two-level
     n_materials: int = 0
     intersector: str = "dense"  # "dense" | "tree" | "brute"
     # host seconds of compile_scene: "bvh" (storage order), "tree"
@@ -201,15 +244,24 @@ def from_numpy_scene(obj, intersector="dense"):
     """Reference-shaped compiled scene (arrays under the reference's
     ``SceneArrays`` attribute names) -> the port's CPU ``SceneArrays``.
 
-    The tree tables are carried when ``obj.tri_tree`` is set (the
-    reference builds them above DENSE_MAX_TRIS); ``tree_tris`` is made
-    from ``tri_v0/e1/e2``.
+    Flat scenes: the tree tables are carried when ``obj.tri_tree`` is set
+    (the reference builds them above DENSE_MAX_TRIS); ``tree_tris`` is
+    made from ``tri_v0/e1/e2``. Two-level scenes (``obj.instances`` set)
+    need the reference's per-prototype tables (its ``intersector="pallas"``
+    compile); ``inst_tris`` is made from ``inst_tris16``, and
+    ``intersector`` must be "tree" (the instanced route).
 
-    Flat scenes with constant textures and no environment only; anything
-    else raises ``NotImplementedError`` naming the slice that adds it.
+    Constant textures and no environment only; anything else raises
+    ``NotImplementedError`` naming the slice that adds it.
     """
-    if getattr(obj, "instances", None) is not None:
-        raise NotImplementedError("instanced scenes arrive with slice 3")
+    it = getattr(obj, "instances", None)
+    if it is not None and (
+        intersector != "tree" or getattr(obj, "inst_pallas_f32", None) is None
+    ):
+        raise ValueError(
+            "a two-level scene needs its per-prototype kernel tables and "
+            "intersector 'tree'"
+        )
     if getattr(obj, "env_image", None) is not None:
         raise NotImplementedError("environment lights arrive with slice 4")
     tex, mat, li = obj.textures, obj.materials, obj.lights
@@ -219,6 +271,25 @@ def from_numpy_scene(obj, intersector="dense"):
     tree = getattr(obj, "tri_tree", None)
     if intersector == "tree" and tree is None:
         raise ValueError("intersector 'tree' needs the scene's tri_tree table")
+    inst = {}
+    if it is not None:
+        inst = dict(
+            instances=InstanceTable(
+                o2w=_t(it.o2w, np.float32),
+                w2o=_t(it.w2o, np.float32),
+                nrm=_t(it.nrm, np.float32),
+                blas_root=_t(it.blas_root, np.int32),
+                tri_offset=_t(it.tri_offset, np.int32),
+                prim_ends=_t(it.prim_ends, np.int32),
+                light_base=_t(it.light_base, np.int32),
+                tlas_inst=_t(it.tlas_inst, np.int32),
+                n_instances=int(it.n_instances),
+            ),
+            inst_f32=_t(obj.inst_pallas_f32, np.float32),
+            inst_i32=_t(obj.inst_pallas_i32, np.int32),
+            inst_tris=_t(np.asarray(obj.inst_tris16).T[:, :12], np.float32),
+        )
+    flat_tree = tree is not None and it is None
     return SceneArrays(
         tri_v0=_t(obj.tri_v0, np.float32),
         tri_e1=_t(obj.tri_e1, np.float32),
@@ -256,13 +327,15 @@ def from_numpy_scene(obj, intersector="dense"):
             count=_t(bvh.count, np.int32),
             miss=_t(bvh.miss, np.int32),
         ),
-        prim_table=_t(obj.prim_table, np.float32),
+        prim_table=_t(getattr(obj, "prim_table", None), np.float32),
         prim_to_orig=_t(obj.prim_to_orig, np.int32),
         tri_clusters=None if tree is None else _t(obj.tri_clusters, np.float32),
+        tri_superclusters=None if tree is None else _t(obj.tri_superclusters, np.float32),
         tri_tree=_t(tree, np.float32),
-        tree_tris=None if tree is None else torch.from_numpy(
+        tree_tris=torch.from_numpy(
             tree_tris(obj.tri_v0, obj.tri_e1, obj.tri_e2)
-        ),
+        ) if flat_tree else None,
+        **inst,
         tree_leaf_span=int(getattr(obj, "tree_leaf_span", 1) or 1),
         n_tris=int(obj.n_tris),
         n_materials=int(obj.n_materials),

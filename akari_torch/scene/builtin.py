@@ -1,5 +1,5 @@
-"""Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box and
-the procedural terrain.
+"""Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box, the
+procedural terrain, and two instanced scenes of one terrain prototype.
 
 The Cornell box asset (scenes/cornell_box/) is the public-domain data set
 by Guedis Cardenas and Morgan McGuire (Williams College, 2011).
@@ -13,7 +13,7 @@ import numpy as np
 
 from ..core import transform as xform
 from .arrays import make_camera
-from .nodes import DiffuseMaterial, EmissiveMaterial, Mesh, Scene
+from .nodes import DiffuseMaterial, EmissiveMaterial, Instance, Mesh, Scene
 from .obj import load_obj
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "scenes")
@@ -84,6 +84,56 @@ def terrain_scene(width=256, height=256, n=512):
     c2w = xform.look_at((1.6, 1.9, 2.3), (0.0, 0.25, 0.0))
     cam = make_camera(c2w, 40.0, width, height)
     return Scene(shapes=[terrain, lmesh], camera=cam)
+
+
+def forest_transforms(n_instances, spread=6.0, seed=3):
+    """Object -> world transforms of the instanced forest: instance k is
+    translate(U(-spread, spread), 0, U(-spread, spread)) @ rotate_y(U(0, 2 pi))
+    @ scale(s, s, s), s = U(0.5, 1.5), drawn in that order from
+    ``np.random.default_rng(seed)``."""
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_instances):
+        tx, tz = float(r.uniform(-spread, spread)), float(r.uniform(-spread, spread))
+        theta = float(r.uniform(0.0, 2.0 * np.pi))
+        s = float(r.uniform(0.5, 1.5))
+        m = xform.translate((tx, 0.0, tz)) @ xform.rotate_y(theta) @ xform.scale((s, s, s))
+        out.append(np.asarray(m, np.float32))
+    return out
+
+
+def instanced_forest_scene(width=256, height=256, n_instances=128, n=128):
+    """``n_instances`` rotated, scaled copies of ``terrain_mesh(n)`` over
+    [-6, 6]^2 under a 4 x 4 downward area light at y = 4. At the defaults
+    (128 copies of 32,258 triangles: 4,129,024 world triangles with the
+    light's 2) it is above FLATTEN_MAX_TRIS and compiles two-level."""
+    proto = terrain_mesh(n)
+    shapes = [Instance(proto, m) for m in forest_transforms(n_instances)]
+    lq = _quad((-2.0, 4.0, 2.0), (-2.0, 4.0, -2.0), (2.0, 4.0, -2.0), (2.0, 4.0, 2.0))
+    shapes.append(Mesh(
+        vertices=np.stack(lq).reshape(-1, 3),
+        indices=np.arange(6, dtype=np.int64).reshape(-1, 3),
+        materials=[EmissiveMaterial((14.0, 13.0, 11.0))],
+        material_ids=np.zeros(2, np.int64),
+    ))
+    c2w = xform.look_at((6.0, 5.0, 9.0), (0.0, 0.3, 0.0))
+    return Scene(shapes=shapes, camera=make_camera(c2w, 40.0, width, height))
+
+
+def instanced_bench_scene(width=256, height=256, n_instances=64, n=128, seed=3):
+    """The JAX package's recorded instanced workload (``bench.py``): copies
+    of ``terrain_mesh(n)`` at translate(U(-40, 40), 0, U(-40, 40)) from
+    ``np.random.default_rng(seed)``, seen by the terrain scene's camera. It
+    has no light (its image is black); 64 x 32,258 = 2.06 M world
+    triangles, so the bench forces two-level with FLATTEN_MAX_TRIS = 1."""
+    proto = terrain_mesh(n)
+    r = np.random.default_rng(seed)
+    shapes = []
+    for _ in range(n_instances):
+        t = xform.translate((float(r.uniform(-40, 40)), 0.0, float(r.uniform(-40, 40))))
+        shapes.append(Instance(proto, np.asarray(t, np.float32)))
+    c2w = xform.look_at((1.6, 1.9, 2.3), (0.0, 0.25, 0.0))
+    return Scene(shapes=shapes, camera=make_camera(c2w, 40.0, width, height))
 
 
 def _quad(p0, p1, p2, p3):

@@ -1,9 +1,10 @@
 """SDL node registry: Type names -> scene-node factories.
 
 Counterpart of ``akari_tpu/scene/sdl_nodes.py`` for the nodes of the
-forward path-tracing slice: ``PerspectiveCamera``, ``AkariMesh`` (OBJ),
-``OBJMesh``, the material nodes, ``Path`` and ``Scene``. Nodes of later
-slices raise ``NotImplementedError`` naming their slice.
+forward path-tracing and instancing slices: ``PerspectiveCamera``,
+``AkariMesh`` (OBJ), ``OBJMesh``, ``Instance``, the material nodes, ``Path``
+and ``Scene``. Nodes of later slices raise ``NotImplementedError`` naming
+their slice.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .nodes import (
     EmissiveMaterial,
     GlassMaterial,
     GlossyMaterial,
+    Instance,
     MirrorMaterial,
     MixMaterial,
     Scene,
@@ -132,6 +134,31 @@ def _obj_mesh(fields, base_dir="."):
     return _load_obj_mesh(fields["path"], base_dir)
 
 
+@register_node("Instance")
+def _instance(fields, base_dir="."):
+    """Placement of a prototype mesh: ``mesh`` (a mesh node or ``$ref``),
+    ``translate`` / ``rotate`` (degrees, ZYX Euler) / ``scale`` (scalar or
+    3-vector), or a full ``transform`` (16 numbers, row-major); optional
+    ``materials`` override list."""
+    from ..core import transform as xform
+
+    if "transform" in fields:
+        m = np.asarray(fields["transform"], np.float64).reshape(4, 4)
+    else:
+        t = xform.translate(fields.get("translate", [0, 0, 0]))
+        r = xform.euler_zyx(
+            np.radians(np.asarray(fields.get("rotate", [0, 0, 0]), np.float64))
+        )
+        s = np.asarray(fields.get("scale", 1.0), np.float64)
+        s = np.broadcast_to(np.atleast_1d(s), (3,))
+        m = t @ r @ np.diag([s[0], s[1], s[2], 1.0])
+    return Instance(
+        mesh=fields["mesh"],
+        transform=np.asarray(m, np.float32),
+        materials=fields.get("materials") or None,
+    )
+
+
 @register_node("Path")
 def _path(fields, base_dir="."):
     """spp/max_depth/ray_clamp/mis; tile_size is accepted and ignored."""
@@ -153,7 +180,6 @@ def _later(name, slice_name):
 _later("AO", "slice 4 (other integrators)")
 _later("BDPT", "slice 4 (other integrators)")
 _later("EnvMap", "slice 4 (environment lights)")
-_later("Instance", "slice 3 (instanced scenes)")
 
 
 @register_node("Scene")

@@ -20,7 +20,10 @@ import numpy as np
 import torch
 
 from ..core.distribution import sample_discrete
-from ..core.v3 import V3, from_rows, onb3, reflect3, to_local3, to_world3, v3where
+from ..core.v3 import (
+    V3, from_rows, from_stack, onb3, reflect3, to_local3, to_world3, v3where,
+)
+from ..scene import geom
 from ..scene.arrays import MAX_MIX_DEPTH
 from . import microfacet as mf
 from .bsdf import (
@@ -31,7 +34,7 @@ from .bsdf import (
     DELTA_PDF,
     fresnel_dielectric,
 )
-from .light import _light_fat_table
+from .light import _light_fat_table, _light_tri_data, _light_uv
 from .material import _resolved_closure_table
 
 INV_PI = 1.0 / np.pi
@@ -384,17 +387,31 @@ class LightSampleSoA(NamedTuple):
 
 def light_sample(scene, u_select, u_pos1, u_pos2, p_ref):
     """Power-select a light triangle, sample a point, return the NEE record.
-    p_ref is a V3."""
+    p_ref is a V3. Flat scenes gather one row of the per-light table; on a
+    two-level scene the light's virtual prim is moved to world space by its
+    instance (the reference's non-fast branch), and its emission and
+    sidedness at the sample's texture coordinates come from the resolved
+    closure table (constant textures: the same values as the reference's
+    per-material lookups)."""
     lights = scene.lights
     li, sel_pdf = sample_discrete(lights.cdf, u_select)
-    fat = gather_rows_t(_light_fat_table(scene), li)
-    v0, e1, e2 = from_rows(fat, 0), from_rows(fat, 3), from_rows(fat, 6)
-    ng = from_rows(fat, 9)
-    area = fat[12]
-    L = from_rows(fat, 13)
-    double_sided = fat[16] > 0.5
-
     b0, b1 = uniform_triangle(u_pos1, u_pos2)
+    if scene.instances is None:
+        fat = gather_rows_t(_light_fat_table(scene), li)
+        v0, e1, e2 = from_rows(fat, 0), from_rows(fat, 3), from_rows(fat, 6)
+        ng = from_rows(fat, 9)
+        area = fat[12]
+        L = from_rows(fat, 13)
+        double_sided = fat[16] > 0.5
+    else:
+        tri = lights.tri_id.index_select(0, li)
+        v0_a, e1_a, e2_a, ng_a, area = _light_tri_data(scene, tri)
+        v0, e1, e2, ng = (from_stack(a) for a in (v0_a, e1_a, e2_a, ng_a))
+        L, double_sided = emission_and_sided(
+            scene.materials, scene.textures, geom.mat_of_prim(scene, tri),
+            *_light_uv(scene, tri, b0, b1),
+        )
+
     p = v0 + e1 * b0 + e2 * b1
 
     wi_raw = p - p_ref

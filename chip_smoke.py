@@ -37,7 +37,34 @@ Phases (each checks its results; any failure exits non-zero):
 11. tree kernel and plain walk times at the fused launch's shape (524,288
     rays captured from a render's first bounce), on the rays as the main
     path launches them and sorted by the reference's coherence key;
-12. the result: a JSON line of kernel records, then the device line.
+12. the instanced tree kernel, the flat cluster kernel and the linear
+    instanced kernel vs their plain versions on the card, on 2^16 + 77
+    rays (camera and seeded random rays, some dead) against
+    ``instanced-forest128`` (128 rotated, scaled copies of the 32,258-
+    triangle terrain, 4,129,026 world triangles) and the 20k soup with
+    its tree nulled; prim/valid exact, t/u/v 0 ulp, any-hit == closest
+    validity; one comparison again on a permuted ray order;
+13. ``instanced-forest128`` on ``auto`` (two-level without forcing): 6
+    instanced-tree launches per ``trace_paths`` and no other traversal
+    launch, frame time, path rate, peak memory, host compile time, a lit
+    image;
+14. ``instanced-bench64``, the JAX package's recorded instanced workload
+    (64 translated terrain copies, no light, forced two-level with
+    ``FLATTEN_MAX_TRIS = 1``): frame time, path rate, peak memory;
+15. the 64x64 instanced forest (8 copies of the n=16 terrain, two-level)
+    against the JAX package's golden
+    (tests/data/torch_port_instanced64_spp4_d5.npy);
+16. the CLI on an .akari file placing 128 ``Instance`` nodes of a written
+    32,258-triangle terrain OBJ plus the light (two-level on ``auto``);
+17. the routes of the linear kernels (scenes with their tree nulled,
+    rendered through ``render``) and occlusion queries through
+    ``occlude_soa`` on every route (the any-hit kernels), each run with
+    the launch counts set to 0 just before it and read just after;
+18. the instanced tree and linear instanced kernels at the fused launch's
+    shape (524,288 rays captured from a frame of ``instanced-forest128``)
+    and the flat cluster kernel on phase 11's terrain rays, with their
+    plain versions' times and every kernel's lower bound on this card;
+19. the result: a JSON line of kernel records, then the device line.
 
 Every kernel source (and the native BVH builder) is built at start, one
 compiler process each, all started together. Imports nothing of JAX.
@@ -46,6 +73,8 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -57,6 +86,7 @@ from types import SimpleNamespace
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_cornell64_spp4_d5.npy")
 TERRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_terrain64_spp4_d5.npy")
+INSTANCED_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_instanced64_spp4_d5.npy")
 SCENE_FILE = os.path.join(ROOT, "scenes", "cornell_box", "scene.akari")
 
 N_RAYS = (1 << 20) + 77          # not a multiple of any block size
@@ -64,7 +94,23 @@ TREE_RAYS = (1 << 18) + 77       # tree kernel vs plain walk
 SOUP_SUBSET = 65_536             # tree vs dense plain version on the soup
 FUSED_RAYS = 2 * 256 * 256 * 4   # shadow + extension rays of one bounce
 MEAN_LIT_MIN = 0.05              # "clearly lit" bound on the mean radiance
-KERNELS = ("dense_intersect", "tree_intersect")
+INST_RAYS = (1 << 16) + 77       # instanced and linear kernels vs plain
+PLAIN_SUBSET = 1 << 16           # plain timing subset when a full call is slow
+PLAIN_FULL_MAX_S = 10.0          # ... that is, slower than this
+KERNELS = ("dense_intersect", "tree_intersect", "instanced_tree_intersect",
+           "cluster_intersect")
+FOREST_SDL_ROTATION = (-23.4805, 33.6901, 0.0)  # look_at((6, 5, 9), (0, 0.3, 0)), ZYX degrees
+
+# Lower bound of a kernel on this card: the larger of its float operations
+# over the H100's f32 rate outside the tensor cores and its bytes (rays
+# read once, hits written once, each table row it needs read once) over
+# the HBM rate (NVIDIA's H100 SXM data sheet, at the 700 W limit).
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+SLAB_OPS = 24     # one ray-box slab test: 6 sub, 6 mul, 10 min/max, 2 compares
+MT_OPS = 55       # one Moller-Trumbore test: 2 cross, 4 dot, the reciprocal, 8 compares
+RAY_BYTES, CLOSEST_BYTES, ANY_HIT_BYTES = 32, 16, 1
+ROW_BYTES = {"nodes": 64, "tris": 48, "instances": 112, "supers": 32, "clusters": 32}
 
 
 def log(msg):
@@ -135,20 +181,22 @@ def images_match(a, b, rtol=1e-3, atol=2e-3, outlier_frac=0.08, mean_tol=3e-3):
     check(mean <= mean_tol, f"mean abs diff {mean} > {mean_tol}")
 
 
-def compare_kernel(name, rays, mod, args, n_tris):
+def compare_kernel(name, rays, mod, args, n_tris, closest="closest", any_hit="any_hit",
+                   max_ulp_allowed=2):
     """Kernel vs plain on the card for a kernel module with the
-    ``closest``/``closest_plain``/``any_hit``/``any_hit_plain`` API and
-    table arguments ``args``; returns the max |difference| of the
-    closest-hit outputs and of the any-hit flags, and the prims."""
+    ``closest``/``closest_plain``/``any_hit``/``any_hit_plain`` API (or
+    the variants named) and table arguments ``args``; returns the max
+    |difference| of the closest-hit outputs and of the any-hit flags, and
+    the kernel's closest-hit outputs."""
     import torch
 
     t0 = time.perf_counter()
-    t_k, u_k, v_k, p_k = mod.closest(rays, *args)
-    occ_k = mod.any_hit(rays, *args)
+    t_k, u_k, v_k, p_k = getattr(mod, closest)(rays, *args)
+    occ_k = getattr(mod, any_hit)(rays, *args)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    t_p, u_p, v_p, p_p = mod.closest_plain(rays, *args)
-    occ_p = mod.any_hit_plain(rays, *args)
+    t_p, u_p, v_p, p_p = getattr(mod, closest + "_plain")(rays, *args)
+    occ_p = getattr(mod, any_hit + "_plain")(rays, *args)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     check(torch.equal(p_k, p_p), f"{name}: prim differs on {int((p_k != p_p).sum())} rays")
@@ -158,7 +206,7 @@ def compare_kernel(name, rays, mod, args, n_tris):
         errs.append(float((a - b).abs().max()))
         ulps.append(ulp_diff(a[valid], b[valid]))
     max_err, max_ulp = max(errs), max(ulps)
-    check(max_ulp <= 2, f"{name}: t/u/v differ by {max_ulp} ulp")
+    check(max_ulp <= max_ulp_allowed, f"{name}: t/u/v differ by {max_ulp} ulp")
     check(torch.equal(occ_k, occ_p), f"{name}: any-hit kernel != plain")
     check(torch.equal(occ_k, valid), f"{name}: any-hit != closest.valid")
     occ_err = float((occ_k.float() - occ_p.float()).abs().max())
@@ -167,7 +215,7 @@ def compare_kernel(name, rays, mod, args, n_tris):
         f"tris, {int(valid.sum())} hits, prim/valid exact, t/u/v max |diff| {max_err:.3g} "
         f"({max_ulp} ulp), any-hit == closest.valid == plain; kernels {t1 - t0:.3f} s, "
         f"plain {t2 - t1:.3f} s (wall)")
-    return max_err, occ_err, p_k
+    return max_err, occ_err, (t_k, u_k, v_k, p_k)
 
 
 def tree_soup(dev, torch, n=20_000, seed=7):
@@ -343,6 +391,159 @@ def make_rays(scene, camera, n, seed, torch, box=((-0.95, 0.05, -0.95), (0.95, 1
     return rays
 
 
+@contextlib.contextmanager
+def flatten_max_tris(n):
+    """Compile instanced scenes two-level above ``n`` world triangles (the
+    module constant, as the JAX package's bench forces it)."""
+    import akari_torch.scene.nodes as nodes
+
+    old = nodes.FLATTEN_MAX_TRIS
+    nodes.FLATTEN_MAX_TRIS = n
+    try:
+        yield
+    finally:
+        nodes.FLATTEN_MAX_TRIS = old
+
+
+def reset_all(mods):
+    for m in mods:
+        m.reset_launches()
+
+
+def others(mods, *skip):
+    """Launches of the traversal kernels outside ``skip``."""
+    return sum(sum(m.LAUNCHES.values()) for m in mods if m not in skip)
+
+
+def bound_ms(ops, nbytes):
+    """(least ms on the card, "operations" or "bytes")."""
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def walk_bound(stats, n_rays, any_hit):
+    """Bound of a traversal kernel from the work its plain version counted
+    on the same rays (``WalkStats``): slab tests, Moller-Trumbore tests,
+    instance transforms, and each distinct table row read once."""
+    from akari_torch.ops.instanced_tree_intersect import XFORM_OPS
+
+    ops = stats.slab * SLAB_OPS + stats.mt * MT_OPS + stats.xform * XFORM_OPS
+    nbytes = n_rays * (RAY_BYTES + (ANY_HIT_BYTES if any_hit else CLOSEST_BYTES))
+    nbytes += sum(ROW_BYTES[k] * stats.distinct(k) for k in stats.rows)
+    return bound_ms(ops, nbytes)
+
+
+def dense_bound(rays, tris, any_hit):
+    """Bound of the dense kernel: every ray tests every triangle (closest),
+    or the triangles up to its first hit in index order (any hit)."""
+    import torch
+
+    from akari_torch.ops import dense_intersect as di
+
+    n, n_tris = rays.shape[1], tris.shape[0]
+    if any_hit:
+        tests = 0
+        step = max(1, di.PLAIN_PAIRS_PER_CHUNK // n_tris)
+        for s in range(0, n, step):
+            r = rays[:, s:s + step]
+            hit = di._pairwise_mt(r, tris, r[7])[0]
+            first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, n_tris)
+            tests += int(first.sum())
+    else:
+        tests = n * n_tris
+    nbytes = n * (RAY_BYTES + (ANY_HIT_BYTES if any_hit else CLOSEST_BYTES))
+    return bound_ms(tests * MT_OPS, nbytes + tris.numel() * 4)
+
+
+def plain_figures(plain, rays, any_hit, card):
+    """Count the plain version's work on the fused rays (untimed, for the
+    bound), then time it: on all the rays if the counting call took under
+    PLAIN_FULL_MAX_S, else on the first PLAIN_SUBSET. Returns (bound ms,
+    bound_by, plain ms, rays the plain time is for)."""
+    import torch
+
+    from akari_torch.ops.tree_intersect import WalkStats
+
+    stats = WalkStats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain(rays, stats=stats)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    b_ms, b_by = walk_bound(stats, rays.shape[1], any_hit)
+    sub = rays if count_s < PLAIN_FULL_MAX_S else rays[:, :PLAIN_SUBSET].contiguous()
+    p_ms = cuda_ms(lambda: plain(sub), iters=1, warmup=0)
+    log(f"    plain work: {stats.slab} slab tests, {stats.mt} MT tests, {stats.xform} "
+        f"transforms, distinct rows { {k: stats.distinct(k) for k in stats.rows} } "
+        f"(counted in {count_s:.1f} s); bound {b_ms:.4f} ms ({b_by}); plain "
+        f"{p_ms:.4f} ms on {sub.shape[1]} rays [card: {card}]")
+    return b_ms, b_by, p_ms, sub.shape[1]
+
+
+def capture_fused(mod, name, render_fn):
+    """The rays of the first launch of ``mod.<name>`` at the fused shape
+    during ``render_fn()``."""
+    captured = []
+    real = getattr(mod, name)
+
+    def capture(rays_, *args_):  # keeps the first fused launch's rays
+        if not captured and rays_.shape[1] == FUSED_RAYS:
+            captured.append(rays_.clone())
+        return real(rays_, *args_)
+
+    setattr(mod, name, capture)
+    try:
+        render_fn()
+    finally:
+        setattr(mod, name, real)
+    check(len(captured) == 1, f"no fused {name} launch of the expected shape was seen")
+    return captured[0]
+
+
+def write_forest_sdl(directory, res, spp, depth):
+    """The 32,258-triangle terrain prototype and the forest's light as OBJ
+    + MTL, and an .akari file placing 128 Instance nodes of it at the
+    forest's transforms; returns the .akari path."""
+    import numpy as np
+
+    from akari_torch.scene.builtin import forest_transforms, terrain_mesh
+
+    proto = terrain_mesh(128)
+    with open(os.path.join(directory, "forest.mtl"), "w") as f:
+        f.write("newmtl ground\nKd 0.73 0.71 0.68\n"
+                "newmtl light\nKd 0 0 0\nKe 14 13 11\n")
+    with open(os.path.join(directory, "terrain.obj"), "w") as f:
+        f.write("mtllib forest.mtl\n")
+        np.savetxt(f, proto.vertices, fmt="v %.9g %.9g %.9g")
+        f.write("usemtl ground\n")
+        np.savetxt(f, proto.indices + 1, fmt="f %d %d %d")
+    with open(os.path.join(directory, "light.obj"), "w") as f:
+        f.write("mtllib forest.mtl\nv -2 4 2\nv -2 4 -2\nv 2 4 -2\nv 2 4 2\n"
+                "usemtl light\nf 1 2 3\nf 1 3 4\n")
+    placements = ",\n".join(
+        "        Instance { mesh: $terrain, transform: ["
+        + ", ".join(f"{x:.9g}" for x in m.reshape(-1)) + "] }"
+        for m in forest_transforms(128)
+    )
+    akari = os.path.join(directory, "forest.akari")
+    rx, ry, rz = FOREST_SDL_ROTATION
+    with open(akari, "w") as f:
+        f.write(
+            "export camera = PerspectiveCamera {\n"
+            f"    fov: 40, position: [6, 5, 9], rotation: [{rx}, {ry}, {rz}],\n"
+            f"    resolution: [{res}, {res}]\n}}\n"
+            'export terrain = AkariMesh { path: "terrain.obj" }\n'
+            'export light = AkariMesh { path: "light.obj" }\n'
+            "export scene = Scene {\n"
+            "    camera: $camera,\n"
+            f"    integrator: Path {{ spp: {spp}, max_depth: {depth} }},\n"
+            '    output: "forest.png",\n'
+            f"    shapes: [\n{placements},\n        $light\n    ]\n}}\n"
+        )
+    return akari
+
+
 def main():
     import torch
 
@@ -351,16 +552,26 @@ def main():
         return 1
     import numpy as np
 
+    from akari_torch.bvh import cluster_tree as ct
     from akari_torch.cli import render as cli_render
     from akari_torch.core.v3 import V3
     from akari_torch.integrators import path as path_mod
     from akari_torch.integrators.path import PathConfig, render
     from akari_torch.kernels import build as kbuild
     from akari_torch.native import loader as native_loader
+    from akari_torch.ops import cluster_intersect as ci
     from akari_torch.ops import dense_intersect as di
+    from akari_torch.ops import instanced_tree_intersect as iti
     from akari_torch.ops import tree_intersect as ti
+    from akari_torch.ops.intersect import occlude_soa
     from akari_torch.ops.ray_sort import sort_keys_soa
-    from akari_torch.scene.builtin import cornell_box, terrain_scene
+    from akari_torch.scene.builtin import (
+        cornell_box,
+        instanced_bench_scene,
+        instanced_forest_scene,
+        terrain_scene,
+    )
+    traversal = (di, ti, iti, ci)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -417,16 +628,15 @@ def main():
     chunk = max(1, min(cfg.spp, path_mod.MAX_RAYS_IN_FLIGHT // n_px))
     n_trace = (cfg.spp + chunk - 1) // chunk
     torch.cuda.synchronize()
-    di.reset_launches()
-    ti.reset_launches()
+    reset_all(traversal)
     img = render(scene, sc.camera, cfg, seed=0)
     torch.cuda.synchronize()
     launches = dict(di.LAUNCHES)
     expected = n_trace * (1 + cfg.max_depth)
-    log(f"  launches {launches}, tree {ti.LAUNCHES}; expected closest = {n_trace} "
-        f"trace_paths x (1 + {cfg.max_depth}) = {expected}")
+    log(f"  launches {launches}, others {others(traversal, di)}; expected closest = "
+        f"{n_trace} trace_paths x (1 + {cfg.max_depth}) = {expected}")
     check(launches["closest"] == expected, f"launches {launches}, expected {expected}")
-    check(sum(ti.LAUNCHES.values()) == 0, f"tree launches {ti.LAUNCHES} on the Cornell box")
+    check(others(traversal, di) == 0, "other traversal kernels launched on the Cornell box")
     img_np = img.cpu().numpy()
     check(img_np.shape == (256, 256, 3), f"image shape {img_np.shape}")
     check(bool(np.all(np.isfinite(img_np))), "non-finite radiance")
@@ -515,7 +725,7 @@ def main():
         box=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)),
         hit_t=lambda r: ti.closest_plain(r, *sargs)[0],
     )
-    err_tsoup, occ_tsoup, prim_soup = compare_kernel(
+    err_tsoup, occ_tsoup, (_, _, _, prim_soup) = compare_kernel(
         "tree soup", srays, ti, sargs, soup_tris.shape[0])
     sub = srays[:, :SOUP_SUBSET].contiguous()
     dense_prim = di.closest_plain(sub, soup_tris)[3]
@@ -536,8 +746,7 @@ def main():
     render(scene512, sc512.camera, cfg, seed=0)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    di.reset_launches()
-    ti.reset_launches()
+    reset_all(traversal)
     out = []
     t0 = time.perf_counter()
     ms512 = cuda_ms(lambda: out.append(render(scene512, sc512.camera, cfg, seed=0)),
@@ -552,6 +761,7 @@ def main():
     check(tree_launches == {"closest": expected, "any_hit": 0},
           f"tree launches {tree_launches}, expected {expected}")
     check(dense_launches == {"closest": 0, "any_hit": 0}, f"dense launches {dense_launches}")
+    check(others(traversal, di, ti) == 0, "instanced or cluster kernels launched on terrain")
     check_image(out[0].cpu().numpy(), 256, "terrain n=512")
     frame_line("terrain n=512 256^2 spp 4 depth 5", ms512, wall512, peak512, 256, cfg, card)
     log(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
@@ -586,8 +796,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         akari = write_terrain_obj(tmp, sc512, 256, 4, 5)
         out_png = os.path.join(tmp, "terrain.png")
-        di.reset_launches()
-        ti.reset_launches()
+        reset_all(traversal)
         t0 = time.perf_counter()
         rc = cli_render.main(["-i", akari, "-o", out_png, "--device", "cuda", "-v"])
         cli_obj_s = time.perf_counter() - t0
@@ -604,21 +813,7 @@ def main():
     # ---- phase 11: tree kernel and plain walk times ----------------------
     t_phase = time.perf_counter()
     log(f"phase 11: tree kernel vs plain walk at the fused shape [card: {card}]")
-    captured = []
-    closest = ti.closest
-
-    def capture(rays_, *args_):  # keeps the first fused launch's rays
-        if not captured and rays_.shape[1] == FUSED_RAYS:
-            captured.append(rays_.clone())
-        return closest(rays_, *args_)
-
-    ti.closest = capture
-    try:
-        render(scene512, sc512.camera, cfg, seed=0)
-    finally:
-        ti.closest = closest
-    check(len(captured) == 1, "no fused launch of the expected shape was seen")
-    rays_u = captured[0]  # what the main path launches on
+    rays_u = capture_fused(ti, "closest", lambda: render(scene512, sc512.camera, cfg, seed=0))
     k = (scene512.n_tris + 127) // 128
     key = sort_keys_soa(
         V3(*rays_u[0:3]), V3(*rays_u[3:6]),
@@ -632,72 +827,296 @@ def main():
     times["kernel_sorted"] = cuda_ms(lambda: ti.closest(rays_s, *targs), iters=20)
     times["any_hit_unsorted"] = cuda_ms(lambda: ti.any_hit(rays_u, *targs), iters=20)
     times["any_hit_sorted"] = cuda_ms(lambda: ti.any_hit(rays_s, *targs), iters=20)
-    times["plain_unsorted"] = cuda_ms(lambda: ti.closest_plain(rays_u, *targs), iters=1, warmup=1)
-    times["plain_sorted"] = cuda_ms(lambda: ti.closest_plain(rays_s, *targs), iters=1, warmup=0)
-    times["any_hit_plain_unsorted"] = cuda_ms(lambda: ti.any_hit_plain(rays_u, *targs),
-                                              iters=1, warmup=0)
+    times["plain_sorted"] = cuda_ms(lambda: ti.closest_plain(rays_s, *targs), iters=1, warmup=1)
     n_dead = int((rays_u[7] <= rays_u[6]).sum())
     log(f"  fused launch: {FUSED_RAYS} rays ({n_dead} dead) x {scene512.n_tris} tris; "
         f"ms per call (CUDA events) [card: {card}]:")
     for name_, ms_ in times.items():
         log(f"    {name_}: {ms_:.4f} ms")
+    tree_fig = {
+        "closest": plain_figures(lambda r, stats=None: ti.closest_plain(r, *targs, stats=stats),
+                                 rays_u, False, card),
+        "any_hit": plain_figures(lambda r, stats=None: ti.any_hit_plain(r, *targs, stats=stats),
+                                 rays_u, True, card),
+    }
     log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 12: instanced and linear kernels vs plain ----------------
+    t_phase = time.perf_counter()
+    log("phase 12: instanced tree, flat cluster and linear instanced kernels vs plain")
+    sc_f = instanced_forest_scene(256, 256)
+    forest, compile_f = compile_timed(sc_f, dev, torch)
+    check(forest.instances is not None and forest.intersector == "tree",
+          f"instanced-forest128 compiled {forest.intersector}, instances "
+          f"{forest.instances is not None}")
+    check(forest.n_tris == 4_129_026, f"virtual triangles {forest.n_tris}")
+    log(f"  instanced-forest128: {forest.instances.n_instances} instances, {forest.n_tris} "
+        f"world triangles, {forest.tri_v0.shape[0]} stored, {forest.tri_tree.shape[0]} node "
+        f"rows, leaf_span {forest.tree_leaf_span}; {compile_f}")
+    iargs = (forest.inst_f32, forest.inst_i32, forest.tri_tree, forest.inst_tris,
+             forest.tree_leaf_span)
+    frays = make_rays(
+        forest, sc_f.camera, INST_RAYS, 4, torch, box=((-6.0, 0.0, -6.0), (6.0, 1.5, 6.0)),
+        hit_t=lambda r: iti.closest_plain(r, *iargs)[0],
+    )
+    err_it, occ_it, hit_it = compare_kernel(
+        "instanced tree", frays, iti, iargs, forest.n_tris, max_ulp_allowed=0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    perm = torch.randperm(frays.shape[1], generator=g, device=dev)
+    hit_perm = iti.closest(frays[:, perm].contiguous(), *iargs)
+    check(all(torch.equal(a, b[perm]) for a, b in zip(hit_perm, hit_it)),
+          "instanced tree: a ray's answer depends on its neighbours")
+    check(torch.equal(iti.any_hit(frays[:, perm].contiguous(), *iargs),
+                      iti.any_hit(frays, *iargs)[perm]),
+          "instanced tree any-hit: a ray's answer depends on its neighbours")
+    log(f"  instanced tree on a permuted ray order: every ray's answer unchanged")
+    snodes, sstore, sspan = sargs
+    st = soup_tris.cpu().numpy()
+    scl = ct.build_clusters(st[:, 0:3], st[:, 3:6], st[:, 6:9])
+    cargs = (torch.from_numpy(ct.build_superclusters(scl, st.shape[0])).to(dev),
+             torch.from_numpy(scl).to(dev), sstore)
+    crays = make_rays(
+        SimpleNamespace(device=dev), sc512.camera, INST_RAYS, 6, torch,
+        box=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)),
+        hit_t=lambda r: ci.closest_plain(r, *cargs)[0],
+    )
+    err_cl, occ_cl, hit_cl = compare_kernel(
+        "flat cluster (soup, tree nulled)", crays, ci, cargs, st.shape[0], max_ulp_allowed=0)
+    check(torch.equal(hit_cl[3], ti.closest(crays, snodes, sstore, sspan)[3]),
+          "flat cluster prims != tree walk prims on the soup (tie rule)")
+    ncargs = (forest.inst_f32, forest.inst_i32, forest.tri_superclusters, forest.tri_clusters,
+              forest.inst_tris)
+    err_ic, occ_ic, hit_ic = compare_kernel(
+        "linear instanced (forest, tree nulled)", frays, ci, ncargs, forest.n_tris,
+        closest="instanced_closest", any_hit="instanced_any_hit", max_ulp_allowed=0)
+    check(all(torch.equal(a, b) for a, b in zip(hit_ic, hit_it)),
+          "linear instanced kernel != instanced tree kernel on the forest rays")
+    log("  linear instanced kernel == instanced tree kernel on every forest ray")
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 13: instanced-forest128 on auto ----------------------------
+    t_phase = time.perf_counter()
+    log("phase 13: render(instanced-forest128 256x256, spp=4, max_depth=5) on auto")
+    render(forest, sc_f.camera, cfg, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(traversal)
+    out = []
+    t0 = time.perf_counter()
+    ms_f = cuda_ms(lambda: out.append(render(forest, sc_f.camera, cfg, seed=0)),
+                   iters=1, warmup=0)
+    wall_f = time.perf_counter() - t0
+    inst_launches = dict(iti.LAUNCHES)
+    peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = n_trace * (1 + cfg.max_depth)
+    log(f"  launches: instanced tree {inst_launches}, dense {di.LAUNCHES}, tree "
+        f"{ti.LAUNCHES}, cluster {ci.LAUNCHES}; expected {expected}")
+    check(inst_launches == {"closest": expected, "any_hit": 0},
+          f"instanced tree launches {inst_launches}, expected {expected}")
+    check(others(traversal, iti) == 0, "dense, tree or cluster kernels launched on the forest")
+    check_image(out[0].cpu().numpy(), 256, "instanced-forest128")
+    frame_line("instanced-forest128 256^2 spp 4 depth 5", ms_f, wall_f, peak_f, 256, cfg, card)
+    log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 14: instanced-bench64 --------------------------------------
+    t_phase = time.perf_counter()
+    log("phase 14: render(instanced-bench64 256x256, spp=4, max_depth=5), forced two-level")
+    sc_b = instanced_bench_scene(256, 256)
+    with flatten_max_tris(1):
+        bench64, compile_b = compile_timed(sc_b, dev, torch)
+    check(bench64.instances is not None and bench64.n_tris == 64 * 32_258,
+          f"instanced-bench64: {bench64.n_tris} virtual tris")
+    log(f"  instanced-bench64: {bench64.n_tris} world triangles, "
+        f"{bench64.tri_v0.shape[0]} stored; {compile_b}")
+    reset_all(traversal)
+    img_b, ms_b, wall_b, peak_b = render_frame(render, bench64, sc_b.camera, cfg, torch)
+    log(f"  launches over warm-up + timed frame: instanced tree {iti.LAUNCHES}")
+    check(iti.LAUNCHES["closest"] == 2 * expected and others(traversal, iti) == 0,
+          f"instanced-bench64 launches {iti.LAUNCHES}")
+    img_b = img_b.cpu().numpy()
+    check(img_b.shape == (256, 256, 3) and not img_b.any(),
+          "instanced-bench64 has no light: its image must be black")
+    frame_line("instanced-bench64 256^2 spp 4 depth 5", ms_b, wall_b, peak_b, 256, cfg, card)
+    del bench64
+    torch.cuda.empty_cache()
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 15: instanced golden -----------------------------------------
+    log("phase 15: instanced forest (8 x n=16) 64x64 spp 4 depth 5 seed 0 vs the golden")
+    sc_g = instanced_forest_scene(64, 64, n_instances=8, n=16)
+    with flatten_max_tris(1):
+        scene_g = sc_g.compile().to(dev)
+    check(scene_g.instances is not None, "the golden forest did not compile two-level")
+    img_g = render(scene_g, sc_g.camera, PathConfig(spp=4, max_depth=5), seed=0)
+    images_match(img_g.cpu().numpy(), np.load(INSTANCED_GOLDEN))
+
+    # ---- phase 16: the CLI on 128 Instance nodes ----------------------------
+    t_phase = time.perf_counter()
+    log("phase 16: CLI render of 128 Instance nodes of a 32,258-triangle OBJ, 256x256 spp 4")
+    with tempfile.TemporaryDirectory() as tmp:
+        akari = write_forest_sdl(tmp, 256, 4, 5)
+        out_png = os.path.join(tmp, "forest.png")
+        reset_all(traversal)
+        t0 = time.perf_counter()
+        rc = cli_render.main(["-i", akari, "-o", out_png, "--device", "cuda", "-v"])
+        cli_forest_s = time.perf_counter() - t0
+        check(rc == 0, f"CLI returned {rc}")
+        check(iti.LAUNCHES["closest"] > 0 and others(traversal, iti) == 0,
+              f"CLI launches: instanced tree {iti.LAUNCHES}, others {others(traversal, iti)}")
+        px = png_pixels(out_png)
+    check(px.shape == (256, 256, 3), f"CLI image {px.shape}")
+    log(f"  CLI (parse OBJ + SDL + two-level compile + render + PNG): {cli_forest_s:.3f} s "
+        f"wall, PNG mean {px.mean():.1f}/255, instanced tree launches "
+        f"{iti.LAUNCHES['closest']} [card: {card}]")
+    check(px.mean() > 20, f"CLI image too dark: {px.mean()}")
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 17: linear routes and occlusion queries ----------------------
+    t_phase = time.perf_counter()
+    log("phase 17: the linear kernels' routes (tree nulled) and occlude_soa on every route")
+    forest_nt = dataclasses.replace(forest, tri_tree=None)
+    terrain_nt = dataclasses.replace(scene512, tri_tree=None)
+    cfg1 = PathConfig(spp=1, max_depth=5)
+    linear = {}
+    for label, scene_, cam_ in (("forest", forest_nt, sc_f.camera),
+                                ("terrain", terrain_nt, sc512.camera)):
+        torch.cuda.synchronize()
+        reset_all(traversal)
+        img_ = render(scene_, cam_, cfg1, seed=0)
+        torch.cuda.synchronize()
+        linear[label] = dict(ci.LAUNCHES)
+        log(f"  render({label}, tree nulled, 256^2 spp 1): cluster {ci.LAUNCHES}, "
+            f"others {others(traversal, ci)}")
+        check(others(traversal, ci) == 0, f"{label}: other kernels on the linear route")
+        check_image(img_.cpu().numpy(), 256, f"{label} with its tree nulled")
+    check(linear["forest"]["instanced_closest"] == 1 + cfg1.max_depth
+          and linear["terrain"]["closest"] == 1 + cfg1.max_depth,
+          f"linear route launches {linear}")
+    occ_launches = {}
+    for label, scene_, rays_, mod in (
+            ("cornell", scene, rays, di), ("terrain", scene512, trays, ti),
+            ("forest", forest, frays, iti), ("terrain, tree nulled", terrain_nt, trays, ci),
+            ("forest, tree nulled", forest_nt, frays, ci)):
+        torch.cuda.synchronize()
+        reset_all(traversal)
+        occ = occlude_soa(scene_, V3(*rays_[0:3]), V3(*rays_[3:6]), rays_[6], rays_[7])
+        torch.cuda.synchronize()
+        occ_launches[label] = {k: v for m in traversal for k, v in
+                               ((f"{m.__name__.split('.')[-1]}.{n}", c)
+                                for n, c in m.LAUNCHES.items()) if v}
+        log(f"  occlude_soa({label}): {int(occ.sum())} of {occ.shape[0]} occluded; "
+            f"launches {occ_launches[label]}")
+        check(sum(mod.LAUNCHES.values()) == 1 and others(traversal, mod) == 0,
+              f"occlude_soa({label}) launches {occ_launches[label]}")
+    any_hit_launches = {
+        "dense": occ_launches["cornell"].get("dense_intersect.any_hit", 0),
+        "tree": occ_launches["terrain"].get("tree_intersect.any_hit", 0),
+        "instanced_tree": occ_launches["forest"].get("instanced_tree_intersect.any_hit", 0),
+        "cluster": occ_launches["terrain, tree nulled"].get("cluster_intersect.any_hit", 0),
+        "instanced_cluster": occ_launches["forest, tree nulled"].get(
+            "cluster_intersect.instanced_any_hit", 0),
+    }
+    log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 18: timings at the fused shape and lower bounds --------------
+    t_phase = time.perf_counter()
+    log(f"phase 18: instanced and linear kernels at the fused shape [card: {card}]")
+    frays_u = capture_fused(iti, "closest", lambda: render(forest, sc_f.camera, cfg, seed=0))
+    n_dead = int((frays_u[7] <= frays_u[6]).sum())
+    log(f"  forest fused launch: {FUSED_RAYS} rays ({n_dead} dead); terrain fused launch "
+        f"of phase 11 for the flat cluster kernel; ms per call (CUDA events):")
+    cl_tabs = (scene512.tri_superclusters, scene512.tri_clusters, scene512.tree_tris)
+    ms = {
+        "instanced_tree_closest": cuda_ms(lambda: iti.closest(frays_u, *iargs), iters=20),
+        "instanced_tree_any_hit": cuda_ms(lambda: iti.any_hit(frays_u, *iargs), iters=20),
+        "instanced_cluster_closest": cuda_ms(
+            lambda: ci.instanced_closest(frays_u, *ncargs), iters=10),
+        "instanced_cluster_any_hit": cuda_ms(
+            lambda: ci.instanced_any_hit(frays_u, *ncargs), iters=10),
+        "cluster_closest": cuda_ms(lambda: ci.closest(rays_u, *cl_tabs), iters=10),
+        "cluster_any_hit": cuda_ms(lambda: ci.any_hit(rays_u, *cl_tabs), iters=10),
+    }
+    for name_, ms_ in ms.items():
+        log(f"    {name_}: {ms_:.4f} ms")
+    fig = {
+        "instanced_tree_closest": plain_figures(
+            lambda r, stats=None: iti.closest_plain(r, *iargs, stats=stats), frays_u, False, card),
+        "instanced_tree_any_hit": plain_figures(
+            lambda r, stats=None: iti.any_hit_plain(r, *iargs, stats=stats), frays_u, True, card),
+        "instanced_cluster_closest": plain_figures(
+            lambda r, stats=None: ci.instanced_closest_plain(r, *ncargs, stats=stats),
+            frays_u, False, card),
+        "instanced_cluster_any_hit": plain_figures(
+            lambda r, stats=None: ci.instanced_any_hit_plain(r, *ncargs, stats=stats),
+            frays_u, True, card),
+        "cluster_closest": plain_figures(
+            lambda r, stats=None: ci.closest_plain(r, *cl_tabs, stats=stats), rays_u, False, card),
+        "cluster_any_hit": plain_figures(
+            lambda r, stats=None: ci.any_hit_plain(r, *cl_tabs, stats=stats), rays_u, True, card),
+        "tree_closest": tree_fig["closest"],
+        "tree_any_hit": tree_fig["any_hit"],
+    }
+    ms["tree_closest"] = times["kernel_unsorted"]
+    ms["tree_any_hit"] = times["any_hit_unsorted"]
+    dense_fused = rays[:, :FUSED_RAYS].contiguous()
+    for kname, any_hit_, k_ms, p_ms in (("dense_closest", False, kernel_ms, plain_ms),
+                                        ("dense_any_hit", True, anyhit_ms, anyhit_plain_ms)):
+        b_ms, b_by = dense_bound(dense_fused, scene.prim_table, any_hit_)
+        fig[kname] = (b_ms, b_by, p_ms, FUSED_RAYS)
+        ms[kname] = k_ms
+        log(f"    {kname}: bound {b_ms:.4f} ms ({b_by}) at {FUSED_RAYS} rays x 36 tris")
+    log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 12: result ------------------------------------------------
-    record = {
-        "kernels": [
-            {
-                "name": "dense_closest",
-                "route": "cuda",
-                "source": "akari_torch/kernels/csrc/dense_intersect.cu",
-                "replaces": "akari_tpu/ops/pallas_intersect.py:141",
-                "launches": launches["closest"],
-                "max_abs_err": max_abs_err,
-                "ms": kernel_ms,
-                "plain_ms": plain_ms,
-            },
-            {
-                "name": "tree_closest",
-                "route": "cuda",
-                "source": "akari_torch/kernels/csrc/tree_intersect.cu",
-                "replaces": "akari_tpu/ops/pallas_tree.py:194",
-                "launches": tree_launches["closest"],
-                "max_abs_err": tree_err,
-                "ms": times["kernel_unsorted"],
-                "plain_ms": times["plain_unsorted"],
-            },
-        ],
-        # ported with the same launcher, not on the fused main path
-        "off_path_kernels": [
-            {
-                "name": "dense_any_hit",
-                "route": "cuda",
-                "source": "akari_torch/kernels/csrc/dense_intersect.cu",
-                "replaces": "akari_tpu/ops/pallas_intersect.py:153",
-                "launches": launches["any_hit"],
-                "max_abs_err": occ_abs_err,
-                "ms": anyhit_ms,
-                "plain_ms": anyhit_plain_ms,
-            },
-            {
-                "name": "tree_any_hit",
-                "route": "cuda",
-                "source": "akari_torch/kernels/csrc/tree_intersect.cu",
-                "replaces": "akari_tpu/ops/pallas_tree.py:194",
-                "launches": tree_launches["any_hit"],
-                "max_abs_err": tree_occ_err,
-                "ms": times["any_hit_unsorted"],
-                "plain_ms": times["any_hit_plain_unsorted"],
-            },
-        ],
-    }
-    print(json.dumps(record), flush=True)
+    # ---- phase 19: result ----------------------------------------------------
+    rows = [
+        ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
+         launches["closest"], max_abs_err),
+        ("dense_any_hit", "dense_intersect.cu", "pallas_intersect.py:153",
+         any_hit_launches["dense"], occ_abs_err),
+        ("tree_closest", "tree_intersect.cu", "pallas_tree.py:194",
+         tree_launches["closest"], tree_err),
+        ("tree_any_hit", "tree_intersect.cu", "pallas_tree.py:194",
+         any_hit_launches["tree"], tree_occ_err),
+        ("instanced_tree_closest", "instanced_tree_intersect.cu", "pallas_tree.py:459",
+         inst_launches["closest"], err_it),
+        ("instanced_tree_any_hit", "instanced_tree_intersect.cu", "pallas_tree.py:459",
+         any_hit_launches["instanced_tree"], occ_it),
+        ("cluster_closest", "cluster_intersect.cu", "pallas_cluster.py:112",
+         linear["terrain"]["closest"], err_cl),
+        ("cluster_any_hit", "cluster_intersect.cu", "pallas_cluster.py:112",
+         any_hit_launches["cluster"], occ_cl),
+        ("instanced_cluster_closest", "cluster_intersect.cu", "pallas_cluster.py:253",
+         linear["forest"]["instanced_closest"], err_ic),
+        ("instanced_cluster_any_hit", "cluster_intersect.cu", "pallas_cluster.py:253",
+         any_hit_launches["instanced_cluster"], occ_ic),
+    ]
+    kernels = []
+    for kname, src, repl, n_launch, err in rows:
+        b_ms, b_by, p_ms, p_rays = fig[kname]
+        check(n_launch > 0, f"{kname} was launched no time on its path")
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"akari_torch/kernels/csrc/{src}",
+            "replaces": f"akari_tpu/ops/{repl}",
+            "launches": n_launch,
+            "max_abs_err": err,
+            "ms": ms[kname],
+            "plain_ms": p_ms,
+            "plain_rays": p_rays,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            # no single PyTorch call computes a closest or any ray-triangle hit
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
     }), flush=True)
     return 0
+
 
 
 if __name__ == "__main__":

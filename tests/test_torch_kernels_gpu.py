@@ -169,3 +169,140 @@ def test_tree_wrapper_refuses_what_the_kernel_cannot_take(dev):
         ti.any_hit(rays, nodes, store.cpu(), span)  # devices differ
     with pytest.raises(ValueError):
         ti.closest(rays, nodes, store.view(-1)[1:1201].view(100, 12), span)  # off 16 B
+
+
+# ------------------------ instanced and linear kernels ----------------------
+
+def _forest(dev, n_instances=8, n=16, nulled=False):
+    """The instanced forest compiled two-level (FLATTEN_MAX_TRIS = 1)."""
+    import dataclasses
+
+    import akari_torch.scene.nodes as nodes
+    from akari_torch.scene.builtin import instanced_forest_scene
+
+    old = nodes.FLATTEN_MAX_TRIS
+    nodes.FLATTEN_MAX_TRIS = 1
+    try:
+        sc = instanced_forest_scene(16, 16, n_instances=n_instances, n=n)
+        scene = sc.compile()
+    finally:
+        nodes.FLATTEN_MAX_TRIS = old
+    assert scene.instances is not None and scene.intersector == "tree"
+    if nulled:
+        scene = dataclasses.replace(scene, tri_tree=None)
+    return sc, scene.to(dev)
+
+
+def _forest_rays(n, dev, seed=0):
+    """Rays from above the forest toward the ground; a third dead, a
+    third bounded."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.rand((n, 3), generator=g, device=dev) * 14 - 7
+    o[:, 1] = o[:, 1] * 0.1 + 2.5
+    tgt = torch.rand((n, 3), generator=g, device=dev) * 14 - 7
+    tgt[:, 1] = 0.3
+    d = tgt - o
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.full((n,), di.T_MAX, device=dev)
+    t_max[::3] = 0.0
+    t_max[1::3] = 2.5
+    zero = torch.zeros(n, device=dev)
+    return di.pack_rays(V3(*o.T), V3(*d.T), zero, t_max).contiguous()
+
+
+def _check_module(mod, closest, any_hit, rays, args):
+    """Kernel == plain version bit for bit, any-hit == closest validity,
+    one launch each; the same answers on a permuted ray order."""
+    before = dict(mod.LAUNCHES)
+    got = getattr(mod, closest)(rays, *args)
+    occ = getattr(mod, any_hit)(rays, *args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[closest] == before[closest] + 1
+    assert mod.LAUNCHES[any_hit] == before[any_hit] + 1
+    want = getattr(mod, closest + "_plain")(rays, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, getattr(mod, any_hit + "_plain")(rays, *args))
+    assert torch.equal(occ, want[3] >= 0)
+    g = torch.Generator(device=rays.device).manual_seed(1)
+    perm = torch.randperm(rays.shape[1], generator=g, device=rays.device)
+    for a, b in zip(getattr(mod, closest)(rays[:, perm].contiguous(), *args), got):
+        assert torch.equal(a, b[perm])
+    assert torch.equal(getattr(mod, any_hit)(rays[:, perm].contiguous(), *args), occ[perm])
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 20_000])
+def test_instanced_tree_kernel_equals_plain(dev, n):
+    from akari_torch.ops import instanced_tree_intersect as iti
+
+    _, scene = _forest(dev)
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tris,
+            scene.tree_leaf_span)
+    got = _check_module(iti, "closest", "any_hit", _forest_rays(n, dev, seed=n), args)
+    if n == 20_000:
+        assert int((got[3] >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("n", [1, 129, 20_000])
+def test_instanced_cluster_kernel_equals_plain(dev, n):
+    from akari_torch.ops import cluster_intersect as ci
+
+    _, scene = _forest(dev, nulled=True)
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_superclusters, scene.tri_clusters,
+            scene.inst_tris)
+    got = _check_module(ci, "instanced_closest", "instanced_any_hit",
+                        _forest_rays(n, dev, seed=n), args)
+    if n == 20_000:
+        assert int((got[3] >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("n", [1, 129, 40_000])
+def test_flat_cluster_kernel_equals_plain(dev, n):
+    from akari_torch.ops import cluster_intersect as ci
+
+    tris, nodes, store, span = _tree_soup(dev)
+    t = tris.cpu().numpy()
+    clusters = ct.build_clusters(t[:, 0:3], t[:, 3:6], t[:, 6:9])
+    supers = torch.from_numpy(ct.build_superclusters(clusters, t.shape[0])).to(dev)
+    args = (supers, torch.from_numpy(clusters).to(dev), store)
+    rays = _rays(n, dev, seed=n)
+    got = _check_module(ci, "closest", "any_hit", rays, args)
+    # the linear sweep answers as the tree walk does (lowest index on ties)
+    for a, b in zip(got, ti.closest(rays, nodes, store, span)):
+        assert torch.equal(a, b)
+
+
+def test_instanced_trace_paths_launches_once_per_query(dev):
+    from akari_torch.ops import cluster_intersect as ci
+    from akari_torch.ops import instanced_tree_intersect as iti
+
+    sc, scene = _forest(dev)
+    cfg = PathConfig(spp=1, max_depth=3)
+    px = torch.arange(16 * 16, device=dev)
+    for m in (di, ti, iti, ci):
+        m.reset_launches()
+    li = trace_paths(scene, sc.camera, cfg, 0, torch.zeros_like(px), px)
+    torch.cuda.synchronize()
+    assert iti.LAUNCHES == {"closest": 1 + cfg.max_depth, "any_hit": 0}
+    assert sum(di.LAUNCHES.values()) + sum(ti.LAUNCHES.values()) + sum(ci.LAUNCHES.values()) == 0
+    assert bool(torch.isfinite(li).all())
+
+
+def test_instanced_wrappers_refuse_what_the_kernels_cannot_take(dev):
+    from akari_torch.ops import cluster_intersect as ci
+    from akari_torch.ops import instanced_tree_intersect as iti
+
+    _, scene = _forest(dev)
+    rays = _forest_rays(64, dev)
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tris,
+            scene.tree_leaf_span)
+    with pytest.raises(ValueError):
+        iti.closest(rays[:, ::2], *args)  # not contiguous
+    with pytest.raises(ValueError):
+        iti.closest(rays, scene.inst_f32.cpu(), *args[1:])  # devices differ
+    with pytest.raises(TypeError):
+        iti.any_hit(rays, scene.inst_f32, scene.inst_i32.float(), *args[2:])
+    with pytest.raises(ValueError):
+        ci.instanced_closest(rays, scene.inst_f32, scene.inst_i32, scene.tri_superclusters,
+                             scene.tri_clusters, scene.inst_tris.view(-1)[4:-8].view(-1, 12))

@@ -185,7 +185,7 @@ def test_obj_loader_matches_reference():
         ("export s = BDPT { spp: 4 }", "slice 4"),
         ("export s = AO { spp: 4 }", "slice 4"),
         ('export s = EnvMap { image: "sky.hdr" }', "slice 4"),
-        ('export s = Instance { mesh: 1 }', "slice 3"),
+        ('export s = AkariMesh { path: "x.npz" }', "slice 7"),
         ('export s = DiffuseMaterial { color: "wood.png" }', "slice 4"),
         ('export s = AkariMesh { path: "x.mesh" }', "slice 7"),
     ],
@@ -199,10 +199,11 @@ def test_unported_scene_state_is_refused():
     scene = Scene(shapes=[], environment=object())
     with pytest.raises(NotImplementedError, match="slice 4"):
         scene.compile()
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # instanced scenes compile since slice 3; other shapes are refused
+    with pytest.raises(TypeError, match="Mesh or Instance"):
         Scene(shapes=[object()]).compile()
     stand_in = SimpleNamespace(instances=object())
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="two-level"):
         from_numpy_scene(stand_in)
     with pytest.raises(ValueError):
         cornell_box(4, 4).compile(intersector="pallas")

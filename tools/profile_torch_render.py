@@ -1,15 +1,16 @@
 """Where the port's forward render spends its time on the GPU.
 
-Profiles one ``akari_torch`` render of a built-in scene (the Cornell box,
-or the procedural terrain, whose ``auto`` route is the tree walk above
-4,096 triangles) with ``torch.profiler`` (CPU + CUDA activities) after a
-warm-up render, and prints one JSON object: wall time without and with
-the profiler, device busy time and idle share (against the profiled wall
-time), the number of kernel launches, the dense and tree intersection
-kernels' launches and device time, and the top kernels by device time.
-Needs a CUDA device; fails without one.
+Profiles one ``akari_torch`` render of a built-in scene (the Cornell box;
+the procedural terrain, whose ``auto`` route is the tree walk above 4,096
+triangles; or ``instanced-forest128``, 128 copies of the 32,258-triangle
+terrain that ``auto`` compiles two-level) with ``torch.profiler`` (CPU +
+CUDA activities) after a warm-up render, and prints one JSON object: wall
+time without and with the profiler, device busy time and idle share
+(against the profiled wall time), the number of kernel launches, each
+traversal kernel's launches, device time and share of busy time, and the
+top kernels by device time. Needs a CUDA device; fails without one.
 
-Usage: python tools/profile_torch_render.py [--scene cornell|terrain]
+Usage: python tools/profile_torch_render.py [--scene cornell|terrain|instanced]
        [--terrain-n 512] [--res 256] [--spp 4] [--max-depth 5]
        [--trace trace.json]
 """
@@ -28,7 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=["cornell", "terrain"], default="cornell")
+    ap.add_argument("--scene", choices=["cornell", "terrain", "instanced"], default="cornell")
     ap.add_argument("--terrain-n", type=int, default=512,
                     help="terrain grid size (2 (n-1)^2 + 2 triangles)")
     ap.add_argument("--res", type=int, default=256)
@@ -46,9 +47,19 @@ def main(argv=None):
         return 1
     sys.path.insert(0, ROOT)
     from akari_torch.integrators.path import PathConfig, render
+    from akari_torch.ops import cluster_intersect as ci
     from akari_torch.ops import dense_intersect as di
+    from akari_torch.ops import instanced_tree_intersect as iti
     from akari_torch.ops import tree_intersect as ti
-    from akari_torch.scene.builtin import cornell_box, terrain_scene
+    from akari_torch.scene.builtin import cornell_box, instanced_forest_scene, terrain_scene
+
+    # traversal kernel -> (launch counts, a substring of its device name)
+    traversal = {
+        "dense": (di, "dense_intersect_kernel"),
+        "tree": (ti, "tree_intersect_kernel"),
+        "instanced_tree": (iti, "instanced_tree_kernel"),
+        "cluster": (ci, "cluster_kernel"),
+    }
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -57,6 +68,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     if args.scene == "terrain":
         sc = terrain_scene(args.res, args.res, n=args.terrain_n)
+    elif args.scene == "instanced":
+        sc = instanced_forest_scene(args.res, args.res)
     else:
         sc = cornell_box(args.res, args.res)
     scene = sc.compile().to(dev)
@@ -69,8 +82,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
 
-    di.reset_launches()
-    ti.reset_launches()
+    for mod, _ in traversal.values():
+        mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         render(scene, sc.camera, cfg, seed=0)
@@ -85,12 +98,14 @@ def main(argv=None):
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3  # us -> ms
-    dense_ms = sum(
-        e.device_time_total for e in kernels if "dense_intersect_kernel" in e.name
-    ) / 1e3
-    tree_ms = sum(
-        e.device_time_total for e in kernels if "tree_intersect_kernel" in e.name
-    ) / 1e3
+    per_kernel = {}
+    for label, (mod, key) in traversal.items():
+        ms = sum(e.device_time_total for e in kernels if key in e.name) / 1e3
+        per_kernel[label] = {
+            "launches": sum(mod.LAUNCHES.values()),
+            "ms": ms,
+            "share_of_busy": (ms / busy_ms) if kernels else "not measured",
+        }
     by_name = {}
     for e in kernels:
         agg = by_name.setdefault(e.name, [0, 0.0])
@@ -109,11 +124,7 @@ def main(argv=None):
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else "not measured",
         "kernel_launches": len(kernels),
-        "dense_kernel_launches": di.LAUNCHES["closest"] + di.LAUNCHES["any_hit"],
-        "dense_kernel_ms": dense_ms,
-        "tree_kernel_launches": ti.LAUNCHES["closest"] + ti.LAUNCHES["any_hit"],
-        "tree_kernel_ms": tree_ms,
-        "tree_kernel_share_of_busy": (tree_ms / busy_ms) if kernels else "not measured",
+        "traversal_kernels": per_kernel,
         "mpaths_per_s_unprofiled": paths / (plain_wall_ms / 1e3) / 1e6,
         "top_kernels": [
             {"name": name[:90], "count": c, "ms": ms} for name, (c, ms) in top
