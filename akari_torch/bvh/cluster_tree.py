@@ -211,9 +211,25 @@ def tree_depth(nodes):
     return depth
 
 
+def tri_blocks(tri_v0, tri_e1, tri_e2):
+    """[9, Tpad] float32 component-major triangle store of the tree walks:
+    rows v0.xyz e1.xyz e2.xyz, triangles on the minor axis, zero columns up
+    to a multiple of TRI_TILE. Rows 0-8 of the reference's ``tri_blocks``
+    (``pack_tris_t`` layout; its rows 9-15 are zero and not kept), so a
+    warp reading component c of 32 consecutive triangles reads 128
+    contiguous bytes."""
+    t = np.asarray(tri_v0).shape[0]
+    out = np.zeros((9, n_clusters(t) * TRI_TILE), np.float32)
+    out[0:3, :t] = np.asarray(tri_v0, np.float32).T
+    out[3:6, :t] = np.asarray(tri_e1, np.float32).T
+    out[6:9, :t] = np.asarray(tri_e2, np.float32).T
+    return out
+
+
 def tree_tris(tri_v0, tri_e1, tri_e2):
-    """[T, 12] float32 triangle store of the tree kernel: v0.xyz e1.xyz
-    e2.xyz and 3 pad floats, so a row is three aligned 16-byte loads."""
+    """[T, 12] float32 triangle rows of the linear cluster kernels: v0.xyz
+    e1.xyz e2.xyz and 3 pad floats, so a row is three aligned 16-byte
+    loads."""
     t = np.asarray(tri_v0).shape[0]
     out = np.zeros((t, 12), np.float32)
     out[:, 0:3] = tri_v0

@@ -1,13 +1,15 @@
-// Per-ray pieces shared by the port's traversal kernels (tree_intersect.cu,
+// Pieces shared by the port's traversal kernels (tree_intersect.cu,
 // instanced_tree_intersect.cu, cluster_intersect.cu): the reference's slab
-// test and Moller-Trumbore test in its operation order, and the closest-hit
-// record with the lowest-index tie rule. One thread owns one ray.
+// test and Moller-Trumbore test in its operation order, the closest-hit
+// record with the lowest-index tie rule, and the warp-cooperative tree walk
+// of the two tree kernels (warp_walk). One thread owns one ray.
 //
 // Built with --fmad=false and IEEE division (kernels/build.py), so every
 // float operation is rounded as the plain PyTorch versions round it.
 
 #pragma once
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace akr {
@@ -16,6 +18,8 @@ constexpr int BLOCK = 128;         // threads (rays) per block
 constexpr int STACK_DEPTH = 64;    // refs per ray (cluster_tree.STACK_DEPTH)
 constexpr int TRI_TILE = 128;      // triangles per cluster
 constexpr int SUPER = 32;          // clusters per supercluster
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float HIT_EPS = 1e-9f;
 constexpr float T_MAX = 1e30f;
 constexpr float DIR_EPS = 1e-12f;
@@ -102,10 +106,38 @@ __device__ __forceinline__ Best init_best(float tmax) {
   return b;
 }
 
+// Moller-Trumbore of ray (o, d, tmin) against triangle (v0, e1, e2) in the
+// operation order of `_pairwise_mt_t` (pallas_intersect.py:56-90): t, u, v
+// and whether it hits in (tmin, inf), without the comparison against a
+// best t.
+__device__ __forceinline__ bool mt_test(float ox, float oy, float oz, float dx,
+                                        float dy, float dz, float tmin,
+                                        float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        float& t, float& u, float& v) {
+  // pvec = d x e2
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv_det = 1.0f / (fabsf(det) < HIT_EPS ? 1.0f : det);
+  const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  // qvec = tvec x e1
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return (fabsf(det) >= HIT_EPS) && (u >= 0.f) && (v >= 0.f) &&
+         (u + v <= 1.f) && (t > tmin);
+}
+
 // Moller-Trumbore over `count` rows of a [*, 12] triangle store (v0 e1 e2
 // pad: three 16-byte loads a row) from row `first`; row first + j is prim
-// prim0 + j. The operation order of `_pairwise_mt_t`
-// (pallas_intersect.py:56-90). Returns true when an any-hit query is done.
+// prim0 + j. One ray per thread (the linear cluster kernels). Returns true
+// when an any-hit query is done.
 template <bool ANY_HIT>
 __device__ __forceinline__ bool tri_run(const Ray& r,
                                         const float4* __restrict__ tris,
@@ -114,25 +146,10 @@ __device__ __forceinline__ bool tri_run(const Ray& r,
   for (int j = 0; j < count; ++j) {
     const float4* tr = tris + 3 * (first + j);
     const float4 ta = __ldg(tr), tb = __ldg(tr + 1), tc = __ldg(tr + 2);
-    const float v0x = ta.x, v0y = ta.y, v0z = ta.z;
-    const float e1x = ta.w, e1y = tb.x, e1z = tb.y;
-    const float e2x = tb.z, e2y = tb.w, e2z = tc.x;
-    // pvec = d x e2
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const float inv_det = 1.0f / (fabsf(det) < HIT_EPS ? 1.0f : det);
-    const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv_det;
-    // qvec = tvec x e1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    const bool ok = (fabsf(det) >= HIT_EPS) && (u >= 0.f) && (v >= 0.f) &&
-                    (u + v <= 1.f) && (t > r.tmin);
+    float t, u, v;
+    const bool ok = mt_test(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin, ta.x,
+                            ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w, tc.x, t,
+                            u, v);
     if (ANY_HIT) {
       if (ok && t < b.t) {
         b.occluded = true;
@@ -164,6 +181,158 @@ __device__ __forceinline__ void store_best(const Best& b, long long i,
     u_out[i] = b.u;
     v_out[i] = b.v;
     prim_out[i] = b.prim;
+  }
+}
+
+// Where a tree walk finds a leaf's triangles: the component-major store
+// `blocks` ([9, stride] floats: rows v0.xyz e1.xyz e2.xyz, a triangle per
+// column) and, for the tree being walked, its cluster count, its real
+// triangle count (a flat scene's last cluster is cut there), the column
+// of its first cluster over TRI_TILE, and the prim id of its first
+// triangle. Cluster c is columns TRI_TILE (tile_base + c) onward, and its
+// triangle j is prim prim_base + TRI_TILE c + j.
+struct LeafStore {
+  const float* blocks;
+  long long stride;
+  int n_clusters, n_real, tile_base, prim_base;
+};
+
+// Push the hit children of inner node `ref` (the reference's slab test
+// with the live best t), far first so the near one pops first; near and
+// far by THIS ray's direction sign on the node's split axis.
+__device__ __forceinline__ void push_children(const Ray& r, bool neg_x,
+                                              bool neg_y, bool neg_z,
+                                              const float4* __restrict__ nodes,
+                                              int ref, float best_t,
+                                              int* stack, int& sp) {
+  const float4* row = nodes + 4 * (long long)ref;
+  const float4 a = __ldg(row), b = __ldg(row + 1);
+  const float4 c = __ldg(row + 2), e = __ldg(row + 3);
+  const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, best_t);
+  const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, best_t);
+  const int c0 = (int)e.x, c1 = (int)e.y, ax = (int)e.z;
+  const bool neg = ax == 0 ? neg_x : (ax == 1 ? neg_y : neg_z);
+  if (neg ? h0 : h1) stack[sp++] = neg ? c0 : c1;
+  if (neg ? h1 : h0) stack[sp++] = neg ? c1 : c0;
+}
+
+// The warp-cooperative walk of one tree (the flat scene's, or one
+// instance's prototype). Each lane owns ray r, its best hit b and a stack
+// of `sp` refs; a lane with sp == 0 (no ray, a dead or finished ray) takes
+// part as a helper. All 32 lanes of the warp must call it together, and
+// every lane stays in it until the warp is done. Until no lane holds a
+// leaf:
+//   (a) each lane without a pending leaf pops refs, slab-testing inner
+//       nodes, until it holds a leaf or its stack is empty;
+//   (b) for each lane k holding a leaf (a ballot), k's ray and best hit are
+//       broadcast, and the 32 lanes test the leaf's clusters against it, 32
+//       triangles a round, lane j reading column j of each of the nine rows:
+//       one 128-byte line per row a round;
+//   (c) closest: each lane keeps the lexicographic minimum of (t, prim)
+//       over its triangles' hits that beat k's best; a 5-step xor shuffle
+//       takes the minimum over the warp, and k takes it. That is the
+//       minimum k's own in-order loop would keep, whatever order the tests
+//       ran in. Any hit: a ballot of hits in (t_min, t_max) ends k's query.
+// So each ray visits the same nodes and leaves in the same order, with the
+// same best t at each slab test, as a walk by one thread.
+template <bool ANY_HIT>
+__device__ __forceinline__ void warp_walk(const Ray& r, Best& b, int* stack,
+                                          int sp,
+                                          const float4* __restrict__ nodes,
+                                          const LeafStore& ls, int leaf_span) {
+  const int lane = threadIdx.x & (WARP - 1);
+  const bool neg_x = r.dx < 0.f, neg_y = r.dy < 0.f, neg_z = r.dz < 0.f;
+  const long long s = ls.stride;
+  int leaf = -1;
+  while (true) {
+    // (a) traverse to the next leaf
+    while (leaf < 0 && sp > 0) {
+      const int ref = stack[--sp];
+      if (ref < 0) {
+        leaf = -ref - 1;
+      } else {
+        push_children(r, neg_x, neg_y, neg_z, nodes, ref, b.t, stack, sp);
+      }
+    }
+    unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
+    if (pending == 0) break;
+    do {
+      // (b) lane k's leaf against lane k's ray
+      const int k = __ffs(pending) - 1;
+      pending &= pending - 1;
+      const float ox = __shfl_sync(FULL_MASK, r.ox, k);
+      const float oy = __shfl_sync(FULL_MASK, r.oy, k);
+      const float oz = __shfl_sync(FULL_MASK, r.oz, k);
+      const float dx = __shfl_sync(FULL_MASK, r.dx, k);
+      const float dy = __shfl_sync(FULL_MASK, r.dy, k);
+      const float dz = __shfl_sync(FULL_MASK, r.dz, k);
+      const float tmin = __shfl_sync(FULL_MASK, r.tmin, k);
+      const float bt = __shfl_sync(FULL_MASK, b.t, k);
+      const int bp = __shfl_sync(FULL_MASK, b.prim, k);
+      const int blk = __shfl_sync(FULL_MASK, leaf, k);
+      float ct = __int_as_float(0x7f800000), cu = 0.f, cv = 0.f;
+      int cp = INT_MAX;
+      bool hit = false;
+      for (int j = 0; j < leaf_span && !hit; ++j) {
+        const int c = blk * leaf_span + j;
+        if (c >= ls.n_clusters) break;
+        const float* col =
+            ls.blocks + (long long)(ls.tile_base + c) * TRI_TILE + lane;
+#pragma unroll
+        for (int q = 0; q < TRI_TILE; q += WARP) {
+          const float* p = col + q;
+          float t, u, v;
+          const int local = c * TRI_TILE + q + lane;
+          const bool ok =
+              mt_test(ox, oy, oz, dx, dy, dz, tmin, __ldg(p), __ldg(p + s),
+                      __ldg(p + 2 * s), __ldg(p + 3 * s), __ldg(p + 4 * s),
+                      __ldg(p + 5 * s), __ldg(p + 6 * s), __ldg(p + 7 * s),
+                      __ldg(p + 8 * s), t, u, v) &&
+              local < ls.n_real;
+          if (ANY_HIT) {
+            hit = __any_sync(FULL_MASK, ok && t < bt);
+            if (hit) break;
+          } else {
+            const int prim = ls.prim_base + local;
+            if (ok && (t < bt || (t == bt && prim < bp)) &&
+                (t < ct || (t == ct && prim < cp))) {
+              ct = t;
+              cu = u;
+              cv = v;
+              cp = prim;
+            }
+          }
+        }
+      }
+      // (c) reduce to lane k
+      if (ANY_HIT) {
+        if (lane == k && hit) {
+          b.occluded = true;
+          sp = 0;
+        }
+      } else if (__any_sync(FULL_MASK, cp != INT_MAX)) {
+#pragma unroll
+        for (int off = WARP / 2; off > 0; off >>= 1) {
+          const float ot = __shfl_xor_sync(FULL_MASK, ct, off);
+          const int op = __shfl_xor_sync(FULL_MASK, cp, off);
+          const float ou = __shfl_xor_sync(FULL_MASK, cu, off);
+          const float ov = __shfl_xor_sync(FULL_MASK, cv, off);
+          if (ot < ct || (ot == ct && op < cp)) {
+            ct = ot;
+            cp = op;
+            cu = ou;
+            cv = ov;
+          }
+        }
+        if (lane == k) {  // every candidate beat k's best, so the least does
+          b.t = ct;
+          b.u = cu;
+          b.v = cv;
+          b.prim = cp;
+        }
+      }
+      if (lane == k) leaf = -1;
+    } while (pending);
   }
 }
 

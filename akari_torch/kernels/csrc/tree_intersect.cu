@@ -1,4 +1,5 @@
-// BVH2 tree-walk ray-triangle intersection for Hopper, one thread per ray.
+// BVH2 tree-walk ray-triangle intersection for Hopper: one lane per ray,
+// each warp testing its lanes' leaves together.
 //
 // Replaces the TPU kernel akari_tpu/ops/pallas_tree.py::_tree_kernel
 // (launched by `run_tree`, pl.pallas_call at pallas_tree.py:433), in its
@@ -28,30 +29,44 @@
 //     visits first; a stated divergence, ROADMAP Queue 3.) A miss gives
 //     prim -1, t = T_MAX, u = v = 0.
 //   any-hit: 1 at the first triangle hit in (t_min, t_max), else 0.
-// Design. The TPU kernel walks a 512-ray tile with one scalar stack in
-// SMEM, per-128-ray subtile masks and a 1-deep leaf DMA pipeline: answers
-// to VMEM and lane constraints Hopper does not have. Here each thread owns
-// a ray and an int32 stack of STACK_DEPTH refs in local memory (the host
-// asserts tree depth + 1 <= STACK_DEPTH when it builds the table, so no
-// overflow check is needed). Node rows (64 B) and triangle rows (48 B of
-// the [T, 12] store) are read as 16-byte __ldg loads through the read-only
-// cache; the 261 KB node table of a 522k-triangle scene stays in L2. The
-// packed store, rather than the first 48 B of each 128 B prim_table row,
-// makes the kernel 14-16 % faster at the fused launch (PERF.md).
+// The triangles are the reference's component-major store `tri_blocks`
+// (pack_tris_t layout, rows 0-8 kept): [9, Tpad] floats, v0.xyz e1.xyz
+// e2.xyz on the rows, one triangle per column, zero columns to a multiple
+// of 128.
+//
+// What bounded the earlier one-thread-per-ray design. Each
+// lane ran its leaf's 128 tests alone, reading a 48-byte row of a [T, 12]
+// store per test. The fused launch's secondary rays put the 32 lanes of a
+// warp in up to 32 different leaves, so each warp-wide row load touched up
+// to 32 lines: ~96 L1 wavefronts per 32 tests against ~15 SM-cycles of
+// float issue for them. Lanes whose ray was dead (47-64 % of the fused
+// launch) or finished idled until the warp's slowest ray was done.
+//
+// Design. The TPU kernel tests one triangle block against a 512-ray tile
+// with triangles on its 128 lanes; here too triangles go on lanes. A lane
+// owns a ray, its best hit and an int32 stack of STACK_DEPTH refs in local
+// memory (the host asserts tree depth + 1 <= STACK_DEPTH). The walk is
+// ray_common.cuh's warp_walk: lanes traverse inner nodes on their own until
+// each holds a leaf; then, leaf by leaf, the owner's ray is broadcast and
+// the 32 lanes test the leaf 32 triangles a round, reading each component
+// of 32 consecutive triangles as one 128-byte line (9 wavefronts a round);
+// a shuffle reduction of (t, prim) gives the owner the same answer as its
+// own in-order loop. Lanes without a ray, dead or finished, stay in the loop
+// and test the others' leaves. Node rows (64 B) are 16-byte __ldg loads;
+// the 261 KB node table of a 522k-triangle scene stays in L2.
+//
+// What bounds it now. 4.5x faster than the one-thread design at the fused
+// launch; dead lanes cost it 4-7 % (PERF.md). Per leaf the warp issues one
+// Moller-Trumbore round per 32 triangles at full width: ~45 float
+// operations without FMA contraction (--fmad=false halves the 67 TFLOP/s
+// the bound divides by) and ~30 other instructions (nine loads, the compares
+// and the candidate select), plus ~10 broadcasts and, where a triangle beats
+// the owner's best, a 20-shuffle reduction. Traversal is still per lane:
+// lanes wait at the ballot for the lane with the most inner nodes to pop.
+// How the time splits between those is not measured yet.
 //
 // Arithmetic. Built with --fmad=false and IEEE division, so the kernel
-// equals its plain PyTorch version (ops/tree_intersect.py) bit for bit. The
-// slab and Moller-Trumbore tests are ray_common.cuh's, shared with the
-// instanced and linear cluster kernels.
-//
-// What bounds it on the H100. Leaves are 128-triangle clusters, so a ray
-// spends most of its time in dense Moller-Trumbore work (~40 float ops per
-// test, ~128 tests per leaf entered) rather than in node reads; warps
-// diverge where their rays enter different leaves (sorting the rays by a
-// coherence key first, as the reference does, cuts kernel time by ~10 %
-// but costs as much as it saves; PERF.md). A leaf is 6 KB of triangles,
-// shared through L1/L2 by the rays of a warp that enter it. A per-cluster
-// sub-tree, wide nodes and persistent threads are later work.
+// equals its plain PyTorch version (ops/tree_intersect.py) bit for bit.
 
 #include "ray_common.cuh"
 
@@ -63,51 +78,22 @@ template <bool ANY_HIT>
 __global__ void __launch_bounds__(BLOCK)
 tree_intersect_kernel(const float* __restrict__ rays, long long n,
                       const float4* __restrict__ nodes,
-                      const float4* __restrict__ tris, int n_tris,
-                      int leaf_span, float* __restrict__ t_out,
+                      const float* __restrict__ blocks, long long stride,
+                      int n_tris, int leaf_span, float* __restrict__ t_out,
                       float* __restrict__ u_out, float* __restrict__ v_out,
                       int* __restrict__ prim_out,
                       unsigned char* __restrict__ occ_out) {
   const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
+  const bool valid = i < n;  // lanes past n help the others
   float tmax;
-  const Ray r = load_ray(rays, n, i, &tmax);
-  const bool neg_x = r.dx < 0.f, neg_y = r.dy < 0.f, neg_z = r.dz < 0.f;
-  const int n_clusters = (n_tris + TRI_TILE - 1) / TRI_TILE;
+  const Ray r = load_ray(rays, n, valid ? i : 0, &tmax);
   Best best = init_best<ANY_HIT>(tmax);
-
   int stack[STACK_DEPTH];
-  int sp = 0;
-  stack[sp++] = 0;
-  while (sp > 0) {
-    const int ref = stack[--sp];
-    if (ref >= 0) {
-      const float4* row = nodes + 4 * (long long)ref;
-      const float4 a = __ldg(row), b = __ldg(row + 1);
-      const float4 c = __ldg(row + 2), e = __ldg(row + 3);
-      const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, best.t);
-      const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, best.t);
-      const int c0 = (int)e.x, c1 = (int)e.y, ax = (int)e.z;
-      const bool neg = ax == 0 ? neg_x : (ax == 1 ? neg_y : neg_z);
-      const int near_ref = neg ? c1 : c0, far_ref = neg ? c0 : c1;
-      const bool near_hit = neg ? h1 : h0, far_hit = neg ? h0 : h1;
-      // far first so the near child pops first (front to back)
-      if (far_hit) stack[sp++] = far_ref;
-      if (near_hit) stack[sp++] = near_ref;
-      continue;
-    }
-    const int blk = -ref - 1;
-    bool done = false;
-    for (int j = 0; j < leaf_span && !done; ++j) {
-      const int k = blk * leaf_span + j;
-      if (k >= n_clusters) break;
-      const int first = k * TRI_TILE;
-      done = tri_run<ANY_HIT>(r, tris, first, min(TRI_TILE, n_tris - first),
-                              first, best);
-    }
-    if (done) break;
-  }
-  store_best<ANY_HIT>(best, i, t_out, u_out, v_out, prim_out, occ_out);
+  stack[0] = 0;  // the root
+  const LeafStore ls{blocks, stride, (n_tris + TRI_TILE - 1) / TRI_TILE,
+                     n_tris, 0, 0};
+  warp_walk<ANY_HIT>(r, best, stack, valid ? 1 : 0, nodes, ls, leaf_span);
+  if (valid) store_best<ANY_HIT>(best, i, t_out, u_out, v_out, prim_out, occ_out);
 }
 
 }  // namespace
@@ -115,32 +101,34 @@ tree_intersect_kernel(const float* __restrict__ rays, long long n,
 extern "C" {
 
 // Closest hit. rays: [8, n] f32 contiguous (ox oy oz dx dy dz tmin tmax);
-// nodes: [Nn, 16] f32 rows; tris: [n_tris, 12] f32 rows (v0 e1 e2 pad);
-// both 16-byte aligned. Outputs [n]. Returns the launch's cudaError_t.
+// nodes: [Nn, 16] f32 rows, 16-byte aligned; blocks: [9, stride] f32
+// component-major triangles, stride a multiple of 128 and >= n_tris.
+// Outputs [n]. Returns the launch's cudaError_t.
 int akr_tree_closest(const float* rays, long long n, const float* nodes,
-                     const float* tris, int n_tris, int leaf_span,
-                     float* t_out, float* u_out, float* v_out, int* prim_out,
-                     int device, void* stream) {
+                     const float* blocks, long long stride, int n_tris,
+                     int leaf_span, float* t_out, float* u_out, float* v_out,
+                     int* prim_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
   tree_intersect_kernel<false><<<launch_blocks(n), BLOCK, 0,
                                  (cudaStream_t)stream>>>(
-      rays, n, (const float4*)nodes, (const float4*)tris, n_tris, leaf_span,
-      t_out, u_out, v_out, prim_out, nullptr);
+      rays, n, (const float4*)nodes, blocks, stride, n_tris, leaf_span, t_out,
+      u_out, v_out, prim_out, nullptr);
   return (int)cudaGetLastError();
 }
 
 // Any hit. Same inputs; occ_out [n] bytes (0/1), written into a bool tensor.
 int akr_tree_anyhit(const float* rays, long long n, const float* nodes,
-                    const float* tris, int n_tris, int leaf_span,
-                    unsigned char* occ_out, int device, void* stream) {
+                    const float* blocks, long long stride, int n_tris,
+                    int leaf_span, unsigned char* occ_out, int device,
+                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
   tree_intersect_kernel<true><<<launch_blocks(n), BLOCK, 0,
                                 (cudaStream_t)stream>>>(
-      rays, n, (const float4*)nodes, (const float4*)tris, n_tris, leaf_span,
+      rays, n, (const float4*)nodes, blocks, stride, n_tris, leaf_span,
       nullptr, nullptr, nullptr, nullptr, occ_out);
   return (int)cudaGetLastError();
 }

@@ -102,7 +102,7 @@ class _Sweep:
                 real = (row[:, None] + col) < nr[h, None]
                 tri_rows = tris[torch.clamp(rows, max=tris.shape[0] - 1)]
                 best.update(b[h], [x[h] for x in o], [x[h] for x in d], tmin[h],
-                            tri_rows, real, p0[h] + row, stats)
+                            tri_rows.movedim(-1, 0), real, p0[h] + row, stats)
                 if stats is not None:
                     stats.touch("tris", tris.shape[0], rows[real])
             j = torch.where(first >= 0, j + first + 1, SUPER)

@@ -3,12 +3,14 @@
 Counterpart of ``akari_tpu/ops/pallas_tree.py::run_instanced_tree`` (the
 TPU kernel ``_instanced_tree_kernel``), the route of every two-level
 instanced scene compiled with tree tables. The kernel is
-``kernels/csrc/instanced_tree_intersect.cu``, one thread per ray; its note
-says what bounds it on the H100 and what its design does about that. The
+``kernels/csrc/instanced_tree_intersect.cu``: one lane per ray, the warp
+stepping through the instances together and testing its lanes' pending
+leaves together, 32 triangles a round; its note says what bounds it on the
+H100 and what its design does about that. The
 plain PyTorch version lives beside it here: the same per-ray sequence
 (instances in index order; cull, transform, walk), vectorized over rays.
 
-``closest(rays, instf, insti, nodes, tris, leaf_span)`` and
+``closest(rays, instf, insti, nodes, blocks, leaf_span)`` and
 ``any_hit(...)`` take
 
 - ``rays``: ``[8, N]`` float32, rows ox oy oz dx dy dz tmin tmax (world);
@@ -17,7 +19,9 @@ plain PyTorch version lives beside it here: the same per-ray sequence
 - ``insti``: ``[I, 8]`` int32; slot 3 n_clusters, 4 tile_base, 5
   prim_base, 6 tree_base (``SceneArrays.inst_i32``);
 - ``nodes``: ``[sum Nn, 16]`` float32, the prototype trees concatenated;
-- ``tris``: ``[sum Kp*128, 12]`` float32 (``SceneArrays.inst_tris``);
+- ``blocks``: ``[9, sum Kp*128]`` float32 (``SceneArrays.inst_tri_blocks``),
+  component-major: cluster ``tile_base + k`` is columns ``128 (tile_base +
+  k)`` onward, each prototype padded to whole clusters with zero columns;
 - ``leaf_span``: clusters per leaf block, one for every prototype.
 
 On CUDA tensors they launch the kernel or raise; on CPU tensors they run
@@ -38,6 +42,7 @@ from .tree_intersect import (
     Best,
     _raise_on,
     _safe_inv,
+    check_blocks,
     chunked,
     first_box_hit,
     push_children,
@@ -121,11 +126,12 @@ class InstanceCursor:
         return a
 
 
-def _walk(rays, instf, insti, nodes, tris, leaf_span, any_hit, stats=None):
+def _walk(rays, instf, insti, nodes, blocks, leaf_span, any_hit, stats=None):
     """The kernel's per-ray sequence, vectorized over one chunk of rays:
     each step, a ray with an empty stack culls its next instance (and
     pushes the prototype's root on a hit); a ray with a non-empty stack
-    pops one ref."""
+    pops one ref. ``blocks`` is any component-major store (``inst_tri_blocks``,
+    or the row store's transpose ``inst_tris.T``)."""
     dev = rays.device
     n = rays.shape[1]
     cur = InstanceCursor(rays, instf, insti)
@@ -169,40 +175,42 @@ def _walk(rays, instf, insti, nodes, tris, leaf_span, any_hit, stats=None):
             for s in range(0, int(keep.sum()), leaf_rays):
                 li = li_all[keep][s:s + leaf_rays]
                 k = k_all[keep][s:s + leaf_rays]
-                rows = (cur.row[li, 4] + k)[:, None] * TRI_TILE + col
-                tri_rows = tris[rows]                             # [L, 128, 12]
-                real = torch.ones(tri_rows.shape[:2], dtype=torch.bool, device=dev)
+                cols = (cur.row[li, 4] + k)[:, None] * TRI_TILE + col
+                tri = blocks[:, cols]                             # [9, L, 128]
+                real = torch.ones(cols.shape, dtype=torch.bool, device=dev)
                 best.update(
                     li, [a[li] for a in cur.o], [a[li] for a in cur.d],
-                    cur.tmin[li], tri_rows, real, cur.row[li, 5] + k * TRI_TILE,
+                    cur.tmin[li], tri, real, cur.row[li, 5] + k * TRI_TILE,
                     stats,
                 )
                 if stats is not None:
-                    stats.touch("tris", tris.shape[0], rows)
+                    stats.touch("tri_blocks", blocks.shape[1], cols)
     return best.result()
 
 
-def closest_plain(rays, instf, insti, nodes, tris, leaf_span=1, stats=None):
+def closest_plain(rays, instf, insti, nodes, blocks, leaf_span=1, stats=None):
     """Plain version of the closest-hit kernel -> (t, u, v, prim int32)."""
     return chunked(
-        lambda r: _walk(r, instf, insti, nodes, tris, leaf_span, False, stats),
+        lambda r: _walk(r, instf, insti, nodes, blocks, leaf_span, False, stats),
         rays, False,
     )
 
 
-def any_hit_plain(rays, instf, insti, nodes, tris, leaf_span=1, stats=None):
+def any_hit_plain(rays, instf, insti, nodes, blocks, leaf_span=1, stats=None):
     """Plain version of the any-hit kernel -> [N] bool occluded."""
     return chunked(
-        lambda r: _walk(r, instf, insti, nodes, tris, leaf_span, True, stats),
+        lambda r: _walk(r, instf, insti, nodes, blocks, leaf_span, True, stats),
         rays, True,
     )
 
 
 # ------------------------------ CUDA wrapper --------------------------------
 
-def check_instanced(rays, instf, insti, tables, tris):
+def check_instanced(rays, instf, insti, tables, tris, blocks=False):
     """Checks shared by the instanced wrappers: ``tables`` are the float32
-    [*, 16] or [*, 8] box / node tables the kernel reads."""
+    [*, 16] or [*, 8] box / node tables the kernel reads; ``tris`` is the
+    [9, sum Kp*128] component-major store if ``blocks``, else the [sum
+    Kp*128, 12] row store."""
     ts = (rays, instf, insti, *tables, tris)
     if not all(isinstance(x, torch.Tensor) for x in ts):
         raise TypeError("rays and every table must be tensors")
@@ -219,7 +227,10 @@ def check_instanced(rays, instf, insti, tables, tris):
         raise ValueError(f"instf must be [I>0, 20], got {tuple(instf.shape)}")
     if tuple(insti.shape) != (n_inst, 8):
         raise ValueError(f"insti must be [{n_inst}, 8], got {tuple(insti.shape)}")
-    if tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] == 0 or tris.shape[0] % TRI_TILE:
+    if blocks:
+        check_blocks(tris)
+    elif tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] == 0 \
+            or tris.shape[0] % TRI_TILE:
         raise ValueError(f"tris must be [128 K > 0, 12], got {tuple(tris.shape)}")
     if rays.is_cuda:
         if not all(x.is_contiguous() for x in ts):
@@ -228,8 +239,8 @@ def check_instanced(rays, instf, insti, tables, tris):
             raise ValueError("the CUDA kernel needs 16-byte aligned tables")
 
 
-def _check(rays, instf, insti, nodes, tris, leaf_span):
-    check_instanced(rays, instf, insti, (nodes,), tris)
+def _check(rays, instf, insti, nodes, blocks, leaf_span):
+    check_instanced(rays, instf, insti, (nodes,), blocks, blocks=True)
     if nodes.dim() != 2 or nodes.shape[1] != 16 or nodes.shape[0] == 0:
         raise ValueError(f"nodes must be [Nn>0, 16], got {tuple(nodes.shape)}")
     if int(leaf_span) < 1:
@@ -243,23 +254,23 @@ def _lib():
     if not getattr(lib, "_akr_typed", False):
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.akr_instanced_tree_closest.argtypes = [
-            vp, i64, vp, vp, i32, vp, vp, i32, vp, vp, vp, vp, i32, vp,
+            vp, i64, vp, vp, i32, vp, vp, i64, i32, vp, vp, vp, vp, i32, vp,
         ]
         lib.akr_instanced_tree_closest.restype = i32
         lib.akr_instanced_tree_anyhit.argtypes = [
-            vp, i64, vp, vp, i32, vp, vp, i32, vp, i32, vp,
+            vp, i64, vp, vp, i32, vp, vp, i64, i32, vp, i32, vp,
         ]
         lib.akr_instanced_tree_anyhit.restype = i32
         lib._akr_typed = True
     return lib
 
 
-def closest(rays, instf, insti, nodes, tris, leaf_span=1):
+def closest(rays, instf, insti, nodes, blocks, leaf_span=1):
     """Closest hit -> (t [N] f32, u [N] f32, v [N] f32, prim [N] int32
     virtual). A miss gives prim -1, t = T_MAX, u = v = 0."""
-    _check(rays, instf, insti, nodes, tris, leaf_span)
+    _check(rays, instf, insti, nodes, blocks, leaf_span)
     if not rays.is_cuda:
-        return closest_plain(rays, instf, insti, nodes, tris, leaf_span)
+        return closest_plain(rays, instf, insti, nodes, blocks, leaf_span)
     n = rays.shape[1]
     dev = rays.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -271,19 +282,19 @@ def closest(rays, instf, insti, nodes, tris, leaf_span=1):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().akr_instanced_tree_closest(
         rays.data_ptr(), n, instf.data_ptr(), insti.data_ptr(), instf.shape[0],
-        nodes.data_ptr(), tris.data_ptr(), int(leaf_span), t.data_ptr(),
-        u.data_ptr(), v.data_ptr(), prim.data_ptr(), dev.index, stream,
+        nodes.data_ptr(), blocks.data_ptr(), blocks.shape[1], int(leaf_span),
+        t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr(), dev.index, stream,
     )
     _raise_on(err, "instanced tree closest-hit")
     LAUNCHES["closest"] += 1
     return t, u, v, prim
 
 
-def any_hit(rays, instf, insti, nodes, tris, leaf_span=1):
+def any_hit(rays, instf, insti, nodes, blocks, leaf_span=1):
     """Any hit in (t_min, t_max) -> [N] bool occluded."""
-    _check(rays, instf, insti, nodes, tris, leaf_span)
+    _check(rays, instf, insti, nodes, blocks, leaf_span)
     if not rays.is_cuda:
-        return any_hit_plain(rays, instf, insti, nodes, tris, leaf_span)
+        return any_hit_plain(rays, instf, insti, nodes, blocks, leaf_span)
     n = rays.shape[1]
     dev = rays.device
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -292,8 +303,8 @@ def any_hit(rays, instf, insti, nodes, tris, leaf_span=1):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().akr_instanced_tree_anyhit(
         rays.data_ptr(), n, instf.data_ptr(), insti.data_ptr(), instf.shape[0],
-        nodes.data_ptr(), tris.data_ptr(), int(leaf_span), occ.data_ptr(),
-        dev.index, stream,
+        nodes.data_ptr(), blocks.data_ptr(), blocks.shape[1], int(leaf_span),
+        occ.data_ptr(), dev.index, stream,
     )
     _raise_on(err, "instanced tree any-hit")
     LAUNCHES["any_hit"] += 1

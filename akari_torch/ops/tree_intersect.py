@@ -2,17 +2,21 @@
 
 Counterpart of ``akari_tpu/ops/pallas_tree.py::run_tree`` (the TPU kernel
 ``_tree_kernel``) for flat scenes above ``DENSE_MAX_TRIS``. The kernel is
-``kernels/csrc/tree_intersect.cu``, one thread per ray with its own ref
-stack; its note says what bounds it on the H100 and what its design does
+``kernels/csrc/tree_intersect.cu``: one lane per ray with its own ref
+stack, each warp testing its lanes' pending leaves together, 32 triangles
+a round; its note says what bounds it on the H100 and what its design does
 about that. The plain PyTorch version lives beside it here: the same walk
 over the same tables, vectorized over rays.
 
-``closest(rays, nodes, tris, leaf_span)`` and ``any_hit(...)`` take
+``closest(rays, nodes, blocks, n_tris, leaf_span)`` and ``any_hit(...)``
+take
 
 - ``rays``: ``[8, N]`` float32, rows ox oy oz dx dy dz tmin tmax;
 - ``nodes``: ``[Nn, 16]`` float32, ``bvh/cluster_tree.build_cluster_tree``;
-- ``tris``: ``[T, 12]`` float32, ``bvh/cluster_tree.tree_tris`` (cluster k
-  is rows ``128 k .. 128 k + 127``, the last one cut at T);
+- ``blocks``: ``[9, Tpad]`` float32, ``bvh/cluster_tree.tri_blocks``
+  (``SceneArrays.tri_blocks``): component-major, cluster k is columns
+  ``128 k .. 128 k + 127``;
+- ``n_tris``: the real triangle count T (the last cluster is cut at T);
 - ``leaf_span``: clusters per leaf block.
 
 On CUDA tensors they launch the kernel or raise; on CPU tensors they run
@@ -75,15 +79,14 @@ def _slab(box, o, inv, tmin, best_t):
     return (near <= far) & (best_t > tmin)
 
 
-def _leaf_mt(o, d, tmin, tri_rows):
-    """Per-ray o/d/tmin [L] x [L, C, 12] triangle rows -> (ok, t, u, v)
-    [L, C], in the operation order of ``_pairwise_mt_t`` (``ok`` leaves
-    out the comparison against the running best t)."""
+def _leaf_mt(o, d, tmin, tri):
+    """Per-ray o/d/tmin [L] x component-major triangles ``tri`` ([>= 9,
+    L, C]: ``tri[c]`` is component c of v0.xyz e1.xyz e2.xyz) -> (ok, t,
+    u, v) [L, C], in the operation order of ``_pairwise_mt_t`` (``ok``
+    leaves out the comparison against the running best t)."""
     ox, oy, oz = (a[:, None] for a in o)
     dx, dy, dz = (a[:, None] for a in d)
-    v0x, v0y, v0z = tri_rows[..., 0], tri_rows[..., 1], tri_rows[..., 2]
-    e1x, e1y, e1z = tri_rows[..., 3], tri_rows[..., 4], tri_rows[..., 5]
-    e2x, e2y, e2z = tri_rows[..., 6], tri_rows[..., 7], tri_rows[..., 8]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[c] for c in range(9))
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -127,20 +130,23 @@ class Best:
         t_out = torch.where(valid, self.t, T_MAX)
         return t_out, self.u, self.v, self.prim.to(torch.int32)
 
-    def update(self, li, o, d, tmin, tri_rows, real, prim0, stats=None):
+    def update(self, li, o, d, tmin, tri, real, prim0, stats=None):
         """Moller-Trumbore of rays ``li`` (o/d/tmin: their [L] terms)
-        against [L, C, 12] rows, where row j of ray l is prim prim0[l] + j
-        and ``real[l, j]`` says it exists. Closest: the lexicographic
-        minimum of (t, prim) over the rows' hits, then the tie rule against
-        the running best, which is what the kernel's in-order loop keeps."""
-        ok, t, u, v = _leaf_mt(o, d, tmin, tri_rows)
+        against component-major triangles ``tri`` [>= 9, L, C], where
+        triangle j of ray l is prim prim0[l] + j and ``real[l, j]`` says it
+        exists. Closest: the lexicographic minimum of (t, prim) over the
+        hits, then the tie rule against the running best. That minimum
+        does not depend on the order the hits are taken in, so it is what
+        a kernel's in-order loop keeps and what its warp reduction over
+        32-triangle rounds keeps."""
+        ok, t, u, v = _leaf_mt(o, d, tmin, tri)
         ok = ok & real
         if stats is not None:
             stats.mt += int(real.sum())
         if self.any_hit:
             self.occ[li] |= (ok & (t < self.t[li][:, None])).any(dim=1)
             return
-        c = tri_rows.shape[1]
+        c = t.shape[1]
         col = torch.arange(c, device=t.device)
         t_m = torch.where(ok, t, float("inf"))
         t_leaf = t_m.min(dim=1).values
@@ -180,12 +186,13 @@ class WalkStats:
         return 0 if mask is None else int(mask.sum())
 
 
-def _walk(rays, nodes, tris, leaf_span, any_hit, stats=None):
+def _walk(rays, nodes, blocks, n_tris, leaf_span, any_hit, stats=None):
     """The kernel's walk, vectorized over one chunk of rays: every ray
-    with a non-empty stack pops one ref per step."""
+    with a non-empty stack pops one ref per step. ``blocks`` is any
+    component-major store of at least ``n_tris`` columns (``tri_blocks``,
+    or the row store's transpose ``tree_tris.T``)."""
     dev = rays.device
     n = rays.shape[1]
-    n_tris = tris.shape[0]
     n_cl = (n_tris + TRI_TILE - 1) // TRI_TILE
     o = [rays[0], rays[1], rays[2]]
     d = [rays[3], rays[4], rays[5]]
@@ -222,15 +229,15 @@ def _walk(rays, nodes, tris, leaf_span, any_hit, stats=None):
             for s in range(0, int(keep.sum()), leaf_rays):
                 li = li_all[keep][s:s + leaf_rays]
                 k = k_all[keep][s:s + leaf_rays]
-                rows = k[:, None] * TRI_TILE + col          # [L, 128]
-                real = rows < n_tris                        # real-count guard
-                tri_rows = tris[torch.clamp(rows, max=n_tris - 1)]
+                cols = k[:, None] * TRI_TILE + col          # [L, 128]
+                real = cols < n_tris                        # real-count guard
+                tri = blocks[:, torch.clamp(cols, max=n_tris - 1)]  # [9, L, 128]
                 best.update(
                     li, [a[li] for a in o], [a[li] for a in d], tmin[li],
-                    tri_rows, real, k * TRI_TILE, stats,
+                    tri, real, k * TRI_TILE, stats,
                 )
                 if stats is not None:
-                    stats.touch("tris", n_tris, rows[real])
+                    stats.touch("tri_blocks", n_tris, cols[real])
     return best.result()
 
 
@@ -282,48 +289,59 @@ def chunked(walk, rays, any_hit):
     return tuple(torch.cat(cols) for cols in zip(*parts))
 
 
-def closest_plain(rays, nodes, tris, leaf_span=1, stats=None):
+def closest_plain(rays, nodes, blocks, n_tris, leaf_span=1, stats=None):
     """Plain version of the closest-hit kernel -> (t, u, v, prim int32)."""
-    return chunked(lambda r: _walk(r, nodes, tris, leaf_span, False, stats),
+    return chunked(lambda r: _walk(r, nodes, blocks, n_tris, leaf_span, False, stats),
                    rays, False)
 
 
-def any_hit_plain(rays, nodes, tris, leaf_span=1, stats=None):
+def any_hit_plain(rays, nodes, blocks, n_tris, leaf_span=1, stats=None):
     """Plain version of the any-hit kernel -> [N] bool occluded."""
-    return chunked(lambda r: _walk(r, nodes, tris, leaf_span, True, stats),
+    return chunked(lambda r: _walk(r, nodes, blocks, n_tris, leaf_span, True, stats),
                    rays, True)
 
 
 # ------------------------------ CUDA wrapper --------------------------------
 
-def _check(rays, nodes, tris, leaf_span):
-    ts = (rays, nodes, tris)
+def check_blocks(blocks, n_real=None):
+    """Shape of a component-major triangle store: [9, 128 K > 0] float32,
+    with ``n_real`` (if given) in its last cluster."""
+    if blocks.dim() != 2 or blocks.shape[0] != 9 or blocks.shape[1] == 0 \
+            or blocks.shape[1] % TRI_TILE:
+        raise ValueError(f"blocks must be [9, 128 K > 0], got {tuple(blocks.shape)}")
+    if blocks.shape[1] >= 2 ** 31 - TRI_TILE:
+        raise ValueError("too many triangles for int32 prim ids")
+    if n_real is not None and not blocks.shape[1] - TRI_TILE < int(n_real) <= blocks.shape[1]:
+        raise ValueError(
+            f"n_tris {n_real} does not fill the last cluster of a {blocks.shape[1]}-column store"
+        )
+
+
+def _check(rays, nodes, blocks, n_tris, leaf_span):
+    ts = (rays, nodes, blocks)
     if not all(isinstance(x, torch.Tensor) for x in ts):
-        raise TypeError("rays, nodes and tris must be tensors")
+        raise TypeError("rays, nodes and blocks must be tensors")
     if len({x.device for x in ts}) != 1:
         raise ValueError(
-            f"rays on {rays.device}, nodes on {nodes.device}, tris on {tris.device}"
+            f"rays on {rays.device}, nodes on {nodes.device}, blocks on {blocks.device}"
         )
     if any(x.dtype != torch.float32 for x in ts):
         raise TypeError(
-            "expected float32 rays, nodes and tris, got "
-            f"{rays.dtype}, {nodes.dtype}, {tris.dtype}"
+            "expected float32 rays, nodes and blocks, got "
+            f"{rays.dtype}, {nodes.dtype}, {blocks.dtype}"
         )
     if rays.dim() != 2 or rays.shape[0] != 8:
         raise ValueError(f"rays must be [8, N], got {tuple(rays.shape)}")
     if nodes.dim() != 2 or nodes.shape[1] != 16 or nodes.shape[0] == 0:
         raise ValueError(f"nodes must be [Nn>0, 16], got {tuple(nodes.shape)}")
-    if tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] == 0:
-        raise ValueError(f"tris must be [T>0, 12], got {tuple(tris.shape)}")
-    if tris.shape[0] >= 2 ** 31 - TRI_TILE:
-        raise ValueError("too many triangles for int32 prim ids")
+    check_blocks(blocks, n_tris)
     if int(leaf_span) < 1:
         raise ValueError(f"leaf_span must be >= 1, got {leaf_span}")
     if rays.is_cuda:
         if not all(x.is_contiguous() for x in ts):
-            raise ValueError("the CUDA kernel needs contiguous rays, nodes and tris")
-        if nodes.data_ptr() % 16 or tris.data_ptr() % 16:
-            raise ValueError("the CUDA kernel needs 16-byte aligned nodes and tris")
+            raise ValueError("the CUDA kernel needs contiguous rays, nodes and blocks")
+        if nodes.data_ptr() % 16 or blocks.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned nodes and blocks")
 
 
 def _lib():
@@ -333,10 +351,10 @@ def _lib():
     if not getattr(lib, "_akr_typed", False):
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.akr_tree_closest.argtypes = [
-            vp, i64, vp, vp, i32, i32, vp, vp, vp, vp, i32, vp,
+            vp, i64, vp, vp, i64, i32, i32, vp, vp, vp, vp, i32, vp,
         ]
         lib.akr_tree_closest.restype = i32
-        lib.akr_tree_anyhit.argtypes = [vp, i64, vp, vp, i32, i32, vp, i32, vp]
+        lib.akr_tree_anyhit.argtypes = [vp, i64, vp, vp, i64, i32, i32, vp, i32, vp]
         lib.akr_tree_anyhit.restype = i32
         lib._akr_typed = True
     return lib
@@ -347,13 +365,13 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def closest(rays, nodes, tris, leaf_span=1):
+def closest(rays, nodes, blocks, n_tris, leaf_span=1):
     """Closest hit -> (t [N] f32, u [N] f32, v [N] f32, prim [N] int32).
 
     A miss gives prim -1, t = T_MAX, u = v = 0."""
-    _check(rays, nodes, tris, leaf_span)
+    _check(rays, nodes, blocks, n_tris, leaf_span)
     if not rays.is_cuda:
-        return closest_plain(rays, nodes, tris, leaf_span)
+        return closest_plain(rays, nodes, blocks, n_tris, leaf_span)
     n = rays.shape[1]
     dev = rays.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -364,8 +382,8 @@ def closest(rays, nodes, tris, leaf_span=1):
         return t, u, v, prim
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().akr_tree_closest(
-        rays.data_ptr(), n, nodes.data_ptr(), tris.data_ptr(), tris.shape[0],
-        int(leaf_span), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+        rays.data_ptr(), n, nodes.data_ptr(), blocks.data_ptr(), blocks.shape[1],
+        int(n_tris), int(leaf_span), t.data_ptr(), u.data_ptr(), v.data_ptr(),
         prim.data_ptr(), dev.index, stream,
     )
     _raise_on(err, "tree closest-hit")
@@ -373,11 +391,11 @@ def closest(rays, nodes, tris, leaf_span=1):
     return t, u, v, prim
 
 
-def any_hit(rays, nodes, tris, leaf_span=1):
+def any_hit(rays, nodes, blocks, n_tris, leaf_span=1):
     """Any hit in (t_min, t_max) -> [N] bool occluded."""
-    _check(rays, nodes, tris, leaf_span)
+    _check(rays, nodes, blocks, n_tris, leaf_span)
     if not rays.is_cuda:
-        return any_hit_plain(rays, nodes, tris, leaf_span)
+        return any_hit_plain(rays, nodes, blocks, n_tris, leaf_span)
     n = rays.shape[1]
     dev = rays.device
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -385,8 +403,8 @@ def any_hit(rays, nodes, tris, leaf_span=1):
         return occ
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().akr_tree_anyhit(
-        rays.data_ptr(), n, nodes.data_ptr(), tris.data_ptr(), tris.shape[0],
-        int(leaf_span), occ.data_ptr(), dev.index, stream,
+        rays.data_ptr(), n, nodes.data_ptr(), blocks.data_ptr(), blocks.shape[1],
+        int(n_tris), int(leaf_span), occ.data_ptr(), dev.index, stream,
     )
     _raise_on(err, "tree any-hit")
     LAUNCHES["any_hit"] += 1

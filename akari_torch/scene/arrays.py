@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..bvh.cluster_tree import tree_tris
+from ..bvh.cluster_tree import tri_blocks, tree_tris
 
 # Material kinds (ref: Material variant, kernel/material.h:249)
 MAT_DIFFUSE = 0
@@ -155,9 +155,12 @@ class SceneArrays:
     scenes above DENSE_MAX_TRIS (4096) triangles or on request, else None:
     tri_clusters: [Kpad, 8] cluster AABBs over 128-triangle runs (the
     reference's array); tri_tree: [Nn, 16] BVH2 node rows over
-    tree_leaf_span-cluster blocks (the reference's array); tree_tris:
-    [T, 12] triangle store of the tree kernel (v0 e1 e2, 3 pad floats),
-    which walks faster over these 48 B rows than over prim_table's 128 B;
+    tree_leaf_span-cluster blocks (the reference's array); tri_blocks:
+    [9, Tpad] component-major triangle store of the tree kernel (v0.xyz
+    e1.xyz e2.xyz on rows 0-8, triangles on the minor axis, zero columns
+    up to a multiple of 128): rows 0-8 of the reference's ``tri_blocks``,
+    whose other seven rows are zero and not kept; tree_tris: [T, 12]
+    triangle rows (v0 e1 e2, 3 pad floats) of the linear cluster kernel;
     tri_superclusters: [Spad, 8] boxes over 32-cluster runs (the linear
     cluster sweep's table when tri_tree is None; the reference's array).
 
@@ -168,10 +171,12 @@ class SceneArrays:
     (supercluster base, real supercluster count, cluster base, cluster
     count, tile base, prim base, tree base, 0) of ``inst_pallas_f32/i32``;
     tri_clusters, tri_superclusters and tri_tree are the per-prototype
-    tables concatenated; inst_tris is the [sum Kp*128, 12] triangle store
-    (tree_tris rows, each prototype padded to whole clusters with zero
-    rows that never hit), so cluster ``tile_base + k`` is rows
-    ``128 (tile_base + k)`` onward.
+    tables concatenated; inst_tri_blocks is the instanced tree kernel's
+    [9, sum Kp*128] triangle store, rows 0-8 of the reference's
+    ``inst_tris16`` (each prototype padded to whole clusters with zero
+    columns that never hit), so cluster ``tile_base + k`` is columns
+    ``128 (tile_base + k)`` onward; inst_tris is the same store as [sum
+    Kp*128, 12] rows (tree_tris layout) for the linear instanced kernel.
 
     The environment light (slice 4) has no fields yet.
     """
@@ -191,10 +196,12 @@ class SceneArrays:
     tri_clusters: torch.Tensor = None  # [Kpad, 8] float32
     tri_superclusters: torch.Tensor = None  # [Spad, 8] float32
     tri_tree: torch.Tensor = None      # [Nn, 16] float32
+    tri_blocks: torch.Tensor = None    # [9, Tpad] float32
     tree_tris: torch.Tensor = None     # [T, 12] float32
     instances: InstanceTable = None
     inst_f32: torch.Tensor = None      # [I, 20] float32
     inst_i32: torch.Tensor = None      # [I, 8] int32
+    inst_tri_blocks: torch.Tensor = None  # [9, sum Kp*128] float32
     inst_tris: torch.Tensor = None     # [sum Kp*128, 12] float32
     tree_leaf_span: int = 1
     n_tris: int = 0             # storage triangles; virtual ones if two-level
@@ -245,11 +252,14 @@ def from_numpy_scene(obj, intersector="dense"):
     ``SceneArrays`` attribute names) -> the port's CPU ``SceneArrays``.
 
     Flat scenes: the tree tables are carried when ``obj.tri_tree`` is set
-    (the reference builds them above DENSE_MAX_TRIS); ``tree_tris`` is
-    made from ``tri_v0/e1/e2``. Two-level scenes (``obj.instances`` set)
-    need the reference's per-prototype tables (its ``intersector="pallas"``
-    compile); ``inst_tris`` is made from ``inst_tris16``, and
-    ``intersector`` must be "tree" (the instanced route).
+    (the reference builds them above DENSE_MAX_TRIS); ``tri_blocks`` is
+    rows 0-8 of ``obj.tri_blocks`` (made from ``tri_v0/e1/e2`` in the same
+    layout where it is None, as the reference's route does below its
+    threshold) and ``tree_tris`` is made from ``tri_v0/e1/e2``. Two-level
+    scenes (``obj.instances`` set) need the reference's per-prototype
+    tables (its ``intersector="pallas"`` compile); ``inst_tri_blocks`` is
+    rows 0-8 of ``inst_tris16`` and ``inst_tris`` its transpose cut to 12
+    columns, and ``intersector`` must be "tree" (the instanced route).
 
     Constant textures and no environment only; anything else raises
     ``NotImplementedError`` naming the slice that adds it.
@@ -287,9 +297,15 @@ def from_numpy_scene(obj, intersector="dense"):
             ),
             inst_f32=_t(obj.inst_pallas_f32, np.float32),
             inst_i32=_t(obj.inst_pallas_i32, np.int32),
+            inst_tri_blocks=_t(np.asarray(obj.inst_tris16)[:9], np.float32),
             inst_tris=_t(np.asarray(obj.inst_tris16).T[:, :12], np.float32),
         )
     flat_tree = tree is not None and it is None
+    blocks = None
+    if flat_tree:
+        blocks = getattr(obj, "tri_blocks", None)
+        blocks = (tri_blocks(obj.tri_v0, obj.tri_e1, obj.tri_e2) if blocks is None
+                  else np.asarray(blocks)[:9])
     return SceneArrays(
         tri_v0=_t(obj.tri_v0, np.float32),
         tri_e1=_t(obj.tri_e1, np.float32),
@@ -332,6 +348,7 @@ def from_numpy_scene(obj, intersector="dense"):
         tri_clusters=None if tree is None else _t(obj.tri_clusters, np.float32),
         tri_superclusters=None if tree is None else _t(obj.tri_superclusters, np.float32),
         tri_tree=_t(tree, np.float32),
+        tri_blocks=_t(blocks, np.float32),
         tree_tris=torch.from_numpy(
             tree_tris(obj.tri_v0, obj.tri_e1, obj.tri_e2)
         ) if flat_tree else None,

@@ -49,6 +49,7 @@ from ..bvh.cluster_tree import (
     n_clusters,
     n_superclusters,
     pick_leaf_span,
+    tri_blocks,
 )
 from ..core.distribution import build_cdf
 from ..core.spectrum import luminance
@@ -459,13 +460,14 @@ def compile_scene(shapes, intersector="auto", environment=None):
     intersector = resolve_intersector(intersector, t_count)
     # Cluster boxes and the BVH2 over them (the tree walk's tables), built
     # past the dense sweep's break-even as the reference builds them.
-    tri_clusters = tri_superclusters = tri_tree = None
+    tri_clusters = tri_superclusters = tri_tree = blocks = None
     tree_leaf_span = 1
     t_tree = time.perf_counter()
     if t_count > DENSE_MAX_TRIS or intersector == "tree":
         tri_clusters = build_clusters(v0, e1, e2)
         tri_superclusters = build_superclusters(tri_clusters, t_count)
         tri_tree, tree_leaf_span = build_cluster_tree(tri_clusters, t_count)
+        blocks = tri_blocks(v0, e1, e2)
     t_tree = time.perf_counter() - t_tree
 
     # Fat shading table: all per-hit attributes behind ONE row gather.
@@ -493,6 +495,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
         tri_clusters=tri_clusters,
         tri_superclusters=tri_superclusters,
         tri_tree=tri_tree,
+        tri_blocks=blocks,
         tree_leaf_span=tree_leaf_span,
         n_tris=int(v0.shape[0]),
         n_materials=len(mats.items),

@@ -7,7 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each checks its results; any failure exits non-zero):
 
 1. setup: the card's name and power limit; build the CUDA kernels from
-   ``akari_torch/kernels/csrc`` and report the build time;
+   ``akari_torch/kernels/csrc`` and report the build time and the ptxas
+   report (registers, stack frame and spills of the two tree walks
+   summarised);
 2. kernel vs plain PyTorch version on the card, on >= 2^20 rays against
    the compiled Cornell box and a 300-triangle soup (prim/valid exact,
    t/u/v bit-exact or within 2 ulp; any-hit == closest-hit validity);
@@ -22,9 +24,10 @@ Phases (each checks its results; any failure exits non-zero):
    plain version alone at the fused launch's shape (524,288 rays);
 6. tree kernel vs plain walk on the card: both variants on >= 2^18 + 77
    rays against the 522,244-triangle terrain (native BVH builder) and a
-   20k-triangle soup with exact duplicates across clusters (prim/valid
-   exact, t/u/v within 2 ulp; any-hit == closest validity == the dense
-   plain version's on 65,536 soup rays);
+   20k-triangle soup with exact duplicates across clusters, both on the
+   component-major store ``tri_blocks`` (prim/valid exact, t/u/v within 2
+   ulp; any-hit == closest validity == the dense plain version's on
+   65,536 soup rays);
 7. the large-scene main path: ``render`` of ``terrain_scene(256, 256,
    n=512)`` on ``auto``, 4 spp, depth 5, through the tree kernel only
    (1 + max_depth launches per ``trace_paths``, no dense launch), with
@@ -36,14 +39,16 @@ Phases (each checks its results; any failure exits non-zero):
     OBJ + MTL + .akari, rendered at 256x256, 4 spp;
 11. tree kernel and plain walk times at the fused launch's shape (524,288
     rays captured from a render's first bounce), on the rays as the main
-    path launches them and sorted by the reference's coherence key;
+    path launches them and sorted by the reference's coherence key, each
+    variant's time beside its lower bound;
 12. the instanced tree kernel, the flat cluster kernel and the linear
     instanced kernel vs their plain versions on the card, on 2^16 + 77
     rays (camera and seeded random rays, some dead) against
     ``instanced-forest128`` (128 rotated, scaled copies of the 32,258-
-    triangle terrain, 4,129,026 world triangles) and the 20k soup with
-    its tree nulled; prim/valid exact, t/u/v 0 ulp, any-hit == closest
-    validity; one comparison again on a permuted ray order;
+    triangle terrain, 4,129,026 world triangles; the instanced tree
+    kernel on the component-major ``inst_tri_blocks``) and the 20k soup
+    with its tree nulled; prim/valid exact, t/u/v 0 ulp, any-hit ==
+    closest validity; one comparison again on a permuted ray order;
 13. ``instanced-forest128`` on ``auto`` (two-level without forcing): 6
     instanced-tree launches per ``trace_paths`` and no other traversal
     launch, frame time, path rate, peak memory, host compile time, a lit
@@ -110,11 +115,24 @@ PEAK_HBM_BYTES = 3.35e12
 SLAB_OPS = 24     # one ray-box slab test: 6 sub, 6 mul, 10 min/max, 2 compares
 MT_OPS = 55       # one Moller-Trumbore test: 2 cross, 4 dot, the reciprocal, 8 compares
 RAY_BYTES, CLOSEST_BYTES, ANY_HIT_BYTES = 32, 16, 1
-ROW_BYTES = {"nodes": 64, "tris": 48, "instances": 112, "supers": 32, "clusters": 32}
+ROW_BYTES = {"nodes": 64, "tris": 48, "tri_blocks": 36, "instances": 112, "supers": 32,
+             "clusters": 32}
+TREE_SOURCES = ("tree_intersect", "instanced_tree_intersect")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def store_mb(x):
+    return f"{x.numel() * x.element_size() / 1e6:.1f} MB {tuple(x.shape)}"
+
+
+def ptxas_summary(report):
+    """The lines of a ptxas -v report that give each kernel's registers,
+    stack frame and spills."""
+    keep = ("Compiling entry", "bytes stack frame", "Used ")
+    return "\n".join(line.strip() for line in report.splitlines() if any(k in line for k in keep))
 
 
 class SmokeFailure(RuntimeError):
@@ -222,7 +240,7 @@ def tree_soup(dev, torch, n=20_000, seed=7):
     """20k random triangles in [-1, 1]^3, sorted along a Morton curve so
     clusters are compact, with exact duplicates copied into far clusters
     (they pin the lowest-index tie rule); returns ([n, 9] triangles, tree
-    args) on the card."""
+    args: nodes, the component-major store, n, leaf span) on the card."""
     import numpy as np
 
     from akari_torch.bvh import cluster_tree as ct
@@ -241,9 +259,9 @@ def tree_soup(dev, torch, n=20_000, seed=7):
     tris[4000:4040] = tris[19000:19040]  # duplicates of later triangles
     clusters = ct.build_clusters(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
     nodes, span = ct.build_cluster_tree(clusters, n)
-    store = ct.tree_tris(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
+    blocks = ct.tri_blocks(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
     return (torch.from_numpy(tris).to(dev),
-            (torch.from_numpy(nodes).to(dev), torch.from_numpy(store).to(dev), span))
+            (torch.from_numpy(nodes).to(dev), torch.from_numpy(blocks).to(dev), n, span))
 
 
 def png_pixels(path):
@@ -601,6 +619,10 @@ def main():
     log(f"  all builds, in parallel: {build_s:.2f} s")
     for kname, (secs, report) in kbuild.BUILD_LOG.items():
         log(f"  nvcc {kname}: {secs:.2f} s; ptxas:\n    " + report.replace("\n", "\n    "))
+    for kname in TREE_SOURCES:  # the warp-cooperative tree walks
+        if kname in kbuild.BUILD_LOG:
+            log(f"  {kname} registers / stack / spills:\n    "
+                + ptxas_summary(kbuild.BUILD_LOG[kname][1]).replace("\n", "\n    "))
 
     # ---- phase 2: kernel vs plain on the card ---------------------------
     log("phase 2: kernel vs plain PyTorch version on the card")
@@ -711,7 +733,9 @@ def main():
     check(scene512.n_tris == 522_244, f"n_tris {scene512.n_tris}")
     log(f"  terrain n=512: {scene512.n_tris} tris, {scene512.tri_tree.shape[0]} node rows, "
         f"leaf_span {scene512.tree_leaf_span}; {compile512}")
-    targs = (scene512.tri_tree, scene512.tree_tris, scene512.tree_leaf_span)
+    targs = (scene512.tri_tree, scene512.tri_blocks, scene512.n_tris, scene512.tree_leaf_span)
+    log(f"  triangle stores: tri_blocks {store_mb(scene512.tri_blocks)} (tree kernel), "
+        f"tree_tris {store_mb(scene512.tree_tris)} (linear cluster kernel)")
     trays = make_rays(
         scene512, sc512.camera, TREE_RAYS, 2, torch,
         box=((-1.0, 0.0, -1.0), (1.0, 1.2, 1.0)),
@@ -839,6 +863,9 @@ def main():
         "any_hit": plain_figures(lambda r, stats=None: ti.any_hit_plain(r, *targs, stats=stats),
                                  rays_u, True, card),
     }
+    for name_, key_ in (("closest", "kernel_unsorted"), ("any_hit", "any_hit_unsorted")):
+        log(f"  tree {name_}: {times[key_]:.4f} ms, bound {tree_fig[name_][0]:.4f} ms "
+            f"({tree_fig[name_][1]}) [card: {card}]")
     log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 12: instanced and linear kernels vs plain ----------------
@@ -853,8 +880,10 @@ def main():
     log(f"  instanced-forest128: {forest.instances.n_instances} instances, {forest.n_tris} "
         f"world triangles, {forest.tri_v0.shape[0]} stored, {forest.tri_tree.shape[0]} node "
         f"rows, leaf_span {forest.tree_leaf_span}; {compile_f}")
-    iargs = (forest.inst_f32, forest.inst_i32, forest.tri_tree, forest.inst_tris,
+    iargs = (forest.inst_f32, forest.inst_i32, forest.tri_tree, forest.inst_tri_blocks,
              forest.tree_leaf_span)
+    log(f"  triangle stores: inst_tri_blocks {store_mb(forest.inst_tri_blocks)} (instanced "
+        f"tree kernel), inst_tris {store_mb(forest.inst_tris)} (linear instanced kernel)")
     frays = make_rays(
         forest, sc_f.camera, INST_RAYS, 4, torch, box=((-6.0, 0.0, -6.0), (6.0, 1.5, 6.0)),
         hit_t=lambda r: iti.closest_plain(r, *iargs)[0],
@@ -870,11 +899,11 @@ def main():
                       iti.any_hit(frays, *iargs)[perm]),
           "instanced tree any-hit: a ray's answer depends on its neighbours")
     log(f"  instanced tree on a permuted ray order: every ray's answer unchanged")
-    snodes, sstore, sspan = sargs
     st = soup_tris.cpu().numpy()
     scl = ct.build_clusters(st[:, 0:3], st[:, 3:6], st[:, 6:9])
     cargs = (torch.from_numpy(ct.build_superclusters(scl, st.shape[0])).to(dev),
-             torch.from_numpy(scl).to(dev), sstore)
+             torch.from_numpy(scl).to(dev),
+             torch.from_numpy(ct.tree_tris(st[:, 0:3], st[:, 3:6], st[:, 6:9])).to(dev))
     crays = make_rays(
         SimpleNamespace(device=dev), sc512.camera, INST_RAYS, 6, torch,
         box=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)),
@@ -882,7 +911,7 @@ def main():
     )
     err_cl, occ_cl, hit_cl = compare_kernel(
         "flat cluster (soup, tree nulled)", crays, ci, cargs, st.shape[0], max_ulp_allowed=0)
-    check(torch.equal(hit_cl[3], ti.closest(crays, snodes, sstore, sspan)[3]),
+    check(torch.equal(hit_cl[3], ti.closest(crays, *sargs)[3]),
           "flat cluster prims != tree walk prims on the soup (tie rule)")
     ncargs = (forest.inst_f32, forest.inst_i32, forest.tri_superclusters, forest.tri_clusters,
               forest.inst_tris)
@@ -1065,6 +1094,10 @@ def main():
         fig[kname] = (b_ms, b_by, p_ms, FUSED_RAYS)
         ms[kname] = k_ms
         log(f"    {kname}: bound {b_ms:.4f} ms ({b_by}) at {FUSED_RAYS} rays x 36 tris")
+    for kname in ("tree_closest", "tree_any_hit", "instanced_tree_closest",
+                  "instanced_tree_any_hit"):
+        log(f"    {kname}: {ms[kname]:.4f} ms, bound {fig[kname][0]:.4f} ms ({fig[kname][1]}), "
+            f"{ms[kname] / fig[kname][0]:.1f}x the bound [card: {card}]")
     log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

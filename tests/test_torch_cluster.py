@@ -184,7 +184,8 @@ def test_flat_sweep_ties_go_to_the_lowest_index():
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     rays = _pack(o, d, np.zeros(m, np.float32), np.full(m, 1e30, np.float32))
     got = ci.closest(rays, sup, torch.from_numpy(cl), store)
-    want = ti.closest(rays, torch.from_numpy(nodes), store, span)
+    blocks = torch.from_numpy(ct.tri_blocks(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]))
+    want = ti.closest(rays, torch.from_numpy(nodes), blocks, n, span)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     prim = got[3].numpy()

@@ -226,11 +226,13 @@ def test_two_level_tables_equal_reference(name):
     # the kernel's triangle store: the reference's [16, sum Kp*128] rows
     # transposed, cut to 12 columns (the rest are zero there)
     t16 = np.asarray(ref.inst_tris16)
-    assert not t16[12:].any()
+    assert not t16[9:].any()
     np.testing.assert_array_equal(port.inst_tris.numpy(), t16.T[:, :12])
+    # the instanced tree kernel's store keeps the reference's layout: rows 0-8
+    np.testing.assert_array_equal(port.inst_tri_blocks.numpy(), t16[:9])
     # from_numpy_scene carries the reference's compile across unchanged
     conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree")
-    for f in TABLES + ["inst_f32", "inst_i32", "inst_tris"]:
+    for f in TABLES + ["inst_f32", "inst_i32", "inst_tri_blocks", "inst_tris"]:
         np.testing.assert_array_equal(_np(_get(conv, f)), _np(_get(port, f)), err_msg=f)
 
 
@@ -350,7 +352,8 @@ def test_plain_instanced_walk_matches_run_instanced_tree(name):
         o, d, t_max = _forest_rays(400, seed=3)
     t_min = np.zeros(len(o), np.float32)
     rays = _pack(o, d, t_min, t_max)
-    args = (port.inst_f32, port.inst_i32, port.tri_tree, port.inst_tris, port.tree_leaf_span)
+    args = (port.inst_f32, port.inst_i32, port.tri_tree, port.inst_tri_blocks,
+            port.tree_leaf_span)
     t, u, v, prim = iti.closest(rays, *args)
     rt, rprim, ru, rv, rvalid = _run_instanced_tree(ref, o, d, t_min, t_max, False)
     assert_virtual_prims_equal(port, prim.numpy(), rprim, rvalid)
@@ -398,8 +401,9 @@ def test_plain_walk_hits_do_not_depend_on_leaf_span(leaf_span, monkeypatch):
     assert port.tree_leaf_span == leaf_span
     o, d, t_max = _forest_rays(600, seed=11)
     rays = _pack(o, d, np.zeros(600, np.float32), t_max)
-    got = iti.closest(rays, port.inst_f32, port.inst_i32, port.tri_tree, port.inst_tris, leaf_span)
-    want = iti.closest(rays, base.inst_f32, base.inst_i32, base.tri_tree, base.inst_tris,
+    got = iti.closest(rays, port.inst_f32, port.inst_i32, port.tri_tree, port.inst_tri_blocks,
+                      leaf_span)
+    want = iti.closest(rays, base.inst_f32, base.inst_i32, base.tri_tree, base.inst_tri_blocks,
                        base.tree_leaf_span)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -423,7 +427,7 @@ def test_ties_across_instances_go_to_the_lower_virtual_id():
     for order in ([0, 1], [1, 0]):
         rays = _pack(o, d, np.zeros(n, np.float32), np.full(n, 1e30, np.float32))
         instf, insti = scene.inst_f32[order], scene.inst_i32[order]
-        prim = iti.closest(rays, instf, insti, scene.tri_tree, scene.inst_tris,
+        prim = iti.closest(rays, instf, insti, scene.tri_tree, scene.inst_tri_blocks,
                            scene.tree_leaf_span)[3]
         assert (prim == 0).all()
 
@@ -431,7 +435,7 @@ def test_ties_across_instances_go_to_the_lower_virtual_id():
 def test_wrapper_rejects_bad_inputs():
     port, _ = compiled("pair")
     rays = torch.zeros((8, 4))
-    args = (port.inst_f32, port.inst_i32, port.tri_tree, port.inst_tris)
+    args = (port.inst_f32, port.inst_i32, port.tri_tree, port.inst_tri_blocks)
     with pytest.raises(ValueError):
         iti.closest(torch.zeros((7, 4)), *args)
     with pytest.raises(TypeError):
@@ -439,7 +443,9 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         iti.closest(rays, port.inst_f32[:, :19], *args[1:])
     with pytest.raises(ValueError):
-        iti.any_hit(rays, *args[:3], port.inst_tris[:100])
+        iti.any_hit(rays, *args[:3], port.inst_tri_blocks[:, :100])
+    with pytest.raises(ValueError):
+        iti.any_hit(rays, *args[:3], port.inst_tris)  # the row store
     with pytest.raises(ValueError):
         iti.closest(rays, *args, leaf_span=0)
 

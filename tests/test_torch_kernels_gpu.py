@@ -94,9 +94,10 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
         di.closest(rays, tris.cpu())  # devices differ
 
 
-def _tree_soup(dev, n=20_000, seed=7):
+def _tree_soup(dev, n=20_000, seed=7, leaf_span=None):
     """A spatially sorted random soup with exact duplicates in far
-    clusters (they pin the lowest-index tie rule); its tree tables."""
+    clusters (they pin the lowest-index tie rule); its tree tables:
+    (tris, nodes, blocks, n, leaf_span, cluster boxes)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     v0 = torch.rand((n, 3), generator=g) * 2 - 1
     v0 = v0[torch.argsort(v0[:, 0] * 64 + (v0[:, 1] > 0) * 2 + (v0[:, 2] > 0))]
@@ -106,26 +107,27 @@ def _tree_soup(dev, n=20_000, seed=7):
     tris[n // 2:n // 2 + 50] = tris[n - 50:n]     # copies of later triangles
     t = tris.numpy()
     clusters = ct.build_clusters(t[:, 0:3], t[:, 3:6], t[:, 6:9])
-    nodes, span = ct.build_cluster_tree(clusters, n)
-    store = ct.tree_tris(t[:, 0:3], t[:, 3:6], t[:, 6:9])
+    nodes, span = ct.build_cluster_tree(clusters, n, leaf_span)
+    blocks = ct.tri_blocks(t[:, 0:3], t[:, 3:6], t[:, 6:9])
     return (tris.to(dev), torch.from_numpy(nodes).to(dev),
-            torch.from_numpy(store).to(dev), span)
+            torch.from_numpy(blocks).to(dev), n, span, torch.from_numpy(clusters).to(dev))
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 40_000])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 40_000])
 def test_tree_kernel_equals_plain_on_soup(dev, n):
-    tris, nodes, store, span = _tree_soup(dev)
+    tris, nodes, blocks, n_tris, span, _ = _tree_soup(dev)
+    args = (nodes, blocks, n_tris, span)
     rays = _rays(n, dev, seed=n)
     before = dict(ti.LAUNCHES)
-    got = ti.closest(rays, nodes, store, span)
-    occ = ti.any_hit(rays, nodes, store, span)
+    got = ti.closest(rays, *args)
+    occ = ti.any_hit(rays, *args)
     torch.cuda.synchronize()
     assert ti.LAUNCHES["closest"] == before["closest"] + 1
     assert ti.LAUNCHES["any_hit"] == before["any_hit"] + 1
-    want = ti.closest_plain(rays, nodes, store, span)
+    want = ti.closest_plain(rays, *args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert torch.equal(occ, ti.any_hit_plain(rays, nodes, store, span))
+    assert torch.equal(occ, ti.any_hit_plain(rays, *args))
     assert torch.equal(occ, want[3] >= 0)
     dense = di.closest_plain(rays, tris)  # the tie rule: lowest index wins
     assert torch.equal(got[3], dense[3])
@@ -135,7 +137,7 @@ def test_tree_kernel_equals_plain_on_terrain(dev):
     scene = terrain_scene(8, 8, n=128).compile().to(dev)
     assert scene.intersector == "tree"
     rays = _rays(30_000, dev, seed=9)
-    args = (scene.tri_tree, scene.tree_tris, scene.tree_leaf_span)
+    args = (scene.tri_tree, scene.tri_blocks, scene.n_tris, scene.tree_leaf_span)
     for a, b in zip(ti.closest(rays, *args), ti.closest_plain(rays, *args)):
         assert torch.equal(a, b)
     assert torch.equal(ti.any_hit(rays, *args), ti.any_hit_plain(rays, *args))
@@ -157,36 +159,43 @@ def test_tree_trace_paths_launches_once_per_query(dev):
 
 
 def test_tree_wrapper_refuses_what_the_kernel_cannot_take(dev):
-    _, nodes, store, span = _tree_soup(dev, n=3000)
+    _, nodes, blocks, n_tris, span, _ = _tree_soup(dev, n=3000)
     rays = _rays(64, dev)
     with pytest.raises(ValueError):
-        ti.closest(rays[:, ::2], nodes, store, span)  # not contiguous
+        ti.closest(rays[:, ::2], nodes, blocks, n_tris, span)  # not contiguous
     with pytest.raises(ValueError):
-        ti.closest(rays, nodes.t().contiguous().t(), store, span)
+        ti.closest(rays, nodes.t().contiguous().t(), blocks, n_tris, span)
     with pytest.raises(TypeError):
-        ti.any_hit(rays, nodes.double(), store, span)
+        ti.any_hit(rays, nodes.double(), blocks, n_tris, span)
     with pytest.raises(ValueError):
-        ti.any_hit(rays, nodes, store.cpu(), span)  # devices differ
+        ti.any_hit(rays, nodes, blocks.cpu(), n_tris, span)  # devices differ
     with pytest.raises(ValueError):
-        ti.closest(rays, nodes, store.view(-1)[1:1201].view(100, 12), span)  # off 16 B
+        ti.closest(rays, nodes, blocks.view(-1)[1:1 + 9 * 128].view(9, 128), 100, span)  # off 16 B
+    with pytest.raises(ValueError):
+        ti.closest(rays, nodes, blocks[:, :-128], n_tris, span)  # cut short
+    with pytest.raises(ValueError):
+        ti.closest(rays, nodes, blocks.t().contiguous().t(), n_tris, span)  # not contiguous
 
 
 # ------------------------ instanced and linear kernels ----------------------
 
-def _forest(dev, n_instances=8, n=16, nulled=False):
-    """The instanced forest compiled two-level (FLATTEN_MAX_TRIS = 1)."""
+def _forest(dev, n_instances=8, n=16, nulled=False, leaf_span=None):
+    """The instanced forest compiled two-level (FLATTEN_MAX_TRIS = 1),
+    with the leaf span picked as the compile picks it or forced."""
     import dataclasses
 
     import akari_torch.scene.nodes as nodes
     from akari_torch.scene.builtin import instanced_forest_scene
 
-    old = nodes.FLATTEN_MAX_TRIS
+    old = nodes.FLATTEN_MAX_TRIS, nodes.pick_leaf_span
     nodes.FLATTEN_MAX_TRIS = 1
+    if leaf_span is not None:
+        nodes.pick_leaf_span = lambda k: leaf_span
     try:
         sc = instanced_forest_scene(16, 16, n_instances=n_instances, n=n)
         scene = sc.compile()
     finally:
-        nodes.FLATTEN_MAX_TRIS = old
+        nodes.FLATTEN_MAX_TRIS, nodes.pick_leaf_span = old
     assert scene.instances is not None and scene.intersector == "tree"
     if nulled:
         scene = dataclasses.replace(scene, tri_tree=None)
@@ -232,12 +241,12 @@ def _check_module(mod, closest, any_hit, rays, args):
     return got
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 20_000])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 20_000])
 def test_instanced_tree_kernel_equals_plain(dev, n):
     from akari_torch.ops import instanced_tree_intersect as iti
 
     _, scene = _forest(dev)
-    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tris,
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tri_blocks,
             scene.tree_leaf_span)
     got = _check_module(iti, "closest", "any_hit", _forest_rays(n, dev, seed=n), args)
     if n == 20_000:
@@ -261,15 +270,16 @@ def test_instanced_cluster_kernel_equals_plain(dev, n):
 def test_flat_cluster_kernel_equals_plain(dev, n):
     from akari_torch.ops import cluster_intersect as ci
 
-    tris, nodes, store, span = _tree_soup(dev)
+    tris, nodes, blocks, n_tris, span, _ = _tree_soup(dev)
     t = tris.cpu().numpy()
     clusters = ct.build_clusters(t[:, 0:3], t[:, 3:6], t[:, 6:9])
     supers = torch.from_numpy(ct.build_superclusters(clusters, t.shape[0])).to(dev)
+    store = torch.from_numpy(ct.tree_tris(t[:, 0:3], t[:, 3:6], t[:, 6:9])).to(dev)
     args = (supers, torch.from_numpy(clusters).to(dev), store)
     rays = _rays(n, dev, seed=n)
     got = _check_module(ci, "closest", "any_hit", rays, args)
     # the linear sweep answers as the tree walk does (lowest index on ties)
-    for a, b in zip(got, ti.closest(rays, nodes, store, span)):
+    for a, b in zip(got, ti.closest(rays, nodes, blocks, n_tris, span)):
         assert torch.equal(a, b)
 
 
@@ -295,10 +305,12 @@ def test_instanced_wrappers_refuse_what_the_kernels_cannot_take(dev):
 
     _, scene = _forest(dev)
     rays = _forest_rays(64, dev)
-    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tris,
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tri_blocks,
             scene.tree_leaf_span)
     with pytest.raises(ValueError):
         iti.closest(rays[:, ::2], *args)  # not contiguous
+    with pytest.raises(ValueError):
+        iti.closest(rays, *args[:3], scene.inst_tris, scene.tree_leaf_span)  # the row store
     with pytest.raises(ValueError):
         iti.closest(rays, scene.inst_f32.cpu(), *args[1:])  # devices differ
     with pytest.raises(TypeError):
@@ -306,3 +318,79 @@ def test_instanced_wrappers_refuse_what_the_kernels_cannot_take(dev):
     with pytest.raises(ValueError):
         ci.instanced_closest(rays, scene.inst_f32, scene.inst_i32, scene.tri_superclusters,
                              scene.tri_clusters, scene.inst_tris.view(-1)[4:-8].view(-1, 12))
+
+
+# ------------- the warp walk: warp shapes, leaf spans, ray order -------------
+
+def _cluster_spots(boxes, o2w=None):
+    """World-space centres and half-diagonals of the real cluster boxes
+    ([K, >= 6]), under each instance's [I, 3, 4] o2w if given (the
+    half-diagonal then scaled by the largest column norm)."""
+    b = boxes[:, :6].cpu()
+    b = b[(b[:, 3:6] > b[:, 0:3]).all(dim=1)]
+    centre, radius = (b[:, 0:3] + b[:, 3:6]) / 2, (b[:, 3:6] - b[:, 0:3]).norm(dim=1) / 2
+    if o2w is None:
+        return centre, radius
+    m = o2w.cpu()
+    world = torch.einsum("iab,kb->ika", m[:, :, :3], centre) + m[:, None, :, 3]
+    scale = m[:, :, :3].norm(dim=1).max(dim=1).values
+    return world.reshape(-1, 3), (scale[:, None] * radius[None]).reshape(-1)
+
+
+def _warp_rays(case, dev, centre, radius, lo, hi, seed=0):
+    """64 rays (two warps) that load a warp in one way: ``many_leaves``
+    (each lane starts at a different cluster's centre, bounded to it:
+    different leaves at once), ``all_dead`` (those rays with warp 0 dead),
+    ``one_live`` (one live lane a warp), ``one_leaf`` (nearly equal rays
+    from outside toward one cluster: the lanes enter the same leaves
+    together). ``centre``/``radius`` are cluster spots, ``lo``/``hi``
+    bound the scene."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = 64
+    k = torch.randperm(len(centre), generator=g)[:n]
+    k = k[torch.arange(n) % len(k)]
+    o, t_max = centre[k], 2 * radius[k]
+    d = torch.randn((n, 3), generator=g)
+    if case == "all_dead":
+        t_max[:32] = 0.0
+    elif case == "one_live":
+        t_max[torch.arange(n) % 32 != 5] = 0.0
+    elif case == "one_leaf":
+        c = centre[len(centre) // 2]
+        o = (c + (torch.tensor(hi) - torch.tensor(lo)) * 0.6).expand(n, 3)
+        d = c - o + 1e-3 * d
+        t_max = torch.full((n,), di.T_MAX)
+    d = d / d.norm(dim=1, keepdim=True)
+    zero = torch.zeros(n)
+    return di.pack_rays(V3(*o.T), V3(*d.T), zero, t_max).contiguous().to(dev)
+
+
+WARP_CASES = ["all_dead", "one_live", "one_leaf", "many_leaves"]
+
+
+@pytest.mark.parametrize("leaf_span", [1, 2, 4])
+@pytest.mark.parametrize("case", WARP_CASES)
+def test_tree_kernel_on_warp_shapes(dev, case, leaf_span):
+    """Closest and any-hit == the plain walk on each warp shape and leaf
+    span, and on a permuted ray order (``_check_module``)."""
+    _, nodes, blocks, n_tris, span, clusters = _tree_soup(dev, leaf_span=leaf_span)
+    assert span == leaf_span
+    rays = _warp_rays(case, dev, *_cluster_spots(clusters), (-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    got = _check_module(ti, "closest", "any_hit", rays, (nodes, blocks, n_tris, span))
+    if case in ("one_leaf", "many_leaves"):
+        assert int((got[3] >= 0).sum()) >= 8
+
+
+@pytest.mark.parametrize("leaf_span", [1, 2, 4])
+@pytest.mark.parametrize("case", WARP_CASES)
+def test_instanced_tree_kernel_on_warp_shapes(dev, case, leaf_span):
+    from akari_torch.ops import instanced_tree_intersect as iti
+
+    _, scene = _forest(dev, leaf_span=leaf_span)
+    assert scene.tree_leaf_span == leaf_span
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_tree, scene.inst_tri_blocks, leaf_span)
+    spots = _cluster_spots(scene.tri_clusters, scene.instances.o2w)
+    rays = _warp_rays(case, dev, *spots, (-7.0, 0.2, -7.0), (7.0, 2.5, 7.0))
+    got = _check_module(iti, "closest", "any_hit", rays, args)
+    if case in ("one_leaf", "many_leaves"):
+        assert int((got[3] >= 0).sum()) >= 8

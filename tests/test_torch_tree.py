@@ -229,7 +229,7 @@ def test_plain_walk_matches_run_tree(soup, leaf_span, sort):
         soup, tree, span, o, d, t_min, t_max, any_hit=False
     )
     rays = _pack(o, d, t_min, t_max)
-    t, u, v, prim = ti.closest(rays, torch.from_numpy(tree), soup.tree_tris, span)
+    t, u, v, prim = ti.closest(rays, torch.from_numpy(tree), soup.tri_blocks, soup.n_tris, span)
     np.testing.assert_array_equal(prim.numpy() >= 0, ref_valid)
     _assert_prims_equal_up_to_sbvh_copies(soup, prim.numpy(), ref_prim)
     ok = ref_valid
@@ -240,7 +240,7 @@ def test_plain_walk_matches_run_tree(soup, leaf_span, sort):
     assert np.all(t.numpy()[~ok] == np.float32(1e30))
     assert not u.numpy()[~ok].any() and not v.numpy()[~ok].any()
     ref_occ = _run_tree(soup, tree, span, o, d, t_min, t_max, any_hit=True)
-    occ = ti.any_hit(rays, torch.from_numpy(tree), soup.tree_tris, span)
+    occ = ti.any_hit(rays, torch.from_numpy(tree), soup.tri_blocks, soup.n_tris, span)
     np.testing.assert_array_equal(occ.numpy(), ref_occ)
     np.testing.assert_array_equal(occ.numpy(), ok)
     # hits, bounded and dead rays were all exercised
@@ -265,8 +265,8 @@ def _tie_soup(n=2000, seed=5):
 def _tables(tris):
     clusters = ct.build_clusters(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
     nodes, span = ct.build_cluster_tree(clusters, tris.shape[0], leaf_span=1)
-    store = ct.tree_tris(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
-    return torch.from_numpy(nodes), torch.from_numpy(store), span
+    blocks = ct.tri_blocks(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
+    return torch.from_numpy(nodes), torch.from_numpy(blocks), tris.shape[0], span
 
 
 def test_tie_rule_matches_dense_and_brute():
@@ -274,7 +274,7 @@ def test_tie_rule_matches_dense_and_brute():
     whatever cluster it visits first, like the dense sweep and the brute
     oracle."""
     tris = _tie_soup()
-    nodes, store, span = _tables(tris)
+    nodes, blocks, n_tris, span = _tables(tris)
     r = np.random.default_rng(8)
     n = 3000
     # rays along +x and along -x visit the duplicate clusters in both orders
@@ -286,7 +286,7 @@ def test_tie_rule_matches_dense_and_brute():
     t_min = np.zeros(n, np.float32)
     t_max = np.full(n, 1e30, np.float32)
     rays = _pack(o, d, t_min, t_max)
-    got = ti.closest(rays, nodes, store, span)
+    got = ti.closest(rays, nodes, blocks, n_tris, span)
     want = di.closest_plain(rays, torch.from_numpy(tris))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -301,7 +301,7 @@ def test_tie_rule_matches_dense_and_brute():
     assert not np.isin(prim, np.r_[1500:1540, 1900:1920, 1200:1210]).any()
     assert np.isin(prim, np.r_[100:140]).any() and np.isin(prim, np.r_[1000:1020]).any()
     np.testing.assert_array_equal(
-        ti.any_hit(rays, nodes, store, span).numpy(), prim >= 0
+        ti.any_hit(rays, nodes, blocks, n_tris, span).numpy(), prim >= 0
     )
 
 
@@ -318,7 +318,7 @@ def test_plain_chunking_does_not_change_results(soup, monkeypatch):
     o, d = _rays(400, seed=12)
     t_min, t_max = _limits(soup, o, d, seed=12)
     rays = _pack(o, d, t_min, t_max)
-    args = (soup.tri_tree, soup.tree_tris, soup.tree_leaf_span)
+    args = (soup.tri_tree, soup.tri_blocks, soup.n_tris, soup.tree_leaf_span)
     full = ti.closest_plain(rays, *args)
     occ = ti.any_hit_plain(rays, *args)
     monkeypatch.setattr(ti, "PLAIN_RAYS_PER_CHUNK", 97)
@@ -330,15 +330,17 @@ def test_plain_chunking_does_not_change_results(soup, monkeypatch):
 
 def test_wrapper_rejects_bad_inputs(soup):
     rays = torch.zeros((8, 4))
-    args = (soup.tri_tree, soup.tree_tris)
+    args = (soup.tri_tree, soup.tri_blocks, soup.n_tris)
     with pytest.raises(ValueError):
         ti.closest(torch.zeros((7, 4)), *args)
     with pytest.raises(TypeError):
         ti.closest(rays.double(), *args)
     with pytest.raises(ValueError):
-        ti.any_hit(rays, soup.tri_tree[:, :15], soup.tree_tris)
+        ti.any_hit(rays, soup.tri_tree[:, :15], *args[1:])
     with pytest.raises(ValueError):
-        ti.any_hit(rays, soup.tri_tree, soup.prim_table)
+        ti.any_hit(rays, soup.tri_tree, soup.tree_tris, soup.n_tris)  # the row store
+    with pytest.raises(ValueError):
+        ti.any_hit(rays, soup.tri_tree, soup.tri_blocks, soup.n_tris + 128)  # too few columns
     with pytest.raises(ValueError):
         ti.closest(rays, *args, leaf_span=0)
 
@@ -409,9 +411,10 @@ def test_tree_tables_carried_from_the_reference():
     conv = from_numpy_scene(ref, intersector="tree")
     port = terrain_scene(8, 8, n=64).compile()
     assert port.intersector == "tree" and port.n_tris == ref.n_tris
-    for f in ("tri_clusters", "tri_tree", "tree_tris", "prim_table"):
+    for f in ("tri_clusters", "tri_tree", "tri_blocks", "tree_tris", "prim_table"):
         np.testing.assert_array_equal(getattr(conv, f).numpy(), getattr(port, f).numpy())
     np.testing.assert_array_equal(port.tri_tree.numpy(), np.asarray(ref.tri_tree))
+    np.testing.assert_array_equal(port.tri_blocks.numpy(), np.asarray(ref.tri_blocks)[:9])
     assert port.tree_leaf_span == conv.tree_leaf_span == ref.tree_leaf_span == 1
 
 

@@ -79,7 +79,7 @@ def main(argv=None):
         zero = torch.zeros(2 * n_cam, device=dev)
         tmax = torch.full((2 * n_cam,), di.T_MAX, device=dev)
         rays = di.pack_rays(o, d, zero, tmax).contiguous()
-        targs = (scene.tri_tree, scene.tree_tris, scene.tree_leaf_span)
+        targs = (scene.tri_tree, scene.tri_blocks, scene.n_tris, scene.tree_leaf_span)
         k = (scene.n_tris + 127) // 128
         key = sort_keys_soa(
             o, d, scene.tri_clusters[:k, 0:3].min(0).values,
