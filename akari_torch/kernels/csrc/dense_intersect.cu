@@ -12,39 +12,60 @@
 //     gives prim -1, t = T_MAX, u = v = 0.
 //   any-hit: 1 if any triangle hits in (t_min, t_max), else 0.
 //
-// Design. One thread per ray. The triangles are staged through shared
-// memory in chunks of CHUNK rows (any triangle count works; the 36-triangle
-// Cornell box takes 1.3 KB). Each thread loops over the triangles in
-// ascending order with a strict `t < best_t`, which yields the
-// reference's lowest-index tie order without a reduction. The any-hit
-// variant stops at its first hit, and a block whose rays are all done
-// skips the remaining chunks. Rays are the [8, N] rows of
-// `_pack_rays_soa` (ox oy oz dx dy dz tmin tmax), read coalesced; there is
-// no padding to a tile, the ragged tail is masked.
-//
 // Arithmetic. The operation order of `_pairwise_mt_t`, IEEE division for
 // 1/det, built with --fmad=false and without --use_fast_math: the kernel
 // then equals its plain PyTorch version (ops/dense_intersect.py) bit for
 // bit on the card.
 //
-// What bounds it on the H100. Per ray and triangle about 40 float
-// operations; the fused shadow+extension launch of a 256x256, 4 spp bounce
-// is 524,288 rays x 36 triangles ~ 19 M tests (~0.8 GFLOP), and it moves
-// 8 x 4 B in and 16 B (closest) out per ray, ~25 MB. At the card's
-// ~50 TFLOP/s (no FMA) and 3.35 TB/s that is ~10-20 us of compute or
-// traffic, below the launch latency and far below the surrounding eager
-// elementwise ops of the path tracer: launches and host overhead bound the
-// main path, not this kernel. For scenes with thousands of triangles the
-// all-pairs sweep becomes compute-bound; those scenes take the BVH tree
-// walk (slice 2).
+// What bounds it on the H100: instruction issue. A test is 46 float
+// multiplies and adds (no FMA under the bit-exact contract), an IEEE
+// reciprocal with its range check (~10 instructions), the compares and
+// selects of the hit expression, its share of the triangle's loads and of
+// the loop: ~75 SASS instructions (tools/dense_kernel_ab.py counts them).
+// The fused launch of a 256x256, 4 spp bounce (524,288 rays x 36
+// triangles) moves ~25 MB (~7.5 us at 3.35 TB/s) but issues ~1.4 G
+// lane-instructions (~43 us at 132 SMs x 4 schedulers x 32 lanes x
+// ~1.98 GHz). So the design cuts instructions per test and tests:
+//
+// 1. Dead rays take no test. A ray with !(t_min < best_t), NaN included,
+//    can never hit (the reference's hit needs t > t_min and t < best_t):
+//    it is done at entry and writes the miss; a warp whose rays are all
+//    done skips the triangle loop, and a block whose rays are all done
+//    skips every chunk. (The fused launch's dead rays, paths that ended,
+//    come in runs: 646 of the 8,192 warps of a Cornell frame's first fused
+//    launch hold no live ray.)
+// 2. One triangle load serves several rays. Each thread carries RAYS rays
+//    (rays first + k * BLOCK + tid, coalesced). The triangles are staged
+//    through shared memory in chunks of CHUNK as three 16-byte vectors,
+//    (v0.xyz, e1.x) (e1.yz, e2.xy) (e2.z, pad): two LDS.128 and one LDS.32
+//    a triangle, broadcast to the warp, feed RAYS independent tests (rows of
+//    9 floats are not 16-byte aligned and would take nine scalar loads),
+//    and the triangle loop is unrolled by 2.
+// 3. Each ray visits the triangles in ascending order with a strict
+//    `t < best_t`, which yields the lowest-index tie order without a
+//    reduction. The any-hit variant ends a ray at its first hit and a
+//    warp when all its rays are done.
+//
+// An exact staged rejection before the division (a warp vote after det and
+// u_num, and after v_num, skipping the rest of a pair that every lane
+// rejects) was measured and left out: a warp rejects a triangle together
+// too rarely on the main path's rays to pay for the predicate and votes
+// (PERF.md, ROADMAP.md Queue 3).
+//
+// Rays are the [8, N] rows of `_pack_rays_soa` (ox oy oz dx dy dz tmin
+// tmax); there is no padding to a tile, the ragged tail is masked.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BLOCK = 256;        // threads (rays) per block
+constexpr int BLOCK = 128;        // threads per block
+constexpr int RAYS = 2;           // rays per thread
+constexpr int BLOCK_RAYS = BLOCK * RAYS;
 constexpr int CHUNK = 256;        // triangles per shared-memory chunk
 constexpr int TRI_FLOATS = 9;     // v0.xyz e1.xyz e2.xyz
+constexpr int TRI_VEC = 3;        // 16-byte vectors a staged triangle
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float HIT_EPS = 1e-9f;
 constexpr float T_MAX = 1e30f;
 
@@ -56,88 +77,139 @@ dense_intersect_kernel(const float* __restrict__ rays, long long n,
                        float* __restrict__ u_out, float* __restrict__ v_out,
                        int* __restrict__ prim_out,
                        unsigned char* __restrict__ occ_out) {
-  __shared__ float s_tri[CHUNK * TRI_FLOATS];
+  __shared__ float4 s_tri[CHUNK * TRI_VEC];
 
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  float tmin = 0.f, tmax = 0.f;
-  if (live) {
-    ox = rays[i];
-    oy = rays[n + i];
-    oz = rays[2 * n + i];
-    dx = rays[3 * n + i];
-    dy = rays[4 * n + i];
-    dz = rays[5 * n + i];
-    tmin = rays[6 * n + i];
-    tmax = rays[7 * n + i];
+  const int tid = threadIdx.x;
+  const long long first = (long long)blockIdx.x * BLOCK_RAYS;
+  float ox[RAYS], oy[RAYS], oz[RAYS], dx[RAYS], dy[RAYS], dz[RAYS];
+  float tmin[RAYS], best_t[RAYS], best_u[RAYS], best_v[RAYS];
+  int best_prim[RAYS];
+  bool done[RAYS], occluded[RAYS];
+  bool finished = true;  // all of this thread's rays are done
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    const long long i = first + k * BLOCK + tid;
+    ox[k] = oy[k] = oz[k] = dx[k] = dy[k] = dz[k] = 0.f;
+    tmin[k] = best_t[k] = 0.f;
+    bool live = false;
+    if (i < n) {
+      ox[k] = rays[i];
+      oy[k] = rays[n + i];
+      oz[k] = rays[2 * n + i];
+      dx[k] = rays[3 * n + i];
+      dy[k] = rays[4 * n + i];
+      dz[k] = rays[5 * n + i];
+      tmin[k] = rays[6 * n + i];
+      // init_state: best_t = minimum(t_max, T_MAX) (NaN stays NaN)
+      const float tmax = rays[7 * n + i];
+      best_t[k] = ANY_HIT ? tmax : (tmax > T_MAX ? T_MAX : tmax);
+      live = tmin[k] < best_t[k];  // else no t lies in (t_min, best_t)
+    }
+    best_u[k] = 0.f;
+    best_v[k] = 0.f;
+    best_prim[k] = -1;
+    occluded[k] = false;
+    done[k] = !live;
+    finished = finished && done[k];
   }
-  // init_state: best_t = minimum(t_max, T_MAX) (NaN stays NaN: never hits)
-  float best_t = ANY_HIT ? tmax : (tmax > T_MAX ? T_MAX : tmax);
-  float best_u = 0.f, best_v = 0.f;
-  int best_prim = -1;
-  bool done = !live;
 
+  float* s_flat = reinterpret_cast<float*>(s_tri);
   for (int base = 0; base < n_tris; base += CHUNK) {
     const int cnt = min(CHUNK, n_tris - base);
     // every thread reaches this barrier; the block leaves together once
-    // all of its rays are done (any-hit) or masked
-    if (__syncthreads_and(done)) break;
-    for (int k = threadIdx.x; k < cnt * TRI_FLOATS; k += BLOCK) {
-      const int row = k / TRI_FLOATS;
-      const int col = k - row * TRI_FLOATS;
-      s_tri[k] = tris[(long long)(base + row) * tri_stride + col];
+    // all of its rays are done
+    if (__syncthreads_and(finished)) break;
+    for (int e = tid; e < cnt * TRI_FLOATS; e += BLOCK) {
+      const int row = e / TRI_FLOATS;
+      const int col = e - row * TRI_FLOATS;
+      s_flat[row * 4 * TRI_VEC + col] =
+          tris[(long long)(base + row) * tri_stride + col];
     }
     __syncthreads();
-    if (!done) {
-      for (int j = 0; j < cnt; ++j) {
-        const float* tr = s_tri + j * TRI_FLOATS;
-        const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-        const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-        const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+    if (__all_sync(FULL_MASK, finished)) continue;  // warp-uniform
+#pragma unroll 2
+    for (int j = 0; j < cnt; ++j) {
+      const float4 a = s_tri[TRI_VEC * j];
+      const float4 b = s_tri[TRI_VEC * j + 1];
+      const float e2z = s_flat[4 * (TRI_VEC * j + 2)];
+      const float v0x = a.x, v0y = a.y, v0z = a.z;
+      const float e1x = a.w, e1y = b.x, e1z = b.y;
+      const float e2x = b.z, e2y = b.w;
+      // in three stages across the RAYS rays, so that their independent
+      // chains interleave: faster than one ray's whole test after the
+      // other (PERF.md)
+      float det[RAYS], tx[RAYS], ty[RAYS], tz[RAYS], un[RAYS];
+#pragma unroll
+      for (int k = 0; k < RAYS; ++k) {
         // pvec = d x e2
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv_det = 1.0f / (fabsf(det) < HIT_EPS ? 1.0f : det);
-        const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
+        const float px = dy[k] * e2z - dz[k] * e2y;
+        const float py = dz[k] * e2x - dx[k] * e2z;
+        const float pz = dx[k] * e2y - dy[k] * e2x;
+        det[k] = e1x * px + e1y * py + e1z * pz;
+        tx[k] = ox[k] - v0x;
+        ty[k] = oy[k] - v0y;
+        tz[k] = oz[k] - v0z;
+        un[k] = tx[k] * px + ty[k] * py + tz[k] * pz;
+      }
+      float qx[RAYS], qy[RAYS], qz[RAYS], vn[RAYS];
+#pragma unroll
+      for (int k = 0; k < RAYS; ++k) {
         // qvec = tvec x e1
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool hit = (fabsf(det) >= HIT_EPS) && (u >= 0.f) &&
-                         (v >= 0.f) && (u + v <= 1.f) && (t > tmin) &&
-                         (t < best_t);
+        qx[k] = ty[k] * e1z - tz[k] * e1y;
+        qy[k] = tz[k] * e1x - tx[k] * e1z;
+        qz[k] = tx[k] * e1y - ty[k] * e1x;
+        vn[k] = dx[k] * qx[k] + dy[k] * qy[k] + dz[k] * qz[k];
+      }
+#pragma unroll
+      for (int k = 0; k < RAYS; ++k) {
+        const float inv_det =
+            1.0f / (fabsf(det[k]) < HIT_EPS ? 1.0f : det[k]);
+        const float u = un[k] * inv_det;
+        const float v = vn[k] * inv_det;
+        const float t = (e2x * qx[k] + e2y * qy[k] + e2z * qz[k]) * inv_det;
+        const bool hit = (fabsf(det[k]) >= HIT_EPS) && (u >= 0.f) &&
+                         (v >= 0.f) && (u + v <= 1.f) && (t > tmin[k]) &&
+                         (t < best_t[k]);
         if (hit) {
           if (ANY_HIT) {
-            done = true;
-            break;
+            done[k] = true;
+            occluded[k] = true;
+          } else {
+            best_t[k] = t;
+            best_u[k] = u;
+            best_v[k] = v;
+            best_prim[k] = base + j;
           }
-          best_t = t;
-          best_u = u;
-          best_v = v;
-          best_prim = base + j;
         }
+      }
+      if (ANY_HIT) {
+        finished = true;
+#pragma unroll
+        for (int k = 0; k < RAYS; ++k) finished = finished && done[k];
+        if (__all_sync(FULL_MASK, finished)) break;
       }
     }
   }
-  if (!live) return;
-  if (ANY_HIT) {
-    occ_out[i] = done ? 1 : 0;
-  } else {
-    const bool valid = best_prim >= 0;
-    t_out[i] = valid ? best_t : T_MAX;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
-    prim_out[i] = best_prim;
+
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    const long long i = first + k * BLOCK + tid;
+    if (i >= n) continue;
+    if (ANY_HIT) {
+      occ_out[i] = occluded[k] ? 1 : 0;
+    } else {
+      const bool valid = best_prim[k] >= 0;
+      t_out[i] = valid ? best_t[k] : T_MAX;
+      u_out[i] = best_u[k];
+      v_out[i] = best_v[k];
+      prim_out[i] = best_prim[k];
+    }
   }
 }
 
-int launch_blocks(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
+int launch_blocks(long long n) {
+  return (int)((n + BLOCK_RAYS - 1) / BLOCK_RAYS);
+}
 
 }  // namespace
 

@@ -8,11 +8,14 @@ Phases (each checks its results; any failure exits non-zero):
 
 1. setup: the card's name and power limit; build the CUDA kernels from
    ``akari_torch/kernels/csrc`` and report the build time and the ptxas
-   report (registers, stack frame and spills of the two tree walks
-   summarised);
-2. kernel vs plain PyTorch version on the card, on >= 2^20 rays against
-   the compiled Cornell box and a 300-triangle soup (prim/valid exact,
-   t/u/v bit-exact or within 2 ulp; any-hit == closest-hit validity);
+   report (registers, stack frame and spills of the dense kernel and the
+   two tree walks summarised);
+2. dense kernel vs plain PyTorch version on the card, on >= 2^20 rays
+   against the compiled Cornell box and a 300-triangle soup, and on the
+   adversarial pack of edge pairs (``adversarial_pack``)
+   (prim/valid exact, t/u/v 0 ulp; any-hit == closest-hit validity); then
+   bit-equality at ray counts ``RAY_COUNTS`` and triangle counts
+   ``TRI_COUNTS``;
 3. the main path at the bench width: ``render`` of the 256x256 Cornell
    box, 4 spp, depth 5, with launch counts (1 + max_depth per
    ``trace_paths`` call) and a lit, finite image;
@@ -20,8 +23,11 @@ Phases (each checks its results; any failure exits non-zero):
    golden image rendered by the JAX package
    (tests/data/torch_port_cornell64_spp4_d5.npy);
 5. realistic size: 1024x1024, 16 spp, depth 5 through ``render`` and
-   through the CLI, timed after a warm-up, plus the kernel alone and its
-   plain version alone at the fused launch's shape (524,288 rays);
+   through the CLI, timed after a warm-up, plus both dense kernels alone
+   and their plain versions alone at the fused launch's shape (524,288
+   rays): on the rays of the main path's first fused launch, captured from
+   a cornell-256 frame (where the kernels are also held against their
+   plain versions, 0 ulp), and on the make_rays pack;
 6. tree kernel vs plain walk on the card: both variants on >= 2^18 + 77
    rays against the 522,244-triangle terrain (native BVH builder) and a
    20k-triangle soup with exact duplicates across clusters, both on the
@@ -68,8 +74,12 @@ Phases (each checks its results; any failure exits non-zero):
 18. the instanced tree and linear instanced kernels at the fused launch's
     shape (524,288 rays captured from a frame of ``instanced-forest128``)
     and the flat cluster kernel on phase 11's terrain rays, with their
-    plain versions' times and every kernel's lower bound on this card;
-19. the result: a JSON line of kernel records, then the device line.
+    plain versions' times and every kernel's lower bound on this card; the
+    dense kernels' phase-5 times beside their bounds on both ray sets (the
+    bound charges the live rays only, and is logged once more charging
+    every ray);
+19. the result: a JSON line of kernel records (the dense records on the
+    captured fused rays), then the device line.
 
 Every kernel source (and the native BVH builder) is built at start, one
 compiler process each, all started together. Imports nothing of JAX.
@@ -102,6 +112,7 @@ MEAN_LIT_MIN = 0.05              # "clearly lit" bound on the mean radiance
 INST_RAYS = (1 << 16) + 77       # instanced and linear kernels vs plain
 PLAIN_SUBSET = 1 << 16           # plain timing subset when a full call is slow
 PLAIN_FULL_MAX_S = 10.0          # ... that is, slower than this
+SLEEP_CYCLES = 50_000_000        # ~25 ms of device clock: the host enqueues meanwhile
 KERNELS = ("dense_intersect", "tree_intersect", "instanced_tree_intersect",
            "cluster_intersect")
 FOREST_SDL_ROTATION = (-23.4805, 33.6901, 0.0)  # look_at((6, 5, 9), (0, 0.3, 0)), ZYX degrees
@@ -117,7 +128,9 @@ MT_OPS = 55       # one Moller-Trumbore test: 2 cross, 4 dot, the reciprocal, 8 
 RAY_BYTES, CLOSEST_BYTES, ANY_HIT_BYTES = 32, 16, 1
 ROW_BYTES = {"nodes": 64, "tris": 48, "tri_blocks": 36, "instances": 112, "supers": 32,
              "clusters": 32}
-TREE_SOURCES = ("tree_intersect", "instanced_tree_intersect")
+SUMMARY_SOURCES = ("dense_intersect", "tree_intersect", "instanced_tree_intersect")
+RAY_COUNTS = (1, 31, 33, 255, 257, 513, 5000)        # not multiples of any block's rays
+TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
 
 
 def log(msg):
@@ -167,7 +180,11 @@ def ulp_diff(a, b):
 
 
 def cuda_ms(fn, iters, warmup=3):
-    """Mean milliseconds per call of fn() on the current stream."""
+    """Mean milliseconds per call of fn() on the current stream, run back
+    to back. A sleep kernel queued before the start event lets the host
+    enqueue the calls before the card reaches them, so the host's time per
+    call (argument checks, output allocation, the ctypes call) opens no
+    gap between launches: it would for a kernel of tens of microseconds."""
     import torch
 
     for _ in range(warmup):
@@ -175,6 +192,7 @@ def cuda_ms(fn, iters, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -409,6 +427,74 @@ def make_rays(scene, camera, n, seed, torch, box=((-0.95, 0.05, -0.95), (0.95, 1
     return rays
 
 
+def adversarial_pack(dev, torch, seed=0):
+    """Rays and triangles whose pairs sit on the edges of the dense
+    kernel's hit test and of float32: an ([8, N] rays, [T, 9] triangles)
+    pair on ``dev``.
+
+    Special triangle k is v0 = 0, e1 = (0, D_k, 0), e2 = (1, 0, 0); with a
+    ray of direction (0, 0, 1) that gives det = D_k, u_num = oy and
+    v_num = RN(ox D_k) exactly (pvec = (0, 1, 0)) and t close to -oz. D_k
+    runs over HIT_EPS and 2^60 with one ulp either side, both signs, +-0,
+    +-inf and NaN; the rays put u_num and v_num on 0, -0, denormals, 2^-60
+    with one ulp either side, +-inf and NaN, and (u, v) on the edges (u or
+    v exactly 0, u + v exactly 1, just outside). Seeded random rays and
+    triangles (with exact duplicates: ties go to the lower index) join
+    them, so every special ray also meets generic triangles and back."""
+    import numpy as np
+
+    f32 = np.float32
+    inf, nan = np.inf, np.nan
+
+    def around(x):  # x and one ulp either side
+        x = f32(x)
+        return [np.nextafter(x, f32(-inf)), x, np.nextafter(x, f32(inf))]
+
+    eps, big = around(1e-9), around(2.0 ** 60)
+    tuned = [1.0, -1.0, 0.5, *eps, *(-e for e in eps), *big, *(-b for b in big)]
+    dets = tuned + [3.0, 2.0 ** -20, 0.0, -0.0, inf, -inf, nan]
+    special = np.zeros((len(dets), 9), np.float32)
+    special[:, 4] = dets
+    special[:, 6] = 1.0
+    bary = [(0.0, 0.0), (-0.0, 0.25), (0.25, -0.0), (0.25, 0.75), (0.75, 0.25), (1.0, 0.0),
+            (0.0, 1.0), (0.5, 0.5), (0.375, 0.625), (-1e-7, 0.5), (0.5, -1e-7),
+            (-1e-30, 0.5), (0.5, -1e-30), (0.5, 0.5 + 1e-7)]
+    xy = [(f32(vt / dk), f32(ut * dk)) for dk in tuned for ut, vt in bary]
+    nums = [0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, *around(2.0 ** -60),
+            *(-x for x in around(2.0 ** -60)), 0.25, -0.25, 1e20, -1e20, inf, -inf, nan]
+    for x in nums:
+        xy += [(0.25, x), (-0.25, x), (0.0, x), (x, 0.25), (x, -0.25)]
+    xy += [(x, 0.25) for x in around(2.0 ** -120)]  # v_num at 2^-60 against D = 2^60
+    ox, oy = (np.asarray(c, np.float64) for c in zip(*xy))
+    m = len(xy)
+    o = np.stack([ox, oy, np.full(m, -1.0)], axis=1)
+    o[::11, 2] = 1.0     # behind the ray: t < 0
+    o[5::11, 2] = -0.0   # t = 0 at t_min = 0
+    d = np.tile([0.0, 0.0, 1.0], (m, 1))
+    d[3::29] = [nan, 0.0, 1.0]
+    d[7::29] = [inf, 0.0, 1.0]
+    d[13::29] = [0.0, 0.0, -0.0]
+    r = np.random.default_rng(seed)
+    limits = np.asarray([(0.0, 1e30), (0.0, 1e30), (0.0, 1e30), (0.0, 2.0), (0.0, 0.5),
+                         (-0.0, 1e30), (0.5, 1e30), (1.0, 1e30), (nan, 1e30), (0.0, nan),
+                         (0.0, 0.0), (1.0, 1.0)])
+    lim = limits[r.integers(0, len(limits), m)]
+    # generic rays from inside [-1, 1]^3, a seventh of them dead
+    g = 256
+    go = r.uniform(-1.0, 1.0, (g, 3))
+    gd = r.normal(size=(g, 3))
+    gd /= np.linalg.norm(gd, axis=1, keepdims=True)
+    glim = np.stack([np.zeros(g), np.where(np.arange(g) % 7 == 0, 0.0, 1e30)], axis=1)
+    rays = np.concatenate([np.concatenate([o, d, lim], axis=1),
+                           np.concatenate([go, gd, glim], axis=1)]).T
+    generic = np.concatenate([r.uniform(-1.0, 1.0, (64, 3)), r.normal(scale=0.6, size=(64, 6))],
+                             axis=1)
+    generic[40:52] = generic[4:16]  # exact duplicates
+    tris = np.concatenate([special, generic]).astype(np.float32)
+    return (torch.from_numpy(np.ascontiguousarray(rays, np.float32)).to(dev),
+            torch.from_numpy(tris).to(dev))
+
+
 @contextlib.contextmanager
 def flatten_max_tris(n):
     """Compile instanced scenes two-level above ``n`` world triangles (the
@@ -452,14 +538,19 @@ def walk_bound(stats, n_rays, any_hit):
     return bound_ms(ops, nbytes)
 
 
-def dense_bound(rays, tris, any_hit):
-    """Bound of the dense kernel: every ray tests every triangle (closest),
-    or the triangles up to its first hit in index order (any hit)."""
+def dense_bound(rays, tris, any_hit, live_only=True):
+    """Bound of the dense kernel: each live ray (t_min < best_t, the only
+    rays that can hit) tests every triangle (closest), or the triangles up
+    to its first hit in index order (any hit); every ray is read once and
+    every answer written once. ``live_only=False`` charges every ray's
+    tests, dead ones included (phase 18 logs it beside for comparison)."""
     import torch
 
     from akari_torch.ops import dense_intersect as di
 
     n, n_tris = rays.shape[1], tris.shape[0]
+    best = rays[7] if any_hit else torch.clamp(rays[7], max=di.T_MAX)
+    live = (rays[6] < best) if live_only else torch.ones_like(best, dtype=torch.bool)
     if any_hit:
         tests = 0
         step = max(1, di.PLAIN_PAIRS_PER_CHUNK // n_tris)
@@ -467,9 +558,9 @@ def dense_bound(rays, tris, any_hit):
             r = rays[:, s:s + step]
             hit = di._pairwise_mt(r, tris, r[7])[0]
             first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, n_tris)
-            tests += int(first.sum())
+            tests += int(first[live[s:s + step]].sum())
     else:
-        tests = n * n_tris
+        tests = int(live.sum()) * n_tris
     nbytes = n * (RAY_BYTES + (ANY_HIT_BYTES if any_hit else CLOSEST_BYTES))
     return bound_ms(tests * MT_OPS, nbytes + tris.numel() * 4)
 
@@ -499,14 +590,14 @@ def plain_figures(plain, rays, any_hit, card):
     return b_ms, b_by, p_ms, sub.shape[1]
 
 
-def capture_fused(mod, name, render_fn):
+def capture_fused(mod, name, render_fn, n_rays=FUSED_RAYS):
     """The rays of the first launch of ``mod.<name>`` at the fused shape
-    during ``render_fn()``."""
+    (``n_rays`` rays) during ``render_fn()``."""
     captured = []
     real = getattr(mod, name)
 
     def capture(rays_, *args_):  # keeps the first fused launch's rays
-        if not captured and rays_.shape[1] == FUSED_RAYS:
+        if not captured and rays_.shape[1] == n_rays:
             captured.append(rays_.clone())
         return real(rays_, *args_)
 
@@ -619,7 +710,7 @@ def main():
     log(f"  all builds, in parallel: {build_s:.2f} s")
     for kname, (secs, report) in kbuild.BUILD_LOG.items():
         log(f"  nvcc {kname}: {secs:.2f} s; ptxas:\n    " + report.replace("\n", "\n    "))
-    for kname in TREE_SOURCES:  # the warp-cooperative tree walks
+    for kname in SUMMARY_SOURCES:  # the redesigned kernels
         if kname in kbuild.BUILD_LOG:
             log(f"  {kname} registers / stack / spills:\n    "
                 + ptxas_summary(kbuild.BUILD_LOG[kname][1]).replace("\n", "\n    "))
@@ -631,7 +722,7 @@ def main():
     check(scene.intersector == "dense", f"intersector {scene.intersector}")
     rays = make_rays(scene, sc.camera, N_RAYS, 0, torch)
     err_box, occ_box, _ = compare_kernel(
-        "cornell", rays, di, (scene.prim_table,), scene.n_tris)
+        "cornell", rays, di, (scene.prim_table,), scene.n_tris, max_ulp_allowed=0)
     g = torch.Generator(device=dev).manual_seed(1)
     v0 = torch.rand((300, 3), generator=g, device=dev) * 2.0 - 1.0 + torch.tensor([0.0, 1.0, 0.0], device=dev)
     e1 = torch.randn((300, 3), generator=g, device=dev) * 0.3
@@ -639,9 +730,30 @@ def main():
     soup = torch.cat([v0, e1, e2], dim=1)
     soup[200:240] = soup[0:40]  # exact duplicates: ties go to the lower index
     soup = soup.contiguous()
-    err_soup, occ_soup, _ = compare_kernel("soup", rays, di, (soup,), 300)
-    max_abs_err = max(err_box, err_soup)
-    occ_abs_err = max(occ_box, occ_soup)
+    err_soup, occ_soup, _ = compare_kernel("soup", rays, di, (soup,), 300, max_ulp_allowed=0)
+    adv_rays, adv_tris = adversarial_pack(dev, torch)
+    err_adv, occ_adv, _ = compare_kernel("adversarial", adv_rays, di, (adv_tris,),
+                                         adv_tris.shape[0], max_ulp_allowed=0)
+    big_soup = torch.cat([torch.rand((4096, 3), generator=g, device=dev) * 1.8 - 0.9
+                          + torch.tensor([0.0, 1.0, 0.0], device=dev),
+                          torch.randn((4096, 6), generator=g, device=dev) * 0.2], dim=1)
+    big_soup[3000:3100] = big_soup[30:130]  # duplicates across the chunks
+    edge = []
+    for n_ in RAY_COUNTS:  # the boundary of the make_rays pack's camera rays
+        edge.append((f"{n_} rays x 36 tris",
+                     rays[:, 262_000:262_000 + n_].contiguous(), scene.prim_table))
+    sparse = rays[:, ::53].contiguous()
+    for t_ in TRI_COUNTS:
+        edge.append((f"{sparse.shape[1]} rays x {t_} tris", sparse, big_soup[:t_].contiguous()))
+    for label, r_, t_ in edge:
+        got, want = di.closest(r_, t_), di.closest_plain(r_, t_)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"dense closest != plain: {label}")
+        check(torch.equal(di.any_hit(r_, t_), di.any_hit_plain(r_, t_)),
+              f"dense any-hit != plain: {label}")
+    log(f"  dense kernels == plain bit for bit at ray counts {RAY_COUNTS} and triangle counts "
+        f"{TRI_COUNTS}")
+    max_abs_err = max(err_box, err_soup, err_adv)
+    occ_abs_err = max(occ_box, occ_soup, occ_adv)
 
     # ---- phase 3: the main path at the bench width ----------------------
     log("phase 3: render(cornell_box(256,256), spp=4, max_depth=5) on cuda")
@@ -712,16 +824,29 @@ def main():
     log(f"  CLI (parse + compile + render + PNG): {cli_ms / 1e3:.4f} s (CUDA events), "
         f"{cli_s:.4f} s wall [card: {card}]")
 
-    fused = rays[:, :FUSED_RAYS].contiguous()
+    # the dense kernels on the make_rays pack and on the rays of the main
+    # path's first fused launch (cornell-256, 4 spp), closest and any-hit
     tris = scene.prim_table
-    kernel_ms = cuda_ms(lambda: di.closest(fused, tris), iters=50)
-    plain_ms = cuda_ms(lambda: di.closest_plain(fused, tris), iters=10)
-    anyhit_ms = cuda_ms(lambda: di.any_hit(fused, tris), iters=50)
-    anyhit_plain_ms = cuda_ms(lambda: di.any_hit_plain(fused, tris), iters=10)
-    log(f"  closest at {FUSED_RAYS} rays x {tris.shape[0]} tris: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms [card: {card}]")
-    log(f"  any-hit at {FUSED_RAYS} rays: kernel {anyhit_ms:.4f} ms, "
-        f"plain {anyhit_plain_ms:.4f} ms [card: {card}]")
+    dense_sets = {
+        "make_rays": rays[:, :FUSED_RAYS].contiguous(),
+        "fused": capture_fused(di, "closest", lambda: render(scene, sc.camera, cfg, seed=0)),
+    }
+    err_fused, occ_fused, _ = compare_kernel("fused", dense_sets["fused"], di, (tris,),
+                                             tris.shape[0], max_ulp_allowed=0)
+    max_abs_err = max(max_abs_err, err_fused)
+    occ_abs_err = max(occ_abs_err, occ_fused)
+    dense_ms = {}
+    for set_, r_ in dense_sets.items():
+        for kname, fn, plain in (("dense_closest", di.closest, di.closest_plain),
+                                 ("dense_any_hit", di.any_hit, di.any_hit_plain)):
+            dense_ms[kname, set_] = (cuda_ms(lambda: fn(r_, tris), iters=50),
+                                     cuda_ms(lambda: plain(r_, tris), iters=10))
+        n_dead = int((~(r_[6] < torch.clamp(r_[7], max=di.T_MAX))).sum())
+        log(f"  {set_} rays ({r_.shape[1]}, {n_dead} dead) x {tris.shape[0]} tris: closest "
+            f"kernel {dense_ms['dense_closest', set_][0]:.4f} ms, plain "
+            f"{dense_ms['dense_closest', set_][1]:.4f} ms; any-hit kernel "
+            f"{dense_ms['dense_any_hit', set_][0]:.4f} ms, plain "
+            f"{dense_ms['dense_any_hit', set_][1]:.4f} ms [card: {card}]")
     log(f"  phases 1-5: {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 6: tree kernel vs plain walk on the card -----------------
@@ -1087,13 +1212,16 @@ def main():
     }
     ms["tree_closest"] = times["kernel_unsorted"]
     ms["tree_any_hit"] = times["any_hit_unsorted"]
-    dense_fused = rays[:, :FUSED_RAYS].contiguous()
-    for kname, any_hit_, k_ms, p_ms in (("dense_closest", False, kernel_ms, plain_ms),
-                                        ("dense_any_hit", True, anyhit_ms, anyhit_plain_ms)):
-        b_ms, b_by = dense_bound(dense_fused, scene.prim_table, any_hit_)
-        fig[kname] = (b_ms, b_by, p_ms, FUSED_RAYS)
-        ms[kname] = k_ms
-        log(f"    {kname}: bound {b_ms:.4f} ms ({b_by}) at {FUSED_RAYS} rays x 36 tris")
+    for kname, any_hit_ in (("dense_closest", False), ("dense_any_hit", True)):
+        for set_, r_ in dense_sets.items():  # the record holds the main path's rays
+            b_ms, b_by = dense_bound(r_, tris, any_hit_)
+            old_ms, old_by = dense_bound(r_, tris, any_hit_, live_only=False)
+            k_ms, p_ms = dense_ms[kname, set_]
+            log(f"    {kname} on the {set_} rays: {k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+                f"on the live rays, {k_ms / b_ms:.1f}x the bound; bound charging every ray "
+                f"{old_ms:.4f} ms ({old_by}); plain {p_ms:.4f} ms [card: {card}]")
+            fig[kname] = (b_ms, b_by, p_ms, r_.shape[1])
+            ms[kname] = k_ms
     for kname in ("tree_closest", "tree_any_hit", "instanced_tree_closest",
                   "instanced_tree_any_hit"):
         log(f"    {kname}: {ms[kname]:.4f} ms, bound {fig[kname][0]:.4f} ms ({fig[kname][1]}), "

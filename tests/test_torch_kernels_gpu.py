@@ -41,7 +41,7 @@ def _rays(n, dev, seed=0):
     return di.pack_rays(V3(*o.T), V3(*d.T), zero, t_max).contiguous()
 
 
-@pytest.mark.parametrize("n", [1, 255, 257, 5000])
+@pytest.mark.parametrize("n", [1, 31, 33, 255, 257, 513, 5000])
 def test_closest_and_any_hit_equal_plain(dev, n):
     tris = cornell_box(8, 8).compile().to(dev).prim_table
     rays = _rays(n, dev)
@@ -70,6 +70,72 @@ def test_many_chunks_of_triangles(dev):
     want = di.closest_plain(rays, tris)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _dense_equal_plain(rays, tris):
+    """Both dense kernels == their plain versions bit for bit; the closest
+    answers."""
+    got = di.closest(rays, tris)
+    occ = di.any_hit(rays, tris)
+    torch.cuda.synchronize()
+    want = di.closest_plain(rays, tris)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+    assert torch.equal(occ, di.any_hit_plain(rays, tris))
+    return got
+
+
+def test_dense_kernels_on_the_adversarial_pack(dev):
+    """Pairs on the edges of the hit test and of float32
+    (``chip_smoke.adversarial_pack``): |det| at HIT_EPS and one ulp either
+    side, +-0, +-inf, NaN, denormals, u or v exactly 0, u + v exactly 1."""
+    import chip_smoke
+
+    rays, tris = chip_smoke.adversarial_pack(dev, torch)
+    got = _dense_equal_plain(rays, tris)
+    assert int((got[3] >= 0).sum()) > 50
+
+
+@pytest.mark.parametrize("pattern", ["one_dead", "one_live"])
+def test_dense_dead_rays_at_every_position(dev, pattern):
+    """Group b of 512 rays has its ray b dead (``one_dead``) or only its
+    ray b live (``one_live``: blocks and warps with a single live lane, and
+    blocks with none), so a dead or lone live ray sits at every position of
+    a block of up to 512 rays. Dead means !(t_min < best_t): t_max 0, t_max
+    below t_min, a NaN t_max or t_min."""
+    p = 512
+    rays = _rays(p * p, dev, seed=11)
+    k = torch.arange(p * p, device=dev)
+    mark = (k % p) == (k // p)
+    dead = mark if pattern == "one_dead" else ~mark
+    rays[7] = torch.where(k % 2 == 0, di.T_MAX, 0.3)
+    kind = k % 4
+    rays[7] = torch.where(dead & (kind == 0), 0.0, rays[7])
+    rays[7] = torch.where(dead & (kind == 1), -1.0, rays[7])
+    rays[7] = torch.where(dead & (kind == 2), float("nan"), rays[7])
+    rays[6] = torch.where(dead & (kind == 3), float("nan"), rays[6])
+    tris = cornell_box(8, 8).compile().to(dev).prim_table
+    t, _, _, prim = _dense_equal_plain(rays.contiguous(), tris)
+    assert bool((prim[dead] == -1).all()) and bool((t[dead] == di.T_MAX).all())
+    assert int((prim[~dead] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("n_tris", [1, 35, 36, 37, 255, 256, 257, 4096])
+def test_dense_triangle_counts(dev, n_tris):
+    """Triangle counts across the 256-triangle chunk and up to
+    DENSE_MAX_TRIS, with exact duplicates later in the list: ties go to the
+    lower index."""
+    g = torch.Generator(device=dev).manual_seed(n_tris)
+    tris = torch.cat([torch.rand((n_tris, 3), generator=g, device=dev) * 1.8 - 0.9
+                      + torch.tensor([0.0, 1.0, 0.0], device=dev),
+                      torch.randn((n_tris, 6), generator=g, device=dev) * 0.4], dim=1)
+    m = min(n_tris // 4, 64)
+    copies = torch.arange(n_tris - m, n_tris, device=dev)
+    tris[copies] = tris[:m].clone()
+    got = _dense_equal_plain(_rays(4000, dev, seed=n_tris), tris.contiguous())
+    assert n_tris < 35 or int((got[3] >= 0).sum()) > 0
+    assert not bool(torch.isin(got[3], copies).any())
 
 
 def test_trace_paths_launches_once_per_query(dev):
