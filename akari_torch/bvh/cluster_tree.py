@@ -224,15 +224,3 @@ def tri_blocks(tri_v0, tri_e1, tri_e2):
     out[3:6, :t] = np.asarray(tri_e1, np.float32).T
     out[6:9, :t] = np.asarray(tri_e2, np.float32).T
     return out
-
-
-def tree_tris(tri_v0, tri_e1, tri_e2):
-    """[T, 12] float32 triangle rows of the linear cluster kernels: v0.xyz
-    e1.xyz e2.xyz and 3 pad floats, so a row is three aligned 16-byte
-    loads."""
-    t = np.asarray(tri_v0).shape[0]
-    out = np.zeros((t, 12), np.float32)
-    out[:, 0:3] = tri_v0
-    out[:, 3:6] = tri_e1
-    out[:, 6:9] = tri_e2
-    return out

@@ -14,6 +14,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .vecmath import maximum
+
 
 class V3(NamedTuple):
     """Three parallel [N] components. Also used for RGB (x=r, y=g, z=b)."""
@@ -74,7 +76,7 @@ class V3(NamedTuple):
         n2 = self.norm2()
         if eps > 0.0:
             inv = torch.where(
-                n2 > eps, 1.0 / torch.sqrt(torch.clamp(n2, min=eps)), 0.0
+                n2 > eps, 1.0 / torch.sqrt(maximum(n2, eps)), 0.0
             )
         else:
             inv = 1.0 / torch.sqrt(n2)

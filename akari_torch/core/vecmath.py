@@ -18,3 +18,85 @@ def cross(a, b):
         [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1
     )
 
+
+
+# ------------- clamps and abs with the reference's gradient rules -------------
+#
+# The JAX package writes its kinks as jnp.clip / jnp.maximum / jnp.minimum /
+# jnp.abs, whose derivatives differ from torch.clamp's and torch.abs's at
+# the kink: jnp.maximum(x, a) passes 1/2 of the gradient to x where x == a
+# (torch.clamp all of it, or none), jnp.clip = minimum(maximum(x, lo), hi)
+# 1/2 at either bound, and jnp.abs passes +g at x = +-0 (torch.abs 0). These
+# helpers compute torch.clamp's / torch.abs's forward, bit for bit and in
+# one kernel, and JAX's gradient, through an autograd Function only when a
+# gradient is being recorded. Bounds are Python floats: no device tensor is
+# made for them.
+
+
+def _recording(x):
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _balanced(x, bound, inside):
+    """d jnp.maximum(x, bound) / dx (``inside`` = x > bound) or d
+    jnp.minimum(x, bound) / dx (``inside`` = x < bound): 1 inside, 1/2 at
+    the bound, 0 outside and on NaN (lax's balanced-eq rule)."""
+    return torch.where(inside, 1.0, torch.where(x == bound, 0.5, 0.0))
+
+
+class _Clip(torch.autograd.Function):
+    """torch.clamp(x, lo, hi) forward; the cotangent of jnp.clip(x, lo, hi)
+    = minimum(maximum(x, lo), hi) backward, multiplied in JAX's order (the
+    outer minimum's factor first). Either bound may be None."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        m = x if lo is None else torch.clamp(x, min=lo)
+        if hi is not None:
+            g = g * _balanced(m, hi, m < hi)
+        if lo is not None:
+            g = g * _balanced(x, lo, x > lo)
+        return g, None, None
+
+
+class _Abs(torch.autograd.Function):
+    """torch.abs forward (+0.0 for -0.0); jnp.abs's derivative backward:
+    select(x >= 0, g, -g), so +g at x = +-0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)`` for float bounds ``lo`` < ``hi``."""
+    return _Clip.apply(x, lo, hi) if _recording(x) else torch.clamp(x, lo, hi)
+
+
+def maximum(x, a):
+    """``jnp.maximum(x, a)`` for a float bound ``a``."""
+    return _Clip.apply(x, a, None) if _recording(x) else torch.clamp(x, min=a)
+
+
+def minimum(x, a):
+    """``jnp.minimum(x, a)`` for a float bound ``a``."""
+    return _Clip.apply(x, None, a) if _recording(x) else torch.clamp(x, max=a)
+
+
+def abs_(x):
+    """``jnp.abs(x)``."""
+    return _Abs.apply(x) if _recording(x) else torch.abs(x)

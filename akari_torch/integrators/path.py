@@ -24,6 +24,7 @@ import torch
 from .. import sampling
 from ..core import rng
 from ..core.v3 import V3, from_rows, from_stack, v3where
+from ..core.vecmath import abs_, clip, maximum, minimum
 from ..ops.intersect import T_MAX, intersect_soa, occlude_soa
 from ..scene import geom
 from ..shading import soa
@@ -76,7 +77,7 @@ def camera_rays_soa(camera, seed, sample_idx, pixel_idx):
         px, py = soa.concentric_disk(u1, u2)
         px, py = px * lens_r, py * lens_r
         d_len = torch.sqrt(d_cam.dot(d_cam))
-        ft = camera.focal_distance / torch.abs(d_cam.z / d_len)
+        ft = camera.focal_distance / abs_(d_cam.z / d_len)
         p_focus = d_cam.normalized() * ft
         o_cam = V3(px, py, torch.zeros_like(px))
         d_cam = p_focus - o_cam
@@ -206,7 +207,7 @@ def trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx,
 
     Ls = L.stack()
     if cfg.ray_clamp > 0.0:
-        Ls = torch.clamp(Ls, max=cfg.ray_clamp)
+        Ls = minimum(Ls, cfg.ray_clamp)
     # kill NaN/Inf lanes defensively
     return torch.where(torch.isfinite(Ls), Ls, 0.0)
 
@@ -273,14 +274,14 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
         )
         ls = soa.light_sample_mixed(scene, u_sel, u_p1, u_p2, p)
         f_nee = soa.eval_world(params, frame, wo, ls.wi)
-        cos_nee = torch.abs(ns.dot(ls.wi))
+        cos_nee = abs_(ns.dot(ls.wi))
         contrib_scale = torch.where(
-            ls.pdf > 1e-12, 1.0 / torch.clamp(ls.pdf, min=1e-12), 0.0
+            ls.pdf > 1e-12, 1.0 / maximum(ls.pdf, 1e-12), 0.0
         )
         nee_contrib = beta * f_nee * ls.L * (cos_nee * contrib_scale)
         useful = scatterable & ls.valid & (nee_contrib.max_comp() > 0.0)
         shadow_o = p + ls.wi * (
-            RAY_EPS / torch.clamp(torch.abs(ng.dot(ls.wi)), min=1e-4)
+            RAY_EPS / maximum(abs_(ng.dot(ls.wi)), 1e-4)
         )
         shadow_tmax = ls.dist * (1.0 - SHADOW_EPS)
         if cfg.mis:
@@ -297,9 +298,9 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
         seed, pixel_idx, sample_idx, rng.bounce_dim(bounce, rng.OFF_BSDF_U) + 1
     )
     wi, f, pdf = soa.sample_world(params, frame, wo, u_b1, u_b2)
-    cos_wi = torch.abs(ns.dot(wi))
+    cos_wi = abs_(ns.dot(wi))
     ok = scatterable & (pdf > 1e-9)
-    throughput = f * (cos_wi / torch.clamp(pdf, min=1e-9))
+    throughput = f * (cos_wi / maximum(pdf, 1e-9))
     beta = v3where(ok, beta * throughput, beta)
 
     # russian roulette (off by default)
@@ -307,11 +308,11 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
         u_rr = rng.uniform(
             seed, pixel_idx, sample_idx, rng.bounce_dim(bounce, rng.OFF_RR)
         )
-        q = torch.clamp(beta.max_comp(), 0.05, 1.0)
+        q = clip(beta.max_comp(), 0.05, 1.0)
         beta = beta * (1.0 / q)
         ok = ok & (u_rr < q)
 
-    o = p + wi * (RAY_EPS / torch.clamp(torch.abs(ng.dot(wi)), min=1e-4))
+    o = p + wi * (RAY_EPS / maximum(abs_(ng.dot(wi)), 1e-4))
     d = wi
 
     # ---- shadow + next extension rays (one fused launch if possible) ----
@@ -365,7 +366,7 @@ def trace_accumulate(scene, camera, cfg, seed, base_pixel_idx, sample_offset=0):
         w = (sample_idx < sample_offset + cfg.spp).to(torch.float32)[:, None]
         acc = acc + (li * w).reshape(chunk, n, 3).sum(dim=0)
         count = count + w.reshape(chunk, n, 1).sum(dim=0)
-    return acc / torch.clamp(count, min=1.0)
+    return acc / maximum(count, 1.0)
 
 
 def render(scene, camera, cfg, seed=0, sample_offset=0):

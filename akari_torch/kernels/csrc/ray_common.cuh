@@ -1,8 +1,9 @@
 // Pieces shared by the port's traversal kernels (tree_intersect.cu,
 // instanced_tree_intersect.cu, cluster_intersect.cu): the reference's slab
 // test and Moller-Trumbore test in its operation order, the closest-hit
-// record with the lowest-index tie rule, and the warp-cooperative tree walk
-// of the two tree kernels (warp_walk). One thread owns one ray.
+// record with the lowest-index tie rule, the warp-cooperative leaf tests of
+// all three (warp_leaves) and the tree walk of the two tree kernels
+// (warp_walk). One thread owns one ray.
 //
 // Built with --fmad=false and IEEE division (kernels/build.py), so every
 // float operation is rounded as the plain PyTorch versions round it.
@@ -134,40 +135,6 @@ __device__ __forceinline__ bool mt_test(float ox, float oy, float oz, float dx,
          (u + v <= 1.f) && (t > tmin);
 }
 
-// Moller-Trumbore over `count` rows of a [*, 12] triangle store (v0 e1 e2
-// pad: three 16-byte loads a row) from row `first`; row first + j is prim
-// prim0 + j. One ray per thread (the linear cluster kernels). Returns true
-// when an any-hit query is done.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool tri_run(const Ray& r,
-                                        const float4* __restrict__ tris,
-                                        long long first, int count, int prim0,
-                                        Best& b) {
-  for (int j = 0; j < count; ++j) {
-    const float4* tr = tris + 3 * (first + j);
-    const float4 ta = __ldg(tr), tb = __ldg(tr + 1), tc = __ldg(tr + 2);
-    float t, u, v;
-    const bool ok = mt_test(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin, ta.x,
-                            ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w, tc.x, t,
-                            u, v);
-    if (ANY_HIT) {
-      if (ok && t < b.t) {
-        b.occluded = true;
-        return true;
-      }
-    } else {
-      const int p = prim0 + j;
-      if (ok && (t < b.t || (t == b.t && p < b.prim))) {
-        b.t = t;
-        b.u = u;
-        b.v = v;
-        b.prim = p;
-      }
-    }
-  }
-  return false;
-}
-
 template <bool ANY_HIT>
 __device__ __forceinline__ void store_best(const Best& b, long long i,
                                            float* t_out, float* u_out,
@@ -184,12 +151,12 @@ __device__ __forceinline__ void store_best(const Best& b, long long i,
   }
 }
 
-// Where a tree walk finds a leaf's triangles: the component-major store
-// `blocks` ([9, stride] floats: rows v0.xyz e1.xyz e2.xyz, a triangle per
-// column) and, for the tree being walked, its cluster count, its real
-// triangle count (a flat scene's last cluster is cut there), the column
-// of its first cluster over TRI_TILE, and the prim id of its first
-// triangle. Cluster c is columns TRI_TILE (tile_base + c) onward, and its
+// Where a warp-cooperative kernel finds a leaf's triangles: the
+// component-major store `blocks` ([9, stride] floats: rows v0.xyz e1.xyz
+// e2.xyz, a triangle per column) and, for the mesh being walked or swept,
+// its cluster count, its real triangle count (a flat scene's last cluster
+// is cut there), the column of its first cluster over TRI_TILE, and the
+// prim id of its first triangle. Cluster c is columns TRI_TILE (tile_base + c) onward, and its
 // triangle j is prim prim_base + TRI_TILE c + j.
 struct LeafStore {
   const float* blocks;
@@ -216,6 +183,106 @@ __device__ __forceinline__ void push_children(const Ray& r, bool neg_x,
   if (neg ? h1 : h0) stack[sp++] = neg ? c1 : c0;
 }
 
+// The leaf tests of the warp-cooperative kernels (warp_walk here,
+// warp_sweep in cluster_intersect.cu). Each lane owns ray r and its best hit
+// b; bit k of `pending` says lane k holds a leaf (`leaf` >= 0: clusters
+// leaf * leaf_span onward of ls). All 32 lanes must call it together, with
+// the same `pending`; lanes without a leaf help. For each such lane k, in
+// lane order:
+//   (b) k's ray and best hit are broadcast, and the 32 lanes test the
+//       leaf's clusters against it, 32 triangles a round, lane j reading
+//       column j of each of the nine rows: one 128-byte line per row a
+//       round;
+//   (c) closest: each lane keeps the lexicographic minimum of (t, prim)
+//       over its triangles' hits that beat k's best; a 5-step xor shuffle
+//       takes the minimum over the warp, and k takes it. That is the
+//       minimum k's own in-order loop would keep, whatever order the tests
+//       ran in. Any hit: a ballot of hits in (t_min, t_max) sets k's
+//       b.occluded, which ends its query.
+// On return every lane's leaf is -1.
+template <bool ANY_HIT>
+__device__ __forceinline__ void warp_leaves(const Ray& r, Best& b, int& leaf,
+                                            unsigned pending,
+                                            const LeafStore& ls,
+                                            int leaf_span) {
+  const int lane = threadIdx.x & (WARP - 1);
+  const long long s = ls.stride;
+  do {
+    // (b) lane k's leaf against lane k's ray
+    const int k = __ffs(pending) - 1;
+    pending &= pending - 1;
+    const float ox = __shfl_sync(FULL_MASK, r.ox, k);
+    const float oy = __shfl_sync(FULL_MASK, r.oy, k);
+    const float oz = __shfl_sync(FULL_MASK, r.oz, k);
+    const float dx = __shfl_sync(FULL_MASK, r.dx, k);
+    const float dy = __shfl_sync(FULL_MASK, r.dy, k);
+    const float dz = __shfl_sync(FULL_MASK, r.dz, k);
+    const float tmin = __shfl_sync(FULL_MASK, r.tmin, k);
+    const float bt = __shfl_sync(FULL_MASK, b.t, k);
+    const int bp = __shfl_sync(FULL_MASK, b.prim, k);
+    const int blk = __shfl_sync(FULL_MASK, leaf, k);
+    float ct = __int_as_float(0x7f800000), cu = 0.f, cv = 0.f;
+    int cp = INT_MAX;
+    bool hit = false;
+    for (int j = 0; j < leaf_span && !hit; ++j) {
+      const int c = blk * leaf_span + j;
+      if (c >= ls.n_clusters) break;
+      const float* col =
+          ls.blocks + (long long)(ls.tile_base + c) * TRI_TILE + lane;
+#pragma unroll
+      for (int q = 0; q < TRI_TILE; q += WARP) {
+        const float* p = col + q;
+        float t, u, v;
+        const int local = c * TRI_TILE + q + lane;
+        const bool ok =
+            mt_test(ox, oy, oz, dx, dy, dz, tmin, __ldg(p), __ldg(p + s),
+                    __ldg(p + 2 * s), __ldg(p + 3 * s), __ldg(p + 4 * s),
+                    __ldg(p + 5 * s), __ldg(p + 6 * s), __ldg(p + 7 * s),
+                    __ldg(p + 8 * s), t, u, v) &&
+            local < ls.n_real;
+        if (ANY_HIT) {
+          hit = __any_sync(FULL_MASK, ok && t < bt);
+          if (hit) break;
+        } else {
+          const int prim = ls.prim_base + local;
+          if (ok && (t < bt || (t == bt && prim < bp)) &&
+              (t < ct || (t == ct && prim < cp))) {
+            ct = t;
+            cu = u;
+            cv = v;
+            cp = prim;
+          }
+        }
+      }
+    }
+    // (c) reduce to lane k
+    if (ANY_HIT) {
+      if (lane == k && hit) b.occluded = true;
+    } else if (__any_sync(FULL_MASK, cp != INT_MAX)) {
+#pragma unroll
+      for (int off = WARP / 2; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(FULL_MASK, ct, off);
+        const int op = __shfl_xor_sync(FULL_MASK, cp, off);
+        const float ou = __shfl_xor_sync(FULL_MASK, cu, off);
+        const float ov = __shfl_xor_sync(FULL_MASK, cv, off);
+        if (ot < ct || (ot == ct && op < cp)) {
+          ct = ot;
+          cp = op;
+          cu = ou;
+          cv = ov;
+        }
+      }
+      if (lane == k) {  // every candidate beat k's best, so the least does
+        b.t = ct;
+        b.u = cu;
+        b.v = cv;
+        b.prim = cp;
+      }
+    }
+    if (lane == k) leaf = -1;
+  } while (pending);
+}
+
 // The warp-cooperative walk of one tree (the flat scene's, or one
 // instance's prototype). Each lane owns ray r, its best hit b and a stack
 // of `sp` refs; a lane with sp == 0 (no ray, a dead or finished ray) takes
@@ -224,15 +291,8 @@ __device__ __forceinline__ void push_children(const Ray& r, bool neg_x,
 // leaf:
 //   (a) each lane without a pending leaf pops refs, slab-testing inner
 //       nodes, until it holds a leaf or its stack is empty;
-//   (b) for each lane k holding a leaf (a ballot), k's ray and best hit are
-//       broadcast, and the 32 lanes test the leaf's clusters against it, 32
-//       triangles a round, lane j reading column j of each of the nine rows:
-//       one 128-byte line per row a round;
-//   (c) closest: each lane keeps the lexicographic minimum of (t, prim)
-//       over its triangles' hits that beat k's best; a 5-step xor shuffle
-//       takes the minimum over the warp, and k takes it. That is the
-//       minimum k's own in-order loop would keep, whatever order the tests
-//       ran in. Any hit: a ballot of hits in (t_min, t_max) ends k's query.
+//   (b), (c) the warp tests the pending leaves (warp_leaves); a lane whose
+//       any-hit query ended empties its stack.
 // So each ray visits the same nodes and leaves in the same order, with the
 // same best t at each slab test, as a walk by one thread.
 template <bool ANY_HIT>
@@ -240,9 +300,7 @@ __device__ __forceinline__ void warp_walk(const Ray& r, Best& b, int* stack,
                                           int sp,
                                           const float4* __restrict__ nodes,
                                           const LeafStore& ls, int leaf_span) {
-  const int lane = threadIdx.x & (WARP - 1);
   const bool neg_x = r.dx < 0.f, neg_y = r.dy < 0.f, neg_z = r.dz < 0.f;
-  const long long s = ls.stride;
   int leaf = -1;
   while (true) {
     // (a) traverse to the next leaf
@@ -254,85 +312,10 @@ __device__ __forceinline__ void warp_walk(const Ray& r, Best& b, int* stack,
         push_children(r, neg_x, neg_y, neg_z, nodes, ref, b.t, stack, sp);
       }
     }
-    unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
+    const unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
     if (pending == 0) break;
-    do {
-      // (b) lane k's leaf against lane k's ray
-      const int k = __ffs(pending) - 1;
-      pending &= pending - 1;
-      const float ox = __shfl_sync(FULL_MASK, r.ox, k);
-      const float oy = __shfl_sync(FULL_MASK, r.oy, k);
-      const float oz = __shfl_sync(FULL_MASK, r.oz, k);
-      const float dx = __shfl_sync(FULL_MASK, r.dx, k);
-      const float dy = __shfl_sync(FULL_MASK, r.dy, k);
-      const float dz = __shfl_sync(FULL_MASK, r.dz, k);
-      const float tmin = __shfl_sync(FULL_MASK, r.tmin, k);
-      const float bt = __shfl_sync(FULL_MASK, b.t, k);
-      const int bp = __shfl_sync(FULL_MASK, b.prim, k);
-      const int blk = __shfl_sync(FULL_MASK, leaf, k);
-      float ct = __int_as_float(0x7f800000), cu = 0.f, cv = 0.f;
-      int cp = INT_MAX;
-      bool hit = false;
-      for (int j = 0; j < leaf_span && !hit; ++j) {
-        const int c = blk * leaf_span + j;
-        if (c >= ls.n_clusters) break;
-        const float* col =
-            ls.blocks + (long long)(ls.tile_base + c) * TRI_TILE + lane;
-#pragma unroll
-        for (int q = 0; q < TRI_TILE; q += WARP) {
-          const float* p = col + q;
-          float t, u, v;
-          const int local = c * TRI_TILE + q + lane;
-          const bool ok =
-              mt_test(ox, oy, oz, dx, dy, dz, tmin, __ldg(p), __ldg(p + s),
-                      __ldg(p + 2 * s), __ldg(p + 3 * s), __ldg(p + 4 * s),
-                      __ldg(p + 5 * s), __ldg(p + 6 * s), __ldg(p + 7 * s),
-                      __ldg(p + 8 * s), t, u, v) &&
-              local < ls.n_real;
-          if (ANY_HIT) {
-            hit = __any_sync(FULL_MASK, ok && t < bt);
-            if (hit) break;
-          } else {
-            const int prim = ls.prim_base + local;
-            if (ok && (t < bt || (t == bt && prim < bp)) &&
-                (t < ct || (t == ct && prim < cp))) {
-              ct = t;
-              cu = u;
-              cv = v;
-              cp = prim;
-            }
-          }
-        }
-      }
-      // (c) reduce to lane k
-      if (ANY_HIT) {
-        if (lane == k && hit) {
-          b.occluded = true;
-          sp = 0;
-        }
-      } else if (__any_sync(FULL_MASK, cp != INT_MAX)) {
-#pragma unroll
-        for (int off = WARP / 2; off > 0; off >>= 1) {
-          const float ot = __shfl_xor_sync(FULL_MASK, ct, off);
-          const int op = __shfl_xor_sync(FULL_MASK, cp, off);
-          const float ou = __shfl_xor_sync(FULL_MASK, cu, off);
-          const float ov = __shfl_xor_sync(FULL_MASK, cv, off);
-          if (ot < ct || (ot == ct && op < cp)) {
-            ct = ot;
-            cp = op;
-            cu = ou;
-            cv = ov;
-          }
-        }
-        if (lane == k) {  // every candidate beat k's best, so the least does
-          b.t = ct;
-          b.u = cu;
-          b.v = cv;
-          b.prim = cp;
-        }
-      }
-      if (lane == k) leaf = -1;
-    } while (pending);
+    warp_leaves<ANY_HIT>(r, b, leaf, pending, ls, leaf_span);
+    if (ANY_HIT && b.occluded) sp = 0;
   }
 }
 

@@ -5,20 +5,23 @@ Counterparts of ``akari_tpu/ops/pallas_cluster.py::run_clustered`` (the TPU
 kernel ``_cluster_kernel``, flat scenes) and ``run_instanced``
 (``_instanced_kernel``, two-level scenes): the routes of scenes whose
 ``tri_tree`` is None, as in the JAX package. The kernels are
-``kernels/csrc/cluster_intersect.cu``, one thread per ray; its note says
-what bounds them on the H100. The plain PyTorch versions live beside them
-here: the same per-ray sequence of box and triangle tests, vectorized over
-rays, each ray with its own cursor.
+``kernels/csrc/cluster_intersect.cu``: one lane per ray with its own sweep
+cursor, each warp testing its lanes' hit clusters together, 32 triangles a
+round; its note says what bounds them on the H100. The plain PyTorch
+versions live beside them here: the same per-ray sequence of box and
+triangle tests, vectorized over rays, each ray with its own cursor.
 
-Flat: ``closest(rays, supers, clusters, tris)`` and ``any_hit(...)`` take
-``[8, N]`` rays, the ``[Spad, 8]`` supercluster and ``[Kpad, 8]`` cluster
-boxes (``bvh/cluster_tree.py``) and the ``[T, 12]`` triangle store
-(``tree_tris``). Instanced: ``instanced_closest(rays, instf, insti,
-supers, clusters, tris)`` and ``instanced_any_hit(...)`` take the
-instance tables of ``ops/instanced_tree_intersect.py`` (int slots 0-5:
-supercluster base, real supercluster count, cluster base, cluster count,
-tile base, prim base), the concatenated per-prototype box tables and the
-``[sum Kp*128, 12]`` store; hits carry virtual prim ids.
+Flat: ``closest(rays, supers, clusters, blocks, n_tris)`` and
+``any_hit(...)`` take ``[8, N]`` rays, the ``[Spad, 8]`` supercluster and
+``[Kpad, 8]`` cluster boxes (``bvh/cluster_tree.py``), the ``[9, Tpad]``
+component-major triangle store of the tree walks
+(``SceneArrays.tri_blocks``) and the real triangle count. Instanced:
+``instanced_closest(rays, instf, insti, supers, clusters, blocks)`` and
+``instanced_any_hit(...)`` take the instance tables of
+``ops/instanced_tree_intersect.py`` (int slots 0-5: supercluster base, real
+supercluster count, cluster base, cluster count, tile base, prim base), the
+concatenated per-prototype box tables and the ``[9, sum Kp*128]`` store
+(``SceneArrays.inst_tri_blocks``); hits carry virtual prim ids.
 
 On CUDA tensors they launch the kernel or raise; on CPU tensors they run
 the plain version. ``LAUNCHES`` counts kernel launches per kernel and
@@ -34,7 +37,7 @@ import torch
 
 from ..bvh.cluster_tree import SUPER, TRI_TILE, n_clusters
 from .instanced_tree_intersect import InstanceCursor, check_instanced
-from .tree_intersect import Best, _raise_on, _safe_inv, chunked, first_box_hit
+from .tree_intersect import Best, _raise_on, _safe_inv, check_blocks, chunked, first_box_hit
 
 LAUNCHES = {
     "closest": 0, "any_hit": 0, "instanced_closest": 0, "instanced_any_hit": 0,
@@ -66,12 +69,14 @@ class _Sweep:
         self.s[idx] = 0
         self.j[idx] = -1
 
-    def step(self, idx, ray, best, supers, clusters, tris, base, stats=None):
+    def step(self, idx, ray, best, supers, clusters, blocks, n_store, base, stats=None):
         """``ray(i) -> (o, d, inv, tmin)`` of rays ``i``; ``base(i) ->
-        (sup_base, n_sup, cl_base, n_cl, row0, n_rows, prim0)`` int64 [L]
-        each. Returns the rays whose sweep ended."""
+        (sup_base, n_sup, cl_base, n_cl, col0, n_real, prim0)`` int64 [L]
+        each: cluster k's triangles are columns col0 + 128 k onward of the
+        component-major store ``blocks`` ([>= 9, >= n_store]), the first
+        n_real of the mesh real. Returns the rays whose sweep ended."""
         col = torch.arange(TRI_TILE, device=idx.device)
-        sup_base, n_sup, cl_base, n_cl, row0, n_rows, prim0 = base(idx)
+        sup_base, n_sup, cl_base, n_cl, col0, n_real, prim0 = base(idx)
         at_super = self.j[idx] < 0
         a = idx[at_super]
         if a.numel():
@@ -87,7 +92,7 @@ class _Sweep:
         b = idx[~at_super]
         if b.numel():
             keep = ~at_super
-            cb, ncl, r0, nr, p0 = (x[keep] for x in (cl_base, n_cl, row0, n_rows, prim0))
+            cb, ncl, c0, nr, p0 = (x[keep] for x in (cl_base, n_cl, col0, n_real, prim0))
             o, d, inv, tmin = ray(b)
             s, j = self.s[b], self.j[b]
             k0 = s * SUPER + j
@@ -97,14 +102,14 @@ class _Sweep:
             )
             h = (first >= 0).nonzero()[:, 0]
             if h.numel():
-                row = (k0[h] + first[h]) * TRI_TILE
-                rows = r0[h, None] + row[:, None] + col
-                real = (row[:, None] + col) < nr[h, None]
-                tri_rows = tris[torch.clamp(rows, max=tris.shape[0] - 1)]
+                local = (k0[h] + first[h]) * TRI_TILE
+                cols = c0[h, None] + local[:, None] + col           # [L, 128]
+                real = (local[:, None] + col) < nr[h, None]         # real-count guard
+                tri = blocks[:, torch.clamp(cols, max=n_store - 1)]  # [>= 9, L, 128]
                 best.update(b[h], [x[h] for x in o], [x[h] for x in d], tmin[h],
-                            tri_rows.movedim(-1, 0), real, p0[h] + row, stats)
+                            tri, real, p0[h] + local, stats)
                 if stats is not None:
-                    stats.touch("tris", tris.shape[0], rows[real])
+                    stats.touch("tri_blocks", n_store, cols[real])
             j = torch.where(first >= 0, j + first + 1, SUPER)
             end = (j >= SUPER) | (s * SUPER + j >= ncl)
             self.j[b] = torch.where(end, -1, j)
@@ -112,9 +117,8 @@ class _Sweep:
         return idx[self.s[idx] >= n_sup]
 
 
-def _flat_sweep(rays, supers, clusters, tris, any_hit, stats=None):
+def _flat_sweep(rays, supers, clusters, blocks, n_tris, any_hit, stats=None):
     dev, n = rays.device, rays.shape[1]
-    n_tris = tris.shape[0]
     n_cl = n_clusters(n_tris)
     n_sup = (n_cl + SUPER - 1) // SUPER
     o = [rays[0], rays[1], rays[2]]
@@ -136,11 +140,11 @@ def _flat_sweep(rays, supers, clusters, tris, any_hit, stats=None):
         idx = ((sw.s < n_sup) & ~best.occ).nonzero()[:, 0]
         if idx.numel() == 0:
             break
-        sw.step(idx, ray, best, supers, clusters, tris, base, stats)
+        sw.step(idx, ray, best, supers, clusters, blocks, n_tris, base, stats)
     return best.result()
 
 
-def _instanced_sweep(rays, instf, insti, supers, clusters, tris, any_hit, stats=None):
+def _instanced_sweep(rays, instf, insti, supers, clusters, blocks, any_hit, stats=None):
     dev, n = rays.device, rays.shape[1]
     cur = InstanceCursor(rays, instf, insti)
     best = Best(rays[7], any_hit)
@@ -168,34 +172,37 @@ def _instanced_sweep(rays, instf, insti, supers, clusters, tris, any_hit, stats=
             inside[entered] = True
         idx = idx[inside[idx]]
         if idx.numel():
-            inside[sw.step(idx, ray, best, supers, clusters, tris, base, stats)] = False
+            inside[sw.step(idx, ray, best, supers, clusters, blocks, blocks.shape[1], base,
+                           stats)] = False
     return best.result()
 
 
-def closest_plain(rays, supers, clusters, tris, stats=None):
-    """Plain version of the flat closest-hit kernel -> (t, u, v, prim int32)."""
-    return chunked(lambda r: _flat_sweep(r, supers, clusters, tris, False, stats),
+def closest_plain(rays, supers, clusters, blocks, n_tris, stats=None):
+    """Plain version of the flat closest-hit kernel -> (t, u, v, prim int32).
+    ``blocks`` is any component-major store of at least ``n_tris`` columns
+    (``tri_blocks``, or a row store's transpose)."""
+    return chunked(lambda r: _flat_sweep(r, supers, clusters, blocks, n_tris, False, stats),
                    rays, False)
 
 
-def any_hit_plain(rays, supers, clusters, tris, stats=None):
+def any_hit_plain(rays, supers, clusters, blocks, n_tris, stats=None):
     """Plain version of the flat any-hit kernel -> [N] bool occluded."""
-    return chunked(lambda r: _flat_sweep(r, supers, clusters, tris, True, stats),
+    return chunked(lambda r: _flat_sweep(r, supers, clusters, blocks, n_tris, True, stats),
                    rays, True)
 
 
-def instanced_closest_plain(rays, instf, insti, supers, clusters, tris, stats=None):
+def instanced_closest_plain(rays, instf, insti, supers, clusters, blocks, stats=None):
     """Plain version of the instanced closest-hit kernel."""
     return chunked(
-        lambda r: _instanced_sweep(r, instf, insti, supers, clusters, tris, False, stats),
+        lambda r: _instanced_sweep(r, instf, insti, supers, clusters, blocks, False, stats),
         rays, False,
     )
 
 
-def instanced_any_hit_plain(rays, instf, insti, supers, clusters, tris, stats=None):
+def instanced_any_hit_plain(rays, instf, insti, supers, clusters, blocks, stats=None):
     """Plain version of the instanced any-hit kernel."""
     return chunked(
-        lambda r: _instanced_sweep(r, instf, insti, supers, clusters, tris, True, stats),
+        lambda r: _instanced_sweep(r, instf, insti, supers, clusters, blocks, True, stats),
         rays, True,
     )
 
@@ -208,20 +215,19 @@ def _check_boxes(supers, clusters):
             raise ValueError(f"{name} must be [rows>0, 8], got {tuple(x.shape)}")
 
 
-def _check_flat(rays, supers, clusters, tris):
-    ts = (rays, supers, clusters, tris)
+def _check_flat(rays, supers, clusters, blocks, n_tris):
+    ts = (rays, supers, clusters, blocks)
     if not all(isinstance(x, torch.Tensor) for x in ts):
         raise TypeError("rays and every table must be tensors")
     if len({x.device for x in ts}) != 1:
         raise ValueError(f"tensors on several devices: {sorted({str(x.device) for x in ts})}")
     if any(x.dtype != torch.float32 for x in ts):
-        raise TypeError("rays, supers, clusters and tris must be float32")
+        raise TypeError("rays, supers, clusters and blocks must be float32")
     if rays.dim() != 2 or rays.shape[0] != 8:
         raise ValueError(f"rays must be [8, N], got {tuple(rays.shape)}")
     _check_boxes(supers, clusters)
-    if tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] == 0:
-        raise ValueError(f"tris must be [T>0, 12], got {tuple(tris.shape)}")
-    k = n_clusters(tris.shape[0])
+    check_blocks(blocks, n_tris)
+    k = n_clusters(int(n_tris))
     if clusters.shape[0] < k or supers.shape[0] < (k + SUPER - 1) // SUPER:
         raise ValueError("the box tables are shorter than the triangle store")
     if rays.is_cuda:
@@ -237,13 +243,15 @@ def _lib():
     lib = load(_LIB)
     if not getattr(lib, "_akr_typed", False):
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.akr_cluster_closest.argtypes = [vp, i64, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp]
-        lib.akr_cluster_anyhit.argtypes = [vp, i64, vp, vp, vp, i32, vp, i32, vp]
+        lib.akr_cluster_closest.argtypes = [
+            vp, i64, vp, vp, vp, i64, i32, vp, vp, vp, vp, i32, vp,
+        ]
+        lib.akr_cluster_anyhit.argtypes = [vp, i64, vp, vp, vp, i64, i32, vp, i32, vp]
         lib.akr_instanced_cluster_closest.argtypes = [
-            vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, vp, vp, i32, vp,
+            vp, i64, vp, vp, i32, vp, vp, vp, i64, vp, vp, vp, vp, i32, vp,
         ]
         lib.akr_instanced_cluster_anyhit.argtypes = [
-            vp, i64, vp, vp, i32, vp, vp, vp, vp, i32, vp,
+            vp, i64, vp, vp, i32, vp, vp, vp, i64, vp, i32, vp,
         ]
         for fn in (lib.akr_cluster_closest, lib.akr_cluster_anyhit,
                    lib.akr_instanced_cluster_closest, lib.akr_instanced_cluster_anyhit):
@@ -276,45 +284,50 @@ def _launch(fn, key, rays, args, any_hit):
     return out[0] if any_hit else out
 
 
-def closest(rays, supers, clusters, tris):
+def _flat_args(supers, clusters, blocks, n_tris):
+    return (supers.data_ptr(), clusters.data_ptr(), blocks.data_ptr(), blocks.shape[1],
+            int(n_tris))
+
+
+def closest(rays, supers, clusters, blocks, n_tris):
     """Flat closest hit -> (t, u, v, prim int32); a miss gives prim -1,
     t = T_MAX, u = v = 0."""
-    _check_flat(rays, supers, clusters, tris)
+    _check_flat(rays, supers, clusters, blocks, n_tris)
     if not rays.is_cuda:
-        return closest_plain(rays, supers, clusters, tris)
-    args = (supers.data_ptr(), clusters.data_ptr(), tris.data_ptr(), tris.shape[0])
+        return closest_plain(rays, supers, clusters, blocks, n_tris)
+    args = _flat_args(supers, clusters, blocks, n_tris)
     return _launch(_lib().akr_cluster_closest, "closest", rays, args, False)
 
 
-def any_hit(rays, supers, clusters, tris):
+def any_hit(rays, supers, clusters, blocks, n_tris):
     """Flat any hit in (t_min, t_max) -> [N] bool occluded."""
-    _check_flat(rays, supers, clusters, tris)
+    _check_flat(rays, supers, clusters, blocks, n_tris)
     if not rays.is_cuda:
-        return any_hit_plain(rays, supers, clusters, tris)
-    args = (supers.data_ptr(), clusters.data_ptr(), tris.data_ptr(), tris.shape[0])
+        return any_hit_plain(rays, supers, clusters, blocks, n_tris)
+    args = _flat_args(supers, clusters, blocks, n_tris)
     return _launch(_lib().akr_cluster_anyhit, "any_hit", rays, args, True)
 
 
-def _instanced_args(instf, insti, supers, clusters, tris):
+def _instanced_args(instf, insti, supers, clusters, blocks):
     return (instf.data_ptr(), insti.data_ptr(), instf.shape[0], supers.data_ptr(),
-            clusters.data_ptr(), tris.data_ptr())
+            clusters.data_ptr(), blocks.data_ptr(), blocks.shape[1])
 
 
-def instanced_closest(rays, instf, insti, supers, clusters, tris):
+def instanced_closest(rays, instf, insti, supers, clusters, blocks):
     """Instanced closest hit -> (t, u, v, prim int32 virtual)."""
-    check_instanced(rays, instf, insti, (supers, clusters), tris)
+    check_instanced(rays, instf, insti, (supers, clusters), blocks)
     _check_boxes(supers, clusters)
     if not rays.is_cuda:
-        return instanced_closest_plain(rays, instf, insti, supers, clusters, tris)
-    args = _instanced_args(instf, insti, supers, clusters, tris)
+        return instanced_closest_plain(rays, instf, insti, supers, clusters, blocks)
+    args = _instanced_args(instf, insti, supers, clusters, blocks)
     return _launch(_lib().akr_instanced_cluster_closest, "instanced_closest", rays, args, False)
 
 
-def instanced_any_hit(rays, instf, insti, supers, clusters, tris):
+def instanced_any_hit(rays, instf, insti, supers, clusters, blocks):
     """Instanced any hit -> [N] bool occluded."""
-    check_instanced(rays, instf, insti, (supers, clusters), tris)
+    check_instanced(rays, instf, insti, (supers, clusters), blocks)
     _check_boxes(supers, clusters)
     if not rays.is_cuda:
-        return instanced_any_hit_plain(rays, instf, insti, supers, clusters, tris)
-    args = _instanced_args(instf, insti, supers, clusters, tris)
+        return instanced_any_hit_plain(rays, instf, insti, supers, clusters, blocks)
+    args = _instanced_args(instf, insti, supers, clusters, blocks)
     return _launch(_lib().akr_instanced_cluster_anyhit, "instanced_any_hit", rays, args, True)

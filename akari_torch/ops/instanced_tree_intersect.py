@@ -131,7 +131,7 @@ def _walk(rays, instf, insti, nodes, blocks, leaf_span, any_hit, stats=None):
     each step, a ray with an empty stack culls its next instance (and
     pushes the prototype's root on a hit); a ray with a non-empty stack
     pops one ref. ``blocks`` is any component-major store (``inst_tri_blocks``,
-    or the row store's transpose ``inst_tris.T``)."""
+    or a [sum Kp*128, 12] row store's transpose)."""
     dev = rays.device
     n = rays.shape[1]
     cur = InstanceCursor(rays, instf, insti)
@@ -206,18 +206,17 @@ def any_hit_plain(rays, instf, insti, nodes, blocks, leaf_span=1, stats=None):
 
 # ------------------------------ CUDA wrapper --------------------------------
 
-def check_instanced(rays, instf, insti, tables, tris, blocks=False):
+def check_instanced(rays, instf, insti, tables, blocks):
     """Checks shared by the instanced wrappers: ``tables`` are the float32
-    [*, 16] or [*, 8] box / node tables the kernel reads; ``tris`` is the
-    [9, sum Kp*128] component-major store if ``blocks``, else the [sum
-    Kp*128, 12] row store."""
-    ts = (rays, instf, insti, *tables, tris)
+    [*, 16] or [*, 8] box / node tables the kernel reads; ``blocks`` is the
+    [9, sum Kp*128] component-major triangle store."""
+    ts = (rays, instf, insti, *tables, blocks)
     if not all(isinstance(x, torch.Tensor) for x in ts):
         raise TypeError("rays and every table must be tensors")
     if len({x.device for x in ts}) != 1:
         raise ValueError(f"tensors on several devices: {sorted({str(x.device) for x in ts})}")
-    if any(x.dtype != torch.float32 for x in (rays, instf, *tables, tris)):
-        raise TypeError("rays, instf, the box / node tables and tris must be float32")
+    if any(x.dtype != torch.float32 for x in (rays, instf, *tables, blocks)):
+        raise TypeError("rays, instf, the box / node tables and blocks must be float32")
     if insti.dtype != torch.int32:
         raise TypeError(f"insti must be int32, got {insti.dtype}")
     if rays.dim() != 2 or rays.shape[0] != 8:
@@ -227,11 +226,7 @@ def check_instanced(rays, instf, insti, tables, tris, blocks=False):
         raise ValueError(f"instf must be [I>0, 20], got {tuple(instf.shape)}")
     if tuple(insti.shape) != (n_inst, 8):
         raise ValueError(f"insti must be [{n_inst}, 8], got {tuple(insti.shape)}")
-    if blocks:
-        check_blocks(tris)
-    elif tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] == 0 \
-            or tris.shape[0] % TRI_TILE:
-        raise ValueError(f"tris must be [128 K > 0, 12], got {tuple(tris.shape)}")
+    check_blocks(blocks)
     if rays.is_cuda:
         if not all(x.is_contiguous() for x in ts):
             raise ValueError("the CUDA kernel needs contiguous tensors")
@@ -240,7 +235,7 @@ def check_instanced(rays, instf, insti, tables, tris, blocks=False):
 
 
 def _check(rays, instf, insti, nodes, blocks, leaf_span):
-    check_instanced(rays, instf, insti, (nodes,), blocks, blocks=True)
+    check_instanced(rays, instf, insti, (nodes,), blocks)
     if nodes.dim() != 2 or nodes.shape[1] != 16 or nodes.shape[0] == 0:
         raise ValueError(f"nodes must be [Nn>0, 16], got {tuple(nodes.shape)}")
     if int(leaf_span) < 1:

@@ -134,14 +134,16 @@ def _tree_query(scene, o3, d3, t_min, t_max, any_hit):
             return fn(rays, *inst, scene.tri_tree, scene.inst_tri_blocks, scene.tree_leaf_span)
         m = cluster_intersect
         fn = m.instanced_any_hit if any_hit else m.instanced_closest
-        return fn(rays, *inst, scene.tri_superclusters, scene.tri_clusters, scene.inst_tris)
+        return fn(rays, *inst, scene.tri_superclusters, scene.tri_clusters,
+                  scene.inst_tri_blocks)
     if scene.tri_tree is not None:
         fn = tree_intersect.any_hit if any_hit else tree_intersect.closest
         return fn(rays, scene.tri_tree, scene.tri_blocks, scene.n_tris, scene.tree_leaf_span)
     if scene.tri_superclusters is None:
         raise ValueError("intersector 'tree' needs a scene compiled with its tree tables")
     fn = cluster_intersect.any_hit if any_hit else cluster_intersect.closest
-    return fn(rays, scene.tri_superclusters, scene.tri_clusters, scene.tree_tris)
+    return fn(rays, scene.tri_superclusters, scene.tri_clusters, scene.tri_blocks,
+              scene.n_tris)
 
 
 @torch.no_grad()

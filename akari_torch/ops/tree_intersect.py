@@ -190,7 +190,7 @@ def _walk(rays, nodes, blocks, n_tris, leaf_span, any_hit, stats=None):
     """The kernel's walk, vectorized over one chunk of rays: every ray
     with a non-empty stack pops one ref per step. ``blocks`` is any
     component-major store of at least ``n_tris`` columns (``tri_blocks``,
-    or the row store's transpose ``tree_tris.T``)."""
+    or a [T, 12] row store's transpose)."""
     dev = rays.device
     n = rays.shape[1]
     n_cl = (n_tris + TRI_TILE - 1) // TRI_TILE

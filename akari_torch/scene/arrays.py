@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..bvh.cluster_tree import tri_blocks, tree_tris
+from ..bvh.cluster_tree import tri_blocks
 
 # Material kinds (ref: Material variant, kernel/material.h:249)
 MAT_DIFFUSE = 0
@@ -156,12 +156,11 @@ class SceneArrays:
     tri_clusters: [Kpad, 8] cluster AABBs over 128-triangle runs (the
     reference's array); tri_tree: [Nn, 16] BVH2 node rows over
     tree_leaf_span-cluster blocks (the reference's array); tri_blocks:
-    [9, Tpad] component-major triangle store of the tree kernel (v0.xyz
-    e1.xyz e2.xyz on rows 0-8, triangles on the minor axis, zero columns
-    up to a multiple of 128): rows 0-8 of the reference's ``tri_blocks``,
-    whose other seven rows are zero and not kept; tree_tris: [T, 12]
-    triangle rows (v0 e1 e2, 3 pad floats) of the linear cluster kernel;
-    tri_superclusters: [Spad, 8] boxes over 32-cluster runs (the linear
+    [9, Tpad] component-major triangle store of the tree kernel and of the
+    linear cluster kernel (v0.xyz e1.xyz e2.xyz on rows 0-8, triangles on
+    the minor axis, zero columns up to a multiple of 128): rows 0-8 of the
+    reference's ``tri_blocks``, whose other seven rows are zero and not
+    kept; tri_superclusters: [Spad, 8] boxes over 32-cluster runs (the linear
     cluster sweep's table when tri_tree is None; the reference's array).
 
     Two-level scenes (``instances`` set; storage holds object-space
@@ -171,12 +170,11 @@ class SceneArrays:
     (supercluster base, real supercluster count, cluster base, cluster
     count, tile base, prim base, tree base, 0) of ``inst_pallas_f32/i32``;
     tri_clusters, tri_superclusters and tri_tree are the per-prototype
-    tables concatenated; inst_tri_blocks is the instanced tree kernel's
-    [9, sum Kp*128] triangle store, rows 0-8 of the reference's
-    ``inst_tris16`` (each prototype padded to whole clusters with zero
-    columns that never hit), so cluster ``tile_base + k`` is columns
-    ``128 (tile_base + k)`` onward; inst_tris is the same store as [sum
-    Kp*128, 12] rows (tree_tris layout) for the linear instanced kernel.
+    tables concatenated; inst_tri_blocks is the [9, sum Kp*128] triangle
+    store of the instanced tree kernel and of the linear instanced kernel,
+    rows 0-8 of the reference's ``inst_tris16`` (each prototype padded to
+    whole clusters with zero columns that never hit), so cluster
+    ``tile_base + k`` is columns ``128 (tile_base + k)`` onward.
 
     The environment light (slice 4) has no fields yet.
     """
@@ -197,12 +195,10 @@ class SceneArrays:
     tri_superclusters: torch.Tensor = None  # [Spad, 8] float32
     tri_tree: torch.Tensor = None      # [Nn, 16] float32
     tri_blocks: torch.Tensor = None    # [9, Tpad] float32
-    tree_tris: torch.Tensor = None     # [T, 12] float32
     instances: InstanceTable = None
     inst_f32: torch.Tensor = None      # [I, 20] float32
     inst_i32: torch.Tensor = None      # [I, 8] int32
     inst_tri_blocks: torch.Tensor = None  # [9, sum Kp*128] float32
-    inst_tris: torch.Tensor = None     # [sum Kp*128, 12] float32
     tree_leaf_span: int = 1
     n_tris: int = 0             # storage triangles; virtual ones if two-level
     n_materials: int = 0
@@ -255,11 +251,10 @@ def from_numpy_scene(obj, intersector="dense"):
     (the reference builds them above DENSE_MAX_TRIS); ``tri_blocks`` is
     rows 0-8 of ``obj.tri_blocks`` (made from ``tri_v0/e1/e2`` in the same
     layout where it is None, as the reference's route does below its
-    threshold) and ``tree_tris`` is made from ``tri_v0/e1/e2``. Two-level
-    scenes (``obj.instances`` set) need the reference's per-prototype
-    tables (its ``intersector="pallas"`` compile); ``inst_tri_blocks`` is
-    rows 0-8 of ``inst_tris16`` and ``inst_tris`` its transpose cut to 12
-    columns, and ``intersector`` must be "tree" (the instanced route).
+    threshold). Two-level scenes (``obj.instances`` set) need the
+    reference's per-prototype tables (its ``intersector="pallas"``
+    compile); ``inst_tri_blocks`` is rows 0-8 of ``inst_tris16``, and
+    ``intersector`` must be "tree" (the instanced route).
 
     Constant textures and no environment only; anything else raises
     ``NotImplementedError`` naming the slice that adds it.
@@ -298,7 +293,6 @@ def from_numpy_scene(obj, intersector="dense"):
             inst_f32=_t(obj.inst_pallas_f32, np.float32),
             inst_i32=_t(obj.inst_pallas_i32, np.int32),
             inst_tri_blocks=_t(np.asarray(obj.inst_tris16)[:9], np.float32),
-            inst_tris=_t(np.asarray(obj.inst_tris16).T[:, :12], np.float32),
         )
     flat_tree = tree is not None and it is None
     blocks = None
@@ -349,9 +343,6 @@ def from_numpy_scene(obj, intersector="dense"):
         tri_superclusters=None if tree is None else _t(obj.tri_superclusters, np.float32),
         tri_tree=_t(tree, np.float32),
         tri_blocks=_t(blocks, np.float32),
-        tree_tris=torch.from_numpy(
-            tree_tris(obj.tri_v0, obj.tri_e1, obj.tri_e2)
-        ) if flat_tree else None,
         **inst,
         tree_leaf_span=int(getattr(obj, "tree_leaf_span", 1) or 1),
         n_tris=int(obj.n_tris),

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.vecmath import abs_, clip, maximum
+
 CLOSURE_NULL = -1
 CLOSURE_DIFFUSE = 0
 CLOSURE_MICROFACET = 1
@@ -23,16 +25,16 @@ DELTA_PDF = float(np.float32(1e8))
 def fresnel_dielectric(cos_i, eta_i, eta_t):
     """Unpolarized dielectric Fresnel reflectance; handles total internal
     reflection. All arguments are [N] tensors."""
-    cos_i = torch.clamp(cos_i, -1.0, 1.0)
+    cos_i = clip(cos_i, -1.0, 1.0)
     # swap indices when exiting
     entering = cos_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
-    ci = torch.abs(cos_i)
-    sin_t = ei / et * torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    ci = abs_(cos_i)
+    sin_t = ei / et * torch.sqrt(maximum(1.0 - ci * ci, 0.0))
     tir = sin_t >= 1.0
-    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
-    r_par = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-9)
-    r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-9)
+    ct = torch.sqrt(maximum(1.0 - sin_t * sin_t, 0.0))
+    r_par = (et * ci - ei * ct) / maximum(et * ci + ei * ct, 1e-9)
+    r_perp = (ei * ci - et * ct) / maximum(ei * ci + et * ct, 1e-9)
     fr = 0.5 * (r_par * r_par + r_perp * r_perp)
     return torch.where(tir, 1.0, fr)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import cross, dot
+from ..core.vecmath import cross, dot, maximum
 from ..scene import geom
 from .material import _resolved_closure_table
 
@@ -17,7 +17,7 @@ def _light_tri_data(scene, tri):
     instance, scene/geom.py)."""
     v0, e1, e2 = geom.tri_world(scene, tri)
     ng_raw = cross(e1, e2)
-    area2 = torch.sqrt(torch.clamp(dot(ng_raw, ng_raw), min=1e-20))
+    area2 = torch.sqrt(maximum(dot(ng_raw, ng_raw), 1e-20))
     ng = ng_raw / area2[..., None]
     area = 0.5 * area2
     return v0, e1, e2, ng, area
@@ -43,7 +43,7 @@ def _light_fat_table(scene):
     e1 = scene.tri_e1.index_select(0, tri)
     e2 = scene.tri_e2.index_select(0, tri)
     ng_raw = cross(e1, e2)
-    area2 = torch.sqrt(torch.clamp(dot(ng_raw, ng_raw), min=1e-20))
+    area2 = torch.sqrt(maximum(dot(ng_raw, ng_raw), 1e-20))
     ng = ng_raw / area2[..., None]
     area = 0.5 * area2
     mat_id = scene.mat_id.index_select(0, tri)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.vecmath import clip
 from ..scene.arrays import (
     MAT_DIFFUSE,
     MAT_EMISSIVE,
@@ -33,13 +34,11 @@ def _resolved_closure_table(materials, textures):
     value = textures.value
     color = value.index_select(0, materials.color_tex)  # [M,3]
     rough = value[:, 0].index_select(0, materials.roughness_tex)
-    frac = torch.clamp(
-        value[:, 0].index_select(0, materials.fraction_tex), 1e-4, 1.0 - 1e-4
-    )
+    frac = clip(value[:, 0].index_select(0, materials.fraction_tex), 1e-4, 1.0 - 1e-4)
     # clip: roughness is physically in [0,1]; non-glossy rows point their
     # roughness_tex at arbitrary texels, and an unbounded alpha makes the
     # (masked) microfacet branch numerically wild.
-    alpha = torch.clamp(rough * rough, 1e-4, 1.0)
+    alpha = clip(rough * rough, 1e-4, 1.0)
     closure_kind = torch.where(
         kind == MAT_DIFFUSE,
         CLOSURE_DIFFUSE,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.distribution import sample_discrete
+from ..core.vecmath import abs_, clip, maximum
 from ..core.v3 import (
     V3, from_rows, from_stack, onb3, reflect3, to_local3, to_world3, v3where,
 )
@@ -52,7 +53,7 @@ def concentric_disk(u1, u2):
     """Two [N] uniforms -> ([N] px, [N] py) on the unit disk."""
     x = 2.0 * u1 - 1.0
     y = 2.0 * u2 - 1.0
-    ax, ay = torch.abs(x), torch.abs(y)
+    ax, ay = abs_(x), abs_(y)
     use_x = ax > ay
     r = torch.where(use_x, x, y)
 
@@ -73,7 +74,7 @@ def concentric_disk(u1, u2):
 def cosine_hemisphere(u1, u2):
     """-> V3 local direction (Z-up), cosine-weighted."""
     px, py = concentric_disk(u1, u2)
-    z = torch.sqrt(torch.clamp(1.0 - px * px - py * py, min=0.0))
+    z = torch.sqrt(maximum(1.0 - px * px - py * py, 0.0))
     return V3(px, py, z)
 
 
@@ -87,8 +88,8 @@ def uniform_triangle(u1, u2):
 
 def _tan2_theta(w):
     c2 = w.z * w.z
-    s2 = torch.clamp(1.0 - c2, min=0.0)
-    return s2 / torch.clamp(c2, min=1e-8)
+    s2 = maximum(1.0 - c2, 0.0)
+    return s2 / maximum(c2, 1e-8)
 
 
 def _mf_d(dist, alpha, m):
@@ -99,7 +100,7 @@ def _mf_d(dist, alpha, m):
     d_ggx = a2 / (PI * c2 * c2 * at * at + 1e-12)
     d_beck = torch.exp(-t2 / a2) / (PI * a2 * c2 * c2 + 1e-12)
     d_phong = (alpha + 2.0) / (2.0 * PI) * torch.pow(
-        torch.clamp(m.z, min=1e-6), alpha
+        maximum(m.z, 1e-6), alpha
     )
     d = torch.where(
         dist == mf.GGX, d_ggx, torch.where(dist == mf.BECKMANN, d_beck, d_phong)
@@ -116,9 +117,9 @@ def _mf_g1(dist, alpha, v, m):
     back = v.dot(m) * v.z <= 0.0
     t2 = _tan2_theta(v)
     g_ggx = 2.0 / (1.0 + torch.sqrt(1.0 + alpha * alpha * t2))
-    tt = torch.sqrt(torch.clamp(t2, min=0.0) + 1e-12)
-    a_beck = 1.0 / (torch.clamp(alpha, min=1e-4) * torch.clamp(tt, min=1e-9))
-    a_phong = torch.sqrt(0.5 * alpha + 1.0) / torch.clamp(tt, min=1e-9)
+    tt = torch.sqrt(maximum(t2, 0.0) + 1e-12)
+    a_beck = 1.0 / (maximum(alpha, 1e-4) * maximum(tt, 1e-9))
+    a_phong = torch.sqrt(0.5 * alpha + 1.0) / maximum(tt, 1e-9)
     g = torch.where(
         dist == mf.GGX,
         g_ggx,
@@ -131,18 +132,18 @@ def _mf_g1(dist, alpha, v, m):
 
 def _mf_sample_wh(dist, alpha, u1, u2):
     phi = 2.0 * PI * u2
-    t2_ggx = alpha * alpha * u1 / torch.clamp(1.0 - u1, min=1e-9)
-    t2_beck = -alpha * alpha * torch.log(torch.clamp(1.0 - u1, min=1e-9))
-    cos_p = torch.pow(torch.clamp(u1, min=1e-20), 1.0 / (alpha + 2.0))
+    t2_ggx = alpha * alpha * u1 / maximum(1.0 - u1, 1e-9)
+    t2_beck = -alpha * alpha * torch.log(maximum(1.0 - u1, 1e-9))
+    cos_p = torch.pow(maximum(u1, 1e-20), 1.0 / (alpha + 2.0))
     t2 = torch.where(dist == mf.GGX, t2_ggx, t2_beck)
     cos_t = 1.0 / torch.sqrt(1.0 + t2)
     cos_t = torch.where(dist == mf.PHONG, cos_p, cos_t)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    sin_t = torch.sqrt(maximum(1.0 - cos_t * cos_t, 0.0))
     return V3(sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t)
 
 
 def _mf_pdf_wh(dist, alpha, m):
-    return _mf_d(dist, alpha, m) * torch.abs(m.z)
+    return _mf_d(dist, alpha, m) * abs_(m.z)
 
 
 # --------------------------- local-frame closures ---------------------------
@@ -156,14 +157,14 @@ def _diffuse_eval(color, wo, wi):
 
 
 def _diffuse_pdf(wo, wi):
-    return torch.where(_same_hemisphere(wo, wi), torch.abs(wi.z) * INV_PI, 0.0)
+    return torch.where(_same_hemisphere(wo, wi), abs_(wi.z) * INV_PI, 0.0)
 
 
 def _diffuse_sample(color, wo, u1, u2):
     wi = cosine_hemisphere(u1, u2)
     flip = wo.z < 0.0
     wi = V3(wi.x, wi.y, torch.where(flip, -wi.z, wi.z))
-    pdf = torch.abs(wi.z) * INV_PI
+    pdf = abs_(wi.z) * INV_PI
     return wi, color * INV_PI, pdf
 
 
@@ -178,7 +179,7 @@ def _half_vector(wo, wi):
     wh = v3where(
         degen,
         V3(torch.zeros_like(wh2), torch.zeros_like(wh2), torch.ones_like(wh2)),
-        wh_raw * (1.0 / torch.sqrt(torch.clamp(wh2, min=1e-20))),
+        wh_raw * (1.0 / torch.sqrt(maximum(wh2, 1e-20))),
     )
     wh = v3where(wh.z < 0.0, -wh, wh)
     return wh, degen
@@ -186,22 +187,20 @@ def _half_vector(wo, wi):
 
 def _micro_eval(color, dist, alpha, wo, wi):
     same = _same_hemisphere(wo, wi)
-    cos_o = torch.abs(wo.z)
-    cos_i = torch.abs(wi.z)
+    cos_o = abs_(wo.z)
+    cos_i = abs_(wi.z)
     wh, degen = _half_vector(wo, wi)
     d_val = _mf_d(dist, alpha, wh)
     g_val = _mf_g1(dist, alpha, wo, wh) * _mf_g1(dist, alpha, wi, wh)
     denom = 4.0 * cos_i * cos_o
-    scale = d_val * g_val / torch.clamp(denom, min=1e-9)
+    scale = d_val * g_val / maximum(denom, 1e-9)
     ok = same & (cos_i > 0) & (cos_o > 0) & ~degen
     return v3where(ok, color * scale, 0.0)
 
 
 def _micro_pdf(dist, alpha, wo, wi):
     wh, degen = _half_vector(wo, wi)
-    pdf = _mf_pdf_wh(dist, alpha, wh) / torch.clamp(
-        4.0 * torch.abs(wo.dot(wh)), min=1e-9
-    )
+    pdf = _mf_pdf_wh(dist, alpha, wh) / maximum(4.0 * abs_(wo.dot(wh)), 1e-9)
     return torch.where(_same_hemisphere(wo, wi) & ~degen, pdf, 0.0)
 
 
@@ -211,9 +210,7 @@ def _micro_sample(color, dist, alpha, wo, u1, u2):
     wh = _mf_sample_wh(dist, alpha, u1, u2)
     wi_up = reflect3(wo_up, wh)
     wi = V3(wi_up.x, wi_up.y, torch.where(flip, -wi_up.z, wi_up.z))
-    pdf = _mf_pdf_wh(dist, alpha, wh) / torch.clamp(
-        4.0 * torch.abs(wo_up.dot(wh)), min=1e-9
-    )
+    pdf = _mf_pdf_wh(dist, alpha, wh) / maximum(4.0 * abs_(wo_up.dot(wh)), 1e-9)
     f = _micro_eval(color, dist, alpha, wo, wi)
     ok = _same_hemisphere(wo, wi)
     return wi, f, torch.where(ok, pdf, 0.0)
@@ -221,7 +218,7 @@ def _micro_sample(color, dist, alpha, wo, u1, u2):
 
 def _specular_sample(color, wo):
     wi = V3(-wo.x, -wo.y, wo.z)
-    cos_i = torch.clamp(torch.abs(wi.z), min=1e-6)
+    cos_i = maximum(abs_(wi.z), 1e-6)
     f = color * (DELTA_PDF / cos_i)
     pdf = torch.full_like(wo.z, DELTA_PDF)
     return wi, f, pdf
@@ -235,22 +232,20 @@ def _glass_sample(color, ior, wo, u1):
     eta = torch.where(entering, 1.0 / ior, ior)
     fr = fresnel_dielectric(cos_i, torch.ones_like(ior), ior)
     nz = torch.where(entering, 1.0, -1.0)
-    ci = torch.abs(cos_i)
-    sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
+    ci = abs_(cos_i)
+    sin2_t = eta * eta * maximum(1.0 - ci * ci, 0.0)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = torch.sqrt(maximum(1.0 - sin2_t, 0.0))
     wt = V3(-eta * wo.x, -eta * wo.y, -eta * wo.z + (eta * ci - cos_t) * nz)
     wr = V3(-wo.x, -wo.y, wo.z)
     reflect_p = torch.where(tir, 1.0, fr)
     pick_r = (u1 < reflect_p) | tir
     wi = v3where(pick_r, wr, wt)
-    cos_o = torch.clamp(torch.abs(wi.z), min=1e-6)
+    cos_o = maximum(abs_(wi.z), 1e-6)
     w_refl = DELTA_PDF * reflect_p / cos_o
     w_refr = DELTA_PDF * (1.0 - reflect_p) * (eta * eta) / cos_o
     f = color * torch.where(pick_r, w_refl, w_refr)
-    pdf = torch.clamp(
-        DELTA_PDF * torch.where(pick_r, reflect_p, 1.0 - reflect_p), min=1e-12
-    )
+    pdf = maximum(DELTA_PDF * torch.where(pick_r, reflect_p, 1.0 - reflect_p), 1e-12)
     return wi, f, pdf
 
 
@@ -340,7 +335,7 @@ def select_material(materials, textures, mat_id, u, uv_u, uv_v):
         fat = gather_rows_t(ct, cur)
         is_mix = fat[12] > 0.5
         frac = fat[9]
-        safe_frac = torch.clamp(frac, 1e-4, 1.0 - 1e-4)
+        safe_frac = clip(frac, 1e-4, 1.0 - 1e-4)
         pick_b = u < safe_frac
         next_id = torch.where(pick_b, fat[11], fat[10]).to(torch.int32)
         new_u = torch.where(
@@ -415,14 +410,14 @@ def light_sample(scene, u_select, u_pos1, u_pos2, p_ref):
     p = v0 + e1 * b0 + e2 * b1
 
     wi_raw = p - p_ref
-    dist2 = torch.clamp(wi_raw.dot(wi_raw), min=1e-12)
+    dist2 = maximum(wi_raw.dot(wi_raw), 1e-12)
     dist = torch.sqrt(dist2)
     wi = wi_raw * (1.0 / dist)
 
     cos_light = -wi.dot(ng)  # emission from the front face
-    cos_eff = torch.where(double_sided, torch.abs(cos_light), cos_light)
+    cos_eff = torch.where(double_sided, abs_(cos_light), cos_light)
     area_ok = cos_eff > 1e-6
-    pdf = dist2 / (torch.clamp(cos_eff, min=1e-6) * area) * sel_pdf
+    pdf = dist2 / (maximum(cos_eff, 1e-6) * area) * sel_pdf
     valid = area_ok & (scene.lights.n_lights > 0)
     return LightSampleSoA(wi, dist, L, pdf, valid)
 
@@ -436,12 +431,12 @@ def light_sample_mixed(scene, u_select, u_p1, u_p2, p_ref):
 def light_pdf_direction_from(e1, e2, sel_pdf, hit_ok, wi, dist, double_sided):
     """MIS light pdf from already-gathered hit data (V3 e1/e2/wi)."""
     ng_raw = e1.cross(e2)
-    area2 = torch.sqrt(torch.clamp(ng_raw.dot(ng_raw), min=1e-20))
+    area2 = torch.sqrt(maximum(ng_raw.dot(ng_raw), 1e-20))
     ng = ng_raw * (1.0 / area2)
     area = 0.5 * area2
     cos_light = -wi.dot(ng)
-    cos_eff = torch.where(double_sided, torch.abs(cos_light), cos_light)
+    cos_eff = torch.where(double_sided, abs_(cos_light), cos_light)
     is_light = (sel_pdf > 0.0) & hit_ok
     d = torch.where(is_light, dist, 1.0)  # avoid inf*inf on missed lanes
-    pdf = d * d / (torch.clamp(cos_eff, min=1e-6) * area) * sel_pdf
+    pdf = d * d / (maximum(cos_eff, 1e-6) * area) * sel_pdf
     return torch.where(is_light & (cos_eff > 1e-6), pdf, 0.0)

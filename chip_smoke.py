@@ -8,8 +8,7 @@ Phases (each checks its results; any failure exits non-zero):
 
 1. setup: the card's name and power limit; build the CUDA kernels from
    ``akari_torch/kernels/csrc`` and report the build time and the ptxas
-   report (registers, stack frame and spills of the dense kernel and the
-   two tree walks summarised);
+   report (registers, stack frame and spills of every kernel summarised);
 2. dense kernel vs plain PyTorch version on the card, on >= 2^20 rays
    against the compiled Cornell box and a 300-triangle soup, and on the
    adversarial pack of edge pairs (``adversarial_pack``)
@@ -51,10 +50,10 @@ Phases (each checks its results; any failure exits non-zero):
     instanced kernel vs their plain versions on the card, on 2^16 + 77
     rays (camera and seeded random rays, some dead) against
     ``instanced-forest128`` (128 rotated, scaled copies of the 32,258-
-    triangle terrain, 4,129,026 world triangles; the instanced tree
-    kernel on the component-major ``inst_tri_blocks``) and the 20k soup
-    with its tree nulled; prim/valid exact, t/u/v 0 ulp, any-hit ==
-    closest validity; one comparison again on a permuted ray order;
+    triangle terrain, 4,129,026 world triangles) and the 20k soup with
+    its tree nulled, all three on the component-major stores
+    (``inst_tri_blocks``, ``tri_blocks``); prim/valid exact, t/u/v 0 ulp,
+    any-hit == closest validity; each again on a permuted ray order;
 13. ``instanced-forest128`` on ``auto`` (two-level without forcing): 6
     instanced-tree launches per ``trace_paths`` and no other traversal
     launch, frame time, path rate, peak memory, host compile time, a lit
@@ -67,10 +66,13 @@ Phases (each checks its results; any failure exits non-zero):
     (tests/data/torch_port_instanced64_spp4_d5.npy);
 16. the CLI on an .akari file placing 128 ``Instance`` nodes of a written
     32,258-triangle terrain OBJ plus the light (two-level on ``auto``);
-17. the routes of the linear kernels (scenes with their tree nulled,
-    rendered through ``render``) and occlusion queries through
-    ``occlude_soa`` on every route (the any-hit kernels), each run with
-    the launch counts set to 0 just before it and read just after;
+17. the routes of the linear kernels: terrain512 and
+    ``instanced-forest128`` with their tree nulled, rendered through
+    ``render`` at the cells' width (256x256, 4 spp, depth 5), one frame
+    each timed after a warm-up, with launch counts and a lit image; and
+    occlusion queries through ``occlude_soa`` on every route (the any-hit
+    kernels); each run with the launch counts set to 0 just before it and
+    read just after;
 18. the instanced tree and linear instanced kernels at the fused launch's
     shape (524,288 rays captured from a frame of ``instanced-forest128``)
     and the flat cluster kernel on phase 11's terrain rays, with their
@@ -126,9 +128,7 @@ PEAK_HBM_BYTES = 3.35e12
 SLAB_OPS = 24     # one ray-box slab test: 6 sub, 6 mul, 10 min/max, 2 compares
 MT_OPS = 55       # one Moller-Trumbore test: 2 cross, 4 dot, the reciprocal, 8 compares
 RAY_BYTES, CLOSEST_BYTES, ANY_HIT_BYTES = 32, 16, 1
-ROW_BYTES = {"nodes": 64, "tris": 48, "tri_blocks": 36, "instances": 112, "supers": 32,
-             "clusters": 32}
-SUMMARY_SOURCES = ("dense_intersect", "tree_intersect", "instanced_tree_intersect")
+ROW_BYTES = {"nodes": 64, "tri_blocks": 36, "instances": 112, "supers": 32, "clusters": 32}
 RAY_COUNTS = (1, 31, 33, 255, 257, 513, 5000)        # not multiples of any block's rays
 TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
 
@@ -252,6 +252,21 @@ def compare_kernel(name, rays, mod, args, n_tris, closest="closest", any_hit="an
         f"({max_ulp} ulp), any-hit == closest.valid == plain; kernels {t1 - t0:.3f} s, "
         f"plain {t2 - t1:.3f} s (wall)")
     return max_err, occ_err, (t_k, u_k, v_k, p_k)
+
+
+def check_permuted(name, rays, mod, args, hit, closest="closest", any_hit="any_hit"):
+    """The kernels on a permuted ray order give each ray the answer it got
+    in order (``hit``: the closest-hit outputs in order)."""
+    import torch
+
+    g = torch.Generator(device=rays.device).manual_seed(5)
+    perm = torch.randperm(rays.shape[1], generator=g, device=rays.device)
+    rp = rays[:, perm].contiguous()
+    check(all(torch.equal(a, b[perm]) for a, b in zip(getattr(mod, closest)(rp, *args), hit)),
+          f"{name}: a ray's answer depends on its neighbours")
+    check(torch.equal(getattr(mod, any_hit)(rp, *args), hit[3][perm] >= 0),
+          f"{name} any-hit: a ray's answer depends on its neighbours")
+    log(f"  {name} on a permuted ray order: every ray's answer unchanged")
 
 
 def tree_soup(dev, torch, n=20_000, seed=7):
@@ -710,7 +725,7 @@ def main():
     log(f"  all builds, in parallel: {build_s:.2f} s")
     for kname, (secs, report) in kbuild.BUILD_LOG.items():
         log(f"  nvcc {kname}: {secs:.2f} s; ptxas:\n    " + report.replace("\n", "\n    "))
-    for kname in SUMMARY_SOURCES:  # the redesigned kernels
+    for kname in KERNELS:
         if kname in kbuild.BUILD_LOG:
             log(f"  {kname} registers / stack / spills:\n    "
                 + ptxas_summary(kbuild.BUILD_LOG[kname][1]).replace("\n", "\n    "))
@@ -859,8 +874,8 @@ def main():
     log(f"  terrain n=512: {scene512.n_tris} tris, {scene512.tri_tree.shape[0]} node rows, "
         f"leaf_span {scene512.tree_leaf_span}; {compile512}")
     targs = (scene512.tri_tree, scene512.tri_blocks, scene512.n_tris, scene512.tree_leaf_span)
-    log(f"  triangle stores: tri_blocks {store_mb(scene512.tri_blocks)} (tree kernel), "
-        f"tree_tris {store_mb(scene512.tree_tris)} (linear cluster kernel)")
+    log(f"  triangle store: tri_blocks {store_mb(scene512.tri_blocks)} (tree and linear "
+        "cluster kernels)")
     trays = make_rays(
         scene512, sc512.camera, TREE_RAYS, 2, torch,
         box=((-1.0, 0.0, -1.0), (1.0, 1.2, 1.0)),
@@ -1007,28 +1022,19 @@ def main():
         f"rows, leaf_span {forest.tree_leaf_span}; {compile_f}")
     iargs = (forest.inst_f32, forest.inst_i32, forest.tri_tree, forest.inst_tri_blocks,
              forest.tree_leaf_span)
-    log(f"  triangle stores: inst_tri_blocks {store_mb(forest.inst_tri_blocks)} (instanced "
-        f"tree kernel), inst_tris {store_mb(forest.inst_tris)} (linear instanced kernel)")
+    log(f"  triangle store: inst_tri_blocks {store_mb(forest.inst_tri_blocks)} (instanced "
+        "tree and linear instanced kernels)")
     frays = make_rays(
         forest, sc_f.camera, INST_RAYS, 4, torch, box=((-6.0, 0.0, -6.0), (6.0, 1.5, 6.0)),
         hit_t=lambda r: iti.closest_plain(r, *iargs)[0],
     )
     err_it, occ_it, hit_it = compare_kernel(
         "instanced tree", frays, iti, iargs, forest.n_tris, max_ulp_allowed=0)
-    g = torch.Generator(device=dev).manual_seed(5)
-    perm = torch.randperm(frays.shape[1], generator=g, device=dev)
-    hit_perm = iti.closest(frays[:, perm].contiguous(), *iargs)
-    check(all(torch.equal(a, b[perm]) for a, b in zip(hit_perm, hit_it)),
-          "instanced tree: a ray's answer depends on its neighbours")
-    check(torch.equal(iti.any_hit(frays[:, perm].contiguous(), *iargs),
-                      iti.any_hit(frays, *iargs)[perm]),
-          "instanced tree any-hit: a ray's answer depends on its neighbours")
-    log(f"  instanced tree on a permuted ray order: every ray's answer unchanged")
+    check_permuted("instanced tree", frays, iti, iargs, hit_it)
     st = soup_tris.cpu().numpy()
     scl = ct.build_clusters(st[:, 0:3], st[:, 3:6], st[:, 6:9])
     cargs = (torch.from_numpy(ct.build_superclusters(scl, st.shape[0])).to(dev),
-             torch.from_numpy(scl).to(dev),
-             torch.from_numpy(ct.tree_tris(st[:, 0:3], st[:, 3:6], st[:, 6:9])).to(dev))
+             torch.from_numpy(scl).to(dev), sargs[1], st.shape[0])
     crays = make_rays(
         SimpleNamespace(device=dev), sc512.camera, INST_RAYS, 6, torch,
         box=((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)),
@@ -1038,14 +1044,17 @@ def main():
         "flat cluster (soup, tree nulled)", crays, ci, cargs, st.shape[0], max_ulp_allowed=0)
     check(torch.equal(hit_cl[3], ti.closest(crays, *sargs)[3]),
           "flat cluster prims != tree walk prims on the soup (tie rule)")
+    check_permuted("flat cluster", crays, ci, cargs, hit_cl)
     ncargs = (forest.inst_f32, forest.inst_i32, forest.tri_superclusters, forest.tri_clusters,
-              forest.inst_tris)
+              forest.inst_tri_blocks)
     err_ic, occ_ic, hit_ic = compare_kernel(
         "linear instanced (forest, tree nulled)", frays, ci, ncargs, forest.n_tris,
         closest="instanced_closest", any_hit="instanced_any_hit", max_ulp_allowed=0)
     check(all(torch.equal(a, b) for a, b in zip(hit_ic, hit_it)),
           "linear instanced kernel != instanced tree kernel on the forest rays")
     log("  linear instanced kernel == instanced tree kernel on every forest ray")
+    check_permuted("linear instanced", frays, ci, ncargs, hit_ic,
+                   closest="instanced_closest", any_hit="instanced_any_hit")
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 13: instanced-forest128 on auto ----------------------------
@@ -1130,21 +1139,27 @@ def main():
     log("phase 17: the linear kernels' routes (tree nulled) and occlude_soa on every route")
     forest_nt = dataclasses.replace(forest, tri_tree=None)
     terrain_nt = dataclasses.replace(scene512, tri_tree=None)
-    cfg1 = PathConfig(spp=1, max_depth=5)
     linear = {}
     for label, scene_, cam_ in (("forest", forest_nt, sc_f.camera),
                                 ("terrain", terrain_nt, sc512.camera)):
+        render(scene_, cam_, cfg, seed=0)  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_all(traversal)
-        img_ = render(scene_, cam_, cfg1, seed=0)
-        torch.cuda.synchronize()
+        out = []
+        t0 = time.perf_counter()
+        ms_ = cuda_ms(lambda: out.append(render(scene_, cam_, cfg, seed=0)), iters=1, warmup=0)
+        wall_ = time.perf_counter() - t0
+        peak_ = torch.cuda.max_memory_allocated() / 2 ** 30
         linear[label] = dict(ci.LAUNCHES)
-        log(f"  render({label}, tree nulled, 256^2 spp 1): cluster {ci.LAUNCHES}, "
+        log(f"  render({label}, tree nulled, 256^2 spp 4 depth 5): cluster {ci.LAUNCHES}, "
             f"others {others(traversal, ci)}")
         check(others(traversal, ci) == 0, f"{label}: other kernels on the linear route")
-        check_image(img_.cpu().numpy(), 256, f"{label} with its tree nulled")
-    check(linear["forest"]["instanced_closest"] == 1 + cfg1.max_depth
-          and linear["terrain"]["closest"] == 1 + cfg1.max_depth,
+        check_image(out[0].cpu().numpy(), 256, f"{label} with its tree nulled")
+        frame_line(f"{label}, tree nulled, 256^2 spp 4 depth 5", ms_, wall_, peak_, 256, cfg,
+                   card)
+    check(linear["forest"]["instanced_closest"] == n_trace * (1 + cfg.max_depth)
+          and linear["terrain"]["closest"] == n_trace * (1 + cfg.max_depth),
           f"linear route launches {linear}")
     occ_launches = {}
     for label, scene_, rays_, mod in (
@@ -1179,7 +1194,8 @@ def main():
     n_dead = int((frays_u[7] <= frays_u[6]).sum())
     log(f"  forest fused launch: {FUSED_RAYS} rays ({n_dead} dead); terrain fused launch "
         f"of phase 11 for the flat cluster kernel; ms per call (CUDA events):")
-    cl_tabs = (scene512.tri_superclusters, scene512.tri_clusters, scene512.tree_tris)
+    cl_tabs = (scene512.tri_superclusters, scene512.tri_clusters, scene512.tri_blocks,
+               scene512.n_tris)
     ms = {
         "instanced_tree_closest": cuda_ms(lambda: iti.closest(frays_u, *iargs), iters=20),
         "instanced_tree_any_hit": cuda_ms(lambda: iti.any_hit(frays_u, *iargs), iters=20),
@@ -1223,7 +1239,8 @@ def main():
             fig[kname] = (b_ms, b_by, p_ms, r_.shape[1])
             ms[kname] = k_ms
     for kname in ("tree_closest", "tree_any_hit", "instanced_tree_closest",
-                  "instanced_tree_any_hit"):
+                  "instanced_tree_any_hit", "cluster_closest", "cluster_any_hit",
+                  "instanced_cluster_closest", "instanced_cluster_any_hit"):
         log(f"    {kname}: {ms[kname]:.4f} ms, bound {fig[kname][0]:.4f} ms ({fig[kname][1]}), "
             f"{ms[kname] / fig[kname][0]:.1f}x the bound [card: {card}]")
     log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")

@@ -10,7 +10,10 @@ index on an exact tie, which is the first hit the reference's in-order
 sweep keeps, so prims match exactly. t rtol 1e-5 (XLA may fuse the
 Moeller-Trumbore products where the port rounds op by op). The port's
 plain sweeps and its tree walk round op by op alike: they must agree bit
-for bit.
+for bit. The plain sweeps read the component-major stores of the tree
+walks (``tri_blocks``, ``inst_tri_blocks``); on the [T, 12] row layout of
+the same triangles, read through its transpose, they give the same bits
+and the same ``WalkStats`` counts.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ from akari_tpu.core.v3 import V3 as JV3
 from akari_tpu.ops import pallas_cluster as ref_cluster
 from akari_tpu.ops import pallas_intersect as pi
 from test_torch_instancing import _forest_rays, _pack, _rays, compiled
+from test_torch_leaf_store import _assert_same, _assert_same_stats, row_store
 
 torch.set_num_threads(2)
 
@@ -135,7 +139,7 @@ def test_plain_flat_sweep_matches_run_clustered(soup):
     args_r = (tris_t, jnp.asarray(soup.tri_clusters.numpy()),
               jnp.asarray(soup.tri_superclusters.numpy()))
     rays = _pack(o, d, t_min, t_max)
-    args = (soup.tri_superclusters, soup.tri_clusters, soup.tree_tris)
+    args = (soup.tri_superclusters, soup.tri_clusters, soup.tri_blocks, soup.n_tris)
     ref = _unpack(ref_cluster.run_clustered(rays_r, *args_r, False, n_tris=soup.n_tris,
                                             interpret=True), nr, False)
     _assert_closest_equal(ci.closest(rays, *args), ref)
@@ -174,7 +178,7 @@ def test_flat_sweep_ties_go_to_the_lowest_index():
     tris[1000:1020] = tris[8900:8920]
     cl = ct.build_clusters(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9])
     sup = torch.from_numpy(ct.build_superclusters(cl, n))
-    store = torch.from_numpy(ct.tree_tris(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]))
+    blocks = torch.from_numpy(ct.tri_blocks(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]))
     nodes, span = ct.build_cluster_tree(cl, n, leaf_span=1)
     m = 2000
     o = np.stack([np.where(np.arange(m) % 2 == 0, -6.0, 6.0), r.uniform(-1.2, 1.2, m),
@@ -183,8 +187,7 @@ def test_flat_sweep_ties_go_to_the_lowest_index():
                   r.normal(scale=0.05, size=m)], 1)
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     rays = _pack(o, d, np.zeros(m, np.float32), np.full(m, 1e30, np.float32))
-    got = ci.closest(rays, sup, torch.from_numpy(cl), store)
-    blocks = torch.from_numpy(ct.tri_blocks(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]))
+    got = ci.closest(rays, sup, torch.from_numpy(cl), blocks, n)
     want = ti.closest(rays, torch.from_numpy(nodes), blocks, n, span)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -196,7 +199,7 @@ def test_flat_sweep_ties_go_to_the_lowest_index():
 def test_plain_chunking_does_not_change_results(soup, monkeypatch):
     o, d, t_min, t_max = _soup_rays(300, seed=12)
     rays = _pack(o, d, t_min, t_max)
-    args = (soup.tri_superclusters, soup.tri_clusters, soup.tree_tris)
+    args = (soup.tri_superclusters, soup.tri_clusters, soup.tri_blocks, soup.n_tris)
     full = ci.closest_plain(rays, *args)
     occ = ci.any_hit_plain(rays, *args)
     monkeypatch.setattr(ti, "PLAIN_RAYS_PER_CHUNK", 97)
@@ -207,7 +210,8 @@ def test_plain_chunking_does_not_change_results(soup, monkeypatch):
 
 def test_wrapper_rejects_bad_inputs(soup):
     rays = torch.zeros((8, 4))
-    args = (soup.tri_superclusters, soup.tri_clusters, soup.tree_tris)
+    boxes = (soup.tri_superclusters, soup.tri_clusters)
+    args = (*boxes, soup.tri_blocks, soup.n_tris)
     with pytest.raises(ValueError):
         ci.closest(torch.zeros((7, 4)), *args)
     with pytest.raises(TypeError):
@@ -215,11 +219,21 @@ def test_wrapper_rejects_bad_inputs(soup):
     with pytest.raises(ValueError):
         ci.any_hit(rays, soup.tri_superclusters[:, :6], *args[1:])
     with pytest.raises(ValueError):
-        ci.closest(rays, soup.tri_superclusters, soup.tri_clusters[:3], soup.tree_tris)
-    port, _ = compiled("pair")
+        ci.closest(rays, soup.tri_superclusters, soup.tri_clusters[:3], *args[2:])
+    with pytest.raises(TypeError):
+        ci.closest(rays, *boxes, None, soup.n_tris)  # no store
     with pytest.raises(ValueError):
-        ci.instanced_closest(rays, port.inst_f32[:, :8], port.inst_i32, port.tri_superclusters,
-                             port.tri_clusters, port.inst_tris)
+        ci.any_hit(rays, *boxes, row_store(soup.tri_blocks, soup.n_tris), soup.n_tris)
+    with pytest.raises(ValueError):
+        ci.closest(rays, *boxes, soup.tri_blocks, soup.n_tris + 128)  # too few columns
+    port, _ = compiled("pair")
+    iargs = (port.inst_f32, port.inst_i32, port.tri_superclusters, port.tri_clusters)
+    with pytest.raises(ValueError):
+        ci.instanced_closest(rays, port.inst_f32[:, :8], *iargs[1:], port.inst_tri_blocks)
+    with pytest.raises(TypeError):
+        ci.instanced_closest(rays, *iargs, None)  # no store
+    with pytest.raises(ValueError):
+        ci.instanced_any_hit(rays, *iargs, row_store(port.inst_tri_blocks))
 
 
 # ------------------------- instanced sweep ----------------------------------
@@ -241,7 +255,7 @@ def test_plain_instanced_sweep_matches_run_instanced(name):
               jnp.asarray(ref.inst_tris16))
     rays = _pack(o, d, t_min, t_max)
     args = (port.inst_f32, port.inst_i32, port.tri_superclusters, port.tri_clusters,
-            port.inst_tris)
+            port.inst_tri_blocks)
     ref_hit = _unpack(ref_cluster.run_instanced(rays_r, *args_r, False, interpret=True), nr, False)
     _assert_closest_equal(ci.instanced_closest(rays, *args), ref_hit)
     ref_occ = _unpack(ref_cluster.run_instanced(rays_r, *args_r, True, interpret=True), nr, True)
@@ -268,3 +282,43 @@ def test_instanced_cluster_route_equals_instanced_tree_route(name):
         assert torch.equal(x, y)
     assert int(a.valid.sum()) > 100
     assert torch.equal(occlude_soa(nulled, o3, d3, tmn, tmx), occlude_soa(port, o3, d3, tmn, tmx))
+
+
+# ------------------ the plain sweeps on both triangle layouts ----------------
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_flat_plain_sweep_same_on_both_stores(soup, any_hit):
+    """The flat sweep on ``tri_blocks`` == on the [T, 12] row layout of the
+    same triangles (read through its transpose): the same bits and the same
+    ``WalkStats`` box, triangle and distinct-row counts."""
+    o, d, t_min, t_max = _soup_rays(600, seed=17)
+    rays = _pack(o, d, t_min, t_max)
+    sweep = ci.any_hit_plain if any_hit else ci.closest_plain
+    boxes = (soup.tri_superclusters, soup.tri_clusters)
+    s_blocks, s_rows = ti.WalkStats(), ti.WalkStats()
+    got = sweep(rays, *boxes, soup.tri_blocks, soup.n_tris, stats=s_blocks)
+    want = sweep(rays, *boxes, row_store(soup.tri_blocks, soup.n_tris).T, soup.n_tris,
+                 stats=s_rows)
+    _assert_same(got, want)
+    _assert_same_stats(s_blocks, s_rows)
+    hits = got if any_hit else got[3] >= 0
+    assert int(hits.sum()) > 50 and s_blocks.mt > 0
+    assert set(s_blocks.rows) == {"supers", "clusters", "tri_blocks"}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_instanced_plain_sweep_same_on_both_stores(any_hit):
+    """The instanced sweep on ``inst_tri_blocks`` == on its row layout:
+    the same bits and the same counts, transforms included."""
+    port, _ = compiled("forest8")
+    o, d, t_max = _forest_rays(500, seed=8)
+    rays = _pack(o, d, np.zeros(len(o), np.float32), t_max)
+    sweep = ci.instanced_any_hit_plain if any_hit else ci.instanced_closest_plain
+    args = (port.inst_f32, port.inst_i32, port.tri_superclusters, port.tri_clusters)
+    s_blocks, s_rows = ti.WalkStats(), ti.WalkStats()
+    got = sweep(rays, *args, port.inst_tri_blocks, stats=s_blocks)
+    want = sweep(rays, *args, row_store(port.inst_tri_blocks).T, stats=s_rows)
+    _assert_same(got, want)
+    _assert_same_stats(s_blocks, s_rows)
+    hits = got if any_hit else got[3] >= 0
+    assert int(hits.sum()) > 30 and s_blocks.xform > 0

@@ -223,22 +223,20 @@ def test_two_level_tables_equal_reference(name):
         assert _get(port, f) == _get(ref, f), f
     np.testing.assert_array_equal(port.inst_f32.numpy(), ref.inst_pallas_f32)
     np.testing.assert_array_equal(port.inst_i32.numpy(), ref.inst_pallas_i32)
-    # the kernel's triangle store: the reference's [16, sum Kp*128] rows
-    # transposed, cut to 12 columns (the rest are zero there)
+    # the kernels' triangle store keeps the reference's [16, sum Kp*128]
+    # layout: rows 0-8 (the rest are zero there)
     t16 = np.asarray(ref.inst_tris16)
     assert not t16[9:].any()
-    np.testing.assert_array_equal(port.inst_tris.numpy(), t16.T[:, :12])
-    # the instanced tree kernel's store keeps the reference's layout: rows 0-8
     np.testing.assert_array_equal(port.inst_tri_blocks.numpy(), t16[:9])
     # from_numpy_scene carries the reference's compile across unchanged
     conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree")
-    for f in TABLES + ["inst_f32", "inst_i32", "inst_tri_blocks", "inst_tris"]:
+    for f in TABLES + ["inst_f32", "inst_i32", "inst_tri_blocks"]:
         np.testing.assert_array_equal(_np(_get(conv, f)), _np(_get(port, f)), err_msg=f)
 
 
 def test_inst_tris_pads_prototypes_to_whole_clusters():
     port, _ = compiled("forest8")
-    rows = port.inst_tris.numpy()
+    rows = port.inst_tri_blocks.numpy().T  # a triangle per row
     n_store = port.tri_v0.shape[0]
     assert rows.shape[0] % 128 == 0 and rows.shape[0] >= n_store
     insti = port.inst_i32.numpy()
@@ -444,8 +442,10 @@ def test_wrapper_rejects_bad_inputs():
         iti.closest(rays, port.inst_f32[:, :19], *args[1:])
     with pytest.raises(ValueError):
         iti.any_hit(rays, *args[:3], port.inst_tri_blocks[:, :100])
+    blocks = port.inst_tri_blocks
+    rows = torch.cat([blocks.T, torch.zeros(blocks.shape[1], 3)], 1)
     with pytest.raises(ValueError):
-        iti.any_hit(rays, *args[:3], port.inst_tris)  # the row store
+        iti.any_hit(rays, *args[:3], rows)  # a [sum Kp*128, 12] row store
     with pytest.raises(ValueError):
         iti.closest(rays, *args, leaf_span=0)
 

@@ -319,33 +319,38 @@ def test_instanced_tree_kernel_equals_plain(dev, n):
         assert int((got[3] >= 0).sum()) > 1000
 
 
-@pytest.mark.parametrize("n", [1, 129, 20_000])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 20_000])
 def test_instanced_cluster_kernel_equals_plain(dev, n):
     from akari_torch.ops import cluster_intersect as ci
 
     _, scene = _forest(dev, nulled=True)
     args = (scene.inst_f32, scene.inst_i32, scene.tri_superclusters, scene.tri_clusters,
-            scene.inst_tris)
+            scene.inst_tri_blocks)
     got = _check_module(ci, "instanced_closest", "instanced_any_hit",
                         _forest_rays(n, dev, seed=n), args)
     if n == 20_000:
         assert int((got[3] >= 0).sum()) > 1000
 
 
-@pytest.mark.parametrize("n", [1, 129, 40_000])
+def _cluster_soup(dev):
+    """The 20k soup of ``_tree_soup`` (20,000 = 156 clusters + 32: a
+    partial last cluster; exact duplicates in far clusters) with its
+    supercluster and cluster boxes: (cluster kernel args, tree args)."""
+    _, nodes, blocks, n_tris, span, clusters = _tree_soup(dev)
+    supers = torch.from_numpy(ct.build_superclusters(clusters.cpu().numpy(), n_tris)).to(dev)
+    return (supers, clusters, blocks, n_tris), (nodes, blocks, n_tris, span)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 40_000])
 def test_flat_cluster_kernel_equals_plain(dev, n):
     from akari_torch.ops import cluster_intersect as ci
 
-    tris, nodes, blocks, n_tris, span, _ = _tree_soup(dev)
-    t = tris.cpu().numpy()
-    clusters = ct.build_clusters(t[:, 0:3], t[:, 3:6], t[:, 6:9])
-    supers = torch.from_numpy(ct.build_superclusters(clusters, t.shape[0])).to(dev)
-    store = torch.from_numpy(ct.tree_tris(t[:, 0:3], t[:, 3:6], t[:, 6:9])).to(dev)
-    args = (supers, torch.from_numpy(clusters).to(dev), store)
+    args, targs = _cluster_soup(dev)
+    assert args[3] % ct.TRI_TILE != 0  # the real-count guard of the last cluster
     rays = _rays(n, dev, seed=n)
     got = _check_module(ci, "closest", "any_hit", rays, args)
     # the linear sweep answers as the tree walk does (lowest index on ties)
-    for a, b in zip(got, ti.closest(rays, nodes, blocks, n_tris, span)):
+    for a, b in zip(got, ti.closest(rays, *targs)):
         assert torch.equal(a, b)
 
 
@@ -375,15 +380,23 @@ def test_instanced_wrappers_refuse_what_the_kernels_cannot_take(dev):
             scene.tree_leaf_span)
     with pytest.raises(ValueError):
         iti.closest(rays[:, ::2], *args)  # not contiguous
+    blocks = scene.inst_tri_blocks
+    rows = torch.cat([blocks.T, torch.zeros((blocks.shape[1], 3), device=dev)], 1).contiguous()
     with pytest.raises(ValueError):
-        iti.closest(rays, *args[:3], scene.inst_tris, scene.tree_leaf_span)  # the row store
+        iti.closest(rays, *args[:3], rows, scene.tree_leaf_span)  # a [sum Kp*128, 12] row store
     with pytest.raises(ValueError):
         iti.closest(rays, scene.inst_f32.cpu(), *args[1:])  # devices differ
     with pytest.raises(TypeError):
         iti.any_hit(rays, scene.inst_f32, scene.inst_i32.float(), *args[2:])
+    cargs = (scene.inst_f32, scene.inst_i32, scene.tri_superclusters, scene.tri_clusters)
     with pytest.raises(ValueError):
-        ci.instanced_closest(rays, scene.inst_f32, scene.inst_i32, scene.tri_superclusters,
-                             scene.tri_clusters, scene.inst_tris.view(-1)[4:-8].view(-1, 12))
+        ci.instanced_closest(rays, *cargs, blocks.view(-1)[1:1 + 9 * 128].view(9, 128))  # off 16 B
+    with pytest.raises(ValueError):
+        ci.instanced_any_hit(rays, *cargs, blocks.t().contiguous())  # not [9, 128 K]
+    with pytest.raises(ValueError):
+        ci.instanced_any_hit(rays, *cargs, blocks.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        ci.instanced_closest(rays[:, ::2], *cargs, blocks)  # not contiguous
 
 
 # ------------- the warp walk: warp shapes, leaf spans, ray order -------------
@@ -409,10 +422,13 @@ def _warp_rays(case, dev, centre, radius, lo, hi, seed=0):
     different leaves at once), ``all_dead`` (those rays with warp 0 dead),
     ``one_live`` (one live lane a warp), ``one_leaf`` (nearly equal rays
     from outside toward one cluster: the lanes enter the same leaves
-    together). ``centre``/``radius`` are cluster spots, ``lo``/``hi``
-    bound the scene."""
+    together); or 1,024 rays (32 warps) of ``many_leaves`` where warp w has
+    only its lane w dead (``dead_each_lane``) or live
+    (``live_each_lane``), so a dead or a lone live lane sits at every
+    position of a warp. ``centre``/``radius`` are cluster spots,
+    ``lo``/``hi`` bound the scene."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    n = 64
+    n = 1024 if case.endswith("_each_lane") else 64
     k = torch.randperm(len(centre), generator=g)[:n]
     k = k[torch.arange(n) % len(k)]
     o, t_max = centre[k], 2 * radius[k]
@@ -421,6 +437,9 @@ def _warp_rays(case, dev, centre, radius, lo, hi, seed=0):
         t_max[:32] = 0.0
     elif case == "one_live":
         t_max[torch.arange(n) % 32 != 5] = 0.0
+    elif case.endswith("_each_lane"):
+        marked = torch.arange(n) % 32 == torch.arange(n) // 32
+        t_max[marked if case == "dead_each_lane" else ~marked] = 0.0
     elif case == "one_leaf":
         c = centre[len(centre) // 2]
         o = (c + (torch.tensor(hi) - torch.tensor(lo)) * 0.6).expand(n, 3)
@@ -432,6 +451,8 @@ def _warp_rays(case, dev, centre, radius, lo, hi, seed=0):
 
 
 WARP_CASES = ["all_dead", "one_live", "one_leaf", "many_leaves"]
+# the linear sweeps also on a dead or a lone live lane at every position
+SWEEP_CASES = WARP_CASES + ["dead_each_lane", "live_each_lane"]
 
 
 @pytest.mark.parametrize("leaf_span", [1, 2, 4])
@@ -459,4 +480,44 @@ def test_instanced_tree_kernel_on_warp_shapes(dev, case, leaf_span):
     rays = _warp_rays(case, dev, *spots, (-7.0, 0.2, -7.0), (7.0, 2.5, 7.0))
     got = _check_module(iti, "closest", "any_hit", rays, args)
     if case in ("one_leaf", "many_leaves"):
+        assert int((got[3] >= 0).sum()) >= 8
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_flat_cluster_kernel_on_warp_shapes(dev, case):
+    """Closest and any-hit == the plain sweep on each warp shape (lanes in
+    one cluster or each in its own, dead or lone live lanes anywhere,
+    any-hit lanes finishing at different times) and on a permuted ray
+    order, on the soup with a partial last cluster and exact duplicates in
+    far clusters; prims == the tree walk's (lowest index on ties)."""
+    from akari_torch.ops import cluster_intersect as ci
+
+    args, targs = _cluster_soup(dev)
+    rays = _warp_rays(case, dev, *_cluster_spots(args[1]), (-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    got = _check_module(ci, "closest", "any_hit", rays, args)
+    assert torch.equal(got[3], ti.closest(rays, *targs)[3])
+    if case in ("one_leaf", "many_leaves", "dead_each_lane"):
+        assert int((got[3] >= 0).sum()) >= 8
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_instanced_cluster_kernel_on_warp_shapes(dev, case):
+    """The linear instanced kernel on each warp shape: rays that start in
+    different instances' clusters, bounded to them, so each lane enters
+    its own few instances and the others skip them; == the plain sweep and
+    == the instanced tree walk."""
+    from akari_torch.ops import cluster_intersect as ci
+    from akari_torch.ops import instanced_tree_intersect as iti
+
+    _, scene = _forest(dev)
+    args = (scene.inst_f32, scene.inst_i32, scene.tri_superclusters, scene.tri_clusters,
+            scene.inst_tri_blocks)
+    spots = _cluster_spots(scene.tri_clusters, scene.instances.o2w)
+    rays = _warp_rays(case, dev, *spots, (-7.0, 0.2, -7.0), (7.0, 2.5, 7.0))
+    got = _check_module(ci, "instanced_closest", "instanced_any_hit", rays, args)
+    walk = iti.closest(rays, scene.inst_f32, scene.inst_i32, scene.tri_tree,
+                       scene.inst_tri_blocks, scene.tree_leaf_span)
+    for a, b in zip(got, walk):
+        assert torch.equal(a, b)
+    if case in ("one_leaf", "many_leaves", "dead_each_lane"):
         assert int((got[3] >= 0).sum()) >= 8

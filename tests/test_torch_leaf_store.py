@@ -6,8 +6,8 @@ warp reduction relies on.
 - The stores equal rows 0-8 of the JAX package's ``tri_blocks`` and
   ``inst_tris16`` (exact; both compiles run the same NumPy arithmetic).
 - The plain walks on them give the same (t, u, v, prim) bits and the same
-  ``WalkStats`` counts as on the row stores (``tree_tris``, ``inst_tris``)
-  read through their transposes (exact).
+  ``WalkStats`` counts as on the [T, 12] row layout of the same triangles
+  (``row_store``) read through its transpose (exact).
 - ``Best.update`` over one leaf split into its four 32-triangle quarters,
   applied in any order, gives the bits of one pass (exact; a hypothesis
   test with exact-t ties, any-hit queries and a partial last cluster).
@@ -56,6 +56,15 @@ def _rays(n, seed, lo, hi):
     return torch.from_numpy(np.ascontiguousarray(rays, dtype=np.float32))
 
 
+def row_store(blocks, n=None):
+    """The [n, 12] row layout (v0.xyz e1.xyz e2.xyz, 3 zero floats a row;
+    the store the linear kernels read before the component-major one) of
+    the first ``n`` columns of a component-major store."""
+    n = blocks.shape[1] if n is None else n
+    pad = torch.zeros((n, 3), dtype=blocks.dtype, device=blocks.device)
+    return torch.cat([blocks[:9, :n].T, pad], 1).contiguous()
+
+
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
@@ -95,8 +104,6 @@ def test_instanced_store_equals_reference_inst_tris16():
     np.testing.assert_array_equal(port.inst_tri_blocks.numpy(), t16[:9])
     conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree")
     np.testing.assert_array_equal(conv.inst_tri_blocks.numpy(), t16[:9])
-    # each prototype's clusters are whole: the store is the row store transposed
-    np.testing.assert_array_equal(port.inst_tri_blocks.numpy(), port.inst_tris.numpy().T[:9])
 
 
 # ------------------------ plain walks on both stores ------------------------
@@ -111,7 +118,8 @@ def test_flat_plain_walk_same_on_both_stores(terrain, leaf_span, any_hit):
     walk = ti.any_hit_plain if any_hit else ti.closest_plain
     s_blocks, s_rows = ti.WalkStats(), ti.WalkStats()
     got = walk(rays, nodes, port.tri_blocks, port.n_tris, span, stats=s_blocks)
-    want = walk(rays, nodes, port.tree_tris.T, port.n_tris, span, stats=s_rows)
+    want = walk(rays, nodes, row_store(port.tri_blocks, port.n_tris).T, port.n_tris, span,
+                stats=s_rows)
     _assert_same(got, want)
     _assert_same_stats(s_blocks, s_rows)
     hits = got if any_hit else got[3] >= 0
@@ -126,7 +134,8 @@ def test_instanced_plain_walk_same_on_both_stores(any_hit):
     args = (port.inst_f32, port.inst_i32, port.tri_tree)
     s_blocks, s_rows = ti.WalkStats(), ti.WalkStats()
     got = walk(rays, *args, port.inst_tri_blocks, port.tree_leaf_span, stats=s_blocks)
-    want = walk(rays, *args, port.inst_tris.T, port.tree_leaf_span, stats=s_rows)
+    want = walk(rays, *args, row_store(port.inst_tri_blocks).T, port.tree_leaf_span,
+                stats=s_rows)
     _assert_same(got, want)
     _assert_same_stats(s_blocks, s_rows)
     hits = got if any_hit else got[3] >= 0

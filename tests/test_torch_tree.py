@@ -35,6 +35,7 @@ from akari_tpu.core.v3 import V3 as JV3
 from akari_tpu.ops import pallas_cluster as ref_cluster
 from akari_tpu.ops import pallas_intersect as pi
 from akari_tpu.ops import pallas_tree as ref_tree
+from test_torch_leaf_store import row_store
 
 torch.set_num_threads(2)
 
@@ -158,10 +159,13 @@ def test_cluster_tree_refuses_a_stack_overflow(soup, monkeypatch):
 
 
 def test_tree_tris_store_rows(soup):
-    rows = soup.tree_tris.numpy()
-    assert rows.shape == (soup.n_tris, 12)
-    np.testing.assert_array_equal(rows[:, 0:9], soup.prim_table.numpy()[:, 0:9])
-    assert not rows[:, 9:].any()
+    """The component-major store that the tree walk and the linear sweep
+    read holds each storage triangle's v0 e1 e2 (the dense kernel's rows)
+    in its column, and zero columns up to whole clusters."""
+    blocks = soup.tri_blocks.numpy()
+    assert blocks.shape == (9, ct.n_clusters(soup.n_tris) * ct.TRI_TILE)
+    np.testing.assert_array_equal(blocks[:, :soup.n_tris].T, soup.prim_table.numpy()[:, 0:9])
+    assert not blocks[:, soup.n_tris:].any()
 
 
 # ------------------------------ sort keys -----------------------------------
@@ -205,7 +209,7 @@ def _assert_prims_equal_up_to_sbvh_copies(scene, prim, ref_prim):
     assert (prim[diff] < ref_prim[diff]).all()
     assert len(diff) < 0.02 * len(prim)
     if len(diff):
-        rows = scene.tree_tris.numpy()
+        rows = scene.prim_table.numpy()[:, 0:9]
         np.testing.assert_array_equal(rows[prim[diff]], rows[ref_prim[diff]])
 
 @pytest.mark.parametrize("leaf_span", [1, 2])
@@ -233,7 +237,7 @@ def test_plain_walk_matches_run_tree(soup, leaf_span, sort):
     np.testing.assert_array_equal(prim.numpy() >= 0, ref_valid)
     _assert_prims_equal_up_to_sbvh_copies(soup, prim.numpy(), ref_prim)
     ok = ref_valid
-    cond = _condition(soup.tree_tris.numpy(), d, prim.numpy())
+    cond = _condition(soup.prim_table.numpy(), d, prim.numpy())
     for a, b in ((t.numpy(), ref_t), (u.numpy(), ref_u), (v.numpy(), ref_v)):
         bound = cond[ok] * (TOL["atol"] + TOL["rtol"] * np.abs(b[ok]))
         assert np.all(np.abs(a[ok] - b[ok]) <= bound)
@@ -338,7 +342,8 @@ def test_wrapper_rejects_bad_inputs(soup):
     with pytest.raises(ValueError):
         ti.any_hit(rays, soup.tri_tree[:, :15], *args[1:])
     with pytest.raises(ValueError):
-        ti.any_hit(rays, soup.tri_tree, soup.tree_tris, soup.n_tris)  # the row store
+        ti.any_hit(rays, soup.tri_tree, row_store(soup.tri_blocks, soup.n_tris),
+                   soup.n_tris)  # the row store
     with pytest.raises(ValueError):
         ti.any_hit(rays, soup.tri_tree, soup.tri_blocks, soup.n_tris + 128)  # too few columns
     with pytest.raises(ValueError):
@@ -411,7 +416,7 @@ def test_tree_tables_carried_from_the_reference():
     conv = from_numpy_scene(ref, intersector="tree")
     port = terrain_scene(8, 8, n=64).compile()
     assert port.intersector == "tree" and port.n_tris == ref.n_tris
-    for f in ("tri_clusters", "tri_tree", "tri_blocks", "tree_tris", "prim_table"):
+    for f in ("tri_clusters", "tri_tree", "tri_blocks", "prim_table"):
         np.testing.assert_array_equal(getattr(conv, f).numpy(), getattr(port, f).numpy())
     np.testing.assert_array_equal(port.tri_tree.numpy(), np.asarray(ref.tri_tree))
     np.testing.assert_array_equal(port.tri_blocks.numpy(), np.asarray(ref.tri_blocks)[:9])
