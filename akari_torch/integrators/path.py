@@ -12,14 +12,25 @@ scenes), each bounce answers its shadow ray and its next extension ray in
 ONE closest-hit launch of 2N rays (shadow rays bounded by ``t_max``), as
 the reference does for every Pallas scene, so a ``trace_paths`` call
 launches the kernel exactly ``1 + max_depth`` times.
+
+Gradients: radiance is differentiable with respect to the scene's
+tensors (texel values, the ``prim_table`` / ``tri_v0`` geometry) under
+the detached-hit convention: the queries run under ``torch.no_grad()`` on
+detached rays (ops/intersect.py), so no backward launches one. A render
+where no input requires a gradient records no graph and makes the same
+launches as before. ``PathConfig.remat`` recomputes each bounce's shading
+in the backward instead of keeping its intermediates (the reference's
+per-bounce ``jax.checkpoint`` that saves only the ``"isect"`` values).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, is_dataclass
+from functools import partial
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import sampling
 from ..core import rng
@@ -47,6 +58,13 @@ class PathConfig:
     mis: object = True
     ray_clamp: float = 10.0   # firefly clamp on per-sample radiance
     rr_start: int = 100       # russian roulette start depth (off by default)
+    # True recomputes each bounce's shading in the backward from the
+    # saved hit record and carried state instead of keeping its
+    # intermediates (torch.utils.checkpoint per bounce); the intersection
+    # queries stay outside the recomputed region, so the backward makes
+    # no query. No effect when no gradient is recorded. The port has no
+    # ``unroll``: its bounce loop is a Python loop, the unrolled form.
+    remat: bool = False
 
 
 def camera_rays_soa(camera, seed, sample_idx, pixel_idx):
@@ -174,10 +192,10 @@ def _intersectors_soa(scene):
     return intersect_fn, occlude_fn, fused_fn
 
 
-@torch.no_grad()
 def trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx,
                 intersectors=None):
-    """Trace one sample per pixel; returns [N, 3] radiance.
+    """Trace one sample per pixel; returns [N, 3] radiance, differentiable
+    with respect to the scene's tensors that require a gradient.
 
     ``pixel_idx`` and ``sample_idx`` are int64 tensors on the scene's
     device (values in [0, 2^32)); ``intersectors`` defaults to
@@ -236,14 +254,72 @@ def _emission_term(scene, cfg, state, bounce, vd=None):
     return L + beta * Le * ((active & emit_ok) * w_emit)
 
 
+def _tensors(obj):
+    """Every tensor inside nested tuples and dataclasses."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, tuple):
+        for x in obj:
+            yield from _tensors(x)
+    elif is_dataclass(obj):
+        for f in fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+def _records_gradient(scene, state):
+    """Whether autograd records this bounce: grad mode is on and a scene
+    tensor or a carried state tensor requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors((scene, state))
+    )
+
+
 def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
                  intersect_fn, occlude_fn, fused_fn):
-    """One full path-vertex step: emission + NEE + BSDF sample + next hit."""
+    """One full path-vertex step: emission + NEE + BSDF sample + next hit.
+
+    The shading half (``_shade_vertex``) is the differentiable work; under
+    ``cfg.remat`` with a gradient recorded it runs inside a checkpoint, so
+    the backward recomputes it from the saved hit record and carried
+    state. The queries and the NEE join stay outside, and the backward
+    makes no query.
+    """
+    do_nee = scene.lights.n_lights > 0 and cfg.mis != "bsdf"
+    shade = partial(_shade_vertex, scene, cfg, seed, sample_idx, pixel_idx,
+                    bounce=bounce, do_nee=do_nee)
+    if cfg.remat and _records_gradient(scene, state):
+        # the RNG is a hash of (seed, pixel, sample, dim): recomputation
+        # draws the same numbers without saving torch's RNG state
+        shaded = checkpoint(shade, state, use_reentrant=False, preserve_rng_state=False)
+    else:
+        shaded = shade(state)
+    L, beta, ok, pdf, o, d, ext_tmax, nee = shaded
+
+    # ---- shadow + next extension rays (one fused launch if possible) ----
+    if do_nee:
+        shadow_o, shadow_d, shadow_tmax, nee_contrib, useful, w_nee = nee
+    if do_nee and fused_fn is not None:
+        occluded, hit = fused_fn(shadow_o, shadow_d, shadow_tmax, o, d, ext_tmax)
+    else:
+        if do_nee:
+            occluded = occlude_fn(
+                shadow_o, shadow_d, torch.zeros_like(shadow_tmax), shadow_tmax
+            )
+        hit = intersect_fn(o, d)
+    if do_nee:
+        L = L + nee_contrib * ((useful & ~occluded) * w_nee)
+    return (hit, o, d, L, beta, ok, pdf)
+
+
+def _shade_vertex(scene, cfg, seed, sample_idx, pixel_idx, state, *, bounce, do_nee):
+    """The shading half of ``_bounce_step``: emission, material walk, NEE
+    setup, BSDF sample and the next rays. Returns (L, beta, ok, pdf, o, d,
+    ext_tmax, nee) with nee = (shadow_o, shadow_d, shadow_tmax,
+    nee_contrib, useful, w_nee), or None without NEE."""
     (t, prim, bu, bv, valid), o, d, _, beta, active, prev_pdf = state
     vd = _vertex_data(scene, prim, bu, bv)
     L = _emission_term(scene, cfg, state, bounce, vd=vd)
     active = active & valid
-    n = t.shape[0]
     p, ng, ns = vd["p"], vd["ng"], vd["ns"]
     wo = -d
 
@@ -261,7 +337,7 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
     scatterable = active & (params["kind"] != soa.CLOSURE_NULL)
 
     # ---- next-event estimation setup ----
-    do_nee = scene.lights.n_lights > 0 and cfg.mis != "bsdf"
+    nee = None
     if do_nee:
         u_sel = rng.uniform(
             seed, pixel_idx, sample_idx, rng.bounce_dim(bounce, rng.OFF_LIGHT_SELECT)
@@ -289,6 +365,10 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
             w_nee = sampling.power_heuristic(ls.pdf, pdf_bsdf_nee)
         else:
             w_nee = torch.ones_like(t)
+        # Inactive lanes get t_max = 0 ("dead rays"): their results are
+        # masked out by the join anyway.
+        shadow_tmax = torch.where(useful, shadow_tmax, 0.0)
+        nee = (shadow_o, ls.wi, shadow_tmax, nee_contrib, useful, w_nee)
 
     # ---- BSDF sampling ----
     u_b1 = rng.uniform(
@@ -313,25 +393,8 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
         ok = ok & (u_rr < q)
 
     o = p + wi * (RAY_EPS / maximum(abs_(ng.dot(wi)), 1e-4))
-    d = wi
-
-    # ---- shadow + next extension rays (one fused launch if possible) ----
-    # Inactive lanes get t_max = 0 ("dead rays"): their results are masked
-    # out below anyway.
     ext_tmax = torch.where(ok, T_MAX, 0.0)
-    if do_nee:
-        shadow_tmax = torch.where(useful, shadow_tmax, 0.0)
-    if do_nee and fused_fn is not None:
-        occluded, hit = fused_fn(shadow_o, ls.wi, shadow_tmax, o, d, ext_tmax)
-    else:
-        if do_nee:
-            occluded = occlude_fn(
-                shadow_o, ls.wi, torch.zeros_like(t), shadow_tmax
-            )
-        hit = intersect_fn(o, d)
-    if do_nee:
-        L = L + nee_contrib * ((useful & ~occluded) * w_nee)
-    return (hit, o, d, L, beta, ok, pdf)
+    return L, beta, ok, pdf, o, wi, ext_tmax, nee
 
 
 # Max rays in one wavefront: bounds the live per-ray state while keeping

@@ -37,16 +37,24 @@ TEX_CONSTANT = 0
 MAX_MIX_DEPTH = 4
 
 
-def _move(obj, device):
-    """dataclasses.replace with every tensor / dataclass field moved."""
+def map_tensors(obj, fn):
+    """dataclasses.replace with ``fn`` applied to every tensor field,
+    nested dataclasses included (``fn = torch.Tensor.detach`` gives the
+    scene with no gradient path, as the reference's
+    ``tree_map(stop_gradient, scene)``)."""
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
-            changes[f.name] = v.to(device)
+            changes[f.name] = fn(v)
         elif dataclasses.is_dataclass(v):
-            changes[f.name] = v.to(device)
+            changes[f.name] = map_tensors(v, fn)
     return dataclasses.replace(obj, **changes)
+
+
+def _move(obj, device):
+    """dataclasses.replace with every tensor / dataclass field moved."""
+    return map_tensors(obj, lambda t: t.to(device))
 
 
 def _t(a, dtype=None):

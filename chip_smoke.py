@@ -80,8 +80,33 @@ Phases (each checks its results; any failure exits non-zero):
     dense kernels' phase-5 times beside their bounds on both ray sets (the
     bound charges the live rays only, and is logged once more charging
     every ray);
-19. the result: a JSON line of kernel records (the dense records on the
-    captured fused rays), then the device line.
+19. the bench step (the JAX package's ``bench.py:43-91``): the Cornell
+    box at 256x256, 4 spp, depth 5, NEE + MIS, the mean-squared pixel loss
+    against a zero target and its gradient with respect to the texel
+    values (``loss_and_image``, ``scene_params``): finite, nonzero on the
+    emitter texel, 6 dense closest-hit launches a step and none in the
+    backward, the same step through the plain intersector on the card
+    (bit-equal loss, gradient within ``GRAD_TOL``); step and forward times
+    (quartiles of 10 after 2 warm-ups, CUDA events), the bench's ray rate,
+    peak memory, the CUDA launches of the forward and of the backward and
+    the backward's time in ``index_add`` (the row gathers' backward);
+20. the 64x64 step against the JAX package's loss and gradient
+    (tests/data/torch_port_grad_cornell64_spp4_d5.npz);
+21. ``PathConfig.remat``: at 256x256 the same loss, the gradient within
+    ``GRAD_TOL``, no intersection launch in the backward, both peak
+    memories; then 1024x1024, 16 spp, depth 5 fwd + bwd under remat: step
+    time, peak memory (below the card's 80 GB), a finite gradient;
+22. the boundary term on tests/test_boundary.py's shadow scene (24x24,
+    rebuilt from the port's nodes): the ``tri_delta`` gradient of the
+    render plus ``boundary_direct_term``, kernel route against the plain
+    route, the dense any-hit launches of its side probes, the time of one
+    evaluation;
+23. the trainer: ``inverse_render`` for 20 iterations at 64x64 from the
+    walls' albedo at 0.4x; the loss at a fixed evaluation seed falls below
+    half its start; time per iteration;
+24. the result: a JSON line of kernel records (the dense records on the
+    captured fused rays; the dense any-hit record's launches are phase
+    22's), then the device line.
 
 Every kernel source (and the native BVH builder) is built at start, one
 compiler process each, all started together. Imports nothing of JAX.
@@ -104,6 +129,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_cornell64_spp4_d5.npy")
 TERRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_terrain64_spp4_d5.npy")
 INSTANCED_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_instanced64_spp4_d5.npy")
+GRAD_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_grad_cornell64_spp4_d5.npz")
 SCENE_FILE = os.path.join(ROOT, "scenes", "cornell_box", "scene.akari")
 
 N_RAYS = (1 << 20) + 77          # not a multiple of any block size
@@ -130,6 +156,19 @@ MT_OPS = 55       # one Moller-Trumbore test: 2 cross, 4 dot, the reciprocal, 8 
 RAY_BYTES, CLOSEST_BYTES, ANY_HIT_BYTES = 32, 16, 1
 ROW_BYTES = {"nodes": 64, "tri_blocks": 36, "instances": 112, "supers": 32, "clusters": 32}
 RAY_COUNTS = (1, 31, 33, 255, 257, 513, 5000)        # not multiples of any block's rays
+# Gradients through the kernel route against the plain route (and between
+# two runs): the hits are bit-equal, but the backward of every row gather
+# is a scatter-add of 262,144 lanes into a few table rows by atomics, whose
+# order, and so whose rounding, changes from run to run. Bound on
+# max|g - g_plain| / max|g_plain| (measured on an NVIDIA H100 80GB HBM3: at
+# most 5.4e-6 for kernel vs plain, run to run, remat and the boundary term).
+GRAD_TOL = 3e-5
+# Phase 20, the card's gradient against the JAX package's on the CPU:
+# |loss - loss_jax| / loss_jax and max|g - g_jax| / max|g_jax| (measured on
+# an NVIDIA H100 80GB HBM3: 1.5e-7 and at most 9.1e-7).
+GOLDEN_LOSS_RTOL = 1e-6
+GOLDEN_GRAD_TOL = 1e-5
+CARD_BYTES = 80e9                # the H100's device memory
 TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
 
 
@@ -666,6 +705,341 @@ def write_forest_sdl(directory, res, spp, depth):
             f"    shapes: [\n{placements},\n        $light\n    ]\n}}\n"
         )
     return akari
+
+
+def emissive_texels(scene):
+    """Bool [X] on the scene's device: texels that color an emissive
+    material."""
+    import torch
+
+    from akari_torch.scene.arrays import MAT_EMISSIVE
+
+    m = scene.materials
+    em = torch.zeros(scene.textures.value.shape[0], dtype=torch.bool, device=scene.device)
+    em[m.color_tex[m.kind == MAT_EMISSIVE].long()] = True
+    return em
+
+
+def bench_step(scene, camera, cfg, target, seed=0):
+    """One fwd + bwd step of the bench loss: (loss, d loss / d tex_value)."""
+    import torch
+
+    from akari_torch.diff.inverse import apply_params, scene_params
+    from akari_torch.parallel.render import loss_and_image
+
+    p = scene_params(scene)
+    p["tex_value"].requires_grad_(True)
+    loss, _ = loss_and_image(apply_params(scene, p), camera, cfg, target, seed=seed)
+    (g,) = torch.autograd.grad(loss, [p["tex_value"]])
+    return loss.detach(), g
+
+
+@contextlib.contextmanager
+def plain_route(mod):
+    """The module's closest and any-hit kernels replaced by their plain
+    versions (which run on the card too, without counting launches)."""
+    saved = {n: getattr(mod, n) for n in ("closest", "any_hit")}
+    for n in saved:
+        setattr(mod, n, getattr(mod, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(mod, n, f)
+
+
+def event_quartiles(fn, iters=10, warmup=2):
+    """(25th, 50th, 75th percentile) ms of fn() over ``iters`` runs after
+    ``warmup``, each between two CUDA events on an idle card (host
+    dispatch included: these steps are host-bound)."""
+    import numpy as np
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return tuple(float(x) for x in np.percentile(times, [25, 50, 75]))
+
+
+def device_events(fn):
+    """Run fn() under torch.profiler: (its CUDA activity events: kernels,
+    copies and sets, each a launch, fn's result)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA], out
+
+
+def shadow_scene(w, h):
+    """tests/test_boundary.py's shadow scene from the port's nodes: a
+    diffuse floor, a small occluder quad outside the frustum and an area
+    light above it; the camera looks straight down at the shadow."""
+    import numpy as np
+
+    from akari_torch.core import transform as xform
+    from akari_torch.scene.arrays import make_camera
+    from akari_torch.scene.nodes import DiffuseMaterial, EmissiveMaterial, Mesh, Scene
+
+    def quad(center, half, axis_u, axis_v, mat):
+        c = np.asarray(center, np.float32)
+        u = np.asarray(axis_u, np.float32) * half
+        v = np.asarray(axis_v, np.float32) * half
+        verts = np.stack([c - u - v, c + u - v, c + u + v, c - u + v])
+        return Mesh(vertices=verts, indices=np.asarray([[0, 1, 2], [0, 2, 3]], np.int32),
+                    materials=[mat])
+
+    floor = quad((0, 0, 0), 4.0, (1, 0, 0), (0, 0, -1), DiffuseMaterial((0.8,) * 3))
+    occ = quad((0.6, 1.0, 0), 0.15, (1, 0, 0), (0, 0, -1), DiffuseMaterial((0.5,) * 3))
+    light = quad((1.2, 1.9, 0), 0.2, (1, 0, 0), (0, 0, 1), EmissiveMaterial((30.0,) * 3))
+    cam = make_camera(xform.translate((0.0, 2.0, 0.0)) @ xform.rotate_x(np.radians(-90.0)),
+                      22.0, w, h)
+    return Scene(shapes=[floor, occ, light], camera=cam)
+
+
+def gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1k):
+    """Phases 19-23, the backward of the main path; returns the figures the
+    result line needs."""
+    import numpy as np
+    import torch
+
+    from akari_torch.diff.boundary import boundary_direct_term, build_edge_table
+    from akari_torch.diff.inverse import InverseConfig, apply_params, inverse_render, scene_params
+    from akari_torch.integrators.path import PathConfig, render
+    from akari_torch.ops import dense_intersect as di
+    from akari_torch.parallel.render import loss_and_image
+
+    def grad_err(g, g_ref):
+        return float((g - g_ref).abs().max() / g_ref.abs().max())
+
+    def gib(nbytes):
+        return nbytes / 2 ** 30
+
+    def peak_of(fn):
+        """(fn's result, peak bytes allocated during fn() above what was
+        allocated before it, the absolute peak)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return out, peak - base, peak
+
+    # ---- phase 19: the bench step --------------------------------------------
+    t_phase = time.perf_counter()
+    res = sc.camera.width
+    log(f"phase 19: the bench step: cornell {res}^2, spp 4, depth 5, NEE + MIS, loss and "
+        f"d loss / d tex_value on the card [card: {card}]")
+    cfg_b = PathConfig(spp=4, max_depth=5, mis=True, remat=False)
+    target = torch.zeros((res, res, 3), device=dev)
+    em = emissive_texels(scene)
+
+    def launches_of_step(cfg_):
+        """(loss, gradient, dense launches of the forward, of the backward)."""
+        torch.cuda.synchronize()
+        reset_all(traversal)
+        p = scene_params(scene)
+        p["tex_value"].requires_grad_(True)
+        loss, _ = loss_and_image(apply_params(scene, p), sc.camera, cfg_, target)
+        torch.cuda.synchronize()
+        fwd = dict(di.LAUNCHES)
+        (g,) = torch.autograd.grad(loss, [p["tex_value"]])
+        torch.cuda.synchronize()
+        bwd = {k: v - fwd[k] for k, v in di.LAUNCHES.items()}
+        check(others(traversal, di) == 0, "other traversal kernels launched on the Cornell box")
+        return loss.detach(), g, fwd, bwd
+
+    (loss_k, g_k, fwd_l, bwd_l), peak_b, abs_b = peak_of(lambda: launches_of_step(cfg_b))
+    log(f"  loss {float(loss_k):.8g}; dense launches: forward {fwd_l}, backward {bwd_l}")
+    check(fwd_l == {"closest": 1 + cfg_b.max_depth, "any_hit": 0}
+          and bwd_l == {"closest": 0, "any_hit": 0},
+          f"bench step launches: forward {fwd_l}, backward {bwd_l}")
+    check(bool(torch.isfinite(loss_k)) and bool(torch.isfinite(g_k).all()),
+          "non-finite bench loss or gradient")
+    check(bool((g_k[em] != 0).any()), "zero gradient on the emitter texel")
+    loss_k2, g_k2 = bench_step(scene, sc.camera, cfg_b, target)
+    with plain_route(di):
+        loss_p, g_p = bench_step(scene, sc.camera, cfg_b, target)
+    err_plain, err_rerun = grad_err(g_k, g_p), grad_err(g_k2, g_k)
+    log(f"  gradient {np.array2string(g_k.cpu().numpy(), precision=6)}")
+    log(f"  plain route: loss {'bit-equal' if torch.equal(loss_p, loss_k) else 'DIFFERS'}, "
+        f"gradient max|diff| / max|g| {err_plain:.3e} (bound {GRAD_TOL}); kernel route "
+        f"run to run {err_rerun:.3e}; loss run to run "
+        f"{'bit-equal' if torch.equal(loss_k2, loss_k) else 'differs'}")
+    check(torch.equal(loss_p, loss_k), "plain-route loss differs from the kernel route's")
+    check(err_plain <= GRAD_TOL and err_rerun <= GRAD_TOL,
+          f"gradient differs: plain {err_plain}, rerun {err_rerun}")
+    step_q = event_quartiles(lambda: bench_step(scene, sc.camera, cfg_b, target))
+    with torch.no_grad():
+        fwd_q = event_quartiles(lambda: loss_and_image(scene, sc.camera, cfg_b, target))
+    rays = cfg_b.spp * res * res * (2 * cfg_b.max_depth + 1)
+    log(f"  fwd+bwd step: median {step_q[1]:.3f} ms, quartiles {step_q[0]:.3f} / "
+        f"{step_q[2]:.3f} ms; forward alone: median {fwd_q[1]:.3f} ms, quartiles "
+        f"{fwd_q[0]:.3f} / {fwd_q[2]:.3f} ms (CUDA events, 10 after 2 warm-ups) [card: {card}]")
+    log(f"  rays_per_sec_per_chip_fwd_bwd_4spp_cornell: {rays / (step_q[1] / 1e3):.6g} "
+        f"({rays} rays a step) [card: {card}]")
+
+    p = scene_params(scene)
+    p["tex_value"].requires_grad_(True)
+    fwd_ev, (loss_, _) = device_events(
+        lambda: loss_and_image(apply_params(scene, p), sc.camera, cfg_b, target))
+    bwd_ev, _ = device_events(lambda: torch.autograd.grad(loss_, [p["tex_value"]]))
+    bwd_busy = sum(e.device_time_total for e in bwd_ev) / 1e3
+    index_add = sum(e.device_time_total for e in bwd_ev if "indexFunc" in e.name) / 1e3
+    log(f"  CUDA launches: forward {len(fwd_ev)}, backward {len(bwd_ev)}; backward device "
+        f"busy {bwd_busy:.3f} ms, index_add (row-gather backward) {index_add:.3f} ms "
+        f"({index_add / max(bwd_busy, 1e-9):.3f} of it); peak memory of the step "
+        f"{gib(peak_b):.3f} GiB above the {gib(abs_b - peak_b):.3f} GiB held before it "
+        f"[card: {card}]")
+    log(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 20: against the JAX package's gradient ------------------------
+    log("phase 20: cornell 64^2 spp 4 depth 5 seed 0 loss and gradient vs the JAX package's")
+    gold = np.load(GRAD_GOLDEN)
+    loss64, g64 = bench_step(scene64, sc64.camera, PathConfig(spp=4, max_depth=5),
+                             torch.zeros((64, 64, 3), device=dev))
+    want = torch.from_numpy(gold["grad_tex_value"]).to(dev)
+    rel_loss = abs(float(loss64) - float(gold["loss"])) / float(gold["loss"])
+    rel_g = grad_err(g64, want)
+    log(f"  loss {float(loss64):.8g} vs {float(gold['loss']):.8g}: relative {rel_loss:.3e} "
+        f"(bound {GOLDEN_LOSS_RTOL}); gradient max|diff| / max|g_jax| {rel_g:.3e} "
+        f"(bound {GOLDEN_GRAD_TOL})")
+    check(rel_loss <= GOLDEN_LOSS_RTOL and rel_g <= GOLDEN_GRAD_TOL,
+          f"64^2 gradient off the JAX package's: loss {rel_loss}, gradient {rel_g}")
+
+    # ---- phase 21: remat -----------------------------------------------------
+    t_phase = time.perf_counter()
+    log(f"phase 21: PathConfig.remat at {res}^2 and at 1024^2 x 16 spp [card: {card}]")
+    cfg_r = dataclasses.replace(cfg_b, remat=True)
+    (loss_r, g_r, fwd_r, bwd_r), peak_r, _ = peak_of(lambda: launches_of_step(cfg_r))
+    err_remat = grad_err(g_r, g_k)
+    log(f"  remat: loss {'bit-equal' if torch.equal(loss_r, loss_k) else 'DIFFERS'}, gradient "
+        f"max|diff| / max|g| {err_remat:.3e}; launches forward {fwd_r}, backward {bwd_r}; peak "
+        f"of the step {gib(peak_r):.3f} GiB with remat, {gib(peak_b):.3f} GiB without")
+    check(torch.equal(loss_r, loss_k) and err_remat <= GRAD_TOL,
+          f"remat changed the step: loss equal {torch.equal(loss_r, loss_k)}, grad {err_remat}")
+    check(fwd_r == fwd_l and bwd_r == {"closest": 0, "any_hit": 0},
+          f"remat launches: forward {fwd_r}, backward {bwd_r}")
+    res1k = sc1k.camera.width
+    cfg1k = PathConfig(spp=16, max_depth=5, remat=True)
+    target1k = torch.zeros((res1k, res1k, 3), device=dev)
+    bench_step(scene1k, sc1k.camera, cfg1k, target1k)  # warm-up
+    out = []
+    ms1k, peak1k, abs1k = peak_of(lambda: cuda_ms(
+        lambda: out.append(bench_step(scene1k, sc1k.camera, cfg1k, target1k)),
+        iters=1, warmup=0))
+    loss1k, g1k = out[0]
+    rays1k = cfg1k.spp * res1k * res1k * (2 * cfg1k.max_depth + 1)
+    log(f"  {res1k}^2 x {cfg1k.spp} spp depth 5 fwd+bwd under remat: {ms1k / 1e3:.4f} s "
+        f"(CUDA events, one step after a warm-up), {rays1k / (ms1k / 1e3) / 1e6:.1f} M rays/s, "
+        f"peak of the step {gib(peak1k):.3f} GiB ({gib(abs1k):.3f} GiB with what the run "
+        f"held before it), loss {float(loss1k):.6g} [card: {card}]")
+    # Finite but for the NaN the reference gives too (ROADMAP Queue 3): on
+    # a few of these 16.8 M lanes a diffuse hit's masked microfacet
+    # sampler takes sqrt'(0) times a zero cotangent, and the NaN reaches
+    # only the alpha column, that is channel 0 of the roughness texels.
+    alpha_texels = torch.zeros_like(g1k, dtype=torch.bool)
+    alpha_texels[scene1k.materials.roughness_tex.long(), 0] = True
+    nonfinite = ~torch.isfinite(g1k)
+    log(f"  gradient: {int(nonfinite.sum())} non-finite entries (NaN "
+        f"{int(torch.isnan(g1k).sum())}), at {torch.nonzero(nonfinite).tolist()}; allowed on "
+        f"channel 0 of the roughness texels {torch.nonzero(alpha_texels).tolist()}")
+    check(abs1k < CARD_BYTES, f"1024^2 remat peak {abs1k} bytes")
+    check(bool(torch.isfinite(loss1k)) and not bool(torch.isinf(g1k).any())
+          and not bool((nonfinite & ~alpha_texels).any()),
+          "non-finite 1024^2 loss or gradient outside the parity NaN")
+    del out, g1k
+    torch.cuda.empty_cache()
+    log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 22: the boundary term ------------------------------------------
+    t_phase = time.perf_counter()
+    log("phase 22: tri_delta gradient of render + boundary_direct_term on the shadow scene "
+        "(24x24), kernel route vs plain route")
+    sc_sh = shadow_scene(24, 24)
+    sh = sc_sh.compile(intersector="auto").to(dev)
+    check(sh.intersector == "dense", f"shadow scene intersector {sh.intersector}")
+    et = build_edge_table(sh)
+    cam_sh = sc_sh.camera
+    cfg_sh = PathConfig(spp=8, max_depth=1, ray_clamp=0.0)
+    c = (sh.tri_v0 + (sh.tri_e1 + sh.tri_e2) / 3.0)[:, 1]
+    occ_x = torch.zeros_like(sh.tri_v0)
+    occ_x[(c - 1.0).abs() < 0.2, 0] = 1.0  # the occluder's two triangles, +x
+
+    def boundary_grad():
+        td = torch.zeros_like(sh.tri_v0, requires_grad=True)
+        s = apply_params(sh, {"tex_value": sh.textures.value, "tri_delta": td})
+        img = render(s, cam_sh, cfg_sh, seed=0)
+        bnd = sum(boundary_direct_term(s, cam_sh, td, et, seed=0, edge_samples=4, sample_idx=si)
+                  for si in range(4)) / 4.0
+        loss = torch.mean(img + bnd.reshape(img.shape))
+        (g,) = torch.autograd.grad(loss, [td])
+        return g
+
+    torch.cuda.synchronize()
+    reset_all(traversal)
+    g_bk = boundary_grad()
+    torch.cuda.synchronize()
+    bnd_launches = dict(di.LAUNCHES)
+    with plain_route(di):
+        g_bp = boundary_grad()
+    err_bnd = grad_err(g_bk, g_bp)
+    along = float((g_bk * occ_x).sum())
+    log(f"  {et.a.shape[0]} edges; dense launches {bnd_launches}; d loss / d (occluder +x) "
+        f"{along:.6g}; kernel vs plain route max|diff| / max|g| {err_bnd:.3e} "
+        f"(bound {GRAD_TOL})")
+    check(bnd_launches["any_hit"] > 0, "the boundary term launched no dense any-hit kernel")
+    check(bool(torch.isfinite(g_bk).all()) and err_bnd <= GRAD_TOL and abs(along) > 0,
+          f"boundary gradient: plain route {err_bnd}, along {along}")
+    td0 = torch.zeros_like(sh.tri_v0, requires_grad=True)
+
+    def one_boundary():
+        out = boundary_direct_term(sh, cam_sh, td0, et, seed=0, edge_samples=4)
+        torch.autograd.grad(out.sum(), [td0])
+
+    bnd_q = event_quartiles(one_boundary)
+    log(f"  one boundary_direct_term evaluation (24^2, 4 edge samples) fwd+bwd: median "
+        f"{bnd_q[1]:.3f} ms, quartiles {bnd_q[0]:.3f} / {bnd_q[2]:.3f} ms [card: {card}]")
+    log(f"  phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 23: the trainer -------------------------------------------------
+    t_phase = time.perf_counter()
+    log("phase 23: inverse_render, 20 iterations at 64^2 (spp 4, depth 2) from the walls' "
+        "albedo at 0.4x")
+    cfg_t = PathConfig(spp=4, max_depth=2)
+    zeros64 = torch.zeros((64, 64, 3), device=dev)
+    with torch.no_grad():
+        _, target64 = loss_and_image(scene64, sc64.camera, cfg_t, zeros64, seed=123)
+        v = scene64.textures.value
+        bad = dataclasses.replace(scene64, textures=dataclasses.replace(
+            scene64.textures, value=torch.where(emissive_texels(scene64)[:, None], v, 0.4 * v)))
+        loss0 = float(loss_and_image(bad, sc64.camera, cfg_t, target64, seed=123)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, losses, _ = inverse_render(bad, sc64.camera, cfg_t, target64,
+                                    InverseConfig(iterations=20, learning_rate=0.05))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        loss_end = float(loss_and_image(rec, sc64.camera, cfg_t, target64, seed=123)[0])
+    log(f"  loss at the evaluation seed {loss0:.6g} -> {loss_end:.6g} ({loss_end / loss0:.3f} "
+        f"of the start); iteration losses {losses[0]:.5g} ... {losses[-1]:.5g}; "
+        f"{train_s / 20 * 1e3:.2f} ms an iteration (wall) [card: {card}]")
+    check(loss_end < 0.5 * loss0, f"inverse_render did not halve the loss: {loss0} -> {loss_end}")
+    log(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return {"boundary_any_hit_launches": bnd_launches["any_hit"]}
 
 
 def main():
@@ -1244,9 +1618,12 @@ def main():
         log(f"    {kname}: {ms[kname]:.4f} ms, bound {fig[kname][0]:.4f} ms ({fig[kname][1]}), "
             f"{ms[kname] / fig[kname][0]:.1f}x the bound [card: {card}]")
     log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+    grad = gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1k)
+    any_hit_launches["dense"] = grad["boundary_any_hit_launches"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 19: result ----------------------------------------------------
+    # ---- phase 24: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

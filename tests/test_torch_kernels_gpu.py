@@ -521,3 +521,33 @@ def test_instanced_cluster_kernel_on_warp_shapes(dev, case):
         assert torch.equal(a, b)
     if case in ("one_leaf", "many_leaves", "dead_each_lane"):
         assert int((got[3] >= 0).sum()) >= 8
+
+
+def test_bench_step_gradient_kernel_route_equals_plain_route(dev):
+    """chip_smoke.py phase 19 at 64x64: the fwd + bwd step of the bench
+    loss through the dense kernels and through their plain versions on the
+    card. The hits are bit-equal, so the loss is too; the gradients differ
+    only by the order of the row gathers' atomic scatter-adds (bound
+    chip_smoke.GRAD_TOL of max|g|). The kernel runs 1 + depth times in the
+    forward and never in the backward."""
+    from chip_smoke import GRAD_TOL, bench_step, plain_route
+    from akari_torch.diff.inverse import apply_params, scene_params
+    from akari_torch.parallel.render import loss_and_image
+
+    sc = cornell_box(64, 64)
+    scene = sc.compile().to(dev)
+    cfg = PathConfig(spp=4, max_depth=5)
+    target = torch.zeros((64, 64, 3), device=dev)
+    p = scene_params(scene)
+    p["tex_value"].requires_grad_(True)
+    before = di.LAUNCHES["closest"]
+    loss, _ = loss_and_image(apply_params(scene, p), sc.camera, cfg, target)
+    fwd = di.LAUNCHES["closest"] - before
+    (g,) = torch.autograd.grad(loss, [p["tex_value"]])
+    torch.cuda.synchronize()
+    assert fwd == 1 + cfg.max_depth and di.LAUNCHES["closest"] - before == fwd
+    with plain_route(di):
+        loss_p, g_p = bench_step(scene, sc.camera, cfg, target)
+    assert torch.equal(loss.detach(), loss_p)
+    assert torch.isfinite(g).all() and float((g - g_p).abs().max()) <= GRAD_TOL * float(
+        g_p.abs().max())
