@@ -2,10 +2,12 @@
 
 Usage: python -m akari_torch.cli.render -i scene.akari [-o out.png]
        [--spp N] [--max-depth D] [--intersector auto|dense|tree|brute]
-       [--width W] [--height H] [--seed S] [--device cuda|cpu] [-v]
+       [--width W] [--height H] [--ao] [--seed S] [--device cuda|cpu] [-v]
 
-``--device`` defaults to ``cuda`` and never falls back: without a CUDA
-device, ``--device cuda`` fails with an error.
+The scene's integrator picks the path tracer, ``AO`` or ``BDPT``; ``--ao``
+renders ambient occlusion whatever the scene names. ``--device`` defaults
+to ``cuda`` and never falls back: without a CUDA device, ``--device cuda``
+fails with an error.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def main(argv=None):
                     help="override output width (camera resolution)")
     ap.add_argument("--height", type=int, default=None,
                     help="override output height")
+    ap.add_argument("--ao", action="store_true", help="ambient occlusion mode")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
@@ -57,6 +60,8 @@ def main(argv=None):
         return 1
 
     from ..core.image import write_png
+    from ..integrators.ao import AOConfig, render_ao
+    from ..integrators.bdpt import BDPTConfig, render_bdpt
     from ..integrators.path import PathConfig, render
     from ..scene import sdl
 
@@ -89,18 +94,24 @@ def main(argv=None):
     )
 
     cfg = scene_node.integrator or PathConfig()
-    if not isinstance(cfg, PathConfig):
-        log.error(f"integrator {type(cfg).__name__} is not supported")
-        return 1
+    if args.ao and not isinstance(cfg, AOConfig):
+        cfg = AOConfig(spp=args.spp or 16)
     if args.spp:
         cfg = dataclasses.replace(cfg, spp=args.spp)
-    if args.max_depth:
-        cfg = dataclasses.replace(cfg, max_depth=args.max_depth)
     t0 = time.perf_counter()
-    img = render(scene, camera, cfg, seed=args.seed).cpu().numpy()
+    if isinstance(cfg, AOConfig):
+        img = render_ao(scene, camera, cfg, seed=args.seed)
+    elif isinstance(cfg, BDPTConfig):
+        img = render_bdpt(scene, camera, cfg, seed=args.seed)
+    else:
+        if args.max_depth:
+            cfg = dataclasses.replace(cfg, max_depth=args.max_depth)
+        img = render(scene, camera, cfg, seed=args.seed)
+    img = img.cpu().numpy()
     dt = time.perf_counter() - t0
     paths = cfg.spp * camera.width * camera.height
-    log.info(f"render done took ({dt:.3f}s)  [{paths / dt / 1e6:.2f} Mpaths/s]")
+    log.info(f"{type(cfg).__name__} render done took ({dt:.3f}s)  "
+             f"[{paths / dt / 1e6:.2f} Mpaths/s]")
 
     out = args.output or scene_node.output
     write_png(out, img)

@@ -34,3 +34,23 @@ def sample_discrete(cdf, u):
     )
     pdf = cdf[idx + 1] - cdf[idx]
     return idx.to(torch.int32), pdf
+
+
+def sample_continuous(cdf, u):
+    """Piecewise-constant continuous sampling over [0, 1): u in [0, 1) ->
+    (x, pdf, int32 index): x linearly interpolated inside the bin picked
+    by ``searchsorted(right)``, pdf the continuous density (pmf * n)."""
+    n = cdf.shape[0] - 1
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, n - 1)
+    c0 = cdf[idx]
+    pmf = cdf[idx + 1] - c0
+    du = torch.where(pmf > 0.0, (u - c0) / torch.where(pmf > 0.0, pmf, 1.0), 0.0)
+    x = (idx.to(cdf.dtype) + du) / n
+    return x, pmf * n, idx.to(torch.int32)
+
+
+def pdf_continuous(cdf, x):
+    """Continuous density at x in [0, 1): pmf[floor(x * n)] * n."""
+    n = cdf.shape[0] - 1
+    idx = torch.clamp((x * n).to(torch.int32), 0, n - 1).to(torch.int64)
+    return (cdf[idx + 1] - cdf[idx]) * n

@@ -89,3 +89,11 @@ def uniform(seed, pixel, sample, dim):
 def bounce_dim(bounce, offset):
     """Dimension index for a per-bounce draw."""
     return DIMS_BASE + bounce * DIMS_PER_BOUNCE + offset
+
+
+def uniform2(seed, pixel, sample, dim):
+    """Two consecutive dims as an [N, 2] tensor."""
+    return torch.stack(
+        [uniform(seed, pixel, sample, dim), uniform(seed, pixel, sample, dim + 1)],
+        dim=-1,
+    )

@@ -22,6 +22,15 @@ def linear_to_srgb(c):
     )
 
 
+def srgb_to_linear(c):
+    """Host-side (NumPy) inverse sRGB transfer curve."""
+    return np.where(
+        c < 0.04045,
+        c / 12.92,
+        np.power(np.maximum((c + 0.055) / 1.055, 1e-8), 2.4),
+    )
+
+
 def to_uint8_srgb(img_linear):
     """[H,W,3] linear float -> uint8 sRGB (host-side, numpy)."""
     img = np.asarray(img_linear, dtype=np.float32)

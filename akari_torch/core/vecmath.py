@@ -1,6 +1,7 @@
-"""Vector math over ``[..., 3]`` tensors: the pieces of
-``akari_tpu/core/vecmath.py`` the port uses outside the V3 hot loop
-(per-light tables built once per trace)."""
+"""Vector math over ``[..., 3]`` tensors (``akari_tpu/core/vecmath.py``):
+the AoS helpers of the per-light tables and of the BDPT and AO
+integrators (frames, Z-up local space), and the clamps with the
+reference's gradient rules."""
 
 from __future__ import annotations
 
@@ -18,6 +19,30 @@ def cross(a, b):
         [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1
     )
 
+
+def normalize(a, eps=0.0):
+    """Normalize; with eps > 0 guards against zero vectors (returns 0)."""
+    n2 = dot(a, a, keepdim=True)
+    if eps > 0.0:
+        inv = torch.where(n2 > eps, 1.0 / torch.sqrt(maximum(n2, eps)), 0.0)
+        return a * inv
+    return a / torch.sqrt(n2)
+
+
+def onb(n):
+    """Branchless Duff / Pixar orthonormal basis (t, b) about unit normal n."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + nz)
+    b = nx * ny * a
+    t = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
+    bt = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
+    return t, bt
+
+
+def to_world(t, b, n, w):
+    """Local Z-up shading space -> world."""
+    return w[..., 0:1] * t + w[..., 1:2] * b + w[..., 2:3] * n
 
 
 # ------------- clamps and abs with the reference's gradient rules -------------

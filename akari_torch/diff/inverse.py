@@ -4,8 +4,8 @@
 The optimizable leaves are ``TextureTable.value`` (constant colors: albedo
 and emitter radiance) and, on flat scenes, ``tri_delta``, a per-triangle
 world-space translation. Gradients run through the renderer under the
-detached-hit convention (integrators/path.py). Image textures
-(``tex_images``) arrive with slice 4, the sharded loss with slice 6.
+detached-hit convention (integrators/path.py). Image texels
+(``tex_images``) arrive with slice 4b, the sharded loss with slice 6.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ LOG_MIN, LOG_MAX = math.log(1e-4), math.log(1e4)
 class InverseConfig:
     iterations: int = 100
     learning_rate: float = 5e-2
-    optimize_images: bool = False  # image-texture texels: slice 4
+    optimize_images: bool = False  # image-texture texels: slice 4b
     seed: int = 0
     # "constant" | "cosine": cosine decays the lr to 5 % over the run
     lr_schedule: str = "constant"
@@ -40,7 +40,7 @@ class InverseConfig:
 
 
 def _refuse_images():
-    raise NotImplementedError("image textures (tex_images) arrive with slice 4")
+    raise NotImplementedError("image texels (tex_images) arrive with slice 4b")
 
 
 def _refuse_two_level():

@@ -13,6 +13,11 @@ ONE closest-hit launch of 2N rays (shadow rays bounded by ``t_max``), as
 the reference does for every Pallas scene, so a ``trace_paths`` call
 launches the kernel exactly ``1 + max_depth`` times.
 
+Environment light: an escaped extension ray adds the environment's
+radiance once (MIS-weighted against env NEE), and NEE samples the
+area-light / environment mixture (``soa.light_sample_mixed``); env shadow
+rays join the same fused launch with ``t_max = 1e7``.
+
 Gradients: radiance is differentiable with respect to the scene's
 tensors (texel values, the ``prim_table`` / ``tri_v0`` geometry) under
 the detached-hit convention: the queries run under ``torch.no_grad()`` on
@@ -47,7 +52,7 @@ SHADOW_EPS = 1e-3
 @dataclass(frozen=True)
 class PathConfig:
     """Path-tracer settings; float32 RGB throughout (the bf16 spectrum
-    variant arrives with slice 4).
+    variant arrives with slice 4b).
 
     mis: True = NEE + MIS; False = NEE only with depth-0 emission (the
     reference renderer's estimator); "bsdf" = BSDF sampling only.
@@ -162,6 +167,36 @@ def _vertex_data(scene, prim, bu, bv):
     }
 
 
+def camera_rays(camera, seed, sample_idx, pixel_idx):
+    """AoS primary rays ([N, 3] o, [N, 3] d) for the BDPT and AO integrators."""
+    o, d = camera_rays_soa(camera, seed, sample_idx, pixel_idx)
+    return o.stack(), d.stack()
+
+
+def _surface_data(scene, prim, bary):
+    """Hit attributes as the AoS 5-tuple (p, ng, ns, uv, mat_id) for the
+    BDPT and AO integrators; ``bary`` is [N, 2]."""
+    vd = _vertex_data(scene, prim, bary[..., 0], bary[..., 1])
+    uv = torch.stack([vd["uv_u"], vd["uv_v"]], dim=-1)
+    return vd["p"].stack(), vd["ng"].stack(), vd["ns"].stack(), uv, vd["mat_id"]
+
+
+def _intersectors(scene):
+    """AoS adapters over ``intersect_soa`` / ``occlude_soa`` for the BDPT
+    and AO integrators: ``intersect_fn(o, d) -> (t, prim, bary [N, 2],
+    valid)`` and ``occlude_fn(o, d, t_min, t_max) -> occluded`` on [N, 3]
+    rays, through the scene's intersector (its kernels on CUDA tensors)."""
+
+    def intersect_fn(o, d):
+        h = intersect_soa(scene, from_stack(o), from_stack(d))
+        return h.t, h.prim, torch.stack([h.u, h.v], dim=-1), h.valid
+
+    def occlude_fn(o, d, t_min, t_max):
+        return occlude_soa(scene, from_stack(o), from_stack(d), t_min, t_max)
+
+    return intersect_fn, occlude_fn
+
+
 def _intersectors_soa(scene):
     """(intersect_fn, occlude_fn, fused_fn) for the scene's intersector.
 
@@ -231,8 +266,13 @@ def trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx,
 
 
 def _emission_term(scene, cfg, state, bounce, vd=None):
-    """Add this vertex's (MIS-weighted) emission to L and return it."""
+    """Add this vertex's (MIS-weighted) emission to L and return it, plus
+    the environment radiance on lanes whose extension ray escaped (once
+    per path: ``active`` still holds the pre-miss liveness here)."""
     (t, prim, bu, bv, valid), o, d, L, beta, active, prev_pdf = state
+    has_env = scene.env_image is not None
+    if has_env:
+        escaped = active & ~valid
     active = active & valid
     if vd is None:
         vd = _vertex_data(scene, prim, bu, bv)
@@ -248,10 +288,24 @@ def _emission_term(scene, cfg, state, bounce, vd=None):
         nee_pdf = soa.light_pdf_direction_from(
             vd["e1"], vd["e2"], vd["light_pdf"], valid, d, t, double_sided
         )
+        if has_env:
+            # NEE is a strategy mixture when an env light exists
+            nee_pdf = nee_pdf * (1.0 - scene.env_p_select)
         w_emit = sampling.power_heuristic(prev_pdf, nee_pdf)
     else:
         w_emit = torch.zeros_like(t)
-    return L + beta * Le * ((active & emit_ok) * w_emit)
+    L = L + beta * Le * ((active & emit_ok) * w_emit)
+    if has_env:
+        Le_env = soa.env_eval(scene, d)
+        if cfg.mis == "bsdf" or bounce == 0:
+            w_env = ones
+        elif cfg.mis:
+            env_nee = soa.env_pdf_sa(scene, d) * scene.env_p_select
+            w_env = sampling.power_heuristic(prev_pdf, env_nee)
+        else:
+            w_env = torch.zeros_like(t)
+        L = L + beta * Le_env * (escaped * w_env)
+    return L
 
 
 def _tensors(obj):
@@ -284,7 +338,9 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
     state. The queries and the NEE join stay outside, and the backward
     makes no query.
     """
-    do_nee = scene.lights.n_lights > 0 and cfg.mis != "bsdf"
+    do_nee = (
+        scene.lights.n_lights > 0 or scene.env_image is not None
+    ) and cfg.mis != "bsdf"
     shade = partial(_shade_vertex, scene, cfg, seed, sample_idx, pixel_idx,
                     bounce=bounce, do_nee=do_nee)
     if cfg.remat and _records_gradient(scene, state):

@@ -30,8 +30,9 @@ MAT_MIX = 3
 MAT_MIRROR = 4
 MAT_GLASS = 5
 
-# Texture kinds (constant only until image textures, slice 4)
+# Texture kinds
 TEX_CONSTANT = 0
+TEX_IMAGE = 1
 
 # How many nested Mix levels select_material unrolls.
 MAX_MIX_DEPTH = 4
@@ -66,11 +67,16 @@ def _t(a, dtype=None):
 
 @dataclass
 class TextureTable:
-    """All textures, SoA. Only constant textures exist in this slice
-    (``has_images`` is always False; image textures arrive with slice 4)."""
+    """All textures, SoA. ``value`` is the constant colour of a constant
+    texture and the multiplier of an image texture; images are padded to
+    a common [Hm, Wm] and stacked. ``has_images`` False lets shading skip
+    the image branch (constant textures resolve to a flat table)."""
 
-    kind: torch.Tensor       # [X] int32
-    value: torch.Tensor      # [X, 3] float32 constant color
+    kind: torch.Tensor         # [X] int32 TEX_CONSTANT | TEX_IMAGE
+    value: torch.Tensor        # [X, 3] float32
+    image_id: torch.Tensor     # [X] int32 index into images (0 if unused)
+    images: torch.Tensor       # [I, Hm, Wm, 3] float32 (at least one dummy)
+    image_sizes: torch.Tensor  # [I, 2] int32 (h, w) actually used
     has_images: bool = False
 
     def to(self, device):
@@ -184,7 +190,11 @@ class SceneArrays:
     whole clusters with zero columns that never hit), so cluster
     ``tile_base + k`` is columns ``128 (tile_base + k)`` onward.
 
-    The environment light (slice 4) has no fields yet.
+    Environment (dome) light, None without one: env_image [He, We, 3]
+    linear radiance (equirectangular), env_cdf [He*We + 1] and env_pmf
+    [He*We] the flattened luminance * sin(theta) texel distribution, and
+    env_p_select the 0-d float32 probability that NEE picks the
+    environment over the area lights.
     """
 
     tri_v0: torch.Tensor    # [T, 3]
@@ -207,6 +217,10 @@ class SceneArrays:
     inst_f32: torch.Tensor = None      # [I, 20] float32
     inst_i32: torch.Tensor = None      # [I, 8] int32
     inst_tri_blocks: torch.Tensor = None  # [9, sum Kp*128] float32
+    env_image: torch.Tensor = None     # [He, We, 3] float32
+    env_cdf: torch.Tensor = None       # [He*We + 1] float32
+    env_pmf: torch.Tensor = None       # [He*We] float32
+    env_p_select: torch.Tensor = None  # [] float32
     tree_leaf_span: int = 1
     n_tris: int = 0             # storage triangles; virtual ones if two-level
     n_materials: int = 0
@@ -264,8 +278,7 @@ def from_numpy_scene(obj, intersector="dense"):
     compile); ``inst_tri_blocks`` is rows 0-8 of ``inst_tris16``, and
     ``intersector`` must be "tree" (the instanced route).
 
-    Constant textures and no environment only; anything else raises
-    ``NotImplementedError`` naming the slice that adds it.
+    Image textures and the environment light are carried when present.
     """
     it = getattr(obj, "instances", None)
     if it is not None and (
@@ -275,11 +288,7 @@ def from_numpy_scene(obj, intersector="dense"):
             "a two-level scene needs its per-prototype kernel tables and "
             "intersector 'tree'"
         )
-    if getattr(obj, "env_image", None) is not None:
-        raise NotImplementedError("environment lights arrive with slice 4")
     tex, mat, li = obj.textures, obj.materials, obj.lights
-    if bool(tex.has_images):
-        raise NotImplementedError("image textures arrive with slice 4")
     bvh = getattr(obj, "bvh", None)
     tree = getattr(obj, "tri_tree", None)
     if intersector == "tree" and tree is None:
@@ -329,7 +338,10 @@ def from_numpy_scene(obj, intersector="dense"):
         textures=TextureTable(
             kind=_t(tex.kind, np.int32),
             value=_t(tex.value, np.float32),
-            has_images=False,
+            image_id=_t(tex.image_id, np.int32),
+            images=_t(tex.images, np.float32),
+            image_sizes=_t(tex.image_sizes, np.int32),
+            has_images=bool(tex.has_images),
         ),
         lights=LightTable(
             tri_id=_t(li.tri_id, np.int32),
@@ -352,6 +364,10 @@ def from_numpy_scene(obj, intersector="dense"):
         tri_tree=_t(tree, np.float32),
         tri_blocks=_t(blocks, np.float32),
         **inst,
+        env_image=_t(getattr(obj, "env_image", None), np.float32),
+        env_cdf=_t(getattr(obj, "env_cdf", None), np.float32),
+        env_pmf=_t(getattr(obj, "env_pmf", None), np.float32),
+        env_p_select=_t(getattr(obj, "env_p_select", None), np.float32),
         tree_leaf_span=int(getattr(obj, "tree_leaf_span", 1) or 1),
         n_tris=int(obj.n_tris),
         n_materials=int(obj.n_materials),

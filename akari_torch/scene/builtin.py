@@ -1,5 +1,7 @@
 """Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box, the
-procedural terrain, and two instanced scenes of one terrain prototype.
+procedural terrain, two instanced scenes of one terrain prototype, and
+the env-lit textured terrain written as scene files (OBJ + MTL + PNG +
+.hdr + .akari) for the CLI.
 
 The Cornell box asset (scenes/cornell_box/) is the public-domain data set
 by Guedis Cardenas and Morgan McGuire (Williams College, 2011).
@@ -134,6 +136,86 @@ def instanced_bench_scene(width=256, height=256, n_instances=64, n=128, seed=3):
         shapes.append(Instance(proto, np.asarray(t, np.float32)))
     c2w = xform.look_at((1.6, 1.9, 2.3), (0.0, 0.25, 0.0))
     return Scene(shapes=shapes, camera=make_camera(c2w, 40.0, width, height))
+
+
+def envtex_texture(res, seed=0):
+    """[res, res, 3] uint8 seeded albedo texture: a 32 x 32 grid of
+    earth-toned cells upsampled, with per-texel noise."""
+    r = np.random.default_rng(seed)
+    cells = r.uniform((60, 50, 30), (200, 180, 120), (32, 32, 3))
+    rep = -(-res // 32)
+    img = np.kron(cells, np.ones((rep, rep, 1)))[:res, :res]
+    img = img + r.normal(0.0, 8.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def envtex_sky(h, w, seed=0):
+    """[h, w, 3] float32 seeded equirectangular sky: a blue gradient above
+    the horizon, dark ground below, a small bright sun, per-texel noise."""
+    r = np.random.default_rng(seed)
+    v = (np.arange(h) + 0.5) / h                       # 0 at +Y (zenith)
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None, None]
+    sky = (0.5 + 0.9 * up) * np.asarray([0.55, 0.7, 1.0]) * (v < 0.5)[:, None, None]
+    ground = (v >= 0.5)[:, None, None] * np.asarray([0.12, 0.1, 0.08])
+    img = np.broadcast_to(sky + ground, (h, w, 3)).copy()
+    img *= r.uniform(0.9, 1.1, (h, w, 1))
+    cy, cx = int(0.2 * h), int(0.3 * w)
+    ry, rx = max(1, h // 64), max(1, w // 128)
+    img[cy - ry:cy + ry + 1, cx - rx:cx + rx + 1] = (60.0, 55.0, 45.0)
+    return img.astype(np.float32)
+
+
+def write_envtex_terrain(directory, n=256, res=256, spp=16, depth=5, tex_res=2048,
+                         sky_hw=(1024, 2048), seed=0):
+    """The env-lit textured terrain as scene files in ``directory``:
+    ``terrain_mesh(n)`` with planar texture coordinates as terrain.obj,
+    terrain.mtl with ``map_Kd albedo.png`` (a ``tex_res``^2 seeded PNG) and
+    the terrain scene's area light (Ke 14 13 11), sky.hdr (a seeded
+    ``sky_hw`` RGBE sky), and envtex.akari rendering them at ``res``^2
+    with the path tracer under ``EnvMap { image: "sky.hdr" }``. Returns
+    the .akari path."""
+    from ..core.image import encode_png, write_hdr
+
+    terrain = terrain_mesh(n, seed)
+    lq = np.stack(_quad((-0.5, 2.4, 0.5), (-0.5, 2.4, -0.5),
+                        (0.5, 2.4, -0.5), (0.5, 2.4, 0.5))).reshape(-1, 3)
+    with open(os.path.join(directory, "albedo.png"), "wb") as f:
+        f.write(encode_png(envtex_texture(tex_res, seed)))
+    write_hdr(os.path.join(directory, "sky.hdr"), envtex_sky(*sky_hw, seed=seed))
+    with open(os.path.join(directory, "terrain.mtl"), "w") as f:
+        f.write("newmtl ground\nKd 1 1 1\nmap_Kd albedo.png\n"
+                "newmtl light\nKd 0 0 0\nKe 14 13 11\n")
+    v = terrain.vertices
+    nv = v.shape[0]
+    uv = np.stack([(v[:, 0] + 1.0) * 0.5, (v[:, 2] + 1.0) * 0.5], axis=-1)
+    tri = terrain.indices + 1
+    with open(os.path.join(directory, "terrain.obj"), "w") as f:
+        f.write("mtllib terrain.mtl\n")
+        np.savetxt(f, v, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, lq, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, uv, fmt="vt %.9g %.9g")
+        f.write("vt 0 0\nusemtl ground\n")
+        np.savetxt(f, np.repeat(tri, 2, axis=1), fmt="f %d/%d %d/%d %d/%d")
+        f.write("usemtl light\n")
+        lidx = np.arange(6).reshape(2, 3) + 1 + nv
+        light_faces = np.stack([lidx, np.full_like(lidx, nv + 1)], axis=-1).reshape(2, 6)
+        np.savetxt(f, light_faces, fmt="f %d/%d %d/%d %d/%d")
+    akari = os.path.join(directory, "envtex.akari")
+    with open(akari, "w") as f:
+        f.write(
+            "export camera = PerspectiveCamera {\n"
+            "    fov: 50, position: [0, 1.5, 2.7], rotation: [-20, 0, 0],\n"
+            f"    resolution: [{res}, {res}]\n}}\n"
+            'export mesh = AkariMesh { path: "terrain.obj" }\n'
+            'export sky = EnvMap { image: "sky.hdr" }\n'
+            "export scene = Scene {\n"
+            "    camera: $camera,\n"
+            f"    integrator: Path {{ spp: {spp}, max_depth: {depth} }},\n"
+            "    environment: $sky,\n"
+            '    output: "envtex.png",\n'
+            "    shapes: [ $mesh ]\n}\n"
+        )
+    return akari
 
 
 def _quad(p0, p1, p2, p3):

@@ -2,9 +2,11 @@
 
 Counterpart of ``akari_tpu/scene/nodes.py`` (node dataclasses and
 ``compile_scene``). Flat compile: meshes are merged, materials and
-textures become flat tables, triangles are stored in SBVH leaf order,
-emissive triangles become the light table with a power CDF, and the
-``[T, 32]`` ``prim_table`` gathers every per-hit attribute into one row.
+textures become flat tables (image textures padded and stacked), triangles
+are stored in SBVH leaf order, emissive triangles become the light table
+with a power CDF, an environment light its texel CDF and NEE mixture
+probability (``_compile_env``), and the ``[T, 32]`` ``prim_table`` gathers
+every per-hit attribute into one row.
 Two-level compile (``_compile_instanced``): each prototype mesh is stored
 once in object space with its own BVH, instances carry transforms, and the
 per-prototype kernel tables of the instanced route are built.
@@ -33,6 +35,7 @@ module constant FLATTEN_MAX_TRIS to 1 to force two-level at small size.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -61,6 +64,7 @@ from .arrays import (
     MAT_MIRROR,
     MAT_MIX,
     TEX_CONSTANT,
+    TEX_IMAGE,
     from_numpy_scene,
 )
 
@@ -93,12 +97,25 @@ class ConstantTexture:
     @staticmethod
     def coerce(v):
         """Scalar/3-tuple/texture -> texture."""
-        if isinstance(v, ConstantTexture):
+        if isinstance(v, (ConstantTexture, ImageTexture)):
             return v
         if np.isscalar(v):
             return ConstantTexture((float(v),) * 3)
         v = tuple(float(x) for x in np.asarray(v).reshape(-1)[:3])
         return ConstantTexture(v)
+
+
+@dataclass
+class ImageTexture:
+    image: np.ndarray  # [H, W, 3] linear float32
+    multiplier: tuple = (1.0, 1.0, 1.0)
+    path: Optional[str] = None  # source file
+
+    @staticmethod
+    def load(path):
+        from ..core.image import read_image
+
+        return ImageTexture(read_image(path), path=os.path.abspath(path))
 
 
 @dataclass
@@ -138,6 +155,30 @@ class MixMaterial:
     fraction: object  # scalar/texture; probability of picking material B
     material_a: object = None
     material_b: object = None
+
+
+@dataclass
+class EnvMapLight:
+    """Infinite environment (dome) light. ``image`` is an equirectangular
+    linear radiance map: an [H, W, 3] array, an ImageTexture, or a path
+    (.hdr / .png / .npy through core/image.read_image); ``scale``
+    multiplies it."""
+
+    image: object
+    scale: float = 1.0
+
+    def load_image(self):
+        img = self.image
+        if isinstance(img, ImageTexture):
+            img = img.image
+        elif isinstance(img, str):
+            from ..core.image import read_image
+
+            img = read_image(img)
+        img = np.asarray(img, np.float32) * np.float32(self.scale)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        return np.ascontiguousarray(img[..., :3])
 
 
 # --------------------------------------------------------------------------
@@ -180,7 +221,7 @@ class Scene:
     shapes: list = field(default_factory=list)   # [Mesh | Instance]
     camera: object = None                        # arrays.Camera
     integrator: object = None                    # PathConfig
-    environment: object = None                   # not supported yet
+    environment: object = None                   # EnvMapLight or None
     output: str = "out.png"
 
     def compile(self, intersector="auto"):
@@ -278,14 +319,13 @@ def _compile_textures_materials(materials):
     as NumPy namespaces with the reference's attribute names."""
     mats = _TableBuilder()
     texs = _TableBuilder()
+    images = []
 
     def tex_id(t):
-        if not isinstance(t, ConstantTexture) and not (
+        if not isinstance(t, (ConstantTexture, ImageTexture)) and not (
             np.isscalar(t) or isinstance(t, (tuple, list, np.ndarray))
         ):
-            raise NotImplementedError(
-                f"texture {type(t).__name__}: image textures arrive with slice 4"
-            )
+            raise TypeError(f"texture {type(t).__name__}: expected a constant or an image")
         return texs.add(ConstantTexture.coerce(t))
 
     # Seed: walk mix graphs to register everything.
@@ -339,10 +379,30 @@ def _compile_textures_materials(materials):
             raise TypeError(f"unknown material node {type(m)}")
 
     X = len(texs.items)
-    t_kind = np.full(X, TEX_CONSTANT, np.int32)
+    t_kind = np.zeros(X, np.int32)
     t_value = np.ones((X, 3), np.float32)
+    t_image = np.zeros(X, np.int32)
     for i, t in enumerate(texs.items):
-        t_value[i] = np.asarray(t.value, np.float32)
+        if isinstance(t, ConstantTexture):
+            t_kind[i] = TEX_CONSTANT
+            t_value[i] = np.asarray(t.value, np.float32)
+        else:
+            t_kind[i] = TEX_IMAGE
+            t_value[i] = np.asarray(t.multiplier, np.float32)
+            t_image[i] = len(images)
+            images.append(np.asarray(t.image, np.float32))
+
+    if images:
+        hm = max(im.shape[0] for im in images)
+        wm = max(im.shape[1] for im in images)
+        stack = np.zeros((len(images), hm, wm, 3), np.float32)
+        sizes = np.zeros((len(images), 2), np.int32)
+        for i, im in enumerate(images):
+            stack[i, : im.shape[0], : im.shape[1]] = im[..., :3]
+            sizes[i] = (im.shape[0], im.shape[1])
+    else:
+        stack = np.zeros((1, 1, 1, 3), np.float32)
+        sizes = np.ones((1, 2), np.int32)
 
     mat_table = SimpleNamespace(
         kind=kind, color_tex=color_tex, roughness_tex=roughness_tex,
@@ -350,14 +410,51 @@ def _compile_textures_materials(materials):
         double_sided=double_sided, ior=ior,
         has_mix=bool((kind == MAT_MIX).any()),
     )
-    tex_table = SimpleNamespace(kind=t_kind, value=t_value, has_images=False)
+    tex_table = SimpleNamespace(
+        kind=t_kind, value=t_value, image_id=t_image, images=stack,
+        image_sizes=sizes, has_images=bool(images),
+    )
     return mats, mat_table, tex_table, texs
 
 
 def _texture_mean(texs, tex_idx):
-    """Host-side mean luminance of a (constant) texture, for light power."""
+    """Host-side mean luminance of a texture, for light power."""
     t = texs.items[tex_idx]
-    return float(luminance(np.asarray(t.value, np.float32)))
+    if isinstance(t, ConstantTexture):
+        return float(luminance(np.asarray(t.value, np.float32)))
+    mean_rgb = t.image.reshape(-1, 3).mean(axis=0) * np.asarray(t.multiplier)
+    return float(luminance(mean_rgb.astype(np.float32)))
+
+
+def _compile_env(environment, area_power_total):
+    """EnvMapLight -> (env_image, env_cdf, env_pmf, env_p_select), in the
+    reference's float64 host arithmetic.
+
+    Texel weights are luminance * sin(theta) (the equirectangular area
+    measure); the flattened CDF gives one-searchsorted importance sampling
+    (shading/soa.py env_sample). NEE picks the environment with
+    probability env_power / (env_power + area_power), clipped to [0.05,
+    0.95] (1 without area lights)."""
+    img = environment.load_image()
+    he = img.shape[0]
+    lum = (
+        img[..., 0] * 0.2126 + img[..., 1] * 0.7152 + img[..., 2] * 0.0722
+    ).astype(np.float64)
+    sin_t = np.sin((np.arange(he, dtype=np.float64) + 0.5) / he * np.pi)
+    weight = lum * sin_t[:, None]
+    pmf, cdf = build_cdf(weight.reshape(-1))
+    # total env power ~ mean radiance integrated over the sphere
+    env_power = float((lum * sin_t[:, None]).mean() * 2.0 * np.pi * np.pi)
+    p_sel = 1.0 if area_power_total <= 0.0 else env_power / (
+        env_power + float(area_power_total)
+    )
+    p_sel = float(np.clip(p_sel, 0.05, 1.0 if area_power_total <= 0 else 0.95))
+    return dict(
+        env_image=img.astype(np.float32),
+        env_cdf=cdf.astype(np.float32),
+        env_pmf=pmf.astype(np.float32),
+        env_p_select=np.float32(p_sel),
+    )
 
 
 def compile_scene(shapes, intersector="auto", environment=None):
@@ -368,8 +465,6 @@ def compile_scene(shapes, intersector="auto", environment=None):
         raise ValueError(
             f"intersector {intersector!r}: expected one of {list(INTERSECTORS)}"
         )
-    if environment is not None:
-        raise NotImplementedError("environment lights arrive with slice 4")
     for s in shapes:
         if not isinstance(s, (Mesh, Instance)):
             raise TypeError(f"shape {type(s).__name__}: expected Mesh or Instance")
@@ -384,7 +479,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
                     f"intersector {intersector!r} on a two-level scene ({total} "
                     "world triangles): use 'auto' or 'tree'"
                 )
-            return _compile_instanced(shapes, t_start)
+            return _compile_instanced(shapes, t_start, environment)
         shapes = _flatten_instances(shapes)
     all_p, all_n, all_uv, all_mid = [], [], [], []
     global_materials = []
@@ -440,6 +535,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
             ]
         ) * areas
         pdf, cdf = build_cdf(power)
+        area_power_total = float(power.sum())
         light_of_orig = np.full(n_orig, -1, np.int32)
         light_of_orig[light_orig] = np.arange(light_orig.size, dtype=np.int32)
         lights = SimpleNamespace(
@@ -448,6 +544,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
             n_lights=int(light_tris.size),
         )
     else:
+        area_power_total = 0.0
         lights = SimpleNamespace(
             tri_id=np.zeros(1, np.int32),
             cdf=np.asarray([0.0, 1.0], np.float32),
@@ -455,6 +552,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
             tri_to_light=np.full(max(v0.shape[0], 1), -1, np.int32),
             n_lights=0,
         )
+    env = {} if environment is None else _compile_env(environment, area_power_total)
 
     t_count = v0.shape[0]
     intersector = resolve_intersector(intersector, t_count)
@@ -499,6 +597,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
         tree_leaf_span=tree_leaf_span,
         n_tris=int(v0.shape[0]),
         n_materials=len(mats.items),
+        **env,
     )
     scene = from_numpy_scene(compiled, intersector=intersector)
     scene.compile_seconds = dict(
@@ -507,7 +606,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
     return scene
 
 
-def _compile_instanced(shapes, t_start):
+def _compile_instanced(shapes, t_start, environment=None):
     """Two-level compile (``akari_tpu/scene/nodes.py::_compile_instanced``
     with ``intersector="pallas"``): shared prototype storage + BLASes, a
     TLAS over instance world boxes, and the per-prototype kernel tables.
@@ -628,13 +727,16 @@ def _compile_instanced(shapes, t_start):
         cursor += pl["count"]
     tri_to_light = np.concatenate(all_t2l)
     if lt_tri:
-        pdf, cdf = build_cdf(np.concatenate(lt_power))
+        power = np.concatenate(lt_power)
+        pdf, cdf = build_cdf(power)
+        area_power_total = float(power.sum())
         light_tris = np.concatenate(lt_tri).astype(np.int32)
         lights = SimpleNamespace(
             tri_id=light_tris, cdf=cdf, pdf=pdf, tri_to_light=tri_to_light,
             n_lights=int(light_tris.size),
         )
     else:
+        area_power_total = 0.0
         lights = SimpleNamespace(
             tri_id=np.zeros(1, np.int32),
             cdf=np.asarray([0.0, 1.0], np.float32),
@@ -642,6 +744,7 @@ def _compile_instanced(shapes, t_start):
             tri_to_light=np.full(max(v0.shape[0], 1), -1, np.int32),
             n_lights=0,
         )
+    env = {} if environment is None else _compile_env(environment, area_power_total)
 
     # ---- TLAS over instance world boxes, merged [TLAS | BLAS_0 | ...] ---
     ilo = np.zeros((n_inst, 3))
@@ -738,6 +841,7 @@ def _compile_instanced(shapes, t_start):
         tree_leaf_span=span,
         n_tris=int(prim_base[-1]),
         n_materials=len(mats.items),
+        **env,
     )
     scene = from_numpy_scene(compiled, intersector="tree")
     scene.compile_seconds = dict(

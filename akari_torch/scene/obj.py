@@ -3,8 +3,8 @@
 Per-face material indices, normal/texcoord handling and the reference
 importer's MTL translation heuristics: Ke -> Emissive, illum 4/6/7 ->
 Glass, Ks/Kd -> Diffuse, Glossy or a Diffuse/Glossy Mix with
-shininess -> roughness sqrt(2/(Ns+2)). Pure Python/NumPy, run once at
-scene-build time. Image textures (``map_Kd``) arrive with slice 4.
+shininess -> roughness sqrt(2/(Ns+2)), ``map_Kd`` -> an image texture
+(core/image.read_image). Pure Python/NumPy, run once at scene-build time.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from .nodes import (
     EmissiveMaterial,
     GlassMaterial,
     GlossyMaterial,
+    ImageTexture,
     Mesh,
     MixMaterial,
 )
@@ -41,11 +42,7 @@ def _parse_mtl(path):
         # past the reference importer, which has no glass material)
         if int(m.get("illum", 2)) in (4, 6, 7):
             return GlassMaterial(ior=float(m.get("Ni", 1.5)))
-        if map_kd:
-            raise NotImplementedError(
-                f"map_Kd {map_kd!r}: image textures arrive with slice 4"
-            )
-        color = tuple(kd)
+        color = ImageTexture.load(map_kd) if map_kd else tuple(kd)
         diffuse = DiffuseMaterial(color=color)
         strength = float(ks.max())
         if strength <= 1e-4:

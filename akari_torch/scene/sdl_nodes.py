@@ -1,10 +1,10 @@
 """SDL node registry: Type names -> scene-node factories.
 
-Counterpart of ``akari_tpu/scene/sdl_nodes.py`` for the nodes of the
-forward path-tracing and instancing slices: ``PerspectiveCamera``,
-``AkariMesh`` (OBJ), ``OBJMesh``, ``Instance``, the material nodes, ``Path``
-and ``Scene``. Nodes of later slices raise ``NotImplementedError`` naming
-their slice.
+Counterpart of ``akari_tpu/scene/sdl_nodes.py``: ``PerspectiveCamera``,
+``AkariMesh`` (OBJ), ``OBJMesh``, ``Instance``, the material nodes with
+constant or image-file textures, ``EnvMap``, the ``Path``, ``AO`` and
+``BDPT`` integrators and ``Scene``. Binary mesh caches raise
+``NotImplementedError`` naming slice 7.
 """
 
 from __future__ import annotations
@@ -13,14 +13,18 @@ import os
 
 import numpy as np
 
+from ..integrators.ao import AOConfig
+from ..integrators.bdpt import BDPTConfig
 from ..integrators.path import PathConfig
 from .arrays import make_camera
 from .nodes import (
     ConstantTexture,
     DiffuseMaterial,
     EmissiveMaterial,
+    EnvMapLight,
     GlassMaterial,
     GlossyMaterial,
+    ImageTexture,
     Instance,
     MirrorMaterial,
     MixMaterial,
@@ -40,11 +44,9 @@ def register_node(name):
 
 def _texture(v, base_dir="."):
     """SDL value -> texture: arrays and numbers are constants; a string
-    names an image file (slice 4)."""
+    names an image file relative to the scene file."""
     if isinstance(v, str):
-        raise NotImplementedError(
-            f"image texture {v!r}: image textures arrive with slice 4"
-        )
+        return ImageTexture.load(os.path.join(base_dir, v))
     return ConstantTexture.coerce(v)
 
 
@@ -170,16 +172,33 @@ def _path(fields, base_dir="."):
     )
 
 
-def _later(name, slice_name):
-    def factory(fields, base_dir="."):
-        raise NotImplementedError(f"{name} nodes arrive with {slice_name}")
+@register_node("BDPT")
+def _bdpt(fields, base_dir="."):
+    return BDPTConfig(
+        spp=int(fields.get("spp", 16)),
+        eye_depth=int(fields.get("eye_depth", fields.get("max_depth", 4))),
+        light_depth=int(fields.get("light_depth", 3)),
+        ray_clamp=float(fields.get("ray_clamp", 20.0)),
+        max_vertices=int(fields.get("max_vertices", 0)),
+        light_tracing=bool(fields.get("light_tracing", True)),
+    )
 
-    REGISTRY[name] = factory
+
+@register_node("AO")
+def _ao(fields, base_dir="."):
+    return AOConfig(
+        spp=int(fields.get("spp", 16)),
+        occlude_distance=float(fields.get("occlude", 1e30)),
+    )
 
 
-_later("AO", "slice 4 (other integrators)")
-_later("BDPT", "slice 4 (other integrators)")
-_later("EnvMap", "slice 4 (environment lights)")
+@register_node("EnvMap")
+def _envmap(fields, base_dir="."):
+    """Environment light: EnvMap { image: "sky.hdr", scale: 1.0 }."""
+    img = fields.get("image")
+    if isinstance(img, str):
+        img = os.path.join(base_dir, img)
+    return EnvMapLight(image=img, scale=float(fields.get("scale", 1.0)))
 
 
 @register_node("Scene")

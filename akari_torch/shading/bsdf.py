@@ -1,12 +1,17 @@
-"""BSDF closure ids and the dielectric Fresnel term
-(the pieces of ``akari_tpu/shading/bsdf.py`` that ``shading/soa.py`` uses)."""
+"""BSDF closure ids, the dielectric Fresnel term, and the ``[N, 3]``
+world-frame entry points of the BDPT and AO integrators
+(``akari_tpu/shading/bsdf.py``). ``params`` is a dict of per-lane tensors:
+kind [N] (CLOSURE_*), color [N, 3], alpha [N], dist [N], choice_pdf [N],
+optional ior [N].
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.vecmath import abs_, clip, maximum
+from ..core.v3 import from_stack
+from ..core.vecmath import abs_, clip, maximum, onb
 
 CLOSURE_NULL = -1
 CLOSURE_DIFFUSE = 0
@@ -21,6 +26,47 @@ INV_PI = 1.0 / np.pi
 # power weights against any finite pdf evaluate to ~1.
 DELTA_PDF = float(np.float32(1e8))
 
+
+# ------------------- [N, 3] world-frame entry points -----------------------
+#
+# The reference's AoS closures run here as ``shading/soa.py``'s
+# per-component ones on the columns of the [N, 3] inputs: one copy of the
+# closure arithmetic. The two differ only where the half vector is
+# degenerate (|wo + wi|^2 < 1e-12 with wo, wi in one hemisphere, i.e. both
+# grazing), where soa.py substitutes the pole (ROADMAP Queue 3).
+
+
+def _soa_args(params, frame, *dirs):
+    p = dict(params, color=from_stack(params["color"]))
+    return (p, tuple(from_stack(v) for v in frame), *(from_stack(w) for w in dirs))
+
+
+def make_frame(ns):
+    """Shading frame (t, b, n) from the shading normal."""
+    t, b = onb(ns)
+    return t, b, ns
+
+
+def eval_world(params, frame, wo_w, wi_w):
+    from . import soa
+
+    return soa.eval_world(*_soa_args(params, frame, wo_w, wi_w)).stack()
+
+
+def pdf_world(params, frame, wo_w, wi_w):
+    from . import soa
+
+    return soa.pdf_world(*_soa_args(params, frame, wo_w, wi_w))
+
+
+def sample_world(params, frame, wo_w, u):
+    from . import soa
+
+    wi, f, pdf = soa.sample_world(*_soa_args(params, frame, wo_w), u[..., 0], u[..., 1])
+    return wi.stack(), f.stack(), pdf
+
+
+# ------------------------------ Fresnel -----------------------------------
 
 def fresnel_dielectric(cos_i, eta_i, eta_t):
     """Unpolarized dielectric Fresnel reflectance; handles total internal

@@ -1,15 +1,18 @@
 """Component-SoA shading: the wavefront hot path (``akari_tpu/shading/soa.py``).
 
 Lambert + GGX/Beckmann/Phong microfacet + specular mirror + smooth glass
-closures, the Mix-tree walk and power-CDF area-light NEE, on ``[N]``
-tensors and ``V3`` 3-vectors. Every closure is evaluated on every lane
-and the result selected per lane, with the reference's operation order,
-so radiance agrees with the JAX package to float32 rounding.
+closures, the Mix-tree walk, power-CDF area-light NEE and the
+environment light, on ``[N]`` tensors and ``V3`` 3-vectors. Every
+closure is evaluated on every lane and the result selected per lane, with
+the reference's operation order, so radiance agrees with the JAX package
+to float32 rounding.
 
 Table lookups are plain row gathers (``index_select`` on the transposed
 table, giving ``[C, N]`` rows). The reference's one-hot matmul gather is
 a TPU workaround and is not ported: on the card it would also round
-through TF32. The environment light functions arrive with slice 4.
+through TF32. Scenes with image textures evaluate textures per lane at
+the hit's uv (``shading/texture.py``); scenes without skip that branch and
+launch what they launched before it existed.
 """
 
 from __future__ import annotations
@@ -19,13 +22,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.distribution import sample_discrete
+from ..core.distribution import sample_continuous, sample_discrete
 from ..core.vecmath import abs_, clip, maximum
 from ..core.v3 import (
     V3, from_rows, from_stack, onb3, reflect3, to_local3, to_world3, v3where,
 )
 from ..scene import geom
-from ..scene.arrays import MAX_MIX_DEPTH
+from ..scene.arrays import MAT_EMISSIVE, MAX_MIX_DEPTH
 from . import microfacet as mf
 from .bsdf import (
     CLOSURE_GLASS,
@@ -36,7 +39,12 @@ from .bsdf import (
     fresnel_dielectric,
 )
 from .light import _light_fat_table, _light_tri_data, _light_uv
-from .material import _resolved_closure_table
+from .material import (
+    _resolved_closure_table,
+    select_mix_textured,
+    textured_closure,
+)
+from .texture import evaluate as texture_evaluate
 
 INV_PI = 1.0 / np.pi
 PI = np.pi
@@ -322,12 +330,14 @@ def sample_world(params, frame, wo_w, u1, u2):
 # ------------------------------ materials ----------------------------------
 
 def select_material(materials, textures, mat_id, u, uv_u, uv_v):
-    """Mix-tree walk -> (leaf_id, choice_pdf) over the resolved table.
-
-    ``uv_u``/``uv_v`` are unused until image textures (slice 4); they keep
-    the reference's signature."""
+    """Mix-tree walk -> (leaf_id, choice_pdf) over the resolved table, or
+    with the fractions evaluated at (uv_u, uv_v) on image-textured scenes."""
     if not materials.has_mix:
         return mat_id, torch.ones_like(u)
+    if textures.has_images:
+        return select_mix_textured(
+            materials, textures, mat_id, u, torch.stack([uv_u, uv_v], dim=-1)
+        )
     choice_pdf = torch.ones_like(u)
     cur = mat_id
     ct = _resolved_closure_table(materials, textures)
@@ -350,7 +360,19 @@ def select_material(materials, textures, mat_id, u, uv_u, uv_v):
 
 def closure_params(materials, textures, leaf_id, choice_pdf, uv_u, uv_v):
     """Leaf ids -> SoA closure params: kind [N], color V3, alpha [N],
-    dist [N], ior [N], choice_pdf [N]. One row gather."""
+    dist [N], ior [N], choice_pdf [N]. One row gather without images."""
+    if textures.has_images:
+        kind, color, alpha, ior = textured_closure(
+            materials, textures, leaf_id, torch.stack([uv_u, uv_v], dim=-1)
+        )
+        return {
+            "kind": kind,
+            "color": from_stack(color),
+            "alpha": alpha,
+            "dist": torch.full_like(kind, mf.GGX),
+            "ior": ior,
+            "choice_pdf": choice_pdf,
+        }
     ct = _resolved_closure_table(materials, textures)
     fat = gather_rows_t(ct, leaf_id)
     return {
@@ -364,7 +386,15 @@ def closure_params(materials, textures, leaf_id, choice_pdf, uv_u, uv_v):
 
 
 def emission_and_sided(materials, textures, mat_id, uv_u, uv_v):
-    """(V3 Le, [N] double_sided) — one row gather."""
+    """(V3 Le, [N] double_sided) — one row gather without images."""
+    if textures.has_images:
+        kind = materials.kind.index_select(0, mat_id)
+        color = texture_evaluate(
+            textures, materials.color_tex.index_select(0, mat_id),
+            torch.stack([uv_u, uv_v], dim=-1),
+        )
+        Le = v3where(kind == MAT_EMISSIVE, from_stack(color), 0.0)
+        return Le, materials.double_sided.index_select(0, mat_id)
     ct = _resolved_closure_table(materials, textures)
     fat = gather_rows_t(ct, mat_id)
     return from_rows(fat, 5), fat[8] > 0.5
@@ -382,16 +412,15 @@ class LightSampleSoA(NamedTuple):
 
 def light_sample(scene, u_select, u_pos1, u_pos2, p_ref):
     """Power-select a light triangle, sample a point, return the NEE record.
-    p_ref is a V3. Flat scenes gather one row of the per-light table; on a
-    two-level scene the light's virtual prim is moved to world space by its
-    instance (the reference's non-fast branch), and its emission and
-    sidedness at the sample's texture coordinates come from the resolved
-    closure table (constant textures: the same values as the reference's
-    per-material lookups)."""
+    p_ref is a V3. Flat constant-texture scenes gather one row of the
+    per-light table; otherwise (the reference's non-fast branch) the
+    light's prim is moved to world space by its instance on a two-level
+    scene, and its emission and sidedness are looked up at the sample's
+    texture coordinates."""
     lights = scene.lights
     li, sel_pdf = sample_discrete(lights.cdf, u_select)
     b0, b1 = uniform_triangle(u_pos1, u_pos2)
-    if scene.instances is None:
+    if scene.instances is None and not scene.textures.has_images:
         fat = gather_rows_t(_light_fat_table(scene), li)
         v0, e1, e2 = from_rows(fat, 0), from_rows(fat, 3), from_rows(fat, 6)
         ng = from_rows(fat, 9)
@@ -422,10 +451,118 @@ def light_sample(scene, u_select, u_pos1, u_pos2, p_ref):
     return LightSampleSoA(wi, dist, L, pdf, valid)
 
 
+# --------------------------- environment light ------------------------------
+# Equirectangular mapping: u = (atan2(x, -z) + pi) / 2pi, v = acos(y) / pi
+# (v = 0 at +Y). Importance sampling uses the flattened luminance*sin(v*pi)
+# texel CDF (SceneArrays.env_cdf); pdf conversion image -> solid angle is
+# pmf * He*We / (2 pi^2 sin(theta)).
+
+def env_uv_of_dir(d):
+    """V3 unit direction -> ([N] u, [N] v) equirectangular coordinates."""
+    u = (torch.atan2(d.x, -d.z) + PI) / (2.0 * PI)
+    v = torch.acos(clip(d.y, -1.0, 1.0)) / PI
+    return u, v
+
+
+def _env_texel(flat, idx):
+    t = flat.index_select(0, idx)
+    return V3(t[:, 0], t[:, 1], t[:, 2])
+
+
+def env_eval(scene, d):
+    """Bilinear radiance of the environment map along V3 d -> V3 (wrap in
+    longitude, clamp at the poles)."""
+    img = scene.env_image
+    he, we = img.shape[0], img.shape[1]
+    u, v = env_uv_of_dir(d)
+    x = u * we - 0.5
+    y = v * he - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = torch.remainder(x0.to(torch.int32), we)
+    x1i = torch.remainder(x0i + 1, we)           # wrap in longitude
+    y0i = torch.clamp(y0.to(torch.int32), 0, he - 1)
+    y1i = torch.clamp(y0i + 1, 0, he - 1)        # clamp at the poles
+    flat = img.reshape(-1, 3)
+    r0, r1 = (y0i * we).to(torch.int64), (y1i * we).to(torch.int64)
+    x0l, x1l = x0i.to(torch.int64), x1i.to(torch.int64)
+    c00, c01 = _env_texel(flat, r0 + x0l), _env_texel(flat, r0 + x1l)
+    c10, c11 = _env_texel(flat, r1 + x0l), _env_texel(flat, r1 + x1l)
+    top = c00 * (1.0 - fx) + c01 * fx
+    bot = c10 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def env_pdf_sa(scene, d):
+    """Solid-angle NEE pdf of sampling direction d from the env CDF
+    (EXCLUDING the strategy-mixture factor env_p_select)."""
+    he, we = scene.env_image.shape[0], scene.env_image.shape[1]
+    u, v = env_uv_of_dir(d)
+    xi = torch.clamp((u * we).to(torch.int32), 0, we - 1)
+    yi = torch.clamp((v * he).to(torch.int32), 0, he - 1)
+    pmf = scene.env_pmf.index_select(0, (yi * we + xi).to(torch.int64))
+    sin_t = maximum(torch.sin(v * PI), 1e-6)
+    return pmf * (he * we) / (2.0 * PI * PI * sin_t)
+
+
+def env_sample(scene, u1, u2):
+    """Importance-sample a direction from the env CDF: the texel by ONE
+    ``searchsorted(right)`` on the flattened CDF (u1; the in-texel
+    longitude is the continuous inverse-CDF remainder), the latitude
+    jitter from u2. Returns (wi V3, Le V3, pdf_sa [N])."""
+    he, we = scene.env_image.shape[0], scene.env_image.shape[1]
+    x_flat, _, idx = sample_continuous(scene.env_cdf, u1)
+    # de-flatten: texel (yi, xi) + uniform position inside it
+    frac = x_flat * (he * we) - idx.to(torch.float32)
+    yi = torch.div(idx, we, rounding_mode="floor")
+    xi = torch.remainder(idx, we)
+    u = (xi.to(torch.float32) + frac) / we
+    v = (yi.to(torch.float32) + u2) / he
+    theta = v * PI
+    phi = u * 2.0 * PI - PI
+    sin_t = torch.sin(theta)
+    wi = V3(sin_t * torch.sin(phi), torch.cos(theta), -sin_t * torch.cos(phi))
+    Le = env_eval(scene, wi)
+    pmf = scene.env_pmf.index_select(0, idx.to(torch.int64))
+    pdf = pmf * (he * we) / (2.0 * PI * PI * maximum(sin_t, 1e-6))
+    return wi, Le, pdf
+
+
+# Shadow-ray length of environment NEE samples (the occlusion query is
+# "anything between here and the sky?").
+ENV_SHADOW_DIST = float(np.float32(1e7))
+
+
 def light_sample_mixed(scene, u_select, u_p1, u_p2, p_ref):
-    """NEE sample from the light strategy mixture. Without an environment
-    light (compile refuses one until slice 4) this is area sampling."""
-    return light_sample(scene, u_select, u_p1, u_p2, p_ref)
+    """NEE sample from the area-light / environment strategy mixture.
+
+    No env: plain area sampling. Env only: pure env sampling. Both: pick
+    the env with probability ``scene.env_p_select`` (a 0-d float32 tensor,
+    so ``1 - p`` rounds in float32 as the reference's does; u_select split
+    and rescaled), and fold the mixture pmf into the returned pdf so the
+    MIS weights stay consistent.
+    """
+    if scene.env_image is None:
+        return light_sample(scene, u_select, u_p1, u_p2, p_ref)
+    if scene.lights.n_lights == 0:
+        wi, Le, pdf = env_sample(scene, u_p1, u_p2)
+        dist = torch.full_like(u_select, ENV_SHADOW_DIST)
+        return LightSampleSoA(wi, dist, Le, pdf, pdf > 0.0)
+    p_env = scene.env_p_select
+    is_env = u_select < p_env
+    u_area = clip(
+        (u_select - p_env) / maximum(1.0 - p_env, 1e-6), 0.0, 0.999999
+    )
+    ls = light_sample(scene, u_area, u_p1, u_p2, p_ref)
+    wi_e, Le_e, pdf_e = env_sample(scene, u_p1, u_p2)
+    wi = v3where(is_env, wi_e, ls.wi)
+    dist = torch.where(is_env, ENV_SHADOW_DIST, ls.dist)
+    L = v3where(is_env, Le_e, ls.L)
+    pdf = torch.where(is_env, pdf_e * p_env, ls.pdf * (1.0 - p_env))
+    valid = torch.where(is_env, pdf_e > 0.0, ls.valid)
+    return LightSampleSoA(wi, dist, L, pdf, valid)
 
 
 def light_pdf_direction_from(e1, e2, sel_pdf, hit_ok, wi, dist, double_sided):

@@ -104,9 +104,44 @@ Phases (each checks its results; any failure exits non-zero):
 23. the trainer: ``inverse_render`` for 20 iterations at 64x64 from the
     walls' albedo at 0.4x; the loss at a fixed evaluation seed falls below
     half its start; time per iteration;
-24. the result: a JSON line of kernel records (the dense records on the
-    captured fused rays; the dense any-hit record's launches are phase
-    22's), then the device line.
+24. the env-lit textured OBJ through the CLI (BASELINE.json config 3):
+    ``write_envtex_terrain`` writes the n=256 terrain (130,050 triangles)
+    as OBJ with planar texture coordinates, an MTL whose ``map_Kd`` names a
+    2048^2 seeded PNG (its rows filtered as other encoders filter them,
+    mostly Average), its area light and ``EnvMap { image: "sky.hdr" }``
+    (a seeded 1024 x 2048 RGBE sky); parse (with the PNG decode alone),
+    compile, one timed 256^2 x 16 spp depth-5 frame on ``auto`` (tree
+    closest launches only), path and ray rates, peak memory, a lit image;
+    that frame's first fused launch (bounce rays with the env and area
+    shadow rays) through the tree kernels and their plain versions; then
+    the CLI on the same files (the same launches, a lit PNG);
+25. the n=64 env-lit textured terrain at 64x64 against the JAX package's
+    golden (tests/data/torch_port_envtex64_spp4_d5.npy);
+26. BDPT at full width (BASELINE.json config 5): ``render_bdpt`` on phase
+    9's 2,093,060-triangle terrain (its host compile copied to the card
+    again), ``BDPTConfig(spp=64)``, timed after a 1-spp warm-up: 6 tree
+    closest and 1 tree any-hit launches per sample, the any-hit launch's
+    983,040 queued connection rays, rates, peak memory, a lit image; the
+    first sample's connection group through the tree kernels and their
+    plain versions;
+27. AO on the same terrain: ``render_ao`` at ``AOConfig`` defaults (16
+    spp) timed; one sample's camera and occlusion rays through the tree
+    kernels and their plain versions; then the CLI ``--ao`` on the
+    terrain written as OBJ + MTL + .akari (one tree closest and one tree
+    any-hit launch per sample);
+28. BDPT on the 64x64 Cornell box at 4 spp and AO on the n=64 terrain at
+    64x64 against the JAX package's goldens; the BDPT render through the
+    dense kernels and through their plain versions on the card (radiance
+    bit-equal, the splat film within ``SPLAT_TOL``); one env-lit
+    ``instanced-forest128`` frame (instanced tree launches only, lit);
+29. the result: a JSON line of kernel records (the dense records on the
+    captured fused rays; the any-hit records count phase 17's queries,
+    phase 22's side probes and the BDPT and AO launches of phases 26-28;
+    the tree records' errors cover phases 6, 24, 26 and 27), then the
+    device line.
+
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-28) sets the
+kernels' launch counts to 0 just before its run and reads them just after.
 
 Every kernel source (and the native BVH builder) is built at start, one
 compiler process each, all started together. Imports nothing of JAX.
@@ -169,6 +204,20 @@ GRAD_TOL = 3e-5
 GOLDEN_LOSS_RTOL = 1e-6
 GOLDEN_GRAD_TOL = 1e-5
 CARD_BYTES = 80e9                # the H100's device memory
+# Phase 28, render_bdpt through the kernels against their plain versions:
+# the radiance is bit-equal (the hits are); the splat film's index_add
+# atomics sum in a run-dependent order. Bound on max|splat - splat_plain|
+# / max|image|, set before the first measurement on the card.
+SPLAT_TOL = 1e-5
+# The env-lit textured terrain (BASELINE.json config 3) written by
+# akari_torch.scene.builtin.write_envtex_terrain, and its 64x64 golden's
+# arguments (tools/make_torch_port_envtex_golden.py)
+ENVTEX_FULL = dict(n=256, res=256, spp=16, depth=5, tex_res=2048, sky_hw=(1024, 2048))
+ENVTEX_GOLDEN_SCENE = dict(n=64, res=64, spp=4, depth=5, tex_res=64, sky_hw=(64, 128))
+ENVTEX_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_envtex64_spp4_d5.npy")
+BDPT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_bdpt_cornell64_spp4.npy")
+AO_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_ao_terrain64_spp16.npy")
+BDPT_SPP = 64                    # BASELINE.json config 5
 TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
 
 
@@ -308,6 +357,32 @@ def check_permuted(name, rays, mod, args, hit, closest="closest", any_hit="any_h
     log(f"  {name} on a permuted ray order: every ray's answer unchanged")
 
 
+@contextlib.contextmanager
+def kept_call(mod, names, keep=0):
+    """Wrap ``mod.<name>`` for each of ``names``: every call goes through;
+    ``calls.sizes[name]`` lists each call's ray count and
+    ``calls.kept[name]`` holds call number ``keep``'s (rays, tables), so a
+    path's own rays can be held against the plain version afterwards."""
+    real = {n: getattr(mod, n) for n in names}
+    calls = SimpleNamespace(sizes={n: [] for n in names}, kept={})
+
+    def wrap(n):
+        def fn(rays, *args):
+            if len(calls.sizes[n]) == keep:
+                calls.kept[n] = (rays, args)
+            calls.sizes[n].append(rays.shape[1])
+            return real[n](rays, *args)
+        return fn
+
+    for n in names:
+        setattr(mod, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+
+
 def tree_soup(dev, torch, n=20_000, seed=7):
     """20k random triangles in [-1, 1]^3, sorted along a Morton curve so
     clusters are compact, with exact duplicates copied into far clusters
@@ -337,29 +412,12 @@ def tree_soup(dev, torch, n=20_000, seed=7):
 
 
 def png_pixels(path):
-    """[H, W, 3] uint8 from a PNG written by akari_torch.core.image
-    (8-bit RGB, filter type 0 on every scanline)."""
-    import struct
-    import zlib
-
-    import numpy as np
+    """[H, W, 3] uint8 of a PNG the CLI wrote, through the port's decoder
+    (tests/test_torch_textures.py holds it to PIL on every filter type)."""
+    from akari_torch.core.image import decode_png
 
     with open(path, "rb") as f:
-        data = f.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
-    pos, idat, w, h = 8, b"", 0, 0
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        if tag == b"IHDR":
-            w, h = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + length
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
-    check(not raw[:, 0].any(), "unexpected PNG filter type")
-    return raw[:, 1:].reshape(h, w, 3)
+        return decode_png(f.read(), path)
 
 
 def write_terrain_obj(directory, scene_node, res, spp, depth):
@@ -418,11 +476,14 @@ def frame_line(label, ms, wall, peak, res, cfg, card):
         f"{rays_total / (ms / 1e3) / 1e6:.1f} M rays/s, peak {peak:.2f} GiB [card: {card}]")
 
 
-def compile_timed(scene_node, dev, torch):
+def compile_timed(scene_node, dev, torch, host=None):
     """Compile on the host and move to the card; (scene, description of
-    the host seconds: BVH build, clusters + tree, the rest, the copy)."""
+    the host seconds: BVH build, clusters + tree, the rest, the copy).
+    ``host``, a list, receives the host (CPU) scene for a later copy."""
     t0 = time.perf_counter()
     scene = scene_node.compile(intersector="auto")
+    if host is not None:
+        host.append(scene)
     secs = scene.compile_seconds
     t1 = time.perf_counter()
     scene = scene.to(dev)
@@ -1042,6 +1103,267 @@ def gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1
     return {"boundary_any_hit_launches": bnd_launches["any_hit"]}
 
 
+def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
+    """Phases 24-28, the environment light, image textures and the AO and
+    BDPT integrators; returns the figures the result line needs."""
+    import numpy as np
+    import torch
+
+    from akari_torch.integrators import bdpt as pb
+    from akari_torch.integrators.ao import AOConfig, render_ao
+    from akari_torch.core.image import decode_png, write_png
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.integrators.path import PathConfig, render
+    from akari_torch.ops import dense_intersect as di
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.scene import sdl
+    from akari_torch.scene.builtin import (
+        cornell_box, envtex_sky, instanced_forest_scene, terrain_scene, write_envtex_terrain)
+    from akari_torch.scene.nodes import EnvMapLight
+
+    out = {}
+    errs = []  # (closest, any-hit) max |kernel - plain| on each path's own rays
+
+    def launches():
+        return {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                for n, c in m.LAUNCHES.items() if c}
+
+    # ---- phase 24: the env-lit textured OBJ through the CLI ----------------------
+    t_phase = time.perf_counter()
+    full = ENVTEX_FULL
+    log(f"phase 24: env-lit textured terrain n={full['n']} as OBJ (vt) + MTL map_Kd "
+        f"({full['tex_res']}^2 PNG) + EnvMap sky.hdr {full['sky_hw'][0]}x{full['sky_hw'][1]} + "
+        f"its area light, {full['res']}^2 x {full['spp']} spp, depth {full['depth']}, NEE + MIS, "
+        f"auto [card: {card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        akari = write_envtex_terrain(tmp, **full)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "albedo.png"), "rb") as f:
+            decode_png(f.read())
+        png_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node = sdl.parse_file(akari).exports["scene"]
+        parse_s = time.perf_counter() - t0
+        scene, compile_desc = compile_timed(node, dev, torch)
+        check(scene.intersector == "tree" and scene.textures.has_images
+              and tuple(scene.env_image.shape) == (*full["sky_hw"], 3)
+              and scene.lights.n_lights == 2,
+              f"envtex scene: {scene.intersector}, images {scene.textures.has_images}, "
+              f"env {None if scene.env_image is None else tuple(scene.env_image.shape)}")
+        log(f"  files written in {write_s:.2f} s; parse (OBJ + MTL + PNG) {parse_s:.2f} s, of "
+            f"which the {full['tex_res']}^2 PNG decode {png_s:.2f} s; {scene.n_tris} tris, "
+            f"images {tuple(scene.textures.images.shape)}, env_p_select "
+            f"{float(scene.env_p_select):.4f}; {compile_desc}")
+        cfg = node.integrator
+        chunk = max(1, min(cfg.spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
+        n_trace = -(-cfg.spp // chunk)
+        render(scene, node.camera, cfg, seed=0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all(traversal)
+        img = []
+        with kept_call(ti, ["closest"], keep=1) as calls:
+            t0 = time.perf_counter()
+            ms = cuda_ms(lambda: img.append(render(scene, node.camera, cfg, seed=0)), iters=1,
+                         warmup=0)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = launches()
+        log(f"  launches {got}; expected tree closest {n_trace} x (1 + {cfg.max_depth})")
+        check(got == {"tree_intersect.closest": n_trace * (1 + cfg.max_depth)},
+              f"envtex launches {got}")
+        # the first bounce's fused launch (bounce rays + env and area shadow rays)
+        rays_k, args_k = calls.kept["closest"]
+        errs.append(compare_kernel("tree envtex fused launch", rays_k, ti, args_k,
+                                   scene.n_tris)[:2])
+        del calls, rays_k, args_k
+        img_np = img[0].cpu().numpy()
+        check_image(img_np, full["res"], "envtex")
+        frame_line(f"envtex {full['res']}^2 spp {cfg.spp} depth {cfg.max_depth}", ms, wall,
+                   peak, full["res"], cfg, card)
+        out["envtex_ms"] = ms
+        t0 = time.perf_counter()
+        write_png(os.path.join(tmp, "frame.png"), img_np)
+        log(f"  PNG write of the frame {time.perf_counter() - t0:.3f} s")
+        out_png = os.path.join(tmp, "cli.png")
+        reset_all(traversal)
+        t0 = time.perf_counter()
+        rc = cli_render.main(["-i", akari, "-o", out_png, "--device", "cuda", "-v"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        got = launches()
+        check(rc == 0, f"CLI returned {rc}")
+        check(got == {"tree_intersect.closest": n_trace * (1 + cfg.max_depth)},
+              f"CLI envtex launches {got}")
+        px = png_pixels(out_png)
+        log(f"  CLI (parse OBJ + MTL + PNG + compile with env CDF + render + PNG): {cli_s:.3f} s "
+            f"wall, PNG mean {px.mean():.1f}/255, launches {got} [card: {card}]")
+        check(px.shape == (full["res"], full["res"], 3) and px.mean() > 20,
+              f"CLI envtex image {px.shape}, mean {px.mean()}")
+    del scene, img
+    log(f"  phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 25: the env-lit textured golden ----------------------------------
+    log("phase 25: env-lit textured terrain n=64 64x64 spp 4 depth 5 seed 0 vs the JAX "
+        "package's golden")
+    with tempfile.TemporaryDirectory() as tmp:
+        node = sdl.parse_file(write_envtex_terrain(tmp, **ENVTEX_GOLDEN_SCENE)).exports["scene"]
+        scene = node.compile().to(dev)
+    check(scene.intersector == "tree", f"intersector {scene.intersector}")
+    images_match(render(scene, node.camera, node.integrator, seed=0).cpu().numpy(),
+                 np.load(ENVTEX_GOLDEN))
+
+    # ---- phase 26: BDPT on the 2.09M-triangle terrain ----------------------------
+    t_phase = time.perf_counter()
+    cfg = pb.BDPTConfig(spp=BDPT_SPP)
+    per_sample = cfg.eye_depth + cfg.light_depth - 1
+    log(f"phase 26: render_bdpt(terrain_scene(256,256,n=1024), BDPTConfig(spp={cfg.spp})): "
+        f"eye {cfg.eye_depth}, light {cfg.light_depth}, light tracing on [card: {card}]")
+    t0 = time.perf_counter()
+    scene1m = host1m[0].to(dev)
+    torch.cuda.synchronize()
+    log(f"  phase 9's host compile copied to the card in {time.perf_counter() - t0:.2f} s")
+    cam = sc1m.camera
+    pb.render_bdpt(scene1m, cam, pb.BDPTConfig(spp=1))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(traversal)
+    img = []
+    with kept_call(ti, ["any_hit"]) as calls:
+        t0 = time.perf_counter()
+        ms = cuda_ms(lambda: img.append(pb.render_bdpt(scene1m, cam, cfg)), iters=1, warmup=0)
+        wall = time.perf_counter() - t0
+    group_rays = calls.sizes["any_hit"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = launches()
+    n_px = cam.width * cam.height
+    entries = cfg.eye_depth * cfg.light_depth + cfg.light_depth
+    log(f"  launches {got}: per sample {got.get('tree_intersect.closest', 0) / cfg.spp:g} "
+        f"closest, {got.get('tree_intersect.any_hit', 0) / cfg.spp:g} any-hit; connection "
+        f"group rays {sorted(set(group_rays))} (expected {entries} x {n_px} = {entries * n_px})")
+    check(got == {"tree_intersect.closest": cfg.spp * per_sample,
+                  "tree_intersect.any_hit": cfg.spp},
+          f"BDPT launches {got}, expected {per_sample} closest and 1 any-hit a sample")
+    check(set(group_rays) == {entries * n_px}, f"connection groups {group_rays}")
+    img_np = img[0].cpu().numpy()
+    check_image(img_np, cam.width, "BDPT terrain n=1024")
+    rays = cfg.spp * n_px * (per_sample + entries)
+    log(f"  BDPT {cam.width}^2 spp {cfg.spp}: {ms / 1e3:.4f} s/frame (CUDA events), {wall:.4f} s wall, "
+        f"{cfg.spp * n_px / (ms / 1e3) / 1e6:.3f} M samples/s, {rays / (ms / 1e3) / 1e6:.1f} M "
+        f"rays/s ({per_sample + entries} rays a sample and pixel), peak {peak:.2f} GiB "
+        f"[card: {card}]")
+    out["bdpt_ms"] = ms
+    out["bdpt_any_hit"] = got["tree_intersect.any_hit"]
+    # the first sample's connection group, through both kernels and their plain versions
+    rays_k, args_k = calls.kept["any_hit"]
+    errs.append(compare_kernel("tree BDPT connection group", rays_k, ti, args_k,
+                               scene1m.n_tris)[:2])
+    del calls, rays_k, args_k
+    log(f"  phase 26: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 27: AO on the same terrain through the CLI ------------------------
+    t_phase = time.perf_counter()
+    log(f"phase 27: CLI --ao on the n=1024 terrain as OBJ + MTL + .akari, 256x256, AOConfig "
+        f"defaults [card: {card}]")
+    ao_cfg = AOConfig()
+    render_ao(scene1m, cam, ao_cfg)  # warm-up
+    torch.cuda.synchronize()
+    reset_all(traversal)
+    ms_ao = cuda_ms(lambda: render_ao(scene1m, cam, ao_cfg), iters=1, warmup=0)
+    got = launches()
+    check(got == {"tree_intersect.closest": ao_cfg.spp, "tree_intersect.any_hit": ao_cfg.spp},
+          f"AO launches {got}")
+    log(f"  render_ao {cam.width}^2 spp {ao_cfg.spp}: {ms_ao:.2f} ms (CUDA events), launches {got}")
+    # one AO sample's camera and occlusion rays against the plain versions
+    with kept_call(ti, ["closest", "any_hit"]) as calls:
+        render_ao(scene1m, cam, AOConfig(spp=1))
+    for what, kname in (("camera", "closest"), ("occlusion", "any_hit")):
+        rays_k, args_k = calls.kept[kname]
+        errs.append(compare_kernel(f"tree AO {what} rays", rays_k, ti, args_k,
+                                   scene1m.n_tris)[:2])
+    del calls, rays_k, args_k
+    del scene1m
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        akari = write_terrain_obj(tmp, sc1m, cam.width, 4, 5)
+        write_s = time.perf_counter() - t0
+        out_png = os.path.join(tmp, "ao.png")
+        reset_all(traversal)
+        t0 = time.perf_counter()
+        rc = cli_render.main(["-i", akari, "-o", out_png, "--device", "cuda", "--ao", "-v"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        got = launches()
+        check(rc == 0, f"CLI --ao returned {rc}")
+        check(got == {"tree_intersect.closest": ao_cfg.spp, "tree_intersect.any_hit": ao_cfg.spp},
+              f"CLI --ao launches {got}")
+        px = png_pixels(out_png)
+    log(f"  OBJ written in {write_s:.1f} s; CLI --ao (parse OBJ + compile + render + PNG) "
+        f"{cli_s:.2f} s wall, PNG mean {px.mean():.1f}/255, launches {got} [card: {card}]")
+    check(px.shape == (cam.width, cam.width, 3) and px.mean() > 20,
+          f"AO image {px.shape}, {px.mean()}")
+    out["ao_any_hit"] = got["tree_intersect.any_hit"]
+    log(f"  phase 27: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 28: goldens, routes, env on a two-level scene ---------------------
+    t_phase = time.perf_counter()
+    log("phase 28: BDPT (Cornell 64^2, spp 4) and AO (terrain n=64 64^2, spp 16) vs the JAX "
+        "package's goldens; BDPT kernel route vs plain route; env-lit instanced-forest128")
+    sc64 = cornell_box(64, 64)
+    scene64 = sc64.compile().to(dev)
+    cfg64 = pb.BDPTConfig(spp=4)
+    px64 = torch.arange(64 * 64, device=dev)
+    reset_all(traversal)
+    acc, spl = pb.bdpt_sums(scene64, sc64.camera, cfg64, 0, px64)
+    torch.cuda.synchronize()
+    out["bdpt_dense_any_hit"] = di.LAUNCHES["any_hit"]
+    check(di.LAUNCHES == {"closest": 4 * 6, "any_hit": 4}, f"BDPT 64 launches {di.LAUNCHES}")
+    img64 = ((acc + spl) / cfg64.spp).reshape(64, 64, 3)
+    images_match(img64.cpu().numpy(), np.load(BDPT_GOLDEN))
+    with plain_route(di):
+        acc_p, spl_p = pb.bdpt_sums(scene64, sc64.camera, cfg64, 0, px64)
+    scale = float((acc + spl).abs().max())
+    splat_err = float((spl - spl_p).abs().max()) / scale
+    log(f"  kernel vs plain route: radiance bit-equal {torch.equal(acc, acc_p)}, splat "
+        f"max |diff| / max|image| {splat_err:.3g} (bound {SPLAT_TOL})")
+    check(torch.equal(acc, acc_p), "BDPT radiance differs between the kernel and plain routes")
+    check(splat_err <= SPLAT_TOL, f"BDPT splat routes differ by {splat_err}")
+    out["splat_err"] = splat_err
+    sct = terrain_scene(64, 64, n=64)
+    scene_t = sct.compile().to(dev)
+    images_match(render_ao(scene_t, sct.camera, AOConfig()).cpu().numpy(), np.load(AO_GOLDEN))
+    sc_f = instanced_forest_scene(256, 256)
+    sc_f = dataclasses.replace(sc_f, environment=EnvMapLight(envtex_sky(256, 512), scale=0.5))
+    forest, compile_f = compile_timed(sc_f, dev, torch)
+    check(forest.instances is not None and forest.env_image is not None,
+          "env-lit forest did not compile two-level with its environment")
+    cfg_f = PathConfig(spp=4, max_depth=5)
+    render(forest, sc_f.camera, cfg_f, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(traversal)
+    img = []
+    t0 = time.perf_counter()
+    ms_f = cuda_ms(lambda: img.append(render(forest, sc_f.camera, cfg_f, seed=0)), iters=1,
+                   warmup=0)
+    wall_f = time.perf_counter() - t0
+    got = launches()
+    check(got == {"instanced_tree_intersect.closest": 1 + cfg_f.max_depth},
+          f"env-lit forest launches {got}")
+    res_f = sc_f.camera.width
+    check_image(img[0].cpu().numpy(), res_f, "env-lit instanced-forest128")
+    frame_line(f"env-lit instanced-forest128 {res_f}^2 spp 4 depth 5", ms_f, wall_f,
+               torch.cuda.max_memory_allocated() / 2 ** 30, res_f, cfg_f, card)
+    log(f"  env-lit forest: {compile_f}; launches {got}")
+    log(f"  phase 28: {time.perf_counter() - t_phase:.1f} s")
+    out["tree_err"] = max(e for e, _ in errs)
+    out["tree_occ_err"] = max(o for _, o in errs)
+    return out
+
+
 def main():
     import torch
 
@@ -1316,7 +1638,8 @@ def main():
     t_phase = time.perf_counter()
     log("phase 9: render(terrain_scene(256,256,n=1024), spp=4, max_depth=5) on auto")
     sc1m = terrain_scene(256, 256, n=1024)
-    scene1m, compile1m = compile_timed(sc1m, dev, torch)
+    host1m = []  # the host compile, copied to the card again in phase 26
+    scene1m, compile1m = compile_timed(sc1m, dev, torch, host=host1m)
     check(scene1m.intersector == "tree" and scene1m.n_tris == 2_093_060,
           f"{scene1m.intersector}, {scene1m.n_tris} tris")
     log(f"  terrain n=1024: {scene1m.n_tris} tris, {scene1m.tri_tree.shape[0]} node rows, "
@@ -1620,10 +1943,17 @@ def main():
     log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
 
     grad = gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1k)
-    any_hit_launches["dense"] = grad["boundary_any_hit_launches"]
+    s4a = slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render)
+    # the any-hit rows count every path's launches: the boundary term's side
+    # probes and the BDPT connections (dense), occlude_soa, BDPT and AO (tree)
+    any_hit_launches["dense"] = grad["boundary_any_hit_launches"] + s4a["bdpt_dense_any_hit"]
+    any_hit_launches["tree"] += s4a["bdpt_any_hit"] + s4a["ao_any_hit"]
+    # the tree rows' errors also cover the envtex, BDPT and AO paths' own rays
+    tree_err = max(tree_err, s4a["tree_err"])
+    tree_occ_err = max(tree_occ_err, s4a["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 24: result ----------------------------------------------------
+    # ---- phase 29: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

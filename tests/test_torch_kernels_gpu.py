@@ -551,3 +551,58 @@ def test_bench_step_gradient_kernel_route_equals_plain_route(dev):
     assert torch.equal(loss.detach(), loss_p)
     assert torch.isfinite(g).all() and float((g - g_p).abs().max()) <= GRAD_TOL * float(
         g_p.abs().max())
+
+
+def _route_scenes(dev, which):
+    """A 32x32 scene on the card and the kernel modules of its route: the
+    Cornell box (dense) or the n=64 terrain (tree)."""
+    sc = cornell_box(32, 32) if which == "cornell" else terrain_scene(32, 32, n=64)
+    scene = sc.compile().to(dev)
+    mods = (di,) if which == "cornell" else (ti,)
+    return scene, sc.camera, mods
+
+
+@pytest.mark.parametrize("which", ["cornell", "terrain"])
+def test_ao_kernel_route_equals_plain_route(dev, which):
+    """render_ao at 32x32 through the kernels and through their plain
+    versions: the hits are bit-equal, so the images are; one closest and
+    one any-hit launch per sample."""
+    from chip_smoke import plain_route
+    from akari_torch.integrators.ao import AOConfig, render_ao
+
+    scene, cam, (mod,) = _route_scenes(dev, which)
+    cfg = AOConfig(spp=4)
+    before = dict(mod.LAUNCHES)
+    img = render_ao(scene, cam, cfg)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES["closest"] - before["closest"] == cfg.spp
+    assert mod.LAUNCHES["any_hit"] - before["any_hit"] == cfg.spp
+    with plain_route(mod):
+        img_p = render_ao(scene, cam, cfg)
+    assert torch.equal(img, img_p) and float(img.mean()) > 0.1
+
+
+@pytest.mark.parametrize("which", ["cornell", "terrain"])
+def test_bdpt_kernel_route_equals_plain_route(dev, which):
+    """render_bdpt at 32x32, 2 spp, through the kernels and through their
+    plain versions: the radiance is bit-equal (the hits are); the splat
+    film's index_add atomics sum in run-dependent order, so the image is
+    within chip_smoke.SPLAT_TOL of max|image|. Per sample: eye_depth +
+    light_depth - 1 closest launches and one any-hit launch."""
+    from chip_smoke import SPLAT_TOL, plain_route
+    from akari_torch.integrators import bdpt as pb
+
+    scene, cam, (mod,) = _route_scenes(dev, which)
+    cfg = pb.BDPTConfig(spp=2)
+    px = torch.arange(cam.width * cam.height, device=dev)
+    before = dict(mod.LAUNCHES)
+    acc, spl = pb.bdpt_sums(scene, cam, cfg, 0, px)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES["closest"] - before["closest"] == cfg.spp * (
+        cfg.eye_depth + cfg.light_depth - 1)
+    assert mod.LAUNCHES["any_hit"] - before["any_hit"] == cfg.spp
+    with plain_route(mod):
+        acc_p, spl_p = pb.bdpt_sums(scene, cam, cfg, 0, px)
+    assert torch.equal(acc, acc_p)
+    assert torch.isfinite(spl).all() and float(spl.abs().max()) > 0
+    assert float((spl - spl_p).abs().max()) <= SPLAT_TOL * float((acc + spl).abs().max())

@@ -182,11 +182,7 @@ def test_obj_loader_matches_reference():
 @pytest.mark.parametrize(
     "src, slice_name",
     [
-        ("export s = BDPT { spp: 4 }", "slice 4"),
-        ("export s = AO { spp: 4 }", "slice 4"),
-        ('export s = EnvMap { image: "sky.hdr" }', "slice 4"),
         ('export s = AkariMesh { path: "x.npz" }', "slice 7"),
-        ('export s = DiffuseMaterial { color: "wood.png" }', "slice 4"),
         ('export s = AkariMesh { path: "x.mesh" }', "slice 7"),
     ],
 )
@@ -196,9 +192,6 @@ def test_unported_nodes_name_their_slice(src, slice_name):
 
 
 def test_unported_scene_state_is_refused():
-    scene = Scene(shapes=[], environment=object())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        scene.compile()
     # instanced scenes compile since slice 3; other shapes are refused
     with pytest.raises(TypeError, match="Mesh or Instance"):
         Scene(shapes=[object()]).compile()

@@ -2,9 +2,13 @@
 
 Profiles one ``akari_torch`` render of a built-in scene (the Cornell box;
 the procedural terrain, whose ``auto`` route is the tree walk above 4,096
-triangles; or ``instanced-forest128``, 128 copies of the 32,258-triangle
-terrain that ``auto`` compiles two-level) with ``torch.profiler`` (CPU +
-CUDA activities) after a warm-up render, and prints one JSON object: wall
+triangles; ``instanced-forest128``, 128 copies of the 32,258-triangle
+terrain that ``auto`` compiles two-level; or ``envtex``, the env-lit
+textured terrain that ``write_envtex_terrain`` writes as OBJ + PNG + .hdr
++ .akari, read back through the SDL) with ``torch.profiler`` (CPU + CUDA
+activities) after a warm-up render, through the path tracer, BDPT
+(``--integrator bdpt``: ``BDPTConfig(spp)`` with its default depths) or AO
+(``--integrator ao``), and prints one JSON object: wall
 time without and with the profiler, device busy time and idle share
 (against the profiled wall time), the number of kernel launches, each
 traversal kernel's launches, device time and share of busy time, and the
@@ -17,7 +21,8 @@ windows, the forward with the graph recorded and the backward, and adds
 the backward's time in ``index_add`` kernels (the backward of the row
 gathers ``index_select``).
 
-Usage: python tools/profile_torch_render.py [--scene cornell|terrain|instanced]
+Usage: python tools/profile_torch_render.py
+       [--scene cornell|terrain|instanced|envtex] [--integrator path|bdpt|ao]
        [--terrain-n 512] [--res 256] [--spp 4] [--max-depth 5]
        [--backward] [--trace trace.json]
 """
@@ -36,7 +41,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=["cornell", "terrain", "instanced"], default="cornell")
+    ap.add_argument("--scene", choices=["cornell", "terrain", "instanced", "envtex"],
+                    default="cornell")
+    ap.add_argument("--integrator", choices=["path", "bdpt", "ao"], default="path")
     ap.add_argument("--terrain-n", type=int, default=512,
                     help="terrain grid size (2 (n-1)^2 + 2 triangles)")
     ap.add_argument("--res", type=int, default=256)
@@ -56,13 +63,17 @@ def main(argv=None):
         return 1
     sys.path.insert(0, ROOT)
     from akari_torch.diff.inverse import apply_params, scene_params
+    from akari_torch.integrators.ao import AOConfig, render_ao
+    from akari_torch.integrators.bdpt import BDPTConfig, render_bdpt
     from akari_torch.integrators.path import PathConfig, render
     from akari_torch.ops import cluster_intersect as ci
     from akari_torch.ops import dense_intersect as di
     from akari_torch.ops import instanced_tree_intersect as iti
     from akari_torch.ops import tree_intersect as ti
     from akari_torch.parallel.render import loss_and_image
-    from akari_torch.scene.builtin import cornell_box, instanced_forest_scene, terrain_scene
+    from akari_torch.scene import sdl
+    from akari_torch.scene.builtin import (
+        cornell_box, instanced_forest_scene, terrain_scene, write_envtex_terrain)
 
     # traversal kernel -> (launch counts, a substring of its device name)
     traversal = {
@@ -81,16 +92,30 @@ def main(argv=None):
         sc = terrain_scene(args.res, args.res, n=args.terrain_n)
     elif args.scene == "instanced":
         sc = instanced_forest_scene(args.res, args.res)
+    elif args.scene == "envtex":
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            sc = sdl.parse_file(write_envtex_terrain(
+                tmp, n=args.terrain_n, res=args.res, spp=args.spp, depth=args.max_depth,
+            )).exports["scene"]
+            scene = sc.compile().to(dev)
     else:
         sc = cornell_box(args.res, args.res)
-    scene = sc.compile().to(dev)
-    cfg = PathConfig(spp=args.spp, max_depth=args.max_depth)
+    if args.scene != "envtex":
+        scene = sc.compile().to(dev)
+    if args.backward and args.integrator != "path":
+        ap.error("--backward profiles the path tracer's bench step")
+    cfg = {"path": PathConfig(spp=args.spp, max_depth=args.max_depth),
+           "bdpt": BDPTConfig(spp=args.spp),
+           "ao": AOConfig(spp=args.spp)}[args.integrator]
+    render_fn = {"path": render, "bdpt": render_bdpt, "ao": render_ao}[args.integrator]
     target = torch.zeros((args.res, args.res, 3), device=dev)
 
     def forward():
         """The forward: a render, or the loss with the graph recorded."""
         if not args.backward:
-            return render(scene, sc.camera, cfg, seed=0), None
+            return render_fn(scene, sc.camera, cfg, seed=0), None
         p = scene_params(scene)
         p["tex_value"].requires_grad_(True)
         return loss_and_image(apply_params(scene, p), sc.camera, cfg, target)[0], p
@@ -151,7 +176,8 @@ def main(argv=None):
         "card": card,
         "workload": (
             f"{args.scene} {scene.n_tris} tris, intersector {scene.intersector}, "
-            f"{args.res}x{args.res} spp {args.spp} depth {args.max_depth}"
+            f"{args.integrator}, {args.res}x{args.res} spp {args.spp}"
+            + (f" depth {args.max_depth}" if args.integrator == "path" else f" {cfg}")
             + (", fwd+bwd of the bench loss" if args.backward else "")
         ),
         "wall_ms_unprofiled": plain_wall_ms,
