@@ -2,31 +2,26 @@
 
 Usage: python -m akari_torch.cli.render -i scene.akari [-o out.png]
        [--spp N] [--max-depth D] [--intersector auto|dense|tree|brute]
-       [--width W] [--height H] [--ao] [--seed S] [--device cuda|cpu] [-v]
+       [--spectrum-dtype float32|bfloat16] [--width W] [--height H] [--ao]
+       [--seed S] [--device cuda|cpu] [--profile] [-v]
 
 The scene's integrator picks the path tracer, ``AO`` or ``BDPT``; ``--ao``
-renders ambient occlusion whatever the scene names. ``--device`` defaults
-to ``cuda`` and never falls back: without a CUDA device, ``--device cuda``
-fails with an error.
+renders ambient occlusion whatever the scene names. ``--spectrum-dtype
+bfloat16`` carries the path tracer's radiance and throughput in bfloat16
+(``utils/config.py``; AO and BDPT run float32). ``--profile`` prints a
+table of the render and image-write spans (``utils/profiler.py``), each
+timed to the end of its device work. ``--device`` defaults to ``cuda``
+and never falls back: without a CUDA device, ``--device cuda`` fails with
+an error.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
-import logging
 import sys
 import time
-
-
-def _logger(verbose):
-    log = logging.getLogger("akari_torch")
-    if not log.handlers:
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter("[%(levelname)s] %(message)s"))
-        log.addHandler(h)
-    log.setLevel(logging.INFO if verbose else logging.WARNING)
-    return log
 
 
 def main(argv=None):
@@ -37,6 +32,10 @@ def main(argv=None):
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--intersector", default="auto",
                     choices=["auto", "dense", "tree", "brute"])
+    ap.add_argument("--spectrum-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="numeric variant of the path tracer's radiance and "
+                         "throughput")
     ap.add_argument("--width", type=int, default=None,
                     help="override output width (camera resolution)")
     ap.add_argument("--height", type=int, default=None,
@@ -45,9 +44,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print a per-span timing table after rendering")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
-    log = _logger(args.verbose)
+
+    from ..utils.logger import get_logger, set_verbose
+
+    log = get_logger()
+    set_verbose(args.verbose)
 
     import torch
 
@@ -64,8 +69,11 @@ def main(argv=None):
     from ..integrators.bdpt import BDPTConfig, render_bdpt
     from ..integrators.path import PathConfig, render
     from ..scene import sdl
+    from ..utils.config import RGB_BF16, variant_string
+    from ..utils.profiler import Profiler
 
     log.info(f"parsing {args.input}")
+    t0 = time.perf_counter()
     try:
         module = sdl.parse_file(args.input)
     except FileNotFoundError:
@@ -78,6 +86,7 @@ def main(argv=None):
     if scene_node is None:
         log.error("no exported 'scene' found")
         return 1
+    log.info(f"parsed in {time.perf_counter() - t0:.3f}s")
 
     t0 = time.perf_counter()
     scene = scene_node.compile(intersector=args.intersector).to(device)
@@ -93,29 +102,49 @@ def main(argv=None):
         f"intersector {scene.intersector} ({time.perf_counter() - t0:.2f}s) on {device}"
     )
 
+    prof = Profiler() if args.profile else None
+
+    def frame(name):
+        return prof.frame(name) if prof else contextlib.nullcontext()
+
     cfg = scene_node.integrator or PathConfig()
+    if args.spectrum_dtype != "float32" and (
+        args.ao or isinstance(cfg, (AOConfig, BDPTConfig))
+    ):
+        log.warning(
+            f"--spectrum-dtype {args.spectrum_dtype} only applies to the "
+            "path integrator; the AO/BDPT integrators run float32"
+        )
     if args.ao and not isinstance(cfg, AOConfig):
         cfg = AOConfig(spp=args.spp or 16)
     if args.spp:
         cfg = dataclasses.replace(cfg, spp=args.spp)
     t0 = time.perf_counter()
     if isinstance(cfg, AOConfig):
-        img = render_ao(scene, camera, cfg, seed=args.seed)
+        with frame("render/ao"):
+            img = render_ao(scene, camera, cfg, seed=args.seed).cpu().numpy()
     elif isinstance(cfg, BDPTConfig):
-        img = render_bdpt(scene, camera, cfg, seed=args.seed)
+        with frame("render/bdpt"):
+            img = render_bdpt(scene, camera, cfg, seed=args.seed).cpu().numpy()
     else:
         if args.max_depth:
             cfg = dataclasses.replace(cfg, max_depth=args.max_depth)
-        img = render(scene, camera, cfg, seed=args.seed)
-    img = img.cpu().numpy()
+        if args.spectrum_dtype != "float32":
+            cfg = dataclasses.replace(cfg, dtypes=RGB_BF16)
+            log.info(f"variant: {variant_string(cfg.dtypes)}")
+        with frame("render/path"):
+            img = render(scene, camera, cfg, seed=args.seed).cpu().numpy()
     dt = time.perf_counter() - t0
     paths = cfg.spp * camera.width * camera.height
     log.info(f"{type(cfg).__name__} render done took ({dt:.3f}s)  "
              f"[{paths / dt / 1e6:.2f} Mpaths/s]")
 
     out = args.output or scene_node.output
-    write_png(out, img)
+    with frame("write_image"):
+        write_png(out, img)
     log.info(f"wrote {out}")
+    if prof:
+        prof.print_stats()
     return 0
 
 

@@ -83,6 +83,10 @@ class V3(NamedTuple):
         return self * inv
 
     # -- boundary conversions ------------------------------------------------
+    def astype(self, dtype):
+        """Components cast to ``dtype`` (no copy where they have it)."""
+        return V3(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
+
     def stack(self):
         """-> [N, 3] (film/API boundary only; never inside the hot loop)."""
         return torch.stack(

@@ -89,7 +89,8 @@ class _Clip(torch.autograd.Function):
             g = g * _balanced(m, hi, m < hi)
         if lo is not None:
             g = g * _balanced(x, lo, x > lo)
-        return g, None, None
+        # the float32 factors are 1, 1/2 or 0: exact in x's dtype too
+        return g.to(x.dtype), None, None
 
 
 class _Abs(torch.autograd.Function):

@@ -2,10 +2,14 @@
 (``akari_tpu/diff/inverse.py``).
 
 The optimizable leaves are ``TextureTable.value`` (constant colors: albedo
-and emitter radiance) and, on flat scenes, ``tri_delta``, a per-triangle
-world-space translation. Gradients run through the renderer under the
-detached-hit convention (integrators/path.py). Image texels
-(``tex_images``) arrive with slice 4b, the sharded loss with slice 6.
+and emitter radiance, and the multipliers of image textures),
+``TextureTable.images`` (``tex_images``, the image texels) and, on flat
+scenes, ``tri_delta``, a per-triangle world-space translation. Gradients
+run through the renderer under the detached-hit convention
+(integrators/path.py); a texel's gradient is the scatter-add
+(``index_add``) of the four ``index_select`` fetches of
+``shading/texture.py::_bilinear``, so padding texels get none. The
+sharded loss arrives with slice 6.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ LOG_MIN, LOG_MAX = math.log(1e-4), math.log(1e4)
 class InverseConfig:
     iterations: int = 100
     learning_rate: float = 5e-2
-    optimize_images: bool = False  # image-texture texels: slice 4b
+    optimize_images: bool = False  # also optimize image-texture texels
     seed: int = 0
     # "constant" | "cosine": cosine decays the lr to 5 % over the run
     lr_schedule: str = "constant"
@@ -34,13 +38,9 @@ class InverseConfig:
     spp_ramp: tuple = ()
     # EMA of the iterates from half the run on; 0 disables
     param_ema: float = 0.0
-    # "linear" | "log": texture values optimized in log space (tri_delta,
-    # signed, stays linear)
+    # "linear" | "log": texture values and texels optimized in log space
+    # (tri_delta, signed, stays linear)
     param_space: str = "linear"
-
-
-def _refuse_images():
-    raise NotImplementedError("image texels (tex_images) arrive with slice 4b")
 
 
 def _refuse_two_level():
@@ -55,7 +55,8 @@ def _refuse_two_level():
 def scene_params(scene, optimize_images=False, optimize_geometry=False):
     """The optimizable parameters of a compiled scene as a dict of fresh
     leaf tensors on the scene's device (the caller sets
-    ``requires_grad``): ``tex_value`` [X, 3] and, with
+    ``requires_grad``): ``tex_value`` [X, 3]; with ``optimize_images``,
+    ``tex_images`` [I, Hm, Wm, 3], the stacked padded linear texels; with
     ``optimize_geometry``, ``tri_delta`` [T, 3] zeros.
 
     Through the render alone, ``tri_delta`` gets the interior term; the
@@ -63,9 +64,9 @@ def scene_params(scene, optimize_images=False, optimize_geometry=False):
     the image inside the loss. The traversal tables are built for the
     undisplaced geometry: re-``compile()`` after large deltas.
     """
-    if optimize_images:
-        _refuse_images()
     params = {"tex_value": scene.textures.value.detach().clone()}
+    if optimize_images:
+        params["tex_images"] = scene.textures.images.detach().clone()
     if optimize_geometry:
         if scene.instances is not None:
             _refuse_two_level()
@@ -81,9 +82,9 @@ def apply_params(scene, params):
     do."""
     for k, v in params.items():
         check_device(v, scene.device, f"parameter {k!r}")
-    if "tex_images" in params:
-        _refuse_images()
     tex = dataclasses.replace(scene.textures, value=params["tex_value"])
+    if "tex_images" in params:
+        tex = dataclasses.replace(tex, images=params["tex_images"])
     scene = dataclasses.replace(scene, textures=tex)
     if "tri_delta" in params:
         if scene.instances is not None:
@@ -105,17 +106,16 @@ def cosine_lr(lr, step, total, alpha=0.05):
 
 
 def inverse_render(scene, camera, render_cfg, target, cfg=None):
-    """Adam loop fitting the texture values to ``target`` [H, W, 3] on the
+    """Adam loop fitting the texture values (and, with
+    ``cfg.optimize_images``, the texels) to ``target`` [H, W, 3] on the
     scene's device. Returns (recovered_scene, losses, final_image); each
     iteration renders with seed ``cfg.seed + it``, and the final image is
     the last iteration's render.
     """
     cfg = cfg or InverseConfig()
-    if cfg.optimize_images:
-        _refuse_images()
     check_device(target, scene.device, "the target image")
     log_space = cfg.param_space == "log"
-    params = scene_params(scene)
+    params = scene_params(scene, cfg.optimize_images)
     if log_space:
         params = {k: torch.log(torch.clamp(v, min=1e-4)) for k, v in params.items()}
     for v in params.values():

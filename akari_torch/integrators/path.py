@@ -44,6 +44,7 @@ from ..core.vecmath import abs_, clip, maximum, minimum
 from ..ops.intersect import T_MAX, intersect_soa, occlude_soa
 from ..scene import geom
 from ..shading import soa
+from ..utils.config import RGB, DtypePolicy
 
 RAY_EPS = 1e-4
 SHADOW_EPS = 1e-3
@@ -51,11 +52,14 @@ SHADOW_EPS = 1e-3
 
 @dataclass(frozen=True)
 class PathConfig:
-    """Path-tracer settings; float32 RGB throughout (the bf16 spectrum
-    variant arrives with slice 4b).
+    """Path-tracer settings.
 
     mis: True = NEE + MIS; False = NEE only with depth-0 emission (the
     reference renderer's estimator); "bsdf" = BSDF sampling only.
+    dtypes: the numeric variant (``utils/config.py``): L and beta are
+    carried from bounce to bounce in ``dtypes.spectrum`` (the arithmetic
+    inside a bounce promotes to float32, as in the reference) and L is
+    cast to ``dtypes.accum`` before the clamp.
     """
 
     spp: int = 4
@@ -70,6 +74,7 @@ class PathConfig:
     # no query. No effect when no gradient is recorded. The port has no
     # ``unroll``: its bounce loop is a Python loop, the unrolled form.
     remat: bool = False
+    dtypes: DtypePolicy = RGB
 
 
 def camera_rays_soa(camera, seed, sample_idx, pixel_idx):
@@ -242,8 +247,9 @@ def trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx,
     o, d = camera_rays_soa(camera, seed, sample_idx, pixel_idx)
     n = o.x.shape[0]
     dev = o.x.device
-    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    one = torch.ones((n,), dtype=torch.float32, device=dev)
+    sdt = cfg.dtypes.spectrum
+    zero = torch.zeros((n,), dtype=sdt, device=dev)
+    one = torch.ones((n,), dtype=sdt, device=dev)
     L = V3(zero, zero, zero)
     beta = V3(one, one, one)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -257,6 +263,7 @@ def trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx,
             intersect_fn, occlude_fn, fused_fn,
         )
     L = _emission_term(scene, cfg, state, cfg.max_depth)
+    L = L.astype(cfg.dtypes.accum)
 
     Ls = L.stack()
     if cfg.ray_clamp > 0.0:
@@ -364,7 +371,9 @@ def _bounce_step(scene, cfg, seed, sample_idx, pixel_idx, state, bounce,
         hit = intersect_fn(o, d)
     if do_nee:
         L = L + nee_contrib * ((useful & ~occluded) * w_nee)
-    return (hit, o, d, L, beta, ok, pdf)
+    # the carried spectrum state goes back to the variant's dtype (the
+    # arithmetic above promotes a bfloat16 carry to float32)
+    return (hit, o, d, L.astype(cfg.dtypes.spectrum), beta, ok, pdf)
 
 
 def _shade_vertex(scene, cfg, seed, sample_idx, pixel_idx, state, *, bounce, do_nee):
@@ -450,7 +459,7 @@ def _shade_vertex(scene, cfg, seed, sample_idx, pixel_idx, state, *, bounce, do_
 
     o = p + wi * (RAY_EPS / maximum(abs_(ng.dot(wi)), 1e-4))
     ext_tmax = torch.where(ok, T_MAX, 0.0)
-    return L, beta, ok, pdf, o, wi, ext_tmax, nee
+    return L, beta.astype(cfg.dtypes.spectrum), ok, pdf, o, wi, ext_tmax, nee
 
 
 # Max rays in one wavefront: bounds the live per-ray state while keeping

@@ -1,5 +1,5 @@
-"""Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box, the
-procedural terrain, two instanced scenes of one terrain prototype, and
+"""Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box and
+its textured variant, the procedural terrain, two instanced scenes of one terrain prototype, and
 the env-lit textured terrain written as scene files (OBJ + MTL + PNG +
 .hdr + .akari) for the CLI.
 
@@ -34,6 +34,47 @@ def cornell_box(width=256, height=256, fov_deg=15.0):
     c2w = xform.translate((0.0, 1.0, 9.0))  # identity rotation, looks down -Z
     cam = make_camera(c2w, fov_deg, width, height)
     return Scene(shapes=[mesh], camera=cam)
+
+
+def checker_texture(res=64, seed=0, cell=8):
+    """A seeded [res, res, 3] float32 checker: cells of ``cell`` texels
+    alternating between two seeded colours, each texel scaled by a seeded
+    factor in [0.9, 1.1] (every value in [0.09, 0.99])."""
+    r = np.random.default_rng(seed)
+    a = r.uniform(0.5, 0.9, 3)
+    b = r.uniform(0.1, 0.4, 3)
+    iy, ix = np.indices((res, res))
+    odd = ((iy // cell + ix // cell) % 2 == 1)[..., None]
+    img = np.where(odd, a, b) * r.uniform(0.9, 1.1, (res, res, 1))
+    return img.astype(np.float32)
+
+
+def texture_cornell_mesh(mesh, image, nodes=None):
+    """``tests/test_textures.py``'s recipe on a Cornell box mesh: every
+    non-emissive material becomes a diffuse one whose albedo is one shared
+    ``ImageTexture`` of ``image``, and the corner uvs are planar, (x, y) *
+    0.5 + 0.5. ``nodes`` is the module of the node types (default this
+    package's ``scene.nodes``), so a test can texture the JAX package's
+    mesh with its own nodes."""
+    if nodes is None:
+        from . import nodes
+    checker = nodes.ImageTexture(image=image)
+    mesh.materials = [
+        m if isinstance(m, nodes.EmissiveMaterial) else nodes.DiffuseMaterial(color=checker)
+        for m in mesh.materials
+    ]
+    p = np.asarray(mesh.vertices)[np.asarray(mesh.indices)]  # [F, 3, 3]
+    mesh.corner_uvs = (p[..., [0, 1]] * 0.5 + 0.5).astype(np.float32)
+    return mesh
+
+
+def textured_cornell_box(width=256, height=256, tex_res=64, seed=0, fov_deg=15.0):
+    """The Cornell box with every diffuse albedo a seeded ``tex_res``²
+    checker image (``checker_texture``), planar uvs; the camera of
+    ``cornell_box``. The scene of the texel-recovery runs."""
+    sc = cornell_box(width, height, fov_deg)
+    texture_cornell_mesh(sc.shapes[0], checker_texture(tex_res, seed))
+    return sc
 
 
 def terrain_mesh(n=512, seed=0):

@@ -1,10 +1,9 @@
 """SDL node registry: Type names -> scene-node factories.
 
 Counterpart of ``akari_tpu/scene/sdl_nodes.py``: ``PerspectiveCamera``,
-``AkariMesh`` (OBJ), ``OBJMesh``, ``Instance``, the material nodes with
-constant or image-file textures, ``EnvMap``, the ``Path``, ``AO`` and
-``BDPT`` integrators and ``Scene``. Binary mesh caches raise
-``NotImplementedError`` naming slice 7.
+``AkariMesh`` (binary mesh cache or OBJ), ``OBJMesh``, ``Instance``, the
+material nodes with constant or image-file textures, ``EnvMap``, the
+``Path``, ``AO`` and ``BDPT`` integrators and ``Scene``.
 """
 
 from __future__ import annotations
@@ -121,14 +120,25 @@ def _load_obj_mesh(path, base_dir, materials=()):
 
 @register_node("AkariMesh")
 def _akari_mesh(fields, base_dir="."):
-    """AkariMesh{path, materials[]} over an OBJ file. Binary mesh caches
-    (.npz / .mesh) arrive with slice 7."""
+    """AkariMesh{path, materials[]} over a binary mesh cache (``.npz`` /
+    ``.mesh``, ``scene/meshcache.py``) or an OBJ file. A ``.mesh`` path
+    also finds ``<path>.npz``; without a cache, the sibling OBJ named by
+    dropping ``.mesh`` (``model.obj.mesh`` -> ``model.obj``) is parsed;
+    otherwise ``FileNotFoundError``."""
+    from . import meshcache
+
     path = fields["path"]
-    if path.endswith((".npz", ".mesh")):
-        raise NotImplementedError(
-            f"mesh cache {path!r}: binary mesh caches arrive with slice 7"
-        )
-    return _load_obj_mesh(path, base_dir, fields.get("materials", []))
+    full = path if os.path.isabs(path) else os.path.join(base_dir, path)
+    materials = fields.get("materials", [])
+    if full.endswith((".npz", ".mesh")):
+        cache_path = full if os.path.exists(full) else full + ".npz"
+        if os.path.exists(cache_path):
+            return meshcache.load_mesh(cache_path, materials)
+        obj_path = full[: -len(".mesh")] if full.endswith(".mesh") else full
+        if os.path.exists(obj_path):
+            return _load_obj_mesh(os.path.abspath(obj_path), base_dir, materials)
+        raise FileNotFoundError(full)
+    return _load_obj_mesh(path, base_dir, materials)
 
 
 @register_node("OBJMesh")

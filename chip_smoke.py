@@ -134,13 +134,41 @@ Phases (each checks its results; any failure exits non-zero):
     dense kernels and through their plain versions on the card (radiance
     bit-equal, the splat film within ``SPLAT_TOL``); one env-lit
     ``instanced-forest128`` frame (instanced tree launches only, lit);
-29. the result: a JSON line of kernel records (the dense records on the
+29. the bfloat16 variant: phase 5's Cornell box at 1024^2 x 16 spp, depth 5,
+    in ``RGB_BF16`` and in ``RGB`` in one call: frame time (CUDA events),
+    CUDA launches (profiler), dense launches, peak memory and the mean
+    relative image delta against float32; the CLI with ``--spectrum-dtype
+    bfloat16`` (the variant logged, its image equal to ``render``'s); the
+    64x64 bfloat16 golden (tests/data/torch_port_cornell64_spp4_d5_bf16.npy);
+30. progressive: ``render_progressive`` on phase 9's host compile of the
+    2,093,060-triangle terrain, 256^2 x 64 spp, ``spp_chunk=4``,
+    ``checkpoint_every=4``: an uninterrupted run (6 tree closest launches a
+    chunk, wall time per chunk, checkpoint write time); a run preempted
+    just after its checkpoint at 32 spp and resumed from it (bit-equal to
+    the uninterrupted image, launches of the 8 chunks left); one pass of 64
+    spp (rtol 1e-5, atol 1e-6);
+31. the mesh cache: ``akari_torch.cli.importer`` on phase 27's terrain OBJ
+    (written again), then the CLI at 256^2 x 4 spp on a scene importing
+    the generated ``.akari`` and on the OBJ scene: parse time and time to
+    first image of both routes, 6 tree launches each, bit-equal images;
+32. texel recovery: the textured Cornell box at 128^2 x 4 spp, depth 3, its
+    texels and values at 0.4x: 50 ``inverse_render`` iterations with
+    ``optimize_images=True`` in log space (the loss at seed 0 falls below
+    ``RECOVERY_LOSS_RATIO`` of its start); the step's quartiles, forward
+    and backward CUDA launches (dense launches in the forward only) and
+    the ``index_add`` share of the backward's device time; the 64x64
+    ``tex_images`` gradient against the JAX package's
+    (tests/data/torch_port_texgrad_cornell64.npz, ``GOLDEN_GRAD_TOL``) and
+    the plain route's (``GRAD_TOL``);
+33. the CLI with ``--profile -v``: the span table (render/path,
+    write_image) within the CLI's wall time, elapsed-stamped log lines;
+34. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
     the tree records' errors cover phases 6, 24, 26 and 27), then the
     device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-28) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-33) sets the
 kernels' launch counts to 0 just before its run and reads them just after.
 
 Every kernel source (and the native BVH builder) is built at start, one
@@ -219,6 +247,13 @@ BDPT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_bdpt_cornell64_spp
 AO_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_ao_terrain64_spp16.npy")
 BDPT_SPP = 64                    # BASELINE.json config 5
 TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
+BF16_SPP = 16                    # phase 29's frames: Cornell 1024^2 (phase 5's scene)
+BF16_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_cornell64_spp4_d5_bf16.npy")
+BF16_DELTA_MAX = 0.02            # mean |bf16 - f32| / mean |f32| of the 1024^2 frames
+PROG_SPP, PROG_STOP = 64, 32     # phase 30: samples, and where the interrupted run stops
+RECOVERY_RES, RECOVERY_ITERS = 128, 50
+RECOVERY_LOSS_RATIO = 0.3        # phase 32: the loss falls below this share of its start (CPU: 0.210)
+TEXGRAD_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_texgrad_cornell64.npz")
 
 
 def log(msg):
@@ -1364,6 +1399,389 @@ def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
     return out
 
 
+@contextlib.contextmanager
+def captured_write_png():
+    """Keep the float image each ``write_png`` call writes (the CLI writes
+    its render through it): ``images`` lists them in call order."""
+    from akari_torch.core import image
+
+    real = image.write_png
+    images = []
+
+    def keep(path, img):
+        images.append(img)
+        return real(path, img)
+
+    image.write_png = keep
+    try:
+        yield images
+    finally:
+        image.write_png = real
+
+
+@contextlib.contextmanager
+def log_records():
+    """The port logger's messages during the block, each with its
+    elapsed-time stamp as the CLI prints it."""
+    import io
+    import logging
+
+    from akari_torch.utils.logger import _ElapsedFormatter, add_handler, get_logger
+
+    buf = io.StringIO()
+    h = logging.StreamHandler(buf)
+    h.setFormatter(_ElapsedFormatter())
+    add_handler(h)
+    try:
+        yield buf
+    finally:
+        get_logger().removeHandler(h)
+
+
+def parsed_seconds(text):
+    """The CLI's ``parsed in X s`` figure from its log text."""
+    import re
+
+    m = re.findall(r"parsed in ([0-9.]+)s", text)
+    check(len(m) == 1, f"no single 'parsed in' line in the CLI log: {m}")
+    return float(m[0])
+
+
+def slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render):
+    """Phases 29-33: the bfloat16 variant, progressive checkpointed renders,
+    the mesh cache and importer, texel recovery and the CLI's --profile;
+    returns the launch counts of the new paths."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from akari_torch.cli import importer
+    from akari_torch.diff.inverse import InverseConfig, apply_params, inverse_render, scene_params
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.integrators import progressive
+    from akari_torch.integrators.path import PathConfig, render
+    from akari_torch.integrators.progressive import render_progressive
+    from akari_torch.ops import dense_intersect as di
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.parallel.render import loss_and_image
+    from akari_torch.scene import meshcache
+    from akari_torch.scene.builtin import cornell_box, textured_cornell_box
+    from akari_torch.utils import profiler
+    from akari_torch.utils.checkpoint import load_render_state
+    from akari_torch.utils.config import RGB, RGB_BF16, variant_string
+
+    out = {}
+
+    def launches():
+        return {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                for n, c in m.LAUNCHES.items() if c}
+
+    # ---- phase 29: the bfloat16 spectrum variant ----------------------------------
+    t_phase = time.perf_counter()
+    res = sc1k.camera.width
+    log(f"phase 29: Cornell {res}^2 x {BF16_SPP} spp depth 5 in RGB_BF16 and RGB, one call "
+        f"[card: {card}]")
+    frames = {}
+    for policy in (RGB_BF16, RGB):
+        cfg = PathConfig(spp=BF16_SPP, max_depth=5, dtypes=policy)
+        img, ms, wall, peak = render_frame(render, scene1k, sc1k.camera, cfg, torch)
+        ev, _ = device_events(lambda: render(scene1k, sc1k.camera, cfg, seed=0))
+        reset_all(traversal)
+        render(scene1k, sc1k.camera, cfg, seed=0)
+        torch.cuda.synchronize()
+        got = launches()
+        frames[variant_string(policy)] = (img.cpu().numpy(), ms, len(ev), peak, got)
+        frame_line(f"{variant_string(policy)} {res}^2 spp {BF16_SPP} depth 5", ms, wall, peak,
+                   res, cfg, card)
+        log(f"    CUDA launches {len(ev)}; traversal launches {got}")
+        n_px = res * res
+        chunk = max(1, min(cfg.spp, path_mod.MAX_RAYS_IN_FLIGHT // n_px))
+        check(got == {"dense_intersect.closest": -(-cfg.spp // chunk) * (1 + cfg.max_depth)},
+              f"{variant_string(policy)} launches {got}")
+    bf, f32 = frames["rgb-bfloat16-float32"], frames["rgb-float32-float32"]
+    delta = float(np.abs(bf[0] - f32[0]).mean() / np.abs(f32[0]).mean())
+    log(f"  | variant | s/frame | CUDA launches | peak GiB | mean rel. image delta |")
+    for name_, (_, ms, n_ev, peak, _) in frames.items():
+        log(f"  | {name_} | {ms / 1e3:.4f} | {n_ev} | {peak:.3f} | "
+            f"{delta if name_.startswith('rgb-bf') else 0.0:.6f} | [card: {card}]")
+    check(0.0 < delta < BF16_DELTA_MAX, f"bf16 mean relative image delta {delta}")
+    check_image(bf[0], res, "bf16 Cornell")
+    out["bf16_dense_closest"] = bf[4]["dense_intersect.closest"]
+    with tempfile.TemporaryDirectory() as tmp, log_records() as logbuf, \
+            captured_write_png() as written:
+        png = os.path.join(tmp, "bf16.png")
+        reset_all(traversal)
+        rc = cli_render.main(["-i", SCENE_FILE, "-o", png, "--device", "cuda", "--width", "256",
+                              "--height", "256", "--spp", "4", "--max-depth", "5",
+                              "--spectrum-dtype", "bfloat16"])
+        check(rc == 0, f"CLI --spectrum-dtype bfloat16 returned {rc}")
+        px = png_pixels(png)
+    sc256 = cornell_box(256, 256)
+    want = render(sc256.compile().to(dev), sc256.camera,
+                  PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16), seed=0).cpu().numpy()
+    check("variant: rgb-bfloat16-float32" in logbuf.getvalue(), "the CLI did not log the variant")
+    check(np.array_equal(written[0], want), "CLI bf16 image differs from render's")
+    log(f"  CLI --spectrum-dtype bfloat16: variant logged, image equal to render's bit for "
+        f"bit, PNG mean {px.mean():.1f}/255, launches {launches()}")
+    sc64 = cornell_box(64, 64)
+    img64 = render(sc64.compile().to(dev), sc64.camera,
+                   PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16), seed=0)
+    images_match(img64.cpu().numpy(), np.load(BF16_GOLDEN))
+    log(f"  phase 29: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 30: progressive, checkpointed, resumed ---------------------------------
+    t_phase = time.perf_counter()
+    cfg = PathConfig(spp=PROG_SPP, max_depth=5)
+    chunk = 4
+    n_chunks = PROG_SPP // chunk
+    log(f"phase 30: render_progressive on phase 9's terrain n=1024, "
+        f"{sc1m.camera.width}^2 x {PROG_SPP} spp depth 5, spp_chunk {chunk}, checkpoint every "
+        f"4 chunks; stopped at {PROG_STOP} spp and resumed [card: {card}]")
+    t0 = time.perf_counter()
+    scene1m = host1m[0].to(dev)
+    torch.cuda.synchronize()
+    log(f"  phase 9's host compile copied to the card in {time.perf_counter() - t0:.2f} s")
+    cam = sc1m.camera
+    real_render, real_save = progressive.render, progressive.save_render_state
+    chunk_s, save_s = [], []
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img_ = real_render(*a, **k)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t)
+        return img_
+
+    class Preempted(Exception):
+        pass
+
+    def timed_save(path, acc, done, seed, meta, stop_at=None):
+        t = time.perf_counter()
+        real_save(path, acc, done, seed, meta)
+        save_s.append(time.perf_counter() - t)
+        if done == stop_at:
+            raise Preempted
+
+    kw = dict(seed=0, spp_chunk=chunk, checkpoint_every=4, progress=False)
+    render_progressive(scene1m, cam, PathConfig(spp=chunk, max_depth=5), **kw)  # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_a, ck_b = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+        progressive.render, progressive.save_render_state = timed_render, timed_save
+        try:
+            reset_all(traversal)
+            t0 = time.perf_counter()
+            full = render_progressive(scene1m, cam, cfg, checkpoint_path=ck_a, **kw)
+            full_s = time.perf_counter() - t0
+            got_full = launches()
+            per_chunk, saves = list(chunk_s), list(save_s)
+            progressive.save_render_state = lambda *a: timed_save(*a, stop_at=PROG_STOP)
+            try:
+                render_progressive(scene1m, cam, cfg, checkpoint_path=ck_b, **kw)
+                check(False, "the interrupted run was not stopped")
+            except Preempted:
+                pass
+            check(load_render_state(ck_b)[1] == PROG_STOP, "no checkpoint at the stop")
+            progressive.save_render_state = timed_save
+            reset_all(traversal)
+            resumed = render_progressive(scene1m, cam, cfg, checkpoint_path=ck_b, **kw)
+            got_resumed = launches()
+        finally:
+            progressive.render, progressive.save_render_state = real_render, real_save
+        one_pass = render_progressive(scene1m, cam, cfg, seed=0, spp_chunk=PROG_SPP,
+                                      progress=False)
+    log(f"  uninterrupted: {full_s:.3f} s wall, {n_chunks} chunks, per chunk median "
+        f"{1e3 * float(np.median(per_chunk)):.2f} ms (min {1e3 * min(per_chunk):.2f}, max "
+        f"{1e3 * max(per_chunk):.2f}); {len(saves)} checkpoints, write median "
+        f"{1e3 * float(np.median(saves)):.2f} ms (max {1e3 * max(saves):.2f}); launches "
+        f"{got_full} [card: {card}]")
+    check(got_full == {"tree_intersect.closest": 6 * n_chunks},
+          f"progressive launches {got_full}, expected 6 a chunk")
+    check(got_resumed == {"tree_intersect.closest": 6 * (PROG_SPP - PROG_STOP) // chunk},
+          f"resumed launches {got_resumed}")
+    check(np.array_equal(resumed, full), "the resumed render differs from the uninterrupted one")
+    np.testing.assert_allclose(one_pass, full, rtol=1e-5, atol=1e-6)
+    check_image(full, cam.width, "progressive terrain n=1024")
+    log(f"  resumed from {PROG_STOP} spp: bit-equal to the uninterrupted image, launches "
+        f"{got_resumed}; one pass of {PROG_SPP} spp within rtol 1e-5, atol 1e-6 "
+        f"(max |diff| {float(np.abs(one_pass - full).max()):.3g})")
+    out["progressive_tree_closest"] = got_full["tree_intersect.closest"]
+    del scene1m
+    torch.cuda.empty_cache()
+    log(f"  phase 30: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 31: the mesh cache and the importer -----------------------------------
+    t_phase = time.perf_counter()
+    log(f"phase 31: importer on the n=1024 terrain OBJ, then the CLI on the generated .akari "
+        f"and on the OBJ scene, {cam.width}^2 x 4 spp [card: {card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        obj_scene = write_terrain_obj(tmp, sc1m, cam.width, 4, 5)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(importer.main([os.path.join(tmp, "terrain.obj"), "-o",
+                             os.path.join(tmp, "imported")]) == 0, "the importer failed")
+        import_s = time.perf_counter() - t0
+        cache_mb = os.path.getsize(os.path.join(tmp, "imported", "terrain.mesh.npz")) / 1e6
+        with open(obj_scene) as f:
+            text = f.read()
+        obj_line = 'export mesh = AkariMesh { path: "terrain.obj" }\n'
+        check(obj_line in text, "unexpected terrain scene text")
+        cached_scene = os.path.join(tmp, "cached.akari")
+        with open(cached_scene, "w") as f:
+            f.write('import "imported/terrain.akari" as t\n'
+                    + text.replace(obj_line, "export mesh = $t.mesh\n"))
+        routes = {}
+        for route, path in (("cache", cached_scene), ("obj", obj_scene)):
+            meshcache.clear_cache()
+            reset_all(traversal)
+            with log_records() as logbuf, captured_write_png() as written:
+                t0 = time.perf_counter()
+                rc = cli_render.main(["-i", path, "-o", os.path.join(tmp, route + ".png"),
+                                      "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            check(rc == 0, f"CLI on the {route} route returned {rc}")
+            routes[route] = (written[0], wall, parsed_seconds(logbuf.getvalue()), launches())
+    for route, (img, wall, parse, got) in routes.items():
+        log(f"  {route} route: parse {parse:.3f} s, time to first image (CLI wall: parse + "
+            f"compile + render + PNG) {wall:.2f} s, launches {got} [card: {card}]")
+        check(got == {"tree_intersect.closest": 6}, f"{route} route launches {got}")
+    log(f"  OBJ written in {write_s:.1f} s; importer {import_s:.2f} s "
+        f"(OBJ parse + {cache_mb:.1f} MB compressed cache + .akari)")
+    check(np.array_equal(routes["cache"][0], routes["obj"][0]),
+          "the cached and OBJ routes give different images")
+    check_image(routes["cache"][0], cam.width, "cached-mesh CLI")
+    log("  the cached and OBJ routes' images are bit-equal")
+    out["meshcache_tree_closest"] = routes["cache"][3]["tree_intersect.closest"]
+    log(f"  phase 31: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 32: texel recovery ------------------------------------------------------
+    t_phase = time.perf_counter()
+    rres = RECOVERY_RES
+    log(f"phase 32: textured Cornell {rres}^2 x 4 spp depth 3, texels and values at 0.4x: "
+        f"{RECOVERY_ITERS} inverse_render iterations, optimize_images, log space "
+        f"[card: {card}]")
+    sct = textured_cornell_box(rres, rres)
+    tscene = sct.compile().to(dev)
+    cfg_t = PathConfig(spp=4, max_depth=3)
+    with torch.no_grad():
+        target = render(tscene, sct.camera, dataclasses.replace(cfg_t, spp=16), seed=777)
+    tex = tscene.textures
+    bad = dataclasses.replace(tscene, textures=dataclasses.replace(
+        tex, value=tex.value * 0.4, images=tex.images * 0.4))
+    with torch.no_grad():
+        loss0 = float(loss_and_image(bad, sct.camera, cfg_t, target, seed=0)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, losses, _ = inverse_render(bad, sct.camera, cfg_t, target, InverseConfig(
+        iterations=RECOVERY_ITERS, learning_rate=0.05, optimize_images=True, param_space="log"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        loss_end = float(loss_and_image(rec, sct.camera, cfg_t, target, seed=0)[0])
+    log(f"  loss at seed 0: {loss0:.6g} -> {loss_end:.6g} ({loss_end / loss0:.4f}x, bound "
+        f"{RECOVERY_LOSS_RATIO}); {1e3 * train_s / RECOVERY_ITERS:.2f} ms an iteration (wall) "
+        f"[card: {card}]")
+    check(loss_end < RECOVERY_LOSS_RATIO * loss0,
+          f"texel recovery: loss {loss0} -> {loss_end}, bound {RECOVERY_LOSS_RATIO}x")
+
+    def texel_step(scene_):
+        p = scene_params(scene_, optimize_images=True)
+        for v in p.values():
+            v.requires_grad_(True)
+        loss, _ = loss_and_image(apply_params(scene_, p), sct.camera, cfg_t, target)
+        return loss, torch.autograd.grad(loss, [p["tex_value"], p["tex_images"]])
+
+    step_q = event_quartiles(lambda: texel_step(bad))
+    p = scene_params(bad, optimize_images=True)
+    for v in p.values():
+        v.requires_grad_(True)
+    reset_all(traversal)
+    fwd_ev, (loss_, _) = device_events(
+        lambda: loss_and_image(apply_params(bad, p), sct.camera, cfg_t, target))
+    fwd_l = launches()
+    bwd_ev, _ = device_events(lambda: torch.autograd.grad(loss_, [p["tex_value"],
+                                                                  p["tex_images"]]))
+    check(launches() == fwd_l == {"dense_intersect.closest": 1 + cfg_t.max_depth},
+          f"texel step launches: forward {fwd_l}, after the backward {launches()}")
+    bwd_busy = sum(e.device_time_total for e in bwd_ev) / 1e3
+    idx = [e for e in bwd_ev if "indexFunc" in e.name]
+    index_add = sum(e.device_time_total for e in idx) / 1e3
+    log(f"  texel step (fwd + bwd): median {step_q[1]:.3f} ms, quartiles {step_q[0]:.3f} / "
+        f"{step_q[2]:.3f} ms (CUDA events); CUDA launches forward {len(fwd_ev)}, backward "
+        f"{len(bwd_ev)}; traversal {fwd_l} in the forward, none in the backward; backward busy "
+        f"{bwd_busy:.3f} ms, index_add {len(idx)} launches {index_add:.3f} ms "
+        f"({index_add / max(bwd_busy, 1e-9):.3f} of it) [card: {card}]")
+    out["texel_dense_closest"] = fwd_l["dense_intersect.closest"]
+    gold = np.load(TEXGRAD_GOLDEN)
+    w_, h_, spp_, depth_, seed_, tres_, tseed_ = (int(v) for v in gold["config"])
+    sc64t = textured_cornell_box(w_, h_, tex_res=tres_, seed=tseed_)
+    s64t = sc64t.compile().to(dev)
+    cfg64 = PathConfig(spp=spp_, max_depth=depth_)
+    zero = torch.zeros((h_, w_, 3), device=dev)
+
+    def golden_step():
+        p_ = scene_params(s64t, optimize_images=True)
+        for v in p_.values():
+            v.requires_grad_(True)
+        loss, _ = loss_and_image(apply_params(s64t, p_), sc64t.camera, cfg64, zero, seed=seed_)
+        return loss.detach(), torch.autograd.grad(loss, [p_["tex_value"], p_["tex_images"]])
+
+    loss_k, (gv_k, gi_k) = golden_step()
+    with plain_route(di):
+        loss_p, (gv_p, gi_p) = golden_step()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    want_i = torch.from_numpy(gold["grad_tex_images"]).to(dev)
+    want_v = torch.from_numpy(gold["grad_tex_value"]).to(dev)
+    e_gold = max(rel(gi_k, want_i), rel(gv_k, want_v))
+    e_plain = max(rel(gi_k, gi_p), rel(gv_k, gv_p))
+    e_loss = abs(float(loss_k) - float(gold["loss"])) / float(gold["loss"])
+    log(f"  64^2 texel gradient: vs the JAX package's max|diff| / max|g| {e_gold:.3e} (bound "
+        f"{GOLDEN_GRAD_TOL}), loss relative {e_loss:.3e} (bound {GOLDEN_LOSS_RTOL}); kernel vs "
+        f"plain route {e_plain:.3e} (bound {GRAD_TOL}), loss "
+        f"{'bit-equal' if torch.equal(loss_k, loss_p) else 'DIFFERS'}")
+    check(e_gold <= GOLDEN_GRAD_TOL and e_loss <= GOLDEN_LOSS_RTOL,
+          f"texel gradient off the JAX package's: {e_gold}, loss {e_loss}")
+    check(e_plain <= GRAD_TOL and torch.equal(loss_k, loss_p),
+          f"texel gradient routes differ: {e_plain}")
+    log(f"  phase 32: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 33: --profile ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    log("phase 33: CLI --profile -v on the Cornell scene file, 256^2 x 4 spp")
+    table = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, log_records() as logbuf:
+        real_stderr = profiler.sys.stderr
+        profiler.sys.stderr = table
+        try:
+            t0 = time.perf_counter()
+            rc = cli_render.main(["-i", SCENE_FILE, "-o", os.path.join(tmp, "p.png"),
+                                  "--device", "cuda", "--width", "256", "--height", "256",
+                                  "--spp", "4", "--profile", "-v"])
+            wall = time.perf_counter() - t0
+        finally:
+            profiler.sys.stderr = real_stderr
+    check(rc == 0, f"CLI --profile returned {rc}")
+    rows = table.getvalue().splitlines()
+    log("  " + "\n  ".join(rows))
+    spans = {r.split()[0]: float(r.split()[2]) for r in rows[1:]}
+    check(set(spans) == {"render/path", "write_image"}, f"spans {sorted(spans)}")
+    check(sum(spans.values()) / 1e3 <= wall, f"spans {spans} exceed the CLI wall {wall}")
+    import re
+
+    stamped = re.findall(r"^\[ *\d+\.\d{3}s (?:INFO|DEBUG)\] ", logbuf.getvalue(), re.M)
+    check(len(stamped) >= 4, f"elapsed-stamped log lines: {len(stamped)}")
+    log(f"  spans sum {sum(spans.values()):.2f} ms within the CLI wall {1e3 * wall:.2f} ms; "
+        f"{len(stamped)} elapsed-stamped log lines")
+    log(f"  phase 33: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -1944,6 +2362,7 @@ def main():
 
     grad = gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1k)
     s4a = slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render)
+    s4b = slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render)
     # the any-hit rows count every path's launches: the boundary term's side
     # probes and the BDPT connections (dense), occlude_soa, BDPT and AO (tree)
     any_hit_launches["dense"] = grad["boundary_any_hit_launches"] + s4a["bdpt_dense_any_hit"]
@@ -1951,9 +2370,13 @@ def main():
     # the tree rows' errors also cover the envtex, BDPT and AO paths' own rays
     tree_err = max(tree_err, s4a["tree_err"])
     tree_occ_err = max(tree_occ_err, s4a["tree_occ_err"])
+    log(f"  launches on the new paths: bf16 frame {s4b['bf16_dense_closest']} dense closest, "
+        f"progressive 64 spp {s4b['progressive_tree_closest']} tree closest, cached-mesh CLI "
+        f"{s4b['meshcache_tree_closest']} tree closest, texel step "
+        f"{s4b['texel_dense_closest']} dense closest")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 29: result ----------------------------------------------------
+    # ---- phase 34: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -77,8 +77,16 @@ def test_apply_params_is_functional_and_refuses_what_waits():
     assert torch.equal(moved.tri_v0, before[1] + 0.25)
     assert torch.equal(moved.prim_table[:, 0:3], before[0][:, 0:3] + 0.25)
     assert torch.equal(moved.prim_table[:, 3:], before[0][:, 3:])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        scene_params(port, optimize_images=True)
+    # the texels come out as a copy of the stacked images and go back in
+    # without touching the scene given
+    pi = scene_params(port, optimize_images=True)
+    assert torch.equal(pi["tex_images"], port.textures.images)
+    assert pi["tex_images"].data_ptr() != port.textures.images.data_ptr()
+    images_before = port.textures.images.clone()
+    pi["tex_images"] += 0.5
+    with_images = apply_params(port, pi)
+    assert torch.equal(port.textures.images, images_before)
+    assert torch.equal(with_images.textures.images, images_before + 0.5)
     # devices are explicit: nothing is copied across ("meta" stands in for
     # a card here)
     with pytest.raises(ValueError, match="tri_delta"):

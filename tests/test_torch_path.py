@@ -194,7 +194,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import akari_torch.scene.sdl, akari_torch.scene.builtin\n"
         "import akari_torch.ops.dense_intersect, akari_torch.kernels.build\n"
         "import akari_torch.diff.inverse, akari_torch.diff.boundary\n"
-        "import akari_torch.parallel.render\n"
+        "import akari_torch.parallel.render, akari_torch.integrators.progressive\n"
+        "import akari_torch.utils, akari_torch.utils.checkpoint, akari_torch.core.film\n"
+        "import akari_torch.cli.importer, akari_torch.scene.meshcache\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'akari_tpu', 'ml_dtypes', 'PIL')]\n"
         "print(','.join(bad))\n"

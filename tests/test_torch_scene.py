@@ -182,13 +182,17 @@ def test_obj_loader_matches_reference():
 @pytest.mark.parametrize(
     "src, slice_name",
     [
-        ('export s = AkariMesh { path: "x.npz" }', "slice 7"),
-        ('export s = AkariMesh { path: "x.mesh" }', "slice 7"),
+        ('export s = AkariMesh { path: "x.npz" }', "x.npz"),
+        ('export s = AkariMesh { path: "x.mesh" }', "x.mesh"),
     ],
 )
-def test_unported_nodes_name_their_slice(src, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        sdl.parse_string(src)
+def test_unported_nodes_name_their_slice(src, slice_name, tmp_path):
+    """Mesh caches are ported (slice 7): a cache with neither the file nor
+    its sibling OBJ fails as in the reference, an SDLError naming the
+    missing path, not a refusal naming a slice."""
+    for mod in (sdl, ref_sdl):
+        with pytest.raises(mod.SDLError, match=slice_name):
+            mod.parse_string(src, base_dir=str(tmp_path))
 
 
 def test_unported_scene_state_is_refused():
