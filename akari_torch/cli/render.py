@@ -3,7 +3,7 @@
 Usage: python -m akari_torch.cli.render -i scene.akari [-o out.png]
        [--spp N] [--max-depth D] [--intersector auto|dense|tree|brute]
        [--spectrum-dtype float32|bfloat16] [--width W] [--height H] [--ao]
-       [--seed S] [--device cuda|cpu] [--profile] [-v]
+       [--seed S] [--device cuda|cpu] [--sharded] [--profile] [-v]
 
 The scene's integrator picks the path tracer, ``AO`` or ``BDPT``; ``--ao``
 renders ambient occlusion whatever the scene names. ``--spectrum-dtype
@@ -13,6 +13,12 @@ table of the render and image-write spans (``utils/profiler.py``), each
 timed to the end of its device work. ``--device`` defaults to ``cuda``
 and never falls back: without a CUDA device, ``--device cuda`` fails with
 an error.
+
+``--sharded`` renders the path tracer's pixels ray-sharded
+(``parallel/render.py``): under ``python -m torch.distributed.run
+--nproc-per-node=N``, one rank a process over NCCL on ``cuda`` (a card a
+rank, ``cuda:{LOCAL_RANK}``) or gloo on ``cpu``, and rank 0 writes the
+image; run directly, on a 1-rank mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import os
 import sys
 import time
 
@@ -44,6 +51,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the path tracer's pixels over the ranks of "
+                         "torch.distributed.run (rank 0 writes the image)")
     ap.add_argument("--profile", action="store_true",
                     help="print a per-span timing table after rendering")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -64,13 +74,9 @@ def main(argv=None):
         )
         return 1
 
-    from ..core.image import write_png
-    from ..integrators.ao import AOConfig, render_ao
-    from ..integrators.bdpt import BDPTConfig, render_bdpt
-    from ..integrators.path import PathConfig, render
+    from ..integrators.ao import AOConfig
+    from ..integrators.bdpt import BDPTConfig
     from ..scene import sdl
-    from ..utils.config import RGB_BF16, variant_string
-    from ..utils.profiler import Profiler
 
     log.info(f"parsing {args.input}")
     t0 = time.perf_counter()
@@ -87,6 +93,36 @@ def main(argv=None):
         log.error("no exported 'scene' found")
         return 1
     log.info(f"parsed in {time.perf_counter() - t0:.3f}s")
+    if args.sharded and (args.ao or isinstance(scene_node.integrator, (AOConfig, BDPTConfig))):
+        log.error("--sharded renders the path integrator only")
+        return 1
+
+    mesh = None
+    if args.sharded:
+        from ..parallel.mesh import initialize_distributed, make_ray_mesh
+
+        # torch.distributed.run sets WORLD_SIZE; run directly, one rank
+        mesh = (initialize_distributed(args.device) if "WORLD_SIZE" in os.environ
+                else make_ray_mesh(args.device))
+        device = mesh.device
+        log.info(f"ray mesh: rank {mesh.rank} of {mesh.size} on {device}")
+    try:
+        return _render(args, log, scene_node, device, mesh)
+    finally:
+        if mesh is not None and mesh.group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _render(args, log, scene_node, device, mesh):
+    """Compile, render and write the image (rank 0 alone on a mesh)."""
+    from ..core.image import write_png
+    from ..integrators.ao import AOConfig, render_ao
+    from ..integrators.bdpt import BDPTConfig, render_bdpt
+    from ..integrators.path import PathConfig, render
+    from ..utils.config import RGB_BF16, variant_string
+    from ..utils.profiler import Profiler
 
     t0 = time.perf_counter()
     scene = scene_node.compile(intersector=args.intersector).to(device)
@@ -132,13 +168,21 @@ def main(argv=None):
         if args.spectrum_dtype != "float32":
             cfg = dataclasses.replace(cfg, dtypes=RGB_BF16)
             log.info(f"variant: {variant_string(cfg.dtypes)}")
-        with frame("render/path"):
-            img = render(scene, camera, cfg, seed=args.seed).cpu().numpy()
+        if mesh is not None:
+            from ..parallel.render import render_sharded
+
+            with frame("render/path-sharded"):
+                img = render_sharded(scene, camera, cfg, mesh, seed=args.seed).cpu().numpy()
+        else:
+            with frame("render/path"):
+                img = render(scene, camera, cfg, seed=args.seed).cpu().numpy()
     dt = time.perf_counter() - t0
     paths = cfg.spp * camera.width * camera.height
     log.info(f"{type(cfg).__name__} render done took ({dt:.3f}s)  "
              f"[{paths / dt / 1e6:.2f} Mpaths/s]")
 
+    if mesh is not None and mesh.rank != 0:
+        return 0
     out = args.output or scene_node.output
     with frame("write_image"):
         write_png(out, img)

@@ -8,8 +8,9 @@ scenes, ``tri_delta``, a per-triangle world-space translation. Gradients
 run through the renderer under the detached-hit convention
 (integrators/path.py); a texel's gradient is the scatter-add
 (``index_add``) of the four ``index_select`` fetches of
-``shading/texture.py::_bilinear``, so padding texels get none. The
-sharded loss arrives with slice 6.
+``shading/texture.py::_bilinear``, so padding texels get none. With a ray
+mesh the loss is ``loss_and_image_sharded``, whose backward sums the
+gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..parallel.render import check_device, loss_and_image
+from ..parallel.render import check_device, loss_and_image, loss_and_image_sharded
 
 LOG_MIN, LOG_MAX = math.log(1e-4), math.log(1e4)
 
@@ -105,12 +106,18 @@ def cosine_lr(lr, step, total, alpha=0.05):
     return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
 
 
-def inverse_render(scene, camera, render_cfg, target, cfg=None):
+def inverse_render(scene, camera, render_cfg, target, cfg=None, mesh=None):
     """Adam loop fitting the texture values (and, with
     ``cfg.optimize_images``, the texels) to ``target`` [H, W, 3] on the
     scene's device. Returns (recovered_scene, losses, final_image); each
     iteration renders with seed ``cfg.seed + it``, and the final image is
     the last iteration's render.
+
+    With ``mesh`` (a ``RayMesh``; every rank calls this with the same
+    arguments) each iteration's loss is ``loss_and_image_sharded``: the
+    gradients are summed over the ranks before their non-finite entries
+    are zeroed, as the reference orders it, so every rank takes the same
+    Adam step and the parameters stay equal bit for bit.
     """
     cfg = cfg or InverseConfig()
     check_device(target, scene.device, "the target image")
@@ -140,8 +147,12 @@ def inverse_render(scene, camera, render_cfg, target, cfg=None):
         rc = next(c for start, c in reversed(phases) if it >= start)
         if cfg.lr_schedule == "cosine":
             opt.param_groups[0]["lr"] = cosine_lr(cfg.learning_rate, it, cfg.iterations)
-        loss, img = loss_and_image(apply_params(scene, to_raw(params)), camera, rc,
-                                   target, seed=cfg.seed + it)
+        fitted = apply_params(scene, to_raw(params))
+        if mesh is None:
+            loss, img = loss_and_image(fitted, camera, rc, target, seed=cfg.seed + it)
+        else:
+            loss, img = loss_and_image_sharded(fitted, camera, rc, mesh, target,
+                                               seed=cfg.seed + it)
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
         for k, g in zip(keys, grads):
             # MC gradients can hold stray non-finite lanes (the glass and

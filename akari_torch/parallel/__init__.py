@@ -1,2 +1,5 @@
-"""Rendering and the pixel loss (``akari_tpu/parallel``); one device until
-multi-GPU arrives with slice 6."""
+"""Ray-sharded rendering and the pixel loss over ``torch.distributed``
+(``akari_tpu/parallel``)."""
+
+from .mesh import initialize_distributed, make_ray_mesh
+from .render import loss_and_image_sharded, render_sharded

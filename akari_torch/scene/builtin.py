@@ -1,7 +1,8 @@
 """Built-in scenes (``akari_tpu/scene/builtin.py``): the Cornell box and
-its textured variant, the procedural terrain, two instanced scenes of one terrain prototype, and
-the env-lit textured terrain written as scene files (OBJ + MTL + PNG +
-.hdr + .akari) for the CLI.
+its textured variant, the procedural terrain, two instanced scenes of one terrain prototype, the
+env-lit textured terrain written as scene files (OBJ + MTL + PNG +
+.hdr + .akari) for the CLI, and the scene of the JAX package's
+multi-device dry run.
 
 The Cornell box asset (scenes/cornell_box/) is the public-domain data set
 by Guedis Cardenas and Morgan McGuire (Williams College, 2011).
@@ -15,7 +16,7 @@ import numpy as np
 
 from ..core import transform as xform
 from .arrays import make_camera
-from .nodes import DiffuseMaterial, EmissiveMaterial, Instance, Mesh, Scene
+from .nodes import DiffuseMaterial, EmissiveMaterial, EnvMapLight, Instance, Mesh, Scene
 from .obj import load_obj
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "scenes")
@@ -257,6 +258,31 @@ def write_envtex_terrain(directory, n=256, res=256, spp=16, depth=5, tex_res=204
             "    shapes: [ $mesh ]\n}\n"
         )
     return akari
+
+
+def dryrun_scene(width=64, height=64):
+    """The scene of the JAX package's multi-device dry run
+    (``__graft_entry__.py::dryrun_multichip``): a diffuse floor tile
+    instanced twice, an emissive quad overhead (both sides) and an 8 x 16
+    equirect sky at 0.08 with one bright texel, seen from 2.5 above. Its
+    4 + 2 triangles compile two-level only under ``FLATTEN_MAX_TRIS = 1``,
+    as the dry run forces it."""
+
+    def quad(y, half, mat):
+        v = np.asarray([[-half, y, -half], [half, y, -half], [half, y, half],
+                        [-half, y, half]], np.float32)
+        return Mesh(vertices=v, indices=np.asarray([[0, 2, 1], [0, 3, 2]], np.int32),
+                    materials=[mat])
+
+    proto = quad(0.0, 1.5, DiffuseMaterial((0.7, 0.6, 0.5)))
+    emitter = quad(4.0, 0.5, EmissiveMaterial((6.0, 6.0, 6.0), double_sided=True))
+    sky = np.full((8, 16, 3), 0.08, np.float32)
+    sky[2, 4] = (12.0, 10.0, 8.0)
+    shapes = [Instance(proto, np.asarray(xform.translate((dx, 0.0, 0.0)), np.float32))
+              for dx in (-1.5, 1.5)] + [emitter]
+    c2w = xform.translate((0.0, 2.5, 0.0)) @ xform.rotate_x(np.radians(-90.0))
+    return Scene(shapes=shapes, camera=make_camera(c2w, 60.0, width, height),
+                 environment=EnvMapLight(sky))
 
 
 def _quad(p0, p1, p2, p3):

@@ -162,14 +162,48 @@ Phases (each checks its results; any failure exits non-zero):
     the plain route's (``GRAD_TOL``);
 33. the CLI with ``--profile -v``: the span table (render/path,
     write_image) within the CLI's wall time, elapsed-stamped log lines;
-34. the result: a JSON line of kernel records (the dense records on the
+34. the bench step sharded (``loss_and_image_sharded``, the JAX package's
+    ``bench.py:43-91`` step over its ray mesh): ranks are spawned
+    processes (``akari_torch.parallel.launch.spawn_ranks``), R = 1 over
+    NCCL and R = 2 sharing the one card over gloo (NCCL refuses two ranks
+    on one GPU, so NCCL across cards is not exercised): loss (rtol 1e-5)
+    and gradient (1e-5 of max|g|) against the unsharded step on the card,
+    every rank's loss, image and gradient bit-equal, dense launches per
+    rank, each rank's first fused dense launch against the plain version
+    (prims exact, t/u/v within 2 ulp), step median of 10 after 2 warm-ups,
+    all-reduce times at the step's shapes;
+35. BASELINE.json config 5 sharded: ``render_sharded`` with
+    ``BDPTConfig(spp=64)`` on the 2,093,060-triangle terrain at 256^2, R = 2
+    (each rank compiles the terrain on the host and moves it to the card):
+    against phase 26's unsharded image (rtol 1e-5, atol 1e-5; the splat
+    within ``SPLAT_TOL``), tree launches per rank, each rank's first
+    connection group (491,520 rays) against the plain walk, wall time;
+36. ``render_progressive(mesh=...)`` on the same ranks: 16 spp in 4 chunks,
+    preempted on every rank at 8 spp after the checkpoint there and
+    resumed (tests/_sharded_ranks.py's harness; bit-equal to the
+    uninterrupted sharded run; rank 0 alone writes), each chunk timed with
+    its tree launches;
+37. the JAX package's multi-device dry run (``__graft_entry__.py``: a
+    two-level instanced floor under an env map, bf16, 64^2 x 4 spp, depth
+    5) on phase 34's R = 2 ranks: loss (rtol 1e-6) and gradient (1e-5 of
+    max|g|) against R = 1, instanced tree launches per rank, each rank's
+    first fused instanced tree launch against the plain walk;
+38. the CLI ``--sharded`` under ``torch.distributed.run
+    --nproc-per-node=1`` (NCCL) on scenes/cornell_box/scene.akari: its PNG
+    equal to the unsharded CLI's;
+39. ``tools/distributed_check_torch.py`` at R = 1 and 2 (both run beside
+    phase 38's CLI: they check results only), then ``bench_scaling_torch``
+    alone (R = 1, 2 on one card); their JSON lines logged;
+40. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26 and 27), then the
+    the tree records' errors cover phases 6, 24, 26, 27 and 35, the dense
+    and instanced tree records' those of phases 34 and 37), then the
     device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-33) sets the
-kernels' launch counts to 0 just before its run and reads them just after.
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37) sets the
+kernels' launch counts to 0 just before its run and reads them just after
+(in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder) is built at start, one
 compiler process each, all started together. Imports nothing of JAX.
@@ -254,6 +288,13 @@ PROG_SPP, PROG_STOP = 64, 32     # phase 30: samples, and where the interrupted 
 RECOVERY_RES, RECOVERY_ITERS = 128, 50
 RECOVERY_LOSS_RATIO = 0.3        # phase 32: the loss falls below this share of its start (CPU: 0.210)
 TEXGRAD_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_texgrad_cornell64.npz")
+# Phases 34-39, the ray-sharded paths at full width: the bench step's
+# Cornell box, the dry run's scene, BASELINE.json config 5 (BDPT 64 spp on
+# the 2,093,060-triangle terrain at 256^2) and a progressive render on it;
+# the CLI at the scene file's own settings; the scaling bench at its 256^2.
+SHARDED = dict(step_res=256, dryrun_res=64, terrain_n=1024, terrain_res=256, bdpt_spp=BDPT_SPP,
+               prog_spp=16, prog_chunk=4, prog_stop=8, cli_args=[])
+SHARD_TIMEOUT_S = 300.0          # each spawn of ranks, and each tool, joins within this
 
 
 def log(msg):
@@ -352,11 +393,11 @@ def compare_kernel(name, rays, mod, args, n_tris, closest="closest", any_hit="an
     t0 = time.perf_counter()
     t_k, u_k, v_k, p_k = getattr(mod, closest)(rays, *args)
     occ_k = getattr(mod, any_hit)(rays, *args)
-    torch.cuda.synchronize()
+    _sync(rays.device)
     t1 = time.perf_counter()
     t_p, u_p, v_p, p_p = getattr(mod, closest + "_plain")(rays, *args)
     occ_p = getattr(mod, any_hit + "_plain")(rays, *args)
-    torch.cuda.synchronize()
+    _sync(rays.device)
     t2 = time.perf_counter()
     check(torch.equal(p_k, p_p), f"{name}: prim differs on {int((p_k != p_p).sum())} rays")
     valid = p_k >= 0
@@ -1291,6 +1332,7 @@ def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
         f"[card: {card}]")
     out["bdpt_ms"] = ms
     out["bdpt_any_hit"] = got["tree_intersect.any_hit"]
+    out["bdpt_image"] = img_np  # phase 35's sharded frame is held against it
     # the first sample's connection group, through both kernels and their plain versions
     rays_k, args_k = calls.kept["any_hit"]
     errs.append(compare_kernel("tree BDPT connection group", rays_k, ti, args_k,
@@ -1779,6 +1821,463 @@ def slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render
     log(f"  spans sum {sum(spans.values()):.2f} ms within the CLI wall {1e3 * wall:.2f} ms; "
         f"{len(stamped)} elapsed-stamped log lines")
     log(f"  phase 33: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---- phases 34-39: ray-sharded rendering over torch.distributed -----------------
+# The rank workers below run in processes spawned by
+# akari_torch.parallel.launch.spawn_ranks: each builds what it needs from its
+# arguments (a spawned process starts from a fresh import) and returns plain
+# values; the parent checks them.
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _traversal():
+    from akari_torch.ops import cluster_intersect, dense_intersect, instanced_tree_intersect
+    from akari_torch.ops import tree_intersect
+
+    return dense_intersect, tree_intersect, instanced_tree_intersect, cluster_intersect
+
+
+def _rank_launches():
+    """{"module.kernel": launches} of the traversal kernels in this rank."""
+    return {f"{m.__name__.split('.')[-1]}.{n}": c for m in _traversal()
+            for n, c in m.LAUNCHES.items() if c}
+
+
+def _rank_reset():
+    reset_all(_traversal())
+
+
+def _sharded_step(mesh, scene, cam, cfg, target):
+    """One fwd + bwd of the sharded bench loss through ``backward()``:
+    (loss, image, d loss / d tex_value)."""
+    from akari_torch.diff.inverse import apply_params, scene_params
+    from akari_torch.parallel import loss_and_image_sharded
+
+    p = scene_params(scene)
+    p["tex_value"].requires_grad_(True)
+    loss, img = loss_and_image_sharded(apply_params(scene, p), cam, cfg, mesh, target)
+    loss.backward()
+    return loss.detach(), img.detach(), p["tex_value"].grad
+
+
+def _timed_steps(mesh, fn, iters, warmup):
+    """Host seconds of fn() on every rank, each started together after a
+    barrier and ended by a device sync, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(iters):
+        _sync(mesh.device)
+        mesh.barrier()
+        t0 = time.perf_counter()
+        fn()
+        _sync(mesh.device)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _rank_compare(mesh, what, calls, name, mod, n_tris):
+    """compare_kernel on this rank's kept launch ``calls.kept[name]``:
+    (closest-hit max |diff|, any-hit max |diff|)."""
+    import torch
+
+    rays, args = calls.kept[name]
+    with torch.no_grad():
+        return compare_kernel(f"rank {mesh.rank} of {mesh.size}: {what}", rays, mod, args,
+                              n_tris)[:2]
+
+
+def bench_step_rank(mesh, res, iters, warmup, dryrun_res):
+    """Phase 34 (and 37 with ``dryrun_res``) in one rank: the bench step
+    sharded, its launches, its first fused dense launch against the plain
+    version, step times and all-reduce times; then the dry run's bf16
+    step on its two-level scene, its first fused instanced tree launch
+    against the plain walk."""
+    import torch
+
+    from akari_torch.integrators.path import PathConfig
+    from akari_torch.ops import dense_intersect, instanced_tree_intersect
+    from akari_torch.scene import nodes
+    from akari_torch.scene.builtin import cornell_box, dryrun_scene
+    from akari_torch.utils.config import RGB_BF16
+
+    dev = mesh.device
+    sc = cornell_box(res, res)
+    scene = sc.compile(intersector="auto").to(dev)
+    cfg = PathConfig(spp=4, max_depth=5, mis=True, remat=False)
+    target = torch.zeros((res, res, 3), device=dev)
+    step = lambda: _sharded_step(mesh, scene, sc.camera, cfg, target)  # noqa: E731
+    _sync(dev)
+    mesh.barrier()
+    _rank_reset()
+    with kept_call(dense_intersect, ["closest"], keep=1) as calls:
+        loss, img, g = step()
+        _sync(dev)
+    out = {"launches": _rank_launches(), "loss": float(loss), "image": img.cpu().numpy(),
+           "grad": g.cpu().numpy(), "device": str(dev)}
+    out["errs"] = _rank_compare(mesh, "bench step fused dense launch", calls, "closest",
+                                dense_intersect, scene.n_tris)
+    del calls
+    out["step_s"] = _timed_steps(mesh, step, iters, warmup)
+    n = res * res
+    for name, numel in (("loss_and_film", 1 + 3 * n), ("gradient", g.numel())):
+        t = torch.ones(numel, device=dev)
+        out[f"all_reduce_{name}_s"] = _timed_steps(mesh, lambda: mesh.all_reduce(t), 20, 3)
+    if dryrun_res:
+        sd = dryrun_scene(dryrun_res, dryrun_res)
+        old = nodes.FLATTEN_MAX_TRIS
+        nodes.FLATTEN_MAX_TRIS = 1  # the dry run forces the two-level compile
+        try:
+            dscene = sd.compile().to(dev)
+        finally:
+            nodes.FLATTEN_MAX_TRIS = old
+        dcfg = PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16)
+        dtarget = torch.zeros((dryrun_res, dryrun_res, 3), device=dev)
+        _sync(dev)
+        mesh.barrier()
+        _rank_reset()
+        with kept_call(instanced_tree_intersect, ["closest"], keep=1) as calls:
+            dloss, _, dg = _sharded_step(mesh, dscene, sd.camera, dcfg, dtarget)
+            _sync(dev)
+        out["dryrun"] = {"launches": _rank_launches(), "loss": float(dloss),
+                         "grad": dg.cpu().numpy(), "two_level": dscene.instances is not None}
+        out["dryrun"]["errs"] = _rank_compare(mesh, "dry run fused instanced tree launch",
+                                              calls, "closest", instanced_tree_intersect,
+                                              dscene.n_tris)
+    return out
+
+
+def terrain_rank(mesh, n, res, bdpt_spp, prog_spp, prog_chunk, prog_stop, ckpt):
+    """Phases 35-36 in one rank: the terrain compiled on the host and moved
+    to this rank's device; BDPT (BASELINE config 5) sharded, its first
+    connection group against the plain walk; then the progressive render
+    sharded, uninterrupted, and preempted on every rank at ``prog_stop``
+    samples (after the checkpoint there) and resumed
+    (tests/_sharded_ranks.py), each chunk timed with its launches."""
+    from collections import Counter
+
+    from akari_torch.integrators import progressive
+    from akari_torch.integrators.bdpt import BDPTConfig
+    from akari_torch.integrators.path import PathConfig
+    from akari_torch.ops import tree_intersect
+    from akari_torch.parallel import render_sharded
+    from akari_torch.scene.builtin import terrain_scene
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _sharded_ranks import progressive_resume
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    sc = terrain_scene(res, res, n=n)
+    scene = sc.compile(intersector="auto").to(dev)
+    _sync(dev)
+    out = {"compile_and_copy_s": time.perf_counter() - t0, "n_tris": scene.n_tris,
+           "intersector": scene.intersector}
+    cam = sc.camera
+    render_sharded(scene, cam, BDPTConfig(spp=1), mesh)  # warm-up
+    _sync(dev)
+    mesh.barrier()
+    _rank_reset()
+    with kept_call(tree_intersect, ["any_hit"]) as calls:
+        t0 = time.perf_counter()
+        img = render_sharded(scene, cam, BDPTConfig(spp=bdpt_spp), mesh)
+        _sync(dev)
+        out["bdpt_s"] = time.perf_counter() - t0
+    out["bdpt_launches"] = _rank_launches()
+    out["bdpt_image"] = img.cpu().numpy()
+    out["bdpt_group_rays"] = calls.sizes["any_hit"]
+    out["bdpt_errs"] = _rank_compare(mesh, "BDPT connection group", calls, "any_hit",
+                                     tree_intersect, scene.n_tris)
+    del img, calls
+
+    chunks = []  # (seconds, launches) of each chunk the three runs render
+    shard = progressive.render_sharded
+
+    def timed_chunk(*a, **k):
+        _sync(dev)
+        _rank_reset()
+        t0 = time.perf_counter()
+        r = shard(*a, **k)
+        _sync(dev)
+        chunks.append((time.perf_counter() - t0, _rank_launches()))
+        return r
+
+    kw = dict(seed=0, spp_chunk=prog_chunk, checkpoint_every=1, progress=False)
+    mesh.barrier()
+    progressive.render_sharded = timed_chunk
+    try:
+        full, resumed, writes, offsets = progressive_resume(
+            mesh, scene, cam, PathConfig(spp=prog_spp, max_depth=5), ckpt, prog_stop, kw)
+    finally:
+        progressive.render_sharded = shard
+    n_full, n_rest = prog_spp // prog_chunk, len(chunks) - len(offsets)
+
+    def total(cs):
+        return dict(sum((Counter(c) for _, c in cs), Counter()))
+
+    out.update(chunk_s=[t for t, _ in chunks[:n_full]], chunk_launches=[c for _, c in chunks],
+               progressive_launches=total(chunks[:n_full]),
+               resume_launches=total(chunks[n_rest:]), progressive_image=full,
+               resumed_image=resumed, writes=writes, resumed_offsets=offsets)
+    return out
+
+
+def run_together(jobs, tmp):
+    """{name: (rc, stdout, stderr)} of ``python <argv>`` for each job, all
+    started at once from the repository root (their output in files under
+    ``tmp``); every job must exit 0 within ``SHARD_TIMEOUT_S``, and none
+    outlives the call."""
+    procs, files = {}, []
+    try:
+        for name, argv in jobs.items():
+            out = open(os.path.join(tmp, name + ".out"), "w+")
+            err = open(os.path.join(tmp, name + ".err"), "w+")
+            files += [out, err]
+            procs[name] = (subprocess.Popen([sys.executable] + argv, cwd=ROOT, stdout=out,
+                                            stderr=err, text=True), out, err)
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        done = {}
+        for name, (p, out, err) in procs.items():
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            out.seek(0)
+            err.seek(0)
+            done[name] = (rc, out.read(), err.read())
+            check(rc == 0, f"{name} failed (rc {rc}):\n{done[name][2][-3000:]}")
+        return done
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+
+
+def sharded_phases(dev, card, sc, bdpt_image, cli_render, sizes):
+    """Phases 34-39, ray-sharded rendering over torch.distributed: ranks are
+    spawned processes (``spawn_ranks``); R = 1 over NCCL and R = 2 ranks
+    sharing the one card over gloo (NCCL refuses two ranks on one GPU;
+    NCCL across two or more cards is not exercised here). Returns the
+    figures the log's summary needs."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from akari_torch.integrators.bdpt import BDPTConfig
+    from akari_torch.integrators.path import PathConfig, render
+    from akari_torch.parallel.launch import rank_route, spawn_ranks
+
+    s = SimpleNamespace(**sizes)
+    cuda = dev.type == "cuda"  # False only in a rehearsal on the CPU (no launch counts)
+    out = {}
+    torch.cuda.empty_cache()
+
+    def spawn(fn, world, args):
+        device, backend, _ = rank_route(dev.type, world)
+        return spawn_ranks(fn, world, args, device=device, backend=backend,
+                           timeout=SHARD_TIMEOUT_S, threads=None if cuda else 1)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def median_ms(ts):
+        return 1e3 * float(np.median(ts))
+
+    # ---- phase 34: the bench step, sharded ----------------------------------------
+    t_phase = time.perf_counter()
+    res = s.step_res
+    log(f"phase 34: the bench step sharded (loss_and_image_sharded, cornell {res}^2, 4 spp, "
+        f"depth 5): R = 1 over {rank_route(dev.type, 1)[1]}, R = 2 over "
+        f"{rank_route(dev.type, 2)[1]} [card: {card}]")
+    scene = sc.compile(intersector="auto").to(dev)
+    cfg = PathConfig(spp=4, max_depth=5, mis=True, remat=False)
+    target = torch.zeros((res, res, 3), device=dev)
+    loss_u, g_u = bench_step(scene, sc.camera, cfg, target)
+    loss_u, g_u = float(loss_u), g_u.cpu().numpy()
+    with torch.no_grad():  # the bench loss's image is the render's, bit for bit
+        img_u = render(scene, sc.camera, cfg).cpu().numpy()
+    runs = {1: spawn(bench_step_rank, 1, (res, 10, 2, 0)),
+            2: spawn(bench_step_rank, 2, (res, 10, 2, s.dryrun_res))}
+    for world, ranks in runs.items():
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            check(r["loss"] == r0["loss"] and np.array_equal(r["grad"], r0["grad"])
+                  and np.array_equal(r["image"], r0["image"]),
+                  f"R = {world}: ranks disagree")
+        loss_rel = abs(r0["loss"] - loss_u) / loss_u
+        g_rel = rel(r0["grad"], g_u)
+        img_equal = np.array_equal(r0["image"], img_u)
+        img_diff = float(np.abs(r0["image"] - img_u).max())
+        steps = [max(t) for t in zip(*(r["step_s"] for r in ranks))]
+        ar = {k: median_ms([max(t) for t in zip(*(r[f"all_reduce_{k}_s"] for r in ranks))])
+              for k in ("loss_and_film", "gradient")}
+        log(f"  R = {world} on {[r['device'] for r in ranks]}: loss {r0['loss']:.8g} (unsharded "
+            f"{loss_u:.8g}, rel {loss_rel:.2e}); gradient max|diff| / max|g| {g_rel:.2e}, "
+            f"bit-equal across ranks; image {'bit-equal to' if img_equal else 'DIFFERS from'} "
+            f"the unsharded (max |diff| {img_diff:.3e})")
+        log(f"    dense launches per rank {[r['launches'] for r in ranks]}; step median "
+            f"{median_ms(steps):.3f} ms, quartiles {1e3 * np.percentile(steps, 25):.3f} / "
+            f"{1e3 * np.percentile(steps, 75):.3f} ms (host clock to a device sync, the "
+            f"slowest rank, 10 after 2 warm-ups); all-reduce medians: loss + film "
+            f"({1 + 3 * res * res} floats) {ar['loss_and_film']:.3f} ms, gradient "
+            f"({r0['grad'].size} floats) {ar['gradient']:.3f} ms [card: {card}]")
+        check(loss_rel <= 1e-5, f"R = {world}: loss rel {loss_rel}")
+        check(g_rel <= 1e-5, f"R = {world}: gradient rel {g_rel}")
+        check(np.allclose(r0["image"], img_u, rtol=1e-5, atol=1e-5), f"R = {world}: image")
+        if cuda:
+            check(all(r["launches"] == {"dense_intersect.closest": 1 + cfg.max_depth}
+                      for r in ranks), f"R = {world}: launches {[r['launches'] for r in ranks]}")
+        errs = [r["errs"] for r in ranks]
+        log(f"    each rank's first fused dense launch against the plain version: prims and "
+            f"any-hit exact, t/u/v max |diff| {max(e[0] for e in errs):.3g}")
+        out["dense_errs"] = [max(a) for a in zip(out.get("dense_errs", (0.0, 0.0)), *errs)]
+        out[f"step_ms_r{world}"] = median_ms(steps)
+        out[f"step_dense_launches_r{world}"] = ranks[0]["launches"].get(
+            "dense_intersect.closest", 0)
+    log(f"  phase 34: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 35-36: BASELINE config 5 and progressive, sharded ------------------
+    t_phase = time.perf_counter()
+    log(f"phase 35: render_sharded(terrain n={s.terrain_n} {s.terrain_res}^2, "
+        f"BDPTConfig(spp={s.bdpt_spp})), R = 2 over {rank_route(dev.type, 2)[1]} [card: {card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(terrain_rank, 2,
+                      (s.terrain_n, s.terrain_res, s.bdpt_spp, s.prog_spp, s.prog_chunk,
+                       s.prog_stop, os.path.join(tmp, "render.npz")))
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        check(np.array_equal(r["bdpt_image"], r0["bdpt_image"]), "BDPT: ranks disagree")
+    bimg = r0["bdpt_image"]
+    diff = np.abs(bimg - bdpt_image)
+    splat_rel = float(diff.max() / np.abs(bdpt_image).max())
+    per_sample = BDPTConfig().eye_depth + BDPTConfig().light_depth - 1
+    log(f"  {r0['n_tris']} tris on {r0['intersector']}, host compile + copy "
+        f"{[round(r['compile_and_copy_s'], 2) for r in ranks]} s; frame "
+        f"{[round(r['bdpt_s'], 3) for r in ranks]} s wall per rank [card: {card}]")
+    errs = [r["bdpt_errs"] for r in ranks]
+    log(f"  each rank's first connection group ({[r['bdpt_group_rays'][0] for r in ranks]} rays) "
+        f"against the plain walk: prims and any-hit exact, t/u/v max |diff| "
+        f"{max(e[0] for e in errs):.3g}")
+    out["tree_errs"] = [max(a) for a in zip(*errs)]
+    log(f"  tree launches per rank {[r['bdpt_launches'] for r in ranks]}; against phase 26's "
+        f"unsharded image: max |diff| {float(diff.max()):.3e}, / max|image| {splat_rel:.3e} "
+        f"(splat bound {SPLAT_TOL}), radiance-only pixels "
+        f"{'bit-equal' if np.array_equal(bimg, bdpt_image) else 'differ where splats land'}")
+    check(np.allclose(bimg, bdpt_image, rtol=1e-5, atol=1e-5), "sharded BDPT != phase 26's")
+    check(splat_rel <= SPLAT_TOL, f"sharded BDPT splat off by {splat_rel}")
+    check_image(bimg, s.terrain_res, "sharded BDPT terrain")
+    if cuda:
+        for r in ranks:
+            got = r["bdpt_launches"]
+            check(got.get("tree_intersect.closest") == s.bdpt_spp * per_sample
+                  and got.get("tree_intersect.any_hit") == s.bdpt_spp,
+                  f"sharded BDPT launches {got}")
+    out["bdpt_s"] = max(r["bdpt_s"] for r in ranks)
+    out["bdpt_launches"] = r0["bdpt_launches"]
+    log(f"phase 36: render_progressive(mesh=...) on the same ranks: {s.prog_spp} spp in "
+        f"chunks of {s.prog_chunk}, preempted at {s.prog_stop} and resumed")
+    n_chunks = s.prog_spp // s.prog_chunk
+    for i, r in enumerate(ranks):
+        check(np.array_equal(r["resumed_image"], r["progressive_image"]),
+              f"rank {i}: resumed != uninterrupted")
+        check(np.array_equal(r["progressive_image"], r0["progressive_image"]),
+              f"rank {i}: progressive image differs from rank 0's")
+        want = list(range(s.prog_chunk, s.prog_stop + 1, s.prog_chunk)) + list(
+            range(s.prog_stop + s.prog_chunk, s.prog_spp + 1, s.prog_chunk))
+        check(r["writes"] == (want if i == 0 else []), f"rank {i} wrote {r['writes']}")
+        check(r["resumed_offsets"] == list(range(s.prog_stop, s.prog_spp, s.prog_chunk)),
+              f"rank {i}: the resumed run rendered from {r['resumed_offsets']}")
+        if cuda:  # the uninterrupted, the preempted and the resumed runs' chunks
+            check(r["chunk_launches"] == [{"tree_intersect.closest": 6}] * (
+                n_chunks + s.prog_stop // s.prog_chunk + len(r["resumed_offsets"])),
+                f"rank {i}: progressive chunk launches {r['chunk_launches']}")
+    check_image(r0["progressive_image"], s.terrain_res, "sharded progressive terrain")
+    log(f"  resumed == uninterrupted bit for bit on every rank; writes "
+        f"{[r['writes'] for r in ranks]}; chunks "
+        f"{[[round(1e3 * t, 1) for t in r['chunk_s']] for r in ranks]} ms; launches "
+        f"{[r['progressive_launches'] for r in ranks]}, resumed "
+        f"{[r['resume_launches'] for r in ranks]} [card: {card}]")
+    out["progressive_launches"] = r0["progressive_launches"]
+    log(f"  phases 35-36: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 37: the dry run's step (from phase 34's R = 2 ranks) ----------------
+    log(f"phase 37: the multi-device dry run's step (two-level instanced floor, env map, "
+        f"bf16, 4 spp, depth 5) at {s.dryrun_res}^2, R = 2 against R = 1")
+    from akari_torch.parallel import make_ray_mesh
+    from akari_torch.scene.builtin import dryrun_scene
+    from akari_torch.utils.config import RGB_BF16
+
+    sd = dryrun_scene(s.dryrun_res, s.dryrun_res)
+    with flatten_max_tris(1):
+        dscene = sd.compile().to(dev)
+    check(dscene.instances is not None, "the dry run did not compile two-level")
+    dcfg = PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16)
+    one = _sharded_step(make_ray_mesh(dev), dscene, sd.camera, dcfg,
+                        torch.zeros((s.dryrun_res, s.dryrun_res, 3), device=dev))
+    d = [r["dryrun"] for r in runs[2]]
+    d_loss_rel = abs(d[0]["loss"] - float(one[0])) / float(one[0])
+    d_g_rel = rel(d[0]["grad"], one[2].cpu().numpy())
+    log(f"  loss {d[0]['loss']:.8g} (R = 1 {float(one[0]):.8g}, rel {d_loss_rel:.2e}); gradient "
+        f"max|diff| / max|g| {d_g_rel:.2e}; instanced tree launches per rank "
+        f"{[x['launches'] for x in d]}; each rank's first fused launch against the plain "
+        f"walk: prims and any-hit exact, t/u/v max |diff| {max(x['errs'][0] for x in d):.3g}")
+    out["instanced_tree_errs"] = [max(a) for a in zip(*(x["errs"] for x in d))]
+    check(all(x["two_level"] for x in d), "a rank did not compile the dry run two-level")
+    check(np.isfinite(d[0]["loss"]) and np.isfinite(d[0]["grad"]).all(), "dry run not finite")
+    check(d[1]["loss"] == d[0]["loss"] and np.array_equal(d[1]["grad"], d[0]["grad"]),
+          "dry run: ranks disagree")
+    check(d_loss_rel <= 1e-6 and d_g_rel <= 1e-5, f"dry run: loss {d_loss_rel}, grad {d_g_rel}")
+    if cuda:
+        check(all(x["launches"] == {"instanced_tree_intersect.closest": 6} for x in d),
+              f"dry run launches {[x['launches'] for x in d]}")
+
+    # ---- phases 38-39: the CLI under torchrun and the tools ------------------------
+    # The torchrun CLI and the two distributed checks only check results, so
+    # their processes run together (each starts torch and reaches the card
+    # on its own); the scaling bench measures, so it runs alone after them.
+    t_phase = time.perf_counter()
+    log("phase 38: CLI --sharded under torch.distributed.run --nproc-per-node=1 "
+        f"({rank_route(dev.type, 1)[1]}) against the unsharded CLI; phase 39: "
+        "tools/distributed_check_torch.py at R = 1, 2 beside it, then bench_scaling_torch.py "
+        "at R = 1, 2 alone")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-i", SCENE_FILE, "--device", dev.type] + s.cli_args
+        sharded, plain = os.path.join(tmp, "sharded.png"), os.path.join(tmp, "plain.png")
+        jobs = {
+            "cli": ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+                    "-m", "akari_torch.cli.render", "--sharded", "-v", "-o", sharded] + args,
+            "check_r1": ["tools/distributed_check_torch.py", "--ranks", "1", "--device", dev.type],
+            "check_r2": ["tools/distributed_check_torch.py", "--ranks", "2", "--device", dev.type],
+        }
+        done = run_together(jobs, tmp)
+        check(cli_render.main(args + ["-o", plain]) == 0, "unsharded CLI failed")
+        check("rank 0 of 1" in done["cli"][2], "the CLI did not render on a ray mesh")
+        with open(sharded, "rb") as f1, open(plain, "rb") as f2:
+            same = f1.read() == f2.read()
+        px = png_pixels(sharded)
+    log(f"  torchrun CLI PNG {'equal to' if same else 'DIFFERS from'} the unsharded CLI's, "
+        f"mean {px.mean():.1f}/255")
+    check(same, "sharded CLI image != unsharded CLI image")
+    import bench_scaling_torch
+
+    scaling = io.StringIO()
+    with contextlib.redirect_stdout(scaling):
+        check(bench_scaling_torch.main(["--device", dev.type]) == 0, "bench_scaling_torch failed")
+    for name, text in (("check_r1", done["check_r1"][1]), ("check_r2", done["check_r2"][1]),
+                       ("bench_scaling", scaling.getvalue())):
+        for line in text.strip().splitlines():
+            log(line)
+            check(json.loads(line).get("ok", True), f"{name}: {line}")
+    log(f"  phases 38-39: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2363,20 +2862,30 @@ def main():
     grad = gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1k)
     s4a = slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render)
     s4b = slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render)
+    del host1m
+    shard = sharded_phases(dev, card, sc, s4a["bdpt_image"], cli_render, SHARDED)
     # the any-hit rows count every path's launches: the boundary term's side
     # probes and the BDPT connections (dense), occlude_soa, BDPT and AO (tree)
     any_hit_launches["dense"] = grad["boundary_any_hit_launches"] + s4a["bdpt_dense_any_hit"]
     any_hit_launches["tree"] += s4a["bdpt_any_hit"] + s4a["ao_any_hit"]
-    # the tree rows' errors also cover the envtex, BDPT and AO paths' own rays
-    tree_err = max(tree_err, s4a["tree_err"])
-    tree_occ_err = max(tree_occ_err, s4a["tree_occ_err"])
+    # the tree rows' errors also cover the envtex, BDPT and AO paths' own rays,
+    # and every kernel's row the sharded paths' per-rank launches
+    tree_err = max(tree_err, s4a["tree_err"], shard["tree_errs"][0])
+    tree_occ_err = max(tree_occ_err, s4a["tree_occ_err"], shard["tree_errs"][1])
+    max_abs_err = max(max_abs_err, shard["dense_errs"][0])
+    occ_abs_err = max(occ_abs_err, shard["dense_errs"][1])
+    err_it = max(err_it, shard["instanced_tree_errs"][0])
+    occ_it = max(occ_it, shard["instanced_tree_errs"][1])
     log(f"  launches on the new paths: bf16 frame {s4b['bf16_dense_closest']} dense closest, "
         f"progressive 64 spp {s4b['progressive_tree_closest']} tree closest, cached-mesh CLI "
         f"{s4b['meshcache_tree_closest']} tree closest, texel step "
         f"{s4b['texel_dense_closest']} dense closest")
+    log(f"  launches on the sharded paths, per rank: bench step {shard['step_dense_launches_r2']} "
+        f"dense closest, BDPT {shard['bdpt_launches']}, progressive "
+        f"{shard['progressive_launches']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 34: result ----------------------------------------------------
+    # ---- phase 40: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

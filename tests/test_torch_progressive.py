@@ -22,6 +22,7 @@ from _port_diff import both, port_camera
 from akari_torch.integrators import progressive
 from akari_torch.integrators.path import PathConfig
 from akari_torch.integrators.progressive import render_progressive
+from akari_torch.parallel import make_ray_mesh
 from akari_torch.scene.builtin import cornell_box
 from akari_torch.utils.checkpoint import load_render_state, save_render_state
 from akari_tpu.integrators import path as ref_path
@@ -191,8 +192,14 @@ def test_progress_bar_and_mesh(box, monkeypatch):
     buf = io.StringIO()
     monkeypatch.setattr(progressive, "ProgressReporter",
                         functools.partial(ProgressReporter, stream=buf))
-    render_progressive(scene, cam, PathConfig(spp=2, max_depth=1), spp_chunk=1)
+    img = render_progressive(scene, cam, PathConfig(spp=2, max_depth=1), spp_chunk=1)
     err = buf.getvalue()
     assert err.startswith("\rrender [") and "100.0%" in err and err.endswith("\n")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        render_progressive(scene, cam, PathConfig(spp=2, max_depth=1), mesh=object())
+    # a 1-rank ray mesh (no process group) renders each chunk through
+    # render_sharded: the same image, and its rank 0 reports progress
+    buf.truncate(0)
+    buf.seek(0)
+    sharded = render_progressive(scene, cam, PathConfig(spp=2, max_depth=1), spp_chunk=1,
+                                 mesh=make_ray_mesh("cpu"))
+    np.testing.assert_array_equal(sharded, img)
+    assert "100.0%" in buf.getvalue()
