@@ -7,3 +7,5 @@ hand-written CUDA under ``kernels/csrc`` and built at first use.
 
 The package imports torch and numpy only.
 """
+
+__version__ = "0.1.0"

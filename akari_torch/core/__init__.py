@@ -1,0 +1,1 @@
+from . import distribution, rng, spectrum, transform, vecmath

@@ -41,7 +41,7 @@ from .. import sampling
 from ..core import rng
 from ..core.v3 import V3, from_rows, from_stack, v3where
 from ..core.vecmath import abs_, clip, maximum, minimum
-from ..ops.intersect import T_MAX, intersect_soa, occlude_soa
+from ..ops.intersect import T_MAX, intersect, intersect_soa, occlude, occlude_soa
 from ..scene import geom
 from ..shading import soa
 from ..utils.config import RGB, DtypePolicy
@@ -187,19 +187,11 @@ def _surface_data(scene, prim, bary):
 
 
 def _intersectors(scene):
-    """AoS adapters over ``intersect_soa`` / ``occlude_soa`` for the BDPT
-    and AO integrators: ``intersect_fn(o, d) -> (t, prim, bary [N, 2],
-    valid)`` and ``occlude_fn(o, d, t_min, t_max) -> occluded`` on [N, 3]
-    rays, through the scene's intersector (its kernels on CUDA tensors)."""
-
-    def intersect_fn(o, d):
-        h = intersect_soa(scene, from_stack(o), from_stack(d))
-        return h.t, h.prim, torch.stack([h.u, h.v], dim=-1), h.valid
-
-    def occlude_fn(o, d, t_min, t_max):
-        return occlude_soa(scene, from_stack(o), from_stack(d), t_min, t_max)
-
-    return intersect_fn, occlude_fn
+    """AoS queries for the BDPT and AO integrators: ``intersect_fn(o, d)
+    -> Hit (t, prim, uv [N, 2], valid)`` and ``occlude_fn(o, d, t_min,
+    t_max) -> occluded`` on [N, 3] rays, through the scene's intersector
+    (its kernels on CUDA tensors)."""
+    return partial(intersect, scene), partial(occlude, scene)
 
 
 def _intersectors_soa(scene):
@@ -237,8 +229,9 @@ def trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx,
     """Trace one sample per pixel; returns [N, 3] radiance, differentiable
     with respect to the scene's tensors that require a gradient.
 
-    ``pixel_idx`` and ``sample_idx`` are int64 tensors on the scene's
-    device (values in [0, 2^32)); ``intersectors`` defaults to
+    ``pixel_idx`` is an int64 tensor on the scene's device and
+    ``sample_idx`` one of its shape or a Python int, which broadcasts as
+    in the reference (values in [0, 2^32)); ``intersectors`` defaults to
     ``_intersectors_soa(scene)``.
     """
     intersect_fn, occlude_fn, fused_fn = (
@@ -460,6 +453,16 @@ def _shade_vertex(scene, cfg, seed, sample_idx, pixel_idx, state, *, bounce, do_
     o = p + wi * (RAY_EPS / maximum(abs_(ng.dot(wi)), 1e-4))
     ext_tmax = torch.where(ok, T_MAX, 0.0)
     return L, beta.astype(cfg.dtypes.spectrum), ok, pdf, o, wi, ext_tmax, nee
+
+
+def render_sample(scene, camera, cfg, seed, sample_idx, pixel_idx=None):
+    """One sample for every pixel (or for the int64 ``pixel_idx``) ->
+    [H*W, 3] radiance; ``sample_idx`` an int or a tensor like
+    ``pixel_idx``."""
+    if pixel_idx is None:
+        pixel_idx = torch.arange(camera.width * camera.height, dtype=torch.int64,
+                                 device=scene.device)
+    return trace_paths(scene, camera, cfg, seed, sample_idx, pixel_idx)
 
 
 # Max rays in one wavefront: bounds the live per-ray state while keeping

@@ -1,0 +1,1 @@
+from .intersect import Hit, intersect, moller_trumbore, occlude

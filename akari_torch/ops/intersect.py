@@ -22,6 +22,9 @@ Interchangeable backends behind ``intersect_soa`` / ``occlude_soa``:
 - ``brute``: the reference's all-pairs oracle, tiled over triangles, for
   flat scenes on CPU tensors only.
 
+``intersect`` / ``occlude`` are the reference's AoS entry points ([N, 3]
+rays, a ``Hit`` record with ``uv`` [N, 2]) over the same routes.
+
 Hits carry no gradient (the detached-hit convention): the queries run
 under ``torch.no_grad()`` on detached inputs, so no autograd Function is
 needed. Gradients reach scene parameters through shading at the hit.
@@ -33,9 +36,17 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.v3 import from_stack
 from ..core.vecmath import cross, dot
 from . import cluster_intersect, dense_intersect, instanced_tree_intersect, tree_intersect
 from .dense_intersect import HIT_EPS, T_MAX
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor      # [N] float32 (T_MAX when missed)
+    prim: torch.Tensor   # [N] int32 (-1 when missed)
+    uv: torch.Tensor     # [N, 2] barycentric (u, v); p = v0 + u*e1 + v*e2
+    valid: torch.Tensor  # [N] bool
 
 
 class HitSoA(NamedTuple):
@@ -174,3 +185,18 @@ def occlude_soa(scene, o3, d3, t_min, t_max):
         return _tree_query(scene, o3, d3, t_min, t_max, True)
     rays = dense_intersect.pack_rays(o3, d3, t_min, t_max).detach()
     return dense_intersect.any_hit(rays, scene.prim_table.detach())
+
+
+@torch.no_grad()
+def intersect(scene, o, d, t_min=None, t_max=None):
+    """Closest-hit query on [N, 3] rays -> Hit. Gradients detached.
+
+    ``t_min`` / ``t_max``: None (0 and T_MAX), a scalar or [N]."""
+    h = intersect_soa(scene, from_stack(o.detach()), from_stack(d.detach()), t_min, t_max)
+    return Hit(h.t, h.prim, torch.stack([h.u, h.v], dim=-1), h.valid)
+
+
+@torch.no_grad()
+def occlude(scene, o, d, t_min, t_max):
+    """Any-hit (shadow ray) query on [N, 3] rays -> [N] bool occluded."""
+    return occlude_soa(scene, from_stack(o.detach()), from_stack(d.detach()), t_min, t_max)

@@ -1,0 +1,1 @@
+from . import bsdf, light, material, microfacet, texture

@@ -194,14 +194,25 @@ Phases (each checks its results; any failure exits non-zero):
 39. ``tools/distributed_check_torch.py`` at R = 1 and 2 (both run beside
     phase 38's CLI: they check results only), then ``bench_scaling_torch``
     alone (R = 1, 2 on one card); their JSON lines logged;
-40. the result: a JSON line of kernel records (the dense records on the
+40. the port's benchmark in this process: ``bench_torch.primary`` (the
+    bench step through ``loss_and_image_sharded`` over a 1-rank ray mesh,
+    2 warm-ups and 10 timed steps): its lines, the last one's four keys and
+    metric name, 6 dense closest launches a step, its loss bit-equal to
+    phase 19's unsharded step; then the per-stage table's AoS ``intersect``
+    / ``occlude`` (``ops/intersect.py``) on 65,536 camera rays of the
+    Cornell box (dense), terrain512 (tree) and instanced-bench64 (forced
+    two-level, instanced tree; its camera sees none of its instances, so
+    as many rays again go down onto them), one closest and one any-hit
+    launch each, against the same calls through the plain versions (prims
+    and occlusion exact, t/u/v within 2 ulp);
+41. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27 and 35, the dense
-    and instanced tree records' those of phases 34 and 37), then the
-    device line.
+    the tree records' errors cover phases 6, 24, 26, 27, 35 and 40, the
+    dense and instanced tree records' those of phases 34, 37 and 40), then
+    the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
@@ -887,24 +898,15 @@ def plain_route(mod):
 
 def event_quartiles(fn, iters=10, warmup=2):
     """(25th, 50th, 75th percentile) ms of fn() over ``iters`` runs after
-    ``warmup``, each between two CUDA events on an idle card (host
-    dispatch included: these steps are host-bound)."""
-    import numpy as np
+    ``warmup`` on the bench's clock (``bench_torch.step_times``: each call
+    between two CUDA events on an idle card, host dispatch included: these
+    steps are host-bound)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return tuple(float(x) for x in np.percentile(times, [25, 50, 75]))
+    import bench_torch
+
+    s = bench_torch.timed(fn, torch.device("cuda"), iters, warmup)
+    return s["q1_ms"], s["median_ms"], s["q3_ms"]
 
 
 def device_events(fn):
@@ -1024,7 +1026,8 @@ def gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1
     rays = cfg_b.spp * res * res * (2 * cfg_b.max_depth + 1)
     log(f"  fwd+bwd step: median {step_q[1]:.3f} ms, quartiles {step_q[0]:.3f} / "
         f"{step_q[2]:.3f} ms; forward alone: median {fwd_q[1]:.3f} ms, quartiles "
-        f"{fwd_q[0]:.3f} / {fwd_q[2]:.3f} ms (CUDA events, 10 after 2 warm-ups) [card: {card}]")
+        f"{fwd_q[0]:.3f} / {fwd_q[2]:.3f} ms (bench_torch.step_times: CUDA events, 10 after 2 "
+        f"warm-ups) [card: {card}]")
     log(f"  rays_per_sec_per_chip_fwd_bwd_4spp_cornell: {rays / (step_q[1] / 1e3):.6g} "
         f"({rays} rays a step) [card: {card}]")
 
@@ -1176,7 +1179,7 @@ def gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1
         f"{train_s / 20 * 1e3:.2f} ms an iteration (wall) [card: {card}]")
     check(loss_end < 0.5 * loss0, f"inverse_render did not halve the loss: {loss0} -> {loss_end}")
     log(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
-    return {"boundary_any_hit_launches": bnd_launches["any_hit"]}
+    return {"boundary_any_hit_launches": bnd_launches["any_hit"], "bench_loss": loss_k}
 
 
 def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
@@ -2281,6 +2284,115 @@ def sharded_phases(dev, card, sc, bdpt_image, cli_render, sizes):
     return out
 
 
+def aos_routes(label, scene, o, d, mod, traversal):
+    """The AoS ``intersect`` / ``occlude`` on [N, 3] rays through the
+    scene's kernel (one closest and one any-hit launch, no other traversal
+    launch) and through its plain version (``plain_route``): prims and
+    occlusion exact, t/u/v within 2 ulp. Returns (closest max |diff|,
+    any-hit max |diff|)."""
+    import torch
+
+    from akari_torch.ops.intersect import intersect, occlude
+
+    far = torch.full((o.shape[0],), 1e3, device=o.device)
+    torch.cuda.synchronize()
+    reset_all(traversal)
+    h = intersect(scene, o, d)
+    occ = occlude(scene, o, d, 0.0, far)
+    torch.cuda.synchronize()
+    launches = dict(mod.LAUNCHES)
+    check(launches == {"closest": 1, "any_hit": 1} and others(traversal, mod) == 0,
+          f"{label}: launches {launches}, others {others(traversal, mod)}")
+    with plain_route(mod):
+        hp = intersect(scene, o, d)
+        occ_p = occlude(scene, o, d, 0.0, far)
+    check(torch.equal(h.prim, hp.prim) and torch.equal(h.valid, hp.valid),
+          f"{label}: prim differs on {int((h.prim != hp.prim).sum())} rays")
+    ok = h.valid
+    pairs = ((h.t, hp.t), (h.uv[:, 0], hp.uv[:, 0]), (h.uv[:, 1], hp.uv[:, 1]))
+    max_ulp = max(ulp_diff(a[ok], b[ok]) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    check(max_ulp <= 2, f"{label}: t/u/v differ by {max_ulp} ulp")
+    check(torch.equal(occ, occ_p), f"{label}: occlude through the kernel != plain")
+    log(f"  {label}: {o.shape[0]} rays, {int(ok.sum())} hits, launches {launches}; "
+        f"kernel == plain: prims exact, t/u/v max |diff| {err:.3g} ({max_ulp} ulp), "
+        f"{int(occ.sum())} occluded within 1e3, equal")
+    return err, float((occ.float() - occ_p.float()).abs().max())
+
+
+def bench_phase(dev, card, traversal, scene, sc, scene512, sc512, bench_loss):
+    """Phase 40: ``bench_torch.primary`` in this process, then the AoS
+    entry points of its per-stage table on every tree route against their
+    plain versions; returns {"dense" | "tree" | "instanced_tree": (closest
+    error, any-hit error)}."""
+    import torch
+
+    import bench_torch
+    from akari_torch.integrators.path import camera_rays
+    from akari_torch.ops import dense_intersect as di
+    from akari_torch.ops import instanced_tree_intersect as iti
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.scene.builtin import instanced_bench_scene
+
+    t_phase = time.perf_counter()
+    log(f"phase 40: bench_torch.primary in process (the port's bench step, sharded over a "
+        f"1-rank ray mesh), then the per-stage table's intersect / occlude on every route "
+        f"[card: {card}]")
+    torch.cuda.synchronize()
+    reset_all(traversal)
+    run = bench_torch.primary(dev)
+    torch.cuda.synchronize()
+    launches = dict(di.LAUNCHES)
+    steps = 1 + bench_torch.WARMUP + bench_torch.ITERS
+    lines = run.lines()
+    for line in lines:
+        log(f"  {line}")
+    last = json.loads(lines[-1])
+    check(list(last) == ["metric", "value", "unit", "vs_baseline"], f"bench keys {list(last)}")
+    check(last["metric"] == "rays_per_sec_per_chip_fwd_bwd_4spp_cornell"
+          and last["value"] > 0, f"bench result {last}")
+    log(f"  dense launches over its {steps} steps: {launches}; loss "
+        f"{'bit-equal to' if torch.equal(run.loss, bench_loss) else 'DIFFERS from'} "
+        f"phase 19's unsharded step ({float(run.loss):.8g})")
+    check(launches == {"closest": 6 * steps, "any_hit": 0} and others(traversal, di) == 0,
+          f"bench launches {launches}")
+    check(torch.equal(run.loss, bench_loss), "the bench loss differs from phase 19's")
+    check(bool(torch.isfinite(run.grad).all()), "non-finite bench gradient")
+
+    sc_b = instanced_bench_scene(256, 256)
+    with flatten_max_tris(1):
+        bench64 = sc_b.compile().to(dev)
+
+    def cam_rays(cam):
+        n = cam.width * cam.height
+        pix = torch.arange(n, dtype=torch.int64, device=dev)
+        return camera_rays(cam, 0, torch.zeros_like(pix), pix)
+
+    # instanced-bench64's camera sees none of its instances (its frame is
+    # black): rays from above each instance down onto it follow the camera's
+    o, d = cam_rays(sc_b.camera)
+    g = torch.Generator(device=dev).manual_seed(11)
+    n_down = o.shape[0]
+    o2w = bench64.instances.o2w
+    at = o2w[torch.randint(0, o2w.shape[0], (n_down,), generator=g, device=dev), :, 3]
+    u = torch.rand((n_down, 4), generator=g, device=dev) * 2.0 - 1.0
+    zero = torch.zeros_like(u[:, 0])
+    o_down = at + torch.stack([u[:, 0], zero + 2.0, u[:, 1]], 1)
+    d_down = at + torch.stack([u[:, 2], zero, u[:, 3]], 1) - o_down
+    d_down = d_down / d_down.norm(dim=1, keepdim=True)
+    errs = {}
+    for key, label, scene_, (o_, d_), mod in (
+            ("dense", "dense (Cornell, 36 tris)", scene, cam_rays(sc.camera), di),
+            ("tree", f"tree (terrain512, {scene512.n_tris} tris)", scene512,
+             cam_rays(sc512.camera), ti),
+            ("instanced_tree", f"instanced tree (instanced-bench64, {bench64.n_tris} world "
+             f"tris; camera rays, then as many down onto the instances)", bench64,
+             (torch.cat([o, o_down]), torch.cat([d, d_down])), iti)):
+        errs[key] = aos_routes(label, scene_, o_, d_, mod, traversal)
+    log(f"  phase 40: {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
 def main():
     import torch
 
@@ -2883,9 +2995,17 @@ def main():
     log(f"  launches on the sharded paths, per rank: bench step {shard['step_dense_launches_r2']} "
         f"dense closest, BDPT {shard['bdpt_launches']}, progressive "
         f"{shard['progressive_launches']}")
+    aos = bench_phase(dev, card, traversal, scene, sc, scene512, sc512, grad["bench_loss"])
+    # the AoS entry points' kernel launches against their plain versions
+    max_abs_err = max(max_abs_err, aos["dense"][0])
+    occ_abs_err = max(occ_abs_err, aos["dense"][1])
+    tree_err = max(tree_err, aos["tree"][0])
+    tree_occ_err = max(tree_occ_err, aos["tree"][1])
+    err_it = max(err_it, aos["instanced_tree"][0])
+    occ_it = max(occ_it, aos["instanced_tree"][1])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 40: result ----------------------------------------------------
+    # ---- phase 41: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

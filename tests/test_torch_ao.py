@@ -85,14 +85,18 @@ def test_trace_ao_matches_jax(name):
 
 def test_ao_queries_per_sample(monkeypatch):
     """One closest-hit and one any-hit query per sample."""
-    from akari_torch.integrators import path as port_path
+    import importlib
+
+    # the AoS queries (ops/intersect.py intersect / occlude) each make one
+    # SoA query in their module
+    isect = importlib.import_module("akari_torch.ops.intersect")
 
     _, port, _, cam_p = scenes("cornell")
     calls = []
-    real_i, real_o = port_path.intersect_soa, port_path.occlude_soa
-    monkeypatch.setattr(port_path, "intersect_soa",
+    real_i, real_o = isect.intersect_soa, isect.occlude_soa
+    monkeypatch.setattr(isect, "intersect_soa",
                         lambda *a, **k: calls.append("closest") or real_i(*a, **k))
-    monkeypatch.setattr(port_path, "occlude_soa",
+    monkeypatch.setattr(isect, "occlude_soa",
                         lambda *a, **k: calls.append("any") or real_o(*a, **k))
     port_ao.render_ao(port, cam_p, port_ao.AOConfig(spp=3))
     assert calls == ["closest", "any"] * 3

@@ -241,14 +241,18 @@ def test_bdpt_queries_per_sample(monkeypatch):
     """eye_depth + light_depth - 1 closest-hit launches and one any-hit
     launch per sample (15 entries of 256 rays); a smaller group cap splits
     the queue into more launches and changes no answer."""
-    from akari_torch.integrators import path as port_path
+    import importlib
+
+    # the AoS queries (ops/intersect.py intersect / occlude) each make one
+    # SoA query in their module
+    isect = importlib.import_module("akari_torch.ops.intersect")
 
     _, port, _, cam_p = scenes("cornell")
     calls = []
-    real_i, real_o = port_path.intersect_soa, port_path.occlude_soa
-    monkeypatch.setattr(port_path, "intersect_soa",
+    real_i, real_o = isect.intersect_soa, isect.occlude_soa
+    monkeypatch.setattr(isect, "intersect_soa",
                         lambda *a, **k: calls.append(("closest", a[1].x.shape[0])) or real_i(*a, **k))
-    monkeypatch.setattr(port_path, "occlude_soa",
+    monkeypatch.setattr(isect, "occlude_soa",
                         lambda *a, **k: calls.append(("any", a[1].x.shape[0])) or real_o(*a, **k))
     li, sp = port_trace("cornell", dict(spp=1))
     assert calls == [("closest", N)] * 6 + [("any", 15 * N)]

@@ -259,7 +259,10 @@ def test_env_render_16_matches_jax(area, mis):
 def test_env_render_launches_one_fused_query_per_bounce(monkeypatch):
     """Env shadow rays join the bounce's fused launch: 1 + max_depth
     closest-hit queries a trace, no any-hit query."""
-    from akari_torch.ops import intersect as ops_intersect
+    import importlib
+
+    # the module: akari_torch.ops exports its function ``intersect``
+    ops_intersect = importlib.import_module("akari_torch.ops.intersect")
 
     _, _, port = compiled(True)
     calls = []

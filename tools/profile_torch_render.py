@@ -39,6 +39,75 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def traversal_kernels():
+    """Traversal kernel -> (its module, whose ``LAUNCHES`` count it, a
+    substring of its device name)."""
+    from akari_torch.ops import cluster_intersect as ci
+    from akari_torch.ops import dense_intersect as di
+    from akari_torch.ops import instanced_tree_intersect as iti
+    from akari_torch.ops import tree_intersect as ti
+
+    return {
+        "dense": (di, "dense_intersect_kernel"),
+        "tree": (ti, "tree_intersect_kernel"),
+        "instanced_tree": (iti, "instanced_tree_kernel"),
+        "cluster": (ci, "cluster_kernel"),
+    }
+
+
+def profiled(fn, traversal):
+    """(device events, wall ms, profiler, fn's result) of fn() in one
+    ``torch.profiler`` window (CPU and CUDA activities; the CPU's alone
+    without a card), the traversal kernels' launch counts set to 0 just
+    before it. Every device event (kernel, copy, set) is a launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    for mod, _ in traversal.values():
+        mod.reset_launches()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, wall_ms, prof, out
+
+
+def stats(events, wall_ms, traversal, top):
+    """The window's device busy time, idle share (1 - busy / wall),
+    launches, the traversal kernels' launches and device time, and the
+    ``top`` kernels by device time ("not measured" with no device event)."""
+    busy_ms = sum(e.device_time_total for e in events) / 1e3  # us -> ms
+    per_kernel = {}
+    for label, (mod, key) in traversal.items():
+        ms = sum(e.device_time_total for e in events if key in e.name) / 1e3
+        per_kernel[label] = {
+            "launches": sum(mod.LAUNCHES.values()),
+            "ms": ms,
+            "share_of_busy": (ms / busy_ms) if events else "not measured",
+        }
+    by_name = {}
+    for e in events:
+        agg = by_name.setdefault(e.name, [0, 0.0])
+        agg[0] += 1
+        agg[1] += e.device_time_total / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms if events else "not measured",
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if events else "not measured",
+        "kernel_launches": len(events),
+        "traversal_kernels": per_kernel,
+        "top_kernels": [{"name": name[:90], "count": c, "ms": ms}
+                        for name, (c, ms) in ranked],
+    }
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=["cornell", "terrain", "instanced", "envtex"],
@@ -56,7 +125,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_render: no CUDA device available", file=sys.stderr)
@@ -66,22 +134,12 @@ def main(argv=None):
     from akari_torch.integrators.ao import AOConfig, render_ao
     from akari_torch.integrators.bdpt import BDPTConfig, render_bdpt
     from akari_torch.integrators.path import PathConfig, render
-    from akari_torch.ops import cluster_intersect as ci
-    from akari_torch.ops import dense_intersect as di
-    from akari_torch.ops import instanced_tree_intersect as iti
-    from akari_torch.ops import tree_intersect as ti
     from akari_torch.parallel.render import loss_and_image
     from akari_torch.scene import sdl
     from akari_torch.scene.builtin import (
         cornell_box, instanced_forest_scene, terrain_scene, write_envtex_terrain)
 
-    # traversal kernel -> (launch counts, a substring of its device name)
-    traversal = {
-        "dense": (di, "dense_intersect_kernel"),
-        "tree": (ti, "tree_intersect_kernel"),
-        "instanced_tree": (iti, "instanced_tree_kernel"),
-        "cluster": (ci, "cluster_kernel"),
-    }
+    traversal = traversal_kernels()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -133,44 +191,6 @@ def main(argv=None):
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
 
-    def profiled(fn):
-        """(device events, wall ms, profiler) of fn() in one window."""
-        for mod, _ in traversal.values():
-            mod.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return events, wall_ms, prof, out
-
-    def stats(events, wall_ms):
-        busy_ms = sum(e.device_time_total for e in events) / 1e3  # us -> ms
-        per_kernel = {}
-        for label, (mod, key) in traversal.items():
-            ms = sum(e.device_time_total for e in events if key in e.name) / 1e3
-            per_kernel[label] = {
-                "launches": sum(mod.LAUNCHES.values()),
-                "ms": ms,
-                "share_of_busy": (ms / busy_ms) if events else "not measured",
-            }
-        by_name = {}
-        for e in events:
-            agg = by_name.setdefault(e.name, [0, 0.0])
-            agg[0] += 1
-            agg[1] += e.device_time_total / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[: args.top]
-        return {
-            "wall_ms_profiled": wall_ms,
-            "device_busy_ms": busy_ms if events else "not measured",
-            "device_idle_share": (1.0 - busy_ms / wall_ms) if events else "not measured",
-            "kernel_launches": len(events),
-            "traversal_kernels": per_kernel,
-            "top_kernels": [{"name": name[:90], "count": c, "ms": ms}
-                            for name, (c, ms) in top],
-        }
-
     paths = args.res * args.res * args.spp
     result = {
         "card": card,
@@ -184,9 +204,11 @@ def main(argv=None):
         "mpaths_per_s_unprofiled": paths / (plain_wall_ms / 1e3) / 1e6,
     }
     if args.backward:
-        ev_f, wall_f, _, (loss, p) = profiled(forward)
-        ev_b, wall_b, prof, _ = profiled(lambda: torch.autograd.grad(loss, [p["tex_value"]]))
-        fwd, bwd = stats(ev_f, wall_f), stats(ev_b, wall_b)
+        ev_f, wall_f, _, (loss, p) = profiled(forward, traversal)
+        ev_b, wall_b, prof, _ = profiled(lambda: torch.autograd.grad(loss, [p["tex_value"]]),
+                                         traversal)
+        fwd, bwd = stats(ev_f, wall_f, traversal, args.top), stats(ev_b, wall_b, traversal,
+                                                                   args.top)
         busy = sum(e.device_time_total for e in ev_f + ev_b) / 1e3
         index_add = sum(e.device_time_total for e in ev_b if "indexFunc" in e.name) / 1e3
         bwd["index_add_ms"] = index_add
@@ -205,8 +227,8 @@ def main(argv=None):
             "backward": bwd,
         })
     else:
-        events, wall_ms, prof, _ = profiled(step)
-        result.update(stats(events, wall_ms))
+        events, wall_ms, prof, _ = profiled(step, traversal)
+        result.update(stats(events, wall_ms, traversal, args.top))
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
