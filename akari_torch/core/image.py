@@ -5,13 +5,15 @@ only (``zlib`` + ``struct``): one IHDR, one IDAT whose scanlines take the
 filter the PNG specification's heuristic picks, one IEND. ``write_hdr`` writes a Radiance ``.hdr`` (RGBE,
 flat scanlines) and ``write_hdr_npy`` keeps the linear float image.
 
-Readers (``read_image``): ``.npy`` (linear float), ``.hdr`` (RGBE, flat
-or new-RLE scanlines, the reference's codec) and PNG through the decoder
-below. The reference reads PNG and JPEG with PIL, which the card's
-machine does not have; the port decodes 8-bit, non-interlaced PNGs of
-colour type 0 (grey), 2 (RGB) and 6 (RGBA, alpha dropped) with all five
-scanline filters, and refuses any other PNG form and JPEG with an error
-naming the format.
+Readers (``read_image``): ``.npy`` (linear float) and ``.hdr`` (RGBE, flat
+or new-RLE scanlines, the reference's codec) by extension; any other file
+by its signature, as PIL chooses: PNG through the decoder below (every
+colour type and bit depth, interlaced or not) and JPEG through
+``core/jpeg.py`` (baseline, extended sequential and progressive Huffman).
+The reference reads both with PIL, which the card's machine does not
+have; the pixels equal PIL's ``convert("RGB")``. Other formats PIL reads
+(BMP, GIF, TIFF, WebP, TGA, ...) raise an error naming the formats read
+here.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import zlib
 
 import numpy as np
 
-from .spectrum import srgb_to_linear, to_uint8_srgb
+from .spectrum import linear_to_srgb, srgb_to_linear, to_uint8_srgb
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -82,7 +84,11 @@ def write_hdr_npy(path, img_linear):
 # --------------------------------------------------------------------------
 # PNG decoding
 
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _paeth(a, b, c):
@@ -92,9 +98,9 @@ def _paeth(a, b, c):
 
 
 def _unfilter(raw, h, stride, bpp):
-    """Undo the per-scanline filters of a non-interlaced 8-bit image:
-    ``raw`` is the inflated IDAT stream of ``h`` rows of ``1 + stride``
-    bytes; returns [h, stride] uint8.
+    """Undo the per-scanline filters of one (sub-)image: ``raw`` holds
+    ``h`` rows of ``1 + stride`` bytes; ``bpp`` is the filters' byte step,
+    the bytes of one pixel rounded up to 1; returns [h, stride] uint8.
 
     Pixel (y, x) depends on its left, upper and upper-left neighbours only,
     so every pixel of an anti-diagonal y + x = d is decoded at once: h + w
@@ -127,18 +133,55 @@ def _unfilter(raw, h, stride, bpp):
     return out[ys + xs + 2, ys + 1].reshape(h, stride).astype(np.uint8)
 
 
+def _samples(rows, h, w, depth, ch):
+    """[h, stride] unfiltered bytes -> [h, w, ch] samples: uint8, or
+    uint16 for 16-bit images; sub-byte samples unpacked MSB first."""
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    if depth == 16:
+        return rows.reshape(h, w, ch, 2).astype(np.uint16) @ np.uint16([256, 1])
+    bits = np.unpackbits(rows, axis=1)[:, :w * ch * depth].reshape(h, w * ch, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, ch)
+
+
+def _to_rgb8(px, ctype, depth, palette):
+    """[H, W, ch] samples -> [H, W, 3] uint8, as PIL's ``convert("RGB")``:
+    16-bit colour keeps the high byte; 16-bit grey (PIL's I;16) is
+    clipped at 255; 1/2/4-bit grey scales to 0..255; palette indices past
+    PLTE read black; alpha and tRNS are dropped."""
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:min(len(palette), 256)] = palette[:256]
+        return lut[px[..., 0]]
+    if ctype == 0 and depth == 16:
+        grey = np.minimum(px[..., 0], 255).astype(np.uint8)
+    elif depth == 16:
+        px = (px >> 8).astype(np.uint8)
+    elif ctype == 0 and depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    if ctype in (0, 4):
+        if not (ctype == 0 and depth == 16):
+            grey = px[..., 0]
+        return np.repeat(grey[..., None], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
 def decode_png(data, what="PNG"):
-    """PNG file bytes -> [H, W, 3] uint8 RGB (grey replicated, alpha
-    dropped, as PIL's ``convert("RGB")`` does)."""
+    """PNG file bytes -> [H, W, 3] uint8 RGB, the pixels of PIL's
+    ``convert("RGB")``: every colour type and bit depth of the PNG
+    specification, interlaced (Adam7) or not."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{what}: not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, palette = 8, [], None, None
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body[:13])
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -147,17 +190,34 @@ def decode_png(data, what="PNG"):
     if hdr is None:
         raise ValueError(f"{what}: PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+    if ctype not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[ctype] or interlace > 1:
         raise ValueError(
             f"{what}: PNG of bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace} is not supported (8-bit, colour type 0, 2 or 6, "
-            "non-interlaced only)"
+            f"{interlace} is not a PNG form"
         )
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{what}: palette PNG without a PLTE chunk")
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
-    if ch == 1:
-        return np.repeat(px, 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
+    bpp = max(1, depth * ch // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
+    need = sum(ph * (1 + -(-pw * depth * ch // 8)) for ph, pw in sizes if ph > 0 and pw > 0)
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    except zlib.error as e:
+        raise ValueError(f"{what}: corrupt PNG image data ({e})") from None
+    if len(raw) < need:
+        raise ValueError(f"{what}: PNG image data is truncated ({len(raw)} of {need} bytes)")
+    px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for (x0, y0, dx, dy), (ph, pw) in zip(passes, sizes):
+        if ph <= 0 or pw <= 0:
+            continue  # an empty Adam7 pass holds no bytes at all
+        stride = -(-pw * depth * ch // 8)
+        rows = _unfilter(raw[off:off + ph * (1 + stride)], ph, stride, bpp)
+        px[y0::dy, x0::dx] = _samples(rows, ph, pw, depth, ch)
+        off += ph * (1 + stride)
+    return _to_rgb8(px, ctype, depth, palette)
 
 
 # --------------------------------------------------------------------------
@@ -241,10 +301,11 @@ def write_hdr(path, img_linear):
 
 
 def read_image(path, to_linear=True):
-    """Read a PNG (sRGB -> linear float), .hdr (RGBE) or .npy (linear).
+    """Read PNG / JPEG (sRGB -> linear float), .hdr (RGBE) or .npy (linear).
 
-    Returns [H, W, 3] float32. JPEG and PNG forms the decoder does not
-    handle raise ``ValueError`` naming the format.
+    Returns [H, W, 3] float32. PNG and JPEG are told apart by their
+    signature; other formats, and JPEG forms the decoder refuses, raise
+    ``ValueError`` naming the format.
     """
     path = str(path)
     if path.endswith(".npy"):
@@ -256,12 +317,34 @@ def read_image(path, to_linear=True):
         return _read_hdr(path)
     with open(path, "rb") as f:
         data = f.read()
-    if data[:3] == JPEG_SIGNATURE:
-        raise ValueError(
-            f"{path}: JPEG images are not supported (the port decodes PNG, "
-            ".hdr and .npy)"
-        )
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: unsupported image format (PNG, .hdr or .npy)")
-    raw = decode_png(data, path).astype(np.float32) / 255.0
+    if data[:8] == PNG_SIGNATURE:
+        px = decode_png(data, path)
+    elif data[:3] == JPEG_SIGNATURE:
+        from .jpeg import decode_jpeg
+
+        px = decode_jpeg(data, path)
+    else:
+        raise ValueError(f"{path}: unsupported image format (the port reads PNG, JPEG, "
+                         ".hdr and .npy)")
+    raw = px.astype(np.float32) / 255.0
     return srgb_to_linear(raw).astype(np.float32) if to_linear else raw
+
+
+# Post-processing chain (ref: image.hpp PostProcessor / GammaCorrection /
+# PostProcessingPipeline), as the reference composes it.
+
+def gamma_correction(img, gamma=1.0 / 2.4):
+    return linear_to_srgb(img)
+
+
+def identity(img):
+    return img
+
+
+def pipeline(*stages):
+    def run(img):
+        for s in stages:
+            img = s(img)
+        return img
+
+    return run

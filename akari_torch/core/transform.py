@@ -11,6 +11,10 @@ from __future__ import annotations
 import numpy as np
 
 
+def identity():
+    return np.eye(4, dtype=np.float32)
+
+
 def translate(v):
     m = np.eye(4, dtype=np.float32)
     m[:3, 3] = np.asarray(v, dtype=np.float32)
@@ -76,6 +80,15 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0)):
 def apply_point(m, p):
     """Apply to ``[..., 3]`` points (translation included)."""
     return p @ np.asarray(m[:3, :3]).T + np.asarray(m[:3, 3])
+
+
+def inverse(m):
+    return np.linalg.inv(m).astype(np.float32)
+
+
+def apply_vector(m, v):
+    """Apply to ``[..., 3]`` vectors (no translation)."""
+    return v @ np.asarray(m[:3, :3]).T
 
 
 def apply_normal(m, n):

@@ -20,6 +20,10 @@ def cross(a, b):
     )
 
 
+def length(a, keepdim=False):
+    return torch.sqrt(dot(a, a, keepdim=keepdim))
+
+
 def normalize(a, eps=0.0):
     """Normalize; with eps > 0 guards against zero vectors (returns 0)."""
     n2 = dot(a, a, keepdim=True)
@@ -38,6 +42,11 @@ def onb(n):
     t = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
     bt = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
     return t, bt
+
+
+def to_local(t, b, n, w):
+    """World direction -> local Z-up shading space."""
+    return torch.stack([dot(w, t), dot(w, b), dot(w, n)], dim=-1)
 
 
 def to_world(t, b, n, w):

@@ -1,13 +1,19 @@
-"""Build the native BVH builder at first use and load it with ctypes.
+"""Build the native libraries at first use and load them with ctypes.
 
-Counterpart of ``akari_tpu/native/loader.py``. ``bvh_builder.cpp`` (a copy
-of the reference's source) is compiled by ``g++`` with the reference
-loader's flags into ``build/akari_torch_native/<hash>/libakr_bvh.so`` at
-the repository root, keyed by a hash of the source, the compiler and the
-flags, and loaded with ``ctypes``. Nothing is built at import time.
+Counterpart of ``akari_tpu/native/loader.py``. Each source of ``SOURCES``
+is compiled by ``g++`` with the reference loader's flags into
+``build/akari_torch_native/<hash>/<library>`` at the repository root, keyed
+by a hash of the source, the compiler and the flags, and loaded with
+``ctypes``. Nothing is built at import time.
 
-Unlike the reference loader, a failed build raises: the Python builder
-would give another triangle storage order, so there is no fallback.
+- ``bvh``: ``bvh_builder.cpp`` (a copy of the reference's source), the
+  binned-SAH BVH builder;
+- ``jpeg``: ``jpeg_entropy.cpp``, the Huffman decoding of JPEG scans
+  (``akari_torch/core/jpeg.py``).
+
+Unlike the reference loader, a failed build raises: the Python BVH builder
+would give another triangle storage order, and the JPEG decoder has no
+Python entropy decoder, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(_HERE, "bvh_builder.cpp")
 REPO_ROOT = os.path.dirname(os.path.dirname(_HERE))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "akari_torch_native")
 
@@ -29,59 +34,86 @@ CXX = "g++"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 LIBS = ["-lpthread"]
 
+
+def _bind_bvh(lib):
+    fp, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    lib.akr_bvh_build.restype = ctypes.c_int
+    lib.akr_bvh_build.argtypes = [
+        fp, fp, fp,                        # p0, p1, p2
+        ctypes.c_int64, ctypes.c_int,      # n_tris, max_leaf
+        fp, fp,                            # node_lo, node_hi
+        i32p, i32p, i32p, i32p,            # first, count, miss, order
+        ctypes.c_int64,                    # max_nodes
+        ctypes.POINTER(ctypes.c_int64),    # out_n_nodes
+    ]
+
+
+def _bind_jpeg(lib):
+    i32 = ctypes.c_int32
+    lib.akr_jpeg_scan.restype = ctypes.c_int
+    lib.akr_jpeg_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, start
+        i32, ctypes.POINTER(ctypes.c_void_p),              # n_comp, planes
+        ctypes.POINTER(i32), ctypes.c_char_p,              # geom, huff
+        i32, i32, i32, i32, i32, i32,                      # mcus_x, mcus_y, ss, se, ah, al
+        i32, i32,                                          # progressive, restart_interval
+        ctypes.POINTER(ctypes.c_int64),                    # end_pos
+    ]
+
+
+# name -> (source, library file, what needs it, ctypes binding)
+SOURCES = {
+    "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
+            "the native BVH builder (scenes of 20,000 triangles or more)", _bind_bvh),
+    "jpeg": ("jpeg_entropy.cpp", "libakr_jpeg.so", "the JPEG decoder", _bind_jpeg),
+}
+
 _lock = threading.Lock()
 _loaded = {}
 
 
-def _library_path():
-    with open(SRC, "rb") as f:
+def _library_path(name):
+    src, lib, _, _ = SOURCES[name]
+    with open(os.path.join(_HERE, src), "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join([CXX, *CXX_FLAGS, *LIBS]).encode()
         )
-    return os.path.join(BUILD_DIR, digest.hexdigest()[:16], "libakr_bvh.so")
+    return os.path.join(BUILD_DIR, digest.hexdigest()[:16], lib)
 
 
-def build():
-    """Compile ``bvh_builder.cpp`` unless its keyed library exists; return
-    the library path. Raises ``RuntimeError`` if the compiler is missing
-    or fails."""
-    lib = _library_path()
+def build(name="bvh"):
+    """Compile the source ``name`` of ``SOURCES`` unless its keyed library
+    exists; return the library path. Raises ``RuntimeError`` if the
+    compiler is missing or fails."""
+    lib = _library_path(name)
     if os.path.exists(lib):
         return lib
+    src = os.path.join(_HERE, SOURCES[name][0])
     cxx = shutil.which(CXX)
     if cxx is None:
         raise RuntimeError(
-            f"{CXX} not found on PATH: the native BVH builder (scenes of "
-            "20,000 triangles or more) needs a C++ compiler"
+            f"{CXX} not found on PATH: {SOURCES[name][2]} needs a C++ compiler"
         )
     os.makedirs(os.path.dirname(lib), exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, SRC, *LIBS]
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp, src, *LIBS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"{CXX} failed ({proc.returncode}) building {SRC}:\n"
+            f"{CXX} failed ({proc.returncode}) building {src}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
     return lib
 
 
-def load():
-    """Build if needed and ``ctypes``-load the builder (cached per path)."""
+def load(name="bvh"):
+    """Build if needed and ``ctypes``-load the library ``name`` (cached per
+    path)."""
     with _lock:
-        path = build()
+        path = build(name)
         if path not in _loaded:
             lib = ctypes.CDLL(path)
-            fp, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
-            lib.akr_bvh_build.restype = ctypes.c_int
-            lib.akr_bvh_build.argtypes = [
-                fp, fp, fp,                        # p0, p1, p2
-                ctypes.c_int64, ctypes.c_int,      # n_tris, max_leaf
-                fp, fp,                            # node_lo, node_hi
-                i32p, i32p, i32p, i32p,            # first, count, miss, order
-                ctypes.c_int64,                    # max_nodes
-                ctypes.POINTER(ctypes.c_int64),    # out_n_nodes
-            ]
+            SOURCES[name][3](lib)
             _loaded[path] = lib
         return _loaded[path]

@@ -49,6 +49,18 @@ def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * INV_PI
 
 
+def uniform_sphere(u):
+    """[..., 2] -> [..., 3] direction uniform over the unit sphere."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(maximum(1.0 - z * z, 0.0))
+    phi = 2.0 * np.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_sphere_pdf():
+    return 1.0 / (4.0 * np.pi)
+
+
 def uniform_triangle(u):
     """[..., 2] -> barycentric (b0, b1) uniformly over a triangle."""
     su0 = torch.sqrt(u[..., 0])

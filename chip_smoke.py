@@ -205,19 +205,29 @@ Phases (each checks its results; any failure exits non-zero):
     as many rays again go down onto them), one closest and one any-hit
     launch each, against the same calls through the plain versions (prims
     and occlusion exact, t/u/v within 2 ulp);
-41. the result: a JSON line of kernel records (the dense records on the
+41. image decoding without PIL (the card's machine has none): every
+    fixture of ``tests/data/torch_port_images`` (baseline, progressive,
+    restart, RGB-kept, grey and 16-bit-table JPEGs, palette, LA, Adam7 and
+    16-bit PNGs) decoded by the port, its SHA-256 held to PIL's in
+    ``digests.json``; the 2048^2 config-3 albedo as a 4:2:0 JPEG and phase
+    24's 2048^2 PNG decoded, median of 3 each; then phase 24's CLI with
+    ``map_Kd`` on that JPEG, on a PNG of its decoded pixels (lossless, so
+    the frame must be bit-equal) and on the JPEG again, each with its tree
+    launches, parse time and time to first image;
+42. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
     the tree records' errors cover phases 6, 24, 26, 27, 35 and 40, the
     dense and instanced tree records' those of phases 34, 37 and 40), then
     the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40, 41) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
-Every kernel source (and the native BVH builder) is built at start, one
-compiler process each, all started together. Imports nothing of JAX.
+Every kernel source (and the native BVH builder and JPEG entropy
+decoder) is built at start, one compiler process each, all started
+together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
 
@@ -291,6 +301,9 @@ ENVTEX_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_envtex64_spp4_d5
 BDPT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_bdpt_cornell64_spp4.npy")
 AO_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_ao_terrain64_spp16.npy")
 BDPT_SPP = 64                    # BASELINE.json config 5
+# Phase 41: the decoders' fixtures (tools/make_torch_port_image_fixtures.py)
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_images")
+ALBEDO_JPEG = "albedo2048_q85_420.jpg"   # envtex_texture(2048, 0), 4:2:0, quality 85
 TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
 BF16_SPP = 16                    # phase 29's frames: Cornell 1024^2 (phase 5's scene)
 BF16_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_cornell64_spp4_d5_bf16.npy")
@@ -2393,6 +2406,121 @@ def bench_phase(dev, card, traversal, scene, sc, scene512, sc512, bench_loss):
     return errs
 
 
+def _median_s(fn, n=3):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2], times
+
+
+def image_phase(card, traversal, cli_render):
+    """Phase 41: the port's JPEG and PNG decoders on this machine (no PIL
+    here): the fixtures' digests, the 2048^2 decode times, and the config-3
+    CLI with a JPEG albedo against the same CLI on a lossless PNG of its
+    decoded pixels; returns the figures it logs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from akari_torch.core.image import decode_png, encode_png
+    from akari_torch.core.jpeg import decode_jpeg
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+
+    t_phase = time.perf_counter()
+    log(f"phase 41: image decoding without PIL: the fixtures' digests, the 2048^2 JPEG and PNG "
+        f"decodes, the config-3 CLI on a JPEG albedo [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            data = f.read()
+        px = decode_jpeg(data, fname) if fname.endswith(".jpg") else decode_png(data, fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL's in digests.json")
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
+        jpeg_data = f.read()
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    jpeg_s, jpeg_all = _median_s(lambda: decode_jpeg(jpeg_data))
+    png_s, png_all = _median_s(lambda: decode_png(png_data))
+    log(f"  2048^2 decode on the host, median of 3: JPEG {jpeg_s:.3f} s ({len(jpeg_data)} bytes; "
+        f"runs {', '.join(f'{t:.3f}' for t in jpeg_all)}), PNG {png_s:.3f} s ({len(png_data)} "
+        f"bytes; runs {', '.join(f'{t:.3f}' for t in png_all)}) [card: {card}]")
+    # one more JPEG decode with its numpy stages timed: the rest is the
+    # marker parse and the native entropy decoding
+    from akari_torch.core import jpeg as jpeg_mod
+
+    stage_s = {}
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            stage_s[fn.__name__] = stage_s.get(fn.__name__, 0.0) + time.perf_counter() - t0
+            return r
+        return run
+
+    real = {n: getattr(jpeg_mod, n) for n in ("_idct_islow", "_upsample", "_ycc_to_rgb")}
+    for n, fn in real.items():
+        setattr(jpeg_mod, n, timed(fn))
+    try:
+        t0 = time.perf_counter()
+        decode_jpeg(jpeg_data)
+        total_s = time.perf_counter() - t0
+    finally:
+        for n, fn in real.items():
+            setattr(jpeg_mod, n, fn)
+    log(f"  one JPEG decode split: {total_s:.3f} s = markers + entropy (native) "
+        f"{total_s - sum(stage_s.values()):.3f} s, IDCT {stage_s['_idct_islow']:.3f} s, "
+        f"upsampling {stage_s['_upsample']:.3f} s, colour {stage_s['_ycc_to_rgb']:.3f} s")
+
+    full = ENVTEX_FULL
+    cfg_spp, depth = full["spp"], full["depth"]
+    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
+    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
+    out = {"jpeg_decode_s": jpeg_s, "png_decode_s": png_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        akari = write_envtex_terrain(tmp, **full)
+        with open(os.path.join(tmp, "albedo.jpg"), "wb") as f:
+            f.write(jpeg_data)
+        with open(os.path.join(tmp, "decoded.png"), "wb") as f:
+            f.write(encode_png(decode_jpeg(jpeg_data)))
+        mtl = os.path.join(tmp, "terrain.mtl")
+        with open(mtl) as f:
+            mtl_text = f.read()
+        frames = []
+        for run, albedo in enumerate(("albedo.jpg", "decoded.png", "albedo.jpg")):
+            with open(mtl, "w") as f:
+                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo}"))
+            reset_all(traversal)
+            with log_records() as logbuf, captured_write_png() as written:
+                t0 = time.perf_counter()
+                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
+                                      "--device", "cuda", "-v"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                   for n, c in m.LAUNCHES.items() if c}
+            check(rc == 0, f"CLI on {albedo} returned {rc}")
+            check(got == expect, f"CLI on {albedo}: launches {got}, expected {expect}")
+            parse_s = parsed_seconds(logbuf.getvalue())
+            frames.append(np.asarray(written[-1]))
+            check_image(frames[-1], full["res"], f"CLI on {albedo}")
+            log(f"  CLI with map_Kd {albedo}: time to first image {wall:.3f} s wall (parse OBJ + "
+                f"MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
+            out[f"cli_{run}_s"], out[f"parse_{run}_s"] = wall, parse_s
+    check(np.array_equal(frames[0], frames[1]) and np.array_equal(frames[0], frames[2]),
+          "the JPEG-albedo frame differs from the lossless PNG route's")
+    log("  the JPEG-albedo frames are bit-equal to the frame on the PNG of their decoded pixels")
+    log(f"  phase 41: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2435,18 +2563,21 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
-        native = pool.submit(native_loader.build)  # g++ beside the nvcc builds
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
+        # g++ beside the nvcc builds: the BVH builder and the JPEG entropy decoder
+        natives = {n: pool.submit(native_loader.build, n) for n in ("bvh", "jpeg")}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
-        native_path = native.result()
+        native_paths = {n: f.result() for n, f in natives.items()}
     for kname in KERNELS:
         kbuild.load(kname)
-    native_loader.load()
+    for n in native_paths:
+        native_loader.load(n)
     build_s = time.perf_counter() - t0
     for kname, path in libs.items():
         log(f"  built {os.path.relpath(path, ROOT)}")
-    log(f"  built {os.path.relpath(native_path, ROOT)} (g++, native BVH builder)")
+    for n, path in native_paths.items():
+        log(f"  built {os.path.relpath(path, ROOT)} (g++, {native_loader.SOURCES[n][2]})")
     log(f"  all builds, in parallel: {build_s:.2f} s")
     for kname, (secs, report) in kbuild.BUILD_LOG.items():
         log(f"  nvcc {kname}: {secs:.2f} s; ptxas:\n    " + report.replace("\n", "\n    "))
@@ -3003,9 +3134,10 @@ def main():
     tree_occ_err = max(tree_occ_err, aos["tree"][1])
     err_it = max(err_it, aos["instanced_tree"][0])
     occ_it = max(occ_it, aos["instanced_tree"][1])
+    image_phase(card, traversal, cli_render)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 41: result ----------------------------------------------------
+    # ---- phase 42: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

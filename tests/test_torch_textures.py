@@ -9,7 +9,10 @@ Tolerances:
   RLE scanlines) and PNG (the reference decodes PNG with PIL: PNGs written
   by PIL in grey / RGB / RGBA, PNGs encoded here with each of the five
   scanline filters forced or a seeded filter per row, and the port's
-  writer's output); ``write_hdr`` writes the reference's bytes;
+  writer's output); ``write_hdr`` writes the reference's bytes (the other
+  PNG forms and JPEG: tests/test_torch_image_decode.py);
+- a JPEG-textured OBJ under a JPEG ``EnvMap``: tables exact, the 16x16
+  render within the textured render's budget below;
 - ``_bilinear`` at uv 0, 1, -0.0 and wrapped values: allclose 1e-6 (the
   texel picks are exact; the weights round alike);
 - compiled texture tables: exact;
@@ -210,15 +213,23 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 
 
 def test_unsupported_images_name_their_format(tmp_path):
+    """What the decoders still refuse: arithmetic-coded and 12-bit JPEG,
+    PNG headers outside the specification, and formats other than PNG,
+    JPEG, .hdr and .npy (read_image picks the decoder by signature)."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
-    with pytest.raises(ValueError, match="JPEG"):
-        port_image.read_image(str(tmp_path / "a.jpg"))
-    Image.fromarray(_pattern(8, 8, 5)).convert("P").save(tmp_path / "pal.png")
-    with pytest.raises(ValueError, match="colour type 3"):
-        port_image.read_image(str(tmp_path / "pal.png"))
-    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(tmp_path / "d16.png")
-    with pytest.raises(ValueError, match="bit depth 16"):
-        port_image.read_image(str(tmp_path / "d16.png"))
+    data = (tmp_path / "a.jpg").read_bytes()
+    sof = data.index(b"\xff\xc0")
+    (tmp_path / "arith.jpg").write_bytes(data[:sof + 1] + b"\xc9" + data[sof + 2:])
+    with pytest.raises(ValueError, match="arithmetic"):
+        port_image.read_image(str(tmp_path / "arith.jpg"))
+    (tmp_path / "d12.jpg").write_bytes(data[:sof + 4] + b"\x0c" + data[sof + 5:])
+    with pytest.raises(ValueError, match="12-bit"):
+        port_image.read_image(str(tmp_path / "d12.jpg"))
+    ihdr = struct.pack(">IIBBBBB", 8, 8, 16, 3, 0, 0, 0)  # 16-bit palette: no such PNG
+    (tmp_path / "p16.png").write_bytes(port_image.PNG_SIGNATURE + port_image._chunk(b"IHDR", ihdr)
+                                       + port_image._chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="bit depth 16, colour type 3"):
+        port_image.read_image(str(tmp_path / "p16.png"))
     (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(60))
     with pytest.raises(ValueError, match="unsupported image format"):
         port_image.read_image(str(tmp_path / "x.bmp"))
@@ -419,13 +430,72 @@ def test_image_textures_of_the_sdl_resolve_relative_paths(tmp_path):
     np.testing.assert_array_equal(mat.color.image, ref_image.read_image(str(tmp_path / "t.png")))
 
 
-def test_png_decoder_needs_no_pil():
+def test_png_decoder_needs_no_pil(tmp_path):
+    """The decoders import no PIL: with PIL blocked, a progressive JPEG and
+    an Adam7 palette PNG decode to PIL's pixels."""
+    import hashlib
     import subprocess
     import sys
 
-    code = ("import sys, akari_torch.core.image as m\n"
-            "px = m.decode_png(m.encode_png(__import__('numpy').zeros((2, 3, 3), 'uint8')))\n"
-            "print(px.shape, 'PIL' in sys.modules)")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+    from test_torch_image_decode import _png
+
+    Image.fromarray(_pattern(21, 30, 15, "smooth")).save(tmp_path / "p.jpg", progressive=True)
+    idx = np.random.default_rng(16).integers(0, 16, (9, 11, 1))
+    plte = np.random.default_rng(17).integers(0, 256, (16, 3)).astype(np.uint8).tobytes()
+    (tmp_path / "i.png").write_bytes(_png(idx, 4, 3, interlace=1, plte=plte))
+    want = [hashlib.sha256(np.asarray(Image.open(tmp_path / n).convert("RGB")).tobytes()).hexdigest()
+            for n in ("p.jpg", "i.png")]
+    code = ("import hashlib, sys\n"
+            "sys.modules['PIL'] = None  # any import of PIL fails\n"
+            "import numpy as np, akari_torch.core.image as m\n"
+            "px = m.decode_png(m.encode_png(np.zeros((2, 3, 3), 'uint8')))\n"
+            "print(px.shape)\n"
+            "for n in ('p.jpg', 'i.png'):\n"
+            "    raw = m.read_image(sys.argv[1] + '/' + n, to_linear=False)\n"
+            "    print(hashlib.sha256((raw * 255).round().astype('uint8').tobytes()).hexdigest())\n"
+            "print(any(k.split('.')[0] == 'PIL' and v is not None for k, v in sys.modules.items()))")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                         text=True, check=True,
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    assert out.stdout.strip() == "(2, 3, 3) False"
+    assert out.stdout.split() == ["(2,", "3,", "3)", *want, "False"]
+
+
+def test_jpeg_textured_obj_under_a_jpeg_envmap_matches_jax(tmp_path):
+    """An OBJ whose map_Kd is a 4:2:0 JPEG, lit by an SDL EnvMap read from
+    a progressive JPEG and a lamp: texture and env tables compile equal
+    (the port's decoder gives PIL's pixels), and a 16x16 render matches
+    the JAX program per sample within the textured render's budget."""
+    Image.fromarray(_pattern(24, 40, 13, "smooth")).save(tmp_path / "wood.jpg", quality=80)
+    sky = (_pattern(16, 32, 14, "smooth") // 2 + 100).astype(np.uint8)
+    Image.fromarray(sky).save(tmp_path / "sky.jpg", quality=90, progressive=True)
+    (tmp_path / "m.mtl").write_text("newmtl wood\nKd 1 1 1\nmap_Kd wood.jpg\n"
+                                    "newmtl lamp\nKe 6 5 4\n")
+    (tmp_path / "m.obj").write_text(
+        "mtllib m.mtl\nv -2 0 -2\nv 2 0 -2\nv 2 0 2\nv -2 0 2\nv -0.4 2 -0.4\nv 0.4 2 -0.4\n"
+        "v 0 2 0.4\nvt -0.5 -0.5\nvt 1.5 -0.5\nvt 1.5 1.5\nvt -0.5 1.5\nusemtl wood\n"
+        "f 1/1 3/3 2/2\nf 1/1 4/4 3/3\nusemtl lamp\nf 5 6 7\n")
+    (tmp_path / "s.akari").write_text(
+        'export env = EnvMap { image: "sky.jpg", scale: 1.5 }\n'
+        'export s = Scene { environment: $env, shapes: [ AkariMesh { path: "m.obj" } ] }\n')
+    sp = port_sdl.parse_file(str(tmp_path / "s.akari")).exports["s"]
+    sr = ref_sdl.parse_file(str(tmp_path / "s.akari")).exports["s"]
+    port, ref_c = sp.compile(intersector="dense"), sr.compile(intersector="brute")
+    _tables_equal(port, ref_c)
+    np.testing.assert_array_equal(port.env_image.numpy(), np.asarray(ref_c.env_image))
+    ref, _ = both(ref_c)
+    cam_r = ref_make_camera(C2W, 50.0, 16, 16)
+    cam_p = port_camera(cam_r)
+    cfg_r = ref_path.PathConfig(spp=1, max_depth=3)
+    cfg_p = port_path.PathConfig(spp=1, max_depth=3)
+
+    @jax.jit
+    def one(s):
+        ifn, ofn, ffn = ref_path._jax_intersectors_soa(ref)
+        return ref_path.trace_paths(ref, cam_r, cfg_r, jnp.uint32(0), jnp.full(256, s, jnp.uint32),
+                                    jnp.arange(256, dtype=jnp.uint32), ifn, ofn, jnp, fused_fn=ffn)
+
+    got = np.mean([port_path.trace_paths(port, cam_p, cfg_p, 0, torch.full((256,), s),
+                                         torch.arange(256)).numpy() for s in range(3)], 0)
+    want = np.mean([np.asarray(one(s)) for s in range(3)], 0)
+    assert got.mean() > 0.05
+    assert_images_match(got, want, outlier_frac=0.005, mean_tol=2e-4)
