@@ -400,7 +400,7 @@ def _build_native(p0, p1, p2):
 
     from ..native.loader import load
 
-    lib = load()
+    lib = load("bvh")
     p0 = np.ascontiguousarray(p0, dtype=np.float32)
     p1 = np.ascontiguousarray(p1, dtype=np.float32)
     p2 = np.ascontiguousarray(p2, dtype=np.float32)

@@ -23,8 +23,11 @@ Refused with a ``ValueError`` naming the form: lossless, hierarchical and
 arithmetic-coded JPEGs, precisions other than 8 bits, 4-component (CMYK /
 YCCK) and 2-component images, a progressive file whose scans leave some
 of the first AC coefficients unrefined (libjpeg would smooth its blocks),
-a file that ends before its EOI marker, and corrupt entropy-coded data
-(a bit pattern no Huffman code matches, restart markers out of order).
+a file that ends before its EOI marker, a Huffman table that is not a
+prefix code or holds the all-ones code (PIL refuses these too), and
+corrupt entropy-coded data: a bit pattern no Huffman code matches, or
+restart markers out of order (libjpeg warns and decodes on there, and
+PIL loads such a file).
 """
 
 from __future__ import annotations

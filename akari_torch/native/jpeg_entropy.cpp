@@ -62,7 +62,9 @@ struct Huff {
 };
 
 // T.81 C.2 / F.2.2.3 decoding tables; false if the counts do not form a
-// prefix code (libjpeg's JERR_BAD_HUFF_TABLE), or a DC symbol exceeds 15.
+// prefix code with no all-ones code (libjpeg's JERR_BAD_HUFF_TABLE), or a
+// DC symbol exceeds 15. The counts of each length are checked before its
+// codes are written, so the lookahead table is never indexed past its end.
 bool build_huff(const uint8_t* spec, bool is_dc, Huff& h) {
     const uint8_t* counts = spec;
     std::memcpy(h.vals, spec + 16, 256);
@@ -77,6 +79,9 @@ bool build_huff(const uint8_t* spec, bool is_dc, Huff& h) {
     int k = 0;
     for (int l = 1; l <= 16; ++l) {
         int c = counts[l - 1];
+        // the codes of length l must fit in l bits, and, as in libjpeg's
+        // jpeg_make_d_derived_tbl, not reach the all-ones code
+        if (code + c >= (1 << l)) return false;
         if (c) {
             h.valoffset[l] = k - code;
             for (int i = 0; i < c; ++i, ++k, ++code) {
@@ -91,7 +96,6 @@ bool build_huff(const uint8_t* spec, bool is_dc, Huff& h) {
             h.maxcode[l] = -1;
             h.valoffset[l] = 0;
         }
-        if (code > (1 << l)) return false;  // more codes than the length holds
         code <<= 1;
     }
     h.maxcode[17] = 0x7FFFFFFF;

@@ -81,7 +81,7 @@ def _library_path(name):
     return os.path.join(BUILD_DIR, digest.hexdigest()[:16], lib)
 
 
-def build(name="bvh"):
+def build(name):
     """Compile the source ``name`` of ``SOURCES`` unless its keyed library
     exists; return the library path. Raises ``RuntimeError`` if the
     compiler is missing or fails."""
@@ -107,7 +107,7 @@ def build(name="bvh"):
     return lib
 
 
-def load(name="bvh"):
+def load(name):
     """Build if needed and ``ctypes``-load the library ``name`` (cached per
     path)."""
     with _lock:

@@ -19,7 +19,7 @@ pixels equal PIL's ``convert("RGB")``:
   x86-64, which saturates where jidctint.c's table wraps);
 - PNGs in every colour type and bit depth, with and without tRNS and
   ancillary chunks, Adam7-interlaced at 1x1, 3x2 and 33x17 (Pillow writes
-  no interlaced, sub-byte grey or 16-bit colour PNG, so ``_png`` builds
+  no interlaced, sub-byte grey or 16-bit colour PNG, so ``png_bytes`` builds
   them; PIL reads them);
 - the refused forms raise ``ValueError`` naming themselves.
 """
@@ -41,19 +41,12 @@ from akari_torch.core import image as port_image
 from akari_torch.core.image import _chunk
 from akari_torch.core import jpeg as port_jpeg
 from akari_tpu.core import image as ref_image
+from tools.make_torch_port_image_fixtures import pattern, png_bytes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_images")
 SIZES = [(1, 1), (7, 300), (33, 17), (17, 33), (64, 48)]   # (h, w)
 SUBSAMPLING = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2}
-
-
-def _pattern(h, w, seed):
-    """Smooth colour waves plus seeded noise: every DCT band gets energy."""
-    r = np.random.default_rng(seed)
-    y, x = np.mgrid[0:h, 0:w]
-    wave = (np.sin(x / 3.0) * np.cos(y / 4.0))[..., None] * np.array([90.0, -60.0, 40.0])
-    return (128 + wave + r.normal(0, 20, (h, w, 3))).clip(0, 255).astype(np.uint8)
 
 
 def _same_read(path):
@@ -78,7 +71,7 @@ def _save_jpeg(tmp_path, px, name="a.jpg", mode="RGB", **kw):
 @pytest.mark.parametrize("sub", list(SUBSAMPLING))
 @pytest.mark.parametrize("quality", [1, 50, 75, 95, 100])
 def test_baseline_jpeg_matches_pil(tmp_path, quality, sub, hw):
-    px = _pattern(*hw, seed=quality + 7 * hw[1])
+    px = pattern(*hw, seed=quality + 7 * hw[1])
     _same_read(_save_jpeg(tmp_path, px, quality=quality, subsampling=SUBSAMPLING[sub]))
 
 
@@ -101,7 +94,7 @@ OPTIONS = {
 @pytest.mark.parametrize("option", list(OPTIONS))
 def test_jpeg_options_match_pil(tmp_path, option):
     for i, hw in enumerate(SIZES):
-        path = _save_jpeg(tmp_path, _pattern(*hw, seed=i), name=f"{i}.jpg", **OPTIONS[option])
+        path = _save_jpeg(tmp_path, pattern(*hw, seed=i), name=f"{i}.jpg", **OPTIONS[option])
         _same_read(path)
     with open(path, "rb") as f:
         data = f.read()
@@ -116,7 +109,7 @@ def test_jpeg_options_match_pil(tmp_path, option):
        sub=st.sampled_from([0, 1, 2]), progressive=st.booleans(), optimize=st.booleans())
 def test_jpeg_sweep_matches_pil(h, w, quality, sub, progressive, optimize):
     buf = io.BytesIO()
-    Image.fromarray(_pattern(h, w, seed=h * 71 + w)).save(
+    Image.fromarray(pattern(h, w, seed=h * 71 + w)).save(
         buf, "JPEG", quality=quality, subsampling=sub, progressive=progressive, optimize=optimize)
     data = buf.getvalue()
     want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
@@ -280,7 +273,7 @@ def test_extreme_coefficients_match_pil(tmp_path, seed):
 
 def _pil_jpeg(**kw):
     buf = io.BytesIO()
-    Image.fromarray(_pattern(24, 40, 3)).save(buf, "JPEG", **kw)
+    Image.fromarray(pattern(24, 40, 3)).save(buf, "JPEG", **kw)
     return buf.getvalue()
 
 
@@ -317,7 +310,45 @@ def _without_refinement_scans(data):
     raise AssertionError("no EOI")
 
 
+def _with_dht(data, cls, counts0, symbols):
+    """``data`` with a DHT segment inserted before its first scan that
+    redefines table 0 of class ``cls`` (0 DC, 1 AC): ``counts0`` codes of
+    length 1, which no prefix code holds past one."""
+    i = data.index(b"\xff\xda")
+    body = bytes([cls << 4, counts0]) + bytes(15) + bytes(symbols)
+    return data[:i] + _segment(0xC4, body) + data[i:]
+
+
+def _restart_out_of_sequence():
+    """A file with a restart marker after every MCU whose RST1 reads RST3."""
+    data = _pil_jpeg(restart_marker_blocks=1)
+    i = data.index(b"\xff\xd1", data.index(b"\xff\xda"))
+    return data[:i + 1] + b"\xd3" + data[i + 2:]
+
+
+def _code_matching_nothing():
+    """A scan whose first bits (11111) match no code of ``_jpeg``'s DC table,
+    which holds 16 codes of 5 bits, 00000-01111, and no longer ones."""
+    data = _jpeg([(1, 1, 1, _blocks(np.random.default_rng(0), 1, 2, 100.0))], 8, 16,
+                 np.ones(64, np.int64))
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    return data[:start] + b"\xf8" + data[start + 1:]
+
+
+# forms PIL refuses as well (libjpeg's JERR_BAD_HUFF_TABLE)
+BAD_TABLES = {
+    "huffman-oversubscribed-3": lambda: _with_dht(_pil_jpeg(), 0, 3, [0, 1, 2]),
+    "huffman-oversubscribed-255": lambda: _with_dht(_pil_jpeg(), 1, 255, range(255)),
+    "huffman-all-ones-code": lambda: _with_dht(_pil_jpeg(), 0, 2, [0, 1]),
+}
+
 REFUSED = {
+    **{form: (make, "bad Huffman table") for form, make in BAD_TABLES.items()},
+    # libjpeg warns and resynchronises or decodes zeros here (PIL loads the
+    # file); the port refuses corrupt entropy-coded data instead
+    "restart-out-of-sequence": (_restart_out_of_sequence, "restart marker missing or out of"),
+    "no-matching-code": (_code_matching_nothing, "no Huffman code matches"),
     "arithmetic": (lambda: _with_sof(_pil_jpeg(), code=0xC9), "arithmetic"),
     "arithmetic-progressive": (lambda: _with_sof(_pil_jpeg(progressive=True), code=0xCA),
                                "arithmetic"),
@@ -334,7 +365,7 @@ REFUSED = {
 
 def _cmyk_jpeg():
     buf = io.BytesIO()
-    Image.fromarray(_pattern(16, 16, 4)).convert("CMYK").save(buf, "JPEG")
+    Image.fromarray(pattern(16, 16, 4)).convert("CMYK").save(buf, "JPEG")
     return buf.getvalue()
 
 
@@ -357,6 +388,16 @@ def test_truncated_jpeg_raises_in_pil_too(tmp_path):
         ref_image.read_image(str(path))
 
 
+@pytest.mark.parametrize("form", list(BAD_TABLES))
+def test_bad_huffman_tables_raise_in_pil_too(tmp_path, form):
+    """The reference refuses a Huffman table that is not a prefix code, or
+    that holds the all-ones code, as the port does."""
+    path = tmp_path / "h.jpg"
+    path.write_bytes(BAD_TABLES[form]())
+    with pytest.raises(OSError):
+        ref_image.read_image(str(path))
+
+
 def test_jpeg_entropy_build_failure_raises(tmp_path, monkeypatch):
     """No Python entropy decoder to fall back to: a missing compiler raises."""
     from akari_torch.native import loader
@@ -368,60 +409,6 @@ def test_jpeg_entropy_build_failure_raises(tmp_path, monkeypatch):
 
 
 # ------------------------------------ PNG --------------------------------------
-
-def _pack(samples, depth):
-    """[h, n] samples -> [h, stride] bytes: big-endian 16-bit, or sub-byte
-    samples packed MSB first, each row padded to whole bytes."""
-    if depth == 16:
-        return samples.astype(">u2").view(np.uint8).reshape(samples.shape[0], -1)
-    if depth == 8:
-        return samples.astype(np.uint8)
-    bits = ((samples[..., None] >> np.arange(depth - 1, -1, -1)) & 1).reshape(samples.shape[0], -1)
-    return np.packbits(bits.astype(np.uint8), axis=1)
-
-
-def _filter(rows, bpp, ftypes):
-    """[h, stride] bytes -> filtered scanlines, filter ftypes[y] on row y."""
-    out, prior = [], np.zeros(rows.shape[1], np.int64)
-    for y, cur in enumerate(rows.astype(np.int64)):
-        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
-        ul = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
-        p = left + prior - ul
-        pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - ul)
-        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, ul))
-        f = [cur, cur - left, cur - prior, cur - (left + prior) // 2, cur - paeth][ftypes[y]]
-        out.append(bytes([ftypes[y]]) + (f & 0xFF).astype(np.uint8).tobytes())
-        prior = cur
-    return b"".join(out)
-
-
-def _png(px, depth, ctype, interlace=0, plte=None, trns=None, extra=(), seed=0):
-    """[H, W, ch] samples -> PNG bytes of that colour type and depth, each
-    scanline (of each Adam7 pass) with a seeded filter type."""
-    h, w, ch = px.shape
-    bpp = max(1, depth * ch // 8)
-    r = np.random.default_rng(seed)
-    passes = port_image._ADAM7 if interlace else ((0, 0, 1, 1),)
-    raw = b""
-    for x0, y0, dx, dy in passes:
-        sub = px[y0::dy, x0::dx]
-        if sub.size == 0:
-            continue
-        rows = _pack(sub.reshape(sub.shape[0], -1), depth)
-        raw += _filter(rows, bpp, r.integers(0, 5, sub.shape[0]))
-    out = port_image.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
-                                                                 0, 0, interlace))
-    for tag, body in extra:
-        out += _chunk(tag, body)
-    if plte is not None:
-        out += _chunk(b"PLTE", plte)
-    if trns is not None:
-        out += _chunk(b"tRNS", trns)
-    comp = zlib.compress(raw)
-    half = len(comp) // 2  # two IDAT chunks
-    return (out + _chunk(b"IDAT", comp[:half]) + _chunk(b"IDAT", comp[half:])
-            + _chunk(b"IEND", b""))
-
 
 def _samples(h, w, ch, depth, seed):
     return np.random.default_rng(seed).integers(0, 1 << depth, (h, w, ch))
@@ -447,12 +434,12 @@ def test_palette_png_matches_pil(tmp_path, depth, trns):
     plte = r.integers(0, 256, (n - (depth > 1), 3)).astype(np.uint8)  # one index past PLTE
     px = _samples(21, 13, 1, depth, depth + 10)
     tr = bytes(r.integers(0, 256, min(n, 5)).astype(np.uint8)) if trns else None
-    _png_read(tmp_path, _png(px, depth, 3, plte=plte.tobytes(), trns=tr, seed=depth))
+    _png_read(tmp_path, png_bytes(px, depth, 3, plte=plte.tobytes(), trns=tr, seed=depth))
 
 
 @pytest.mark.parametrize("trns", [False, True], ids=["plain", "trns"])
 def test_palette_png_written_by_pil_matches(tmp_path, trns):
-    img = Image.fromarray(_pattern(20, 30, 5)).convert("P")
+    img = Image.fromarray(pattern(20, 30, 5)).convert("P")
     path = str(tmp_path / "pil.png")
     img.save(path, transparency=3) if trns else img.save(path)
     with open(path, "rb") as f:
@@ -475,11 +462,11 @@ def test_png_forms_match_pil(tmp_path, form):
         px = np.where(px % 3 == 0, px, px % 300)
     extra = ANCILLARY if "ancillary" in form else ()
     trns = struct.pack(">H", int(px[0, 0, 0])) if ctype == 0 else None
-    _png_read(tmp_path, _png(px, depth, ctype, trns=trns, extra=extra, seed=depth))
+    _png_read(tmp_path, png_bytes(px, depth, ctype, trns=trns, extra=extra, seed=depth))
 
 
 def test_png_la_and_grey16_written_by_pil_match(tmp_path):
-    Image.fromarray(_pattern(12, 9, 6)).convert("LA").save(tmp_path / "la.png")
+    Image.fromarray(pattern(12, 9, 6)).convert("LA").save(tmp_path / "la.png")
     _same_read(str(tmp_path / "la.png"))
     grey = (np.arange(12 * 9, dtype=np.uint16).reshape(12, 9) * 611).astype(np.uint16)
     Image.fromarray(grey).save(tmp_path / "g16.png")
@@ -493,12 +480,12 @@ def test_png_16bit_keeps_high_byte_and_grey16_clips_at_255(tmp_path):
     conversion to RGB clips at 255 (1000 -> 255), a reference quirk the
     port keeps."""
     rgb = np.array([[[0x80FF, 0xFE01, 0x00FF], [0xFFFF, 0x0100, 0x7FFF]]])
-    got = _png_read(tmp_path, _png(rgb, 16, 2), "rgb16.png")
+    got = _png_read(tmp_path, png_bytes(rgb, 16, 2), "rgb16.png")
     np.testing.assert_array_equal(port_image.decode_png((tmp_path / "rgb16.png").read_bytes()),
                                   [[[128, 254, 0], [255, 1, 127]]])
     assert got.shape == (1, 2, 3)
     grey = np.array([[[0], [100], [255], [256], [1000], [65535]]])
-    _png_read(tmp_path, _png(grey, 16, 0), "g16.png")
+    _png_read(tmp_path, png_bytes(grey, 16, 0), "g16.png")
     np.testing.assert_array_equal(
         port_image.decode_png((tmp_path / "g16.png").read_bytes())[0, :, 0],
         [0, 100, 255, 255, 255, 255])
@@ -513,13 +500,13 @@ def test_adam7_png_matches_pil(tmp_path, form, hw):
     if form == "grey16":
         px %= 256
     plte = np.random.default_rng(1).integers(0, 256, (16, 3)).astype(np.uint8).tobytes()
-    data = _png(px, depth, ctype, interlace=1, plte=plte if ctype == 3 else None, seed=hw[0])
+    data = png_bytes(px, depth, ctype, interlace=1, plte=plte if ctype == 3 else None, seed=hw[0])
     assert data[28] == 1  # IHDR interlace method: Adam7
     _png_read(tmp_path, data)
 
 
 def test_truncated_png_raises_naming_the_file(tmp_path):
-    data = _png(_samples(16, 16, 3, 8, 2), 8, 2)
+    data = png_bytes(_samples(16, 16, 3, 8, 2), 8, 2)
     cut = data[:data.index(b"IDAT") + 30] + _chunk(b"IEND", b"")
     path = tmp_path / "cut.png"
     path.write_bytes(cut)
@@ -533,7 +520,7 @@ def test_truncated_png_raises_naming_the_file(tmp_path):
 def test_images_are_told_apart_by_signature(tmp_path):
     """A PNG named .jpg and a JPEG named .png read as what they are, as
     under PIL."""
-    (tmp_path / "png.jpg").write_bytes(_png(_samples(5, 6, 3, 8, 1), 8, 2))
+    (tmp_path / "png.jpg").write_bytes(png_bytes(_samples(5, 6, 3, 8, 1), 8, 2))
     (tmp_path / "jpeg.png").write_bytes(_pil_jpeg())
     _same_read(str(tmp_path / "png.jpg"))
     _same_read(str(tmp_path / "jpeg.png"))

@@ -272,7 +272,7 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
         build_bvh(p, p + np.float32([1, 0, 0]), p + np.float32([0, 1, 0]))
     monkeypatch.setattr(loader, "CXX", "no-such-compiler-akari")
     with pytest.raises(RuntimeError, match="not found"):
-        loader.build()
+        loader.build("bvh")
 
 
 def test_native_nonzero_return_raises(monkeypatch):
@@ -283,7 +283,7 @@ def test_native_nonzero_return_raises(monkeypatch):
         def akr_bvh_build(*args):
             return 1
 
-    monkeypatch.setattr(loader, "load", lambda: _Fake)
+    monkeypatch.setattr(loader, "load", lambda name: _Fake)
     p = np.zeros((NATIVE_MIN_TRIS, 3), np.float32)
     with pytest.raises(RuntimeError, match="returned 1"):
         build_bvh(p, p, p)

@@ -437,12 +437,12 @@ def test_png_decoder_needs_no_pil(tmp_path):
     import subprocess
     import sys
 
-    from test_torch_image_decode import _png
+    from tools.make_torch_port_image_fixtures import png_bytes
 
     Image.fromarray(_pattern(21, 30, 15, "smooth")).save(tmp_path / "p.jpg", progressive=True)
     idx = np.random.default_rng(16).integers(0, 16, (9, 11, 1))
     plte = np.random.default_rng(17).integers(0, 256, (16, 3)).astype(np.uint8).tobytes()
-    (tmp_path / "i.png").write_bytes(_png(idx, 4, 3, interlace=1, plte=plte))
+    (tmp_path / "i.png").write_bytes(png_bytes(idx, 4, 3, interlace=1, plte=plte))
     want = [hashlib.sha256(np.asarray(Image.open(tmp_path / n).convert("RGB")).tobytes()).hexdigest()
             for n in ("p.jpg", "i.png")]
     code = ("import hashlib, sys\n"
