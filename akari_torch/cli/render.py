@@ -125,7 +125,7 @@ def _render(args, log, scene_node, device, mesh):
     from ..utils.profiler import Profiler
 
     t0 = time.perf_counter()
-    scene = scene_node.compile(intersector=args.intersector).to(device)
+    scene = scene_node.compile(intersector=args.intersector, device=device)
     camera = scene_node.camera
     if args.width or args.height:
         camera = dataclasses.replace(

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .device import target_device
 from .spectrum import to_uint8_srgb
 
 
@@ -24,10 +25,11 @@ class Film:
     weight: object    # [H, W] float32
 
     @staticmethod
-    def zeros(height, width, xp=np, device=None):
+    def zeros(height, width, xp=np, device="cuda"):
         """Zero planes; ``xp`` is ``numpy`` or ``torch`` (then on
-        ``device``)."""
-        kw = {} if xp is np else {"device": device}
+        ``device``, ``"cuda"`` unless the caller asks for another; no
+        fallback)."""
+        kw = {} if xp is np else {"device": target_device(device, "Film.zeros")}
         return Film(
             radiance=xp.zeros((height, width, 3), dtype=xp.float32, **kw),
             weight=xp.zeros((height, width), dtype=xp.float32, **kw),

@@ -7,13 +7,13 @@ flat scanlines) and ``write_hdr_npy`` keeps the linear float image.
 
 Readers (``read_image``): ``.npy`` (linear float) and ``.hdr`` (RGBE, flat
 or new-RLE scanlines, the reference's codec) by extension; any other file
-by its signature, as PIL chooses: PNG through the decoder below (every
-colour type and bit depth, interlaced or not) and JPEG through
-``core/jpeg.py`` (baseline, extended sequential and progressive Huffman).
-The reference reads both with PIL, which the card's machine does not
+by its signature, as PIL chooses (``decode_image``): PNG through the
+decoder below (every colour type and bit depth, interlaced or not), JPEG
+through ``core/jpeg.py`` (baseline, extended sequential and progressive
+Huffman), and BMP, GIF, PNM, PSD and TGA through ``core/image_formats.py``.
+The reference reads them with PIL, which the card's machine does not
 have; the pixels equal PIL's ``convert("RGB")``. Other formats PIL reads
-(BMP, GIF, TIFF, WebP, TGA, ...) raise an error naming the formats read
-here.
+(TIFF, WebP, ICO, PCX, ...) raise an error naming the formats read here.
 """
 
 from __future__ import annotations
@@ -300,12 +300,60 @@ def write_hdr(path, img_linear):
         f.write(rgbe.tobytes())
 
 
-def read_image(path, to_linear=True):
-    """Read PNG / JPEG (sRGB -> linear float), .hdr (RGBE) or .npy (linear).
+def image_format(data):
+    """The format PIL would open ``data`` as, by signature (TGA, which has
+    none, by the sanity of its header, last), or None."""
+    from .image_formats import tga_header
 
-    Returns [H, W, 3] float32. PNG and JPEG are told apart by their
-    signature; other formats, and JPEG forms the decoder refuses, raise
-    ``ValueError`` naming the format.
+    if data[:8] == PNG_SIGNATURE:
+        return "PNG"
+    if data[:3] == JPEG_SIGNATURE:
+        return "JPEG"
+    if data[:2] == b"BM":
+        return "BMP"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data[:1] == b"P" and len(data) >= 2 and data[1:2] in b"0123456fy":
+        return "PNM"
+    if data[:4] == b"8BPS":
+        return "PSD"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if tga_header(data) is not None:
+        return "TGA"
+    return None
+
+
+def decode_image(data, what="image"):
+    """File bytes -> [H, W, 3] uint8, the pixels of PIL's
+    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD and TGA, told apart
+    as PIL tells them (``image_format``). Other formats, and forms a
+    decoder refuses, raise ``ValueError`` naming them."""
+    fmt = image_format(data)
+    if fmt == "PNG":
+        return decode_png(data, what)
+    if fmt == "JPEG":
+        from .jpeg import decode_jpeg
+
+        return decode_jpeg(data, what)
+    if fmt in ("BMP", "GIF", "PNM", "PSD", "TGA"):
+        from . import image_formats
+
+        return getattr(image_formats, f"decode_{fmt.lower()}")(data, what)
+    named = f" ({fmt})" if fmt else ""
+    raise ValueError(f"{what}: unsupported image format{named} (the port reads PNG, JPEG, "
+                     "BMP, GIF, PNM, PSD, TGA, .hdr and .npy)")
+
+
+def read_image(path, to_linear=True):
+    """Read an 8-bit image (sRGB -> linear float), .hdr (RGBE) or .npy
+    (linear).
+
+    Returns [H, W, 3] float32. The 8-bit formats are told apart by their
+    signature (``decode_image``); other formats, and forms the decoders
+    refuse, raise ``ValueError`` naming the format.
     """
     path = str(path)
     if path.endswith(".npy"):
@@ -317,15 +365,7 @@ def read_image(path, to_linear=True):
         return _read_hdr(path)
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == PNG_SIGNATURE:
-        px = decode_png(data, path)
-    elif data[:3] == JPEG_SIGNATURE:
-        from .jpeg import decode_jpeg
-
-        px = decode_jpeg(data, path)
-    else:
-        raise ValueError(f"{path}: unsupported image format (the port reads PNG, JPEG, "
-                         ".hdr and .npy)")
+    px = decode_image(data, path)
     raw = px.astype(np.float32) / 255.0
     return srgb_to_linear(raw).astype(np.float32) if to_linear else raw
 

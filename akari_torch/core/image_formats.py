@@ -1,0 +1,731 @@
+"""TGA, BMP, PNM, GIF and PSD decoding without PIL.
+
+The JAX package reads every texture with PIL (``Image.open(path)
+.convert("RGB")``, ``akari_tpu/core/image.py``); the card's machine has no
+PIL. Each decoder here returns the [H, W, 3] uint8 pixels of PIL's
+``convert("RGB")`` of the same file, and raises ``ValueError`` naming the
+format and the form where PIL refuses the file (or reads it only as a
+form this module does not decode, which the message says).
+
+- TGA (``TgaImagePlugin``; no signature: ``tga_header`` accepts a file by
+  the sanity of its header, as PIL does): image types 1/2/3 and their
+  run-length forms 9/10/11; 1- and 8-bit grey, 16-bit grey + alpha,
+  8-bit indices into a 16- or 24-bit colour map that starts at its first
+  entry index; 16 (X1R5G5B5), 24 and 32-bit true colour; every origin. A
+  run packet may not cross a scanline, a literal packet may.
+- BMP (``BmpImagePlugin``): the OS/2 core header and the Windows INFO
+  headers of 40-124 bytes, 1/4/8-bit palettes (a grey palette makes PIL
+  read the indices as grey levels), 16-bit 5-5-5, bitfields of the masks
+  PIL accepts, 24 and 32 bits, RLE8 and RLE4 through PIL's own decoder
+  (its delta escape reads two bytes more than the escape holds), top-down
+  rows.
+- PNM (``PpmImagePlugin``): P1-P6 with comments; ``maxval`` other than 255
+  scales with Python's ``round``; a P2/P5 above 255 reads as PIL's mode
+  ``I``, which ``convert("RGB")`` clips at 255 (a quirk kept for parity).
+- GIF (``GifImagePlugin``): the first frame, on the logical screen (grown
+  to hold the frame), the pixels outside the frame index 0, or the
+  transparency index when there is one; LZW through
+  ``akari_torch/native/gif_lzw.cpp``, which follows PIL's decoder and
+  the reads that feed it (an early end code is read past when more of
+  the file follows the bytes read so far); a
+  palette whose entries are the grey ramp makes PIL read the indices as
+  grey levels.
+- PSD (``PsdImagePlugin``): the composite image, raw or PackBits, in
+  bitmap, grey, indexed, RGB(A), CMYK (PIL inverts the samples),
+  multichannel and duotone modes at 8 bits (1 for bitmap).
+
+Palette indices past a palette's end read black, as PIL's conversion
+gives them; 5- and 6-bit channels expand as PIL's unpackers do, v * 255 //
+31 (or 63).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+
+# PIL refuses images of more pixels than this (2 * Image.MAX_IMAGE_PIXELS,
+# its DecompressionBombError)
+MAX_PIXELS = 2 * 178_956_970
+# the bytes PIL reads at a time to feed a decoder (ImageFile.MAXBLOCK)
+PIL_READ_BLOCK = 65536
+
+
+def _check_size(w, h, what, form):
+    if w <= 0 or h <= 0 or w * h > MAX_PIXELS:
+        raise ValueError(f"{what}: {form} of size {w} x {h}"
+                         + (" (more pixels than PIL opens)" if w > 0 and h > 0 else ""))
+
+
+def _u16(b, o):
+    return b[o] | b[o + 1] << 8
+
+
+def _u32(b, o):
+    return int.from_bytes(b[o:o + 4], "little")
+
+
+def _expand(v, bits):
+    """n-bit channel values -> 0..255 as PIL's BGR;15 / BGR;16 unpackers."""
+    return (v.astype(np.uint32) * 255 // ((1 << bits) - 1)).astype(np.uint8)
+
+
+def _lut(entries):
+    """[n, 3] uint8 palette -> [256, 3] lookup, past the end black."""
+    lut = np.zeros((256, 3), np.uint8)
+    n = min(len(entries), 256)
+    lut[:n] = entries[:n]
+    return lut
+
+
+def _grey(v):
+    return np.repeat(np.asarray(v, np.uint8)[..., None], 3, axis=-1)
+
+
+def _bits(rows, w):
+    """[h, stride] bytes -> [h, w] 0/1, MSB first."""
+    return np.unpackbits(rows, axis=1)[:, :w]
+
+
+def _word15(words):
+    """uint16 X1R5G5B5 -> [..., 3] RGB (PIL's BGR;15 / BGRA;15Z)."""
+    return np.stack([_expand((words >> 10) & 31, 5), _expand((words >> 5) & 31, 5),
+                     _expand(words & 31, 5)], axis=-1)
+
+
+# --------------------------------------------------------------------------
+# TGA
+
+_TGA_MODES = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGRA;15Z",
+              (2, 24): "BGR", (2, 32): "BGRA"}
+
+
+def tga_header(data):
+    """The TGA header fields if PIL's TGA plugin accepts ``data`` (it has
+    no signature), else None."""
+    if len(data) < 18:
+        return None
+    id_len, cmtype, imtype = data[0], data[1], data[2]
+    w, h, depth, flags = _u16(data, 12), _u16(data, 14), data[16], data[17]
+    if (cmtype not in (0, 1) or w <= 0 or h <= 0 or depth not in (1, 8, 16, 24, 32)
+            or imtype not in (1, 2, 3, 9, 10, 11)):
+        return None
+    return dict(id_len=id_len, cmtype=cmtype, imtype=imtype, cm_start=_u16(data, 3),
+                cm_len=_u16(data, 5), cm_depth=data[7], w=w, h=h, depth=depth, flags=flags)
+
+
+def _tga_rle(data, pos, unit, line, total, what):
+    """TGA run-length packets from ``pos`` -> ``total`` bytes of scanlines
+    of ``line`` bytes, as PIL's TgaRleDecode: a run packet that crosses a
+    scanline is an overrun, a literal packet continues on the next."""
+    out = bytearray(total)
+    n_data = len(data)
+    x = 0  # bytes written
+    while x < total:
+        if pos >= n_data:
+            raise ValueError(f"{what}: TGA run-length data is truncated")
+        head = data[pos]
+        n = unit * ((head & 0x7F) + 1)
+        if head & 0x80:
+            if pos + 1 + unit > n_data:
+                raise ValueError(f"{what}: TGA run-length data is truncated")
+            if x % line + n > line:
+                raise ValueError(f"{what}: TGA run packet crosses a scanline (PIL refuses it)")
+            out[x:x + n] = data[pos + 1:pos + 1 + unit] * (n // unit)
+            pos += 1 + unit
+        else:
+            if pos + 1 + n > n_data:
+                raise ValueError(f"{what}: TGA run-length data is truncated")
+            k = min(n, total - x)
+            out[x:x + k] = data[pos + 1:pos + 1 + k]
+            pos += 1 + n
+        x += n
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_tga(data, what="TGA"):
+    hd = tga_header(data)
+    if hd is None:
+        raise ValueError(f"{what}: not a TGA file")
+    imtype, depth, w, h = hd["imtype"], hd["depth"], hd["w"], hd["h"]
+    _check_size(w, h, what, "TGA")
+    kind = imtype & 7
+    form = f"TGA image type {imtype} at {depth} bits"
+    pos = 18 + hd["id_len"]
+    lut = None
+    if hd["cmtype"]:
+        start, size, mdepth = hd["cm_start"], hd["cm_len"], hd["cm_depth"]
+        if mdepth not in (16, 24):
+            raise ValueError(f"{what}: TGA colour map of {mdepth}-bit entries (PIL reads 16 "
+                             "and 24)")
+        unit = mdepth // 8
+        raw = data[pos:pos + unit * size]
+        pos += unit * size
+        if start + len(raw) // unit > 256:
+            raise ValueError(f"{what}: TGA colour map of {start + size} entries past 256")
+        ent = np.frombuffer(raw[:len(raw) // unit * unit], np.uint8).reshape(-1, unit)
+        ent = (_word15(ent[:, 0].astype(np.uint16) | ent[:, 1].astype(np.uint16) << 8)
+               if unit == 2 else ent[:, ::-1])
+        lut = _lut(np.concatenate([np.zeros((start, 3), np.uint8), ent]))
+    mode = _TGA_MODES.get((kind, depth))
+    if mode is None:
+        raise ValueError(f"{what}: {form} is not a form PIL reads")
+    if mode == "P" and lut is None:
+        raise ValueError(f"{what}: {form} without a colour map (PIL refuses it)")
+    if lut is not None and mode not in ("P", "L", "LA"):
+        raise ValueError(f"{what}: {form} with a colour map (PIL refuses it)")
+    line = (w * depth + 7) // 8
+    total = line * h
+    if imtype & 8 and depth == 1:
+        raise ValueError(f"{what}: {form} (PIL's run-length decoder takes 0 bytes a pixel at "
+                         "1 bit and never fills the image)")
+    if imtype & 8:
+        flat = _tga_rle(data, pos, (depth + 7) // 8, line, total, what)
+    else:
+        if len(data) - pos < total:
+            raise ValueError(f"{what}: TGA image data is truncated")
+        flat = np.frombuffer(data, np.uint8, total, pos)
+    rows = flat.reshape(h, line)
+    if not hd["flags"] & 0x20:
+        rows = rows[::-1]
+    if mode == "1":
+        rgb = _grey(_bits(rows, w) * np.uint8(255))
+    elif mode in ("P", "L", "LA"):
+        # a colour map turns PIL's grey image into a palette image
+        grey = rows.reshape(h, w, 2)[..., 0] if mode == "LA" else rows
+        rgb = _grey(grey) if lut is None else lut[grey]
+    elif mode == "BGRA;15Z":
+        rgb = _word15(rows.reshape(h, w, 2).astype(np.uint16) @ np.uint16([1, 256]))
+    else:
+        rgb = rows.reshape(h, w, depth // 8)[..., 2::-1]
+    if hd["flags"] & 0x10:
+        rgb = rgb[:, ::-1]
+    return np.ascontiguousarray(rgb)
+
+
+# --------------------------------------------------------------------------
+# BMP
+
+_BMP_MASKS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): "BGXR",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA",
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR",
+    (32, (0x0, 0x0, 0x0, 0x0)): "BGRA",
+    (24, (0xFF0000, 0xFF00, 0xFF)): "BGR",
+    (16, (0xF800, 0x7E0, 0x1F)): "BGR;16",
+    (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
+}
+_BMP_RAW = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}
+_BMP_RAWBITS = {"P;1": 1, "P;4": 4, "P": 8, "1": 1, "L": 8, "BGR;15": 16, "BGR;16": 16,
+                "BGR": 24}
+
+
+def _bmp_rle(data, pos, w, h, rle4, what):
+    """PIL's BmpRleDecoder, step for step: indices in file row order and
+    the position after them. Runs stop at the row's end; absolute packets
+    do not; a delta escape consumes four bytes and advances by the last
+    two; absolute packets end on an even file offset."""
+    out = bytearray()
+    x, need, n_data = 0, w * h, len(data)
+    while len(out) < need:
+        if pos + 2 > n_data:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            count = min(count, max(0, w - x))
+            if rle4:
+                pair = bytes([byte >> 4, byte & 0x0F])
+                out += (pair * (count // 2 + 1))[:count]
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:
+            break
+        elif byte == 2:
+            if pos + 2 > n_data:
+                break
+            if pos + 4 > n_data:
+                raise ValueError(f"{what}: BMP RLE delta escape past the end of the file")
+            right, up = data[pos + 2], data[pos + 3]
+            pos += 4
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:
+            n = byte // 2 if rle4 else byte
+            chunk = data[pos:pos + n]
+            pos += len(chunk)
+            if rle4:
+                nib = np.frombuffer(chunk, np.uint8)
+                out += np.stack([nib >> 4, nib & 0x0F], axis=1).tobytes()
+            else:
+                out += chunk
+            if len(chunk) < n:
+                break
+            x += byte
+            pos += pos & 1
+    return out
+
+
+def _bmp_unpack(rows, w, rawmode, lut):
+    """[h, row bytes] -> [h, w, 3] for one of PIL's BMP raw modes."""
+    h = rows.shape[0]
+    if rawmode == "P;1":
+        return lut[_bits(rows, w)]
+    if rawmode == "P;4":
+        nib = np.stack([rows >> 4, rows & 0x0F], axis=2).reshape(h, -1)[:, :w]
+        return lut[nib]
+    if rawmode == "P":
+        return lut[rows[:, :w]]
+    if rawmode == "1":
+        return _grey(_bits(rows, w) * np.uint8(255))
+    if rawmode == "L":
+        return _grey(rows[:, :w])
+    if rawmode in ("BGR;15", "BGR;16"):
+        v = rows[:, :2 * w].reshape(h, w, 2).astype(np.uint16) @ np.uint16([1, 256])
+        if rawmode == "BGR;15":
+            return _word15(v)
+        return np.stack([_expand(v >> 11, 5), _expand((v >> 5) & 63, 6), _expand(v & 31, 5)],
+                        axis=-1)
+    k = len(rawmode)
+    px = rows[:, :k * w].reshape(h, w, k)
+    return px[..., [rawmode.index(c) for c in "RGB"]]
+
+
+def decode_bmp(data, what="BMP"):
+    if data[:2] != b"BM" or len(data) < 18:
+        raise ValueError(f"{what}: not a BMP file")
+    offset = _u32(data, 10)
+    hsize = _u32(data, 14)
+    if hsize not in (12, 40, 52, 56, 64, 108, 124):
+        raise ValueError(f"{what}: BMP header of {hsize} bytes (PIL reads 12, 40, 52, 56, 64, "
+                         "108 and 124)")
+    head = data[18:14 + hsize]
+    if len(head) < hsize - 4:
+        raise ValueError(f"{what}: BMP header is truncated")
+    pos = 14 + hsize
+    direction = -1
+    masks = None
+    if hsize == 12:
+        w, h, bits = _u16(head, 0), _u16(head, 2), _u16(head, 6)
+        compression, colors, pad = 0, 0, 3
+    else:
+        flip = head[7] == 0xFF
+        direction = 1 if flip else -1
+        w = _u32(head, 0)
+        h = (1 << 32) - _u32(head, 4) if flip else _u32(head, 4)
+        bits, compression, colors = _u16(head, 10), _u32(head, 12), _u32(head, 28)
+        pad = 4
+        if compression == 3:
+            if len(head) >= 48:
+                masks = [_u32(head, 36 + 4 * i) for i in range(3)]
+                masks.append(_u32(head, 48) if len(head) >= 52 else 0)
+            else:
+                if len(data) < pos + 12:
+                    raise ValueError(f"{what}: BMP bitfield masks are truncated")
+                masks = [_u32(data, pos + 4 * i) for i in range(3)] + [0]
+                pos += 12
+    _check_size(w, h, what, "BMP")
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    rawmode = _BMP_RAW.get(bits)
+    if rawmode is None:
+        raise ValueError(f"{what}: BMP of {bits} bits per pixel (PIL reads 1, 4, 8, 16, 24 "
+                         "and 32)")
+    rle = False
+    if compression == 3:
+        key = (bits, tuple(masks) if bits == 32 else tuple(masks[:3]))
+        rawmode = _BMP_MASKS.get(key)
+        if rawmode is None:
+            raise ValueError(f"{what}: BMP bitfields {bits}-bit with masks "
+                             f"{', '.join(hex(m) for m in key[1])} (PIL refuses the layout)")
+    elif compression in (1, 2):
+        rle = True
+    elif compression != 0:
+        raise ValueError(f"{what}: BMP compression {compression} (PIL reads none, RLE8, RLE4 "
+                         "and bitfields)")
+    lut = None
+    grey = None
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{what}: BMP palette of {colors} colours")
+        pal = data[pos:pos + pad * colors]
+        pos += len(pal)
+        ramp = (0, 255) if colors == 2 else range(colors)
+        if all(pal[i * pad:i * pad + 3] == bytes([v & 255]) * 3 for i, v in enumerate(ramp)):
+            grey = "1" if colors == 2 else "L"
+            rawmode = grey
+        else:
+            n = len(pal) // pad
+            if n > 256:
+                raise ValueError(f"{what}: BMP palette of {n} colours (PIL refuses more than 256)")
+            lut = _lut(np.frombuffer(pal[:n * pad], np.uint8).reshape(n, pad)[:, 2::-1])
+    if rle:
+        if bits > 8 or grey == "1":
+            raise ValueError(f"{what}: BMP RLE{8 if compression == 1 else 4} at {bits} bits "
+                             "(PIL refuses it)")
+        idx = _bmp_rle(data, offset or pos, w, h, compression == 2, what)
+        if len(idx) < w * h:
+            raise ValueError(f"{what}: BMP RLE image data ends early (PIL: not enough image "
+                             "data)")
+        rows = np.frombuffer(bytes(idx[:w * h]), np.uint8).reshape(h, w)
+        rgb = _grey(rows) if grey == "L" else lut[rows]
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        row_bytes = (w * _BMP_RAWBITS.get(rawmode, 32) + 7) // 8
+        if stride < row_bytes:
+            raise ValueError(f"{what}: BMP rows of {stride} bytes hold fewer than {row_bytes} "
+                             f"(PIL reads the {bits}-bit grey palette as 8-bit data)")
+        start = offset or pos
+        if len(data) < start + (h - 1) * stride + row_bytes:
+            raise ValueError(f"{what}: BMP image data is truncated")
+        buf = np.frombuffer(data, np.uint8, len(data) - start, start)
+        buf = np.concatenate([buf, np.zeros(h * stride - len(buf) if len(buf) < h * stride
+                                            else 0, np.uint8)])
+        rgb = _bmp_unpack(buf[:h * stride].reshape(h, stride), w, rawmode, lut)
+    if direction < 0:
+        rgb = rgb[::-1]
+    return np.ascontiguousarray(rgb)
+
+
+# --------------------------------------------------------------------------
+# PNM
+
+_PNM_WHITESPACE = b" \t\n\x0b\x0c\r"
+
+
+def _pnm_token(data, pos, what):
+    """PIL's PpmImageFile._read_token: skips whitespace and comments (a
+    comment runs to CR or LF, and may split a token), at most 10 bytes."""
+    token = b""
+    n = len(data)
+    while len(token) <= 10:
+        if pos >= n:
+            break
+        c = data[pos:pos + 1]
+        pos += 1
+        if c in _PNM_WHITESPACE:
+            if not token:
+                continue
+            break
+        if c == b"#":
+            while pos < n and data[pos:pos + 1] not in b"\r\n":
+                pos += 1
+            pos += 1
+            continue
+        token += c
+    if not token:
+        raise ValueError(f"{what}: PNM header ends early")
+    if len(token) > 10:
+        raise ValueError(f"{what}: PNM header token {token[:11]!r} too long")
+    return token, pos
+
+
+def _strip_comments(block):
+    """PIL's PpmPlainDecoder._ignore_comments on one block."""
+    while True:
+        start = block.find(b"#")
+        if start == -1:
+            return block
+        ends = [e for e in (block.find(b"\n", start), block.find(b"\r", start)) if e != -1]
+        if not ends:
+            return block[:start]
+        block = block[:start] + block[min(ends) + 1:]
+
+
+def _pnm_int(tok, what):
+    try:
+        return int(tok)
+    except ValueError:
+        raise ValueError(f"{what}: PNM value {tok!r} is not a number") from None
+
+
+def decode_pnm(data, what="PNM"):
+    magic = b""
+    pos = 0
+    for _ in range(6):
+        c = data[pos:pos + 1]
+        pos += 1
+        if not c or c in _PNM_WHITESPACE:
+            break
+        magic += c
+    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        raise ValueError(f"{what}: PNM form {magic!r} (the port reads P1-P6)")
+    kind = magic[1] - ord("0")
+    tok, pos = _pnm_token(data, pos, what)
+    w = _pnm_int(tok, what)
+    tok, pos = _pnm_token(data, pos, what)
+    h = _pnm_int(tok, what)
+    _check_size(w, h, what, "PNM")
+    bands = 3 if kind in (3, 6) else 1
+    n = w * h * bands
+    if kind in (1, 4):
+        if kind == 4:
+            line = (w + 7) // 8
+            if len(data) - pos < line * h:
+                raise ValueError(f"{what}: PBM image data is truncated")
+            rows = np.frombuffer(data, np.uint8, line * h, pos).reshape(h, line)
+            return _grey((1 - _bits(rows, w)) * np.uint8(255))
+        digits = b"".join(_strip_comments(data[pos:]).split())
+        bad = digits.translate(None, b"01")
+        if bad:
+            raise ValueError(f"{what}: PBM plain data holds {bad[:1]!r}")
+        if len(digits) < n:
+            raise ValueError(f"{what}: PBM plain data holds {len(digits)} of {n} pixels")
+        v = np.frombuffer(digits[:n], np.uint8).reshape(h, w)
+        return _grey(np.where(v == ord("1"), 0, 255).astype(np.uint8))
+    tok, pos = _pnm_token(data, pos, what)
+    maxval = _pnm_int(tok, what)
+    if not 0 < maxval < 65536:
+        raise ValueError(f"{what}: PNM maxval {maxval} (PIL reads 1-65535)")
+    # PIL's mode I for grey above 255: samples scale to 0..65535, and
+    # convert("RGB") clips them at 255
+    out_max = 65535 if bands == 1 and maxval > 255 else 255
+    if kind in (5, 6):
+        wide = maxval > 255
+        nbytes = n * (2 if wide else 1)
+        if len(data) - pos < nbytes:
+            raise ValueError(f"{what}: PNM image data is truncated")
+        v = np.frombuffer(data, ">u2" if wide else np.uint8, n, pos).astype(np.int64)
+        if not (maxval == 255 or (maxval == 65535 and bands == 1)):
+            v = np.minimum(out_max, np.rint(v / maxval * out_max)).astype(np.int64)
+    else:
+        block = _strip_comments(data[pos:])
+        toks = block.split()
+        if toks and not block[-1:].isspace() and len(toks[-1]) > 10:
+            raise ValueError(f"{what}: PNM value {toks[-1][:11]!r} too long")
+        for t in toks[:n]:
+            if len(t) > 10:
+                raise ValueError(f"{what}: PNM value {t[:11]!r} too long")
+        if len(toks) < n:
+            raise ValueError(f"{what}: PNM plain data holds {len(toks)} of {n} samples")
+        v = np.array([_pnm_int(t, what) for t in toks[:n]], np.int64)
+        if (v < 0).any() or (v > maxval).any():
+            raise ValueError(f"{what}: PNM sample outside 0..{maxval}")
+        v = np.rint(v / maxval * out_max).astype(np.int64)
+    v = np.minimum(v, 255).astype(np.uint8).reshape(h, w, bands)
+    return np.ascontiguousarray(np.repeat(v, 3, axis=2) if bands == 1 else v)
+
+
+# --------------------------------------------------------------------------
+# GIF
+
+
+def _gif_blocks(data, pos, what):
+    """Skip data sub-blocks from ``pos`` to after their terminator."""
+    while True:
+        if pos >= len(data):
+            raise ValueError(f"{what}: GIF sub-blocks are truncated")
+        n = data[pos]
+        pos += 1
+        if not n:
+            return pos
+        pos += n
+
+
+def _gif_palette(data, pos, flags, what):
+    """(palette [n, 3] or None for the grey ramp, next position)."""
+    n = 1 << ((flags & 7) + 1)
+    raw = data[pos:pos + 3 * n]
+    ent = np.frombuffer(raw[:len(raw) // 3 * 3], np.uint8).reshape(-1, 3)
+    if len(raw) % 3:
+        raise ValueError(f"{what}: GIF palette is truncated")
+    ramp = bool((ent == np.arange(len(ent))[:, None]).all())
+    return (None if ramp else ent), pos + 3 * n
+
+
+def decode_gif(data, what="GIF"):
+    if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
+        raise ValueError(f"{what}: not a GIF file")
+    sw, sh, flags = _u16(data, 6), _u16(data, 8), data[10]
+    pos = 13
+    palette = None
+    if flags & 0x80:
+        palette, pos = _gif_palette(data, pos, flags, what)
+    transparency = None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError(f"{what}: GIF without an image")
+        c = data[pos]
+        pos += 1
+        if c == 0x21:  # extension
+            if pos >= len(data):
+                raise ValueError(f"{what}: GIF extension is truncated")
+            label = data[pos]
+            pos += 1
+            n = data[pos] if pos < len(data) else 0
+            block = data[pos + 1:pos + 1 + n] if n else None
+            if label == 0xF9 and block is not None:
+                if not block or len(block) < (4 if block[0] & 1 else 3):
+                    raise ValueError(f"{what}: GIF graphic control extension is short")
+                transparency = block[3] if block[0] & 1 else None
+            pos = _gif_blocks(data, pos, what)
+        elif c == 0x2C:  # image descriptor
+            if pos + 9 > len(data):
+                raise ValueError(f"{what}: GIF image descriptor is truncated")
+            x0, y0, fw, fh, fflags = struct.unpack_from("<HHHHB", data, pos)
+            pos += 9
+            if fflags & 0x80:
+                palette, pos = _gif_palette(data, pos, fflags, what)
+            if pos >= len(data):
+                raise ValueError(f"{what}: GIF image data is truncated")
+            bits = data[pos]
+            pos += 1
+            break
+    w, h = max(sw, x0 + fw), max(sh, y0 + fh)
+    _check_size(w, h, what, "GIF")
+    if fw <= 0 or fh <= 0:
+        raise ValueError(f"{what}: GIF frame of {fw} x {fh} on a {w} x {h} screen")
+    if bits > 12:
+        raise ValueError(f"{what}: GIF LZW minimum code size {bits}")
+    idx = np.full((h, w), transparency or 0, np.uint8)
+    frame = np.ascontiguousarray(idx[y0:y0 + fh, x0:x0 + fw])
+    _gif_lzw(data, pos, bits, frame, bool(fflags & 0x40), what)
+    idx[y0:y0 + fh, x0:x0 + fw] = frame
+    if palette is None:
+        return _grey(idx)
+    return _lut(palette)[idx]
+
+
+def _gif_lzw(data, pos, bits, frame, interlace, what):
+    import ctypes
+
+    from ..native.loader import load
+
+    lib = load("gif")
+    rc = lib.akr_gif_lzw(data, len(data), pos, PIL_READ_BLOCK, bits, frame.shape[1],
+                         frame.shape[0], int(interlace), frame.ctypes.data_as(ctypes.c_void_p))
+    if rc == 1:
+        raise ValueError(f"{what}: GIF image data is truncated")
+    if rc == 2:
+        raise ValueError(f"{what}: GIF LZW data is corrupt")
+
+
+# --------------------------------------------------------------------------
+# PSD
+
+_PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1),
+              (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1)}
+_PSD_NAMES = {0: "bitmap", 1: "grey", 2: "indexed", 3: "RGB", 4: "CMYK", 7: "multichannel",
+              8: "duotone", 9: "Lab"}
+
+
+def _packbits(data, pos, line, rows):
+    """PIL's PackbitsDecode for ``rows`` scanlines of ``line`` bytes from
+    ``pos``: no-op 128 bytes skipped, the part of a packet past its
+    scanline's end dropped; None if the data ends first."""
+    out = bytearray()
+    n_data = len(data)
+    for _ in range(rows):
+        row = bytearray()
+        while len(row) < line:
+            if pos >= n_data:
+                return None
+            head = data[pos]
+            if head == 0x80:
+                pos += 1
+                continue
+            if head & 0x80:
+                if pos + 2 > n_data:
+                    return None
+                row += data[pos + 1:pos + 2] * (257 - head)
+                pos += 2
+            else:
+                if pos + head + 2 > n_data:
+                    return None
+                row += data[pos + 1:pos + head + 2]
+                pos += head + 2
+        out += row[:line]
+    return out
+
+
+def _cmyk_to_rgb(cmyk):
+    """PIL's cmyk2rgb: nk = 255 - k, channel = nk - c * nk / 255 rounded
+    as its MULDIV255."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - ((t >> 8) + t >> 8), 0, 255).astype(np.uint8)
+
+
+def decode_psd(data, what="PSD"):
+    if data[:4] != b"8BPS" or len(data) < 26:
+        raise ValueError(f"{what}: not a PSD file")
+    version, channels, h, w, bits, mode = struct.unpack_from(">H6xHIIHH", data, 4)
+    if version != 1:
+        raise ValueError(f"{what}: PSD version {version} (large document format)")
+    name = _PSD_NAMES.get(mode, f"colour mode {mode}")
+    if mode == 9:
+        raise ValueError(f"{what}: PSD in Lab mode (PIL converts Lab with its own arithmetic; "
+                         "the port does not read it)")
+    if (mode, bits) not in _PSD_MODES:
+        raise ValueError(f"{what}: PSD {name} at {bits} bits (PIL reads 8 bits, 1 for bitmap)")
+    pmode, need = _PSD_MODES[(mode, bits)]
+    if need > channels:
+        raise ValueError(f"{what}: PSD {name} with {channels} channels")
+    _check_size(w, h, what, "PSD")
+    pos = 26
+    size = int.from_bytes(data[pos:pos + 4], "big")
+    pos += 4
+    lut = None
+    if size and pmode == "P" and size == 768:
+        lut = np.frombuffer(data[pos:pos + 768], np.uint8).reshape(3, 256).T
+    pos += size
+    size = int.from_bytes(data[pos:pos + 4], "big")
+    pos += 4
+    end = pos + size
+    while pos < end:  # image resources, entry by entry as PIL walks them
+        n = data[pos + 6] if pos + 6 < len(data) else 0
+        pos += 7 + n + (0 if n & 1 else 1)
+        size = int.from_bytes(data[pos:pos + 4], "big")
+        pos += 4 + size + (size & 1)
+        if pos > len(data):
+            raise ValueError(f"{what}: PSD image resources are truncated")
+    size = int.from_bytes(data[pos:pos + 4], "big")
+    pos += 4 + size
+    if pos + 2 > len(data):
+        raise ValueError(f"{what}: PSD image data is truncated")
+    compression = int.from_bytes(data[pos:pos + 2], "big")
+    pos += 2
+    if pmode == "RGB" and channels == 4:
+        need = 4
+    line = (w + 7) // 8 if pmode == "1" else w
+    planes = []
+    if compression == 0:
+        for c in range(need):
+            start = pos + c * w * h
+            if len(data) < start + line * h:
+                raise ValueError(f"{what}: PSD image data is truncated")
+            planes.append(np.frombuffer(data, np.uint8, line * h, start).reshape(h, line))
+    elif compression == 1:
+        counts = np.frombuffer(data[pos:pos + 2 * need * h], ">u2").astype(np.int64)
+        if len(counts) < need * h:
+            raise ValueError(f"{what}: PSD row byte counts are truncated")
+        start = pos + 2 * need * h
+        for c in range(need):
+            rows = _packbits(data, start, line, h)
+            if rows is None:
+                raise ValueError(f"{what}: PSD PackBits data is truncated")
+            planes.append(np.frombuffer(bytes(rows), np.uint8).reshape(h, line))
+            start += int(counts[c * h:(c + 1) * h].sum())
+    else:
+        raise ValueError(f"{what}: PSD compression {compression} (PIL reads raw and PackBits)")
+    if pmode == "1":
+        return _grey(_bits(planes[0], w) * np.uint8(255))
+    if pmode == "L":
+        return _grey(planes[0])
+    if pmode == "P":
+        return (lut if lut is not None else np.zeros((256, 3), np.uint8))[planes[0]]
+    if pmode == "CMYK":
+        return _cmyk_to_rgb(255 - np.stack(planes, axis=-1))
+    return np.ascontiguousarray(np.stack(planes[:3], axis=-1))

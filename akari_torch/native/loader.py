@@ -9,11 +9,13 @@ by a hash of the source, the compiler and the flags, and loaded with
 - ``bvh``: ``bvh_builder.cpp`` (a copy of the reference's source), the
   binned-SAH BVH builder;
 - ``jpeg``: ``jpeg_entropy.cpp``, the Huffman decoding of JPEG scans
-  (``akari_torch/core/jpeg.py``).
+  (``akari_torch/core/jpeg.py``);
+- ``gif``: ``gif_lzw.cpp``, the LZW decoding of a GIF frame
+  (``akari_torch/core/image_formats.py``).
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
-would give another triangle storage order, and the JPEG decoder has no
-Python entropy decoder, so there is no fallback.
+would give another triangle storage order, and the JPEG and GIF decoders have
+no Python entropy or LZW decoder, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -61,11 +63,23 @@ def _bind_jpeg(lib):
     ]
 
 
+def _bind_gif(lib):
+    i32 = ctypes.c_int32
+    lib.akr_gif_lzw.restype = ctypes.c_int
+    lib.akr_gif_lzw.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, start
+        ctypes.c_int64,                                    # chunk
+        i32, i32, i32, i32,                                # bits, xsize, ysize, interlace
+        ctypes.c_void_p,                                   # frame
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
             "the native BVH builder (scenes of 20,000 triangles or more)", _bind_bvh),
     "jpeg": ("jpeg_entropy.cpp", "libakr_jpeg.so", "the JPEG decoder", _bind_jpeg),
+    "gif": ("gif_lzw.cpp", "libakr_gif.so", "the GIF decoder", _bind_gif),
 }
 
 _lock = threading.Lock()

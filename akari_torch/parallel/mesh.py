@@ -16,6 +16,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from ..core.device import target_device
+
 
 @dataclass(frozen=True)
 class RayMesh:
@@ -57,9 +59,7 @@ def make_ray_mesh(device="cuda"):
     """The ray mesh of this process on ``device``: over the default process
     group when one is initialised, else a 1-rank mesh whose collectives
     are the identity. An NCCL group takes CUDA devices only."""
-    device = _rank_device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"ray mesh on {device}: no CUDA device is available")
+    device = target_device(_rank_device(device), "ray mesh")
     if not dist.is_initialized():
         return RayMesh(rank=0, size=1, device=device)
     group = dist.group.WORLD

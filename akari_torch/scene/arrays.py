@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..bvh.cluster_tree import tri_blocks
+from ..core.device import target_device
 
 # Material kinds (ref: Material variant, kernel/material.h:249)
 MAT_DIFFUSE = 0
@@ -265,9 +266,11 @@ def make_camera(c2w, fov_deg, width, height, lens_radius=0.0, focal_distance=0.0
     )
 
 
-def from_numpy_scene(obj, intersector="dense"):
+def from_numpy_scene(obj, intersector="dense", device="cuda"):
     """Reference-shaped compiled scene (arrays under the reference's
-    ``SceneArrays`` attribute names) -> the port's CPU ``SceneArrays``.
+    ``SceneArrays`` attribute names) -> the port's ``SceneArrays`` on
+    ``device`` (``"cuda"`` unless the caller asks for another; no
+    fallback).
 
     Flat scenes: the tree tables are carried when ``obj.tri_tree`` is set
     (the reference builds them above DENSE_MAX_TRIS); ``tri_blocks`` is
@@ -280,6 +283,7 @@ def from_numpy_scene(obj, intersector="dense"):
 
     Image textures and the environment light are carried when present.
     """
+    device = target_device(device, "from_numpy_scene")
     it = getattr(obj, "instances", None)
     if it is not None and (
         intersector != "tree" or getattr(obj, "inst_pallas_f32", None) is None
@@ -317,7 +321,7 @@ def from_numpy_scene(obj, intersector="dense"):
         blocks = getattr(obj, "tri_blocks", None)
         blocks = (tri_blocks(obj.tri_v0, obj.tri_e1, obj.tri_e2) if blocks is None
                   else np.asarray(blocks)[:9])
-    return SceneArrays(
+    scene = SceneArrays(
         tri_v0=_t(obj.tri_v0, np.float32),
         tri_e1=_t(obj.tri_e1, np.float32),
         tri_e2=_t(obj.tri_e2, np.float32),
@@ -373,3 +377,4 @@ def from_numpy_scene(obj, intersector="dense"):
         n_materials=int(obj.n_materials),
         intersector=intersector,
     )
+    return scene.to(device)

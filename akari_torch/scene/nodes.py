@@ -11,8 +11,10 @@ Two-level compile (``_compile_instanced``): each prototype mesh is stored
 once in object space with its own BVH, instances carry transforms, and the
 per-prototype kernel tables of the instanced route are built.
 
-The compile runs on the host in NumPy and returns CPU tensors; call
-``.to(device)`` on the result to move it.
+The compile runs on the host in NumPy, then moves its tensors to
+``device``: ``"cuda"`` by default, with no fallback (without a CUDA device
+it raises; pass ``device="cpu"`` for CPU tensors, as the tests do).
+``compile_seconds`` times the host compile alone.
 
 Intersector names of the port: ``"dense"`` selects the dense all-pairs
 intersector and ``"tree"`` the BVH2 tree walk (each the CUDA kernel on CUDA
@@ -54,6 +56,7 @@ from ..bvh.cluster_tree import (
     pick_leaf_span,
     tri_blocks,
 )
+from ..core.device import target_device
 from ..core.distribution import build_cdf
 from ..core.spectrum import luminance
 from .arrays import (
@@ -224,10 +227,10 @@ class Scene:
     environment: object = None                   # EnvMapLight or None
     output: str = "out.png"
 
-    def compile(self, intersector="auto"):
+    def compile(self, intersector="auto", device="cuda"):
         return compile_scene(
             self.shapes, intersector=intersector,
-            environment=self.environment,
+            environment=self.environment, device=device,
         )
 
 
@@ -457,9 +460,18 @@ def _compile_env(environment, area_power_total):
     )
 
 
-def compile_scene(shapes, intersector="auto", environment=None):
-    """Merge meshes, build materials/lights/BVH -> CPU ``SceneArrays``.
-    Shapes may mix ``Mesh`` and ``Instance`` (module docstring)."""
+def compile_scene(shapes, intersector="auto", environment=None, device="cuda"):
+    """Merge meshes, build materials/lights/BVH -> ``SceneArrays`` on
+    ``device`` (``"cuda"`` unless the caller asks for another; no
+    fallback). Shapes may mix ``Mesh`` and ``Instance`` (module
+    docstring)."""
+    device = target_device(device, "compile_scene")
+    return _compile_host(shapes, intersector, environment).to(device)
+
+
+def _compile_host(shapes, intersector, environment):
+    """The compile on the host: CPU ``SceneArrays`` with
+    ``compile_seconds``."""
     t_start = time.perf_counter()
     if intersector not in INTERSECTORS:
         raise ValueError(
@@ -599,7 +611,7 @@ def compile_scene(shapes, intersector="auto", environment=None):
         n_materials=len(mats.items),
         **env,
     )
-    scene = from_numpy_scene(compiled, intersector=intersector)
+    scene = from_numpy_scene(compiled, intersector=intersector, device="cpu")
     scene.compile_seconds = dict(
         bvh=t_bvh, tree=t_tree, total=time.perf_counter() - t_start
     )
@@ -843,7 +855,7 @@ def _compile_instanced(shapes, t_start, environment=None):
         n_materials=len(mats.items),
         **env,
     )
-    scene = from_numpy_scene(compiled, intersector="tree")
+    scene = from_numpy_scene(compiled, intersector="tree", device="cpu")
     scene.compile_seconds = dict(
         bvh=t_bvh, tree=t_tree, total=time.perf_counter() - t_start
     )

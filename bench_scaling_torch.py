@@ -35,7 +35,7 @@ def time_frames(mesh, res):
     from akari_torch.scene.builtin import cornell_box
 
     sc = cornell_box(res, res)
-    scene = sc.compile(intersector="auto").to(mesh.device)
+    scene = sc.compile(intersector="auto", device=mesh.device)
     cfg = PathConfig(spp=SPP, max_depth=DEPTH)
     sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
 

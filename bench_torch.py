@@ -153,7 +153,7 @@ def bench_setup(device, res=None):
 
     res = RES if res is None else res
     sc = cornell_box(res, res)
-    scene = sc.compile(intersector="auto").to(device)
+    scene = sc.compile(intersector="auto", device=device)
     # bench.py sets unroll=True; the port has no unroll: its bounce loop is
     # a Python loop, which is the unrolled form (integrators/path.py)
     cfg = PathConfig(spp=SPP, max_depth=DEPTH, remat=False)
@@ -239,7 +239,7 @@ def full_suite(device, card):
 
     # ---- canonical reference workload: 1024^2, 16 spp, depth 5 -------------
     sc = cornell_box(CANON_RES, CANON_RES)
-    scene = sc.compile(intersector="auto").to(device)
+    scene = sc.compile(intersector="auto", device=device)
     s = frame(scene, sc.camera, PathConfig(spp=CANON_SPP, max_depth=5))
     lines += [
         f"## Canonical workload (cornell_box/scene.akari: {CANON_RES}x{CANON_RES}, "
@@ -252,7 +252,7 @@ def full_suite(device, card):
     # ---- large terrain mesh on the tree route --------------------------------
     cfg_t = PathConfig(spp=4, max_depth=5)
     tsc = terrain_scene(FRAME_RES, FRAME_RES, n=TERRAIN_N)
-    tscene = tsc.compile(intersector="tree").to(device)
+    tscene = tsc.compile(intersector="tree", device=device)
     s = frame(tscene, tsc.camera, cfg_t)
     sec = s["median_ms"] / 1e3
     lines += [
@@ -268,7 +268,7 @@ def full_suite(device, card):
 
     # ---- per-stage table (the Cornell bench config) --------------------------
     sc2 = cornell_box(FRAME_RES, FRAME_RES)
-    scene2 = sc2.compile(intersector="auto").to(device)
+    scene2 = sc2.compile(intersector="auto", device=device)
     n = FRAME_RES * FRAME_RES
     pix = torch.arange(n, dtype=torch.int64, device=device)
     smp = torch.zeros(n, dtype=torch.int64, device=device)
@@ -302,7 +302,7 @@ def full_suite(device, card):
 
     # ---- 2.09M-triangle terrain on the default (auto) route ------------------
     bsc = terrain_scene(FRAME_RES, FRAME_RES, n=BIG_TERRAIN_N)
-    big = bsc.compile(intersector="auto").to(device)
+    big = bsc.compile(intersector="auto", device=device)
     s = frame(big, bsc.camera, cfg_t)
     lines += [
         f"## {big.n_tris / 1e6:.2f}M-triangle terrain, default (`auto`) route "
@@ -319,10 +319,9 @@ def full_suite(device, card):
     old_flat = nodes.FLATTEN_MAX_TRIS
     nodes.FLATTEN_MAX_TRIS = 1  # force the two-level compile
     try:
-        iscene = isc.compile(intersector="auto")
+        iscene = isc.compile(intersector="auto", device=device)
     finally:
         nodes.FLATTEN_MAX_TRIS = old_flat
-    iscene = iscene.to(device)
     s = frame(iscene, isc.camera, cfg_t)
     proto = iscene.n_tris // INSTANCES
     route = ("instanced tree walk, `instanced_tree_intersect.cu`" if iscene.instances is not None

@@ -225,9 +225,9 @@ Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40, 41) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
-Every kernel source (and the native BVH builder and JPEG entropy
-decoder) is built at start, one compiler process each, all started
-together. Imports nothing of JAX.
+Every kernel source (and the native BVH builder, JPEG entropy decoder
+and GIF LZW decoder) is built at start, one compiler process each, all
+started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
 
@@ -581,7 +581,7 @@ def compile_timed(scene_node, dev, torch, host=None):
     the host seconds: BVH build, clusters + tree, the rest, the copy).
     ``host``, a list, receives the host (CPU) scene for a later copy."""
     t0 = time.perf_counter()
-    scene = scene_node.compile(intersector="auto")
+    scene = scene_node.compile(intersector="auto", device="cpu")  # the host copy, kept
     if host is not None:
         host.append(scene)
     secs = scene.compile_seconds
@@ -1122,7 +1122,7 @@ def gradient_phases(dev, card, traversal, scene, sc, scene64, sc64, scene1k, sc1
     log("phase 22: tri_delta gradient of render + boundary_direct_term on the shadow scene "
         "(24x24), kernel route vs plain route")
     sc_sh = shadow_scene(24, 24)
-    sh = sc_sh.compile(intersector="auto").to(dev)
+    sh = sc_sh.compile(intersector="auto", device=dev)
     check(sh.intersector == "dense", f"shadow scene intersector {sh.intersector}")
     et = build_edge_table(sh)
     cam_sh = sc_sh.camera
@@ -1302,7 +1302,7 @@ def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
         "package's golden")
     with tempfile.TemporaryDirectory() as tmp:
         node = sdl.parse_file(write_envtex_terrain(tmp, **ENVTEX_GOLDEN_SCENE)).exports["scene"]
-        scene = node.compile().to(dev)
+        scene = node.compile(device=dev)
     check(scene.intersector == "tree", f"intersector {scene.intersector}")
     images_match(render(scene, node.camera, node.integrator, seed=0).cpu().numpy(),
                  np.load(ENVTEX_GOLDEN))
@@ -1406,7 +1406,7 @@ def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
     log("phase 28: BDPT (Cornell 64^2, spp 4) and AO (terrain n=64 64^2, spp 16) vs the JAX "
         "package's goldens; BDPT kernel route vs plain route; env-lit instanced-forest128")
     sc64 = cornell_box(64, 64)
-    scene64 = sc64.compile().to(dev)
+    scene64 = sc64.compile(device=dev)
     cfg64 = pb.BDPTConfig(spp=4)
     px64 = torch.arange(64 * 64, device=dev)
     reset_all(traversal)
@@ -1426,7 +1426,7 @@ def slice4a_phases(dev, card, traversal, host1m, sc1m, cli_render):
     check(splat_err <= SPLAT_TOL, f"BDPT splat routes differ by {splat_err}")
     out["splat_err"] = splat_err
     sct = terrain_scene(64, 64, n=64)
-    scene_t = sct.compile().to(dev)
+    scene_t = sct.compile(device=dev)
     images_match(render_ao(scene_t, sct.camera, AOConfig()).cpu().numpy(), np.load(AO_GOLDEN))
     sc_f = instanced_forest_scene(256, 256)
     sc_f = dataclasses.replace(sc_f, environment=EnvMapLight(envtex_sky(256, 512), scale=0.5))
@@ -1576,14 +1576,14 @@ def slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render
         check(rc == 0, f"CLI --spectrum-dtype bfloat16 returned {rc}")
         px = png_pixels(png)
     sc256 = cornell_box(256, 256)
-    want = render(sc256.compile().to(dev), sc256.camera,
+    want = render(sc256.compile(device=dev), sc256.camera,
                   PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16), seed=0).cpu().numpy()
     check("variant: rgb-bfloat16-float32" in logbuf.getvalue(), "the CLI did not log the variant")
     check(np.array_equal(written[0], want), "CLI bf16 image differs from render's")
     log(f"  CLI --spectrum-dtype bfloat16: variant logged, image equal to render's bit for "
         f"bit, PNG mean {px.mean():.1f}/255, launches {launches()}")
     sc64 = cornell_box(64, 64)
-    img64 = render(sc64.compile().to(dev), sc64.camera,
+    img64 = render(sc64.compile(device=dev), sc64.camera,
                    PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16), seed=0)
     images_match(img64.cpu().numpy(), np.load(BF16_GOLDEN))
     log(f"  phase 29: {time.perf_counter() - t_phase:.1f} s")
@@ -1722,7 +1722,7 @@ def slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render
         f"{RECOVERY_ITERS} inverse_render iterations, optimize_images, log space "
         f"[card: {card}]")
     sct = textured_cornell_box(rres, rres)
-    tscene = sct.compile().to(dev)
+    tscene = sct.compile(device=dev)
     cfg_t = PathConfig(spp=4, max_depth=3)
     with torch.no_grad():
         target = render(tscene, sct.camera, dataclasses.replace(cfg_t, spp=16), seed=777)
@@ -1776,7 +1776,7 @@ def slice4b_phases(dev, card, traversal, scene1k, sc1k, host1m, sc1m, cli_render
     gold = np.load(TEXGRAD_GOLDEN)
     w_, h_, spp_, depth_, seed_, tres_, tseed_ = (int(v) for v in gold["config"])
     sc64t = textured_cornell_box(w_, h_, tex_res=tres_, seed=tseed_)
-    s64t = sc64t.compile().to(dev)
+    s64t = sc64t.compile(device=dev)
     cfg64 = PathConfig(spp=spp_, max_depth=depth_)
     zero = torch.zeros((h_, w_, 3), device=dev)
 
@@ -1927,7 +1927,7 @@ def bench_step_rank(mesh, res, iters, warmup, dryrun_res):
 
     dev = mesh.device
     sc = cornell_box(res, res)
-    scene = sc.compile(intersector="auto").to(dev)
+    scene = sc.compile(intersector="auto", device=dev)
     cfg = PathConfig(spp=4, max_depth=5, mis=True, remat=False)
     target = torch.zeros((res, res, 3), device=dev)
     step = lambda: _sharded_step(mesh, scene, sc.camera, cfg, target)  # noqa: E731
@@ -1952,7 +1952,7 @@ def bench_step_rank(mesh, res, iters, warmup, dryrun_res):
         old = nodes.FLATTEN_MAX_TRIS
         nodes.FLATTEN_MAX_TRIS = 1  # the dry run forces the two-level compile
         try:
-            dscene = sd.compile().to(dev)
+            dscene = sd.compile(device=dev)
         finally:
             nodes.FLATTEN_MAX_TRIS = old
         dcfg = PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16)
@@ -1993,7 +1993,7 @@ def terrain_rank(mesh, n, res, bdpt_spp, prog_spp, prog_chunk, prog_stop, ckpt):
     dev = mesh.device
     t0 = time.perf_counter()
     sc = terrain_scene(res, res, n=n)
-    scene = sc.compile(intersector="auto").to(dev)
+    scene = sc.compile(intersector="auto", device=dev)
     _sync(dev)
     out = {"compile_and_copy_s": time.perf_counter() - t0, "n_tris": scene.n_tris,
            "intersector": scene.intersector}
@@ -2114,7 +2114,7 @@ def sharded_phases(dev, card, sc, bdpt_image, cli_render, sizes):
     log(f"phase 34: the bench step sharded (loss_and_image_sharded, cornell {res}^2, 4 spp, "
         f"depth 5): R = 1 over {rank_route(dev.type, 1)[1]}, R = 2 over "
         f"{rank_route(dev.type, 2)[1]} [card: {card}]")
-    scene = sc.compile(intersector="auto").to(dev)
+    scene = sc.compile(intersector="auto", device=dev)
     cfg = PathConfig(spp=4, max_depth=5, mis=True, remat=False)
     target = torch.zeros((res, res, 3), device=dev)
     loss_u, g_u = bench_step(scene, sc.camera, cfg, target)
@@ -2234,7 +2234,7 @@ def sharded_phases(dev, card, sc, bdpt_image, cli_render, sizes):
 
     sd = dryrun_scene(s.dryrun_res, s.dryrun_res)
     with flatten_max_tris(1):
-        dscene = sd.compile().to(dev)
+        dscene = sd.compile(device=dev)
     check(dscene.instances is not None, "the dry run did not compile two-level")
     dcfg = PathConfig(spp=4, max_depth=5, dtypes=RGB_BF16)
     one = _sharded_step(make_ray_mesh(dev), dscene, sd.camera, dcfg,
@@ -2374,7 +2374,7 @@ def bench_phase(dev, card, traversal, scene, sc, scene512, sc512, bench_loss):
 
     sc_b = instanced_bench_scene(256, 256)
     with flatten_max_tris(1):
-        bench64 = sc_b.compile().to(dev)
+        bench64 = sc_b.compile(device=dev)
 
     def cam_rays(cam):
         n = cam.width * cam.height
@@ -2434,7 +2434,7 @@ def image_phase(card, traversal, cli_render):
     log(f"phase 41: image decoding without PIL: the fixtures' digests, the 2048^2 JPEG and PNG "
         f"decodes, the config-3 CLI on a JPEG albedo [card: {card}]")
     with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
-        digests = json.load(f)
+        digests = {k: v for k, v in json.load(f).items() if k.endswith((".jpg", ".png"))}
     for fname, rec in sorted(digests.items()):
         with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
             data = f.read()
@@ -2528,6 +2528,167 @@ def image_phase(card, traversal, cli_render):
     return out
 
 
+def albedo_files(px, torch=None):
+    """The config-3 albedo's pixels [H, W, 3] uint8 as TGA (bottom-left),
+    TGA-RLE (literal packets of 128 pixels, across scanlines), a 24-bit
+    BMP, a P6 PPM, a PackBits RGB PSD, and a GIF of the pixels quantised
+    to 3-3-2 bits (256 colours; every pixel one 9-bit literal code, a clear
+    code each 253 codes, so that the table never grows to 10 bits): the
+    file bytes, and the GIF's expected pixels."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = px.shape
+    bgr_up = np.ascontiguousarray(px[::-1, :, ::-1]).reshape(-1, 3)
+    files = {}
+    files["tga"] = struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h, 24, 0) \
+        + bgr_up.tobytes()
+    n = bgr_up.shape[0]  # a multiple of 128 here
+    packets = np.concatenate([np.full((n // 128, 1), 127, np.uint8),
+                              bgr_up.reshape(n // 128, 384)], axis=1)
+    files["tga_rle"] = struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0) \
+        + packets.tobytes()
+    row = -(-3 * w // 4) * 4
+    rows = np.zeros((h, row), np.uint8)
+    rows[:, :3 * w] = px[::-1, :, ::-1].reshape(h, -1)
+    files["bmp"] = b"BM" + struct.pack("<IHHIIiiHHIIiiII", 54 + rows.size, 0, 0, 54, 40, w, h,
+                                       1, 24, 0, rows.size, 2835, 2835, 0, 0) + rows.tobytes()
+    files["ppm"] = f"P6\n{w} {h}\n255\n".encode() + px.tobytes()
+    planes = np.moveaxis(px, 2, 0).reshape(3 * h, w // 128, 128)
+    lit = np.concatenate([np.full((3 * h, w // 128, 1), 127, np.uint8), planes], axis=2)
+    files["psd"] = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3) + bytes(12)
+                    + struct.pack(">H", 1) + struct.pack(f">{3 * h}H", *[lit[0].size] * (3 * h))
+                    + lit.tobytes())
+    idx = (px[..., 0] >> 5).astype(np.int64) << 5 | (px[..., 1] >> 5) << 2 | px[..., 2] >> 6
+    i = np.arange(256)
+    pal = np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7, (i & 3) * 85], 1)
+    flat = idx.reshape(-1)
+    k = 253
+    chunks = -(-flat.size // k)
+    body = np.full(chunks * k, -1, np.int64)
+    body[:flat.size] = flat
+    codes = np.concatenate([np.full((chunks, 1), 256), body.reshape(chunks, k)], axis=1)
+    codes = np.append(codes[codes >= 0], 257)
+    bits = ((codes.astype(np.uint16)[:, None] >> np.arange(9, dtype=np.uint16)) & 1)
+    bits = bits.astype(np.uint8).reshape(-1)
+    lzw = np.packbits(bits, bitorder="little")
+    full = lzw.size // 255
+    blocks = np.concatenate([np.full((full, 1), 255, np.uint8),
+                             lzw[:full * 255].reshape(full, 255)], axis=1).tobytes()
+    tail = lzw[full * 255:]
+    blocks += (bytes([tail.size]) + tail.tobytes() if tail.size else b"") + b"\x00"
+    files["gif"] = (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0)
+                    + pal.astype(np.uint8).tobytes()
+                    + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks + b";")
+    return files, pal.astype(np.uint8)[idx]
+
+
+def format_phase(card, traversal, cli_render):
+    """Phase 42: the TGA, BMP, PNM, GIF and PSD decoders on this machine
+    (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
+    each format, and the config-3 CLI with a TGA-RLE and a BMP albedo
+    against the PNG route; returns the tree kernel's error on a held
+    launch and the figures it logs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+
+    t_phase = time.perf_counter()
+    log(f"phase 42: TGA, BMP, PNM, GIF and PSD decoding without PIL: the fixtures' digests, "
+        f"the 2048^2 albedo in each format, the config-3 CLI on TGA-RLE and BMP albedos "
+        f"[card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if not k.endswith((".jpg", ".png"))}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)  # the PNG route's pixels
+    files, gif_px = albedo_files(albedo)
+    files["png"] = png_data
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
+        files["jpeg"] = f.read()
+    out = {}
+    for key in ("png", "jpeg", "tga", "tga_rle", "bmp", "ppm", "gif", "psd"):
+        px = decode_image(files[key], key)
+        if key == "gif":
+            check(np.array_equal(px, gif_px), "the 2048^2 GIF decodes to other pixels")
+        elif key != "jpeg":
+            check(np.array_equal(px, albedo), f"the 2048^2 {key} decodes to other pixels")
+        med, runs = _median_s(lambda: decode_image(files[key], key))
+        out[f"{key}_decode_s"] = med
+        log(f"  2048^2 {key} decode on the host, median of 3: {med:.4f} s ({len(files[key])} "
+            f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+    for key in ("tga", "tga_rle", "bmp", "ppm"):
+        check(out[f"{key}_decode_s"] <= out["png_decode_s"],
+              f"{key} decodes the albedo slower than the PNG route: {out[f'{key}_decode_s']:.4f} "
+              f"s against {out['png_decode_s']:.4f} s")
+
+    full = ENVTEX_FULL
+    cfg_spp, depth = full["spp"], full["depth"]
+    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
+    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
+    tree_err = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        akari = write_envtex_terrain(tmp, **full)
+        for key, name in (("tga_rle", "albedo.tga"), ("bmp", "albedo.bmp")):
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(files[key])
+        mtl = os.path.join(tmp, "terrain.mtl")
+        with open(mtl) as f:
+            mtl_text = f.read()
+        frames = {}
+        for run, albedo_name in enumerate(("albedo.png", "albedo.tga", "albedo.bmp")):
+            with open(mtl, "w") as f:
+                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
+            reset_all(traversal)
+            with log_records() as logbuf, captured_write_png() as written, \
+                    kept_call(ti, ["closest"], keep=1) as calls:
+                t0 = time.perf_counter()
+                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
+                                      "--device", "cuda", "-v"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                   for n, c in m.LAUNCHES.items() if c}
+            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
+            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
+            if albedo_name == "albedo.tga":  # one launch of the path against the plain walk
+                rays_k, args_k = calls.kept["closest"]
+                err = compare_kernel("tree config-3 TGA-albedo launch", rays_k, ti, args_k,
+                                     2 * (full["n"] - 1) ** 2 + 2)[:2]
+                tree_err = max(tree_err, err[0])
+                out["tree_occ_err"] = err[1]
+            del calls
+            frames[albedo_name] = np.asarray(written[-1])
+            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
+            parse_s = parsed_seconds(logbuf.getvalue())
+            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
+                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
+            out[f"cli_{albedo_name}_s"] = wall
+    for name in ("albedo.tga", "albedo.bmp"):
+        check(np.array_equal(frames[name], frames["albedo.png"]),
+              f"the frame on {name} differs from the PNG route's")
+    log("  the TGA-RLE and BMP albedo frames are bit-equal to the PNG route's")
+    log(f"  phase 42: {time.perf_counter() - t_phase:.1f} s")
+    out["tree_err"] = tree_err
+    return out
+
+
 def main():
     import torch
 
@@ -2571,8 +2732,9 @@ def main():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
-        # g++ beside the nvcc builds: the BVH builder and the JPEG entropy decoder
-        natives = {n: pool.submit(native_loader.build, n) for n in ("bvh", "jpeg")}
+        # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder
+        # and the GIF LZW decoder
+        natives = {n: pool.submit(native_loader.build, n) for n in ("bvh", "jpeg", "gif")}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
         native_paths = {n: f.result() for n, f in natives.items()}
@@ -2596,7 +2758,7 @@ def main():
     # ---- phase 2: kernel vs plain on the card ---------------------------
     log("phase 2: kernel vs plain PyTorch version on the card")
     sc = cornell_box(256, 256)
-    scene = sc.compile(intersector="auto").to(dev)
+    scene = sc.compile(intersector="auto", device=dev)
     check(scene.intersector == "dense", f"intersector {scene.intersector}")
     rays = make_rays(scene, sc.camera, N_RAYS, 0, torch)
     err_box, occ_box, _ = compare_kernel(
@@ -2661,7 +2823,7 @@ def main():
     # ---- phase 4: cross-framework golden --------------------------------
     log("phase 4: 64x64 spp 4 depth 5 seed 0 vs the JAX package's golden")
     sc64 = cornell_box(64, 64)
-    scene64 = sc64.compile(intersector="auto").to(dev)
+    scene64 = sc64.compile(intersector="auto", device=dev)
     img64 = render(scene64, sc64.camera, PathConfig(spp=4, max_depth=5), seed=0)
     golden = np.load(GOLDEN)
     images_match(img64.cpu().numpy(), golden)
@@ -2669,7 +2831,7 @@ def main():
     # ---- phase 5: realistic size ----------------------------------------
     log(f"phase 5: 1024x1024, 16 spp, depth 5 [card: {card}]")
     sc1k = cornell_box(1024, 1024)
-    scene1k = sc1k.compile(intersector="auto").to(dev)
+    scene1k = sc1k.compile(intersector="auto", device=dev)
     cfg1k = PathConfig(spp=16, max_depth=5)
     render(scene1k, sc1k.camera, cfg1k, seed=0)  # warm-up
     torch.cuda.synchronize()
@@ -2796,7 +2958,7 @@ def main():
     # ---- phase 8: terrain golden -----------------------------------------
     log("phase 8: terrain n=64 64x64 spp 4 depth 5 seed 0 vs the JAX package's golden")
     sct = terrain_scene(64, 64, n=64)
-    scene_t64 = sct.compile(intersector="auto").to(dev)
+    scene_t64 = sct.compile(intersector="auto", device=dev)
     check(scene_t64.intersector == "tree", f"intersector {scene_t64.intersector}")
     img_t64 = render(scene_t64, sct.camera, PathConfig(spp=4, max_depth=5), seed=0)
     images_match(img_t64.cpu().numpy(), np.load(TERRAIN_GOLDEN))
@@ -2972,7 +3134,7 @@ def main():
     log("phase 15: instanced forest (8 x n=16) 64x64 spp 4 depth 5 seed 0 vs the golden")
     sc_g = instanced_forest_scene(64, 64, n_instances=8, n=16)
     with flatten_max_tris(1):
-        scene_g = sc_g.compile().to(dev)
+        scene_g = sc_g.compile(device=dev)
     check(scene_g.instances is not None, "the golden forest did not compile two-level")
     img_g = render(scene_g, sc_g.camera, PathConfig(spp=4, max_depth=5), seed=0)
     images_match(img_g.cpu().numpy(), np.load(INSTANCED_GOLDEN))
@@ -3142,9 +3304,12 @@ def main():
     err_it = max(err_it, aos["instanced_tree"][0])
     occ_it = max(occ_it, aos["instanced_tree"][1])
     image_phase(card, traversal, cli_render)
+    fmts = format_phase(card, traversal, cli_render)
+    tree_err = max(tree_err, fmts["tree_err"])
+    tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 42: result ----------------------------------------------------
+    # ---- phase 43: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

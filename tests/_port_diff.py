@@ -35,7 +35,7 @@ def both(ref_compiled, mutate=None, intersector="brute"):
     if mutate is not None:
         ref_np = mutate(ref_np)
     return (jax.tree_util.tree_map(jnp.asarray, ref_np),
-            from_numpy_scene(ref_np, intersector=intersector))
+            from_numpy_scene(ref_np, intersector=intersector, device="cpu"))
 
 
 def largest_material(ref_np):

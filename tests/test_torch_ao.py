@@ -53,7 +53,8 @@ def scenes(name):
             # tables its route needs; the reference's brute compile
             sc = ref_builtin.terrain_scene(16, 16, n=16)
             ref = jax.tree_util.tree_map(jnp.asarray, sc.compile(intersector="brute"))
-            port = port_builtin.terrain_scene(16, 16, n=16).compile(intersector="tree")
+            port = port_builtin.terrain_scene(16, 16, n=16).compile(intersector="tree",
+                                                                    device="cpu")
         _CACHE[name] = ref, port, sc.camera, port_camera(sc.camera)
     return _CACHE[name]
 
@@ -106,7 +107,7 @@ def test_ao_golden_64():
     """64x64, 16 spp AO of the n=64 terrain (tree route) against the JAX
     package's image (tools/make_torch_port_ao_golden.py)."""
     sc = port_builtin.terrain_scene(64, 64, n=64)
-    scene = sc.compile()
+    scene = sc.compile(device="cpu")
     assert scene.intersector == "tree"
     img = port_ao.render_ao(scene, sc.camera, port_ao.AOConfig()).numpy()
     assert_images_match(img, np.load(GOLDEN), outlier_frac=0.08, mean_tol=3e-3)
@@ -132,7 +133,7 @@ def test_cli_ao_matches_render_ao(tmp_path):
     import dataclasses
 
     cam = dataclasses.replace(node.camera, width=16, height=16)
-    img = port_ao.render_ao(node.compile(), cam, port_ao.AOConfig(spp=4)).numpy()
+    img = port_ao.render_ao(node.compile(device="cpu"), cam, port_ao.AOConfig(spp=4)).numpy()
     np.testing.assert_array_equal(png, to_uint8_srgb(img))
     ref_node = ref_sdl.parse_file(SCENE_FILE).exports["scene"]
     ref_cam = dataclasses.replace(ref_node.camera, width=16, height=16)

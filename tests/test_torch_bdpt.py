@@ -306,7 +306,7 @@ def test_bdpt_golden_64():
     """64x64, BDPTConfig(spp=4) on the Cornell box against the JAX
     package's image (tools/make_torch_port_bdpt_golden.py)."""
     sc = port_builtin.cornell_box(64, 64)
-    img = pb.render_bdpt(sc.compile(), sc.camera, pb.BDPTConfig(spp=4)).numpy()
+    img = pb.render_bdpt(sc.compile(device="cpu"), sc.camera, pb.BDPTConfig(spp=4)).numpy()
     assert_images_match(img, np.load(GOLDEN), outlier_frac=0.08, mean_tol=3e-3)
 
 

@@ -108,7 +108,7 @@ def test_tri_delta_refuses_a_two_level_scene():
     old = port_nodes.FLATTEN_MAX_TRIS
     port_nodes.FLATTEN_MAX_TRIS = 1
     try:
-        scene = instanced_forest_scene(8, 8, n_instances=2, n=4).compile()
+        scene = instanced_forest_scene(8, 8, n_instances=2, n=4).compile(device="cpu")
     finally:
         port_nodes.FLATTEN_MAX_TRIS = old
     assert scene.instances is not None
@@ -135,7 +135,7 @@ def test_tri_delta_gradient_matches_central_difference():
         verts = np.asarray(mesh.vertices, np.float32).copy()
         verts[vids, 1] += dy
         mesh.vertices = verts
-        return compile_scene([mesh], intersector="dense")
+        return compile_scene([mesh], intersector="dense", device="cpu")
 
     res = 32
     cfg = PathConfig(spp=8, max_depth=2, mis=True)
@@ -271,7 +271,7 @@ def test_smoke_shadow_scene_is_the_reference_scene(shadow):
 
     _, port, _, cam = shadow
     sc = shadow_scene(24, 24)
-    mine = sc.compile(intersector="brute")
+    mine = sc.compile(intersector="brute", device="cpu")
     for f in ("tri_v0", "tri_e1", "tri_e2", "mat_id", "prim_table"):
         assert torch.equal(getattr(mine, f), getattr(port, f)), f
     assert torch.equal(mine.textures.value, port.textures.value)

@@ -59,7 +59,7 @@ def _soup_mesh(n_tri=6000):
 
 @pytest.fixture(scope="module")
 def soup():
-    scene = port_nodes.compile_scene([_soup_mesh()], intersector="auto")
+    scene = port_nodes.compile_scene([_soup_mesh()], intersector="auto", device="cpu")
     assert scene.intersector == "tree" and scene.tri_superclusters is not None
     return scene
 
@@ -119,9 +119,9 @@ def test_superclusters_equal_reference(soup):
 def test_flat_compile_stores_superclusters_with_the_clusters():
     """Superclusters are built wherever clusters are: above DENSE_MAX_TRIS,
     or on request of the tree intersector (akari_tpu/scene/nodes.py:622-625)."""
-    small = port_nodes.compile_scene([_soup_mesh(300)])
+    small = port_nodes.compile_scene([_soup_mesh(300)], device="cpu")
     assert small.intersector == "dense" and small.tri_superclusters is None
-    forced = port_nodes.compile_scene([_soup_mesh(300)], intersector="tree")
+    forced = port_nodes.compile_scene([_soup_mesh(300)], intersector="tree", device="cpu")
     np.testing.assert_array_equal(
         forced.tri_superclusters.numpy(),
         ref_cluster.build_superclusters(forced.tri_clusters.numpy(), forced.n_tris),

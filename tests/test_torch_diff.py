@@ -192,7 +192,7 @@ def test_gradient_golden_matches_the_plain_route():
                                 "torch_port_grad_cornell64_spp4_d5.npz"))
     assert gold["config"].tolist() == [64, 64, 4, 5, 0]
     sc = cornell_box(64, 64)
-    scene = sc.compile(intersector="dense")
+    scene = sc.compile(intersector="dense", device="cpu")
     loss, g = port_value_and_grad(
         _port_loss(scene, sc.camera, PathConfig(spp=4, max_depth=5), np.zeros((64, 64, 3),
                                                                             np.float32)),

@@ -93,11 +93,12 @@ def compiled(area):
     if area not in _CACHE:
         env = sky()
         port = port_nodes.compile_scene(env_shapes(port_nodes, area), intersector="dense",
-                                        environment=port_nodes.EnvMapLight(env))
+                                        environment=port_nodes.EnvMapLight(env), device="cpu")
         ref = ref_nodes.compile_scene(env_shapes(ref_nodes, area), intersector="brute",
                                       environment=ref_nodes.EnvMapLight(env))
         ref_np = jax.tree_util.tree_map(np.asarray, ref)
-        _CACHE[area] = port, jax.tree_util.tree_map(jnp.asarray, ref_np), from_numpy_scene(ref_np)
+        _CACHE[area] = (port, jax.tree_util.tree_map(jnp.asarray, ref_np),
+                        from_numpy_scene(ref_np, device="cpu"))
     return _CACHE[area]
 
 
@@ -122,7 +123,8 @@ def test_env_scale_and_hdr_path_compile_equal(tmp_path):
     path = str(tmp_path / "sky.hdr")
     port_image.write_hdr(path, sky(6, 12, 3))
     port = port_nodes.compile_scene(env_shapes(port_nodes), intersector="dense",
-                                    environment=port_nodes.EnvMapLight(path, scale=2.5))
+                                    environment=port_nodes.EnvMapLight(path, scale=2.5),
+                                    device="cpu")
     ref = ref_nodes.compile_scene(env_shapes(ref_nodes), intersector="brute",
                                   environment=ref_nodes.EnvMapLight(path, scale=2.5))
     _env_equal(port, ref)
@@ -284,7 +286,8 @@ def test_env_on_a_two_level_scene_matches_jax():
     env = sky(8, 16, 7)
     with two_level():
         port = port_nodes.compile_scene(pair_shapes(port_nodes),
-                                        environment=port_nodes.EnvMapLight(env, scale=0.5))
+                                        environment=port_nodes.EnvMapLight(env, scale=0.5),
+                                        device="cpu")
         ref = ref_nodes.compile_scene(pair_shapes(ref_nodes), intersector="bvh",
                                       environment=ref_nodes.EnvMapLight(env, scale=0.5))
     assert port.instances is not None and ref.instances is not None
@@ -309,7 +312,7 @@ def test_sdl_envmap_node_matches_reference(tmp_path):
     np.testing.assert_array_equal(ep.load_image(), er.load_image())
     assert mp.exports["s"].environment is ep
     shapes_p, shapes_r = env_shapes(port_nodes), env_shapes(ref_nodes)
-    port = port_nodes.compile_scene(shapes_p, intersector="dense", environment=ep)
+    port = port_nodes.compile_scene(shapes_p, intersector="dense", environment=ep, device="cpu")
     ref = ref_nodes.compile_scene(shapes_r, intersector="brute", environment=er)
     _env_equal(port, ref)
 
@@ -328,7 +331,7 @@ def test_envtex_golden_64(tmp_path):
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     node = port_sdl.parse_file(write_envtex_terrain(str(tmp_path), **tool.SCENE)).exports["scene"]
-    scene = node.compile()
+    scene = node.compile(device="cpu")
     assert scene.intersector == "tree" and scene.textures.has_images
     assert scene.env_image.shape == (64, 128, 3)
     img = port_path.render(scene, node.camera, node.integrator, seed=tool.SEED).numpy()

@@ -365,7 +365,7 @@ def glossy_cornell():
     ref_np = dataclasses.replace(
         ref_np, materials=dataclasses.replace(mats, kind=kind, roughness_tex=rough),
         textures=dataclasses.replace(tex, value=value))
-    port = from_numpy_scene(ref_np, intersector="brute")
+    port = from_numpy_scene(ref_np, intersector="brute", device="cpu")
     ref = jax.tree_util.tree_map(jnp.asarray, ref_np)
     n = 16 * 16
     px, sx = np.arange(n, dtype=np.uint32), np.zeros(n, np.uint32)

@@ -550,7 +550,11 @@ def test_fixture_digests_are_pils_decode():
 
 
 def test_fixtures_decode_to_their_digests():
+    """The JPEG and PNG fixtures (tests/test_torch_image_formats.py holds
+    the other formats' to theirs)."""
     for name, rec in _digests().items():
+        if not name.endswith((".jpg", ".png")):
+            continue
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
         px = (port_jpeg.decode_jpeg(data, name) if name.endswith(".jpg")

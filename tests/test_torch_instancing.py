@@ -166,7 +166,7 @@ def compiled(name, ref_intersector="pallas"):
     key = (name, ref_intersector)
     if key not in _CACHE:
         with two_level():
-            port = port_nodes.compile_scene(SCENES[name](port_nodes, port_builtin))
+            port = port_nodes.compile_scene(SCENES[name](port_nodes, port_builtin), device="cpu")
             ref = ref_nodes.compile_scene(SCENES[name](ref_nodes, ref_builtin),
                                           intersector=ref_intersector)
         _CACHE[key] = port, ref
@@ -229,7 +229,8 @@ def test_two_level_tables_equal_reference(name):
     assert not t16[9:].any()
     np.testing.assert_array_equal(port.inst_tri_blocks.numpy(), t16[:9])
     # from_numpy_scene carries the reference's compile across unchanged
-    conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree")
+    conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree",
+                            device="cpu")
     for f in TABLES + ["inst_f32", "inst_i32", "inst_tri_blocks"]:
         np.testing.assert_array_equal(_np(_get(conv, f)), _np(_get(port, f)), err_msg=f)
 
@@ -251,7 +252,7 @@ def test_inst_tris_pads_prototypes_to_whole_clusters():
 def test_flatten_route_equal_reference():
     """At or under FLATTEN_MAX_TRIS both packages flatten the instances to
     world space and compile flat (test_instancing.py:190)."""
-    port = port_nodes.compile_scene(pair_shapes(port_nodes))
+    port = port_nodes.compile_scene(pair_shapes(port_nodes), device="cpu")
     ref = ref_nodes.compile_scene(pair_shapes(ref_nodes), intersector="pallas")
     assert port.instances is None and ref.instances is None
     assert port.intersector == "dense"
@@ -263,7 +264,7 @@ def test_flatten_route_equal_reference():
 @pytest.mark.parametrize("intersector", ["dense", "brute"])
 def test_two_level_refuses_dense_and_brute(intersector):
     with two_level(), pytest.raises(ValueError, match="two-level"):
-        port_nodes.compile_scene(pair_shapes(port_nodes), intersector=intersector)
+        port_nodes.compile_scene(pair_shapes(port_nodes), intersector=intersector, device="cpu")
 
 
 def test_forest_scene_is_two_level_on_auto_at_full_size():
@@ -395,7 +396,8 @@ def test_plain_walk_hits_do_not_depend_on_leaf_span(leaf_span, monkeypatch):
     base, _ = compiled("forest8")
     monkeypatch.setattr(port_nodes, "pick_leaf_span", lambda k: leaf_span)
     with two_level():
-        port = port_nodes.compile_scene(forest_shapes(port_nodes, port_builtin.terrain_mesh))
+        port = port_nodes.compile_scene(forest_shapes(port_nodes, port_builtin.terrain_mesh),
+                                        device="cpu")
     assert port.tree_leaf_span == leaf_span
     o, d, t_max = _forest_rays(600, seed=11)
     rays = _pack(o, d, np.zeros(600, np.float32), t_max)
@@ -415,7 +417,8 @@ def test_ties_across_instances_go_to_the_lower_virtual_id():
                           indices=np.asarray([[0, 1, 2]]))
     m = np.asarray(port_xf.translate((0.0, 0.0, 1.0)), np.float32)
     with two_level():
-        scene = port_nodes.compile_scene([port_nodes.Instance(tri, m), port_nodes.Instance(tri, m)])
+        scene = port_nodes.compile_scene([port_nodes.Instance(tri, m), port_nodes.Instance(tri, m)],
+                                         device="cpu")
     r = np.random.default_rng(1)
     n = 200
     o = np.stack([r.uniform(-0.3, 0.3, n), r.uniform(-0.3, 0.3, n), np.full(n, 5.0)], 1)
@@ -498,7 +501,7 @@ def test_instanced_golden_64():
     (tools/make_torch_port_instanced_golden.py)."""
     with two_level():
         sc = port_builtin.instanced_forest_scene(64, 64, n_instances=8, n=16)
-        scene = sc.compile()
+        scene = sc.compile(device="cpu")
     assert scene.instances is not None and scene.intersector == "tree"
     img = port_path.render(scene, sc.camera, port_path.PathConfig(spp=4, max_depth=5),
                            seed=0).numpy()
@@ -581,7 +584,7 @@ def test_sdl_instance_node_equal_reference(tmp_path):
         assert isinstance(a, port_nodes.Instance)
         np.testing.assert_array_equal(a.transform, b.transform)
     with two_level():
-        port = ps.compile()
+        port = ps.compile(device="cpu")
         ref = rs.compile(intersector="pallas")
     assert port.instances.n_instances == 4 and port.tri_v0.shape[0] == 2
     for f in TABLES:

@@ -45,7 +45,7 @@ def scenes():
 
     ref_p = ref_cornell_box(16, 16).compile(intersector="pallas")
     ref_b = ref_cornell_box(16, 16).compile(intersector="brute")
-    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref_p))
+    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref_p), device="cpu")
     return ref_p, ref_b, port
 
 

@@ -43,7 +43,7 @@ def _rays(n, dev, seed=0):
 
 @pytest.mark.parametrize("n", [1, 31, 33, 255, 257, 513, 5000])
 def test_closest_and_any_hit_equal_plain(dev, n):
-    tris = cornell_box(8, 8).compile().to(dev).prim_table
+    tris = cornell_box(8, 8).compile(device=dev).prim_table
     rays = _rays(n, dev)
     before = dict(di.LAUNCHES)
     got = di.closest(rays, tris)
@@ -115,7 +115,7 @@ def test_dense_dead_rays_at_every_position(dev, pattern):
     rays[7] = torch.where(dead & (kind == 1), -1.0, rays[7])
     rays[7] = torch.where(dead & (kind == 2), float("nan"), rays[7])
     rays[6] = torch.where(dead & (kind == 3), float("nan"), rays[6])
-    tris = cornell_box(8, 8).compile().to(dev).prim_table
+    tris = cornell_box(8, 8).compile(device=dev).prim_table
     t, _, _, prim = _dense_equal_plain(rays.contiguous(), tris)
     assert bool((prim[dead] == -1).all()) and bool((t[dead] == di.T_MAX).all())
     assert int((prim[~dead] >= 0).sum()) > 0
@@ -140,7 +140,7 @@ def test_dense_triangle_counts(dev, n_tris):
 
 def test_trace_paths_launches_once_per_query(dev):
     sc = cornell_box(16, 16)
-    scene = sc.compile().to(dev)
+    scene = sc.compile(device=dev)
     cfg = PathConfig(spp=1, max_depth=3)
     n = 16 * 16
     px = torch.arange(n, device=dev)
@@ -152,7 +152,7 @@ def test_trace_paths_launches_once_per_query(dev):
 
 
 def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
-    tris = cornell_box(8, 8).compile().to(dev).prim_table
+    tris = cornell_box(8, 8).compile(device=dev).prim_table
     rays = _rays(64, dev)
     with pytest.raises(ValueError):
         di.closest(rays[:, ::2], tris)  # not contiguous
@@ -200,7 +200,7 @@ def test_tree_kernel_equals_plain_on_soup(dev, n):
 
 
 def test_tree_kernel_equals_plain_on_terrain(dev):
-    scene = terrain_scene(8, 8, n=128).compile().to(dev)
+    scene = terrain_scene(8, 8, n=128).compile(device=dev)
     assert scene.intersector == "tree"
     rays = _rays(30_000, dev, seed=9)
     args = (scene.tri_tree, scene.tri_blocks, scene.n_tris, scene.tree_leaf_span)
@@ -211,7 +211,7 @@ def test_tree_kernel_equals_plain_on_terrain(dev):
 
 def test_tree_trace_paths_launches_once_per_query(dev):
     sc = terrain_scene(16, 16, n=64)
-    scene = sc.compile().to(dev)
+    scene = sc.compile(device=dev)
     assert scene.intersector == "tree"
     cfg = PathConfig(spp=1, max_depth=3)
     px = torch.arange(16 * 16, device=dev)
@@ -259,7 +259,7 @@ def _forest(dev, n_instances=8, n=16, nulled=False, leaf_span=None):
         nodes.pick_leaf_span = lambda k: leaf_span
     try:
         sc = instanced_forest_scene(16, 16, n_instances=n_instances, n=n)
-        scene = sc.compile()
+        scene = sc.compile(device="cpu")
     finally:
         nodes.FLATTEN_MAX_TRIS, nodes.pick_leaf_span = old
     assert scene.instances is not None and scene.intersector == "tree"
@@ -535,7 +535,7 @@ def test_bench_step_gradient_kernel_route_equals_plain_route(dev):
     from akari_torch.parallel.render import loss_and_image
 
     sc = cornell_box(64, 64)
-    scene = sc.compile().to(dev)
+    scene = sc.compile(device=dev)
     cfg = PathConfig(spp=4, max_depth=5)
     target = torch.zeros((64, 64, 3), device=dev)
     p = scene_params(scene)
@@ -557,7 +557,7 @@ def _route_scenes(dev, which):
     """A 32x32 scene on the card and the kernel modules of its route: the
     Cornell box (dense) or the n=64 terrain (tree)."""
     sc = cornell_box(32, 32) if which == "cornell" else terrain_scene(32, 32, n=64)
-    scene = sc.compile().to(dev)
+    scene = sc.compile(device=dev)
     mods = (di,) if which == "cornell" else (ti,)
     return scene, sc.camera, mods
 

@@ -38,7 +38,7 @@ def terrain():
     route)."""
     ref = jax.tree_util.tree_map(
         np.asarray, ref_terrain_scene(8, 8, n=64).compile(intersector="pallas"))
-    port = terrain_scene(8, 8, n=64).compile()
+    port = terrain_scene(8, 8, n=64).compile(device="cpu")
     assert port.intersector == "tree" and port.n_tris == ref.n_tris == 7_957
     return port, ref
 
@@ -91,7 +91,8 @@ def test_flat_store_equals_reference_tri_blocks(terrain):
     blocks = np.asarray(ref.tri_blocks)
     assert blocks.shape == (16, 63 * 128) and not blocks[9:].any()  # 62 clusters + 21 tris
     np.testing.assert_array_equal(port.tri_blocks.numpy(), blocks[:9])
-    np.testing.assert_array_equal(from_numpy_scene(ref, intersector="tree").tri_blocks.numpy(),
+    np.testing.assert_array_equal(from_numpy_scene(ref, intersector="tree",
+                                                   device="cpu").tri_blocks.numpy(),
                                   blocks[:9])
     np.testing.assert_array_equal(
         port.tri_blocks.numpy(),
@@ -102,7 +103,8 @@ def test_instanced_store_equals_reference_inst_tris16():
     port, ref = compiled("forest8")
     t16 = np.asarray(ref.inst_tris16)
     np.testing.assert_array_equal(port.inst_tri_blocks.numpy(), t16[:9])
-    conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree")
+    conv = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="tree",
+                            device="cpu")
     np.testing.assert_array_equal(conv.inst_tri_blocks.numpy(), t16[:9])
 
 

@@ -184,7 +184,7 @@ def test_importer_round_trip(tmp_path):
     imgs = []
     for name in ("via_cache", "via_obj"):
         node = sdl.parse_file(str(tmp_path / f"{name}.akari")).exports["scene"]
-        scene = node.compile(intersector="dense")
+        scene = node.compile(intersector="dense", device="cpu")
         assert scene.textures.has_images and scene.materials.has_mix
         imgs.append(render(scene, node.camera, PathConfig(spp=2, max_depth=3)).numpy())
     assert imgs[0].mean() > 0.02

@@ -43,7 +43,7 @@ RES = 16
 def scenes():
     sc = ref_cornell_box(RES, RES)
     ref = sc.compile(intersector="brute")
-    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref))
+    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), device="cpu")
     return ref, port, sc.camera
 
 

@@ -38,7 +38,7 @@ META = {"w": 8, "h": 8, "spp": 4, "max_depth": 1}
 @pytest.fixture(scope="module")
 def box():
     sc = cornell_box(8, 8)
-    return sc.compile(intersector="dense"), sc.camera
+    return sc.compile(intersector="dense", device="cpu"), sc.camera
 
 
 def test_progressive_matches_full(box):

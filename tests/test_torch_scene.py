@@ -71,7 +71,7 @@ def cornell_pair():
     ref = jax.tree_util.tree_map(
         np.asarray, ref_builtin.cornell_box(16, 16).compile(intersector="pallas")
     )
-    return ref, cornell_box(16, 16).compile()
+    return ref, cornell_box(16, 16).compile(device="cpu")
 
 
 @pytest.mark.parametrize("field", FIELDS)
@@ -90,7 +90,7 @@ def test_cornell_compile_statics_equal(cornell_pair, field):
 
 def test_from_numpy_scene_carries_reference_state(cornell_pair):
     ref, port = cornell_pair
-    conv = from_numpy_scene(ref)
+    conv = from_numpy_scene(ref, device="cpu")
     for field in FIELDS:
         np.testing.assert_array_equal(_np(_get(conv, field)), _np(_get(port, field)))
     assert conv.intersector == port.intersector == "dense"
@@ -134,7 +134,7 @@ def test_material_zoo_compile_equal():
     ref = jax.tree_util.tree_map(
         np.asarray, _material_zoo(ref_nodes).compile(intersector="brute")
     )
-    port = _material_zoo(port_nodes).compile(intersector="brute")
+    port = _material_zoo(port_nodes).compile(intersector="brute", device="cpu")
     for field in FIELDS:
         np.testing.assert_array_equal(
             _np(_get(port, field)), np.asarray(_get(ref, field)).astype(_np(_get(port, field)).dtype),
@@ -158,7 +158,7 @@ def test_sdl_cornell_matches_reference():
     for name in ("spp", "max_depth", "ray_clamp", "mis", "rr_start"):
         assert getattr(ip, name) == getattr(ir, name), name
     assert sp.output == sr.output
-    port = sp.compile()
+    port = sp.compile(device="cpu")
     ref = jax.tree_util.tree_map(np.asarray, sr.compile(intersector="pallas"))
     for field in FIELDS:
         np.testing.assert_array_equal(
@@ -198,12 +198,12 @@ def test_unported_nodes_name_their_slice(src, slice_name, tmp_path):
 def test_unported_scene_state_is_refused():
     # instanced scenes compile since slice 3; other shapes are refused
     with pytest.raises(TypeError, match="Mesh or Instance"):
-        Scene(shapes=[object()]).compile()
+        Scene(shapes=[object()]).compile(device="cpu")
     stand_in = SimpleNamespace(instances=object())
     with pytest.raises(ValueError, match="two-level"):
-        from_numpy_scene(stand_in)
+        from_numpy_scene(stand_in, device="cpu")
     with pytest.raises(ValueError):
-        cornell_box(4, 4).compile(intersector="pallas")
+        cornell_box(4, 4).compile(intersector="pallas", device="cpu")
 
 
 def _needs_gxx():
@@ -223,7 +223,7 @@ def terrain_pair():
     ref = jax.tree_util.tree_map(
         np.asarray, ref_builtin.terrain_scene(8, 8, n=128).compile(intersector="pallas")
     )
-    port = terrain_scene(8, 8, n=128).compile()
+    port = terrain_scene(8, 8, n=128).compile(device="cpu")
     assert port.n_tris == ref.n_tris == 32_260 >= NATIVE_MIN_TRIS
     return ref, port
 

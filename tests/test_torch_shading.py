@@ -157,7 +157,7 @@ def test_material_walk_and_closures_match():
     import akari_torch.scene.nodes as port_nodes
 
     ref = jax.tree_util.tree_map(jnp.asarray, _zoo(ref_nodes).compile(intersector="brute"))
-    port = _zoo(port_nodes).compile(intersector="brute")
+    port = _zoo(port_nodes).compile(intersector="brute", device="cpu")
     r = np.random.default_rng(4)
     m = port.n_materials
     mat_id = r.integers(0, m, N).astype(np.int32)
@@ -186,7 +186,8 @@ def cornell():
     ref = jax.tree_util.tree_map(
         jnp.asarray, ref_cornell_box(16, 16).compile(intersector="brute")
     )
-    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="brute")
+    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector="brute",
+                            device="cpu")
     return ref, port
 
 

@@ -205,7 +205,7 @@ def test_dryrun_step_r2(tmp_path, golden):
     old = nodes.FLATTEN_MAX_TRIS
     nodes.FLATTEN_MAX_TRIS = 1
     try:
-        scene = sc.compile()
+        scene = sc.compile(device="cpu")
     finally:
         nodes.FLATTEN_MAX_TRIS = old
     assert scene.instances is not None and scene.env_image is not None

@@ -129,7 +129,7 @@ def _scene(name):
     if name not in _SCENES:
         if name == "pair":
             with two_level():
-                port = port_nodes.compile_scene(pair_shapes(port_nodes))
+                port = port_nodes.compile_scene(pair_shapes(port_nodes), device="cpu")
                 ref = ref_nodes.compile_scene(pair_shapes(ref_nodes), intersector="pallas")
             assert port.instances is not None and ref.instances is not None
         else:
@@ -137,7 +137,8 @@ def _scene(name):
                   else ref_builtin.terrain_scene(8, 8, n=48))
             ref = sc.compile(intersector="pallas")
             route = "dense" if name == "cornell" else "tree"
-            port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector=route)
+            port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), intersector=route,
+                                    device="cpu")
         _SCENES[name] = ref, port
     return _SCENES[name]
 
@@ -240,7 +241,7 @@ def test_aos_outputs_carry_no_gradient():
 def sample_scenes():
     sc = ref_builtin.cornell_box(16, 16)
     ref = sc.compile(intersector="brute")
-    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref))
+    port = from_numpy_scene(jax.tree_util.tree_map(np.asarray, ref), device="cpu")
     return ref, port, sc.camera, _port_camera(sc.camera)
 
 

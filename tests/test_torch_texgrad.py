@@ -66,7 +66,7 @@ def ref_textured(res, image):
 
 
 def test_textured_cornell_box_compiles_as_the_reference():
-    port = textured_cornell_box(8, 8).compile(intersector="dense")
+    port = textured_cornell_box(8, 8).compile(intersector="dense", device="cpu")
     ref = ref_textured(8, checker_texture(64, 0)).compile(intersector="brute")
     for f in ("kind", "value", "image_id", "images", "image_sizes"):
         np.testing.assert_array_equal(getattr(port.textures, f).numpy(),
@@ -159,7 +159,7 @@ def test_texgrad_golden_64():
     z = np.load(GOLDEN)
     w, h, spp, depth, seed, tex_res, tex_seed = (int(v) for v in z["config"])
     sc = textured_cornell_box(w, h, tex_res=tex_res, seed=tex_seed)
-    scene = sc.compile(intersector="dense")
+    scene = sc.compile(intersector="dense", device="cpu")
     cfg = port_path.PathConfig(spp=spp, max_depth=depth)
 
     def loss(p):
@@ -231,7 +231,7 @@ def test_scene_without_images_dispatches_the_parent_ops():
     for the render, 10,850 + 12,688 for the step), so the card's
     cornell-256 frame keeps its 9,274 launches."""
     sc = cornell_box(16, 16)
-    scene = sc.compile()
+    scene = sc.compile(device="cpu")
     cfg = port_path.PathConfig(spp=4, max_depth=5)
     with _CountOps() as c:
         port_path.render(scene, sc.camera, cfg, seed=0)

@@ -214,8 +214,9 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 
 def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: arithmetic-coded and 12-bit JPEG,
-    PNG headers outside the specification, and formats other than PNG,
-    JPEG, .hdr and .npy (read_image picks the decoder by signature)."""
+    PNG headers outside the specification, a BMP header PIL does not
+    read, and formats the port has no decoder for, TIFF and WebP
+    (read_image picks the decoder by signature)."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -231,8 +232,13 @@ def test_unsupported_images_name_their_format(tmp_path):
     with pytest.raises(ValueError, match="bit depth 16, colour type 3"):
         port_image.read_image(str(tmp_path / "p16.png"))
     (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(60))
-    with pytest.raises(ValueError, match="unsupported image format"):
+    with pytest.raises(ValueError, match="BMP header of 0 bytes"):
         port_image.read_image(str(tmp_path / "x.bmp"))
+    for name, data in (("x.tif", b"II*\x00" + bytes(60)), ("x.tiff", b"MM\x00*" + bytes(60)),
+                       ("x.webp", b"RIFF" + bytes(4) + b"WEBPVP8 " + bytes(40))):
+        (tmp_path / name).write_bytes(data)
+        with pytest.raises(ValueError, match="unsupported image format"):
+            port_image.read_image(str(tmp_path / name))
 
 
 # ------------------------------- _bilinear -------------------------------------
@@ -336,7 +342,8 @@ def _tables_equal(a, b):
 
 def test_texture_tables_compile_equal(textured):
     paths, ref_c, *_ = textured
-    port = port_nodes.compile_scene(textured_shapes(port_nodes, paths), intersector="dense")
+    port = port_nodes.compile_scene(textured_shapes(port_nodes, paths), intersector="dense",
+                                    device="cpu")
     assert port.textures.has_images and port.textures.images.shape[0] == 4
     _tables_equal(port, ref_c)
 
@@ -351,14 +358,14 @@ def test_obj_map_kd_and_sdl_image_textures_compile_equal(tmp_path):
         "usemtl lamp\nf 5 6 7\n")
     mp, mr = port_load_obj(str(tmp_path / "m.obj")), ref_load_obj(str(tmp_path / "m.obj"))
     np.testing.assert_array_equal(mp.materials[0].color.image, mr.materials[0].color.image)
-    _tables_equal(port_nodes.compile_scene([mp], intersector="dense"),
+    _tables_equal(port_nodes.compile_scene([mp], intersector="dense", device="cpu"),
                   ref_nodes.compile_scene([mr], intersector="brute"))
     src = ('export s = Scene { shapes: [ AkariMesh { path: "m.obj", materials: '
            '[ DiffuseMaterial { color: "wood.png" }, EmissiveMaterial { color: [4, 4, 4] } ] } ] }')
     (tmp_path / "s.akari").write_text(src)
     sp = port_sdl.parse_file(str(tmp_path / "s.akari")).exports["s"]
     sr = ref_sdl.parse_file(str(tmp_path / "s.akari")).exports["s"]
-    _tables_equal(sp.compile(intersector="dense"), sr.compile(intersector="brute"))
+    _tables_equal(sp.compile(intersector="dense", device="cpu"), sr.compile(intersector="brute"))
 
 
 def test_textured_render_matches_jax(textured):
@@ -415,7 +422,7 @@ def test_scene_without_images_skips_the_image_branch(monkeypatch):
     calls = []
     monkeypatch.setattr(port_texture, "_bilinear", lambda *a: calls.append(1))
     sc = cornell_box(8, 8)
-    scene = sc.compile()
+    scene = sc.compile(device="cpu")
     assert not scene.textures.has_images
     port_path.render(scene, sc.camera, port_path.PathConfig(spp=1, max_depth=3))
     assert calls == []
@@ -479,7 +486,7 @@ def test_jpeg_textured_obj_under_a_jpeg_envmap_matches_jax(tmp_path):
         'export s = Scene { environment: $env, shapes: [ AkariMesh { path: "m.obj" } ] }\n')
     sp = port_sdl.parse_file(str(tmp_path / "s.akari")).exports["s"]
     sr = ref_sdl.parse_file(str(tmp_path / "s.akari")).exports["s"]
-    port, ref_c = sp.compile(intersector="dense"), sr.compile(intersector="brute")
+    port, ref_c = sp.compile(intersector="dense", device="cpu"), sr.compile(intersector="brute")
     _tables_equal(port, ref_c)
     np.testing.assert_array_equal(port.env_image.numpy(), np.asarray(ref_c.env_image))
     ref, _ = both(ref_c)

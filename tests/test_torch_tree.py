@@ -63,7 +63,7 @@ def _soup_mesh(mod, n_tri=6000, seed=13, spread=4.0, size=0.15):
 @pytest.fixture(scope="module")
 def soup():
     """The 6,000-triangle soup compiled by the port (tree tables built)."""
-    scene = port_nodes.compile_scene([_soup_mesh(port_nodes)], intersector="auto")
+    scene = port_nodes.compile_scene([_soup_mesh(port_nodes)], intersector="auto", device="cpu")
     assert scene.intersector == "tree" and scene.tri_tree is not None
     return scene
 
@@ -395,7 +395,8 @@ def test_auto_routing_at_the_threshold(n_tri, route):
     import akari_tpu.scene.nodes as ref_nodes
 
     assert port_nodes.resolve_intersector("auto", n_tri) == route
-    port = port_nodes.compile_scene([_grid_mesh(port_nodes, n_tri)], intersector="auto")
+    port = port_nodes.compile_scene([_grid_mesh(port_nodes, n_tri)], intersector="auto",
+                                    device="cpu")
     ref = ref_nodes.compile_scene([_grid_mesh(ref_nodes, n_tri)], intersector="pallas")
     assert port.n_tris == ref.n_tris == n_tri
     assert port.intersector == route
@@ -413,8 +414,8 @@ def test_tree_tables_carried_from_the_reference():
     ref = jax.tree_util.tree_map(
         np.asarray, ref_terrain_scene(8, 8, n=64).compile(intersector="pallas")
     )
-    conv = from_numpy_scene(ref, intersector="tree")
-    port = terrain_scene(8, 8, n=64).compile()
+    conv = from_numpy_scene(ref, intersector="tree", device="cpu")
+    port = terrain_scene(8, 8, n=64).compile(device="cpu")
     assert port.intersector == "tree" and port.n_tris == ref.n_tris
     for f in ("tri_clusters", "tri_tree", "tri_blocks", "prim_table"):
         np.testing.assert_array_equal(getattr(conv, f).numpy(), getattr(port, f).numpy())
@@ -441,7 +442,7 @@ def test_tree_queries_per_trace(soup, monkeypatch):
         indices=np.asarray([[0, 2, 1], [0, 3, 2]]),
         materials=[port_nodes.EmissiveMaterial((5.0, 5.0, 5.0))],
     )
-    scene = port_nodes.compile_scene([_soup_mesh(port_nodes), light])
+    scene = port_nodes.compile_scene([_soup_mesh(port_nodes), light], device="cpu")
     assert scene.intersector == "tree" and scene.lights.n_lights == 2
     cam = make_camera(transform.look_at((0.0, 2.0, 9.0), (0.0, 0.0, 0.0)), 40.0, 8, 8)
     n = 64
@@ -466,7 +467,7 @@ def test_terrain_render_matches_jax_brute():
     cfg_r = ref_path.PathConfig(spp=1, max_depth=3)
     img_j = np.asarray(jax.jit(ref_path.render, static_argnums=(2, 3))(ref, sc.camera, cfg_r, 0))
     psc = terrain_scene(16, 16, n=64)
-    port = psc.compile(intersector="auto")
+    port = psc.compile(intersector="auto", device="cpu")
     assert port.intersector == "tree"
     img_p = port_path.render(port, psc.camera, port_path.PathConfig(spp=1, max_depth=3), seed=0)
     img_p = img_p.numpy()

@@ -47,7 +47,7 @@ def test_film_and_accumulate_samples_match_reference(kind):
     np.testing.assert_array_equal(back(w), w_r)
     assert back(w).dtype == np.float32
     xp = np if kind == "numpy" else torch
-    film = Film.zeros(4, 6, xp=xp).add(rad, w)
+    film = Film.zeros(4, 6, xp=xp, device="cpu").add(rad, w)
     film_r = ref_film.Film.zeros(4, 6).add(rad_r, w_r)
     film = film.add(conv(s[0]), conv(np.ones((4, 6), np.float32)))
     film_r = film_r.add(s[0], np.ones((4, 6), np.float32))

@@ -102,7 +102,7 @@ def _env_scene():
 
     c2w = ref_xf.translate((0.0, 2.0, 4.0)) @ ref_xf.rotate_x(np.radians(-30.0))
     ref_np = jax.tree_util.tree_map(np.asarray, ref)
-    return (jax.tree_util.tree_map(jnp.asarray, ref_np), from_numpy_scene(ref_np),
+    return (jax.tree_util.tree_map(jnp.asarray, ref_np), from_numpy_scene(ref_np, device="cpu"),
             ref_make_camera(c2w, 50.0, 16, 16), make_camera(np.asarray(c2w, np.float32),
                                                             50.0, 16, 16))
 
@@ -190,7 +190,8 @@ def test_bf16_render_16_matches_jax(name):
 
 def test_bf16_golden_64():
     sc = cornell_box(64, 64)
-    img = port_path.render(sc.compile(intersector="dense"), sc.camera, port_path.PathConfig(
+    img = port_path.render(sc.compile(intersector="dense",
+                                      device="cpu"), sc.camera, port_path.PathConfig(
         spp=4, max_depth=5, dtypes=config.RGB_BF16), seed=0).numpy()
     assert_images_match(img, np.load(GOLDEN))
 
@@ -246,6 +247,6 @@ def test_cli_spectrum_dtype(tmp_path, caplog):
     cam = dataclasses.replace(node.camera, width=12, height=12)
     cfg = dataclasses.replace(node.integrator, spp=1, max_depth=2, dtypes=config.RGB_BF16)
     want = tmp_path / "want.png"
-    write_png(str(want), port_path.render(node.compile(), cam, cfg).numpy())
+    write_png(str(want), port_path.render(node.compile(device="cpu"), cam, cfg).numpy())
     np.testing.assert_array_equal(read_image(str(out), to_linear=False),
                                   read_image(str(want), to_linear=False))

@@ -50,7 +50,7 @@ def render_means(mesh):
 
     out = []
     for sc, cfg in _frames():
-        scene = sc.compile(intersector="auto").to(mesh.device)
+        scene = sc.compile(intersector="auto", device=mesh.device)
         out.append(float(render_sharded(scene, sc.camera, cfg, mesh, seed=0).double().mean()))
     return out + [mesh.rank, mesh.size, str(mesh.device)]
 

@@ -43,7 +43,7 @@ def main(argv=None):
 
     dev = torch.device(args.device)
     sc = cornell_box(args.res, args.res)
-    scene = sc.compile().to(dev)
+    scene = sc.compile(device=dev)
     n = args.res * args.res
     lanes = {}    # the current trace's pixel and sample ids
     found, n_gathers = [], [0]

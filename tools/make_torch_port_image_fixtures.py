@@ -13,12 +13,20 @@ Writes into ``tests/data/torch_port_images/``:
 - PNGs: a palette PNG with tRNS and an LA PNG saved by PIL, and an
   Adam7-interlaced 4-bit palette PNG and a 16-bit RGBA PNG written here
   (Pillow writes neither; ``png_bytes``, which the decoder tests use too);
+- TGA, BMP, PNM, GIF and PSD files, a few KB each, in the forms of
+  ``akari_torch/core/image_formats.py``: Pillow writes some of them, and
+  the encoders below (``tga_bytes``, ``bmp_bytes``, ``pnm_bytes``,
+  ``gif_bytes``, ``psd_bytes``) write every form, those Pillow cannot
+  write included (colour-mapped and 16-bit TGA, BMP RLE and bitfields and
+  OS/2 headers, GIF frames off the screen origin, PSD);
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
-  (``Image.open(path).convert("RGB")``) and their shape.
+  (``Image.open(path).convert("RGB")``), their shape and the version of
+  PIL that decoded them.
 
 ``chip_smoke.py`` decodes every fixture with the port and checks the
-digests; ``tests/test_torch_image_decode.py`` holds ``digests.json`` to
-PIL's decode here, so it cannot go stale. Needs PIL.
+digests; ``tests/test_torch_image_decode.py`` and
+``tests/test_torch_image_formats.py`` hold ``digests.json`` to PIL's
+decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
 """
@@ -105,12 +113,412 @@ def png_bytes(px, depth, ctype, interlace=0, plte=None, trns=None, extra=(), see
             + _chunk(b"IEND", b""))
 
 
+# --------------------------------------------------------------------------
+# TGA
+
+
+def _rle_packets(px, row_len, lit_max, run_ok, r):
+    """[n, bpp] pixels in file order -> TGA RLE packets: a run packet for
+    2-128 equal pixels that stays inside its scanline (PIL refuses a run
+    across one), else a literal packet of a seeded length up to ``lit_max``
+    that may cross scanlines."""
+    out, i, n = [], 0, px.shape[0]
+    while i < n:
+        j = i
+        line_end = (i // row_len + 1) * row_len
+        while j + 1 < min(n, line_end, i + 128) and np.array_equal(px[j + 1], px[i]):
+            j += 1
+        if run_ok and j > i:
+            out.append(bytes([0x80 | (j - i)]) + px[i].tobytes())
+            i = j + 1
+            continue
+        k = min(n, i + int(r.integers(1, lit_max + 1)))
+        out.append(bytes([k - i - 1]) + px[i:k].tobytes())
+        i = k
+    return b"".join(out)
+
+
+def tga_bytes(stored, imtype, depth, cmap=b"", cm_start=0, cm_len=0, cm_depth=0, origin=0x00,
+              id_field=b"", lit_max=128, seed=0):
+    """[H, W, bpp] stored pixel bytes (BGR(A), little-endian 16-bit words or
+    grey / index bytes, in display order) -> a TGA file of image type
+    ``imtype`` (1/2/3, or 9/10/11 run-length encoded) and pixel ``depth``.
+    ``origin`` is the descriptor's bits 4-5: 0x00 bottom-left, 0x10
+    bottom-right, 0x20 top-left, 0x30 top-right. ``cmap`` holds ``cm_len``
+    colour-map entries of ``cm_depth`` bits for indices from ``cm_start``.
+    ``stored`` may be [H, row_bytes, 1] packed bits for depth 1."""
+    h, w = stored.shape[:2]
+    width = w * 8 // depth if depth == 1 else w
+    rows = stored if origin & 0x20 else stored[::-1]
+    if origin & 0x10 and depth != 1:
+        rows = rows[:, ::-1]
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), 1 if cmap else 0, imtype, cm_start,
+                       cm_len, cm_depth, 0, 0, width, h, depth, origin)
+    flat = np.ascontiguousarray(rows).reshape(h * w, -1)
+    if imtype & 8:
+        body = _rle_packets(flat, w, lit_max, True, np.random.default_rng(seed))
+    else:
+        body = flat.tobytes()
+    return head + id_field + cmap + body
+
+
+# --------------------------------------------------------------------------
+# BMP
+
+
+def bmp_rows(samples, bits, top_down=False):
+    """[H, W] indices or [H, W, k] stored bytes (display order) -> the
+    pixel array, bottom-up unless ``top_down``, each row padded to 4
+    bytes."""
+    h = samples.shape[0]
+    if bits < 8:
+        rows = _pack(samples.reshape(h, -1), bits)
+    else:
+        rows = np.ascontiguousarray(samples, np.uint8).reshape(h, -1)
+    stride = -(-rows.shape[1] // 4) * 4
+    pad = np.zeros((h, stride - rows.shape[1]), np.uint8)
+    rows = np.concatenate([rows, pad], axis=1)
+    return (rows if top_down else rows[::-1]).tobytes()
+
+
+def bmp_rle(idx, rle4, r):
+    """[H, W] palette indices -> BI_RLE8 / BI_RLE4 data, bottom row first:
+    runs (two alternating indices under RLE4), absolute packets of 3 or
+    more pixels padded to a 16-bit boundary, an end-of-line escape after
+    each row and an end-of-bitmap escape."""
+    out = bytearray()
+    h, w = idx.shape
+    for row in idx[::-1]:
+        x = 0
+        while x < w:
+            n = min(w - x, int(r.integers(1, 12)))
+            seg = row[x:x + n]
+            if n >= 3 and r.random() < 0.5:  # absolute
+                out += bytes([0, n])
+                data = (bytes((seg[0::2] << 4) | np.append(seg[1::2], 0)[:len(seg[0::2])])
+                        if rle4 else seg.astype(np.uint8).tobytes())
+                out += data + bytes(len(data) & 1)
+            elif rle4:
+                pair = seg[:2] if n > 1 else np.append(seg, 0)
+                rep = np.resize(pair, n)
+                if not np.array_equal(rep, seg):  # keep the run honest: 1-2 pixels
+                    n, rep = min(n, 2), seg[:min(n, 2)]
+                    pair = rep if len(rep) == 2 else np.append(rep, 0)
+                out += bytes([n, (int(pair[0]) << 4) | int(pair[1])])
+            else:
+                n = 1 + int(np.argmax(np.append(seg[1:] != seg[0], True)))
+                out += bytes([n, int(seg[0])])
+            x += n
+        out += b"\x00\x00"
+    return bytes(out[:-2]) + b"\x00\x01"
+
+
+def bmp_bytes(width, height, bits, pixels, header=40, compression=0, palette=b"",
+              colors=0, masks=None, masks_in_header=True):
+    """A BMP file: the 14-byte file header, a BITMAPCOREHEADER (``header``
+    12, OS/2) or a BITMAPINFOHEADER of size 40/52/56/108/124 (negative
+    ``height`` for top-down rows), the bitfield ``masks`` (in the header
+    from 52 bytes on, else after it when ``masks_in_header`` is False),
+    the ``palette`` bytes and the pixel data."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, width, height, 1, bits, compression,
+                           len(pixels), 2835, 2835, colors, 0)
+        if masks is not None and masks_in_header and header >= 52:
+            fit = masks[:3] if header == 52 else masks  # the alpha mask from 56 bytes on
+            info += struct.pack("<" + "I" * len(fit), *fit)
+        info += bytes(header - len(info))
+    tail = b""
+    if masks is not None and not (masks_in_header and header >= 52):
+        tail = struct.pack("<III", *masks[:3])
+    offset = 14 + len(info) + len(tail) + len(palette)
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info + tail
+            + palette + pixels)
+
+
+# --------------------------------------------------------------------------
+# PNM
+
+
+def pnm_bytes(kind, samples, maxval=255, comments=False, seed=0):
+    """[H, W] or [H, W, 3] samples -> a P1-P6 file; ASCII forms take seeded
+    whitespace (and ``comments``), raw P5/P6 above 255 take big-endian
+    16-bit samples. P1/P4 samples are bits, 1 = black."""
+    r = np.random.default_rng(seed)
+    h, w = samples.shape[:2]
+
+    def sep():
+        return b"".join(b" \t\n\r\x0b\x0c"[i:i + 1]
+                        for i in r.integers(0, 6, int(r.integers(1, 3)))) if seed else b" "
+
+    head = [f"P{kind}".encode(), str(w).encode(), str(h).encode()]
+    if kind not in (1, 4):
+        head.append(str(maxval).encode())
+    out = b""
+    for tok in head:
+        out += tok + (b"\n# a comment\n" if comments else sep())
+    flat = np.asarray(samples).reshape(-1)
+    if kind == 4:
+        return out + _pack(np.asarray(samples).reshape(h, w), 1).tobytes()
+    if kind in (5, 6):
+        dt = ">u2" if maxval > 255 else np.uint8
+        return out + flat.astype(dt).tobytes()
+    vals = [str(int(v)).encode() for v in flat]
+    if kind == 1 and r.random() < 0.5:  # plain PBM needs no separators
+        return out + b"".join(vals)
+    body = b""
+    for i, v in enumerate(vals):
+        body += v + (b"\n# c\n" if comments and i % 7 == 3 else sep())
+    return out + body
+
+
+# --------------------------------------------------------------------------
+# GIF
+
+
+def lzw_codes(idx, min_code, clear_every=None):
+    """Palette indices -> GIF LZW codes (a clear code first, the end code
+    last); the table stops growing at 4,096 codes, and ``clear_every``
+    codes a clear code restarts it."""
+    clear, end = 1 << min_code, (1 << min_code) + 1
+    codes, sizes = [clear], [min_code + 1]
+    table, nxt, size = {}, end + 1, min_code + 1
+    since = 0
+    prefix = None
+    for v in np.asarray(idx, np.int64).reshape(-1).tolist():
+        if prefix is None:
+            prefix = v
+            continue
+        key = (prefix, v)
+        if key in table:
+            prefix = table[key]
+            continue
+        codes.append(prefix)
+        sizes.append(size)
+        since += 1
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        prefix = v
+        if clear_every and since >= clear_every:
+            codes.append(prefix)
+            sizes.append(size)
+            codes.append(clear)
+            sizes.append(size)
+            table, nxt, size, since, prefix = {}, end + 1, min_code + 1, 0, None
+    if prefix is not None:
+        codes.append(prefix)
+        sizes.append(size)
+    codes.append(end)
+    sizes.append(size)
+    return codes, sizes
+
+
+def pack_codes(codes, sizes):
+    """Codes of the given bit sizes -> bytes, least significant bit first."""
+    acc = nbits = 0
+    out = bytearray()
+    for c, s in zip(codes, sizes):
+        acc |= c << nbits
+        nbits += s
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc)
+    return bytes(out)
+
+
+def sub_blocks(data, block=255):
+    """Bytes -> GIF data sub-blocks and the block terminator."""
+    return b"".join(bytes([len(data[i:i + block])]) + data[i:i + block]
+                    for i in range(0, len(data), block)) + b"\x00"
+
+
+def gif_bytes(idx, palette, screen=None, offset=(0, 0), local=False, interlace=False,
+              min_code=8, transparency=None, background=0, clear_every=None, block=255,
+              extensions=b"", version=b"GIF89a"):
+    """[h, w] palette indices -> a one-frame GIF: ``palette`` ([n, 3], n a
+    power of two) global or ``local``, the frame at ``offset`` on a logical
+    screen of ``screen`` (w, h), optionally interlaced, a graphic control
+    extension when ``transparency`` is set, LZW of ``min_code`` bits."""
+    h, w = idx.shape
+    sw, sh = screen or (w + offset[0], h + offset[1])
+    bits = max(1, int(np.log2(len(palette)))) - 1
+    pal = np.asarray(palette, np.uint8).tobytes()
+    flags = 0 if local else 0x80 | 0x70 | bits
+    out = version + struct.pack("<HHBBB", sw, sh, flags, background, 0)
+    if not local:
+        out += pal
+    out += extensions
+    if transparency is not None:
+        out += b"!\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) + b"\x00"
+    rows = np.arange(h)
+    if interlace:
+        rows = np.concatenate([rows[0::8], rows[4::8], rows[2::4], rows[1::2]])
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h,
+                              (0x80 | bits if local else 0) | (0x40 if interlace else 0))
+    if local:
+        out += pal
+    data = pack_codes(*lzw_codes(idx[rows], min_code, clear_every))
+    return out + bytes([min_code]) + sub_blocks(data, block) + b";"
+
+
+# --------------------------------------------------------------------------
+# PSD
+
+
+def packbits_row(row, r):
+    """One row of bytes -> PackBits: runs of 3+ equal bytes as run packets,
+    the rest as literal packets of seeded lengths, with no-op bytes (128)."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and j - i < 127 and row[j + 1] == row[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i + 1), row[i]])
+            i = j + 1
+        else:
+            k = min(n, i + int(r.integers(1, 129)))
+            out += bytes([k - i - 1]) + bytes(row[i:k])
+            i = k
+        if r.random() < 0.05:
+            out.append(128)
+    return bytes(out)
+
+
+def psd_bytes(planes, mode, bits=8, compression=1, color_data=b"", n_channels=None, seed=0):
+    """[C, H, W] channel planes (packed rows for 1-bit) -> a PSD file of
+    colour ``mode`` (0 bitmap, 1 grey, 2 indexed, 3 RGB, 4 CMYK, 7
+    multichannel, 8 duotone, 9 Lab): the colour-mode data (an indexed
+    image's 768-byte planar palette), an image resource, an empty layer
+    section and the composite image, raw or PackBits by channel and row."""
+    c, h = planes.shape[:2]
+    width = planes.shape[2] * 8 if bits == 1 else planes.shape[2]
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, n_channels or c, h, width, bits, mode)
+    res = b"8BIM" + struct.pack(">HBx", 1000, 0) + struct.pack(">I", 2) + b"\x00\x01"
+    out = head + struct.pack(">I", len(color_data)) + color_data
+    out += struct.pack(">I", len(res)) + res + struct.pack(">I", 0)
+    if compression == 0:
+        return out + b"\x00\x00" + planes.astype(np.uint8).tobytes()
+    r = np.random.default_rng(seed)
+    rows = [packbits_row(bytes(row), r) for plane in planes for row in plane]
+    counts = struct.pack(">" + "H" * len(rows), *[len(x) for x in rows])
+    return out + b"\x00\x01" + counts + b"".join(rows)
+
+
+# --------------------------------------------------------------------------
+# the fixtures
+
+
+def _bgr_palette(r, n, pad):
+    pal = r.integers(0, 256, (n, 3)).astype(np.uint8)
+    if pad:
+        pal = np.concatenate([pal, np.zeros((n, 1), np.uint8)], axis=1)
+    return pal.tobytes()
+
+
+def format_fixtures(r):
+    """name -> file bytes of the TGA, BMP, PNM, GIF and PSD fixtures."""
+    out = {}
+    px = pattern(13, 17, 20)
+    bgr = px[..., ::-1]
+    idx = r.integers(0, 16, (11, 9))
+    # TGA: true colour, grey, colour-mapped (map at an offset), 16-bit,
+    # run-length encoded with packets across scanlines, each origin, an ID
+    out["tga_bgr24_rle_bottom_left.tga"] = tga_bytes(np.repeat(bgr, 2, axis=1), 10, 24, seed=1)
+    out["tga_bgra32_top_right_id.tga"] = tga_bytes(
+        np.concatenate([bgr, r.integers(0, 256, (13, 17, 1)).astype(np.uint8)], axis=2),
+        2, 32, origin=0x30, id_field=b"fixture")
+    words = r.integers(0, 1 << 16, (9, 14)).astype("<u2")
+    out["tga_16bit_bottom_right.tga"] = tga_bytes(words.view(np.uint8).reshape(9, 14, 2), 2, 16,
+                                                  origin=0x10)
+    out["tga_grey8_rle_top_left.tga"] = tga_bytes(
+        np.repeat(px[..., :1], 3, axis=1), 11, 8, origin=0x20, seed=2)
+    out["tga_cmap24_start5.tga"] = tga_bytes(
+        (idx + 3)[..., None].astype(np.uint8), 1, 8, cmap=_bgr_palette(r, 16, False),
+        cm_start=5, cm_len=16, cm_depth=24)
+    out["tga_cmap16_rle.tga"] = tga_bytes(
+        np.repeat(idx, 3, axis=1)[..., None].astype(np.uint8), 9, 8,
+        cmap=r.integers(0, 1 << 16, 16).astype("<u2").tobytes(), cm_len=16, cm_depth=16, seed=3)
+    out["tga_cmap24_rle_top_left.tga"] = tga_bytes(
+        np.repeat(idx, 2, axis=0)[..., None].astype(np.uint8), 9, 8,
+        cmap=r.integers(0, 256, 48).astype(np.uint8).tobytes(), cm_len=16, cm_depth=24,
+        origin=0x20, seed=4)
+    # BMP: every header, palette depth, RLE, bitfields, 16/24/32-bit, top-down
+    pal16 = _bgr_palette(r, 16, True)
+    out["bmp_rgb24_19x7.bmp"] = bmp_bytes(19, 7, 24, bmp_rows(pattern(7, 19, 21)[..., ::-1], 24))
+    out["bmp_rgb24_topdown.bmp"] = bmp_bytes(
+        5, -6, 24, bmp_rows(pattern(6, 5, 22)[..., ::-1], 24, top_down=True))
+    out["bmp_pal8_clrused.bmp"] = bmp_bytes(10, 6, 8, bmp_rows(r.integers(0, 20, (6, 10)), 8),
+                                            palette=_bgr_palette(r, 12, True), colors=12)
+    out["bmp_pal4_v5.bmp"] = bmp_bytes(9, 5, 4, bmp_rows(idx[:5], 4), header=124,
+                                       palette=pal16)
+    out["bmp_pal1_os2.bmp"] = bmp_bytes(21, 4, 1, bmp_rows(r.integers(0, 2, (4, 21)), 1),
+                                        header=12, palette=_bgr_palette(r, 2, False))
+    out["bmp_rle8.bmp"] = bmp_bytes(13, 6, 8, bmp_rle(r.integers(0, 4, (6, 13)), False, r),
+                                    compression=1, palette=pal16, colors=16)
+    out["bmp_rle4.bmp"] = bmp_bytes(13, 6, 4, bmp_rle(r.integers(0, 3, (6, 13)), True, r),
+                                    compression=2, palette=pal16, colors=16)
+    w16 = r.integers(0, 1 << 16, (5, 6)).astype("<u2")
+    out["bmp_16bit_555.bmp"] = bmp_bytes(6, 5, 16, bmp_rows(w16.view(np.uint8).reshape(5, 12), 16))
+    out["bmp_bitfields565_v3.bmp"] = bmp_bytes(
+        6, 5, 16, bmp_rows(w16.view(np.uint8).reshape(5, 12), 16), compression=3,
+        masks=(0xF800, 0x07E0, 0x001F), masks_in_header=False)
+    out["bmp_bitfields32_rgba_v4.bmp"] = bmp_bytes(
+        4, 3, 32, bmp_rows(r.integers(0, 256, (3, 4, 4)).astype(np.uint8), 32), header=108,
+        compression=3, masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
+    out["bmp_bgrx32.bmp"] = bmp_bytes(4, 3, 32,
+                                      bmp_rows(r.integers(0, 256, (3, 4, 4)).astype(np.uint8), 32))
+    # PNM: P1-P6, ASCII with comments, maxval below and above 255
+    out["pbm_p1_plain.pbm"] = pnm_bytes(1, r.integers(0, 2, (5, 11)), comments=True, seed=4)
+    out["pbm_p4_raw.pbm"] = pnm_bytes(4, r.integers(0, 2, (6, 13)))
+    out["pgm_p2_maxval100.pgm"] = pnm_bytes(2, r.integers(0, 101, (4, 7)), 100, True, seed=5)
+    out["pgm_p5_maxval1000.pgm"] = pnm_bytes(5, r.integers(0, 1001, (4, 7)), 1000)
+    out["ppm_p3_plain.ppm"] = pnm_bytes(3, r.integers(0, 256, (3, 5, 3)), 255, seed=6)
+    out["ppm_p6_maxval1000.ppm"] = pnm_bytes(6, r.integers(0, 1001, (4, 5, 3)), 1000)
+    out["ppm_p6_maxval31.ppm"] = pnm_bytes(6, r.integers(0, 32, (4, 5, 3)), 31, seed=7)
+    # GIF: global and local palettes, interlaced, transparency, a frame off
+    # the screen origin, small code sizes, clear codes, a full code table
+    pal256 = r.integers(0, 256, (256, 3))
+    out["gif_global_interlaced.gif"] = gif_bytes(r.integers(0, 256, (21, 10)), pal256,
+                                                 interlace=True, clear_every=40)
+    out["gif_local_4colour.gif"] = gif_bytes(r.integers(0, 4, (7, 9)), r.integers(0, 256, (4, 3)),
+                                             local=True, min_code=2)
+    out["gif_offset_transparent.gif"] = gif_bytes(
+        r.integers(0, 8, (3, 4)), r.integers(0, 256, (8, 3)), screen=(7, 6), offset=(2, 1),
+        transparency=5, background=3, min_code=3, extensions=b"!\xfe\x05hello\x00")
+    out["gif_offset_background.gif"] = gif_bytes(
+        r.integers(0, 8, (2, 3)), r.integers(0, 256, (8, 3)), screen=(5, 4), offset=(1, 1),
+        background=6, min_code=3, version=b"GIF87a")
+    out["gif_full_table.gif"] = gif_bytes(r.integers(0, 3, (64, 80)), pal256[:4], min_code=2)
+    # PSD: each colour mode, raw and PackBits
+    grey = pattern(6, 9, 23)[..., 0]
+    out["psd_rgb_packbits.psd"] = psd_bytes(np.moveaxis(pattern(7, 10, 24), 2, 0), 3, seed=8)
+    out["psd_rgba_raw.psd"] = psd_bytes(r.integers(0, 256, (4, 5, 6)), 3, compression=0)
+    out["psd_cmyk_packbits.psd"] = psd_bytes(r.integers(0, 256, (4, 5, 7)), 4, seed=9)
+    out["psd_grey_raw.psd"] = psd_bytes(grey[None], 1, compression=0)
+    out["psd_indexed_packbits.psd"] = psd_bytes(
+        r.integers(0, 256, (1, 6, 8)), 2, color_data=r.integers(0, 256, 768).astype(
+            np.uint8).tobytes(), seed=10)
+    out["psd_bitmap.psd"] = psd_bytes(r.integers(0, 256, (1, 5, 2)), 0, bits=1, seed=11)
+    out["psd_duotone.psd"] = psd_bytes(grey[None], 8, color_data=bytes(20), seed=12)
+    out["psd_multichannel.psd"] = psd_bytes(r.integers(0, 256, (2, 4, 5)), 7, compression=0)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
 
+    import PIL
     from PIL import Image
 
     from akari_torch.scene.builtin import envtex_texture
@@ -143,12 +551,21 @@ def main(argv=None):
                      plte=r.integers(0, 256, (16, 3)).astype(np.uint8).tobytes()))
     with open(os.path.join(args.output, "rgba16_19x23.png"), "wb") as f:
         f.write(png_bytes(r.integers(0, 65536, (19, 23, 4)), 16, 6, 0))
+    # Pillow's own writers: RLE TGA, 8-bit palette BMP, P6, GIF
+    Image.fromarray(pattern(15, 12, 25)).save(os.path.join(args.output, "pil_rle.tga"),
+                                               compression="tga_rle")
+    Image.fromarray(pattern(9, 14, 26)).convert("P").save(os.path.join(args.output, "pil_p8.bmp"))
+    Image.fromarray(pattern(8, 6, 27)).save(os.path.join(args.output, "pil_p6.ppm"))
+    Image.fromarray(pattern(16, 20, 28)).save(os.path.join(args.output, "pil.gif"))
+    for name, data in format_fixtures(np.random.default_rng(11)).items():
+        with open(os.path.join(args.output, name), "wb") as f:
+            f.write(data)
 
     digests = {}
     for name in sorted(os.listdir(args.output)):
         px = np.asarray(Image.open(os.path.join(args.output, name)).convert("RGB"))
         digests[name] = {"sha256": hashlib.sha256(px.tobytes()).hexdigest(),
-                         "shape": list(px.shape)}
+                         "shape": list(px.shape), "pil": PIL.__version__}
     with open(os.path.join(args.output, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")

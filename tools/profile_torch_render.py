@@ -157,11 +157,11 @@ def main(argv=None):
             sc = sdl.parse_file(write_envtex_terrain(
                 tmp, n=args.terrain_n, res=args.res, spp=args.spp, depth=args.max_depth,
             )).exports["scene"]
-            scene = sc.compile().to(dev)
+            scene = sc.compile(device=dev)
     else:
         sc = cornell_box(args.res, args.res)
     if args.scene != "envtex":
-        scene = sc.compile().to(dev)
+        scene = sc.compile(device=dev)
     if args.backward and args.integrator != "path":
         ap.error("--backward profiles the path tracer's bench step")
     cfg = {"path": PathConfig(spp=args.spp, max_depth=args.max_depth),

@@ -89,7 +89,7 @@ def main(argv=None):
 
     res, iters = args.res, args.iterations
     sc = (textured_cornell_box if args.textures else cornell_box)(res, res)
-    scene = sc.compile(intersector="auto").to(device)
+    scene = sc.compile(intersector="auto", device=device)
     cam = sc.camera
     cfg = PathConfig(spp=4, max_depth=3, mis=True)
     with torch.no_grad():

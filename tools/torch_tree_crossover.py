@@ -64,7 +64,7 @@ def main(argv=None):
 
     for n in args.sizes:
         sc = terrain_scene(256, 256, n=n)
-        scene = sc.compile(intersector="tree").to(dev)
+        scene = sc.compile(intersector="tree", device=dev)
         n_cam = 256 * 256 * 4
         pix = torch.arange(n_cam, device=dev) % (256 * 256)
         smp = torch.div(torch.arange(n_cam, device=dev), 256 * 256, rounding_mode="floor")
