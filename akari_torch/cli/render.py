@@ -18,7 +18,12 @@ an error.
 (``parallel/render.py``): under ``python -m torch.distributed.run
 --nproc-per-node=N``, one rank a process over NCCL on ``cuda`` (a card a
 rank, ``cuda:{LOCAL_RANK}``) or gloo on ``cpu``, and rank 0 writes the
-image; run directly, on a 1-rank mesh.
+image; run directly, on a 1-rank mesh. With ``--ao`` or an AO or BDPT
+scene, ``--sharded`` is ignored as the reference ignores it: no ray mesh
+is made and the frame renders unsharded on ``--device``; under
+``torch.distributed.run`` rank 0 alone renders and writes it (the
+counterpart of the reference's single process) and the other ranks
+return 0.
 """
 
 from __future__ import annotations
@@ -93,12 +98,19 @@ def main(argv=None):
         log.error("no exported 'scene' found")
         return 1
     log.info(f"parsed in {time.perf_counter() - t0:.3f}s")
-    if args.sharded and (args.ao or isinstance(scene_node.integrator, (AOConfig, BDPTConfig))):
-        log.error("--sharded renders the path integrator only")
-        return 1
+    sharded = args.sharded
+    if sharded and (args.ao or isinstance(scene_node.integrator, (AOConfig, BDPTConfig))):
+        # the reference takes the AO / BDPT branch before it reads --sharded
+        # and renders unsharded; under torch.distributed.run, rank 0 alone
+        # renders and writes the image, as the reference's one process does
+        sharded = False
+        if int(os.environ.get("RANK", "0")) != 0:
+            log.info("--sharded ignored for AO / BDPT: rank 0 renders")
+            return 0
+        log.info("--sharded ignored for AO / BDPT: rendering unsharded")
 
     mesh = None
-    if args.sharded:
+    if sharded:
         from ..parallel.mesh import initialize_distributed, make_ray_mesh
 
         # torch.distributed.run sets WORLD_SIZE; run directly, one rank

@@ -10,10 +10,12 @@ or new-RLE scanlines, the reference's codec) by extension; any other file
 by its signature, as PIL chooses (``decode_image``): PNG through the
 decoder below (every colour type and bit depth, interlaced or not), JPEG
 through ``core/jpeg.py`` (baseline, extended sequential and progressive
-Huffman), and BMP, GIF, PNM, PSD and TGA through ``core/image_formats.py``.
-The reference reads them with PIL, which the card's machine does not
-have; the pixels equal PIL's ``convert("RGB")``. Other formats PIL reads
-(TIFF, WebP, ICO, PCX, ...) raise an error naming the formats read here.
+Huffman; grey, three and four components), BMP, GIF, PNM, PSD and TGA
+through ``core/image_formats.py``, and TIFF (PIL's six header prefixes)
+through ``core/tiff.py``. The reference reads them with PIL, which the
+card's machine does not have; the pixels equal PIL's ``convert("RGB")``.
+Other formats PIL reads (WebP, ICO, PCX, ...) raise an error naming the
+formats read here.
 """
 
 from __future__ import annotations
@@ -304,6 +306,7 @@ def image_format(data):
     """The format PIL would open ``data`` as, by signature (TGA, which has
     none, by the sanity of its header, last), or None."""
     from .image_formats import tga_header
+    from .tiff import PREFIXES as TIFF_PREFIXES
 
     if data[:8] == PNG_SIGNATURE:
         return "PNG"
@@ -317,7 +320,7 @@ def image_format(data):
         return "PNM"
     if data[:4] == b"8BPS":
         return "PSD"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
+    if data[:4] in TIFF_PREFIXES:
         return "TIFF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
@@ -328,8 +331,8 @@ def image_format(data):
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
-    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD and TGA, told apart
-    as PIL tells them (``image_format``). Other formats, and forms a
+    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA and TIFF, told
+    apart as PIL tells them (``image_format``). Other formats, and forms a
     decoder refuses, raise ``ValueError`` naming them."""
     fmt = image_format(data)
     if fmt == "PNG":
@@ -342,9 +345,14 @@ def decode_image(data, what="image"):
         from . import image_formats
 
         return getattr(image_formats, f"decode_{fmt.lower()}")(data, what)
+    if fmt == "TIFF":
+        from .tiff import decode_tiff
+
+        return decode_tiff(data, what)
     named = f" ({fmt})" if fmt else ""
     raise ValueError(f"{what}: unsupported image format{named} (the port reads PNG, JPEG, "
-                     "BMP, GIF, PNM, PSD, TGA, .hdr and .npy)")
+                     "BMP, GIF, PNM, PSD, TGA, TIFF, .hdr and .npy; not WebP, ICO, PCX, SGI, "
+                     "DDS, QOI or the other formats PIL opens)")
 
 
 def read_image(path, to_linear=True):

@@ -1,5 +1,5 @@
 """JPEG decoding without PIL: baseline, extended sequential (8-bit) and
-progressive Huffman JPEGs, grey or three-component.
+progressive Huffman JPEGs of one, three or four components.
 
 The JAX package reads JPEG with PIL, which decodes through libjpeg-turbo
 with its default settings: the accurate integer IDCT, fancy upsampling,
@@ -19,9 +19,14 @@ decodes to the same 8-bit pixels:
   conversion (``_ycc_to_rgb``, as ``jdcolor.c``): integer numpy passes
   over all blocks or pixels at once.
 
+Four-component images are CMYK or YCCK (by the Adobe marker, as libjpeg
+decides), read as PIL reads them (inverted Adobe CMYK). ``jpeg_tables`` and
+``decode_components`` serve the JPEG-compressed TIFF strips of
+``core/tiff.py``: abbreviated streams after a tables-only stream, and the
+colour space libtiff sets.
+
 Refused with a ``ValueError`` naming the form: lossless, hierarchical and
-arithmetic-coded JPEGs, precisions other than 8 bits, 4-component (CMYK /
-YCCK) and 2-component images, a progressive file whose scans leave some
+arithmetic-coded JPEGs, precisions other than 8 bits, 2-component images, a progressive file whose scans leave some
 of the first AC coefficients unrefined (libjpeg would smooth its blocks),
 a file that ends before its EOI marker, a Huffman table that is not a
 prefix code or holds the all-ones code (PIL refuses these too), and
@@ -120,11 +125,12 @@ def _frame(code, body, what):
     h, w, nc = int.from_bytes(body[1:3], "big"), int.from_bytes(body[3:5], "big"), body[5]
     if precision != 8:
         raise ValueError(f"{what}: {precision}-bit JPEG is not supported (8-bit precision only)")
-    if nc == 4:
-        raise ValueError(f"{what}: 4-component (CMYK / YCCK) JPEG is not supported")
-    if nc not in (1, 3):
-        raise ValueError(f"{what}: {nc}-component JPEG is not supported (grey or 3 components)")
-    if h == 0 or w == 0 or len(body) < 6 + 3 * nc:
+    if nc not in (1, 3, 4):
+        raise ValueError(f"{what}: {nc}-component JPEG is not supported (grey, 3 or 4 "
+                         "components)")
+    if len(body) != 6 + 3 * nc:  # libjpeg: bogus marker length
+        raise ValueError(f"{what}: bad JPEG frame header length")
+    if h == 0 or w == 0:
         raise ValueError(f"{what}: JPEG of size {w}x{h} (DNL heights are not supported)")
     comps = []
     for i in range(nc):
@@ -139,7 +145,10 @@ def _frame(code, body, what):
 
 
 def _colour_space(comps, jfif, adobe_transform):
-    """libjpeg's choice for three components: YCbCr or RGB."""
+    """libjpeg's choice (``default_decompress_parms``): YCbCr or RGB for
+    three components, CMYK or YCCK for four."""
+    if len(comps) == 4:  # an Adobe transform other than 0 reads as YCCK
+        return "CMYK" if adobe_transform is None or adobe_transform == 0 else "YCCK"
     if jfif:
         return "YCbCr"
     if adobe_transform is not None:
@@ -163,7 +172,63 @@ def _smoothing_wanted(coef_bits, comps, latched):
 
 def decode_jpeg(data, what="JPEG"):
     """JPEG file bytes -> [H, W, 3] uint8 RGB (grey replicated), the pixels
-    of PIL's ``Image.open(...).convert("RGB")``."""
+    of PIL's ``Image.open(...).convert("RGB")``. Four components are CMYK
+    (or YCCK, converted to CMYK as libjpeg's ``ycck_cmyk_convert``), which
+    PIL reads as inverted Adobe CMYK (raw mode ``CMYK;I``) and converts
+    with its cmyk2rgb."""
+    from .image_formats import _cmyk_to_rgb
+
+    comps, space, _ = decode_components(data, what)
+    if space == "grey":
+        return np.repeat(comps[0][..., None], 3, axis=-1)
+    if space == "RGB":
+        return np.stack(comps, axis=-1).astype(np.uint8)
+    if space == "YCbCr":
+        return _ycc_to_rgb(*comps)
+    cmyk = np.stack(comps, axis=-1) if space == "CMYK" else _ycck_to_cmyk(*comps)
+    return _cmyk_to_rgb(255 - cmyk)
+
+
+def jpeg_tables(data, what="JPEG"):
+    """An abbreviated tables-only stream (SOI, DQT / DHT / DRI, EOI: a TIFF's
+    ``JPEGTables`` tag) -> (quantisation tables, Huffman tables, restart
+    interval), which ``decode_components`` starts from."""
+    data = bytes(data)
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{what}: JPEG tables without an SOI marker")
+    pos, qt, huff, restart = 2, {}, {}, 0
+    while True:
+        code, pos = _next_marker(data, pos, what)
+        if code == 0xD9:
+            return qt, huff, restart
+        if pos + 2 > len(data):
+            raise ValueError(f"{what}: JPEG tables are truncated")
+        length = int.from_bytes(data[pos:pos + 2], "big")
+        if length < 2 or pos + length > len(data):
+            raise ValueError(f"{what}: JPEG tables are truncated")
+        body = data[pos + 2:pos + length]
+        if code == 0xC4:
+            huff.update(_huff_spec(body, what))
+        elif code == 0xDB:
+            qt.update(_quant_tables(body, what))
+        elif code == 0xDD:
+            if len(body) != 2:
+                raise ValueError(f"{what}: bad JPEG restart interval segment")
+            restart = int.from_bytes(body[:2], "big")
+        elif not (0xE0 <= code <= 0xEF or code == 0xFE):
+            raise ValueError(f"{what}: JPEG tables hold marker 0xFF{code:02X} (libtiff: bogus "
+                             "JPEGTables field)")
+        pos += length
+
+
+def decode_components(data, what="JPEG", tables=None, space=None):
+    """JPEG bytes -> ([H, W] uint8 per component, after upsampling, and for
+    YCbCr / YCCK before colour conversion; the colour space: "grey", "RGB",
+    "YCbCr", "CMYK" or "YCCK"; the frame: its size ``h``, ``w`` and
+    components' sampling factors ``comps``). ``tables`` (from ``jpeg_tables``) are in
+    force before the stream's own; ``space`` overrides the colour space the
+    markers give, as libtiff sets it (None: libjpeg's choice; "raw": no
+    conversion)."""
     from ..native.loader import load
 
     data = bytes(data)
@@ -171,6 +236,9 @@ def decode_jpeg(data, what="JPEG"):
         raise ValueError(f"{what}: not a JPEG file")
     lib = load("jpeg")
     pos, qt, huff, restart = 2, {}, {}, 0
+    if tables is not None:
+        qt, huff, restart = dict(tables[0]), dict(tables[1]), tables[2]
+    forced = space
     jfif, adobe_transform = False, None
     frame = planes = latched = coef_bits = space = None
     n_scans = 0
@@ -183,6 +251,8 @@ def decode_jpeg(data, what="JPEG"):
         if pos + 2 > len(data):
             raise ValueError(f"{what}: JPEG is truncated")
         length = int.from_bytes(data[pos:pos + 2], "big")
+        if length < 2 and (0xE0 <= code <= 0xEF or code == 0xFE):
+            length = 2  # libjpeg skips nothing of an APPn or COM segment this short
         if length < 2 or pos + length > len(data):
             raise ValueError(f"{what}: JPEG is truncated")
         body, nxt = data[pos + 2:pos + length], pos + length
@@ -198,6 +268,8 @@ def decode_jpeg(data, what="JPEG"):
         elif code == 0xDB:
             qt.update(_quant_tables(body, what))
         elif code == 0xDD:
+            if len(body) != 2:
+                raise ValueError(f"{what}: bad JPEG restart interval segment")
             restart = int.from_bytes(body[:2], "big")
         elif code == 0xE0:
             # libjpeg fixes the colour space at the first scan
@@ -214,7 +286,8 @@ def decode_jpeg(data, what="JPEG"):
                           for c in comps]
                 latched = [None] * len(comps)
                 coef_bits = [np.full(64, -1, np.int64) for _ in comps]
-                space = "grey" if len(comps) == 1 else _colour_space(comps, jfif, adobe_transform)
+                space = ("grey" if len(comps) == 1 else _colour_space(comps, jfif, adobe_transform)
+                         if forced is None else forced)
             nxt = _scan(lib, data, nxt, body, frame, planes, latched, coef_bits, qt, huff,
                         restart, what)
             n_scans += 1
@@ -235,11 +308,7 @@ def decode_jpeg(data, what="JPEG"):
         dh, dw = _ceil_div(h * c["v"], vmax), _ceil_div(w * c["h"], hmax)  # downsampled size
         px = _idct_islow(plane, np.zeros(64, np.int64) if q is None else q)[:dh, :dw]
         out.append(_upsample(px, c["h"], c["v"], hmax, vmax, h, w, what))
-    if space == "grey":
-        return np.repeat(out[0][..., None], 3, axis=-1)
-    if space == "RGB":
-        return np.stack(out, axis=-1).astype(np.uint8)
-    return _ycc_to_rgb(*out)
+    return out, space, frame
 
 
 def _scan(lib, data, start, body, frame, planes, latched, coef_bits, qt, huff, restart, what):
@@ -248,7 +317,7 @@ def _scan(lib, data, start, body, frame, planes, latched, coef_bits, qt, huff, r
     its entropy-coded data into ``planes``; returns the position after it."""
     comps = frame["comps"]
     ns = body[0] if body else 0
-    if not 1 <= ns <= 4 or len(body) < 4 + 2 * ns:
+    if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:  # libjpeg: bogus marker length
         raise ValueError(f"{what}: bad JPEG scan header")
     ids = [c["id"] for c in comps]
     idx, tables = [], []
@@ -430,12 +499,18 @@ def _ycc_tables():
 _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 
-def _ycc_to_rgb(y, cb, cr):
+def _ycck_to_cmyk(y, cb, cr, k):
+    """[H, W] uint8 Y, Cb, Cr, K -> [H, W, 4] uint8 CMYK (jdcolor.c
+    ycck_cmyk_convert: the YCbCr -> RGB tables, each result inverted,
+    255 - (y + ...) range-limited; K passes through)."""
+    rgb = _ycc_to_rgb(y, cb, cr, clip=False)
+    cmy = np.clip(255 - rgb, 0, 255).astype(np.uint8)
+    return np.concatenate([cmy, k[..., None]], axis=-1)
+
+
+def _ycc_to_rgb(y, cb, cr, clip=True):
     """[H, W] uint8 Y, Cb, Cr -> [H, W, 3] uint8 RGB (jdcolor.c
     ycc_rgb_convert: fixed-point tables, results clamped to 0..255)."""
     y = y.astype(np.int32)
-    out = np.empty(y.shape + (3,), np.uint8)
-    out[..., 0] = np.clip(y + _CR_R[cr], 0, 255)
-    out[..., 1] = np.clip(y + ((_CB_G[cb] + _CR_G[cr]) >> 16), 0, 255)
-    out[..., 2] = np.clip(y + _CB_B[cb], 0, 255)
-    return out
+    out = np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16), y + _CB_B[cb]], -1)
+    return np.clip(out, 0, 255).astype(np.uint8) if clip else out

@@ -11,11 +11,13 @@ by a hash of the source, the compiler and the flags, and loaded with
 - ``jpeg``: ``jpeg_entropy.cpp``, the Huffman decoding of JPEG scans
   (``akari_torch/core/jpeg.py``);
 - ``gif``: ``gif_lzw.cpp``, the LZW decoding of a GIF frame
-  (``akari_torch/core/image_formats.py``).
+  (``akari_torch/core/image_formats.py``);
+- ``tiff``: ``tiff_lzw.cpp``, the LZW decoding of a TIFF strip or tile
+  (``akari_torch/core/tiff.py``).
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
-would give another triangle storage order, and the JPEG and GIF decoders have
-no Python entropy or LZW decoder, so there is no fallback.
+would give another triangle storage order, and the JPEG, GIF and TIFF decoders
+have no Python entropy or LZW decoder, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -74,12 +76,21 @@ def _bind_gif(lib):
     ]
 
 
+def _bind_tiff(lib):
+    lib.akr_tiff_lzw.restype = ctypes.c_int
+    lib.akr_tiff_lzw.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # src, size
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,   # dst, occ, compat
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
             "the native BVH builder (scenes of 20,000 triangles or more)", _bind_bvh),
     "jpeg": ("jpeg_entropy.cpp", "libakr_jpeg.so", "the JPEG decoder", _bind_jpeg),
     "gif": ("gif_lzw.cpp", "libakr_gif.so", "the GIF decoder", _bind_gif),
+    "tiff": ("tiff_lzw.cpp", "libakr_tiff.so", "the TIFF LZW decoder", _bind_tiff),
 }
 
 _lock = threading.Lock()

@@ -214,19 +214,34 @@ Phases (each checks its results; any failure exits non-zero):
     ``map_Kd`` on that JPEG, on a PNG of its decoded pixels (lossless, so
     the frame must be bit-equal) and on the JPEG again, each with its tree
     launches, parse time and time to first image;
-42. the result: a JSON line of kernel records (the dense records on the
+42. the TGA, BMP, PNM, GIF and PSD decoders: their fixtures' digests, the
+    2048^2 albedo in each format (decode times beside PNG and JPEG), and
+    the config-3 CLI on the PNG, TGA-RLE and BMP albedos (frames bit-equal,
+    6 tree closest launches each, one TGA-run launch against the plain
+    walk);
+43. the TIFF decoder and the CMYK / YCCK JPEGs: the TIFF and CMYK
+    fixtures' digests; the 2048^2 albedo as TIFF raw, PackBits, LZW, LZW
+    with the horizontal predictor, tiled LZW, Deflate in planes and 16-bit
+    Deflate with the predictor (written by the fixture tool's
+    ``tiff_bytes``, LZW strips compressed in parallel processes), each
+    decode's median of 3 no slower than the PNG route's; the config-3 CLI
+    on the PNG, the 8-bit LZW-with-predictor and the 16-bit Deflate TIFF
+    albedos (frames bit-equal, 6 tree closest launches each, one launch of
+    each TIFF run held to the plain walk at 0 ulp); and ``--sharded --ao``
+    on the Cornell box at 64^2, exit 0 and the unsharded CLI's PNG;
+44. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35 and 40, the
-    dense and instanced tree records' those of phases 34, 37 and 40), then
-    the device line.
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40, 42 and 43,
+    the dense and instanced tree records' those of phases 34, 37 and 40),
+    then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40, 41) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-43) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG entropy decoder
-and GIF LZW decoder) is built at start, one compiler process each, all
+and GIF and TIFF LZW decoders) is built at start, one compiler process each, all
 started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
@@ -2605,7 +2620,8 @@ def format_phase(card, traversal, cli_render):
         f"the 2048^2 albedo in each format, the config-3 CLI on TGA-RLE and BMP albedos "
         f"[card: {card}]")
     with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
-        digests = {k: v for k, v in json.load(f).items() if not k.endswith((".jpg", ".png"))}
+        digests = {k: v for k, v in json.load(f).items()
+                   if k.endswith((".tga", ".bmp", ".pbm", ".pgm", ".ppm", ".gif", ".psd"))}
     for fname, rec in sorted(digests.items()):
         with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
             px = decode_image(f.read(), fname)
@@ -2689,6 +2705,162 @@ def format_phase(card, traversal, cli_render):
     return out
 
 
+def tiff_albedo_files(px, mapper=map):
+    """The config-3 albedo's pixels [H, W, 3] uint8 as TIFFs written by
+    ``tools/make_torch_port_image_fixtures.py``'s ``tiff_bytes`` (64-row
+    strips unless tiled; ``mapper`` spreads the compression over
+    processes): raw, PackBits, LZW, LZW with the horizontal predictor
+    (Photoshop's "LZW"), LZW in 256^2 tiles, Deflate in planes, and 16-bit
+    Deflate with the predictor of samples v * 257 (whose high bytes are the
+    pixels); the file bytes by name."""
+    import numpy as np
+
+    from tools.make_torch_port_image_fixtures import tiff_bytes
+
+    wide = px.astype(np.int64) * 257
+    forms = {
+        "raw": (px, 8, dict()),
+        "packbits": (px, 8, dict(compression=32773)),
+        "lzw": (px, 8, dict(compression=5)),
+        "lzw_pred2": (px, 8, dict(compression=5, predictor=2)),
+        "lzw_tiled": (px, 8, dict(compression=5, tile=(256, 256))),
+        "deflate_planar": (px, 8, dict(compression=8, planar=2)),
+        "rgb16_deflate_pred2": (wide, 16, dict(compression=8, predictor=2)),
+    }
+    out = {}
+    for key, (samples, bits, kw) in forms.items():
+        if "tile" not in kw:
+            kw["rows_per_strip"] = 64
+        out[key] = tiff_bytes(samples, bits, 2, mapper=mapper, **kw)
+    return out
+
+
+def tiff_phase(card, traversal, cli_render):
+    """Phase 43: the TIFF decoder and the 4-component JPEGs on this machine
+    (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
+    seven TIFF forms against the PNG route's time, the config-3 CLI on the
+    8-bit LZW-with-predictor and the 16-bit Deflate TIFFs against the PNG
+    route (bit-equal frames, 6 tree closest launches each, one launch held
+    to the plain walk at 0 ulp), and ``--sharded --ao`` against the
+    unsharded CLI; returns the tree kernel's errors and the figures it
+    logs."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+
+    t_phase = time.perf_counter()
+    log(f"phase 43: TIFF and CMYK / YCCK JPEG decoding without PIL: the fixtures' digests, "
+        f"the 2048^2 albedo as seven TIFFs, the config-3 CLI on two TIFF albedos, --sharded "
+        f"--ao [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items()
+                   if k.endswith(".tif") or k.startswith(("cmyk", "ycck"))}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 17, f"only {len(digests)} TIFF / CMYK fixtures in digests.json")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)  # the PNG route's pixels
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        files = tiff_albedo_files(albedo, pool.map)
+    log(f"  wrote the seven 2048^2 TIFFs in {time.perf_counter() - t0:.1f} s ({workers} "
+        "processes, LZW in Python)")
+    out = {}
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for key, data in files.items():
+        px = decode_image(data, key)
+        check(np.array_equal(px, albedo), f"the 2048^2 TIFF {key} decodes to other pixels")
+        med, runs = _median_s(lambda: decode_image(data, key))
+        out[f"tiff_{key}_decode_s"] = med
+        log(f"  2048^2 TIFF {key} decode on the host, median of 3: {med:.4f} s ({len(data)} "
+            f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+        check(med <= png_s, f"TIFF {key} decodes the albedo slower than the PNG route: "
+              f"{med:.4f} s against {png_s:.4f} s")
+
+    full = ENVTEX_FULL
+    cfg_spp, depth = full["spp"], full["depth"]
+    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
+    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
+    tree_err = tree_occ_err = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        akari = write_envtex_terrain(tmp, **full)
+        for key, name in (("lzw_pred2", "albedo_lzw.tif"), ("rgb16_deflate_pred2",
+                                                           "albedo_16.tif")):
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(files[key])
+        mtl = os.path.join(tmp, "terrain.mtl")
+        with open(mtl) as f:
+            mtl_text = f.read()
+        frames = {}
+        for run, albedo_name in enumerate(("albedo.png", "albedo_lzw.tif", "albedo_16.tif")):
+            with open(mtl, "w") as f:
+                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
+            reset_all(traversal)
+            with log_records() as logbuf, captured_write_png() as written, \
+                    kept_call(ti, ["closest"], keep=1) as calls:
+                t0 = time.perf_counter()
+                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
+                                      "--device", "cuda", "-v"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                   for n, c in m.LAUNCHES.items() if c}
+            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
+            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
+            if albedo_name != "albedo.png":  # one launch of the path against the plain walk
+                rays_k, args_k = calls.kept["closest"]
+                err = compare_kernel(f"tree config-3 {albedo_name} launch", rays_k, ti, args_k,
+                                     2 * (full["n"] - 1) ** 2 + 2, max_ulp_allowed=0)[:2]
+                tree_err, tree_occ_err = max(tree_err, err[0]), max(tree_occ_err, err[1])
+            del calls
+            frames[albedo_name] = np.asarray(written[-1])
+            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
+            parse_s = parsed_seconds(logbuf.getvalue())
+            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
+                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
+            out[f"cli_{albedo_name}_s"], out[f"parse_{albedo_name}_s"] = wall, parse_s
+    for name in ("albedo_lzw.tif", "albedo_16.tif"):
+        check(np.array_equal(frames[name], frames["albedo.png"]),
+              f"the frame on {name} differs from the PNG route's")
+    log("  the 8-bit LZW and 16-bit Deflate TIFF albedo frames are bit-equal to the PNG route's")
+
+    # --sharded with --ao renders unsharded, as the reference does
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-i", SCENE_FILE, "--device", "cuda", "--width", "64", "--height", "64",
+                "--spp", "4", "--ao"]
+        paths = [os.path.join(tmp, n) for n in ("sharded.png", "plain.png")]
+        rcs = [cli_render.main(args + ["-o", paths[0], "--sharded"]),
+               cli_render.main(args + ["-o", paths[1]])]
+        with open(paths[0], "rb") as fa, open(paths[1], "rb") as fb:
+            same = fa.read() == fb.read()
+    check(rcs == [0, 0], f"--sharded --ao returned {rcs[0]} (unsharded {rcs[1]})")
+    check(same, "--sharded --ao wrote another image than the unsharded --ao")
+    log("  --sharded --ao: exit 0, its PNG bit-equal to the unsharded CLI's")
+    log(f"  phase 43: {time.perf_counter() - t_phase:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
 def main():
     import torch
 
@@ -2733,8 +2905,9 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder
-        # and the GIF LZW decoder
-        natives = {n: pool.submit(native_loader.build, n) for n in ("bvh", "jpeg", "gif")}
+        # and the GIF and TIFF LZW decoders
+        natives = {n: pool.submit(native_loader.build, n)
+                   for n in ("bvh", "jpeg", "gif", "tiff")}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
         native_paths = {n: f.result() for n, f in natives.items()}
@@ -3305,11 +3478,12 @@ def main():
     occ_it = max(occ_it, aos["instanced_tree"][1])
     image_phase(card, traversal, cli_render)
     fmts = format_phase(card, traversal, cli_render)
-    tree_err = max(tree_err, fmts["tree_err"])
-    tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"])
+    tiffs = tiff_phase(card, traversal, cli_render)
+    tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"])
+    tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 43: result ----------------------------------------------------
+    # ---- phase 44: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -355,7 +355,7 @@ REFUSED = {
     "lossless": (lambda: _with_sof(_pil_jpeg(), code=0xC3), "lossless"),
     "hierarchical": (lambda: _with_sof(_pil_jpeg(), code=0xC5), "hierarchical"),
     "12-bit": (lambda: _with_sof(_pil_jpeg(), precision=12), "12-bit"),
-    "cmyk": (lambda: _cmyk_jpeg(), "CMYK"),
+    "two-components": (lambda: _two_component_jpeg(), "2-component"),
     "truncated": (lambda: _pil_jpeg(quality=90)[:-300], "truncated"),
     "truncated-progressive": (lambda: _pil_jpeg(progressive=True)[:-200], "truncated"),
     "unrefined-progressive": (lambda: _without_refinement_scans(_pil_jpeg(progressive=True)),
@@ -363,10 +363,50 @@ REFUSED = {
 }
 
 
-def _cmyk_jpeg():
+def _cmyk_jpeg(**kw):
     buf = io.BytesIO()
-    Image.fromarray(pattern(16, 16, 4)).convert("CMYK").save(buf, "JPEG")
+    Image.fromarray(pattern(16, 16, 4)).convert("CMYK").save(buf, "JPEG", **kw)
     return buf.getvalue()
+
+
+def _two_component_jpeg():
+    r = np.random.default_rng(2)
+    return _jpeg([(1, 1, 1, _blocks(r, 2, 2, 100.0)), (2, 1, 1, _blocks(r, 2, 2, 100.0))],
+                 16, 16, r.integers(1, 12, 64))
+
+
+@pytest.mark.parametrize("kw", [dict(quality=90), dict(quality=30, subsampling=2),
+                                dict(quality=75, progressive=True),
+                                dict(quality=60, optimize=True, subsampling=1)],
+                         ids=["q90", "q30-420", "progressive", "optimize-422"])
+def test_cmyk_jpeg_written_by_pil_matches(tmp_path, kw):
+    """PIL's CMYK JPEG (Adobe transform 0, stored inverted): libjpeg's CMYK
+    read as PIL's CMYK;I and converted by its cmyk2rgb."""
+    _decode_both(_cmyk_jpeg(**kw), tmp_path)
+
+
+ADOBE = {
+    "ycck-transform-2": _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 2])),
+    "ycck-transform-1": _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 1])),
+    "cmyk-transform-0": _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])),
+    "cmyk-no-marker": b"",
+    "cmyk-jfif": _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00"),
+}
+
+
+@pytest.mark.parametrize("case", list(ADOBE))
+def test_four_component_colour_spaces_match_pil(tmp_path, case):
+    """libjpeg's colour space for four components by the Adobe marker
+    (YCCK for transforms other than 0, converted as ycck_cmyk_convert),
+    with sampled and interleaved components, against PIL."""
+    r = np.random.default_rng(len(case))
+    for factors, (h, w) in (([(1, 1)] * 4, (19, 27)), ([(2, 2), (1, 1), (1, 1), (2, 2)], (21, 17)),
+                            ([(2, 1), (1, 1), (1, 1), (1, 1)], (9, 40))):
+        hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+        mcuy, mcux = -(-h // (8 * vmax)), -(-w // (8 * hmax))
+        comps = [(cid, hs, vs, _blocks(r, mcuy * vs, mcux * hs, 300.0))
+                 for cid, (hs, vs) in zip([1, 2, 3, 4], factors)]
+        _decode_both(_jpeg(comps, h, w, r.integers(1, 12, 64), app=ADOBE[case]), tmp_path)
 
 
 @pytest.mark.parametrize("form", list(REFUSED))

@@ -16,8 +16,9 @@ bit with ``to_linear`` True and False:
 - seeded corruptions of the fixtures (bytes changed, files cut or
   extended): wherever PIL reads the file the port gives its pixels, and
   wherever PIL refuses it the port raises ``ValueError``;
-- the forms PIL refuses, each refused by the port naming the form; TIFF
-  and WebP still raise "unsupported image format", and Lab PSDs, which
+- the forms PIL refuses, each refused by the port naming the form; CCITT
+  TIFFs name their compression, WebP still raises "unsupported image
+  format", and Lab PSDs, which
   PIL converts with its own arithmetic, are refused naming "Lab";
 - an OBJ whose ``map_Kd`` is a TGA renders at 16x16 on the CPU bit-equal
   to the same OBJ on a PNG of the same pixels.
@@ -550,13 +551,22 @@ REFUSED = {
     "psd-zip": (lambda: _psd_header(3, 8)[:-14] + b"\x00\x02" + bytes(12), "compression 2"),
     "psd-channels": (lambda: _psd_header(4, 8, channels=3), "CMYK with 3 channels"),
     "psd-version-2": (lambda: b"8BPS\x00\x02" + _psd_header(3, 8)[6:], "version 2"),
-    "tiff-le": (lambda: b"II*\x00" + bytes(60), r"unsupported image format \(TIFF\)"),
-    "tiff-be": (lambda: b"MM\x00*" + bytes(60), r"unsupported image format \(TIFF\)"),
+    "tiff-le": (lambda: _ccitt_tiff("<", 4), "CCITT Group 4-compressed TIFF"),
+    "tiff-be": (lambda: _ccitt_tiff(">", 3), "CCITT Group 3-compressed TIFF"),
     "webp": (lambda: b"RIFF" + struct.pack("<I", 40) + b"WEBPVP8 " + bytes(40),
              r"unsupported image format \(WebP\)"),
 }
 # forms PIL reads that the port refuses, naming them (ROADMAP.md, later slices)
 PIL_READS = {"psd-lab", "pnm-pfm"}
+
+
+def _ccitt_tiff(order, group):
+    """A bilevel TIFF whose one strip is CCITT Group 3 or 4 (the strip's
+    bytes are no valid code; the port refuses the compression by name)."""
+    from tools.make_torch_port_image_fixtures import tiff_bytes
+
+    return tiff_bytes(np.zeros((4, 8, 1), int), 1, 0, order=order, compression=1,
+                      tags={259: (3, [group])})
 
 
 @pytest.mark.parametrize("form", list(REFUSED))
@@ -569,7 +579,7 @@ def test_refused_forms_name_themselves(tmp_path, form):
         port_image.read_image(str(path))
     assert str(path) in str(err.value)
     if form.startswith(("tiff", "webp")) or form in PIL_READS:
-        return  # the TIFF and WebP bodies here are no valid files; PIL reads Lab and PFM
+        return  # the CCITT and WebP bodies here are no valid data; PIL reads Lab and PFM
     with pytest.raises(Exception):
         _pil(data)
 

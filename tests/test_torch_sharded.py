@@ -286,11 +286,47 @@ def test_cli_sharded_under_torchrun(tmp_path):
     assert sharded.read_bytes() == plain.read_bytes()
 
 
-def test_sharded_cli_refuses_other_integrators(tmp_path, caplog):
-    out = tmp_path / "x.png"
-    assert cli_main(["-i", SCENE_FILE, "--device", "cpu", "--ao", "--sharded", "-o", str(out)]) == 1
-    assert "path integrator only" in caplog.text
-    assert not out.exists()
+def test_cli_sharded_ao_under_torchrun(tmp_path):
+    """``--sharded --ao`` under ``torch.distributed.run`` with 2 ranks: rank 0
+    renders unsharded and writes the PNG of the unsharded CLI, rank 1
+    returns 0 without rendering, and no ray mesh is made."""
+    args = ["-i", SCENE_FILE, "--device", "cpu", "--width", "16", "--height", "16",
+            "--spp", "1", "--ao"]
+    sharded, plain = tmp_path / "sharded.png", tmp_path / "plain.png"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+           "-m", "akari_torch.cli.render"] + args + ["-o", str(sharded), "--sharded", "-v"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=RANK_TIMEOUT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "rank 0 renders" in out.stderr and "ray mesh" not in out.stderr
+    assert out.stderr.count("AOConfig render done") == 1
+    assert cli_main(args + ["-o", str(plain)]) == 0
+    assert sharded.read_bytes() == plain.read_bytes()
+
+
+@pytest.mark.parametrize("integrator", ["ao", "bdpt"])
+def test_sharded_cli_renders_ao_and_bdpt_unsharded(tmp_path, integrator):
+    """As the reference, which takes the AO / BDPT branch before it reads
+    --sharded: exit 0 and the PNG of the same command without --sharded,
+    bit for bit (the --ao flag on the Cornell scene, or a Cornell scene
+    whose integrator is BDPT)."""
+    scene = SCENE_FILE
+    args = ["--device", "cpu", "--width", "16", "--height", "16", "--spp", "1"]
+    if integrator == "ao":
+        args.append("--ao")
+    else:
+        with open(SCENE_FILE) as f:
+            text = f.read()
+        obj = os.path.join(os.path.dirname(SCENE_FILE), "CornellBox-Original.obj")
+        scene = str(tmp_path / "bdpt.akari")
+        with open(scene, "w") as f:
+            f.write(text.replace("integrator: Path {", "integrator: BDPT {")
+                    .replace('"CornellBox-Original.obj"', f'"{obj}"'))
+    sharded, plain = tmp_path / "sharded.png", tmp_path / "plain.png"
+    assert cli_main(["-i", scene, "-o", str(sharded), "--sharded"] + args) == 0
+    assert cli_main(["-i", scene, "-o", str(plain)] + args) == 0
+    assert sharded.read_bytes() == plain.read_bytes()
 
 
 def test_a_failing_or_stuck_rank_fails_the_call(tmp_path):

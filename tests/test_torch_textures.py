@@ -215,8 +215,8 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: arithmetic-coded and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
-    read, and formats the port has no decoder for, TIFF and WebP
-    (read_image picks the decoder by signature)."""
+    read, a CCITT Group 4 TIFF, and a format the port has no decoder for,
+    WebP (read_image picks the decoder by signature)."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -234,11 +234,13 @@ def test_unsupported_images_name_their_format(tmp_path):
     (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(60))
     with pytest.raises(ValueError, match="BMP header of 0 bytes"):
         port_image.read_image(str(tmp_path / "x.bmp"))
-    for name, data in (("x.tif", b"II*\x00" + bytes(60)), ("x.tiff", b"MM\x00*" + bytes(60)),
-                       ("x.webp", b"RIFF" + bytes(4) + b"WEBPVP8 " + bytes(40))):
-        (tmp_path / name).write_bytes(data)
-        with pytest.raises(ValueError, match="unsupported image format"):
-            port_image.read_image(str(tmp_path / name))
+    Image.fromarray(_pattern(8, 8, 5)).convert("1").save(tmp_path / "g4.tif",
+                                                           compression="group4")
+    with pytest.raises(ValueError, match="CCITT Group 4-compressed TIFF is not supported"):
+        port_image.read_image(str(tmp_path / "g4.tif"))
+    (tmp_path / "x.webp").write_bytes(b"RIFF" + bytes(4) + b"WEBPVP8 " + bytes(40))
+    with pytest.raises(ValueError, match="unsupported image format"):
+        port_image.read_image(str(tmp_path / "x.webp"))
 
 
 # ------------------------------- _bilinear -------------------------------------

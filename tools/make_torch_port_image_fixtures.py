@@ -13,6 +13,12 @@ Writes into ``tests/data/torch_port_images/``:
 - PNGs: a palette PNG with tRNS and an LA PNG saved by PIL, and an
   Adam7-interlaced 4-bit palette PNG and a 16-bit RGBA PNG written here
   (Pillow writes neither; ``png_bytes``, which the decoder tests use too);
+- TIFFs in the forms of ``akari_torch/core/tiff.py``: Pillow's libtiff
+  writer (LZW with a predictor, JPEG, PackBits, Deflate) and ``tiff_bytes``
+  (``tiff_fixtures``: both byte orders, BigTIFF, tiles, planes, 16-bit and
+  float samples, subsampled YCbCr, JPEG strips with JPEGTables, the old
+  LZW codes, fill order 2, an orientation), and a CMYK JPEG saved by PIL
+  with its YCCK twin (``cmyk_jpegs``);
 - TGA, BMP, PNM, GIF and PSD files, a few KB each, in the forms of
   ``akari_torch/core/image_formats.py``: Pillow writes some of them, and
   the encoders below (``tga_bytes``, ``bmp_bytes``, ``pnm_bytes``,
@@ -24,9 +30,10 @@ Writes into ``tests/data/torch_port_images/``:
   PIL that decoded them.
 
 ``chip_smoke.py`` decodes every fixture with the port and checks the
-digests; ``tests/test_torch_image_decode.py`` and
-``tests/test_torch_image_formats.py`` hold ``digests.json`` to PIL's
-decode here, so it cannot go stale. Needs PIL.
+digests; ``tests/test_torch_image_decode.py``,
+``tests/test_torch_image_formats.py`` and ``tests/test_torch_image_tiff.py``
+hold ``digests.json`` to PIL's decode here, so it cannot go stale. Needs
+PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
 """
@@ -416,6 +423,309 @@ def psd_bytes(planes, mode, bits=8, compression=1, color_data=b"", n_channels=No
 # the fixtures
 
 
+def tiff_lzw(data, compat=False):
+    """TIFF LZW codes for ``data`` (libtiff's encoder: a clear code first,
+    the table reset before it passes 4,093 entries, an end code last),
+    most significant bit first with the code width growing one code
+    early, or with ``compat`` the old bit-reversed form (least significant
+    bit first, the width growing one code late)."""
+    early = 0 if compat else 1
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, nbits):
+        nonlocal acc, nacc
+        if compat:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = acc << nbits | code
+            nacc += nbits
+            while nacc >= 8:
+                nacc -= 8
+                out.append(acc >> nacc & 255)
+                acc &= (1 << nacc) - 1
+
+    nbits = 9
+    table, nxt, first = {}, 258, True
+    dec_free = 258  # the decoder's next entry, which sets the width
+
+    def emit(code):
+        nonlocal nbits, dec_free, first
+        put(code, nbits)
+        if first:
+            first = False
+            return
+        dec_free += 1
+        if dec_free > (1 << nbits) - 1 - early and nbits < 12:
+            nbits += 1
+
+    def clear():
+        nonlocal nbits, table, nxt, first, dec_free
+        put(256, nbits)
+        nbits, table, nxt, first, dec_free = 9, {}, 258, True, 258
+
+    clear()
+    w = None
+    for b in data:
+        if w is None:
+            w = b
+            continue
+        k = (w << 8) | b
+        code = table.get(k)
+        if code is not None:
+            w = code
+            continue
+        emit(w)
+        table[k] = nxt
+        nxt += 1
+        w = b
+        if nxt >= 4093:
+            emit(w)
+            w = None
+            clear()
+    if w is not None:
+        emit(w)
+    put(257, nbits)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "L", 5: "L", 6: "b", 7: "B", 8: "h", 9: "l", 10: "l",
+               11: "f", 12: "d", 16: "Q"}
+_BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _tiff_rows(samples, bits, order):
+    """[h, n] samples -> [h, row bytes] in the file's order, sub-byte samples
+    packed most significant first."""
+    if bits in (16, 32, 64):
+        kind = "f" if samples.dtype.kind == "f" else "u"
+        return samples.astype(f"{order}{kind}{bits // 8}").view(np.uint8).reshape(
+            samples.shape[0], -1)
+    return _pack(samples, bits) if bits < 8 else samples.astype(np.uint8)
+
+
+def _tiff_predict(samples, bits, spp, predictor):
+    """Horizontal differencing of [h, w * spp] samples (predictor 2), in
+    the samples' own width."""
+    if predictor != 2:
+        return samples
+    dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[bits]
+    v = samples.astype(dt)
+    h = v.shape[0]
+    px = v.reshape(h, -1, spp)
+    d = px.copy()
+    d[:, 1:] = px[:, 1:] - px[:, :-1]
+    return d.reshape(h, -1)
+
+
+def _tiff_fp_predict(rows, spp):
+    """libtiff's fpDiff on rows of host-order (little-endian) float32 bytes:
+    the bytes regrouped most significant plane first, then differenced
+    with a step of ``spp`` bytes."""
+    h, n = rows.shape
+    planes = rows.reshape(h, n // 4, 4)[..., ::-1].transpose(0, 2, 1).reshape(h, n)
+    g = planes.reshape(h, -1, spp).astype(np.int16)
+    g[:, 1:] = g[:, 1:] - g[:, :-1]
+    return (g & 255).astype(np.uint8).reshape(h, n)
+
+
+def _tiff_compress(job):
+    """One strip or tile's rows [n, row bytes] -> its stored bytes."""
+    rows, compression, compat, fill, seed = job
+    if compression == 1:
+        b = rows.tobytes()
+    elif compression == 5:
+        b = tiff_lzw(rows.tobytes(), compat)
+    elif compression in (8, 32946):
+        b = zlib.compress(rows.tobytes(), 6)
+    elif compression == 32773:
+        r = np.random.default_rng(seed)
+        b = b"".join(packbits_row(row, r) for row in rows)
+    else:
+        raise ValueError(f"no encoder for compression {compression}")
+    if fill == 2 and compression != 1:
+        b = _BITREV[np.frombuffer(b, np.uint8)].tobytes()
+    return b
+
+
+def _ycbcr_units(part, hs, vs):
+    """[rows, cols, 3] YCbCr -> the bytes of its subsampled blocks, the
+    image padded by repeating its last row and column."""
+    rows, cols, _ = part.shape
+    ph, pw = -(-rows // vs) * vs, -(-cols // hs) * hs
+    p = np.pad(part, ((0, ph - rows), (0, pw - cols), (0, 0)), mode="edge").astype(np.uint8)
+    y = p[..., 0].reshape(ph // vs, vs, pw // hs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(ph // vs, pw // hs, hs * vs)
+    chroma = p[::vs, ::hs, 1:]
+    return np.concatenate([y, chroma], axis=-1).reshape(-1)
+
+
+def _jpeg_segments(data):
+    """A JPEG -> [(marker, segment bytes)] up to SOS, and the scan data."""
+    pos, out = 2, []
+    while True:
+        code = data[pos + 1]
+        length = int.from_bytes(data[pos + 2:pos + 4], "big")
+        out.append((code, data[pos:pos + 2 + length]))
+        pos += 2 + length
+        if code == 0xDA:
+            return out, data[pos:]
+
+
+def tiff_jpeg_blocks(rgb, rows=None, tile=None, subsampling=2, quality=80, tables=True):
+    """JPEG strips of ``rows`` rows (or tiles ``tile`` = (tw, th), the image
+    padded by repeating its edge) of an [h, w, 3] RGB image, each saved by
+    PIL (YCbCr, 4:2:0 with ``subsampling`` 2); with ``tables`` the DQT and
+    DHT segments are moved out into one JPEGTables stream and each strip is
+    an abbreviated stream. Returns (blocks, JPEGTables bytes or None)."""
+    import io
+
+    from PIL import Image
+
+    h, w, _ = rgb.shape
+    if tile:
+        tw, th = tile
+        ph, pw = -(-h // th) * th, -(-w // tw) * tw
+        padded = np.pad(rgb, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+        parts = [padded[y:y + th, x:x + tw] for y in range(0, ph, th) for x in range(0, pw, tw)]
+    else:
+        parts = [rgb[y:y + rows] for y in range(0, h, rows)]
+    blocks, table_segs = [], []
+    for part in parts:
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(part).astype(np.uint8)).save(
+            buf, "JPEG", quality=quality, subsampling=subsampling)
+        data = buf.getvalue()
+        if not tables:
+            blocks.append(data)
+            continue
+        segs, scan = _jpeg_segments(data)
+        table_segs = [seg for code, seg in segs if code in (0xC4, 0xDB)]
+        blocks.append(b"\xff\xd8" + b"".join(seg for code, seg in segs
+                                              if code not in (0xC4, 0xDB)) + scan)
+    return blocks, (b"\xff\xd8" + b"".join(table_segs) + b"\xff\xd9") if tables else None
+
+
+def tiff_bytes(samples, bits, photometric, order="<", bigtiff=False, compression=1,
+               predictor=1, fill=1, planar=1, rows_per_strip=None, tile=None,
+               sample_format=None, extra=None, colormap=None, orientation=None, tags=None,
+               omit=(), compat=False, blocks=None, header=None, ycbcr=None, seed=0,
+               mapper=map):
+    """A TIFF file of ``samples`` [h, w, spp] (integers, or float32 for
+    sample format 3): strips of ``rows_per_strip`` rows or ``tile`` (tw,
+    th) tiles, planar configuration 1 or 2, compression 1 (raw), 5 (LZW,
+    ``compat``: the old codes), 8 / 32946 (Deflate) or 32773 (PackBits,
+    a row at a time, packets drawn from ``seed``), predictor 2 or 3, fill
+    order 2, classic or BigTIFF in either byte order. ``tags`` adds or
+    replaces tags ({tag: (type, values)}), ``omit`` drops tags,
+    ``blocks`` gives the compressed strips or tiles outright and ``header``
+    replaces the first four bytes. ``ycbcr`` (hs, vs) writes 8-bit YCbCr
+    samples in subsampled blocks (hs x vs luma, then Cb and Cr of the
+    block's first pixel) with a YCbCrSubsampling tag. ``mapper`` maps the
+    compression over the strips or tiles (an executor's ``map`` spreads it
+    over processes)."""
+    samples = np.asarray(samples)
+    h, w, spp = samples.shape
+    fp_bytes = predictor == 3
+    if tile:
+        tw, th = tile
+        ph, pw = -(-h // th) * th, -(-w // tw) * tw
+        padded = np.zeros((ph, pw, spp), samples.dtype)
+        padded[:h, :w] = samples
+    planes = [samples] if planar == 1 else [samples[..., k:k + 1] for k in range(spp)]
+    if tile:
+        planes = [padded] if planar == 1 else [padded[..., k:k + 1] for k in range(spp)]
+    raw_blocks = []
+    for plane in planes:
+        ps = plane.shape[2]
+        if tile:
+            parts = [plane[y:y + th, x:x + tw] for y in range(0, ph, th) for x in range(0, pw, tw)]
+        else:
+            rps = rows_per_strip or h
+            parts = [plane[y:y + rps] for y in range(0, h, rps)]
+        for part in parts:
+            flat = part.reshape(part.shape[0], -1)
+            if ycbcr:
+                raw_blocks.append(_ycbcr_units(part, *ycbcr)[None])
+                continue
+            if fp_bytes:
+                rows = _tiff_fp_predict(_tiff_rows(flat, 32, "<"), ps)
+            else:
+                rows = _tiff_rows(_tiff_predict(flat, bits, ps, predictor), bits, order)
+            raw_blocks.append(rows)
+    if blocks is None:
+        jobs = [(rows, compression, compat, fill, (seed, i)) for i, rows in enumerate(raw_blocks)]
+        blocks = list(mapper(_tiff_compress, jobs))
+    t = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+         262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if fill != 1:
+        t[266] = (3, [fill])
+    if predictor != 1:
+        t[317] = (3, [predictor])
+    if sample_format is not None:
+        t[339] = (3, [sample_format] * spp)
+    if extra is not None:
+        t[338] = (3, list(extra))
+    if colormap is not None:
+        t[320] = (3, list(colormap))
+    if orientation is not None:
+        t[274] = (3, [orientation])
+    if ycbcr:
+        t[530] = (3, list(ycbcr))
+    if tile:
+        t[322], t[323] = (4, [tile[0]]), (4, [tile[1]])
+    else:
+        t[278] = (4, [rows_per_strip or h])
+    t.update(tags or {})
+    head = 16 if bigtiff else 8
+    offsets, pos, body = [], head, b""
+    for b in blocks:
+        offsets.append(pos)
+        body += b
+        pos += len(b)
+    pos += pos & 1
+    body += bytes(pos - head - len(body))
+    t[324 if tile else 273] = (16 if bigtiff else 4, offsets)
+    t[325 if tile else 279] = (16 if bigtiff else 4, [len(b) for b in blocks])
+    for k in omit:
+        t.pop(k, None)
+    entry, count_fmt = ("HHQ", "Q") if bigtiff else ("HHL", "H")
+    ifd_at = pos
+    n = len(t)
+    ifd_size = (8 if bigtiff else 2) + n * (20 if bigtiff else 12) + (8 if bigtiff else 4)
+    extra_data = b""
+    data_at = ifd_at + ifd_size
+    ifd = struct.pack(order + count_fmt, n)
+    for tag in sorted(t):
+        typ, vals = t[tag]
+        if typ in (5, 10):
+            vals = [v for pair in vals for v in pair]
+        packed = (bytes(vals) if typ in (1, 2, 7) and isinstance(vals, (bytes, bytearray))
+                  else struct.pack(f"{order}{len(vals)}{_TIFF_TYPES[typ]}", *vals))
+        count = len(packed) // struct.calcsize("<" + _TIFF_TYPES[typ]) // (2 if typ in (5, 10) else 1)
+        if len(packed) <= (8 if bigtiff else 4):
+            inline = packed.ljust(8 if bigtiff else 4, b"\0")
+        else:
+            inline = struct.pack(order + ("Q" if bigtiff else "L"), data_at + len(extra_data))
+            extra_data += packed + bytes(len(packed) & 1)
+        ifd += struct.pack(order + entry, tag, typ, count) + inline
+    ifd += bytes(8 if bigtiff else 4)
+    magic = (b"II" if order == "<" else b"MM") + struct.pack(order + "H", 43 if bigtiff else 42)
+    if bigtiff:
+        hdr = magic + struct.pack(order + "HHQ", 8, 0, ifd_at)
+    else:
+        hdr = magic + struct.pack(order + "L", ifd_at)
+    if header is not None:
+        hdr = header + hdr[4:]
+    return hdr + body + ifd + extra_data
+
+
 def _bgr_palette(r, n, pad):
     pal = r.integers(0, 256, (n, 3)).astype(np.uint8)
     if pad:
@@ -512,6 +822,61 @@ def format_fixtures(r):
     return out
 
 
+def tiff_fixtures(r):
+    """TIFFs written by ``tiff_bytes`` in the forms of ``akari_torch/core/
+    tiff.py`` that Pillow's writer does not make: both byte orders,
+    BigTIFF, tiles, planar configuration 2, 16-bit and float samples with
+    predictors, associated alpha, 4-bit palettes, subsampled YCbCr in
+    Deflate and in JPEG strips with a JPEGTables tag, the old LZW codes,
+    fill order 2 and an orientation that swaps the axes."""
+    out = {}
+    px = pattern(21, 18, 30)
+    out["tiff_rgb8_raw_tiled_be.tif"] = tiff_bytes(px, 8, 2, order=">", tile=(16, 16))
+    out["tiff_rgb16_deflate_pred2_be.tif"] = tiff_bytes(
+        px.astype(np.int64) * 257 + r.integers(0, 256, px.shape), 16, 2, order=">",
+        compression=8, predictor=2, rows_per_strip=8)
+    rgba = np.concatenate([px, r.choice([0, 255, 77, 160], (21, 18, 1))], axis=2)
+    out["tiff_rgba_assoc_lzw_planar.tif"] = tiff_bytes(rgba, 8, 2, compression=5, planar=2,
+                                                     extra=(1,), rows_per_strip=7)
+    out["tiff_grey16_packbits_be.tif"] = tiff_bytes(r.integers(0, 600, (13, 9, 1)), 16, 1,
+                                                  order=">", compression=32773, seed=3)
+    out["tiff_palette4_lzw_compat.tif"] = tiff_bytes(
+        r.integers(0, 16, (11, 14, 1)), 4, 3, compression=5, compat=True,
+        colormap=r.integers(0, 65536, 48).tolist())
+    out["tiff_float32_pred3_lzw.tif"] = tiff_bytes(
+        r.normal(120, 90, (9, 12, 1)).astype(np.float32), 32, 1, compression=5, predictor=3,
+        sample_format=3)
+    out["tiff_ycbcr22_deflate.tif"] = tiff_bytes(px, 8, 6, compression=8, ycbcr=(2, 2),
+                                               rows_per_strip=6)
+    blocks, tables = tiff_jpeg_blocks(px, rows=16)
+    out["tiff_ycbcr420_jpeg_tables.tif"] = tiff_bytes(
+        np.zeros_like(px), 8, 6, compression=7, rows_per_strip=16, blocks=blocks,
+        tags={347: (7, tables), 530: (3, [2, 2])})
+    out["tiff_bigtiff_lzw_pred2.tif"] = tiff_bytes(px, 8, 2, bigtiff=True, compression=5,
+                                                 predictor=2, rows_per_strip=5)
+    out["tiff_bilevel_fill2_packbits.tif"] = tiff_bytes(r.integers(0, 2, (10, 23, 1)), 1, 0,
+                                                      compression=32773, fill=2, seed=4)
+    out["tiff_cmyk_raw_orientation6.tif"] = tiff_bytes(r.integers(0, 256, (7, 10, 4)), 8, 5,
+                                                     orientation=6)
+    return out
+
+
+def cmyk_jpegs():
+    """A CMYK JPEG saved by PIL (Adobe transform 0), and the same stream
+    marked YCCK (Adobe transform 2), which libjpeg converts to CMYK."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(pattern(19, 26, 31)).convert("CMYK").save(buf, "JPEG", quality=90)
+    cmyk = buf.getvalue()
+    at = cmyk.index(b"\xff\xeeAdobe") if b"\xff\xeeAdobe" in cmyk else cmyk.index(b"Adobe") - 4
+    flag = at + 4 + 11  # the transform byte of the APP14 segment
+    return {"cmyk_adobe_q90.jpg": cmyk,
+            "ycck_adobe_q90.jpg": cmyk[:flag] + b"\x02" + cmyk[flag + 1:]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
@@ -558,6 +923,19 @@ def main(argv=None):
     Image.fromarray(pattern(8, 6, 27)).save(os.path.join(args.output, "pil_p6.ppm"))
     Image.fromarray(pattern(16, 20, 28)).save(os.path.join(args.output, "pil.gif"))
     for name, data in format_fixtures(np.random.default_rng(11)).items():
+        with open(os.path.join(args.output, name), "wb") as f:
+            f.write(data)
+    # TIFF: Pillow's libtiff writer, then the forms it cannot write
+    tif = pattern(19, 23, 32)
+    Image.fromarray(tif).save(os.path.join(args.output, "tiff_pil_rgb8_lzw_pred2.tif"),
+                              compression="tiff_lzw", tiffinfo={317: 2})
+    Image.fromarray(tif).save(os.path.join(args.output, "tiff_pil_rgb8_jpeg.tif"),
+                              compression="jpeg", quality=85)
+    Image.fromarray(tif).convert("CMYK").save(
+        os.path.join(args.output, "tiff_pil_cmyk_packbits.tif"), compression="packbits")
+    Image.fromarray(tif).convert("LA").save(
+        os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
+    for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
