@@ -11,11 +11,12 @@ by its signature, as PIL chooses (``decode_image``): PNG through the
 decoder below (every colour type and bit depth, interlaced or not), JPEG
 through ``core/jpeg.py`` (baseline, extended sequential and progressive
 Huffman; grey, three and four components), BMP, GIF, PNM, PSD and TGA
-through ``core/image_formats.py``, and TIFF (PIL's six header prefixes)
-through ``core/tiff.py``. The reference reads them with PIL, which the
-card's machine does not have; the pixels equal PIL's ``convert("RGB")``.
-Other formats PIL reads (WebP, ICO, PCX, ...) raise an error naming the
-formats read here.
+through ``core/image_formats.py``, TIFF (PIL's six header prefixes)
+through ``core/tiff.py``, and WebP (lossless, lossy, with alpha, the first
+frame of an animation) through ``core/webp.py``. The reference reads them
+with PIL, which the card's machine does not have; the pixels equal PIL's
+``convert("RGB")``. Other formats PIL reads (ICO, PCX, QOI, ...) raise an
+error naming the formats read here.
 """
 
 from __future__ import annotations
@@ -322,7 +323,8 @@ def image_format(data):
         return "PSD"
     if data[:4] in TIFF_PREFIXES:
         return "TIFF"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L",
+                                                                         b"VP8X"):
         return "WebP"
     if tga_header(data) is not None:
         return "TGA"
@@ -331,7 +333,7 @@ def image_format(data):
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
-    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA and TIFF, told
+    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF and WebP, told
     apart as PIL tells them (``image_format``). Other formats, and forms a
     decoder refuses, raise ``ValueError`` naming them."""
     fmt = image_format(data)
@@ -349,9 +351,13 @@ def decode_image(data, what="image"):
         from .tiff import decode_tiff
 
         return decode_tiff(data, what)
+    if fmt == "WebP":
+        from .webp import decode_webp
+
+        return decode_webp(data, what)
     named = f" ({fmt})" if fmt else ""
     raise ValueError(f"{what}: unsupported image format{named} (the port reads PNG, JPEG, "
-                     "BMP, GIF, PNM, PSD, TGA, TIFF, .hdr and .npy; not WebP, ICO, PCX, SGI, "
+                     "BMP, GIF, PNM, PSD, TGA, TIFF, WebP, .hdr and .npy; not ICO, PCX, SGI, "
                      "DDS, QOI or the other formats PIL opens)")
 
 

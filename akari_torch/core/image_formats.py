@@ -48,7 +48,7 @@ import numpy as np
 
 # PIL refuses images of more pixels than this (2 * Image.MAX_IMAGE_PIXELS,
 # its DecompressionBombError)
-MAX_PIXELS = 2 * 178_956_970
+MAX_PIXELS = 2 * 89_478_485
 # the bytes PIL reads at a time to feed a decoder (ImageFile.MAXBLOCK)
 PIL_READ_BLOCK = 65536
 

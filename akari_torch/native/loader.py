@@ -13,11 +13,14 @@ by a hash of the source, the compiler and the flags, and loaded with
 - ``gif``: ``gif_lzw.cpp``, the LZW decoding of a GIF frame
   (``akari_torch/core/image_formats.py``);
 - ``tiff``: ``tiff_lzw.cpp``, the LZW decoding of a TIFF strip or tile
-  (``akari_torch/core/tiff.py``).
+  (``akari_torch/core/tiff.py``);
+- ``webp_vp8l``: ``webp_vp8l.cpp``, lossless WebP images and alpha planes,
+  and ``webp_vp8``: ``webp_vp8.cpp``, lossy WebP key frames to RGB
+  (``akari_torch/core/webp.py``).
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
-would give another triangle storage order, and the JPEG, GIF and TIFF decoders
-have no Python entropy or LZW decoder, so there is no fallback.
+would give another triangle storage order, and the JPEG, GIF, TIFF and WebP
+decoders have no Python entropy, LZW or VP8 decoder, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -84,6 +87,25 @@ def _bind_tiff(lib):
     ]
 
 
+def _bind_vp8l(lib):
+    i32 = ctypes.c_int32
+    lib.akr_vp8l_decode.restype = ctypes.c_int
+    lib.akr_vp8l_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # data, size
+        i32, i32, i32,                                     # width, height, alpha
+        ctypes.c_void_p,                                   # argb
+    ]
+
+
+def _bind_vp8(lib):
+    i32 = ctypes.c_int32
+    lib.akr_vp8_decode.restype = ctypes.c_int
+    lib.akr_vp8_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # data, size
+        i32, i32, ctypes.c_void_p,                         # width, height, rgb
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
@@ -91,6 +113,8 @@ SOURCES = {
     "jpeg": ("jpeg_entropy.cpp", "libakr_jpeg.so", "the JPEG decoder", _bind_jpeg),
     "gif": ("gif_lzw.cpp", "libakr_gif.so", "the GIF decoder", _bind_gif),
     "tiff": ("tiff_lzw.cpp", "libakr_tiff.so", "the TIFF LZW decoder", _bind_tiff),
+    "webp_vp8l": ("webp_vp8l.cpp", "libakr_vp8l.so", "the lossless WebP decoder", _bind_vp8l),
+    "webp_vp8": ("webp_vp8.cpp", "libakr_vp8.so", "the lossy WebP decoder", _bind_vp8),
 }
 
 _lock = threading.Lock()

@@ -229,20 +229,28 @@ Phases (each checks its results; any failure exits non-zero):
     albedos (frames bit-equal, 6 tree closest launches each, one launch of
     each TIFF run held to the plain walk at 0 ulp); and ``--sharded --ao``
     on the Cornell box at 64^2, exit 0 and the unsharded CLI's PNG;
-44. the result: a JSON line of kernel records (the dense records on the
+44. the WebP decoder: the WebP fixtures' digests (lossy, lossless,
+    palettes, alpha, animations, a random VP8 frame); the 2048^2 albedo as
+    the committed lossy WebP and as a lossless one written here by
+    ``vp8l_bytes`` (the machine has no encoder), each decode's median of 3
+    no slower than the PNG route's; the config-3 CLI on a PNG of the lossy
+    WebP's pixels, on the lossy WebP, on the PNG albedo and on the lossless
+    WebP (frames bit-equal pairwise, 6 tree closest launches each, one
+    launch of each WebP run held to the plain walk at 0 ulp);
+45. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40, 42 and 43,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-44,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-43) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-44) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
-Every kernel source (and the native BVH builder, JPEG entropy decoder
-and GIF and TIFF LZW decoders) is built at start, one compiler process each, all
-started together. Imports nothing of JAX.
+Every kernel source (and the native BVH builder, JPEG entropy decoder,
+GIF and TIFF LZW decoders and WebP decoders) is built at start, one compiler
+process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
 
@@ -319,6 +327,7 @@ BDPT_SPP = 64                    # BASELINE.json config 5
 # Phase 41: the decoders' fixtures (tools/make_torch_port_image_fixtures.py)
 IMAGE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_images")
 ALBEDO_JPEG = "albedo2048_q85_420.jpg"   # envtex_texture(2048, 0), 4:2:0, quality 85
+ALBEDO_WEBP = "albedo2048_q85.webp"      # envtex_texture(2048, 0), lossy WebP, quality 85
 TRI_COUNTS = (1, 35, 36, 37, 255, 256, 257, 4096)    # across the chunk and DENSE_MAX_TRIS
 BF16_SPP = 16                    # phase 29's frames: Cornell 1024^2 (phase 5's scene)
 BF16_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_cornell64_spp4_d5_bf16.npy")
@@ -2599,6 +2608,122 @@ def albedo_files(px, torch=None):
     return files, pal.astype(np.uint8)[idx]
 
 
+def _huffman_lengths(counts, max_len):
+    """Code lengths of a Huffman code for ``counts`` (symbols of count 0
+    get 0), no longer than ``max_len`` (the counts are halved until the
+    tree fits)."""
+    import heapq
+
+    import numpy as np
+
+    counts = np.asarray(counts, np.int64)
+    while True:
+        used = np.flatnonzero(counts)
+        lengths = np.zeros(counts.size, np.int64)
+        if used.size == 1:
+            lengths[used] = 1
+            return lengths
+        heap = [(int(counts[s]), int(s), [int(s)]) for s in used]
+        heapq.heapify(heap)
+        while len(heap) > 1:
+            c1, k1, s1 = heapq.heappop(heap)
+            c2, k2, s2 = heapq.heappop(heap)
+            lengths[s1 + s2] += 1
+            heapq.heappush(heap, (c1 + c2, min(k1, k2), s1 + s2))
+        if lengths.max() <= max_len:
+            return lengths
+        counts = np.where(counts > 0, (counts + 1) // 2, 0)
+
+
+def _canonical_codes(lengths):
+    """The canonical codes of ``lengths``, bit-reversed for an LSB-first
+    writer (VP8L reads a code's first bit from the stream's next bit)."""
+    import numpy as np
+
+    lengths = np.asarray(lengths, np.int64)
+    codes = np.zeros(lengths.size, np.int64)
+    code = 0
+    for n in range(1, int(lengths.max()) + 1):
+        for s in np.flatnonzero(lengths == n):
+            codes[s] = int(format(code, f"0{n}b")[::-1], 2)
+            code += 1
+        code <<= 1
+    return codes
+
+
+def vp8l_bytes(px):
+    """Pixels [H, W, 3] uint8 as a lossless WebP (a simple-format VP8L
+    file): the subtract-green transform, then canonical prefix codes from
+    the green, red and blue histograms (their lengths through a
+    code-length code without repeat codes), alpha and distance as
+    one-symbol codes, no colour cache, every pixel a literal."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = px.shape
+    g = px[..., 1].reshape(-1).astype(np.int64)
+    chans = [g, (px[..., 0].reshape(-1).astype(np.int64) - g) & 255,
+             (px[..., 2].reshape(-1).astype(np.int64) - g) & 255]
+    head = []  # (value, bits) of the header, LSB first
+
+    def put(v, n):
+        head.append((int(v), n))
+
+    put(0x2F, 8)
+    put(w - 1, 14)
+    put(h - 1, 14)
+    put(0, 1)  # no alpha
+    put(0, 3)  # version
+    put(1, 1)  # a transform:
+    put(2, 2)  # subtract green
+    put(0, 1)  # no more transforms
+    put(0, 1)  # no colour cache
+    put(0, 1)  # no meta prefix codes
+    tables = []
+    for alphabet, sym in ((280, chans[0]), (256, chans[1]), (256, chans[2])):
+        counts = np.bincount(sym, minlength=alphabet)
+        used = np.flatnonzero(counts)
+        if used.size == 1:  # a one-symbol code takes no bits
+            put(1, 1)
+            put(0, 1)
+            put(1, 1)
+            put(int(used[0]), 8)
+            tables.append((np.zeros(alphabet, np.int64), np.zeros(alphabet, np.int64)))
+            continue
+        lengths = _huffman_lengths(counts, 15)
+        cl_lengths = _huffman_lengths(np.bincount(lengths, minlength=19), 7)
+        cl_codes = _canonical_codes(cl_lengths)
+        put(0, 1)  # a normal code
+        put(19 - 4, 4)
+        for s in (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15):
+            put(cl_lengths[s], 3)
+        put(0, 1)  # lengths for the whole alphabet
+        for n in lengths:
+            put(cl_codes[n], int(cl_lengths[n]))
+        tables.append((_canonical_codes(lengths), lengths))
+    for sym in (255, 0):  # alpha 255, distance code 0: one-symbol codes
+        put(1, 1)
+        put(0, 1)
+        put(1, 1)
+        put(sym, 8)
+    value = np.zeros(g.size, np.uint64)
+    nbits = np.zeros(g.size, np.int64)
+    for (codes, lengths), sym in zip(tables, chans):
+        value |= codes[sym].astype(np.uint64) << nbits.astype(np.uint64)
+        nbits += lengths[sym]
+    head_bits = np.array([(v >> k) & 1 for v, n in head for k in range(n)], np.uint8)
+    parts = [head_bits]
+    shifts = np.arange(45, dtype=np.uint64)
+    for i in range(0, g.size, 1 << 16):  # pixels' bits, in slices to bound memory
+        v, n = value[i:i + (1 << 16)], nbits[i:i + (1 << 16)]
+        bits = ((v[:, None] >> shifts) & np.uint64(1)).astype(np.uint8)
+        parts.append(bits[np.arange(45) < n[:, None]])
+    payload = np.packbits(np.concatenate(parts), bitorder="little").tobytes()
+    chunk = b"VP8L" + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
 def format_phase(card, traversal, cli_render):
     """Phase 42: the TGA, BMP, PNM, GIF and PSD decoders on this machine
     (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
@@ -2861,6 +2986,118 @@ def tiff_phase(card, traversal, cli_render):
     return out
 
 
+def webp_phase(card, traversal, cli_render):
+    """Phase 44: the WebP decoder on this machine (no PIL here): the WebP
+    fixtures' digests, the 2048^2 albedo as the committed lossy WebP and as
+    a lossless one written here (``vp8l_bytes``), each decode's median of 3
+    no slower than the PNG route's, and the config-3 CLI on both against
+    the PNG route of their decoded pixels (bit-equal frames, 6 tree closest
+    launches each, one launch of each WebP run held to the plain walk at 0
+    ulp); returns the tree kernel's errors and the figures it logs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+
+    t_phase = time.perf_counter()
+    log(f"phase 44: WebP decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
+        f"lossy and lossless WebP, the config-3 CLI on both [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if k.endswith(".webp")}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 14, f"only {len(digests)} WebP fixtures in digests.json")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)  # the PNG route's pixels
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_WEBP), "rb") as f:
+        lossy = f.read()
+    t0 = time.perf_counter()
+    lossless = vp8l_bytes(albedo)
+    log(f"  wrote the 2048^2 lossless WebP in {time.perf_counter() - t0:.2f} s ({len(lossless)} "
+        "bytes: subtract-green, prefix codes from the histograms)")
+    lossy_px = decode_image(lossy, ALBEDO_WEBP)
+    check(np.array_equal(decode_image(lossless, "lossless"), albedo),
+          "the lossless 2048^2 WebP decodes to other pixels than it was written from")
+    out = {}
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for key, data in (("lossy", lossy), ("lossless", lossless)):
+        med, runs = _median_s(lambda: decode_image(data, key))
+        out[f"webp_{key}_decode_s"] = med
+        log(f"  2048^2 {key} WebP decode on the host, median of 3: {med:.4f} s ({len(data)} "
+            f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+        check(med <= png_s, f"the {key} WebP decodes the albedo slower than the PNG route: "
+              f"{med:.4f} s against {png_s:.4f} s")
+
+    full = ENVTEX_FULL
+    cfg_spp, depth = full["spp"], full["depth"]
+    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
+    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
+    tree_err = tree_occ_err = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        akari = write_envtex_terrain(tmp, **full)
+        for name, data in (("albedo_q85.webp", lossy), ("albedo_lossless.webp", lossless),
+                           ("lossy_decoded.png", encode_png(lossy_px))):
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(data)
+        mtl = os.path.join(tmp, "terrain.mtl")
+        with open(mtl) as f:
+            mtl_text = f.read()
+        frames = {}
+        for run, albedo_name in enumerate(("lossy_decoded.png", "albedo_q85.webp", "albedo.png",
+                                           "albedo_lossless.webp")):
+            with open(mtl, "w") as f:
+                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
+            reset_all(traversal)
+            with log_records() as logbuf, captured_write_png() as written, \
+                    kept_call(ti, ["closest"], keep=1) as calls:
+                t0 = time.perf_counter()
+                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
+                                      "--device", "cuda", "-v"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                   for n, c in m.LAUNCHES.items() if c}
+            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
+            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
+            if albedo_name.endswith(".webp"):  # one launch of the path against the plain walk
+                rays_k, args_k = calls.kept["closest"]
+                err = compare_kernel(f"tree config-3 {albedo_name} launch", rays_k, ti, args_k,
+                                     2 * (full["n"] - 1) ** 2 + 2, max_ulp_allowed=0)[:2]
+                tree_err, tree_occ_err = max(tree_err, err[0]), max(tree_occ_err, err[1])
+            del calls
+            frames[albedo_name] = np.asarray(written[-1])
+            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
+            parse_s = parsed_seconds(logbuf.getvalue())
+            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
+                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
+            out[f"cli_{albedo_name}_s"], out[f"parse_{albedo_name}_s"] = wall, parse_s
+    check(np.array_equal(frames["albedo_q85.webp"], frames["lossy_decoded.png"]),
+          "the frame on the lossy WebP differs from the frame on a PNG of its decoded pixels")
+    check(np.array_equal(frames["albedo_lossless.webp"], frames["albedo.png"]),
+          "the frame on the lossless WebP differs from the PNG route's")
+    log("  the lossy and lossless WebP albedo frames are bit-equal to the frames on PNGs of "
+        "their decoded pixels")
+    log(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
 def main():
     import torch
 
@@ -2904,10 +3141,10 @@ def main():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
-        # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder
-        # and the GIF and TIFF LZW decoders
+        # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder,
+        # the GIF and TIFF LZW decoders and the two WebP decoders
         natives = {n: pool.submit(native_loader.build, n)
-                   for n in ("bvh", "jpeg", "gif", "tiff")}
+                   for n in ("bvh", "jpeg", "gif", "tiff", "webp_vp8l", "webp_vp8")}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
         native_paths = {n: f.result() for n, f in natives.items()}
@@ -3479,11 +3716,13 @@ def main():
     image_phase(card, traversal, cli_render)
     fmts = format_phase(card, traversal, cli_render)
     tiffs = tiff_phase(card, traversal, cli_render)
-    tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"])
-    tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"])
+    webps = webp_phase(card, traversal, cli_render)
+    tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"])
+    tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
+                       webps["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 44: result ----------------------------------------------------
+    # ---- phase 45: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

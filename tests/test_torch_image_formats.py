@@ -17,8 +17,8 @@ bit with ``to_linear`` True and False:
   extended): wherever PIL reads the file the port gives its pixels, and
   wherever PIL refuses it the port raises ``ValueError``;
 - the forms PIL refuses, each refused by the port naming the form; CCITT
-  TIFFs name their compression, WebP still raises "unsupported image
-  format", and Lab PSDs, which
+  TIFFs name their compression, a WebP that libwebp refuses is refused
+  naming WebP, and Lab PSDs, which
   PIL converts with its own arithmetic, are refused naming "Lab";
 - an OBJ whose ``map_Kd`` is a TGA renders at 16x16 on the CPU bit-equal
   to the same OBJ on a PNG of the same pixels.
@@ -553,8 +553,9 @@ REFUSED = {
     "psd-version-2": (lambda: b"8BPS\x00\x02" + _psd_header(3, 8)[6:], "version 2"),
     "tiff-le": (lambda: _ccitt_tiff("<", 4), "CCITT Group 4-compressed TIFF"),
     "tiff-be": (lambda: _ccitt_tiff(">", 3), "CCITT Group 3-compressed TIFF"),
+    # a VP8 chunk of 0 bytes: libwebp refuses it, and so does the port's WebP decoder
     "webp": (lambda: b"RIFF" + struct.pack("<I", 40) + b"WEBPVP8 " + bytes(40),
-             r"unsupported image format \(WebP\)"),
+             r"WebP file refused by libwebp's checks"),
 }
 # forms PIL reads that the port refuses, naming them (ROADMAP.md, later slices)
 PIL_READS = {"psd-lab", "pnm-pfm"}
@@ -578,8 +579,8 @@ def test_refused_forms_name_themselves(tmp_path, form):
     with pytest.raises(ValueError, match=match) as err:
         port_image.read_image(str(path))
     assert str(path) in str(err.value)
-    if form.startswith(("tiff", "webp")) or form in PIL_READS:
-        return  # the CCITT and WebP bodies here are no valid data; PIL reads Lab and PFM
+    if form.startswith("tiff") or form in PIL_READS:
+        return  # the CCITT bodies here are no valid data; PIL reads Lab and PFM
     with pytest.raises(Exception):
         _pil(data)
 

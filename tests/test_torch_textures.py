@@ -216,7 +216,7 @@ def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: arithmetic-coded and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
     read, a CCITT Group 4 TIFF, and a format the port has no decoder for,
-    WebP (read_image picks the decoder by signature)."""
+    QOI (read_image picks the decoder by signature)."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -238,9 +238,9 @@ def test_unsupported_images_name_their_format(tmp_path):
                                                            compression="group4")
     with pytest.raises(ValueError, match="CCITT Group 4-compressed TIFF is not supported"):
         port_image.read_image(str(tmp_path / "g4.tif"))
-    (tmp_path / "x.webp").write_bytes(b"RIFF" + bytes(4) + b"WEBPVP8 " + bytes(40))
+    (tmp_path / "x.qoi").write_bytes(b"qoif" + struct.pack(">IIBB", 2, 2, 3, 0) + bytes(20))
     with pytest.raises(ValueError, match="unsupported image format"):
-        port_image.read_image(str(tmp_path / "x.webp"))
+        port_image.read_image(str(tmp_path / "x.qoi"))
 
 
 # ------------------------------- _bilinear -------------------------------------

@@ -25,6 +25,15 @@ Writes into ``tests/data/torch_port_images/``:
   ``gif_bytes``, ``psd_bytes``) write every form, those Pillow cannot
   write included (colour-mapped and 16-bit TGA, BMP RLE and bitfields and
   OS/2 headers, GIF frames off the screen origin, PSD);
+- ``albedo2048_q85.webp``: ``envtex_texture(2048, 0)`` saved by PIL as a
+  lossy WebP at quality 85, and a dozen small WebPs (``webp_fixtures``):
+  lossy and lossless ones saved by PIL at several qualities and methods, a
+  16- and a 2-colour lossless image (bundled palettes), lossy with a
+  VP8L-coded alpha plane, a two-frame animation, one with ICC and EXIF
+  chunks, and files built here: a raw (uncompressed) alpha plane, an
+  animation whose first frame sits inside its canvas at an offset, and a
+  random VP8 key frame of ``tools/webp_writers.py`` (simple loop filter,
+  four token partitions);
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them.
@@ -32,8 +41,8 @@ Writes into ``tests/data/torch_port_images/``:
 ``chip_smoke.py`` decodes every fixture with the port and checks the
 digests; ``tests/test_torch_image_decode.py``,
 ``tests/test_torch_image_formats.py`` and ``tests/test_torch_image_tiff.py``
-hold ``digests.json`` to PIL's decode here, so it cannot go stale. Needs
-PIL.
+and ``tests/test_torch_image_webp.py`` hold ``digests.json`` to PIL's
+decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
 """
@@ -53,6 +62,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_images")
 ALBEDO = "albedo2048_q85_420.jpg"
+ALBEDO_WEBP = "albedo2048_q85.webp"
 
 
 def pattern(h, w, seed):
@@ -877,6 +887,73 @@ def cmyk_jpegs():
             "ycck_adobe_q90.jpg": cmyk[:flag] + b"\x02" + cmyk[flag + 1:]}
 
 
+def webp_fixtures():
+    """The small WebP fixtures: PIL's writer, then container forms it
+    cannot write (built from PIL's own VP8 streams)."""
+    import io
+
+    from PIL import Image
+
+    from tools.webp_writers import chunk, random_vp8_frame, riff
+
+    def save(px, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    def chunks(data):  # the chunks of a RIFF WebP file, by fourcc
+        out, pos = {}, 12
+        while pos < len(data):
+            size = struct.unpack_from("<I", data, pos + 4)[0]
+            out[data[pos:pos + 4]] = data[pos + 8:pos + 8 + size]
+            pos += 8 + size + (size & 1)
+        return out
+
+    def vp8x(flags, w, h):
+        return chunk(b"VP8X", struct.pack("<I", flags) + (w - 1).to_bytes(3, "little")
+                     + (h - 1).to_bytes(3, "little"))
+
+    r = np.random.default_rng(33)
+    rgba = np.concatenate([pattern(19, 25, 34), r.integers(0, 256, (19, 25, 1),
+                                                           dtype=np.uint8)], axis=2)
+    yy, xx = np.mgrid[0:21, 0:45]
+    pal16 = r.integers(0, 256, (16, 3), dtype=np.uint8)[(xx // 3 + yy) % 16]
+    pal2 = r.integers(0, 256, (2, 3), dtype=np.uint8)[(xx[:13, :19] ^ yy[:13, :19]) & 1]
+    out = {
+        "webp_lossy_q75_33x17.webp": save(pattern(17, 33, 35), quality=75),
+        "webp_lossy_q0_m0_17x9.webp": save(pattern(9, 17, 36), quality=0, method=0),
+        "webp_lossy_q100_m6_64x48.webp": save(pattern(48, 64, 37), quality=100, method=6),
+        "webp_lossless_m6_40x30.webp": save(pattern(30, 40, 38), lossless=True, method=6),
+        "webp_lossless_m0_31x23.webp": save(pattern(23, 31, 39), lossless=True, method=0,
+                                            quality=0),
+        "webp_palette16_lossless_45x21.webp": save(pal16, lossless=True),
+        "webp_palette2_lossless_19x13.webp": save(pal2, lossless=True),
+        "webp_alpha_lossy_q60_25x19.webp": save(rgba, quality=60, alpha_quality=30),
+        "webp_icc_exif_24x16.webp": save(pattern(16, 24, 40), quality=80,
+                                         icc_profile=b"\0" * 128, exif=b"Exif\0\0MM\0*"),
+    }
+    buf = io.BytesIO()
+    Image.fromarray(pattern(20, 28, 41)).save(
+        buf, "WEBP", save_all=True, duration=50, quality=70,
+        append_images=[Image.fromarray(pattern(20, 28, 42))])
+    out["webp_anim_2frames_28x20.webp"] = buf.getvalue()
+    # a raw alpha plane (compression 0, gradient filter) before PIL's VP8 stream
+    vp8 = chunks(save(pattern(12, 16, 43), quality=50))[b"VP8 "]
+    alph = bytes([0x0C]) + r.integers(0, 256, 12 * 16, dtype=np.uint8).tobytes()
+    out["webp_alpha_raw_16x12.webp"] = riff(vp8x(0x10, 16, 12), chunk(b"ALPH", alph),
+                                            chunk(b"VP8 ", vp8))
+    # an animation whose first frame (lossless, 20 x 16) sits at (4, 6) of 40 x 30
+    frame = chunks(save(pattern(16, 20, 44), lossless=True))[b"VP8L"]
+    anmf = b"".join(v.to_bytes(3, "little") for v in (2, 3, 19, 15, 100)) + b"\0" \
+        + chunk(b"VP8L", frame)  # x / 2, y / 2, width - 1, height - 1, duration, flags
+    out["webp_anim_offset_40x30.webp"] = riff(
+        vp8x(0x12, 40, 30), chunk(b"ANIM", struct.pack("<IH", 0xFF000000, 0)),
+        chunk(b"ANMF", anmf))
+    out["webp_vp8_random_37x29.webp"] = riff(chunk(b"VP8 ", random_vp8_frame(
+        45, 37, 29, simple=True, level=30, sharpness=3, log2_parts=2)))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
@@ -896,6 +973,8 @@ def main(argv=None):
         Image.fromarray(px).convert(mode).save(os.path.join(args.output, name), "JPEG", **kw)
 
     save_jpeg(ALBEDO, envtex_texture(2048, 0), quality=85, subsampling=2)
+    Image.fromarray(envtex_texture(2048, 0)).save(os.path.join(args.output, ALBEDO_WEBP),
+                                                  "WEBP", quality=85)
     save_jpeg("prog_444_q90.jpg", pattern(64, 48, 1), quality=90, subsampling=0,
               progressive=True)
     save_jpeg("prog_opt_422_33x17.jpg", pattern(33, 17, 2), quality=70, subsampling=1,
@@ -935,7 +1014,8 @@ def main(argv=None):
         os.path.join(args.output, "tiff_pil_cmyk_packbits.tif"), compression="packbits")
     Image.fromarray(tif).convert("LA").save(
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
-    for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs()}.items():
+    for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
+                       **webp_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
