@@ -18,7 +18,9 @@ an error.
 (``parallel/render.py``): under ``python -m torch.distributed.run
 --nproc-per-node=N``, one rank a process over NCCL on ``cuda`` (a card a
 rank, ``cuda:{LOCAL_RANK}``) or gloo on ``cpu``, and rank 0 writes the
-image; run directly, on a 1-rank mesh. With ``--ao`` or an AO or BDPT
+image; run directly, one rank a card when ``cuda`` shows more than one
+card (spawned by ``parallel/launch.py``, as the reference's mesh spans
+every local device), else on a 1-rank mesh. With ``--ao`` or an AO or BDPT
 scene, ``--sharded`` is ignored as the reference ignores it: no ray mesh
 is made and the frame renders unsharded on ``--device``; under
 ``torch.distributed.run`` rank 0 alone renders and writes it (the
@@ -58,7 +60,8 @@ def main(argv=None):
                     help="torch device to render on (default: cuda)")
     ap.add_argument("--sharded", action="store_true",
                     help="shard the path tracer's pixels over the ranks of "
-                         "torch.distributed.run (rank 0 writes the image)")
+                         "torch.distributed.run, or over every card when run "
+                         "directly (rank 0 writes the image)")
     ap.add_argument("--profile", action="store_true",
                     help="print a per-span timing table after rendering")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -111,9 +114,17 @@ def main(argv=None):
 
     mesh = None
     if sharded:
+        from ..parallel import launch
         from ..parallel.mesh import initialize_distributed, make_ray_mesh
 
-        # torch.distributed.run sets WORLD_SIZE; run directly, one rank
+        ranks = launch.local_ranks(args.device)
+        if ranks > 1:
+            # run directly on several cards: one rank a card, as the reference's
+            # make_ray_mesh() spans every local device; rank 0 writes the image
+            log.info(f"--sharded: spawning {ranks} ranks, one a card")
+            return max(launch.spawn_ranks(_sharded_rank, ranks, args=(args,),
+                                          device=args.device, timeout=float("inf")))
+        # torch.distributed.run sets WORLD_SIZE; run directly on one card, one rank
         mesh = (initialize_distributed(args.device) if "WORLD_SIZE" in os.environ
                 else make_ray_mesh(args.device))
         device = mesh.device
@@ -125,6 +136,19 @@ def main(argv=None):
             import torch.distributed as dist
 
             dist.destroy_process_group()
+
+
+def _sharded_rank(mesh, args):
+    """One spawned rank of ``--sharded``: parse the scene and render this
+    rank's share of the pixels on its card (rank 0 writes the image);
+    returns the exit code."""
+    from ..scene import sdl
+    from ..utils.logger import get_logger, set_verbose
+
+    log = get_logger()
+    set_verbose(args.verbose)
+    scene_node = sdl.parse_file(args.input).exports["scene"]
+    return _render(args, log, scene_node, mesh.device, mesh)
 
 
 def _render(args, log, scene_node, device, mesh):

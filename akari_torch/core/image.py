@@ -12,8 +12,12 @@ decoder below (every colour type and bit depth, interlaced or not), JPEG
 through ``core/jpeg.py`` (baseline, extended sequential and progressive
 Huffman; grey, three and four components), BMP, GIF, PNM, PSD and TGA
 through ``core/image_formats.py``, TIFF (PIL's six header prefixes)
-through ``core/tiff.py``, and WebP (lossless, lossy, with alpha, the first
-frame of an animation) through ``core/webp.py``. The reference reads them
+through ``core/tiff.py``, WebP (lossless, lossy, with alpha, the first
+frame of an animation) through ``core/webp.py``, and the game-texture
+formats: DDS (BC1-BC7, the DX10 header, the uncompressed mask, luminance
+and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
+``core/blp.py`` and FTEX (DXT1 or raw) through ``core/ftex.py``, the blocks
+decoded by ``native/bcn.cpp``. The reference reads them
 with PIL, which the card's machine does not have; the pixels equal PIL's
 ``convert("RGB")``. Other formats PIL reads (ICO, PCX, QOI, ...) raise an
 error naming the formats read here.
@@ -26,6 +30,7 @@ import zlib
 
 import numpy as np
 
+from .image_formats import _check_size
 from .spectrum import linear_to_srgb, srgb_to_linear, to_uint8_srgb
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -183,6 +188,7 @@ def decode_png(data, what="PNG"):
         body = data[pos + 8:pos + 8 + length]
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body[:13])
+            _check_size(hdr[0], hdr[1], what, "PNG")  # before any image data is read
         elif tag == b"PLTE":
             palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif tag == b"IDAT":
@@ -326,6 +332,12 @@ def image_format(data):
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L",
                                                                          b"VP8X"):
         return "WebP"
+    if data[:4] == b"DDS ":
+        return "DDS"
+    if data[:4] in (b"BLP1", b"BLP2"):
+        return "BLP"
+    if data[:4] == b"FTEX":
+        return "FTEX"
     if tga_header(data) is not None:
         return "TGA"
     return None
@@ -333,7 +345,8 @@ def image_format(data):
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
-    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF and WebP, told
+    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, WebP, DDS,
+    BLP and FTEX, told
     apart as PIL tells them (``image_format``). Other formats, and forms a
     decoder refuses, raise ``ValueError`` naming them."""
     fmt = image_format(data)
@@ -355,10 +368,22 @@ def decode_image(data, what="image"):
         from .webp import decode_webp
 
         return decode_webp(data, what)
+    if fmt == "DDS":
+        from .dds import decode_dds
+
+        return decode_dds(data, what)
+    if fmt == "BLP":
+        from .blp import decode_blp
+
+        return decode_blp(data, what)
+    if fmt == "FTEX":
+        from .ftex import decode_ftex
+
+        return decode_ftex(data, what)
     named = f" ({fmt})" if fmt else ""
     raise ValueError(f"{what}: unsupported image format{named} (the port reads PNG, JPEG, "
-                     "BMP, GIF, PNM, PSD, TGA, TIFF, WebP, .hdr and .npy; not ICO, PCX, SGI, "
-                     "DDS, QOI or the other formats PIL opens)")
+                     "BMP, GIF, PNM, PSD, TGA, TIFF, WebP, DDS, BLP, FTEX, .hdr and .npy; not "
+                     "ICO, PCX, SGI, QOI or the other formats PIL opens)")
 
 
 def read_image(path, to_linear=True):

@@ -41,6 +41,8 @@ import ctypes
 
 import numpy as np
 
+from .image_formats import _check_size
+
 # zig-zag index -> natural (row-major) index of an 8x8 block
 ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -176,9 +178,16 @@ def decode_jpeg(data, what="JPEG"):
     (or YCCK, converted to CMYK as libjpeg's ``ycck_cmyk_convert``), which
     PIL reads as inverted Adobe CMYK (raw mode ``CMYK;I``) and converts
     with its cmyk2rgb."""
+    comps, space, _ = decode_components(data, what)
+    return components_to_rgb(comps, space)
+
+
+def components_to_rgb(comps, space):
+    """``decode_components``' planes and colour space -> [H, W, 3] uint8 as
+    PIL converts them: grey replicated, YCbCr by libjpeg's tables, CMYK
+    (YCCK first converted to CMYK) inverted and through cmyk2rgb."""
     from .image_formats import _cmyk_to_rgb
 
-    comps, space, _ = decode_components(data, what)
     if space == "grey":
         return np.repeat(comps[0][..., None], 3, axis=-1)
     if space == "RGB":
@@ -260,6 +269,7 @@ def decode_components(data, what="JPEG", tables=None, space=None):
             if frame is not None:
                 raise ValueError(f"{what}: JPEG with two frame headers")
             frame = _frame(code, body, what)
+            _check_size(frame["w"], frame["h"], what, "JPEG")  # before any allocation
         elif code in _REFUSED_SOF:
             raise ValueError(f"{what}: {_REFUSED_SOF[code]} JPEG is not supported "
                              "(baseline, extended sequential and progressive Huffman only)")

@@ -16,11 +16,13 @@ by a hash of the source, the compiler and the flags, and loaded with
   (``akari_torch/core/tiff.py``);
 - ``webp_vp8l``: ``webp_vp8l.cpp``, lossless WebP images and alpha planes,
   and ``webp_vp8``: ``webp_vp8.cpp``, lossy WebP key frames to RGB
-  (``akari_torch/core/webp.py``).
+  (``akari_torch/core/webp.py``);
+- ``bcn``: ``bcn.cpp``, the BC1-BC7 blocks of DDS and FTEX textures
+  (``akari_torch/core/dds.py``, ``ftex.py``).
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
-would give another triangle storage order, and the JPEG, GIF, TIFF and WebP
-decoders have no Python entropy, LZW or VP8 decoder, so there is no fallback.
+would give another triangle storage order, and the JPEG, GIF, TIFF, WebP
+and BCn decoders have no Python twin, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -106,6 +108,16 @@ def _bind_vp8(lib):
     ]
 
 
+def _bind_bcn(lib):
+    i32, u8p = ctypes.c_int32, ctypes.c_void_p
+    for name in ("akr_bc1", "akr_bc2", "akr_bc3", "akr_bc4", "akr_bc7"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32, u8p]
+    for name in ("akr_bc5", "akr_bc6h"):  # ... and whether the block is signed
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32, i32, u8p]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
@@ -115,6 +127,7 @@ SOURCES = {
     "tiff": ("tiff_lzw.cpp", "libakr_tiff.so", "the TIFF LZW decoder", _bind_tiff),
     "webp_vp8l": ("webp_vp8l.cpp", "libakr_vp8l.so", "the lossless WebP decoder", _bind_vp8l),
     "webp_vp8": ("webp_vp8.cpp", "libakr_vp8.so", "the lossy WebP decoder", _bind_vp8),
+    "bcn": ("bcn.cpp", "libakr_bcn.so", "the DDS / FTEX block (BCn) decoder", _bind_bcn),
 }
 
 _lock = threading.Lock()

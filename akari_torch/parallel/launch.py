@@ -38,6 +38,18 @@ def rank_route(device, ranks):
     return "cuda:0", "gloo", True
 
 
+def local_ranks(device):
+    """The ranks a ray mesh on ``device`` spans when the process was not
+    started by ``torch.distributed.run`` (no ``WORLD_SIZE``): one a card on
+    ``cuda`` with more than one card seen, as the reference's
+    ``make_ray_mesh()`` spans every local device; else 1."""
+    import torch
+
+    if "WORLD_SIZE" in os.environ or torch.device(device).type != "cuda":
+        return 1
+    return max(1, torch.cuda.device_count())
+
+
 class RankFailure(RuntimeError):
     """A rank of ``spawn_ranks`` failed, timed out or died."""
 

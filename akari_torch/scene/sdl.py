@@ -5,9 +5,8 @@ Recursive-descent parser for ``.akari`` files: statements
 values are numbers, strings, booleans, arrays, ``$accessor.path``
 cross-module references, and ``Type { field: value, ... }`` object
 creation resolved through a node registry (scene/sdl_nodes.py). ``//``
-line comments. Node types whose slice has not been ported raise
-``NotImplementedError`` unchanged, so the caller sees which slice adds
-them.
+line comments. An exception a node factory raises becomes an ``SDLError``
+naming the type and the source location, as in the reference.
 """
 
 from __future__ import annotations
@@ -243,7 +242,7 @@ class Parser:
             raise SDLError(f"unknown node type {type_name!r}", loc)
         try:
             return factory(fields, base_dir=self.base_dir)
-        except (SDLError, NotImplementedError):
+        except SDLError:
             raise
         except Exception as e:
             raise SDLError(f"creating {type_name}: {e}", loc)

@@ -189,10 +189,32 @@ class Primary:
 
 
 def primary(device):
-    """The primary metric: fwd + bwd rays/s/chip, 4 spp, Cornell 256x256."""
+    """The primary metric: fwd + bwd rays/s/chip, 4 spp, Cornell 256x256,
+    over one rank a card when ``device`` is ``cuda`` and more than one card
+    is seen (spawned; bench.py's ``make_ray_mesh()`` spans every local
+    device), else over this process's mesh."""
     import torch
 
+    from akari_torch.parallel import launch
+
     device = torch.device(device)
+    ranks = launch.local_ranks(device)
+    if ranks > 1:
+        run = launch.spawn_ranks(_primary_rank, ranks, device="cuda", timeout=float("inf"))[0]
+        return dataclasses.replace(run, loss=torch.from_numpy(run.loss),
+                                   grad=torch.from_numpy(run.grad))
+    return _primary(device)
+
+
+def _primary_rank(mesh):
+    """``primary`` in one spawned rank, its tensors as NumPy arrays."""
+    run = _primary(mesh.device)
+    return dataclasses.replace(run, loss=run.loss.cpu().numpy(), grad=run.grad.cpu().numpy())
+
+
+def _primary(device):
+    import torch
+
     scene, camera, cfg, mesh, target = bench_setup(device)
     step = lambda: bench_step(scene, camera, cfg, mesh, target)  # noqa: E731
     loss, grad = step()  # builds the kernels; its loss and gradient are the run's

@@ -237,19 +237,28 @@ Phases (each checks its results; any failure exits non-zero):
     WebP's pixels, on the lossy WebP, on the PNG albedo and on the lossless
     WebP (frames bit-equal pairwise, 6 tree closest launches each, one
     launch of each WebP run held to the plain walk at 0 ulp);
-45. the result: a JSON line of kernel records (the dense records on the
+45. the DDS, BLP and FTEX decoders: their fixtures' digests (every BCn
+    form, the DX10 header, the mask, luminance and palette forms, BLP1
+    JPEG and palette, BLP2 palette and DXT, FTEX); the 2048^2 albedo
+    written here by ``tools/dds_writers.py`` as BC1 (FourCC DXT1) and as
+    BC7 (DX10, BC7_UNORM_SRGB), each with its full mip chain, each
+    decode's median of 3 no slower than the PNG route's; the config-3 CLI
+    on a PNG of each DDS's decoded pixels and on the DDS (frames bit-equal
+    pairwise, 6 tree closest launches each, one launch of the BC1 run held
+    to the plain walk at 0 ulp);
+46. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-44,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-45,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-44) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-45) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG entropy decoder,
-GIF and TIFF LZW decoders and WebP decoders) is built at start, one compiler
+GIF and TIFF LZW decoders, WebP decoders and BCn decoder) is built at start, one compiler
 process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
@@ -2724,6 +2733,63 @@ def vp8l_bytes(px):
     return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
 
 
+def config3_cli_runs(card, traversal, cli_render, files, names, held, max_ulp=0):
+    """The config-3 CLI (phase 24's scene at ``ENVTEX_FULL``, written anew)
+    with ``map_Kd`` on each of ``names`` in turn, ``files`` (name -> bytes)
+    written beside phase 24's albedo.png first: exit 0 and 6 tree closest
+    launches a run, each frame lit, and for each run in ``held`` one launch
+    held to the plain walk within ``max_ulp``; returns the frames by name,
+    the wall and parse times, and the tree kernel's errors."""
+    import numpy as np
+    import torch
+
+    from akari_torch.integrators import path as path_mod
+    from akari_torch.ops import tree_intersect as ti
+    from akari_torch.scene.builtin import write_envtex_terrain
+
+    full = ENVTEX_FULL
+    cfg_spp, depth = full["spp"], full["depth"]
+    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
+    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
+    frames, out, errs = {}, {}, [0.0, 0.0]
+    with tempfile.TemporaryDirectory() as tmp:
+        akari = write_envtex_terrain(tmp, **full)
+        for name, data in files.items():
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(data)
+        mtl = os.path.join(tmp, "terrain.mtl")
+        with open(mtl) as f:
+            mtl_text = f.read()
+        for run, albedo_name in enumerate(names):
+            with open(mtl, "w") as f:
+                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
+            reset_all(traversal)
+            with log_records() as logbuf, captured_write_png() as written, \
+                    kept_call(ti, ["closest"], keep=1) as calls:
+                t0 = time.perf_counter()
+                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
+                                      "--device", "cuda", "-v"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
+                   for n, c in m.LAUNCHES.items() if c}
+            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
+            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
+            if albedo_name in held:  # one launch of the path against the plain walk
+                rays_k, args_k = calls.kept["closest"]
+                err = compare_kernel(f"tree config-3 {albedo_name} launch", rays_k, ti, args_k,
+                                     2 * (full["n"] - 1) ** 2 + 2, max_ulp_allowed=max_ulp)
+                errs = [max(errs[0], err[0]), max(errs[1], err[1])]
+            del calls
+            frames[albedo_name] = np.asarray(written[-1])
+            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
+            parse_s = parsed_seconds(logbuf.getvalue())
+            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
+                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
+            out[f"cli_{albedo_name}_s"], out[f"parse_{albedo_name}_s"] = wall, parse_s
+    return frames, out, errs
+
+
 def format_phase(card, traversal, cli_render):
     """Phase 42: the TGA, BMP, PNM, GIF and PSD decoders on this machine
     (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
@@ -2733,12 +2799,9 @@ def format_phase(card, traversal, cli_render):
     import hashlib
 
     import numpy as np
-    import torch
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.integrators import path as path_mod
-    from akari_torch.ops import tree_intersect as ti
-    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+    from akari_torch.scene.builtin import envtex_texture
 
     t_phase = time.perf_counter()
     log(f"phase 42: TGA, BMP, PNM, GIF and PSD decoding without PIL: the fixtures' digests, "
@@ -2779,48 +2842,10 @@ def format_phase(card, traversal, cli_render):
               f"{key} decodes the albedo slower than the PNG route: {out[f'{key}_decode_s']:.4f} "
               f"s against {out['png_decode_s']:.4f} s")
 
-    full = ENVTEX_FULL
-    cfg_spp, depth = full["spp"], full["depth"]
-    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
-    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
-    tree_err = 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        akari = write_envtex_terrain(tmp, **full)
-        for key, name in (("tga_rle", "albedo.tga"), ("bmp", "albedo.bmp")):
-            with open(os.path.join(tmp, name), "wb") as f:
-                f.write(files[key])
-        mtl = os.path.join(tmp, "terrain.mtl")
-        with open(mtl) as f:
-            mtl_text = f.read()
-        frames = {}
-        for run, albedo_name in enumerate(("albedo.png", "albedo.tga", "albedo.bmp")):
-            with open(mtl, "w") as f:
-                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
-            reset_all(traversal)
-            with log_records() as logbuf, captured_write_png() as written, \
-                    kept_call(ti, ["closest"], keep=1) as calls:
-                t0 = time.perf_counter()
-                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
-                                      "--device", "cuda", "-v"])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
-                   for n, c in m.LAUNCHES.items() if c}
-            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
-            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
-            if albedo_name == "albedo.tga":  # one launch of the path against the plain walk
-                rays_k, args_k = calls.kept["closest"]
-                err = compare_kernel("tree config-3 TGA-albedo launch", rays_k, ti, args_k,
-                                     2 * (full["n"] - 1) ** 2 + 2)[:2]
-                tree_err = max(tree_err, err[0])
-                out["tree_occ_err"] = err[1]
-            del calls
-            frames[albedo_name] = np.asarray(written[-1])
-            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
-            parse_s = parsed_seconds(logbuf.getvalue())
-            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
-                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
-            out[f"cli_{albedo_name}_s"] = wall
+    frames, cli, (tree_err, out["tree_occ_err"]) = config3_cli_runs(
+        card, traversal, cli_render, {"albedo.tga": files["tga_rle"], "albedo.bmp": files["bmp"]},
+        ("albedo.png", "albedo.tga", "albedo.bmp"), {"albedo.tga"}, max_ulp=2)
+    out.update(cli)
     for name in ("albedo.tga", "albedo.bmp"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
               f"the frame on {name} differs from the PNG route's")
@@ -2874,12 +2899,9 @@ def tiff_phase(card, traversal, cli_render):
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
-    import torch
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.integrators import path as path_mod
-    from akari_torch.ops import tree_intersect as ti
-    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+    from akari_torch.scene.builtin import envtex_texture
 
     t_phase = time.perf_counter()
     log(f"phase 43: TIFF and CMYK / YCCK JPEG decoding without PIL: the fixtures' digests, "
@@ -2922,48 +2944,11 @@ def tiff_phase(card, traversal, cli_render):
         check(med <= png_s, f"TIFF {key} decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
-    full = ENVTEX_FULL
-    cfg_spp, depth = full["spp"], full["depth"]
-    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
-    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
-    tree_err = tree_occ_err = 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        akari = write_envtex_terrain(tmp, **full)
-        for key, name in (("lzw_pred2", "albedo_lzw.tif"), ("rgb16_deflate_pred2",
-                                                           "albedo_16.tif")):
-            with open(os.path.join(tmp, name), "wb") as f:
-                f.write(files[key])
-        mtl = os.path.join(tmp, "terrain.mtl")
-        with open(mtl) as f:
-            mtl_text = f.read()
-        frames = {}
-        for run, albedo_name in enumerate(("albedo.png", "albedo_lzw.tif", "albedo_16.tif")):
-            with open(mtl, "w") as f:
-                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
-            reset_all(traversal)
-            with log_records() as logbuf, captured_write_png() as written, \
-                    kept_call(ti, ["closest"], keep=1) as calls:
-                t0 = time.perf_counter()
-                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
-                                      "--device", "cuda", "-v"])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
-                   for n, c in m.LAUNCHES.items() if c}
-            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
-            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
-            if albedo_name != "albedo.png":  # one launch of the path against the plain walk
-                rays_k, args_k = calls.kept["closest"]
-                err = compare_kernel(f"tree config-3 {albedo_name} launch", rays_k, ti, args_k,
-                                     2 * (full["n"] - 1) ** 2 + 2, max_ulp_allowed=0)[:2]
-                tree_err, tree_occ_err = max(tree_err, err[0]), max(tree_occ_err, err[1])
-            del calls
-            frames[albedo_name] = np.asarray(written[-1])
-            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
-            parse_s = parsed_seconds(logbuf.getvalue())
-            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
-                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
-            out[f"cli_{albedo_name}_s"], out[f"parse_{albedo_name}_s"] = wall, parse_s
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_lzw.tif": files["lzw_pred2"], "albedo_16.tif": files["rgb16_deflate_pred2"]},
+        ("albedo.png", "albedo_lzw.tif", "albedo_16.tif"), {"albedo_lzw.tif", "albedo_16.tif"})
+    out.update(cli)
     for name in ("albedo_lzw.tif", "albedo_16.tif"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
               f"the frame on {name} differs from the PNG route's")
@@ -2997,12 +2982,9 @@ def webp_phase(card, traversal, cli_render):
     import hashlib
 
     import numpy as np
-    import torch
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.integrators import path as path_mod
-    from akari_torch.ops import tree_intersect as ti
-    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+    from akari_torch.scene.builtin import envtex_texture
 
     t_phase = time.perf_counter()
     log(f"phase 44: WebP decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
@@ -3044,49 +3026,13 @@ def webp_phase(card, traversal, cli_render):
         check(med <= png_s, f"the {key} WebP decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
-    full = ENVTEX_FULL
-    cfg_spp, depth = full["spp"], full["depth"]
-    chunk = max(1, min(cfg_spp, path_mod.MAX_RAYS_IN_FLIGHT // full["res"] ** 2))
-    expect = {"tree_intersect.closest": -(-cfg_spp // chunk) * (1 + depth)}
-    tree_err = tree_occ_err = 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        akari = write_envtex_terrain(tmp, **full)
-        for name, data in (("albedo_q85.webp", lossy), ("albedo_lossless.webp", lossless),
-                           ("lossy_decoded.png", encode_png(lossy_px))):
-            with open(os.path.join(tmp, name), "wb") as f:
-                f.write(data)
-        mtl = os.path.join(tmp, "terrain.mtl")
-        with open(mtl) as f:
-            mtl_text = f.read()
-        frames = {}
-        for run, albedo_name in enumerate(("lossy_decoded.png", "albedo_q85.webp", "albedo.png",
-                                           "albedo_lossless.webp")):
-            with open(mtl, "w") as f:
-                f.write(mtl_text.replace("map_Kd albedo.png", f"map_Kd {albedo_name}"))
-            reset_all(traversal)
-            with log_records() as logbuf, captured_write_png() as written, \
-                    kept_call(ti, ["closest"], keep=1) as calls:
-                t0 = time.perf_counter()
-                rc = cli_render.main(["-i", akari, "-o", os.path.join(tmp, f"cli{run}.png"),
-                                      "--device", "cuda", "-v"])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            got = {f"{m.__name__.split('.')[-1]}.{n}": c for m in traversal
-                   for n, c in m.LAUNCHES.items() if c}
-            check(rc == 0, f"CLI on {albedo_name} returned {rc}")
-            check(got == expect, f"CLI on {albedo_name}: launches {got}, expected {expect}")
-            if albedo_name.endswith(".webp"):  # one launch of the path against the plain walk
-                rays_k, args_k = calls.kept["closest"]
-                err = compare_kernel(f"tree config-3 {albedo_name} launch", rays_k, ti, args_k,
-                                     2 * (full["n"] - 1) ** 2 + 2, max_ulp_allowed=0)[:2]
-                tree_err, tree_occ_err = max(tree_err, err[0]), max(tree_occ_err, err[1])
-            del calls
-            frames[albedo_name] = np.asarray(written[-1])
-            check_image(frames[albedo_name], full["res"], f"CLI on {albedo_name}")
-            parse_s = parsed_seconds(logbuf.getvalue())
-            log(f"  CLI with map_Kd {albedo_name}: time to first image {wall:.3f} s wall (parse "
-                f"OBJ + MTL + texture + sky {parse_s:.3f} s), launches {got} [card: {card}]")
-            out[f"cli_{albedo_name}_s"], out[f"parse_{albedo_name}_s"] = wall, parse_s
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_q85.webp": lossy, "albedo_lossless.webp": lossless,
+         "lossy_decoded.png": encode_png(lossy_px)},
+        ("lossy_decoded.png", "albedo_q85.webp", "albedo.png", "albedo_lossless.webp"),
+        {"albedo_q85.webp", "albedo_lossless.webp"})
+    out.update(cli)
     check(np.array_equal(frames["albedo_q85.webp"], frames["lossy_decoded.png"]),
           "the frame on the lossy WebP differs from the frame on a PNG of its decoded pixels")
     check(np.array_equal(frames["albedo_lossless.webp"], frames["albedo.png"]),
@@ -3094,6 +3040,82 @@ def webp_phase(card, traversal, cli_render):
     log("  the lossy and lossless WebP albedo frames are bit-equal to the frames on PNGs of "
         "their decoded pixels")
     log(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
+def dds_phase(card, traversal, cli_render):
+    """Phase 45: the DDS, BLP and FTEX decoders on this machine (no PIL
+    here): their fixtures' digests; the 2048^2 albedo written by
+    ``tools/dds_writers.py`` as BC1 (FourCC DXT1) and as BC7 (DX10,
+    BC7_UNORM_SRGB), each with its full mip chain, each decode's median of
+    3 no slower than the PNG route's; and the config-3 CLI on a PNG of each
+    DDS's decoded pixels and on the DDS (frames bit-equal pairwise, 6 tree
+    closest launches each, one launch of the BC1 run held to the plain walk
+    at 0 ulp); returns the tree kernel's errors and the figures it logs."""
+    import hashlib
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.scene.builtin import envtex_texture
+    from tools.dds_writers import dds_albedo
+
+    t_phase = time.perf_counter()
+    log(f"phase 45: DDS, BLP and FTEX decoding without PIL: the fixtures' digests, the 2048^2 "
+        f"albedo as BC1 and BC7 DDS, the config-3 CLI on both [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items()
+                   if k.endswith((".dds", ".blp", ".ftc", ".ftu"))}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 32, f"only {len(digests)} DDS / BLP / FTEX fixtures in digests.json")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)  # the PNG route's pixels
+    files, decoded, out = {}, {}, {}
+    for form in ("BC1", "BC7"):
+        t0 = time.perf_counter()
+        files[form] = dds_albedo(albedo, form)
+        decoded[form] = decode_image(files[form], form)
+        check(decoded[form].shape == albedo.shape, f"the {form} DDS decodes to "
+              f"{decoded[form].shape}")
+        err = np.abs(decoded[form].astype(np.int32) - albedo).mean()
+        out[f"{form}_mean_abs_err"] = float(err)
+        log(f"  wrote the 2048^2 {form} DDS with its mip chain in {time.perf_counter() - t0:.2f} s "
+            f"({len(files[form])} bytes; mean |decoded - albedo| {err:.3f} levels)")
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for form, data in files.items():
+        med, runs = _median_s(lambda: decode_image(data, form))
+        out[f"dds_{form}_decode_s"] = med
+        log(f"  2048^2 {form} DDS decode on the host, median of 3: {med:.4f} s ({len(data)} "
+            f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+        check(med <= png_s, f"the {form} DDS decodes the albedo slower than the PNG route: "
+              f"{med:.4f} s against {png_s:.4f} s")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {**{f"albedo_{form}.dds": data for form, data in files.items()},
+         **{f"{form}_decoded.png": encode_png(px) for form, px in decoded.items()}},
+        ("BC1_decoded.png", "albedo_BC1.dds", "BC7_decoded.png", "albedo_BC7.dds"),
+        {"albedo_BC1.dds"})
+    out.update(cli)
+    for form in files:
+        check(np.array_equal(frames[f"albedo_{form}.dds"], frames[f"{form}_decoded.png"]),
+              f"the frame on the {form} DDS differs from the frame on a PNG of its pixels")
+    log("  the BC1 and BC7 DDS albedo frames are bit-equal to the frames on PNGs of their "
+        "decoded pixels")
+    log(f"  phase 45: {time.perf_counter() - t_phase:.1f} s")
     out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
@@ -3142,9 +3164,9 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder,
-        # the GIF and TIFF LZW decoders and the two WebP decoders
+        # the GIF and TIFF LZW decoders, the two WebP decoders and the BCn decoder
         natives = {n: pool.submit(native_loader.build, n)
-                   for n in ("bvh", "jpeg", "gif", "tiff", "webp_vp8l", "webp_vp8")}
+                   for n in ("bvh", "jpeg", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn")}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
         native_paths = {n: f.result() for n, f in natives.items()}
@@ -3717,12 +3739,14 @@ def main():
     fmts = format_phase(card, traversal, cli_render)
     tiffs = tiff_phase(card, traversal, cli_render)
     webps = webp_phase(card, traversal, cli_render)
-    tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"])
+    ddss = dds_phase(card, traversal, cli_render)
+    tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
+                   ddss["tree_err"])
     tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
-                       webps["tree_occ_err"])
+                       webps["tree_occ_err"], ddss["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 45: result ----------------------------------------------------
+    # ---- phase 46: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -100,6 +100,32 @@ def test_primary_prints_the_four_keys_last(monkeypatch, capsys):
     assert bench_torch.ITERS >= 10 and bench_torch.WARMUP == 2
 
 
+def test_primary_spawns_one_rank_a_card(monkeypatch):
+    """With more than one card seen and no WORLD_SIZE, the primary metric
+    runs in one spawned rank a card (bench.py's make_ray_mesh() spans every
+    local device) and reports rank 0's run; rank 0 runs here on the CPU."""
+    from akari_torch.parallel import launch
+    from akari_torch.parallel.mesh import make_ray_mesh
+
+    monkeypatch.setattr(bench_torch, "RES", 16)
+    _stub_timer(monkeypatch, [20.0] * 10)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    asked = []
+
+    def fake_spawn(fn, world_size, args=(), **kw):
+        asked.append((world_size, kw["device"]))
+        return [fn(make_ray_mesh("cpu"), *args) for _ in range(world_size)]
+
+    monkeypatch.setattr(launch, "spawn_ranks", fake_spawn)
+    run = bench_torch.primary("cuda")
+    assert asked == [(2, "cuda")]
+    assert isinstance(run.loss, torch.Tensor) and isinstance(run.grad, torch.Tensor)
+    want = bench_torch.primary("cpu")
+    np.testing.assert_array_equal(run.grad.numpy(), want.grad.numpy())
+    assert float(run.loss) == float(want.loss) and run.result == want.result
+
+
 def test_step_times_calls_after_the_warm_ups():
     calls = []
     times = bench_torch.step_times(lambda: calls.append(1), 4, 2, CPU)

@@ -77,3 +77,60 @@ def test_hdr_npy_roundtrip(tmp_path):
     img = np.random.default_rng(0).random((4, 5, 3)).astype(np.float32)
     write_hdr_npy(tmp_path / "x.npy", img)
     np.testing.assert_array_equal(np.load(tmp_path / "x.npy"), img)
+
+
+def _fake_cards(monkeypatch, count):
+    """``cuda`` seen with ``count`` cards on a machine without one."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+
+
+@pytest.mark.parametrize("cards", [2, 3])
+def test_sharded_run_directly_spawns_one_rank_a_card(monkeypatch, tmp_path, cards):
+    """Run directly with more than one card, ``--sharded`` asks for one
+    rank a card, as the reference's make_ray_mesh() spans every local
+    device; rank 0's function renders its share and writes the image
+    (run here on a 1-rank CPU mesh: the same PNG as the unsharded CPU CLI)."""
+    from akari_torch.parallel import launch
+    from akari_torch.parallel.mesh import make_ray_mesh
+
+    args = ["-i", SCENE_FILE, "--width", "8", "--height", "8", "--spp", "1",
+            "--max-depth", "2"]
+    plain = tmp_path / "plain.png"
+    assert main(args + ["-o", str(plain), "--device", "cpu"]) == 0
+    _fake_cards(monkeypatch, cards)
+    asked = []
+
+    def fake_spawn(fn, world_size, args=(), **kw):
+        asked.append((world_size, kw["device"]))
+        return [fn(make_ray_mesh("cpu"), *args)] + [0] * (world_size - 1)
+
+    monkeypatch.setattr(launch, "spawn_ranks", fake_spawn)
+    out = tmp_path / "sharded.png"
+    assert main(args + ["-o", str(out), "--device", "cuda", "--sharded"]) == 0
+    assert asked == [(cards, "cuda")]
+    assert out.read_bytes() == plain.read_bytes()
+
+
+def test_sharded_on_one_card_renders_unspawned(monkeypatch, tmp_path):
+    """With one card (or under torch.distributed.run) nothing is spawned:
+    the CLI renders on its own 1-rank mesh."""
+    from akari_torch.parallel import launch, mesh
+
+    _fake_cards(monkeypatch, 1)
+    assert launch.local_ranks("cuda") == 1 and launch.local_ranks("cpu") == 1
+
+    def no_spawn(*a, **kw):
+        raise AssertionError("spawned ranks on one card")
+
+    monkeypatch.setattr(launch, "spawn_ranks", no_spawn)
+    cpu_mesh = mesh.make_ray_mesh("cpu")
+    monkeypatch.setattr(mesh, "make_ray_mesh", lambda device: cpu_mesh)
+    out = tmp_path / "out.png"
+    assert main(["-i", SCENE_FILE, "-o", str(out), "--device", "cuda", "--sharded",
+                 "--width", "8", "--height", "8", "--spp", "1", "--max-depth", "2"]) == 0
+    assert out.exists()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    assert launch.local_ranks("cuda") == 1

@@ -600,3 +600,33 @@ def test_fixtures_decode_to_their_digests():
         px = (port_jpeg.decode_jpeg(data, name) if name.endswith(".jpg")
               else port_image.decode_png(data, name))
         assert hashlib.sha256(px.tobytes()).hexdigest() == rec["sha256"], name
+
+
+# ------------------------------ PIL's pixel limit ------------------------------
+
+def _huge_headers(n=13_380):
+    """A PNG of an IHDR and an IEND and a JPEG of an SOF and an SOS header,
+    both n x n with no image data: PIL reads that much before it checks."""
+    png = (port_image.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", n, n, 1, 0, 0, 0, 0))
+           + _chunk(b"IEND", b""))
+    sof = b"\xff\xc0" + struct.pack(">HBHHB", 11, 8, n, n, 1) + bytes([1, 0x11, 0])
+    sos = b"\xff\xda" + struct.pack(">HB", 8, 1) + bytes([1, 0, 0, 63, 0])
+    return {"PNG": png, "JPEG": b"\xff\xd8" + sof + sos}
+
+
+@pytest.mark.parametrize("fmt", ["PNG", "JPEG"])
+def test_more_pixels_than_pil_opens_refused_from_the_header(fmt):
+    """PIL refuses an image of more than 2 * Image.MAX_IMAGE_PIXELS pixels
+    (178,956,970) when it opens it, before any decoding: a 13,380^2 header
+    with no image data raises DecompressionBombError there, and the port
+    refuses it at once, naming the limit, without decoding."""
+    import time
+
+    assert 13_380 ** 2 > 2 * Image.MAX_IMAGE_PIXELS == 178_956_970
+    data = _huge_headers()[fmt]
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(data))
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError, match="more pixels than PIL opens"):
+        port_image.decode_image(data, "huge")
+    assert time.perf_counter() - t0 < 0.5

@@ -195,6 +195,26 @@ def test_unported_nodes_name_their_slice(src, slice_name, tmp_path):
             mod.parse_string(src, base_dir=str(tmp_path))
 
 
+@pytest.mark.parametrize("exc", [NotImplementedError, KeyError, ValueError])
+def test_factory_exceptions_become_sdl_errors(exc):
+    """An exception a node factory raises, NotImplementedError included,
+    reaches the caller as an SDLError naming the type and the source
+    location, with the same message in both packages."""
+
+    def factory(fields, base_dir="."):
+        raise exc("no such form")
+
+    src = 'let a = 1\nexport s = Thing { size: 2 }'
+    msgs = []
+    for mod in (sdl, ref_sdl):
+        with pytest.raises(mod.SDLError) as err:
+            mod.parse_string(src, registry={"Thing": factory})
+        assert (err.value.loc.line, err.value.loc.col) == (2, 12)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert "creating Thing:" in msgs[0] and "no such form" in msgs[0]
+
+
 def test_unported_scene_state_is_refused():
     # instanced scenes compile since slice 3; other shapes are refused
     with pytest.raises(TypeError, match="Mesh or Instance"):

@@ -215,8 +215,10 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: arithmetic-coded and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
-    read, a CCITT Group 4 TIFF, and a format the port has no decoder for,
-    QOI (read_image picks the decoder by signature)."""
+    read, a CCITT Group 4 TIFF, a DDS FourCC PIL does not read (DXT2), and
+    a format the port has no decoder for, QOI (read_image picks the decoder
+    by signature). DDS, which PIL opens and the port refused before, now
+    reads as the reference reads it."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -238,6 +240,14 @@ def test_unsupported_images_name_their_format(tmp_path):
                                                            compression="group4")
     with pytest.raises(ValueError, match="CCITT Group 4-compressed TIFF is not supported"):
         port_image.read_image(str(tmp_path / "g4.tif"))
+    from tools.dds_writers import dds_bytes
+
+    blocks = np.random.default_rng(5).integers(0, 256, 32, dtype=np.uint8).tobytes()
+    (tmp_path / "x.dds").write_bytes(dds_bytes(8, 8, [blocks], fourcc=b"DXT2"))
+    with pytest.raises(ValueError, match="DDS of FourCC b'DXT2'"):
+        port_image.read_image(str(tmp_path / "x.dds"))
+    (tmp_path / "y.dds").write_bytes(dds_bytes(8, 8, [blocks], fourcc=b"DXT1"))
+    _same_read(str(tmp_path / "y.dds"))
     (tmp_path / "x.qoi").write_bytes(b"qoif" + struct.pack(">IIBB", 2, 2, 3, 0) + bytes(20))
     with pytest.raises(ValueError, match="unsupported image format"):
         port_image.read_image(str(tmp_path / "x.qoi"))

@@ -34,14 +34,19 @@ Writes into ``tests/data/torch_port_images/``:
   animation whose first frame sits inside its canvas at an offset, and a
   random VP8 key frame of ``tools/webp_writers.py`` (simple loop filter,
   four token partitions);
+- DDS, BLP and FTEX files of a few hundred bytes each (``dds_fixtures``):
+  Pillow's DDS and BLP writers and the forms they cannot write, from
+  ``tools/dds_writers.py`` (every BCn form, BC6H and BC7 of every mode, the
+  DX10 header, the mask and palette forms, BLP1 JPEG, BLP2 DXT, FTEX);
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them.
 
 ``chip_smoke.py`` decodes every fixture with the port and checks the
 digests; ``tests/test_torch_image_decode.py``,
-``tests/test_torch_image_formats.py`` and ``tests/test_torch_image_tiff.py``
-and ``tests/test_torch_image_webp.py`` hold ``digests.json`` to PIL's
+``tests/test_torch_image_formats.py``, ``tests/test_torch_image_tiff.py``,
+``tests/test_torch_image_webp.py`` and ``tests/test_torch_image_dds.py``
+hold ``digests.json`` to PIL's
 decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
@@ -954,6 +959,92 @@ def webp_fixtures():
     return out
 
 
+def dds_fixtures():
+    """The small DDS, BLP and FTEX fixtures: Pillow's DDS writer (DXT1 /
+    DXT3 / DXT5, BC5, the uncompressed forms), Pillow's BLP writer
+    (palette BLP1 and BLP2), then the forms it cannot write, built by
+    ``tools/dds_writers.py``: BC1 / BC7 encodings with full mip chains,
+    drawn blocks of every BCn form (BC1 with 3-colour blocks, BC5 signed,
+    BC6H UF16 / SF16 of every mode, BC7 of every mode), the DX10 header's
+    BC2-BC4 and R8G8B8A8 codes, mask forms, a palette DDS, BLP1 JPEG and
+    BLP2 DXT1 / DXT3 / DXT5, FTEX DXT1 and raw."""
+    import io
+
+    from PIL import Image
+
+    from tools import dds_writers as dw
+
+    def pil_dds(px, mode, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(px).convert(mode).save(buf, "DDS", **kw)
+        return buf.getvalue()
+
+    def pil_blp(px, version):
+        buf = io.BytesIO()
+        Image.fromarray(px).convert("P").save(buf, "BLP", blp_version=version)
+        return buf.getvalue()
+
+    r = np.random.default_rng(46)
+
+    def blocks(w, h, form):
+        return dw.random_blocks(r, -(-w // 4) * -(-h // 4), form)
+
+    bc6 = lambda dxgi: dw.dds_bytes(16, 72, [b"".join(  # noqa: E731 (a row of blocks a mode)
+        dw.bc6h_blocks(r, 4, code) for code in dw.BC6H_CODES)], dxgi=dxgi)
+    bc7 = b"".join(dw.bc7_blocks(r, 4, m) for m in range(9))
+    masks565 = (0xF800, 0x07E0, 0x001F, 0)
+    out = {
+        "dds_pil_dxt1_21x13.dds": pil_dds(pattern(13, 21, 47), "RGB", pixel_format="DXT1"),
+        "dds_pil_dxt5_16x12.dds": pil_dds(pattern(12, 16, 48), "RGBA", pixel_format="DXT5"),
+        "dds_pil_bc5_12x8.dds": pil_dds(pattern(8, 12, 49), "RGB", pixel_format="BC5"),
+        "dds_pil_rgb_11x9.dds": pil_dds(pattern(9, 11, 50), "RGB"),
+        "dds_pil_rgba_10x7.dds": pil_dds(pattern(7, 10, 51), "RGBA"),
+        "dds_pil_l_9x6.dds": pil_dds(pattern(6, 9, 52), "L"),
+        "dds_pil_la_7x5.dds": pil_dds(pattern(5, 7, 53), "LA"),
+        "dds_bc1_mips_32x16.dds": dw.dds_albedo(pattern(16, 32, 54), "BC1"),
+        "dds_bc7_srgb_mips_24x20.dds": dw.dds_albedo(pattern(20, 24, 55), "BC7"),
+        "dds_dxt1_random_13x7.dds": dw.dds_bytes(13, 7, [blocks(13, 7, "BC1")], fourcc=b"DXT1"),
+        "dds_dxt3_random_12x8.dds": dw.dds_bytes(12, 8, [blocks(12, 8, "BC2")], fourcc=b"DXT3"),
+        "dds_ati1_random_16x8.dds": dw.dds_bytes(16, 8, [blocks(16, 8, "BC4")], fourcc=b"ATI1"),
+        "dds_ati2_random_8x8.dds": dw.dds_bytes(8, 8, [blocks(8, 8, "BC5")], fourcc=b"ATI2"),
+        "dds_bc5s_random_9x9.dds": dw.dds_bytes(9, 9, [blocks(9, 9, "BC5")], fourcc=b"BC5S"),
+        "dds_dx10_bc6h_uf16_16x72.dds": bc6(95),
+        "dds_dx10_bc6h_sf16_16x72.dds": bc6(96),
+        "dds_dx10_bc7_modes_16x36.dds": dw.dds_bytes(16, 36, [bc7], dxgi=98),
+        "dds_dx10_bc2_unorm_8x4.dds": dw.dds_bytes(8, 4, [blocks(8, 4, "BC2")], dxgi=74),
+        "dds_dx10_bc3_typeless_5x6.dds": dw.dds_bytes(5, 6, [blocks(5, 6, "BC3")], dxgi=76),
+        "dds_dx10_bc4_unorm_7x4.dds": dw.dds_bytes(7, 4, [blocks(7, 4, "BC4")], dxgi=80),
+        "dds_dx10_rgba8_srgb_6x5.dds": dw.dds_bytes(
+            6, 5, [r.integers(0, 256, 120, dtype=np.uint8).tobytes()], dxgi=29),
+        "dds_mask_r5g6b5_10x6.dds": dw.dds_bytes(
+            10, 6, [r.integers(0, 256, 120, dtype=np.uint8).tobytes()], pf_flags=dw.DDPF_RGB,
+            bitcount=16, masks=masks565),
+        "dds_mask_a4r4g4b4_short_7x5.dds": dw.dds_bytes(  # 5 pixels short: PIL reads zeros
+            7, 5, [r.integers(0, 256, 60, dtype=np.uint8).tobytes()],
+            pf_flags=dw.DDPF_RGB | dw.DDPF_ALPHAPIXELS, bitcount=16,
+            masks=(0x0F00, 0x00F0, 0x000F, 0xF000)),
+        "dds_palette_9x7.dds": dw.dds_header(9, 7, pf_flags=dw.DDPF_PALETTEINDEXED8, bitcount=8)
+        + r.integers(0, 256, 1024 + 63, dtype=np.uint8).tobytes(),
+        "blp1_pil_palette_12x10.blp": pil_blp(pattern(10, 12, 56), "BLP1"),
+        "blp2_pil_palette_15x9.blp": pil_blp(pattern(9, 15, 57), "BLP2"),
+        "blp2_dxt1_alpha_14x8.blp": dw.blp2_bytes(14, 8, [blocks(14, 8, "BC1")],
+                                                  alpha_depth=1, alpha_encoding=0),
+        "blp2_dxt3_16x8.blp": dw.blp2_bytes(16, 8, [blocks(16, 8, "BC2")], alpha_depth=8,
+                                            alpha_encoding=1),
+        "blp2_dxt5_noalpha_10x6.blp": dw.blp2_bytes(10, 6, [blocks(10, 6, "BC3")],
+                                                    alpha_encoding=7),
+        "ftex_dxt1_18x10.ftc": dw.ftex_bytes(18, 10, 0, [blocks(18, 10, "BC1"), bytes(8)]),
+        "ftex_raw_7x5.ftu": dw.ftex_bytes(7, 5, 1, [pattern(5, 7, 58).tobytes()]),
+    }
+    buf = io.BytesIO()
+    Image.fromarray(pattern(16, 24, 59)).save(buf, "JPEG", quality=85)
+    jpeg = buf.getvalue()
+    sos = jpeg.index(b"\xff\xda")
+    out["blp1_jpeg_24x16.blp"] = dw.blp1_bytes(24, 16, [jpeg[sos:]], compression=0,
+                                               jpeg_header=jpeg[:sos])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
@@ -1015,7 +1106,7 @@ def main(argv=None):
     Image.fromarray(tif).convert("LA").save(
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
-                       **webp_fixtures()}.items():
+                       **webp_fixtures(), **dds_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
