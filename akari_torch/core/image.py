@@ -17,10 +17,12 @@ frame of an animation) through ``core/webp.py``, and the game-texture
 formats: DDS (BC1-BC7, the DX10 header, the uncompressed mask, luminance
 and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
 ``core/blp.py`` and FTEX (DXT1 or raw) through ``core/ftex.py``, the blocks
-decoded by ``native/bcn.cpp``. The reference reads them
+decoded by ``native/bcn.cpp``; and ICO / CUR through ``core/ico.py``, QOI
+through ``core/qoi.py``, SGI through ``core/sgi.py`` and PCX through
+``core/pcx.py``. The reference reads them
 with PIL, which the card's machine does not have; the pixels equal PIL's
-``convert("RGB")``. Other formats PIL reads (ICO, PCX, QOI, ...) raise an
-error naming the formats read here.
+``convert("RGB")``. Other formats PIL reads (JPEG 2000, EPS, ICNS, ...)
+raise an error naming the formats read here.
 """
 
 from __future__ import annotations
@@ -187,6 +189,8 @@ def decode_png(data, what="PNG"):
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         if tag == b"IHDR":
+            if len(body) < 13:
+                raise ValueError(f"{what}: PNG IHDR chunk is truncated")
             hdr = struct.unpack(">IIBBBBB", body[:13])
             _check_size(hdr[0], hdr[1], what, "PNG")  # before any image data is read
         elif tag == b"PLTE":
@@ -309,81 +313,82 @@ def write_hdr(path, img_linear):
         f.write(rgbe.tobytes())
 
 
-def image_format(data):
-    """The format PIL would open ``data`` as, by signature (TGA, which has
-    none, by the sanity of its header, last), or None."""
+def _accepted(data):
+    """The formats whose PIL plugin accepts ``data``, in the order
+    ``Image.open`` tries them: the five plugins of ``Image.preinit``, then
+    ``Image.ID``'s order (TGA, which has no signature, by the sanity of its
+    header)."""
     from .image_formats import tga_header
     from .tiff import PREFIXES as TIFF_PREFIXES
 
-    if data[:8] == PNG_SIGNATURE:
-        return "PNG"
-    if data[:3] == JPEG_SIGNATURE:
-        return "JPEG"
-    if data[:2] == b"BM":
-        return "BMP"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "GIF"
-    if data[:1] == b"P" and len(data) >= 2 and data[1:2] in b"0123456fy":
-        return "PNM"
-    if data[:4] == b"8BPS":
-        return "PSD"
-    if data[:4] in TIFF_PREFIXES:
-        return "TIFF"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L",
-                                                                         b"VP8X"):
-        return "WebP"
-    if data[:4] == b"DDS ":
-        return "DDS"
-    if data[:4] in (b"BLP1", b"BLP2"):
-        return "BLP"
-    if data[:4] == b"FTEX":
-        return "FTEX"
-    if tga_header(data) is not None:
-        return "TGA"
-    return None
+    head = data[:16]
+    checks = (
+        ("BMP", head[:2] == b"BM"),
+        ("GIF", head[:6] in (b"GIF87a", b"GIF89a")),
+        ("JPEG", head[:3] == JPEG_SIGNATURE),
+        ("PNM", head[:1] == b"P" and len(head) >= 2 and head[1:2] in b"0123456fy"),
+        ("PNG", head[:8] == PNG_SIGNATURE),
+        ("BLP", head[:4] in (b"BLP1", b"BLP2")),
+        ("CUR", head[:4] == b"\0\0\2\0"),
+        ("PCX", len(head) >= 2 and head[0] == 10 and head[1] in (0, 2, 3, 5)),
+        ("DDS", head[:4] == b"DDS "),
+        ("FTEX", head[:4] == b"FTEX"),
+        ("ICO", head[:4] == b"\0\0\1\0"),
+        ("TIFF", head[:4] in TIFF_PREFIXES),
+        ("PSD", head[:4] == b"8BPS"),
+        ("QOI", head[:4] == b"qoif"),
+        ("SGI", head[:2] == b"\x01\xda"),
+        ("TGA", None),
+        ("WebP", head[:4] == b"RIFF" and head[8:12] == b"WEBP"
+         and head[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
+    )
+    return [fmt for fmt, ok in checks if ok or (ok is None and tga_header(data) is not None)]
+
+
+def image_format(data):
+    """The format PIL would open ``data`` as, by signature (TGA, which has
+    none, by the sanity of its header), or None. A file whose header that
+    format's plugin cannot parse goes on to the next format that accepts
+    it, as in PIL (``decode_image``)."""
+    fmts = _accepted(data)
+    return fmts[0] if fmts else None
+
+
+# format -> (module of core/, decoder)
+_DECODERS = {
+    "JPEG": ("jpeg", "decode_jpeg"), "BMP": ("image_formats", "decode_bmp"),
+    "GIF": ("image_formats", "decode_gif"), "PNM": ("image_formats", "decode_pnm"),
+    "PSD": ("image_formats", "decode_psd"), "TGA": ("image_formats", "decode_tga"),
+    "TIFF": ("tiff", "decode_tiff"), "WebP": ("webp", "decode_webp"),
+    "DDS": ("dds", "decode_dds"), "BLP": ("blp", "decode_blp"), "FTEX": ("ftex", "decode_ftex"),
+    "ICO": ("ico", "decode_ico"), "CUR": ("ico", "decode_cur"), "QOI": ("qoi", "decode_qoi"),
+    "SGI": ("sgi", "decode_sgi"), "PCX": ("pcx", "decode_pcx"),
+}
 
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
     ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, WebP, DDS,
-    BLP and FTEX, told
-    apart as PIL tells them (``image_format``). Other formats, and forms a
-    decoder refuses, raise ``ValueError`` naming them."""
-    fmt = image_format(data)
-    if fmt == "PNG":
-        return decode_png(data, what)
-    if fmt == "JPEG":
-        from .jpeg import decode_jpeg
+    BLP, FTEX, ICO, CUR, QOI, SGI and PCX, told apart as PIL tells them
+    (``image_format``). Other formats, and forms a decoder refuses, raise
+    ``ValueError`` naming them."""
+    import importlib
 
-        return decode_jpeg(data, what)
-    if fmt in ("BMP", "GIF", "PNM", "PSD", "TGA"):
-        from . import image_formats
+    from .image_formats import NextFormat
 
-        return getattr(image_formats, f"decode_{fmt.lower()}")(data, what)
-    if fmt == "TIFF":
-        from .tiff import decode_tiff
-
-        return decode_tiff(data, what)
-    if fmt == "WebP":
-        from .webp import decode_webp
-
-        return decode_webp(data, what)
-    if fmt == "DDS":
-        from .dds import decode_dds
-
-        return decode_dds(data, what)
-    if fmt == "BLP":
-        from .blp import decode_blp
-
-        return decode_blp(data, what)
-    if fmt == "FTEX":
-        from .ftex import decode_ftex
-
-        return decode_ftex(data, what)
-    named = f" ({fmt})" if fmt else ""
-    raise ValueError(f"{what}: unsupported image format{named} (the port reads PNG, JPEG, "
-                     "BMP, GIF, PNM, PSD, TGA, TIFF, WebP, DDS, BLP, FTEX, .hdr and .npy; not "
-                     "ICO, PCX, SGI, QOI or the other formats PIL opens)")
+    gave_up = []
+    for fmt in _accepted(data):
+        if fmt == "PNG":
+            return decode_png(data, what)
+        module, name = _DECODERS[fmt]
+        try:
+            return getattr(importlib.import_module(f".{module}", __package__), name)(data, what)
+        except NextFormat as e:  # as PIL, try the next format that accepts the file
+            gave_up.append(str(e).removeprefix(f"{what}: "))
+    tried = f"; PIL gives up on it: {'; '.join(gave_up)}" if gave_up else ""
+    raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, GIF, "
+                     "PNM, PSD, TGA, TIFF, WebP, DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, .hdr "
+                     f"and .npy; not JPEG 2000, EPS, ICNS or the other formats PIL opens){tried}")
 
 
 def read_image(path, to_linear=True):

@@ -53,6 +53,12 @@ MAX_PIXELS = 2 * 89_478_485
 PIL_READ_BLOCK = 65536
 
 
+class NextFormat(ValueError):
+    """A plugin's header parse failed the way ``Image.open`` catches
+    (``SyntaxError``, ``IndexError``, ``TypeError``, ``struct.error``), so
+    PIL goes on to try the formats after it; ``decode_image`` does too."""
+
+
 def _check_size(w, h, what, form):
     if w <= 0 or h <= 0 or w * h > MAX_PIXELS:
         raise ValueError(f"{what}: {form} of size {w} x {h}"
@@ -304,15 +310,26 @@ def _bmp_unpack(rows, w, rawmode, lut):
 def decode_bmp(data, what="BMP"):
     if data[:2] != b"BM" or len(data) < 18:
         raise ValueError(f"{what}: not a BMP file")
-    offset = _u32(data, 10)
-    hsize = _u32(data, 14)
+    return decode_dib(data, 14, _u32(data, 10), what)[0]
+
+
+def decode_dib(data, pos, offset, what, form="BMP", halve=False):
+    """The device-independent bitmap whose header starts at ``pos`` of the
+    file ``data``, as PIL's ``BmpImageFile._bitmap`` reads it: the pixels
+    at ``offset``, or right after the header and palette when ``offset``
+    is 0 (a DIB in an ICO or CUR file). ``halve`` keeps the first half of
+    the stored rows (the XOR image of an icon; the AND mask follows).
+    Returns the [H, W, 3] pixels and the offset of the pixel data."""
+    if len(data) < pos + 4:
+        raise ValueError(f"{what}: {form} header is truncated")
+    hsize = _u32(data, pos)
     if hsize not in (12, 40, 52, 56, 64, 108, 124):
-        raise ValueError(f"{what}: BMP header of {hsize} bytes (PIL reads 12, 40, 52, 56, 64, "
-                         "108 and 124)")
-    head = data[18:14 + hsize]
+        raise ValueError(f"{what}: {form} header of {hsize} bytes (PIL reads 12, 40, 52, 56, "
+                         "64, 108 and 124)")
+    head = data[pos + 4:pos + hsize]
     if len(head) < hsize - 4:
-        raise ValueError(f"{what}: BMP header is truncated")
-    pos = 14 + hsize
+        raise ValueError(f"{what}: {form} header is truncated")
+    pos += hsize
     direction = -1
     masks = None
     if hsize == 12:
@@ -334,7 +351,9 @@ def decode_bmp(data, what="BMP"):
                     raise ValueError(f"{what}: BMP bitfield masks are truncated")
                 masks = [_u32(data, pos + 4 * i) for i in range(3)] + [0]
                 pos += 12
-    _check_size(w, h, what, "BMP")
+    _check_size(w, h, what, form)
+    if halve:
+        h //= 2
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
@@ -370,13 +389,14 @@ def decode_bmp(data, what="BMP"):
             if n > 256:
                 raise ValueError(f"{what}: BMP palette of {n} colours (PIL refuses more than 256)")
             lut = _lut(np.frombuffer(pal[:n * pad], np.uint8).reshape(n, pad)[:, 2::-1])
+    start = offset or pos
     if rle:
         if bits > 8 or grey == "1":
             raise ValueError(f"{what}: BMP RLE{8 if compression == 1 else 4} at {bits} bits "
                              "(PIL refuses it)")
-        idx = _bmp_rle(data, offset or pos, w, h, compression == 2, what)
+        idx = _bmp_rle(data, start, w, h, compression == 2, what)
         if len(idx) < w * h:
-            raise ValueError(f"{what}: BMP RLE image data ends early (PIL: not enough image "
+            raise ValueError(f"{what}: {form} RLE image data ends early (PIL: not enough image "
                              "data)")
         rows = np.frombuffer(bytes(idx[:w * h]), np.uint8).reshape(h, w)
         rgb = _grey(rows) if grey == "L" else lut[rows]
@@ -386,16 +406,15 @@ def decode_bmp(data, what="BMP"):
         if stride < row_bytes:
             raise ValueError(f"{what}: BMP rows of {stride} bytes hold fewer than {row_bytes} "
                              f"(PIL reads the {bits}-bit grey palette as 8-bit data)")
-        start = offset or pos
         if len(data) < start + (h - 1) * stride + row_bytes:
-            raise ValueError(f"{what}: BMP image data is truncated")
+            raise ValueError(f"{what}: {form} image data is truncated")
         buf = np.frombuffer(data, np.uint8, len(data) - start, start)
         buf = np.concatenate([buf, np.zeros(h * stride - len(buf) if len(buf) < h * stride
                                             else 0, np.uint8)])
         rgb = _bmp_unpack(buf[:h * stride].reshape(h, stride), w, rawmode, lut)
     if direction < 0:
         rgb = rgb[::-1]
-    return np.ascontiguousarray(rgb)
+    return np.ascontiguousarray(rgb), start
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,10 @@ picks a mode and a raw mode from the tags (``TiffImagePlugin._setup``;
   counts limited or estimated, the samples of a directory PIL stopped
   reading early) and decodes PackBits, LZW (``akari_torch/native/
   tiff_lzw.cpp``: the TIFF 6.0 and the old bit-reversed codes), Deflate
-  (``zlib``) and JPEG (``core/jpeg.py``: the ``JPEGTables`` stream, then
+  (``zlib``), LZMA (Python's ``lzma``: one .xz stream a strip, as
+  ``tif_lzma.c`` reads it), ZSTD (``akari_torch/native/zstd.cpp``, the
+  first Zstandard frame of a strip as libzstd's streaming decoder reads it
+  for ``tif_zstd.c``) and JPEG (``core/jpeg.py``: the ``JPEGTables`` stream, then
   each strip's stream, YCbCr to RGB by libjpeg), with fill order 2,
   horizontal (8, 16, 32-bit) and floating-point prediction, and its
   samples in the host's (little-endian) byte order, which PIL's raw modes
@@ -42,7 +45,7 @@ as PIL's ``RGBa`` unpackers do), CMYK (PIL's cmyk2rgb) and YCbCr; and
 last turned by the ``Orientation`` tag as PIL's ``exif_transpose``.
 
 Refused, each with a ``ValueError`` naming it: the CCITT, old-style JPEG
-(6), ThunderScan, SGILog, LZMA, ZSTD and WebP compressions and Lab (PIL
+(6), ThunderScan, SGILog and WebP compressions and Lab (PIL
 reads these); any tag combination PIL's ``OPEN_INFO`` lacks, and every
 file PIL or libtiff refuses; and the forms PIL reads from libtiff's
 memory as it stands, which the port cannot reproduce: one-band images in
@@ -69,12 +72,14 @@ from .image_formats import _check_size, _cmyk_to_rgb
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
             b"II\x2b\x00")
 
-# raw, LZW, JPEG, Deflate (two codes), PackBits
-_COMPRESSIONS = (1, 5, 7, 8, 32946, 32773)
+# raw, LZW, JPEG, Deflate (two codes), PackBits, LZMA, ZSTD
+_COMPRESSIONS = (1, 5, 7, 8, 32946, 32773, 34925, 50000)
+# the codes whose strips libtiff runs through its predictor
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 _REFUSED_COMPRESSIONS = {
     2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
     32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-    34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+    50001: "WebP",
 }
 
 # tag type -> (bytes a value, struct code); PIL's ImageFileDirectory_v2
@@ -467,6 +472,56 @@ def _inflate(raw, size, what):
     return np.frombuffer(out, np.uint8)
 
 
+def _unxz(raw, size, what):
+    """libtiff's LZMADecode: one .xz stream (liblzma's stream decoder) into
+    ``size`` bytes in one call; the output written before liblzma reports
+    an error counts, and less than ``size`` is "Not enough data"."""
+    try:
+        import lzma
+    except ImportError as e:
+        raise ValueError(f"{what}: LZMA-compressed TIFF needs Python's lzma module, which "
+                         f"this Python lacks ({e})") from None
+
+    def run(k):  # the output of the first k bytes, or None where liblzma fails on them
+        try:
+            return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw[:k], size)
+        except lzma.LZMAError:
+            return None
+
+    out = run(len(raw))
+    if out is None:
+        # Python drops a call's output on an error: find the longest input
+        # liblzma takes without one, and keep what it gives
+        lo, hi = 0, len(raw)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if run(mid) is not None else (lo, mid)
+        out = run(lo)
+        if len(out) < size:
+            raise ValueError(f"{what}: corrupt TIFF LZMA data (liblzma rejects it before the "
+                             "strip is full, or in the step that fills it, whose output "
+                             "Python's lzma drops)")
+    if len(out) < size:
+        raise ValueError(f"{what}: TIFF LZMA data ends early (libtiff: not enough data)")
+    return np.frombuffer(out, np.uint8)
+
+
+def _zstd(raw, size, what):
+    from ..native.loader import load
+
+    out = np.empty(size, np.uint8)
+    rc = load("zstd").akr_zstd_decode(raw, len(raw), out.ctypes.data_as(ctypes.c_void_p), size)
+    if rc == 1:
+        raise ValueError(f"{what}: TIFF ZSTD data ends early (libtiff: not enough data)")
+    if rc == 3:
+        raise ValueError(f"{what}: corrupt TIFF ZSTD data: a Huffman literal stream does not "
+                         "end where its size says (libzstd's fast decoder reads on; the port "
+                         "refuses it)")
+    if rc:
+        raise ValueError(f"{what}: corrupt TIFF ZSTD data (libzstd rejects it)")
+    return out
+
+
 def _unpackbits(raw, size, what):
     """libtiff's PackBitsDecode over a whole strip: a no-op byte (128)
     skipped, a packet cut to the room left (runs cross rows), and the data
@@ -585,7 +640,7 @@ class _Libtiff:
         self.bits, self.spp, self.planar = bits, spp, planar
         self.swab = ifd.order == b"MM"
         self.fill = ifd.lt(FILL_ORDER, (1,), 1)[0]
-        self.predictor = ifd.lt(PREDICTOR, (1,), 1)[0] if comp in (5, 8, 32946) else 1
+        self.predictor = ifd.lt(PREDICTOR, (1,), 1)[0] if comp in _PREDICTED else 1
         self.compat = None
         fmt = ifd.get(SAMPLE_FORMAT, (1,))
         fmt = fmt[0] if isinstance(fmt, tuple) else fmt
@@ -695,6 +750,10 @@ class _Libtiff:
             buf = _lzw(raw, size, self.compat, self.what)
         elif self.comp in (8, 32946):
             buf = _inflate(raw, size, self.what)
+        elif self.comp == 34925:
+            buf = _unxz(raw, size, self.what)
+        elif self.comp == 50000:
+            buf = _zstd(raw, size, self.what)
         else:
             buf = _unpackbits(raw, size, self.what)
         return buf[:size]
@@ -723,7 +782,8 @@ def _decode(data, ifd, what):
     comp = ifd.get(COMPRESSION, 1)
     if comp in _REFUSED_COMPRESSIONS:
         raise ValueError(f"{what}: {_REFUSED_COMPRESSIONS[comp]}-compressed TIFF is not "
-                         "supported (the port reads raw, PackBits, LZW, Deflate and JPEG)")
+                         "supported (the port reads raw, PackBits, LZW, Deflate, JPEG, LZMA "
+                         "and ZSTD)")
     if comp not in _COMPRESSIONS:
         raise ValueError(f"{what}: TIFF compression {comp!r} (PIL refuses it)")
     planar = ifd.get(PLANAR, 1)

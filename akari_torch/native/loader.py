@@ -18,11 +18,17 @@ by a hash of the source, the compiler and the flags, and loaded with
   and ``webp_vp8``: ``webp_vp8.cpp``, lossy WebP key frames to RGB
   (``akari_torch/core/webp.py``);
 - ``bcn``: ``bcn.cpp``, the BC1-BC7 blocks of DDS and FTEX textures
-  (``akari_torch/core/dds.py``, ``ftex.py``).
+  (``akari_torch/core/dds.py``, ``ftex.py``);
+- ``qoi``: ``qoi.cpp``, the op stream of QOI images (``core/qoi.py``);
+- ``rle``: ``rle.cpp``, the run-length data of SGI and PCX images
+  (``core/sgi.py``, ``core/pcx.py``);
+- ``zstd``: ``zstd.cpp``, Zstandard frames (RFC 8878) of ZSTD-compressed
+  TIFF strips and tiles (``core/tiff.py``); no compression library is
+  linked.
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
-would give another triangle storage order, and the JPEG, GIF, TIFF, WebP
-and BCn decoders have no Python twin, so there is no fallback.
+would give another triangle storage order, and the JPEG, GIF, TIFF, WebP,
+BCn, QOI, SGI / PCX run-length and Zstandard decoders have no Python twin, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -118,6 +124,36 @@ def _bind_bcn(lib):
         getattr(lib, name).argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32, i32, u8p]
 
 
+def _bind_qoi(lib):
+    lib.akr_qoi_decode.restype = ctypes.c_int
+    lib.akr_qoi_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, pos
+        ctypes.c_int64, ctypes.c_void_p,                   # n_pixels, rgb
+    ]
+
+
+def _bind_rle(lib):
+    i32 = ctypes.c_int32
+    lib.akr_sgi_rle.restype = ctypes.c_int
+    lib.akr_sgi_rle.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # buf, size
+        i32, i32, i32, i32, ctypes.c_void_p,               # xsize, ysize, zsize, bpc, out
+    ]
+    lib.akr_pcx_rle.restype = ctypes.c_int
+    lib.akr_pcx_rle.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # src, size
+        i32, i32, i32, i32, ctypes.c_void_p,               # xsize, bits, line, ysize, out
+    ]
+
+
+def _bind_zstd(lib):
+    lib.akr_zstd_decode.restype = ctypes.c_int
+    lib.akr_zstd_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # src, size
+        ctypes.c_void_p, ctypes.c_int64,                   # dst, occ
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
@@ -128,6 +164,9 @@ SOURCES = {
     "webp_vp8l": ("webp_vp8l.cpp", "libakr_vp8l.so", "the lossless WebP decoder", _bind_vp8l),
     "webp_vp8": ("webp_vp8.cpp", "libakr_vp8.so", "the lossy WebP decoder", _bind_vp8),
     "bcn": ("bcn.cpp", "libakr_bcn.so", "the DDS / FTEX block (BCn) decoder", _bind_bcn),
+    "qoi": ("qoi.cpp", "libakr_qoi.so", "the QOI decoder", _bind_qoi),
+    "rle": ("rle.cpp", "libakr_rle.so", "the SGI / PCX run-length decoder", _bind_rle),
+    "zstd": ("zstd.cpp", "libakr_zstd.so", "the TIFF ZSTD decoder", _bind_zstd),
 }
 
 _lock = threading.Lock()

@@ -246,19 +246,29 @@ Phases (each checks its results; any failure exits non-zero):
     on a PNG of each DDS's decoded pixels and on the DDS (frames bit-equal
     pairwise, 6 tree closest launches each, one launch of the BC1 run held
     to the plain walk at 0 ulp);
-46. the result: a JSON line of kernel records (the dense records on the
+46. the ICO / CUR, QOI, SGI and PCX decoders and the LZMA / ZSTD TIFF
+    strips: their fixtures' digests; the 2048^2 albedo written here as
+    QOI, RLE SGI and 24-bit RLE PCX by ``tools/legacy_writers.py`` and as
+    an LZMA TIFF with the horizontal predictor by ``tiff_bytes``, and the
+    committed 2048^2 ZSTD TIFF, each decode's median of 3 no slower than
+    the PNG route's (LZMA, decoded by Python's ``lzma``, recorded); the
+    config-3 CLI on the PNG, RLE SGI and PCX albedos (frames bit-equal, 6
+    tree closest launches each, one launch of each SGI / PCX run held to
+    the plain walk at 0 ulp);
+47. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-45,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-46,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-45) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-46) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG entropy decoder,
-GIF and TIFF LZW decoders, WebP decoders and BCn decoder) is built at start, one compiler
+GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
+PCX run-length decoder and ZSTD decoder) is built at start, one compiler
 process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
@@ -3120,6 +3130,105 @@ def dds_phase(card, traversal, cli_render):
     return out
 
 
+LEGACY_SUFFIXES = (".ico", ".cur", ".qoi", ".sgi", ".rgba", ".bw", ".pcx", ".tiff")
+
+
+def legacy_phase(card, traversal, cli_render):
+    """Phase 46: the ICO / CUR, QOI, SGI and PCX decoders and the LZMA /
+    ZSTD TIFF strips on this machine (no PIL here): their fixtures' digests;
+    the 2048^2 albedo written here by ``tools/legacy_writers.py`` as QOI,
+    RLE SGI and 24-bit RLE PCX and by ``tiff_bytes`` as an LZMA TIFF with
+    the horizontal predictor, and the committed 2048^2 ZSTD TIFF, each
+    decode's median of 3 beside the PNG route's (no slower for all but
+    LZMA, which is recorded); and the config-3 CLI on the PNG, the RLE SGI
+    and the PCX albedos (frames bit-equal, 6 tree closest launches each,
+    one launch of each SGI / PCX run held to the plain walk at 0 ulp);
+    returns the tree kernel's errors and the figures it logs."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.scene.builtin import envtex_texture
+    from tools.legacy_writers import pcx_bytes, qoi_bytes, sgi_bytes
+    from tools.make_torch_port_image_fixtures import ZSTD_ALBEDO, tiff_bytes
+
+    t_phase = time.perf_counter()
+    log(f"phase 46: ICO / CUR, QOI, SGI, PCX and LZMA / ZSTD TIFF decoding without PIL: the "
+        f"fixtures' digests, the 2048^2 albedo in five forms, the config-3 CLI on an SGI and a "
+        f"PCX albedo [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items()
+                   if k.endswith(LEGACY_SUFFIXES) or "zstd" in k or "lzma" in k}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 22, f"only {len(digests)} ICO / CUR / QOI / SGI / PCX / LZMA / ZSTD "
+          "fixtures in digests.json")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)  # the PNG route's pixels
+    workers = max(1, min(8, os.cpu_count() or 1))
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    writers = {
+        "QOI": lambda: qoi_bytes(albedo, index=False),
+        "RLE SGI": lambda: sgi_bytes(albedo.transpose(2, 0, 1), 1, True),
+        "24-bit PCX": lambda: pcx_bytes(albedo, 8, 3),
+        # 64-row strips compressed over the processes, as phase 43's
+        "LZMA TIFF": lambda: tiff_bytes(albedo, 8, 2, compression=34925, predictor=2,
+                                        rows_per_strip=64, mapper=pool.map),
+    }
+    files, out = {}, {}
+    with pool:
+        for form, write in writers.items():
+            t0 = time.perf_counter()
+            files[form] = write()
+            log(f"  wrote the 2048^2 {form} in {time.perf_counter() - t0:.2f} s "
+                f"({len(files[form])} bytes)")
+    for form, data in files.items():
+        check(np.array_equal(decode_image(data, form), albedo),
+              f"the 2048^2 {form} decodes to other pixels than the albedo")
+    with open(os.path.join(IMAGE_FIXTURES, ZSTD_ALBEDO), "rb") as f:
+        files["ZSTD TIFF"] = f.read()
+    x32 = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
+    check(np.array_equal(decode_image(files["ZSTD TIFF"], ZSTD_ALBEDO), x32),
+          f"{ZSTD_ALBEDO} decodes to other pixels than the 64^2 albedo scaled up 32x")
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for form, data in files.items():
+        med, runs = _median_s(lambda: decode_image(data, form))
+        out[f"{form.replace(' ', '_')}_decode_s"] = med
+        log(f"  2048^2 {form} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+            f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+        if form != "LZMA TIFF":  # Python's lzma: recorded, not held to the PNG route
+            check(med <= png_s, f"the {form} decodes the albedo slower than the PNG route: "
+                  f"{med:.4f} s against {png_s:.4f} s")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_rle.sgi": files["RLE SGI"], "albedo_rle.pcx": files["24-bit PCX"]},
+        ("albedo.png", "albedo_rle.sgi", "albedo_rle.pcx"), {"albedo_rle.sgi", "albedo_rle.pcx"})
+    out.update(cli)
+    for name in ("albedo_rle.sgi", "albedo_rle.pcx"):
+        check(np.array_equal(frames[name], frames["albedo.png"]),
+              f"the frame on {name} differs from the PNG route's")
+    log("  the RLE SGI and 24-bit PCX albedo frames are bit-equal to the PNG route's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 46: {out['phase_s']:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
 def main():
     import torch
 
@@ -3162,11 +3271,13 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
+    native_names = ("bvh", "jpeg", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn", "qoi", "rle",
+                    "zstd")
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder,
-        # the GIF and TIFF LZW decoders, the two WebP decoders and the BCn decoder
-        natives = {n: pool.submit(native_loader.build, n)
-                   for n in ("bvh", "jpeg", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn")}
+        # the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
+        # the QOI decoder, the SGI / PCX run-length decoder and the ZSTD decoder
+        natives = {n: pool.submit(native_loader.build, n) for n in native_names}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
         native_paths = {n: f.result() for n, f in natives.items()}
@@ -3740,13 +3851,14 @@ def main():
     tiffs = tiff_phase(card, traversal, cli_render)
     webps = webp_phase(card, traversal, cli_render)
     ddss = dds_phase(card, traversal, cli_render)
+    legacy = legacy_phase(card, traversal, cli_render)
     tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
-                   ddss["tree_err"])
+                   ddss["tree_err"], legacy["tree_err"])
     tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
-                       webps["tree_occ_err"], ddss["tree_occ_err"])
+                       webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 46: result ----------------------------------------------------
+    # ---- phase 47: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -22,6 +22,12 @@ same float32 array bit for bit with ``to_linear`` True and False:
   than the strip, the header forms PIL opens only uncompressed;
 - JPEG-compressed TIFFs: Pillow's writer, and subsampled YCbCr strips and
   tiles with and without a JPEGTables tag;
+- LZMA and ZSTD TIFFs: Pillow's writer, and ``tiff_bytes`` strips, tiles and
+  planes with each predictor, the ZSTD frames written by the ``zstandard``
+  package (a test dependency) holding between them every block type,
+  literals mode and sequence table mode, and the frame forms libtiff reads
+  or refuses (a second frame, a skippable frame, checksums, dictionary
+  ids, reserved bits, windows);
 - Pillow's own writer in every mode and compression it writes;
 - seeded corruptions of the fixtures: wherever PIL reads the file the port
   gives its pixels, wherever PIL refuses it the port raises ValueError.
@@ -29,7 +35,8 @@ same float32 array bit for bit with ``to_linear`` True and False:
   data, which the port refuses (as ``core/jpeg.py`` does for JPEG files);
   YCbCr strips that are not JPEG are left out, because libtiff's RGBA
   reader, which PIL uses for them, goes on from stale memory over a strip
-  that fails to decode;
+  that fails to decode; on corrupt LZMA and ZSTD strips the port refuses
+  two kinds PIL reads, naming them (see ROADMAP.md's divergences);
 - every refused form raises ValueError naming it;
 - an OBJ whose ``map_Kd`` is a TIFF renders at 16x16 on the CPU bit-equal
   to the same OBJ on a PNG of the same pixels.
@@ -39,6 +46,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import warnings
@@ -444,7 +452,8 @@ def test_subsampled_ycbcr_jpeg_strips_and_tiles_match_pil(tmp_path, sub, tables)
 
 # -------------------------------- Pillow's own writer ----------------------------
 
-@pytest.mark.parametrize("compression", ["raw", "tiff_lzw", "tiff_adobe_deflate", "packbits"])
+@pytest.mark.parametrize("compression", ["raw", "tiff_lzw", "tiff_adobe_deflate", "packbits",
+                                         "zstd", "lzma"])
 def test_pils_writer_in_every_mode_matches(tmp_path, compression):
     px = pattern(17, 13, 5)
     ims = {"1": Image.fromarray(px).convert("1"), "L": Image.fromarray(px).convert("L"),
@@ -457,7 +466,8 @@ def test_pils_writer_in_every_mode_matches(tmp_path, compression):
            "F": Image.fromarray(px[..., 0].astype(np.float32) * 1.7 - 40)}
     for mode, im in ims.items():
         path = tmp_path / f"{mode}.tif"
-        kw = {"tiffinfo": {317: 2}} if compression in ("tiff_lzw", "tiff_adobe_deflate") \
+        kw = {"tiffinfo": {317: 2}} if compression in ("tiff_lzw", "tiff_adobe_deflate", "zstd",
+                                                       "lzma") \
             and mode in ("L", "RGB", "RGBA", "CMYK", "I;16") else {}
         im.save(path, "TIFF", compression=compression, **kw)
         # PIL reads uncompressed YCbCr with its 4-byte RGBX raw mode and
@@ -467,6 +477,204 @@ def test_pils_writer_in_every_mode_matches(tmp_path, compression):
     im = ims["RGB"]
     im.save(tmp_path / "big.tif", "TIFF", big_tiff=True)
     _check(tmp_path, (tmp_path / "big.tif").read_bytes())
+
+
+# ---------------------------------- LZMA and ZSTD --------------------------------
+
+def _dot_tiff_names():
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        return sorted(k for k in json.load(f) if k.endswith(".tiff"))
+
+
+@pytest.mark.parametrize("name", _dot_tiff_names())
+def test_lzma_zstd_fixtures_decode_to_their_digests_and_read_as_jax(name):
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        rec = json.load(f)[name]
+    path = os.path.join(FIXTURES, name)
+    with open(path, "rb") as f:
+        px = port_image.decode_image(f.read(), name)
+    assert list(px.shape) == rec["shape"]
+    assert hashlib.sha256(px.tobytes()).hexdigest() == rec["sha256"]
+    _same_read(path)
+
+
+@pytest.mark.parametrize("order", ["<", ">"], ids=["II", "MM"])
+@pytest.mark.parametrize("compression", [34925, 50000], ids=["lzma", "zstd"])
+def test_drawn_lzma_zstd_tiffs_match_pil(tmp_path, compression, order):
+    """Strips, tiles and planes, no predictor, horizontal (8 and 16 bits) and
+    floating-point prediction; the ZSTD frames drawn with and without a
+    checksum and a content size (``tiff_bytes``'s seed)."""
+    r = np.random.default_rng(compression + (order == ">"))
+    for seed in range(4):
+        rgb = pattern(int(r.integers(3, 40)), int(r.integers(3, 40)), seed)
+        layout = [{"rows_per_strip": int(r.integers(1, 9))}, {"tile": (16, 16)},
+                  {"planar": 2, "rows_per_strip": 5}, {}][seed]
+        for predictor in (1, 2):
+            _check(tmp_path, tiff_bytes(rgb, 8, 2, order=order, compression=compression,
+                                        predictor=predictor, seed=seed, **layout))
+        _check(tmp_path, tiff_bytes(r.integers(0, 65536, (9, 7, 3)), 16, 2, order=order,
+                                    compression=compression, predictor=2, seed=seed, **layout))
+        f = r.normal(0, 50, (7, 9, 1)).astype(np.float32)
+        _check(tmp_path, tiff_bytes(f, 32, 1, order=order, compression=compression, predictor=3,
+                                    sample_format=3, seed=seed))
+
+
+def _one_strip(payload, frame):
+    """A one-strip 8-bit grey TIFF of ``payload``'s bytes, its strip ``frame``."""
+    return tiff_bytes(np.frombuffer(payload, np.uint8).reshape(1, -1, 1).astype(int), 8, 1,
+                      compression=50000, blocks=[frame])
+
+
+def _zstd_payloads():
+    """Data whose Zstandard frames hold, between them, every block type,
+    literals mode and sequence table mode (``zstd_modes``)."""
+    r = np.random.default_rng(9)
+    words = [bytes(r.integers(97, 123, r.integers(2, 9), dtype=np.uint8)) for _ in range(300)]
+    text = b" ".join(words[i] for i in r.integers(0, 300, 40000))
+    noise = r.integers(0, 256, 131072, dtype=np.uint8).tobytes()
+    freq = np.array([40, 20, 10, 5, 5, 4, 3, 3, 2, 2, 2, 1, 1, 1, 1]) / 100
+    return {  # name: (payload, compression levels)
+        "noise": (noise[:5000], (3,)),
+        "constant": (bytes([7]) * 140000, (3,)),
+        "short-text": ((b"the quick brown fox jumps over the lazy dog " * 40)[:1700], (3, 19)),
+        "few-symbols": (bytes(r.choice(np.arange(1, 16), 3000, p=freq).astype(np.uint8)), (1,)),
+        "small-literals": (bytes(r.integers(0, 4, 200, dtype=np.uint8)) * 3, (3, -5)),
+        "no-matches": (bytes(r.choice(np.arange(97, 113), 600).astype(np.uint8)), (1, 19)),
+        "rle-literals": (noise + b"".join(noise[i * 60:(i + 1) * 60] + b"\xaa"
+                                          for i in range(200)), (1, 3)),
+        "treeless": (text[:131072] + b"".join(text[i * 300:i * 300 + 40] + bytes([text[i * 7 + 1]])
+                                              for i in range(150)), (1, 3)),
+        "mixed": (bytes(np.concatenate([r.integers(0, 256, 1000, dtype=np.uint8),
+                                        np.tile(r.integers(0, 50, 300, dtype=np.uint8), 400)])),
+                  (9,)),
+        "seq-rle": (b"".join(bytes([i % 256]) + b"abcdefgh" for i in range(400)), (1,)),
+    }
+
+
+def test_zstd_frames_of_every_mode_match_pil(tmp_path):
+    import zstandard
+
+    from tools.legacy_writers import zstd_modes
+
+    held = set()
+    for name, (payload, levels) in _zstd_payloads().items():
+        for level, checksum in ((v, c) for v in levels for c in (False, True)):
+            frame = zstandard.ZstdCompressor(level=level, write_checksum=checksum,
+                                             write_content_size=checksum).compress(payload)
+            held |= zstd_modes(frame)
+            got = _check(tmp_path, _one_strip(payload, frame), f"{name}.tif")
+            assert got[0, :, 0].tobytes() == payload
+    every = {"block:raw", "block:rle", "block:compressed", "lit:raw", "lit:rle", "lit:huf1",
+             "lit:huf4", "lit:treeless1", "lit:treeless4", "weights:direct", "weights:fse",
+             "seq:none", "checksum", "content_size"}
+    every |= {f"{t}:{m}" for t in ("ll", "of", "ml") for m in ("predefined", "rle", "fse",
+                                                               "repeat")}
+    assert held >= every, sorted(every - held)
+
+
+def test_zstd_frame_forms_read_or_refused_as_libtiff_does(tmp_path):
+    """libtiff decodes a strip's first frame only: a frame that ends short
+    of the strip is "not enough data" even with a second frame after it, a
+    skippable frame first leaves the strip empty; a wrong checksum or
+    content size, a dictionary id, a reserved header bit or a window over
+    128 MiB is refused; a frame longer than the strip, or bytes after it,
+    are not."""
+    import zstandard
+
+    payload = pattern(16, 40, 3).tobytes()[:1500]
+    plain = zstandard.ZstdCompressor(level=5).compress(payload)
+    summed = zstandard.ZstdCompressor(level=5, write_checksum=True,
+                                      write_content_size=True).compress(payload)
+    half = zstandard.ZstdCompressor(level=5).compress(payload[:700])
+    rest = zstandard.ZstdCompressor(level=5).compress(payload[700:])
+    skip = b"\x50\x2a\x4d\x18" + struct.pack("<I", 3) + b"abc"
+    bad_sum = summed[:-1] + bytes([summed[-1] ^ 1])
+    dict_id = zstandard.ZstdCompressor(level=5, dict_data=zstandard.ZstdCompressionDict(
+        payload[:400], dict_type=zstandard.DICT_TYPE_RAWCONTENT)).compress(payload)
+    reserved = plain[:4] + bytes([plain[4] | 8]) + plain[5:]
+    huge_window = plain[:5] + bytes([(18 << 3)]) + plain[6:]
+    cases = {
+        "plain": (plain, True), "checksum": (summed, True), "two-frames": (half + rest, False),
+        "skippable-first": (skip + plain, False), "frame-then-junk": (plain + b"junk", True),
+        "bad-checksum": (bad_sum, False), "dictionary": (dict_id, False),
+        "reserved-bit": (reserved, False), "window-256MiB": (huge_window, False),
+        "cut": (plain[:-5], False),
+        "longer-than-strip": (zstandard.ZstdCompressor(level=5).compress(payload + b"x" * 99),
+                              True),
+    }
+    for name, (frame, reads) in cases.items():
+        want, got = _outcome(tmp_path, _one_strip(payload, frame), f"{name}.tif")
+        assert (want is not None) == reads, name
+        assert (got is not None) == reads, name
+        if reads:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    with pytest.raises(ValueError, match="TIFF ZSTD data ends early"):
+        port_image.decode_image(_one_strip(payload, half + rest))
+
+
+def _lzma_zstd_corruption_bases():
+    bases = {}
+    for comp in ("zstd", "lzma"):
+        for predictor in (1, 2):
+            buf = io.BytesIO()
+            Image.fromarray(pattern(40, 37, 5)).save(buf, "TIFF", compression=comp,
+                                                     tiffinfo={317: predictor})
+            bases[f"{comp}-{predictor}"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(np.repeat(np.arange(64, dtype=np.uint8)[None], 48, 0)).convert("RGB").save(
+        buf, "TIFF", compression="zstd")
+    bases["zstd-ramp"] = buf.getvalue()
+    return bases
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_corrupted_lzma_zstd_tiffs_read_as_pil_or_are_refused(tmp_path, seed):
+    """Wherever PIL refuses the file the port refuses it; wherever PIL reads
+    it the port gives its pixels, or refuses it naming one of two
+    divergences (ROADMAP.md): a 4-stream Huffman literal stream that does
+    not end where its size says (libzstd's fast decoders read on), and an
+    LZMA error reported in the step that fills the strip (libtiff keeps the
+    strip, Python's lzma drops that step's output)."""
+    r = np.random.default_rng(900 + seed)
+    bases = _lzma_zstd_corruption_bases()
+    read = refused = 0
+    for name, base in sorted(bases.items()):
+        for _ in range(24):
+            data = bytearray(base)
+            op = r.integers(0, 4)
+            if op == 0:
+                for _ in range(r.integers(1, 4)):
+                    data[r.integers(0, len(data))] = r.integers(0, 256)
+            elif op == 1:
+                data[r.integers(0, min(len(data), 40))] = r.integers(0, 256)
+            elif op == 2:
+                data = data[:r.integers(0, len(data) + 1)]
+            else:
+                data += r.integers(0, 256, r.integers(1, 20)).astype(np.uint8).tobytes()
+            data = bytes(data)
+            want, got = _outcome(tmp_path, data, "c.tif")
+            if want is None:
+                assert got is None, f"{name}: PIL refuses {data.hex()}, the port reads it"
+                refused += 1
+            elif got is None:
+                with pytest.raises(ValueError, match="fast decoder reads on|step that fills it"):
+                    port_image.decode_image(data, name)
+                refused += 1
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=f"{name}: {data.hex()}")
+                read += 1
+    assert read > 20 and refused > 20
+
+
+def test_zstd_decoder_build_failure_raises(tmp_path, monkeypatch):
+    from akari_torch.native import loader
+
+    monkeypatch.setattr(loader, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(loader, "CXX", "no-such-compiler-xyz")
+    with open(os.path.join(FIXTURES, "tiff_pil_rgb8_zstd.tif"), "rb") as f:
+        data = f.read()
+    with pytest.raises(RuntimeError, match="TIFF ZSTD decoder"):
+        port_image.decode_image(data)
 
 
 # ----------------------------------- corruptions ---------------------------------
@@ -537,8 +745,9 @@ REFUSED = {
     "thunderscan": (lambda: _with_compression(32809), "ThunderScan"),
     "sgilog": (lambda: _with_compression(34676), "SGILog"),
     "sgilog24": (lambda: _with_compression(34677), "SGILog24"),
-    "lzma": (lambda: _with_compression(34925, bits=8), "LZMA"),
-    "zstd": (lambda: _with_compression(50000, bits=8), "ZSTD"),
+    # zero bytes are no LZMA or ZSTD stream: libtiff refuses them
+    "lzma": (lambda: _with_compression(34925, bits=8), "corrupt TIFF LZMA data"),
+    "zstd": (lambda: _with_compression(50000, bits=8), "corrupt TIFF ZSTD data"),
     "webp-in-tiff": (lambda: _with_compression(50001, bits=8), "WebP"),
     "lab": (lambda: tiff_bytes(np.zeros((2, 2, 3), int), 8, 8), "Lab"),
     "unknown-pixel-mode": (lambda: tiff_bytes(np.zeros((2, 2, 3), int), 4, 2),
@@ -556,8 +765,8 @@ REFUSED = {
 }
 # forms PIL reads that the port refuses, naming them (ROADMAP.md, later slices)
 PIL_READS = {"planar-grey", "ccitt-rle", "ccitt-group3", "ccitt-group4", "lab", "ycbcr-predictor",
-             "old-jpeg", "ccitt-rlew", "thunderscan", "sgilog", "sgilog24", "lzma", "zstd",
-             "webp-in-tiff", "ycbcr-4x4"}
+             "old-jpeg", "ccitt-rlew", "thunderscan", "sgilog", "sgilog24", "webp-in-tiff",
+             "ycbcr-4x4"}
 
 
 @pytest.mark.parametrize("form", list(REFUSED))

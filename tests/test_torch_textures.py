@@ -248,9 +248,11 @@ def test_unsupported_images_name_their_format(tmp_path):
         port_image.read_image(str(tmp_path / "x.dds"))
     (tmp_path / "y.dds").write_bytes(dds_bytes(8, 8, [blocks], fourcc=b"DXT1"))
     _same_read(str(tmp_path / "y.dds"))
-    (tmp_path / "x.qoi").write_bytes(b"qoif" + struct.pack(">IIBB", 2, 2, 3, 0) + bytes(20))
+    # a JPEG 2000 signature: a format PIL opens that the port still refuses
+    (tmp_path / "x.jp2").write_bytes(b"\0\0\0\x0cjP  \r\n\x87\n" + struct.pack(">IIBB", 2, 2, 3, 0)
+                                     + bytes(20))
     with pytest.raises(ValueError, match="unsupported image format"):
-        port_image.read_image(str(tmp_path / "x.qoi"))
+        port_image.read_image(str(tmp_path / "x.jp2"))
 
 
 # ------------------------------- _bilinear -------------------------------------

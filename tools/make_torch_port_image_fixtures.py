@@ -38,6 +38,10 @@ Writes into ``tests/data/torch_port_images/``:
   Pillow's DDS and BLP writers and the forms they cannot write, from
   ``tools/dds_writers.py`` (every BCn form, BC6H and BC7 of every mode, the
   DX10 header, the mask and palette forms, BLP1 JPEG, BLP2 DXT, FTEX);
+- ICO / CUR, QOI, SGI, PCX and LZMA / ZSTD TIFF files (``legacy_fixtures``):
+  Pillow's writers, ``tools/legacy_writers.py`` for the forms Pillow cannot
+  write, and a 2048^2 ZSTD TIFF of the config-3 albedo scaled up 32x
+  (``ZSTD_ALBEDO``, 71 KB);
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them.
@@ -45,8 +49,8 @@ Writes into ``tests/data/torch_port_images/``:
 ``chip_smoke.py`` decodes every fixture with the port and checks the
 digests; ``tests/test_torch_image_decode.py``,
 ``tests/test_torch_image_formats.py``, ``tests/test_torch_image_tiff.py``,
-``tests/test_torch_image_webp.py`` and ``tests/test_torch_image_dds.py``
-hold ``digests.json`` to PIL's
+``tests/test_torch_image_webp.py``, ``tests/test_torch_image_dds.py`` and
+``tests/test_torch_image_legacy.py`` hold ``digests.json`` to PIL's
 decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
@@ -68,6 +72,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_images")
 ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
+ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
 
 
 def pattern(h, w, seed):
@@ -562,6 +567,16 @@ def _tiff_compress(job):
     elif compression == 32773:
         r = np.random.default_rng(seed)
         b = b"".join(packbits_row(row, r) for row in rows)
+    elif compression == 34925:
+        import lzma
+
+        b = lzma.compress(rows.tobytes(), lzma.FORMAT_XZ, lzma.CHECK_NONE)
+    elif compression == 50000:
+        import zstandard  # a test dependency; the port decodes without it
+
+        k = seed[0] if isinstance(seed, tuple) else seed
+        b = zstandard.ZstdCompressor(level=3 + k % 17, write_checksum=bool(k & 1),
+                                     write_content_size=bool(k & 2)).compress(rows.tobytes())
     else:
         raise ValueError(f"no encoder for compression {compression}")
     if fill == 2 and compression != 1:
@@ -635,8 +650,11 @@ def tiff_bytes(samples, bits, photometric, order="<", bigtiff=False, compression
     """A TIFF file of ``samples`` [h, w, spp] (integers, or float32 for
     sample format 3): strips of ``rows_per_strip`` rows or ``tile`` (tw,
     th) tiles, planar configuration 1 or 2, compression 1 (raw), 5 (LZW,
-    ``compat``: the old codes), 8 / 32946 (Deflate) or 32773 (PackBits,
-    a row at a time, packets drawn from ``seed``), predictor 2 or 3, fill
+    ``compat``: the old codes), 8 / 32946 (Deflate), 32773 (PackBits,
+    a row at a time, packets drawn from ``seed``), 34925 (LZMA: an .xz
+    stream without a check, as libtiff writes it) or 50000 (ZSTD through
+    the ``zstandard`` package, a test dependency: the level, checksum and
+    content size drawn from ``seed``), predictor 2 or 3, fill
     order 2, classic or BigTIFF in either byte order. ``tags`` adds or
     replaces tags ({tag: (type, values)}), ``omit`` drops tags,
     ``blocks`` gives the compressed strips or tiles outright and ``header``
@@ -1045,6 +1063,92 @@ def dds_fixtures():
     return out
 
 
+def legacy_fixtures():
+    """The ICO / CUR, QOI, SGI, PCX and LZMA / ZSTD TIFF fixtures: Pillow's
+    writers (ICO with a PNG and a BMP entry and the BMP one's CUR twin, QOI,
+    raw SGI, PCX, TIFF with ``compression`` "zstd" / "lzma") and
+    ``tools/legacy_writers.py``'s (ICO and CUR entry sets, every QOI op,
+    RLE SGI, PCX forms Pillow does not write), tiles, planes and the
+    floating-point predictor through ``tiff_bytes`` (``.tiff``, apart from
+    ``tiff_fixtures``' ``.tif`` files), and ``ZSTD_ALBEDO``: the config-3
+    albedo at 64^2 scaled up 32x by repetition to 2048^2, saved by Pillow
+    as a ZSTD TIFF with the horizontal predictor (71 KB: compressed blocks,
+    raw and 4-stream Huffman literals, blocks without sequences, and
+    predefined, RLE, FSE and repeat sequence tables)."""
+    import io
+
+    from PIL import Image
+
+    from akari_torch.scene.builtin import envtex_texture
+    from tools import legacy_writers as lw
+
+    def pil(img, fmt, **kw):
+        b = io.BytesIO()
+        img.save(b, fmt, **kw)
+        return b.getvalue()
+
+    r = np.random.default_rng(60)
+    square = Image.fromarray(pattern(24, 24, 61))
+    out = {}
+    for fmt in ("png", "bmp"):
+        out[f"ico_pil_{fmt}_24x24.ico"] = pil(square, "ICO", sizes=[(24, 24)], bitmap_format=fmt)
+    cur = bytearray(out["ico_pil_bmp_24x24.ico"])
+    cur[2] = 2  # the same bytes as a CUR
+    out["cur_pil_bmp_24x24.cur"] = bytes(cur)
+    quads = lambda n: np.concatenate([r.integers(0, 256, (n, 3)), np.zeros((n, 1), int)],
+                                     1).astype(np.uint8).tobytes()
+    px = pattern(16, 16, 62)
+    entries = [
+        (16, 16, 2, 1, lw.dib_entry(r.integers(0, 2, (16, 16)), 1, quads(2))),
+        (16, 16, 16, 4, lw.dib_entry(r.integers(0, 16, (16, 16)), 4, quads(16))),
+        (16, 16, 0, 8, lw.dib_entry(r.integers(0, 256, (16, 16)), 8, quads(256))),
+        (16, 16, 0, 24, lw.dib_entry(px[..., ::-1], 24, mask=r.integers(0, 2, (16, 16)))),
+        (16, 16, 0, 32, pil(Image.fromarray(px), "PNG")),
+        (8, 8, 0, 32, lw.dib_entry(np.concatenate([pattern(8, 8, 63), r.integers(
+            0, 256, (8, 8, 1)).astype(np.uint8)], 2), 32)),
+    ]
+    out["ico_depths_16x16.ico"] = lw.icon_bytes(entries)  # PIL reads the 1-bit entry
+    out["ico_24bit_9x7.ico"] = lw.icon_bytes(
+        [(9, 7, 0, 24, lw.dib_entry(pattern(7, 9, 64), 24)),
+         (5, 5, 0, 32, lw.dib_entry(r.integers(0, 256, (5, 5, 4)), 32))])
+    out["cur_8bit_12x10.cur"] = lw.icon_bytes(
+        [(6, 6, 0, 3, lw.dib_entry(r.integers(0, 4, (6, 6)), 8, quads(4))),
+         (12, 10, 0, 5, lw.dib_entry(r.integers(0, 256, (10, 12)), 8, quads(256)))], kind=2)
+    rgba = np.concatenate([pattern(21, 17, 65), r.integers(0, 2, (21, 17, 1)).astype(
+        np.uint8) * 255], 2)
+    rgba[3:6] = rgba[3, 0]
+    out["qoi_pil_rgb_19x23.qoi"] = pil(Image.fromarray(pattern(19, 23, 66)), "QOI")
+    out["qoi_ops_rgba_21x17.qoi"] = lw.qoi_bytes(rgba, r=np.random.default_rng(67))
+    out["sgi_pil_rgb16_13x11.sgi"] = pil(Image.fromarray(pattern(11, 13, 68)), "SGI", bpc=2)
+    planes = r.integers(0, 3, (4, 9, 14)) * 100
+    planes[:, 2:5] = planes[:, 2:3, :1]
+    out["sgi_rle_rgba_14x9.rgba"] = lw.sgi_bytes(planes, 1, True)
+    out["sgi_rle16_l_10x8.bw"] = lw.sgi_bytes(r.integers(0, 4, (1, 8, 10)) * 20000, 2, True)
+    out["pcx_pil_rgb_15x9.pcx"] = pil(Image.fromarray(pattern(9, 15, 69)), "PCX")
+    out["pcx_pil_p8_33x21.pcx"] = pil(Image.fromarray(pattern(21, 33, 70)).convert("P"), "PCX")
+    out["pcx_pil_1bit_19x6.pcx"] = pil(Image.fromarray(pattern(6, 19, 71)).convert("1"), "PCX")
+    out["pcx_4planes_21x9.pcx"] = lw.pcx_bytes(r.integers(0, 16, (9, 21)), 1, 4,
+                                               palette=r.integers(0, 256, (16, 3)))
+    out["pcx_grey_ramp_40x30.pcx"] = lw.pcx_bytes(
+        r.integers(0, 4, (30, 40)) * 60, 8, 1, vga=np.repeat(np.arange(256), 3).reshape(256, 3))
+    tif = Image.fromarray(pattern(23, 19, 72))
+    out["tiff_pil_rgb8_zstd.tif"] = pil(tif, "TIFF", compression="zstd")
+    out["tiff_pil_la_lzma_pred2.tif"] = pil(tif.convert("LA"), "TIFF", compression="lzma",
+                                            tiffinfo={317: 2})
+    out["tiff_zstd_tiles_rgb16_be.tiff"] = tiff_bytes(r.integers(0, 65536, (21, 18, 3)), 16, 2,
+                                                     order=">", compression=50000, predictor=2,
+                                                     tile=(16, 16), seed=3)
+    out["tiff_lzma_planar_rgb_pred2.tiff"] = tiff_bytes(pattern(13, 11, 73), 8, 2,
+                                                       compression=34925, predictor=2,
+                                                       planar=2, rows_per_strip=5)
+    out["tiff_zstd_fp32_pred3.tiff"] = tiff_bytes(
+        r.normal(0, 100, (9, 14, 1)).astype(np.float32), 32, 1, compression=50000, predictor=3,
+        sample_format=3, seed=5)
+    big = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
+    out[ZSTD_ALBEDO] = pil(Image.fromarray(big), "TIFF", compression="zstd", tiffinfo={317: 2})
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
@@ -1106,7 +1210,7 @@ def main(argv=None):
     Image.fromarray(tif).convert("LA").save(
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
-                       **webp_fixtures(), **dds_fixtures()}.items():
+                       **webp_fixtures(), **dds_fixtures(), **legacy_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
