@@ -9,8 +9,8 @@ Readers (``read_image``): ``.npy`` (linear float) and ``.hdr`` (RGBE, flat
 or new-RLE scanlines, the reference's codec) by extension; any other file
 by its signature, as PIL chooses (``decode_image``): PNG through the
 decoder below (every colour type and bit depth, interlaced or not), JPEG
-through ``core/jpeg.py`` (baseline, extended sequential and progressive
-Huffman; grey, three and four components), BMP, GIF, PNM, PSD and TGA
+through ``core/jpeg.py`` (baseline, extended sequential and progressive,
+Huffman or arithmetic, and lossless; grey, three and four components), BMP, GIF, PNM, PSD and TGA
 through ``core/image_formats.py``, TIFF (PIL's six header prefixes)
 through ``core/tiff.py``, WebP (lossless, lossy, with alpha, the first
 frame of an animation) through ``core/webp.py``, and the game-texture

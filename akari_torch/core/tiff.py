@@ -1028,7 +1028,9 @@ def _jpeg_image(lt, ifd, photo, mode, rawmode, xsize, ysize, planar, spp, what):
     if planar != 1 or lt.bits != 8 or photo not in (0, 1, 2, 5, 6):
         raise ValueError(f"{what}: JPEG-compressed TIFF of photometric {photo}, {lt.bits}-bit "
                          f"samples, planar configuration {planar} is not supported")
-    tables = jpeg_tables(ifd.get(JPEG_TABLES), what) if JPEG_TABLES in ifd else None
+    # the tables stream, like each strip, ends in libtiff's fake EOI
+    tables = (jpeg_tables(bytes(ifd.get(JPEG_TABLES)) + b"\xff\xd9", what)
+              if JPEG_TABLES in ifd else None)
     if photo == 6:
         space, sampling = "YCbCr", tuple((tuple(ifd.get(YCBCR_SUBSAMPLING, (2, 2))) + (2, 2))[:2])
     else:
@@ -1046,7 +1048,10 @@ def _jpeg_image(lt, ifd, photo, mode, rawmode, xsize, ysize, planar, spp, what):
             else:
                 index, seg_h = y // lt.rps, min(lt.rps, ysize - y)
                 last = y + seg_h >= ysize
-            comps, _, frame = decode_components(lt.stream(index), what, tables, space)
+            # libtiff's std_fill_input_buffer feeds libjpeg a fake EOI marker
+            # where a strip's data ends: read on as from a marker
+            comps, _, frame = decode_components(lt.stream(index) + b"\xff\xd9", what, tables,
+                                                space, strip=True)
             sf = [(c["h"], c["v"]) for c in frame["comps"]]
             if len(sf) != spp:
                 raise ValueError(f"{what}: TIFF JPEG strip of {len(sf)} components, {spp} "

@@ -8,8 +8,9 @@ by a hash of the source, the compiler and the flags, and loaded with
 
 - ``bvh``: ``bvh_builder.cpp`` (a copy of the reference's source), the
   binned-SAH BVH builder;
-- ``jpeg``: ``jpeg_entropy.cpp``, the Huffman decoding of JPEG scans
-  (``akari_torch/core/jpeg.py``);
+- ``jpeg``: ``jpeg_entropy.cpp``, the Huffman decoding of JPEG scans,
+  lossy and lossless, and ``jpeg_arith``: ``jpeg_arith.cpp``, the
+  arithmetic decoding of JPEG scans (``akari_torch/core/jpeg.py``);
 - ``gif``: ``gif_lzw.cpp``, the LZW decoding of a GIF frame
   (``akari_torch/core/image_formats.py``);
 - ``tiff``: ``tiff_lzw.cpp``, the LZW decoding of a TIFF strip or tile
@@ -27,7 +28,8 @@ by a hash of the source, the compiler and the flags, and loaded with
   linked.
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
-would give another triangle storage order, and the JPEG, GIF, TIFF, WebP,
+would give another triangle storage order, and the JPEG (Huffman and
+arithmetic), GIF, TIFF, WebP,
 BCn, QOI, SGI / PCX run-length and Zstandard decoders have no Python twin, so there is no fallback.
 """
 
@@ -70,6 +72,28 @@ def _bind_jpeg(lib):
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, start
         i32, ctypes.POINTER(ctypes.c_void_p),              # n_comp, planes
         ctypes.POINTER(i32), ctypes.c_char_p,              # geom, huff
+        i32, i32, i32, i32, i32, i32,                      # mcus_x, mcus_y, ss, se, ah, al
+        i32, i32,                                          # progressive, restart_interval
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i32),  # end_pos, last_good
+    ]
+    lib.akr_jpeg_lossless.restype = ctypes.c_int
+    lib.akr_jpeg_lossless.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, start
+        i32, ctypes.POINTER(ctypes.c_void_p),              # n_comp, planes
+        ctypes.POINTER(i32), ctypes.c_char_p,              # geom, huff
+        i32, i32, i32, i32, i32,                           # mcus_x, mcus_y, psv, pt, restart
+        ctypes.POINTER(ctypes.c_int64),                    # end_pos
+    ]
+
+
+def _bind_jpeg_arith(lib):
+    i32 = ctypes.c_int32
+    lib.akr_jpeg_arith_scan.restype = ctypes.c_int
+    lib.akr_jpeg_arith_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, start
+        i32, ctypes.POINTER(ctypes.c_void_p),              # n_comp, planes
+        ctypes.POINTER(i32), ctypes.c_char_p,              # geom, tables
+        ctypes.c_char_p,                                   # cond (L, U, K)
         i32, i32, i32, i32, i32, i32,                      # mcus_x, mcus_y, ss, se, ah, al
         i32, i32,                                          # progressive, restart_interval
         ctypes.POINTER(ctypes.c_int64),                    # end_pos
@@ -159,6 +183,8 @@ SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
             "the native BVH builder (scenes of 20,000 triangles or more)", _bind_bvh),
     "jpeg": ("jpeg_entropy.cpp", "libakr_jpeg.so", "the JPEG decoder", _bind_jpeg),
+    "jpeg_arith": ("jpeg_arith.cpp", "libakr_jpeg_arith.so", "the arithmetic-coded JPEG decoder",
+                   _bind_jpeg_arith),
     "gif": ("gif_lzw.cpp", "libakr_gif.so", "the GIF decoder", _bind_gif),
     "tiff": ("tiff_lzw.cpp", "libakr_tiff.so", "the TIFF LZW decoder", _bind_tiff),
     "webp_vp8l": ("webp_vp8l.cpp", "libakr_vp8l.so", "the lossless WebP decoder", _bind_vp8l),

@@ -255,19 +255,29 @@ Phases (each checks its results; any failure exits non-zero):
     config-3 CLI on the PNG, RLE SGI and PCX albedos (frames bit-equal, 6
     tree closest launches each, one launch of each SGI / PCX run held to
     the plain walk at 0 ulp);
-47. the result: a JSON line of kernel records (the dense records on the
+47. the arithmetic-coded, lossless and cut progressive JPEGs: their
+    fixtures' digests; the 2048^2 albedo as an arithmetic-coded
+    progressive JPEG (the committed baseline JPEG re-coded here by
+    ``tools/jpeg_writers.py``, decoding to the baseline's pixels), as a
+    lossless JPEG written here (decoding to the albedo) and as the
+    committed progressive JPEG cut after its 6th scan (block smoothing),
+    each decode's median of 3 beside the PNG and baseline JPEG routes';
+    the config-3 CLI on a PNG of the arithmetic file's pixels and on the
+    arithmetic file (frames bit-equal, 6 tree closest launches each, one
+    launch of the arithmetic run held to the plain walk at 0 ulp);
+48. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-46,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-47,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-46) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-47) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
-Every kernel source (and the native BVH builder, JPEG entropy decoder,
-GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
+Every kernel source (and the native BVH builder, JPEG Huffman and
+arithmetic decoders, GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
 PCX run-length decoder and ZSTD decoder) is built at start, one compiler
 process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
@@ -3229,6 +3239,100 @@ def legacy_phase(card, traversal, cli_render):
     return out
 
 
+JPEG_FORM_FIXTURES = ("arith_", "lossless_")  # with the files cut after a scan ("_cut")
+
+
+def jpeg_forms_phase(card, traversal, cli_render):
+    """Phase 47: the JPEG forms beyond baseline and progressive Huffman on
+    this machine (no PIL here): the arithmetic-coded, lossless and cut
+    progressive fixtures' digests; the 2048^2 albedo as an arithmetic-coded
+    progressive JPEG (the committed baseline JPEG's coefficients re-coded
+    here by ``tools/jpeg_writers.py``: its decode must equal the baseline's),
+    as a lossless JPEG (predictor 1, written here: its decode must be the
+    albedo) and as the committed progressive JPEG cut after its 6th scan
+    (block smoothing), each decode's median of 3 beside the PNG route's and
+    the baseline JPEG's; and the config-3 CLI on a PNG of the arithmetic
+    file's pixels and on the arithmetic file (frames bit-equal, 6 tree
+    closest launches each, one launch of the arithmetic run held to the
+    plain walk at 0 ulp); returns the tree kernel's errors and the figures
+    it logs."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_png, encode_png
+    from akari_torch.core.jpeg import decode_jpeg
+    from akari_torch.scene.builtin import envtex_texture
+    from tools import jpeg_writers as jw
+    from tools.make_torch_port_image_fixtures import ALBEDO_CUT
+
+    t_phase = time.perf_counter()
+    log(f"phase 47: arithmetic-coded, lossless and cut progressive JPEG decoding without PIL: "
+        f"the fixtures' digests, the 2048^2 albedo in three forms, the config-3 CLI on an "
+        f"arithmetic-coded albedo [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items()
+                   if k.startswith(JPEG_FORM_FIXTURES) or "_cut" in k}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_jpeg(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 13, f"only {len(digests)} arithmetic / lossless / cut JPEG fixtures")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
+        baseline = f.read()
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_CUT), "rb") as f:
+        files = {"cut progressive JPEG": f.read()}
+    base_px = decode_jpeg(baseline)
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        files["arithmetic JPEG"] = jw.arith_jpeg(*jw.file_coefficients(baseline),
+                                                 script=jw.PROGRESSION, mapper=pool.map)
+    log(f"  wrote the 2048^2 arithmetic-coded progressive JPEG in {time.perf_counter() - t0:.2f} s "
+        f"({workers} processes, {len(files['arithmetic JPEG'])} bytes)")
+    t0 = time.perf_counter()
+    files["lossless JPEG"] = jw.lossless_jpeg([albedo[..., i] for i in range(3)],
+                                              [(1, 1, 1), (2, 1, 1), (3, 1, 1)], albedo.shape[:2], 1)
+    log(f"  wrote the 2048^2 lossless JPEG (predictor 1) in {time.perf_counter() - t0:.2f} s "
+        f"({len(files['lossless JPEG'])} bytes)")
+    arith_px = decode_jpeg(files["arithmetic JPEG"])
+    check(np.array_equal(arith_px, base_px),
+          "the 2048^2 arithmetic-coded JPEG decodes to other pixels than its baseline twin")
+    check(np.array_equal(decode_jpeg(files["lossless JPEG"]), albedo),
+          "the 2048^2 lossless JPEG decodes to other pixels than the albedo")
+    check(jw.scan_count(files["cut progressive JPEG"]) == 6,
+          f"{ALBEDO_CUT} does not hold 6 scans")
+    out = {}
+    for form, data in (("PNG", png_data), ("baseline JPEG", baseline), *files.items()):
+        med, runs = _median_s(lambda: decode_png(data) if form == "PNG" else decode_jpeg(data))
+        out[f"{form.replace(' ', '_')}_decode_s"] = med
+        log(f"  2048^2 {form} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+            f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_arith.png": encode_png(arith_px), "albedo_arith.jpg": files["arithmetic JPEG"]},
+        ("albedo_arith.png", "albedo_arith.jpg"), {"albedo_arith.jpg"})
+    out.update(cli)
+    check(np.array_equal(frames["albedo_arith.jpg"], frames["albedo_arith.png"]),
+          "the frame on the arithmetic-coded JPEG differs from the PNG route's of its pixels")
+    log("  the arithmetic-coded albedo's frame is bit-equal to the PNG route's of its pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 47: {out['phase_s']:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
 def main():
     import torch
 
@@ -3271,11 +3375,11 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    native_names = ("bvh", "jpeg", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn", "qoi", "rle",
-                    "zstd")
+    native_names = ("bvh", "jpeg", "jpeg_arith", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn",
+                    "qoi", "rle", "zstd")
     with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
-        # g++ beside the nvcc builds: the BVH builder, the JPEG entropy decoder,
-        # the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
+        # g++ beside the nvcc builds: the BVH builder, the JPEG Huffman and
+        # arithmetic decoders, the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
         # the QOI decoder, the SGI / PCX run-length decoder and the ZSTD decoder
         natives = {n: pool.submit(native_loader.build, n) for n in native_names}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
@@ -3852,13 +3956,15 @@ def main():
     webps = webp_phase(card, traversal, cli_render)
     ddss = dds_phase(card, traversal, cli_render)
     legacy = legacy_phase(card, traversal, cli_render)
+    forms = jpeg_forms_phase(card, traversal, cli_render)
     tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
-                   ddss["tree_err"], legacy["tree_err"])
+                   ddss["tree_err"], legacy["tree_err"], forms["tree_err"])
     tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
-                       webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"])
+                       webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"],
+                       forms["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 47: result ----------------------------------------------------
+    # ---- phase 48: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -21,6 +21,9 @@ pixels equal PIL's ``convert("RGB")``:
   ancillary chunks, Adam7-interlaced at 1x1, 3x2 and 33x17 (Pillow writes
   no interlaced, sub-byte grey or 16-bit colour PNG, so ``png_bytes`` builds
   them; PIL reads them);
+- corrupt entropy-coded data and the forms PIL reads that the port once
+  refused (``READ_ON``; the full sweeps are in
+  ``tests/test_torch_image_jpeg_forms.py``);
 - the refused forms raise ``ValueError`` naming themselves.
 """
 
@@ -343,23 +346,27 @@ BAD_TABLES = {
     "huffman-all-ones-code": lambda: _with_dht(_pil_jpeg(), 0, 2, [0, 1]),
 }
 
+# forms the port once refused and PIL reads: libjpeg resynchronises at a
+# restart marker out of sequence, reads a bit pattern no code matches as
+# symbol 0, decodes any bytes of a file relabelled arithmetic-coded, and
+# smooths the blocks of a progressive file whose refinement scans are gone
+READ_ON = {
+    "restart-out-of-sequence": _restart_out_of_sequence,
+    "no-matching-code": _code_matching_nothing,
+    "arithmetic": lambda: _with_sof(_pil_jpeg(), code=0xC9),
+    "arithmetic-progressive": lambda: _with_sof(_pil_jpeg(progressive=True), code=0xCA),
+    "unrefined-progressive": lambda: _without_refinement_scans(_pil_jpeg(progressive=True)),
+}
+
 REFUSED = {
     **{form: (make, "bad Huffman table") for form, make in BAD_TABLES.items()},
-    # libjpeg warns and resynchronises or decodes zeros here (PIL loads the
-    # file); the port refuses corrupt entropy-coded data instead
-    "restart-out-of-sequence": (_restart_out_of_sequence, "restart marker missing or out of"),
-    "no-matching-code": (_code_matching_nothing, "no Huffman code matches"),
-    "arithmetic": (lambda: _with_sof(_pil_jpeg(), code=0xC9), "arithmetic"),
-    "arithmetic-progressive": (lambda: _with_sof(_pil_jpeg(progressive=True), code=0xCA),
-                               "arithmetic"),
+    # a baseline scan header (Ss = 0, Se = 63) under SOF3: no predictor
     "lossless": (lambda: _with_sof(_pil_jpeg(), code=0xC3), "lossless"),
     "hierarchical": (lambda: _with_sof(_pil_jpeg(), code=0xC5), "hierarchical"),
     "12-bit": (lambda: _with_sof(_pil_jpeg(), precision=12), "12-bit"),
     "two-components": (lambda: _two_component_jpeg(), "2-component"),
     "truncated": (lambda: _pil_jpeg(quality=90)[:-300], "truncated"),
     "truncated-progressive": (lambda: _pil_jpeg(progressive=True)[:-200], "truncated"),
-    "unrefined-progressive": (lambda: _without_refinement_scans(_pil_jpeg(progressive=True)),
-                              "block smoothing"),
 }
 
 
@@ -417,6 +424,12 @@ def test_refused_jpeg_forms_name_themselves(tmp_path, form):
     with pytest.raises(ValueError, match=name) as err:
         port_image.read_image(str(path))
     assert str(path) in str(err.value)
+
+
+@pytest.mark.parametrize("form", list(READ_ON))
+def test_forms_libjpeg_reads_on_match_pil(tmp_path, form):
+    """Each once-refused form reads as PIL reads it, bit for bit."""
+    _decode_both(READ_ON[form](), tmp_path)
 
 
 def test_truncated_jpeg_raises_in_pil_too(tmp_path):
@@ -586,7 +599,8 @@ def test_fixture_digests_are_pils_decode():
         px = np.asarray(Image.open(path).convert("RGB"))
         assert list(px.shape) == rec["shape"], name
         assert hashlib.sha256(px.tobytes()).hexdigest() == rec["sha256"], name
-    assert total < 2.0e6  # two 2048^2 albedos (JPEG, lossy WebP) of ~0.8 MB each
+    assert total < 2.0e6  # 2048^2 albedos: JPEG and lossy WebP of ~0.8 MB each, a cut
+    # progressive JPEG of 0.19 MB
 
 
 def test_fixtures_decode_to_their_digests():

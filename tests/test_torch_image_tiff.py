@@ -31,8 +31,9 @@ same float32 array bit for bit with ``to_linear`` True and False:
 - Pillow's own writer in every mode and compression it writes;
 - seeded corruptions of the fixtures: wherever PIL reads the file the port
   gives its pixels, wherever PIL refuses it the port raises ValueError.
-  In JPEG strips libjpeg warns and decodes on over corrupt entropy-coded
-  data, which the port refuses (as ``core/jpeg.py`` does for JPEG files);
+  JPEG strips read on over corrupt entropy-coded data as libjpeg does (as
+  ``core/jpeg.py`` does for JPEG files), and a strip whose data ends early
+  reads as libtiff's fake EOI marker leaves it;
   YCbCr strips that are not JPEG are left out, because libtiff's RGBA
   reader, which PIL uses for them, goes on from stale memory over a strip
   that fails to decode; on corrupt LZMA and ZSTD strips the port refuses
@@ -717,13 +718,8 @@ def test_corrupted_files_read_as_pil_or_are_refused_as_pil_refuses(tmp_path, see
         if want is None:
             assert got is None, f"{name}: PIL refuses {data.hex()}, the port reads it"
             refused += 1
-        elif got is None:
-            # libjpeg decodes corrupt entropy-coded data on; the port refuses it
-            with pytest.raises(ValueError, match="JPEG"):
-                port_image.decode_image(data, name)
-            assert "jpeg" in name, f"{name}: PIL reads {data.hex()}, the port refuses it"
-            refused += 1
         else:
+            assert got is not None, f"{name}: PIL reads {data.hex()}, the port refuses it"
             np.testing.assert_array_equal(got, want, err_msg=f"{name}: {data.hex()}")
             read += 1
     assert read > 10 and refused > 10

@@ -213,18 +213,20 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 
 
 def test_unsupported_images_name_their_format(tmp_path):
-    """What the decoders still refuse: arithmetic-coded and 12-bit JPEG,
+    """What the decoders still refuse: hierarchical and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
     read, a CCITT Group 4 TIFF, a DDS FourCC PIL does not read (DXT2), and
     a format the port has no decoder for, QOI (read_image picks the decoder
-    by signature). DDS, which PIL opens and the port refused before, now
-    reads as the reference reads it."""
+    by signature). DDS and arithmetic-coded JPEG, which PIL opens and the
+    port refused before, now read as the reference reads them."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
     (tmp_path / "arith.jpg").write_bytes(data[:sof + 1] + b"\xc9" + data[sof + 2:])
-    with pytest.raises(ValueError, match="arithmetic"):
-        port_image.read_image(str(tmp_path / "arith.jpg"))
+    _same_read(str(tmp_path / "arith.jpg"))
+    (tmp_path / "sof5.jpg").write_bytes(data[:sof + 1] + b"\xc5" + data[sof + 2:])
+    with pytest.raises(ValueError, match="hierarchical"):
+        port_image.read_image(str(tmp_path / "sof5.jpg"))
     (tmp_path / "d12.jpg").write_bytes(data[:sof + 4] + b"\x0c" + data[sof + 5:])
     with pytest.raises(ValueError, match="12-bit"):
         port_image.read_image(str(tmp_path / "d12.jpg"))

@@ -42,6 +42,13 @@ Writes into ``tests/data/torch_port_images/``:
   Pillow's writers, ``tools/legacy_writers.py`` for the forms Pillow cannot
   write, and a 2048^2 ZSTD TIFF of the config-3 albedo scaled up 32x
   (``ZSTD_ALBEDO``, 71 KB);
+- arithmetic-coded (SOF9 / SOF10) and lossless (SOF3) JPEGs written by
+  ``tools/jpeg_writers.py`` and progressive JPEGs saved by PIL and cut
+  after a scan (``jpeg_form_fixtures``), each a few KB (below Pillow's
+  64 KiB feed, past which libjpeg's arithmetic decoder, which cannot
+  suspend, fails in PIL), and ``ALBEDO_CUT``: ``envtex_texture(2048, 0)``
+  saved by PIL as a progressive 4:2:0 JPEG at quality 85 and cut after its
+  6th scan, which libjpeg reads with block smoothing;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them.
@@ -73,6 +80,7 @@ DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_images")
 ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
 ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
+ALBEDO_CUT = "albedo2048_q85_prog_cut6.jpg"
 
 
 def pattern(h, w, seed):
@@ -1149,6 +1157,61 @@ def legacy_fixtures():
     return out
 
 
+def jpeg_form_fixtures():
+    """The arithmetic-coded, lossless and cut progressive JPEG fixtures:
+    ``tools/jpeg_writers.py``'s SOF9 and SOF10 files (4:4:4, 4:2:0 and mixed
+    sampling, grey; restart intervals; DAC conditioning), its SOF3 files
+    (grey and RGB, predictors 1, 4, 5 and 7, point transforms, restarts, a
+    2x2 / 1x1 / 1x1 frame), PIL progressive files cut after a scan (grey,
+    4:4:4, 4:2:0), and ``ALBEDO_CUT``."""
+    import io
+
+    from PIL import Image
+
+    from akari_torch.scene.builtin import envtex_texture
+    from tools import jpeg_writers as jw
+
+    def pil(px, **kw):
+        b = io.BytesIO()
+        Image.fromarray(px).save(b, "JPEG", **kw)
+        return b.getvalue()
+
+    adobe_rgb = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+    out = {}
+    px = pattern(37, 45, 80)
+    c420 = jw.pixel_coefficients(px, [(2, 2), (1, 1), (1, 1)], 75)
+    out["arith_seq_420_45x37.jpg"] = jw.arith_jpeg(*c420)
+    c444 = jw.pixel_coefficients(pattern(29, 33, 81), [(1, 1)] * 3, 90)
+    out["arith_seq_444_rst_dac_33x29.jpg"] = jw.arith_jpeg(
+        *c444, restart=3, dac=[(0, 0, 0x52), (1, 0, 2), (0, 1, 0x31), (1, 1, 40)])
+    cmix = jw.pixel_coefficients(pattern(40, 48, 82), [(2, 1), (1, 1), (1, 2)], 60)
+    out["arith_prog_mixed_48x40.jpg"] = jw.arith_jpeg(*cmix, script=jw.PROGRESSION)
+    out["arith_prog_420_rst_45x37.jpg"] = jw.arith_jpeg(*c420, script=jw.PROGRESSION, restart=2,
+                                                        dac=[(1, 0, 1), (1, 1, 63)])
+    grey = jw.pixel_coefficients(pattern(35, 21, 83)[..., 0], [(1, 1)], 85)
+    out["arith_prog_grey_21x35.jpg"] = jw.arith_jpeg(*grey, script=jw.PROGRESSION_GREY,
+                                                     restart=4)
+    g = pattern(21, 27, 84)
+    out["lossless_grey_psv1_27x21.jpg"] = jw.lossless_jpeg([g[..., 0]], [(1, 1, 1)], (21, 27), 1)
+    out["lossless_grey_psv4_pt2_rst_27x21.jpg"] = jw.lossless_jpeg(
+        [g[..., 1]], [(1, 1, 1)], (21, 27), 4, pt=2, restart_rows=2)
+    rgb = pattern(19, 23, 85)
+    out["lossless_rgb_psv7_23x19.jpg"] = jw.lossless_jpeg(
+        [rgb[..., i] for i in range(3)], [(1, 1, 1), (2, 1, 1), (3, 1, 1)], (19, 23), 7)
+    out["lossless_420_psv5_pt1_rst_23x19.jpg"] = jw.lossless_jpeg(
+        [rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]], [(1, 2, 2), (2, 1, 1), (3, 1, 1)],
+        (19, 23), 5, pt=1, restart_rows=3, app=adobe_rgb)
+    prog = pil(pattern(40, 48, 86), quality=80, progressive=True, subsampling=2)
+    out["prog_420_cut3_48x40.jpg"] = jw.cut_progressive(prog, 3)
+    prog = pil(pattern(33, 26, 87), quality=90, progressive=True, subsampling=0)
+    out["prog_444_cut5_26x33.jpg"] = jw.cut_progressive(prog, 5)
+    prog = pil(pattern(17, 50, 88)[..., 0], quality=70, progressive=True)
+    out["prog_grey_cut1_50x17.jpg"] = jw.cut_progressive(prog, 1)
+    out[ALBEDO_CUT] = jw.cut_progressive(pil(envtex_texture(2048, 0), quality=85,
+                                             progressive=True, subsampling=2), 6)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
@@ -1210,7 +1273,8 @@ def main(argv=None):
     Image.fromarray(tif).convert("LA").save(
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
-                       **webp_fixtures(), **dds_fixtures(), **legacy_fixtures()}.items():
+                       **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
+                       **jpeg_form_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
