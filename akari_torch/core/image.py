@@ -11,8 +11,9 @@ by its signature, as PIL chooses (``decode_image``): PNG through the
 decoder below (every colour type and bit depth, interlaced or not), JPEG
 through ``core/jpeg.py`` (baseline, extended sequential and progressive,
 Huffman or arithmetic, and lossless; grey, three and four components), BMP, GIF, PNM, PSD and TGA
-through ``core/image_formats.py``, TIFF (PIL's six header prefixes)
-through ``core/tiff.py``, WebP (lossless, lossy, with alpha, the first
+through ``core/image_formats.py``, TIFF (PIL's six header prefixes; raw,
+PackBits, LZW, Deflate, JPEG, LZMA, ZSTD, CCITT RLE / RLEW / Group 3 /
+Group 4, ThunderScan and old-style JPEG) through ``core/tiff.py``, WebP (lossless, lossy, with alpha, the first
 frame of an animation) through ``core/webp.py``, and the game-texture
 formats: DDS (BC1-BC7, the DX10 header, the uncompressed mask, luminance
 and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
@@ -387,8 +388,10 @@ def decode_image(data, what="image"):
             gave_up.append(str(e).removeprefix(f"{what}: "))
     tried = f"; PIL gives up on it: {'; '.join(gave_up)}" if gave_up else ""
     raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, GIF, "
-                     "PNM, PSD, TGA, TIFF, WebP, DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, .hdr "
-                     f"and .npy; not JPEG 2000, EPS, ICNS or the other formats PIL opens){tried}")
+                     "PNM, PSD, TGA, TIFF (every compression PIL reads: raw, PackBits, LZW, "
+                     "Deflate, JPEG, old-style JPEG, LZMA, ZSTD, CCITT and ThunderScan), WebP, "
+                     "DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, .hdr and .npy; not JPEG 2000, "
+                     f"EPS, ICNS or the other formats PIL opens){tried}")
 
 
 def read_image(path, to_linear=True):
@@ -396,8 +399,10 @@ def read_image(path, to_linear=True):
     (linear).
 
     Returns [H, W, 3] float32. The 8-bit formats are told apart by their
-    signature (``decode_image``); other formats, and forms the decoders
-    refuse, raise ``ValueError`` naming the format.
+    signature (``decode_image``), TIFF in every compression PIL reads (the
+    CCITT fax codes, ThunderScan and old-style JPEG among them); other
+    formats, and forms the decoders refuse, raise ``ValueError`` naming the
+    format.
     """
     path = str(path)
     if path.endswith(".npy"):

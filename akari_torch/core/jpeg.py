@@ -77,6 +77,7 @@ _REFUSED_SOF = {
 _NATIVE_ERRORS = {
     1: "truncated: the file ends inside entropy-coded data",
     4: "bad Huffman table",
+    5: "restart marker out of place (libtiff's old-style JPEG reader: unexpected error)",
 }
 # T.81 Annex K.3's Huffman tables (counts, then symbols), which
 # libjpeg-turbo's jstdhuff.c gives a sequential scan whose DC or AC table 0
@@ -393,11 +394,14 @@ def decode_components(data, what="JPEG", tables=None, space=None, strip=False):
     return out, space, frame
 
 
-def read_scans(data, what="JPEG", tables=None, space=None, strip=False):
+def read_scans(data, what="JPEG", tables=None, space=None, strip=False,
+               strict_restarts=False):
     """JPEG bytes -> (frame, ``_Scans`` after the last scan, colour space):
     the markers and entropy-coded data of ``decode_components`` before any
     smoothing, IDCT or upsampling (``tools/jpeg_writers.py`` reads a file's
-    quantised coefficients with it)."""
+    quantised coefficients with it). ``strict_restarts``: any marker but
+    the expected RSTn at a restart fails, as under libtiff's old-style JPEG
+    reader (``core/tiff_ojpeg.py``)."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{what}: not a JPEG file")
@@ -477,7 +481,8 @@ def read_scans(data, what="JPEG", tables=None, space=None, strip=False):
                 space = ("grey" if len(comps) == 1 else
                          _colour_space(comps, jfif, adobe_transform, frame["mode"] == "lossless")
                          if forced is None else forced)
-            nxt = _scan(data, nxt, body, frame, scans, qt, huff, cond, restart, what)
+            nxt = _scan(data, nxt, body, frame, scans, qt, huff, cond, restart, what,
+                        strict_restarts)
         # APPn, COM, DNL: nothing that changes the pixels
         pos = nxt
     if frame is None or scans is None:
@@ -485,7 +490,7 @@ def read_scans(data, what="JPEG", tables=None, space=None, strip=False):
     return frame, scans, space
 
 
-def _scan(data, start, body, frame, scans, qt, huff, cond, restart, what):
+def _scan(data, start, body, frame, scans, qt, huff, cond, restart, what, strict=False):
     """Parse one SOS header, latch its quantisation tables, check its
     parameters as libjpeg's ``start_pass`` routines do and update the
     progression status, and decode its entropy-coded data into
@@ -505,11 +510,16 @@ def _scan(data, start, body, frame, scans, qt, huff, cond, restart, what):
     scans.n += 1
     ids = [c["id"] for c in comps]
     idx, tables = [], []
+    slots = [False] * 4  # libjpeg-turbo's cur_comp_info, filled by scan position
     for i in range(ns):
         cs, t = body[1 + 2 * i], body[2 + 2 * i]
-        if cs not in ids:
-            raise ValueError(f"{what}: JPEG scan names component {cs}, not in the frame")
-        ci = ids.index(cs)
+        # get_sos: the first frame component of that id whose index is a scan
+        # position not yet filled (a repeated id takes the next component)
+        ci = next((k for k in range(min(len(comps), 4)) if ids[k] == cs and not slots[k]), None)
+        if ci is None:
+            raise ValueError(f"{what}: JPEG scan names component {cs}, not in the frame "
+                             "(libjpeg: invalid component ID)")
+        slots[i] = True
         if mode != "lossless" and scans.latched[ci] is None:
             if comps[ci]["tq"] not in qt:
                 raise ValueError(f"{what}: JPEG quantisation table {comps[ci]['tq']} undefined")
@@ -576,7 +586,8 @@ def _scan(data, start, body, frame, scans, qt, huff, cond, restart, what):
                 spec += huff.get((cls, tid), bytes(272)) if need else bytes(272)
         rc = load("jpeg").akr_jpeg_scan(
             data, len(data), start, ns, ptrs, gptr, spec, frame["mcux"], frame["mcuy"], ss, se,
-            ah, al, int(progressive), restart, ctypes.byref(end), ctypes.byref(scans.last_good))
+            ah, al, int(progressive), restart, ctypes.byref(end), ctypes.byref(scans.last_good),
+            int(strict))
     if rc:
         raise ValueError(f"{what}: JPEG {_NATIVE_ERRORS.get(rc, f'decoder error {rc}')}")
     return end.value

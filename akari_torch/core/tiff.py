@@ -25,8 +25,13 @@ picks a mode and a raw mode from the tags (``TiffImagePlugin._setup``;
   (``zlib``), LZMA (Python's ``lzma``: one .xz stream a strip, as
   ``tif_lzma.c`` reads it), ZSTD (``akari_torch/native/zstd.cpp``, the
   first Zstandard frame of a strip as libzstd's streaming decoder reads it
-  for ``tif_zstd.c``) and JPEG (``core/jpeg.py``: the ``JPEGTables`` stream, then
-  each strip's stream, YCbCr to RGB by libjpeg), with fill order 2,
+  for ``tif_zstd.c``), JPEG (``core/jpeg.py``: the ``JPEGTables`` stream, then
+  each strip's stream, YCbCr to RGB by libjpeg), the CCITT codes of
+  ``tif_fax3.c`` (``akari_torch/native/fax3.cpp``: RLE, RLEW, Group 3 MH
+  and MR, Group 4, their run arrays and no-EOL state kept from strip to
+  strip), ThunderScan (``native/rle.cpp``, ``tif_thunder.c``) and
+  old-style JPEG (``core/tiff_ojpeg.py``: ``tif_ojpeg.c``'s stream, decoded
+  raw and converted by the RGBA reader below), with fill order 2,
   horizontal (8, 16, 32-bit) and floating-point prediction, and its
   samples in the host's (little-endian) byte order, which PIL's raw modes
   then read (a big-endian 32-bit or signed 16-bit file thus reads
@@ -44,16 +49,19 @@ RGBA at 8 and 16 bits (the high byte; associated alpha un-premultiplied
 as PIL's ``RGBa`` unpackers do), CMYK (PIL's cmyk2rgb) and YCbCr; and
 last turned by the ``Orientation`` tag as PIL's ``exif_transpose``.
 
-Refused, each with a ``ValueError`` naming it: the CCITT, old-style JPEG
-(6), ThunderScan, SGILog and WebP compressions and Lab (PIL
-reads these); any tag combination PIL's ``OPEN_INFO`` lacks, and every
-file PIL or libtiff refuses; and the forms PIL reads from libtiff's
-memory as it stands, which the port cannot reproduce: one-band images in
-planar configuration 2 (written as RGBA bands), YCbCr that is not JPEG
-with a predictor or 4x4 subsampling, YCbCr or JPEG strips that fail to
-decode (libtiff's RGBA reader and libjpeg go on over a stale or partly
-written buffer: corrupt or short entropy-coded data, a JPEG strip
-narrower than the image).
+Refused, each with a ``ValueError`` naming it: Lab (PIL reads it with
+its own arithmetic); the SGILog, SGILog24 and WebP compressions (PIL
+refuses them: its ``OPEN_INFO`` has no LogL / LogLuv photometric, libtiff's
+LogLuv decoder takes no other, and its libtiff has no WebP codec); any tag
+combination PIL's ``OPEN_INFO`` lacks, and every file PIL or libtiff
+refuses; and the forms PIL reads from libtiff's memory as it stands,
+which the port cannot reproduce: one-band images in planar configuration
+2 (written as RGBA bands), YCbCr that is not JPEG with a predictor or 4x4
+subsampling, YCbCr, JPEG or old-style JPEG strips that fail to decode
+(libtiff's RGBA reader and libjpeg go on over a stale or partly written
+buffer: corrupt or short entropy-coded data, a JPEG strip narrower than
+the image), and Group 4 strips whose codes end early (libtiff succeeds
+once a row is decoded and leaves the rows after it unwritten).
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from itertools import groupby
 
 import numpy as np
 
+from . import tiff_ojpeg
 from .image_formats import _check_size, _cmyk_to_rgb
 
 # PIL's TiffImagePlugin.PREFIXES: the two orders, BigTIFF, and two
@@ -72,15 +81,20 @@ from .image_formats import _check_size, _cmyk_to_rgb
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
             b"II\x2b\x00")
 
-# raw, LZW, JPEG, Deflate (two codes), PackBits, LZMA, ZSTD
-_COMPRESSIONS = (1, 5, 7, 8, 32946, 32773, 34925, 50000)
+# raw, CCITT RLE, Group 3, Group 4, LZW, old-style JPEG, JPEG, Deflate (two
+# codes), CCITT RLEW, PackBits, ThunderScan, LZMA, ZSTD
+_COMPRESSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 32946, 32771, 32773, 32809, 34925, 50000)
 # the codes whose strips libtiff runs through its predictor
 _PREDICTED = (5, 8, 32946, 34925, 50000)
+_FAX = {2: "CCITT RLE", 32771: "CCITT RLEW", 3: "CCITT Group 3", 4: "CCITT Group 4"}
+_LOGLUV = ("-compressed TIFF (PIL refuses it: its OPEN_INFO has no LogL or LogLuv "
+           "photometric, and libtiff's LogLuv decoder takes no other)")
 _REFUSED_COMPRESSIONS = {
-    2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-    32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-    50001: "WebP",
+    34676: "SGILog" + _LOGLUV, 34677: "SGILog24" + _LOGLUV,
+    50001: "WebP-compressed TIFF (PIL refuses it: its libtiff is built without the WebP "
+           "codec)",
 }
+T4_OPTIONS = 292
 
 # tag type -> (bytes a value, struct code); PIL's ImageFileDirectory_v2
 # loaders (other types are skipped, as PIL skips them)
@@ -246,6 +260,17 @@ class _Ifd:
         if typ in (5, 10):
             vals = tuple(a / b if b else float("nan") for a, b in zip(vals[::2], vals[1::2]))
         return vals[0] if tag in _SINGLE else tuple(vals)
+
+    def lenient(self, tag, default, count):
+        """A tag of ``count`` values as libtiff reads a codec's or an
+        optional tag: ignored (with a warning) where its type is not an
+        integer type, its count another, or its values past the end."""
+        if self.entries_all.get(tag, (0, count))[1] != count:
+            return default
+        try:
+            return self.lt(tag, default, count)
+        except ValueError:
+            return default
 
     def lt(self, tag, default=None, limit=None):
         """The integer values of ``tag`` as libtiff reads them from the
@@ -522,6 +547,19 @@ def _zstd(raw, size, what):
     return out
 
 
+def _thunder(raw, rows, width, row_bytes, what):
+    """libtiff's ThunderDecodeRow (``native/rle.cpp``)."""
+    from ..native.loader import load
+
+    out = np.zeros(rows * row_bytes, np.uint8)
+    rc = load("rle").akr_thunder(raw, len(raw), width, rows, row_bytes,
+                                 out.ctypes.data_as(ctypes.c_void_p))
+    if rc:
+        raise ValueError(f"{what}: ThunderScan TIFF data ends early or overfills a row "
+                         f"(libtiff: {'not enough' if rc == 1 else 'too much'} data)")
+    return out
+
+
 def _unpackbits(raw, size, what):
     """libtiff's PackBitsDecode over a whole strip: a no-op byte (128)
     skipped, a packet cut to the room left (runs cross rows), and the data
@@ -621,7 +659,7 @@ def _libtiff_directory(ifd, spp, what):
         raise ValueError(f"{what}: TIFF ExtraSamples {v} for {spp} samples (libtiff "
                          "refuses it)")
     bits = values(BITS, 1)
-    if values(PHOTOMETRIC, 1) == (3,) and (bits or (1,))[0] < 8:
+    if ifd.lenient(PHOTOMETRIC, None, 1) == (3,) and (bits or (1,))[0] < 8:
         cmap = ifd.entries_all.get(COLORMAP)  # ignored unless BitsPerSample was read
         if bits is None or cmap is None or cmap[1] != 3 << bits[0]:
             raise ValueError(f"{what}: palette TIFF whose ColorMap libtiff cannot take "
@@ -642,6 +680,8 @@ class _Libtiff:
         self.fill = ifd.lt(FILL_ORDER, (1,), 1)[0]
         self.predictor = ifd.lt(PREDICTOR, (1,), 1)[0] if comp in _PREDICTED else 1
         self.compat = None
+        self.fax = None  # (kind, state, run arrays) of a CCITT image
+        self.width = width
         fmt = ifd.get(SAMPLE_FORMAT, (1,))
         fmt = fmt[0] if isinstance(fmt, tuple) else fmt
         if self.predictor == 2 and bits not in (8, 16, 32, 64):
@@ -730,6 +770,47 @@ class _Libtiff:
             raw = _BITREV[np.frombuffer(raw, np.uint8)].tobytes()
         return raw
 
+    def _fax(self, index, raw, size):
+        """libtiff's Fax3Decode1D / 2D, Fax4Decode or Fax3DecodeRLE over one
+        strip or tile (``native/fax3.cpp``)."""
+        from ..native.loader import load
+
+        name = _FAX[self.comp]
+        if self.bits != 1:
+            raise ValueError(f"{self.what}: {name} TIFF of {self.bits}-bit samples (libtiff: "
+                             "Bits/sample must be 1 for Group 3/4 encoding/decoding)")
+        if self.spp != 1 and self.planar == 1:
+            raise ValueError(f"{self.what}: {name} TIFF of {self.spp} samples per pixel "
+                             "(libtiff: Samples/pixel shall be 1 for Group 3/4)")
+        lib = load("fax3")
+        width = self.tw if self.tiled else self.width
+        if self.fax is None:
+            two_d = self.comp == 3 and self.ifd.lenient(T4_OPTIONS, (0,), 1)[0] & 1
+            kind = {2: 0, 32771: 1, 4: 4}.get(self.comp, 3 if two_d else 2)
+            # libtiff's no-EOL flag and run arrays live from strip to strip
+            self.fax = (kind, (ctypes.c_int32 * 2)(0, 0),
+                        np.zeros(2 * lib.akr_fax_runs(width, kind), np.uint32))
+        kind, state, runs = self.fax
+        rows = size // self.row_bytes
+        out = np.zeros(size, np.uint8)
+        rc = lib.akr_fax_strip(raw, len(raw), self.offsets[index], kind, width, rows,
+                               self.row_bytes, state, runs.ctypes.data_as(ctypes.c_void_p),
+                               out.ctypes.data_as(ctypes.c_void_p))
+        if rc == -2:
+            raise ValueError(f"{self.what}: corrupt {name} TIFF data (libtiff: buffer overflow "
+                             "of its run arrays)")
+        if rc == -3:
+            raise ValueError(f"{self.what}: corrupt {name} TIFF data (libtiff: buffer overrun "
+                             "detected)")
+        if rc < 0:
+            raise ValueError(f"{self.what}: {name} TIFF data ends early or is corrupt (libtiff: "
+                             "premature EOF)")
+        if state[1] < rows:
+            raise ValueError(f"{self.what}: {name} TIFF strip whose codes end after row "
+                             f"{state[1]} of {rows} is not supported (libtiff leaves the rows "
+                             "after it as PIL's buffer held them)")
+        return out
+
     def block(self, index, rows):
         """Strip or tile ``index`` decoded: [rows, row_bytes] uint8 in the
         host's byte order."""
@@ -744,6 +825,19 @@ class _Libtiff:
     def block_bytes(self, index, size):
         """The first ``size`` decoded bytes of strip or tile ``index``."""
         raw = self.stream(index)
+        if self.comp in _FAX:
+            return self._fax(index, raw, size)
+        if self.comp == 6:
+            return self.ojpeg.block(index, size // self.row_bytes, self.rps)
+        if self.comp == 32809:
+            if self.bits != 4:
+                raise ValueError(f"{self.what}: ThunderScan TIFF of {self.bits}-bit samples "
+                                 "(libtiff: the Thunder decoder only supports 4 bits per "
+                                 "sample)")
+            if self.tiled:
+                raise ValueError(f"{self.what}: tiled ThunderScan TIFF (libtiff: ThunderScan "
+                                 "tile decoding is not implemented)")
+            return _thunder(raw, size // self.row_bytes, self.width, self.row_bytes, self.what)
         if self.comp == 5:
             if self.compat is None:  # libtiff decides by the first strip it decodes
                 self.compat = len(raw) >= 2 and raw[0] == 0 and raw[1] & 1
@@ -781,9 +875,7 @@ def _decode(data, ifd, what):
         raise ValueError(f"{what}: Windows Media Photo in TIFF (PIL refuses it)")
     comp = ifd.get(COMPRESSION, 1)
     if comp in _REFUSED_COMPRESSIONS:
-        raise ValueError(f"{what}: {_REFUSED_COMPRESSIONS[comp]}-compressed TIFF is not "
-                         "supported (the port reads raw, PackBits, LZW, Deflate, JPEG, LZMA "
-                         "and ZSTD)")
+        raise ValueError(f"{what}: {_REFUSED_COMPRESSIONS[comp]}")
     if comp not in _COMPRESSIONS:
         raise ValueError(f"{what}: TIFF compression {comp!r} (PIL refuses it)")
     planar = ifd.get(PLANAR, 1)
@@ -798,6 +890,8 @@ def _decode(data, ifd, what):
     xsize, ysize = ifd.get(WIDTH), ifd.get(LENGTH)
     if not isinstance(xsize, int) or not isinstance(ysize, int):
         raise ValueError(f"{what}: TIFF of invalid dimensions {xsize!r} x {ysize!r}")
+    if comp == 6:
+        photo = 6  # PIL: "old style jpeg compression images most certainly are YCbCr"
     orientation = ifd.get(ORIENTATION)
     swapped = orientation in (5, 6, 7, 8)
     _check_size(*((ysize, xsize) if swapped else (xsize, ysize)), what, "TIFF")
@@ -807,7 +901,7 @@ def _decode(data, ifd, what):
     bps = ifd.get(BITS, (1,))
     extra = ifd.get(EXTRA_SAMPLES, ())
     bps_count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
-    spp = ifd.get(SAMPLES, 1)
+    spp = ifd.get(SAMPLES, 3 if comp == 6 else 1)
     if spp > MAX_SAMPLES:
         raise ValueError(f"{what}: TIFF of {spp} samples per pixel (PIL refuses more than "
                          f"{MAX_SAMPLES})")
@@ -947,6 +1041,10 @@ def _compressed_image(data, ifd, comp, photo, mode, key, rawmode, xsize, ysize, 
     if data[:4] == b"II\x2b\x00" and data[4:8] != b"\x08\x00\x00\x00":
         raise ValueError(f"{what}: BigTIFF header with {data[4:8]!r} (libtiff refuses it)")
     _libtiff_directory(ifd, spp, what)
+    lt_comp = ifd.lt(COMPRESSION, (1,), 1)[0]
+    if lt_comp != comp:  # PIL keeps a repeated tag's last entry, libtiff its first
+        raise ValueError(f"{what}: TIFF whose compression libtiff reads as {lt_comp} and PIL as "
+                         f"{comp} (a repeated Compression tag) is not supported")
     if key[3] == 2:  # libtiff reverses the bits; PIL reads the fill order 1 mode
         mode, rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
     planar = ifd.lt(PLANAR, (1,), 1)[0]  # libtiff's, as PIL's decoder asks libtiff
@@ -959,13 +1057,20 @@ def _compressed_image(data, ifd, comp, photo, mode, key, rawmode, xsize, ysize, 
     # libtiff decodes from its own reading of the directory, which may hold
     # tags past the one PIL's parse stopped at
     bits = ifd.lt(BITS, (1,), 1)[0]
-    if ifd.lt(SAMPLES, (1,), 1)[0] != spp or bits != bps[0]:
+    lt_spp = tiff_ojpeg.libtiff_samples(ifd) if comp == 6 else ifd.lt(SAMPLES, (1,), 1)[0]
+    if lt_spp != spp or bits != bps[0]:
         raise ValueError(f"{what}: TIFF whose samples libtiff reads otherwise than PIL (a tag "
-                         "before them runs past the end of the file)")
+                         "before them runs past the end of the file, or an old-style JPEG "
+                         "whose SamplesPerPixel each takes otherwise)")
     lt = _Libtiff(data, ifd, comp, bits, spp, planar, xsize, ysize, what)
-    if comp == 7:
+    if comp == 6:
+        lt.ojpeg = tiff_ojpeg.OJpeg(data, ifd, lt, xsize, ysize, what)
+        if tiff_ojpeg.libtiff_photometric(ifd) == 6:  # PIL reads libtiff's YCbCr as RGBA
+            return _ycbcr_rgba(lt, ifd, xsize, ysize, planar, spp, bits, what,
+                               lt.ojpeg.sampling)
+    elif comp == 7:
         return _jpeg_image(lt, ifd, photo, mode, rawmode, xsize, ysize, planar, spp, what)
-    if photo == 6:
+    if photo == 6 and comp != 6:
         return _ycbcr_rgba(lt, ifd, xsize, ysize, planar, spp, bits, what)
     ubits, fn = _unpacker(mode, rawmode, what)
     planes, unpack = 1, [fn]
@@ -978,7 +1083,12 @@ def _compressed_image(data, ifd, comp, photo, mode, key, rawmode, xsize, ysize, 
                              "writes one-band planes as RGBA bands)")
         planes = _BANDS[mode]
         unpack = [_band(k, bits == 16) for k in range(planes)]
-    if not lt.tiled and lt.row_bytes < (xsize * ubits // planes + 7) // 8:
+    row_size = (xsize * ubits // planes + 7) // 8
+    rps_tag = ifd.lt(ROWS_PER_STRIP, (0xFFFFFFFF,), 1)[0]
+    if not lt.tiled and 2 ** 31 <= rps_tag < 0xFFFFFFFF:
+        raise ValueError(f"{what}: TIFF of {rps_tag} rows a strip (PIL's libtiff decoder "
+                         "takes the count as a negative int and refuses it)")
+    if not lt.tiled and lt.row_bytes < row_size:
         raise ValueError(f"{what}: TIFF rows of {lt.row_bytes} bytes, fewer than PIL's raw mode "
                          f"{rawmode} reads")
     px = _new_image(mode, ysize, xsize)
@@ -1131,16 +1241,18 @@ def _ycbcr_to_rgb(y, cb, cr, tabs):
     return np.stack([r, g, b], axis=-1).astype(np.uint8)
 
 
-def _ycbcr_rgba(lt, ifd, xsize, ysize, planar, spp, bits, what):
+def _ycbcr_rgba(lt, ifd, xsize, ysize, planar, spp, bits, what, sampling=None):
     """PIL's _decodeAsRGBA: TIFFRGBAImageGet over blocks of RowsPerStrip (or
     TileLength) rows, for 8-bit 3-sample contiguous YCbCr: each strip or
     tile holds blocks of hs x vs luma samples and one Cb and one Cr, the
     chroma repeated over its block (tif_getimage.c putcontig8bitYCbCr*).
-    The orientation is left to PIL's transpose, as for the other forms."""
+    The orientation is left to PIL's transpose, as for the other forms.
+    ``sampling``: the subsampling libtiff's codec gives (old-style JPEG),
+    else the tag's."""
     if spp != 3 or bits != 8:
         raise ValueError(f"{what}: YCbCr TIFF of {spp} x {bits}-bit samples (libtiff's RGBA "
                          "reader refuses it)")
-    hs, vs = (tuple(ifd.get(YCBCR_SUBSAMPLING, (2, 2))) + (2, 2))[:2]
+    hs, vs = sampling or (tuple(ifd.get(YCBCR_SUBSAMPLING, (2, 2))) + (2, 2))[:2]
     if planar == 2 and (hs, vs) != (1, 1):
         raise ValueError(f"{what}: YCbCr TIFF in planes subsampled {hs}x{vs} (libtiff's RGBA "
                          "reader takes planes 1x1 only)")
@@ -1156,6 +1268,10 @@ def _ycbcr_rgba(lt, ifd, xsize, ysize, planar, spp, bits, what):
         raise ValueError(f"{what}: YCbCr TIFF with predictor {lt.predictor} that is not "
                          "JPEG-compressed is not supported (libtiff differences its "
                          "subsampled blocks as pixels)")
+    block_rows = lt.tl if lt.tiled else ifd.lt(ROWS_PER_STRIP, (0xFFFFFFFF,), 1)[0]
+    if (2 ** 31 - 1) // (xsize * 4) < (ysize if block_rows == 0xFFFFFFFF else block_rows):
+        raise ValueError(f"{what}: YCbCr TIFF of {block_rows} rows a block {xsize} wide (PIL: "
+                         "its RGBA buffer's size overflows, decoder error -9)")
     tabs = _ycbcr_tables(luma, ref)
     unit = hs * vs + 2
     bw, bh = (lt.tw, lt.tl) if lt.tiled else (xsize, lt.rps)
@@ -1166,7 +1282,10 @@ def _ycbcr_rgba(lt, ifd, xsize, ysize, planar, spp, bits, what):
                          for k in range(3))
             return _ycbcr_to_rgb(y, cb, cr, tabs)
         nby, nbx = -(-rows // vs), -(-bw // hs)
-        raw = lt.block_bytes(index, nby * nbx * unit).reshape(nby, nbx, unit)
+        if lt.comp == 6:
+            raw = lt.ojpeg.block(index, rows, lt.rps).reshape(nby, nbx, unit)
+        else:
+            raw = lt.block_bytes(index, nby * nbx * unit).reshape(nby, nbx, unit)
         y = raw[..., :hs * vs].reshape(nby, nbx, vs, hs).transpose(0, 2, 1, 3)
         y = y.reshape(nby * vs, nbx * hs)
         cb = np.repeat(np.repeat(raw[..., hs * vs], vs, 0), hs, 1)

@@ -12,7 +12,9 @@
 // - a bit pattern that no code matches: 17 bits consumed, symbol 0
 //   (jpeg_huff_decode's JWRN_HUFF_BAD_CODE);
 // - restart markers read as read_restart_marker and jpeg_resync_to_restart
-//   (jdmarker.c) read them, a wrong one skipped or left unread;
+//   (jdmarker.c) read them, a wrong one skipped or left unread; with
+//   ``strict_restart`` any marker but the expected RSTn fails the scan, as
+//   libtiff's old-style JPEG source manager's resync_to_restart does;
 // - the same EOB-run and successive-approximation rules, and coefficients
 //   written in natural order into int16 planes of [rows, row_blocks, 64].
 // Dequantisation, the IDCT, upsampling and colour conversion stay in numpy
@@ -25,7 +27,8 @@
 //                     int32_t mcus_x, int32_t mcus_y,
 //                     int32_t ss, int32_t se, int32_t ah, int32_t al,
 //                     int32_t progressive, int32_t restart_interval,
-//                     int64_t* end_pos, int32_t* last_good);
+//                     int64_t* end_pos, int32_t* last_good,
+//                     int32_t strict_restart);
 //   geom: 6 int32 per scan component: h, v (its blocks across and down an
 //     MCU of an interleaved scan), row_blocks (its plane's width in
 //     blocks), blocks_x, blocks_y (its own extent in blocks, the MCU grid
@@ -60,6 +63,7 @@ enum {
     AKR_JPEG_OK = 0,
     AKR_JPEG_TRUNCATED = 1,   // the file ends inside entropy-coded data
     AKR_JPEG_BAD_TABLE = 4,   // a Huffman table that is not a prefix code
+    AKR_JPEG_BAD_RESTART = 5, // strict_restart: another marker where an RSTn is due
 };
 
 // Zig-zag index -> natural index, with 16 extra entries so that a corrupt
@@ -240,7 +244,7 @@ struct Reader {
     // two restarts, a non-restart marker) is left unread, so the segment
     // reads as out of data. The out-of-data flag is cleared only when the
     // marker was consumed. False when the file ends first.
-    bool restart(int& next_num) {
+    bool restart(int& next_num, bool strict = false, bool* bad = nullptr) {
         bits = 0;
         buf = 0;
         if (!marker) {
@@ -248,6 +252,10 @@ struct Reader {
             marker = true;
         }
         const int want = next_num;
+        if (strict && d[pos] != 0xD0 + want) {
+            *bad = true;
+            return false;
+        }
         for (;;) {
             const int m = d[pos];
             int action;
@@ -288,7 +296,8 @@ extern "C" int akr_jpeg_scan(const uint8_t* data, int64_t size, int64_t start,
                              int32_t mcus_x, int32_t mcus_y, int32_t ss,
                              int32_t se, int32_t ah, int32_t al,
                              int32_t progressive, int32_t restart_interval,
-                             int64_t* end_pos, int32_t* last_good) {
+                             int64_t* end_pos, int32_t* last_good,
+                             int32_t strict_restart) {
     Huff dc[4], ac[4];
     for (int c = 0; c < n_comp; ++c) {
         if (!build_huff(huff + c * 544, 15, dc[c]) ||
@@ -431,8 +440,9 @@ extern "C" int akr_jpeg_scan(const uint8_t* data, int64_t size, int64_t start,
     const int64_t rows_per_imcu = interleaved ? 1 : geom[5];
     for (int64_t m = 0; m < n_mcus; ++m) {
         if (restart_interval && m > 0 && m % restart_interval == 0) {
-            if (!rd.restart(restart_num)) {
-                rc = AKR_JPEG_TRUNCATED;
+            bool bad = false;
+            if (!rd.restart(restart_num, strict_restart != 0, &bad)) {
+                rc = bad ? AKR_JPEG_BAD_RESTART : AKR_JPEG_TRUNCATED;
                 break;
             }
             for (int c = 0; c < 4; ++c) last_dc[c] = 0;

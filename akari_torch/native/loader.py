@@ -21,16 +21,20 @@ by a hash of the source, the compiler and the flags, and loaded with
 - ``bcn``: ``bcn.cpp``, the BC1-BC7 blocks of DDS and FTEX textures
   (``akari_torch/core/dds.py``, ``ftex.py``);
 - ``qoi``: ``qoi.cpp``, the op stream of QOI images (``core/qoi.py``);
-- ``rle``: ``rle.cpp``, the run-length data of SGI and PCX images
-  (``core/sgi.py``, ``core/pcx.py``);
+- ``rle``: ``rle.cpp``, the run-length data of SGI and PCX images and of
+  ThunderScan TIFF strips (``core/sgi.py``, ``core/pcx.py``,
+  ``core/tiff.py``);
 - ``zstd``: ``zstd.cpp``, Zstandard frames (RFC 8878) of ZSTD-compressed
   TIFF strips and tiles (``core/tiff.py``); no compression library is
-  linked.
+  linked;
+- ``fax3``: ``fax3.cpp``, the CCITT RLE, RLEW, Group 3 and Group 4 strips
+  and tiles of TIFF files (``core/tiff.py``).
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
 would give another triangle storage order, and the JPEG (Huffman and
 arithmetic), GIF, TIFF, WebP,
-BCn, QOI, SGI / PCX run-length and Zstandard decoders have no Python twin, so there is no fallback.
+BCn, QOI, SGI / PCX run-length, Zstandard, CCITT and ThunderScan decoders
+have no Python twin, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ def _bind_jpeg(lib):
         i32, i32, i32, i32, i32, i32,                      # mcus_x, mcus_y, ss, se, ah, al
         i32, i32,                                          # progressive, restart_interval
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i32),  # end_pos, last_good
+        i32,                                               # strict_restart
     ]
     lib.akr_jpeg_lossless.restype = ctypes.c_int
     lib.akr_jpeg_lossless.argtypes = [
@@ -168,6 +173,11 @@ def _bind_rle(lib):
         ctypes.c_char_p, ctypes.c_int64,                   # src, size
         i32, i32, i32, i32, ctypes.c_void_p,               # xsize, bits, line, ysize, out
     ]
+    lib.akr_thunder.restype = ctypes.c_int
+    lib.akr_thunder.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # src, size
+        i32, i32, i32, ctypes.c_void_p,                    # width, rows, rowbytes, out
+    ]
 
 
 def _bind_zstd(lib):
@@ -176,6 +186,18 @@ def _bind_zstd(lib):
         ctypes.c_char_p, ctypes.c_int64,                   # src, size
         ctypes.c_void_p, ctypes.c_int64,                   # dst, occ
     ]
+
+
+def _bind_fax3(lib):
+    i32 = ctypes.c_int32
+    lib.akr_fax_strip.restype = ctypes.c_int
+    lib.akr_fax_strip.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # src, size, offset
+        i32, i32, i32, i32,                                # kind, width, rows, rowbytes
+        ctypes.POINTER(i32), ctypes.c_void_p, ctypes.c_void_p,  # state, runs, out
+    ]
+    lib.akr_fax_runs.restype = ctypes.c_int64
+    lib.akr_fax_runs.argtypes = [i32, i32]                 # width, kind
 
 
 # name -> (source, library file, what needs it, ctypes binding)
@@ -191,8 +213,10 @@ SOURCES = {
     "webp_vp8": ("webp_vp8.cpp", "libakr_vp8.so", "the lossy WebP decoder", _bind_vp8),
     "bcn": ("bcn.cpp", "libakr_bcn.so", "the DDS / FTEX block (BCn) decoder", _bind_bcn),
     "qoi": ("qoi.cpp", "libakr_qoi.so", "the QOI decoder", _bind_qoi),
-    "rle": ("rle.cpp", "libakr_rle.so", "the SGI / PCX run-length decoder", _bind_rle),
+    "rle": ("rle.cpp", "libakr_rle.so", "the SGI / PCX / ThunderScan run-length decoder",
+            _bind_rle),
     "zstd": ("zstd.cpp", "libakr_zstd.so", "the TIFF ZSTD decoder", _bind_zstd),
+    "fax3": ("fax3.cpp", "libakr_fax3.so", "the TIFF CCITT (fax) decoder", _bind_fax3),
 }
 
 _lock = threading.Lock()

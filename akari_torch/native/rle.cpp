@@ -1,5 +1,6 @@
-// The run-length decoders of SGI and PCX images, for akari_torch/core/sgi.py
-// and akari_torch/core/pcx.py.
+// The run-length decoders of SGI and PCX images and of ThunderScan TIFF
+// strips, for akari_torch/core/sgi.py, akari_torch/core/pcx.py and
+// akari_torch/core/tiff.py.
 //
 // The JAX package reads textures through PIL; these follow its C decoders
 // step for step, faults included, so that a file decodes (or fails) here
@@ -28,6 +29,18 @@
 // to ``xsize`` apart when the line over ``xsize`` makes more than one plane
 // of more than ``xsize`` bytes.
 //
+// akr_thunder (libtiff 4.7.1's tif_thunder.c, through which PIL reads
+// compression 32809): 4-bit pixels, two a byte, high nibble first; each
+// row starts from a last pixel of 0 and reads on from where the row before
+// stopped. A byte's top two bits choose: 00 a run of its low six bits'
+// count of the last pixel; 01 three 2-bit deltas (0, +1, skip, -1); 10 two
+// 3-bit deltas (0, +1, +2, +3, skip, -3, -2, -1); 11 a raw pixel (the low
+// four bits). Deltas wrap in four bits; pixels past the row's width are
+// dropped, except that a run that passes it writes nothing and leaves the
+// row over-full ("Too much data"), and a row the data ends in is "Not
+// enough data": both fail the strip. The byte handling of runs follows
+// libtiff's, odd starts and runs of 0 included.
+//
 // C ABI (ctypes):
 //   int akr_sgi_rle(const uint8_t* buf, int64_t size, int32_t xsize,
 //                   int32_t ysize, int32_t zsize, int32_t bpc, uint8_t* out);
@@ -37,6 +50,10 @@
 //                   int32_t bits, int32_t line, int32_t ysize, uint8_t* out);
 //     out: ysize x line bytes; returns 0, 1 when the data ends first, 2 on
 //     an overrun.
+//   int akr_thunder(const uint8_t* src, int64_t size, int32_t width,
+//                   int32_t rows, int32_t rowbytes, uint8_t* out);
+//     out: rows x rowbytes bytes; returns 0, 1 when the data ends in a row
+//     (libtiff: not enough data), 2 when a run overfills one (too much).
 //
 // Build: akari_torch/native/loader.py (g++ -O3 -shared -fPIC -std=c++17).
 
@@ -158,4 +175,58 @@ extern "C" int akr_pcx_rle(const uint8_t* src, int64_t size, int32_t xsize, int3
             if (++y >= ysize) return overrun ? 2 : 0;
         }
     }
+}
+
+extern "C" int akr_thunder(const uint8_t* src, int64_t size, int32_t width, int32_t rows,
+                           int32_t rowbytes, uint8_t* out) {
+    static const int two[4] = {0, 1, 0, -1};
+    static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+    int64_t pos = 0;
+    const int64_t maxpixels = width;
+    for (int32_t y = 0; y < rows; y++) {
+        uint8_t* op = out + int64_t(y) * rowbytes;
+        unsigned lastpixel = 0;
+        int64_t npixels = 0;
+        auto set = [&](unsigned v) {  // SETPIXEL
+            lastpixel = v & 0xf;
+            if (npixels < maxpixels) {
+                if (npixels++ & 1) *op++ |= uint8_t(lastpixel);
+                else op[0] = uint8_t(lastpixel << 4);
+            }
+        };
+        while (pos < size && npixels < maxpixels) {
+            int n = src[pos++], delta;
+            switch (n & 0xc0) {
+                case 0x00:  // a run of the last pixel
+                    if (npixels & 1) {
+                        op[0] |= uint8_t(lastpixel);
+                        lastpixel = *op++;
+                        npixels++;
+                        n--;
+                    } else {
+                        lastpixel |= lastpixel << 4;
+                    }
+                    npixels += n;
+                    if (npixels <= maxpixels)
+                        for (; n > 0; n -= 2) *op++ = uint8_t(lastpixel);
+                    if (n == -1) *--op &= 0xf0;
+                    lastpixel &= 0xf;
+                    break;
+                case 0x40:  // three 2-bit deltas, 2 a skip
+                    if ((delta = (n >> 4) & 3) != 2) set(unsigned(int(lastpixel) + two[delta]));
+                    if ((delta = (n >> 2) & 3) != 2) set(unsigned(int(lastpixel) + two[delta]));
+                    if ((delta = n & 3) != 2) set(unsigned(int(lastpixel) + two[delta]));
+                    break;
+                case 0x80:  // two 3-bit deltas, 4 a skip
+                    if ((delta = (n >> 3) & 7) != 4) set(unsigned(int(lastpixel) + three[delta]));
+                    if ((delta = n & 7) != 4) set(unsigned(int(lastpixel) + three[delta]));
+                    break;
+                default:  // a raw pixel
+                    set(unsigned(n));
+                    break;
+            }
+        }
+        if (npixels != maxpixels) return npixels < maxpixels ? 1 : 2;
+    }
+    return 0;
 }

@@ -265,21 +265,31 @@ Phases (each checks its results; any failure exits non-zero):
     the config-3 CLI on a PNG of the arithmetic file's pixels and on the
     arithmetic file (frames bit-equal, 6 tree closest launches each, one
     launch of the arithmetic run held to the plain walk at 0 ulp);
-48. the result: a JSON line of kernel records (the dense records on the
+48. the CCITT, ThunderScan and old-style JPEG TIFF decoders: their
+    fixtures' digests; the 2048^2 albedo as a Group 4 TIFF of its luma
+    below the median and a ThunderScan TIFF of its luma's top four bits
+    (written here by ``tools/tiff_writers.py`` over spawned processes,
+    decoding to what was written) and the committed JPEG wrapped as an
+    old-style JPEG TIFF, each decode's median of 3 beside the PNG route's;
+    the config-3 CLI on a PNG of the Group 4 file's pixels, on the Group 4
+    file, on a PNG of the old-style JPEG's pixels and on the old-style JPEG
+    (frames bit-equal pairwise, 6 tree closest launches each, one launch of
+    each TIFF run held to the plain walk at 0 ulp);
+49. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-47,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-48,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-47) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-48) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG Huffman and
 arithmetic decoders, GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
-PCX run-length decoder and ZSTD decoder) is built at start, one compiler
-process each, all started together. Imports nothing of JAX.
+PCX / ThunderScan run-length decoder, ZSTD decoder and CCITT decoder) is built at start, one
+compiler process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
 
@@ -3333,6 +3343,126 @@ def jpeg_forms_phase(card, traversal, cli_render):
     return out
 
 
+FAX_FIXTURES = ("tiff_pil_group", "tiff_pil_tiff_ccitt", "tiff_pil_tiff_raw_16", "tiff_mh_",
+                "tiff_mr_", "tiff_mmr_", "tiff_rle", "tiff_thunder_", "tiff_ojpeg_")
+
+
+def fax_albedo_files(px, mapper=map):
+    """The config-3 albedo's pixels [H, W, 3] uint8 as the TIFFs of phase
+    48, written by ``tools/tiff_writers.py`` (``mapper`` spreads the strips
+    over processes): its luma (ITU-R 601, integer) below the median as a
+    bilevel Group 4 TIFF (64-row strips, min-is-white: a set bit black);
+    the luma's top four bits as a ThunderScan TIFF (64-row strips); and the
+    committed ``ALBEDO_JPEG`` wrapped as an old-style JPEG TIFF in the
+    interchange form (one strip); the file bytes by name."""
+    import numpy as np
+
+    from tools.make_torch_port_image_fixtures import tiff_bytes
+    from tools.tiff_writers import fax_strips, ojpeg_tiff, thunder_strips
+
+    wide = px.astype(np.int32)
+    luma = (wide[..., 0] * 299 + wide[..., 1] * 587 + wide[..., 2] * 114) // 1000
+    bits = (luma < np.median(luma)).astype(np.uint8)
+    grey4 = (luma >> 4).astype(np.uint8)
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
+        jpeg = f.read()
+    return {
+        "group4": tiff_bytes(bits[..., None], 1, 0, compression=4, rows_per_strip=64,
+                             blocks=fax_strips(bits, 4, 64, mapper)),
+        "thunderscan": tiff_bytes(grey4[..., None], 4, 1, compression=32809, rows_per_strip=64,
+                                  blocks=thunder_strips(grey4, 64, mapper)),
+        "old-style JPEG": ojpeg_tiff(jpeg, "interchange"),
+    }, bits, grey4
+
+
+def fax_phase(card, traversal, cli_render):
+    """Phase 48: the CCITT, ThunderScan and old-style JPEG TIFF decoders on
+    this machine (no PIL here): the fixtures' digests; the 2048^2 albedo as
+    a Group 4, a ThunderScan and an old-style JPEG TIFF (written here by
+    ``tools/tiff_writers.py``; the first two must decode to the pixels
+    written, the third to the committed JPEG's stream as libtiff's RGBA
+    reader converts it), each decode's median of 3 beside the PNG route's;
+    and the config-3 CLI on a PNG of the Group 4 file's pixels, on the
+    Group 4 file, on a PNG of the old-style JPEG's pixels and on the
+    old-style JPEG (frames bit-equal pairwise, 6 tree closest launches
+    each, one launch of each TIFF run held to the plain walk at 0 ulp);
+    returns the tree kernel's errors and the figures it logs."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.scene.builtin import envtex_texture
+
+    t_phase = time.perf_counter()
+    log(f"phase 48: CCITT, ThunderScan and old-style JPEG TIFF decoding without PIL: the "
+        f"fixtures' digests, the 2048^2 albedo in three forms, the config-3 CLI on the Group 4 "
+        f"and old-style JPEG albedos [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if k.startswith(FAX_FIXTURES)}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 16, f"only {len(digests)} CCITT / ThunderScan / OJPEG fixtures")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        files, bits, grey4 = fax_albedo_files(albedo, pool.map)
+    log(f"  wrote the 2048^2 Group 4, ThunderScan and old-style JPEG TIFFs in "
+        f"{time.perf_counter() - t0:.2f} s ({workers} processes; "
+        + ", ".join(f"{k} {len(v)} bytes" for k, v in files.items()) + ")")
+    decoded = {k: decode_image(v, k) for k, v in files.items()}
+    check(np.array_equal(decoded["group4"][..., 0], np.where(bits == 1, 0, 255)),
+          "the 2048^2 Group 4 TIFF decodes to other pixels than the bits written")
+    check(np.array_equal(decoded["thunderscan"][..., 0], grey4 * np.uint8(17)),
+          "the 2048^2 ThunderScan TIFF decodes to other pixels than the levels written")
+    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
+        bare = decode_image(f.read(), ALBEDO_JPEG)
+    diff = np.abs(decoded["old-style JPEG"].astype(int) - bare).max(axis=-1)
+    log(f"  the old-style JPEG TIFF against the bare JPEG's decode: {int(diff.max())} levels at "
+        f"most, {float((diff > 0).mean()):.4f} of pixels differ (libtiff's RGBA reader repeats "
+        "4:2:0 chroma where libjpeg interpolates it)")
+    out = {}
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for form, data in files.items():
+        med, runs = _median_s(lambda: decode_image(data, form))
+        out[f"{form.replace(' ', '_')}_decode_s"] = med
+        log(f"  2048^2 {form} TIFF decode on the host, median of 3: {med:.4f} s ({len(data)} "
+            f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_g4.png": encode_png(decoded["group4"]), "albedo_g4.tif": files["group4"],
+         "albedo_oj.png": encode_png(decoded["old-style JPEG"]),
+         "albedo_oj.tif": files["old-style JPEG"]},
+        ("albedo_g4.png", "albedo_g4.tif", "albedo_oj.png", "albedo_oj.tif"),
+        {"albedo_g4.tif", "albedo_oj.tif"})
+    out.update(cli)
+    for name in ("g4", "oj"):
+        check(np.array_equal(frames[f"albedo_{name}.tif"], frames[f"albedo_{name}.png"]),
+              f"the frame on albedo_{name}.tif differs from the PNG route's of its pixels")
+    log("  the Group 4 and old-style JPEG albedos' frames are bit-equal to the PNG route's of "
+        "their pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 48: {out['phase_s']:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
 def main():
     import torch
 
@@ -3376,11 +3506,12 @@ def main():
 
     t0 = time.perf_counter()
     native_names = ("bvh", "jpeg", "jpeg_arith", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn",
-                    "qoi", "rle", "zstd")
+                    "qoi", "rle", "zstd", "fax3")
     with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG Huffman and
         # arithmetic decoders, the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
-        # the QOI decoder, the SGI / PCX run-length decoder and the ZSTD decoder
+        # the QOI decoder, the SGI / PCX / ThunderScan run-length decoder, the ZSTD
+        # decoder and the CCITT decoder
         natives = {n: pool.submit(native_loader.build, n) for n in native_names}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
@@ -3957,14 +4088,15 @@ def main():
     ddss = dds_phase(card, traversal, cli_render)
     legacy = legacy_phase(card, traversal, cli_render)
     forms = jpeg_forms_phase(card, traversal, cli_render)
+    fax = fax_phase(card, traversal, cli_render)
     tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
-                   ddss["tree_err"], legacy["tree_err"], forms["tree_err"])
+                   ddss["tree_err"], legacy["tree_err"], forms["tree_err"], fax["tree_err"])
     tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
                        webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"],
-                       forms["tree_occ_err"])
+                       forms["tree_occ_err"], fax["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 48: result ----------------------------------------------------
+    # ---- phase 49: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -17,8 +17,8 @@ bit with ``to_linear`` True and False:
   extended): wherever PIL reads the file the port gives its pixels, and
   wherever PIL refuses it the port raises ``ValueError``;
 - the forms PIL refuses, each refused by the port naming the form; CCITT
-  TIFFs name their compression, a WebP that libwebp refuses is refused
-  naming WebP, and Lab PSDs, which
+  TIFFs of no valid data name the cause libtiff gives, a WebP that libwebp
+  refuses is refused naming WebP, and Lab PSDs, which
   PIL converts with its own arithmetic, are refused naming "Lab";
 - an OBJ whose ``map_Kd`` is a TGA renders at 16x16 on the CPU bit-equal
   to the same OBJ on a PNG of the same pixels.
@@ -551,8 +551,8 @@ REFUSED = {
     "psd-zip": (lambda: _psd_header(3, 8)[:-14] + b"\x00\x02" + bytes(12), "compression 2"),
     "psd-channels": (lambda: _psd_header(4, 8, channels=3), "CMYK with 3 channels"),
     "psd-version-2": (lambda: b"8BPS\x00\x02" + _psd_header(3, 8)[6:], "version 2"),
-    "tiff-le": (lambda: _ccitt_tiff("<", 4), "CCITT Group 4-compressed TIFF"),
-    "tiff-be": (lambda: _ccitt_tiff(">", 3), "CCITT Group 3-compressed TIFF"),
+    "tiff-le": (lambda: _ccitt_tiff("<", 4), "CCITT Group 4 TIFF data ends early"),
+    "tiff-be": (lambda: _ccitt_tiff(">", 2), "CCITT RLE TIFF data ends early"),
     # a VP8 chunk of 0 bytes: libwebp refuses it, and so does the port's WebP decoder
     "webp": (lambda: b"RIFF" + struct.pack("<I", 40) + b"WEBPVP8 " + bytes(40),
              r"WebP file refused by libwebp's checks"),
@@ -562,8 +562,9 @@ PIL_READS = {"psd-lab", "pnm-pfm"}
 
 
 def _ccitt_tiff(order, group):
-    """A bilevel TIFF whose one strip is CCITT Group 3 or 4 (the strip's
-    bytes are no valid code; the port refuses the compression by name)."""
+    """A bilevel TIFF whose one strip of zero bytes is labelled CCITT RLE or
+    Group 4: no row decodes, so libtiff, and with it PIL, refuses the
+    strip, and the port names the cause."""
     from tools.make_torch_port_image_fixtures import tiff_bytes
 
     return tiff_bytes(np.zeros((4, 8, 1), int), 1, 0, order=order, compression=1,
@@ -579,8 +580,8 @@ def test_refused_forms_name_themselves(tmp_path, form):
     with pytest.raises(ValueError, match=match) as err:
         port_image.read_image(str(path))
     assert str(path) in str(err.value)
-    if form.startswith("tiff") or form in PIL_READS:
-        return  # the CCITT bodies here are no valid data; PIL reads Lab and PFM
+    if form in PIL_READS:
+        return  # PIL reads Lab and PFM
     with pytest.raises(Exception):
         _pil(data)
 

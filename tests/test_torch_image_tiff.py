@@ -62,6 +62,7 @@ from akari_torch.core import tiff as port_tiff
 from akari_tpu.core import image as ref_image
 from tools.make_torch_port_image_fixtures import (
     cmyk_jpegs,
+    fax_fixtures,
     pattern,
     tiff_bytes,
     tiff_fixtures,
@@ -131,13 +132,15 @@ FIXTURE_NAMES = sorted(_digests())
 
 
 def test_tiff_fixtures_are_the_tools_and_pils():
-    """The tool's encoders still write the committed TIFF and CMYK JPEG
-    fixtures, and digests.json holds PIL's decode of every one."""
+    """The tool's encoders still write the committed TIFF (CCITT,
+    ThunderScan and old-style JPEG included) and CMYK JPEG fixtures, and
+    digests.json holds PIL's decode of every one."""
     import PIL
 
     digests = _digests()
     assert len(digests) >= 17
-    written = {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs()}
+    written = {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
+               **{k: v for k, v in fax_fixtures().items() if not k.startswith("tiff_pil")}}
     for name, rec in digests.items():
         path = os.path.join(FIXTURES, name)
         with open(path, "rb") as f:
@@ -733,14 +736,16 @@ def _with_compression(code, photometric=1, bits=1):
 
 
 REFUSED = {
-    "ccitt-rle": (lambda: _with_compression(2), "CCITT RLE"),
-    "ccitt-group3": (lambda: _with_compression(3), "CCITT Group 3"),
-    "ccitt-group4": (lambda: _with_compression(4), "CCITT Group 4"),
-    "ccitt-rlew": (lambda: _with_compression(32771), "CCITT RLEW"),
-    "old-jpeg": (lambda: _with_compression(6, 6, 8), "old-style JPEG"),
-    "thunderscan": (lambda: _with_compression(32809), "ThunderScan"),
-    "sgilog": (lambda: _with_compression(34676), "SGILog"),
-    "sgilog24": (lambda: _with_compression(34677), "SGILog24"),
+    # a strip of zero bytes is no MH or MMR data: libtiff ends it early
+    "ccitt-rle": (lambda: _with_compression(2), "CCITT RLE TIFF data ends early"),
+    "ccitt-group4": (lambda: _with_compression(4), "CCITT Group 4 TIFF data ends early"),
+    "ccitt-rlew": (lambda: _with_compression(32771), "CCITT RLEW TIFF data ends early"),
+    # one YCbCr sample: libtiff's RGBA reader refuses it
+    "old-jpeg": (lambda: _with_compression(6, 6, 8), "old-style JPEG TIFF of photometric 6"),
+    # 1-bit samples: libtiff's ThunderScan decoder takes 4 bits only
+    "thunderscan": (lambda: _with_compression(32809), "ThunderScan TIFF of 1-bit samples"),
+    "sgilog": (lambda: _with_compression(34676), "SGILog-compressed TIFF .PIL refuses it"),
+    "sgilog24": (lambda: _with_compression(34677), "SGILog24-compressed TIFF .PIL refuses it"),
     # zero bytes are no LZMA or ZSTD stream: libtiff refuses them
     "lzma": (lambda: _with_compression(34925, bits=8), "corrupt TIFF LZMA data"),
     "zstd": (lambda: _with_compression(50000, bits=8), "corrupt TIFF ZSTD data"),
@@ -760,9 +765,7 @@ REFUSED = {
                                                tags={317: (3, [2])}), "predictor on 4-bit"),
 }
 # forms PIL reads that the port refuses, naming them (ROADMAP.md, later slices)
-PIL_READS = {"planar-grey", "ccitt-rle", "ccitt-group3", "ccitt-group4", "lab", "ycbcr-predictor",
-             "old-jpeg", "ccitt-rlew", "thunderscan", "sgilog", "sgilog24", "webp-in-tiff",
-             "ycbcr-4x4"}
+PIL_READS = {"planar-grey", "lab", "ycbcr-predictor", "ycbcr-4x4"}
 
 
 @pytest.mark.parametrize("form", list(REFUSED))
@@ -780,11 +783,21 @@ def test_refused_forms_name_themselves(tmp_path, form):
 
 
 def test_ccitt_tiff_written_by_pil_is_refused_naming_it(tmp_path):
+    """A Group 4 file of PIL's writer reads bit-equal to PIL and to the JAX
+    package's read_image, and a Group 3 strip of zero bytes reads as PIL
+    reads it (no EOL: libtiff reads the strip again without EOLs, all
+    white)."""
     path = tmp_path / "g4.tif"
     Image.fromarray(pattern(16, 24, 3)).convert("1").save(path, "TIFF", compression="group4")
     assert _pil_path(str(path)).shape == (16, 24, 3)
-    with pytest.raises(ValueError, match="CCITT Group 4-compressed TIFF is not supported"):
-        port_image.read_image(str(path))
+    np.testing.assert_array_equal(port_image.decode_image(path.read_bytes()),
+                                  _pil_path(str(path)))
+    _same_read(str(path))
+    path.write_bytes(_with_compression(3))
+    got = port_image.decode_image(path.read_bytes())
+    np.testing.assert_array_equal(got, _pil_path(str(path)))
+    assert (got == 0).all()  # white runs as 0 bits, black under photometric 1
+    _same_read(str(path))
 
 
 def test_tiff_lzw_build_failure_raises(tmp_path, monkeypatch):

@@ -215,10 +215,11 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: hierarchical and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
-    read, a CCITT Group 4 TIFF, a DDS FourCC PIL does not read (DXT2), and
-    a format the port has no decoder for, QOI (read_image picks the decoder
-    by signature). DDS and arithmetic-coded JPEG, which PIL opens and the
-    port refused before, now read as the reference reads them."""
+    read, a Lab TIFF (PIL converts Lab with its own arithmetic), a DDS
+    FourCC PIL does not read (DXT2), and a format the port has no decoder
+    for, QOI (read_image picks the decoder by signature). DDS,
+    arithmetic-coded JPEG and CCITT Group 4 TIFF, which PIL opens, read as
+    the reference reads them."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -240,8 +241,13 @@ def test_unsupported_images_name_their_format(tmp_path):
         port_image.read_image(str(tmp_path / "x.bmp"))
     Image.fromarray(_pattern(8, 8, 5)).convert("1").save(tmp_path / "g4.tif",
                                                            compression="group4")
-    with pytest.raises(ValueError, match="CCITT Group 4-compressed TIFF is not supported"):
-        port_image.read_image(str(tmp_path / "g4.tif"))
+    _same_read(str(tmp_path / "g4.tif"))
+    from tools.make_torch_port_image_fixtures import tiff_bytes
+
+    (tmp_path / "lab.tif").write_bytes(tiff_bytes(np.full((2, 2, 3), 128), 8, 8))
+    assert np.asarray(Image.open(tmp_path / "lab.tif").convert("RGB")).shape == (2, 2, 3)
+    with pytest.raises(ValueError, match="Lab TIFF is not supported"):
+        port_image.read_image(str(tmp_path / "lab.tif"))
     from tools.dds_writers import dds_bytes
 
     blocks = np.random.default_rng(5).integers(0, 256, 32, dtype=np.uint8).tobytes()

@@ -49,6 +49,9 @@ Writes into ``tests/data/torch_port_images/``:
   suspend, fails in PIL), and ``ALBEDO_CUT``: ``envtex_texture(2048, 0)``
   saved by PIL as a progressive 4:2:0 JPEG at quality 85 and cut after its
   6th scan, which libjpeg reads with block smoothing;
+- CCITT (RLE, RLEW, Group 3, Group 4), ThunderScan and old-style JPEG
+  TIFFs (``fax_fixtures``): Pillow's CCITT writer and
+  ``tools/tiff_writers.py``'s strips, a few KB each;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them.
@@ -1212,6 +1215,78 @@ def jpeg_form_fixtures():
     return out
 
 
+def fax_fixtures():
+    """The CCITT, ThunderScan and old-style JPEG TIFF fixtures: Pillow's
+    libtiff writer in its four CCITT compressions (group3, group4,
+    tiff_ccitt, tiff_raw_16) on a 53 x 37 bilevel image, and
+    ``tools/tiff_writers.py``'s strips: MH with fill order 2, fill bits and
+    an RTC; MR with drawn codes; MMR in strips and in tiles with EOFBs; RLE
+    of a palette image; RLEW at odd offsets; ThunderScan with every opcode,
+    grey and palette; old-style JPEG in the interchange form (4:2:0), the
+    header form (4:4:4, a strip an MCU row, libtiff's RSTs between them),
+    the tables form (4:2:2 with restart intervals) and grey."""
+    import io
+
+    from PIL import Image
+
+    from tools import tiff_writers as tw
+
+    def pil(img, **kw):
+        b = io.BytesIO()
+        img.save(b, "TIFF", **kw)
+        return b.getvalue()
+
+    r = np.random.default_rng(19)
+    out = {}
+    bits = Image.fromarray(pattern(37, 53, 90)).convert("1")
+    for comp in ("group3", "group4", "tiff_ccitt", "tiff_raw_16"):
+        out[f"tiff_pil_{comp}_53x37.tif"] = pil(bits, compression=comp)
+    b = (pattern(29, 71, 91)[..., 0] > 120).astype(np.uint8)
+    out["tiff_mh_fill2_fillbits_rtc_71x29.tif"] = tiff_bytes(
+        b[..., None], 1, 0, fill=2, compression=3, rows_per_strip=10,
+        blocks=[tw.fax_strip(b[y:y + 10], 3, fill_bits=True, rtc=True, fill=2)
+                for y in range(0, 29, 10)], tags={292: (4, [tw.fax_options(fill_bits=True)])})
+    out["tiff_mr_drawn_71x29.tif"] = tiff_bytes(
+        b[..., None], 1, 1, compression=3, blocks=[tw.fax_strip(b, 3, two_d=True, k=3, r=r)],
+        tags={292: (4, [tw.fax_options(two_d=True)])})
+    out["tiff_mmr_strips_eofb_71x29.tif"] = tiff_bytes(
+        b[..., None], 1, 0, compression=4, rows_per_strip=8,
+        blocks=[tw.fax_strip(b[y:y + 8], 4, eofb=True, r=r) for y in range(0, 29, 8)])
+    pad = np.zeros((32, 96), np.uint8)
+    pad[:29, :71] = b
+    out["tiff_mmr_tiled_71x29.tif"] = tiff_bytes(
+        b[..., None], 1, 0, compression=4, tile=(48, 16),
+        blocks=[tw.fax_strip(pad[y:y + 16, x:x + 48], 4) for y in (0, 16) for x in (0, 48)])
+    out["tiff_rle_palette1_71x29.tif"] = tiff_bytes(
+        b[..., None], 1, 3, compression=2, colormap=r.integers(0, 65536, 6).tolist(),
+        blocks=[tw.fax_strip(b, 2)])
+    out["tiff_rlew_strips_71x29.tif"] = tiff_bytes(
+        b[..., None], 1, 0, compression=32771, rows_per_strip=5,
+        blocks=[tw.fax_strip(b[y:y + 5], 32771) + b"\0" * (y % 2) for y in range(0, 29, 5)])
+    p4 = pattern(23, 41, 92)[..., 0] // 16
+    out["tiff_thunder_grey4_41x23.tif"] = tiff_bytes(
+        p4[..., None], 4, 1, compression=32809, rows_per_strip=12,
+        blocks=[tw.thunder_rows(p4[:12], r), tw.thunder_rows(p4[12:], r)])
+    out["tiff_thunder_palette4_41x23.tif"] = tiff_bytes(
+        p4[..., None], 4, 3, compression=32809, colormap=r.integers(0, 65536, 48).tolist(),
+        blocks=[tw.thunder_rows(p4)])
+    px = pattern(37, 45, 93)
+    jpegs = {}
+    for ss, kw in ((2, {}), (0, {"restart_marker_rows": 1}), (1, {"restart_marker_blocks": 4})):
+        b_ = io.BytesIO()
+        Image.fromarray(px).save(b_, "JPEG", quality=80, subsampling=ss, **kw)
+        jpegs[ss] = b_.getvalue()
+    out["tiff_ojpeg_interchange_420_45x37.tif"] = tw.ojpeg_tiff(jpegs[2], "interchange")
+    out["tiff_ojpeg_header_444_strips_45x37.tif"] = tw.ojpeg_tiff(jpegs[0], "header",
+                                                               rows_per_strip=8)
+    out["tiff_ojpeg_tables_422_rst_45x37.tif"] = tw.ojpeg_tiff(jpegs[1], "tables",
+                                                            restart_tag=4)
+    b_ = io.BytesIO()
+    Image.fromarray(px).convert("L").save(b_, "JPEG", quality=75)
+    out["tiff_ojpeg_grey_45x37.tif"] = tw.ojpeg_tiff(b_.getvalue(), "tables", photometric=1)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
@@ -1274,7 +1349,7 @@ def main(argv=None):
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
                        **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
-                       **jpeg_form_fixtures()}.items():
+                       **jpeg_form_fixtures(), **fax_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
