@@ -18,12 +18,15 @@ frame of an animation) through ``core/webp.py``, and the game-texture
 formats: DDS (BC1-BC7, the DX10 header, the uncompressed mask, luminance
 and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
 ``core/blp.py`` and FTEX (DXT1 or raw) through ``core/ftex.py``, the blocks
-decoded by ``native/bcn.cpp``; and ICO / CUR through ``core/ico.py``, QOI
+decoded by ``native/bcn.cpp``; ICO / CUR through ``core/ico.py``, QOI
 through ``core/qoi.py``, SGI through ``core/sgi.py`` and PCX through
-``core/pcx.py``. The reference reads them
-with PIL, which the card's machine does not have; the pixels equal PIL's
-``convert("RGB")``. Other formats PIL reads (JPEG 2000, EPS, ICNS, ...)
-raise an error naming the formats read here.
+``core/pcx.py``; and JPEG 2000 (JP2 files and raw J2K codestreams, every
+Part-1 form OpenJPEG 2.5 decodes) through ``core/jpeg2000.py``. The
+reference reads them with PIL, which the card's machine does not have; the
+pixels equal PIL's ``convert("RGB")``. Other formats PIL reads (AVIF, EPS,
+ICNS, ...) raise an error naming the formats read here, and so do the JPEG
+2000 forms still to be ported: HTJ2K (Part 15) code-blocks and Part-2
+array-based multiple component transforms.
 """
 
 from __future__ import annotations
@@ -320,6 +323,7 @@ def _accepted(data):
     ``Image.ID``'s order (TGA, which has no signature, by the sanity of its
     header)."""
     from .image_formats import tga_header
+    from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE
     from .tiff import PREFIXES as TIFF_PREFIXES
 
     head = data[:16]
@@ -334,6 +338,7 @@ def _accepted(data):
         ("PCX", len(head) >= 2 and head[0] == 10 and head[1] in (0, 2, 3, 5)),
         ("DDS", head[:4] == b"DDS "),
         ("FTEX", head[:4] == b"FTEX"),
+        ("JPEG2000", head[:4] == J2K_SIGNATURE or head[:12] == JP2_SIGNATURE),
         ("ICO", head[:4] == b"\0\0\1\0"),
         ("TIFF", head[:4] in TIFF_PREFIXES),
         ("PSD", head[:4] == b"8BPS"),
@@ -364,15 +369,17 @@ _DECODERS = {
     "DDS": ("dds", "decode_dds"), "BLP": ("blp", "decode_blp"), "FTEX": ("ftex", "decode_ftex"),
     "ICO": ("ico", "decode_ico"), "CUR": ("ico", "decode_cur"), "QOI": ("qoi", "decode_qoi"),
     "SGI": ("sgi", "decode_sgi"), "PCX": ("pcx", "decode_pcx"),
+    "JPEG2000": ("jpeg2000", "decode_jpeg2000"),
 }
 
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
     ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, WebP, DDS,
-    BLP, FTEX, ICO, CUR, QOI, SGI and PCX, told apart as PIL tells them
-    (``image_format``). Other formats, and forms a decoder refuses, raise
-    ``ValueError`` naming them."""
+    BLP, FTEX, ICO, CUR, QOI, SGI, PCX and JPEG 2000, told apart as PIL
+    tells them (``image_format``). Other formats, and forms a decoder
+    refuses (HTJ2K and Part-2 JPEG 2000 among them), raise ``ValueError``
+    naming them."""
     import importlib
 
     from .image_formats import NextFormat
@@ -390,8 +397,9 @@ def decode_image(data, what="image"):
     raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, GIF, "
                      "PNM, PSD, TGA, TIFF (every compression PIL reads: raw, PackBits, LZW, "
                      "Deflate, JPEG, old-style JPEG, LZMA, ZSTD, CCITT and ThunderScan), WebP, "
-                     "DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, .hdr and .npy; not JPEG 2000, "
-                     f"EPS, ICNS or the other formats PIL opens){tried}")
+                     "DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, JPEG 2000 (JP2 and J2K, Part 1), "
+                     ".hdr and .npy; not AVIF, EPS, ICNS or the other formats PIL opens)"
+                     f"{tried}")
 
 
 def read_image(path, to_linear=True):
@@ -400,9 +408,10 @@ def read_image(path, to_linear=True):
 
     Returns [H, W, 3] float32. The 8-bit formats are told apart by their
     signature (``decode_image``), TIFF in every compression PIL reads (the
-    CCITT fax codes, ThunderScan and old-style JPEG among them); other
-    formats, and forms the decoders refuse, raise ``ValueError`` naming the
-    format.
+    CCITT fax codes, ThunderScan and old-style JPEG among them) and JPEG
+    2000 in every Part-1 form; other formats, and forms the decoders refuse
+    (HTJ2K code-blocks and Part-2 multiple component transforms among them),
+    raise ``ValueError`` naming the format.
     """
     path = str(path)
     if path.endswith(".npy"):

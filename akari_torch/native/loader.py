@@ -33,8 +33,8 @@ by a hash of the source, the compiler and the flags, and loaded with
 Unlike the reference loader, a failed build raises: the Python BVH builder
 would give another triangle storage order, and the JPEG (Huffman and
 arithmetic), GIF, TIFF, WebP,
-BCn, QOI, SGI / PCX run-length, Zstandard, CCITT and ThunderScan decoders
-have no Python twin, so there is no fallback.
+BCn, QOI, SGI / PCX run-length, Zstandard, CCITT, ThunderScan and JPEG 2000
+decoders have no Python twin, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -54,6 +54,8 @@ CXX = "g++"
 # The reference loader's flags (akari_tpu/native/loader.py), no -march=native.
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 LIBS = ["-lpthread"]
+# flags a source needs besides CXX_FLAGS (never -ffast-math or -march=native)
+EXTRA_FLAGS = {"j2k": ["-ffp-contract=off"]}
 
 
 def _bind_bvh(lib):
@@ -200,6 +202,17 @@ def _bind_fax3(lib):
     lib.akr_fax_runs.argtypes = [i32, i32]                 # width, kind
 
 
+def _bind_j2k(lib):
+    i32 = ctypes.c_int32
+    lib.akr_j2k_decode.restype = ctypes.c_int
+    lib.akr_j2k_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # data, size, start
+        i32, i32, i32, ctypes.c_char_p,                    # ihdr_w, ihdr_h, color_space, mode
+        i32, i32, ctypes.c_void_p, ctypes.c_void_p,        # xsize, ysize, out8, out16
+        ctypes.c_void_p, ctypes.c_char_p, i32,             # ycc, err, errlen
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
@@ -217,6 +230,7 @@ SOURCES = {
             _bind_rle),
     "zstd": ("zstd.cpp", "libakr_zstd.so", "the TIFF ZSTD decoder", _bind_zstd),
     "fax3": ("fax3.cpp", "libakr_fax3.so", "the TIFF CCITT (fax) decoder", _bind_fax3),
+    "j2k": ("j2k_decode.cpp", "libakr_j2k.so", "the JPEG 2000 decoder", _bind_j2k),
 }
 
 _lock = threading.Lock()
@@ -227,7 +241,7 @@ def _library_path(name):
     src, lib, _, _ = SOURCES[name]
     with open(os.path.join(_HERE, src), "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join([CXX, *CXX_FLAGS, *LIBS]).encode()
+            f.read() + " ".join([CXX, *CXX_FLAGS, *EXTRA_FLAGS.get(name, []), *LIBS]).encode()
         )
     return os.path.join(BUILD_DIR, digest.hexdigest()[:16], lib)
 
@@ -247,7 +261,7 @@ def build(name):
         )
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, src, *LIBS]
+    cmd = [cxx, *CXX_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", tmp, src, *LIBS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -275,20 +275,32 @@ Phases (each checks its results; any failure exits non-zero):
     file, on a PNG of the old-style JPEG's pixels and on the old-style JPEG
     (frames bit-equal pairwise, 6 tree closest launches each, one launch of
     each TIFF run held to the plain walk at 0 ulp);
-49. the result: a JSON line of kernel records (the dense records on the
+49. the JPEG 2000 decoder: the J2K / JP2 fixtures' digests (both
+    wavelets, the five progressions, tiles, tile-parts, precincts, POC,
+    every code-block style, ROI, subsampled, signed and 1-16-bit
+    components, PPM / PPT, the JP2 colour spaces and palettes); the
+    committed 2048^2 albedo as an irreversible (9/7) JP2 at a rate of 30
+    and as a reversible (5/3) codestream of the 64^2 albedo scaled up 32x
+    (decoding to those pixels exactly), each decode's median of 3 beside
+    the PNG route's; the config-3 CLI on a PNG of the JP2's pixels, on the
+    JP2, on a PNG of the scaled-up albedo and on the J2K (frames bit-equal
+    pairwise, 6 tree closest launches each, one launch of each JPEG 2000
+    run held to the plain walk at 0 ulp);
+50. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-48,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-49,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-48) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-49) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG Huffman and
 arithmetic decoders, GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
-PCX / ThunderScan run-length decoder, ZSTD decoder and CCITT decoder) is built at start, one
+PCX / ThunderScan run-length decoder, ZSTD decoder, CCITT decoder and JPEG 2000 decoder) is
+built at start, one
 compiler process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
 """
@@ -3463,6 +3475,81 @@ def fax_phase(card, traversal, cli_render):
     return out
 
 
+def jpeg2000_phase(card, traversal, cli_render):
+    """Phase 49: the JPEG 2000 decoder on this machine (no PIL here): the
+    J2K / JP2 fixtures' digests; the committed 2048^2 albedo as an
+    irreversible JP2 and the 64^2 albedo scaled up 32x as a reversible J2K
+    (which must decode to those pixels exactly), each decode's median of 3
+    beside the PNG route's; and the config-3 CLI on a PNG of the JP2's
+    pixels, on the JP2, on a PNG of the scaled-up albedo and on the J2K
+    (frames bit-equal pairwise, 6 tree closest launches each, one launch of
+    each JPEG 2000 run held to the plain walk at 0 ulp); returns the tree
+    kernel's errors and the figures it logs."""
+    import hashlib
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.scene.builtin import envtex_texture
+    from tools.make_torch_port_image_fixtures import ALBEDO_J2K, ALBEDO_JP2
+
+    t_phase = time.perf_counter()
+    log(f"phase 49: JPEG 2000 decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
+        f"an irreversible JP2 and a reversible J2K, the config-3 CLI on both [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items()
+                   if k.startswith(("j2k_", "jp2_")) or k in (ALBEDO_JP2, ALBEDO_J2K)}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 33, f"only {len(digests)} JPEG 2000 fixtures in digests.json")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    files = {}
+    for name in (ALBEDO_JP2, ALBEDO_J2K):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            files[name] = f.read()
+    jp2_px = decode_image(files[ALBEDO_JP2], ALBEDO_JP2)
+    x32 = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
+    check(np.array_equal(decode_image(files[ALBEDO_J2K], ALBEDO_J2K), x32),
+          f"{ALBEDO_J2K} decodes to other pixels than the 64^2 albedo scaled up 32x")
+    diff = np.abs(jp2_px.astype(int) - decode_png(png_data)).max(axis=-1)
+    log(f"  the 9/7 JP2 against the albedo: {int(diff.max())} levels at most, "
+        f"{float((diff > 0).mean()):.4f} of pixels differ (lossy at a rate of 30)")
+    out = {}
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for name, data in files.items():
+        med, runs = _median_s(lambda: decode_image(data, name))
+        out[f"{name}_decode_s"] = med
+        log(f"  2048^2 {name} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+            f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_jp2.png": encode_png(jp2_px), "albedo.jp2": files[ALBEDO_JP2],
+         "albedo_x32.png": encode_png(x32), "albedo_x32.j2k": files[ALBEDO_J2K]},
+        ("albedo_jp2.png", "albedo.jp2", "albedo_x32.png", "albedo_x32.j2k"),
+        {"albedo.jp2", "albedo_x32.j2k"})
+    out.update(cli)
+    for png, j2k in (("albedo_jp2.png", "albedo.jp2"), ("albedo_x32.png", "albedo_x32.j2k")):
+        check(np.array_equal(frames[j2k], frames[png]),
+              f"the frame on {j2k} differs from the PNG route's of its pixels")
+    log("  the JP2 and J2K albedos' frames are bit-equal to the PNG route's of their pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 49: {out['phase_s']:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
 def main():
     import torch
 
@@ -3506,12 +3593,12 @@ def main():
 
     t0 = time.perf_counter()
     native_names = ("bvh", "jpeg", "jpeg_arith", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn",
-                    "qoi", "rle", "zstd", "fax3")
+                    "qoi", "rle", "zstd", "fax3", "j2k")
     with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG Huffman and
         # arithmetic decoders, the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
         # the QOI decoder, the SGI / PCX / ThunderScan run-length decoder, the ZSTD
-        # decoder and the CCITT decoder
+        # decoder, the CCITT decoder and the JPEG 2000 decoder
         natives = {n: pool.submit(native_loader.build, n) for n in native_names}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
@@ -4089,14 +4176,16 @@ def main():
     legacy = legacy_phase(card, traversal, cli_render)
     forms = jpeg_forms_phase(card, traversal, cli_render)
     fax = fax_phase(card, traversal, cli_render)
+    j2k = jpeg2000_phase(card, traversal, cli_render)
     tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
-                   ddss["tree_err"], legacy["tree_err"], forms["tree_err"], fax["tree_err"])
+                   ddss["tree_err"], legacy["tree_err"], forms["tree_err"], fax["tree_err"],
+                   j2k["tree_err"])
     tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
                        webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"],
-                       forms["tree_occ_err"], fax["tree_occ_err"])
+                       forms["tree_occ_err"], fax["tree_occ_err"], j2k["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 49: result ----------------------------------------------------
+    # ---- phase 50: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -505,9 +505,10 @@ def test_refused_forms_name_themselves(tmp_path, form):
         _pil_path(str(path))
 
 
-def test_jpeg2000_is_still_refused_naming_the_formats_read():
+def test_avif_is_still_refused_naming_the_formats_read():
+    avif = b"\0\0\0\x20ftypavif\0\0\0\0avifmif1miafMA1B" + bytes(40)
     with pytest.raises(ValueError, match="unsupported image format.*ICO, CUR, QOI, SGI, PCX"):
-        port_image.decode_image(b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40))
+        port_image.decode_image(avif)
 
 
 # --------------------------------------------- no PIL, no compiler ---------------

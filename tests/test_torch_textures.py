@@ -216,8 +216,9 @@ def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: hierarchical and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
     read, a Lab TIFF (PIL converts Lab with its own arithmetic), a DDS
-    FourCC PIL does not read (DXT2), and a format the port has no decoder
-    for, QOI (read_image picks the decoder by signature). DDS,
+    FourCC PIL does not read (DXT2), a JP2 header PIL's plugin gives up on,
+    and a format the port has no decoder for, AVIF (read_image picks the
+    decoder by signature). DDS,
     arithmetic-coded JPEG and CCITT Group 4 TIFF, which PIL opens, read as
     the reference reads them."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
@@ -256,11 +257,19 @@ def test_unsupported_images_name_their_format(tmp_path):
         port_image.read_image(str(tmp_path / "x.dds"))
     (tmp_path / "y.dds").write_bytes(dds_bytes(8, 8, [blocks], fourcc=b"DXT1"))
     _same_read(str(tmp_path / "y.dds"))
-    # a JPEG 2000 signature: a format PIL opens that the port still refuses
+    # a JP2 signature before a box of length 2: PIL's plugin gives up on its
+    # header and no other format takes it; the port refuses it too
     (tmp_path / "x.jp2").write_bytes(b"\0\0\0\x0cjP  \r\n\x87\n" + struct.pack(">IIBB", 2, 2, 3, 0)
                                      + bytes(20))
-    with pytest.raises(ValueError, match="unsupported image format"):
+    with pytest.raises(Exception):
+        Image.open(tmp_path / "x.jp2").convert("RGB")
+    with pytest.raises(ValueError, match="unsupported image format.*PIL gives up on it"):
         port_image.read_image(str(tmp_path / "x.jp2"))
+    # AVIF: a format PIL opens that the port still refuses
+    Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "x.avif", "AVIF")
+    assert np.asarray(Image.open(tmp_path / "x.avif").convert("RGB")).shape == (8, 8, 3)
+    with pytest.raises(ValueError, match="unsupported image format"):
+        port_image.read_image(str(tmp_path / "x.avif"))
 
 
 # ------------------------------- _bilinear -------------------------------------

@@ -52,6 +52,15 @@ Writes into ``tests/data/torch_port_images/``:
 - CCITT (RLE, RLEW, Group 3, Group 4), ThunderScan and old-style JPEG
   TIFFs (``fax_fixtures``): Pillow's CCITT writer and
   ``tools/tiff_writers.py``'s strips, a few KB each;
+- JPEG 2000 files (``jpeg2000_fixtures``): raw codestreams (``j2k_*``)
+  and JP2 files (``jp2_*``) of a few KB each, from Pillow's writer and from
+  ``tools/j2k_writers.py`` (OpenJPEG's encoder through ``ctypes``, for the
+  code-block styles, POC, tile-parts, subsampling, signed and 1-16-bit
+  components, ROI, SOP / EPH, PLT / TLM, PPM / PPT, and hand-built JP2 boxes),
+  ``ALBEDO_JP2``: ``envtex_texture(2048, 0)`` saved by PIL as an
+  irreversible (9/7) JP2 at a rate of 30 (419 KB), and ``ALBEDO_J2K``: the
+  config-3 albedo at 64^2 scaled up 32x, saved by PIL as a reversible (5/3)
+  codestream with the RCT (602 KB);
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them.
@@ -63,7 +72,7 @@ digests; ``tests/test_torch_image_decode.py``,
 ``tests/test_torch_image_legacy.py`` hold ``digests.json`` to PIL's
 decode here, so it cannot go stale. Needs PIL.
 
-Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
+Usage: python tools/make_torch_port_image_fixtures.py [-o DIR] [--only jpeg2000]
 """
 
 from __future__ import annotations
@@ -84,6 +93,8 @@ ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
 ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
 ALBEDO_CUT = "albedo2048_q85_prog_cut6.jpg"
+ALBEDO_JP2 = "albedo2048_irrev97_rate30.jp2"
+ALBEDO_J2K = "albedo2048_x32_rev53.j2k"
 
 
 def pattern(h, w, seed):
@@ -983,7 +994,7 @@ def webp_fixtures():
     out["webp_anim_offset_40x30.webp"] = riff(
         vp8x(0x12, 40, 30), chunk(b"ANIM", struct.pack("<IH", 0xFF000000, 0)),
         chunk(b"ANMF", anmf))
-    out["webp_vp8_random_37x29.webp"] = riff(chunk(b"VP8 ", random_vp8_frame(
+    out["webp_vp8_random_29x37.webp"] = riff(chunk(b"VP8 ", random_vp8_frame(
         45, 37, 29, simple=True, level=30, sharpness=3, log2_parts=2)))
     return out
 
@@ -1287,9 +1298,121 @@ def fax_fixtures():
     return out
 
 
+def jpeg2000_fixtures():
+    """The JPEG 2000 fixtures: Pillow's writer through every option it takes
+    (irreversible, tiles and offsets, resolutions, code-blocks, precincts,
+    progressions, quality layers, mct, PLT, raw codestreams), and
+    ``tools/j2k_writers.py``: OpenJPEG's encoder for the code-block styles,
+    POC, tile-parts, ROI, subsampled (sYCC by Pillow's rule), signed and 1, 4,
+    12 and 16-bit components, SOP / EPH, PLT / TLM and PPM / PPT; JP2 boxes
+    for grey, sYCC, CMYK, ICC, ``pclr`` / ``cmap`` (RGB and RGBA palettes
+    with repeated colours, indices past the palette), ``cdef``, ``res ``,
+    ``bpcc`` and boxes OpenJPEG skips; and the two 2048^2 albedos."""
+    import io
+
+    from PIL import Image
+
+    from akari_torch.scene.builtin import envtex_texture
+    from tools import j2k_writers as jw
+
+    def pil(px, **kw):
+        b = io.BytesIO()
+        Image.fromarray(px).save(b, "JPEG2000", **kw)
+        return b.getvalue()
+
+    r = np.random.default_rng(80)
+
+    def planes(h, w, n, seed):
+        return [pattern(h, w, seed + c)[..., c % 3].astype(np.int64) for c in range(n)]
+
+    px = pattern(37, 29, 81)
+    out = {
+        "j2k_pil_rgb_29x37.j2k": pil(px, no_jp2=True),
+        "j2k_pil_irrev_rpcl_prec_29x37.j2k": pil(
+            px, no_jp2=True, irreversible=True, progression="RPCL", precinct_size=(16, 16),
+            codeblock_size=(16, 16), num_resolutions=4, quality_layers=[30, 10, 3], mct=1),
+        "j2k_pil_tiles_offsets_cprl_29x37.j2k": pil(
+            px, no_jp2=True, tile_size=(13, 11), tile_offset=(2, 3), offset=(5, 7),
+            progression="CPRL", num_resolutions=3, mct=1),
+        "j2k_pil_pcrl_rlcp_plt_grey_40x33.j2k": pil(
+            pattern(33, 40, 82)[..., 0], no_jp2=True, progression="PCRL", plt=True,
+            quality_layers=[20, 0]),
+        "jp2_pil_rgb_29x37.jp2": pil(px),
+        "jp2_pil_rgba_irrev_rlcp_31x26.jp2": pil(
+            np.concatenate([pattern(26, 31, 83), r.integers(0, 256, (26, 31, 1)).astype(
+                np.uint8)], 2), irreversible=True, progression="RLCP", quality_layers=[12, 4]),
+    }
+    b = io.BytesIO()
+    Image.fromarray(pattern(23, 19, 84)).convert("LA").save(b, "JPEG2000")
+    out["jp2_pil_la_19x23.jp2"] = b.getvalue()
+    pl = planes(41, 35, 3, seed=85)
+    out["j2k_styles_all_irrev_layers_35x41.j2k"] = jw.encode(
+        pl, mode=63, irreversible=True, rates=(20, 8, 3), cblk=(16, 8), mct=1)
+    out["j2k_bypass_termall_vsc_35x41.j2k"] = jw.encode(
+        pl, mode=jw.BYPASS | jw.TERMALL | jw.VSC, cblk=(8, 16), rates=(10, 0))
+    out["j2k_reset_pterm_segsym_35x41.j2k"] = jw.encode(
+        pl, mode=jw.RESET | jw.PTERM | jw.SEGSYM, irreversible=True, rates=(6,))
+    out["j2k_poc_rlcp_cprl_35x41.j2k"] = jw.encode(
+        pl, poc=[(0, 0, 2, 3, 3, "RLCP", 1), (3, 0, 2, 6, 3, "CPRL", 1)], rates=(10, 0))
+    out["j2k_tileparts_r_tiles_35x41.j2k"] = jw.encode(
+        pl, tile=(16, 16), num_resolutions=3, tile_parts="R", rates=(12, 0), mct=1)
+    out["j2k_roi_shift_35x41.j2k"] = jw.encode(pl, roi=(1, 6), rates=(15, 0))
+    full = planes(34, 30, 1, seed=86)[0]
+    out["j2k_sub420_sycc_30x34.j2k"] = jw.encode(
+        [full, full[::2, ::2], full[1::2, 1::2]], dx=[1, 2, 2], dy=[1, 2, 2])
+    out["j2k_sub422_odd_offset_29x34.j2k"] = jw.encode(
+        [full[:, :29], full[:, 1:29:2], full[:, 2:30:2]], dx=[1, 2, 2], dy=[1, 1, 1],
+        offset=(1, 0), size=(29, 34))
+    out["j2k_signed12_irrev_35x41.j2k"] = jw.encode(
+        [p * 16 - 2048 for p in pl], prec=12, sgnd=True, irreversible=True, rates=(4,))
+    out["j2k_prec4_rgb_35x41.j2k"] = jw.encode([p // 16 for p in pl], prec=4)
+    out["j2k_prec1_grey_35x41.j2k"] = jw.encode([pl[0] // 128], prec=1)
+    out["j2k_grey16_i16_35x41.j2k"] = jw.encode([pl[1] * 2 + pl[0] % 3], prec=16)
+    out["j2k_la_prec10_35x41.j2k"] = jw.encode([pl[0] * 4, pl[2] * 4], prec=10)
+    out["j2k_rgba_tiles_pcrl_35x41.j2k"] = jw.encode(
+        pl + [pl[0][::-1]], tile=(20, 24), num_resolutions=3, progression="PCRL")
+    sop = jw.encode(planes(32, 36, 3, seed=87), sop=True, eph=True, rates=(10, 0),
+                    tile=(16, 16), num_resolutions=3)
+    out["j2k_sop_eph_plt_tlm_36x32.j2k"] = jw.encode(
+        planes(32, 36, 3, seed=87), sop=True, eph=True, rates=(10, 0), tile=(16, 16),
+        num_resolutions=3, extra=("PLT=YES", "TLM=YES"))
+    out["j2k_ppm_36x32.j2k"] = jw.to_ppm(sop, 2)
+    out["j2k_ppt_36x32.j2k"] = jw.to_ppt(sop, 2)
+    cs = jw.encode(pl)
+    idx = r.integers(0, 14, (23, 19))
+    pal = r.integers(0, 256, (12, 3))
+    cmap3 = [(0, 1, 0), (0, 1, 1), (0, 1, 2)]
+    out["jp2_pclr_cmap_19x23.jp2"] = jw.jp2(jw.encode([idx]), 19, 23, 1, pclr=([7, 7, 7], pal),
+                                            cmap=cmap3)
+    dup = np.concatenate([pal[:5], pal[:2], pal[5:]])
+    alpha = np.concatenate([dup, r.integers(0, 256, (len(dup), 1))], 1)
+    out["jp2_pclr_rgba_repeats_19x23.jp2"] = jw.jp2(
+        jw.encode([idx]), 19, 23, 1, pclr=([7, 7, 7, 7], alpha), cmap=cmap3 + [(0, 1, 3)])
+    out["jp2_pa_cdef_19x23.jp2"] = jw.jp2(
+        jw.encode([idx, r.integers(0, 256, (23, 19))]), 19, 23, 2, pclr=([7, 7, 7], pal),
+        cmap=cmap3, cdef=[(0, 0, 1), (1, 1, 0)])
+    out["jp2_cmyk_35x41.jp2"] = jw.jp2(jw.encode(pl + [pl[1][:, ::-1]]), 35, 41, 4, colr=(1, 12))
+    out["jp2_sycc_colr18_35x41.jp2"] = jw.jp2(cs, 35, 41, 3, colr=(1, 18))
+    out["jp2_icc_odd_boxes_35x41.jp2"] = jw.jp2(
+        cs, 35, 41, 3, colr=(2, bytes(range(48))), cdef=[(0, 0, 1), (1, 0, 2), (2, 0, 3)],
+        res=jw.box(b"resc", struct.pack(">HHHHBB", 72, 1, 72, 1, 0, 0)),
+        extra_header=[jw.box(b"zzzz", b"skipped")], ftyp=b"jpx \0\0\0\0jpx jp2 ")
+    out["jp2_grey16_bpcc_35x41.jp2"] = jw.jp2(
+        jw.encode([pl[2] * 256 + pl[0]], prec=16), 35, 41, 1, bpc=255, colr=(1, 17),
+        extra_header=[jw.box(b"bpcc", b"\x0f")])
+    out[ALBEDO_JP2] = pil(envtex_texture(2048, 0), irreversible=True, quality_mode="rates",
+                          quality_layers=[30], mct=1)
+    big = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
+    out[ALBEDO_J2K] = pil(big, no_jp2=True, mct=1)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
+    ap.add_argument("--only", choices=["jpeg2000"],
+                    help="write only this group's files and merge their digests into "
+                         "digests.json, leaving the other fixtures as they are")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
 
@@ -1297,6 +1420,25 @@ def main(argv=None):
     from PIL import Image
 
     from akari_torch.scene.builtin import envtex_texture
+
+    def digest(name):
+        px = np.asarray(Image.open(os.path.join(args.output, name)).convert("RGB"))
+        return {"sha256": hashlib.sha256(px.tobytes()).hexdigest(), "shape": list(px.shape),
+                "pil": PIL.__version__}
+
+    if args.only:
+        path = os.path.join(args.output, "digests.json")
+        with open(path) as f:
+            digests = json.load(f)
+        for name, data in jpeg2000_fixtures().items():
+            with open(os.path.join(args.output, name), "wb") as f:
+                f.write(data)
+            digests[name] = digest(name)
+        with open(path, "w") as f:
+            json.dump(digests, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"wrote the {args.only} fixtures and merged their digests into {path}")
+        return
 
     os.makedirs(args.output, exist_ok=True)
     for name in os.listdir(args.output):
@@ -1349,15 +1491,11 @@ def main(argv=None):
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
                        **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
-                       **jpeg_form_fixtures(), **fax_fixtures()}.items():
+                       **jpeg_form_fixtures(), **fax_fixtures(), **jpeg2000_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
-    digests = {}
-    for name in sorted(os.listdir(args.output)):
-        px = np.asarray(Image.open(os.path.join(args.output, name)).convert("RGB"))
-        digests[name] = {"sha256": hashlib.sha256(px.tobytes()).hexdigest(),
-                         "shape": list(px.shape), "pil": PIL.__version__}
+    digests = {name: digest(name) for name in sorted(os.listdir(args.output))}
     with open(os.path.join(args.output, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
