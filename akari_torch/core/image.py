@@ -10,10 +10,12 @@ or new-RLE scanlines, the reference's codec) by extension; any other file
 by its signature, as PIL chooses (``decode_image``): PNG through the
 decoder below (every colour type and bit depth, interlaced or not), JPEG
 through ``core/jpeg.py`` (baseline, extended sequential and progressive,
-Huffman or arithmetic, and lossless; grey, three and four components), BMP, GIF, PNM, PSD and TGA
+Huffman or arithmetic, and lossless; grey, three and four components), BMP, DIB, GIF, PNM
+(P1-P6, PFM and PIL's P0CMYK / PyP / PyRGBA / PyCMYK), PSD and TGA
 through ``core/image_formats.py``, TIFF (PIL's six header prefixes; raw,
 PackBits, LZW, Deflate, JPEG, LZMA, ZSTD, CCITT RLE / RLEW / Group 3 /
-Group 4, ThunderScan and old-style JPEG) through ``core/tiff.py``, WebP (lossless, lossy, with alpha, the first
+Group 4, ThunderScan and old-style JPEG) through ``core/tiff.py``, Lab PSDs and
+TIFFs through LittleCMS's Lab -> sRGB transform (``core/lcms.py``), WebP (lossless, lossy, with alpha, the first
 frame of an animation) through ``core/webp.py``, and the game-texture
 formats: DDS (BC1-BC7, the DX10 header, the uncompressed mask, luminance
 and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
@@ -21,16 +23,18 @@ and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
 decoded by ``native/bcn.cpp``; ICO / CUR through ``core/ico.py``, QOI
 through ``core/qoi.py``, SGI through ``core/sgi.py`` and PCX through
 ``core/pcx.py``; and JPEG 2000 (JP2 files and raw J2K codestreams, every
-Part-1 form OpenJPEG 2.5 decodes) through ``core/jpeg2000.py``. The
+Part-1 form OpenJPEG 2.5 decodes) through ``core/jpeg2000.py``; and ICNS
+through ``core/icns.py``. The
 reference reads them with PIL, which the card's machine does not have; the
 pixels equal PIL's ``convert("RGB")``. Other formats PIL reads (AVIF, EPS,
-ICNS, ...) raise an error naming the formats read here, and so do the JPEG
+IM, ...) raise an error naming the formats read here, and so do the JPEG
 2000 forms still to be ported: HTJ2K (Part 15) code-blocks and Part-2
 array-based multiple component transforms.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
@@ -41,6 +45,8 @@ from .spectrum import linear_to_srgb, srgb_to_linear, to_uint8_srgb
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+# BmpImagePlugin._dib_accept: the first u32 (little-endian) is a header size
+DIB_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
 
 
 def _chunk(tag, data):
@@ -181,10 +187,15 @@ def _to_rgb8(px, ctype, depth, palette):
     return np.ascontiguousarray(px[..., :3])
 
 
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")  # PngImagePlugin.is_cid
+
+
 def decode_png(data, what="PNG"):
     """PNG file bytes -> [H, W, 3] uint8 RGB, the pixels of PIL's
     ``convert("RGB")``: every colour type and bit depth of the PNG
-    specification, interlaced (Adam7) or not."""
+    specification, interlaced (Adam7) or not. As ``PngImageFile._open``,
+    every chunk before the first IDAT must have a type of four word
+    characters and its CRC (PIL refuses the file otherwise)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{what}: not a PNG file")
     pos, idat, hdr, palette = 8, [], None, None
@@ -192,6 +203,13 @@ def decode_png(data, what="PNG"):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
+        if not idat:
+            if not _CHUNK_TYPE.match(tag):
+                raise ValueError(f"{what}: broken PNG file (chunk {tag!r})")
+            if tag != b"IDAT" and data[pos + 8 + length:pos + 12 + length] != struct.pack(
+                    ">I", zlib.crc32(tag + body)):
+                raise ValueError(f"{what}: broken PNG file (bad or missing checksum in "
+                                 f"{tag!r})")
         if tag == b"IHDR":
             if len(body) < 13:
                 raise ValueError(f"{what}: PNG IHDR chunk is truncated")
@@ -319,9 +337,10 @@ def write_hdr(path, img_linear):
 
 def _accepted(data):
     """The formats whose PIL plugin accepts ``data``, in the order
-    ``Image.open`` tries them: the five plugins of ``Image.preinit``, then
-    ``Image.ID``'s order (TGA, which has no signature, by the sanity of its
-    header)."""
+    ``Image.open`` tries them: the plugins of ``Image.preinit`` the port
+    reads (BMP, DIB, GIF, JPEG, PNM, PNG; IPTC, between DIB and GIF, reads
+    no texture), then ``Image.ID``'s order (TGA, which has no signature, by
+    the sanity of its header)."""
     from .image_formats import tga_header
     from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE
     from .tiff import PREFIXES as TIFF_PREFIXES
@@ -329,6 +348,7 @@ def _accepted(data):
     head = data[:16]
     checks = (
         ("BMP", head[:2] == b"BM"),
+        ("DIB", len(head) >= 4 and int.from_bytes(head[:4], "little") in DIB_HEADER_SIZES),
         ("GIF", head[:6] in (b"GIF87a", b"GIF89a")),
         ("JPEG", head[:3] == JPEG_SIGNATURE),
         ("PNM", head[:1] == b"P" and len(head) >= 2 and head[1:2] in b"0123456fy"),
@@ -339,6 +359,7 @@ def _accepted(data):
         ("DDS", head[:4] == b"DDS "),
         ("FTEX", head[:4] == b"FTEX"),
         ("JPEG2000", head[:4] == J2K_SIGNATURE or head[:12] == JP2_SIGNATURE),
+        ("ICNS", head[:4] == b"icns"),
         ("ICO", head[:4] == b"\0\0\1\0"),
         ("TIFF", head[:4] in TIFF_PREFIXES),
         ("PSD", head[:4] == b"8BPS"),
@@ -363,6 +384,7 @@ def image_format(data):
 # format -> (module of core/, decoder)
 _DECODERS = {
     "JPEG": ("jpeg", "decode_jpeg"), "BMP": ("image_formats", "decode_bmp"),
+    "DIB": ("image_formats", "decode_dib_file"), "ICNS": ("icns", "decode_icns"),
     "GIF": ("image_formats", "decode_gif"), "PNM": ("image_formats", "decode_pnm"),
     "PSD": ("image_formats", "decode_psd"), "TGA": ("image_formats", "decode_tga"),
     "TIFF": ("tiff", "decode_tiff"), "WebP": ("webp", "decode_webp"),
@@ -375,11 +397,11 @@ _DECODERS = {
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
-    ``convert("RGB")``: PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, WebP, DDS,
-    BLP, FTEX, ICO, CUR, QOI, SGI, PCX and JPEG 2000, told apart as PIL
-    tells them (``image_format``). Other formats, and forms a decoder
-    refuses (HTJ2K and Part-2 JPEG 2000 among them), raise ``ValueError``
-    naming them."""
+    ``convert("RGB")``: PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, WebP,
+    DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, JPEG 2000 and ICNS, told apart
+    as PIL tells them (``image_format``). Other formats, and forms a
+    decoder refuses (HTJ2K and Part-2 JPEG 2000 among them), raise
+    ``ValueError`` naming them."""
     import importlib
 
     from .image_formats import NextFormat
@@ -394,12 +416,12 @@ def decode_image(data, what="image"):
         except NextFormat as e:  # as PIL, try the next format that accepts the file
             gave_up.append(str(e).removeprefix(f"{what}: "))
     tried = f"; PIL gives up on it: {'; '.join(gave_up)}" if gave_up else ""
-    raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, GIF, "
-                     "PNM, PSD, TGA, TIFF (every compression PIL reads: raw, PackBits, LZW, "
-                     "Deflate, JPEG, old-style JPEG, LZMA, ZSTD, CCITT and ThunderScan), WebP, "
-                     "DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, JPEG 2000 (JP2 and J2K, Part 1), "
-                     ".hdr and .npy; not AVIF, EPS, ICNS or the other formats PIL opens)"
-                     f"{tried}")
+    raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, DIB, "
+                     "GIF, PNM (P1-P6, PFM and PIL's P0CMYK / Py modes), PSD, TGA, TIFF (every "
+                     "compression PIL reads: raw, PackBits, LZW, Deflate, JPEG, old-style JPEG, "
+                     "LZMA, ZSTD, CCITT and ThunderScan; Lab too), WebP, DDS, BLP, FTEX, ICO, "
+                     "CUR, QOI, SGI, PCX, JPEG 2000 (JP2 and J2K, Part 1), ICNS, .hdr and .npy; "
+                     f"not AVIF, EPS or the other formats PIL opens){tried}")
 
 
 def read_image(path, to_linear=True):
@@ -408,8 +430,9 @@ def read_image(path, to_linear=True):
 
     Returns [H, W, 3] float32. The 8-bit formats are told apart by their
     signature (``decode_image``), TIFF in every compression PIL reads (the
-    CCITT fax codes, ThunderScan and old-style JPEG among them) and JPEG
-    2000 in every Part-1 form; other formats, and forms the decoders refuse
+    CCITT fax codes, ThunderScan and old-style JPEG among them), JPEG 2000
+    in every Part-1 form and Lab through LittleCMS's transform; other
+    formats, and forms the decoders refuse
     (HTJ2K code-blocks and Part-2 multiple component transforms among them),
     raise ``ValueError`` naming the format.
     """

@@ -1,4 +1,4 @@
-"""TGA, BMP, PNM, GIF and PSD decoding without PIL.
+"""TGA, BMP / DIB, PNM, GIF and PSD decoding without PIL.
 
 The JAX package reads every texture with PIL (``Image.open(path)
 .convert("RGB")``, ``akari_tpu/core/image.py``); the card's machine has no
@@ -18,10 +18,18 @@ form this module does not decode, which the message says).
   read the indices as grey levels), 16-bit 5-5-5, bitfields of the masks
   PIL accepts, 24 and 32 bits, RLE8 and RLE4 through PIL's own decoder
   (its delta escape reads two bytes more than the escape holds), top-down
-  rows.
+  rows. A DIB file (``DibImageFile``) is the same bitmap without the BMP
+  file header, its pixels right after the header, masks and palette.
 - PNM (``PpmImagePlugin``): P1-P6 with comments; ``maxval`` other than 255
   scales with Python's ``round``; a P2/P5 above 255 reads as PIL's mode
   ``I``, which ``convert("RGB")`` clips at 255 (a quirk kept for parity).
+  PIL's other modes: ``Pf`` (PFM, mode ``F``: rows bottom up,
+  little-endian under a negative scale, ``convert("RGB")`` truncating
+  toward zero and clipping to 0..255, NaN to 0), ``P0CMYK`` and
+  ``PyCMYK`` (cmyk2rgb), ``PyRGBA`` (the alpha dropped) and ``PyP``
+  (indices into PIL's default palette, all black), each raw, at 8 or 16
+  bits. Another magic (colour ``PF`` among them) makes PIL try the formats
+  after PNM (``NextFormat``).
 - GIF (``GifImagePlugin``): the first frame, on the logical screen (grown
   to hold the frame), the pixels outside the frame index 0, or the
   transparency index when there is one; LZW through
@@ -32,7 +40,10 @@ form this module does not decode, which the message says).
   grey levels.
 - PSD (``PsdImagePlugin``): the composite image, raw or PackBits, in
   bitmap, grey, indexed, RGB(A), CMYK (PIL inverts the samples),
-  multichannel and duotone modes at 8 bits (1 for bitmap).
+  multichannel, duotone and Lab modes at 8 bits (1 for bitmap). Lab keeps
+  three channels whatever the file holds, its a and b planes as stored
+  (offset by 128), and ``convert("RGB")`` is LittleCMS 2.17's Lab -> sRGB
+  transform (``core/lcms.py``).
 
 Palette indices past a palette's end read black, as PIL's conversion
 gives them; 5- and 6-bit channels expand as PIL's unpackers do, v * 255 //
@@ -45,6 +56,7 @@ import struct
 
 import numpy as np
 
+from .lcms import lab8_to_rgb8
 
 # PIL refuses images of more pixels than this (2 * Image.MAX_IMAGE_PIXELS,
 # its DecompressionBombError)
@@ -313,6 +325,14 @@ def decode_bmp(data, what="BMP"):
     return decode_dib(data, 14, _u32(data, 10), what)[0]
 
 
+def decode_dib_file(data, what="DIB"):
+    """A DIB file (``DibImageFile``): a BMP without its file header, its
+    pixels right after the header, the bitfield masks and the palette.
+    Where ``Image.open`` catches the plugin's error (masks cut short: a
+    ``struct.error``; a size of 0) PIL tries the formats after DIB."""
+    return decode_dib(data, 0, 0, what, "DIB")[0]
+
+
 def decode_dib(data, pos, offset, what, form="BMP", halve=False):
     """The device-independent bitmap whose header starts at ``pos`` of the
     file ``data``, as PIL's ``BmpImageFile._bitmap`` reads it: the pixels
@@ -348,9 +368,12 @@ def decode_dib(data, pos, offset, what, form="BMP", halve=False):
                 masks.append(_u32(head, 48) if len(head) >= 52 else 0)
             else:
                 if len(data) < pos + 12:
-                    raise ValueError(f"{what}: BMP bitfield masks are truncated")
+                    raise (NextFormat if form == "DIB" else ValueError)(
+                        f"{what}: {form} bitfield masks are truncated")
                 masks = [_u32(data, pos + 4 * i) for i in range(3)] + [0]
                 pos += 12
+    if form == "DIB" and (w <= 0 or h <= 0):  # PIL: not an image its plugin identifies
+        raise NextFormat(f"{what}: DIB of size {w} x {h}")
     _check_size(w, h, what, form)
     if halve:
         h //= 2
@@ -469,6 +492,21 @@ def _pnm_int(tok, what):
         raise ValueError(f"{what}: PNM value {tok!r} is not a number") from None
 
 
+# PIL's PpmImagePlugin.MODES: magic -> mode
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA",
+              b"PyCMYK": "CMYK"}
+_PNM_BANDS = {"L": 1, "RGB": 3, "P": 1, "RGBA": 4, "CMYK": 4}
+
+
+def _f_to_grey(v):
+    """PIL's mode F -> 8 bits (``convert("RGB")`` goes through L): 255 from
+    255 up, truncated toward zero between, 0 at 0 and below and for NaN."""
+    with np.errstate(invalid="ignore"):
+        grey = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0))
+    return grey.astype(np.uint8)
+
+
 def decode_pnm(data, what="PNM"):
     magic = b""
     pos = 0
@@ -478,23 +516,23 @@ def decode_pnm(data, what="PNM"):
         if not c or c in _PNM_WHITESPACE:
             break
         magic += c
-    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
-        raise ValueError(f"{what}: PNM form {magic!r} (the port reads P1-P6)")
-    kind = magic[1] - ord("0")
+    mode = _PNM_MODES.get(magic)
+    if mode is None:  # PIL: "not a PPM file", a SyntaxError
+        raise NextFormat(f"{what}: PNM magic {magic!r} (PIL reads P1-P6, Pf, P0CMYK, PyP, "
+                         "PyRGBA and PyCMYK)")
     tok, pos = _pnm_token(data, pos, what)
     w = _pnm_int(tok, what)
     tok, pos = _pnm_token(data, pos, what)
     h = _pnm_int(tok, what)
     _check_size(w, h, what, "PNM")
-    bands = 3 if kind in (3, 6) else 1
-    n = w * h * bands
-    if kind in (1, 4):
-        if kind == 4:
+    if mode == "1":
+        if magic == b"P4":
             line = (w + 7) // 8
             if len(data) - pos < line * h:
                 raise ValueError(f"{what}: PBM image data is truncated")
             rows = np.frombuffer(data, np.uint8, line * h, pos).reshape(h, line)
             return _grey((1 - _bits(rows, w)) * np.uint8(255))
+        n = w * h
         digits = b"".join(_strip_comments(data[pos:]).split())
         bad = digits.translate(None, b"01")
         if bad:
@@ -504,19 +542,23 @@ def decode_pnm(data, what="PNM"):
         v = np.frombuffer(digits[:n], np.uint8).reshape(h, w)
         return _grey(np.where(v == ord("1"), 0, 255).astype(np.uint8))
     tok, pos = _pnm_token(data, pos, what)
+    if mode == "F":
+        return _grey(_f_to_grey(_pfm_samples(data, pos, w, h, tok, what)))
     maxval = _pnm_int(tok, what)
     if not 0 < maxval < 65536:
         raise ValueError(f"{what}: PNM maxval {maxval} (PIL reads 1-65535)")
+    bands = _PNM_BANDS[mode]
+    n = w * h * bands
     # PIL's mode I for grey above 255: samples scale to 0..65535, and
     # convert("RGB") clips them at 255
-    out_max = 65535 if bands == 1 and maxval > 255 else 255
-    if kind in (5, 6):
+    out_max = 65535 if mode == "L" and maxval > 255 else 255
+    if magic not in (b"P2", b"P3"):
         wide = maxval > 255
         nbytes = n * (2 if wide else 1)
         if len(data) - pos < nbytes:
             raise ValueError(f"{what}: PNM image data is truncated")
         v = np.frombuffer(data, ">u2" if wide else np.uint8, n, pos).astype(np.int64)
-        if not (maxval == 255 or (maxval == 65535 and bands == 1)):
+        if not (maxval == 255 or (maxval == 65535 and mode == "L")):
             v = np.minimum(out_max, np.rint(v / maxval * out_max)).astype(np.int64)
     else:
         block = _strip_comments(data[pos:])
@@ -533,7 +575,27 @@ def decode_pnm(data, what="PNM"):
             raise ValueError(f"{what}: PNM sample outside 0..{maxval}")
         v = np.rint(v / maxval * out_max).astype(np.int64)
     v = np.minimum(v, 255).astype(np.uint8).reshape(h, w, bands)
-    return np.ascontiguousarray(np.repeat(v, 3, axis=2) if bands == 1 else v)
+    if mode == "CMYK":
+        return _cmyk_to_rgb(v)
+    if mode == "P":  # no palette in the file: PIL's default palette is black
+        return np.zeros((h, w, 3), np.uint8)
+    return np.ascontiguousarray(np.repeat(v, 3, axis=2) if bands == 1 else v[..., :3])
+
+
+def _pfm_samples(data, pos, w, h, tok, what):
+    """The float32 samples of a ``Pf`` file, top row first: its scale token
+    (PIL's ``float``) must be finite and non-zero; negative means
+    little-endian; rows run bottom up."""
+    try:
+        scale = float(tok)
+    except ValueError:
+        raise ValueError(f"{what}: PFM scale {tok!r} is not a number") from None
+    if scale == 0.0 or not np.isfinite(scale):
+        raise ValueError(f"{what}: PFM scale {scale} (PIL: scale must be finite and non-zero)")
+    if len(data) - pos < 4 * w * h:
+        raise ValueError(f"{what}: PFM image data is truncated")
+    v = np.frombuffer(data, "<f4" if scale < 0 else ">f4", w * h, pos)
+    return v.reshape(h, w)[::-1]
 
 
 # --------------------------------------------------------------------------
@@ -634,7 +696,8 @@ def _gif_lzw(data, pos, bits, frame, interlace, what):
 # PSD
 
 _PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1),
-              (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1)}
+              (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1),
+              (9, 8): ("LAB", 3)}
 _PSD_NAMES = {0: "bitmap", 1: "grey", 2: "indexed", 3: "RGB", 4: "CMYK", 7: "multichannel",
               8: "duotone", 9: "Lab"}
 
@@ -684,9 +747,6 @@ def decode_psd(data, what="PSD"):
     if version != 1:
         raise ValueError(f"{what}: PSD version {version} (large document format)")
     name = _PSD_NAMES.get(mode, f"colour mode {mode}")
-    if mode == 9:
-        raise ValueError(f"{what}: PSD in Lab mode (PIL converts Lab with its own arithmetic; "
-                         "the port does not read it)")
     if (mode, bits) not in _PSD_MODES:
         raise ValueError(f"{what}: PSD {name} at {bits} bits (PIL reads 8 bits, 1 for bitmap)")
     pmode, need = _PSD_MODES[(mode, bits)]
@@ -747,4 +807,6 @@ def decode_psd(data, what="PSD"):
         return (lut if lut is not None else np.zeros((256, 3), np.uint8))[planes[0]]
     if pmode == "CMYK":
         return _cmyk_to_rgb(255 - np.stack(planes, axis=-1))
+    if pmode == "LAB":
+        return lab8_to_rgb8(np.stack(planes, axis=-1))
     return np.ascontiguousarray(np.stack(planes[:3], axis=-1))

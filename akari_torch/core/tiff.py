@@ -46,22 +46,28 @@ bilevel, grey at 1, 2, 4, 8, 12, 16 and 32 bits (integer and float,
 clipped to 0..255, float truncated; PIL inverts min-is-white only below
 16 bits), grey with alpha, palette (``ColorMap`` entries // 256), RGB and
 RGBA at 8 and 16 bits (the high byte; associated alpha un-premultiplied
-as PIL's ``RGBa`` unpackers do), CMYK (PIL's cmyk2rgb) and YCbCr; and
+as PIL's ``RGBa`` unpackers do), CMYK (PIL's cmyk2rgb), YCbCr, and 8-bit
+CIELab (photometric 8): PIL's ``LAB`` unpacker flips the top bit of the
+signed a and b bytes of interleaved samples, its band unpackers take the
+planes of planar configuration 2 as stored, and ``convert("RGB")`` is
+LittleCMS 2.17's Lab -> sRGB transform (``core/lcms.py``); a JPEG-
+compressed Lab file's components pass through libjpeg unconverted; and
 last turned by the ``Orientation`` tag as PIL's ``exif_transpose``.
 
-Refused, each with a ``ValueError`` naming it: Lab (PIL reads it with
-its own arithmetic); the SGILog, SGILog24 and WebP compressions (PIL
-refuses them: its ``OPEN_INFO`` has no LogL / LogLuv photometric, libtiff's
-LogLuv decoder takes no other, and its libtiff has no WebP codec); any tag
-combination PIL's ``OPEN_INFO`` lacks, and every file PIL or libtiff
-refuses; and the forms PIL reads from libtiff's memory as it stands,
-which the port cannot reproduce: one-band images in planar configuration
-2 (written as RGBA bands), YCbCr that is not JPEG with a predictor or 4x4
-subsampling, YCbCr, JPEG or old-style JPEG strips that fail to decode
-(libtiff's RGBA reader and libjpeg go on over a stale or partly written
-buffer: corrupt or short entropy-coded data, a JPEG strip narrower than
-the image), and Group 4 strips whose codes end early (libtiff succeeds
-once a row is decoded and leaves the rows after it unwritten).
+Refused, each with a ``ValueError`` naming it: the SGILog, SGILog24 and
+WebP compressions (PIL refuses them: its ``OPEN_INFO`` has no LogL /
+LogLuv photometric, libtiff's LogLuv decoder takes no other, and its
+libtiff has no WebP codec); any tag combination PIL's ``OPEN_INFO`` lacks
+(Lab at 16 bits or with extra samples among them), and every file PIL or
+libtiff refuses; and the forms PIL reads from libtiff's memory as it
+stands, which the port cannot reproduce: one-band images in planar
+configuration 2 (written as RGBA bands), YCbCr that is not JPEG with a
+predictor or 4x4 subsampling, YCbCr, JPEG or old-style JPEG strips that
+fail to decode (libtiff's RGBA reader and libjpeg go on over a stale or
+partly written buffer: corrupt or short entropy-coded data, a JPEG strip
+narrower than the image), and Group 4 strips whose codes end early
+(libtiff succeeds once a row is decoded and leaves the rows after it
+unwritten).
 """
 
 from __future__ import annotations
@@ -73,8 +79,8 @@ from itertools import groupby
 
 import numpy as np
 
-from . import tiff_ojpeg
-from .image_formats import _check_size, _cmyk_to_rgb
+from . import lcms, tiff_ojpeg
+from .image_formats import _check_size, _cmyk_to_rgb, _f_to_grey
 
 # PIL's TiffImagePlugin.PREFIXES: the two orders, BigTIFF, and two
 # "invalid" headers PIL opens as classic TIFF
@@ -428,6 +434,7 @@ _UNPACKERS = {
     "F;32F": (32, lambda rows, w: _words(rows, w, 1, "<f4").astype(np.float32)),
     "F;32BF": (32, lambda rows, w: _words(rows, w, 1, ">f4").astype(np.float32)),
     "RGB": (24, lambda rows, w: _four(_bytes(rows, w, 3), 255)),
+    "LAB": (24, lambda rows, w: _four(_bytes(rows, w, 3) ^ np.uint8([0, 128, 128]), 255)),
     "RGBX": (32, _rgbx(4, False)), "RGBXX": (40, _rgbx(5, False)),
     "RGBXXX": (48, _rgbx(6, False)),
     "RGBA": (32, _rgbx(4, True)), "RGBAX": (40, _rgbx(5, True)), "RGBAXX": (48, _rgbx(6, True)),
@@ -453,7 +460,14 @@ for _name in ("1", "1;I", "L;2", "L;2I", "L;4", "L;4I", "L", "L;I", "P;1", "P;2"
 _RAW_BANDS = {"R": 0, "G": 1, "B": 2, "A": 3, "C": 0, "M": 1, "Y": 2, "K": 3, "L": 0, "P": 0}
 
 
+def _raw_band(mode, rawmode):
+    """The band a planar raw mode letter fills (in mode LAB: L, A, B)."""
+    return "LAB".index(rawmode) if mode == "LAB" else _RAW_BANDS[rawmode]
+
+
 def _unpacker(mode, rawmode, what):
+    if mode == "LAB" and len(rawmode) == 1:
+        return 8, _band(_raw_band(mode, rawmode))
     if len(rawmode) == 1 and rawmode in _RAW_BANDS:
         if mode in ("1", "L", "P", "I;16", "I;16B", "I", "F") and rawmode not in "LP":
             raise ValueError(f"{what}: TIFF planar raw mode {rawmode!r} in mode {mode} "
@@ -919,9 +933,6 @@ def _decode(data, ifd, what):
                          f"{'big' if ifd.order == b'MM' else 'little'}-endian order (PIL: "
                          "unknown pixel mode)")
     mode, rawmode = OPEN_INFO[key]
-    if mode == "LAB":
-        raise ValueError(f"{what}: Lab TIFF is not supported (PIL converts Lab with its own "
-                         "arithmetic)")
     palette = None
     if mode in ("P", "PA"):
         cmap = ifd.get(COLORMAP)
@@ -1023,7 +1034,7 @@ def _raw_image(data, ifd, mode, rawmode, xsize, ysize, planar, bps, bps_count, s
             buf = np.concatenate([buf, np.zeros(th * step - len(buf), np.uint8)])
         vals = fn(buf.reshape(th, step)[:, :nbytes], tw)
         if vals.shape[-1] == 4 and len(tile_rawmode) == 1:
-            k = _RAW_BANDS[tile_rawmode]
+            k = _raw_band(mode, tile_rawmode)
             px[y0:y1, x0:x1, k] = vals[..., k]
         else:
             px[y0:y1, x0:x1] = vals
@@ -1135,7 +1146,7 @@ def _jpeg_image(lt, ifd, photo, mode, rawmode, xsize, ysize, planar, spp, what):
     other photometric passed through as its components (all sampled 1x1)."""
     from .jpeg import _ycc_to_rgb, decode_components, jpeg_tables
 
-    if planar != 1 or lt.bits != 8 or photo not in (0, 1, 2, 5, 6):
+    if planar != 1 or lt.bits != 8 or photo not in (0, 1, 2, 5, 6, 8):
         raise ValueError(f"{what}: JPEG-compressed TIFF of photometric {photo}, {lt.bits}-bit "
                          f"samples, planar configuration {planar} is not supported")
     # the tables stream, like each strip, ends in libtiff's fake EOI
@@ -1321,12 +1332,11 @@ def _to_rgb(px, mode, palette):
     elif mode in ("I;16", "I;16B", "I"):
         grey = np.clip(px[..., 0], 0, 255).astype(np.uint8)
     elif mode == "F":
-        v = px[..., 0]
-        with np.errstate(invalid="ignore"):
-            grey = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0))
-        grey = grey.astype(np.uint8)
+        grey = _f_to_grey(px[..., 0])
     elif mode == "CMYK":
         return _cmyk_to_rgb(px)
+    elif mode == "LAB":
+        return lcms.lab8_to_rgb8(px[..., :3])
     else:
         return np.ascontiguousarray(px[..., :3])
     return np.repeat(grey[..., None], 3, axis=-1)

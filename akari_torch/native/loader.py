@@ -28,13 +28,16 @@ by a hash of the source, the compiler and the flags, and loaded with
   TIFF strips and tiles (``core/tiff.py``); no compression library is
   linked;
 - ``fax3``: ``fax3.cpp``, the CCITT RLE, RLEW, Group 3 and Group 4 strips
-  and tiles of TIFF files (``core/tiff.py``).
+  and tiles of TIFF files (``core/tiff.py``);
+- ``j2k``: ``j2k_decode.cpp``, JPEG 2000 codestreams (``core/jpeg2000.py``);
+- ``lcms``: ``lcms_lab.cpp``, LittleCMS's tetrahedral interpolation of 8-bit
+  Lab pixels on the Lab -> sRGB table (``core/lcms.py``).
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
 would give another triangle storage order, and the JPEG (Huffman and
 arithmetic), GIF, TIFF, WebP,
 BCn, QOI, SGI / PCX run-length, Zstandard, CCITT, ThunderScan and JPEG 2000
-decoders have no Python twin, so there is no fallback.
+decoders and the Lab evaluator have no Python twin, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -213,6 +216,14 @@ def _bind_j2k(lib):
     ]
 
 
+def _bind_lcms(lib):
+    lib.akr_lab8_to_rgb8.restype = None
+    lib.akr_lab8_to_rgb8.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # clut, lab, n
+        ctypes.c_void_p,                                   # rgb
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
@@ -231,6 +242,7 @@ SOURCES = {
     "zstd": ("zstd.cpp", "libakr_zstd.so", "the TIFF ZSTD decoder", _bind_zstd),
     "fax3": ("fax3.cpp", "libakr_fax3.so", "the TIFF CCITT (fax) decoder", _bind_fax3),
     "j2k": ("j2k_decode.cpp", "libakr_j2k.so", "the JPEG 2000 decoder", _bind_j2k),
+    "lcms": ("lcms_lab.cpp", "libakr_lcms.so", "the Lab -> sRGB transform", _bind_lcms),
 }
 
 _lock = threading.Lock()

@@ -227,7 +227,7 @@ Phases (each checks its results; any failure exits non-zero):
     decode's median of 3 no slower than the PNG route's; the config-3 CLI
     on the PNG, the 8-bit LZW-with-predictor and the 16-bit Deflate TIFF
     albedos (frames bit-equal, 6 tree closest launches each, one launch of
-    each TIFF run held to the plain walk at 0 ulp); and ``--sharded --ao``
+    the LZW run held to the plain walk at 0 ulp); and ``--sharded --ao``
     on the Cornell box at 64^2, exit 0 and the unsharded CLI's PNG;
 44. the WebP decoder: the WebP fixtures' digests (lossy, lossless,
     palettes, alpha, animations, a random VP8 frame); the 2048^2 albedo as
@@ -236,7 +236,7 @@ Phases (each checks its results; any failure exits non-zero):
     no slower than the PNG route's; the config-3 CLI on a PNG of the lossy
     WebP's pixels, on the lossy WebP, on the PNG albedo and on the lossless
     WebP (frames bit-equal pairwise, 6 tree closest launches each, one
-    launch of each WebP run held to the plain walk at 0 ulp);
+    launch of the lossy WebP run held to the plain walk at 0 ulp);
 45. the DDS, BLP and FTEX decoders: their fixtures' digests (every BCn
     form, the DX10 header, the mask, luminance and palette forms, BLP1
     JPEG and palette, BLP2 palette and DXT, FTEX); the 2048^2 albedo
@@ -253,8 +253,8 @@ Phases (each checks its results; any failure exits non-zero):
     committed 2048^2 ZSTD TIFF, each decode's median of 3 no slower than
     the PNG route's (LZMA, decoded by Python's ``lzma``, recorded); the
     config-3 CLI on the PNG, RLE SGI and PCX albedos (frames bit-equal, 6
-    tree closest launches each, one launch of each SGI / PCX run held to
-    the plain walk at 0 ulp);
+    tree closest launches each, one launch of the SGI run held to the
+    plain walk at 0 ulp);
 47. the arithmetic-coded, lossless and cut progressive JPEGs: their
     fixtures' digests; the 2048^2 albedo as an arithmetic-coded
     progressive JPEG (the committed baseline JPEG re-coded here by
@@ -274,7 +274,7 @@ Phases (each checks its results; any failure exits non-zero):
     the config-3 CLI on a PNG of the Group 4 file's pixels, on the Group 4
     file, on a PNG of the old-style JPEG's pixels and on the old-style JPEG
     (frames bit-equal pairwise, 6 tree closest launches each, one launch of
-    each TIFF run held to the plain walk at 0 ulp);
+    the Group 4 run held to the plain walk at 0 ulp);
 49. the JPEG 2000 decoder: the J2K / JP2 fixtures' digests (both
     wavelets, the five progressions, tiles, tile-parts, precincts, POC,
     every code-block style, ROI, subsampled, signed and 1-16-bit
@@ -284,22 +284,34 @@ Phases (each checks its results; any failure exits non-zero):
     (decoding to those pixels exactly), each decode's median of 3 beside
     the PNG route's; the config-3 CLI on a PNG of the JP2's pixels, on the
     JP2, on a PNG of the scaled-up albedo and on the J2K (frames bit-equal
-    pairwise, 6 tree closest launches each, one launch of each JPEG 2000
-    run held to the plain walk at 0 ulp);
-50. the result: a JSON line of kernel records (the dense records on the
+    pairwise, 6 tree closest launches each, one launch of the JP2 run
+    held to the plain walk at 0 ulp);
+50. Lab, PIL's other PNM modes, DIB and ICNS: their fixtures' digests;
+    the 2048^2 albedo written here with integer numpy
+    (``lab_albedo_files`` of ``tools/make_torch_port_image_fixtures.py``)
+    as a raw and an LZW Lab TIFF, a PackBits Lab PSD, a ``Pf`` PFM and a
+    24-bit DIB, each file's SHA-256 and decode held to the record of PIL's
+    read (``tests/data/torch_port_generated_images.json``), each decode's
+    median of 3 beside the PNG route's (DIB and PFM no slower); the
+    config-3 CLI on a PNG of the LZW Lab TIFF's pixels and on that TIFF
+    (frames bit-equal, 6 tree closest launches each, one launch of the
+    TIFF run held to the plain walk at 0 ulp). Phases 43, 44, 46, 48 and
+    49 hold one launch each to the plain walk, not two, to make room;
+51. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-49,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-50,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-49) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-50) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG Huffman and
 arithmetic decoders, GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
-PCX / ThunderScan run-length decoder, ZSTD decoder, CCITT decoder and JPEG 2000 decoder) is
+PCX / ThunderScan run-length decoder, ZSTD decoder, CCITT decoder, JPEG 2000 decoder and
+Lab evaluator) is
 built at start, one
 compiler process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
@@ -2989,7 +3001,7 @@ def tiff_phase(card, traversal, cli_render):
     frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_lzw.tif": files["lzw_pred2"], "albedo_16.tif": files["rgb16_deflate_pred2"]},
-        ("albedo.png", "albedo_lzw.tif", "albedo_16.tif"), {"albedo_lzw.tif", "albedo_16.tif"})
+        ("albedo.png", "albedo_lzw.tif", "albedo_16.tif"), {"albedo_lzw.tif"})
     out.update(cli)
     for name in ("albedo_lzw.tif", "albedo_16.tif"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
@@ -3019,8 +3031,8 @@ def webp_phase(card, traversal, cli_render):
     a lossless one written here (``vp8l_bytes``), each decode's median of 3
     no slower than the PNG route's, and the config-3 CLI on both against
     the PNG route of their decoded pixels (bit-equal frames, 6 tree closest
-    launches each, one launch of each WebP run held to the plain walk at 0
-    ulp); returns the tree kernel's errors and the figures it logs."""
+    launches each, one launch of the lossy WebP run held to the plain walk
+    at 0 ulp); returns the tree kernel's errors and the figures it logs."""
     import hashlib
 
     import numpy as np
@@ -3073,7 +3085,7 @@ def webp_phase(card, traversal, cli_render):
         {"albedo_q85.webp": lossy, "albedo_lossless.webp": lossless,
          "lossy_decoded.png": encode_png(lossy_px)},
         ("lossy_decoded.png", "albedo_q85.webp", "albedo.png", "albedo_lossless.webp"),
-        {"albedo_q85.webp", "albedo_lossless.webp"})
+        {"albedo_q85.webp"})
     out.update(cli)
     check(np.array_equal(frames["albedo_q85.webp"], frames["lossy_decoded.png"]),
           "the frame on the lossy WebP differs from the frame on a PNG of its decoded pixels")
@@ -3174,8 +3186,8 @@ def legacy_phase(card, traversal, cli_render):
     decode's median of 3 beside the PNG route's (no slower for all but
     LZMA, which is recorded); and the config-3 CLI on the PNG, the RLE SGI
     and the PCX albedos (frames bit-equal, 6 tree closest launches each,
-    one launch of each SGI / PCX run held to the plain walk at 0 ulp);
-    returns the tree kernel's errors and the figures it logs."""
+    one launch of the SGI run held to the plain walk at 0 ulp); returns
+    the tree kernel's errors and the figures it logs."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3249,7 +3261,7 @@ def legacy_phase(card, traversal, cli_render):
     frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_rle.sgi": files["RLE SGI"], "albedo_rle.pcx": files["24-bit PCX"]},
-        ("albedo.png", "albedo_rle.sgi", "albedo_rle.pcx"), {"albedo_rle.sgi", "albedo_rle.pcx"})
+        ("albedo.png", "albedo_rle.sgi", "albedo_rle.pcx"), {"albedo_rle.sgi"})
     out.update(cli)
     for name in ("albedo_rle.sgi", "albedo_rle.pcx"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
@@ -3397,7 +3409,7 @@ def fax_phase(card, traversal, cli_render):
     and the config-3 CLI on a PNG of the Group 4 file's pixels, on the
     Group 4 file, on a PNG of the old-style JPEG's pixels and on the
     old-style JPEG (frames bit-equal pairwise, 6 tree closest launches
-    each, one launch of each TIFF run held to the plain walk at 0 ulp);
+    each, one launch of the Group 4 run held to the plain walk at 0 ulp);
     returns the tree kernel's errors and the figures it logs."""
     import hashlib
     import multiprocessing
@@ -3462,7 +3474,7 @@ def fax_phase(card, traversal, cli_render):
          "albedo_oj.png": encode_png(decoded["old-style JPEG"]),
          "albedo_oj.tif": files["old-style JPEG"]},
         ("albedo_g4.png", "albedo_g4.tif", "albedo_oj.png", "albedo_oj.tif"),
-        {"albedo_g4.tif", "albedo_oj.tif"})
+        {"albedo_g4.tif"})
     out.update(cli)
     for name in ("g4", "oj"):
         check(np.array_equal(frames[f"albedo_{name}.tif"], frames[f"albedo_{name}.png"]),
@@ -3483,7 +3495,7 @@ def jpeg2000_phase(card, traversal, cli_render):
     beside the PNG route's; and the config-3 CLI on a PNG of the JP2's
     pixels, on the JP2, on a PNG of the scaled-up albedo and on the J2K
     (frames bit-equal pairwise, 6 tree closest launches each, one launch of
-    each JPEG 2000 run held to the plain walk at 0 ulp); returns the tree
+    the JP2 run held to the plain walk at 0 ulp); returns the tree
     kernel's errors and the figures it logs."""
     import hashlib
 
@@ -3538,7 +3550,7 @@ def jpeg2000_phase(card, traversal, cli_render):
         {"albedo_jp2.png": encode_png(jp2_px), "albedo.jp2": files[ALBEDO_JP2],
          "albedo_x32.png": encode_png(x32), "albedo_x32.j2k": files[ALBEDO_J2K]},
         ("albedo_jp2.png", "albedo.jp2", "albedo_x32.png", "albedo_x32.j2k"),
-        {"albedo.jp2", "albedo_x32.j2k"})
+        {"albedo.jp2"})
     out.update(cli)
     for png, j2k in (("albedo_jp2.png", "albedo.jp2"), ("albedo_x32.png", "albedo_x32.j2k")):
         check(np.array_equal(frames[j2k], frames[png]),
@@ -3546,6 +3558,103 @@ def jpeg2000_phase(card, traversal, cli_render):
     log("  the JP2 and J2K albedos' frames are bit-equal to the PNG route's of their pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 49: {out['phase_s']:.1f} s")
+    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    return out
+
+
+LAB_FIXTURES = ("lab_", "tiff_lab_", "tiff_pil_lab_", "pfm_", "pnm_p", "dib_", "icns_")
+LAB_CLI_TIFF = "albedo2048_lab_lzw.tif"
+
+
+def lab_phase(card, traversal, cli_render):
+    """Phase 50: the Lab (LittleCMS's Lab -> sRGB transform), PNM-mode, DIB
+    and ICNS decoders on this machine (no PIL here): their fixtures'
+    digests; the 2048^2 albedo written here with integer numpy as a raw
+    and an LZW Lab TIFF, a PackBits Lab PSD, a ``Pf`` PFM and a 24-bit DIB,
+    each file's SHA-256 and decode held to the record of PIL's read, each
+    decode's median of 3 beside the PNG route's (the DIB and PFM no
+    slower); and the config-3 CLI on a PNG of the LZW Lab TIFF's pixels and
+    on that TIFF (frames bit-equal, 6 tree closest launches each, one
+    launch of the TIFF run held to the plain walk at 0 ulp); returns the
+    tree kernel's errors and the figures it logs."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.scene.builtin import envtex_texture
+    from tools.make_torch_port_image_fixtures import GENERATED, lab_albedo_files
+
+    t_phase = time.perf_counter()
+    log(f"phase 50: Lab, PNM-mode, DIB and ICNS decoding without PIL: the fixtures' digests, "
+        f"the 2048^2 albedo in five forms, the config-3 CLI on an LZW Lab TIFF albedo "
+        f"[card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if k.startswith(LAB_FIXTURES)}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 30, f"only {len(digests)} Lab / PNM / DIB / ICNS fixtures")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    albedo = decode_png(png_data)
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        files = lab_albedo_files(albedo, pool.map)
+    log(f"  wrote the 2048^2 albedo in five forms in {time.perf_counter() - t0:.2f} s "
+        f"({workers} processes; " + ", ".join(f"{k} {len(v)} bytes" for k, v in files.items())
+        + ")")
+    with open(GENERATED) as f:
+        recorded = json.load(f)
+    check(sorted(files) == sorted(recorded),
+          f"wrote {sorted(files)}, the record holds {sorted(recorded)}")
+    decoded = {}
+    for fname, data in files.items():
+        rec = recorded[fname]
+        file_sha = hashlib.sha256(data).hexdigest()
+        check(file_sha == rec["file_sha256"],
+              f"{fname}: written as sha256 {file_sha[:16]}..., recorded {rec['file_sha256'][:16]}...")
+        px = decode_image(data, fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+        decoded[fname] = px
+    log(f"  the five files equal the recorded bytes and decode to PIL "
+        f"{', '.join(sorted({r['pil'] for r in recorded.values()}))}'s recorded reads")
+    out = {}
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for fname, data in files.items():
+        med, runs = _median_s(lambda: decode_image(data, fname))
+        out[f"{fname}_decode_s"] = med
+        log(f"  2048^2 {fname} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+            f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+    for fname in ("albedo2048.pfm", "albedo2048_24.dib"):
+        check(out[f"{fname}_decode_s"] <= png_s,
+              f"{fname} decodes in {out[f'{fname}_decode_s']:.4f} s, slower than the PNG's "
+              f"{png_s:.4f} s")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_lab.png": encode_png(decoded[LAB_CLI_TIFF]), "albedo_lab.tif": files[LAB_CLI_TIFF]},
+        ("albedo_lab.png", "albedo_lab.tif"), {"albedo_lab.tif"})
+    out.update(cli)
+    check(np.array_equal(frames["albedo_lab.tif"], frames["albedo_lab.png"]),
+          "the frame on the Lab TIFF differs from the PNG route's of its pixels")
+    log("  the Lab TIFF albedo's frame is bit-equal to the PNG route's of its pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 50: {out['phase_s']:.1f} s")
     out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
@@ -3593,12 +3702,12 @@ def main():
 
     t0 = time.perf_counter()
     native_names = ("bvh", "jpeg", "jpeg_arith", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn",
-                    "qoi", "rle", "zstd", "fax3", "j2k")
+                    "qoi", "rle", "zstd", "fax3", "j2k", "lcms")
     with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG Huffman and
         # arithmetic decoders, the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
         # the QOI decoder, the SGI / PCX / ThunderScan run-length decoder, the ZSTD
-        # decoder, the CCITT decoder and the JPEG 2000 decoder
+        # decoder, the CCITT decoder, the JPEG 2000 decoder and the Lab evaluator
         natives = {n: pool.submit(native_loader.build, n) for n in native_names}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
         libs = {kname: f.result() for kname, f in builds.items()}
@@ -4177,15 +4286,17 @@ def main():
     forms = jpeg_forms_phase(card, traversal, cli_render)
     fax = fax_phase(card, traversal, cli_render)
     j2k = jpeg2000_phase(card, traversal, cli_render)
+    lab = lab_phase(card, traversal, cli_render)
     tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
                    ddss["tree_err"], legacy["tree_err"], forms["tree_err"], fax["tree_err"],
-                   j2k["tree_err"])
+                   j2k["tree_err"], lab["tree_err"])
     tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
                        webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"],
-                       forms["tree_occ_err"], fax["tree_occ_err"], j2k["tree_occ_err"])
+                       forms["tree_occ_err"], fax["tree_occ_err"], j2k["tree_occ_err"],
+                       lab["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 50: result ----------------------------------------------------
+    # ---- phase 51: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

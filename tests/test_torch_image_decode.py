@@ -570,6 +570,37 @@ def test_truncated_png_raises_naming_the_file(tmp_path):
         ref_image.read_image(str(path))
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_png_chunks_before_the_image_data_need_their_crc_and_type(tmp_path, seed):
+    """PIL's ``PngImageFile._open`` checks the CRC and the type (four word
+    characters) of every chunk before the first IDAT and refuses the file
+    when one is wrong; chunks after the image data are not checked. The
+    port refuses and reads the same files: every byte of the header chunks
+    of a drawn PNG (a PLTE and a tRNS among them) changed in turn, and
+    bytes of the IEND after the data."""
+    r = np.random.default_rng(seed)
+    data = png_bytes(r.integers(0, 4, (5, 7, 1)), 8, 3,
+                     plte=r.integers(0, 256, 12).astype(np.uint8).tobytes(), trns=b"\x00\x80")
+    idat = data.index(b"IDAT") - 4
+    picks = list(range(8, idat)) + [len(data) - 8, len(data) - 5, len(data) - 1]
+    for i in picks[seed::4]:
+        bad = bytearray(data)
+        bad[i] ^= 1 << int(r.integers(0, 8))
+        path = tmp_path / "c.png"
+        path.write_bytes(bytes(bad))
+        try:
+            want = np.asarray(Image.open(path).convert("RGB"))
+        except Exception:
+            want = None
+        try:
+            got = port_image.decode_image(bytes(bad), "c.png")
+        except ValueError:
+            got = None
+        assert (want is None) == (got is None), f"byte {i}: PIL {want is not None}"
+        if want is not None:
+            np.testing.assert_array_equal(got, want, err_msg=f"byte {i}")
+
+
 def test_images_are_told_apart_by_signature(tmp_path):
     """A PNG named .jpg and a JPEG named .png read as what they are, as
     under PIL."""

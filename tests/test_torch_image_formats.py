@@ -18,8 +18,15 @@ bit with ``to_linear`` True and False:
   wherever PIL refuses it the port raises ``ValueError``;
 - the forms PIL refuses, each refused by the port naming the form; CCITT
   TIFFs of no valid data name the cause libtiff gives, a WebP that libwebp
-  refuses is refused naming WebP, and Lab PSDs, which
-  PIL converts with its own arithmetic, are refused naming "Lab";
+  refuses is refused naming WebP, a 16-bit Lab PSD naming "Lab" and a PFM
+  of scale 0 naming its scale (8-bit Lab PSDs, which PIL converts with
+  LittleCMS 2.17's Lab -> sRGB transform, and PFMs of other scales read as
+  PIL reads them);
+- DIB files (a BMP without its file header) at every header size PIL
+  reads, each bit depth, RLE, bitfields, both row orders, and PIL's other
+  PNM modes (``Pf`` in both byte orders with NaN, infinities, negatives,
+  values past 255 and fractions; ``P0CMYK``, ``PyP``, ``PyRGBA``,
+  ``PyCMYK`` at 8 and 16 bits), held to PIL and to the JAX package;
 - an OBJ whose ``map_Kd`` is a TGA renders at 16x16 on the CPU bit-equal
   to the same OBJ on a PNG of the same pixels.
 """
@@ -43,15 +50,18 @@ from tools.make_torch_port_image_fixtures import (
     bmp_rows,
     format_fixtures,
     gif_bytes,
+    lab_pnm_dib_icns_fixtures,
     pattern,
+    pfm_bytes,
     pnm_bytes,
+    pnm_mode_bytes,
     psd_bytes,
     tga_bytes,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_images")
-FORMATS = (".tga", ".bmp", ".pbm", ".pgm", ".ppm", ".gif", ".psd")
+FORMATS = (".tga", ".bmp", ".pbm", ".pgm", ".ppm", ".gif", ".psd", ".dib", ".pfm", ".pnm")
 
 
 def _pil(data):
@@ -98,7 +108,8 @@ def test_format_fixtures_are_the_tools_and_pils():
 
     digests = _digests()
     assert len(digests) >= 40
-    written = format_fixtures(np.random.default_rng(11))
+    written = {**format_fixtures(np.random.default_rng(11)),
+               **{k: v for k, v in lab_pnm_dib_icns_fixtures().items() if k.endswith(FORMATS)}}
     for name, rec in digests.items():
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
@@ -296,6 +307,152 @@ def test_pnm_header_comments_split_tokens_as_pil_reads_them():
     data = b"P5\n# c\n1#split\n2 3 2#x\n55\n" + bytes(range(36))
     _matches_pil(data)
     assert port_image.decode_image(data).shape == (3, 12, 3)
+
+
+# ------------------------------ PIL's other PNM modes ------------------------------
+
+PNM_MODES = {"p0cmyk": (b"P0CMYK", 4), "pycmyk": (b"PyCMYK", 4), "pyrgba": (b"PyRGBA", 4),
+             "pyp": (b"PyP", 1)}
+
+
+@pytest.mark.parametrize("maxval", [255, 1, 100, 255 + 1, 1000, 65535])
+@pytest.mark.parametrize("mode", list(PNM_MODES))
+def test_drawn_pnm_modes_match_pil_and_jax(tmp_path, mode, maxval):
+    """P0CMYK / PyCMYK through PIL's cmyk2rgb, PyRGBA's alpha dropped, PyP
+    (no palette in the file) black; raw at 8 bits, or 16 above 255; a
+    maxval other than 255 scales with Python's round, samples past it
+    clipped; a file cut short refused as PIL refuses it."""
+    magic, bands = PNM_MODES[mode]
+    r = np.random.default_rng(maxval + 7 * list(PNM_MODES).index(mode))
+    h, w = int(r.integers(1, 12)), int(r.integers(1, 15))
+    top = 255 if maxval < 256 else maxval  # 8-bit samples may pass a small maxval
+    data = pnm_mode_bytes(magic, r.integers(0, top + 1, (h, w, bands)), maxval)
+    got = _matches_pil(data, tmp_path, "m.pnm")
+    if mode == "pyp":
+        assert not got.any()
+    with pytest.raises(Exception):
+        _pil(data[:-1])
+    with pytest.raises(ValueError, match="PNM image data is truncated"):
+        port_image.decode_image(data[:-1], "m.pnm")
+
+
+def test_pnm_cmyk_probe_value():
+    data = pnm_mode_bytes(b"P0CMYK", np.array([[[10, 20, 30, 40]]]))
+    assert _matches_pil(data)[0, 0].tolist() == [207, 198, 190]
+    zeros16 = pnm_mode_bytes(b"P0CMYK", np.zeros((1, 2, 4), int), 65535)
+    assert _matches_pil(zeros16).tolist() == [[[255, 255, 255]] * 2]
+
+
+PFM_VALUES = np.float32([0.6, 254.6, 300, -3, np.nan, np.inf, -np.inf, 255, 254.99, 1e-30,
+                         -0.0, 128.5, 0.0, 1.0, 0.999, 3e38, -3e38, 65535.5])
+
+
+@pytest.mark.parametrize("scale", [-1.0, -0.25, 1.0, 7.5, -1e30])
+@pytest.mark.parametrize("seed", range(3))
+def test_drawn_pfm_matches_pil_and_jax(tmp_path, scale, seed):
+    """``Pf``: rows bottom up, little-endian under a negative scale;
+    ``convert("RGB")`` truncates toward zero and clips to 0..255, NaN and
+    -inf to 0 and +inf to 255."""
+    r = np.random.default_rng(seed * 31 + int(abs(scale) * 4) % 1000)
+    h, w = int(r.integers(1, 10)), int(r.integers(1, 12))
+    v = r.uniform(-40, 300, h * w).astype(np.float32)
+    picks = r.random(h * w) < 0.3
+    v[picks] = r.choice(PFM_VALUES, int(picks.sum()))
+    got = _matches_pil(pfm_bytes(v.reshape(h, w), scale), tmp_path if seed == 0 else None,
+                       "f.pfm")
+    with np.errstate(invalid="ignore"):
+        want = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0))
+    np.testing.assert_array_equal(got[..., 0].ravel(), want.astype(np.uint8))
+
+
+def test_pfm_probe_values_and_refusals(tmp_path):
+    px = _matches_pil(pfm_bytes(np.float32([[0.6, 254.6, 300, -3, np.nan]])))
+    assert px[0, :, 0].tolist() == [0, 254, 255, 0, 0]
+    for scale in (b"0", b"-0.0", b"nan", b"inf", b"-inf"):
+        data = b"Pf\n2 1\n" + scale + b"\n" + bytes(8)
+        with pytest.raises(Exception):
+            _pil(data)
+        with pytest.raises(ValueError, match="PFM scale"):
+            port_image.decode_image(data, "f.pfm")
+    short = pfm_bytes(np.zeros((2, 3), np.float32))[:-1]
+    with pytest.raises(Exception):
+        _pil(short)
+    with pytest.raises(ValueError, match="PFM image data is truncated"):
+        port_image.decode_image(short, "f.pfm")
+    # colour PF: PIL has no such mode and no format takes the file
+    colour = b"PF\n2 1\n-1.0\n" + bytes(24)
+    with pytest.raises(Exception):
+        _pil(colour)
+    with pytest.raises(ValueError, match="unsupported image format"):
+        port_image.decode_image(colour, "f.pfm")
+    # another magic PIL's PNM plugin accepts: it gives up and no format takes it
+    with pytest.raises(Exception):
+        _pil(b"Pfoo 2 1 -1.0 " + bytes(8))
+    with pytest.raises(ValueError, match="PIL gives up on it: PNM magic b'Pfoo'"):
+        port_image.decode_image(b"Pfoo 2 1 -1.0 " + bytes(8), "f.pfm")
+
+
+# ----------------------------------- DIB ----------------------------------------
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("form", BMP_FORMS)
+def test_drawn_dib_matches_pil_and_jax(tmp_path, form, seed):
+    """A DIB file is the BMP without its 14-byte file header, its pixels
+    right after the header, masks and palette: every header size 12-124,
+    every depth, RLE, bitfields, both row orders."""
+    r = np.random.default_rng(seed + 100 * BMP_FORMS.index(form) + 7)
+    data = _bmp_form(form, r)[14:]
+    assert port_image.image_format(data) == "DIB"
+    _matches_pil(data, tmp_path if seed == 0 else None, "d.dib")
+
+
+@pytest.mark.parametrize("header", [56, 64])
+def test_dib_header_sizes_56_and_64(tmp_path, header):
+    r = np.random.default_rng(header)
+    for bits in (1, 4, 8, 24, 32):
+        if bits <= 8:
+            pal = r.integers(0, 256, (1 << bits) * 4).astype(np.uint8).tobytes()
+            rows = bmp_rows(r.integers(0, 1 << bits, (5, 9)), bits)
+        else:
+            pal, rows = b"", bmp_rows(r.integers(0, 256, (5, 9, bits // 8)), bits)
+        data = bmp_bytes(9, 5, bits, rows, header=header, palette=pal,
+                         colors=(1 << bits) if bits <= 8 else 0)[14:]
+        _matches_pil(data, tmp_path, f"h{bits}.dib")
+
+
+def test_pils_dib_writer_reads_as_pil_and_jax(tmp_path):
+    for mode in ("RGB", "RGBA", "L", "P", "1"):
+        b = io.BytesIO()
+        Image.fromarray(pattern(7, 11, 3)).convert(mode).save(b, "DIB")
+        _matches_pil(b.getvalue(), tmp_path, f"{mode}.dib")
+
+
+def test_dibs_pil_gives_up_on_go_to_the_next_format():
+    """Bitfield masks cut short (PIL's struct.error) and a size of 0 make
+    PIL try the formats after DIB, none of which takes these files."""
+    masks_cut = bmp_bytes(2, 1, 16, bytes(4), compression=3, masks=(0xF800, 0x7E0, 0x1F),
+                          masks_in_header=False)[14:54 + 6]
+    zero = bmp_bytes(0, 3, 24, b"")[14:]
+    for data in (masks_cut, zero):
+        with pytest.raises(Exception):
+            _pil(data)
+        with pytest.raises(ValueError, match="unsupported image format.*PIL gives up on it.*DIB"):
+            port_image.decode_image(data, "g.dib")
+    truncated = bmp_bytes(5, 4, 24, bytes(50))[14:]
+    with pytest.raises(Exception):
+        _pil(truncated)
+    with pytest.raises(ValueError, match="DIB image data is truncated"):
+        port_image.decode_image(truncated, "t.dib")
+
+
+def test_dib_routing_follows_image_preinit():
+    """BMP, then DIB (a first u32 that is a header size), in PIL's order;
+    other first words are not DIBs."""
+    for size in (12, 40, 52, 56, 64, 108, 124):
+        assert port_image.image_format(struct.pack("<I", size) + bytes(12)) == "DIB"
+    for size in (0, 16, 39, 41, 123, 125):
+        assert port_image.image_format(struct.pack("<I", size) + bytes(12)) != "DIB"
+    assert port_image.image_format(b"BM" + bytes(14)) == "BMP"
 
 
 # ----------------------------------- GIF ----------------------------------------
@@ -530,7 +687,7 @@ REFUSED = {
     "bmp-palette-300": (lambda: bmp_bytes(2, 1, 8, bytes(4), palette=bytes(range(256)) * 5,
                                           colors=300), "300 colours"),
     "bmp-truncated": (lambda: bmp_bytes(5, 4, 24, bytes(50)), "truncated"),
-    "pnm-pfm": (lambda: b"Pf\n2 2\n-1.0\n" + bytes(16), "PNM form b'Pf'"),
+    "pnm-pfm": (lambda: b"Pf\n2 2\n0.0\n" + bytes(16), "PFM scale 0.0"),
     "pnm-maxval-0": (lambda: b"P5 2 2 0 " + bytes(4), "maxval 0"),
     "pnm-maxval-65536": (lambda: b"P5 2 2 65536 " + bytes(8), "maxval 65536"),
     "pnm-plain-bad-token": (lambda: b"P2 2 1 255 12 x3", "not a number"),
@@ -547,7 +704,7 @@ REFUSED = {
                                        min_code=2).split(b",")[0] + b"," + struct.pack(
         "<HHHHB", 0, 0, 2, 2, 0) + b"\x02\x01\x3c\x00;", "corrupt"),
     "psd-16bit": (lambda: _psd_header(3, 16), "RGB at 16 bits"),
-    "psd-lab": (lambda: _psd_header(9, 8), "Lab"),
+    "psd-lab": (lambda: _psd_header(9, 16), "Lab at 16 bits"),
     "psd-zip": (lambda: _psd_header(3, 8)[:-14] + b"\x00\x02" + bytes(12), "compression 2"),
     "psd-channels": (lambda: _psd_header(4, 8, channels=3), "CMYK with 3 channels"),
     "psd-version-2": (lambda: b"8BPS\x00\x02" + _psd_header(3, 8)[6:], "version 2"),
@@ -557,8 +714,6 @@ REFUSED = {
     "webp": (lambda: b"RIFF" + struct.pack("<I", 40) + b"WEBPVP8 " + bytes(40),
              r"WebP file refused by libwebp's checks"),
 }
-# forms PIL reads that the port refuses, naming them (ROADMAP.md, later slices)
-PIL_READS = {"psd-lab", "pnm-pfm"}
 
 
 def _ccitt_tiff(order, group):
@@ -580,17 +735,16 @@ def test_refused_forms_name_themselves(tmp_path, form):
     with pytest.raises(ValueError, match=match) as err:
         port_image.read_image(str(path))
     assert str(path) in str(err.value)
-    if form in PIL_READS:
-        return  # PIL reads Lab and PFM
     with pytest.raises(Exception):
         _pil(data)
 
 
-def test_lab_psd_is_read_by_pil_and_refused_by_the_port():
+def test_lab_psd_is_read_by_pil_and_refused_by_the_port(tmp_path):
+    """Once refused, now read: grey (128, 128, 128) reads (119, 119, 119),
+    equal to PIL's and to the JAX package's read."""
     data = psd_bytes(np.full((3, 1, 1), 128, np.uint8), 9, compression=0)
     assert _pil(data)[0, 0].tolist() == [119, 119, 119]
-    with pytest.raises(ValueError, match="Lab"):
-        port_image.decode_image(data)
+    assert _matches_pil(data, tmp_path, "lab.psd")[0, 0].tolist() == [119, 119, 119]
 
 
 def test_formats_are_told_apart_as_pil_tells_them(tmp_path):

@@ -63,6 +63,7 @@ from akari_tpu.core import image as ref_image
 from tools.make_torch_port_image_fixtures import (
     cmyk_jpegs,
     fax_fixtures,
+    lab_pnm_dib_icns_fixtures,
     pattern,
     tiff_bytes,
     tiff_fixtures,
@@ -140,7 +141,8 @@ def test_tiff_fixtures_are_the_tools_and_pils():
     digests = _digests()
     assert len(digests) >= 17
     written = {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
-               **{k: v for k, v in fax_fixtures().items() if not k.startswith("tiff_pil")}}
+               **{k: v for k, v in {**fax_fixtures(), **lab_pnm_dib_icns_fixtures()}.items()
+                  if k.endswith(".tif") and not k.startswith("tiff_pil")}}
     for name, rec in digests.items():
         path = os.path.join(FIXTURES, name)
         with open(path, "rb") as f:
@@ -750,7 +752,9 @@ REFUSED = {
     "lzma": (lambda: _with_compression(34925, bits=8), "corrupt TIFF LZMA data"),
     "zstd": (lambda: _with_compression(50000, bits=8), "corrupt TIFF ZSTD data"),
     "webp-in-tiff": (lambda: _with_compression(50001, bits=8), "WebP"),
-    "lab": (lambda: tiff_bytes(np.zeros((2, 2, 3), int), 8, 8), "Lab"),
+    # Lab at 16 bits: PIL's OPEN_INFO has no mode for it (8-bit Lab reads)
+    "lab": (lambda: tiff_bytes(np.zeros((2, 2, 3), int), 16, 8),
+            "photometric 8.*unknown pixel mode"),
     "unknown-pixel-mode": (lambda: tiff_bytes(np.zeros((2, 2, 3), int), 4, 2),
                            "unknown pixel mode"),
     "planar-grey": (lambda: tiff_bytes(np.arange(64).reshape(8, 8, 1), 8, 1, planar=2,
@@ -765,7 +769,7 @@ REFUSED = {
                                                tags={317: (3, [2])}), "predictor on 4-bit"),
 }
 # forms PIL reads that the port refuses, naming them (ROADMAP.md, later slices)
-PIL_READS = {"planar-grey", "lab", "ycbcr-predictor", "ycbcr-4x4"}
+PIL_READS = {"planar-grey", "ycbcr-predictor", "ycbcr-4x4"}
 
 
 @pytest.mark.parametrize("form", list(REFUSED))

@@ -215,12 +215,12 @@ def test_png_writer_filters_rows_as_other_encoders_do(tmp_path):
 def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: hierarchical and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
-    read, a Lab TIFF (PIL converts Lab with its own arithmetic), a DDS
-    FourCC PIL does not read (DXT2), a JP2 header PIL's plugin gives up on,
-    and a format the port has no decoder for, AVIF (read_image picks the
-    decoder by signature). DDS,
-    arithmetic-coded JPEG and CCITT Group 4 TIFF, which PIL opens, read as
-    the reference reads them."""
+    read, a 16-bit Lab TIFF (PIL has no mode for it), a DDS FourCC PIL does
+    not read (DXT2), a JP2 header PIL's plugin gives up on, and a format
+    the port has no decoder for, AVIF (read_image picks the decoder by
+    signature). DDS, arithmetic-coded JPEG, CCITT Group 4 TIFF and an 8-bit
+    Lab TIFF (which PIL converts with LittleCMS 2.17's Lab -> sRGB
+    transform), which PIL opens, read as the reference reads them."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -247,8 +247,12 @@ def test_unsupported_images_name_their_format(tmp_path):
 
     (tmp_path / "lab.tif").write_bytes(tiff_bytes(np.full((2, 2, 3), 128), 8, 8))
     assert np.asarray(Image.open(tmp_path / "lab.tif").convert("RGB")).shape == (2, 2, 3)
-    with pytest.raises(ValueError, match="Lab TIFF is not supported"):
-        port_image.read_image(str(tmp_path / "lab.tif"))
+    _same_read(str(tmp_path / "lab.tif"))
+    (tmp_path / "lab16.tif").write_bytes(tiff_bytes(np.full((2, 2, 3), 128), 16, 8))
+    with pytest.raises(Exception):
+        Image.open(tmp_path / "lab16.tif").convert("RGB")
+    with pytest.raises(ValueError, match="photometric 8.*unknown pixel mode"):
+        port_image.read_image(str(tmp_path / "lab16.tif"))
     from tools.dds_writers import dds_bytes
 
     blocks = np.random.default_rng(5).integers(0, 256, 32, dtype=np.uint8).tobytes()

@@ -61,9 +61,17 @@ Writes into ``tests/data/torch_port_images/``:
   irreversible (9/7) JP2 at a rate of 30 (419 KB), and ``ALBEDO_J2K``: the
   config-3 albedo at 64^2 scaled up 32x, saved by PIL as a reversible (5/3)
   codestream with the RCT (602 KB);
+- Lab PSDs and TIFFs, ``Pf`` and PIL's other PNM modes, DIBs and ICNS
+  files (``lab_pnm_dib_icns_fixtures``), a few hundred bytes to a few KB
+  each: Pillow's writers (Lab TIFF, DIB, ICNS with PNG entries) and the
+  encoders here and in ``tools/icns_writers.py`` / ``tools/j2k_writers.py``;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
-  PIL that decoded them.
+  PIL that decoded them;
+- ``tests/data/torch_port_generated_images.json`` (``GENERATED``): the
+  2048^2 albedo files of ``lab_albedo_files``, which ``chip_smoke.py``
+  writes on the card's machine rather than reading them from the
+  repository: each file's SHA-256 and PIL's decode of it.
 
 ``chip_smoke.py`` decodes every fixture with the port and checks the
 digests; ``tests/test_torch_image_decode.py``,
@@ -72,13 +80,15 @@ digests; ``tests/test_torch_image_decode.py``,
 ``tests/test_torch_image_legacy.py`` hold ``digests.json`` to PIL's
 decode here, so it cannot go stale. Needs PIL.
 
-Usage: python tools/make_torch_port_image_fixtures.py [-o DIR] [--only jpeg2000]
+Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
+           [--only jpeg2000|lab_pnm_dib_icns]
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import io
 import json
 import os
 import struct
@@ -441,12 +451,28 @@ def packbits_row(row, r):
     return bytes(out)
 
 
-def psd_bytes(planes, mode, bits=8, compression=1, color_data=b"", n_channels=None, seed=0):
+def _literal_rows(planes):
+    """[C, H, W] uint8 -> PackBits rows of literal packets of up to 128
+    bytes (vectorised, for large images)."""
+    c, h, w = planes.shape
+    rows = planes.reshape(c * h, w)
+    parts = []
+    for x in range(0, w, 128):
+        n = min(128, w - x)
+        parts += [np.full((c * h, 1), n - 1, np.uint8), rows[:, x:x + n]]
+    coded = np.concatenate(parts, axis=1)
+    return [coded[i].tobytes() for i in range(c * h)]
+
+
+def psd_bytes(planes, mode, bits=8, compression=1, color_data=b"", n_channels=None, seed=0,
+              literal=False):
     """[C, H, W] channel planes (packed rows for 1-bit) -> a PSD file of
     colour ``mode`` (0 bitmap, 1 grey, 2 indexed, 3 RGB, 4 CMYK, 7
     multichannel, 8 duotone, 9 Lab): the colour-mode data (an indexed
     image's 768-byte planar palette), an image resource, an empty layer
-    section and the composite image, raw or PackBits by channel and row."""
+    section and the composite image, raw or PackBits by channel and row
+    (``literal``: literal packets only, written without a Python loop over
+    the bytes)."""
     c, h = planes.shape[:2]
     width = planes.shape[2] * 8 if bits == 1 else planes.shape[2]
     head = b"8BPS" + struct.pack(">H6xHIIHH", 1, n_channels or c, h, width, bits, mode)
@@ -456,7 +482,8 @@ def psd_bytes(planes, mode, bits=8, compression=1, color_data=b"", n_channels=No
     if compression == 0:
         return out + b"\x00\x00" + planes.astype(np.uint8).tobytes()
     r = np.random.default_rng(seed)
-    rows = [packbits_row(bytes(row), r) for plane in planes for row in plane]
+    rows = (_literal_rows(np.asarray(planes, np.uint8)) if literal
+            else [packbits_row(bytes(row), r) for plane in planes for row in plane])
     counts = struct.pack(">" + "H" * len(rows), *[len(x) for x in rows])
     return out + b"\x00\x01" + counts + b"".join(rows)
 
@@ -1407,10 +1434,180 @@ def jpeg2000_fixtures():
     return out
 
 
+# --------------------------------------------------------------------------
+# Lab, PIL's other PNM modes, DIB and ICNS
+
+# the 2048^2 albedo files chip_smoke.py phase 50 writes (lab_albedo_files),
+# with their SHA-256 and PIL's decode: too large to commit, so recorded
+GENERATED = os.path.join(ROOT, "tests", "data", "torch_port_generated_images.json")
+
+
+def pnm_mode_bytes(magic, samples, maxval=255):
+    """[H, W, bands] samples -> a file of one of PIL's PNM extension modes
+    (``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``): the magic, width, height
+    and maxval, then the raw samples (big-endian 16-bit above 255)."""
+    samples = np.asarray(samples)
+    h, w = samples.shape[:2]
+    head = magic + f"\n{w} {h}\n{maxval}\n".encode()
+    return head + samples.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def pfm_bytes(values, scale=-1.0):
+    """[H, W] float32 -> a grey PFM (``Pf``) file: rows bottom up,
+    little-endian under a negative ``scale``, big-endian under a positive
+    one."""
+    values = np.asarray(values, np.float32)
+    h, w = values.shape
+    return (f"Pf\n{w} {h}\n{scale}\n".encode()
+            + values[::-1].astype("<f4" if scale < 0 else ">f4").tobytes())
+
+
+def lab_bytes(px):
+    """[H, W, 3] uint8 RGB -> 8-bit Lab in PIL's and the PSD's layout (L,
+    a + 128, b + 128), integers only, so every machine writes the same
+    bytes: L the luma, a and b half the red-green and green-blue
+    differences. (A TIFF stores a and b signed: the top bit flipped.)"""
+    p = np.asarray(px, np.int32)
+    lum = (54 * p[..., 0] + 183 * p[..., 1] + 19 * p[..., 2] + 128) >> 8
+    return np.stack([lum, 128 + ((p[..., 0] - p[..., 1]) >> 1),
+                     128 + ((p[..., 1] - p[..., 2]) >> 1)], axis=-1).astype(np.uint8)
+
+
+def lab_albedo_files(px, mapper=map):
+    """The config-3 albedo ``px`` ([H, W, 3] uint8) in the forms
+    ``chip_smoke.py`` phase 50 decodes, written with integer numpy only (so
+    they are the same bytes here and on the card's machine, which records
+    nothing and has no PIL): a raw and an LZW Lab TIFF (64-row strips,
+    the LZW over ``mapper``), a PackBits Lab PSD (literal packets), a grey
+    ``Pf`` PFM of the red channel plus a quarter of the green's low two
+    bits (exact in float32), and a 24-bit DIB."""
+    h, w = px.shape[:2]
+    lab = lab_bytes(px)
+    signed = lab ^ np.uint8([0, 128, 128])
+    grey = px[..., 0].astype(np.float32) + (px[..., 1] & 3).astype(np.float32) / 4
+    return {
+        f"albedo{w}_lab.tif": tiff_bytes(signed, 8, 8, rows_per_strip=64),
+        f"albedo{w}_lab_lzw.tif": tiff_bytes(signed, 8, 8, compression=5, rows_per_strip=64,
+                                            mapper=mapper),
+        f"albedo{w}_lab_packbits.psd": psd_bytes(np.moveaxis(lab, -1, 0), 9, literal=True),
+        f"albedo{w}.pfm": pfm_bytes(grey),
+        f"albedo{w}_24.dib": bmp_bytes(w, h, 24, bmp_rows(px[..., ::-1], 24))[14:],
+    }
+
+
+def lab_pnm_dib_icns_fixtures():
+    """The Lab, PNM-mode, DIB and ICNS fixtures: Lab PSDs (raw, PackBits,
+    with an alpha channel) and Lab TIFFs (``tiff_bytes`` in both byte
+    orders, strips, tiles, planes, LZW / Deflate / PackBits; Pillow's writer
+    raw, LZW and JPEG); ``Pf`` files in both byte orders holding NaN, +-inf,
+    negatives, values past 255 and fractions, and ``P0CMYK`` / ``PyP`` /
+    ``PyRGBA`` / ``PyCMYK`` at 8 and 16 bits; DIBs (Pillow's writer, the OS/2
+    header, RLE8, bitfields, top-down rows, a V5 header); ICNS files
+    (Pillow's writer with PNG entries, and ``tools/icns_writers.py``: the
+    24-bit icons in runs and raw with their masks, J2K and JP2 entries from
+    ``tools/j2k_writers.py``)."""
+    from PIL import Image
+
+    from tools import icns_writers as iw
+    from tools import j2k_writers as jw
+
+    def pil(img, fmt, **kw):
+        b = io.BytesIO()
+        img.save(b, fmt, **kw)
+        return b.getvalue()
+
+    r = np.random.default_rng(90)
+    lab = np.moveaxis(r.integers(0, 256, (3, 9, 13)).astype(np.uint8), 0, -1)
+    lab_img = Image.frombytes("LAB", (13, 9), (lab ^ np.uint8([0, 128, 128])).tobytes())
+    signed = lab ^ np.uint8([0, 128, 128])
+    vals = np.float32([0.6, 254.6, 300, -3, np.nan, np.inf, -np.inf, 255, 254.99, 1e-30, -0.0,
+                       128.5])
+    pfm = np.concatenate([vals, r.uniform(-50, 320, 42 - len(vals)).astype(np.float32)])
+    out = {
+        "lab_raw_13x9.psd": psd_bytes(np.moveaxis(lab, -1, 0), 9, compression=0),
+        "lab_packbits_13x9.psd": psd_bytes(np.moveaxis(lab, -1, 0), 9, seed=91),
+        "lab_alpha_raw_13x9.psd": psd_bytes(
+            np.concatenate([np.moveaxis(lab, -1, 0), lab[None, ..., 0]]), 9, compression=0),
+        "tiff_lab_raw_le_13x9.tif": tiff_bytes(signed, 8, 8, rows_per_strip=4),
+        "tiff_lab_lzw_be_tiles_13x9.tif": tiff_bytes(signed, 8, 8, order=">", compression=5,
+                                                     tile=(16, 16)),
+        "tiff_lab_planar_deflate_13x9.tif": tiff_bytes(signed, 8, 8, compression=8, planar=2,
+                                                       rows_per_strip=3),
+        "tiff_lab_planar_raw_be_13x9.tif": tiff_bytes(signed, 8, 8, order=">", planar=2),
+        "tiff_lab_packbits_13x9.tif": tiff_bytes(signed, 8, 8, compression=32773, seed=92),
+        "tiff_pil_lab_13x9.tif": pil(lab_img, "TIFF"),
+        "tiff_pil_lab_lzw_13x9.tif": pil(lab_img, "TIFF", compression="tiff_lzw"),
+        "tiff_pil_lab_jpeg_13x9.tif": pil(lab_img, "TIFF", compression="jpeg", quality=90),
+        "pfm_le_7x6.pfm": pfm_bytes(pfm.reshape(6, 7)),
+        "pfm_be_7x6.pfm": pfm_bytes(pfm.reshape(6, 7)[::-1], scale=2.5),
+        "pnm_p0cmyk_7x5.pnm": pnm_mode_bytes(b"P0CMYK", r.integers(0, 256, (5, 7, 4))),
+        "pnm_pycmyk16_7x5.pnm": pnm_mode_bytes(b"PyCMYK", r.integers(0, 1000, (5, 7, 4)), 999),
+        "pnm_pyrgba_7x5.pnm": pnm_mode_bytes(b"PyRGBA", r.integers(0, 256, (5, 7, 4))),
+        "pnm_pyp_7x5.pnm": pnm_mode_bytes(b"PyP", r.integers(0, 256, (5, 7, 1))),
+        "pnm_p0cmyk100_7x5.pnm": pnm_mode_bytes(b"P0CMYK", r.integers(0, 101, (5, 7, 4)), 100),
+        "dib_pil_rgb_13x9.dib": pil(Image.fromarray(pattern(9, 13, 93)), "DIB"),
+        "dib_pil_p8_13x9.dib": pil(Image.fromarray(pattern(9, 13, 94)).convert("P"), "DIB"),
+        "dib_os2_pal8_7x5.dib": bmp_bytes(7, 5, 8, bmp_rows(r.integers(0, 16, (5, 7)), 8),
+                                          header=12, palette=_bgr_palette(r, 256, False))[14:],
+        "dib_rle8_9x6.dib": bmp_bytes(9, 6, 8, bmp_rle(r.integers(0, 4, (6, 9)), False, r),
+                                      compression=1, palette=_bgr_palette(r, 4, True),
+                                      colors=4)[14:],
+        "dib_bitfields565_v3_7x5.dib": bmp_bytes(
+            7, 5, 16, bmp_rows(r.integers(0, 65536, (5, 7)).astype("<u2").view(np.uint8)
+                               .reshape(5, 7, 2), 16),
+            header=56, compression=3, masks=(0xF800, 0x7E0, 0x1F, 0))[14:],
+        "dib_topdown_v5_24_7x5.dib": bmp_bytes(7, -5, 24,
+                                               bmp_rows(r.integers(0, 256, (5, 7, 3)), 24,
+                                                        top_down=True), header=124)[14:],
+    }
+    px16 = pattern(16, 16, 95)
+    px32 = pattern(32, 32, 96)
+    px48 = pattern(48, 48, 97)
+    px128 = np.repeat(np.repeat(pattern(8, 8, 98), 16, 0), 16, 1)
+    out["icns_pil_png_16x16.icns"] = pil(Image.fromarray(np.full((16, 16, 3), 90, np.uint8)),
+                                         "ICNS")
+    out["icns_rle_masks_48x48.icns"] = iw.icns_bytes([
+        (b"is32", iw.rgb32(px16, r=r)), (b"s8mk", iw.mask(px16[..., 0])),
+        (b"il32", iw.rgb32(px32, r=r)), (b"l8mk", iw.mask(px32[..., 1])),
+        (b"ih32", iw.rgb32(px48, r=r)), (b"h8mk", iw.mask(px48[..., 2]))])
+    out["icns_it32_128x128.icns"] = iw.icns_bytes([
+        (b"is32", iw.rgb32(px16, rle=False)), (b"it32", iw.rgb32(px128, it32=True, r=r)),
+        (b"t8mk", iw.mask(px128[..., 0]))])
+    out["icns_raw_il32_32x32.icns"] = iw.icns_bytes([(b"il32", iw.rgb32(px32, rle=False))])
+    out["icns_j2k_ic07_128x128.icns"] = iw.icns_bytes([
+        (b"ic07", jw.encode([px128[..., k].astype(np.int64) for k in range(3)])),
+        (b"is32", iw.rgb32(px16, r=r))])
+    out["icns_jp2_icp5_32x32.icns"] = iw.icns_bytes([
+        (b"icp5", jw.jp2(jw.encode([px32[..., k].astype(np.int64) for k in range(3)],
+                                   irreversible=True, rates=(8,)), 32, 32, 3))])
+    return out
+
+
+def generated_record(files):
+    """name -> the file's SHA-256 and PIL's decode of it (digest, shape,
+    version), for ``lab_albedo_files``' output."""
+    import PIL
+    from PIL import Image
+
+    out = {}
+    for name, data in files.items():
+        px = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        out[name] = {"file_sha256": hashlib.sha256(data).hexdigest(), "pil": PIL.__version__,
+                     "sha256": hashlib.sha256(px.tobytes()).hexdigest(), "shape": list(px.shape)}
+    return out
+
+
+def write_generated(albedo):
+    """Record ``lab_albedo_files`` of the 2048^2 albedo in ``GENERATED``."""
+    with open(GENERATED, "w") as f:
+        json.dump(generated_record(lab_albedo_files(albedo)), f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
-    ap.add_argument("--only", choices=["jpeg2000"],
+    ap.add_argument("--only", choices=["jpeg2000", "lab_pnm_dib_icns"],
                     help="write only this group's files and merge their digests into "
                          "digests.json, leaving the other fixtures as they are")
     args = ap.parse_args(argv)
@@ -1430,10 +1627,14 @@ def main(argv=None):
         path = os.path.join(args.output, "digests.json")
         with open(path) as f:
             digests = json.load(f)
-        for name, data in jpeg2000_fixtures().items():
+        group = {"jpeg2000": jpeg2000_fixtures,
+                 "lab_pnm_dib_icns": lab_pnm_dib_icns_fixtures}[args.only]
+        for name, data in group().items():
             with open(os.path.join(args.output, name), "wb") as f:
                 f.write(data)
             digests[name] = digest(name)
+        if args.only == "lab_pnm_dib_icns":
+            write_generated(envtex_texture(2048, 0))
         with open(path, "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
             f.write("\n")
@@ -1491,7 +1692,8 @@ def main(argv=None):
         os.path.join(args.output, "tiff_pil_la_deflate.tif"), compression="tiff_adobe_deflate")
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
                        **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
-                       **jpeg_form_fixtures(), **fax_fixtures(), **jpeg2000_fixtures()}.items():
+                       **jpeg_form_fixtures(), **fax_fixtures(), **jpeg2000_fixtures(),
+                       **lab_pnm_dib_icns_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
@@ -1499,6 +1701,7 @@ def main(argv=None):
     with open(os.path.join(args.output, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
+    write_generated(envtex_texture(2048, 0))
     total = sum(os.path.getsize(os.path.join(args.output, n)) for n in os.listdir(args.output))
     print(f"wrote {len(digests)} fixtures and digests.json to {args.output}: {total} bytes")
 
