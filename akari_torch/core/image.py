@@ -22,12 +22,17 @@ and palette forms) through ``core/dds.py``, BLP (JPEG, palette or DXT) through
 ``core/blp.py`` and FTEX (DXT1 or raw) through ``core/ftex.py``, the blocks
 decoded by ``native/bcn.cpp``; ICO / CUR through ``core/ico.py``, QOI
 through ``core/qoi.py``, SGI through ``core/sgi.py`` and PCX through
-``core/pcx.py``; and JPEG 2000 (JP2 files and raw J2K codestreams, every
-Part-1 form OpenJPEG 2.5 decodes) through ``core/jpeg2000.py``; and ICNS
-through ``core/icns.py``. The
-reference reads them with PIL, which the card's machine does not have; the
-pixels equal PIL's ``convert("RGB")``. Other formats PIL reads (AVIF, EPS,
-IM, ...) raise an error naming the formats read here, and so do the JPEG
+``core/pcx.py`` (DCX too); and JPEG 2000 (JP2 files and raw J2K
+codestreams, every Part-1 form OpenJPEG 2.5 decodes) through
+``core/jpeg2000.py``; ICNS through ``core/icns.py``; IM and IM Tools
+through ``core/im.py``, IPTC/NAA through ``core/iptc.py``, PhotoCD
+through ``core/pcd.py``, SPIDER through ``core/spider.py``, MSP and XBM
+through ``core/image_formats.py``. Five of them (IM, IMT, IPTC, PCD,
+SPIDER) have no signature: PIL runs their header parse on every file that
+reaches them in its order, and so does ``decode_image``. The reference
+reads them with PIL, which the card's machine does not have; the pixels
+equal PIL's ``convert("RGB")``. Other formats PIL reads (AVIF, EPS, FITS,
+XPM, ...) raise an error naming the formats read here, and so do the JPEG
 2000 forms still to be ported: HTJ2K (Part 15) code-blocks and Part-2
 array-based multiple component transforms.
 """
@@ -336,13 +341,17 @@ def write_hdr(path, img_linear):
 
 
 def _accepted(data):
-    """The formats whose PIL plugin accepts ``data``, in the order
-    ``Image.open`` tries them: the plugins of ``Image.preinit`` the port
-    reads (BMP, DIB, GIF, JPEG, PNM, PNG; IPTC, between DIB and GIF, reads
-    no texture), then ``Image.ID``'s order (TGA, which has no signature, by
-    the sanity of its header)."""
+    """The formats PIL would try to open ``data`` as, in the order
+    ``Image.open`` tries them: the plugins of ``Image.preinit`` (BMP, DIB,
+    GIF, JPEG, PNM, PNG) whose signature matches, then ``Image.ID``'s order.
+    A plugin with a signature is listed when it accepts ``data``; the five
+    without one (IM, IMT and IPTC between ICO and TIFF, PCD after MSP,
+    SPIDER between SGI and TGA) are listed always, as PIL runs their header
+    parse on every file that reaches them (``_GATES``); TGA, which has none
+    either, by the sanity of its header."""
     from .image_formats import tga_header
     from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE
+    from .pcx import DCX_MAGIC
     from .tiff import PREFIXES as TIFF_PREFIXES
 
     head = data[:16]
@@ -356,29 +365,60 @@ def _accepted(data):
         ("BLP", head[:4] in (b"BLP1", b"BLP2")),
         ("CUR", head[:4] == b"\0\0\2\0"),
         ("PCX", len(head) >= 2 and head[0] == 10 and head[1] in (0, 2, 3, 5)),
+        ("DCX", len(head) >= 4 and int.from_bytes(head[:4], "little") == DCX_MAGIC),
         ("DDS", head[:4] == b"DDS "),
         ("FTEX", head[:4] == b"FTEX"),
         ("JPEG2000", head[:4] == J2K_SIGNATURE or head[:12] == JP2_SIGNATURE),
         ("ICNS", head[:4] == b"icns"),
         ("ICO", head[:4] == b"\0\0\1\0"),
+        ("IM", None), ("IMT", None), ("IPTC", None),
         ("TIFF", head[:4] in TIFF_PREFIXES),
+        ("MSP", head[:4] in (b"DanM", b"LinS")),
+        ("PCD", None),
         ("PSD", head[:4] == b"8BPS"),
         ("QOI", head[:4] == b"qoif"),
         ("SGI", head[:2] == b"\x01\xda"),
-        ("TGA", None),
+        ("SPIDER", None),
+        ("TGA", tga_header(data) is not None),
         ("WebP", head[:4] == b"RIFF" and head[8:12] == b"WEBP"
          and head[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
+        ("XBM", head.lstrip().startswith(b"#define")),
     )
-    return [fmt for fmt, ok in checks if ok or (ok is None and tga_header(data) is not None)]
+    return [fmt for fmt, ok in checks if ok is not False]
+
+
+# the formats without a signature -> (module of core/, their plugin's header
+# parse): NextFormat where PIL tries the next format, ValueError where its
+# open fails
+_GATES = {"IM": ("im", "im_header"), "IMT": ("im", "imt_header"),
+          "IPTC": ("iptc", "iptc_header"), "PCD": ("pcd", "pcd_header"),
+          "SPIDER": ("spider", "spider_header")}
 
 
 def image_format(data):
-    """The format PIL would open ``data`` as, by signature (TGA, which has
-    none, by the sanity of its header), or None. A file whose header that
-    format's plugin cannot parse goes on to the next format that accepts
-    it, as in PIL (``decode_image``)."""
-    fmts = _accepted(data)
-    return fmts[0] if fmts else None
+    """The format PIL would open ``data`` as, or None: by signature (TGA
+    by the sanity of its header), and for IM, IMT, IPTC, PCD and SPIDER,
+    which have none, by their header parse, which PIL runs on every file
+    that reaches them. None also where one of those parses makes PIL's
+    open fail. A file whose header the format of its signature cannot
+    parse goes on to the next format that accepts it, as in PIL
+    (``decode_image``)."""
+    import importlib
+
+    from .image_formats import NextFormat
+
+    for fmt in _accepted(data):
+        if fmt not in _GATES:
+            return fmt
+        module, name = _GATES[fmt]
+        try:
+            getattr(importlib.import_module(f".{module}", __package__), name)(data)
+            return fmt
+        except NextFormat:
+            continue
+        except ValueError:
+            return None
+    return None
 
 
 # format -> (module of core/, decoder)
@@ -391,17 +431,16 @@ _DECODERS = {
     "DDS": ("dds", "decode_dds"), "BLP": ("blp", "decode_blp"), "FTEX": ("ftex", "decode_ftex"),
     "ICO": ("ico", "decode_ico"), "CUR": ("ico", "decode_cur"), "QOI": ("qoi", "decode_qoi"),
     "SGI": ("sgi", "decode_sgi"), "PCX": ("pcx", "decode_pcx"),
-    "JPEG2000": ("jpeg2000", "decode_jpeg2000"),
+    "JPEG2000": ("jpeg2000", "decode_jpeg2000"), "DCX": ("pcx", "decode_dcx"),
+    "IM": ("im", "decode_im"), "IMT": ("im", "decode_imt"), "IPTC": ("iptc", "decode_iptc"),
+    "MSP": ("image_formats", "decode_msp"), "PCD": ("pcd", "decode_pcd"),
+    "SPIDER": ("spider", "decode_spider"), "XBM": ("image_formats", "decode_xbm"),
 }
 
 
-def decode_image(data, what="image"):
-    """File bytes -> [H, W, 3] uint8, the pixels of PIL's
-    ``convert("RGB")``: PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, WebP,
-    DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, JPEG 2000 and ICNS, told apart
-    as PIL tells them (``image_format``). Other formats, and forms a
-    decoder refuses (HTJ2K and Part-2 JPEG 2000 among them), raise
-    ``ValueError`` naming them."""
+def decode_with_format(data, what="image"):
+    """``decode_image``, and the format the file was read as (PIL's
+    ``Image.open(...).format``, with PIL's PPM and WEBP named PNM and WebP)."""
     import importlib
 
     from .image_formats import NextFormat
@@ -409,32 +448,48 @@ def decode_image(data, what="image"):
     gave_up = []
     for fmt in _accepted(data):
         if fmt == "PNG":
-            return decode_png(data, what)
+            return fmt, decode_png(data, what)
         module, name = _DECODERS[fmt]
         try:
-            return getattr(importlib.import_module(f".{module}", __package__), name)(data, what)
+            return fmt, getattr(importlib.import_module(f".{module}", __package__), name)(data,
+                                                                                          what)
         except NextFormat as e:  # as PIL, try the next format that accepts the file
-            gave_up.append(str(e).removeprefix(f"{what}: "))
+            if fmt not in _GATES:
+                gave_up.append(str(e).removeprefix(f"{what}: "))
     tried = f"; PIL gives up on it: {'; '.join(gave_up)}" if gave_up else ""
     raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, DIB, "
                      "GIF, PNM (P1-P6, PFM and PIL's P0CMYK / Py modes), PSD, TGA, TIFF (every "
                      "compression PIL reads: raw, PackBits, LZW, Deflate, JPEG, old-style JPEG, "
                      "LZMA, ZSTD, CCITT and ThunderScan; Lab too), WebP, DDS, BLP, FTEX, ICO, "
-                     "CUR, QOI, SGI, PCX, JPEG 2000 (JP2 and J2K, Part 1), ICNS, .hdr and .npy; "
-                     f"not AVIF, EPS or the other formats PIL opens){tried}")
+                     "CUR, QOI, SGI, PCX, DCX, JPEG 2000 (JP2 and J2K, Part 1), ICNS, IM, IMT, "
+                     "IPTC, MSP, PCD, SPIDER, XBM, .hdr and .npy; not AVIF, EPS, FITS, XPM or "
+                     f"the other formats PIL opens){tried}")
+
+
+def decode_image(data, what="image"):
+    """File bytes -> [H, W, 3] uint8, the pixels of PIL's
+    ``convert("RGB")``: PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, WebP,
+    DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, DCX, JPEG 2000, ICNS, IM, IMT,
+    IPTC, MSP, PCD, SPIDER and XBM, told apart as PIL tells them (the
+    formats of ``_accepted`` in PIL's order, each header parse deciding, as
+    in PIL, whether the next is tried). Other formats, and forms a decoder
+    refuses (HTJ2K and Part-2 JPEG 2000 among them), raise ``ValueError``
+    naming them."""
+    return decode_with_format(data, what)[1]
 
 
 def read_image(path, to_linear=True):
     """Read an 8-bit image (sRGB -> linear float), .hdr (RGBE) or .npy
     (linear).
 
-    Returns [H, W, 3] float32. The 8-bit formats are told apart by their
-    signature (``decode_image``), TIFF in every compression PIL reads (the
-    CCITT fax codes, ThunderScan and old-style JPEG among them), JPEG 2000
-    in every Part-1 form and Lab through LittleCMS's transform; other
-    formats, and forms the decoders refuse
-    (HTJ2K code-blocks and Part-2 multiple component transforms among them),
-    raise ``ValueError`` naming the format.
+    Returns [H, W, 3] float32. The 8-bit formats are told apart as PIL
+    tells them (``decode_image``: by signature, and for IM, IMT, IPTC,
+    PhotoCD and SPIDER by their header parse), TIFF in every compression PIL
+    reads (the CCITT fax codes, ThunderScan and old-style JPEG among them),
+    JPEG 2000 in every Part-1 form, Lab through LittleCMS's transform, and
+    DCX, MSP and XBM; other formats, and forms the decoders refuse (HTJ2K
+    code-blocks and Part-2 multiple component transforms among them), raise
+    ``ValueError`` naming the format.
     """
     path = str(path)
     if path.endswith(".npy"):

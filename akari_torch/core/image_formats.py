@@ -1,4 +1,4 @@
-"""TGA, BMP / DIB, PNM, GIF and PSD decoding without PIL.
+"""TGA, BMP / DIB, PNM, GIF, PSD, MSP and XBM decoding without PIL.
 
 The JAX package reads every texture with PIL (``Image.open(path)
 .convert("RGB")``, ``akari_tpu/core/image.py``); the card's machine has no
@@ -44,6 +44,20 @@ form this module does not decode, which the message says).
   three channels whatever the file holds, its a and b planes as stored
   (offset by 128), and ``convert("RGB")`` is LittleCMS 2.17's Lab -> sRGB
   transform (``core/lcms.py``).
+- MSP (``MspImagePlugin``): Windows Paint bitmaps, white where a bit is
+  set; a 32-byte header whose 16-bit words XOR to 0 (else PIL tries the
+  next format). ``DanM`` (version 1): raw rows; ``LinS`` (version 2): a map
+  of each row's encoded length, then the rows as runs (a zero byte, a
+  count and a byte repeated) and literals (a count and that many bytes). An
+  empty row is white. PIL joins the rows' output and reads it as one raw
+  image, so a row that decodes to more or fewer bytes than the stride
+  shifts every row after it (a literal cut by the row's end is kept short),
+  and output short of the image is refused.
+- XBM (``XbmImagePlugin``): the ``#define`` width and height (and the
+  optional hotspot) and ``_bits[]`` within the first 512 bytes; then PIL's
+  C decoder takes, after each ``x``, the next two characters as hex
+  digits (any other character reads 0; ``0x1,`` is 0x10), bits least
+  significant first, white where set.
 
 Palette indices past a palette's end read black, as PIL's conversion
 gives them; 5- and 6-bit channels expand as PIL's unpackers do, v * 255 //
@@ -52,6 +66,7 @@ gives them; 5- and 6-bit channels expand as PIL's unpackers do, v * 255 //
 
 from __future__ import annotations
 
+import re
 import struct
 
 import numpy as np
@@ -810,3 +825,106 @@ def decode_psd(data, what="PSD"):
     if pmode == "LAB":
         return lab8_to_rgb8(np.stack(planes, axis=-1))
     return np.ascontiguousarray(np.stack(planes[:3], axis=-1))
+
+
+# --------------------------------------------------------------------------
+# MSP
+
+
+def decode_msp(data, what="MSP"):
+    data = bytes(data)
+    if data[:4] not in (b"DanM", b"LinS"):
+        raise ValueError(f"{what}: not an MSP file")
+    if len(data) < 32:
+        raise NextFormat(f"{what}: MSP header cut short")
+    words = np.frombuffer(data, "<u2", 16)
+    if np.bitwise_xor.reduce(words):
+        raise NextFormat(f"{what}: bad MSP checksum")
+    w, h = _u16(data, 4), _u16(data, 6)
+    if w <= 0 or h <= 0:
+        raise NextFormat(f"{what}: MSP image of size {w} x {h}")
+    _check_size(w, h, what, "MSP")
+    stride = (w + 7) // 8
+    if data[:4] == b"DanM":
+        if len(data) - 32 < h * stride:
+            raise ValueError(f"{what}: MSP data is truncated (PIL: image file is truncated)")
+        rows = np.frombuffer(data, np.uint8, h * stride, 32).reshape(h, stride)
+    else:
+        if len(data) - 32 < 2 * h:
+            raise ValueError(f"{what}: truncated MSP file in row map")
+        rowmap = np.frombuffer(data, "<u2", h, 32)
+        out, pos = bytearray(), 32 + 2 * h
+        for y, rowlen in enumerate(rowmap.tolist()):
+            if rowlen == 0:
+                out += b"\xff" * stride
+                continue
+            row = data[pos:pos + rowlen]
+            pos += rowlen
+            if len(row) != rowlen:
+                raise ValueError(f"{what}: truncated MSP file, expected {rowlen} bytes on row {y}")
+            idx = 0
+            while idx < rowlen:
+                runtype = row[idx]
+                idx += 1
+                if runtype == 0:
+                    if idx + 2 > rowlen:
+                        raise ValueError(f"{what}: corrupted MSP file in row {y}")
+                    out += row[idx + 1:idx + 2] * row[idx]
+                    idx += 2
+                else:
+                    out += row[idx:idx + runtype]
+                    idx += runtype
+        if len(out) < h * stride:
+            raise ValueError(f"{what}: MSP rows decode to {len(out)} bytes of {h * stride} (PIL: "
+                             "not enough image data)")
+        rows = np.frombuffer(bytes(out), np.uint8, h * stride).reshape(h, stride)
+    return _grey(_bits(rows, w) * np.uint8(255))
+
+
+# --------------------------------------------------------------------------
+# XBM
+
+_XBM_HEAD = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    b"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    b"(?P<hotspot>"
+    b"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    b"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    b")?"
+    rb"[\000-\377]*_bits\[]"
+)
+_HEX = np.zeros(256, np.uint8)
+for _k, _c in enumerate(b"0123456789"):
+    _HEX[_c] = _k
+for _k, _c in enumerate(b"abcdef"):
+    _HEX[_c] = _HEX[_c - 32] = 10 + _k
+
+
+def decode_xbm(data, what="XBM"):
+    data = bytes(data)
+    m = _XBM_HEAD.match(data[:512])
+    if not m:
+        raise NextFormat(f"{what}: not an XBM file (no width, height and _bits[] in its first "
+                         "512 bytes)")
+    w, h = int(m.group("width")), int(m.group("height"))
+    if w <= 0 or h <= 0:
+        raise NextFormat(f"{what}: XBM image of size {w} x {h}")
+    _check_size(w, h, what, "XBM")
+    stride = (w + 7) // 8
+    body = np.frombuffer(data, np.uint8, offset=m.end())
+    xs = np.flatnonzero(body == ord("x"))
+    xs = xs[xs + 3 <= len(body)]             # an x needs its two digits
+    if len(xs) and np.diff(xs).min(initial=3) < 3:
+        keep, nxt = [], 0                    # each value skips the 3 bytes it read
+        for p in xs.tolist():
+            if p >= nxt:
+                keep.append(p)
+                nxt = p + 3
+        xs = np.array(keep, np.int64)
+    if len(xs) < h * stride:
+        raise ValueError(f"{what}: XBM holds {len(xs)} of {h * stride} values (PIL: image file "
+                         "is truncated)")
+    xs = xs[:h * stride]
+    vals = (_HEX[body[xs + 1]] << 4) + _HEX[body[xs + 2]]
+    bits = np.unpackbits(vals.reshape(h, stride), axis=1, bitorder="little")[:, :w]
+    return _grey(bits * np.uint8(255))

@@ -24,6 +24,14 @@ PIL. ``decode_pcx`` returns the [H, W, 3] uint8 pixels of PIL's
 
 An empty or inverted box, or a header shorter than 68 bytes, makes PIL try
 the formats after PCX (``NextFormat``).
+
+DCX (``DcxImagePlugin``): the magic number ``0x3ADE68B1``, a table of up to
+1024 page offsets ended by a zero, and PCX pages; ``decode_dcx`` reads page
+0 as PIL does, through the PCX plugin on the whole file: the page's header
+at its offset, its run-length data to the end of the file, and an 8-bit
+page's VGA palette in the file's last 769 bytes. A table cut by the end of
+the file, no pages, or a page PIL's PCX parse gives up on makes PIL try the
+next format.
 """
 
 from __future__ import annotations
@@ -37,25 +45,33 @@ from .image_formats import NextFormat, _bits, _check_size, _grey
 _GREY_RAMP = bytes(v for i in range(256) for v in (i, i, i))
 
 
-def decode_pcx(data, what="PCX"):
+DCX_MAGIC = 0x3ADE68B1
+
+
+def decode_pcx(data, what="PCX", start=0):
+    """A PCX file, or (``start``, a DCX page's offset) the page there, its
+    data and VGA palette running to the end of ``data``."""
     from ..native.loader import load
 
     data = bytes(data)
-    if len(data) < 2 or data[0] != 10 or data[1] not in (0, 2, 3, 5):
+    head = data[start:start + 68]
+    if len(head) < 2 or head[0] != 10 or head[1] not in (0, 2, 3, 5):
+        if start:
+            raise NextFormat(f"{what}: DCX page 0 at byte {start} is not a PCX image")
         raise ValueError(f"{what}: not a PCX file")
-    if len(data) < 68:
+    if len(head) < 68:
         raise NextFormat(f"{what}: PCX header is truncated")
-    x0, y0, x1, y1 = (int.from_bytes(data[o:o + 2], "little") for o in (4, 6, 8, 10))
+    x0, y0, x1, y1 = (int.from_bytes(head[o:o + 2], "little") for o in (4, 6, 8, 10))
     if x1 + 1 <= x0 or y1 + 1 <= y0:
         raise NextFormat(f"{what}: PCX box {x0}..{x1} x {y0}..{y1} is empty (PIL: bad PCX "
                          "image size)")
-    version, bits, planes = data[1], data[3], data[65]
+    version, bits, planes = head[1], head[3], head[65]
     lut = None
     if bits == 1 and planes == 1:
         form, depth = "1", 1
     elif bits == 1 and planes in (2, 4):
         form, depth = "P", planes
-        lut = np.frombuffer(data[16:64], np.uint8).reshape(16, 3)
+        lut = np.frombuffer(head[16:64], np.uint8).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         form, depth = "L", 8
         if len(data) < 769:
@@ -72,15 +88,15 @@ def decode_pcx(data, what="PCX"):
     w, h = x1 + 1 - x0, y1 + 1 - y0
     _check_size(w, h, what, "PCX")
     stride = (w * bits + 7) // 8
-    if int.from_bytes(data[66:68], "little") != stride:
+    if int.from_bytes(head[66:68], "little") != stride:
         stride += stride % 2
     line = planes * stride
     if (w * depth + 7) // 8 > line:
         raise ValueError(f"{what}: PCX line of {line} bytes holds fewer than {w} pixels (PIL: "
                          "buffer overrun)")
     out = np.zeros((h, line), np.uint8)
-    rc = load("rle").akr_pcx_rle(data[128:], max(len(data) - 128, 0), w, depth, line, h,
-                                 out.ctypes.data_as(ctypes.c_void_p))
+    rc = load("rle").akr_pcx_rle(data[start + 128:], max(len(data) - start - 128, 0), w, depth,
+                                 line, h, out.ctypes.data_as(ctypes.c_void_p))
     if rc == 1:
         raise ValueError(f"{what}: PCX image data is truncated (PIL: image file is truncated)")
     if rc:
@@ -94,3 +110,22 @@ def decode_pcx(data, what="PCX"):
     s = (w + 7) // 8
     idx = sum(_bits(out[:, p * s:(p + 1) * s], w) << p for p in range(planes))
     return lut[idx]
+
+
+def decode_dcx(data, what="DCX"):
+    data = bytes(data)
+    if len(data) < 4 or int.from_bytes(data[:4], "little") != DCX_MAGIC:
+        raise ValueError(f"{what}: not a DCX file")
+    first = None
+    for i in range(1024):
+        entry = data[4 + 4 * i:8 + 4 * i]
+        if len(entry) < 4:
+            raise NextFormat(f"{what}: DCX page table cut short")
+        offset = int.from_bytes(entry, "little")
+        if not offset:
+            break
+        if first is None:
+            first = offset
+    if first is None:
+        raise NextFormat(f"{what}: DCX file without pages")
+    return decode_pcx(data, what, start=first)

@@ -217,8 +217,7 @@ Phases (each checks its results; any failure exits non-zero):
 42. the TGA, BMP, PNM, GIF and PSD decoders: their fixtures' digests, the
     2048^2 albedo in each format (decode times beside PNG and JPEG), and
     the config-3 CLI on the PNG, TGA-RLE and BMP albedos (frames bit-equal,
-    6 tree closest launches each, one TGA-run launch against the plain
-    walk);
+    6 tree closest launches each);
 43. the TIFF decoder and the CMYK / YCCK JPEGs: the TIFF and CMYK
     fixtures' digests; the 2048^2 albedo as TIFF raw, PackBits, LZW, LZW
     with the horizontal predictor, tiled LZW, Deflate in planes and 16-bit
@@ -226,8 +225,7 @@ Phases (each checks its results; any failure exits non-zero):
     ``tiff_bytes``, LZW strips compressed in parallel processes), each
     decode's median of 3 no slower than the PNG route's; the config-3 CLI
     on the PNG, the 8-bit LZW-with-predictor and the 16-bit Deflate TIFF
-    albedos (frames bit-equal, 6 tree closest launches each, one launch of
-    the LZW run held to the plain walk at 0 ulp); and ``--sharded --ao``
+    albedos (frames bit-equal, 6 tree closest launches each); and ``--sharded --ao``
     on the Cornell box at 64^2, exit 0 and the unsharded CLI's PNG;
 44. the WebP decoder: the WebP fixtures' digests (lossy, lossless,
     palettes, alpha, animations, a random VP8 frame); the 2048^2 albedo as
@@ -235,8 +233,7 @@ Phases (each checks its results; any failure exits non-zero):
     ``vp8l_bytes`` (the machine has no encoder), each decode's median of 3
     no slower than the PNG route's; the config-3 CLI on a PNG of the lossy
     WebP's pixels, on the lossy WebP, on the PNG albedo and on the lossless
-    WebP (frames bit-equal pairwise, 6 tree closest launches each, one
-    launch of the lossy WebP run held to the plain walk at 0 ulp);
+    WebP (frames bit-equal pairwise, 6 tree closest launches each);
 45. the DDS, BLP and FTEX decoders: their fixtures' digests (every BCn
     form, the DX10 header, the mask, luminance and palette forms, BLP1
     JPEG and palette, BLP2 palette and DXT, FTEX); the 2048^2 albedo
@@ -244,8 +241,7 @@ Phases (each checks its results; any failure exits non-zero):
     BC7 (DX10, BC7_UNORM_SRGB), each with its full mip chain, each
     decode's median of 3 no slower than the PNG route's; the config-3 CLI
     on a PNG of each DDS's decoded pixels and on the DDS (frames bit-equal
-    pairwise, 6 tree closest launches each, one launch of the BC1 run held
-    to the plain walk at 0 ulp);
+    pairwise, 6 tree closest launches each);
 46. the ICO / CUR, QOI, SGI and PCX decoders and the LZMA / ZSTD TIFF
     strips: their fixtures' digests; the 2048^2 albedo written here as
     QOI, RLE SGI and 24-bit RLE PCX by ``tools/legacy_writers.py`` and as
@@ -253,8 +249,7 @@ Phases (each checks its results; any failure exits non-zero):
     committed 2048^2 ZSTD TIFF, each decode's median of 3 no slower than
     the PNG route's (LZMA, decoded by Python's ``lzma``, recorded); the
     config-3 CLI on the PNG, RLE SGI and PCX albedos (frames bit-equal, 6
-    tree closest launches each, one launch of the SGI run held to the
-    plain walk at 0 ulp);
+    tree closest launches each);
 47. the arithmetic-coded, lossless and cut progressive JPEGs: their
     fixtures' digests; the 2048^2 albedo as an arithmetic-coded
     progressive JPEG (the committed baseline JPEG re-coded here by
@@ -263,8 +258,7 @@ Phases (each checks its results; any failure exits non-zero):
     committed progressive JPEG cut after its 6th scan (block smoothing),
     each decode's median of 3 beside the PNG and baseline JPEG routes';
     the config-3 CLI on a PNG of the arithmetic file's pixels and on the
-    arithmetic file (frames bit-equal, 6 tree closest launches each, one
-    launch of the arithmetic run held to the plain walk at 0 ulp);
+    arithmetic file (frames bit-equal, 6 tree closest launches each);
 48. the CCITT, ThunderScan and old-style JPEG TIFF decoders: their
     fixtures' digests; the 2048^2 albedo as a Group 4 TIFF of its luma
     below the median and a ThunderScan TIFF of its luma's top four bits
@@ -284,8 +278,7 @@ Phases (each checks its results; any failure exits non-zero):
     (decoding to those pixels exactly), each decode's median of 3 beside
     the PNG route's; the config-3 CLI on a PNG of the JP2's pixels, on the
     JP2, on a PNG of the scaled-up albedo and on the J2K (frames bit-equal
-    pairwise, 6 tree closest launches each, one launch of the JP2 run
-    held to the plain walk at 0 ulp);
+    pairwise, 6 tree closest launches each);
 50. Lab, PIL's other PNM modes, DIB and ICNS: their fixtures' digests;
     the 2048^2 albedo written here with integer numpy
     (``lab_albedo_files`` of ``tools/make_torch_port_image_fixtures.py``)
@@ -294,17 +287,29 @@ Phases (each checks its results; any failure exits non-zero):
     read (``tests/data/torch_port_generated_images.json``), each decode's
     median of 3 beside the PNG route's (DIB and PFM no slower); the
     config-3 CLI on a PNG of the LZW Lab TIFF's pixels and on that TIFF
-    (frames bit-equal, 6 tree closest launches each, one launch of the
-    TIFF run held to the plain walk at 0 ulp). Phases 43, 44, 46, 48 and
-    49 hold one launch each to the plain walk, not two, to make room;
-51. the result: a JSON line of kernel records (the dense records on the
+    (frames bit-equal, 6 tree closest launches each);
+51. the formats PIL tries on every file (IM, IMT, IPTC, PCD, SPIDER) with
+    DCX, MSP and XBM: their fixtures' digests; the 2048^2 albedo written
+    here with integer numpy (``plugin_albedo_files``) as an IM ``RGB
+    image`` (planar rows), a DCX of a 24-bit RLE PCX page and a rotated
+    PhotoCD base image of its channels, each file's SHA-256 and decode held
+    to the record of PIL's read, each decode's median of 3 beside the PNG
+    route's (the IM no slower); the config-3 CLI on a PNG of the IM file's
+    pixels and on the IM file (frames bit-equal, 6 tree closest launches
+    each, one launch of the IM run held to the plain walk at 0 ulp).
+    To make room, phases 42-47, 49 and 50 hold no launch of their CLI runs
+    to the plain walk (their held launches saw the same rays, dead rays
+    and hits as phase 51's; phase 48's Group 4 albedo gives other rays and
+    keeps its held launch), and phases 41-51 share one encode and decode of
+    phase 24's albedo.png (``albedo_png``);
+52. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 42-50,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40, 48 and 51,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-50) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-51) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
@@ -321,6 +326,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -2493,6 +2499,20 @@ def bench_phase(dev, card, traversal, scene, sc, scene512, sc512, bench_loss):
     return errs
 
 
+@functools.lru_cache(maxsize=1)
+def albedo_png():
+    """Phase 24's albedo.png (the config-3 albedo, ``ENVTEX_FULL``'s texture
+    size) and the PNG route's pixels of it (read-only), made once for
+    phases 41-51."""
+    from akari_torch.core.image import decode_png, encode_png
+    from akari_torch.scene.builtin import envtex_texture
+
+    png = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))
+    px = decode_png(png)
+    px.setflags(write=False)
+    return png, px
+
+
 def _median_s(fn, n=3):
     times = []
     for _ in range(n):
@@ -2515,7 +2535,7 @@ def image_phase(card, traversal, cli_render):
     from akari_torch.core.image import decode_png, encode_png
     from akari_torch.core.jpeg import decode_jpeg
     from akari_torch.integrators import path as path_mod
-    from akari_torch.scene.builtin import envtex_texture, write_envtex_terrain
+    from akari_torch.scene.builtin import write_envtex_terrain
 
     t_phase = time.perf_counter()
     log(f"phase 41: image decoding without PIL: the fixtures' digests, the 2048^2 JPEG and PNG "
@@ -2532,7 +2552,7 @@ def image_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL's in digests.json")
     with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
         jpeg_data = f.read()
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    png_data = albedo_png()[0]  # phase 24's albedo.png
     jpeg_s, jpeg_all = _median_s(lambda: decode_jpeg(jpeg_data))
     png_s, png_all = _median_s(lambda: decode_png(png_data))
     log(f"  2048^2 decode on the host, median of 3: JPEG {jpeg_s:.3f} s ({len(jpeg_data)} bytes; "
@@ -2848,14 +2868,12 @@ def format_phase(card, traversal, cli_render):
     """Phase 42: the TGA, BMP, PNM, GIF and PSD decoders on this machine
     (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
     each format, and the config-3 CLI with a TGA-RLE and a BMP albedo
-    against the PNG route; returns the tree kernel's error on a held
-    launch and the figures it logs."""
+    against the PNG route; returns the figures it logs."""
     import hashlib
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.scene.builtin import envtex_texture
+    from akari_torch.core.image import decode_image
 
     t_phase = time.perf_counter()
     log(f"phase 42: TGA, BMP, PNM, GIF and PSD decoding without PIL: the fixtures' digests, "
@@ -2874,8 +2892,7 @@ def format_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)  # the PNG route's pixels
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     files, gif_px = albedo_files(albedo)
     files["png"] = png_data
     with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
@@ -2896,16 +2913,15 @@ def format_phase(card, traversal, cli_render):
               f"{key} decodes the albedo slower than the PNG route: {out[f'{key}_decode_s']:.4f} "
               f"s against {out['png_decode_s']:.4f} s")
 
-    frames, cli, (tree_err, out["tree_occ_err"]) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render, {"albedo.tga": files["tga_rle"], "albedo.bmp": files["bmp"]},
-        ("albedo.png", "albedo.tga", "albedo.bmp"), {"albedo.tga"}, max_ulp=2)
+        ("albedo.png", "albedo.tga", "albedo.bmp"), set())
     out.update(cli)
     for name in ("albedo.tga", "albedo.bmp"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
               f"the frame on {name} differs from the PNG route's")
     log("  the TGA-RLE and BMP albedo frames are bit-equal to the PNG route's")
     log(f"  phase 42: {time.perf_counter() - t_phase:.1f} s")
-    out["tree_err"] = tree_err
     return out
 
 
@@ -2944,8 +2960,8 @@ def tiff_phase(card, traversal, cli_render):
     (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
     seven TIFF forms against the PNG route's time, the config-3 CLI on the
     8-bit LZW-with-predictor and the 16-bit Deflate TIFFs against the PNG
-    route (bit-equal frames, 6 tree closest launches each, one launch held
-    to the plain walk at 0 ulp), and ``--sharded --ao`` against the
+    route (bit-equal frames, 6 tree closest launches each), and
+    ``--sharded --ao`` against the
     unsharded CLI; returns the tree kernel's errors and the figures it
     logs."""
     import hashlib
@@ -2954,8 +2970,7 @@ def tiff_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.scene.builtin import envtex_texture
+    from akari_torch.core.image import decode_image, decode_png
 
     t_phase = time.perf_counter()
     log(f"phase 43: TIFF and CMYK / YCCK JPEG decoding without PIL: the fixtures' digests, "
@@ -2975,8 +2990,7 @@ def tiff_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)  # the PNG route's pixels
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     t0 = time.perf_counter()
     workers = max(1, min(8, os.cpu_count() or 1))
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2998,10 +3012,10 @@ def tiff_phase(card, traversal, cli_render):
         check(med <= png_s, f"TIFF {key} decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_lzw.tif": files["lzw_pred2"], "albedo_16.tif": files["rgb16_deflate_pred2"]},
-        ("albedo.png", "albedo_lzw.tif", "albedo_16.tif"), {"albedo_lzw.tif"})
+        ("albedo.png", "albedo_lzw.tif", "albedo_16.tif"), set())
     out.update(cli)
     for name in ("albedo_lzw.tif", "albedo_16.tif"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
@@ -3021,7 +3035,6 @@ def tiff_phase(card, traversal, cli_render):
     check(same, "--sharded --ao wrote another image than the unsharded --ao")
     log("  --sharded --ao: exit 0, its PNG bit-equal to the unsharded CLI's")
     log(f"  phase 43: {time.perf_counter() - t_phase:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3031,14 +3044,12 @@ def webp_phase(card, traversal, cli_render):
     a lossless one written here (``vp8l_bytes``), each decode's median of 3
     no slower than the PNG route's, and the config-3 CLI on both against
     the PNG route of their decoded pixels (bit-equal frames, 6 tree closest
-    launches each, one launch of the lossy WebP run held to the plain walk
-    at 0 ulp); returns the tree kernel's errors and the figures it logs."""
+    launches each); returns the figures it logs."""
     import hashlib
 
     import numpy as np
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.scene.builtin import envtex_texture
 
     t_phase = time.perf_counter()
     log(f"phase 44: WebP decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
@@ -3056,8 +3067,7 @@ def webp_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)  # the PNG route's pixels
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     with open(os.path.join(IMAGE_FIXTURES, ALBEDO_WEBP), "rb") as f:
         lossy = f.read()
     t0 = time.perf_counter()
@@ -3080,12 +3090,11 @@ def webp_phase(card, traversal, cli_render):
         check(med <= png_s, f"the {key} WebP decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_q85.webp": lossy, "albedo_lossless.webp": lossless,
          "lossy_decoded.png": encode_png(lossy_px)},
-        ("lossy_decoded.png", "albedo_q85.webp", "albedo.png", "albedo_lossless.webp"),
-        {"albedo_q85.webp"})
+        ("lossy_decoded.png", "albedo_q85.webp", "albedo.png", "albedo_lossless.webp"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo_q85.webp"], frames["lossy_decoded.png"]),
           "the frame on the lossy WebP differs from the frame on a PNG of its decoded pixels")
@@ -3094,7 +3103,6 @@ def webp_phase(card, traversal, cli_render):
     log("  the lossy and lossless WebP albedo frames are bit-equal to the frames on PNGs of "
         "their decoded pixels")
     log(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3105,14 +3113,12 @@ def dds_phase(card, traversal, cli_render):
     BC7_UNORM_SRGB), each with its full mip chain, each decode's median of
     3 no slower than the PNG route's; and the config-3 CLI on a PNG of each
     DDS's decoded pixels and on the DDS (frames bit-equal pairwise, 6 tree
-    closest launches each, one launch of the BC1 run held to the plain walk
-    at 0 ulp); returns the tree kernel's errors and the figures it logs."""
+    closest launches each); returns the figures it logs."""
     import hashlib
 
     import numpy as np
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.scene.builtin import envtex_texture
     from tools.dds_writers import dds_albedo
 
     t_phase = time.perf_counter()
@@ -3132,8 +3138,7 @@ def dds_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)  # the PNG route's pixels
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     files, decoded, out = {}, {}, {}
     for form in ("BC1", "BC7"):
         t0 = time.perf_counter()
@@ -3157,12 +3162,11 @@ def dds_phase(card, traversal, cli_render):
         check(med <= png_s, f"the {form} DDS decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {**{f"albedo_{form}.dds": data for form, data in files.items()},
          **{f"{form}_decoded.png": encode_png(px) for form, px in decoded.items()}},
-        ("BC1_decoded.png", "albedo_BC1.dds", "BC7_decoded.png", "albedo_BC7.dds"),
-        {"albedo_BC1.dds"})
+        ("BC1_decoded.png", "albedo_BC1.dds", "BC7_decoded.png", "albedo_BC7.dds"), set())
     out.update(cli)
     for form in files:
         check(np.array_equal(frames[f"albedo_{form}.dds"], frames[f"{form}_decoded.png"]),
@@ -3170,7 +3174,6 @@ def dds_phase(card, traversal, cli_render):
     log("  the BC1 and BC7 DDS albedo frames are bit-equal to the frames on PNGs of their "
         "decoded pixels")
     log(f"  phase 45: {time.perf_counter() - t_phase:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3185,16 +3188,15 @@ def legacy_phase(card, traversal, cli_render):
     the horizontal predictor, and the committed 2048^2 ZSTD TIFF, each
     decode's median of 3 beside the PNG route's (no slower for all but
     LZMA, which is recorded); and the config-3 CLI on the PNG, the RLE SGI
-    and the PCX albedos (frames bit-equal, 6 tree closest launches each,
-    one launch of the SGI run held to the plain walk at 0 ulp); returns
-    the tree kernel's errors and the figures it logs."""
+    and the PCX albedos (frames bit-equal, 6 tree closest launches each);
+    returns the figures it logs."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.core.image import decode_image, decode_png
     from akari_torch.scene.builtin import envtex_texture
     from tools.legacy_writers import pcx_bytes, qoi_bytes, sgi_bytes
     from tools.make_torch_port_image_fixtures import ZSTD_ALBEDO, tiff_bytes
@@ -3218,8 +3220,7 @@ def legacy_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)  # the PNG route's pixels
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     workers = max(1, min(8, os.cpu_count() or 1))
     pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
     writers = {
@@ -3258,10 +3259,10 @@ def legacy_phase(card, traversal, cli_render):
             check(med <= png_s, f"the {form} decodes the albedo slower than the PNG route: "
                   f"{med:.4f} s against {png_s:.4f} s")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_rle.sgi": files["RLE SGI"], "albedo_rle.pcx": files["24-bit PCX"]},
-        ("albedo.png", "albedo_rle.sgi", "albedo_rle.pcx"), {"albedo_rle.sgi"})
+        ("albedo.png", "albedo_rle.sgi", "albedo_rle.pcx"), set())
     out.update(cli)
     for name in ("albedo_rle.sgi", "albedo_rle.pcx"):
         check(np.array_equal(frames[name], frames["albedo.png"]),
@@ -3269,7 +3270,6 @@ def legacy_phase(card, traversal, cli_render):
     log("  the RLE SGI and 24-bit PCX albedo frames are bit-equal to the PNG route's")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 46: {out['phase_s']:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3287,9 +3287,7 @@ def jpeg_forms_phase(card, traversal, cli_render):
     (block smoothing), each decode's median of 3 beside the PNG route's and
     the baseline JPEG's; and the config-3 CLI on a PNG of the arithmetic
     file's pixels and on the arithmetic file (frames bit-equal, 6 tree
-    closest launches each, one launch of the arithmetic run held to the
-    plain walk at 0 ulp); returns the tree kernel's errors and the figures
-    it logs."""
+    closest launches each); returns the figures it logs."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3298,7 +3296,6 @@ def jpeg_forms_phase(card, traversal, cli_render):
 
     from akari_torch.core.image import decode_png, encode_png
     from akari_torch.core.jpeg import decode_jpeg
-    from akari_torch.scene.builtin import envtex_texture
     from tools import jpeg_writers as jw
     from tools.make_torch_port_image_fixtures import ALBEDO_CUT
 
@@ -3320,8 +3317,7 @@ def jpeg_forms_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
         baseline = f.read()
     with open(os.path.join(IMAGE_FIXTURES, ALBEDO_CUT), "rb") as f:
@@ -3353,17 +3349,16 @@ def jpeg_forms_phase(card, traversal, cli_render):
         log(f"  2048^2 {form} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
             f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_arith.png": encode_png(arith_px), "albedo_arith.jpg": files["arithmetic JPEG"]},
-        ("albedo_arith.png", "albedo_arith.jpg"), {"albedo_arith.jpg"})
+        ("albedo_arith.png", "albedo_arith.jpg"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo_arith.jpg"], frames["albedo_arith.png"]),
           "the frame on the arithmetic-coded JPEG differs from the PNG route's of its pixels")
     log("  the arithmetic-coded albedo's frame is bit-equal to the PNG route's of its pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 47: {out['phase_s']:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3418,7 +3413,6 @@ def fax_phase(card, traversal, cli_render):
     import numpy as np
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.scene.builtin import envtex_texture
 
     t_phase = time.perf_counter()
     log(f"phase 48: CCITT, ThunderScan and old-style JPEG TIFF decoding without PIL: the "
@@ -3437,8 +3431,7 @@ def fax_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     workers = max(1, min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -3494,9 +3487,8 @@ def jpeg2000_phase(card, traversal, cli_render):
     (which must decode to those pixels exactly), each decode's median of 3
     beside the PNG route's; and the config-3 CLI on a PNG of the JP2's
     pixels, on the JP2, on a PNG of the scaled-up albedo and on the J2K
-    (frames bit-equal pairwise, 6 tree closest launches each, one launch of
-    the JP2 run held to the plain walk at 0 ulp); returns the tree
-    kernel's errors and the figures it logs."""
+    (frames bit-equal pairwise, 6 tree closest launches each); returns the
+    figures it logs."""
     import hashlib
 
     import numpy as np
@@ -3522,7 +3514,7 @@ def jpeg2000_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
+    png_data = albedo_png()[0]  # phase 24's albedo.png
     files = {}
     for name in (ALBEDO_JP2, ALBEDO_J2K):
         with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
@@ -3545,12 +3537,11 @@ def jpeg2000_phase(card, traversal, cli_render):
         log(f"  2048^2 {name} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
             f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_jp2.png": encode_png(jp2_px), "albedo.jp2": files[ALBEDO_JP2],
          "albedo_x32.png": encode_png(x32), "albedo_x32.j2k": files[ALBEDO_J2K]},
-        ("albedo_jp2.png", "albedo.jp2", "albedo_x32.png", "albedo_x32.j2k"),
-        {"albedo.jp2"})
+        ("albedo_jp2.png", "albedo.jp2", "albedo_x32.png", "albedo_x32.j2k"), set())
     out.update(cli)
     for png, j2k in (("albedo_jp2.png", "albedo.jp2"), ("albedo_x32.png", "albedo_x32.j2k")):
         check(np.array_equal(frames[j2k], frames[png]),
@@ -3558,7 +3549,6 @@ def jpeg2000_phase(card, traversal, cli_render):
     log("  the JP2 and J2K albedos' frames are bit-equal to the PNG route's of their pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 49: {out['phase_s']:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3574,9 +3564,8 @@ def lab_phase(card, traversal, cli_render):
     each file's SHA-256 and decode held to the record of PIL's read, each
     decode's median of 3 beside the PNG route's (the DIB and PFM no
     slower); and the config-3 CLI on a PNG of the LZW Lab TIFF's pixels and
-    on that TIFF (frames bit-equal, 6 tree closest launches each, one
-    launch of the TIFF run held to the plain walk at 0 ulp); returns the
-    tree kernel's errors and the figures it logs."""
+    on that TIFF (frames bit-equal, 6 tree closest launches each); returns
+    the figures it logs."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3584,7 +3573,6 @@ def lab_phase(card, traversal, cli_render):
     import numpy as np
 
     from akari_torch.core.image import decode_image, decode_png, encode_png
-    from akari_torch.scene.builtin import envtex_texture
     from tools.make_torch_port_image_fixtures import GENERATED, lab_albedo_files
 
     t_phase = time.perf_counter()
@@ -3604,8 +3592,7 @@ def lab_phase(card, traversal, cli_render):
     log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
         "digests.json")
 
-    png_data = encode_png(envtex_texture(ENVTEX_FULL["tex_res"], 0))  # phase 24's albedo.png
-    albedo = decode_png(png_data)
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     workers = max(1, min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -3615,8 +3602,7 @@ def lab_phase(card, traversal, cli_render):
         + ")")
     with open(GENERATED) as f:
         recorded = json.load(f)
-    check(sorted(files) == sorted(recorded),
-          f"wrote {sorted(files)}, the record holds {sorted(recorded)}")
+    check(set(files) <= set(recorded), f"wrote {sorted(files)}, the record holds {sorted(recorded)}")
     decoded = {}
     for fname, data in files.items():
         rec = recorded[fname]
@@ -3645,16 +3631,107 @@ def lab_phase(card, traversal, cli_render):
               f"{fname} decodes in {out[f'{fname}_decode_s']:.4f} s, slower than the PNG's "
               f"{png_s:.4f} s")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_lab.png": encode_png(decoded[LAB_CLI_TIFF]), "albedo_lab.tif": files[LAB_CLI_TIFF]},
-        ("albedo_lab.png", "albedo_lab.tif"), {"albedo_lab.tif"})
+        ("albedo_lab.png", "albedo_lab.tif"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo_lab.tif"], frames["albedo_lab.png"]),
           "the frame on the Lab TIFF differs from the PNG route's of its pixels")
     log("  the Lab TIFF albedo's frame is bit-equal to the PNG route's of its pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 50: {out['phase_s']:.1f} s")
+    return out
+
+
+PLUGIN_FIXTURES = ("im_", "imt_", "iptc_", "spider_", "dcx_", "msp_", "xbm_")
+PLUGIN_CLI_IM = "albedo2048_rgb.im"
+
+
+def plugin_phase(card, traversal, cli_render):
+    """Phase 51: the formats without a signature PIL tries on every file
+    (IM, IMT, IPTC, PCD, SPIDER) and DCX, MSP and XBM, on this machine (no
+    PIL here): their fixtures' digests; the 2048^2 albedo written here with
+    integer numpy as an IM ``RGB image``, a DCX and a PhotoCD file, each
+    file's SHA-256 and decode held to the record of PIL's read, each
+    decode's median of 3 beside the PNG route's (the IM no slower); the
+    config-3 CLI on a PNG of the IM file's pixels and on the IM file (frames
+    bit-equal, 6 tree closest launches each, one launch of the IM run held
+    to the plain walk at 0 ulp); returns the tree kernel's errors and the
+    figures it logs."""
+    import hashlib
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_png, decode_with_format, encode_png
+    from tools.make_torch_port_image_fixtures import GENERATED, plugin_albedo_files
+
+    t_phase = time.perf_counter()
+    log(f"phase 51: IM, IMT, IPTC, PCD, SPIDER, DCX, MSP and XBM decoding without PIL: the "
+        f"fixtures' digests, the 2048^2 albedo as IM, DCX and PhotoCD, the config-3 CLI on an "
+        f"IM albedo [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if k.startswith(PLUGIN_FIXTURES)}
+    formats = {}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            fmt, px = decode_with_format(f.read(), fname)
+        formats[fmt] = formats.get(fmt, 0) + 1
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 45, f"only {len(digests)} IM / IMT / IPTC / SPIDER / DCX / MSP / XBM "
+          "fixtures")
+    log(f"  {len(digests)} fixtures decoded ({', '.join(f'{k} {v}' for k, v in formats.items())}); "
+        f"every SHA-256 equals PIL {', '.join(pil)}'s in digests.json")
+
+    png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
+    t0 = time.perf_counter()
+    files = plugin_albedo_files(albedo)
+    log(f"  wrote the 2048^2 albedo in three forms in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {len(v)} bytes" for k, v in files.items()) + ")")
+    with open(GENERATED) as f:
+        recorded = json.load(f)
+    check(set(files) <= set(recorded), f"wrote {sorted(files)}, the record holds {sorted(recorded)}")
+    decoded = {}
+    for fname, data in files.items():
+        rec = recorded[fname]
+        file_sha = hashlib.sha256(data).hexdigest()
+        check(file_sha == rec["file_sha256"],
+              f"{fname}: written as sha256 {file_sha[:16]}..., recorded {rec['file_sha256'][:16]}...")
+        fmt, px = decode_with_format(data, fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+        check(fmt == fname.rsplit(".", 1)[1].upper(), f"{fname} read as {fmt}")
+        decoded[fname] = px
+    log(f"  the three files equal the recorded bytes and decode to PIL "
+        f"{', '.join(sorted({recorded[k]['pil'] for k in files}))}'s recorded reads")
+    out = {}
+    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for fname, data in files.items():
+        med, runs = _median_s(lambda: decode_with_format(data, fname))
+        out[f"{fname}_decode_s"] = med
+        log(f"  {fname} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+            f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+    check(out[f"{PLUGIN_CLI_IM}_decode_s"] <= png_s,
+          f"{PLUGIN_CLI_IM} decodes in {out[f'{PLUGIN_CLI_IM}_decode_s']:.4f} s, slower than the "
+          f"PNG's {png_s:.4f} s")
+
+    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_im.png": encode_png(decoded[PLUGIN_CLI_IM]), "albedo.im": files[PLUGIN_CLI_IM]},
+        ("albedo_im.png", "albedo.im"), {"albedo.im"})
+    out.update(cli)
+    check(np.array_equal(frames["albedo.im"], frames["albedo_im.png"]),
+          "the frame on the IM albedo differs from the PNG route's of its pixels")
+    log("  the IM albedo's frame is bit-equal to the PNG route's of its pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 51: {out['phase_s']:.1f} s")
     out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
@@ -4278,25 +4355,21 @@ def main():
     err_it = max(err_it, aos["instanced_tree"][0])
     occ_it = max(occ_it, aos["instanced_tree"][1])
     image_phase(card, traversal, cli_render)
-    fmts = format_phase(card, traversal, cli_render)
-    tiffs = tiff_phase(card, traversal, cli_render)
-    webps = webp_phase(card, traversal, cli_render)
-    ddss = dds_phase(card, traversal, cli_render)
-    legacy = legacy_phase(card, traversal, cli_render)
-    forms = jpeg_forms_phase(card, traversal, cli_render)
+    format_phase(card, traversal, cli_render)
+    tiff_phase(card, traversal, cli_render)
+    webp_phase(card, traversal, cli_render)
+    dds_phase(card, traversal, cli_render)
+    legacy_phase(card, traversal, cli_render)
+    jpeg_forms_phase(card, traversal, cli_render)
     fax = fax_phase(card, traversal, cli_render)
-    j2k = jpeg2000_phase(card, traversal, cli_render)
-    lab = lab_phase(card, traversal, cli_render)
-    tree_err = max(tree_err, fmts["tree_err"], tiffs["tree_err"], webps["tree_err"],
-                   ddss["tree_err"], legacy["tree_err"], forms["tree_err"], fax["tree_err"],
-                   j2k["tree_err"], lab["tree_err"])
-    tree_occ_err = max(tree_occ_err, fmts["tree_occ_err"], tiffs["tree_occ_err"],
-                       webps["tree_occ_err"], ddss["tree_occ_err"], legacy["tree_occ_err"],
-                       forms["tree_occ_err"], fax["tree_occ_err"], j2k["tree_occ_err"],
-                       lab["tree_occ_err"])
+    jpeg2000_phase(card, traversal, cli_render)
+    lab_phase(card, traversal, cli_render)
+    plugins = plugin_phase(card, traversal, cli_render)
+    tree_err = max(tree_err, fax["tree_err"], plugins["tree_err"])
+    tree_occ_err = max(tree_occ_err, fax["tree_occ_err"], plugins["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 51: result ----------------------------------------------------
+    # ---- phase 52: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -52,6 +52,7 @@ from tools.make_torch_port_image_fixtures import (
     GENERATED,
     lab_albedo_files,
     lab_pnm_dib_icns_fixtures,
+    plugin_albedo_files,
     psd_bytes,
     tiff_bytes,
 )
@@ -281,16 +282,19 @@ def test_lab_fixture_decodes_to_its_digest_and_reads_as_jax(name):
 
 
 def test_generated_albedo_files_are_recorded_as_pil_reads_them():
-    """The 2048^2 files chip_smoke.py phase 50 writes: the same bytes as
-    recorded, PIL's decode as recorded, and the port's decode equal to it."""
+    """The 2048^2 files chip_smoke.py phases 50 and 51 write: the same
+    bytes as recorded, PIL's decode as recorded, and the port's decode equal
+    to it."""
     from akari_torch.scene.builtin import envtex_texture
 
     with open(GENERATED) as f:
         rec = json.load(f)
-    files = lab_albedo_files(envtex_texture(2048, 0))
+    albedo = envtex_texture(2048, 0)
+    files = {**lab_albedo_files(albedo), **plugin_albedo_files(albedo)}
     assert sorted(files) == sorted(rec) == sorted([
         "albedo2048_lab.tif", "albedo2048_lab_lzw.tif", "albedo2048_lab_packbits.psd",
-        "albedo2048.pfm", "albedo2048_24.dib"])
+        "albedo2048.pfm", "albedo2048_24.dib", "albedo2048_rgb.im", "albedo2048_rgb.dcx",
+        "albedo2048_ycc_orient1.pcd"])
     for name, data in files.items():
         assert hashlib.sha256(data).hexdigest() == rec[name]["file_sha256"], name
         want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))

@@ -199,6 +199,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import akari_torch.cli.importer, akari_torch.scene.meshcache\n"
         "import akari_torch.core.tiff, akari_torch.core.jpeg, akari_torch.core.image_formats\n"
         "import akari_torch.core.webp, akari_torch.core.lcms, akari_torch.core.icns\n"
+        "import akari_torch.core.im, akari_torch.core.iptc, akari_torch.core.pcd\n"
+        "import akari_torch.core.spider, akari_torch.core.pcx\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'akari_tpu', 'ml_dtypes', 'PIL')]\n"
         "print(','.join(bad))\n"

@@ -65,13 +65,18 @@ Writes into ``tests/data/torch_port_images/``:
   files (``lab_pnm_dib_icns_fixtures``), a few hundred bytes to a few KB
   each: Pillow's writers (Lab TIFF, DIB, ICNS with PNG entries) and the
   encoders here and in ``tools/icns_writers.py`` / ``tools/j2k_writers.py``;
+- IM, IM Tools, IPTC/NAA, SPIDER, DCX, MSP and XBM files
+  (``plugin_fixtures``), a few hundred bytes to a few KB each: Pillow's
+  writers (IM, SPIDER, MSP version 1, XBM) and ``tools/raster_writers.py``
+  for every IM image type and Lut form, IM Tools, IPTC raw and JPEG data,
+  SPIDER stacks, DCX pages and version-2 MSP;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them;
 - ``tests/data/torch_port_generated_images.json`` (``GENERATED``): the
-  2048^2 albedo files of ``lab_albedo_files``, which ``chip_smoke.py``
-  writes on the card's machine rather than reading them from the
-  repository: each file's SHA-256 and PIL's decode of it.
+  2048^2 albedo files of ``lab_albedo_files`` and ``plugin_albedo_files``,
+  which ``chip_smoke.py`` writes on the card's machine rather than reading
+  them from the repository: each file's SHA-256 and PIL's decode of it.
 
 ``chip_smoke.py`` decodes every fixture with the port and checks the
 digests; ``tests/test_torch_image_decode.py``,
@@ -81,7 +86,7 @@ digests; ``tests/test_torch_image_decode.py``,
 decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
-           [--only jpeg2000|lab_pnm_dib_icns]
+           [--only jpeg2000|lab_pnm_dib_icns|plugins]
 """
 
 from __future__ import annotations
@@ -1583,9 +1588,139 @@ def lab_pnm_dib_icns_fixtures():
     return out
 
 
+def plugin_albedo_files(px):
+    """The config-3 albedo ``px`` ([H, W, 3] uint8) in the forms
+    ``chip_smoke.py`` phase 51 decodes, written with integer numpy only: an
+    IM ``RGB image`` (planar rows, bottom up), a DCX holding it as a 24-bit
+    run-length PCX page, and a PhotoCD base image rotated by 90 degrees
+    (orientation 1) whose luma and two chroma planes are its green, blue
+    and red channels (the chroma at every other texel of the top-left
+    1536 x 1024)."""
+    from tools.legacy_writers import pcx_bytes
+    from tools.raster_writers import dcx_bytes, im_rgb, pcd_bytes
+
+    w = px.shape[1]
+    return {f"albedo{w}_rgb.im": im_rgb(px), f"albedo{w}_rgb.dcx": dcx_bytes([pcx_bytes(px, 8, 3)]),
+            f"albedo{w}_ycc_orient1.pcd": pcd_bytes(px[:512, :768, 1], px[:512:2, :768:2, 2],
+                                                    px[:512:2, :768:2, 0], 1)}
+
+
+def plugin_fixtures():
+    """The IM, IM Tools, IPTC/NAA, PhotoCD, SPIDER, DCX, MSP and XBM
+    fixtures: Pillow's writers where it has one (IM in its modes, SPIDER,
+    MSP version 1, XBM), and ``tools/raster_writers.py``: IM in the image
+    types and Lut forms Pillow does not write (packed, planar, three-plane,
+    2- and 4-bit indices, 8 / 16 / 32-bit integers and floats, ``bit``
+    fields, a colour and a non-linear grey table, a PIL mode named directly,
+    several frames), IM Tools, IPTC raw and JPEG data (grey, one band of RGB
+    and CMYK), SPIDER in both byte orders and a stack, DCX pages, version-2
+    MSP with empty and short rows, XBM with a hotspot and with one-digit hex
+    values. A PhotoCD file is 768 KB at least, past the fixtures' budget: it
+    is generated (``plugin_albedo_files``)."""
+    from PIL import Image
+
+    from tools import raster_writers as rw
+    from tools.legacy_writers import pcx_bytes
+
+    def pil(img, fmt, **kw):
+        b = io.BytesIO()
+        img.save(b, fmt, **kw)
+        return b.getvalue()
+
+    r = np.random.default_rng(120)
+    px = pattern(9, 13, 121)
+    h, w = px.shape[:2]
+    grey = px[..., 1]
+    planes = np.moveaxis(px, -1, 0)
+
+    def drawn(k, dtype=np.uint8, lo=0, hi=256):
+        return r.integers(lo, hi, (k, h, w)).astype(dtype)
+
+    def im(name, image_type, body, **kw):
+        out[f"im_{name}_{w}x{h}.im"] = rw.im_bytes(body, image_type, (w, h), **kw)
+
+    out = {}
+    for mode, src in (("rgb", px), ("p", px), ("la", px), ("1", px), ("i32s", grey),
+                      ("f32f", grey), ("i16b", grey), ("cmyk", px), ("ycc", px)):
+        img = Image.fromarray(src)
+        img = {"p": lambda: img.convert("P"), "la": lambda: img.convert("LA"),
+               "1": lambda: img.convert("1"), "i32s": lambda: img.convert("I"),
+               "f32f": lambda: Image.fromarray(src.astype(np.float32) * 1.7 - 40),
+               "i16b": lambda: Image.frombytes(
+                   "I;16B", (w, h), (src.astype(">u2") // 2 + 200).tobytes()),
+               "cmyk": lambda: img.convert("CMYK"), "ycc": lambda: img.convert("YCbCr")
+               }.get(mode, lambda: img)()
+        out[f"im_pil_{mode}_{w}x{h}.im"] = pil(img, "IM")
+    im("x24", "X 24 image", rw.im_rows(px.reshape(1, h, 3 * w)))
+    im("rgb3", "RGB3 image", b"".join(rw.im_rows(planes[k:k + 1]) for k in (1, 0, 2)))
+    im("rgba", "RGBA image", rw.im_rows(drawn(4)))
+    im("rgbx", "RGBX image", rw.im_rows(drawn(4)))
+    im("b2_nolut", "B2 image", rw.im_rows(drawn(1, hi=4), bits=2))
+    im("b4_lut", "B4 image", rw.im_rows(drawn(1)), lut=r.integers(0, 256, 768).astype(np.uint8))
+    im("grey_lut", "Greyscale image", rw.im_rows(grey[None]),
+       lut=np.tile(np.arange(256, dtype=np.uint8)[::-1], 3))
+    im("la_colour_lut", "LA image", rw.im_rows(drawn(2)),
+       lut=r.integers(0, 256, 768).astype(np.uint8))
+    im("l8s", "L 8S image", rw.im_rows(drawn(1)))
+    im("l16s", "L*16S image", rw.im_rows(drawn(1, "<i2", -300, 600).view(np.uint8)))
+    im("l32", "L 32 image", rw.im_rows(drawn(1, "<u4", 0, 300).view(np.uint8)))
+    im("l32s", "L 32 S image", rw.im_rows(drawn(1, "<i4", -100, 400).view(np.uint8)))
+    im("l16", "L 16 image", rw.im_rows(drawn(1, "<u2", 0, 400).view(np.uint8)))
+    for bits in (5, 12, 31):
+        im(f"bit{bits}", f"L*{bits} image", rw.im_bit_rows(r.integers(0, 300, (h, w)) %
+                                                           (1 << bits), bits))
+    im("lab_mode", "LAB", rw.im_rows(grey[None]))
+    im("frames", "Greyscale image", rw.im_rows(np.concatenate([grey[None], drawn(1)], 1)),
+       lines=(b"File size (no of images): 2", b"Name: two frames", b"Comment: first",
+              b"Comment: second"), crlf=False, pad=False)
+    out[f"imt_grey_{w}x{h}.imt"] = rw.imt_bytes(grey)
+    out["imt_lines_7x5.imt"] = rw.imt_bytes(
+        drawn(1)[0, :5, :7], lines=[b"* scanner", b"height 5", b"pixel n8", b"width 7"])
+    jpeg_rgb = pil(Image.fromarray(px), "JPEG", quality=85)
+    jpeg_grey = pil(Image.fromarray(grey), "JPEG", quality=90)
+    out[f"iptc_raw_grey_{w}x{h}.iim"] = rw.iptc_bytes(1, 0, (w, h), 1, grey.tobytes(),
+                                                      extra=[rw.iptc_field(2, 5, b"title")])
+    out[f"iptc_raw_rgb_band2_{w}x{h}.iim"] = rw.iptc_bytes(3, 1, (w, h), 1, grey.tobytes(),
+                                                           band=2, chunk=40)
+    out[f"iptc_raw_cmyk_band4_{w}x{h}.iim"] = rw.iptc_bytes(4, 1, (w, h), 1, grey.tobytes(),
+                                                            band=4, tail=bytes(5))
+    out[f"iptc_jpeg_rgb_{w}x{h}.iim"] = rw.iptc_bytes(1, 0, (w, h), 5, jpeg_rgb, chunk=100)
+    out[f"iptc_jpeg_grey_band0_{w}x{h}.iim"] = rw.iptc_bytes(3, 1, (w, h), 5, jpeg_grey,
+                                                             band=0)
+    out[f"iptc_extended_{w}x{h}.iim"] = rw.iptc_bytes(
+        1, 0, (w, h), 1, b"", extra=[rw.iptc_field(2, 120, b"caption", extended=2)],
+        tail=rw.iptc_field(8, 10, grey.tobytes(), extended=3))
+    vals = grey.astype(np.float32) * 1.25 - 30.5
+    vals.ravel()[:4] = [np.nan, np.inf, -np.inf, 255.0]
+    out[f"spider_be_{w}x{h}.spi"] = rw.spider_bytes(vals)
+    out[f"spider_le_{w}x{h}.spi"] = rw.spider_bytes(vals, "<")
+    out[f"spider_stack3_{w}x{h}.spi"] = rw.spider_bytes(vals[::-1], stack=3)
+    out[f"spider_pil_{w}x{h}.spi"] = pil(Image.fromarray(vals * 0.5 + 60), "SPIDER")
+    out[f"dcx_rgb_2pages_{w}x{h}.dcx"] = rw.dcx_bytes([pcx_bytes(px, 8, 3),
+                                                       pcx_bytes(grey > 128, 1, 1)])
+    out[f"dcx_p8_vga_{w}x{h}.dcx"] = rw.dcx_bytes(
+        [pcx_bytes(drawn(1)[0], 8, 1, vga=r.integers(0, 256, (256, 3)))])
+    out[f"dcx_1bit_{w}x{h}.dcx"] = rw.dcx_bytes([pcx_bytes(grey & 1, 1, 1)])
+    bits = (pattern(9, 37, 124)[..., 0] > 128).astype(np.uint8)
+    bits[:, :12] = 1
+    out["msp_pil_v1_37x9.msp"] = pil(Image.fromarray(bits * 255).convert("1"), "MSP")
+    out["msp_v2_runs_37x9.msp"] = rw.msp_bytes(bits, r=r)
+    rows = [rw.msp_runs(p) for p in np.packbits(bits, axis=1)]
+    rows[2], rows[5] = b"", rows[5][:3]     # a white row; a row cut short, the
+    rows[-1] += b"\x05\xaa\x55\xaa\x55\xaa"   # rows after it shifted, the last row long
+    out["msp_v2_blank_short_rows_37x9.msp"] = rw.msp_bytes(bits, rows=rows)
+    out["xbm_pil_37x9.xbm"] = pil(Image.fromarray(bits * 255).convert("1"), "XBM")
+    out[f"xbm_hotspot_upper_{w}x{h}.xbm"] = rw.xbm_bytes(grey > 100, "icon", (3, 4),
+                                                        per_line=5, upper=True)
+    out["xbm_one_digit_9x3.xbm"] = (b"#define d_width 9\n#define d_height 3\n"
+                                    b"static unsigned char d_bits[] = {\n"
+                                    b"0x1, 0xff, 0x3, 0xA, 0x5a, 0x0 };\n")
+    return out
+
+
 def generated_record(files):
     """name -> the file's SHA-256 and PIL's decode of it (digest, shape,
-    version), for ``lab_albedo_files``' output."""
+    version), for ``lab_albedo_files``' and ``plugin_albedo_files``' output."""
     import PIL
     from PIL import Image
 
@@ -1598,16 +1733,18 @@ def generated_record(files):
 
 
 def write_generated(albedo):
-    """Record ``lab_albedo_files`` of the 2048^2 albedo in ``GENERATED``."""
+    """Record ``lab_albedo_files`` and ``plugin_albedo_files`` of the 2048^2
+    albedo in ``GENERATED``."""
+    files = {**lab_albedo_files(albedo), **plugin_albedo_files(albedo)}
     with open(GENERATED, "w") as f:
-        json.dump(generated_record(lab_albedo_files(albedo)), f, indent=1, sort_keys=True)
+        json.dump(generated_record(files), f, indent=1, sort_keys=True)
         f.write("\n")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
-    ap.add_argument("--only", choices=["jpeg2000", "lab_pnm_dib_icns"],
+    ap.add_argument("--only", choices=["jpeg2000", "lab_pnm_dib_icns", "plugins"],
                     help="write only this group's files and merge their digests into "
                          "digests.json, leaving the other fixtures as they are")
     args = ap.parse_args(argv)
@@ -1627,13 +1764,13 @@ def main(argv=None):
         path = os.path.join(args.output, "digests.json")
         with open(path) as f:
             digests = json.load(f)
-        group = {"jpeg2000": jpeg2000_fixtures,
-                 "lab_pnm_dib_icns": lab_pnm_dib_icns_fixtures}[args.only]
+        group = {"jpeg2000": jpeg2000_fixtures, "lab_pnm_dib_icns": lab_pnm_dib_icns_fixtures,
+                 "plugins": plugin_fixtures}[args.only]
         for name, data in group().items():
             with open(os.path.join(args.output, name), "wb") as f:
                 f.write(data)
             digests[name] = digest(name)
-        if args.only == "lab_pnm_dib_icns":
+        if args.only in ("lab_pnm_dib_icns", "plugins"):
             write_generated(envtex_texture(2048, 0))
         with open(path, "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
@@ -1693,7 +1830,7 @@ def main(argv=None):
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
                        **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
                        **jpeg_form_fixtures(), **fax_fixtures(), **jpeg2000_fixtures(),
-                       **lab_pnm_dib_icns_fixtures()}.items():
+                       **lab_pnm_dib_icns_fixtures(), **plugin_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 
