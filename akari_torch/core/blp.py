@@ -35,7 +35,7 @@ import struct
 
 import numpy as np
 
-from .image_formats import _check_size
+from .image_formats import _check_size, note_mode
 
 
 def _take(data, pos, n, what):
@@ -121,6 +121,7 @@ def decode_blp(data, what="BLP"):
     magic = data[:4]
     if magic not in (b"BLP1", b"BLP2"):
         raise ValueError(f"{what}: not a BLP file")
+    note_mode("RGB")   # PIL opens BLP as RGB or RGBA, whatever its mip 0 holds
     head = 28 if magic == b"BLP1" else 20
     if len(data) < head:
         raise ValueError(f"{what}: {magic.decode()} header is truncated")

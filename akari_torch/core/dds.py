@@ -36,7 +36,7 @@ import struct
 
 import numpy as np
 
-from .image_formats import _check_size
+from .image_formats import _check_size, note_band, note_mode
 
 MAGIC = b"DDS "
 ALPHAPIXELS, FOURCC, PALETTEINDEXED8, RGB, LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
@@ -145,6 +145,7 @@ def decode_dds(data, what="DDS"):
                              f"flags {pf_flags:#x}) is not a form PIL reads")
         form = "L" if ch == 1 else "LA"
         _check_size(width, height, what, f"DDS {form}")
+        note_mode(form)
         return to_rgb(_raw(data, pos, width, height, ch, what, form)[..., :1])
     if pf_flags & PALETTEINDEXED8:
         palette = np.zeros((256, 4), np.uint8)
@@ -152,7 +153,9 @@ def decode_dds(data, what="DDS"):
         palette[:pal.size // 4] = pal.reshape(-1, 4)
         pos += 1024
         _check_size(width, height, what, "DDS palette")
-        return palette[_raw(data, pos, width, height, 1, what, "palette")[..., 0], :3]
+        idx = _raw(data, pos, width, height, 1, what, "palette")[..., 0]
+        note_band(idx)
+        return palette[idx, :3]
     if not pf_flags & FOURCC:
         raise ValueError(f"{what}: DDS of pixel format flags {pf_flags:#x} (none PIL reads)")
     if fourcc == b"DX10":
@@ -171,4 +174,5 @@ def decode_dds(data, what="DDS"):
         if fmt is None:
             raise ValueError(f"{what}: DDS of FourCC {fourcc!r} (PIL does not read it)")
     _check_size(width, height, what, f"DDS {fmt}")
+    note_mode("L" if fmt == "BC4" else "RGB")
     return to_rgb(decode_blocks(fmt, memoryview(data)[pos:], width, height, what))

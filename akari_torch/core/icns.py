@@ -39,7 +39,7 @@ import struct
 import numpy as np
 
 from .image import PNG_SIGNATURE, decode_png
-from .image_formats import NextFormat
+from .image_formats import NextFormat, note_mode
 
 MAGIC = b"icns"
 _J2K_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")
@@ -138,6 +138,7 @@ def _image(data, start, length, what):
 
 def decode_icns(data, what="ICNS"):
     data = bytes(data)
+    note_mode("RGBA")   # ICNS opens as RGBA whatever its icon holds
     found = blocks(data, what)
     sizes = [size for size, kinds in SIZES.items() if any(k in found for k, _ in kinds)]
     if not sizes:

@@ -30,7 +30,7 @@ import struct
 from math import ceil, log
 
 from .image import PNG_SIGNATURE, decode_png
-from .image_formats import NextFormat, _check_size, _u32, decode_dib
+from .image_formats import NextFormat, _check_size, _u32, decode_dib, note_mode
 
 
 def _entries(data, what, form):
@@ -65,6 +65,7 @@ def decode_ico(data, what="ICO"):
         return decode_png(data[offset:], what)
     if len(data) < offset + 4:
         raise NextFormat(f"{what}: ICO entry at {offset} past the end of the file")
+    note_mode("RGBA")   # PIL converts a DIB entry to RGBA to put its mask in
     rgb, start = decode_dib(data, offset, 0, what, "ICO", halve=True)
     h, w = rgb.shape[:2]
     # the alpha PIL reads and convert("RGB") drops: it must be all there

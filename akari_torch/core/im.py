@@ -37,7 +37,8 @@ import re
 
 import numpy as np
 
-from .image_formats import NextFormat, _check_size, _cmyk_to_rgb, _f_to_grey, _grey
+from .image_formats import (NextFormat, _check_size, _cmyk_to_rgb, _f_to_grey, _grey, note_band,
+                            note_mode)
 
 # ImImagePlugin's tags, its table of image types and its line parse
 _COMMENT, _FRAMES, _LUT, _SCALE, _SIZE, _MODE = (
@@ -235,6 +236,7 @@ def _unpack(mode, rawmode, data, pos, w, h, palette, what):
         if bits < 8:
             fields = np.unpackbits(rows, axis=1)[:, :w * bits].reshape(h, w, bits)
             rows = (fields << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(-1, np.uint8)
+        note_band(rows[:, :w])
         if palette is None:   # no palette: PIL's default one, all black
             return np.zeros((h, w, 3), np.uint8)
         return palette[rows[:, :w]]
@@ -247,6 +249,8 @@ def _unpack(mode, rawmode, data, pos, w, h, palette, what):
         dt = np.dtype(ints.get((mode, rawmode)) or floats[rawmode])
         rows = _rows(data, pos, h, w * dt.itemsize, what, form)
         v = np.ascontiguousarray(rows).view(dt)
+        if mode in ("I;16", "I;16L", "I;16B"):
+            note_band(v, ">" if mode == "I;16B" else "<")
         if mode == "F":
             return _grey(_f_to_grey(v.astype(np.float32)))
         return _grey(np.clip(v, 0, 255))
@@ -260,6 +264,7 @@ def decode_im(data, what="IM"):
         raise ValueError(f"{what}: IM size {size!r} (PIL opens it and cannot load it)")
     w, h = size
     _check_size(w, h, what, "IM")
+    note_mode(mode)
     return _unpack(mode, rawmode, data, pos, w, h, palette, what)
 
 
@@ -321,6 +326,7 @@ def decode_imt(data, what="IMT"):
         raise ValueError(f"{what}: IM Tools header without image data (PIL: cannot load this "
                          "image)")
     _check_size(w, h, what, "IM Tools")
+    note_mode("L")
     if len(data) - pos < w * h:
         raise ValueError(f"{what}: IM Tools data is truncated (PIL: image file is truncated)")
     return _grey(np.frombuffer(data, np.uint8, w * h, pos).reshape(h, w))

@@ -27,14 +27,21 @@ codestreams, every Part-1 form OpenJPEG 2.5 decodes) through
 ``core/jpeg2000.py``; ICNS through ``core/icns.py``; IM and IM Tools
 through ``core/im.py``, IPTC/NAA through ``core/iptc.py``, PhotoCD
 through ``core/pcd.py``, SPIDER through ``core/spider.py``, MSP and XBM
-through ``core/image_formats.py``. Five of them (IM, IMT, IPTC, PCD,
-SPIDER) have no signature: PIL runs their header parse on every file that
-reaches them in its order, and so does ``decode_image``. The reference
-reads them with PIL, which the card's machine does not have; the pixels
-equal PIL's ``convert("RGB")``. Other formats PIL reads (AVIF, EPS, FITS,
-XPM, ...) raise an error naming the formats read here, and so do the JPEG
-2000 forms still to be ported: HTJ2K (Part 15) code-blocks and Part-2
-array-based multiple component transforms.
+through ``core/image_formats.py``; FITS through ``core/fits.py``, FLI / FLC
+(frame 0) through ``core/fli.py``, Sun rasters through ``core/sun.py``, XPM
+through ``core/xpm.py``, and GBR, McIdas, PIXAR and XV thumbnails through
+``core/rasters.py``. Five of them (IM, IMT, IPTC, PCD, SPIDER) have no
+signature: PIL runs their header parse on every file that reaches them in
+its order, and so does ``decode_image``. Others have a signature so weak
+that files of other formats pass it (GBR: two big-endian words; FLI: two
+16-bit fields; McIdas: eight bytes): their header parses are gates too,
+and come before ICO, IM, TIFF, TGA and others in PIL's order. The
+reference reads them with PIL, which the card's machine does not have; the
+pixels equal PIL's ``convert("RGB")``. Other formats PIL opens (AVIF; EPS,
+WMF, MPEG and the BUFR / GRIB / HDF5 stubs, which load no pixels here)
+raise an error naming the formats read here, and so do the JPEG 2000 forms
+still to be ported: HTJ2K (Part 15) code-blocks and Part-2 array-based
+multiple component transforms.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import zlib
 
 import numpy as np
 
-from .image_formats import _check_size
+from .image_formats import _check_size, note_band, note_mode
 from .spectrum import linear_to_srgb, srgb_to_linear, to_uint8_srgb
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -237,6 +244,8 @@ def decode_png(data, what="PNG"):
         )
     if ctype == 3 and palette is None:
         raise ValueError(f"{what}: palette PNG without a PLTE chunk")
+    note_mode({1: "1", 16: "I;16"}.get(depth, "L") if ctype == 0
+              else {2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}[ctype])
     ch = _PNG_CHANNELS[ctype]
     bpp = max(1, depth * ch // 8)
     passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
@@ -257,6 +266,8 @@ def decode_png(data, what="PNG"):
         rows = _unfilter(raw[off:off + ph * (1 + stride)], ph, stride, bpp)
         px[y0::dy, x0::dx] = _samples(rows, ph, pw, depth, ch)
         off += ph * (1 + stride)
+    if ctype == 3 or (ctype == 0 and depth == 16):
+        note_band(px[..., 0], "<" if depth == 16 else None)
     return _to_rgb8(px, ctype, depth, palette)
 
 
@@ -344,11 +355,11 @@ def _accepted(data):
     """The formats PIL would try to open ``data`` as, in the order
     ``Image.open`` tries them: the plugins of ``Image.preinit`` (BMP, DIB,
     GIF, JPEG, PNM, PNG) whose signature matches, then ``Image.ID``'s order.
-    A plugin with a signature is listed when it accepts ``data``; the five
-    without one (IM, IMT and IPTC between ICO and TIFF, PCD after MSP,
-    SPIDER between SGI and TGA) are listed always, as PIL runs their header
-    parse on every file that reaches them (``_GATES``); TGA, which has none
-    either, by the sanity of its header."""
+    A plugin with a signature is listed when its ``_accept`` takes
+    ``data``; the five without one (IM, IMT and IPTC between ICO and TIFF,
+    PCD after MSP, SPIDER between SGI and TGA) are listed always, as PIL
+    runs their header parse on every file that reaches them (``_GATES``);
+    TGA, which has none either, by the sanity of its header."""
     from .image_formats import tga_header
     from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE
     from .pcx import DCX_MAGIC
@@ -367,42 +378,58 @@ def _accepted(data):
         ("PCX", len(head) >= 2 and head[0] == 10 and head[1] in (0, 2, 3, 5)),
         ("DCX", len(head) >= 4 and int.from_bytes(head[:4], "little") == DCX_MAGIC),
         ("DDS", head[:4] == b"DDS "),
+        ("FITS", head.startswith(b"SIMPLE")),
+        ("FLI", len(head) >= 16 and struct.unpack_from("<H", head, 4)[0] in (0xAF11, 0xAF12)
+         and struct.unpack_from("<H", head, 14)[0] in (0, 3)),
         ("FTEX", head[:4] == b"FTEX"),
+        ("GBR", len(head) >= 8 and struct.unpack_from(">I", head)[0] >= 20
+         and struct.unpack_from(">I", head, 4)[0] in (1, 2)),
         ("JPEG2000", head[:4] == J2K_SIGNATURE or head[:12] == JP2_SIGNATURE),
         ("ICNS", head[:4] == b"icns"),
         ("ICO", head[:4] == b"\0\0\1\0"),
         ("IM", None), ("IMT", None), ("IPTC", None),
+        ("MCIDAS", head.startswith(b"\0\0\0\0\0\0\0\4")),
         ("TIFF", head[:4] in TIFF_PREFIXES),
         ("MSP", head[:4] in (b"DanM", b"LinS")),
         ("PCD", None),
+        ("PIXAR", head.startswith(b"\x80\xe8\0\0")),
         ("PSD", head[:4] == b"8BPS"),
         ("QOI", head[:4] == b"qoif"),
         ("SGI", head[:2] == b"\x01\xda"),
         ("SPIDER", None),
+        ("SUN", head[:4] == b"\x59\xa6\x6a\x95"),
         ("TGA", tga_header(data) is not None),
         ("WebP", head[:4] == b"RIFF" and head[8:12] == b"WEBP"
          and head[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
         ("XBM", head.lstrip().startswith(b"#define")),
+        ("XPM", head.startswith(b"/* XPM */")),
+        ("XVThumb", head.startswith(b"P7 332")),
     )
     return [fmt for fmt, ok in checks if ok is not False]
 
 
-# the formats without a signature -> (module of core/, their plugin's header
+# the formats whose plugin's open can fail after its signature (or, for the
+# five without one, on any file) -> (module of core/, their plugin's header
 # parse): NextFormat where PIL tries the next format, ValueError where its
 # open fails
 _GATES = {"IM": ("im", "im_header"), "IMT": ("im", "imt_header"),
           "IPTC": ("iptc", "iptc_header"), "PCD": ("pcd", "pcd_header"),
-          "SPIDER": ("spider", "spider_header")}
+          "SPIDER": ("spider", "spider_header"), "FITS": ("fits", "fits_header"),
+          "FLI": ("fli", "fli_header"), "GBR": ("rasters", "gbr_header"),
+          "MCIDAS": ("rasters", "mcidas_header"), "PIXAR": ("rasters", "pixar_header"),
+          "SUN": ("sun", "sun_header"), "XPM": ("xpm", "xpm_header"),
+          "XVThumb": ("rasters", "xvthumb_header")}
+_NO_SIGNATURE = ("IM", "IMT", "IPTC", "PCD", "SPIDER")
 
 
 def image_format(data):
     """The format PIL would open ``data`` as, or None: by signature (TGA
-    by the sanity of its header), and for IM, IMT, IPTC, PCD and SPIDER,
-    which have none, by their header parse, which PIL runs on every file
-    that reaches them. None also where one of those parses makes PIL's
-    open fail. A file whose header the format of its signature cannot
-    parse goes on to the next format that accepts it, as in PIL
-    (``decode_image``)."""
+    by the sanity of its header), then, for the formats of ``_GATES`` (IM,
+    IMT, IPTC, PCD and SPIDER, which have none, and those whose open can
+    fail after their signature matched), by their header parse. None also
+    where one of those parses makes PIL's open fail. A file whose header
+    the format of its signature cannot parse goes on to the next format
+    that accepts it, as in PIL (``decode_image``)."""
     import importlib
 
     from .image_formats import NextFormat
@@ -423,7 +450,8 @@ def image_format(data):
 
 # format -> (module of core/, decoder)
 _DECODERS = {
-    "JPEG": ("jpeg", "decode_jpeg"), "BMP": ("image_formats", "decode_bmp"),
+    "PNG": ("image", "decode_png"), "JPEG": ("jpeg", "decode_jpeg"),
+    "BMP": ("image_formats", "decode_bmp"),
     "DIB": ("image_formats", "decode_dib_file"), "ICNS": ("icns", "decode_icns"),
     "GIF": ("image_formats", "decode_gif"), "PNM": ("image_formats", "decode_pnm"),
     "PSD": ("image_formats", "decode_psd"), "TGA": ("image_formats", "decode_tga"),
@@ -435,42 +463,63 @@ _DECODERS = {
     "IM": ("im", "decode_im"), "IMT": ("im", "decode_imt"), "IPTC": ("iptc", "decode_iptc"),
     "MSP": ("image_formats", "decode_msp"), "PCD": ("pcd", "decode_pcd"),
     "SPIDER": ("spider", "decode_spider"), "XBM": ("image_formats", "decode_xbm"),
+    "FITS": ("fits", "decode_fits"), "FLI": ("fli", "decode_fli"),
+    "GBR": ("rasters", "decode_gbr"), "MCIDAS": ("rasters", "decode_mcidas"),
+    "PIXAR": ("rasters", "decode_pixar"), "SUN": ("sun", "decode_sun"),
+    "XPM": ("xpm", "decode_xpm"), "XVThumb": ("rasters", "decode_xvthumb"),
 }
 
 
-def decode_with_format(data, what="image"):
-    """``decode_image``, and the format the file was read as (PIL's
-    ``Image.open(...).format``, with PIL's PPM and WEBP named PNM and WebP)."""
+def decode_with_mode(data, what="image"):
+    """``decode_with_format``'s format and pixels, PIL's mode of the file
+    (``Image.open(...).mode``) between them, as the decoder that read it
+    noted it (``image_formats.note_mode``; formats that note none open as
+    RGB or RGBA in PIL: WebP, QOI, FTEX, PCD, PIXAR), and last the bytes
+    ``Image.merge`` would copy from its first band where the decoder noted
+    them (``note_band``: palette indices, 16-bit samples' bytes), else
+    None: (format, mode, pixels, band)."""
     import importlib
 
-    from .image_formats import NextFormat
+    from .image_formats import _MODE, NextFormat
 
     gave_up = []
     for fmt in _accepted(data):
-        if fmt == "PNG":
-            return fmt, decode_png(data, what)
         module, name = _DECODERS[fmt]
+        box = {}
+        token = _MODE.set(box)
         try:
-            return fmt, getattr(importlib.import_module(f".{module}", __package__), name)(data,
-                                                                                          what)
+            px = getattr(importlib.import_module(f".{module}", __package__), name)(data, what)
         except NextFormat as e:  # as PIL, try the next format that accepts the file
-            if fmt not in _GATES:
+            if fmt not in _NO_SIGNATURE:
                 gave_up.append(str(e).removeprefix(f"{what}: "))
+            continue
+        finally:
+            _MODE.reset(token)
+        return fmt, box.get("mode", "RGB"), px, box.get("band")
     tried = f"; PIL gives up on it: {'; '.join(gave_up)}" if gave_up else ""
     raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, DIB, "
                      "GIF, PNM (P1-P6, PFM and PIL's P0CMYK / Py modes), PSD, TGA, TIFF (every "
                      "compression PIL reads: raw, PackBits, LZW, Deflate, JPEG, old-style JPEG, "
                      "LZMA, ZSTD, CCITT and ThunderScan; Lab too), WebP, DDS, BLP, FTEX, ICO, "
                      "CUR, QOI, SGI, PCX, DCX, JPEG 2000 (JP2 and J2K, Part 1), ICNS, IM, IMT, "
-                     "IPTC, MSP, PCD, SPIDER, XBM, .hdr and .npy; not AVIF, EPS, FITS, XPM or "
-                     f"the other formats PIL opens){tried}")
+                     "IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI / FLC, GBR, MCIDAS, PIXAR, SUN, XPM, "
+                     "XVThumb, .hdr and .npy; not AVIF, nor EPS, WMF, MPEG or the BUFR / GRIB / "
+                     f"HDF5 stubs, which load no pixels here){tried}")
+
+
+def decode_with_format(data, what="image"):
+    """``decode_image``, and the format the file was read as (PIL's
+    ``Image.open(...).format``, with PIL's PPM and WEBP named PNM and WebP)."""
+    fmt, _, px, _ = decode_with_mode(data, what)
+    return fmt, px
 
 
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
     ``convert("RGB")``: PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, WebP,
     DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, DCX, JPEG 2000, ICNS, IM, IMT,
-    IPTC, MSP, PCD, SPIDER and XBM, told apart as PIL tells them (the
+    IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI, GBR, MCIDAS, PIXAR, SUN, XPM and
+    XVThumb, told apart as PIL tells them (the
     formats of ``_accepted`` in PIL's order, each header parse deciding, as
     in PIL, whether the next is tried). Other formats, and forms a decoder
     refuses (HTJ2K and Part-2 JPEG 2000 among them), raise ``ValueError``
@@ -486,8 +535,9 @@ def read_image(path, to_linear=True):
     tells them (``decode_image``: by signature, and for IM, IMT, IPTC,
     PhotoCD and SPIDER by their header parse), TIFF in every compression PIL
     reads (the CCITT fax codes, ThunderScan and old-style JPEG among them),
-    JPEG 2000 in every Part-1 form, Lab through LittleCMS's transform, and
-    DCX, MSP and XBM; other formats, and forms the decoders refuse (HTJ2K
+    JPEG 2000 in every Part-1 form, Lab through LittleCMS's transform, DCX,
+    MSP and XBM, and FITS, FLI / FLC, GBR, McIdas, PIXAR, Sun raster, XPM and
+    XV thumbnails; other formats, and forms the decoders refuse (HTJ2K
     code-blocks and Part-2 multiple component transforms among them), raise
     ``ValueError`` naming the format.
     """

@@ -66,6 +66,7 @@ gives them; 5- and 6-bit channels expand as PIL's unpackers do, v * 255 //
 
 from __future__ import annotations
 
+import contextvars
 import re
 import struct
 
@@ -84,6 +85,37 @@ class NextFormat(ValueError):
     """A plugin's header parse failed the way ``Image.open`` catches
     (``SyntaxError``, ``IndexError``, ``TypeError``, ``struct.error``), so
     PIL goes on to try the formats after it; ``decode_image`` does too."""
+
+
+# the box ``note_mode`` fills for ``core/image.py::decode_with_mode``
+_MODE = contextvars.ContextVar("akari_pil_mode", default=None)
+
+
+def note_mode(mode):
+    """Record ``mode``, PIL's ``Image.open(...).mode`` of the image being
+    decoded, for ``core/image.py::decode_with_mode``. The first note of a
+    decode stands: a decoder of embedded data (a TIFF's JPEG strips, an
+    ICO's DIB) called after its container noted the mode changes nothing."""
+    box = _MODE.get()
+    if box is not None and "mode" not in box:
+        box["mode"] = mode
+
+
+def note_band(values, order=None):
+    """Record the bytes PIL's C ``Image.merge`` copies from the image being
+    decoded when it is one band of a merge (an IPTC band): the first W
+    bytes of each row of its loaded core, [H, W] uint8. ``values`` are
+    those bytes (palette indices, or grey levels under a colour map PIL
+    attached), or (``order`` "<" or ">") [H, W] 16-bit samples stored in
+    that byte order. The first note of a decode stands."""
+    box = _MODE.get()
+    if box is None or "band" in box:
+        return
+    v = np.asarray(values)
+    if order is not None:
+        h, w = v.shape
+        v = np.ascontiguousarray(v.astype(order + "u2")).view(np.uint8).reshape(h, 2 * w)[:, :w]
+    box["band"] = v
 
 
 def _check_size(w, h, what, form):
@@ -205,6 +237,7 @@ def decode_tga(data, what="TGA"):
     mode = _TGA_MODES.get((kind, depth))
     if mode is None:
         raise ValueError(f"{what}: {form} is not a form PIL reads")
+    note_mode({"BGRA;15Z": "RGB", "BGR": "RGB", "BGRA": "RGBA"}.get(mode, mode))
     if mode == "P" and lut is None:
         raise ValueError(f"{what}: {form} without a colour map (PIL refuses it)")
     if lut is not None and mode not in ("P", "L", "LA"):
@@ -228,6 +261,8 @@ def decode_tga(data, what="TGA"):
     elif mode in ("P", "L", "LA"):
         # a colour map turns PIL's grey image into a palette image
         grey = rows.reshape(h, w, 2)[..., 0] if mode == "LA" else rows
+        if lut is not None:
+            note_band(grey[:, ::-1] if hd["flags"] & 0x10 else grey)
         rgb = _grey(grey) if lut is None else lut[grey]
     elif mode == "BGRA;15Z":
         rgb = _word15(rows.reshape(h, w, 2).astype(np.uint16) @ np.uint16([1, 256]))
@@ -310,15 +345,22 @@ def _bmp_rle(data, pos, w, h, rle4, what):
 
 
 def _bmp_unpack(rows, w, rawmode, lut):
-    """[h, row bytes] -> [h, w, 3] for one of PIL's BMP raw modes."""
+    """[h, row bytes] -> [h, w, 3] for one of PIL's BMP raw modes, and the
+    palette indices (None for the other modes)."""
     h = rows.shape[0]
     if rawmode == "P;1":
-        return lut[_bits(rows, w)]
+        idx = _bits(rows, w)
+        return lut[idx], idx
     if rawmode == "P;4":
-        nib = np.stack([rows >> 4, rows & 0x0F], axis=2).reshape(h, -1)[:, :w]
-        return lut[nib]
+        idx = np.stack([rows >> 4, rows & 0x0F], axis=2).reshape(h, -1)[:, :w]
+        return lut[idx], idx
     if rawmode == "P":
-        return lut[rows[:, :w]]
+        return lut[rows[:, :w]], rows[:, :w]
+    return _bmp_pixels(rows, w, rawmode), None
+
+
+def _bmp_pixels(rows, w, rawmode):
+    h = rows.shape[0]
     if rawmode == "1":
         return _grey(_bits(rows, w) * np.uint8(255))
     if rawmode == "L":
@@ -427,6 +469,7 @@ def decode_dib(data, pos, offset, what, form="BMP", halve=False):
             if n > 256:
                 raise ValueError(f"{what}: BMP palette of {n} colours (PIL refuses more than 256)")
             lut = _lut(np.frombuffer(pal[:n * pad], np.uint8).reshape(n, pad)[:, 2::-1])
+    note_mode(grey or ("P" if bits <= 8 else "RGB"))
     start = offset or pos
     if rle:
         if bits > 8 or grey == "1":
@@ -437,7 +480,7 @@ def decode_dib(data, pos, offset, what, form="BMP", halve=False):
             raise ValueError(f"{what}: {form} RLE image data ends early (PIL: not enough image "
                              "data)")
         rows = np.frombuffer(bytes(idx[:w * h]), np.uint8).reshape(h, w)
-        rgb = _grey(rows) if grey == "L" else lut[rows]
+        rgb, idx = (_grey(rows), None) if grey == "L" else (lut[rows], rows)
     else:
         stride = ((w * bits + 31) >> 3) & ~3
         row_bytes = (w * _BMP_RAWBITS.get(rawmode, 32) + 7) // 8
@@ -449,9 +492,11 @@ def decode_dib(data, pos, offset, what, form="BMP", halve=False):
         buf = np.frombuffer(data, np.uint8, len(data) - start, start)
         buf = np.concatenate([buf, np.zeros(h * stride - len(buf) if len(buf) < h * stride
                                             else 0, np.uint8)])
-        rgb = _bmp_unpack(buf[:h * stride].reshape(h, stride), w, rawmode, lut)
+        rgb, idx = _bmp_unpack(buf[:h * stride].reshape(h, stride), w, rawmode, lut)
     if direction < 0:
         rgb = rgb[::-1]
+    if idx is not None:
+        note_band(idx[::direction])
     return np.ascontiguousarray(rgb), start
 
 
@@ -535,6 +580,8 @@ def decode_pnm(data, what="PNM"):
     if mode is None:  # PIL: "not a PPM file", a SyntaxError
         raise NextFormat(f"{what}: PNM magic {magic!r} (PIL reads P1-P6, Pf, P0CMYK, PyP, "
                          "PyRGBA and PyCMYK)")
+    if mode in ("1", "F"):
+        note_mode(mode)
     tok, pos = _pnm_token(data, pos, what)
     w = _pnm_int(tok, what)
     tok, pos = _pnm_token(data, pos, what)
@@ -562,6 +609,7 @@ def decode_pnm(data, what="PNM"):
     maxval = _pnm_int(tok, what)
     if not 0 < maxval < 65536:
         raise ValueError(f"{what}: PNM maxval {maxval} (PIL reads 1-65535)")
+    note_mode("I" if mode == "L" and maxval > 255 else mode)
     bands = _PNM_BANDS[mode]
     n = w * h * bands
     # PIL's mode I for grey above 255: samples scale to 0..65535, and
@@ -593,6 +641,7 @@ def decode_pnm(data, what="PNM"):
     if mode == "CMYK":
         return _cmyk_to_rgb(v)
     if mode == "P":  # no palette in the file: PIL's default palette is black
+        note_band(v[..., 0])
         return np.zeros((h, w, 3), np.uint8)
     return np.ascontiguousarray(np.repeat(v, 3, axis=2) if bands == 1 else v[..., :3])
 
@@ -688,6 +737,8 @@ def decode_gif(data, what="GIF"):
     frame = np.ascontiguousarray(idx[y0:y0 + fh, x0:x0 + fw])
     _gif_lzw(data, pos, bits, frame, bool(fflags & 0x40), what)
     idx[y0:y0 + fh, x0:x0 + fw] = frame
+    note_mode("L" if palette is None else "P")
+    note_band(idx)
     if palette is None:
         return _grey(idx)
     return _lut(palette)[idx]
@@ -765,6 +816,7 @@ def decode_psd(data, what="PSD"):
     if (mode, bits) not in _PSD_MODES:
         raise ValueError(f"{what}: PSD {name} at {bits} bits (PIL reads 8 bits, 1 for bitmap)")
     pmode, need = _PSD_MODES[(mode, bits)]
+    note_mode(pmode)
     if need > channels:
         raise ValueError(f"{what}: PSD {name} with {channels} channels")
     _check_size(w, h, what, "PSD")
@@ -819,6 +871,7 @@ def decode_psd(data, what="PSD"):
     if pmode == "L":
         return _grey(planes[0])
     if pmode == "P":
+        note_band(planes[0])
         return (lut if lut is not None else np.zeros((256, 3), np.uint8))[planes[0]]
     if pmode == "CMYK":
         return _cmyk_to_rgb(255 - np.stack(planes, axis=-1))
@@ -845,6 +898,7 @@ def decode_msp(data, what="MSP"):
         raise NextFormat(f"{what}: MSP image of size {w} x {h}")
     _check_size(w, h, what, "MSP")
     stride = (w + 7) // 8
+    note_mode("1")
     if data[:4] == b"DanM":
         if len(data) - 32 < h * stride:
             raise ValueError(f"{what}: MSP data is truncated (PIL: image file is truncated)")
@@ -910,6 +964,7 @@ def decode_xbm(data, what="XBM"):
     if w <= 0 or h <= 0:
         raise NextFormat(f"{what}: XBM image of size {w} x {h}")
     _check_size(w, h, what, "XBM")
+    note_mode("1")
     stride = (w + 7) // 8
     body = np.frombuffer(data, np.uint8, offset=m.end())
     xs = np.flatnonzero(body == ord("x"))

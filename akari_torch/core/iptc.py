@@ -23,9 +23,20 @@ or an all-zero one:
   big-endian);
 - ``(3, 120)``: the compression, 1 raw (8-bit grey, rows top down) or 5
   JPEG: the data of the ``(8, 10)`` fields, joined, is then an image file
-  of its own, opened as any file is (``decode_image``), at its own size. A
-  band must be an 8-bit grey image (PIL merges it as mode ``L``): the port
-  reads one from a grey JPEG or PNG and refuses other formats there.
+  of its own in any format PIL opens, read at its own size (PIL keeps the
+  header's size as an attribute and never checks it). A grey file takes
+  that image's pixels (``decode_image``), except where PIL's conversion of
+  its core has no path to RGB (modes ``F``, ``LAB``, ``I;16L``, ``I;16B``:
+  refused). A band is put in with ``Image.merge``, which needs PIL's mode of
+  the embedded file (``decode_with_mode``): the other bands must be ``L``
+  ("mode mismatch"), so a band other than the first is read only from an
+  ``L`` image; the first band is checked only by the C merge, which takes
+  any one-band image and copies the first W bytes of each of its rows:
+  grey levels for ``L`` and ``1`` (0 and 255), the indices of ``P``, half
+  of the stored sample bytes of ``I;16`` (the decoders note them:
+  ``image_formats.note_band``); ``I`` and ``F`` crash PIL 12.1.0
+  (refused); images of several bands make it fail ("image has wrong
+  mode"). A grey image under a colour map (TGA) merges its grey levels.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import struct
 
 import numpy as np
 
-from .image_formats import NextFormat, _check_size, _cmyk_to_rgb, _grey
+from .image_formats import NextFormat, _check_size, _cmyk_to_rgb, _grey, note_mode
 
 
 class _Syntax(Exception):
@@ -132,34 +143,43 @@ def iptc_header(data, what="IPTC"):
     return mode, band, size, compression, offset if tag == (8, 10) else None
 
 
-def _grey_blob(blob, what):
-    """The pixels of an image file PIL opens in mode ``L`` ([H, W] uint8),
-    for a band: a one-component JPEG or a 2-, 4- or 8-bit grey PNG."""
-    from .image import decode_png, image_format
-    from .jpeg import decode_components
+# PIL's modes whose core has no conversion to RGB (``Image.convert`` goes
+# through the mode's base only for the image's own mode, not the IPTC's L)
+_NO_RGB = ("F", "LAB", "I;16L", "I;16B")
 
-    fmt = image_format(blob)
-    if fmt == "JPEG":
-        comps, space, _ = decode_components(blob, what)
-        if space == "grey":
-            return comps[0]
-        raise ValueError(f"{what}: IPTC band of a {space} JPEG (PIL: image has wrong mode)")
-    if fmt == "PNG" and blob[12:16] == b"IHDR":
-        depth, ctype = blob[24], blob[25]
-        if ctype == 0 and depth in (2, 4, 8):
-            return decode_png(blob, what)[..., 0]
-        raise ValueError(f"{what}: IPTC band of a PNG of colour type {ctype}, depth {depth} "
-                         "(PIL: image has wrong mode)")
-    raise ValueError(f"{what}: IPTC band of a {fmt or 'unidentified'} image (the port reads a "
-                     "band from a grey JPEG or PNG)")
+
+def _band_pixels(blob, first, what):
+    """The [H, W] bytes ``Image.merge`` puts in a band from the image file
+    ``blob``: its grey levels where PIL opens it in mode ``L``, and for the
+    ``first`` band the bytes of any one-band image; refused as PIL's merge
+    refuses other modes."""
+    from .image import decode_with_mode
+
+    fmt, mode, px, band = decode_with_mode(blob, what)
+    if mode == "L" or (first and mode in ("1", "P", "I;16", "I;16L", "I;16B")):
+        if band is not None:
+            return band
+        if mode in ("L", "1"):
+            return px[..., 0]
+        raise ValueError(f"{what}: IPTC first band of a {fmt} image of mode {mode} (its "
+                         "decoder keeps no bytes of it)")
+    if not first:
+        raise ValueError(f"{what}: IPTC band of a {fmt} image of mode {mode} (PIL: mode "
+                         "mismatch)")
+    if mode in ("I", "F"):
+        raise ValueError(f"{what}: IPTC first band of a {fmt} image of mode {mode} (PIL "
+                         "12.1.0 crashes on it)")
+    raise ValueError(f"{what}: IPTC band of a {fmt} image of mode {mode} (PIL: image has "
+                     "wrong mode)")
 
 
 def decode_iptc(data, what="IPTC"):
-    from .image import decode_image
+    from .image import decode_with_mode
 
     data = bytes(data)
     mode, band, (w, h), compression, offset = iptc_header(data, what)
     _check_size(w, h, what, "IPTC/NAA")
+    note_mode(mode)
     if offset is None:
         raise ValueError(f"{what}: IPTC/NAA file without image data (PIL: cannot load this "
                          "image)")
@@ -174,21 +194,26 @@ def decode_iptc(data, what="IPTC"):
     except (_Syntax, ValueError) as e:
         raise ValueError(f"{what}: IPTC/NAA field after the image data: {e}") from None
     blob = b"".join(parts)
+    n = 4 if mode == "CMYK" else 3
+    if band is not None and not -n <= band < n:
+        raise ValueError(f"{what}: IPTC/NAA band {band + 1} of a {mode} image (PIL: list "
+                         "assignment index out of range)")
     if compression == "raw":
         if len(blob) < w * h:
             raise ValueError(f"{what}: IPTC/NAA raw data is truncated (PIL: image file is "
                              "truncated)")
         grey = np.frombuffer(blob, np.uint8, w * h).reshape(h, w)
     elif band is None:
-        return decode_image(blob, f"{what} (its JPEG data)")
+        fmt, inner, px, _ = decode_with_mode(blob, f"{what} (its JPEG data)")
+        if inner in _NO_RGB:
+            raise ValueError(f"{what}: IPTC/NAA data of a {fmt} image of mode {inner} (PIL: "
+                             f"conversion from {inner} to RGB not supported)")
+        return px
     else:
-        grey = _grey_blob(blob, f"{what} (its JPEG data)")
+        grey = _band_pixels(blob, band % n == 0, f"{what} (its JPEG data)")
     if band is None:
         return _grey(grey)
-    bands = np.zeros((4 if mode == "CMYK" else 3,) + grey.shape, np.uint8)
-    if not -len(bands) <= band < len(bands):
-        raise ValueError(f"{what}: IPTC/NAA band {band + 1} of a {mode} image (PIL: list "
-                         "assignment index out of range)")
+    bands = np.zeros((n,) + grey.shape, np.uint8)
     bands[band] = grey
     px = np.moveaxis(bands, 0, -1)
     return _cmyk_to_rgb(px) if mode == "CMYK" else px

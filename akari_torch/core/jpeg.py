@@ -284,7 +284,10 @@ def decode_jpeg(data, what="JPEG"):
     (or YCCK, converted to CMYK as libjpeg's ``ycck_cmyk_convert``), which
     PIL reads as inverted Adobe CMYK (raw mode ``CMYK;I``) and converts
     with its cmyk2rgb."""
+    from .image_formats import note_mode
+
     comps, space, _ = decode_components(data, what)
+    note_mode({"grey": "L"}.get(space, "CMYK" if len(comps) == 4 else "RGB"))
     return components_to_rgb(comps, space)
 
 

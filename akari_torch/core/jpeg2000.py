@@ -34,7 +34,7 @@ import struct
 
 import numpy as np
 
-from .image_formats import NextFormat, _check_size, _cmyk_to_rgb
+from .image_formats import NextFormat, _check_size, _cmyk_to_rgb, note_band, note_mode
 
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
@@ -486,6 +486,7 @@ def decode_jpeg2000(data, what="JPEG 2000"):
     if w <= 0 or h <= 0:
         raise NextFormat(f"{what}: JPEG 2000 of size {w} x {h}")
     _check_size(w, h, what, "JPEG 2000")
+    note_mode(mode)
     if data[:4] == J2K_SIGNATURE:
         start, ihdr_w, ihdr_h, cs = 0, 0, 0, _CS_UNSPECIFIED
     else:
@@ -510,8 +511,10 @@ def decode_jpeg2000(data, what="JPEG 2000"):
             raise ValueError(f"{what}: {_STILL_TO_PORT[rc]} ({msg})")
         raise ValueError(f"{what}: broken JPEG 2000 data (OpenJPEG / Pillow refuse it: {msg})")
     if mode == "I;16":
+        note_band(grey16, "<")
         return np.repeat(np.minimum(grey16, 255).astype(np.uint8)[..., None], 3, axis=-1)
     if mode in ("P", "PA"):
+        note_band(px[..., 0])
         return _palette_lut(palette)[px[..., 0]]
     if mode in ("L", "LA"):
         return np.repeat(px[..., :1], 3, axis=-1)

@@ -40,7 +40,7 @@ import ctypes
 
 import numpy as np
 
-from .image_formats import NextFormat, _bits, _check_size, _grey
+from .image_formats import NextFormat, _bits, _check_size, _grey, note_band, note_mode
 
 _GREY_RAMP = bytes(v for i in range(256) for v in (i, i, i))
 
@@ -87,6 +87,7 @@ def decode_pcx(data, what="PCX", start=0):
                          "(PIL: unknown PCX mode)")
     w, h = x1 + 1 - x0, y1 + 1 - y0
     _check_size(w, h, what, "PCX")
+    note_mode(form)
     stride = (w * bits + 7) // 8
     if int.from_bytes(head[66:68], "little") != stride:
         stride += stride % 2
@@ -106,9 +107,13 @@ def decode_pcx(data, what="PCX", start=0):
     if form == "RGB":
         return np.ascontiguousarray(out[:, :3 * w].reshape(h, 3, w).transpose(0, 2, 1))
     if bits == 8:
-        return _grey(out[:, :w]) if lut is None else lut[out[:, :w]]
-    s = (w + 7) // 8
-    idx = sum(_bits(out[:, p * s:(p + 1) * s], w) << p for p in range(planes))
+        idx = out[:, :w]
+    else:
+        s = (w + 7) // 8
+        idx = sum(_bits(out[:, p * s:(p + 1) * s], w) << p for p in range(planes))
+    if lut is None:
+        return _grey(idx)
+    note_band(idx)
     return lut[idx]
 
 

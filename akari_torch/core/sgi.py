@@ -27,7 +27,7 @@ import ctypes
 
 import numpy as np
 
-from .image_formats import NextFormat, _check_size, _grey
+from .image_formats import NextFormat, _check_size, _grey, note_mode
 
 # PIL's SgiImagePlugin.MODES: (bytes a sample, dimension, channels) -> mode
 MODES = {(1, 1, 1): "L", (1, 2, 1): "L", (2, 1, 1): "L", (2, 2, 1): "L", (1, 3, 3): "RGB",
@@ -47,6 +47,7 @@ def decode_sgi(data, what="SGI"):
         raise ValueError(f"{what}: SGI of {bpc} bytes a sample, dimension {dim} and {z} "
                          "channels (PIL: unsupported SGI image mode)")
     _check_size(w, h, what, "SGI")
+    note_mode(mode)
     if storage == 0:
         need = 512 + z * w * h * bpc
         if len(data) < need:

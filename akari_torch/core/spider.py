@@ -28,7 +28,7 @@ import struct
 
 import numpy as np
 
-from .image_formats import NextFormat, _check_size, _f_to_grey, _grey
+from .image_formats import NextFormat, _check_size, _f_to_grey, _grey, note_mode
 
 IFORMS = (1, 3, -11, -12, -21, -22)
 
@@ -89,6 +89,7 @@ def decode_spider(data, what="SPIDER"):
     data = bytes(data)
     w, h, offset, order = spider_header(data, what)
     _check_size(w, h, what, "Spider image")
+    note_mode("F")
     if offset < 0:
         raise ValueError(f"{what}: Spider header of {offset} bytes (PIL cannot seek there)")
     if len(data) - offset < 4 * w * h:

@@ -80,7 +80,7 @@ from itertools import groupby
 import numpy as np
 
 from . import lcms, tiff_ojpeg
-from .image_formats import _check_size, _cmyk_to_rgb, _f_to_grey
+from .image_formats import _check_size, _cmyk_to_rgb, _f_to_grey, note_band, note_mode
 
 # PIL's TiffImagePlugin.PREFIXES: the two orders, BigTIFF, and two
 # "invalid" headers PIL opens as classic TIFF
@@ -933,6 +933,7 @@ def _decode(data, ifd, what):
                          f"{'big' if ifd.order == b'MM' else 'little'}-endian order (PIL: "
                          "unknown pixel mode)")
     mode, rawmode = OPEN_INFO[key]
+    note_mode(mode)
     palette = None
     if mode in ("P", "PA"):
         cmap = ifd.get(COLORMAP)
@@ -948,6 +949,9 @@ def _decode(data, ifd, what):
     else:
         px = _compressed_image(data, ifd, comp, photo, mode, key, rawmode, xsize, ysize, bps, spp,
                                what)
+    if mode in ("P", "I;16", "I;16B"):
+        note_band(_orient(px[..., :1], orientation)[..., 0],
+                  None if mode == "P" else "<" if mode == "I;16" else ">")
     return _orient(_to_rgb(px, mode, palette), orientation)
 
 

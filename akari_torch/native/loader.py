@@ -21,9 +21,9 @@ by a hash of the source, the compiler and the flags, and loaded with
 - ``bcn``: ``bcn.cpp``, the BC1-BC7 blocks of DDS and FTEX textures
   (``akari_torch/core/dds.py``, ``ftex.py``);
 - ``qoi``: ``qoi.cpp``, the op stream of QOI images (``core/qoi.py``);
-- ``rle``: ``rle.cpp``, the run-length data of SGI and PCX images and of
-  ThunderScan TIFF strips (``core/sgi.py``, ``core/pcx.py``,
-  ``core/tiff.py``);
+- ``rle``: ``rle.cpp``, the run-length data of SGI, PCX and Sun raster
+  images, FLI / FLC frames and ThunderScan TIFF strips (``core/sgi.py``,
+  ``core/pcx.py``, ``core/sun.py``, ``core/fli.py``, ``core/tiff.py``);
 - ``zstd``: ``zstd.cpp``, Zstandard frames (RFC 8878) of ZSTD-compressed
   TIFF strips and tiles (``core/tiff.py``); no compression library is
   linked;
@@ -36,7 +36,7 @@ by a hash of the source, the compiler and the flags, and loaded with
 Unlike the reference loader, a failed build raises: the Python BVH builder
 would give another triangle storage order, and the JPEG (Huffman and
 arithmetic), GIF, TIFF, WebP,
-BCn, QOI, SGI / PCX run-length, Zstandard, CCITT, ThunderScan and JPEG 2000
+BCn, QOI, SGI / PCX / SUN / FLI run-length, Zstandard, CCITT, ThunderScan and JPEG 2000
 decoders and the Lab evaluator have no Python twin, so there is no fallback.
 """
 
@@ -183,6 +183,16 @@ def _bind_rle(lib):
         ctypes.c_char_p, ctypes.c_int64,                   # src, size
         i32, i32, i32, ctypes.c_void_p,                    # width, rows, rowbytes, out
     ]
+    lib.akr_sun_rle.restype = ctypes.c_int
+    lib.akr_sun_rle.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,   # src, size, total
+        ctypes.c_void_p,                                   # out
+    ]
+    lib.akr_fli_frame.restype = ctypes.c_int64
+    lib.akr_fli_frame.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                   # buf, bytes
+        i32, i32, ctypes.c_void_p,                         # xsize, ysize, im
+    ]
 
 
 def _bind_zstd(lib):
@@ -237,8 +247,8 @@ SOURCES = {
     "webp_vp8": ("webp_vp8.cpp", "libakr_vp8.so", "the lossy WebP decoder", _bind_vp8),
     "bcn": ("bcn.cpp", "libakr_bcn.so", "the DDS / FTEX block (BCn) decoder", _bind_bcn),
     "qoi": ("qoi.cpp", "libakr_qoi.so", "the QOI decoder", _bind_qoi),
-    "rle": ("rle.cpp", "libakr_rle.so", "the SGI / PCX / ThunderScan run-length decoder",
-            _bind_rle),
+    "rle": ("rle.cpp", "libakr_rle.so",
+            "the SGI / PCX / Sun / FLI / ThunderScan run-length decoder", _bind_rle),
     "zstd": ("zstd.cpp", "libakr_zstd.so", "the TIFF ZSTD decoder", _bind_zstd),
     "fax3": ("fax3.cpp", "libakr_fax3.so", "the TIFF CCITT (fax) decoder", _bind_fax3),
     "j2k": ("j2k_decode.cpp", "libakr_j2k.so", "the JPEG 2000 decoder", _bind_j2k),

@@ -300,23 +300,34 @@ Phases (each checks its results; any failure exits non-zero):
     To make room, phases 42-47, 49 and 50 hold no launch of their CLI runs
     to the plain walk (their held launches saw the same rays, dead rays
     and hits as phase 51's; phase 48's Group 4 albedo gives other rays and
-    keeps its held launch), and phases 41-51 share one encode and decode of
-    phase 24's albedo.png (``albedo_png``);
-52. the result: a JSON line of kernel records (the dense records on the
+    keeps its held launch), and phases 41-52 share one encode and decode of
+    phase 24's albedo.png (``albedo_png``) and one timing of the PNG
+    decode, phase 41's median of 3 (``png_decode_median``);
+52. PIL's last plugins that load pixels (Sun raster, FLI / FLC, FITS,
+    GBR, McIdas, PIXAR, XPM, XV thumbnail): their fixtures' digests; the
+    2048^2 albedo written here with integer numpy
+    (``raster_albedo_files``) as a 24-bit run-length Sun raster, an FLC
+    whose frame 0 is a BRUN chunk of its RGB332 indices and a raw 8-bit
+    FITS, each file's SHA-256 and decode held to the record of PIL's read,
+    each decode's median of 3 beside phase 41's PNG median (the Sun raster
+    no slower); one config-3 CLI run on the Sun raster (6 tree closest
+    launches), its frame bit-equal to phase 51's PNG-route frame of the
+    same pixels (no launch held: phase 51's held launch saw the same rays);
+53. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
     the tree records' errors cover phases 6, 24, 26, 27, 35, 40, 48 and 51,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-51) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-52) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG Huffman and
 arithmetic decoders, GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
-PCX / ThunderScan run-length decoder, ZSTD decoder, CCITT decoder, JPEG 2000 decoder and
-Lab evaluator) is
+PCX / Sun / FLI / ThunderScan run-length decoder, ZSTD decoder, CCITT decoder, JPEG 2000
+decoder and Lab evaluator) is
 built at start, one
 compiler process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
@@ -2522,6 +2533,16 @@ def _median_s(fn, n=3):
     return sorted(times)[n // 2], times
 
 
+@functools.lru_cache(maxsize=1)
+def png_decode_median():
+    """The 2048^2 PNG route's decode time (``albedo_png``'s file), median
+    of 3 and the runs, taken once in phase 41: phases 42-52 hold their
+    decoders "no slower than PNG" against it."""
+    from akari_torch.core.image import decode_png
+
+    return _median_s(lambda: decode_png(albedo_png()[0]))
+
+
 def image_phase(card, traversal, cli_render):
     """Phase 41: the port's JPEG and PNG decoders on this machine (no PIL
     here): the fixtures' digests, the 2048^2 decode times, and the config-3
@@ -2554,7 +2575,7 @@ def image_phase(card, traversal, cli_render):
         jpeg_data = f.read()
     png_data = albedo_png()[0]  # phase 24's albedo.png
     jpeg_s, jpeg_all = _median_s(lambda: decode_jpeg(jpeg_data))
-    png_s, png_all = _median_s(lambda: decode_png(png_data))
+    png_s, png_all = png_decode_median()
     log(f"  2048^2 decode on the host, median of 3: JPEG {jpeg_s:.3f} s ({len(jpeg_data)} bytes; "
         f"runs {', '.join(f'{t:.3f}' for t in jpeg_all)}), PNG {png_s:.3f} s ({len(png_data)} "
         f"bytes; runs {', '.join(f'{t:.3f}' for t in png_all)}) [card: {card}]")
@@ -2970,7 +2991,7 @@ def tiff_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png
+    from akari_torch.core.image import decode_image
 
     t_phase = time.perf_counter()
     log(f"phase 43: TIFF and CMYK / YCCK JPEG decoding without PIL: the fixtures' digests, "
@@ -2998,9 +3019,10 @@ def tiff_phase(card, traversal, cli_render):
     log(f"  wrote the seven 2048^2 TIFFs in {time.perf_counter() - t0:.1f} s ({workers} "
         "processes, LZW in Python)")
     out = {}
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 png decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for key, data in files.items():
         px = decode_image(data, key)
@@ -3049,7 +3071,7 @@ def webp_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.core.image import decode_image, encode_png
 
     t_phase = time.perf_counter()
     log(f"phase 44: WebP decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
@@ -3078,9 +3100,10 @@ def webp_phase(card, traversal, cli_render):
     check(np.array_equal(decode_image(lossless, "lossless"), albedo),
           "the lossless 2048^2 WebP decodes to other pixels than it was written from")
     out = {}
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 png decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for key, data in (("lossy", lossy), ("lossless", lossless)):
         med, runs = _median_s(lambda: decode_image(data, key))
@@ -3118,7 +3141,7 @@ def dds_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.core.image import decode_image, encode_png
     from tools.dds_writers import dds_albedo
 
     t_phase = time.perf_counter()
@@ -3150,9 +3173,10 @@ def dds_phase(card, traversal, cli_render):
         out[f"{form}_mean_abs_err"] = float(err)
         log(f"  wrote the 2048^2 {form} DDS with its mip chain in {time.perf_counter() - t0:.2f} s "
             f"({len(files[form])} bytes; mean |decoded - albedo| {err:.3f} levels)")
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 png decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for form, data in files.items():
         med, runs = _median_s(lambda: decode_image(data, form))
@@ -3196,7 +3220,7 @@ def legacy_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png
+    from akari_torch.core.image import decode_image
     from akari_torch.scene.builtin import envtex_texture
     from tools.legacy_writers import pcx_bytes, qoi_bytes, sgi_bytes
     from tools.make_torch_port_image_fixtures import ZSTD_ALBEDO, tiff_bytes
@@ -3246,9 +3270,10 @@ def legacy_phase(card, traversal, cli_render):
     x32 = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
     check(np.array_equal(decode_image(files["ZSTD TIFF"], ZSTD_ALBEDO), x32),
           f"{ZSTD_ALBEDO} decodes to other pixels than the 64^2 albedo scaled up 32x")
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 png decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 png decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for form, data in files.items():
         med, runs = _median_s(lambda: decode_image(data, form))
@@ -3412,7 +3437,7 @@ def fax_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.core.image import decode_image, encode_png
 
     t_phase = time.perf_counter()
     log(f"phase 48: CCITT, ThunderScan and old-style JPEG TIFF decoding without PIL: the "
@@ -3451,9 +3476,10 @@ def fax_phase(card, traversal, cli_render):
         f"most, {float((diff > 0).mean()):.4f} of pixels differ (libtiff's RGBA reader repeats "
         "4:2:0 chroma where libjpeg interpolates it)")
     out = {}
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for form, data in files.items():
         med, runs = _median_s(lambda: decode_image(data, form))
@@ -3527,9 +3553,10 @@ def jpeg2000_phase(card, traversal, cli_render):
     log(f"  the 9/7 JP2 against the albedo: {int(diff.max())} levels at most, "
         f"{float((diff > 0).mean()):.4f} of pixels differ (lossy at a rate of 30)")
     out = {}
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for name, data in files.items():
         med, runs = _median_s(lambda: decode_image(data, name))
@@ -3572,7 +3599,7 @@ def lab_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, decode_png, encode_png
+    from akari_torch.core.image import decode_image, encode_png
     from tools.make_torch_port_image_fixtures import GENERATED, lab_albedo_files
 
     t_phase = time.perf_counter()
@@ -3617,9 +3644,10 @@ def lab_phase(card, traversal, cli_render):
     log(f"  the five files equal the recorded bytes and decode to PIL "
         f"{', '.join(sorted({r['pil'] for r in recorded.values()}))}'s recorded reads")
     out = {}
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for fname, data in files.items():
         med, runs = _median_s(lambda: decode_image(data, fname))
@@ -3663,7 +3691,7 @@ def plugin_phase(card, traversal, cli_render):
 
     import numpy as np
 
-    from akari_torch.core.image import decode_png, decode_with_format, encode_png
+    from akari_torch.core.image import decode_with_format, encode_png
     from tools.make_torch_port_image_fixtures import GENERATED, plugin_albedo_files
 
     t_phase = time.perf_counter()
@@ -3709,9 +3737,10 @@ def plugin_phase(card, traversal, cli_render):
     log(f"  the three files equal the recorded bytes and decode to PIL "
         f"{', '.join(sorted({recorded[k]['pil'] for k in files}))}'s recorded reads")
     out = {}
-    png_s, png_runs = _median_s(lambda: decode_png(png_data))
+    png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
-    log(f"  2048^2 PNG decode on the host, median of 3: {png_s:.4f} s ({len(png_data)} bytes; "
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"({len(png_data)} bytes; "
         f"runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
     for fname, data in files.items():
         med, runs = _median_s(lambda: decode_with_format(data, fname))
@@ -3733,6 +3762,98 @@ def plugin_phase(card, traversal, cli_render):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 51: {out['phase_s']:.1f} s")
     out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
+    out["png_frame"] = frames["albedo_im.png"]   # the albedo's pixels: phase 52's reference
+    return out
+
+
+RASTER_FIXTURES = ("sun_", "flc_", "fli_", "fits_", "gbr_", "mcidas_", "pixar_", "xvthumb_",
+                   "xpm_")
+RASTER_CLI_SUN = "albedo2048_rle24.ras"
+
+
+def raster_phase(card, traversal, cli_render, png_frame):
+    """Phase 52: PIL's last plugins that load pixels (Sun raster, FLI /
+    FLC, FITS, GBR, McIdas, PIXAR, XPM, XV thumbnail) on this machine (no
+    PIL here): their fixtures' digests; the 2048^2 albedo written here with
+    integer numpy as a 24-bit run-length Sun raster, an FLC whose frame 0 is
+    BRUN-coded (RGB332) and a raw 8-bit FITS, each file's SHA-256 and decode
+    held to the record of PIL's read, each decode's median of 3 beside phase
+    41's PNG median (the Sun raster no slower); and one config-3 CLI run on
+    the Sun raster (6 tree closest launches), its frame bit-equal to
+    ``png_frame``, phase 51's frame of the same pixels through the PNG
+    route. No launch of it is held to the plain walk: phase 51's held launch
+    saw the same rays, dead rays and hits (the same texels give the same
+    frame, launch for launch). Returns the figures it logs."""
+    import hashlib
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_with_format
+    from tools.make_torch_port_image_fixtures import GENERATED, raster_albedo_files
+
+    t_phase = time.perf_counter()
+    log(f"phase 52: Sun raster, FLI / FLC, FITS, GBR, McIdas, PIXAR, XPM and XV thumbnail "
+        f"decoding without PIL: the fixtures' digests, the 2048^2 albedo as a run-length Sun "
+        f"raster, a BRUN FLC and a FITS, the config-3 CLI on the Sun raster [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if k.startswith(RASTER_FIXTURES)}
+    formats = {}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            fmt, px = decode_with_format(f.read(), fname)
+        formats[fmt] = formats.get(fmt, 0) + 1
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    check(len(digests) >= 16 and len(formats) == 8,
+          f"{len(digests)} raster fixtures of {sorted(formats)}")
+    log(f"  {len(digests)} fixtures decoded ({', '.join(f'{k} {v}' for k, v in formats.items())}); "
+        f"every SHA-256 equals PIL {', '.join(sorted({r['pil'] for r in digests.values()}))}'s "
+        "in digests.json")
+
+    t0 = time.perf_counter()
+    files = raster_albedo_files(albedo_png()[1])
+    log(f"  wrote the 2048^2 albedo in three forms in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {len(v)} bytes" for k, v in files.items()) + ")")
+    with open(GENERATED) as f:
+        recorded = json.load(f)
+    check(set(files) <= set(recorded), f"wrote {sorted(files)}, the record holds {sorted(recorded)}")
+    names = {"ras": "SUN", "flc": "FLI", "fits": "FITS"}
+    for fname, data in files.items():
+        rec = recorded[fname]
+        file_sha = hashlib.sha256(data).hexdigest()
+        check(file_sha == rec["file_sha256"],
+              f"{fname}: written as sha256 {file_sha[:16]}..., recorded {rec['file_sha256'][:16]}...")
+        fmt, px = decode_with_format(data, fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+        check(fmt == names[fname.rsplit(".", 1)[1]], f"{fname} read as {fmt}")
+    log(f"  the three files equal the recorded bytes and decode to PIL "
+        f"{', '.join(sorted({recorded[k]['pil'] for k in files}))}'s recorded reads")
+    out = {}
+    png_s, png_runs = png_decode_median()
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for fname, data in files.items():
+        med, runs = _median_s(lambda: decode_with_format(data, fname))
+        out[f"{fname}_decode_s"] = med
+        log(f"  {fname} decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+            f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+    check(out[f"{RASTER_CLI_SUN}_decode_s"] <= png_s,
+          f"{RASTER_CLI_SUN} decodes in {out[f'{RASTER_CLI_SUN}_decode_s']:.4f} s, slower than "
+          f"the PNG's {png_s:.4f} s")
+
+    frames, cli, _ = config3_cli_runs(card, traversal, cli_render,
+                                      {"albedo.ras": files[RASTER_CLI_SUN]}, ("albedo.ras",),
+                                      set())
+    out.update(cli)
+    check(np.array_equal(frames["albedo.ras"], png_frame),
+          "the frame on the Sun raster albedo differs from phase 51's PNG route of its pixels")
+    log("  the Sun raster albedo's frame is bit-equal to phase 51's PNG route of its pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 52: {out['phase_s']:.1f} s")
     return out
 
 
@@ -3783,7 +3904,7 @@ def main():
     with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG Huffman and
         # arithmetic decoders, the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
-        # the QOI decoder, the SGI / PCX / ThunderScan run-length decoder, the ZSTD
+        # the QOI decoder, the SGI / PCX / Sun / FLI / ThunderScan run-length decoder, the ZSTD
         # decoder, the CCITT decoder, the JPEG 2000 decoder and the Lab evaluator
         natives = {n: pool.submit(native_loader.build, n) for n in native_names}
         builds = {kname: pool.submit(kbuild.build, kname) for kname in KERNELS}
@@ -4365,11 +4486,12 @@ def main():
     jpeg2000_phase(card, traversal, cli_render)
     lab_phase(card, traversal, cli_render)
     plugins = plugin_phase(card, traversal, cli_render)
+    raster_phase(card, traversal, cli_render, plugins["png_frame"])
     tree_err = max(tree_err, fax["tree_err"], plugins["tree_err"])
     tree_occ_err = max(tree_occ_err, fax["tree_occ_err"], plugins["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 52: result ----------------------------------------------------
+    # ---- phase 53: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -54,6 +54,7 @@ from tools.make_torch_port_image_fixtures import (
     lab_pnm_dib_icns_fixtures,
     plugin_albedo_files,
     psd_bytes,
+    raster_albedo_files,
     tiff_bytes,
 )
 
@@ -282,7 +283,7 @@ def test_lab_fixture_decodes_to_its_digest_and_reads_as_jax(name):
 
 
 def test_generated_albedo_files_are_recorded_as_pil_reads_them():
-    """The 2048^2 files chip_smoke.py phases 50 and 51 write: the same
+    """The 2048^2 files chip_smoke.py phases 50, 51 and 52 write: the same
     bytes as recorded, PIL's decode as recorded, and the port's decode equal
     to it."""
     from akari_torch.scene.builtin import envtex_texture
@@ -290,11 +291,13 @@ def test_generated_albedo_files_are_recorded_as_pil_reads_them():
     with open(GENERATED) as f:
         rec = json.load(f)
     albedo = envtex_texture(2048, 0)
-    files = {**lab_albedo_files(albedo), **plugin_albedo_files(albedo)}
+    files = {**lab_albedo_files(albedo), **plugin_albedo_files(albedo),
+             **raster_albedo_files(albedo)}
     assert sorted(files) == sorted(rec) == sorted([
         "albedo2048_lab.tif", "albedo2048_lab_lzw.tif", "albedo2048_lab_packbits.psd",
         "albedo2048.pfm", "albedo2048_24.dib", "albedo2048_rgb.im", "albedo2048_rgb.dcx",
-        "albedo2048_ycc_orient1.pcd"])
+        "albedo2048_ycc_orient1.pcd", "albedo2048_rle24.ras", "albedo2048_brun.flc",
+        "albedo2048_grey8.fits"])
     for name, data in files.items():
         assert hashlib.sha256(data).hexdigest() == rec[name]["file_sha256"], name
         want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))

@@ -45,6 +45,7 @@ from tools.make_torch_port_image_fixtures import (
     lab_albedo_files,
     pattern,
     plugin_albedo_files,
+    raster_albedo_files,
     tga_bytes,
 )
 
@@ -389,14 +390,15 @@ def test_every_fixture_reads_as_the_format_pil_names(name):
 
 
 def test_generated_albedo_files_read_as_the_format_pil_names(tmp_path):
-    """``lab_albedo_files`` and ``plugin_albedo_files`` (chip_smoke.py's
-    2048^2 files) at 1024^2 and 256^2: the same forms, each read as PIL
-    names it, bit-equal."""
+    """``lab_albedo_files``, ``plugin_albedo_files`` and
+    ``raster_albedo_files`` (chip_smoke.py's 2048^2 files) at 1024^2 and
+    256^2: the same forms, each read as PIL names it, bit-equal."""
     from akari_torch.scene.builtin import envtex_texture
 
     files = {**lab_albedo_files(envtex_texture(256, 0)),
-             **plugin_albedo_files(envtex_texture(1024, 0))}
-    assert len(files) == 8
+             **plugin_albedo_files(envtex_texture(1024, 0)),
+             **raster_albedo_files(envtex_texture(1024, 0))}
+    assert len(files) == 11
     for name, data in files.items():
         fmt = _check(tmp_path, data, name=name)
         assert fmt is not None, name

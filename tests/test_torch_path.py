@@ -201,6 +201,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import akari_torch.core.webp, akari_torch.core.lcms, akari_torch.core.icns\n"
         "import akari_torch.core.im, akari_torch.core.iptc, akari_torch.core.pcd\n"
         "import akari_torch.core.spider, akari_torch.core.pcx\n"
+        "import akari_torch.core.sun, akari_torch.core.fli, akari_torch.core.fits\n"
+        "import akari_torch.core.rasters, akari_torch.core.xpm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'akari_tpu', 'ml_dtypes', 'PIL')]\n"
         "print(','.join(bad))\n"

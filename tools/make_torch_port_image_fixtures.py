@@ -70,11 +70,15 @@ Writes into ``tests/data/torch_port_images/``:
   writers (IM, SPIDER, MSP version 1, XBM) and ``tools/raster_writers.py``
   for every IM image type and Lut form, IM Tools, IPTC raw and JPEG data,
   SPIDER stacks, DCX pages and version-2 MSP;
+- Sun raster, FLI / FLC, FITS, GBR, McIdas, PIXAR, XV thumbnail and XPM
+  files (``raster_fixtures``), from ``tools/raster_writers.py`` (Pillow
+  writes none of them), a few hundred bytes each, the FITS files a few KB;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them;
 - ``tests/data/torch_port_generated_images.json`` (``GENERATED``): the
-  2048^2 albedo files of ``lab_albedo_files`` and ``plugin_albedo_files``,
+  2048^2 albedo files of ``lab_albedo_files``, ``plugin_albedo_files`` and
+  ``raster_albedo_files``,
   which ``chip_smoke.py`` writes on the card's machine rather than reading
   them from the repository: each file's SHA-256 and PIL's decode of it.
 
@@ -86,7 +90,7 @@ digests; ``tests/test_torch_image_decode.py``,
 decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
-           [--only jpeg2000|lab_pnm_dib_icns|plugins]
+           [--only jpeg2000|lab_pnm_dib_icns|plugins|rasters]
 """
 
 from __future__ import annotations
@@ -1718,6 +1722,85 @@ def plugin_fixtures():
     return out
 
 
+def raster_albedo_files(px):
+    """The config-3 albedo ``px`` ([H, W, 3] uint8) in the forms
+    ``chip_smoke.py`` phase 52 decodes, written with integer numpy only: a
+    24-bit run-length Sun raster of its pixels, an FLC whose frame 0 is a
+    colour chunk (the RGB332 palette) and a BRUN chunk of its RGB332
+    indices, and a raw 8-bit FITS of its channels' integer mean (rows
+    stored bottom first, as FITS stores them)."""
+    from tools import raster_writers as rw
+
+    h, w = px.shape[:2]
+    idx = rw.rgb332(px)
+    i = np.arange(256)
+    pal = np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7, (i & 3) * 255 // 3], -1)
+    frame = rw.fli_frame([rw.fli_chunk(4, rw.fli_colour([(0, pal)])),
+                          rw.fli_chunk(15, rw.fli_brun(idx))])
+    grey = (px.astype(np.uint16).sum(axis=-1) // 3).astype(np.uint8)
+    return {f"albedo{w}_rle24.ras": rw.sun_bytes(px, 24, 2),
+            f"albedo{w}_brun.flc": rw.fli_bytes(w, h, [frame]),
+            f"albedo{w}_grey8.fits": rw.fits_bytes(grey[::-1], 8)}
+
+
+def raster_fixtures():
+    """The Sun raster, FLI / FLC, FITS, GBR, McIdas, PIXAR, XV thumbnail
+    and XPM fixtures, all from ``tools/raster_writers.py`` (Pillow writes
+    none of these formats): Sun rasters raw and run-length at depths 1, 8
+    (palette), 24 and 32 (RGBX, file type 3); an FLC (colour chunk of 8-bit
+    entries, BRUN, LC, stamp, a second frame) and an FLI (6-bit entries,
+    COPY, SS2); FITS raw 8-bit and a GZIP_1 table of 16-bit samples; GBR
+    versions 1 and 2 (grey, RGBA); McIdas of 1 and 4 bytes an element with
+    line prefixes; PIXAR; an XV thumbnail; XPM of one and two characters a
+    pixel (a ``None`` key unused). Each is a few hundred bytes, the FITS
+    files a few KB (2,880-byte units), under the fixtures' size budget."""
+    from tools import raster_writers as rw
+
+    r = np.random.default_rng(130)
+    px = pattern(9, 13, 131)
+    h, w = px.shape[:2]
+    grey = px[..., 1]
+    px[:, :4] = px[:, :1]   # flat runs for the run-length codes
+    out = {}
+    pal16 = r.integers(0, 256, (16, 3))
+    out[f"sun_rle24_{w}x{h}.ras"] = rw.sun_bytes(px, 24, 2, most=5)
+    out[f"sun_rle8_palette_{w}x{h}.ras"] = rw.sun_bytes(grey >> 4, 8, 2, palette=pal16)
+    out[f"sun_1bit_{w}x{h}.ras"] = rw.sun_bytes(grey > 100, 1)
+    out[f"sun_rgbx32_type3_{w}x{h}.ras"] = rw.sun_bytes(px, 32, 3)
+    idx = (grey >> 4).astype(np.uint8)
+    idx[:, :5] = 3
+    new = idx.copy()
+    new[2, 3:9], new[5, 0] = 9, 1
+    flc = rw.fli_frame([rw.fli_chunk(4, rw.fli_colour([(0, pal16[:8]), (2, pal16[8:])])),
+                        rw.fli_chunk(15, rw.fli_brun(idx, 6)),
+                        rw.fli_chunk(12, rw.fli_lc(new, idx)),
+                        rw.fli_chunk(18, bytes(range(12)))])
+    out[f"flc_brun_lc_{w}x{h}.flc"] = rw.fli_bytes(w, h, [flc, rw.fli_frame(
+        [rw.fli_chunk(13, bytes(4))])])
+    w2 = w - 1   # SS2 patches words
+    new2 = new[:, :w2].copy()
+    new2[1, 2:6], new2[7, 6:8] = 12, 4
+    fli = rw.fli_frame([rw.fli_chunk(11, rw.fli_colour([(0, pal16 >> 2)], 11)),
+                        rw.fli_chunk(16, new[:, :w2].tobytes()),
+                        rw.fli_chunk(7, rw.fli_ss2(new2, new[:, :w2]))])
+    out[f"fli_copy_ss2_{w2}x{h}.fli"] = rw.fli_bytes(w2, h, [fli], magic=0xAF11)
+    out[f"fits_grey8_{w}x{h}.fits"] = rw.fits_bytes(grey, 8, cards=[rw.fits_card("BZERO", 0)])
+    out[f"fits_gzip16_{w}x{h}.fits"] = rw.fits_gzip_bytes(grey.astype(np.int32) * 257 - 300, 16,
+                                                          pad=False)
+    out[f"gbr_v1_grey_{w}x{h}.gbr"] = rw.gbr_bytes(grey, 1, comment=b"old brush")
+    out[f"gbr_v2_rgba_{w}x{h}.gbr"] = rw.gbr_bytes(
+        np.concatenate([px, grey[..., None]], axis=-1), 2, comment=b"GIMP brush")
+    out[f"mcidas_1byte_prefix_{w}x{h}.area"] = rw.mcidas_bytes(grey, 1, prefix=b"\1\2\3")
+    out[f"mcidas_4byte_{w}x{h}.area"] = rw.mcidas_bytes(
+        grey.astype(np.int32) * 3 - 200, 4, offset=264)
+    out[f"pixar_rgb_{w}x{h}.pxr"] = rw.pixar_bytes(px)
+    out[f"xvthumb_{w}x{h}.xv"] = rw.xvthumb_bytes(rw.rgb332(px))
+    out[f"xpm_p_{w}x{h}.xpm"] = rw.xpm_bytes(grey >> 5, r.integers(0, 256, (8, 3)))
+    out[f"xpm_p_2chars_none_{w}x{h}.xpm"] = rw.xpm_bytes(
+        (grey >> 6) + 1, [b"None"] + list(r.integers(0, 256, (4, 3))), bpp=2)
+    return out
+
+
 def generated_record(files):
     """name -> the file's SHA-256 and PIL's decode of it (digest, shape,
     version), for ``lab_albedo_files``' and ``plugin_albedo_files``' output."""
@@ -1733,9 +1816,10 @@ def generated_record(files):
 
 
 def write_generated(albedo):
-    """Record ``lab_albedo_files`` and ``plugin_albedo_files`` of the 2048^2
-    albedo in ``GENERATED``."""
-    files = {**lab_albedo_files(albedo), **plugin_albedo_files(albedo)}
+    """Record ``lab_albedo_files``, ``plugin_albedo_files`` and
+    ``raster_albedo_files`` of the 2048^2 albedo in ``GENERATED``."""
+    files = {**lab_albedo_files(albedo), **plugin_albedo_files(albedo),
+             **raster_albedo_files(albedo)}
     with open(GENERATED, "w") as f:
         json.dump(generated_record(files), f, indent=1, sort_keys=True)
         f.write("\n")
@@ -1744,7 +1828,7 @@ def write_generated(albedo):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
-    ap.add_argument("--only", choices=["jpeg2000", "lab_pnm_dib_icns", "plugins"],
+    ap.add_argument("--only", choices=["jpeg2000", "lab_pnm_dib_icns", "plugins", "rasters"],
                     help="write only this group's files and merge their digests into "
                          "digests.json, leaving the other fixtures as they are")
     args = ap.parse_args(argv)
@@ -1765,12 +1849,12 @@ def main(argv=None):
         with open(path) as f:
             digests = json.load(f)
         group = {"jpeg2000": jpeg2000_fixtures, "lab_pnm_dib_icns": lab_pnm_dib_icns_fixtures,
-                 "plugins": plugin_fixtures}[args.only]
+                 "plugins": plugin_fixtures, "rasters": raster_fixtures}[args.only]
         for name, data in group().items():
             with open(os.path.join(args.output, name), "wb") as f:
                 f.write(data)
             digests[name] = digest(name)
-        if args.only in ("lab_pnm_dib_icns", "plugins"):
+        if args.only in ("lab_pnm_dib_icns", "plugins", "rasters"):
             write_generated(envtex_texture(2048, 0))
         with open(path, "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
@@ -1830,7 +1914,8 @@ def main(argv=None):
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
                        **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
                        **jpeg_form_fixtures(), **fax_fixtures(), **jpeg2000_fixtures(),
-                       **lab_pnm_dib_icns_fixtures(), **plugin_fixtures()}.items():
+                       **lab_pnm_dib_icns_fixtures(), **plugin_fixtures(),
+                       **raster_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
             f.write(data)
 

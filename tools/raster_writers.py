@@ -260,3 +260,394 @@ def xbm_bytes(bits, name="img", hotspot=None, per_line=12, upper=False, sep=b", 
     items = [(fmt % v).encode() for v in vals.tolist()]
     lines = [sep.join(items[i:i + per_line]) for i in range(0, len(items), per_line)]
     return out + (sep.strip() + b"\n").join(lines) + b"\n};\n"
+
+
+# ------------------------------------------------------------------ SUN
+
+
+def sun_rows(px, depth, file_type=1, pad=True):
+    """[H, W] values (depth 1, 4, 8) or [H, W, 3] RGB (24, 32) -> the rows
+    of a Sun raster: bits and nibbles most significant first, 24 and 32
+    bits in RGB / RGBX order for file type 3 and BGR / BGRX otherwise (X
+    zero), each row padded to 16 bits (``pad``)."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    if depth == 1:
+        rows = np.packbits(px & 1, axis=1)
+    elif depth == 4:
+        nib = np.zeros((h, w + (w & 1)), np.uint8)
+        nib[:, :w] = px & 15
+        rows = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    elif depth == 8:
+        rows = px
+    else:
+        order = [0, 1, 2] if file_type == 3 else [2, 1, 0]
+        chans = [px[..., k] for k in order]
+        if depth == 32:
+            chans.append(np.zeros((h, w), np.uint8))
+        rows = np.stack(chans, axis=-1).reshape(h, -1)
+    if pad and rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((h, 1), np.uint8)], axis=1)
+    return rows
+
+
+def sun_rle(data, most=256):
+    """Bytes -> Sun's run-length code, with numpy only: runs of three or
+    more equal bytes (and any run of 0x80) as ``0x80, n - 1, byte`` (n up to
+    ``most`` <= 256), a single 0x80 as ``0x80, 0``, other bytes as
+    themselves. Runs cross rows as the stream does."""
+    d = np.frombuffer(bytes(data), np.uint8)
+    if not len(d):
+        return b""
+    starts = np.flatnonzero(np.concatenate([[True], d[1:] != d[:-1]]))
+    lens = np.diff(np.append(starts, len(d)))
+    pieces = -(-lens // most)
+    run = np.repeat(np.arange(len(starts)), pieces)
+    k = np.arange(len(run)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    plen = np.minimum(most, lens[run] - k * most)
+    val = d[starts[run]]
+    esc = (plen >= 3) | ((val == 0x80) & (plen == 2))
+    lit80 = (val == 0x80) & (plen == 1)
+    size = np.where(esc, 3, np.where(lit80, 2, plen))
+    off = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()), np.uint8)
+    e = np.flatnonzero(esc)
+    out[off[e]], out[off[e] + 1], out[off[e] + 2] = 0x80, plen[e] - 1, val[e]
+    out[off[lit80]] = 0x80
+    lit = np.flatnonzero(~esc & ~lit80)
+    out[off[lit]] = val[lit]
+    two = lit[plen[lit] == 2]
+    out[off[two] + 1] = val[two]
+    return out.tobytes()
+
+
+def sun_bytes(px, depth, file_type=1, palette=None, body=None, most=256):
+    """A Sun raster file: the 32-byte header (magic, width, height,
+    depth, data length, file type, palette type 1 under a palette, palette
+    length), the palette (``palette`` [n, 3] written as PIL's ``RGB;L``: the
+    n reds, then greens, then blues; or raw bytes) and ``sun_rows`` of
+    ``px``, run-length coded by ``sun_rle`` (runs of up to ``most``) for
+    file type 2 (rows unpadded there, as PIL reads them); ``body`` replaces
+    the data."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    if body is None:
+        rows = sun_rows(px, depth, file_type, pad=file_type != 2)
+        body = rows.tobytes() if file_type != 2 else sun_rle(rows.tobytes(), most)
+    pal = b""
+    if palette is not None:
+        pal = palette if isinstance(palette, bytes) else \
+            np.asarray(palette, np.uint8).T.tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), file_type, 1 if pal else 0,
+                       len(pal))
+    return head + pal + bytes(body)
+
+
+# ------------------------------------------------------------------ FLI / FLC
+
+
+def fli_chunk(kind, payload):
+    """One subchunk of a frame: its size (6 + payload), type, payload."""
+    return struct.pack("<IH", 6 + len(payload), kind) + bytes(payload)
+
+
+def fli_frame(chunks):
+    """A frame chunk: size, type (0xF1FA), the subchunk count, 8 reserved
+    bytes, then ``chunks`` (subchunk bytes)."""
+    body = b"".join(chunks)
+    return struct.pack("<IHH8x", 16 + len(body), 0xF1FA, len(chunks)) + body
+
+
+def fli_bytes(w, h, frames, magic=0xAF12, n_frames=None, flags=3, prefix=None):
+    """An FLI (``magic`` 0xAF11) or FLC (0xAF12) file: the 128-byte header
+    (its reserved ranges zero, as PIL checks them), an optional prefix
+    chunk (``prefix`` payload, type 0xF100) and the ``frames`` (frame chunk
+    bytes)."""
+    body = b"".join(frames)
+    if prefix is not None:
+        body = struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix + body
+    n = len(frames) if n_frames is None else n_frames
+    head = struct.pack("<IHHHHHHI", 128 + len(body), magic, n, w, h, 8, flags, 5)
+    return head + bytes(128 - len(head)) + body
+
+
+def fli_colour(entries, kind=4):
+    """A colour chunk payload (type 4: 8-bit components, 11: 6-bit):
+    ``entries`` [(skip, [[r, g, b], ...]), ...] packets; 256 colours are
+    written with a count of 0."""
+    out = struct.pack("<H", len(entries))
+    for skip, cols in entries:
+        cols = np.asarray(cols, np.uint8).reshape(-1, 3)
+        out += bytes([skip, len(cols) & 255]) + cols.tobytes()
+    return out
+
+
+def fli_brun(idx, most=127):
+    """[H, W] indices -> a BRUN chunk payload, with numpy only: per line a
+    packet-count byte, then the line cut into pieces of ``most`` (<= 127)
+    pixels, each a run (count, byte) where its pixels are equal, else a
+    literal (-count, bytes)."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    seg = np.minimum(most, w - np.arange(0, w, most))
+    n = len(seg)
+    blocks = np.zeros((h, n * most), np.uint8)
+    blocks[:, :w] = idx
+    blocks = blocks.reshape(h, n, most)
+    valid = np.arange(most)[None, :] < seg[:, None]
+    run = ((blocks == blocks[:, :, :1]) | ~valid).all(axis=2)
+    size = np.where(run, 2, seg[None, :] + 1)
+    row_start = np.cumsum(1 + size.sum(axis=1)) - (1 + size.sum(axis=1))
+    off = row_start[:, None] + 1 + np.cumsum(size, axis=1) - size
+    out = np.zeros(int(row_start[-1] + 1 + size[-1].sum()), np.uint8)
+    out[row_start] = n & 255
+    out[off] = np.where(run, seg[None, :], 256 - seg[None, :])
+    out[off[run] + 1] = blocks[run][:, 0]
+    y, s, j = np.nonzero(~run[:, :, None] & valid[None])
+    out[off[y, s] + 1 + j] = blocks[y, s, j]
+    return out.tobytes()
+
+
+def fli_lc(new, old, r=None):
+    """[H, W] indices over the previous frame ``old`` -> an LC (byte delta)
+    payload: the first changed line, the line count, then per line a packet
+    count and packets (skip, count, bytes) / (skip, -count, byte)."""
+    new, old = np.asarray(new, np.uint8), np.asarray(old, np.uint8)
+    changed = np.flatnonzero((new != old).any(axis=1))
+    if not len(changed):
+        return struct.pack("<HH", 0, 0)
+    y0, y1 = int(changed[0]), int(changed[-1]) + 1
+    out = bytearray(struct.pack("<HH", y0, y1 - y0))
+    for y in range(y0, y1):
+        row, prev, w = new[y], old[y], new.shape[1]
+        packets, x, line = 0, 0, bytearray()
+        while x < w:
+            skip = 0
+            while x < w and row[x] == prev[x] and skip < 255:
+                x, skip = x + 1, skip + 1
+            if x >= w:
+                break
+            most = 127 if r is None else int(r.integers(1, 128))
+            j = x
+            while j < w and row[j] == row[x] and j - x < most:
+                j += 1
+            if j - x >= 3:
+                line += bytes([skip, 256 - (j - x), row[x]])
+            else:
+                j = min(w, x + most)
+                line += bytes([skip, j - x]) + row[x:j].tobytes()
+            packets += 1
+            x = j
+        out += bytes([packets]) + line
+    return bytes(out)
+
+
+def fli_ss2(new, old, r=None):
+    """[H, W] indices (W even) over ``old`` -> an SS2 (word delta) payload:
+    the line count, then per coded line its packet count word (after a
+    line-skip word when lines are skipped), packets (skip, count, words) /
+    (skip, -count, word)."""
+    new, old = np.asarray(new, np.uint8), np.asarray(old, np.uint8)
+    h, w = new.shape
+    out, lines, skip_lines = bytearray(), 0, 0
+    for y in range(h):
+        if (new[y] == old[y]).all():
+            skip_lines += 1
+            continue
+        if skip_lines:
+            out += struct.pack("<H", 65536 - skip_lines)
+            skip_lines = 0
+        words = new[y].reshape(-1, 2)
+        same = (new[y] == old[y]).reshape(-1, 2).all(axis=1)
+        packets, x, line = 0, 0, bytearray()
+        while x < len(words):
+            skip = 0
+            while x < len(words) and same[x] and skip < 127:
+                x, skip = x + 1, skip + 1
+            if x >= len(words):
+                break
+            most = 127 if r is None else int(r.integers(1, 128))
+            j = x
+            while j < len(words) and (words[j] == words[x]).all() and j - x < most:
+                j += 1
+            if j - x >= 2:
+                line += bytes([2 * skip, 256 - (j - x)]) + words[x].tobytes()
+            else:
+                j = min(len(words), x + most)
+                line += bytes([2 * skip, j - x]) + words[x:j].tobytes()
+            packets += 1
+            x = j
+        out += struct.pack("<H", packets) + line
+        lines += 1
+    return struct.pack("<H", lines) + bytes(out)
+
+
+# ------------------------------------------------------------------ FITS
+
+
+def fits_card(key, value=None, comment=None):
+    """One 80-byte header card: the keyword in 8 columns, ``= value``."""
+    card = f"{key:<8}"
+    if value is not None:
+        card += "= " + (f"{value:>20}" if not str(value).startswith("'") else str(value))
+    if comment:
+        card += " / " + comment
+    return card.ljust(80)[:80].encode("ascii")
+
+
+def fits_unit(cards):
+    """Cards -> a header unit: ``END`` and spaces to a multiple of 2880."""
+    head = b"".join(cards) + fits_card("END")
+    return head + b" " * (-len(head) % 2880)
+
+
+def fits_bytes(values, bitpix, naxis=2, cards=()):
+    """[H, W] values -> a FITS file: SIMPLE, BITPIX, NAXIS, NAXIS1 (width)
+    and NAXIS2 (height) (NAXIS 1: the H values of a column), ``cards``,
+    then the big-endian data (rows as given: FITS stores the bottom row
+    first), zero-padded to 2880 bytes."""
+    v = np.asarray(values)
+    h, w = v.shape
+    dtype = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    axes = [("NAXIS1", w), ("NAXIS2", h)] if naxis == 2 else [("NAXIS1", h)]
+    head = [fits_card("SIMPLE", "T"), fits_card("BITPIX", bitpix), fits_card("NAXIS", naxis)]
+    head += [fits_card(k, n) for k, n in axes] + list(cards)
+    body = v.astype(dtype).tobytes()
+    return fits_unit(head) + body + bytes(-len(body) % 2880)
+
+
+def fits_gzip_bytes(values, zbitpix, pad=True):
+    """[H, W] values -> a FITS file PIL reads through its ``GZIP_1``
+    route: an empty primary unit (NAXIS 0) and a BINTABLE extension with
+    ZIMAGE = T, ZCMPTYPE = 'GZIP_1  ', ZBITPIX, ZNAXIS1 / ZNAXIS2, and a
+    gzip stream of one big-endian 4-byte word a pixel, rows as given (PIL
+    reverses them), zero-padded to 2880 bytes (``pad``; PIL needs no
+    padding)."""
+    import gzip
+
+    v = np.asarray(values)
+    h, w = v.shape
+    z = gzip.compress(v.astype(">i4").tobytes(), 6, mtime=0)
+    prim = fits_unit([fits_card("SIMPLE", "T"), fits_card("BITPIX", 8), fits_card("NAXIS", 0)])
+    ext = fits_unit([fits_card("XTENSION", "'BINTABLE'"), fits_card("BITPIX", 8),
+                     fits_card("NAXIS", 2), fits_card("NAXIS1", 8), fits_card("NAXIS2", 0),
+                     fits_card("ZIMAGE", "T"), fits_card("ZCMPTYPE", "'GZIP_1  '"),
+                     fits_card("ZBITPIX", zbitpix), fits_card("ZNAXIS", 2),
+                     fits_card("ZNAXIS1", w), fits_card("ZNAXIS2", h)])
+    return prim + ext + z + bytes(-len(z) % 2880 if pad else 0)
+
+
+# ------------------------------------------------------------------ GBR, McIdas, PIXAR, XV
+
+
+def gbr_bytes(px, version=2, comment=b"brush", spacing=10, header_size=None):
+    """[H, W] grey or [H, W, 4] RGBA -> a GIMP brush: header size, version,
+    width, height, depth (1 or 4), for version 2 ``GIMP`` and the spacing,
+    the comment and its NUL, then the pixels."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else px.shape[2]
+    name = bytes(comment) + b"\0"
+    fixed = 20 if version == 1 else 28
+    size = fixed + len(name) if header_size is None else header_size
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version != 1:
+        head += b"GIMP" + struct.pack(">I", spacing)
+    return head + name + px.tobytes()
+
+
+def mcidas_bytes(values, nbytes, prefix=b"", bands=1, offset=256, words=None):
+    """[H, W] values -> a McIdas area: the 256-byte directory of 64
+    big-endian words (w[2] = 4, lines w[9], elements w[10], bytes per
+    element w[11], bands w[14], line prefix length w[15], data offset
+    w[34]; ``words`` {1-based index: value} overrides them), then each line
+    as its prefix, its big-endian samples and ``bands`` - 1 more bands
+    (the samples reversed)."""
+    v = np.asarray(values)
+    h, w = v.shape
+    d = [0] * 65
+    d[2], d[9], d[10], d[11], d[14], d[15], d[34] = 4, h, w, nbytes, bands, len(prefix), offset
+    for k, val in (words or {}).items():
+        d[k] = val
+    head = struct.pack(">64i", *d[1:])
+    rows = v.astype({1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]).view(np.uint8).reshape(h, -1)
+    parts = [np.tile(np.frombuffer(bytes(prefix), np.uint8), (h, 1)), rows]
+    parts += [rows[::-1]] * (bands - 1)
+    return head + bytes(max(0, offset - 256)) + np.concatenate(parts, axis=1).tobytes()
+
+
+def pixar_bytes(px, mode=(14, 2), fill=0):
+    """[H, W, 3] RGB -> a PIXAR raster: the magic, the 16-bit width at
+    418 and height at 416, the channel / depth pair at 424, the header
+    filled to 1024 bytes with ``fill``, then the RGB pixels."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    head = bytearray([fill]) * 1024
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, *mode)
+    return bytes(head) + px.tobytes()
+
+
+def xvthumb_bytes(idx, comments=(b"#XVVERSION:Version 2.28",), first=b" \n", size=None):
+    """[H, W] RGB332 indices -> an XV thumbnail: ``P7 332``, the rest of
+    the first line, ``#`` comment lines, ``#END_OF_COMMENTS``, the size line
+    (``size`` replaces it) and the bytes."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    head = b"P7 332" + first + b"".join(c + b"\n" for c in comments) + b"#END_OF_COMMENTS\n"
+    head += (b"%d %d 255\n" % (w, h)) if size is None else size
+    return head + idx.tobytes()
+
+
+def rgb332(px):
+    """[H, W, 3] RGB -> the nearest-below RGB332 index of each pixel."""
+    px = np.asarray(px, np.uint16)
+    return ((px[..., 0] * 8 // 256) << 5 | (px[..., 1] * 8 // 256) << 2
+            | px[..., 2] * 4 // 256).astype(np.uint8)
+
+
+# ------------------------------------------------------------------ XPM
+
+
+def xpm_keys(n, bpp):
+    """n distinct keys of ``bpp`` printable characters (no quote or
+    backslash)."""
+    alphabet = bytes(range(35, 127)).replace(b"\\", b"")
+    keys = []
+    for i in range(n):
+        k, v = b"", i
+        for _ in range(bpp):
+            k = alphabet[v % len(alphabet):v % len(alphabet) + 1] + k
+            v //= len(alphabet)
+        keys.append(k)
+    return keys
+
+
+def xpm_bytes(idx, colours, bpp=None, keys=None, pixels_comment=True, colour_lines=None,
+              rows=None):
+    """[H, W] indices into ``colours`` ([n, 3] RGB, or strings such as
+    ``None``) -> an XPM file: ``/* XPM */``, the C array, the values line,
+    one ``"<key> c #rrggbb",`` line a colour (``colour_lines`` replaces
+    them), an optional ``/* pixels */`` line and one quoted row a line
+    (``rows`` replaces them)."""
+    idx = np.asarray(idx)
+    h, w = idx.shape
+    n = len(colours)
+    bpp = bpp or max(1, int(np.ceil(np.log(max(n, 2)) / np.log(90))))
+    keys = keys or xpm_keys(n, bpp)
+    out = b"/* XPM */\nstatic char *img[] = {\n"
+    out += b'"%d %d %d %d",\n' % (w, h, n, bpp)
+    if colour_lines is None:
+        colour_lines = []
+        for k, c in zip(keys, colours):
+            spec = c if isinstance(c, bytes) else b"#%02x%02x%02x" % tuple(int(x) for x in c)
+            colour_lines.append(b'"' + k + b" c " + spec + b'",')
+    out += b"\n".join(colour_lines) + b"\n"
+    if pixels_comment:
+        out += b"/* pixels */\n"
+    if rows is None:
+        table = np.array(keys, dtype=f"S{bpp}")
+        rows = [b'"' + table[r].tobytes() + b'",' for r in idx]
+    out += b"\n".join(rows) + b"\n};\n"
+    return out
