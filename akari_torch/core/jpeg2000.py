@@ -21,10 +21,38 @@ returns the [H, W, 3] uint8 pixels of PIL's ``convert("RGB")``:
   the palette, CMYK (``image_formats._cmyk_to_rgb``) and 16-bit grey (PIL's
   ``I;16``, clipped at 255) are converted to RGB here.
 
+HTJ2K (JPEG 2000 Part 15) code-blocks are read as OpenJPEG's ``ht_dec.c``
+reads them, with its VLC tables compiled in (``j2k_ht_tables.h``):
+
+- tier 2 gives a code-block's first segment the cleanup pass alone and the
+  next segment every other pass of the packet, its length in Lblock +
+  floor(log2(passes)) bits; placeholder passes are not understood: with an
+  empty second segment the block is read as its cleanup pass (OpenJPEG
+  warns), with data there it is refused (more than 3 passes);
+- the cleanup pass (MEL, VLC / UVLC, MagSgn), then SigProp (stripes of 4
+  rows, groups of 4 columns whose signs follow their significance bits) and
+  MagRef; the samples leave at the MQ path's fixed point (the band's
+  bit-planes ``Mb`` above the zero bit-planes, the bin centre set), so the
+  same dequantisation follows;
+- OpenJPEG's limits: more than 3 passes, ``Mb`` above 30, more zero
+  bit-planes than ``Mb``, bad segment lengths, Scup outside [2, min(Lcup,
+  4079)], an 0xFF then a byte above 0x8F at the MEL stream's start, U_q above
+  the zero bit-planes + 1, significant samples outside the block and an ROI
+  shift refuse the file; a second segment of no bytes, or zero bit-planes
+  equal to ``Mb``, leave the cleanup pass alone; the mixed HT style (0x80)
+  is refused when COD / COC is read;
+- a Part-15 JP2 (brand ``jph ``) is read like any JP2, as PIL reads it.
+
+The Part-2 MCT, MCC, MCO and CBD markers are read as OpenJPEG reads them:
+their size and index checks refuse what OpenJPEG refuses, and what it skips
+with a warning is skipped; an MCO zeroes every component's DC level shift
+and then takes the offsets of an MCC's offset array (only the first MCC
+record is matched, as in ``opj_j2k_add_mct``); a CBD sets the precision and
+sign, the DC level shift staying SIZ's. COD transform 2 is refused, as
+OpenJPEG refuses it. A reversible DC level shift adds in 32 bits, wrapping.
+
 Where OpenJPEG or Pillow refuses a file (a truncated or corrupt codestream,
-a mode Pillow has no unpacker for) the port raises ``ValueError``. Two
-forms OpenJPEG reads are still to be ported and are refused by name: HTJ2K
-(JPEG 2000 Part 15) and Part-2 array-based multiple component transforms.
+a mode Pillow has no unpacker for) the port raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,12 +72,6 @@ JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 # a raw codestream's, unspecified
 _CS_UNSPECIFIED = 0
 _ENUMCS = {16: 1, 17: 2, 18: 3, 24: 4, 12: 5}  # sRGB, grey, sYCC, e-sYCC, CMYK
-
-_STILL_TO_PORT = {
-    2: "HTJ2K (JPEG 2000 Part 15) is still to be ported",
-    3: "Part-2 array-based multiple component transforms are still to be ported",
-}
-
 
 def ycbcr_tables():
     """Pillow's ConvertYCbCr.c tables R_Cr, G_Cb, G_Cr, B_Cb ([4, 256] int32):
@@ -507,8 +529,6 @@ def decode_jpeg2000(data, what="JPEG 2000"):
         _YCC.ctypes.data_as(ctypes.c_void_p), err, len(err))
     if rc:
         msg = err.value.decode(errors="replace")
-        if rc in _STILL_TO_PORT:
-            raise ValueError(f"{what}: {_STILL_TO_PORT[rc]} ({msg})")
         raise ValueError(f"{what}: broken JPEG 2000 data (OpenJPEG / Pillow refuse it: {msg})")
     if mode == "I;16":
         note_band(grey16, "<")

@@ -24,10 +24,16 @@
 // - Pillow's unpackers per mode and colour space (subsampled components
 //   repeated from the tile origin, sYCC through Pillow's YCbCr tables).
 //
-// HTJ2K code-blocks (Part 15: the HT code-block style of COD / COC; Rsiz
-// bit 14 and the CAP / CPF markers alone change nothing, as in OpenJPEG)
-// and Part-2 array-based multiple component transforms (MCT / MCC / MCO /
-// CBD markers, COD transform 2) are refused with their own codes.
+// - HTJ2K code-blocks (Part 15, the HT code-block style of COD / COC) as
+//   OpenJPEG's ht_dec.c decodes them: tier 2's HT segments (the cleanup
+//   pass alone in the first, the SigProp and MagRef passes in the second),
+//   the cleanup pass (MEL, VLC with UVLC, MagSgn; VLC tables of
+//   j2k_ht_tables.h), the SigProp and MagRef passes, and OpenJPEG's limits
+//   and refusals; the samples leave at the MQ path's fixed point;
+// - the Part-2 MCT, MCC, MCO and CBD markers as OpenJPEG reads them: an MCO
+//   zeroes the DC level shifts and applies an MCC's offset array; a CBD
+//   sets the components' precision and sign. COD transform 2 is refused as
+//   OpenJPEG refuses it.
 
 #include <cmath>
 #include <cstdarg>
@@ -37,25 +43,26 @@
 #include <string>
 #include <vector>
 
+#include "j2k_ht_tables.h"
+
 namespace {
 
-enum { AKR_OK = 0, AKR_BROKEN = 1, AKR_HTJ2K = 2, AKR_PART2 = 3 };
+enum { AKR_OK = 0, AKR_BROKEN = 1 };
 
 struct Failure {
-    int code;
     std::string msg;
 };
 
-[[noreturn]] void fail_code(int code, const char* fmt, ...) {
+[[noreturn]] void fail(const char* fmt, ...) {
     char buf[512];
     va_list ap;
     va_start(ap, fmt);
     vsnprintf(buf, sizeof buf, fmt, ap);
     va_end(ap);
-    throw Failure{code, buf};
+    throw Failure{buf};
 }
 
-#define FAIL(...) fail_code(AKR_BROKEN, __VA_ARGS__)
+#define FAIL(...) fail(__VA_ARGS__)
 
 // OpenJPEG's colour spaces (opj_image_t.color_space)
 enum { CS_UNKNOWN = -1, CS_UNSPECIFIED = 0, CS_SRGB = 1, CS_GRAY = 2, CS_SYCC = 3, CS_EYCC = 4,
@@ -119,6 +126,17 @@ struct Poc {
     int32_t prg = 0;
 };
 
+// Part-2 MCT and MCC records (opj_mct_data_t, opj_simple_mcc_decorrelation_data_t)
+struct MctRecord {
+    uint32_t index = 0, element_type = 0;
+    std::vector<uint8_t> data;
+};
+
+struct MccRecord {
+    uint32_t index = 0, nb_comps = 0;
+    int32_t deco = -1, offset = -1;  // MCT record slots
+};
+
 struct Tcp {
     uint32_t csty = 0;
     int32_t prg = 0;
@@ -136,6 +154,9 @@ struct Tcp {
     bool has_data = false;
     uint32_t nb_tile_parts = 0;
     int32_t current_tile_part = -1;
+    std::vector<MctRecord> mct_records;
+    std::vector<MccRecord> mcc_slots;  // the first nb_mcc are the records
+    uint32_t nb_mcc = 0;
 };
 
 struct Comp {
@@ -195,6 +216,7 @@ struct Chunk {
 struct Cblk {
     int32_t x0, y0, x1, y1;
     uint32_t numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0, real_num_segs = 0;
+    uint32_t Mb = 0;  // the band's bit-planes, for HT code-blocks
     std::vector<Seg> segs;
     std::vector<Chunk> chunks;
 };
@@ -640,6 +662,365 @@ struct T1 {
     }
 };
 
+// ------------------------------------------------------------------ HT block decoder
+
+// the MagSgn and SigProp streams: bytes forward, then fill bytes; a byte
+// after 0xFF carries 7 bits (ORed over, as OpenJPEG's frwd_read does)
+struct HtFwd {
+    const uint8_t* p;
+    int64_t size;
+    uint64_t tmp = 0;
+    uint32_t bits = 0, fill;
+    bool unstuff = false;
+    HtFwd(const uint8_t* d, int64_t n, uint32_t x) : p(d), size(n), fill(x) {}
+    void feed() {
+        uint64_t d = size-- > 0 ? *p++ : fill;
+        tmp |= d << bits;
+        bits += 8 - (unstuff ? 1 : 0);
+        unstuff = (d & 0xff) == 0xff;
+    }
+    uint32_t fetch() {
+        while (bits <= 32) feed();
+        return (uint32_t)tmp;
+    }
+    void advance(uint32_t n) {
+        tmp >>= n;
+        bits -= n;
+    }
+};
+
+// the VLC and MagRef streams: bytes backward, then zeros; after a byte above
+// 0x8F a byte whose low 7 bits are all ones carries 7 (rev_read)
+struct HtRev {
+    const uint8_t* p;
+    int64_t size;
+    uint64_t tmp = 0;
+    uint32_t bits = 0;
+    bool unstuff;
+    HtRev(const uint8_t* last, int64_t n, bool u) : p(last), size(n), unstuff(u) {}
+    void feed() {
+        uint64_t d = 0;
+        if (size > 0) {
+            d = *p--;
+            --size;
+        }
+        uint32_t db = 8 - ((unstuff && (d & 0x7f) == 0x7f) ? 1 : 0);
+        tmp |= d << bits;
+        bits += db;
+        unstuff = d > 0x8f;
+    }
+    uint32_t fetch() {
+        while (bits <= 32) feed();
+        return (uint32_t)tmp;
+    }
+    void advance(uint32_t n) {
+        tmp >>= n;
+        bits -= n;
+    }
+};
+
+// the MEL stream: bytes forward, most significant bit first, the last byte
+// ORed with 0x0F, then 0xFF; after 0xFF a byte's top bit is dropped
+struct HtMel {
+    const uint8_t* p;
+    int64_t size;
+    uint32_t byte = 0, nbits = 0;
+    bool unstuff = false;
+    int k = 0;
+    uint32_t zeros = 0;
+    bool one = false;
+    HtMel(const uint8_t* d, int64_t n) : p(d), size(n) {}
+    uint32_t bit() {
+        if (nbits == 0) {
+            uint32_t d = size > 0 ? *p : 0xff;
+            if (size == 1) d |= 0xf;
+            if (size-- > 0) ++p;
+            nbits = unstuff ? 7 : 8;
+            byte = d;
+            unstuff = d == 0xff;
+        }
+        return (byte >> --nbits) & 1;
+    }
+    uint32_t event() {
+        static const int EXP[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+        while (zeros == 0 && !one) {
+            int e = EXP[k];
+            if (bit()) {
+                zeros = 1u << e;
+                k = k + 1 < 12 ? k + 1 : 12;
+            } else {
+                uint32_t r = 0;
+                for (int i = 0; i < e; ++i) r = r << 1 | bit();
+                zeros = r;
+                one = true;
+                k = k - 1 > 0 ? k - 1 : 0;
+            }
+        }
+        if (zeros) {
+            --zeros;
+            return 0;
+        }
+        one = false;
+        return 1;
+    }
+};
+
+// UVLC prefixes by the next three bits: length | suffix length << 2 | value << 5
+const uint8_t UVLC_PREFIX[8] = {3 | (5 << 2) | (5 << 5), 1 | (1 << 5), 2 | (2 << 5), 1 | (1 << 5),
+                                3 | (1 << 2) | (3 << 5), 1 | (1 << 5), 2 | (2 << 5), 1 | (1 << 5)};
+
+// u_q of a quad pair from the VLC stream (decode_init_uvlc /
+// decode_noninit_uvlc): mode is u_off of the two quads (1, 2, 3), plus one
+// for the first quad row when the MEL event says both exceed 2 (4)
+void uvlc_decode(HtRev& vlc, uint32_t mode, bool initial, uint32_t u[2]) {
+    uint32_t v = vlc.fetch(), used = 0;
+    auto prefix = [&](void) {
+        uint32_t d = UVLC_PREFIX[v & 7];
+        v >>= d & 3;
+        used += d & 3;
+        return d;
+    };
+    auto suffix = [&](uint32_t d) {
+        uint32_t n = (d >> 2) & 7;
+        uint32_t x = (d >> 5) + (v & ((1u << n) - 1));
+        v >>= n;
+        used += n;
+        return x;
+    };
+    u[0] = u[1] = 0;
+    if (mode == 1 || mode == 2) {
+        uint32_t x = suffix(prefix());
+        u[mode - 1] = x;
+    } else if (mode == 3 && initial) {
+        uint32_t d1 = prefix();
+        if ((d1 & 3) > 2) {
+            u[1] = (v & 1) + 1;
+            v >>= 1;
+            ++used;
+            u[0] = suffix(d1);
+        } else {
+            uint32_t d2 = prefix();
+            u[0] = suffix(d1);
+            u[1] = suffix(d2);
+        }
+    } else if (mode >= 3) {
+        uint32_t d1 = prefix(), d2 = prefix();
+        u[0] = suffix(d1);
+        u[1] = suffix(d2);
+        if (mode == 4) {
+            u[0] += 2;
+            u[1] += 2;
+        }
+    }
+    vlc.advance(used);
+}
+
+[[noreturn]] void ht_fail(const char* what) { FAIL("Malformed HT codeblock. %s", what); }
+
+// opj_t1_ht_decode_cblk: the code-block's samples, sign-magnitude with the
+// bin centre, turned into the MQ path's fixed point (two's complement, one
+// bit below the lowest decoded bit-plane)
+void ht_decode_cblk(std::vector<int32_t>& data, uint32_t w, uint32_t h, const Cblk& cb,
+                    uint32_t roishift, uint32_t cblksty, std::vector<uint8_t>& buf) {
+    data.assign((size_t)w * h, 0);
+    if (roishift) FAIL("We do not support ROI in decoding HT codeblocks");
+    if (cb.chunks.empty()) return;
+    size_t total = 0;
+    for (auto& ch : cb.chunks) total += ch.len;
+    buf.resize(total);
+    size_t off = 0;
+    for (auto& ch : cb.chunks) {
+        memcpy(buf.data() + off, ch.data, ch.len);
+        off += ch.len;
+    }
+    const uint8_t* coded = buf.data();
+    uint32_t num_passes = cb.numsegs > 0 ? cb.segs[0].real_num_passes : 0;
+    num_passes += cb.numsegs > 1 ? cb.segs[1].real_num_passes : 0;
+    uint32_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+    uint32_t lengths2 = num_passes > 1 ? cb.segs[1].len : 0;
+    if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // OpenJPEG warns
+    if (num_passes > 3)
+        FAIL("We do not support more than 3 coding passes in an HT codeblock; This codeblocks "
+             "has %u passes.", num_passes);
+    if (cb.Mb > 30)
+        FAIL("32 bits are not enough to decode this codeblock, since the number of bitplane, "
+             "%u, is larger than 30.", cb.Mb);
+    uint32_t zero_bplanes = (cb.Mb + 1) - cb.numbps;
+    if (zero_bplanes > cb.Mb)
+        FAIL("Malformed HT codeblock. Decoding this codeblock is stopped. There are %u zero "
+             "bitplanes in %u bitplanes.", zero_bplanes, cb.Mb);
+    if (zero_bplanes == cb.Mb && num_passes > 1) num_passes = 1;  // OpenJPEG warns
+    uint32_t p = cb.numbps, mmsbp2 = zero_bplanes + 1;
+    if (lengths1 < 2 || lengths1 > total || (uint64_t)lengths1 + lengths2 > total)
+        ht_fail("Invalid codeblock length values.");
+    int64_t lcup = lengths1;
+    int64_t scup = ((int64_t)coded[lcup - 1] << 4) + (coded[lcup - 2] & 0xf);
+    if (scup < 2 || scup > lcup || scup > 4079)
+        ht_fail("One of the following condition is not met: 2 <= Scup <= min(Lcup, 4079)");
+    // mel_init reads the stream's first bytes up to a 4-byte boundary of
+    // the code-block buffer (aligned) and refuses a byte above 0x8F after
+    // an 0xFF among them
+    {
+        int64_t pos = lcup - scup, size = scup - 1;
+        int num = 4 - (int)(pos & 3);
+        bool unstuff = false;
+        for (int i = 0; i < num; ++i) {
+            if (unstuff && coded[pos] > 0x8f) ht_fail("Incorrect MEL segment sequence.");
+            uint32_t d = size > 0 ? coded[pos] : 0xff;
+            if (size == 1) d |= 0xf;
+            if (size-- > 0) ++pos;
+            unstuff = (d & 0xff) == 0xff;
+        }
+    }
+    HtMel mel(coded + lcup - scup, scup - 1);
+    // the VLC stream starts in the high nibble of the byte before Scup's last
+    HtRev vlc(coded + lcup - 3, scup - 2, (coded[lcup - 2] | 0xf) > 0x8f);
+    vlc.tmp = coded[lcup - 2] >> 4;
+    vlc.bits = 4 - ((vlc.tmp & 7) == 7 ? 1 : 0);
+    HtFwd magsgn(coded, lcup - scup, 0xff);
+
+    const uint32_t qw = (w + 1) / 2, qh = (h + 1) / 2;
+    std::vector<uint32_t> dec((size_t)(2 * qw) * (2 * qh), 0);  // sign-magnitude
+    const size_t ds = 2 * (size_t)qw;
+    std::vector<uint8_t> rho_prev(qw + 1, 0), rho_cur(qw + 1, 0);
+    std::vector<uint32_t> e_prev(2 * qw + 4, 0), e_cur(2 * qw + 4, 0);  // offset by 1
+    std::vector<uint16_t> tq(qw + 1);
+    std::vector<uint32_t> uq(qw + 1);
+    for (uint32_t qy = 0; qy < qh; ++qy) {
+        const bool initial = qy == 0;
+        const uint16_t* tbl = initial ? vlc_tbl0 : vlc_tbl1;
+        std::fill(rho_cur.begin(), rho_cur.end(), 0);
+        for (uint32_t qx = 0; qx < qw; qx += 2) {
+            uint16_t t[2] = {0, 0};
+            for (int j = 0; j < 2; ++j) {
+                uint32_t x = qx + j;
+                if (x >= qw) break;
+                uint32_t c;
+                if (initial) {
+                    uint32_t l = x ? rho_cur[x - 1] : 0;
+                    c = ((l & 1) | ((l >> 1) & 1)) | (((l >> 2) & 1) << 1) | (((l >> 3) & 1) << 2);
+                } else {
+                    uint32_t n = (rho_prev[x] >> 1) & 1, ne = (rho_prev[x] >> 3) & 1;
+                    uint32_t nf = (rho_prev[x + 1] >> 1) & 1;
+                    uint32_t nw = x ? (rho_prev[x - 1] >> 3) & 1 : 0;
+                    uint32_t l = x ? rho_cur[x - 1] : 0;
+                    uint32_t ww = (l >> 2) & 1, sw = (l >> 3) & 1;
+                    c = (n | nw) | ((ww | sw) << 1) | ((ne | nf) << 2);
+                }
+                uint16_t e = tbl[(c << 7) | (vlc.fetch() & 0x7f)];
+                if (c == 0 && !mel.event()) e = 0;
+                vlc.advance(e & 7);
+                t[j] = e;
+                rho_cur[x] = (uint8_t)((e >> 4) & 0xf);
+            }
+            uint32_t mode = ((t[0] >> 3) & 1) | (((t[1] >> 3) & 1) << 1);
+            if (initial && mode == 3 && mel.event()) mode = 4;
+            uint32_t u[2];
+            uvlc_decode(vlc, mode, initial, u);
+            for (int j = 0; j < 2 && qx + j < qw; ++j) {
+                tq[qx + j] = t[j];
+                uq[qx + j] = u[j];
+            }
+        }
+        // the exponents of the quad row above decide kappa; then MagSgn
+        std::fill(e_cur.begin(), e_cur.end(), 0);
+        for (uint32_t x = 0; x < qw; ++x) {
+            uint32_t t = tq[x], rho = (t >> 4) & 0xf;
+            uint32_t kappa = 1;
+            if (!initial && (rho & (rho - 1))) {
+                uint32_t emax = 0;
+                for (uint32_t k = 2 * x; k < 2 * x + 4; ++k) emax = std::max(emax, e_prev[k]);
+                kappa = emax > 2 ? emax - 1 : 1;
+            }
+            uint32_t U = uq[x] + kappa;
+            if (U > mmsbp2) {
+                if (initial) ht_fail("Decoding this codeblock is stopped. U_q is larger than "
+                                     "zero bitplanes + 1 ");
+                ht_fail("Decoding this codeblock is stopped. U_q islarger than bitplanes + 1 ");
+            }
+            if ((rho & 0xa && 2 * qy + 1 >= h) || (rho & 0xc && 2 * x + 1 >= w))
+                ht_fail("VLC code produces significant samples outside the codeblock area.");
+            for (uint32_t n = 0; n < 4; ++n) {
+                if (!((rho >> n) & 1)) continue;
+                uint32_t ms = magsgn.fetch();
+                uint32_t m = U - ((t >> (12 + n)) & 1);
+                magsgn.advance(m);
+                uint32_t v = (m ? ms & (0xffffffffu >> (32 - m)) : 0) | (((t >> (8 + n)) & 1) << m);
+                v |= 1;
+                uint32_t yy = 2 * qy + (n & 1), xx = 2 * x + (n >> 1);
+                dec[yy * ds + xx] = (ms << 31) | ((v + 2) << (p - 1));
+                if (n & 1) {
+                    uint32_t bl = 32 - (uint32_t)__builtin_clz(v);
+                    e_cur[xx + 1] = bl;
+                }
+            }
+        }
+        std::swap(rho_prev, rho_cur);
+        std::swap(e_prev, e_cur);
+    }
+
+    if (num_passes > 1) {
+        // significance after the cleanup pass, then SigProp (groups of 4
+        // columns in stripes of 4 rows; the signs of the group's new samples
+        // follow its significance bits) and MagRef
+        std::vector<uint8_t> sig((size_t)(w + 2) * (h + 2), 0);
+        auto S = [&](int64_t y, int64_t x) -> uint8_t& {
+            return sig[(size_t)(y + 1) * (w + 2) + x + 1];
+        };
+        for (uint32_t y = 0; y < h; ++y)
+            for (uint32_t x = 0; x < w; ++x) S(y, x) = dec[y * ds + x] ? 1 : 0;
+        const bool causal = (cblksty & CBLK_VSC) != 0;
+        if (num_passes > 2) {
+            HtRev mr(coded + lengths1 + lengths2 - 1, lengths2, true);
+            uint32_t half = 1u << (p - 2);
+            for (uint32_t y0 = 0; y0 < h; y0 += 4)
+                for (uint32_t x = 0; x < w; ++x)
+                    for (uint32_t y = y0; y < y0 + 4 && y < h; ++y) {
+                        if (!S(y, x)) continue;
+                        uint32_t b = mr.fetch() & 1;
+                        mr.advance(1);
+                        uint32_t& d = dec[y * ds + x];
+                        d ^= (1 - b) << (p - 1);
+                        d |= half;
+                    }
+        }
+        HtFwd sp(coded + lengths1, lengths2, 0);
+        uint32_t val = 3u << (p - 2);
+        std::vector<std::pair<uint32_t, uint32_t>> fresh;
+        for (uint32_t y0 = 0; y0 < h; y0 += 4)
+            for (uint32_t x0 = 0; x0 < w; x0 += 4) {
+                fresh.clear();
+                for (uint32_t x = x0; x < x0 + 4 && x < w; ++x)
+                    for (uint32_t y = y0; y < y0 + 4 && y < h; ++y) {
+                        if (S(y, x)) continue;
+                        const int64_t Y = y, X = x;
+                        bool below = !(causal && (y & 3) == 3);
+                        bool any = S(Y - 1, X - 1) || S(Y - 1, X) || S(Y - 1, X + 1) ||
+                                   S(Y, X - 1) || S(Y, X + 1);
+                        if (below) any = any || S(Y + 1, X - 1) || S(Y + 1, X) || S(Y + 1, X + 1);
+                        if (!any) continue;
+                        uint32_t b = sp.fetch() & 1;
+                        sp.advance(1);
+                        if (b) {
+                            S(y, x) = 2;
+                            fresh.emplace_back(y, x);
+                        }
+                    }
+                for (auto& yx : fresh) {
+                    uint32_t sgn = sp.fetch() & 1;
+                    sp.advance(1);
+                    dec[yx.first * ds + yx.second] = (sgn << 31) | val;
+                }
+            }
+    }
+    for (uint32_t y = 0; y < h; ++y)
+        for (uint32_t x = 0; x < w; ++x) {
+            uint32_t v = dec[y * ds + x];
+            int32_t mag = (int32_t)(v & 0x7fffffffu);
+            data[(size_t)y * w + x] = (v >> 31) ? -mag : mag;
+        }
+}
+
 // ------------------------------------------------------------------ inverse DWT
 
 // 5/3, integers (opj_idwt53_h / _v): one line of sn low then dn high samples
@@ -849,11 +1230,11 @@ struct Decoder {
             case M_PPT: read_ppt(p, size); break;
             case M_CRG: if (size != numcomps * 4) FAIL("Error reading CRG marker"); break;
             case M_COM: break;
-            case M_CAP: case M_CPF: break;  // read, never checked (HT code-blocks fail below)
-            case M_MCT: case M_MCC: case M_MCO: case M_CBD:
-                fail_code(AKR_PART2, "an %s marker (a Part-2 array-based multiple component "
-                          "transform)", id == M_MCT ? "MCT" : id == M_MCC ? "MCC" :
-                          id == M_MCO ? "MCO" : "CBD");
+            case M_CAP: case M_CPF: break;  // read, never checked
+            case M_MCT: read_mct(p, size); break;
+            case M_MCC: read_mcc(p, size); break;
+            case M_MCO: read_mco(p, size); break;
+            case M_CBD: read_cbd(p, size); break;
             default: FAIL("Not sure how that happened.");
         }
     }
@@ -906,8 +1287,168 @@ struct Decoder {
             FAIL("Invalid number of tiles : %u x %u (maximum fixed by jpeg2000 norm is 65535 "
                  "tiles)", tw, th);
         default_tcp.tccps.assign(numcomps, Tccp());
+        for (uint32_t i = 0; i < numcomps; ++i)  // from SIZ, before any CBD or MCO
+            default_tcp.tccps[i].dc_level_shift = comps[i].sgnd ? 0 : 1 << (comps[i].prec - 1);
         tcps.assign((size_t)tw * th, Tcp());
         state = ST_MH;
+    }
+
+    // ---------------------------------------------------------------- Part 2
+
+    void read_mct(const uint8_t* p, uint32_t size) {
+        Tcp& tcp = cur_tcp();
+        if (size < 2) FAIL("Error reading MCT marker");
+        if (be(p, 2) != 0) return;  // "Cannot take in charge mct data within multiple MCT records"
+        if (size <= 6) FAIL("Error reading MCT marker");
+        uint32_t imct = be(p + 2, 2), indix = imct & 0xff;
+        MctRecord* rec = nullptr;
+        for (auto& r : tcp.mct_records)
+            if (r.index == indix) {
+                rec = &r;
+                break;
+            }
+        if (!rec) {
+            tcp.mct_records.emplace_back();
+            rec = &tcp.mct_records.back();
+        }
+        rec->data.clear();
+        rec->index = indix;
+        rec->element_type = (imct >> 10) & 3;
+        if (be(p + 4, 2) != 0) return;  // "Cannot take in charge multiple MCT markers"
+        rec->data.assign(p + 6, p + size);
+    }
+
+    void read_mcc(const uint8_t* p, uint32_t size) {
+        Tcp& tcp = cur_tcp();
+        if (size < 2) FAIL("Error reading MCC marker");
+        if (be(p, 2) != 0) return;  // "Cannot take in charge multiple data spanning"
+        if (size < 7) FAIL("Error reading MCC marker");
+        uint32_t indix = p[2];
+        MccRecord* rec = nullptr;
+        for (uint32_t i = 0; i < tcp.nb_mcc; ++i)
+            if (tcp.mcc_slots[i].index == indix) {
+                rec = &tcp.mcc_slots[i];
+                break;
+            }
+        bool fresh = rec == nullptr;
+        if (fresh) {  // the next slot, counted only once the segment is read
+            if (tcp.nb_mcc == tcp.mcc_slots.size()) tcp.mcc_slots.emplace_back();
+            rec = &tcp.mcc_slots[tcp.nb_mcc];
+        }
+        rec->index = indix;
+        if (be(p + 3, 2) != 0) return;  // "Cannot take in charge multiple data spanning"
+        uint32_t nb_collections = be(p + 5, 2);
+        if (nb_collections > 1) return;  // "Cannot take in charge multiple collections"
+        const uint8_t* q = p + 7;
+        size -= 7;
+        for (uint32_t i = 0; i < nb_collections; ++i) {
+            if (size < 3) FAIL("Error reading MCC marker");
+            if (q[0] != 1) return;  // "... other than array decorrelation"
+            uint32_t n = be(q + 1, 2);
+            q += 3;
+            size -= 3;
+            uint32_t nbytes = 1 + (n >> 15);
+            rec->nb_comps = n & 0x7fff;
+            if (size < nbytes * rec->nb_comps + 2) FAIL("Error reading MCC marker");
+            size -= nbytes * rec->nb_comps + 2;
+            for (uint32_t j = 0; j < rec->nb_comps; ++j, q += nbytes)
+                if (be(q, (int)nbytes) != j) return;  // "... with indix shuffle"
+            n = be(q, 2);
+            q += 2;
+            nbytes = 1 + (n >> 15);
+            if ((n & 0x7fff) != rec->nb_comps) return;  // "... without same number of indixes"
+            if (size < nbytes * rec->nb_comps + 3) FAIL("Error reading MCC marker");
+            size -= nbytes * rec->nb_comps + 3;
+            for (uint32_t j = 0; j < rec->nb_comps; ++j, q += nbytes)
+                if (be(q, (int)nbytes) != j) return;  // "... with indix shuffle"
+            uint32_t t = be(q, 3);  // reversibility, offset and decorrelation arrays
+            q += 3;
+            rec->deco = rec->offset = -1;
+            for (int which = 0; which < 2; ++which) {
+                uint32_t want = which == 0 ? t & 0xff : (t >> 8) & 0xff;
+                if (want == 0) continue;
+                int32_t found = -1;
+                for (size_t j = 0; j < tcp.mct_records.size(); ++j)
+                    if (tcp.mct_records[j].index == want) {
+                        found = (int32_t)j;
+                        break;
+                    }
+                if (found < 0) FAIL("Error reading MCC marker");
+                (which == 0 ? rec->deco : rec->offset) = found;
+            }
+        }
+        if (size != 0) FAIL("Error reading MCC marker");
+        if (fresh) ++tcp.nb_mcc;
+    }
+
+    // an MCT array's elements as int32 (j2k_mct_read_functions_to_int32: 16-bit
+    // values unsigned, floats truncated as x86 converts them)
+    static int32_t mct_int32(const uint8_t* d, uint32_t type) {
+        auto trunc = [](double v) -> int32_t {
+            if (!(v > -2147483649.0 && v < 2147483648.0)) return INT32_MIN;
+            return (int32_t)v;
+        };
+        switch (type) {
+            case 0: return (int32_t)be(d, 2);
+            case 1: return (int32_t)be(d, 4);
+            case 2: {
+                uint32_t b = be(d, 4);
+                float f;
+                memcpy(&f, &b, 4);
+                return trunc(f);
+            }
+            default: {
+                uint64_t b = (uint64_t)be(d, 4) << 32 | be(d + 4, 4);
+                double f;
+                memcpy(&f, &b, 8);
+                return trunc(f);
+            }
+        }
+    }
+
+    // opj_j2k_add_mct: only the first MCC record is ever compared with the index
+    void add_mct(Tcp& tcp, uint32_t index) {
+        static const uint32_t ELEMENT_SIZE[4] = {2, 4, 4, 8};
+        if (tcp.nb_mcc == 0 || tcp.mcc_slots[0].index != index) return;  // discarded
+        const MccRecord& rec = tcp.mcc_slots[0];
+        if (rec.nb_comps != numcomps) return;
+        if (rec.deco >= 0) {
+            const MctRecord& m = tcp.mct_records[rec.deco];
+            if (m.data.size() != (size_t)ELEMENT_SIZE[m.element_type] * numcomps * numcomps)
+                FAIL("Error reading MCO marker (decorrelation array size)");
+        }
+        if (rec.offset >= 0) {
+            const MctRecord& m = tcp.mct_records[rec.offset];
+            uint32_t es = ELEMENT_SIZE[m.element_type];
+            if (m.data.size() != (size_t)es * numcomps)
+                FAIL("Error reading MCO marker (offset array size)");
+            for (uint32_t i = 0; i < numcomps; ++i)
+                tcp.tccps[i].dc_level_shift = mct_int32(m.data.data() + (size_t)i * es,
+                                                         m.element_type);
+        }
+    }
+
+    void read_mco(const uint8_t* p, uint32_t size) {
+        Tcp& tcp = cur_tcp();
+        if (size < 1) FAIL("Error reading MCO marker");
+        uint32_t nb_stages = p[0];
+        if (nb_stages > 1) return;  // "Cannot take in charge multiple transformation stages."
+        if (size != nb_stages + 1) FAIL("Error reading MCO marker");
+        for (auto& tc : tcp.tccps) tc.dc_level_shift = 0;
+        for (uint32_t i = 0; i < nb_stages; ++i) add_mct(tcp, p[1 + i]);
+    }
+
+    void read_cbd(const uint8_t* p, uint32_t size) {
+        if (size != numcomps + 2) FAIL("Crror reading CBD marker");
+        if (be(p, 2) != numcomps) FAIL("Crror reading CBD marker");
+        for (uint32_t i = 0; i < numcomps; ++i) {
+            comps[i].sgnd = (p[2 + i] >> 7) & 1;
+            comps[i].prec = (p[2 + i] & 0x7fu) + 1;
+            if (comps[i].prec > 31)
+                FAIL("Invalid values for comp = %u : prec=%u (should be between 1 and 38 "
+                     "according to the JPEG2000 norm. OpenJPEG only supports up to 31)", i,
+                     comps[i].prec);
+        }
     }
 
     void read_SPCod_SPCoc(uint32_t compno, const uint8_t*& p, uint32_t& size) {
@@ -924,8 +1465,6 @@ struct Decoder {
         tccp.cblksty = p[3];
         if (tccp.cblksty & CBLK_HTMIXED)
             FAIL("Error reading SPCod SPCoc element. Unsupported Mixed HT code-block style found");
-        if (tccp.cblksty & CBLK_HT)
-            fail_code(AKR_HTJ2K, "the HT code-block style (HTJ2K, JPEG 2000 Part 15)");
         tccp.qmfbid = p[4];
         if (tccp.qmfbid > 1) FAIL("Error reading SPCod SPCoc element, Invalid transformation found");
         p += 5;
@@ -961,9 +1500,6 @@ struct Decoder {
                  tcp.numlayers);
         tcp.num_layers_to_decode = tcp.numlayers;
         tcp.mct = p[4];
-        if (tcp.mct == 2)
-            fail_code(AKR_PART2, "COD multiple component transformation 2 (Part 2, array based; "
-                      "OpenJPEG refuses it too)");
         if (tcp.mct > 1) FAIL("Invalid multiple component transformation");
         p += 5;
         size -= 5;
@@ -1309,8 +1845,6 @@ struct Decoder {
         if (!has_qcd) FAIL("required QCD marker not found in main header");
         merge_ppm();
         // copy the default coding parameters into each tile's
-        for (uint32_t i = 0; i < numcomps; ++i)
-            default_tcp.tccps[i].dc_level_shift = comps[i].sgnd ? 0 : 1 << (comps[i].prec - 1);
         for (auto& t : tcps) {
             t = default_tcp;
             t.cod = false;
@@ -1786,6 +2320,7 @@ struct Decoder {
                     if (!cb.numsegs) {
                         uint32_t i = 0;
                         while (!tgt_decode(bio, prc.imsb, k, (int32_t)i)) ++i;
+                        cb.Mb = (uint32_t)band.numbps;
                         cb.numbps = (uint32_t)band.numbps + 1 - i;
                         cb.numlenbits = 3;
                     }
@@ -1806,8 +2341,14 @@ struct Decoder {
                     int32_t npass = (int32_t)cb.numnewpasses;
                     do {
                         Seg& sg = cb.segs[segno];
-                        int32_t room = (int32_t)(sg.maxpasses - sg.numpasses);
-                        sg.numnewpasses = (uint32_t)(room < npass ? room : npass);
+                        if (cblksty & CBLK_HT) {
+                            // the cleanup pass alone in the first segment,
+                            // the rest in the next
+                            sg.numnewpasses = segno == 0 ? 1u : (uint32_t)npass;
+                        } else {
+                            int32_t room = (int32_t)(sg.maxpasses - sg.numpasses);
+                            sg.numnewpasses = (uint32_t)(room < npass ? room : npass);
+                        }
                         uint32_t fl = 0;
                         for (uint32_t v = sg.numnewpasses; v > 1; v >>= 1) ++fl;
                         uint32_t bits = cb.numlenbits + fl;
@@ -1982,9 +2523,15 @@ struct Decoder {
                     if (band.empty()) continue;
                     for (auto& prc : band.precincts)
                         for (auto& cb : prc.cblks) {
-                            if (!t1.decode_cblk(cb, band.bandno, (uint32_t)tccp.roishift,
-                                                tccp.cblksty, buf))
+                            if (tccp.cblksty & CBLK_HT) {
+                                t1.w = (uint32_t)(cb.x1 - cb.x0);
+                                t1.h = (uint32_t)(cb.y1 - cb.y0);
+                                ht_decode_cblk(t1.data, t1.w, t1.h, cb, (uint32_t)tccp.roishift,
+                                               tccp.cblksty, buf);
+                            } else if (!t1.decode_cblk(cb, band.bandno, (uint32_t)tccp.roishift,
+                                                       tccp.cblksty, buf)) {
                                 FAIL("opj_t1_decode_cblk(): unsupported bpno_plus_one >= 31");
+                            }
                             int32_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
                             if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
                             if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -2084,9 +2631,9 @@ struct Decoder {
             int32_t shift = tccp.dc_level_shift;
             for (uint32_t j = 0; j < height; ++j) {
                 for (uint32_t i = 0; i < width; ++i, ++ptr) {
-                    if (tccp.qmfbid == 1) {
-                        int64_t v = (int64_t)*ptr + shift;
-                        *ptr = (int32_t)(v < mn ? mn : v > mx ? mx : v);
+                    if (tccp.qmfbid == 1) {  // an int32 sum, wrapping (OpenJPEG's TODO)
+                        int32_t v = (int32_t)((uint32_t)*ptr + (uint32_t)shift);
+                        *ptr = v < mn ? mn : v > mx ? mx : v;
                     } else {
                         float f;
                         memcpy(&f, ptr, 4);
@@ -2302,8 +2849,7 @@ struct Unpack {
 // color_space is OpenJPEG's (from the JP2 colr box; 0 for a raw codestream);
 // ihdr_w / ihdr_h the JP2 image header's size (0 for a raw codestream);
 // ycc the four YCbCr tables of Pillow's ConvertYCbCr.c. Returns 0, or
-// 1 (data OpenJPEG or Pillow refuses), 2 (HTJ2K), 3 (Part-2 MCT), with a
-// message in err.
+// 1 (data OpenJPEG or Pillow refuses) with a message in err.
 extern "C" int akr_j2k_decode(const uint8_t* data, int64_t size, int64_t start, int32_t ihdr_w,
                               int32_t ihdr_h, int32_t color_space, const char* mode,
                               int32_t xsize, int32_t ysize, uint8_t* out8, uint16_t* out16,
@@ -2386,7 +2932,7 @@ extern "C" int akr_j2k_decode(const uint8_t* data, int64_t size, int64_t start, 
         return AKR_OK;
     } catch (const Failure& f) {
         snprintf(err, (size_t)errlen, "%s", f.msg.c_str());
-        return f.code;
+        return AKR_BROKEN;
     } catch (const std::bad_alloc&) {
         snprintf(err, (size_t)errlen, "out of memory");
         return AKR_BROKEN;

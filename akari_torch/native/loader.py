@@ -59,6 +59,8 @@ CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 LIBS = ["-lpthread"]
 # flags a source needs besides CXX_FLAGS (never -ffast-math or -march=native)
 EXTRA_FLAGS = {"j2k": ["-ffp-contract=off"]}
+# headers a source includes, hashed with it into the library's key
+HEADERS = {"j2k": ("j2k_ht_tables.h",)}
 
 
 def _bind_bvh(lib):
@@ -261,10 +263,11 @@ _loaded = {}
 
 def _library_path(name):
     src, lib, _, _ = SOURCES[name]
-    with open(os.path.join(_HERE, src), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join([CXX, *CXX_FLAGS, *EXTRA_FLAGS.get(name, []), *LIBS]).encode()
-        )
+    digest = hashlib.sha256()
+    for part in (src, *HEADERS.get(name, ())):
+        with open(os.path.join(_HERE, part), "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join([CXX, *CXX_FLAGS, *EXTRA_FLAGS.get(name, []), *LIBS]).encode())
     return os.path.join(BUILD_DIR, digest.hexdigest()[:16], lib)
 
 

@@ -267,8 +267,9 @@ Phases (each checks its results; any failure exits non-zero):
     old-style JPEG TIFF, each decode's median of 3 beside the PNG route's;
     the config-3 CLI on a PNG of the Group 4 file's pixels, on the Group 4
     file, on a PNG of the old-style JPEG's pixels and on the old-style JPEG
-    (frames bit-equal pairwise, 6 tree closest launches each, one launch of
-    the Group 4 run held to the plain walk at 0 ulp);
+    (frames bit-equal pairwise, 6 tree closest launches each; no launch
+    held to the plain walk since phase 53 came: phase 51 and the path
+    phases hold the tree kernel to it);
 49. the JPEG 2000 decoder: the J2K / JP2 fixtures' digests (both
     wavelets, the five progressions, tiles, tile-parts, precincts, POC,
     every code-block style, ROI, subsampled, signed and 1-16-bit
@@ -278,7 +279,8 @@ Phases (each checks its results; any failure exits non-zero):
     (decoding to those pixels exactly), each decode's median of 3 beside
     the PNG route's; the config-3 CLI on a PNG of the JP2's pixels, on the
     JP2, on a PNG of the scaled-up albedo and on the J2K (frames bit-equal
-    pairwise, 6 tree closest launches each);
+    pairwise, 6 tree closest launches each; the J2K's frame is phase 53's
+    reference);
 50. Lab, PIL's other PNM modes, DIB and ICNS: their fixtures' digests;
     the 2048^2 albedo written here with integer numpy
     (``lab_albedo_files`` of ``tools/make_torch_port_image_fixtures.py``)
@@ -299,10 +301,10 @@ Phases (each checks its results; any failure exits non-zero):
     each, one launch of the IM run held to the plain walk at 0 ulp).
     To make room, phases 42-47, 49 and 50 hold no launch of their CLI runs
     to the plain walk (their held launches saw the same rays, dead rays
-    and hits as phase 51's; phase 48's Group 4 albedo gives other rays and
-    keeps its held launch), and phases 41-52 share one encode and decode of
-    phase 24's albedo.png (``albedo_png``) and one timing of the PNG
-    decode, phase 41's median of 3 (``png_decode_median``);
+    and hits as phase 51's; phase 48's Group 4 albedo gave other rays and
+    kept its held launch until phase 53 came), and phases 41-53 share one
+    encode and decode of phase 24's albedo.png (``albedo_png``) and one
+    timing of the PNG decode, phase 41's median of 3 (``png_decode_median``);
 52. PIL's last plugins that load pixels (Sun raster, FLI / FLC, FITS,
     GBR, McIdas, PIXAR, XPM, XV thumbnail): their fixtures' digests; the
     2048^2 albedo written here with integer numpy
@@ -313,14 +315,23 @@ Phases (each checks its results; any failure exits non-zero):
     no slower); one config-3 CLI run on the Sun raster (6 tree closest
     launches), its frame bit-equal to phase 51's PNG-route frame of the
     same pixels (no launch held: phase 51's held launch saw the same rays);
-53. the result: a JSON line of kernel records (the dense records on the
+53. HTJ2K (JPEG 2000 Part 15) and the Part-2 MCT / MCC / MCO / CBD
+    markers: the ``htj2k_*`` and ``part2_*`` fixtures' digests; the 64^2
+    albedo scaled up 32x as a reversible 5/3 + RCT HT codestream (written
+    by the HT writer of ``tools/j2k_writers.py`` in a process of its own
+    from phase 1 on, ``start_htj2k_albedo``: 1.18 MB, past the committed
+    fixtures' budget), decoding to those pixels exactly, its decode's
+    median of 3 beside phase 41's PNG median and phase 49's J2K median;
+    one config-3 CLI run on it (6 tree closest launches), its frame
+    bit-equal to phase 49's on the J2K of the same pixels (no launch held);
+54. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
-    the tree records' errors cover phases 6, 24, 26, 27, 35, 40, 48 and 51,
+    the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 51,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-52) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-53) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
@@ -2536,7 +2547,7 @@ def _median_s(fn, n=3):
 @functools.lru_cache(maxsize=1)
 def png_decode_median():
     """The 2048^2 PNG route's decode time (``albedo_png``'s file), median
-    of 3 and the runs, taken once in phase 41: phases 42-52 hold their
+    of 3 and the runs, taken once in phase 41: phases 42-53 hold their
     decoders "no slower than PNG" against it."""
     from akari_torch.core.image import decode_png
 
@@ -3429,8 +3440,7 @@ def fax_phase(card, traversal, cli_render):
     and the config-3 CLI on a PNG of the Group 4 file's pixels, on the
     Group 4 file, on a PNG of the old-style JPEG's pixels and on the
     old-style JPEG (frames bit-equal pairwise, 6 tree closest launches
-    each, one launch of the Group 4 run held to the plain walk at 0 ulp);
-    returns the tree kernel's errors and the figures it logs."""
+    each); returns the figures it logs."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3487,13 +3497,12 @@ def fax_phase(card, traversal, cli_render):
         log(f"  2048^2 {form} TIFF decode on the host, median of 3: {med:.4f} s ({len(data)} "
             f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
 
-    frames, cli, (tree_err, tree_occ_err) = config3_cli_runs(
+    frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_g4.png": encode_png(decoded["group4"]), "albedo_g4.tif": files["group4"],
          "albedo_oj.png": encode_png(decoded["old-style JPEG"]),
          "albedo_oj.tif": files["old-style JPEG"]},
-        ("albedo_g4.png", "albedo_g4.tif", "albedo_oj.png", "albedo_oj.tif"),
-        {"albedo_g4.tif"})
+        ("albedo_g4.png", "albedo_g4.tif", "albedo_oj.png", "albedo_oj.tif"), set())
     out.update(cli)
     for name in ("g4", "oj"):
         check(np.array_equal(frames[f"albedo_{name}.tif"], frames[f"albedo_{name}.png"]),
@@ -3502,7 +3511,6 @@ def fax_phase(card, traversal, cli_render):
         "their pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 48: {out['phase_s']:.1f} s")
-    out["tree_err"], out["tree_occ_err"] = tree_err, tree_occ_err
     return out
 
 
@@ -3514,7 +3522,7 @@ def jpeg2000_phase(card, traversal, cli_render):
     beside the PNG route's; and the config-3 CLI on a PNG of the JP2's
     pixels, on the JP2, on a PNG of the scaled-up albedo and on the J2K
     (frames bit-equal pairwise, 6 tree closest launches each); returns the
-    figures it logs."""
+    figures it logs and the J2K's frame (phase 53's reference)."""
     import hashlib
 
     import numpy as np
@@ -3574,8 +3582,105 @@ def jpeg2000_phase(card, traversal, cli_render):
         check(np.array_equal(frames[j2k], frames[png]),
               f"the frame on {j2k} differs from the PNG route's of its pixels")
     log("  the JP2 and J2K albedos' frames are bit-equal to the PNG route's of their pixels")
+    out["x32_frame"] = frames["albedo_x32.j2k"]  # phase 53's reference
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 49: {out['phase_s']:.1f} s")
+    return out
+
+
+def start_htj2k_albedo():
+    """Write ``ALBEDO_HTJ2K`` (the 64^2 albedo scaled up 32x as a reversible
+    HT codestream, by the HT writer of ``tools/j2k_writers.py``; too large
+    for the committed fixtures) in a process of its own while the phases
+    before 53 run; the process is killed at exit if it still runs.
+    Returns (process, path, start time)."""
+    import atexit
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="akari_htj2k_")
+    path = os.path.join(tmp, "albedo_x32.j2c")
+    code = ("import sys\n"
+            "from tools.make_torch_port_image_fixtures import htj2k_albedo\n"
+            "data = htj2k_albedo()\n"
+            "with open(sys.argv[1], 'wb') as f:\n"
+            "    f.write(data)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code, path], cwd=ROOT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, path, time.perf_counter()
+
+
+def htj2k_phase(card, traversal, cli_render, writer, j2k_frame, j2k_decode_s):
+    """Phase 53: HTJ2K (Part 15) and the Part-2 MCT / MCC / MCO / CBD
+    markers on this machine (no PIL here): the ``htj2k_*`` and ``part2_*``
+    fixtures' digests; ``ALBEDO_HTJ2K`` from ``start_htj2k_albedo``, which
+    must decode to the 64^2 albedo scaled up 32x exactly, its decode's
+    median of 3 beside phase 41's PNG median and phase 49's J2K median (the
+    same pixels through the MQ coder); and one config-3 CLI run on it (6
+    tree closest launches), its frame bit-equal to phase 49's on the J2K
+    (no launch held: phase 49's run saw the same rays); returns the
+    figures it logs."""
+    import hashlib
+
+    import numpy as np
+
+    from akari_torch.core.image import decode_image
+    from akari_torch.scene.builtin import envtex_texture
+
+    t_phase = time.perf_counter()
+    log(f"phase 53: HTJ2K and Part-2 JPEG 2000 without PIL: the fixtures' digests, the 2048^2 "
+        f"albedo as an HT codestream, the config-3 CLI on it [card: {card}]")
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = {k: v for k, v in json.load(f).items() if k.startswith(("htj2k_", "part2_"))}
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, fname), "rb") as f:
+            px = decode_image(f.read(), fname)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(list(px.shape) == rec["shape"] and digest == rec["sha256"],
+              f"{fname}: decoded {px.shape}, sha256 {digest[:16]}..., PIL's {rec['sha256'][:16]}...")
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 12, f"only {len(digests)} HTJ2K / Part-2 fixtures in digests.json")
+    log(f"  {len(digests)} fixtures decoded; every SHA-256 equals PIL {', '.join(pil)}'s in "
+        "digests.json")
+
+    proc, path, t_start = writer
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    check(rc == 0, f"writing the HT albedo failed ({rc})")
+    with open(path, "rb") as f:
+        data = f.read()
+    log(f"  the HT albedo, written in a process of its own since phase 1 ({len(data)} bytes, "
+        f"{t0 + waited - t_start:.1f} s after its start; waited {waited:.2f} s here)")
+    x32 = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
+    check(np.array_equal(decode_image(data, "albedo_x32.j2c"), x32),
+          "the HT albedo decodes to other pixels than the 64^2 albedo scaled up 32x")
+    log("  the HT albedo decodes to the 64^2 albedo scaled up 32x exactly (lossless)")
+    out = {}
+    png_s, png_runs = png_decode_median()  # phase 41's
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"(runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    log(f"  2048^2 reversible J2K decode on the host, median of 3 (phase 49's): "
+        f"{j2k_decode_s:.4f} s [card: {card}]")
+    med, runs = _median_s(lambda: decode_image(data, "albedo_x32.j2c"))
+    out["htj2k_decode_s"] = med
+    log(f"  2048^2 HTJ2K decode on the host, median of 3: {med:.4f} s ({len(data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
+    frames, cli, _ = config3_cli_runs(card, traversal, cli_render, {"albedo_x32.j2c": data},
+                                      ("albedo_x32.j2c",), set())
+    out.update(cli)
+    check(np.array_equal(frames["albedo_x32.j2c"], j2k_frame),
+          "the frame on the HT albedo differs from phase 49's on the J2K of the same pixels")
+    log("  the HT albedo's frame is bit-equal to phase 49's on the J2K of the same pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 53: {out['phase_s']:.1f} s")
     return out
 
 
@@ -3920,6 +4025,7 @@ def main():
     for n, path in native_paths.items():
         log(f"  built {os.path.relpath(path, ROOT)} (g++, {native_loader.SOURCES[n][2]})")
     log(f"  all builds, in parallel: {build_s:.2f} s")
+    htj2k_writer = start_htj2k_albedo()  # phase 53's 2048^2 HT albedo, meanwhile
     for kname, (secs, report) in kbuild.BUILD_LOG.items():
         log(f"  nvcc {kname}: {secs:.2f} s; ptxas:\n    " + report.replace("\n", "\n    "))
     for kname in KERNELS:
@@ -4482,16 +4588,20 @@ def main():
     dds_phase(card, traversal, cli_render)
     legacy_phase(card, traversal, cli_render)
     jpeg_forms_phase(card, traversal, cli_render)
-    fax = fax_phase(card, traversal, cli_render)
-    jpeg2000_phase(card, traversal, cli_render)
+    fax_phase(card, traversal, cli_render)
+    j2k = jpeg2000_phase(card, traversal, cli_render)
     lab_phase(card, traversal, cli_render)
     plugins = plugin_phase(card, traversal, cli_render)
     raster_phase(card, traversal, cli_render, plugins["png_frame"])
-    tree_err = max(tree_err, fax["tree_err"], plugins["tree_err"])
-    tree_occ_err = max(tree_occ_err, fax["tree_occ_err"], plugins["tree_occ_err"])
+    from tools.make_torch_port_image_fixtures import ALBEDO_J2K
+
+    htj2k_phase(card, traversal, cli_render, htj2k_writer, j2k["x32_frame"],
+                j2k[f"{ALBEDO_J2K}_decode_s"])
+    tree_err = max(tree_err, plugins["tree_err"])
+    tree_occ_err = max(tree_occ_err, plugins["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 53: result ----------------------------------------------------
+    # ---- phase 54: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

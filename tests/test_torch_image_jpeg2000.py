@@ -22,12 +22,12 @@ bit for bit:
   unpacker for (refused by both);
 - seeded corruptions (bytes flipped or set, files cut) of eleven
   codestreams and JP2 files: wherever PIL reads the file the port gives its
-  pixels, wherever PIL refuses it the port raises ``ValueError``. One
-  deliberate divergence: a corruption that creates a Part-2 marker (MCT,
-  MCC, MCO, CBD) is refused naming Part 2 as still to be ported, where
-  OpenJPEG reads the marker and may decode on;
-- the forms still to be ported, refused by name: HTJ2K code-blocks and
-  Part-2 array-based multiple component transforms;
+  pixels, wherever PIL refuses it the port raises ``ValueError`` (a
+  corruption that creates a Part-2 marker is read as OpenJPEG reads it);
+- the HT code-block style set over Part-1 code-blocks and an HT file (read
+  as PIL reads them; ``tests/test_torch_image_htj2k.py`` holds the rest of
+  HTJ2K), Part-2 MCO segments read and COD transform 2 refused as OpenJPEG
+  refuses it;
 - Pillow's YCbCr tables, by which sYCC images are converted;
 - an OBJ whose ``map_Kd`` is a JP2 or a J2K renders at 16x16 on the CPU
   bit-equal to the same OBJ on a PNG of the same pixels.
@@ -400,8 +400,7 @@ _BASES = _corruption_bases()
 @pytest.mark.parametrize("name", sorted(_BASES))
 def test_seeded_corruptions_read_as_pil_or_are_refused(name):
     """Bytes flipped or set (headers and packet data) and files cut: the
-    port reads what PIL reads, bit for bit, and refuses what PIL refuses.
-    A corruption that creates a Part-2 marker is refused naming Part 2."""
+    port reads what PIL reads, bit for bit, and refuses what PIL refuses."""
     base = _BASES[name]
     r = np.random.default_rng(sum(name.encode()))
     cases = [base[:int(c)] for c in r.integers(1, len(base), 20)]
@@ -417,9 +416,8 @@ def test_seeded_corruptions_read_as_pil_or_are_refused(name):
         want, got, err = _outcome(data)
         if want is None:
             assert got is None, f"{name} case {i}: PIL refuses it, the port reads it"
-        elif got is None:
-            assert "Part-2" in err, f"{name} case {i}: PIL reads it, the port refuses it: {err}"
         else:
+            assert got is not None, f"{name} case {i}: PIL reads it, the port refuses it: {err}"
             read += 1
             np.testing.assert_array_equal(got, want, err_msg=f"{name} case {i}")
     assert read >= 3, name
@@ -435,17 +433,21 @@ def test_truncated_codestreams_are_refused_as_pil_refuses_them():
             port_image.decode_image(cut)
 
 
-# ----------------------------------------- refused forms -------------------------
+# ----------------------------------------- HTJ2K and Part 2 -----------------------
 
 def test_htj2k_code_blocks_are_refused_as_still_to_be_ported():
+    """Once refused, now read as PIL reads them: the HT code-block style set
+    over a Part-1 (MQ) codestream (the HT decoder reads its bytes as OpenJPEG
+    does, or both refuse), an HT file from the HT writer, and Rsiz bit 14 or
+    a CAP marker over Part-1 code-blocks (which change nothing)."""
     base = jw.encode(_planes(np.random.default_rng(9), 20, 24, 3))
     cod = base.index(b"\xff\x52")
     ht = bytearray(base)
     ht[cod + 12] |= 0x40  # SPcod code-block style: the HT block coder
-    with pytest.raises(ValueError, match="HTJ2K .*still to be ported"):
-        port_image.decode_image(bytes(ht))
-    # Rsiz bit 14 and a CAP marker over Part-1 code-blocks: OpenJPEG and the
-    # port read them
+    _agrees_with_pil(bytes(ht), "HT style over MQ code-blocks")
+    planes = _planes(np.random.default_rng(9), 20, 24, 3)
+    got = _matches_pil(jw.encode_ht(planes, cblk=(16, 8)), "HT file")
+    np.testing.assert_array_equal(got, np.stack(planes, -1))
     siz = base.index(b"\xff\x51")
     rsiz = bytearray(base)
     rsiz[siz + 4] |= 0x40
@@ -456,20 +458,24 @@ def test_htj2k_code_blocks_are_refused_as_still_to_be_ported():
 
 
 def test_part2_multiple_component_transforms_are_refused_as_still_to_be_ported():
+    """COD transform 2 (a Part-2 array-based transform) is refused, as
+    OpenJPEG refuses it; an MCO segment beside transform 0 or 1 is read as
+    OpenJPEG reads it (every DC level shift zeroed)."""
     r = np.random.default_rng(10)
     data = jw.encode(_planes(r, 20, 24, 3), mct=2, irreversible=True,
                      custom_mct=(np.eye(3), [0, 0, 0]))
     assert b"\xff\x74" in data and b"\xff\x77" in data  # MCT and MCO segments
     with pytest.raises(Exception):
-        _pil(data)  # OpenJPEG refuses COD transform 2 too
-    with pytest.raises(ValueError, match="Part-2 .*still to be ported"):
+        _pil(data)  # OpenJPEG refuses COD transform 2
+    with pytest.raises(ValueError, match="Invalid multiple component transformation"):
         port_image.decode_image(data)
-    base = jw.encode(_planes(r, 20, 24, 3))
-    siz = base.index(b"\xff\x51")
-    end = siz + 2 + struct.unpack(">H", base[siz + 2:siz + 4])[0]
-    mco = base[:end] + b"\xff\x77\x00\x04\x01\x00" + base[end:]
-    with pytest.raises(ValueError, match="MCO marker .*Part-2"):
-        port_image.decode_image(mco)
+    for mct in (0, 1):
+        base = jw.encode(_planes(r, 20, 24, 3), mct=mct)
+        siz = base.index(b"\xff\x51")
+        end = siz + 2 + struct.unpack(">H", base[siz + 2:siz + 4])[0]
+        mco = base[:end] + b"\xff\x77\x00\x03\x00" + base[end:]
+        got = _matches_pil(mco, f"MCO, transform {mct}")
+        assert got.mean() < _pil(base).mean() - 60  # no DC level shift
 
 
 # ----------------------------------------- Pillow's unpack -----------------------

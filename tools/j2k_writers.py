@@ -386,3 +386,642 @@ def to_ppt(cs, split=1):
                           b"".join(b"\xff\x91\x00\x04" + struct.pack(">H", i & 0xffff) + d
                                    for i, (_, d) in enumerate(pk))))
     return _rebuild(main, new_parts)
+
+
+# ---------------------------------------------------------------------------
+# HTJ2K (JPEG 2000 Part 15): a writer of its own
+#
+# OpenJPEG 2.5 decodes HT code-blocks but has no HT encoder, so ``encode_ht``
+# writes the codestream itself: the forward transforms (5/3 with the RCT,
+# 9/7 with the ICT and expounded quantisation), the HT block coder (the
+# cleanup pass's MEL, VLC / UVLC and MagSgn streams; SigProp and MagRef
+# passes) and tier 2 (tag trees, pass counts, Lblock, segment lengths as
+# OpenJPEG reads them). The VLC codewords come from inverting OpenJPEG's
+# decode tables (``akari_torch/native/j2k_ht_tables.h``). Its only check is
+# PIL: a reversible file reads back through PIL as its input.
+
+_MEL_EXP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)
+_HT_BOOK = None
+
+
+def _ht_book():
+    """[table, context, rho, u_off, emb] -> (codeword, length, e_k): the
+    codeword of OpenJPEG's tables (0: the first quad row, 1: the others) that
+    decodes to ``rho`` / ``u_off`` with an ``e_k`` / ``e_1`` that holds for a
+    quad whose samples at the exponent U_q are ``emb``, and costs the fewest
+    bits (its length, less a MagSgn bit per sample in ``e_k``); length -1
+    where none does."""
+    global _HT_BOOK
+    if _HT_BOOK is None:
+        from tools.extract_ht_tables import read_header
+
+        book = np.full((2, 8, 16, 2, 16, 3), -1, np.int64)
+        for t, tbl in enumerate(read_header()):
+            for c in range(8):
+                for i in range(128):
+                    e = int(tbl[c << 7 | i])
+                    n = e & 7
+                    cw, uoff, rho, e1, ek = i & ((1 << n) - 1), e >> 3 & 1, e >> 4 & 15, \
+                        e >> 8 & 15, e >> 12 & 15
+                    for emb in range(16):
+                        if uoff and (emb & ~rho or e1 != ek & emb):
+                            continue
+                        cur = book[t, c, rho, uoff, emb]
+                        cost = n - bin(ek).count("1")
+                        if cur[1] < 0 or cost < cur[1] - bin(int(cur[2])).count("1"):
+                            book[t, c, rho, uoff, emb] = (cw, n, ek)
+        _HT_BOOK = book
+    return _HT_BOOK
+
+
+def _bits_of(vals, lens):
+    """The bits of ``vals`` (each ``lens`` long, least significant first) one
+    after another, as a uint8 array."""
+    vals, lens = np.asarray(vals, np.int64).ravel(), np.asarray(lens, np.int64).ravel()
+    keep = lens > 0
+    vals, lens = vals[keep], lens[keep]
+    if not lens.size:
+        return np.zeros(0, np.uint8)
+    starts = np.cumsum(lens) - lens
+    idx = np.arange(int(lens.sum())) - np.repeat(starts, lens)
+    return ((np.repeat(vals, lens) >> idx) & 1).astype(np.uint8)
+
+
+def _forward_bytes(bits, pad):
+    """A forward byte stream (MagSgn, SigProp): bits least significant first,
+    a byte after 0xFF carries 7 (its top bit a stuffed 0); the last byte is
+    filled with ``pad`` bits."""
+    out, pos = bytearray(), 0
+    while pos < len(bits):
+        chunk = np.concatenate([bits[pos:], np.full(7, pad, np.uint8)])
+        full = np.packbits(chunk[:len(chunk) - len(chunk) % 8], bitorder="little")
+        n = -(-(len(bits) - pos) // 8)
+        full = full[:n]
+        ff = np.flatnonzero(full == 0xFF)
+        if not ff.size or ff[0] == n - 1:
+            out += full.tobytes()
+            break
+        j = int(ff[0])
+        out += full[:j + 1].tobytes()
+        pos += 8 * (j + 1)
+        seven = np.concatenate([bits[pos:pos + 7], np.full(7, pad, np.uint8)])[:7]
+        out.append(int(np.packbits(seven, bitorder="little")[0]))
+        pos += 7
+    return out
+
+
+def _reverse_bytes(bits, nibble):
+    """A reverse byte stream (VLC, MagRef) in the order it is read: bits least
+    significant first; after a byte above 0x8F, 7 bits that are all ones go
+    in a byte of their own (a stuffed 0 on top). ``nibble``: the first byte
+    holds 4 bits above the low nibble of Scup and follows a byte above 0x8F
+    (VLC); else a whole byte after one above 0x8F (MagRef)."""
+    bits = np.concatenate([bits, np.zeros(16, np.uint8)])
+    k = len(bits) - 16
+    out, pos = bytearray(), 0
+    if nibble:
+        if k and bits[:3].all():
+            out.append(0x7F)
+            pos = 3
+        else:
+            out.append(0x0F | int(np.packbits(bits[:4], bitorder="little")[0]) << 4)
+            pos = 4
+        last8f = out[-1] > 0x8F
+    else:
+        last8f = True
+    while pos < k:
+        n = -(-(k - pos) // 8)
+        full = np.packbits(bits[pos:pos + 8 * n], bitorder="little")
+        prev = np.concatenate([[0x90 if last8f else 0], full[:-1]])
+        stuff = np.flatnonzero((prev > 0x8F) & ((full & 0x7F) == 0x7F))
+        if not stuff.size:
+            out += full.tobytes()
+            break
+        j = int(stuff[0])
+        out += full[:j].tobytes()
+        out.append(0x7F)
+        pos += 8 * j + 7
+        last8f = False
+    return out
+
+
+def _mel_bytes(events):
+    """The MEL byte stream of a sequence of 0 / 1 events (bits most
+    significant first, 7 after a 0xFF byte; never ending in 0xFF)."""
+    out, k, run, last = [], 0, 0, -1
+    ones = np.flatnonzero(events)
+    for i in ones:
+        run += int(i) - last - 1
+        last = int(i)
+        while run >= 1 << _MEL_EXP[k]:
+            out.append(1)
+            run -= 1 << _MEL_EXP[k]
+            k = min(12, k + 1)
+        out.append(0)
+        e = _MEL_EXP[k]
+        out.extend((run >> (e - 1 - j)) & 1 for j in range(e))
+        run = 0
+        k = max(0, k - 1)
+    run += len(events) - last - 1
+    while run >= 1 << _MEL_EXP[k]:
+        out.append(1)
+        run -= 1 << _MEL_EXP[k]
+        k = min(12, k + 1)
+    if run:
+        out.append(1)
+    res, pos = bytearray(), 0
+    while pos < len(out):
+        n = 7 if res and res[-1] == 0xFF else 8
+        chunk = out[pos:pos + n] + [0] * (n - len(out[pos:pos + n]))
+        res.append(int("".join(map(str, chunk)), 2))
+        pos += n
+    if res and res[-1] == 0xFF:
+        res.append(0)
+    return res
+
+
+_UX = np.arange(64)
+_UVLC = np.stack([np.select([_UX == 1, _UX == 2, _UX <= 4], [1, 2, 4], 0),
+                  np.select([_UX == 1, _UX == 2], [1, 2], 3),
+                  np.select([_UX <= 2, _UX <= 4], [0, _UX - 3], _UX - 5),
+                  np.select([_UX <= 2, _UX <= 4], [0, 1], 5)])
+
+
+def _uvlc(x):
+    """UVLC prefix (value, length) and suffix (value, length) of u >= 1."""
+    return _UVLC[:, x]
+
+
+def _quads(a, qh, qw):
+    """[2 qh, 2 qw] -> [qh, qw, 4], samples in quad order (top-left,
+    bottom-left, top-right, bottom-right)."""
+    return a.reshape(qh, 2, qw, 2).transpose(0, 2, 3, 1).reshape(qh, qw, 4)
+
+
+def _ht_cleanup(mu, sgn):
+    """The HT cleanup segment of magnitudes ``mu`` (the bits at and above the
+    cleanup bit-plane) and signs ``sgn`` of one code-block."""
+    h, w = mu.shape
+    qh, qw = (h + 1) // 2, (w + 1) // 2
+    qw2 = qw + (qw & 1)  # whole quad pairs; the extra quad is absent
+    m = np.zeros((2 * qh, 2 * qw2), np.int64)
+    s = np.zeros_like(m)
+    m[:h, :w], s[:h, :w] = mu, sgn
+    mq, sq = _quads(m, qh, qw2), _quads(s, qh, qw2)
+    sig = (mq > 0).astype(np.int64)
+    bit = 1 << np.arange(4)
+    rho = (sig * bit).sum(-1)
+    e = np.where(mq > 0, np.frexp(np.maximum(2 * mq - 1, 1).astype(np.float64))[1], 0)
+    v = np.where(mq > 0, 2 * (mq - 1) + sq, 0)
+    # contexts (Part 15's significance of the neighbouring samples)
+    left = np.zeros_like(sig)
+    left[:, 1:] = sig[:, :-1]
+    ctx = np.zeros((qh, qw2), np.int64)
+    ctx[0] = (left[0, :, 0] | left[0, :, 1]) + 2 * left[0, :, 2] + 4 * left[0, :, 3]
+    kappa = np.ones((qh, qw2), np.int64)
+    if qh > 1:
+        up = sig[:-1]
+        nf = np.zeros_like(up[..., 1])
+        nf[:, :-1] = up[:, 1:, 1]
+        nw = np.zeros_like(nf)
+        nw[:, 1:] = up[:, :-1, 3]
+        ctx[1:] = ((up[..., 1] | nw) + 2 * (left[1:, :, 2] | left[1:, :, 3])
+                   + 4 * (up[..., 3] | nf))
+        eb = np.pad(e[:-1][..., [1, 3]].reshape(qh - 1, 2 * qw2), ((0, 0), (1, 2)))
+        cols = 2 * np.arange(qw2)
+        emax = np.max(np.stack([eb[:, cols + j] for j in range(4)]), 0)
+        many = np.array([bin(r).count("1") > 1 for r in range(16)])[rho[1:]]
+        kappa[1:] = np.where(many, np.maximum(emax - 1, 1), 1)
+    big_u = np.maximum(kappa, e.max(-1))
+    u = np.where(rho > 0, big_u - kappa, 0)
+    uoff = (u > 0).astype(np.int64)
+    emb = ((e == big_u[..., None]) * bit).sum(-1) * uoff
+    table = np.ones((qh, qw2), np.int64)
+    table[0] = 0
+    cw, cl, ek = np.moveaxis(_ht_book()[table, ctx, rho, uoff, emb], -1, 0)
+    exists = np.zeros((qh, qw2), bool)
+    exists[:, :qw] = True
+    need = exists & ((ctx != 0) | (rho != 0))
+    if (cl[need] < 0).any():
+        raise ValueError("no VLC codeword for a quad")
+    cl = np.where(need, cl, 0)
+    # MagSgn: m_n = U_q - e_k bits of each significant sample
+    mlen = np.where(sig > 0, big_u[..., None] - ((ek[..., None] >> np.arange(4)) & 1), 0)
+    magsgn = _forward_bytes(_bits_of(v & ((1 << mlen) - 1), mlen), 1)
+    if magsgn and magsgn[-1] == 0xFF:
+        del magsgn[-1]  # the decoder reads 0xFF past the end
+    # per quad pair: MEL events and the VLC codewords then the UVLC code
+    p = lambda a: a.reshape(qh, qw2 // 2, 2)  # noqa: E731
+    ctx2, rho2, u2, uoff2, ex2 = p(ctx), p(rho), p(u), p(uoff), p(exists)
+    row0 = (np.arange(qh) == 0)[:, None]
+    both = (uoff2[..., 0] & uoff2[..., 1]).astype(bool)
+    mel4 = row0 & both & (u2[..., 0] > 2) & (u2[..., 1] > 2)
+    events = np.stack([np.where(ctx2[..., 0] == 0, rho2[..., 0] != 0, -1),
+                       np.where(ex2[..., 1] & (ctx2[..., 1] == 0), rho2[..., 1] != 0, -1),
+                       np.where(row0 & both, mel4, -1)], -1).reshape(-1)
+    mel = _mel_bytes(events[events >= 0])
+    x = np.where(mel4[..., None], u2 - 2, u2)
+    pv, pl, sv, sl = _uvlc(np.maximum(x, 1))
+    pl, sl = pl * uoff2, sl * uoff2
+    one = row0 & both & ~mel4 & (x[..., 0] >= 3)  # u_q2 in {1, 2} as one bit
+    first = uoff2[..., 0] > 0  # the first u coded is the first quad's
+    slot_v = np.stack([p(cw)[..., 0], p(cw)[..., 1], np.where(first, pv[..., 0], pv[..., 1]),
+                       np.where(one, x[..., 1] - 1, np.where(both, pv[..., 1], 0)),
+                       np.where(first, sv[..., 0], sv[..., 1]),
+                       np.where(both & ~one, sv[..., 1], 0)], -1)
+    slot_l = np.stack([p(cl)[..., 0], p(cl)[..., 1], np.where(first, pl[..., 0], pl[..., 1]),
+                       np.where(one, 1, np.where(both, pl[..., 1], 0)),
+                       np.where(first, sl[..., 0], sl[..., 1]),
+                       np.where(both & ~one, sl[..., 1], 0)], -1)
+    vlc = _reverse_bytes(_bits_of(slot_v, slot_l), nibble=True)
+    scup = len(mel) + len(vlc) + 1
+    if scup > 4079:
+        raise ValueError(f"MEL and VLC streams of {scup} bytes (at most 4079)")
+    vlc[0] = (vlc[0] & 0xF0) | (scup & 0xF)
+    return bytes(magsgn + mel + vlc[::-1]) + bytes([scup >> 4])
+
+
+def _ht_refinement(mag, sgn, group, causal):
+    """The SigProp then MagRef passes of bit-plane 0 (the cleanup coded
+    ``mag >> 1``): the SigProp bits forward, the MagRef bits reversed from
+    the end. Stripes of 4 rows, column by column; a sample is coded when one
+    of its neighbours is significant by then (not the next stripe's when
+    ``causal``, the VSC style); the signs of the samples that became
+    significant follow each ``group`` of columns. A sample of magnitude 1
+    that no significant neighbour reaches is not coded: it reads as 0."""
+    h, w = mag.shape
+    cur = (mag >> 1) > 0
+    mr, sp = [], []
+    for y0 in range(0, h, 4):
+        for x in range(w):
+            for y in range(y0, min(y0 + 4, h)):
+                if cur[y, x]:
+                    mr.append(mag[y, x] & 1)
+    for y0 in range(0, h, 4):
+        for x0 in range(0, w, group):
+            new = []
+            for x in range(x0, min(x0 + group, w)):
+                for y in range(y0, min(y0 + 4, h)):
+                    below = y + 2 if not (causal and y % 4 == 3) else y + 1
+                    if cur[y, x] or not cur[max(y - 1, 0):below, max(x - 1, 0):x + 2].any():
+                        continue
+                    b = int(mag[y, x] & 1)
+                    sp.append(b)
+                    if b:
+                        cur[y, x] = True
+                        new.append(int(sgn[y, x]))
+            sp.extend(new)
+    return bytes(_forward_bytes(np.array(sp, np.uint8), 0)
+                 + _reverse_bytes(np.array(mr, np.uint8), nibble=False)[::-1])
+
+
+class _TagTree:
+    """A tag tree over a [h, w] grid of leaf values (OpenJPEG's layout)."""
+
+    def __init__(self, values):
+        h, w = values.shape
+        self.parent, self.value, levels = [], [], []
+        a = values.astype(np.int64)
+        while True:
+            levels.append(a)
+            if a.size <= 1:
+                break
+            hh, ww = a.shape
+            b = np.full(((hh + 1) // 2, (ww + 1) // 2), 1 << 30, np.int64)
+            for j in range(hh):
+                for i in range(ww):
+                    b[j // 2, i // 2] = min(b[j // 2, i // 2], a[j, i])
+            a = b
+        base = 0
+        for k, lev in enumerate(levels):
+            nxt = base + lev.size
+            for j in range(lev.shape[0]):
+                for i in range(lev.shape[1]):
+                    self.value.append(int(lev[j, i]))
+                    self.parent.append(-1 if k + 1 == len(levels) else
+                                       nxt + (j // 2) * levels[k + 1].shape[1] + i // 2)
+            base = nxt
+        self.low = [0] * len(self.value)
+        self.known = [False] * len(self.value)
+
+    def encode(self, out, leaf, threshold):
+        stk, node = [], leaf
+        while self.parent[node] >= 0:
+            stk.append(node)
+            node = self.parent[node]
+        low = 0
+        while True:
+            if low > self.low[node]:
+                self.low[node] = low
+            else:
+                low = self.low[node]
+            while low < threshold:
+                if low >= self.value[node]:
+                    if not self.known[node]:
+                        out.append(1)
+                        self.known[node] = True
+                    break
+                out.append(0)
+                low += 1
+            self.low[node] = low
+            if not stk:
+                break
+            node = stk.pop()
+
+
+def _header_bytes(bits):
+    """Packet header bits (most significant first, 7 after 0xFF), padded; a
+    last 0xFF is followed by 0x00 as OpenJPEG's reader expects."""
+    out, pos = bytearray(), 0
+    while pos < len(bits):
+        n = 7 if out and out[-1] == 0xFF else 8
+        chunk = bits[pos:pos + n]
+        out.append(int("".join(map(str, chunk + [0] * (n - len(chunk)))), 2))
+        pos += n
+    if out and out[-1] == 0xFF:
+        out.append(0)
+    return bytes(out)
+
+
+def _numpasses(out, n):
+    if n == 1:
+        out.append(0)
+    elif n == 2:
+        out += [1, 0]
+    elif n <= 5:
+        out += [1, 1] + [(n - 3) >> 1 & 1, (n - 3) & 1]
+    elif n <= 36:
+        out += [1, 1, 1, 1] + [(n - 6) >> (4 - j) & 1 for j in range(5)]
+    else:
+        out += [1] * 9 + [(n - 37) >> (6 - j) & 1 for j in range(7)]
+
+
+def _fdwt53(x):
+    """One level of the reversible 5/3 along the last axis (lows then highs)."""
+    n = x.shape[-1]
+    if n <= 1:
+        return x.copy()
+    ev, od = x[..., 0::2].copy(), x[..., 1::2].copy()
+    right = ev[..., 1:] if n % 2 else np.concatenate([ev[..., 1:], ev[..., -1:]], -1)
+    od -= (ev[..., :od.shape[-1]] + right) >> 1
+    left = np.concatenate([od[..., :1], od], -1)[..., :ev.shape[-1]]
+    nxt = od if n % 2 == 0 else np.concatenate([od, od[..., -1:]], -1)
+    ev += (left + nxt + 2) >> 2
+    return np.concatenate([ev, od], -1)
+
+
+def _fdwt97(x):
+    """One level of the irreversible 9/7 along the last axis, the inverse of
+    OpenJPEG's lifting (lows scaled by 1/K, highs by K/2)."""
+    n = x.shape[-1]
+    if n <= 1:
+        return x.copy()
+    ev, od = x[..., 0::2].astype(np.float64), x[..., 1::2].astype(np.float64)
+    for i, c in enumerate((-1.586134342, -0.052980118, 0.882911075, 0.443506852)):
+        if i % 2 == 0:  # highs from their even neighbours (mirrored at the end)
+            right = ev[..., 1:] if n % 2 else np.concatenate([ev[..., 1:], ev[..., -1:]], -1)
+            od += c * (ev[..., :od.shape[-1]] + right)
+        else:  # lows from their odd neighbours (mirrored at both ends)
+            left = np.concatenate([od[..., :1], od], -1)[..., :ev.shape[-1]]
+            nxt = od if n % 2 == 0 else np.concatenate([od, od[..., -1:]], -1)
+            ev += c * (left + nxt)
+    k = 1.230174105
+    return np.concatenate([ev / k, od * (k / 2)], -1)
+
+
+def _bands(plane, levels, reversible):
+    """The forward DWT of ``plane``: [(resolution, bandno, array)], lowest
+    resolution first, bands HL, LH, HH in each."""
+    a = plane.astype(np.int64 if reversible else np.float64)
+    f = _fdwt53 if reversible else _fdwt97
+    dims = [a.shape]
+    for _ in range(levels):
+        rh, rw = dims[-1]
+        sub = f(a[:rh, :rw].T).T
+        a[:rh, :rw] = f(sub)
+        dims.append(((rh + 1) // 2, (rw + 1) // 2))
+    out = [(0, 0, a[:dims[-1][0], :dims[-1][1]])]
+    for r in range(1, levels + 1):
+        rh, rw = dims[levels - r]
+        lh, lw = dims[levels - r + 1]
+        out += [(r, 1, a[:lh, lw:rw]), (r, 2, a[lh:rh, :lw]), (r, 3, a[lh:rh, lw:rw])]
+    return out
+
+
+def encode_ht(planes, *, prec=8, irreversible=False, mct=None, num_resolutions=None,
+              cblk=(64, 64), precincts=None, passes=1, step=1.0, group=4, placeholders=0,
+              cblk_style=0x40):
+    """Encode ``planes`` (a list of [h, w] unsigned integer arrays, one per
+    component) as an HTJ2K codestream: one tile, one quality layer, LRCP, two
+    guard bits, Rsiz bit 14 and
+    a CAP marker, HT code-blocks of ``cblk`` samples (Part 15 allows any
+    w * h <= 4096, such as 128 x 32).
+
+    ``irreversible``: the 9/7 and expounded quantisation with step
+    ``step`` (else the 5/3, lossless); ``mct``: the RCT / ICT over three
+    components (the default for three or four); ``precincts`` (log2 width,
+    log2 height) per resolution; ``passes`` 1 (the cleanup pass codes every
+    bit-plane), 2 (cleanup above bit-plane 0, then a SigProp pass) or 3
+    (cleanup, SigProp and MagRef: lossless but for the samples of magnitude
+    1 that SigProp cannot reach); ``group`` the columns
+    whose SigProp signs follow their significance bits; ``placeholders`` HT
+    sets signalled ahead of the cleanup pass (OpenJPEG refuses them);
+    ``cblk_style`` the SPcod code-block style byte. Returns the bytes."""
+    n = len(planes)
+    h, w = planes[0].shape
+    if any(p.shape != (h, w) for p in planes):
+        raise ValueError("the components must be one size")
+    if mct is None:
+        mct = n >= 3
+    levels = (num_resolutions or max(1, min(6, min(w, h).bit_length()))) - 1
+    comps = [np.asarray(p, np.int64) - (1 << (prec - 1)) for p in planes]
+    extra = [0] * n
+    if mct:
+        r, g, b = comps[:3]
+        if irreversible:
+            r, g, b = (c.astype(np.float64) for c in (r, g, b))
+            comps[:3] = [0.299 * r + 0.587 * g + 0.114 * b,
+                         -0.16875 * r - 0.331260 * g + 0.5 * b,
+                         0.5 * r - 0.41869 * g - 0.08131 * b]
+        else:
+            comps[:3] = [(r + 2 * g + b) >> 2, b - g, r - g]
+            extra[1] = extra[2] = 1
+    xcb, ycb = cblk[0].bit_length() - 1, cblk[1].bit_length() - 1
+    gains = (0, 1, 1, 2)
+    qcds, tiles = [], []
+    for c in range(n):
+        bands = _bands(comps[c], levels, not irreversible)
+        steps = []
+        out = []
+        for r, bandno, a in bands:
+            if irreversible:
+                expn, mant = _expounded(step, prec)
+                delta = (1 + mant / 2048.0) * 2.0 ** (prec - expn)
+                q = (np.sign(a) * np.floor(np.abs(a) / delta)).astype(np.int64)
+            else:
+                expn, mant = prec + extra[c] + gains[bandno], 0
+                q = a
+            mb = expn + 1  # two guard bits
+            if np.abs(q).max(initial=0) >= 1 << mb:
+                raise ValueError(f"a coefficient needs more than {mb} bit-planes")
+            steps.append((expn, mant))
+            out.append((r, bandno, q, mb))
+        qcds.append(steps)
+        tiles.append(out)
+    body = _ht_tier2(tiles, levels, xcb, ycb, precincts, passes, group, placeholders,
+                     bool(cblk_style & VSC))
+    # main header
+    siz = struct.pack(">HIIIIIIIIH", 0x4000, w, h, 0, 0, w, h, 0, 0, n)
+    siz += b"".join(struct.pack(">BBB", prec - 1, 1, 1) for _ in range(n))
+    out = b"\xff\x4f" + _seg(0xFF51, siz) + _seg(0xFF50, struct.pack(">IH", 0x00020000, 0))
+    scod = 1 if precincts else 0
+    cod = struct.pack(">BBHBBBBBB", scod, 0, 1, int(bool(mct)), levels, xcb - 2, ycb - 2,
+                      cblk_style, 0 if irreversible else 1)
+    if precincts:
+        cod += bytes((pp[1] << 4) | pp[0] for pp in precincts[:levels + 1])
+    out += _seg(0xFF52, cod)
+    for c in range(n):
+        qnt = 2 if irreversible else 0
+        sq = bytes([2 << 5 | qnt])
+        sq += b"".join(struct.pack(">H", e << 11 | m) if irreversible else bytes([e << 3])
+                       for e, m in qcds[c])
+        out += _seg(0xFF5C, sq) if c == 0 else _seg(0xFF5D, bytes([c]) + sq)
+    sot = struct.pack(">HIBB", 0, 12 + 2 + len(body), 0, 1)
+    return out + _seg(0xFF90, sot) + b"\xff\x93" + body + b"\xff\xd9"
+
+
+def _seg(marker, payload):
+    return struct.pack(">HH", marker, len(payload) + 2) + payload
+
+
+def _expounded(step, prec):
+    """(exponent, mantissa) of a quantisation step of 2^(prec - e) (1 + m / 2048)."""
+    e = prec - int(np.floor(np.log2(step)))
+    m = int(round((step / 2.0 ** (prec - e) - 1) * 2048))
+    if m == 2048:
+        e, m = e - 1, 0
+    return e, m
+
+
+def _ht_tier2(tiles, levels, xcb, ycb, precincts, passes, group, placeholders, causal):
+    """The packets of the tile (one layer, LRCP): per resolution and component
+    each precinct's header (inclusion and zero bit-plane tag trees, pass
+    counts, Lblock, the lengths of the cleanup and refinement segments as
+    OpenJPEG reads them) and the code-blocks' bytes."""
+    body = b""
+    for r in range(levels + 1):
+        for bands in tiles:
+            rb = [(bandno, q, mb) for rr, bandno, q, mb in bands if rr == r]
+            ppx, ppy = precincts[r] if precincts else (15, 15)
+            # band-domain precinct and code-block sizes
+            bpx, bpy = (ppx, ppy) if r == 0 else (ppx - 1, ppy - 1)
+            cbx, cby = min(xcb, bpx), min(ycb, bpy)
+            bh = max(q.shape[0] for _, q, _ in rb)
+            bw = max(q.shape[1] for _, q, _ in rb)
+            npx = max(1, -(-bw // (1 << bpx))) if bw else 0
+            npy = max(1, -(-bh // (1 << bpy))) if bh else 0
+            for py in range(npy):
+                for px in range(npx):
+                    bits, data = [1], b""
+                    for bandno, q, mb in rb:
+                        y0, x0 = py << bpy, px << bpx
+                        region = q[y0:y0 + (1 << bpy), x0:x0 + (1 << bpx)]
+                        if region.size == 0:
+                            continue
+                        ch = -(-region.shape[0] // (1 << cby))
+                        cw = -(-region.shape[1] // (1 << cbx))
+                        blocks, incl, msb = [], np.ones((ch, cw), np.int64), np.zeros((ch, cw),
+                                                                                       np.int64)
+                        for j in range(ch):
+                            for i in range(cw):
+                                blk = region[j << cby:(j + 1) << cby, i << cbx:(i + 1) << cbx]
+                                mag, sgn = np.abs(blk), (blk < 0).astype(np.int64)
+                                if not mag.any():
+                                    blocks.append(None)
+                                    continue
+                                if passes == 1:
+                                    segs = [_ht_cleanup(mag, sgn)]
+                                    pc = 0
+                                else:
+                                    ref = _ht_refinement(mag, sgn, group, causal)
+                                    segs = [_ht_cleanup(mag >> 1, sgn), ref]
+                                    pc = 1
+                                missing = mb - 1 - pc - placeholders
+                                if missing < 0:
+                                    raise ValueError("too few bit-planes for this code-block")
+                                incl[j, i], msb[j, i] = 0, missing
+                                blocks.append(segs)
+                        ti, tz = _TagTree(incl), _TagTree(msb)
+                        for k, segs in enumerate(blocks):
+                            ti.encode(bits, k, 1)
+                            if segs is None:
+                                continue
+                            tz.encode(bits, k, 999)
+                            npass = 3 * placeholders + (1 if passes == 1 else passes)
+                            if npass > 1 and len(segs) == 1:
+                                segs = segs + [b""]
+                            _numpasses(bits, npass)
+                            lens = [len(s) for s in segs]
+                            need = [max(1, lens[0].bit_length())]
+                            if len(segs) > 1:
+                                need.append(max(1, lens[1].bit_length())
+                                            - (npass - 1).bit_length() + 1)
+                            lblock = max(3, *need)
+                            bits += [1] * (lblock - 3) + [0]
+                            bits += [lens[0] >> (lblock - 1 - j) & 1 for j in range(lblock)]
+                            if len(segs) > 1:
+                                nb = lblock + (npass - 1).bit_length() - 1
+                                bits += [lens[1] >> (nb - 1 - j) & 1 for j in range(nb)]
+                            data += b"".join(segs)
+                    body += _header_bytes(bits) + data
+    return body
+
+
+# ---------------------------------------------------------------------------
+# Part-2 marker segments (MCT, MCC, MCO, CBD) to splice into a codestream
+
+_MCT_FORMATS = {0: ">H", 1: ">i", 2: ">f", 3: ">d"}  # int16, int32, float32, float64
+
+
+def mct(index, element_type, values, zmct=0, ymct=0, array_type=2):
+    """An MCT segment: array ``index`` of ``values`` (element type 0-3;
+    array type 1 decorrelation, 2 offset)."""
+    body = b"".join(struct.pack(_MCT_FORMATS[element_type], v) for v in values)
+    return _seg(0xFF74, struct.pack(">HHH", zmct, element_type << 10 | array_type << 8 | index,
+                                    ymct) + body)
+
+
+def mcc(index, ncomps, deco=0, offset=0, reversible=1, zmcc=0, ymcc=0, collections=1, kind=1):
+    """An MCC segment: one array-decorrelation collection of components
+    0..ncomps-1 in and out, using MCT arrays ``deco`` and ``offset`` (0: none)."""
+    body = struct.pack(">HBHH", zmcc, index, ymcc, collections)
+    if collections:
+        comps = struct.pack(">H", ncomps) + bytes(range(ncomps))
+        body += bytes([kind]) + comps + comps + bytes([reversible, offset, deco])
+    return _seg(0xFF75, body)
+
+
+def mco(*stages):
+    """An MCO segment naming the MCC records of its stages."""
+    return _seg(0xFF77, bytes([len(stages)]) + bytes(stages))
+
+
+def cbd(*depths):
+    """A CBD segment: one Ssiz-style byte per component."""
+    return _seg(0xFF78, struct.pack(">H", len(depths)) + bytes(depths))
+
+
+def splice_main(cs, *segments):
+    """``cs`` with ``segments`` put in its main header, after SIZ."""
+    siz = cs.index(b"\xff\x51")
+    end = siz + 2 + struct.unpack(">H", cs[siz + 2:siz + 4])[0]
+    return cs[:end] + b"".join(segments) + cs[end:]
+
+
+def splice_tile(cs, *segments):
+    """``cs`` with ``segments`` put in its first tile-part header (Psot grown)."""
+    sot = cs.index(b"\xff\x90")
+    sod = cs.index(b"\xff\x93", sot)
+    add = b"".join(segments)
+    psot = struct.unpack(">I", cs[sot + 6:sot + 10])[0]
+    return cs[:sot + 6] + struct.pack(">I", psot + len(add)) + cs[sot + 10:sod] + add + cs[sod:]

@@ -61,6 +61,14 @@ Writes into ``tests/data/torch_port_images/``:
   irreversible (9/7) JP2 at a rate of 30 (419 KB), and ``ALBEDO_J2K``: the
   config-3 albedo at 64^2 scaled up 32x, saved by PIL as a reversible (5/3)
   codestream with the RCT (602 KB);
+- HTJ2K and Part-2 files (``htj2k_fixtures``), a few hundred bytes each:
+  ``htj2k_*`` from the HT writer of ``tools/j2k_writers.py`` (``encode_ht``:
+  cleanup-only and three-pass code-blocks, 5/3 + RCT and 9/7 + ICT, grey,
+  RGB, RGBA and 16-bit, 8x8 to 128x32 code-blocks, VSC, placeholder passes,
+  raw, JP2 and JPH), ``part2_*`` OpenJPEG codestreams with MCT / MCC / MCO /
+  CBD segments spliced in; ``ALBEDO_HTJ2K``, the 64^2 albedo scaled up 32x
+  as a reversible HT codestream (1.18 MB), is not committed (the fixtures'
+  size budget): ``htj2k_albedo`` writes it where it is needed;
 - Lab PSDs and TIFFs, ``Pf`` and PIL's other PNM modes, DIBs and ICNS
   files (``lab_pnm_dib_icns_fixtures``), a few hundred bytes to a few KB
   each: Pillow's writers (Lab TIFF, DIB, ICNS with PNG entries) and the
@@ -90,7 +98,7 @@ digests; ``tests/test_torch_image_decode.py``,
 decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
-           [--only jpeg2000|lab_pnm_dib_icns|plugins|rasters]
+           [--only jpeg2000|htj2k|lab_pnm_dib_icns|plugins|rasters]
 """
 
 from __future__ import annotations
@@ -114,6 +122,7 @@ ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
 ALBEDO_CUT = "albedo2048_q85_prog_cut6.jpg"
 ALBEDO_JP2 = "albedo2048_irrev97_rate30.jp2"
 ALBEDO_J2K = "albedo2048_x32_rev53.j2k"
+ALBEDO_HTJ2K = "albedo2048_x32_rev53_ht.j2c"
 
 
 def pattern(h, w, seed):
@@ -1444,6 +1453,67 @@ def jpeg2000_fixtures():
 
 
 # --------------------------------------------------------------------------
+# HTJ2K (Part 15) and the Part-2 MCT / MCC / MCO / CBD markers
+
+def _ramp(h, w, n, seed, noise=6, hi=256, base=0):
+    """Seeded gradients with a little noise, ``n`` planes of [h, w]."""
+    r = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    return [np.clip(base + (x * (2 + c) + y * (3 + 2 * c)) * hi // 256 % (hi - base)
+                    + r.integers(0, noise * hi // 256 + 1, (h, w)), 0, hi - 1)
+            for c in range(n)]
+
+
+def htj2k_fixtures():
+    """The HTJ2K and Part-2 fixtures (a few hundred bytes each: the fixtures'
+    size budget has little room)."""
+    from tools import j2k_writers as jw
+
+    jph = b"jph \0\0\0\0jph "
+    out = {
+        "htj2k_grey_cleanup_8x8_20x16.j2c": jw.encode_ht(_ramp(16, 20, 1, 1), cblk=(8, 8)),
+        "htj2k_rgb_rct_3pass_16x4_16x12.j2c": jw.encode_ht(_ramp(12, 16, 3, 2, 12),
+                                                           cblk=(16, 4), passes=3),
+        "htj2k_rgba_97_ict_12x10.jp2": jw.jp2(jw.encode_ht(_ramp(10, 12, 4, 3, 8),
+                                                           irreversible=True, cblk=(8, 8),
+                                                           step=2.0), 12, 10, 4),
+        "htj2k_grey16_12x10.j2c": jw.encode_ht(_ramp(10, 12, 1, 4, 30, 512), prec=16,
+                                               cblk=(4, 8)),
+        "htj2k_grey_97_sigprop_16x16.j2c": jw.encode_ht(_ramp(16, 16, 1, 5, 60),
+                                                        irreversible=True, passes=2, step=0.5),
+        "htj2k_grey_128x32_40x36.jph": jw.jp2(
+            jw.encode_ht(_ramp(36, 40, 1, 6, 3), cblk=(128, 32), num_resolutions=1),
+            40, 36, 1, colr=(1, 17), ftyp=jph),
+        "htj2k_grey_vsc_3pass_16x16.j2c": jw.encode_ht(_ramp(16, 16, 1, 7, 3), passes=3,
+                                                       cblk_style=0x48, num_resolutions=1),
+        "htj2k_grey_placeholders_12x12.j2c": jw.encode_ht(_ramp(12, 12, 1, 8, 6, 256, 100),
+                                                          placeholders=1),
+    }
+    grey = jw.encode(_ramp(12, 10, 1, 9, 0, 256, 140))
+    rct = jw.encode(_ramp(10, 8, 3, 10, 0, 256, 140), mct=1)
+    out["part2_mco_no_stage_10x12.j2k"] = jw.splice_main(grey, jw.mco())
+    out["part2_mct_mcc_mco_offsets_rct_8x10.j2k"] = jw.splice_main(
+        rct, jw.mct(1, 1, [90, -30, 40]), jw.mcc(3, 3, offset=1), jw.mco(3))
+    out["part2_tile_mco_float_offsets_8x10.j2k"] = jw.splice_tile(
+        jw.splice_main(rct, jw.mct(1, 2, [60.9, 20.0, -5.5]), jw.mcc(3, 3, offset=1)),
+        jw.mco(3))
+    out["part2_cbd_7bit_10x12.j2k"] = jw.splice_main(jw.encode(_ramp(12, 10, 1, 11, 0, 256, 20)),
+                                                     jw.cbd(6))
+    return out
+
+
+def htj2k_albedo():
+    """``ALBEDO_HTJ2K``: the config-3 albedo at 64^2 scaled up 32x (the
+    pixels of ``ALBEDO_J2K``) as a reversible 5/3 + RCT HT codestream of
+    64 x 64 cleanup-only code-blocks; its read must be those pixels."""
+    from akari_torch.scene.builtin import envtex_texture
+    from tools import j2k_writers as jw
+
+    x32 = np.repeat(np.repeat(envtex_texture(64, 0), 32, 0), 32, 1)
+    return jw.encode_ht([x32[..., c] for c in range(3)])
+
+
+# --------------------------------------------------------------------------
 # Lab, PIL's other PNM modes, DIB and ICNS
 
 # the 2048^2 albedo files chip_smoke.py phase 50 writes (lab_albedo_files),
@@ -1828,7 +1898,8 @@ def write_generated(albedo):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
-    ap.add_argument("--only", choices=["jpeg2000", "lab_pnm_dib_icns", "plugins", "rasters"],
+    ap.add_argument("--only", choices=["jpeg2000", "htj2k", "lab_pnm_dib_icns", "plugins",
+                                       "rasters"],
                     help="write only this group's files and merge their digests into "
                          "digests.json, leaving the other fixtures as they are")
     args = ap.parse_args(argv)
@@ -1848,7 +1919,8 @@ def main(argv=None):
         path = os.path.join(args.output, "digests.json")
         with open(path) as f:
             digests = json.load(f)
-        group = {"jpeg2000": jpeg2000_fixtures, "lab_pnm_dib_icns": lab_pnm_dib_icns_fixtures,
+        group = {"jpeg2000": jpeg2000_fixtures, "htj2k": htj2k_fixtures,
+                 "lab_pnm_dib_icns": lab_pnm_dib_icns_fixtures,
                  "plugins": plugin_fixtures, "rasters": raster_fixtures}[args.only]
         for name, data in group().items():
             with open(os.path.join(args.output, name), "wb") as f:
@@ -1914,6 +1986,7 @@ def main(argv=None):
     for name, data in {**tiff_fixtures(np.random.default_rng(12)), **cmyk_jpegs(),
                        **webp_fixtures(), **dds_fixtures(), **legacy_fixtures(),
                        **jpeg_form_fixtures(), **fax_fixtures(), **jpeg2000_fixtures(),
+                       **htj2k_fixtures(),
                        **lab_pnm_dib_icns_fixtures(), **plugin_fixtures(),
                        **raster_fixtures()}.items():
         with open(os.path.join(args.output, name), "wb") as f:
