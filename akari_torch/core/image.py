@@ -30,18 +30,26 @@ through ``core/pcd.py``, SPIDER through ``core/spider.py``, MSP and XBM
 through ``core/image_formats.py``; FITS through ``core/fits.py``, FLI / FLC
 (frame 0) through ``core/fli.py``, Sun rasters through ``core/sun.py``, XPM
 through ``core/xpm.py``, and GBR, McIdas, PIXAR and XV thumbnails through
-``core/rasters.py``. Five of them (IM, IMT, IPTC, PCD, SPIDER) have no
+``core/rasters.py``; and AVIF (a still image's primary AV1 item, in every
+tool PIL's writer uses at its speeds 5-10: 4:2:0, 4:2:2, 4:4:4 and grey, 64
+and 128 superblocks, tiles, palettes, filter intra, CfL, lossless frames,
+the deblocking filter; alpha, premultiplied too; libavif's YUV -> RGB)
+through ``core/avif.py`` and ``native/av1_decode.cpp``. Five of them
+(IM, IMT, IPTC, PCD, SPIDER) have no
 signature: PIL runs their header parse on every file that reaches them in
 its order, and so does ``decode_image``. Others have a signature so weak
 that files of other formats pass it (GBR: two big-endian words; FLI: two
 16-bit fields; McIdas: eight bytes): their header parses are gates too,
 and come before ICO, IM, TIFF, TGA and others in PIL's order. The
 reference reads them with PIL, which the card's machine does not have; the
-pixels equal PIL's ``convert("RGB")``. Other formats PIL opens (AVIF; EPS,
-WMF, MPEG and the BUFR / GRIB / HDF5 stubs, which load no pixels here)
-raise an error naming the formats read here, and so do the JPEG 2000 forms
-still to be ported: HTJ2K (Part 15) code-blocks and Part-2 array-based
-multiple component transforms.
+pixels equal PIL's ``convert("RGB")``. Other formats PIL opens (EPS, WMF,
+MPEG and the BUFR / GRIB / HDF5 stubs, which load no pixels here) raise an
+error naming the formats read here, and so do the AVIF forms still to be
+ported: AV1 frames with loop restoration (PIL's writer at speeds 0-4),
+CDEF, superres, film grain, segmentation, delta q / delta lf, quantizer
+matrices, intra block copy or more than 8 bits, ``grid`` items, ``avis``
+sequences, and frames whose size differs from their ``ispe`` (libavif
+scales them).
 """
 
 from __future__ import annotations
@@ -360,6 +368,7 @@ def _accepted(data):
     PCD after MSP, SPIDER between SGI and TGA) are listed always, as PIL
     runs their header parse on every file that reaches them (``_GATES``);
     TGA, which has none either, by the sanity of its header."""
+    from .avif import AVIF_MAJOR_BRANDS
     from .image_formats import tga_header
     from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE
     from .pcx import DCX_MAGIC
@@ -373,6 +382,7 @@ def _accepted(data):
         ("JPEG", head[:3] == JPEG_SIGNATURE),
         ("PNM", head[:1] == b"P" and len(head) >= 2 and head[1:2] in b"0123456fy"),
         ("PNG", head[:8] == PNG_SIGNATURE),
+        ("AVIF", head[4:8] == b"ftyp" and head[8:12] in AVIF_MAJOR_BRANDS),
         ("BLP", head[:4] in (b"BLP1", b"BLP2")),
         ("CUR", head[:4] == b"\0\0\2\0"),
         ("PCX", len(head) >= 2 and head[0] == 10 and head[1] in (0, 2, 3, 5)),
@@ -412,7 +422,8 @@ def _accepted(data):
 # five without one, on any file) -> (module of core/, their plugin's header
 # parse): NextFormat where PIL tries the next format, ValueError where its
 # open fails
-_GATES = {"IM": ("im", "im_header"), "IMT": ("im", "imt_header"),
+_GATES = {"AVIF": ("avif", "avif_header"),
+          "IM": ("im", "im_header"), "IMT": ("im", "imt_header"),
           "IPTC": ("iptc", "iptc_header"), "PCD": ("pcd", "pcd_header"),
           "SPIDER": ("spider", "spider_header"), "FITS": ("fits", "fits_header"),
           "FLI": ("fli", "fli_header"), "GBR": ("rasters", "gbr_header"),
@@ -451,6 +462,7 @@ def image_format(data):
 # format -> (module of core/, decoder)
 _DECODERS = {
     "PNG": ("image", "decode_png"), "JPEG": ("jpeg", "decode_jpeg"),
+    "AVIF": ("avif", "decode_avif"),
     "BMP": ("image_formats", "decode_bmp"),
     "DIB": ("image_formats", "decode_dib_file"), "ICNS": ("icns", "decode_icns"),
     "GIF": ("image_formats", "decode_gif"), "PNM": ("image_formats", "decode_pnm"),
@@ -500,11 +512,13 @@ def decode_with_mode(data, what="image"):
     raise ValueError(f"{what}: unsupported image format (the port reads PNG, JPEG, BMP, DIB, "
                      "GIF, PNM (P1-P6, PFM and PIL's P0CMYK / Py modes), PSD, TGA, TIFF (every "
                      "compression PIL reads: raw, PackBits, LZW, Deflate, JPEG, old-style JPEG, "
-                     "LZMA, ZSTD, CCITT and ThunderScan; Lab too), WebP, DDS, BLP, FTEX, ICO, "
-                     "CUR, QOI, SGI, PCX, DCX, JPEG 2000 (JP2 and J2K, Part 1), ICNS, IM, IMT, "
-                     "IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI / FLC, GBR, MCIDAS, PIXAR, SUN, XPM, "
-                     "XVThumb, .hdr and .npy; not AVIF, nor EPS, WMF, MPEG or the BUFR / GRIB / "
-                     f"HDF5 stubs, which load no pixels here){tried}")
+                     "LZMA, ZSTD, CCITT and ThunderScan; Lab too), WebP, AVIF (8-bit still "
+                     "images without AV1 loop restoration, CDEF, superres, film grain, "
+                     "segmentation, delta q / lf, quantizer matrices or intra block copy), DDS, "
+                     "BLP, FTEX, ICO, CUR, QOI, SGI, PCX, DCX, JPEG 2000 (JP2 and J2K, Parts 1, 2 "
+                     "and 15), ICNS, IM, IMT, IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI / FLC, GBR, "
+                     "MCIDAS, PIXAR, SUN, XPM, XVThumb, .hdr and .npy; not EPS, WMF, MPEG or the "
+                     f"BUFR / GRIB / HDF5 stubs, which load no pixels here){tried}")
 
 
 def decode_with_format(data, what="image"):
@@ -517,13 +531,13 @@ def decode_with_format(data, what="image"):
 def decode_image(data, what="image"):
     """File bytes -> [H, W, 3] uint8, the pixels of PIL's
     ``convert("RGB")``: PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, WebP,
-    DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, DCX, JPEG 2000, ICNS, IM, IMT,
-    IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI, GBR, MCIDAS, PIXAR, SUN, XPM and
-    XVThumb, told apart as PIL tells them (the
+    AVIF, DDS, BLP, FTEX, ICO, CUR, QOI, SGI, PCX, DCX, JPEG 2000, ICNS, IM,
+    IMT, IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI, GBR, MCIDAS, PIXAR, SUN, XPM
+    and XVThumb, told apart as PIL tells them (the
     formats of ``_accepted`` in PIL's order, each header parse deciding, as
     in PIL, whether the next is tried). Other formats, and forms a decoder
-    refuses (HTJ2K and Part-2 JPEG 2000 among them), raise ``ValueError``
-    naming them."""
+    refuses (AVIF with AV1 loop restoration or CDEF among them), raise
+    ``ValueError`` naming them."""
     return decode_with_format(data, what)[1]
 
 
@@ -535,11 +549,11 @@ def read_image(path, to_linear=True):
     tells them (``decode_image``: by signature, and for IM, IMT, IPTC,
     PhotoCD and SPIDER by their header parse), TIFF in every compression PIL
     reads (the CCITT fax codes, ThunderScan and old-style JPEG among them),
-    JPEG 2000 in every Part-1 form, Lab through LittleCMS's transform, DCX,
-    MSP and XBM, and FITS, FLI / FLC, GBR, McIdas, PIXAR, Sun raster, XPM and
-    XV thumbnails; other formats, and forms the decoders refuse (HTJ2K
-    code-blocks and Part-2 multiple component transforms among them), raise
-    ``ValueError`` naming the format.
+    JPEG 2000 (Parts 1, 2 and 15), Lab through LittleCMS's transform, DCX,
+    MSP and XBM, FITS, FLI / FLC, GBR, McIdas, PIXAR, Sun raster, XPM and
+    XV thumbnails, and AVIF still images; other formats, and forms the
+    decoders refuse (AVIF frames with AV1 loop restoration among them),
+    raise ``ValueError`` naming the format.
     """
     path = str(path)
     if path.endswith(".npy"):

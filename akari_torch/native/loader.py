@@ -31,13 +31,16 @@ by a hash of the source, the compiler and the flags, and loaded with
   and tiles of TIFF files (``core/tiff.py``);
 - ``j2k``: ``j2k_decode.cpp``, JPEG 2000 codestreams (``core/jpeg2000.py``);
 - ``lcms``: ``lcms_lab.cpp``, LittleCMS's tetrahedral interpolation of 8-bit
-  Lab pixels on the Lab -> sRGB table (``core/lcms.py``).
+  Lab pixels on the Lab -> sRGB table (``core/lcms.py``);
+- ``av1``: ``av1_decode.cpp``, the AV1 intra frames of AVIF images to YUV
+  planes, and libavif's (libyuv's) YUV -> RGB (``core/avif.py``); its
+  default CDFs and lookup tables are in ``av1_tables.h``.
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
 would give another triangle storage order, and the JPEG (Huffman and
 arithmetic), GIF, TIFF, WebP,
-BCn, QOI, SGI / PCX / SUN / FLI run-length, Zstandard, CCITT, ThunderScan and JPEG 2000
-decoders and the Lab evaluator have no Python twin, so there is no fallback.
+BCn, QOI, SGI / PCX / SUN / FLI run-length, Zstandard, CCITT, ThunderScan, JPEG 2000
+and AV1 decoders and the Lab evaluator have no Python twin, so there is no fallback.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ LIBS = ["-lpthread"]
 # flags a source needs besides CXX_FLAGS (never -ffast-math or -march=native)
 EXTRA_FLAGS = {"j2k": ["-ffp-contract=off"]}
 # headers a source includes, hashed with it into the library's key
-HEADERS = {"j2k": ("j2k_ht_tables.h",)}
+HEADERS = {"j2k": ("j2k_ht_tables.h",), "av1": ("av1_tables.h",)}
 
 
 def _bind_bvh(lib):
@@ -236,6 +239,25 @@ def _bind_lcms(lib):
     ]
 
 
+def _bind_av1(lib):
+    i32, p = ctypes.c_int32, ctypes.c_void_p
+    lib.akr_av1_probe.restype = ctypes.c_int
+    lib.akr_av1_probe.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[20]
+        ctypes.c_char_p, i32,                              # err, errlen
+    ]
+    lib.akr_av1_decode.restype = ctypes.c_int
+    lib.akr_av1_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, p, p, p,          # data, size, y, u, v
+        p, ctypes.c_char_p, i32,                           # stats[8], err, errlen
+    ]
+    lib.akr_yuv_to_rgb.restype = None
+    lib.akr_yuv_to_rgb.argtypes = [
+        p, p, p, i32, i32,                                 # y, u, v, width, height
+        i32, i32, i32, p, p,                               # ssx, ssy, mono, k[6], rgb
+    ]
+
+
 # name -> (source, library file, what needs it, ctypes binding)
 SOURCES = {
     "bvh": ("bvh_builder.cpp", "libakr_bvh.so",
@@ -255,6 +277,7 @@ SOURCES = {
     "fax3": ("fax3.cpp", "libakr_fax3.so", "the TIFF CCITT (fax) decoder", _bind_fax3),
     "j2k": ("j2k_decode.cpp", "libakr_j2k.so", "the JPEG 2000 decoder", _bind_j2k),
     "lcms": ("lcms_lab.cpp", "libakr_lcms.so", "the Lab -> sRGB transform", _bind_lcms),
+    "av1": ("av1_decode.cpp", "libakr_av1.so", "the AVIF (AV1) decoder", _bind_av1),
 }
 
 _lock = threading.Lock()

@@ -215,25 +215,30 @@ Phases (each checks its results; any failure exits non-zero):
     the frame must be bit-equal) and on the JPEG again, each with its tree
     launches, parse time and time to first image;
 42. the TGA, BMP, PNM, GIF and PSD decoders: their fixtures' digests, the
-    2048^2 albedo in each format (decode times beside PNG and JPEG), and
-    the config-3 CLI on the PNG, TGA-RLE and BMP albedos (frames bit-equal,
-    6 tree closest launches each);
+    2048^2 albedo in each format (decode times beside phase 41's PNG
+    median), and the config-3 CLI on the TGA-RLE and BMP albedos (frames
+    bit-equal, 6 tree closest launches each, held to phase 51's PNG-route
+    frame of the same pixels: phase 54 took its own PNG route run and
+    PNG / JPEG medians, and those of phases 43, 44 and 46);
 43. the TIFF decoder and the CMYK / YCCK JPEGs: the TIFF and CMYK
     fixtures' digests; the 2048^2 albedo as TIFF raw, PackBits, LZW, LZW
     with the horizontal predictor, tiled LZW, Deflate in planes and 16-bit
     Deflate with the predictor (written by the fixture tool's
     ``tiff_bytes``, LZW strips compressed in parallel processes), each
     decode's median of 3 no slower than the PNG route's; the config-3 CLI
-    on the PNG, the 8-bit LZW-with-predictor and the 16-bit Deflate TIFF
-    albedos (frames bit-equal, 6 tree closest launches each); and ``--sharded --ao``
+    on the 8-bit LZW-with-predictor and the 16-bit Deflate TIFF albedos
+    (frames bit-equal, 6 tree closest launches each, held to phase 51's
+    PNG-route frame of the same pixels: phase 54 took its own PNG route
+    run); and ``--sharded --ao``
     on the Cornell box at 64^2, exit 0 and the unsharded CLI's PNG;
 44. the WebP decoder: the WebP fixtures' digests (lossy, lossless,
     palettes, alpha, animations, a random VP8 frame); the 2048^2 albedo as
     the committed lossy WebP and as a lossless one written here by
     ``vp8l_bytes`` (the machine has no encoder), each decode's median of 3
     no slower than the PNG route's; the config-3 CLI on a PNG of the lossy
-    WebP's pixels, on the lossy WebP, on the PNG albedo and on the lossless
-    WebP (frames bit-equal pairwise, 6 tree closest launches each);
+    WebP's pixels, on the lossy WebP and on the lossless WebP (frames
+    bit-equal pairwise, the lossless one's to phase 51's PNG route of the
+    same pixels, 6 tree closest launches each);
 45. the DDS, BLP and FTEX decoders: their fixtures' digests (every BCn
     form, the DX10 header, the mask, luminance and palette forms, BLP1
     JPEG and palette, BLP2 palette and DXT, FTEX); the 2048^2 albedo
@@ -248,8 +253,8 @@ Phases (each checks its results; any failure exits non-zero):
     an LZMA TIFF with the horizontal predictor by ``tiff_bytes``, and the
     committed 2048^2 ZSTD TIFF, each decode's median of 3 no slower than
     the PNG route's (LZMA, decoded by Python's ``lzma``, recorded); the
-    config-3 CLI on the PNG, RLE SGI and PCX albedos (frames bit-equal, 6
-    tree closest launches each);
+    config-3 CLI on the RLE SGI and PCX albedos (frames bit-equal, and to
+    phase 51's PNG route of the same pixels, 6 tree closest launches each);
 47. the arithmetic-coded, lossless and cut progressive JPEGs: their
     fixtures' digests; the 2048^2 albedo as an arithmetic-coded
     progressive JPEG (the committed baseline JPEG re-coded here by
@@ -324,21 +329,28 @@ Phases (each checks its results; any failure exits non-zero):
     median of 3 beside phase 41's PNG median and phase 49's J2K median;
     one config-3 CLI run on it (6 tree closest launches), its frame
     bit-equal to phase 49's on the J2K of the same pixels (no launch held);
-54. the result: a JSON line of kernel records (the dense records on the
+54. AVIF: the fixtures of ``tests/data/torch_port_avif`` (format, PIL's
+    mode and digest; 4:2:0 / 4:2:2 / 4:4:4 / grey, alpha, tiles, palettes,
+    lossless, idat, nclx matrices); the committed 2048^2 albedo at quality
+    60, speed 6 (287,591 bytes: 128x128 superblocks, 4 x 2 tiles), its
+    decode's median of 3 beside phase 41's PNG median; the config-3 CLI on
+    a PNG of its decoded pixels and on the AVIF (frames bit-equal, 6 tree
+    closest launches each);
+55. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
     the tree records' errors cover phases 6, 24, 26, 27, 35, 40 and 51,
     the dense and instanced tree records' those of phases 34, 37 and 40),
     then the device line.
 
-Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-53) sets the
+Each phase of the new paths (3, 7, 10, 13, 16, 17, 24, 26-37, 40-54) sets the
 kernels' launch counts to 0 just before its run and reads them just after
 (in each rank's process for 34-37).
 
 Every kernel source (and the native BVH builder, JPEG Huffman and
 arithmetic decoders, GIF and TIFF LZW decoders, WebP decoders, BCn decoder, QOI decoder, SGI /
 PCX / Sun / FLI / ThunderScan run-length decoder, ZSTD decoder, CCITT decoder, JPEG 2000
-decoder and Lab evaluator) is
+decoder, Lab evaluator and AV1 decoder) is
 built at start, one
 compiler process each, all started together. Imports nothing of JAX.
 Exits non-zero without a CUDA device.
@@ -2899,8 +2911,10 @@ def config3_cli_runs(card, traversal, cli_render, files, names, held, max_ulp=0)
 def format_phase(card, traversal, cli_render):
     """Phase 42: the TGA, BMP, PNM, GIF and PSD decoders on this machine
     (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
-    each format, and the config-3 CLI with a TGA-RLE and a BMP albedo
-    against the PNG route; returns the figures it logs."""
+    each format beside phase 41's PNG median, and the config-3 CLI with a
+    TGA-RLE and a BMP albedo (their frames bit-equal; main holds them to
+    phase 51's PNG-route frame of the same pixels); returns the figures it
+    logs and the frame."""
     import hashlib
 
     import numpy as np
@@ -2926,15 +2940,15 @@ def format_phase(card, traversal, cli_render):
 
     png_data, albedo = albedo_png()  # phase 24's albedo.png, the PNG route's pixels
     files, gif_px = albedo_files(albedo)
-    files["png"] = png_data
-    with open(os.path.join(IMAGE_FIXTURES, ALBEDO_JPEG), "rb") as f:
-        files["jpeg"] = f.read()
-    out = {}
-    for key in ("png", "jpeg", "tga", "tga_rle", "bmp", "ppm", "gif", "psd"):
+    png_s, png_runs = png_decode_median()  # phase 41's (its JPEG median is phase 41's too)
+    out = {"png_decode_s": png_s}
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"(runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    for key in ("tga", "tga_rle", "bmp", "ppm", "gif", "psd"):
         px = decode_image(files[key], key)
         if key == "gif":
             check(np.array_equal(px, gif_px), "the 2048^2 GIF decodes to other pixels")
-        elif key != "jpeg":
+        else:
             check(np.array_equal(px, albedo), f"the 2048^2 {key} decodes to other pixels")
         med, runs = _median_s(lambda: decode_image(files[key], key))
         out[f"{key}_decode_s"] = med
@@ -2945,14 +2959,17 @@ def format_phase(card, traversal, cli_render):
               f"{key} decodes the albedo slower than the PNG route: {out[f'{key}_decode_s']:.4f} "
               f"s against {out['png_decode_s']:.4f} s")
 
+    # the PNG route of these pixels runs in phase 51 (its png_frame): main
+    # holds these frames to it
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render, {"albedo.tga": files["tga_rle"], "albedo.bmp": files["bmp"]},
-        ("albedo.png", "albedo.tga", "albedo.bmp"), set())
+        ("albedo.tga", "albedo.bmp"), set())
     out.update(cli)
-    for name in ("albedo.tga", "albedo.bmp"):
-        check(np.array_equal(frames[name], frames["albedo.png"]),
-              f"the frame on {name} differs from the PNG route's")
-    log("  the TGA-RLE and BMP albedo frames are bit-equal to the PNG route's")
+    check(np.array_equal(frames["albedo.tga"], frames["albedo.bmp"]),
+          "the frames on the TGA-RLE and the BMP albedo differ")
+    log("  the TGA-RLE and BMP albedo frames are bit-equal (phase 51 holds them to the PNG "
+        "route's)")
+    out["frame"] = frames["albedo.tga"]
     log(f"  phase 42: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2991,8 +3008,9 @@ def tiff_phase(card, traversal, cli_render):
     """Phase 43: the TIFF decoder and the 4-component JPEGs on this machine
     (no PIL here): the fixtures' digests, the 2048^2 albedo decoded from
     seven TIFF forms against the PNG route's time, the config-3 CLI on the
-    8-bit LZW-with-predictor and the 16-bit Deflate TIFFs against the PNG
-    route (bit-equal frames, 6 tree closest launches each), and
+    8-bit LZW-with-predictor and the 16-bit Deflate TIFFs (bit-equal frames,
+    6 tree closest launches each; main holds them to phase 51's PNG-route
+    frame of the same pixels), and
     ``--sharded --ao`` against the
     unsharded CLI; returns the tree kernel's errors and the figures it
     logs."""
@@ -3045,15 +3063,18 @@ def tiff_phase(card, traversal, cli_render):
         check(med <= png_s, f"TIFF {key} decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
+    # the PNG route of these pixels runs in phase 51 (its png_frame): main
+    # holds these frames to it
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_lzw.tif": files["lzw_pred2"], "albedo_16.tif": files["rgb16_deflate_pred2"]},
-        ("albedo.png", "albedo_lzw.tif", "albedo_16.tif"), set())
+        ("albedo_lzw.tif", "albedo_16.tif"), set())
     out.update(cli)
-    for name in ("albedo_lzw.tif", "albedo_16.tif"):
-        check(np.array_equal(frames[name], frames["albedo.png"]),
-              f"the frame on {name} differs from the PNG route's")
-    log("  the 8-bit LZW and 16-bit Deflate TIFF albedo frames are bit-equal to the PNG route's")
+    check(np.array_equal(frames["albedo_lzw.tif"], frames["albedo_16.tif"]),
+          "the frames on the 8-bit LZW and the 16-bit Deflate TIFF albedo differ")
+    log("  the 8-bit LZW and 16-bit Deflate TIFF albedo frames are bit-equal (phase 51 holds "
+        "them to the PNG route's)")
+    out["frame"] = frames["albedo_lzw.tif"]
 
     # --sharded with --ao renders unsharded, as the reference does
     with tempfile.TemporaryDirectory() as tmp:
@@ -3077,7 +3098,9 @@ def webp_phase(card, traversal, cli_render):
     a lossless one written here (``vp8l_bytes``), each decode's median of 3
     no slower than the PNG route's, and the config-3 CLI on both against
     the PNG route of their decoded pixels (bit-equal frames, 6 tree closest
-    launches each); returns the figures it logs."""
+    launches each; main holds the lossless one's to phase 51's PNG-route
+    frame of the same pixels); returns the figures it logs and that
+    frame."""
     import hashlib
 
     import numpy as np
@@ -3128,14 +3151,13 @@ def webp_phase(card, traversal, cli_render):
         card, traversal, cli_render,
         {"albedo_q85.webp": lossy, "albedo_lossless.webp": lossless,
          "lossy_decoded.png": encode_png(lossy_px)},
-        ("lossy_decoded.png", "albedo_q85.webp", "albedo.png", "albedo_lossless.webp"), set())
+        ("lossy_decoded.png", "albedo_q85.webp", "albedo_lossless.webp"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo_q85.webp"], frames["lossy_decoded.png"]),
           "the frame on the lossy WebP differs from the frame on a PNG of its decoded pixels")
-    check(np.array_equal(frames["albedo_lossless.webp"], frames["albedo.png"]),
-          "the frame on the lossless WebP differs from the PNG route's")
-    log("  the lossy and lossless WebP albedo frames are bit-equal to the frames on PNGs of "
-        "their decoded pixels")
+    log("  the lossy WebP albedo frame is bit-equal to the frame on a PNG of its decoded pixels "
+        "(phase 51 holds the lossless one to the PNG route's)")
+    out["frame"] = frames["albedo_lossless.webp"]
     log(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3222,9 +3244,10 @@ def legacy_phase(card, traversal, cli_render):
     RLE SGI and 24-bit RLE PCX and by ``tiff_bytes`` as an LZMA TIFF with
     the horizontal predictor, and the committed 2048^2 ZSTD TIFF, each
     decode's median of 3 beside the PNG route's (no slower for all but
-    LZMA, which is recorded); and the config-3 CLI on the PNG, the RLE SGI
-    and the PCX albedos (frames bit-equal, 6 tree closest launches each);
-    returns the figures it logs."""
+    LZMA, which is recorded); and the config-3 CLI on the RLE SGI and the
+    PCX albedos (frames bit-equal, 6 tree closest launches each; main holds
+    them to phase 51's PNG-route frame of the same pixels); returns the
+    figures it logs and the frame."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3298,12 +3321,13 @@ def legacy_phase(card, traversal, cli_render):
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
         {"albedo_rle.sgi": files["RLE SGI"], "albedo_rle.pcx": files["24-bit PCX"]},
-        ("albedo.png", "albedo_rle.sgi", "albedo_rle.pcx"), set())
+        ("albedo_rle.sgi", "albedo_rle.pcx"), set())
     out.update(cli)
-    for name in ("albedo_rle.sgi", "albedo_rle.pcx"):
-        check(np.array_equal(frames[name], frames["albedo.png"]),
-              f"the frame on {name} differs from the PNG route's")
-    log("  the RLE SGI and 24-bit PCX albedo frames are bit-equal to the PNG route's")
+    check(np.array_equal(frames["albedo_rle.sgi"], frames["albedo_rle.pcx"]),
+          "the frames on the RLE SGI and the 24-bit PCX albedo differ")
+    log("  the RLE SGI and 24-bit PCX albedo frames are bit-equal (phase 51 holds them to the "
+        "PNG route's)")
+    out["frame"] = frames["albedo_rle.sgi"]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 46: {out['phase_s']:.1f} s")
     return out
@@ -3684,6 +3708,78 @@ def htj2k_phase(card, traversal, cli_render, writer, j2k_frame, j2k_decode_s):
     return out
 
 
+AVIF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_avif")
+ALBEDO_AVIF = "albedo2048_q60.avif"   # envtex_texture(2048, 0), quality 60, speed 6, 4:2:0
+
+
+def avif_phase(card, traversal, cli_render):
+    """Phase 54: AVIF on this machine (no PIL, no AV1 encoder here): the
+    fixtures of ``tests/data/torch_port_avif`` (format, PIL's mode and
+    SHA-256 in their ``digests.json``); the committed 2048^2 albedo at
+    quality 60 (128x128 superblocks, 4 x 2 tiles), its decode's median of 3
+    beside phase 41's PNG median; and the config-3 CLI on a PNG of its
+    decoded pixels and on the AVIF (frames bit-equal, 6 tree closest
+    launches each); returns the figures it logs."""
+    import hashlib
+
+    import numpy as np
+
+    from akari_torch.core.avif import avif_frame_info
+    from akari_torch.core.image import decode_with_mode, encode_png
+
+    t_phase = time.perf_counter()
+    log(f"phase 54: AVIF decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
+        f"AVIF, the config-3 CLI on it [card: {card}]")
+    with open(os.path.join(AVIF_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    albedo_data, albedo_px, first_s = None, None, 0.0
+    for fname, rec in sorted(digests.items()):
+        with open(os.path.join(AVIF_FIXTURES, fname), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        fmt, mode, px, _ = decode_with_mode(data, fname)
+        decode_s = time.perf_counter() - t0
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(fmt == "AVIF" and mode == rec["mode"] and list(px.shape) == rec["shape"]
+              and digest == rec["sha256"],
+              f"{fname}: read as {fmt} {mode} {px.shape}, sha256 {digest[:16]}..., PIL's "
+              f"{rec['mode']} {rec['sha256'][:16]}...")
+        if fname == ALBEDO_AVIF:
+            albedo_data, albedo_px, first_s = data, px, decode_s
+    pil = sorted({rec["pil"] for rec in digests.values()})
+    check(len(digests) >= 17 and albedo_data is not None,
+          f"{len(digests)} AVIF fixtures, the albedo {'in' if albedo_data else 'not in'} them")
+    log(f"  {len(digests)} fixtures decoded (RGB and RGBA, 4:2:0 / 4:2:2 / 4:4:4 / grey, tiles, "
+        f"palettes, lossless); every SHA-256 and mode equals PIL {', '.join(pil)}'s in "
+        f"digests.json")
+    info = avif_frame_info(albedo_data)
+    log(f"  the albedo: {len(albedo_data)} bytes, {info['width']} x {info['height']}, "
+        f"{128 if info['sb128'] else 64}^2 superblocks, {info['tile_cols']} x {info['tile_rows']} "
+        f"tiles, base_q_idx {info['base_q_idx']}")
+    out = {}
+    png_s, png_runs = png_decode_median()  # phase 41's
+    out["png_decode_s"] = png_s
+    log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
+        f"(runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
+    # the digest's decode is the first of the three runs
+    runs = [first_s] + _median_s(lambda: decode_with_mode(albedo_data, ALBEDO_AVIF), 2)[1]
+    med = sorted(runs)[1]
+    out["avif_decode_s"] = med
+    log(f"  2048^2 AVIF decode on the host, median of 3: {med:.4f} s ({len(albedo_data)} bytes; "
+        f"runs {', '.join(f'{t:.4f}' for t in runs)}; {med / png_s:.2f}x the PNG's) [card: {card}]")
+    frames, cli, _ = config3_cli_runs(
+        card, traversal, cli_render,
+        {"albedo_avif.png": encode_png(albedo_px), "albedo.avif": albedo_data},
+        ("albedo_avif.png", "albedo.avif"), set())
+    out.update(cli)
+    check(np.array_equal(frames["albedo.avif"], frames["albedo_avif.png"]),
+          "the frame on the AVIF albedo differs from the PNG route's of its pixels")
+    log("  the AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 54: {out['phase_s']:.1f} s")
+    return out
+
+
 LAB_FIXTURES = ("lab_", "tiff_lab_", "tiff_pil_lab_", "pfm_", "pnm_p", "dib_", "icns_")
 LAB_CLI_TIFF = "albedo2048_lab_lzw.tif"
 
@@ -4005,7 +4101,7 @@ def main():
 
     t0 = time.perf_counter()
     native_names = ("bvh", "jpeg", "jpeg_arith", "gif", "tiff", "webp_vp8l", "webp_vp8", "bcn",
-                    "qoi", "rle", "zstd", "fax3", "j2k", "lcms")
+                    "qoi", "rle", "zstd", "fax3", "j2k", "lcms", "av1")
     with ThreadPoolExecutor(max_workers=len(KERNELS) + len(native_names)) as pool:
         # g++ beside the nvcc builds: the BVH builder, the JPEG Huffman and
         # arithmetic decoders, the GIF and TIFF LZW decoders, the two WebP decoders, the BCn decoder,
@@ -4582,11 +4678,11 @@ def main():
     err_it = max(err_it, aos["instanced_tree"][0])
     occ_it = max(occ_it, aos["instanced_tree"][1])
     image_phase(card, traversal, cli_render)
-    format_phase(card, traversal, cli_render)
-    tiff_phase(card, traversal, cli_render)
-    webp_phase(card, traversal, cli_render)
+    formats42 = format_phase(card, traversal, cli_render)
+    tiff43 = tiff_phase(card, traversal, cli_render)
+    webp44 = webp_phase(card, traversal, cli_render)
     dds_phase(card, traversal, cli_render)
-    legacy_phase(card, traversal, cli_render)
+    legacy46 = legacy_phase(card, traversal, cli_render)
     jpeg_forms_phase(card, traversal, cli_render)
     fax_phase(card, traversal, cli_render)
     j2k = jpeg2000_phase(card, traversal, cli_render)
@@ -4595,13 +4691,21 @@ def main():
     raster_phase(card, traversal, cli_render, plugins["png_frame"])
     from tools.make_torch_port_image_fixtures import ALBEDO_J2K
 
+    for ph, frame in (("42's TGA-RLE and BMP", formats42["frame"]),
+                      ("43's LZW and 16-bit TIFF", tiff43["frame"]),
+                      ("44's lossless WebP", webp44["frame"]),
+                      ("46's RLE SGI and PCX", legacy46["frame"])):
+        check(np.array_equal(frame, plugins["png_frame"]),
+              f"phase {ph} albedo frames differ from phase 51's PNG route of the same pixels")
+        log(f"  phase {ph} albedo frames are bit-equal to phase 51's PNG route's")
     htj2k_phase(card, traversal, cli_render, htj2k_writer, j2k["x32_frame"],
                 j2k[f"{ALBEDO_J2K}_decode_s"])
+    avif_phase(card, traversal, cli_render)
     tree_err = max(tree_err, plugins["tree_err"])
     tree_occ_err = max(tree_occ_err, plugins["tree_occ_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 54: result ----------------------------------------------------
+    # ---- phase 55: result ----------------------------------------------------
     rows = [
         ("dense_closest", "dense_intersect.cu", "pallas_intersect.py:141",
          launches["closest"], max_abs_err),

@@ -269,11 +269,14 @@ def test_unsupported_images_name_their_format(tmp_path):
         Image.open(tmp_path / "x.jp2").convert("RGB")
     with pytest.raises(ValueError, match="unsupported image format.*PIL gives up on it"):
         port_image.read_image(str(tmp_path / "x.jp2"))
-    # AVIF: a format PIL opens that the port still refuses
+    # AVIF: read at the writer's default speed; refused naming loop
+    # restoration where a slow speed turns it on
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "x.avif", "AVIF")
-    assert np.asarray(Image.open(tmp_path / "x.avif").convert("RGB")).shape == (8, 8, 3)
-    with pytest.raises(ValueError, match="unsupported image format"):
-        port_image.read_image(str(tmp_path / "x.avif"))
+    _same_read(str(tmp_path / "x.avif"))
+    Image.fromarray(_pattern(64, 64, 5, "smooth")).save(tmp_path / "lr.avif", "AVIF", speed=2)
+    assert np.asarray(Image.open(tmp_path / "lr.avif").convert("RGB")).shape == (64, 64, 3)
+    with pytest.raises(ValueError, match="loop restoration"):
+        port_image.read_image(str(tmp_path / "lr.avif"))
 
 
 # ------------------------------- _bilinear -------------------------------------

@@ -1,0 +1,212 @@
+"""AVIF container edits for the AVIF tests: a small ISO BMFF box rewriter.
+
+``Avif.parse`` splits a file (PIL's writer's layout: ``ftyp``, ``meta``,
+``mdat``) into its ``ftyp`` body, the ``meta`` boxes (``hdlr``, ``pitm``,
+``iinf`` entries, ``iref`` entries, the ``ipco`` properties and the
+``ipma`` associations, ``idat``) and each item's bytes; ``Avif.build``
+writes it back with the sizes and the ``iloc`` offsets recomputed, so a
+test can drop, duplicate or add properties, boxes and items, move an item
+into ``idat`` (construction method 1), or cut the ``mdat``. Numpy and the
+standard library only.
+
+    from tools.avif_writers import Avif, box, full_box
+    a = Avif.parse(open("x.avif", "rb").read())
+    a.props.append((b"zzzz", b"\\0"))
+    a.assoc[a.primary].append((len(a.props), True))
+    data = a.build()
+"""
+
+from __future__ import annotations
+
+import struct
+
+
+def box(typ, body):
+    return struct.pack(">I4s", 8 + len(body), typ) + body
+
+
+def full_box(typ, version, flags, body):
+    return box(typ, bytes([version]) + flags.to_bytes(3, "big") + body)
+
+
+def boxes(b, start, end):
+    pos = start
+    while pos + 8 <= end:
+        size, typ = struct.unpack_from(">I4s", b, pos)
+        hdr = 8
+        if size == 1:
+            size, hdr = struct.unpack_from(">Q", b, pos + 8)[0], 16
+        elif size == 0:
+            size = end - pos
+        yield typ, pos + hdr, pos + size
+        pos += size
+
+
+class Avif:
+    """An AVIF file as editable parts."""
+
+    def __init__(self):
+        self.ftyp = b"avif\0\0\0\0avifmif1miafMA1B"
+        self.hdlr = b"\0" * 4 + b"pict" + b"\0" * 13
+        self.primary = 1
+        self.pitm_version = 0
+        self.infe = []      # [(item id, type, name, flags)]
+        self.iref = []      # [(type, from id, [to ids])]
+        self.props = []     # [(type, body)]
+        self.assoc = {}     # item id -> [(property index (1-based), essential)]
+        self.items = {}     # item id -> bytes
+        self.in_idat = set()  # items stored in idat (construction method 1)
+        self.extra_meta = []  # extra boxes appended to meta: [(type, body)]
+        self.iloc_version = 0
+
+    @classmethod
+    def parse(cls, data):
+        a = cls()
+        top = {t: (s, e) for t, s, e in boxes(data, 0, len(data))}
+        a.ftyp = data[top[b"ftyp"][0]:top[b"ftyp"][1]]
+        ms, me = top[b"meta"]
+        locs = {}
+        for t, s, e in boxes(data, ms + 4, me):
+            if t == b"hdlr":
+                a.hdlr = data[s:e]
+            elif t == b"pitm":
+                a.pitm_version = data[s]
+                a.primary = struct.unpack_from(">H" if data[s] == 0 else ">I", data, s + 4)[0]
+            elif t == b"iinf":
+                v = data[s]
+                for t2, s2, e2 in boxes(data, s + (6 if v == 0 else 8), e):
+                    iv = data[s2]
+                    flags = int.from_bytes(data[s2 + 1:s2 + 4], "big")
+                    p = s2 + 4
+                    iid = struct.unpack_from(">H" if iv == 2 else ">I", data, p)[0]
+                    p += 2 if iv == 2 else 4
+                    typ = data[p + 2:p + 6]
+                    name = data[p + 6:e2]
+                    a.infe.append((iid, typ, name, flags))
+            elif t == b"iref":
+                v = data[s]
+                k = 2 if v == 0 else 4
+                for t2, s2, e2 in boxes(data, s + 4, e):
+                    src = int.from_bytes(data[s2:s2 + k], "big")
+                    n = struct.unpack_from(">H", data, s2 + k)[0]
+                    dst = [int.from_bytes(data[s2 + k + 2 + i * k:s2 + k + 2 + (i + 1) * k], "big")
+                           for i in range(n)]
+                    a.iref.append((t2, src, dst))
+            elif t == b"iprp":
+                for t2, s2, e2 in boxes(data, s, e):
+                    if t2 == b"ipco":
+                        a.props = [(t3, data[s3:e3]) for t3, s3, e3 in boxes(data, s2, e2)]
+                    elif t2 == b"ipma":
+                        v, flags = data[s2], int.from_bytes(data[s2 + 1:s2 + 4], "big")
+                        p = s2 + 4
+                        n = struct.unpack_from(">I", data, p)[0]
+                        p += 4
+                        for _ in range(n):
+                            iid = int.from_bytes(data[p:p + (2 if v < 1 else 4)], "big")
+                            p += 2 if v < 1 else 4
+                            na = data[p]
+                            p += 1
+                            lst = []
+                            for _ in range(na):
+                                if flags & 1:
+                                    x = struct.unpack_from(">H", data, p)[0]
+                                    p += 2
+                                    lst.append((x & 0x7FFF, bool(x >> 15)))
+                                else:
+                                    lst.append((data[p] & 0x7F, bool(data[p] >> 7)))
+                                    p += 1
+                            a.assoc[iid] = lst
+            elif t == b"iloc":
+                v = data[s]
+                p = s + 4
+                osz, lsz, bsz = data[p] >> 4, data[p] & 15, data[p + 1] >> 4
+                isz = data[p + 1] & 15 if v in (1, 2) else 0
+                p += 2
+                n = struct.unpack_from(">H" if v < 2 else ">I", data, p)[0]
+                p += 2 if v < 2 else 4
+
+                def rd(k):
+                    nonlocal p
+                    x = int.from_bytes(data[p:p + k], "big") if k else 0
+                    p += k
+                    return x
+
+                for _ in range(n):
+                    iid = rd(2 if v < 2 else 4)
+                    method = rd(2) & 15 if v in (1, 2) else 0
+                    rd(2)
+                    base = rd(bsz)
+                    ext = []
+                    for _ in range(rd(2)):
+                        if isz:
+                            rd(isz)
+                        ext.append((method, base + rd(osz), rd(lsz)))
+                    locs[iid] = ext
+            elif t == b"idat":
+                top[b"idat"] = (s, e)
+        for iid, ext in locs.items():
+            parts = []
+            for method, off, ln in ext:
+                if method == 1:
+                    off += top[b"idat"][0]
+                parts.append(data[off:off + ln])
+            a.items[iid] = b"".join(parts)
+            if ext and ext[0][0] == 1:
+                a.in_idat.add(iid)
+        return a
+
+    def _meta(self, mdat_start):
+        """The meta box for an mdat payload starting at ``mdat_start``."""
+        out = [box(b"hdlr", self.hdlr)]
+        if self.primary is not None:
+            out.append(full_box(b"pitm", self.pitm_version, 0,
+                                struct.pack(">H" if self.pitm_version == 0 else ">I",
+                                            self.primary)))
+        # iloc: items in mdat in id order, then those in idat
+        entries = []
+        pos, ipos = mdat_start, 0
+        for iid in sorted(self.items):
+            ln = len(self.items[iid])
+            if iid in self.in_idat:
+                entries.append((iid, 1, ipos, ln))
+                ipos += ln
+            else:
+                entries.append((iid, 0, pos, ln))
+                pos += ln
+        v = 1 if self.in_idat or self.iloc_version == 1 else self.iloc_version
+        body = bytes([0x44, 0x00])
+        body += struct.pack(">H" if v < 2 else ">I", len(entries))
+        for iid, method, off, ln in entries:
+            body += struct.pack(">H" if v < 2 else ">I", iid)
+            if v in (1, 2):
+                body += struct.pack(">H", method)
+            body += struct.pack(">HH", 0, 1) + struct.pack(">II", off, ln)
+        out.append(full_box(b"iloc", v, 0, body))
+        infe = b"".join(full_box(b"infe", 2, flags, struct.pack(">HH", iid, 0) + typ + name)
+                        for iid, typ, name, flags in self.infe)
+        out.append(full_box(b"iinf", 0, 0, struct.pack(">H", len(self.infe)) + infe))
+        if self.iref:
+            refs = b"".join(box(t, struct.pack(">HH", src, len(dst))
+                                + b"".join(struct.pack(">H", d) for d in dst))
+                            for t, src, dst in self.iref)
+            out.append(full_box(b"iref", 0, 0, refs))
+        ipco = box(b"ipco", b"".join(box(t, b) for t, b in self.props))
+        ipma = struct.pack(">I", len(self.assoc))
+        for iid in sorted(self.assoc):
+            lst = self.assoc[iid]
+            ipma += struct.pack(">HB", iid, len(lst))
+            ipma += bytes((0x80 if ess else 0) | idx for idx, ess in lst)
+        out.append(box(b"iprp", ipco + full_box(b"ipma", 0, 0, ipma)))
+        if self.in_idat:
+            out.append(box(b"idat", b"".join(self.items[i] for i in sorted(self.items)
+                                             if i in self.in_idat)))
+        out += [box(t, b) for t, b in self.extra_meta]
+        return full_box(b"meta", 0, 0, b"".join(out))
+
+    def build(self, cut=None):
+        """The file's bytes (``cut``: keep only its first ``cut`` bytes)."""
+        head = box(b"ftyp", self.ftyp)
+        payload = b"".join(self.items[i] for i in sorted(self.items) if i not in self.in_idat)
+        start = len(head) + len(self._meta(0)) + 8
+        data = head + self._meta(start) + box(b"mdat", payload)
+        return data if cut is None else data[:cut]

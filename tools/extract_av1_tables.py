@@ -1,0 +1,348 @@
+"""Write ``akari_torch/native/av1_tables.h``: the AV1 tables an intra frame
+reads, found in the ``libavif`` that Pillow bundles (it links dav1d 1.5.1
+to decode and aom 3.12.1 to encode, so the library holds both projects'
+copies of the default tables).
+
+- every default CDF of a key frame's mode info and coefficients, from
+  dav1d's ``CdfModeContext`` / ``CdfCoefContext`` (one of each, four of the
+  second, one per coefficient qindex context) and its key-frame y-mode
+  table; the values are stored inverted (32768 - cdf) as dav1d and aom
+  store them, the slot after a CDF's last value is its adaptation counter;
+- ``Dc_Qlookup`` / ``Ac_Qlookup`` for 8 bits (aom's), ``Sm_Weights``
+  (dav1d's ``dav1d_sm_weights``), ``Dr_Intra_Derivative`` and
+  ``Mode_To_Angle`` (aom's), the filter-intra taps (aom's) and the
+  coefficient-context offsets of the three block shapes (dav1d's
+  ``dav1d_lo_ctx_offsets``).
+
+Each table is found by anchors: a group of dav1d's tables by the first row
+of one of them (the others lie at fixed places in the same structure, and
+every row read is checked to be a CDF of the expected number of symbols),
+aom's and dav1d's other copies by their first entries. Where both projects
+hold a table, the two copies are compared, through dav1d's index order
+where it differs (block sizes from 128x128 down; ``eob_hi_bit`` two
+contexts on).
+
+    python tools/extract_av1_tables.py [--check]
+
+``--check`` compares the committed header with the library instead of
+writing it. ``tables()`` returns the tables as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import struct
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADER = os.path.join(ROOT, "akari_torch", "native", "av1_tables.h")
+
+# dav1d's CdfModeContext, anchored by its first table (uv_mode without CfL,
+# DC_PRED's row: Default_Uv_Mode_Cfl_Not_Allowed_Cdf[0] inverted, four zeros)
+MODE_ANCHOR = (10137, 8616, 7390, 7107, 6782, 6248, 5713, 4845, 4524, 2709, 1827, 807, 0, 0, 0, 0)
+# dav1d's CdfCoefContext for qindex context 0 and 1 (their eob_bin_16 rows)
+COEF_ANCHOR = (31928, 31729, 30788, 27873, 0, 0, 0, 0, 32398, 32097, 30885, 28297)
+COEF_ANCHOR1 = (30643, 30217, 27603, 23822, 0, 0, 0, 0, 32255, 32003, 30909, 26429)
+# dav1d's key-frame y-mode table (its first row, four zeros)
+KF_ANCHOR = (17180, 15741, 13430, 12550, 12086, 11658, 10943, 9524, 8579, 4603, 3675, 2302,
+             0, 0, 0, 0)
+
+# spec block-size order -> dav1d's (BS_128x128 first, BS_4x4 last)
+SPEC_BSIZES = ("4x4", "4x8", "8x4", "8x8", "8x16", "16x8", "16x16", "16x32", "32x16",
+               "32x32", "32x64", "64x32", "64x64", "64x128", "128x64", "128x128", "4x16",
+               "16x4", "8x32", "32x8", "16x64", "64x16")
+DAV1D_BSIZES = ("128x128", "128x64", "64x128", "64x64", "64x32", "64x16", "32x64", "32x32",
+                "32x16", "32x8", "16x64", "16x32", "16x16", "16x8", "16x4", "8x32", "8x16",
+                "8x8", "8x4", "4x16", "4x8", "4x4")
+
+# CDF tables: name -> (shape, symbols, stride in the header, place in dav1d's
+# mode structure (byte offset from MODE_ANCHOR's row), dav1d's row stride)
+MODE_CDFS = {
+    "uv_mode_cfl_not_allowed": ((13,), 13, 16, 0x000, 16),
+    "uv_mode_cfl_allowed": ((13,), 14, 16, 0x1A0, 16),
+    "partition128": ((4,), 8, 8, 0x340, 16),
+    "partition64": ((4,), 10, 16, 0x3C0, 16),
+    "partition32": ((4,), 10, 16, 0x440, 16),
+    "partition16": ((4,), 10, 16, 0x4C0, 16),
+    "partition8": ((4,), 4, 4, 0x540, 16),
+    "cfl_alpha": ((6,), 16, 16, 0x5C0, 16),
+    "intra_tx_set1": ((2, 13), 7, 8, 0x6E0, 8),
+    "intra_tx_set2": ((3, 13), 5, 8, 0x880, 8),
+    "cfl_sign": ((), 8, 8, 0xAF0, 8),
+    "angle_delta": ((8,), 7, 8, 0xB00, 8),
+    "filter_intra_mode": ((), 5, 8, 0xB80, 8),
+    "palette_y_size": ((7,), 7, 8, 0xBC0, 8),
+    "palette_uv_size": ((7,), 7, 8, 0xC30, 8),
+    "palette_y_color": ((7, 5), None, 8, 0xCA0, 8),   # 2 + the first index symbols
+    "palette_uv_color": ((7, 5), None, 8, 0xED0, 8),
+    "tx_size8": ((3,), 2, 4, 0x1100, 4),
+    "tx_size16": ((3,), 3, 4, 0x1118, 4),
+    "tx_size32": ((3,), 3, 4, 0x1130, 4),
+    "tx_size64": ((3,), 3, 4, 0x1148, 4),
+    "use_filter_intra": ((22,), 2, 2, 0x11B0, 2),     # dav1d's block-size order
+    "skip": ((3,), 2, 2, 0x125C, 2),
+    "palette_y_mode": ((7, 3), 2, 2, 0x1268, 2),
+    "palette_uv_mode": ((2,), 2, 2, 0x12BC, 2),
+}
+# CdfCoefContext tables: name -> (shape within one qindex context, symbols,
+# stride, byte offset in the structure, dav1d's stride, dav1d's shape)
+COEF_CDFS = {
+    "eob_pt16": ((2, 2), 5, 8, 0x000, 8, None),
+    "eob_pt32": ((2, 2), 6, 8, 0x040, 8, None),
+    "eob_pt64": ((2, 2), 7, 8, 0x080, 8, None),
+    "eob_pt128": ((2, 2), 8, 8, 0x0C0, 8, None),
+    "eob_pt256": ((2, 2), 9, 16, 0x100, 16, None),
+    "eob_pt512": ((2,), 10, 16, 0x180, 16, None),
+    "eob_pt1024": ((2,), 11, 16, 0x1C0, 16, None),
+    "coeff_base_eob": ((5, 2, 4), 3, 4, 0x200, 4, None),
+    "coeff_base": ((5, 2, 41), 4, 4, 0x340, 4, None),   # context 41 never occurs
+    "coeff_br": ((4, 2, 21), 4, 4, 0x1010, 4, None),    # read at min(tx size, 32x32)
+    "eob_extra": ((5, 2, 9), 2, 2, 0x1550, 2, (5, 2, 11)),  # dav1d: context + 2
+    "txb_skip": ((5, 13), 2, 2, 0x1708, 2, None),
+    "dc_sign": ((2, 3), 2, 2, 0x180C, 2, None),
+}
+# aom's copies where the library holds them: name -> (its first row as in
+# the spec (not inverted), aom's row stride, spec rows compared)
+AOM_COPIES = {
+    "kf_y_mode": ((15588, 17027, 19338, 20218, 20682, 21110, 21825, 23244, 24189, 28165, 29093,
+                   30466), 14, 25),
+    "uv_mode_cfl_not_allowed": ((22631, 24152, 25378, 25661, 25986, 26520, 27055, 27923, 28244,
+                                 30059, 30941, 31961), 15, 13),
+    "uv_mode_cfl_allowed": ((10407, 11208, 12900, 13181, 13823, 14175, 14899, 15656, 15986,
+                             20086, 20995, 22455, 24212), 15, 13),
+    "angle_delta": ((2180, 5032, 7567, 22776, 26989, 30217), 8, 8),
+    "partition8": ((19132, 25510, 30392), 11, 4),
+    "partition16": ((15597, 20929, 24571, 26706, 27664, 28821, 29601, 30571, 31902), 11, 4),
+    "cfl_alpha": ((7637, 20719, 31401, 32481, 32657, 32688, 32692, 32696, 32700, 32704, 32708,
+                   32712, 32716, 32720, 32724), 17, 6),
+    "intra_tx_set1": ((1535, 8035, 9461, 12751, 23467, 27825), 17, 26),
+    "palette_y_size": ((7952, 13000, 18149, 21478, 25527, 29241), 8, 7),
+    "palette_uv_size": ((8713, 19979, 27128, 29609, 31331, 32272), 8, 7),
+    "use_filter_intra": ((4621, 6743, 5893, 7866), 3, 22),
+    "palette_y_mode": ((31676, 3419, 1261), 3, 21),
+    "txb_skip": ((31849, 5892, 12112, 21935), 3, 65),
+    "eob_pt16": ((840, 1039, 1980, 4895), 6, 4),
+}
+
+_PREAMBLE = """\
+// The default CDFs and lookup tables of an AV1 intra frame, as dav1d 1.5.1
+// and aom 3.12.1 hold them (src/cdf.c, src/tables.c, src/dequant_tables.c
+// of dav1d; av1/common/entropymode.c, token_cdfs.h, quant_common.c,
+// reconintra.c of aom). Written by tools/extract_av1_tables.py from the
+// libavif that Pillow bundles, which links both; do not edit by hand.
+//
+// A CDF row holds the symbols' inverted cumulative probabilities
+// (32768 - cdf, decreasing, the last symbol's 0 left out), then the
+// adaptation counter (0), then zeros up to the row's stride. Each table
+// names its source offsets in the library's file.
+//
+// dav1d and aom are under the BSD 2-clause licence:
+//
+// Redistribution and use in source and binary forms, with or without
+// modification, are permitted provided that the following conditions are
+// met:
+// 1. Redistributions of source code must retain the above copyright notice,
+//    this list of conditions and the following disclaimer.
+// 2. Redistributions in binary form must reproduce the above copyright
+//    notice, this list of conditions and the following disclaimer in the
+//    documentation and/or other materials provided with the distribution.
+//
+// THIS SOFTWARE IS PROVIDED BY THE COPYRIGHT HOLDERS AND CONTRIBUTORS "AS IS"
+// AND ANY EXPRESS OR IMPLIED WARRANTIES, INCLUDING, BUT NOT LIMITED TO, THE
+// IMPLIED WARRANTIES OF MERCHANTABILITY AND FITNESS FOR A PARTICULAR PURPOSE
+// ARE DISCLAIMED. IN NO EVENT SHALL THE COPYRIGHT OWNER OR CONTRIBUTORS BE
+// LIABLE FOR ANY DIRECT, INDIRECT, INCIDENTAL, SPECIAL, EXEMPLARY, OR
+// CONSEQUENTIAL DAMAGES (INCLUDING, BUT NOT LIMITED TO, PROCUREMENT OF
+// SUBSTITUTE GOODS OR SERVICES; LOSS OF USE, DATA, OR PROFITS; OR BUSINESS
+// INTERRUPTION) HOWEVER CAUSED AND ON ANY THEORY OF LIABILITY, WHETHER IN
+// CONTRACT, STRICT LIABILITY, OR TORT (INCLUDING NEGLIGENCE OR OTHERWISE)
+// ARISING IN ANY WAY OUT OF THE USE OF THIS SOFTWARE, EVEN IF ADVISED OF THE
+// POSSIBILITY OF SUCH DAMAGE.
+
+#pragma once
+
+#include <cstdint>
+"""
+
+
+def library_path():
+    """Pillow's bundled libavif."""
+    import PIL
+
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                                  "pillow.libs", "libavif*.so*"))
+    if not libs:
+        raise RuntimeError("PIL's bundled libavif was not found")
+    return libs[0]
+
+
+def _find(blob, values, fmt="<H"):
+    pat = b"".join(struct.pack(fmt, v) for v in values)
+    hits, pos = [], blob.find(pat)
+    while pos >= 0:
+        hits.append(pos)
+        pos = blob.find(pat, pos + 1)
+    return hits
+
+
+def _find_one(blob, values, fmt, what):
+    hits = _find(blob, values, fmt)
+    if len(hits) != 1:
+        raise RuntimeError(f"{what}: expected its anchor once in the library, found {len(hits)}")
+    return hits[0]
+
+
+def _rows(blob, off, n_rows, stride):
+    return np.frombuffer(blob[off:off + 2 * n_rows * stride], "<u2").reshape(n_rows, stride)
+
+
+def _check_cdf(row, nsym, what):
+    vals = row[:nsym - 1].astype(np.int64)
+    if (not (vals > 0).all() or (vals >= 32768).any() or (np.diff(vals) > 0).any()
+            or row[nsym - 1:].any()):
+        raise RuntimeError(f"{what}: the row {row.tolist()} is not a {nsym}-symbol CDF")
+
+
+def _take(blob, off, shape, nsym, stride, src_stride, what, syms=None):
+    n = int(np.prod(shape)) if shape else 1
+    rows = _rows(blob, off, n, src_stride)
+    out = np.zeros((n, stride), np.uint16)
+    for i in range(n):
+        k = nsym if syms is None else syms[i]
+        _check_cdf(rows[i], k, f"{what}[{i}]")
+        out[i, :k - 1] = rows[i, :k - 1]
+    return out.reshape(*shape, stride), off
+
+
+def tables(blob=None):
+    """name -> (numpy array, C type, source note)."""
+    if blob is None:
+        with open(library_path(), "rb") as f:
+            blob = f.read()
+    out = {}
+    mode = _find_one(blob, MODE_ANCHOR, "<H", "dav1d's CdfModeContext")
+    for name, (shape, nsym, stride, rel, src) in MODE_CDFS.items():
+        syms = None
+        if nsym is None:  # palette colour maps: 2..8 colours, five contexts each
+            syms = [2 + i // 5 for i in range(35)]
+            nsym = 8
+        arr, off = _take(blob, mode + rel, shape, nsym, stride, src, name, syms)
+        if name == "use_filter_intra":  # dav1d's block-size order -> the spec's
+            arr = arr[[DAV1D_BSIZES.index(b) for b in SPEC_BSIZES]]
+        out[name] = (arr, "uint16_t", f"dav1d CdfModeContext at 0x{off:x}")
+    kf = _find_one(blob, KF_ANCHOR, "<H", "dav1d's key-frame y-mode CDF")
+    arr, _ = _take(blob, kf, (5, 5), 13, 16, 16, "kf_y_mode")
+    out["kf_y_mode"] = (arr, "uint16_t", f"dav1d default_kf_y_mode_cdf at 0x{kf:x}")
+    coef0 = _find_one(blob, COEF_ANCHOR, "<H", "dav1d's CdfCoefContext[0]")
+    size = _find_one(blob, COEF_ANCHOR1, "<H", "dav1d's CdfCoefContext[1]") - coef0
+    for name, (shape, nsym, stride, rel, src, dshape) in COEF_CDFS.items():
+        per_q = []
+        for q in range(4):
+            arr, _ = _take(blob, coef0 + q * size + rel, dshape or shape, nsym, stride, src,
+                           f"{name}[{q}]")
+            if dshape is not None:  # eob_hi_bit: context c at c + 2
+                arr = arr[..., 2:11, :]
+            per_q.append(arr)
+        out[name] = (np.stack(per_q), "uint16_t",
+                     f"dav1d CdfCoefContext[4] at 0x{coef0 + rel:x} + q * 0x{size:x}")
+    # lookups
+    dc = _find_one(blob, (4, 8, 8, 9, 10, 11, 12, 12, 13, 14), "<h", "aom's dc_qlookup")
+    ac = _find_one(blob, (4, 8, 9, 10, 11, 12, 13, 14, 15, 16), "<h", "aom's ac_qlookup")
+    dcq = np.frombuffer(blob[dc:dc + 512], "<i2").copy()
+    acq = np.frombuffer(blob[ac:ac + 512], "<i2").copy()
+    dq = _find_one(blob, (4, 4, 8, 8, 8, 9, 9, 10), "<H", "dav1d's dq_tbl")
+    pairs = np.frombuffer(blob[dq:dq + 1024], "<u2").reshape(256, 2)
+    if not ((pairs[:, 0] == dcq).all() and (pairs[:, 1] == acq).all()):
+        raise RuntimeError("dav1d's 8-bit dq_tbl differs from aom's dc / ac qlookup")
+    out["dc_qlookup"] = (dcq, "int16_t", f"aom dc_qlookup_QTX at 0x{dc:x} (dav1d 0x{dq:x})")
+    out["ac_qlookup"] = (acq, "int16_t", f"aom ac_qlookup_QTX at 0x{ac:x} (dav1d 0x{dq:x})")
+    sm = _find_one(blob, (0, 0, 255, 128, 255, 149, 85, 64), "B", "dav1d's sm_weights")
+    out["sm_weights"] = (np.frombuffer(blob[sm:sm + 128], "u1").copy(), "uint8_t",
+                         f"dav1d dav1d_sm_weights at 0x{sm:x} (weights of size n at n)")
+    dr = _find_one(blob, (0, 0, 0, 1023, 0, 0, 547), "<h", "aom's dr_intra_derivative")
+    out["dr_intra_derivative"] = (np.frombuffer(blob[dr:dr + 180], "<i2").copy(), "int16_t",
+                                  f"aom dr_intra_derivative at 0x{dr:x}")
+    m2a = _find(blob, (0, 90, 180, 45, 135, 113, 157, 203, 67), "B")
+    m2a = [h for h in m2a if dr - 64 <= h < dr]  # aom's mode_to_angle_map, next to it
+    if len(m2a) != 1:
+        raise RuntimeError("aom's mode_to_angle_map not found beside dr_intra_derivative")
+    out["mode_to_angle"] = (np.frombuffer(blob[m2a[0]:m2a[0] + 13], "u1").copy(), "uint8_t",
+                            f"aom mode_to_angle_map at 0x{m2a[0]:x}")
+    ft = _find_one(blob, (-6, 10, 0, 0, 0, 12, 0, 0), "b", "aom's av1_filter_intra_taps")
+    out["filter_intra_taps"] = (np.frombuffer(blob[ft:ft + 320], "i1").reshape(5, 8, 8).copy(),
+                                "int8_t", f"aom av1_filter_intra_taps at 0x{ft:x}")
+    lo = _find_one(blob, (0, 1, 6, 6, 21, 1, 6, 6, 21, 21, 6, 6, 21, 21, 21), "B",
+                   "dav1d's lo_ctx_offsets")
+    out["lo_ctx_offsets"] = (np.frombuffer(blob[lo:lo + 75], "u1").reshape(3, 5, 5).copy(),
+                             "uint8_t", f"dav1d dav1d_lo_ctx_offsets at 0x{lo:x} (w == h, "
+                             "w > h, w < h)")
+    _check_aom(blob, out)
+    return out
+
+
+def _check_aom(blob, out):
+    """Compare dav1d's copies with aom's where the library holds both."""
+    for name, (first, stride, n_rows) in AOM_COPIES.items():
+        arr = out[name][0]
+        flat = arr.reshape(-1, arr.shape[-1])[:n_rows]
+        if name not in ("use_filter_intra", "palette_y_mode", "txb_skip"):
+            hits = _find(blob, [32768 - v for v in first] + [0, 0], "<H")
+        else:  # two-symbol rows: value, 0, 0 each
+            hits = _find(blob, sum([[32768 - v, 0, 0] for v in first], []), "<H")
+        hits = [h for h in hits if not _same_region(h, out)]
+        if len(hits) != 1:
+            raise RuntimeError(f"{name}: aom's copy found {len(hits)} times")
+        rows = _rows(blob, hits[0], n_rows, stride)
+        for i in range(n_rows):
+            k = int(np.count_nonzero(flat[i])) + 1
+            if not (rows[i, :k - 1] == flat[i, :k - 1]).all():
+                raise RuntimeError(f"{name}[{i}]: dav1d's {flat[i].tolist()} != aom's "
+                                   f"{rows[i].tolist()}")
+
+
+def _same_region(hit, out):
+    """Whether ``hit`` is one of dav1d's copies (within its structures)."""
+    for _, _, note in out.values():
+        if note.startswith("dav1d"):
+            off = int(note.split(" at 0x")[1].split()[0], 16)
+            if abs(hit - off) < 0x2000:
+                return True
+    return False
+
+
+def render(tabs):
+    out = [_PREAMBLE]
+    for name, (arr, ctype, note) in tabs.items():
+        dims = "".join(f"[{d}]" for d in arr.shape)
+        out.append(f"\n// {note}\nstatic const {ctype} av1_{name}{dims} = {{\n")
+        flat = (arr.reshape(-1, arr.shape[-1]) if arr.ndim > 1
+                else [arr[i:i + 16] for i in range(0, arr.size, 16)])
+        for row in flat:
+            out.append("    " + " ".join(f"{int(v)}," for v in row) + "\n")
+        out.append("};\n")
+    return "".join(out)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--check", action="store_true",
+                    help="compare the committed header with the library instead of writing it")
+    args = ap.parse_args(argv)
+    text = render(tables())
+    if args.check:
+        with open(HEADER) as f:
+            same = f.read() == text
+        print("equal" if same else "differs")
+        return 0 if same else 1
+    with open(HEADER, "w") as f:
+        f.write(text)
+    print(f"wrote {HEADER}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

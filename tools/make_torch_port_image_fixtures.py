@@ -81,6 +81,16 @@ Writes into ``tests/data/torch_port_images/``:
 - Sun raster, FLI / FLC, FITS, GBR, McIdas, PIXAR, XV thumbnail and XPM
   files (``raster_fixtures``), from ``tools/raster_writers.py`` (Pillow
   writes none of them), a few hundred bytes each, the FITS files a few KB;
+- AVIF files (``avif_fixtures``) in ``tests/data/torch_port_avif/`` with
+  a ``digests.json`` of their own (the fixtures above fill their 3.2 MB
+  budget): PIL's writer at several qualities, speeds 5-10, 4:2:0 / 4:2:2
+  / 4:4:4 / 4:0:0, full and limited range, alpha (premultiplied too),
+  screen content (palettes), 2x2 tiles, quality 0 (TX_MODE_SELECT) and
+  100 (lossless), an EXIF orientation and an ICC profile, and files edited
+  by ``tools/avif_writers.py`` (the item in ``idat``, BT.709, FCC and
+  identity nclx matrices), a few KB each; and ``ALBEDO_AVIF``:
+  ``envtex_texture(2048, 0)`` at quality 60, speed 6, 4:2:0 (287,591
+  bytes), which the card's machine, without an AV1 encoder, decodes;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them;
@@ -98,7 +108,10 @@ digests; ``tests/test_torch_image_decode.py``,
 decode here, so it cannot go stale. Needs PIL.
 
 Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
-           [--only jpeg2000|htj2k|lab_pnm_dib_icns|plugins|rasters]
+           [--only jpeg2000|htj2k|lab_pnm_dib_icns|plugins|rasters|avif]
+
+``--only avif`` rewrites ``tests/data/torch_port_avif/`` (files and
+digests) and nothing else.
 """
 
 from __future__ import annotations
@@ -116,6 +129,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_images")
+AVIF_OUT = os.path.join(ROOT, "tests", "data", "torch_port_avif")
+ALBEDO_AVIF = "albedo2048_q60.avif"
 ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
 ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
@@ -1514,6 +1529,99 @@ def htj2k_albedo():
 
 
 # --------------------------------------------------------------------------
+# AVIF
+
+
+def _avif(px, **kw):
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(px).save(b, "AVIF", **kw)
+    return b.getvalue()
+
+
+def _flat_colours(h, w, n, seed, cell=16):
+    """Rectangles of ``n`` seeded colours: the writer turns on screen
+    content tools (palettes) for such images."""
+    r = np.random.default_rng(seed)
+    cols = r.integers(0, 256, (n, 3))
+    idx = (np.arange(h)[:, None] // cell + np.arange(w)[None, :] // (cell + 8)) % n
+    return cols[idx].astype(np.uint8)
+
+
+def _edited_colr(data, matrix, full):
+    from tools.avif_writers import Avif
+
+    a = Avif.parse(data)
+    a.props = [(t, b"nclx" + struct.pack(">HHHB", 1, 13, matrix, 0x80 if full else 0))
+               if t == b"colr" and b[:4] == b"nclx" else (t, b) for t, b in a.props]
+    return a.build()
+
+
+def avif_fixtures():
+    """The AVIF fixtures, a few KB each, and ``ALBEDO_AVIF``."""
+    from PIL import Image
+
+    from akari_torch.scene.builtin import envtex_texture
+    from tools.avif_writers import Avif
+
+    rgba = np.concatenate([pattern(20, 30, 42), pattern(20, 30, 43)[..., :1]], axis=-1)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    out = {
+        "avif_q75_420_61x47.avif": _avif(pattern(47, 61, 40)),
+        "avif_q100_444_lossless_33x21.avif": _avif(pattern(21, 33, 41), quality=100,
+                                                   subsampling="4:4:4"),
+        "avif_q40_422_limited_50x30.avif": _avif(pattern(30, 50, 44), quality=40,
+                                                 subsampling="4:2:2", range="limited"),
+        "avif_q60_400_40x32.avif": _avif(pattern(32, 40, 45), quality=60, subsampling="4:0:0"),
+        "avif_rgba_premultiplied_30x20.avif": _avif(rgba, quality=70, alpha_premultiplied=True),
+        "avif_rgba_q90_444_30x20.avif": _avif(rgba, quality=90, subsampling="4:4:4"),
+        "avif_palette_screen_128x96.avif": _avif(_flat_colours(96, 128, 6, 46), quality=75),
+        "avif_tiles_2x2_q50_128x128.avif": _avif(pattern(128, 128, 47), quality=50,
+                                                 tile_rows=1, tile_cols=1),
+        "avif_q0_txselect_64x48.avif": _avif(pattern(48, 64, 48), quality=0),
+        "avif_speed10_q75_45x37.avif": _avif(pattern(37, 45, 49), speed=10),
+        "avif_speed5_q60_limited_39x26.avif": _avif(pattern(26, 39, 50), quality=60, speed=5,
+                                                    range="limited"),
+        "avif_exif_rot_icc_24x16.avif": _avif(pattern(16, 24, 51), exif=exif.tobytes(),
+                                              icc_profile=b"\0" * 128),
+    }
+    a = Avif.parse(_avif(pattern(12, 20, 52), quality=80))
+    a.in_idat.add(a.primary)
+    out["avif_idat_20x12.avif"] = a.build()
+    base = _avif(pattern(18, 26, 53), quality=85, subsampling="4:4:4")
+    out["avif_nclx_bt709_limited_26x18.avif"] = _edited_colr(base, 1, False)
+    out["avif_nclx_fcc_26x18.avif"] = _edited_colr(base, 4, True)
+    out["avif_nclx_identity_26x18.avif"] = _edited_colr(base, 0, True)
+    out[ALBEDO_AVIF] = _avif(envtex_texture(2048, 0), quality=60, speed=6)
+    return out
+
+
+def write_avif_fixtures(out_dir=AVIF_OUT):
+    """Write ``avif_fixtures`` and their ``digests.json`` (PIL's decode:
+    SHA-256, shape, mode, version) into ``out_dir``, replacing its files."""
+    import PIL
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    digests = {}
+    for name, data in avif_fixtures().items():
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+        im = Image.open(os.path.join(out_dir, name))
+        px = np.asarray(im.convert("RGB"))
+        digests[name] = {"sha256": hashlib.sha256(px.tobytes()).hexdigest(),
+                         "shape": list(px.shape), "mode": im.mode, "pil": PIL.__version__}
+    with open(os.path.join(out_dir, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return digests
+
+
+# --------------------------------------------------------------------------
 # Lab, PIL's other PNM modes, DIB and ICNS
 
 # the 2048^2 albedo files chip_smoke.py phase 50 writes (lab_albedo_files),
@@ -1899,7 +2007,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", default=DEFAULT_OUT)
     ap.add_argument("--only", choices=["jpeg2000", "htj2k", "lab_pnm_dib_icns", "plugins",
-                                       "rasters"],
+                                       "rasters", "avif"],
                     help="write only this group's files and merge their digests into "
                          "digests.json, leaving the other fixtures as they are")
     args = ap.parse_args(argv)
@@ -1915,6 +2023,10 @@ def main(argv=None):
         return {"sha256": hashlib.sha256(px.tobytes()).hexdigest(), "shape": list(px.shape),
                 "pil": PIL.__version__}
 
+    if args.only == "avif":
+        digests = write_avif_fixtures()
+        print(f"wrote {len(digests)} AVIF fixtures and their digests.json to {AVIF_OUT}")
+        return
     if args.only:
         path = os.path.join(args.output, "digests.json")
         with open(path) as f:
@@ -1999,6 +2111,7 @@ def main(argv=None):
     write_generated(envtex_texture(2048, 0))
     total = sum(os.path.getsize(os.path.join(args.output, n)) for n in os.listdir(args.output))
     print(f"wrote {len(digests)} fixtures and digests.json to {args.output}: {total} bytes")
+    write_avif_fixtures()
 
 
 if __name__ == "__main__":
