@@ -1,5 +1,6 @@
-"""AVIF decoding without PIL: a still image's primary AV1 item, as PIL 12.1.0
-reads it through libavif 1.3.0 (``Image.open(path).convert("RGB")``).
+"""AVIF decoding without PIL: a still image's primary AV1 item, a ``grid``
+of them, or frame 0 of an ``avis`` sequence, as PIL 12.1.0 reads it
+through libavif 1.3.0 (``Image.open(path).convert("RGB")``).
 
 ``decode_avif`` returns the [H, W, 3] uint8 pixels of PIL's
 ``convert("RGB")``. Where libavif's parse (``avifDecoderParse``, PIL's
@@ -8,39 +9,55 @@ open) fails with a result PIL raises as ``SyntaxError`` (an invalid
 and ``decode_image`` goes on to the formats after AVIF as ``Image.open``
 does; where PIL's open or load fails otherwise, ``ValueError``:
 
-- the container (ISO BMFF / HEIF, as libavif parses a still image):
-  ``ftyp`` first, with an ``avif`` brand (an ``avis`` brand makes libavif
-  read tracks); one ``meta`` (version 0, ``hdlr`` ``pict`` first with a
-  zero ``pre_defined`` and a terminated name; ``pitm``, ``iinf`` / ``infe``
-  v2-3, ``iloc`` v0-2 with construction methods 0 and 1 (``idat``),
-  ``iref``, ``iprp`` of ``ipco`` then ``ipma`` boxes only, each once;
-  boxes inside their parents); the properties ``av1C``, ``ispe``,
-  ``pixi`` (optional: PIL runs libavif without its strict checks; one
-  depth for every plane, that of the ``av1C``), ``colr`` (one nclx, with
-  zero reserved bits, and one ICC profile, which PIL's ``convert`` does not
-  apply), ``auxC`` (the alpha URNs), ``irot`` / ``imir`` / ``clap`` (each
+- the container (ISO BMFF / HEIF, as libavif parses it): ``ftyp`` first,
+  with an ``avif`` or ``avis`` brand; the source libavif picks by default
+  (the major brand's: ``avif`` the items, ``avis`` the tracks; another
+  major brand the tracks where there are any); one ``meta`` (version 0,
+  ``hdlr`` ``pict`` first with a zero ``pre_defined`` and a terminated
+  name; ``pitm``, ``iinf`` / ``infe`` v2-3, ``iloc`` v0-2 with
+  construction methods 0 and 1 (``idat``), ``iref`` (v0-1; others
+  skipped), ``iprp`` of ``ipco`` then ``ipma`` boxes only, each once;
+  boxes inside their parents; item ID 0 refused); the properties
+  ``av1C``, ``ispe`` (every image item's checked), ``pixi`` (optional:
+  PIL runs libavif without its strict checks; one depth for every plane,
+  that of the ``av1C``), ``colr`` (one nclx, with zero reserved bits, and
+  one ICC profile, which PIL's ``convert`` does not apply; without an
+  nclx, libavif reads the colour item's sequence header at parse),
+  ``auxC`` (the alpha URNs), ``irot`` / ``imir`` / ``clap`` (each
   essential; PIL turns the first two into an EXIF orientation and applies
   none of them to the pixels) and ``pasp``; an item with an unknown
   essential property is skipped; an Exif item's TIFF-header offset;
   libavif's size limits and PIL's pixel limit;
-- the primary item's AV1 OBUs, decoded by ``native/av1_decode.cpp`` (bit
-  for bit dav1d 1.5.1's planes), and the alpha item's, which decides PIL's
-  mode (``RGBA``) and, for a premultiplied image (``prem``), is divided out
-  of the colour as libavif does (``unpremultiply``);
+- ``grid`` items (libavif's ImageGrid: version 0, 16- or 32-bit output
+  size, tiles in ``dimg`` order, of one av1C, size, depth, subsampling and
+  range, at least 64 x 64, even where chroma is subsampled, covering the
+  output without a row or column past it), composed as libavif composes
+  them and cropped to the output size, for the colour and the alpha; a
+  grid whose ``ispe`` is not its output size is read as PIL reads it;
+- ``avis`` tracks (``moov`` / ``trak``: ``tkhd``, ``edts`` / ``elst``,
+  ``tref`` ``auxl`` / ``prem``, ``mdia`` / ``mdhd`` / ``hdlr``, ``stbl``
+  with ``stsd`` (the ``av01`` entry's ``av1C``, ``colr``, ``auxi``),
+  ``stco`` / ``co64``, ``stsc``, ``stsz``, ``stss``, ``stts``), every
+  sample laid out as libavif lays it out, sample 0 of the colour track
+  and of its alpha track decoded;
+- the AV1 OBUs, decoded by ``native/av1_decode.cpp`` (bit for bit dav1d
+  1.5.1's planes, film grain applied), and the alpha's, which decides
+  PIL's mode (``RGBA``) and, for a premultiplied image (``prem``), is
+  divided out of the colour as libavif does (``unpremultiply``);
 - YUV -> RGB as ``avifImageYUVToRGB`` runs it (``yuv_to_rgb``): libyuv's
   fixed point for BT.601 / BT.470BG / unspecified, BT.709 and BT.2020 NCL
   with its bilinear chroma upsampling, libavif's float route for FCC,
   SMPTE 240M, IPT-C2, YCgCo (full range) and identity (4:4:4), either
   range; the nclx of the ``colr`` property, else the sequence header's.
 
-Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 23):
-AV1 tools outside the decoder (loop restoration, CDEF, superres, film
-grain, segmentation, delta q / lf, quantizer matrices, intra block copy),
-bit depths above 8, ``grid`` items, ``avis`` sequences, a frame or alpha
-plane whose size differs from its ``ispe`` (libavif scales it), the
-chromaticity-derived nclx matrix, and AV1 streams whose transforms leave
-the 16-bit range the specification requires (dav1d's x86 assembly, which
-PIL runs, saturates its lanes there).
+Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 24):
+AV1 tools outside the decoder (superres, segmentation, delta q / lf,
+intra block copy), bit depths above 8, non-key or hidden frames, a frame
+or alpha plane whose size differs from its ``ispe`` or track header
+(libavif scales it), the chromaticity-derived nclx matrix, and AV1
+streams whose transforms leave the 16-bit range the specification
+requires (dav1d's x86 assembly, which PIL runs, saturates its lanes
+there).
 """
 
 from __future__ import annotations
@@ -82,9 +99,13 @@ _MATRIX_NAMES = {0: "identity (GBR)", 3: "reserved", 4: "FCC", 7: "SMPTE 240M",
 # akr_av1_probe's values and akr_av1_decode's counts (native/av1_decode.cpp)
 INFO_NAMES = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "full_range", "primaries",
               "transfer", "matrix", "chroma_position", "profile", "sb128", "tx_mode",
-              "screen_content", "tile_cols", "tile_rows", "lossless", "lf_levels", "base_q_idx")
+              "screen_content", "tile_cols", "tile_rows", "lossless", "lf_levels", "base_q_idx",
+              "qm_levels", "cdef_strengths", "lr_types", "film_grain")
 STAT_NAMES = ("blocks", "palette_y", "palette_uv", "filter_intra", "cfl", "tx_split",
               "tx_type_not_dct", "angle_delta")
+# and the filters the frame ran: 8x8 blocks CDEF changed, stripes of
+# restoration units filtered, planes given film grain
+FILTER_NAMES = ("cdef_blocks", "lr_stripes", "grain_planes")
 
 
 class _Bad(Exception):
@@ -161,6 +182,10 @@ class _Item:
         self.aux_for = None
         self.premultiplied_by = None
         self.describes = None
+        self.dimg_for = None  # the grid this item is a tile of, and its place
+        self.dimg_idx = None
+        self.grid = None      # a grid item's (rows, columns, width, height, tiles)
+        self.thumbnail_for = None
         self.unsupported_essential = False
 
     def prop(self, typ):
@@ -220,6 +245,26 @@ def _parse_property(typ, b, s, e):
     return bytes(b[s:e])
 
 
+class _Track:
+    def __init__(self):
+        self.id = 0
+        self.width = self.height = 0
+        self.duration = 0
+        self.aux_for = self.prem_by = None
+        self.timescale = 0
+        self.has_stbl = False
+        self.chunks, self.stsc, self.sizes, self.descriptions = [], [], [], []
+        self.all_size = 0
+        self.repeating = False
+        self.segment_duration = 0
+
+    def usable(self):
+        """libavif's test of a track it may read: a sample table with
+        chunks, a nonzero id and an av01 sample entry."""
+        return (self.has_stbl and self.id and self.chunks
+                and any(f == b"av01" for f, _ in self.descriptions))
+
+
 class Container:
     """The parse of an AVIF file, as far as libavif's avifDecoderParse goes."""
 
@@ -228,14 +273,14 @@ class Container:
         self.items = {}
         self.primary = None
         self.idat = None
-        self.sequence = False
+        self.tracks = []
+        self.sequence = False  # libavif reads the tracks (frame 0), not the items
         self._parse()
 
     def _parse(self):
         b = self.data
         n = len(b)
-        seen_ftyp = meta = None
-        moov = False
+        seen_ftyp = meta = moov = None
         for i, (typ, s, e, cut) in enumerate(_boxes(b, 0, n, top=True)):
             if i == 0:
                 if typ != b"ftyp":
@@ -246,8 +291,6 @@ class Container:
                 if b"avif" not in brands and b"avis" not in brands:
                     raise _Bad("Invalid ftyp")
                 seen_ftyp = brands
-                if b"avis" in brands:  # libavif reads the tracks, not the items
-                    self.sequence = True
                 continue
             if typ == b"meta":
                 if meta is not None:
@@ -256,17 +299,214 @@ class Container:
                     raise _Bad("a truncated meta box")
                 meta = (s, e)
             elif typ == b"moov":
-                moov = True
+                if moov is not None:
+                    raise _Bad("a second moov box")
+                if cut:
+                    raise _Bad("a truncated moov box")
+                moov = (s, e)
+            # libavif stops at the last box its brands need (meta for avif,
+            # moov for avis): boxes after it are not read
+            if ((meta is not None or b"avif" not in seen_ftyp)
+                    and (moov is not None or b"avis" not in seen_ftyp)):
+                break
         if seen_ftyp is None:
             raise _Bad("no ftyp")
-        if self.sequence:
-            if moov:
-                raise ValueError("an AVIF image sequence (avis; frame 0 of a sequence is not "
-                                 "read by the port)")
+        if b"avis" in seen_ftyp and moov is None:
             raise _Bad("an avis file without tracks")
-        if meta is None:
+        if b"avif" in seen_ftyp and meta is None:
             raise _Bad("no meta box")
-        self._parse_meta(*meta)
+        if meta is not None:
+            self._parse_meta(*meta)
+        if moov is not None:
+            self._parse_moov(*moov)
+        # libavif's source (AVIF_DECODER_SOURCE_AUTO): the major brand's, else
+        # the tracks where there are any
+        major = seen_ftyp[0]
+        self.sequence = major == b"avis" or (major != b"avif" and bool(self.tracks))
+
+    # ---- tracks (libavif's avifParseMovieBox and what it holds)
+
+    def _parse_moov(self, s, e):
+        b = self.data
+        for typ, bs, be, _ in _boxes(b, s, e):
+            if typ == b"trak":  # (libavif reads no field of mvhd that PIL uses)
+                self.tracks.append(self._parse_trak(bs, be))
+
+    def _parse_trak(self, s, e):
+        b = self.data
+        t = _Track()
+        seen = set()
+        for typ, bs, be, _ in _boxes(b, s, e):
+            if typ in (b"tkhd", b"edts"):
+                if typ in seen:
+                    raise _Bad(f"a second {typ!r} in trak")
+                seen.add(typ)
+            if typ == b"tkhd":
+                v, _, p = _full(b, bs, be, (0, 1), "tkhd")
+                k = 8 if v == 1 else 4
+                _need(p, 3 * k + 8 + 52 + 8, be, "tkhd")
+                t.id = _u32(b, p + 2 * k)
+                t.duration = int.from_bytes(b[p + 2 * k + 8:p + 3 * k + 8], "big")
+                q = p + 3 * k + 8 + 52
+                t.width, t.height = _u32(b, q) >> 16, _u32(b, q + 4) >> 16
+                if t.width == 0 or t.height == 0:
+                    raise _Bad(f"track {t.id} of size {t.width} x {t.height}")
+                if (t.width > IMAGE_DIMENSION_LIMIT or t.height > IMAGE_DIMENSION_LIMIT
+                        or t.width * t.height > IMAGE_SIZE_LIMIT):
+                    raise _Bad(f"track {t.id} of {t.width} x {t.height}")
+            elif typ == b"mdia":
+                self._parse_mdia(t, bs, be)
+            elif typ == b"tref":
+                for rt, rs, re_, _ in _boxes(b, bs, be):
+                    if rt in (b"auxl", b"prem"):
+                        _need(rs, 4, re_, "tref")
+                        if rt == b"auxl":
+                            t.aux_for = _u32(b, rs)
+                        else:
+                            t.prem_by = _u32(b, rs)
+            elif typ == b"edts":
+                self._parse_edts(t, bs, be)
+        if b"tkhd" not in seen:
+            raise _Bad("trak without tkhd")
+        if t.repeating and t.duration != 0xFFFFFFFF and t.segment_duration == 0:
+            raise _Bad("an edit list of a zero segment duration")
+        return t
+
+    def _parse_edts(self, t, s, e):
+        b = self.data
+        elst = False
+        for typ, bs, be, _ in _boxes(b, s, e):
+            if typ != b"elst":
+                continue
+            if elst:
+                raise _Bad("a second elst")
+            elst = True
+            v, flags, p = _full(b, bs, be, None, "elst")
+            if not flags & 1:
+                continue
+            t.repeating = True
+            _need(p, 4, be, "elst")
+            if _u32(b, p) != 1:
+                raise _Bad("an elst of other than one entry")
+            if v not in (0, 1):
+                raise _Bad(f"elst version {v}")
+            k = 8 if v == 1 else 4
+            _need(p + 4, 2 * k, be, "elst")
+            t.segment_duration = int.from_bytes(b[p + 4:p + 4 + k], "big")
+        if not elst:
+            raise _Bad("edts without elst")
+
+    def _parse_mdia(self, t, s, e):
+        b = self.data
+        for typ, bs, be, _ in _boxes(b, s, e):
+            if typ == b"mdhd":
+                v, _, p = _full(b, bs, be, (0, 1), "mdhd")
+                _need(p, 28 if v == 1 else 16, be, "mdhd")
+                t.timescale = _u32(b, p + (16 if v == 1 else 8))
+            elif typ == b"hdlr":  # checked as meta's is; any handler type
+                _, _, q = _full(b, bs, be, (0,), "hdlr")
+                _need(q, 20, be, "hdlr")
+                if _u32(b, q) != 0:
+                    raise _Bad("a track hdlr with a nonzero pre_defined")
+                _string(b, q + 20, be, "hdlr name")
+            elif typ == b"minf":
+                for mt, ms, me, _ in _boxes(b, bs, be):
+                    if mt == b"stbl":
+                        if t.has_stbl:
+                            raise _Bad("a second stbl in a track")
+                        t.has_stbl = True
+                        self._parse_stbl(t, ms, me)
+
+    def _parse_stbl(self, t, s, e):
+        b = self.data
+
+        def table(bs, be, what, width):
+            _, _, p = _full(b, bs, be, (0,), what)
+            _need(p, 4, be, what)
+            n = _u32(b, p)
+            _need(p + 4, n * width, be, what)
+            return p + 4, n
+
+        for typ, bs, be, _ in _boxes(b, s, e):
+            if typ in (b"stco", b"co64"):
+                k = 4 if typ == b"stco" else 8
+                p, n = table(bs, be, typ.decode(), k)
+                t.chunks = [int.from_bytes(b[p + i * k:p + (i + 1) * k], "big") for i in range(n)]
+            elif typ == b"stsc":
+                p, n = table(bs, be, "stsc", 12)
+                t.stsc = [struct.unpack_from(">3I", b, p + 12 * i)[:2] for i in range(n)]
+                for i, (first, _) in enumerate(t.stsc):
+                    if (i == 0 and first != 1) or (i and first <= t.stsc[i - 1][0]):
+                        raise _Bad("stsc entries out of order")
+            elif typ == b"stsz":
+                _, _, p = _full(b, bs, be, (0,), "stsz")
+                _need(p, 8, be, "stsz")
+                t.all_size, n = _u32(b, p), _u32(b, p + 4)
+                if t.all_size == 0:
+                    _need(p + 8, 4 * n, be, "stsz")
+                    t.sizes = list(struct.unpack_from(f">{n}I", b, p + 8))
+            elif typ == b"stss":
+                table(bs, be, "stss", 4)
+            elif typ == b"stts":
+                table(bs, be, "stts", 8)
+            elif typ == b"stsd":
+                _, _, p = _full(b, bs, be, (0,), "stsd")
+                _need(p, 4, be, "stsd")
+                count = _u32(b, p)
+                entries = _boxes(b, p + 4, be)
+                for _ in range(count):
+                    fmt, fs, fe, _ = next(entries, (None,) * 4)
+                    if fmt is None:
+                        raise _Bad(f"stsd of {count} entries holds fewer")
+                    props = []
+                    if fe - fs > 78:  # a VisualSampleEntry, then its boxes
+                        for pt, ps, pe, _ in _boxes(b, fs + 78, fe):
+                            if pt == b"auxi":  # the auxiliary type, as auxC holds it
+                                _, _, q = _full(b, ps, pe, (0,), "auxi")
+                                props.append((b"auxC", _string(b, q, pe, "auxi")[0]))
+                            else:
+                                props.append((pt, _parse_property(pt, b, ps, pe)))
+                    t.descriptions.append((fmt, props))
+
+    def track_samples(self, t):
+        """libavif's avifCodecDecodeInputFillFromSampleTable: (offset, size)
+        of every sample, chunk by chunk."""
+        out = []
+        k = 0
+        for ci, off in enumerate(t.chunks):
+            count = 0
+            for first, per in reversed(t.stsc):
+                if first <= ci + 1:
+                    count = per
+                    break
+            if count == 0:
+                raise _Bad("a chunk of no samples")
+            for _ in range(count):
+                if t.all_size:
+                    size = t.all_size
+                else:
+                    if k >= len(t.sizes):
+                        raise _Bad("Truncated sample table")
+                    size = t.sizes[k]
+                if size == 0:
+                    raise _Bad("a sample of 0 bytes")
+                if off + size > len(self.data):
+                    raise _Bad("a sample past the end of the file")
+                out.append((off, size))
+                off += size
+                k += 1
+        return out
+
+    def track_item(self, t):
+        """A track as an item: sample 0 for its data, the av01 sample
+        entry's properties and the track header's size for its ispe."""
+        item = _Item(t.id)
+        item.type = b"av01"
+        item.extents = [(0, *self.track_samples(t)[0])]
+        props = next(p for f, p in t.descriptions if f == b"av01")
+        item.props = [(pt, pv, False) for pt, pv in props] + [(b"ispe", (t.width, t.height), False)]
+        item.premultiplied_by = t.prem_by
+        return item
 
     def _parse_meta(self, s, e):
         b = self.data
@@ -311,6 +551,8 @@ class Container:
             self._parse_iref(*pending[b"iref"])
 
     def _item(self, iid):
+        if iid == 0:
+            raise _Bad("an item ID of 0")
         if iid not in self.items:
             self.items[iid] = _Item(iid)
         return self.items[iid]
@@ -362,20 +604,16 @@ class Container:
             p += k
             return x
 
-        seen = set()
         for _ in range(count):
             iid = rd(2 if v < 2 else 4)
-            if iid in seen:
+            if self._item(iid).extents:  # a second entry may follow one of no extents
                 raise _Bad(f"a second iloc entry for item {iid}")
-            seen.add(iid)
             method = rd(2) & 15 if v in (1, 2) else 0
             if method not in (0, 1):
                 raise _Bad(f"iloc construction method {method}")
             rd(2)  # data_reference_index, which libavif ignores
             base = rd(bsz)
             n_ext = rd(2)
-            if n_ext == 0:
-                raise _Bad(f"item {iid} without extents")
             ext = []
             for _ in range(n_ext):
                 if isz:
@@ -445,7 +683,9 @@ class Container:
 
     def _parse_iref(self, s, e):
         b = self.data
-        v, _, p = _full(b, s, e, (0, 1), "iref")
+        v, _, p = _full(b, s, e, None, "iref")
+        if v > 1:  # libavif skips an iref of another version
+            return
         k = 2 if v == 0 else 4
         for typ, bs, be, _ in _boxes(b, p, e):
             _need(bs, k + 2, be, "iref")
@@ -453,7 +693,11 @@ class Container:
             n = _u16(b, bs + k)
             q = bs + k + 2
             _need(q, n * k, be, "iref")
+            if q + n * k != be:  # libavif reads the next reference box from there
+                raise _Bad(f"an iref {typ!r} box of {be - q - n * k} more bytes than its ids")
             dst = [int.from_bytes(b[q + i * k:q + (i + 1) * k], "big") for i in range(n)]
+            if 0 in dst:
+                raise _Bad(f"an iref {typ!r} to item ID 0")
             item = self._item(src)
             if typ == b"auxl" and dst:
                 item.aux_for = dst[0]
@@ -461,6 +705,12 @@ class Container:
                 item.premultiplied_by = dst[0]
             elif typ == b"cdsc" and dst:
                 item.describes = dst[0]
+            elif typ == b"thmb" and dst:
+                item.thumbnail_for = dst[0]
+            elif typ == b"dimg":  # a derived image's inputs: the reference points back
+                for idx, d in enumerate(dst):
+                    tile = self._item(d)
+                    tile.dimg_for, tile.dimg_idx = src, idx
 
     def item_data(self, item):
         b = self.data
@@ -482,7 +732,11 @@ class Container:
 
 def _validate(item, what_item):
     """libavif's avifDecoderItemValidateProperties with PIL's strict flags
-    (none): an av1C, and a pixi (which may be absent) of the av1C's depth."""
+    (none): an av1C, and a pixi (which may be absent) of the av1C's depth.
+    A grid has no av1C of its own (its tiles are checked as they are
+    read)."""
+    if item.type == b"grid":
+        return
     av1c = item.prop(b"av1C")
     if av1c is None:
         raise _Bad(f"{what_item} without av1C")
@@ -521,11 +775,12 @@ def parse(data):
     colour (matrix, full range) or None. Raises ``_Bad``, or ``ValueError``
     for the forms the port does not read."""
     c = Container(data)
+    _check_items(c)
+    if c.sequence:
+        return _parse_tracks(c)
     item = c.items.get(c.primary) if c.primary is not None else None
     if item is None or item.type not in (b"av01", b"grid") or item.unsupported_essential:
         raise _Fail("Missing or empty image item")
-    if item.type == b"grid":
-        raise ValueError("an AVIF grid image (a primary item of type grid)")
     if item.extents is None or not sum(length for _, _, length in item.extents):
         raise _Fail("Missing or empty image item")
     ispe = item.prop(b"ispe")
@@ -539,11 +794,12 @@ def parse(data):
             alpha = it
             break
     if alpha is not None:
-        if alpha.type == b"grid":
-            raise ValueError("an AVIF grid alpha item")
         if alpha.prop(b"ispe") is None:
             raise _Bad("the alpha item has no ispe")
         _validate(alpha, "the alpha item")
+    for it in (item, alpha):
+        if it is not None and it.type == b"grid":
+            it.grid = _grid(c, it)
     for it in (item, alpha):
         if it is None:
             continue
@@ -560,7 +816,189 @@ def parse(data):
         if t == b"colr" and v[0] == "nclx":
             nclx = v
             break
+    if nclx is None:
+        _sequence_header_walk(c, item.grid[4][0] if item.grid else item)
     return c, item, alpha, nclx
+
+
+def _sequence_header_walk(c, item):
+    """Without an nclx colr libavif reads the colour item's data at parse
+    for its AV1 sequence header. Of an item that runs past the end of the
+    file, the OBUs the file holds must lead to a sequence header, or the
+    parse ends (``_Bad``); an item the file holds whole is left to the
+    decode."""
+    b = c.data
+    parts, want = [], 0
+    for method, off, length in item.extents:
+        want += length
+        if method == 1:
+            s, e = c.idat if c.idat is not None else (0, 0)
+            parts.append(bytes(b[s + off:min(s + off + length, e)]))
+        else:
+            parts.append(bytes(b[off:off + length]))
+    d = b"".join(parts)
+    if len(d) == want:
+        return
+    pos = 0
+    while pos < len(d):
+        h = d[pos]
+        pos += 1 + ((h >> 2) & 1)
+        size = len(d) - pos
+        if h & 2:
+            size = shift = 0
+            while True:
+                if pos >= len(d) or shift > 49:
+                    size = -1
+                    break
+                size |= (d[pos] & 0x7F) << shift
+                shift += 7
+                pos += 1
+                if not d[pos - 1] & 0x80:
+                    break
+        if size < 0 or pos > len(d) or size > len(d) - pos:
+            break
+        if (h >> 3) & 15 == 1:
+            body = d[pos:pos + size]
+            err = ctypes.create_string_buffer(256)
+            if _native().akr_av1_sequence_header(body, len(body), err, 256) == 0:
+                return
+            break
+        pos += size
+    raise _Bad("Truncated data (the colour item runs past the end of the file before its "
+               "sequence header)")
+
+
+def _check_items(c):
+    """avifDecoderParse's check of every image item it would not skip (an
+    av01 or grid item with data, no unknown essential property, not a
+    thumbnail), whichever source it then reads: an ispe of a size within
+    the limits, which only an alpha item may lack."""
+    for it in c.items.values():
+        if (it.type not in (b"av01", b"grid") or not it.extents or it.unsupported_essential
+                or it.thumbnail_for is not None
+                or not sum(length for _, _, length in it.extents)):
+            continue
+        ispe = it.prop(b"ispe")
+        if ispe is None:
+            if it.prop(b"auxC") not in ALPHA_URNS:
+                raise _Bad(f"item {it.id} has no ispe")
+        elif (ispe[0] == 0 or ispe[1] == 0 or max(ispe) > IMAGE_DIMENSION_LIMIT
+                or ispe[0] * ispe[1] > IMAGE_SIZE_LIMIT):
+            raise _Bad(f"item {it.id} of {ispe[0]} x {ispe[1]}")
+
+
+def _parse_tracks(c):
+    """libavif's tracks source: the first usable track that is no other's
+    auxiliary is the colour, a usable track auxiliary to it the alpha (unless
+    its auxi names another auxiliary type); each read from its sample 0."""
+    # the meta's primary item, where there is one, needs its av1C all the same
+    primary = c.items.get(c.primary) if c.primary is not None else None
+    if (primary is not None and primary.type == b"av01" and not primary.unsupported_essential
+            and primary.extents and sum(length for _, _, length in primary.extents)):
+        if primary.prop(b"av1C") is None:
+            raise _Bad("the primary item without av1C")
+    color = next((t for t in c.tracks if t.usable() and not t.aux_for), None)
+    if color is None:
+        raise _Bad("no AV1 colour track")
+    alpha = None
+    for t in c.tracks:
+        if t.usable() and t.aux_for == color.id:
+            alpha = t
+            break
+    if alpha is not None:  # an auxi of another auxiliary type: no alpha
+        aux = next((v for t, v in next(p for f, p in alpha.descriptions if f == b"av01")
+                    if t == b"auxC"), None)
+        if aux is not None and aux not in ALPHA_URNS:
+            alpha = None
+    item = c.track_item(color)
+    _validate(item, "the colour track")
+    alpha_item = None
+    if alpha is not None:
+        alpha_item = c.track_item(alpha)
+        _validate(alpha_item, "the alpha track")
+    if not color.timescale:  # PIL divides the frame's timestamp by it
+        raise _Fail("division by zero (a colour track of no media timescale)")
+    nclx = next((v for t, v, _ in item.props if t == b"colr" and v[0] == "nclx"), None)
+    return c, item, alpha_item, nclx
+
+
+def _grid(c, item):
+    """The ImageGrid of a grid item (libavif's avifParseImageGridBox) and its
+    tiles in ``dimg`` order, as libavif's parse checks them: (rows, columns,
+    output width, output height, tiles). A bad grid box, a missing tile or
+    a tile without av1C fails the open (``_Fail``); a tile's av1C whose
+    fixed fields differ from the first tile's, or a tile libavif's item
+    checks refuse, ends the parse (``_Bad``)."""
+    b = c.item_data(item)
+    if len(b) < 4 or b[0] != 0:
+        raise _Fail(f"Invalid image grid (version {b[0] if b else None} or truncated)")
+    rows, cols = b[2] + 1, b[3] + 1
+    k = 4 if b[1] & 1 else 2
+    if len(b) != 4 + 2 * k:
+        raise _Fail(f"Invalid image grid (a grid box of {len(b)} bytes)")
+    ow, oh = int.from_bytes(b[4:4 + k], "big"), int.from_bytes(b[4 + k:4 + 2 * k], "big")
+    if (ow == 0 or oh == 0 or ow > IMAGE_DIMENSION_LIMIT or oh > IMAGE_DIMENSION_LIMIT
+            or ow * oh > IMAGE_SIZE_LIMIT):
+        raise _Fail(f"Invalid image grid (an output of {ow} x {oh})")
+    tiles = []
+    for idx in range(rows * cols):
+        tile = next((it for it in c.items.values()
+                     if it.dimg_for == item.id and it.dimg_idx == idx), None)
+        if tile is None:
+            raise _Fail(f"Invalid image grid ({rows} x {cols} without its tile {idx})")
+        tiles.append(tile)
+    for tile in tiles:
+        if tile.type != b"av01":
+            raise _Fail(f"Invalid image grid (a tile of type {tile.type!r})")
+        if not tile.extents or not sum(length for _, _, length in tile.extents):
+            raise _Bad("a grid tile without data")
+        if sum(length for method, _, length in tile.extents if method == 0) > len(c.data):
+            raise _Bad("a grid tile larger than the file")
+        if tile.prop(b"ispe") is None:
+            raise _Bad("a grid tile without ispe")
+        if tile.prop(b"av1C") is None:
+            raise _Fail("Invalid image grid (a tile without av1C)")
+        _validate(tile, "a grid tile")
+        if tile.prop(b"av1C")[1:3] != tiles[0].prop(b"av1C")[1:3]:
+            raise _Bad("grid tiles of different av1C")
+    return rows, cols, ow, oh, tiles
+
+
+def _image_planes(c, item, what, size=None):
+    """An image item's planes and header values: its AV1 frame at the
+    size of its ``ispe`` (or ``size``), or a grid's tiles placed and cropped
+    to the grid's output size as libavif composes them (tiles of one size,
+    depth, subsampling and range, at least 64 x 64, even where chroma is
+    subsampled, covering the output without a row or column past it)."""
+    if item.type != b"grid":
+        return _decode_planes(_item_obus(c, item, what), what, size=size or item.prop(b"ispe"))
+    rows, cols, ow, oh, tiles = item.grid
+    decoded = [_decode_planes(_item_obus(c, t, what), what, size=t.prop(b"ispe"))
+               for t in tiles]
+    (y0, _, _), info = decoded[0]
+    th, tw = y0.shape
+    mono, ssx, ssy = info[3:6]
+    for _, inf in decoded:
+        if inf[:7] != info[:7]:
+            raise ValueError(f"{what}: Invalid image grid (mismatched tiles)")
+    if tw * cols < ow or th * rows < oh or tw * (cols - 1) >= ow or th * (rows - 1) >= oh:
+        raise ValueError(f"{what}: Invalid image grid (tiles of {tw} x {th} do not fit a "
+                         f"{cols} x {rows} grid of {ow} x {oh})")
+    if tw < 64 or th < 64:
+        raise ValueError(f"{what}: Invalid image grid (tiles of {tw} x {th}, under 64)")
+    if not mono and ((ssx and (ow % 2 or tw % 2)) or (ssy and (oh % 2 or th % 2))):
+        raise ValueError(f"{what}: Invalid image grid (odd sizes with subsampled chroma)")
+    cw, ch = (ow + ssx) >> ssx, (oh + ssy) >> ssy
+    out = [np.zeros((oh, ow), np.uint8), np.zeros((ch, cw), np.uint8),
+           np.zeros((ch, cw), np.uint8)]
+    for k, (planes, _) in enumerate(decoded):
+        r, col = divmod(k, cols)
+        for p, pl in enumerate(planes):
+            sx, sy = (ssx, ssy) if p else (0, 0)
+            y, x = (r * th) >> sy, (col * tw) >> sx
+            dst = out[p][y:y + pl.shape[0], x:x + pl.shape[1]]
+            dst[...] = pl[:dst.shape[0], :dst.shape[1]]
+    return out, info
 
 
 def _native():
@@ -569,13 +1007,13 @@ def _native():
     return load("av1")
 
 
-def _decode_planes(obus, what, stats=None, size=None):
+def _decode_planes(obus, what, stats=None, size=None, filters=None):
     """Decode the OBUs: (Y, U, V) and the header values; ``size`` (the
     item's ``ispe``), when given, must be the frame's, which is checked
     before the planes are allocated (libavif scales a frame of another
     size; the port refuses it)."""
     lib = _native()
-    info = (ctypes.c_int32 * 20)()
+    info = (ctypes.c_int32 * len(INFO_NAMES))()
     err = ctypes.create_string_buffer(256)
     if lib.akr_av1_probe(obus, len(obus), info, err, 256):
         raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
@@ -587,12 +1025,14 @@ def _decode_planes(obus, what, stats=None, size=None):
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     u = np.zeros((ch, cw), np.uint8)
     v = np.zeros((ch, cw), np.uint8)
-    st = np.zeros(8, np.int64)
+    st = np.zeros(len(STAT_NAMES) + len(FILTER_NAMES), np.int64)
     if lib.akr_av1_decode(obus, len(obus), y.ctypes.data, u.ctypes.data, v.ctypes.data,
                           st.ctypes.data, err, 256):
         raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
     if stats is not None:
         stats.update(zip(STAT_NAMES, st.tolist()))
+    if filters is not None:
+        filters.update(zip(FILTER_NAMES, st[len(STAT_NAMES):].tolist()))
     return (y, u, v), list(info)
 
 
@@ -625,21 +1065,28 @@ def avif_frame_info(data, what="image"):
     """The primary item's frame header values (``INFO_NAMES``), read from
     its OBUs without decoding the tiles."""
     c, item, _, _ = _parse_or_raise(data, what)
+    if item.type == b"grid":
+        item = item.grid[4][0]
     obus = _item_obus(c, item, what)
-    info = (ctypes.c_int32 * 20)()
+    info = (ctypes.c_int32 * len(INFO_NAMES))()
     err = ctypes.create_string_buffer(256)
     if _native().akr_av1_probe(obus, len(obus), info, err, 256):
         raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
     return dict(zip(INFO_NAMES, info))
 
 
-def avif_planes(data, what="image", stats=None):
+def avif_planes(data, what="image", stats=None, filters=None):
     """The primary item's decoded planes (Y, U, V as [H, W] uint8; U and V
     of the chroma size, zeros for a monochrome image), as dav1d gives them
     to libavif, and the frame's header values (``INFO_NAMES``); ``stats``,
-    a dict, receives what the frame used (``STAT_NAMES``)."""
+    a dict, receives what the frame used (``STAT_NAMES``), ``filters`` what
+    its loop filters did (``FILTER_NAMES``). A grid's planes are its
+    composed tiles', its header values its first tile's."""
     c, item, _, _ = _parse_or_raise(data, what)
-    planes, info = _decode_planes(_item_obus(c, item, what), what, stats)
+    if item.type == b"grid":
+        planes, info = _image_planes(c, item, what)
+    else:
+        planes, info = _decode_planes(_item_obus(c, item, what), what, stats, filters=filters)
     return planes, dict(zip(INFO_NAMES, info))
 
 
@@ -754,15 +1201,26 @@ def decode_avif(data, what="image"):
     w, h = item.prop(b"ispe")
     _check_size(w, h, what, "AVIF")
     note_mode("RGBA" if alpha is not None else "RGB")
-    (y, u, v), info = _decode_planes(_item_obus(c, item, what), what, size=(w, h))
+    (y, u, v), info = _image_planes(c, item, what)
     _, _, _, mono, ssx, ssy, full, cp, tc, mc = info[:10]
     if nclx is not None:
         _, cp, tc, mc, full = nclx
     rgb = yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, alpha is not None, what)
     if alpha is not None:
-        (a, _, _), ainfo = _decode_planes(_item_obus(c, alpha, what), what, size=(w, h))
+        (a, _, _), ainfo = _image_planes(c, alpha, what, size=(w, h))
+        if a.shape != y.shape:
+            raise ValueError(f"{what}: an AVIF alpha plane of {a.shape[1]} x {a.shape[0]} in "
+                             f"an image of {y.shape[1]} x {y.shape[0]}")
         if item.premultiplied_by == alpha.id:
             if not ainfo[6]:  # libavif's avifLimitedToFullY
                 a = np.clip(((a.astype(np.int64) - 16) * 255 / 219).astype(np.int64), 0, 255)
             rgb = unpremultiply(rgb, a)
+    if rgb.shape[:2] != (h, w):
+        # a grid whose output size is not its ispe: PIL reads the first
+        # h x w pixels of libavif's buffer as rows of w
+        px = rgb if alpha is None else np.concatenate([rgb, a[..., None]], -1)
+        if px.shape[0] * px.shape[1] < w * h:
+            raise ValueError(f"{what}: image file is truncated (an AVIF grid of "
+                             f"{px.shape[1]} x {px.shape[0]} in an item of {w} x {h})")
+        rgb = np.ascontiguousarray(px.reshape(-1)[:w * h * px.shape[2]].reshape(h, w, -1)[..., :3])
     return rgb

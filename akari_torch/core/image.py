@@ -30,11 +30,13 @@ through ``core/pcd.py``, SPIDER through ``core/spider.py``, MSP and XBM
 through ``core/image_formats.py``; FITS through ``core/fits.py``, FLI / FLC
 (frame 0) through ``core/fli.py``, Sun rasters through ``core/sun.py``, XPM
 through ``core/xpm.py``, and GBR, McIdas, PIXAR and XV thumbnails through
-``core/rasters.py``; and AVIF (a still image's primary AV1 item, in every
-tool PIL's writer uses at its speeds 5-10: 4:2:0, 4:2:2, 4:4:4 and grey, 64
-and 128 superblocks, tiles, palettes, filter intra, CfL, lossless frames,
-the deblocking filter; alpha, premultiplied too; libavif's YUV -> RGB)
-through ``core/avif.py`` and ``native/av1_decode.cpp``. Five of them
+``core/rasters.py``; and AVIF (a still image's primary AV1 item, a
+``grid`` of them, or frame 0 of an ``avis`` sequence, in every tool PIL's
+writer uses at any speed and with its options: 4:2:0, 4:2:2, 4:4:4 and
+grey, 64 and 128 superblocks, tiles, palettes, filter intra, CfL, lossless
+frames, quantizer matrices, the deblocking filter, CDEF, loop restoration,
+film grain as dav1d applies it; alpha, premultiplied too; libavif's YUV ->
+RGB) through ``core/avif.py`` and ``native/av1_decode.cpp``. Five of them
 (IM, IMT, IPTC, PCD, SPIDER) have no
 signature: PIL runs their header parse on every file that reaches them in
 its order, and so does ``decode_image``. Others have a signature so weak
@@ -45,11 +47,10 @@ reference reads them with PIL, which the card's machine does not have; the
 pixels equal PIL's ``convert("RGB")``. Other formats PIL opens (EPS, WMF,
 MPEG and the BUFR / GRIB / HDF5 stubs, which load no pixels here) raise an
 error naming the formats read here, and so do the AVIF forms still to be
-ported: AV1 frames with loop restoration (PIL's writer at speeds 0-4),
-CDEF, superres, film grain, segmentation, delta q / delta lf, quantizer
-matrices, intra block copy or more than 8 bits, ``grid`` items, ``avis``
-sequences, and frames whose size differs from their ``ispe`` (libavif
-scales them).
+ported: AV1 frames with superres, segmentation, delta q / delta lf, intra
+block copy or more than 8 bits, non-key or hidden frames, frames or
+planes whose size differs from their ``ispe`` or track header (libavif
+scales them), and the chromaticity-derived nclx matrix.
 """
 
 from __future__ import annotations
@@ -513,8 +514,8 @@ def decode_with_mode(data, what="image"):
                      "GIF, PNM (P1-P6, PFM and PIL's P0CMYK / Py modes), PSD, TGA, TIFF (every "
                      "compression PIL reads: raw, PackBits, LZW, Deflate, JPEG, old-style JPEG, "
                      "LZMA, ZSTD, CCITT and ThunderScan; Lab too), WebP, AVIF (8-bit still "
-                     "images without AV1 loop restoration, CDEF, superres, film grain, "
-                     "segmentation, delta q / lf, quantizer matrices or intra block copy), DDS, "
+                     "images, grids and frame 0 of sequences, without AV1 superres, "
+                     "segmentation, delta q / lf or intra block copy), DDS, "
                      "BLP, FTEX, ICO, CUR, QOI, SGI, PCX, DCX, JPEG 2000 (JP2 and J2K, Parts 1, 2 "
                      "and 15), ICNS, IM, IMT, IPTC, MSP, PCD, SPIDER, XBM, FITS, FLI / FLC, GBR, "
                      "MCIDAS, PIXAR, SUN, XPM, XVThumb, .hdr and .npy; not EPS, WMF, MPEG or the "
@@ -536,7 +537,7 @@ def decode_image(data, what="image"):
     and XVThumb, told apart as PIL tells them (the
     formats of ``_accepted`` in PIL's order, each header parse deciding, as
     in PIL, whether the next is tried). Other formats, and forms a decoder
-    refuses (AVIF with AV1 loop restoration or CDEF among them), raise
+    refuses (AVIF with AV1 superres or segmentation among them), raise
     ``ValueError`` naming them."""
     return decode_with_format(data, what)[1]
 
@@ -552,7 +553,7 @@ def read_image(path, to_linear=True):
     JPEG 2000 (Parts 1, 2 and 15), Lab through LittleCMS's transform, DCX,
     MSP and XBM, FITS, FLI / FLC, GBR, McIdas, PIXAR, Sun raster, XPM and
     XV thumbnails, and AVIF still images; other formats, and forms the
-    decoders refuse (AVIF frames with AV1 loop restoration among them),
+    decoders refuse (AVIF frames with AV1 superres among them),
     raise ``ValueError`` naming the format.
     """
     path = str(path)

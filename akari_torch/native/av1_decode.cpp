@@ -27,13 +27,23 @@
 // - intra prediction: DC, the directional modes (edge filtering and
 //   upsampling), smooth, smooth-V / H, Paeth, recursive filter intra, CfL
 //   and palette;
+// - quantizer matrices (levels 0-14 of 2-D transforms; av1_tables.h);
 // - the deblocking filter (4, 6, 8 and 14 taps; levels per plane and
-//   direction with the reference-delta term; sharpness).
+//   direction with the reference-delta term; sharpness);
+// - CDEF (the cdef_idx of each 64x64 block read in the tile, direction
+//   search, primary and secondary taps, the chroma direction map, skipped
+//   8x8 blocks, the frame edge);
+// - loop restoration (the units' Wiener taps and self-guided sets read in
+//   the tile, delta-coded on the unit before; 64-row stripes offset by 8
+//   whose rows above and below come from the deblocked frame before CDEF;
+//   every unit size and subsampling);
+// - film grain (the frame's parameters, grain templates from the Gaussian
+//   sequence and the AR filter, scaling lookups, 32x32 blocks at random
+//   offsets with overlap, chroma from luma) applied to the output only.
 //
 // Anything else a header turns on is refused with a message naming it:
 // bit depths above 8, non-key or hidden frames, intra block copy, superres,
-// segmentation, delta q / delta lf, quantiser matrices, CDEF with a nonzero
-// strength, loop restoration and film grain.
+// segmentation and delta q / delta lf.
 //
 // C ABI (ctypes):
 //   int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info,
@@ -41,16 +51,23 @@
 //   int akr_av1_decode(const uint8_t* data, int64_t size, uint8_t* y,
 //                      uint8_t* u, uint8_t* v, int64_t* stats, char* err,
 //                      int32_t errlen);
+//   int akr_av1_sequence_header(const uint8_t* data, int64_t size, char* err,
+//                               int32_t errlen);
 //   void akr_yuv_to_rgb(...)  (see the end of the file)
-// data: the item's OBUs. info receives 20 values: width, height, bit depth,
+// data: the item's OBUs. info receives 24 values: width, height, bit depth,
 // mono, subsampling x, subsampling y, colour range, colour primaries,
 // transfer, matrix, chroma sample position, profile, 128x128 superblocks,
 // tx mode (0 only 4x4, 1 largest, 2 select), screen content tools, tile
-// columns, tile rows, lossless, the four loop filter levels (a byte each)
-// and base_q_idx. The planes are written at the frame's size, chroma at
+// columns, tile rows, lossless, the four loop filter levels (a byte each),
+// base_q_idx, the quantizer-matrix levels (y, u, v, four bits each; 15:
+// none), the number of nonzero CDEF strengths, the restoration type per
+// plane (two bits each: none, Wiener, self-guided, switchable) and
+// apply_grain. The planes are written at the frame's size, chroma at
 // ((width + ssx) >> ssx) x ((height + ssy) >> ssy); stats (may be null)
-// receives 8 counts: blocks, luma palettes, chroma palettes, filter intra,
-// CfL, tx_depth > 0, luma transforms other than DCT_DCT, angle deltas.
+// receives 11 counts: blocks, luma palettes, chroma palettes, filter intra,
+// CfL, tx_depth > 0, luma transforms other than DCT_DCT, angle deltas, 8x8
+// blocks CDEF filtered, stripes of restoration units filtered, planes given
+// grain.
 // Returns 0, or -1 with a message in err.
 //
 // Build: akari_torch/native/loader.py (g++ -O3 -shared -fPIC -std=c++17).
@@ -63,6 +80,7 @@
 #include <cstring>
 #include <stdexcept>
 #include <string>
+#include <thread>
 #include <vector>
 
 #include "av1_tables.h"
@@ -176,6 +194,7 @@ void tx_kinds(int t, int* vk, int* hk) {
     *hk = h[t];
 }
 
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED, D203_PRED, D67_PRED,
        SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED };
 const int kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
@@ -296,7 +315,8 @@ struct Cdfs {
     uint16_t palette_y_size[7][8], palette_uv_size[7][8], palette_y_color[7][5][8],
         palette_uv_color[7][5][8];
     uint16_t tx_size8[3][4], tx_size16[3][4], tx_size32[3][4], tx_size64[3][4],
-        use_filter_intra[22][2], skip[3][2], palette_y_mode[7][3][2], palette_uv_mode[2][2];
+        use_filter_intra[22][2], skip[3][2], palette_y_mode[7][3][2], palette_uv_mode[2][2],
+        restoration_type[4], use_wiener[2], use_sgrproj[2];
     uint16_t eob_pt16[2][2][8], eob_pt32[2][2][8], eob_pt64[2][2][8], eob_pt128[2][2][8],
         eob_pt256[2][2][16], eob_pt512[2][16], eob_pt1024[2][16];
     uint16_t coeff_base_eob[5][2][4][4], coeff_base[5][2][41][4], coeff_br[4][2][21][4],
@@ -310,6 +330,7 @@ struct Cdfs {
         CP(filter_intra_mode); CP(palette_y_size); CP(palette_uv_size); CP(palette_y_color);
         CP(palette_uv_color); CP(tx_size8); CP(tx_size16); CP(tx_size32); CP(tx_size64);
         CP(use_filter_intra); CP(skip); CP(palette_y_mode); CP(palette_uv_mode);
+        CP(restoration_type); CP(use_wiener); CP(use_sgrproj);
 #undef CP
         int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
 #define CQ(name) memcpy(name, av1_##name[q], sizeof name)
@@ -699,7 +720,7 @@ struct Decoder {
     int tiles_decoded = 0;
     // what the frame used: blocks, palette (luma, chroma), filter intra,
     // CfL, tx_depth > 0, non-DCT_DCT luma transforms, angle deltas
-    int64_t stats[8] = {0};
+    int64_t stats[11] = {0};
     Cdfs frame_cdfs;
     // frame state
     Plane plane[3];
@@ -707,6 +728,29 @@ struct Decoder {
     std::vector<uint8_t> pal_colors[2];  // 8 per mi
     std::vector<uint8_t> lf_tx_size[3];
     int lf_stride[3] = {0};
+    // quantizer matrices: the level per plane (15: none)
+    int using_qm = 0, qm_level[3] = {15, 15, 15};
+    // CDEF: damping, bits, strengths (y primary, y secondary, uv primary,
+    // uv secondary) and each 64x64 block's cdef_idx (-1: not read)
+    bool cdef_on = false;
+    int cdef_damping = 3, cdef_bits = 0, cdef_strength[8][4] = {{0}};
+    std::vector<int8_t> cdef_idx;
+    // loop restoration: FrameRestorationType, unit size, units per plane
+    int uses_lr = 0, lr_type[3] = {0}, lr_unit_size[3] = {64, 64, 64};
+    int lr_rows[3] = {0}, lr_cols[3] = {0};
+    struct LrUnit {
+        int8_t type = RESTORE_NONE, set = 0;
+        int16_t wiener[2][3] = {{0}}, xqd[2] = {0};
+    };
+    std::vector<LrUnit> lr_units[3];
+    // film grain (the frame's parameters; applied to the output only)
+    struct FilmGrain {
+        int apply = 0, seed = 0, num_y = 0, y_points[14][2] = {{0}}, csfl = 0,
+            num_uv[2] = {0}, uv_points[2][10][2] = {{{0}}}, scaling_shift = 8, ar_lag = 0,
+            ar_y[24] = {0}, ar_uv[2][25] = {{0}}, ar_shift = 6, grain_scale_shift = 0,
+            uv_mult[2] = {0}, uv_luma_mult[2] = {0}, uv_offset[2] = {0}, overlap = 0,
+            clip_restricted = 0;
+    } fg;
 
     int mi(int r, int c) const { return r * MiCols + c; }
 
@@ -742,6 +786,9 @@ struct Decoder {
             op_count = int(br.f(5)) + 1;
             for (int i = 0; i < op_count; i++) {
                 op_idc[i] = int(br.f(12));
+                // dav1d: an operating point names a temporal and a spatial layer or none
+                if (op_idc[i] && (!(op_idc[i] & 0xff) || !(op_idc[i] & 0xf00)))
+                    fail("an AV1 operating point of idc 0x%x", op_idc[i]);
                 int level = int(br.f(5));
                 if (level > 7) br.f(1);
                 op_decoder_model_present[i] = 0;
@@ -974,7 +1021,13 @@ struct Decoder {
                 dq_v_ac = dq_u_ac;
             }
         }
-        if (br.f(1)) unported("AV1 quantizer matrices");
+        using_qm = int(br.f(1));
+        qm_level[0] = qm_level[1] = qm_level[2] = 15;
+        if (using_qm) {
+            qm_level[0] = int(br.f(4));
+            qm_level[1] = int(br.f(4));
+            qm_level[2] = separate_uv_delta_q ? int(br.f(4)) : qm_level[1];
+        }
         if (br.f(1)) unported("AV1 segmentation");
         if (base_q_idx > 0 && br.f(1)) unported("AV1 delta q / delta lf");
         lossless = base_q_idx == 0 && dq_y_dc == 0 && dq_u_ac == 0 && dq_u_dc == 0 &&
@@ -1004,27 +1057,51 @@ struct Decoder {
                 }
             }
         }
-        // CDEF
-        if (!lossless && enable_cdef) {
-            br.f(2);  // damping
-            int cdef_bits = int(br.f(2));
+        if (lossless) qm_level[0] = qm_level[1] = qm_level[2] = 15;
+        // CDEF (lossless: none; cdef_idx is not read)
+        cdef_on = !lossless && enable_cdef;
+        cdef_damping = 3;
+        cdef_bits = 0;
+        memset(cdef_strength, 0, sizeof cdef_strength);
+        if (cdef_on) {
+            cdef_damping = int(br.f(2)) + 3;
+            cdef_bits = int(br.f(2));
             for (int i = 0; i < (1 << cdef_bits); i++) {
-                int yp = int(br.f(4)), ys = int(br.f(2)), up = 0, us = 0;
-                if (num_planes > 1) { up = int(br.f(4)); us = int(br.f(2)); }
-                if (yp || ys || up || us) unported("AV1 CDEF");
+                cdef_strength[i][0] = int(br.f(4));
+                cdef_strength[i][1] = int(br.f(2));
+                if (cdef_strength[i][1] == 3) cdef_strength[i][1] = 4;
+                if (num_planes > 1) {
+                    cdef_strength[i][2] = int(br.f(4));
+                    cdef_strength[i][3] = int(br.f(2));
+                    if (cdef_strength[i][3] == 3) cdef_strength[i][3] = 4;
+                }
             }
-            if (cdef_bits) unported("AV1 CDEF");
         }
-        // loop restoration
+        // loop restoration: FrameRestorationType per plane and the unit sizes
+        uses_lr = 0;
+        for (int i = 0; i < 3; i++) { lr_type[i] = RESTORE_NONE; lr_unit_size[i] = 64; }
         if (!lossless && enable_restoration) {
-            for (int i = 0; i < num_planes; i++)
-                if (br.f(2)) unported("AV1 loop restoration");
+            static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
+                                         RESTORE_SGRPROJ};
+            int uses_chroma = 0;
+            for (int i = 0; i < num_planes; i++) {
+                lr_type[i] = remap[br.f(2)];
+                if (lr_type[i] != RESTORE_NONE) { uses_lr = 1; uses_chroma |= i > 0; }
+            }
+            if (uses_lr) {
+                int shift = int(br.f(1));
+                if (use128) shift++;
+                else if (shift) shift += int(br.f(1));
+                lr_unit_size[0] = 64 << shift;
+                int uv_shift = (ssx && ssy && uses_chroma) ? int(br.f(1)) : 0;
+                lr_unit_size[1] = lr_unit_size[2] = lr_unit_size[0] >> uv_shift;
+            }
         }
         // tx mode
         if (lossless) tx_mode = 0;
         else tx_mode = br.f(1) ? 2 : 1;
         reduced_tx_set = int(br.f(1));
-        if (film_grain_present && br.f(1)) unported("AV1 film grain");
+        parse_film_grain(br);
         have_frame_header = true;
         if (header_only) return;
         frame_cdfs.init(base_q_idx);
@@ -1045,6 +1122,69 @@ struct Decoder {
         tx_size_.assign(n, 0); tx_type.assign(n, 0);
         for (int p = 0; p < 2; p++) { pal_size[p].assign(n, 0); pal_colors[p].assign(n * 8, 0); }
         tiles_decoded = 0;
+        cdef_idx.assign(size_t((MiRows + 15) >> 4) * ((MiCols + 15) >> 4), -1);
+        for (int p = 0; p < num_planes; p++) {
+            lr_units[p].clear();
+            lr_rows[p] = lr_cols[p] = 0;
+            if (lr_type[p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            lr_rows[p] = lr_count(lr_unit_size[p], round2(H, sy));
+            lr_cols[p] = lr_count(lr_unit_size[p], round2(W, sx));
+            lr_units[p].assign(size_t(lr_rows[p]) * lr_cols[p], LrUnit());
+        }
+    }
+    static int lr_count(int unit, int size) { return imax((size + (unit >> 1)) / unit, 1); }
+
+    // ---- film grain parameters (dav1d's parse_film_grain_data checks)
+    void parse_film_grain(BitReader& br) {
+        fg = FilmGrain();
+        if (!film_grain_present) return;  // a shown key frame: show_frame is 1
+        fg.apply = int(br.f(1));
+        if (!fg.apply) return;
+        fg.seed = int(br.f(16));
+        fg.num_y = int(br.f(4));
+        if (fg.num_y > 14) fail("AV1 film grain of %d luma points", fg.num_y);
+        for (int i = 0; i < fg.num_y; i++) {
+            fg.y_points[i][0] = int(br.f(8));
+            if (i && fg.y_points[i - 1][0] >= fg.y_points[i][0])
+                fail("AV1 film grain luma points out of order");
+            fg.y_points[i][1] = int(br.f(8));
+        }
+        fg.csfl = mono ? 0 : int(br.f(1));
+        if (!(mono || fg.csfl || (ssx && ssy && !fg.num_y))) {
+            for (int pl = 0; pl < 2; pl++) {
+                fg.num_uv[pl] = int(br.f(4));
+                if (fg.num_uv[pl] > 10) fail("AV1 film grain of %d chroma points", fg.num_uv[pl]);
+                for (int i = 0; i < fg.num_uv[pl]; i++) {
+                    fg.uv_points[pl][i][0] = int(br.f(8));
+                    if (i && fg.uv_points[pl][i - 1][0] >= fg.uv_points[pl][i][0])
+                        fail("AV1 film grain chroma points out of order");
+                    fg.uv_points[pl][i][1] = int(br.f(8));
+                }
+            }
+        }
+        if (ssx && ssy && !!fg.num_uv[0] != !!fg.num_uv[1])
+            fail("AV1 film grain points on one 4:2:0 chroma plane only");
+        fg.scaling_shift = int(br.f(2)) + 8;
+        fg.ar_lag = int(br.f(2));
+        int num_pos = 2 * fg.ar_lag * (fg.ar_lag + 1);
+        if (fg.num_y)
+            for (int i = 0; i < num_pos; i++) fg.ar_y[i] = int(br.f(8)) - 128;
+        for (int pl = 0; pl < 2; pl++)
+            if (fg.num_uv[pl] || fg.csfl) {
+                int n = num_pos + (fg.num_y ? 1 : 0);
+                for (int i = 0; i < n; i++) fg.ar_uv[pl][i] = int(br.f(8)) - 128;
+            }
+        fg.ar_shift = int(br.f(2)) + 6;
+        fg.grain_scale_shift = int(br.f(2));
+        for (int pl = 0; pl < 2; pl++)
+            if (fg.num_uv[pl]) {
+                fg.uv_mult[pl] = int(br.f(8)) - 128;
+                fg.uv_luma_mult[pl] = int(br.f(8)) - 128;
+                fg.uv_offset[pl] = int(br.f(9)) - 256;
+            }
+        fg.overlap = int(br.f(1));
+        fg.clip_restricted = int(br.f(1));
     }
 
     // ---- tile groups
@@ -1085,7 +1225,10 @@ struct Decoder {
     struct Tile;
     void decode_tile(int tile_row, int tile_col, const uint8_t* data, int64_t size);
 
-    // ---- loop filter
+    // ---- loop filter, CDEF, loop restoration, film grain
+    void cdef();
+    void loop_restoration(const Plane* pre_cdef);
+    void film_grain(uint8_t* const out[3]);
     void loop_filter();
     void edge_filter(int p, int pass, int row, int col);
     void filter_level(int p, int pass, int* lvl, int* limit, int* blimit, int* thresh);
@@ -1131,6 +1274,13 @@ struct Decoder::Tile {
             left_level[p].assign(size_t(f.MiRows) + 64, 0);
             left_dc[p].assign(size_t(f.MiRows) + 64, 0);
         }
+        static const int wiener_mid[3] = {3, -7, 15};
+        for (int p = 0; p < 3; p++) {
+            ref_xqd[p][0] = -32;
+            ref_xqd[p][1] = 31;
+            for (int pass = 0; pass < 2; pass++)
+                for (int i = 0; i < 3; i++) ref_wiener[p][pass][i] = wiener_mid[i];
+        }
         int sb = f.use128 ? BLOCK_128X128 : BLOCK_64X64;
         int sb4 = kBw[sb] >> 2;
         for (int r = mi_row_start; r < mi_row_end; r += sb4) {
@@ -1139,12 +1289,110 @@ struct Decoder::Tile {
                 std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
             }
             for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+                clear_cdef(r, c);
                 clear_block_decoded(r, c, sb4);
+                read_lr(r, c, sb);
                 decode_partition(r, c, sb);
             }
             // dav1d's overread check after each superblock row: 15 bits or
             // more read past the end of the tile's data is an error
             if (sd.maxbits <= -15) fail("AV1 tile data end inside superblock row %d", r);
+        }
+    }
+
+    // ---- CDEF indices: one per 64x64 block that holds a non-skip block
+    int8_t& cdef_at(int r, int c) { return f.cdef_idx[size_t(r >> 4) * ((f.MiCols + 15) >> 4) + (c >> 4)]; }
+
+    void clear_cdef(int r, int c) {
+        cdef_at(r, c) = -1;
+        if (f.use128) {
+            if (c + 16 < f.MiCols) cdef_at(r, c + 16) = -1;
+            if (r + 16 < f.MiRows) {
+                cdef_at(r + 16, c) = -1;
+                if (c + 16 < f.MiCols) cdef_at(r + 16, c + 16) = -1;
+            }
+        }
+    }
+
+    void read_cdef() {
+        if (skip || !f.cdef_on) return;
+        int r = mi_row & ~15, c = mi_col & ~15;
+        if (cdef_at(r, c) != -1) return;
+        int idx = sd.lit(f.cdef_bits);
+        for (int y = r; y < r + bh4; y += 16)
+            for (int x = c; x < c + bw4; x += 16)
+                if (y < f.MiRows && x < f.MiCols) cdef_at(y, x) = int8_t(idx);
+    }
+
+    // ---- loop-restoration coefficients of the units a superblock starts
+    int ref_wiener[3][2][3], ref_xqd[3][2];
+
+    int subexp(int num_syms, int k) {
+        int i = 0, mk = 0;
+        for (;;) {
+            int b2 = i ? k + i - 1 : k, a = 1 << b2;
+            if (num_syms <= mk + 3 * a) return sd.ns(num_syms - mk) + mk;
+            if (!sd.lit(1)) return sd.lit(b2) + mk;
+            i++;
+            mk += a;
+        }
+    }
+    static int inverse_recenter(int r, int v) {
+        if (v > 2 * r) return v;
+        return (v & 1) ? r - ((v + 1) >> 1) : r + (v >> 1);
+    }
+    int signed_subexp_ref(int low, int high, int k, int r) {
+        int mx = high - low;
+        r -= low;
+        int v = subexp(mx, k);
+        int x = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+        return x + low;
+    }
+
+    void read_lr(int r, int c, int b) {
+        int w = kBw[b] >> 2, h = kBh[b] >> 2;
+        for (int p = 0; p < f.num_planes; p++) {
+            if (f.lr_type[p] == RESTORE_NONE) continue;
+            int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+            int unit = f.lr_unit_size[p];
+            int row0 = (r * (4 >> sy) + unit - 1) / unit;
+            int row1 = imin(f.lr_rows[p], ((r + h) * (4 >> sy) + unit - 1) / unit);
+            int col0 = (c * (4 >> sx) + unit - 1) / unit;
+            int col1 = imin(f.lr_cols[p], ((c + w) * (4 >> sx) + unit - 1) / unit);
+            for (int ur = row0; ur < row1; ur++)
+                for (int uc = col0; uc < col1; uc++) read_lr_unit(p, f.lr_units[p][size_t(ur) * f.lr_cols[p] + uc]);
+        }
+    }
+
+    void read_lr_unit(int p, LrUnit& u) {
+        static const int wmin[3] = {-5, -23, -17}, wmax[3] = {10, 8, 46}, wk[3] = {1, 2, 3};
+        static const int xmin[2] = {-96, -32}, xmax[2] = {31, 95};
+        int type;
+        if (f.lr_type[p] == RESTORE_WIENER) type = sd.read(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+        else if (f.lr_type[p] == RESTORE_SGRPROJ) type = sd.read(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+        else type = sd.read(cdf.restoration_type, 3);  // none, Wiener, self-guided
+        u.type = int8_t(type);
+        if (type == RESTORE_WIENER) {
+            for (int pass = 0; pass < 2; pass++) {
+                int first = p ? 1 : 0;
+                u.wiener[pass][0] = 0;
+                for (int j = first; j < 3; j++) {
+                    int v = signed_subexp_ref(wmin[j], wmax[j] + 1, wk[j], ref_wiener[p][pass][j]);
+                    u.wiener[pass][j] = int16_t(v);
+                    ref_wiener[p][pass][j] = v;
+                }
+            }
+        } else if (type == RESTORE_SGRPROJ) {
+            int set = sd.lit(4);
+            u.set = int8_t(set);
+            for (int i = 0; i < 2; i++) {
+                int radius = av1_sgr_params[set][i * 2];
+                int v;
+                if (radius) v = signed_subexp_ref(xmin[i], xmax[i] + 1, 4, ref_xqd[p][i]);
+                else v = i == 1 ? clip3(xmin[i], xmax[i], 128 - ref_xqd[p][0]) : 0;
+                u.xqd[i] = int16_t(v);
+                ref_xqd[p][i] = v;
+            }
         }
     }
 
@@ -1340,6 +1588,7 @@ struct Decoder::Tile {
         int ctx = (avail_u ? f.skip_[f.mi(mi_row - 1, mi_col)] : 0) +
                   (avail_l ? f.skip_[f.mi(mi_row, mi_col - 1)] : 0);
         skip = sd.read(cdf.skip[ctx], 2);
+        read_cdef();
         // y mode
         int am = kIntraModeContext[avail_u ? int(f.y_mode[f.mi(mi_row - 1, mi_col)]) : 0];
         int lm = kIntraModeContext[avail_l ? int(f.y_mode[f.mi(mi_row, mi_col - 1)]) : 0];
@@ -2134,6 +2383,13 @@ struct Decoder::Tile {
         return eob;
     }
 
+    static int qm_offset(int t) {  // the specification's Qm_Offset (sizes up to 32)
+        int off = 0;
+        for (int k = 0; k < t; k++)
+            if (kTw[k] <= 32 && kTh[k] <= 32) off += kTw[k] * kTh[k];
+        return off;
+    }
+
     int dc_q(int b) { return av1_dc_qlookup[clip3(0, 255, b)]; }
     int ac_q(int b) { return av1_ac_qlookup[clip3(0, 255, b)]; }
 
@@ -2146,11 +2402,17 @@ struct Decoder::Tile {
         int dcq = p == 0 ? dc_q(qi + f.dq_y_dc) : p == 1 ? dc_q(qi + f.dq_u_dc) : dc_q(qi + f.dq_v_dc);
         int acq = p == 0 ? ac_q(qi) : p == 1 ? ac_q(qi + f.dq_u_ac) : ac_q(qi + f.dq_v_ac);
         static thread_local int32_t coef[32 * 32];
+        // the quantizer matrix of a 2-D transform (the adjusted size's; none
+        // at level 15 or for the identity-bearing types)
+        const uint8_t* qm = nullptr;
+        if (f.qm_level[p] < 15 && plane_tx_type < IDTX)
+            qm = &av1_qm[f.qm_level[p]][p > 0][qm_offset(adjusted_tx(t))];
         for (int i = 0; i < th; i++)
             for (int j = 0; j < tw; j++) {
                 int32_t qv = quant[i * tw + j];
                 if (!qv) { coef[i * tw + j] = 0; continue; }
                 int q = (i == 0 && j == 0) ? dcq : acq;
+                if (qm) q = (q * qm[j * th + i] + 16) >> 5;  // the matrix is stored by columns
                 int64_t mag = int64_t(qv < 0 ? -qv : qv) * q;
                 mag &= 0xFFFFFF;
                 mag >>= dq_shift;
@@ -2349,6 +2611,475 @@ void Decoder::loop_filter() {
     }
 }
 
+// f(i, worker) for i in [0, n) on up to 8 threads (f must not throw); the
+// filters below write disjoint pixels, so the result does not depend on
+// the split
+template <class F>
+void parallel_for(int n, F f) {
+    int nt = imax(1, imin(imin(int(std::thread::hardware_concurrency()), 8), n));
+    std::vector<std::thread> pool;
+    for (int t = 1; t < nt; t++)
+        pool.emplace_back([&, t] {
+            for (int i = t; i < n; i += nt) f(i, t);
+        });
+    for (int i = 0; i < n; i += nt) f(i, 0);
+    for (auto& th : pool) th.join();
+}
+
+// ---- CDEF (specification 7.15; dav1d's results, which are the same)
+
+namespace cdef_detail {
+// Cdef_Directions: (row, column) of the two taps of each direction
+const int kDir[8][2][2] = {{{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}}, {{0, 1}, {1, 2}},
+                           {{1, 1}, {2, 2}}, {{1, 0}, {2, 1}}, {{1, 0}, {2, 0}}, {{1, 0}, {2, -1}}};
+const int kUvDir[2][2][8] = {{{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+                             {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+
+int find_dir(const uint8_t* img, int stride, int* var) {
+    static const int div_table[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+    int partial[8][15] = {{0}};
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++) {
+            int x = int(img[i * stride + j]) - 128;
+            partial[0][i + j] += x;
+            partial[1][i + j / 2] += x;
+            partial[2][i] += x;
+            partial[3][3 + i - j / 2] += x;
+            partial[4][7 + i - j] += x;
+            partial[5][3 - i / 2 + j] += x;
+            partial[6][j] += x;
+            partial[7][i / 2 + j] += x;
+        }
+    int64_t cost[8] = {0};
+    for (int i = 0; i < 8; i++) {
+        cost[2] += int64_t(partial[2][i]) * partial[2][i];
+        cost[6] += int64_t(partial[6][i]) * partial[6][i];
+    }
+    cost[2] *= div_table[8];
+    cost[6] *= div_table[8];
+    for (int i = 0; i < 7; i++) {
+        cost[0] += (int64_t(partial[0][i]) * partial[0][i] +
+                    int64_t(partial[0][14 - i]) * partial[0][14 - i]) * div_table[i + 1];
+        cost[4] += (int64_t(partial[4][i]) * partial[4][i] +
+                    int64_t(partial[4][14 - i]) * partial[4][14 - i]) * div_table[i + 1];
+    }
+    cost[0] += int64_t(partial[0][7]) * partial[0][7] * div_table[8];
+    cost[4] += int64_t(partial[4][7]) * partial[4][7] * div_table[8];
+    for (int i = 1; i < 8; i += 2) {
+        for (int j = 0; j < 5; j++) cost[i] += int64_t(partial[i][3 + j]) * partial[i][3 + j];
+        cost[i] *= div_table[8];
+        for (int j = 0; j < 3; j++)
+            cost[i] += (int64_t(partial[i][j]) * partial[i][j] +
+                        int64_t(partial[i][10 - j]) * partial[i][10 - j]) * div_table[2 * j + 2];
+    }
+    int best = 0;
+    int64_t best_cost = 0;
+    for (int i = 0; i < 8; i++)
+        if (cost[i] > best_cost) { best_cost = cost[i]; best = i; }
+    *var = int((best_cost - cost[(best + 4) & 7]) >> 10);
+    return best;
+}
+
+// constrain() of the specification, its damping shift max(0, damping -
+// FloorLog2(threshold)) given (threshold 0: no tap)
+inline int constrain(int diff, int threshold, int shift) {
+    int a = diff < 0 ? -diff : diff;
+    int v = imin(a, imax(0, threshold - (a >> shift)));
+    return diff < 0 ? -v : v;
+}
+}  // namespace cdef_detail
+
+void Decoder::cdef() {
+    using namespace cdef_detail;
+    if (!cdef_on) return;
+    Plane src[3];
+    for (int p = 0; p < num_planes; p++) src[p] = plane[p];
+    // an 8x8 (or chroma) block with two pixels about it, unavailable ones
+    // (past the frame's 4x4 grid) marked: they add no tap and bound nothing
+    const int S = 12, NA = -30000;
+    static const int pri_tap_sets[2][2] = {{4, 2}, {3, 3}}, sec_taps[2] = {2, 1};
+    int fb_cols = (MiCols + 15) >> 4;
+    int64_t filtered[8] = {0};
+    parallel_for(MiRows / 2, [&](int row8, int worker) {
+        int buf[S * S];
+        int r = row8 * 2;
+        for (int c = 0; c < MiCols; c += 2) {
+            int idx = cdef_idx[size_t(r >> 4) * fb_cols + (c >> 4)];
+            if (idx < 0) continue;
+            if (skip_[mi(r, c)] && skip_[mi(r + 1, c)] && skip_[mi(r, c + 1)] && skip_[mi(r + 1, c + 1)])
+                continue;
+            int var = 0;
+            int ydir = find_dir(src[0].at(r * 4, c * 4), src[0].stride, &var);
+            for (int p = 0; p < num_planes; p++) {
+                int sx = p ? ssx : 0, sy = p ? ssy : 0;
+                int pri = cdef_strength[idx][p ? 2 : 0], sec = cdef_strength[idx][p ? 3 : 1];
+                int dir = pri ? (p ? kUvDir[ssx][ssy][ydir] : ydir) : 0;
+                int damping = cdef_damping - (p ? 1 : 0);
+                if (p == 0) {
+                    int var_str = (var >> 6) ? imin(floorlog2(uint32_t(var >> 6)), 12) : 0;
+                    pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
+                }
+                if (!pri && !sec) continue;
+                filtered[worker] += p == 0;
+                int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, w = 8 >> sx, h = 8 >> sy;
+                int xend = (MiCols * 4) >> sx, yend = (MiRows * 4) >> sy;
+                Plane& sp = src[p];
+                for (int i = -2; i < h + 2; i++) {
+                    int y = y0 + i;
+                    bool row_ok = y >= 0 && y < yend;
+                    for (int j = -2; j < w + 2; j++) {
+                        int x = x0 + j;
+                        buf[(i + 2) * S + j + 2] = row_ok && x >= 0 && x < xend ? *sp.at(y, x) : NA;
+                    }
+                }
+                int po[2], so1[2], so2[2];
+                for (int k = 0; k < 2; k++) {
+                    po[k] = kDir[dir][k][0] * S + kDir[dir][k][1];
+                    so1[k] = kDir[(dir + 2) & 7][k][0] * S + kDir[(dir + 2) & 7][k][1];
+                    so2[k] = kDir[(dir + 6) & 7][k][0] * S + kDir[(dir + 6) & 7][k][1];
+                }
+                const int* pri_taps = pri_tap_sets[pri & 1];
+                int pri_shift = pri ? imax(0, damping - floorlog2(uint32_t(pri))) : 0;
+                int sec_shift = sec ? imax(0, damping - floorlog2(uint32_t(sec))) : 0;
+                for (int i = 0; i < h; i++) {
+                    uint8_t* out = plane[p].at(y0 + i, x0);
+                    for (int j = 0; j < w; j++) {
+                        const int* b = &buf[(i + 2) * S + j + 2];
+                        int px = b[0], sum = 0, mx = px;
+                        unsigned mn = unsigned(px);
+                        for (int k = 0; k < 2; k++)
+                            for (int sign = -1; sign <= 1; sign += 2) {
+                                int v = b[sign * po[k]];
+                                sum += pri_taps[k] * constrain(v - px, pri, pri_shift);
+                                mx = imax(mx, v);
+                                mn = std::min(mn, unsigned(v));
+                                int s1 = b[sign * so1[k]], s2 = b[sign * so2[k]];
+                                sum += sec_taps[k] * (constrain(s1 - px, sec, sec_shift) +
+                                                      constrain(s2 - px, sec, sec_shift));
+                                mx = imax(mx, imax(s1, s2));
+                                mn = std::min(mn, std::min(unsigned(s1), unsigned(s2)));
+                            }
+                        out[j] = uint8_t(clip3(int(mn), mx, px + ((8 + sum - (sum < 0)) >> 4)));
+                    }
+                }
+            }
+        }
+    });
+    for (int64_t n : filtered) stats[8] += n;
+}
+
+// ---- loop restoration (specification 7.17): 64-row stripes offset by 8
+// rows, whose rows above and below come from the deblocked frame before
+// CDEF; Wiener and self-guided filters per restoration unit
+
+void Decoder::loop_restoration(const Plane* pre) {
+    if (!uses_lr) return;
+    for (int p = 0; p < num_planes; p++) {
+        if (lr_type[p] == RESTORE_NONE) continue;
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int pw = round2(W, sx), ph = round2(H, sy);
+        int unit = lr_unit_size[p];
+        Plane out = plane[p];
+        const Plane& cd = plane[p];
+        const Plane& dbk = pre[p];
+        const int PAD = 4;
+        int n_stripes = 0;
+        while (imax(0, (-8 + n_stripes * 64) >> sy) < ph) n_stripes++;
+        int64_t filtered[8] = {0};
+        parallel_for(n_stripes, [&](int stripe, int worker) {
+            std::vector<int> buf;
+            int sstart = (-8 + stripe * 64) >> sy, send = sstart + (64 >> sy) - 1;
+            int y0 = imax(0, sstart), y1 = imin(ph, send + 1);
+            int urow = imin(lr_rows[p] - 1, (y0 + (8 >> sy)) / unit);
+            for (int ucol = 0; ucol < lr_cols[p]; ucol++) {
+                const LrUnit& u = lr_units[p][size_t(urow) * lr_cols[p] + ucol];
+                if (u.type == RESTORE_NONE) continue;
+                filtered[worker]++;
+                int x0 = ucol * unit, x1 = ucol == lr_cols[p] - 1 ? pw : (ucol + 1) * unit;
+                int bw = x1 - x0 + 2 * PAD, bh = y1 - y0 + 2 * PAD;
+                buf.resize(size_t(bw) * bh);
+                for (int i = 0; i < bh; i++) {
+                    int y = clip3(0, ph - 1, y0 - PAD + i);
+                    const Plane* srcp = &cd;
+                    if (y < sstart) { y = imax(sstart - 2, y); srcp = &dbk; }
+                    else if (y > send) { y = imin(send + 2, y); srcp = &dbk; }
+                    const uint8_t* row = &srcp->px[size_t(y) * srcp->stride];
+                    for (int j = 0; j < bw; j++) buf[size_t(i) * bw + j] = row[clip3(0, pw - 1, x0 - PAD + j)];
+                }
+                auto S = [&](int i, int j) { return buf[size_t(i + PAD) * bw + j + PAD]; };
+                int w = x1 - x0, h = y1 - y0;
+                if (u.type == RESTORE_WIENER) {
+                    int vf[7], hf[7];
+                    for (int pass = 0; pass < 2; pass++) {
+                        int* fl = pass ? hf : vf;
+                        fl[3] = 128;
+                        for (int i = 0; i < 3; i++) {
+                            int cf = u.wiener[pass][i];
+                            fl[i] = fl[6 - i] = cf;
+                            fl[3] -= 2 * cf;
+                        }
+                    }
+                    // 8-bit: InterRound0 3, InterRound1 11
+                    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+                    std::vector<int> inter(size_t(h + 6) * w);
+                    for (int r = 0; r < h + 6; r++)
+                        for (int c = 0; c < w; c++) {
+                            int sum = 0;
+                            for (int t = 0; t < 7; t++) sum += hf[t] * S(r - 3, c + t - 3);
+                            inter[size_t(r) * w + c] = clip3(-offset, limit - offset, round2(sum, 3));
+                        }
+                    for (int r = 0; r < h; r++)
+                        for (int c = 0; c < w; c++) {
+                            int sum = 0;
+                            for (int t = 0; t < 7; t++) sum += vf[t] * inter[size_t(r + t) * w + c];
+                            *out.at(y0 + r, x0 + c) = uint8_t(clip3(0, 255, round2(sum, 11)));
+                        }
+                } else {
+                    const int* prm = av1_sgr_params[u.set];
+                    std::vector<int> flt[2];
+                    for (int pass = 0; pass < 2; pass++) {
+                        int rad = prm[pass * 2], sc = prm[pass * 2 + 1];
+                        if (!rad) continue;
+                        int n = (2 * rad + 1) * (2 * rad + 1);
+                        int one_over_n = ((1 << 12) + (n / 2)) / n;
+                        int aw = w + 2;
+                        std::vector<int> A(size_t(h + 2) * aw), B(size_t(h + 2) * aw);
+                        for (int i = -1; i < h + 1; i++) {
+                            for (int j = -1; j < w + 1; j++) {
+                                int a = 0, b = 0;
+                                for (int dy = -rad; dy <= rad; dy++)
+                                    for (int dx = -rad; dx <= rad; dx++) {
+                                        int cv = S(i + dy, j + dx);
+                                        a += cv * cv;
+                                        b += cv;
+                                    }
+                                int pv = imax(0, a * n - b * b);
+                                int z = int((int64_t(pv) * sc + (1 << 19)) >> 20);
+                                int a2 = 256 - av1_sgr_x_by_x[imin(z, 255)];
+                                int64_t b2 = int64_t(256 - a2) * b * one_over_n;
+                                A[size_t(i + 1) * aw + j + 1] = a2;
+                                B[size_t(i + 1) * aw + j + 1] = int((b2 + (1 << 11)) >> 12);
+                            }
+                        }
+                        flt[pass].assign(size_t(h) * w, 0);
+                        for (int i = 0; i < h; i++) {
+                            int shift = (pass == 0 && (i & 1)) ? 4 : 5;
+                            for (int j = 0; j < w; j++) {
+                                int a = 0, b = 0;
+                                for (int dy = -1; dy <= 1; dy++)
+                                    for (int dx = -1; dx <= 1; dx++) {
+                                        int wt;
+                                        if (pass == 0) wt = ((i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+                                        else wt = (dx == 0 || dy == 0) ? 4 : 3;
+                                        a += wt * A[size_t(i + dy + 1) * aw + j + dx + 1];
+                                        b += wt * B[size_t(i + dy + 1) * aw + j + dx + 1];
+                                    }
+                                int v = a * S(i, j) + b;
+                                flt[pass][size_t(i) * w + j] = round2(v, 8 + shift - 4);
+                            }
+                        }
+                    }
+                    int w0 = u.xqd[0], w1 = u.xqd[1], w2 = (1 << 7) - w0 - w1;
+                    for (int i = 0; i < h; i++)
+                        for (int j = 0; j < w; j++) {
+                            int uu = S(i, j) << 4;
+                            int v = w1 * uu;
+                            v += prm[0] ? w0 * flt[0][size_t(i) * w + j] : w0 * uu;
+                            v += prm[2] ? w2 * flt[1][size_t(i) * w + j] : w2 * uu;
+                            *out.at(y0 + i, x0 + j) = uint8_t(clip3(0, 255, round2(v, 4 + 7)));
+                        }
+                }
+            }
+        });
+        for (int64_t n : filtered) stats[9] += n;
+        plane[p] = std::move(out);
+    }
+}
+
+// ---- film grain synthesis (specification 7.18.3), applied to the output
+// planes only
+
+namespace grain_detail {
+struct Rng {
+    int r;
+    int next(int bits) {
+        int bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+        r = (r >> 1) | (bit << 15);
+        return (r >> (16 - bits)) & ((1 << bits) - 1);
+    }
+};
+void scaling_lut(const int (*pts)[2], int n, uint8_t* lut) {
+    if (!n) { memset(lut, 0, 256); return; }
+    for (int x = 0; x < pts[0][0]; x++) lut[x] = uint8_t(pts[0][1]);
+    for (int i = 0; i < n - 1; i++) {
+        int dy = pts[i + 1][1] - pts[i][1], dx = pts[i + 1][0] - pts[i][0];
+        int delta = dy * ((65536 + (dx >> 1)) / dx);
+        for (int x = 0; x < dx; x++) lut[pts[i][0] + x] = uint8_t(pts[i][1] + ((x * delta + 32768) >> 16));
+    }
+    for (int x = pts[n - 1][0]; x < 256; x++) lut[x] = uint8_t(pts[n - 1][1]);
+}
+}  // namespace grain_detail
+
+void Decoder::film_grain(uint8_t* const out[3]) {
+    using namespace grain_detail;
+    const FilmGrain& g = fg;
+    if (!g.apply) return;
+    const int gmin = -128, gmax = 127;
+    // grain templates
+    static thread_local int luma[73][82], cb[73][82], cr[73][82];
+    Rng rng{g.seed};
+    int shift = 12 - 8 + g.grain_scale_shift;
+    for (int y = 0; y < 73; y++)
+        for (int x = 0; x < 82; x++)
+            luma[y][x] = g.num_y ? round2(av1_gaussian_sequence[rng.next(11)], shift) : 0;
+    int ar_shift = g.ar_shift, lag = g.ar_lag;
+    for (int y = 3; y < 73; y++)
+        for (int x = 3; x < 82 - 3; x++) {
+            int sum = 0, pos = 0;
+            for (int dr = -lag; dr <= 0; dr++)
+                for (int dc = -lag; dc <= lag; dc++) {
+                    if (dr == 0 && dc == 0) break;
+                    sum += luma[y + dr][x + dc] * g.ar_y[pos++];
+                }
+            luma[y][x] = clip3(gmin, gmax, luma[y][x] + round2(sum, ar_shift));
+        }
+    int cw_t = ssx ? 44 : 82, ch_t = ssy ? 38 : 73;
+    if (!mono) {
+        int (*cg[2])[82] = {cb, cr};
+        for (int pl = 0; pl < 2; pl++) {
+            rng.r = g.seed ^ (pl ? 0x49d8 : 0xb524);
+            bool on = g.num_uv[pl] || g.csfl;
+            for (int y = 0; y < ch_t; y++)
+                for (int x = 0; x < cw_t; x++)
+                    cg[pl][y][x] = on ? round2(av1_gaussian_sequence[rng.next(11)], shift) : 0;
+        }
+        for (int y = 3; y < ch_t; y++)
+            for (int x = 3; x < cw_t - 3; x++) {
+                int sum[2] = {0, 0}, pos = 0;
+                for (int dr = -lag; dr <= 0; dr++)
+                    for (int dc = -lag; dc <= lag; dc++) {
+                        if (dr == 0 && dc == 0) {
+                            if (g.num_y) {
+                                int l = 0;
+                                int lx = ((x - 3) << ssx) + 3, ly = ((y - 3) << ssy) + 3;
+                                for (int i = 0; i <= ssy; i++)
+                                    for (int j = 0; j <= ssx; j++) l += luma[ly + i][lx + j];
+                                l = round2(l, ssx + ssy);
+                                sum[0] += l * g.ar_uv[0][pos];
+                                sum[1] += l * g.ar_uv[1][pos];
+                            }
+                            break;
+                        }
+                        sum[0] += g.ar_uv[0][pos] * cb[y + dr][x + dc];
+                        sum[1] += g.ar_uv[1][pos] * cr[y + dr][x + dc];
+                        pos++;
+                    }
+                for (int pl = 0; pl < 2; pl++)
+                    if (g.num_uv[pl] || g.csfl)
+                        cg[pl][y][x] = clip3(gmin, gmax, cg[pl][y][x] + round2(sum[pl], ar_shift));
+            }
+    }
+    // scaling lookups
+    uint8_t lut[3][256];
+    scaling_lut(g.y_points, g.num_y, lut[0]);
+    for (int pl = 0; pl < 2; pl++) {
+        if (g.csfl) memcpy(lut[1 + pl], lut[0], 256);
+        else scaling_lut(g.uv_points[pl], g.num_uv[pl], lut[1 + pl]);
+    }
+    // the noise image: 32x32 blocks (of luma) at random offsets, overlapped
+    int w = W, h = H;
+    int cw = (w + ssx) >> ssx, chh = (h + ssy) >> ssy;
+    int nstripes = (h + 31) / 32;
+    int np = mono ? 1 : 3;
+    std::vector<int> stripe[3];  // [stripe][34][plane width + 34]
+    int sw[3];
+    for (int p = 0; p < np; p++) {
+        int psx = p ? ssx : 0;
+        sw[p] = ((w + psx) >> psx) + 34;
+        stripe[p].assign(size_t(nstripes) * 34 * sw[p], 0);
+    }
+    for (int ln = 0; ln < nstripes; ln++) {
+        Rng rr{g.seed};
+        rr.r ^= ((ln * 37 + 178) & 255) << 8;
+        rr.r ^= ((ln * 173 + 105) & 255);
+        for (int x = 0; x < (w + 1) / 2; x += 16) {
+            int rnd = rr.next(8);
+            int ox = rnd >> 4, oy = rnd & 15;
+            for (int p = 0; p < np; p++) {
+                int psx = p ? ssx : 0, psy = p ? ssy : 0;
+                int pox = psx ? 6 + ox : 9 + ox * 2, poy = psy ? 6 + oy : 9 + oy * 2;
+                const int (*src)[82] = p == 0 ? luma : p == 1 ? cb : cr;
+                int* st = &stripe[p][size_t(ln) * 34 * sw[p]];
+                for (int i = 0; i < (34 >> psy); i++)
+                    for (int j = 0; j < (34 >> psx); j++) {
+                        int gv = src[poy + i][pox + j];
+                        int col = psx ? x + j : x * 2 + j;
+                        if (col >= sw[p]) continue;
+                        int& o = st[size_t(i) * sw[p] + col];
+                        if (!psx) {
+                            if (j < 2 && g.overlap && x > 0) {
+                                gv = j == 0 ? o * 27 + gv * 17 : o * 17 + gv * 27;
+                                gv = clip3(gmin, gmax, round2(gv, 5));
+                            }
+                        } else if (j == 0 && g.overlap && x > 0) {
+                            gv = clip3(gmin, gmax, round2(o * 23 + gv * 22, 5));
+                        }
+                        o = gv;
+                    }
+            }
+        }
+    }
+    auto noise_at = [&](int p, int y, int x) {
+        int psy = p ? ssy : 0;
+        int ln = y >> (5 - psy), i = y - (ln << (5 - psy));
+        int gv = stripe[p][(size_t(ln) * 34 + i) * sw[p] + x];
+        if (g.overlap && ln > 0) {
+            if (!psy && i < 2) {
+                int o = stripe[p][(size_t(ln - 1) * 34 + i + 32) * sw[p] + x];
+                gv = i == 0 ? o * 27 + gv * 17 : o * 17 + gv * 27;
+                gv = clip3(gmin, gmax, round2(gv, 5));
+            } else if (psy && i < 1) {
+                int o = stripe[p][(size_t(ln - 1) * 34 + i + 16) * sw[p] + x];
+                gv = clip3(gmin, gmax, round2(o * 23 + gv * 22, 5));
+            }
+        }
+        return gv;
+    };
+    int minv = 0, maxl = 255, maxc = 255;
+    if (g.clip_restricted) {
+        minv = 16;
+        maxl = 235;
+        maxc = mc == 0 ? 235 : 240;
+    }
+    int sshift = g.scaling_shift;
+    stats[10] = (g.num_y > 0) + (mono ? 0 : (g.num_uv[0] || g.csfl) + (g.num_uv[1] || g.csfl));
+    if (!mono) {
+        for (int y = 0; y < chh; y++)
+            for (int x = 0; x < cw; x++) {
+                int lx = x << ssx, ly = y << ssy;
+                int lnx = imin(lx + 1, w - 1);
+                const uint8_t* yr = out[0] + size_t(ly) * w;
+                int avg = ssx ? (yr[lx] + yr[lnx] + 1) >> 1 : yr[lx];
+                for (int pl = 0; pl < 2; pl++) {
+                    if (!(g.num_uv[pl] || g.csfl)) continue;
+                    uint8_t* o = out[1 + pl] + size_t(y) * cw + x;
+                    int orig = *o, merged;
+                    if (g.csfl) merged = avg;
+                    else merged = clip3(0, 255, ((avg * g.uv_luma_mult[pl] + orig * g.uv_mult[pl]) >> 6) + g.uv_offset[pl]);
+                    int nz = round2(lut[1 + pl][merged] * noise_at(1 + pl, y, x), sshift);
+                    *o = uint8_t(clip3(minv, maxc, orig + nz));
+                }
+            }
+    }
+    if (g.num_y)
+        for (int y = 0; y < h; y++)
+            for (int x = 0; x < w; x++) {
+                uint8_t* o = out[0] + size_t(y) * w + x;
+                int nz = round2(lut[0][*o] * noise_at(0, y, x), sshift);
+                *o = uint8_t(clip3(minv, maxl, *o + nz));
+            }
+}
+
 // ---------------------------------------------------------------------------
 // OBU walk
 
@@ -2524,13 +3255,35 @@ extern "C" int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info, c
         Obus o;
         o.run(data, size_t(size), true);
         Decoder& d = o.dec;
-        int32_t v[20] = {d.W, d.H, d.bitdepth, d.mono, d.ssx, d.ssy, d.color_range, d.cp,
+        int cdef_nonzero = 0;
+        if (d.cdef_on)
+            for (int i = 0; i < (1 << d.cdef_bits); i++)
+                for (int k = 0; k < 4; k++) cdef_nonzero += d.cdef_strength[i][k] != 0;
+        int32_t v[24] = {d.W, d.H, d.bitdepth, d.mono, d.ssx, d.ssy, d.color_range, d.cp,
                          d.tc, d.mc, d.csp, d.profile, d.use128, d.tx_mode,
                          d.allow_screen_content_tools, d.tile_cols, d.tile_rows, d.lossless,
                          d.lf_level[0] | (d.lf_level[1] << 8) | (d.lf_level[2] << 16) |
                              (d.lf_level[3] << 24),
-                         d.base_q_idx};
+                         d.base_q_idx,
+                         d.qm_level[0] | (d.qm_level[1] << 4) | (d.qm_level[2] << 8),
+                         cdef_nonzero,
+                         d.lr_type[0] | (d.lr_type[1] << 2) | (d.lr_type[2] << 4),
+                         d.fg.apply};
         memcpy(info, v, sizeof v);
+        return 0;
+    } catch (const std::exception& e) {
+        set_err(err, errlen, e.what());
+        return -1;
+    }
+}
+
+// The payload of a sequence header OBU parsed alone: 0, or -1 with a message.
+extern "C" int akr_av1_sequence_header(const uint8_t* data, int64_t size, char* err,
+                                       int32_t errlen) {
+    try {
+        Decoder d;
+        BitReader br(data, size_t(size));
+        d.parse_sequence_header(br);
         return 0;
     } catch (const std::exception& e) {
         set_err(err, errlen, e.what());
@@ -2550,6 +3303,11 @@ extern "C" int akr_av1_decode(const uint8_t* data, int64_t size, uint8_t* y, uin
                  "specification requires (a non-conformant stream, on which dav1d's x86 "
                  "assembly gives pixels of its own)");
         d.loop_filter();
+        Plane pre_cdef[3];
+        if (d.uses_lr)
+            for (int p = 0; p < d.num_planes; p++) pre_cdef[p] = d.plane[p];
+        d.cdef();
+        d.loop_restoration(pre_cdef);
         if (stats) memcpy(stats, d.stats, sizeof d.stats);
         uint8_t* out[3] = {y, u, v};
         for (int p = 0; p < d.num_planes; p++) {
@@ -2557,6 +3315,8 @@ extern "C" int akr_av1_decode(const uint8_t* data, int64_t size, uint8_t* y, uin
             int w = (d.W + sx) >> sx, h = (d.H + sy) >> sy;
             for (int r = 0; r < h; r++) memcpy(out[p] + size_t(r) * w, d.plane[p].at(r, 0), size_t(w));
         }
+        d.film_grain(out);
+        if (stats) memcpy(stats, d.stats, sizeof d.stats);
         return 0;
     } catch (const std::exception& e) {
         set_err(err, errlen, e.what());

@@ -243,13 +243,17 @@ def _bind_av1(lib):
     i32, p = ctypes.c_int32, ctypes.c_void_p
     lib.akr_av1_probe.restype = ctypes.c_int
     lib.akr_av1_probe.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[20]
+        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[24]
         ctypes.c_char_p, i32,                              # err, errlen
+    ]
+    lib.akr_av1_sequence_header.restype = ctypes.c_int
+    lib.akr_av1_sequence_header.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, i32,  # payload, size, err, errlen
     ]
     lib.akr_av1_decode.restype = ctypes.c_int
     lib.akr_av1_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, p, p, p,          # data, size, y, u, v
-        p, ctypes.c_char_p, i32,                           # stats[8], err, errlen
+        p, ctypes.c_char_p, i32,                           # stats[11], err, errlen
     ]
     lib.akr_yuv_to_rgb.restype = None
     lib.akr_yuv_to_rgb.argtypes = [

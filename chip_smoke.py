@@ -3710,29 +3710,35 @@ def htj2k_phase(card, traversal, cli_render, writer, j2k_frame, j2k_decode_s):
 
 AVIF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_avif")
 ALBEDO_AVIF = "albedo2048_q60.avif"   # envtex_texture(2048, 0), quality 60, speed 6, 4:2:0
+# the same at speed 4 with CDEF, quantizer matrices, film grain and loop restoration
+ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
 
 
 def avif_phase(card, traversal, cli_render):
     """Phase 54: AVIF on this machine (no PIL, no AV1 encoder here): the
     fixtures of ``tests/data/torch_port_avif`` (format, PIL's mode and
-    SHA-256 in their ``digests.json``); the committed 2048^2 albedo at
-    quality 60 (128x128 superblocks, 4 x 2 tiles), its decode's median of 3
-    beside phase 41's PNG median; and the config-3 CLI on a PNG of its
-    decoded pixels and on the AVIF (frames bit-equal, 6 tree closest
-    launches each); returns the figures it logs."""
+    SHA-256 in their ``digests.json``: the tools of every writer speed and
+    option, a sequence and a grid among them); the committed 2048^2 albedo
+    at quality 60, speed 6 (128x128 superblocks, 4 x 2 tiles) and at speed
+    4 with CDEF, quantizer matrices, film grain and loop restoration, each
+    decode's median of 3 beside phase 41's PNG median; and the config-3
+    CLI on a PNG of the tools albedo's decoded pixels and on that AVIF
+    (frames bit-equal, 6 tree closest launches each); returns the figures
+    it logs."""
     import hashlib
 
     import numpy as np
 
-    from akari_torch.core.avif import avif_frame_info
+    from akari_torch.core.avif import avif_frame_info, avif_planes
     from akari_torch.core.image import decode_with_mode, encode_png
 
     t_phase = time.perf_counter()
-    log(f"phase 54: AVIF decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
-        f"AVIF, the config-3 CLI on it [card: {card}]")
+    log(f"phase 54: AVIF decoding without PIL: the fixtures' digests, the 2048^2 albedos as "
+        f"AVIF (speed 6; speed 4 with CDEF, quantizer matrices, film grain, loop restoration), "
+        f"the config-3 CLI on the tools albedo [card: {card}]")
     with open(os.path.join(AVIF_FIXTURES, "digests.json")) as f:
         digests = json.load(f)
-    albedo_data, albedo_px, first_s = None, None, 0.0
+    albedo, first_s = {}, {}
     for fname, rec in sorted(digests.items()):
         with open(os.path.join(AVIF_FIXTURES, fname), "rb") as f:
             data = f.read()
@@ -3744,37 +3750,54 @@ def avif_phase(card, traversal, cli_render):
               and digest == rec["sha256"],
               f"{fname}: read as {fmt} {mode} {px.shape}, sha256 {digest[:16]}..., PIL's "
               f"{rec['mode']} {rec['sha256'][:16]}...")
-        if fname == ALBEDO_AVIF:
-            albedo_data, albedo_px, first_s = data, px, decode_s
+        if fname in (ALBEDO_AVIF, ALBEDO_AVIF_TOOLS):
+            albedo[fname], first_s[fname] = (data, px), decode_s
     pil = sorted({rec["pil"] for rec in digests.values()})
-    check(len(digests) >= 17 and albedo_data is not None,
-          f"{len(digests)} AVIF fixtures, the albedo {'in' if albedo_data else 'not in'} them")
+    check(len(digests) >= 26 and len(albedo) == 2,
+          f"{len(digests)} AVIF fixtures, the albedos {sorted(albedo)} in them")
     log(f"  {len(digests)} fixtures decoded (RGB and RGBA, 4:2:0 / 4:2:2 / 4:4:4 / grey, tiles, "
-        f"palettes, lossless); every SHA-256 and mode equals PIL {', '.join(pil)}'s in "
-        f"digests.json")
-    info = avif_frame_info(albedo_data)
-    log(f"  the albedo: {len(albedo_data)} bytes, {info['width']} x {info['height']}, "
-        f"{128 if info['sb128'] else 64}^2 superblocks, {info['tile_cols']} x {info['tile_rows']} "
-        f"tiles, base_q_idx {info['base_q_idx']}")
+        f"palettes, lossless, CDEF, quantizer matrices, film grain, Wiener and self-guided "
+        f"restoration, a 3-frame sequence, a 3 x 2 grid); every SHA-256 and mode equals PIL "
+        f"{', '.join(pil)}'s in digests.json")
     out = {}
     png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
     log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
         f"(runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
-    # the digest's decode is the first of the three runs
-    runs = [first_s] + _median_s(lambda: decode_with_mode(albedo_data, ALBEDO_AVIF), 2)[1]
-    med = sorted(runs)[1]
-    out["avif_decode_s"] = med
-    log(f"  2048^2 AVIF decode on the host, median of 3: {med:.4f} s ({len(albedo_data)} bytes; "
-        f"runs {', '.join(f'{t:.4f}' for t in runs)}; {med / png_s:.2f}x the PNG's) [card: {card}]")
+    for fname, key in ((ALBEDO_AVIF, "avif_decode_s"), (ALBEDO_AVIF_TOOLS, "avif_tools_decode_s")):
+        data = albedo[fname][0]
+        info = avif_frame_info(data)
+        log(f"  {fname}: {len(data)} bytes, {info['width']} x {info['height']}, "
+            f"{128 if info['sb128'] else 64}^2 superblocks, {info['tile_cols']} x "
+            f"{info['tile_rows']} tiles, base_q_idx {info['base_q_idx']}, quantizer-matrix "
+            f"levels 0x{info['qm_levels']:03x} (fff: none), {info['cdef_strengths']} nonzero CDEF "
+            f"strengths, restoration types 0b{info['lr_types']:06b} (v u y), film grain "
+            f"{info['film_grain']}")
+        # the digest's decode is the first of the three runs
+        runs = [first_s[fname]] + _median_s(lambda: decode_with_mode(data, fname), 2)[1]
+        med = sorted(runs)[1]
+        out[key] = med
+        log(f"  2048^2 AVIF decode on the host ({fname}), median of 3: {med:.4f} s (runs "
+            f"{', '.join(f'{t:.4f}' for t in runs)}; {med / png_s:.2f}x the PNG's) [card: {card}]")
+    tools_data, tools_px = albedo[ALBEDO_AVIF_TOOLS]
+    filters = {}
+    avif_planes(tools_data, ALBEDO_AVIF_TOOLS, filters=filters)
+    info = avif_frame_info(tools_data)
+    check(info["qm_levels"] != 0xFFF and info["cdef_strengths"] and info["lr_types"] & 3 == 3
+          and info["film_grain"] and filters["cdef_blocks"] and filters["lr_stripes"]
+          and filters["grain_planes"] == 3,
+          f"the tools albedo does not run every tool: {info}, {filters}")
+    log(f"  the tools albedo's filters: {filters['cdef_blocks']} 8x8 blocks CDEF-filtered, "
+        f"{filters['lr_stripes']} restoration unit stripes, grain on {filters['grain_planes']} "
+        f"planes")
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
-        {"albedo_avif.png": encode_png(albedo_px), "albedo.avif": albedo_data},
+        {"albedo_avif.png": encode_png(tools_px), "albedo.avif": tools_data},
         ("albedo_avif.png", "albedo.avif"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo.avif"], frames["albedo_avif.png"]),
-          "the frame on the AVIF albedo differs from the PNG route's of its pixels")
-    log("  the AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
+          "the frame on the tools AVIF albedo differs from the PNG route's of its pixels")
+    log("  the tools AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 54: {out['phase_s']:.1f} s")
     return out

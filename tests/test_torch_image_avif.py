@@ -25,9 +25,10 @@ its planes equal dav1d's, and what PIL refuses the port refuses with
 - container edits by ``tools/avif_writers.py`` and seeded corruption, read
   as PIL reads them or refused where PIL fails (a ``NextFormat`` where
   PIL's open raises ``SyntaxError`` and goes on to the next format);
-- the forms outside the port (loop restoration of PIL's speeds 0-4, a
-  grid, a sequence, a frame whose size differs from its ``ispe``) refused
-  naming them;
+- PIL's speeds 0-4 (loop restoration), a grid and a sequence read as PIL
+  reads them (``tests/test_torch_image_avif_tools.py`` holds the tools
+  and containers of slice 23 in depth), and a frame whose size differs
+  from its ``ispe`` refused naming it;
 - an OBJ whose ``map_Kd`` is an AVIF renders at 16x16 on the CPU bit-equal
   to the PNG route, and the decoder runs without PIL.
 """
@@ -56,10 +57,8 @@ from tools.avif_writers import Avif
 from tools.make_torch_port_image_fixtures import ALBEDO_AVIF, AVIF_OUT, pattern
 
 # a refusal naming a tool or form outside the port's AVIF reader
-OUT_OF_SCOPE = ("loop restoration", "CDEF", "superres", "film grain", "segmentation",
-                "delta q", "quantizer matrices", "intra block copy", "bit depth",
-                "non-key", "hidden", "show_existing_frame", "grid", "sequence",
-                "AV1 frame of", "16-bit range")
+OUT_OF_SCOPE = ("superres", "segmentation", "delta q", "intra block copy", "bit depth",
+                "non-key", "hidden", "show_existing_frame", "AV1 frame of", "16-bit range")
 
 
 def _save(px, **kw):
@@ -114,6 +113,16 @@ def _obus(data):
 
 
 def _planes_equal_dav1d(data):
+    a = Avif.parse(data)
+    if any(t == b"grid" and i == a.primary for i, t, _, _ in a.infe):  # each tile's planes
+        for t, src, dst in a.iref:
+            if t == b"dimg" and src == a.primary:
+                for tile in dst:
+                    ref = oracle.dav1d_planes(a.items[tile])
+                    got, info = port_avif._decode_planes(a.items[tile], "tile")
+                    for p, (g, r) in enumerate(zip(got[:1] if info[3] else got, ref)):
+                        np.testing.assert_array_equal(g, r, err_msg=f"tile {tile} plane {p}")
+        return port_avif.avif_frame_info(data)
     ref = oracle.dav1d_planes(_obus(data))
     got, info = port_avif.avif_planes(data)
     got = got[:1] if info["mono"] else got
@@ -264,15 +273,32 @@ def test_fixture_reads_as_pil_jax_and_dav1d(name):
 def test_fixtures_use_the_tools_they_are_named_for():
     """Each tool of the decoder shows in some fixture: 64 and 128 superblocks,
     several tiles, TX_MODE_SELECT and lossless frames, palettes, filter
-    intra, CfL, intra transform types, tx_depth splits."""
-    seen, info_of = {}, {}
+    intra, CfL, intra transform types, tx_depth splits; and the fixtures of
+    slice 23 theirs: CDEF, quantizer matrices, film grain, Wiener,
+    self-guided and switchable restoration, a sequence with an alpha track
+    and a grid."""
+    seen, info_of, filt, parsed = {}, {}, {}, {}
     for name in sorted(_fixture_digests()):
-        st = {}
+        st, fl = {}, {}
         with open(os.path.join(AVIF_OUT, name), "rb") as f:
-            _, info = port_avif.avif_planes(f.read(), name, st)
-        info_of[name] = info
+            data = f.read()
+        _, info = port_avif.avif_planes(data, name, st, fl)
+        info_of[name], filt[name], parsed[name] = info, fl, port_avif.parse(data)
         for k, v in st.items():
             seen[k] = seen.get(k, 0) + v
+    tools = "albedo2048_q60_s4_tools.avif"
+    for name in ("avif_cdef_q30_96x72.avif", tools):
+        assert info_of[name]["cdef_strengths"] and filt[name]["cdef_blocks"], name
+    for name in ("avif_qm_q40_444_64x48.avif", tools):
+        assert info_of[name]["qm_levels"] != 0xFFF, name
+    for name in ("avif_grain_q30_128x96.avif", "avif_grain_test5_422_66x35.avif", tools):
+        assert info_of[name]["film_grain"] and filt[name]["grain_planes"] == 3, name
+    assert info_of["avif_lr_wiener_s1_444_96x72.avif"]["lr_types"] == 0b010101
+    assert info_of["avif_lr_sgrproj_s1_444_64x48.avif"]["lr_types"] == 0b101010
+    assert info_of[tools]["lr_types"] & 3 == 3 and filt[tools]["lr_stripes"]
+    c, item, alpha, _ = parsed["avis_3frames_rgba_24x17.avif"]
+    assert c.sequence and alpha is not None and len(c.track_samples(c.tracks[0])) == 3
+    assert parsed["avif_grid_3x2_180x100.avif"][1].grid[:4] == (2, 3, 180, 100)
     assert info_of[ALBEDO_AVIF]["sb128"] and info_of[ALBEDO_AVIF]["tile_cols"] == 4
     assert info_of["avif_tiles_2x2_q50_128x128.avif"]["tile_rows"] == 2
     assert info_of["avif_q0_txselect_64x48.avif"]["tx_mode"] == 2
@@ -548,32 +574,34 @@ def test_orientation_and_clean_aperture_leave_the_pixels():
 
 # ----------------------------------------------------------- refusals -----
 
-def test_speeds_0_to_4_are_refused_naming_loop_restoration():
-    """PIL's writer turns on loop restoration at speeds 0-4; the port
-    refuses those frames naming it (slice 23 ports it)."""
+def test_speeds_0_to_4_read_as_pil():
+    """PIL's writer turns on loop restoration at speeds 0-4 (Wiener,
+    self-guided or switchable units); the port reads those frames as PIL
+    and dav1d do."""
     px = pattern(64, 64, 63)
-    refused = 0
+    restored = 0
     for speed in range(5):
         data = _save(px, speed=speed, quality=60)
-        assert _pil(data)[0] == "ok"
-        out = _agree(data, allow_out_of_scope=True)
-        if out == "refused":
-            with pytest.raises(ValueError, match="loop restoration"):
-                port_image.decode_image(data)
-            refused += 1
-    assert refused >= 3
+        assert _agree(data) == "ok"
+        info = _planes_equal_dav1d(data)
+        restored += info["lr_types"] != 0
+    assert restored >= 3
 
 
-def test_a_grid_and_a_resized_frame_are_refused_naming_them():
-    """A primary item of type grid (PIL decodes a valid one; the port does
-    not read grids), and a frame whose size differs from its ispe (libavif
-    scales it to the ispe; the port does not)."""
+def test_a_resized_frame_is_refused_naming_it():
+    """A frame whose size differs from its ispe: libavif scales it to the
+    ispe; the port does not (slice 24)."""
     a = copy.deepcopy(_base()[0])
     a.props[_prop_index(a, b"ispe")] = (b"ispe", b"\0" * 4 + struct.pack(">II", 31, 20))
     data = a.build()
     assert _pil(data)[0] == "ok"
     with pytest.raises(ValueError, match="AV1 frame of 30 x 20 in an AVIF item of 31 x 20"):
         port_image.decode_image(data)
+
+
+def test_a_grid_reads_as_pil():
+    """A primary item of type grid: two 64x64 tiles of one PIL file, read
+    as PIL reads it."""
     t = Avif.parse(_save(pattern(64, 64, 5), quality=60))  # a grid of two 64x64 tiles
     g = copy.deepcopy(t)
     g.infe = [(1, b"grid", b"\0", 0), (2, b"av01", b"\0", 1), (3, b"av01", b"\0", 1)]
@@ -584,27 +612,28 @@ def test_a_grid_and_a_resized_frame_are_refused_naming_them():
     g.iref = [(b"dimg", 1, [2, 3])]
     data = g.build()
     assert _pil(data)[1].shape == (64, 128, 3)
-    with pytest.raises(ValueError, match="grid"):
-        port_image.decode_image(data)
+    assert _agree(data) == "ok"
+    y, _, _ = port_avif.avif_planes(data)[0]
+    np.testing.assert_array_equal(y[:, :64], y[:, 64:])  # one tile twice
 
 
-def test_an_image_sequence_is_refused_naming_it():
+def test_an_image_sequence_reads_frame_0_as_pil():
     """PIL's ``save_all`` writes an ``avis`` file with tracks, whose frame 0
-    PIL reads; the port refuses sequences naming them."""
+    PIL reads (libavif's tracks source); so does the port."""
     b = io.BytesIO()
     Image.fromarray(pattern(16, 24, 1)).save(b, "AVIF", save_all=True,
                                              append_images=[Image.fromarray(pattern(16, 24, 2))])
     data = b.getvalue()
     assert data[8:12] == b"avis" and _pil(data)[0] == "ok"
-    with pytest.raises(ValueError, match="image sequence"):
-        port_image.decode_image(data)
+    assert _agree(data) == "ok"
+    assert port_avif.parse(data)[0].sequence
 
 
 @pytest.mark.parametrize("seed", range(16))
 def test_seeded_corruption_reads_as_pil_or_is_refused(seed):
     """Bytes changed in PIL-written files (nine in ten in the mdat): each
     read equals PIL's, or both fail, or the port refuses a tool outside it
-    naming it (a corrupted header turning on CDEF, delta q, ...)."""
+    naming it (a corrupted header turning on superres, delta q, ...)."""
     r = np.random.default_rng(500 + seed)
     bases = [_save(pattern(int(r.integers(16, 80)), int(r.integers(16, 80)), 70 + k), **kw)
              for k, kw in enumerate([{"quality": 60}, {"quality": 90, "subsampling": "4:4:4"},

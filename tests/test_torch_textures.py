@@ -216,11 +216,11 @@ def test_unsupported_images_name_their_format(tmp_path):
     """What the decoders still refuse: hierarchical and 12-bit JPEG,
     PNG headers outside the specification, a BMP header PIL does not
     read, a 16-bit Lab TIFF (PIL has no mode for it), a DDS FourCC PIL does
-    not read (DXT2), a JP2 header PIL's plugin gives up on, and a format
-    the port has no decoder for, AVIF (read_image picks the decoder by
-    signature). DDS, arithmetic-coded JPEG, CCITT Group 4 TIFF and an 8-bit
-    Lab TIFF (which PIL converts with LittleCMS 2.17's Lab -> sRGB
-    transform), which PIL opens, read as the reference reads them."""
+    not read (DXT2) and a JP2 header PIL's plugin gives up on. DDS,
+    arithmetic-coded JPEG, CCITT Group 4 TIFF, an 8-bit Lab TIFF (which PIL
+    converts with LittleCMS 2.17's Lab -> sRGB transform) and AVIF (with
+    loop restoration at a slow writer speed), which PIL opens, read as the
+    reference reads them."""
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "a.jpg")
     data = (tmp_path / "a.jpg").read_bytes()
     sof = data.index(b"\xff\xc0")
@@ -269,14 +269,13 @@ def test_unsupported_images_name_their_format(tmp_path):
         Image.open(tmp_path / "x.jp2").convert("RGB")
     with pytest.raises(ValueError, match="unsupported image format.*PIL gives up on it"):
         port_image.read_image(str(tmp_path / "x.jp2"))
-    # AVIF: read at the writer's default speed; refused naming loop
-    # restoration where a slow speed turns it on
+    # AVIF: read at the writer's default speed, and at a slow speed that
+    # turns on loop restoration, as the reference reads them
     Image.fromarray(_pattern(8, 8, 5)).save(tmp_path / "x.avif", "AVIF")
     _same_read(str(tmp_path / "x.avif"))
     Image.fromarray(_pattern(64, 64, 5, "smooth")).save(tmp_path / "lr.avif", "AVIF", speed=2)
     assert np.asarray(Image.open(tmp_path / "lr.avif").convert("RGB")).shape == (64, 64, 3)
-    with pytest.raises(ValueError, match="loop restoration"):
-        port_image.read_image(str(tmp_path / "lr.avif"))
+    _same_read(str(tmp_path / "lr.avif"))
 
 
 # ------------------------------- _bilinear -------------------------------------

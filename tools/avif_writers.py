@@ -210,3 +210,161 @@ class Avif:
         start = len(head) + len(self._meta(0)) + 8
         data = head + self._meta(start) + box(b"mdat", payload)
         return data if cut is None else data[:cut]
+
+
+# --------------------------------------------------------------------------
+# image sequences (PIL's ``save_all`` layout: ftyp, meta, moov, mdat)
+
+CONTAINERS = (b"moov", b"trak", b"mdia", b"minf", b"stbl", b"dinf", b"edts", b"tref")
+
+
+def tree(data, start, end):
+    """The boxes of data[start:end] as [type, body] lists, the bodies of
+    ``CONTAINERS`` as lists of their boxes."""
+    out = []
+    for t, s, e in boxes(data, start, end):
+        out.append([t, tree(data, s, e) if t in CONTAINERS else bytes(data[s:e])])
+    return out
+
+
+def flatten(nodes):
+    return b"".join(box(t, flatten(v) if isinstance(v, list) else v) for t, v in nodes)
+
+
+def find(nodes, *path, index=0):
+    """The ``index``-th node of type path[0] in ``nodes``, then down the
+    path (the first of each later type)."""
+    hits = [n for n in nodes if n[0] == path[0]]
+    node = hits[index]
+    return node if len(path) == 1 else find(node[1], *path[1:])
+
+
+def _shift_iloc(meta, delta):
+    """meta's body with every iloc extent offset (construction method 0)
+    moved by ``delta``."""
+    meta = bytearray(meta)
+    for t, s, e in boxes(meta, 4, len(meta)):
+        if t != b"iloc":
+            continue
+        v = meta[s]
+        p = s + 4
+        osz, lsz, bsz = meta[p] >> 4, meta[p] & 15, meta[p + 1] >> 4
+        isz = meta[p + 1] & 15 if v in (1, 2) else 0
+        p += 2
+        n = int.from_bytes(meta[p:p + (2 if v < 2 else 4)], "big")
+        p += 2 if v < 2 else 4
+        for _ in range(n):
+            p += 2 if v < 2 else 4
+            method = int.from_bytes(meta[p:p + 2], "big") & 15 if v in (1, 2) else 0
+            p += 2 if v in (1, 2) else 0
+            p += 2 + bsz
+            count = int.from_bytes(meta[p:p + 2], "big")
+            p += 2
+            for _ in range(count):
+                p += isz
+                if method == 0 and osz:
+                    off = int.from_bytes(meta[p:p + osz], "big") + delta
+                    meta[p:p + osz] = off.to_bytes(osz, "big")
+                p += osz + lsz
+    return bytes(meta)
+
+
+class Sequence:
+    """An ``avis`` file as its top-level boxes, ``moov`` as a tree to edit;
+    ``build`` writes it back with the ``stco`` / ``co64`` entries and the
+    ``iloc`` offsets moved with the ``mdat``."""
+
+    def __init__(self, data):
+        self.top = []
+        for t, s, e in boxes(data, 0, len(data)):
+            self.top.append([t, tree(data, s, e) if t == b"moov" else bytes(data[s:e])])
+        self.old_mdat = self._mdat_start()
+
+    def _mdat_start(self):
+        pos = 0
+        for t, v in self.top:
+            size = 8 + len(flatten(v) if isinstance(v, list) else v)
+            if t == b"mdat":
+                return pos + 8
+            pos += size
+        return pos
+
+    def moov(self):
+        return find(self.top, b"moov")[1]
+
+    def build(self):
+        delta = self._mdat_start() - self.old_mdat
+        for t, v in self.top:
+            if t == b"moov":
+                for trak in [n for n in v if n[0] == b"trak"]:
+                    try:
+                        stbl = find(trak[1], b"mdia", b"minf", b"stbl")[1]
+                    except IndexError:
+                        continue
+                    for node in stbl:
+                        if node[0] in (b"stco", b"co64"):
+                            k = 4 if node[0] == b"stco" else 8
+                            body = bytearray(node[1])
+                            n = struct.unpack_from(">I", body, 4)[0]
+                            for i in range(n):
+                                p = 8 + i * k
+                                if p + k <= len(body):
+                                    off = int.from_bytes(body[p:p + k], "big") + delta
+                                    body[p:p + k] = (off % (1 << (8 * k))).to_bytes(k, "big")
+                            node[1] = bytes(body)
+        out = []
+        for t, v in self.top:
+            if t == b"meta" and delta:
+                v = _shift_iloc(v, delta)
+            out.append(box(t, flatten(v) if isinstance(v, list) else v))
+        self.old_mdat = self._mdat_start()
+        return b"".join(out)
+
+
+def grid(tiles, rows, cols, width, height, ispe=None, version=0, flags=None, extra=b"",
+         order=None):
+    """A ``grid`` image (item 1, primary) of ``tiles``: files of PIL's writer,
+    rows x cols of them in raster order, each's colour item (and its alpha
+    item, which make a second grid, item 100, auxiliary to the first) with
+    its properties. ``width`` x ``height`` is the output size; ``ispe`` the
+    grid's ispe (the output size by default); ``version``, ``flags`` (bit 0:
+    32-bit sizes) and ``extra`` bytes edit the ImageGrid box; ``order``
+    lists the tiles' places in the dimg reference (all of them in order by
+    default)."""
+    parts = [Avif.parse(t) for t in tiles]
+    t0 = parts[0]
+    g = Avif()
+    g.ftyp, g.hdlr = t0.ftyp, t0.hdlr
+    big = flags if flags is not None else int(width > 65535 or height > 65535)
+    body = bytes([version, big, rows - 1, cols - 1])
+    body += struct.pack(">II" if big & 1 else ">HH", width, height) + extra
+    g.items = {1: body}
+    g.infe = [(1, b"grid", b"\0", 0)]
+    g.props, g.assoc = [], {}
+
+    def copy_item(a, src, dst):
+        g.items[dst] = a.items[src]
+        g.infe.append((dst, b"av01", b"\0", 1))
+        g.assoc[dst] = []
+        for idx, ess in a.assoc[src]:
+            g.props.append(a.props[idx - 1])
+            g.assoc[dst].append((len(g.props), ess))
+
+    for k, a in enumerate(parts):
+        copy_item(a, a.primary, 2 + k)
+    g.props.append((b"ispe", b"\0" * 4 + struct.pack(">II", *(ispe or (width, height)))))
+    g.assoc[1] = [(len(g.props), False)]
+    n = len(parts)
+    g.iref = [(b"dimg", 1, [2 + k for k in (range(n) if order is None else order)])]
+    alphas = [next((s for t, s, d in a.iref if t == b"auxl" and d == [a.primary]), None)
+              for a in parts]
+    if all(alphas):
+        for k, a in enumerate(parts):
+            copy_item(a, alphas[k], 101 + k)
+        g.items[100] = body
+        g.infe.append((100, b"grid", b"\0", 1))
+        aux = [(i, e) for i, e in g.assoc[101] if g.props[i - 1][0] == b"auxC"]
+        g.assoc[100] = [g.assoc[1][0]] + aux
+        g.iref += [(b"dimg", 100, [101 + k for k in (range(n) if order is None else order)]),
+                   (b"auxl", 100, [1])]
+    return g.build()

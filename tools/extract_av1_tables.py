@@ -12,7 +12,19 @@ copies of the default tables).
   (dav1d's ``dav1d_sm_weights``), ``Dr_Intra_Derivative`` and
   ``Mode_To_Angle`` (aom's), the filter-intra taps (aom's) and the
   coefficient-context offsets of the three block shapes (dav1d's
-  ``dav1d_lo_ctx_offsets``).
+  ``dav1d_lo_ctx_offsets``);
+- the loop-restoration tables: the ``restoration_type`` / ``use_wiener`` /
+  ``use_sgrproj`` CDFs (dav1d's ``CdfModeContext``), the self-guided
+  parameter sets (dav1d's ``dav1d_sgr_params``, checked against aom's
+  ``av1_sgr_params`` with their radii) and dav1d's ``dav1d_sgr_x_by_x``
+  (checked against aom's ``av1_x_by_xplus1``: 256 - x but at the ends);
+- the quantizer matrices of levels 0-14, luma and chroma, every transform
+  size up to 32 in the specification's order (aom's ``iwt_matrix_ref``, the
+  specification's ``Quantizer_Matrix``; its squares checked against dav1d's
+  triangular 32x32 tables, expanded and subsampled as dav1d's
+  ``dav1d_init_qm_tables`` does);
+- the film-grain Gaussian sequence (dav1d's ``dav1d_gaussian_sequence``,
+  2,048 values; the library holds no second copy).
 
 Each table is found by anchors: a group of dav1d's tables by the first row
 of one of them (the others lie at fixed places in the same structure, and
@@ -87,6 +99,9 @@ MODE_CDFS = {
     "skip": ((3,), 2, 2, 0x125C, 2),
     "palette_y_mode": ((7, 3), 2, 2, 0x1268, 2),
     "palette_uv_mode": ((2,), 2, 2, 0x12BC, 2),
+    "restoration_type": ((), 3, 4, 0x1190, 4),        # switchable: none, Wiener, self-guided
+    "use_wiener": ((), 2, 2, 0x1198, 2),
+    "use_sgrproj": ((), 2, 2, 0x119C, 2),
 }
 # CdfCoefContext tables: name -> (shape within one qindex context, symbols,
 # stride, byte offset in the structure, dav1d's stride, dav1d's shape)
@@ -280,8 +295,77 @@ def tables(blob=None):
     out["lo_ctx_offsets"] = (np.frombuffer(blob[lo:lo + 75], "u1").reshape(3, 5, 5).copy(),
                              "uint8_t", f"dav1d dav1d_lo_ctx_offsets at 0x{lo:x} (w == h, "
                              "w > h, w < h)")
+    _restoration_and_grain(blob, out)
     _check_aom(blob, out)
     return out
+
+
+QM_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32),
+            (32, 16), (4, 16), (16, 4), (8, 32), (32, 8))  # (w, h), the specification's order
+QM_TOTAL = sum(w * h for w, h in QM_SIZES)
+
+
+def _untriangle(src, n=32):
+    """dav1d's untriangle: row y's first y + 1 values, then the rest of the
+    row down the columns of the lower triangle."""
+    m = np.zeros((n, n), np.uint8)
+    s = 0
+    for y in range(n):
+        m[y, :y + 1] = src[s:s + y + 1]
+        p = s + y
+        for x in range(y + 1, n):
+            p += x
+            m[y, x] = src[p]
+        s += y + 1
+    return m
+
+
+def _restoration_and_grain(blob, out):
+    sgr = _find_one(blob, (140, 3236, 112, 2158), "<H", "dav1d's sgr_params")
+    sp = np.frombuffer(blob[sgr:sgr + 64], "<u2").reshape(16, 2)
+    aom = _find_one(blob, (2, 1, 140, 3236), "<i", "aom's av1_sgr_params")
+    ap = np.frombuffer(blob[aom:aom + 256], "<i4").reshape(16, 4)
+    if not ((np.where(ap[:, 2:] < 0, 0, ap[:, 2:]) == sp).all()
+            and (ap[:, 0] == np.where(sp[:, 0] > 0, 2, 0)).all()
+            and (ap[:, 1] == np.where(sp[:, 1] > 0, 1, 0)).all()):
+        raise RuntimeError("dav1d's sgr_params differ from aom's av1_sgr_params")
+    # the specification's Sgr_Params rows: r0, s0, r1, s1
+    rows = np.stack([ap[:, 0], sp[:, 0], ap[:, 1], sp[:, 1]], 1).astype(np.int32)
+    out["sgr_params"] = (rows, "int32_t", f"dav1d dav1d_sgr_params at 0x{sgr:x} with aom "
+                         f"av1_sgr_params' radii at 0x{aom:x} (r0, s0, r1, s1)")
+    xb = _find_one(blob, (255, 128, 85, 64, 51, 43, 37, 32), "B", "dav1d's sgr_x_by_x")
+    x = np.frombuffer(blob[xb:xb + 256], "u1").copy()
+    ax = _find_one(blob, (1, 128, 171, 192, 205, 213, 219, 224), "<i", "aom's av1_x_by_xplus1")
+    a = np.frombuffer(blob[ax:ax + 1024], "<i4")
+    if not (256 - a == x).all():
+        raise RuntimeError("dav1d's sgr_x_by_x is not 256 - aom's av1_x_by_xplus1")
+    out["sgr_x_by_x"] = (x, "uint8_t", f"dav1d dav1d_sgr_x_by_x at 0x{xb:x} (aom 0x{ax:x})")
+    qm = _find_one(blob, (32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150, 200),
+                   "B", "aom's iwt_matrix_ref")
+    q = np.frombuffer(blob[qm:qm + 15 * 2 * QM_TOTAL], "u1").reshape(15, 2, QM_TOTAL).copy()
+    tri = _find(blob, (32, 31, 32, 31, 32, 32), "B")
+    tri = [t for t in tri if (np.frombuffer(blob[t:t + 15 * 1056], "u1") > 0).all()][:1]
+    if not tri:
+        raise RuntimeError("dav1d's triangular 32x32 quantizer matrices not found")
+    t = np.frombuffer(blob[tri[0]:tri[0] + 15 * 1056], "u1").reshape(15, 2, 528)
+    off = 0
+    for w, h in QM_SIZES:
+        if w == h:
+            step = 32 // w
+            for lv in range(15):
+                for pl in range(2):
+                    full = _untriangle(t[lv, pl])
+                    sub = full[(step - 1) // 2::step, (step - 1) // 2::step]
+                    if not (sub == q[lv, pl, off:off + w * h].reshape(h, w)).all():
+                        raise RuntimeError(f"the {w}x{w} quantizer matrix of level {lv}, "
+                                           f"plane {pl}: aom's differs from dav1d's")
+        off += w * h
+    out["qm"] = (q, "uint8_t", f"aom iwt_matrix_ref at 0x{qm:x} (levels 0-14, luma / chroma; "
+                 f"the squares checked against dav1d's qm_tbl_32x32_t at 0x{tri[0]:x})")
+    g = _find_one(blob, (56, 568, -180, 172, 124, -84, 172, -64), "<h",
+                  "dav1d's gaussian_sequence")
+    out["gaussian_sequence"] = (np.frombuffer(blob[g:g + 4096], "<i2").copy(), "int16_t",
+                                f"dav1d dav1d_gaussian_sequence at 0x{g:x}")
 
 
 def _check_aom(blob, out):
@@ -319,8 +403,9 @@ def render(tabs):
     for name, (arr, ctype, note) in tabs.items():
         dims = "".join(f"[{d}]" for d in arr.shape)
         out.append(f"\n// {note}\nstatic const {ctype} av1_{name}{dims} = {{\n")
-        flat = (arr.reshape(-1, arr.shape[-1]) if arr.ndim > 1
-                else [arr[i:i + 16] for i in range(0, arr.size, 16)])
+        flat = (arr.reshape(-1, arr.shape[-1]) if 1 < arr.ndim and arr.shape[-1] <= 32
+                else [row[i:i + 16] for row in arr.reshape(-1, arr.shape[-1])
+                      for i in range(0, row.size, 16)])
         for row in flat:
             out.append("    " + " ".join(f"{int(v)}," for v in row) + "\n")
         out.append("};\n")

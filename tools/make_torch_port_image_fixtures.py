@@ -131,6 +131,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_images")
 AVIF_OUT = os.path.join(ROOT, "tests", "data", "torch_port_avif")
 ALBEDO_AVIF = "albedo2048_q60.avif"
+ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
 ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
 ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
@@ -1595,6 +1596,49 @@ def avif_fixtures():
     out["avif_nclx_fcc_26x18.avif"] = _edited_colr(base, 4, True)
     out["avif_nclx_identity_26x18.avif"] = _edited_colr(base, 0, True)
     out[ALBEDO_AVIF] = _avif(envtex_texture(2048, 0), quality=60, speed=6)
+    out.update(avif_tool_fixtures())
+    return out
+
+
+def avif_tool_fixtures():
+    """The AVIF fixtures of the AV1 tools PIL's writer turns on at speeds 0-4
+    or through its ``advanced`` options (CDEF, quantizer matrices, film
+    grain, loop restoration), a three-frame ``avis`` sequence with alpha,
+    a 3 x 2 ``grid`` cropped to its output size, and ``ALBEDO_AVIF_TOOLS``
+    (the 2048^2 albedo with CDEF, quantizer matrices, film grain and, at
+    speed 4, switchable loop restoration)."""
+    from PIL import Image
+
+    from akari_torch.scene.builtin import envtex_texture
+    from tools.avif_writers import grid
+
+    tex = envtex_texture(256, 0)
+    rgba = [np.concatenate([pattern(17, 24, i), pattern(17, 24, 9 + i)[..., :1]], axis=-1)
+            for i in range(3)]
+    b = io.BytesIO()
+    Image.fromarray(rgba[0]).save(b, "AVIF", save_all=True, quality=70,
+                                  append_images=[Image.fromarray(x) for x in rgba[1:]])
+    out = {
+        "avif_cdef_q30_96x72.avif": _avif(tex[:72, :96].copy(), quality=30,
+                                          advanced={"enable-cdef": "1"}),
+        "avif_qm_q40_444_64x48.avif": _avif(tex[:48, :64].copy(), quality=40,
+                                            subsampling="4:4:4", advanced={"enable-qm": "1"}),
+        "avif_grain_q30_128x96.avif": _avif(tex[:96, :128].copy(), quality=30,
+                                            advanced={"denoise-noise-level": "10"}),
+        "avif_grain_test5_422_66x35.avif": _avif(tex[:35, :66].copy(), quality=50,
+                                                 subsampling="4:2:2",
+                                                 advanced={"film-grain-test": "5"}),
+        "avif_lr_wiener_s1_444_96x72.avif": _avif(pattern(72, 96, 7), quality=30, speed=1,
+                                                  subsampling="4:4:4"),
+        "avif_lr_sgrproj_s1_444_64x48.avif": _avif(tex[:48, :64].copy(), quality=70, speed=1,
+                                                   subsampling="4:4:4"),
+        "avis_3frames_rgba_24x17.avif": b.getvalue(),
+        "avif_grid_3x2_180x100.avif": grid([_avif(pattern(64, 64, 60 + k), quality=50)
+                                            for k in range(6)], 2, 3, 180, 100),
+        ALBEDO_AVIF_TOOLS: _avif(envtex_texture(2048, 0), quality=60, speed=4,
+                                 advanced={"enable-cdef": "1", "enable-qm": "1",
+                                           "denoise-noise-level": "10"}),
+    }
     return out
 
 
