@@ -41,23 +41,26 @@ does; where PIL's open or load fails otherwise, ``ValueError``:
   sample laid out as libavif lays it out, sample 0 of the colour track
   and of its alpha track decoded;
 - the AV1 OBUs, decoded by ``native/av1_decode.cpp`` (bit for bit dav1d
-  1.5.1's planes, film grain applied), and the alpha's, which decides
-  PIL's mode (``RGBA``) and, for a premultiplied image (``prem``), is
-  divided out of the colour as libavif does (``unpremultiply``);
+  1.5.1's planes, film grain applied; segmentation, delta q / lf and intra
+  block copy among the tools), and the alpha's, which decides PIL's mode
+  (``RGBA``) and, for a premultiplied image (``prem``), is divided out of
+  the colour as libavif does (``unpremultiply``);
+- a frame, alpha plane or track whose size differs from its ``ispe`` or
+  ``tkhd``, scaled to it as libavif's avifImageScale does (libyuv's
+  ScalePlane with the box filter, ``scale_plane``; a source side over
+  16384 refused, an alpha plane then not the colour's size failing the
+  decode);
 - YUV -> RGB as ``avifImageYUVToRGB`` runs it (``yuv_to_rgb``): libyuv's
   fixed point for BT.601 / BT.470BG / unspecified, BT.709 and BT.2020 NCL
   with its bilinear chroma upsampling, libavif's float route for FCC,
-  SMPTE 240M, IPT-C2, YCgCo (full range) and identity (4:4:4), either
-  range; the nclx of the ``colr`` property, else the sequence header's.
+  SMPTE 240M, IPT-C2, the chromaticity-derived matrix 12 (kr, kb from the
+  primaries), YCgCo (full range) and identity (4:4:4), either range; the
+  nclx of the ``colr`` property, else the sequence header's.
 
-Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 24):
-AV1 tools outside the decoder (superres, segmentation, delta q / lf,
-intra block copy), bit depths above 8, non-key or hidden frames, a frame
-or alpha plane whose size differs from its ``ispe`` or track header
-(libavif scales it), the chromaticity-derived nclx matrix, and AV1
-streams whose transforms leave the 16-bit range the specification
-requires (dav1d's x86 assembly, which PIL runs, saturates its lanes
-there).
+Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 25):
+bit depths above 8, superres, non-key or hidden frames, and AV1 streams
+whose transforms leave the 16-bit range the specification requires
+(dav1d's x86 assembly, which PIL runs, saturates its lanes there).
 """
 
 from __future__ import annotations
@@ -87,6 +90,37 @@ _LIBYUV = {
 }
 # libavif's kr, kb for the matrices it converts itself (IPT-C2 falls back to BT.601's)
 _FLOAT_KRKB = {4: (0.30, 0.11), 7: (0.212, 0.087), 15: (0.299, 0.114)}
+# libavif's colour primaries (colr.c: rx, ry, gx, gy, bx, by, wx, wy, as
+# float32), by the nclx value; BT.709's for any other
+_PRIMARIES = {1: (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.329),
+              4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+              5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.329),
+              6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.329),
+              7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.329),
+              8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+              9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.329),
+              10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+              11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+              12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.329),
+              22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.329)}
+
+
+def chroma_derived_krkb(cp):
+    """kr, kb of the chromaticity-derived non-constant-luminance matrix (nclx
+    matrix 12) from the colour primaries, in float32 in the order libavif's
+    avifCalcYUVCoefficients computes them (H.273 equations 32-37)."""
+    rx, ry, gx, gy, bx, by, wx, wy = (np.float32(v) for v in _PRIMARIES.get(cp, _PRIMARIES[1]))
+    one = np.float32(1)
+    rz, gz, bz, wz = one - (rx + ry), one - (gx + gy), one - (bx + by), one - (wx + wy)
+    with np.errstate(all="ignore"):
+        den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz) + bx * (ry * gz - gy * rz))
+        kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                    + wz * (gx * by - bx * gy))) / den
+        kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                    + wz * (rx * gy - gx * ry))) / den
+    return kr, kb
+
+
 # the matrices libavif converts on a monochrome image (YCgCo at full range only)
 _MONO_MATRICES = (0, 1, 2, 4, 5, 6, 7, 8, 9, 12, 15)
 _MATRIX_NAMES = {0: "identity (GBR)", 3: "reserved", 4: "FCC", 7: "SMPTE 240M",
@@ -100,9 +134,11 @@ _MATRIX_NAMES = {0: "identity (GBR)", 3: "reserved", 4: "FCC", 7: "SMPTE 240M",
 INFO_NAMES = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "full_range", "primaries",
               "transfer", "matrix", "chroma_position", "profile", "sb128", "tx_mode",
               "screen_content", "tile_cols", "tile_rows", "lossless", "lf_levels", "base_q_idx",
-              "qm_levels", "cdef_strengths", "lr_types", "film_grain")
+              "qm_levels", "cdef_strengths", "lr_types", "film_grain", "segmentation", "delta_q",
+              "delta_lf", "intrabc")
 STAT_NAMES = ("blocks", "palette_y", "palette_uv", "filter_intra", "cfl", "tx_split",
-              "tx_type_not_dct", "angle_delta")
+              "tx_type_not_dct", "angle_delta", "segmented_blocks", "delta_q_superblocks",
+              "intrabc_blocks")
 # and the filters the frame ran: 8x8 blocks CDEF changed, stripes of
 # restoration units filtered, planes given film grain
 FILTER_NAMES = ("cdef_blocks", "lr_stripes", "grain_planes")
@@ -663,7 +699,9 @@ class Container:
                         _need(p, 1, be, "ipma")
                         essential, idx = b[p] >> 7, b[p] & 0x7F
                         p += 1
-                    if idx == 0:
+                    if idx == 0:  # no property; libavif's parse fails on an essential one
+                        if essential:
+                            raise _Bad(f"item {iid} with an essential property index 0")
                         continue
                     if idx > len(props):
                         raise _Bad(f"ipma property index {idx} of {len(props)}")
@@ -1007,20 +1045,31 @@ def _native():
     return load("av1")
 
 
+def scale_plane(p, width, height):
+    """libyuv's ScalePlane with the box filter, as libavif's avifImageScale
+    runs it (``akr_scale_plane``): an [H, W] uint8 plane to [height, width]."""
+    p = np.ascontiguousarray(p, np.uint8)
+    out = np.zeros((height, width), np.uint8)
+    _native().akr_scale_plane(p.ctypes.data, p.shape[1], p.shape[0], out.ctypes.data, width, height)
+    return out
+
+
 def _decode_planes(obus, what, stats=None, size=None, filters=None):
     """Decode the OBUs: (Y, U, V) and the header values; ``size`` (the
-    item's ``ispe``), when given, must be the frame's, which is checked
-    before the planes are allocated (libavif scales a frame of another
-    size; the port refuses it)."""
+    item's ``ispe`` or the track's ``tkhd`` size), when given and not the
+    frame's, is the size libavif scales the planes to (avifImageScale: a
+    frame more than 16384 wide or high it refuses, which is checked before
+    the planes are allocated)."""
     lib = _native()
     info = (ctypes.c_int32 * len(INFO_NAMES))()
     err = ctypes.create_string_buffer(256)
     if lib.akr_av1_probe(obus, len(obus), info, err, 256):
         raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
     w, h, depth, mono, ssx, ssy = info[:6]
-    if size is not None and (w, h) != tuple(size):
-        raise ValueError(f"{what}: an AV1 frame of {w} x {h} in an AVIF item of "
-                         f"{size[0]} x {size[1]}")
+    scale = size is not None and (w, h) != tuple(size)
+    if scale and (w > 16384 or h > 16384):
+        raise ValueError(f"{what}: libavif does not scale an AV1 frame of {w} x {h} to its item's "
+                         f"{size[0]} x {size[1]} (a side over 16384)")
     y = np.zeros((h, w), np.uint8)
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     u = np.zeros((ch, cw), np.uint8)
@@ -1033,7 +1082,15 @@ def _decode_planes(obus, what, stats=None, size=None, filters=None):
         stats.update(zip(STAT_NAMES, st.tolist()))
     if filters is not None:
         filters.update(zip(FILTER_NAMES, st[len(STAT_NAMES):].tolist()))
-    return (y, u, v), list(info)
+    info = list(info)
+    if scale:
+        sw, sh = size
+        cw, ch = (sw + ssx) >> ssx, (sh + ssy) >> ssy
+        y = scale_plane(y, sw, sh)
+        u, v = ((np.zeros((ch, cw), np.uint8),) * 2 if mono else
+                (scale_plane(u, cw, ch), scale_plane(v, cw, ch)))
+        info[:2] = sw, sh
+    return (y, u, v), info
 
 
 def _parse_or_raise(data, what):
@@ -1146,17 +1203,21 @@ def yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what="image"):
     avifImageYUVToRGB gives them to PIL (RGB, or RGBA when the image has
     alpha): libyuv's fixed point for the matrices it has (BT.601 /
     BT.470BG / unspecified, BT.709, BT.2020 NCL; ``native/av1_decode.cpp``),
-    libavif's float route for FCC, SMPTE 240M, IPT-C2 (BT.601's kr, kb),
-    YCgCo (full range) and identity (4:4:4); a monochrome image's grey
-    through libyuv's grey rows or that float route (which agree but for
-    libyuv's BT.601 / BT.709 constants in an RGBA limited-range image).
-    Other matrices raise ``ValueError`` (PIL's conversion fails on them, but
-    for the chromaticity-derived one, which the port does not read)."""
+    libavif's float route for FCC, SMPTE 240M, IPT-C2 (BT.601's kr, kb), the
+    chromaticity-derived non-constant-luminance matrix (kr, kb from the
+    primaries ``cp``: ``chroma_derived_krkb``; libyuv's constants of BT.709,
+    BT.601 and BT.2020 where the primaries are theirs), YCgCo (full range) and
+    identity (4:4:4); a monochrome image's grey through libyuv's grey rows
+    or that float route (which agree but for libyuv's BT.601 / BT.709
+    constants in an RGBA limited-range image). Other matrices raise
+    ``ValueError``, as PIL's conversion fails on them."""
     y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     h, w = y.shape
     name = f"{mc} ({_MATRIX_NAMES.get(mc, 'reserved')})"
-    if mc == 12 and (not mono or (has_alpha and not full)):
-        raise ValueError(f"{what}: the AVIF nclx matrix {name}, which the port does not convert")
+    if mc == 12 and cp in (1, 2, 5, 6, 9):
+        # libavif's libyuv route takes these primaries' own matrices (BT.709's
+        # for unspecified primaries)
+        mc = 1 if cp == 2 else cp
     if mono:
         if mc not in _MONO_MATRICES or (mc == 8 and not full):
             raise ValueError(f"{what}: the AVIF nclx matrix {name} on a monochrome image")
@@ -1167,6 +1228,8 @@ def yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what="image"):
         k = _LIBYUV[mc][1 if full else 0]
     elif mc in _FLOAT_KRKB:
         return _float_route(y, u, v, ssx, ssy, "yuv", full, *_FLOAT_KRKB[mc])
+    elif mc == 12:
+        return _float_route(y, u, v, ssx, ssy, "yuv", full, *chroma_derived_krkb(cp))
     elif mc == 8 and full:
         return _float_route(y, u, v, ssx, ssy, "ycgco", full, 0, 0)
     elif mc == 0 and not ssx and not ssy:
@@ -1207,10 +1270,13 @@ def decode_avif(data, what="image"):
         _, cp, tc, mc, full = nclx
     rgb = yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, alpha is not None, what)
     if alpha is not None:
-        (a, _, _), ainfo = _image_planes(c, alpha, what, size=(w, h))
+        # scaled to its own ispe (the colour's where it has none), as libavif
+        # does; then its size must be the colour's
+        (a, _, _), ainfo = _image_planes(c, alpha, what, size=alpha.prop(b"ispe") or (w, h))
         if a.shape != y.shape:
-            raise ValueError(f"{what}: an AVIF alpha plane of {a.shape[1]} x {a.shape[0]} in "
-                             f"an image of {y.shape[1]} x {y.shape[0]}")
+            raise ValueError(f"{what}: Decoding of alpha plane failed (an AVIF alpha plane of "
+                             f"{a.shape[1]} x {a.shape[0]} in an image of {y.shape[1]} x "
+                             f"{y.shape[0]})")
         if item.premultiplied_by == alpha.id:
             if not ainfo[6]:  # libavif's avifLimitedToFullY
                 a = np.clip(((a.astype(np.int64) - 16) * 255 / 219).astype(np.int64), 0, 255)

@@ -19,6 +19,17 @@
 //   y modes with their above / left contexts, uv modes with CfL, angle
 //   deltas, filter intra, palettes with their colour cache and colour
 //   index maps, tx_size depth under TX_MODE_SELECT), the skip flag;
+// - segmentation (the features of each segment, segment ids predicted from
+//   the above, left and above-left blocks and read before or after skip,
+//   the skip feature, each segment's q index, lossless and quantizer-matrix
+//   level), delta q and delta lf (read at a superblock's first block;
+//   CurrentQIndex and DeltaLF start each tile afresh, as in dav1d);
+// - intra block copy: the block vector's reference stack (find_mv_stack
+//   for INTRA_FRAME), its coded difference (integer), dav1d's clip to the
+//   decoded part of the tile, the txfm_split transform tree, the inter
+//   transform sets (16, 12 and 2 types, flipped ADSTs; chroma takes the
+//   co-located luma type), the prediction copied from the frame as decoded
+//   so far (bilinear at odd chroma positions, dav1d's put_bilin);
 // - coefficients (all_zero, eob, base levels, ranges, Golomb tails, signs,
 //   with every context), dequantisation, and the inverse DCT (4-64), ADST
 //   (4, 8, 16), identity and, for lossless frames, Walsh-Hadamard
@@ -28,8 +39,10 @@
 //   upsampling), smooth, smooth-V / H, Paeth, recursive filter intra, CfL
 //   and palette;
 // - quantizer matrices (levels 0-14 of 2-D transforms; av1_tables.h);
-// - the deblocking filter (4, 6, 8 and 14 taps; levels per plane and
-//   direction with the reference-delta term; sharpness);
+// - the deblocking filter (4, 6, 8 and 14 taps; levels per block, plane
+//   and direction with the block's delta lf, its segment's ALT_LF feature
+//   and the reference-delta term, the level before the edge where the
+//   block's is 0; sharpness);
 // - CDEF (the cdef_idx of each 64x64 block read in the tile, direction
 //   search, primary and secondary taps, the chroma direction map, skipped
 //   8x8 blocks, the frame edge);
@@ -42,8 +55,8 @@
 //   offsets with overlap, chroma from luma) applied to the output only.
 //
 // Anything else a header turns on is refused with a message naming it:
-// bit depths above 8, non-key or hidden frames, intra block copy, superres,
-// segmentation and delta q / delta lf.
+// bit depths above 8, non-key or hidden frames and superres; so is a stream
+// whose transforms leave the 16-bit range (see g_itx_overflow).
 //
 // C ABI (ctypes):
 //   int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info,
@@ -53,21 +66,24 @@
 //                      int32_t errlen);
 //   int akr_av1_sequence_header(const uint8_t* data, int64_t size, char* err,
 //                               int32_t errlen);
-//   void akr_yuv_to_rgb(...)  (see the end of the file)
-// data: the item's OBUs. info receives 24 values: width, height, bit depth,
+//   void akr_yuv_to_rgb(...), akr_scale_plane(...)  (see the end of the file)
+// data: the item's OBUs. info receives 28 values: width, height, bit depth,
 // mono, subsampling x, subsampling y, colour range, colour primaries,
 // transfer, matrix, chroma sample position, profile, 128x128 superblocks,
 // tx mode (0 only 4x4, 1 largest, 2 select), screen content tools, tile
-// columns, tile rows, lossless, the four loop filter levels (a byte each),
+// columns, tile rows, lossless (every segment's), the four loop filter
+// levels (a byte each),
 // base_q_idx, the quantizer-matrix levels (y, u, v, four bits each; 15:
 // none), the number of nonzero CDEF strengths, the restoration type per
-// plane (two bits each: none, Wiener, self-guided, switchable) and
-// apply_grain. The planes are written at the frame's size, chroma at
-// ((width + ssx) >> ssx) x ((height + ssy) >> ssy); stats (may be null)
-// receives 11 counts: blocks, luma palettes, chroma palettes, filter intra,
-// CfL, tx_depth > 0, luma transforms other than DCT_DCT, angle deltas, 8x8
-// blocks CDEF filtered, stripes of restoration units filtered, planes given
-// grain.
+// plane (two bits each: none, Wiener, self-guided, switchable),
+// apply_grain, segmentation, delta q, delta lf and allow_intrabc. The
+// planes are written at the frame's size, chroma at ((width + ssx) >> ssx)
+// x ((height + ssy) >> ssy); stats (may be null) receives 14 counts:
+// blocks, luma palettes, chroma palettes, filter intra, CfL, tx_depth > 0
+// (or transform splits), luma transforms other than DCT_DCT, angle deltas,
+// blocks of a nonzero segment, superblocks with a nonzero delta q, intra
+// block copies, 8x8 blocks CDEF filtered, stripes of restoration units
+// filtered, planes given grain.
 // Returns 0, or -1 with a message in err.
 //
 // Build: akari_torch/native/loader.py (g++ -O3 -shared -fPIC -std=c++17).
@@ -186,12 +202,16 @@ int tx_class(int t) {
     if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return TX_CLASS_HORIZ;
     return TX_CLASS_2D;
 }
-// 1-D kinds: 0 DCT, 1 ADST, 2 identity (vertical, horizontal)
-void tx_kinds(int t, int* vk, int* hk) {
+// 1-D kinds: 0 DCT, 1 ADST (or a flipped ADST), 2 identity (vertical,
+// horizontal); whether the columns' output is flipped upside down
+// (FLIPADST vertically), the rows' left to right (FLIPADST horizontally)
+void tx_kinds(int t, int* vk, int* hk, int* flip_ud, int* flip_lr) {
     static const int v[16] = {0, 1, 0, 1, 1, 0, 1, 1, 1, 2, 0, 2, 1, 2, 1, 2};
     static const int h[16] = {0, 0, 1, 1, 0, 1, 1, 1, 1, 2, 2, 0, 2, 1, 2, 1};
     *vk = v[t];
     *hk = h[t];
+    *flip_ud = t == FLIPADST_DCT || t == FLIPADST_FLIPADST || t == FLIPADST_ADST || t == V_FLIPADST;
+    *flip_lr = t == DCT_FLIPADST || t == FLIPADST_FLIPADST || t == ADST_FLIPADST || t == H_FLIPADST;
 }
 
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
@@ -203,6 +223,12 @@ const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, AD
 const int kFilterIntraModeToIntraDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
 const int kTxTypeIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
 const int kTxTypeIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const int kTxTypeInterInvSet1[16] = {IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST,
+                                     DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST,
+                                     ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int kTxTypeInterInvSet2[12] = {IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
+                                     DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST,
+                                     FLIPADST_ADST};
 const int kPaletteColorContext[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
 const int kPaletteColorHashMultipliers[3] = {1, 2, 2};
 const int kSigRefDiffOffset[3][5][2] = {
@@ -321,6 +347,14 @@ struct Cdfs {
         eob_pt256[2][2][16], eob_pt512[2][16], eob_pt1024[2][16];
     uint16_t coeff_base_eob[5][2][4][4], coeff_base[5][2][41][4], coeff_br[4][2][21][4],
         eob_extra[5][2][9][2], txb_skip[5][13][2], dc_sign[2][3][2];
+    // segment ids, delta q / lf, intra block copy: the flag, the transform
+    // split tree and the inter transform sets, the vector's (one set per
+    // component: vertical, horizontal)
+    uint16_t seg_id[3][8], delta_q[4], delta_lf[5][4], intrabc[2], txfm_split[21][2],
+        inter_tx_set1[2][16], inter_tx_set2[16], inter_tx_set3[4][2], mv_joint[4];
+    struct MvComponent {
+        uint16_t classes[16], sign[2], class0[2], bits[10][2];
+    } mv[2];
 
     void init(int base_q_idx) {
 #define CP(name) memcpy(name, av1_##name, sizeof name)
@@ -331,7 +365,16 @@ struct Cdfs {
         CP(palette_uv_color); CP(tx_size8); CP(tx_size16); CP(tx_size32); CP(tx_size64);
         CP(use_filter_intra); CP(skip); CP(palette_y_mode); CP(palette_uv_mode);
         CP(restoration_type); CP(use_wiener); CP(use_sgrproj);
+        CP(seg_id); CP(delta_q); CP(delta_lf); CP(intrabc); CP(inter_tx_set1); CP(inter_tx_set2);
+        CP(inter_tx_set3); CP(mv_joint);
 #undef CP
+        memcpy(txfm_split, av1_txfm_split, sizeof txfm_split);
+        for (auto& c : mv) {
+            memcpy(c.classes, av1_mv_classes, sizeof c.classes);
+            memcpy(c.sign, av1_mv_sign, sizeof c.sign);
+            memcpy(c.class0, av1_mv_class0, sizeof c.class0);
+            memcpy(c.bits, av1_mv_bits, sizeof c.bits);
+        }
         int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
 #define CQ(name) memcpy(name, av1_##name[q], sizeof name)
         CQ(eob_pt16); CQ(eob_pt32); CQ(eob_pt64); CQ(eob_pt128); CQ(eob_pt256); CQ(eob_pt512);
@@ -709,7 +752,19 @@ struct Decoder {
     int W = 0, H = 0, MiCols = 0, MiRows = 0, num_planes = 3;
     int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
     int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0, dq_v_ac = 0;
-    int lossless = 0, tx_mode = 0, reduced_tx_set = 0;
+    int tx_mode = 0, reduced_tx_set = 0;
+    // lossless: each segment's (LosslessArray), every segment's
+    // (CodedLossless; AllLossless, there being no superres)
+    int lossless_seg[8] = {0}, coded_lossless = 0;
+    // segmentation (a key frame updates the map and the data): the
+    // features of each segment and their values, SegIdPreSkip,
+    // LastActiveSegId (-1: no feature on)
+    enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_SKIP = 6 };
+    int seg_enabled = 0, seg_feature[8][8] = {{0}}, seg_data[8][8] = {{0}}, seg_preskip = 0,
+        last_active_seg = -1;
+    // delta q / delta lf
+    int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0,
+        delta_lf_multi = 0;
     int lf_level[4] = {0}, lf_sharpness = 0, lf_delta_enabled = 0;
     int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0, 0};
     int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0,
@@ -720,16 +775,25 @@ struct Decoder {
     int tiles_decoded = 0;
     // what the frame used: blocks, palette (luma, chroma), filter intra,
     // CfL, tx_depth > 0, non-DCT_DCT luma transforms, angle deltas
-    int64_t stats[11] = {0};
+    // (then blocks of a nonzero segment, superblocks with a nonzero delta q,
+    // intra block copies; then the filters' counts)
+    int64_t stats[14] = {0};
     Cdfs frame_cdfs;
     // frame state
     Plane plane[3];
+    // per 4x4: tx_size_ is the specification's InterTxSizes (an intra
+    // block's transform size, an intra block copy's transform tree)
     std::vector<uint8_t> mi_size, y_mode, uv_mode, skip_, tx_size_, pal_size[2], tx_type;
+    // segment ids, is_inter (an intra block copy), blocks decoded so far,
+    // the block vectors (1/8 pel; row, column), deblocking levels (luma
+    // vertical, luma horizontal, u, v edges)
+    std::vector<uint8_t> seg_ids, is_inter_, decoded_, lf_lvl;
+    std::vector<int32_t> mvs;
     std::vector<uint8_t> pal_colors[2];  // 8 per mi
     std::vector<uint8_t> lf_tx_size[3];
     int lf_stride[3] = {0};
-    // quantizer matrices: the level per plane (15: none)
-    int using_qm = 0, qm_level[3] = {15, 15, 15};
+    // quantizer matrices: the level per plane (15: none) and per segment
+    int using_qm = 0, qm_level[3] = {15, 15, 15}, seg_qm[8][3];
     // CDEF: damping, bits, strengths (y primary, y secondary, uv primary,
     // uv secondary) and each 64x64 block's cdef_idx (-1: not read)
     bool cdef_on = false;
@@ -936,7 +1000,6 @@ struct Decoder {
         if (br.f(1)) { br.f(16); br.f(16); }  // render size
         allow_intrabc = 0;
         if (allow_screen_content_tools) allow_intrabc = int(br.f(1));
-        if (allow_intrabc) unported("AV1 intra block copy (intrabc)");
         // disable_frame_end_update_cdf
         if (!(reduced || disable_cdf_update)) br.f(1);
         // tile info
@@ -1028,18 +1091,35 @@ struct Decoder {
             qm_level[1] = int(br.f(4));
             qm_level[2] = separate_uv_delta_q ? int(br.f(4)) : qm_level[1];
         }
-        if (br.f(1)) unported("AV1 segmentation");
-        if (base_q_idx > 0 && br.f(1)) unported("AV1 delta q / delta lf");
-        lossless = base_q_idx == 0 && dq_y_dc == 0 && dq_u_ac == 0 && dq_u_dc == 0 &&
-                   dq_v_ac == 0 && dq_v_dc == 0;
-        // loop filter
+        parse_segmentation(br);
+        // delta q / delta lf (delta lf is not read where intra block copy is on)
+        delta_q_present = delta_q_res = delta_lf_present = delta_lf_res = delta_lf_multi = 0;
+        if (base_q_idx > 0) delta_q_present = int(br.f(1));
+        if (delta_q_present) {
+            delta_q_res = int(br.f(2));
+            if (!allow_intrabc) delta_lf_present = int(br.f(1));
+            if (delta_lf_present) {
+                delta_lf_res = int(br.f(2));
+                delta_lf_multi = int(br.f(1));
+            }
+        }
+        // LosslessArray, CodedLossless, SegQMLevel
+        coded_lossless = 1;
+        for (int s = 0; s < 8; s++) {
+            lossless_seg[s] = seg_qindex(s, base_q_idx) == 0 && dq_y_dc == 0 && dq_u_ac == 0 &&
+                              dq_u_dc == 0 && dq_v_ac == 0 && dq_v_dc == 0;
+            coded_lossless &= lossless_seg[s];
+            for (int p = 0; p < 3; p++) seg_qm[s][p] = lossless_seg[s] ? 15 : qm_level[p];
+        }
+        // loop filter (none where every segment is lossless or intra block
+        // copy is on)
         for (int i = 0; i < 4; i++) lf_level[i] = 0;
         lf_sharpness = 0;
         lf_delta_enabled = 0;
         static const int ref_defaults[8] = {1, 0, 0, 0, -1, 0, -1, -1};
         memcpy(lf_ref_deltas, ref_defaults, sizeof lf_ref_deltas);
         lf_mode_deltas[0] = lf_mode_deltas[1] = 0;
-        if (!lossless) {
+        if (!coded_lossless && !allow_intrabc) {
             lf_level[0] = int(br.f(6));
             lf_level[1] = int(br.f(6));
             if (num_planes > 1 && (lf_level[0] || lf_level[1])) {
@@ -1057,9 +1137,10 @@ struct Decoder {
                 }
             }
         }
-        if (lossless) qm_level[0] = qm_level[1] = qm_level[2] = 15;
-        // CDEF (lossless: none; cdef_idx is not read)
-        cdef_on = !lossless && enable_cdef;
+        if (coded_lossless) qm_level[0] = qm_level[1] = qm_level[2] = 15;
+        // CDEF (none where every segment is lossless or intra block copy is
+        // on; cdef_idx is not read)
+        cdef_on = !coded_lossless && !allow_intrabc && enable_cdef;
         cdef_damping = 3;
         cdef_bits = 0;
         memset(cdef_strength, 0, sizeof cdef_strength);
@@ -1080,7 +1161,7 @@ struct Decoder {
         // loop restoration: FrameRestorationType per plane and the unit sizes
         uses_lr = 0;
         for (int i = 0; i < 3; i++) { lr_type[i] = RESTORE_NONE; lr_unit_size[i] = 64; }
-        if (!lossless && enable_restoration) {
+        if (!coded_lossless && !allow_intrabc && enable_restoration) {
             static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
                                          RESTORE_SGRPROJ};
             int uses_chroma = 0;
@@ -1098,7 +1179,7 @@ struct Decoder {
             }
         }
         // tx mode
-        if (lossless) tx_mode = 0;
+        if (coded_lossless) tx_mode = 0;
         else tx_mode = br.f(1) ? 2 : 1;
         reduced_tx_set = int(br.f(1));
         parse_film_grain(br);
@@ -1106,6 +1187,44 @@ struct Decoder {
         if (header_only) return;
         frame_cdfs.init(base_q_idx);
         alloc_frame();
+    }
+
+    // segmentation_params of a key frame (primary_ref_frame none: the map
+    // and the data are updated); values clamped to the features' ranges
+    void parse_segmentation(BitReader& br) {
+        static const int bits[8] = {8, 6, 6, 6, 6, 3, 0, 0}, sgn[8] = {1, 1, 1, 1, 1, 0, 0, 0},
+                         mx[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+        memset(seg_feature, 0, sizeof seg_feature);
+        memset(seg_data, 0, sizeof seg_data);
+        seg_enabled = int(br.f(1));
+        seg_preskip = 0;
+        last_active_seg = -1;
+        if (!seg_enabled) return;
+        for (int i = 0; i < 8; i++)
+            for (int j = 0; j < 8; j++) {
+                if (!br.f(1)) continue;
+                seg_feature[i][j] = 1;
+                int v = sgn[j] ? br.su(1 + bits[j]) : int(br.f(bits[j]));
+                seg_data[i][j] = clip3(sgn[j] ? -mx[j] : 0, mx[j], v);
+                last_active_seg = i;
+                if (j >= 5) seg_preskip = 1;
+            }
+    }
+    bool seg_active(int s, int feature) const { return seg_enabled && seg_feature[s][feature]; }
+    // get_qindex of a segment from a q index (base_q_idx, or CurrentQIndex
+    // where delta q is on)
+    int seg_qindex(int s, int q) const {
+        return seg_active(s, SEG_LVL_ALT_Q) ? clip3(0, 255, q + seg_data[s][SEG_LVL_ALT_Q]) : q;
+    }
+    // a block's deblocking level for edges i (luma vertical, luma
+    // horizontal, u, v; 7.14.4): the frame's level with the block's delta
+    // lf, the segment's ALT_LF feature, the intra reference delta
+    int block_lf_level(int s, int i, const int* delta_lf) const {
+        int delta = delta_lf[delta_lf_multi ? i : 0];
+        int l = clip3(0, 63, delta + lf_level[i]);
+        if (seg_active(s, SEG_LVL_ALT_LF_Y_V + i)) l = clip3(0, 63, l + seg_data[s][SEG_LVL_ALT_LF_Y_V + i]);
+        if (lf_delta_enabled) l = clip3(0, 63, l + lf_ref_deltas[0] * (1 << (l >> 5)));
+        return l;
     }
 
     void alloc_frame() {
@@ -1120,6 +1239,8 @@ struct Decoder {
         size_t n = size_t(MiRows) * MiCols;
         mi_size.assign(n, 0); y_mode.assign(n, 0); uv_mode.assign(n, 0); skip_.assign(n, 0);
         tx_size_.assign(n, 0); tx_type.assign(n, 0);
+        seg_ids.assign(n, 0); is_inter_.assign(n, 0); decoded_.assign(n, 0);
+        lf_lvl.assign(n * 4, 0); mvs.assign(n * 2, 0);
         for (int p = 0; p < 2; p++) { pal_size[p].assign(n, 0); pal_colors[p].assign(n * 8, 0); }
         tiles_decoded = 0;
         cdef_idx.assign(size_t((MiRows + 15) >> 4) * ((MiCols + 15) >> 4), -1);
@@ -1231,7 +1352,7 @@ struct Decoder {
     void film_grain(uint8_t* const out[3]);
     void loop_filter();
     void edge_filter(int p, int pass, int row, int col);
-    void filter_level(int p, int pass, int* lvl, int* limit, int* blimit, int* thresh);
+    void filter_level(int l, int* limit, int* blimit, int* thresh);
 };
 
 // tile-level state
@@ -1254,6 +1375,13 @@ struct Decoder::Tile {
     int txsz = 0, max_luma_w = 0, max_luma_h = 0;
     int32_t quant[1024];
     int plane_tx_type = 0;
+    // segmentation and delta q / lf: the block's segment, Lossless and q
+    // index; the tile's CurrentQIndex and DeltaLF (dav1d's, which start
+    // each tile afresh), ReadDeltas
+    int seg_id = 0, lossless = 0, qindex = 0, cur_qidx = 0, delta_lf[4] = {0, 0, 0, 0};
+    bool read_deltas = false;
+    // intra block copy: the block's flag (is_inter) and vector (1/8 pel)
+    int use_intrabc = 0, mv_r = 0, mv_c = 0;
 
     Tile(Decoder& d) : f(d) {}
 
@@ -1283,6 +1411,8 @@ struct Decoder::Tile {
         }
         int sb = f.use128 ? BLOCK_128X128 : BLOCK_64X64;
         int sb4 = kBw[sb] >> 2;
+        cur_qidx = f.base_q_idx;
+        for (int i = 0; i < 4; i++) delta_lf[i] = 0;
         for (int r = mi_row_start; r < mi_row_end; r += sb4) {
             for (int p = 0; p < f.num_planes; p++) {
                 std::fill(left_level[p].begin(), left_level[p].end(), 0);
@@ -1292,6 +1422,7 @@ struct Decoder::Tile {
                 clear_cdef(r, c);
                 clear_block_decoded(r, c, sb4);
                 read_lr(r, c, sb);
+                read_deltas = f.delta_q_present;
                 decode_partition(r, c, sb);
             }
             // dav1d's overread check after each superblock row: 15 bits or
@@ -1547,8 +1678,11 @@ struct Decoder::Tile {
         }
         intra_frame_mode_info();
         palette_tokens();
-        read_tx_size();
+        if (use_intrabc) read_block_tx_size_inter();
+        else read_tx_size();
         // store the block's mode info
+        int lvl[4];
+        for (int i = 0; i < 4; i++) lvl[i] = f.block_lf_level(seg_id, i, delta_lf);
         for (int y = 0; y < bh4; y++) {
             if (r + y >= f.MiRows) break;
             for (int x = 0; x < bw4; x++) {
@@ -1558,11 +1692,17 @@ struct Decoder::Tile {
                 if (has_chroma) f.uv_mode[i] = uint8_t(uvmode);
                 f.mi_size[i] = uint8_t(b);
                 f.skip_[i] = uint8_t(skip);
-                f.tx_size_[i] = uint8_t(txsz);
+                if (!use_intrabc) f.tx_size_[i] = uint8_t(txsz);  // else written by its tree
                 f.pal_size[0][i] = uint8_t(pal_size_y);
                 f.pal_size[1][i] = uint8_t(pal_size_uv);
                 memcpy(&f.pal_colors[0][size_t(i) * 8], pal_y, 8);
                 memcpy(&f.pal_colors[1][size_t(i) * 8], pal_u, 8);
+                f.seg_ids[i] = uint8_t(seg_id);
+                f.is_inter_[i] = uint8_t(use_intrabc);
+                f.decoded_[i] = 1;
+                f.mvs[2 * size_t(i)] = mv_r;
+                f.mvs[2 * size_t(i) + 1] = mv_c;
+                for (int k = 0; k < 4; k++) f.lf_lvl[4 * size_t(i) + k] = uint8_t(lvl[k]);
             }
         }
         if (skip) reset_block_context();
@@ -1572,6 +1712,9 @@ struct Decoder::Tile {
         f.stats[3] += use_filter_intra;
         f.stats[4] += uvmode == UV_CFL_PRED && has_chroma;
         f.stats[7] += angle_delta_y != 0 || angle_delta_uv != 0;
+        f.stats[8] += seg_id != 0;
+        f.stats[10] += use_intrabc;
+        if (use_intrabc) predict_intrabc();
         residual();
     }
 
@@ -1584,11 +1727,39 @@ struct Decoder::Tile {
     }
 
     void intra_frame_mode_info() {
-        // skip
-        int ctx = (avail_u ? f.skip_[f.mi(mi_row - 1, mi_col)] : 0) +
-                  (avail_l ? f.skip_[f.mi(mi_row, mi_col - 1)] : 0);
-        skip = sd.read(cdf.skip[ctx], 2);
+        // the segment id before or after skip (SegIdPreSkip); skip (the
+        // segment's skip feature sets it)
+        skip = 0;
+        seg_id = 0;
+        if (f.seg_enabled && f.seg_preskip) read_segment_id();
+        if (f.seg_preskip && f.seg_active(seg_id, Decoder::SEG_LVL_SKIP)) {
+            skip = 1;
+        } else {
+            int ctx = (avail_u ? f.skip_[f.mi(mi_row - 1, mi_col)] : 0) +
+                      (avail_l ? f.skip_[f.mi(mi_row, mi_col - 1)] : 0);
+            skip = sd.read(cdf.skip[ctx], 2);
+        }
+        if (f.seg_enabled && !f.seg_preskip) read_segment_id();
+        lossless = f.lossless_seg[seg_id];
         read_cdef();
+        read_delta_qindex();
+        read_delta_lf();
+        read_deltas = false;
+        qindex = f.seg_qindex(seg_id, f.delta_q_present ? cur_qidx : f.base_q_idx);
+        use_intrabc = f.allow_intrabc ? sd.read(cdf.intrabc, 2) : 0;
+        mv_r = mv_c = 0;
+        if (use_intrabc) {
+            // an inter block of the current frame: no intra modes, palettes
+            // or filter intra; later blocks read DC_PRED as its modes
+            ymode = uvmode = DC_PRED;
+            angle_delta_y = angle_delta_uv = 0;
+            cfl_alpha_u = cfl_alpha_v = 0;
+            pal_size_y = pal_size_uv = 0;
+            memset(pal_y, 0, 8); memset(pal_u, 0, 8); memset(pal_v, 0, 8);
+            use_filter_intra = 0;
+            intrabc_vector();
+            return;
+        }
         // y mode
         int am = kIntraModeContext[avail_u ? int(f.y_mode[f.mi(mi_row - 1, mi_col)]) : 0];
         int lm = kIntraModeContext[avail_l ? int(f.y_mode[f.mi(mi_row, mi_col - 1)]) : 0];
@@ -1601,8 +1772,8 @@ struct Decoder::Tile {
         cfl_alpha_u = cfl_alpha_v = 0;
         if (has_chroma) {
             bool cfl_allowed;
-            if (f.lossless && residual_size(mi_sz, 1) == BLOCK_4X4) cfl_allowed = true;
-            else if (!f.lossless && imax(kBw[mi_sz], kBh[mi_sz]) <= 32) cfl_allowed = true;
+            if (lossless && residual_size(mi_sz, 1) == BLOCK_4X4) cfl_allowed = true;
+            else if (!lossless && imax(kBw[mi_sz], kBh[mi_sz]) <= 32) cfl_allowed = true;
             else cfl_allowed = false;
             if (cfl_allowed) uvmode = sd.read(cdf.uv_mode_cfl_allowed[ymode], 14);
             else uvmode = sd.read(cdf.uv_mode_cfl_not_allowed[ymode], 13);
@@ -1619,6 +1790,66 @@ struct Decoder::Tile {
             imax(kBw[mi_sz], kBh[mi_sz]) <= 32) {
             use_filter_intra = sd.read(cdf.use_filter_intra[mi_sz], 2);
             if (use_filter_intra) filter_intra_mode = sd.read(cdf.filter_intra_mode, 5);
+        }
+    }
+
+    // ---- segment ids (5.11.9): predicted from the above, left and
+    // above-left blocks; read where the block is not skipped
+    static int neg_deinterleave(int diff, int ref, int max) {
+        if (!ref) return diff;
+        if (ref >= max - 1) return max - diff - 1;
+        if (2 * ref < max) {
+            if (diff <= 2 * ref) return (diff & 1) ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+            return diff;
+        }
+        if (diff <= 2 * (max - ref - 1)) return (diff & 1) ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+        return max - (diff + 1);
+    }
+
+    void read_segment_id() {
+        int ul = avail_u && avail_l ? f.seg_ids[f.mi(mi_row - 1, mi_col - 1)] : -1;
+        int u = avail_u ? f.seg_ids[f.mi(mi_row - 1, mi_col)] : -1;
+        int l = avail_l ? f.seg_ids[f.mi(mi_row, mi_col - 1)] : -1;
+        int pred = u == -1 ? (l == -1 ? 0 : l) : l == -1 ? u : (ul == u ? u : l);
+        if (skip) {
+            seg_id = pred;
+            return;
+        }
+        int ctx = ul < 0 || u < 0 || l < 0 ? 0 : (ul == u && ul == l) ? 2
+                  : (ul == u || ul == l || u == l) ? 1 : 0;
+        int diff = sd.read(cdf.seg_id[ctx], 8);
+        int id = neg_deinterleave(diff, pred, f.last_active_seg + 1);
+        seg_id = id < 0 || id > f.last_active_seg ? 0 : id;  // dav1d's, where the spec clamps
+    }
+
+    // ---- delta q and delta lf, read at a superblock's first block unless
+    // it is the whole superblock and skipped
+    int delta_abs(uint16_t* cdf_) {
+        int a = sd.read(cdf_, 4);
+        if (a == 3) {
+            int nb = sd.lit(3) + 1;
+            a = sd.lit(nb) + (1 << nb) + 1;
+        }
+        return a && sd.lit(1) ? -a : a;
+    }
+
+    void read_delta_qindex() {
+        if (!read_deltas || (mi_sz == (f.use128 ? BLOCK_128X128 : BLOCK_64X64) && skip)) return;
+        int d = delta_abs(cdf.delta_q);
+        if (d) {
+            cur_qidx = clip3(1, 255, cur_qidx + d * (1 << f.delta_q_res));
+            f.stats[9]++;
+        }
+    }
+
+    void read_delta_lf() {
+        if (!read_deltas || !f.delta_lf_present ||
+            (mi_sz == (f.use128 ? BLOCK_128X128 : BLOCK_64X64) && skip))
+            return;
+        int n = f.delta_lf_multi ? (f.num_planes > 1 ? 4 : 2) : 1;
+        for (int i = 0; i < n; i++) {
+            int d = delta_abs(f.delta_lf_multi ? cdf.delta_lf[1 + i] : cdf.delta_lf[0]);
+            if (d) delta_lf[i] = clip3(-63, 63, delta_lf[i] + d * (1 << f.delta_lf_res));
         }
     }
 
@@ -1769,14 +2000,20 @@ struct Decoder::Tile {
     }
 
     void read_tx_size() {
-        if (f.lossless) { txsz = TX_4X4; return; }
+        if (lossless) { txsz = TX_4X4; return; }
         int max_rect = max_tx_rect(mi_sz);
         txsz = max_rect;
         if (mi_sz > BLOCK_4X4 && f.tx_mode == 2) {
             int maxw = kTw[max_rect], maxh = kTh[max_rect];
-            int above_w = 0, left_h = 0;
-            if (avail_u) above_w = kTw[f.tx_size_[f.mi(mi_row - 1, mi_col)]];
-            if (avail_l) left_h = kTh[f.tx_size_[f.mi(mi_row, mi_col - 1)]];
+            int above_w = 0, left_h = 0;  // an intra block copy's: its block size
+            if (avail_u) {
+                int i = f.mi(mi_row - 1, mi_col);
+                above_w = f.is_inter_[i] ? kBw[f.mi_size[i]] : kTw[f.tx_size_[i]];
+            }
+            if (avail_l) {
+                int i = f.mi(mi_row, mi_col - 1);
+                left_h = f.is_inter_[i] ? kBh[f.mi_size[i]] : kTh[f.tx_size_[i]];
+            }
             int ctx = (avail_u && above_w >= maxw) + (avail_l && left_h >= maxh);
             int depth = tx_depth_of(mi_sz);
             int cat = depth - 1;
@@ -1786,6 +2023,239 @@ struct Decoder::Tile {
             int d = sd.read(pc, nsym);
             f.stats[5] += d > 0;
             for (int i = 0; i < d; i++) txsz = tx_split(txsz);
+        }
+    }
+
+    // ---- an intra block copy's transform sizes (read_block_tx_size): the
+    // txfm_split tree under TX_MODE_SELECT where the block is coded, else
+    // the largest (4x4 where lossless)
+    void read_block_tx_size_inter() {
+        int max_rect = max_tx_rect(mi_sz);
+        if (f.tx_mode == 2 && mi_sz > BLOCK_4X4 && !skip && !lossless) {
+            int tw4 = kTw[max_rect] >> 2, th4 = kTh[max_rect] >> 2;
+            for (int r = mi_row; r < mi_row + bh4; r += th4)
+                for (int c = mi_col; c < mi_col + bw4; c += tw4) read_var_tx_size(r, c, max_rect, 0);
+            txsz = max_rect;
+            return;
+        }
+        txsz = lossless ? TX_4X4 : max_rect;
+        for (int y = 0; y < bh4 && mi_row + y < f.MiRows; y++)
+            for (int x = 0; x < bw4 && mi_col + x < f.MiCols; x++)
+                f.tx_size_[f.mi(mi_row + y, mi_col + x)] = uint8_t(txsz);
+    }
+
+    int above_tx_width(int r, int c) {
+        if (r == mi_row) {
+            if (!avail_u) return 64;
+            int i = f.mi(r - 1, c);
+            if (f.skip_[i] && f.is_inter_[i]) return kBw[f.mi_size[i]];
+        }
+        return kTw[f.tx_size_[f.mi(r - 1, c)]];
+    }
+    int left_tx_height(int r, int c) {
+        if (c == mi_col) {
+            if (!avail_l) return 64;
+            int i = f.mi(r, c - 1);
+            if (f.skip_[i] && f.is_inter_[i]) return kBh[f.mi_size[i]];
+        }
+        return kTh[f.tx_size_[f.mi(r, c - 1)]];
+    }
+
+    void read_var_tx_size(int r, int c, int t, int depth) {
+        if (r >= f.MiRows || c >= f.MiCols) return;
+        int split = 0;
+        if (t != TX_4X4 && depth < 2) {
+            int size = imin(64, imax(kBw[mi_sz], kBh[mi_sz]));
+            int maxsq = tx_of(size, size);
+            int ctx = (tx_sqr_up(t) != maxsq) * 3 + (TX_64X64 - maxsq) * 6 +
+                      (above_tx_width(r, c) < kTw[t]) + (left_tx_height(r, c) < kTh[t]);
+            split = sd.read(cdf.txfm_split[ctx], 2);
+        }
+        int w4 = kTw[t] >> 2, h4 = kTh[t] >> 2;
+        if (split) {
+            f.stats[5]++;
+            int sub = tx_split(t), sw = kTw[sub] >> 2, sh = kTh[sub] >> 2;
+            for (int i = 0; i < h4; i += sh)
+                for (int j = 0; j < w4; j += sw) read_var_tx_size(r + i, c + j, sub, depth + 1);
+            return;
+        }
+        for (int i = 0; i < h4 && r + i < f.MiRows; i++)
+            for (int j = 0; j < w4 && c + j < f.MiCols; j++) f.tx_size_[f.mi(r + i, c + j)] = uint8_t(t);
+    }
+
+    // ---- an intra block copy's vector: the reference stack of find_mv_stack
+    // for INTRA_FRAME (7.10.2: rows and columns of the blocks above and to
+    // the left, the top-right and top-left points, weighted and sorted), the
+    // predicted vector (the first nonzero of the stack's two, else a
+    // default a superblock up or left), the coded difference (integer), then
+    // dav1d's clip to the decoded part of the tile. Every stored vector is
+    // whole pixels (the clip's), so the specification's rounding of the
+    // candidates to whole pixels changes none.
+    int nmv = 0, stk[8][2], wgt[8];
+
+    void add_candidate(int r, int c, int weight) {
+        int i = f.mi(r, c);
+        if (!f.is_inter_[i]) return;
+        int mr = f.mvs[2 * size_t(i)], mc = f.mvs[2 * size_t(i) + 1];
+        for (int k = 0; k < nmv; k++)
+            if (stk[k][0] == mr && stk[k][1] == mc) { wgt[k] += weight; return; }
+        if (nmv < 8) {
+            stk[nmv][0] = mr;
+            stk[nmv][1] = mc;
+            wgt[nmv++] = weight;
+        }
+    }
+    void scan_row(int dr) {
+        int end4 = imin(imin(bw4, f.MiCols - mi_col), 16), dc = 0;
+        bool far = abs(dr) > 1;
+        if (far) { dr += mi_row & 1; dc = 1 - (mi_col & 1); }
+        for (int i = 0; i < end4;) {
+            int r = mi_row + dr, c = mi_col + dc + i;
+            if (!is_inside(r, c)) break;
+            int len = imin(bw4, kBw[f.mi_size[f.mi(r, c)]] >> 2);
+            if (far) len = imax(2, len);
+            if (bw4 >= 16) len = imax(4, len);
+            add_candidate(r, c, 2 * len);
+            i += len;
+        }
+    }
+    void scan_col(int dc) {
+        int end4 = imin(imin(bh4, f.MiRows - mi_row), 16), dr = 0;
+        bool far = abs(dc) > 1;
+        if (far) { dr = 1 - (mi_row & 1); dc += mi_col & 1; }
+        for (int i = 0; i < end4;) {
+            int r = mi_row + dr + i, c = mi_col + dc;
+            if (!is_inside(r, c)) break;
+            int len = imin(bh4, kBh[f.mi_size[f.mi(r, c)]] >> 2);
+            if (far) len = imax(2, len);
+            if (bh4 >= 16) len = imax(4, len);
+            add_candidate(r, c, 2 * len);
+            i += len;
+        }
+    }
+    void scan_point(int dr, int dc) {  // a block decoded before this one
+        int r = mi_row + dr, c = mi_col + dc;
+        if (is_inside(r, c) && f.decoded_[f.mi(r, c)]) add_candidate(r, c, 4);
+    }
+    void sort_stack(int start, int end) {
+        while (end > start) {
+            int new_end = start;
+            for (int i = start + 1; i < end; i++)
+                if (wgt[i - 1] < wgt[i]) {
+                    std::swap(wgt[i - 1], wgt[i]);
+                    std::swap(stk[i - 1][0], stk[i][0]);
+                    std::swap(stk[i - 1][1], stk[i][1]);
+                    new_end = i;
+                }
+            end = new_end;
+        }
+    }
+    int read_mv_component(Cdfs::MvComponent& m) {
+        int sign = sd.read(m.sign, 2);
+        int cls = sd.read(m.classes, 11), mag;
+        if (cls == 0) {
+            mag = ((sd.read(m.class0, 2) << 3) | 7) + 1;
+        } else {
+            int d = 0;
+            for (int i = 0; i < cls; i++) d |= sd.read(m.bits[i], 2) << i;
+            mag = (2 << (cls + 2)) + ((d << 3) | 7) + 1;
+        }
+        return sign ? -mag : mag;
+    }
+
+    void intrabc_vector() {
+        nmv = 0;
+        scan_row(-1);
+        scan_col(-1);
+        if (imax(bw4, bh4) <= 16) scan_point(-1, bw4);
+        int nearest = nmv;
+        for (int k = 0; k < nearest; k++) wgt[k] += 640;
+        scan_point(-1, -1);
+        scan_row(-3);
+        scan_col(-3);
+        if (bh4 > 1) scan_row(-5);
+        if (bw4 > 1) scan_col(-5);
+        sort_stack(0, nearest);
+        sort_stack(nearest, nmv);
+        for (int k = nmv; k < 2; k++) stk[k][0] = stk[k][1] = 0;  // GlobalMvs[0]
+        for (int k = 0; k < nmv; k++) {  // context_and_clamping
+            stk[k][0] = clip3(-(mi_row + bh4 + 4) * 32, (f.MiRows - mi_row + 4) * 32, stk[k][0]);
+            stk[k][1] = clip3(-(mi_col + bw4 + 4) * 32, (f.MiCols - mi_col + 4) * 32, stk[k][1]);
+        }
+        int pr = stk[0][0], pc = stk[0][1];
+        if (!pr && !pc) { pr = stk[1][0]; pc = stk[1][1]; }
+        int sb4 = f.use128 ? 32 : 16;
+        if (!pr && !pc) {
+            if (mi_row - sb4 < mi_row_start) { pr = 0; pc = -(sb4 * 4 + 256) * 8; }
+            else { pr = -(sb4 * 4 * 8); pc = 0; }
+        }
+        int joint = sd.read(cdf.mv_joint, 4);
+        if (joint == 2 || joint == 3) pr += read_mv_component(cdf.mv[0]);
+        if (joint == 1 || joint == 3) pc += read_mv_component(cdf.mv[1]);
+        // dav1d's clip of the vector to the decoded part of the tile: left
+        // and right tile edges, the top, out of the current superblock
+        // (up, else left), not below the superblock row; a vector still in
+        // the current superblock fails the decode
+        int border_left = mi_col_start * 4, border_top = mi_row_start * 4;
+        if (has_chroma) {
+            if (bw4 < 2 && f.ssx) border_left += 4;
+            if (bh4 < 2 && f.ssy) border_top += 4;
+        }
+        int left = mi_col * 4 + (pc >> 3), top = mi_row * 4 + (pr >> 3);
+        int right = left + bw4 * 4, bottom = top + bh4 * 4;
+        int border_right = ((mi_col_end + (bw4 - 1)) & ~(bw4 - 1)) * 4;
+        if (left < border_left) { right += border_left - left; left = border_left; }
+        else if (right > border_right) { left -= right - border_right; right = border_right; }
+        if (top < border_top) { bottom += border_top - top; top = border_top; }
+        int sbx = (mi_col >> (4 + f.use128)) << (6 + f.use128);
+        int sby = (mi_row >> (4 + f.use128)) << (6 + f.use128);
+        int sbsz = 1 << (6 + f.use128);
+        if (bottom > sby && right > sbx) {
+            if (top - border_top >= bottom - sby) { top -= bottom - sby; bottom = sby; }
+            else if (left - border_left >= right - sbx) { left -= right - sbx; right = sbx; }
+        }
+        if (bottom > sby + sbsz) { top -= bottom - (sby + sbsz); bottom = sby + sbsz; }
+        if (bottom > sby && right > sbx)
+            fail("an AV1 intra block copy from its own superblock (block at %d, %d)", mi_row, mi_col);
+        mv_c = (left - mi_col * 4) * 8;
+        mv_r = (top - mi_row * 4) * 8;
+    }
+
+    // ---- an intra block copy's prediction, before the residual: each
+    // plane's block (a chroma block covering several luma blocks: this
+    // block's vector) from the current frame as decoded so far, bilinear at
+    // the half-pel chroma positions of subsampled planes (dav1d's put_bilin;
+    // samples past the frame's 8x8 grid repeat its edge)
+    void predict_intrabc() {
+        static thread_local uint8_t buf[128 * 128];
+        for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
+            int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+            int psz = residual_size(mi_sz, p), w = kBw[psz], h = kBh[psz];
+            int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
+            int ix = x0 + (mv_c >> (3 + sx)), iy = y0 + (mv_r >> (3 + sy));
+            int mx = mv_c & (15 >> !sx), my = mv_r & (15 >> !sy);
+            mx <<= !sx;
+            my <<= !sy;
+            int pw = (f.MiCols * 4) >> sx, ph = (f.MiRows * 4) >> sy;
+            Plane& pl = f.plane[p];
+            auto P = [&](int y, int x) -> int { return *pl.at(clip3(0, ph - 1, y), clip3(0, pw - 1, x)); };
+            for (int i = 0; i < h; i++)
+                for (int j = 0; j < w; j++) {
+                    int y = iy + i, x = ix + j, v;
+                    if (mx && my) {
+                        int m0 = 16 * P(y, x) + mx * (P(y, x + 1) - P(y, x));
+                        int m1 = 16 * P(y + 1, x) + mx * (P(y + 1, x + 1) - P(y + 1, x));
+                        v = (16 * m0 + my * (m1 - m0) + 128) >> 8;
+                    } else if (mx) {
+                        v = (16 * P(y, x) + mx * (P(y, x + 1) - P(y, x)) + 8) >> 4;
+                    } else if (my) {
+                        v = (16 * P(y, x) + my * (P(y + 1, x) - P(y, x)) + 8) >> 4;
+                    } else {
+                        v = P(y, x);
+                    }
+                    buf[i * 128 + j] = uint8_t(v);
+                }
+            for (int i = 0; i < h; i++) memcpy(pl.at(y0 + i, x0), &buf[i * 128], size_t(w));
         }
     }
 
@@ -1805,7 +2275,15 @@ struct Decoder::Tile {
         for (int cy = 0; cy < hchunks; cy++)
             for (int cx = 0; cx < wchunks; cx++) {
                 for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
-                    int t = f.lossless ? TX_4X4 : get_tx_size(p, txsz);
+                    if (use_intrabc && !lossless && p == 0) {
+                        // the chunk's largest transforms, each down its tree
+                        int t = max_tx_rect(mi_sz), tw4 = kTw[t] >> 2, th4 = kTh[t] >> 2;
+                        for (int y = cy * 16; y < imin(bh4, cy * 16 + 16); y += th4)
+                            for (int x = cx * 16; x < imin(bw4, cx * 16 + 16); x += tw4)
+                                transform_tree(mi_row + y, mi_col + x, t);
+                        continue;
+                    }
+                    int t = lossless ? TX_4X4 : get_tx_size(p, txsz);
                     int stepx = kTw[t] >> 2, stepy = kTh[t] >> 2;
                     int psz = residual_size(mi_sz, p);
                     int n4w = kBw[psz] >> 2, n4h = kBh[psz] >> 2;
@@ -1818,6 +2296,18 @@ struct Decoder::Tile {
             }
     }
 
+    void transform_tree(int r, int c, int t) {
+        if (r >= f.MiRows || c >= f.MiCols) return;
+        int leaf = f.tx_size_[f.mi(r, c)];
+        if (kTw[leaf] >= kTw[t] && kTh[leaf] >= kTh[t]) {
+            transform_block(0, c * 4, r * 4, t, 0, 0);
+            return;
+        }
+        int sub = tx_split(t), sw = kTw[sub] >> 2, sh = kTh[sub] >> 2;
+        for (int i = 0; i < kTh[t] >> 2; i += sh)
+            for (int j = 0; j < kTw[t] >> 2; j += sw) transform_tree(r + i, c + j, sub);
+    }
+
     void transform_block(int p, int base_x, int base_y, int t, int x, int y) {
         int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
         int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
@@ -1827,7 +2317,9 @@ struct Decoder::Tile {
         int stepx = kTw[t] >> 2, stepy = kTh[t] >> 2;
         int max_x = (f.MiCols * 4) >> sx, max_y = (f.MiRows * 4) >> sy;
         if (start_x >= max_x || start_y >= max_y) return;
-        if ((p == 0 && pal_size_y) || (p != 0 && pal_size_uv)) {
+        if (use_intrabc) {
+            // predicted with the block (predict_intrabc)
+        } else if ((p == 0 && pal_size_y) || (p != 0 && pal_size_uv)) {
             predict_palette(p, start_x, start_y, x, y, t);
         } else {
             bool is_cfl = p > 0 && uvmode == UV_CFL_PRED;
@@ -2166,9 +2658,16 @@ struct Decoder::Tile {
     }
 
     // ---- coefficients
+    // the transform set of a size: 0 DCT only; intra 1 and 2 (the
+    // specification's TX_SET_INTRA_1 / 2); an intra block copy's inter sets
+    // 1 (16 types), 2 (12) and 3 (IDTX, DCT)
     int tx_set(int t) {
         int sq = tx_sqr(t), up = tx_sqr_up(t);
         if (up > TX_32X32) return 0;
+        if (use_intrabc) {
+            if (f.reduced_tx_set || up == TX_32X32) return 3;
+            return sq == TX_16X16 ? 2 : 1;
+        }
         if (up == TX_32X32) return 0;
         if (f.reduced_tx_set) return 2;
         if (sq == TX_16X16) return 2;
@@ -2176,14 +2675,23 @@ struct Decoder::Tile {
     }
 
     int compute_tx_type(int p, int t, int x4, int y4) {
-        if (f.lossless || tx_sqr_up(t) > TX_32X32) return DCT_DCT;
+        if (lossless || tx_sqr_up(t) > TX_32X32) return DCT_DCT;
         int set = tx_set(t);
         if (p == 0) return f.tx_type[f.mi(y4, x4)];
-        int tt = kModeToTxfm[uvmode];
         static const bool in_set[3][16] = {
             {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
             {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0},
             {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
+        static const bool in_inter_set[4][16] = {
+            {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+            {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
+            {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0},
+            {1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
+        if (use_intrabc) {  // the co-located luma transform's type
+            int tt = f.tx_type[f.mi(imax(mi_row, y4 << f.ssy), imax(mi_col, x4 << f.ssx))];
+            return in_inter_set[set][tt] ? tt : DCT_DCT;
+        }
+        int tt = kModeToTxfm[uvmode];
         if (!in_set[set][tt]) return DCT_DCT;
         return tt;
     }
@@ -2284,11 +2792,17 @@ struct Decoder::Tile {
             if (p == 0) {
                 int tt = DCT_DCT;
                 int set = tx_set(t);
-                if (set > 0 && f.base_q_idx > 0) {
-                    int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : ymode;
+                if (set > 0 && f.seg_qindex(seg_id, f.base_q_idx) > 0) {
                     int sq = tx_sqr(t);
-                    if (set == 1) tt = kTxTypeIntraInvSet1[sd.read(cdf.intra_tx_set1[sq][dir], 7)];
-                    else tt = kTxTypeIntraInvSet2[sd.read(cdf.intra_tx_set2[sq][dir], 5)];
+                    if (use_intrabc) {
+                        if (set == 1) tt = kTxTypeInterInvSet1[sd.read(cdf.inter_tx_set1[sq], 16)];
+                        else if (set == 2) tt = kTxTypeInterInvSet2[sd.read(cdf.inter_tx_set2, 12)];
+                        else tt = sd.read(cdf.inter_tx_set3[sq], 2) ? DCT_DCT : IDTX;
+                    } else {
+                        int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : ymode;
+                        if (set == 1) tt = kTxTypeIntraInvSet1[sd.read(cdf.intra_tx_set1[sq][dir], 7)];
+                        else tt = kTxTypeIntraInvSet2[sd.read(cdf.intra_tx_set2[sq][dir], 5)];
+                    }
                 }
                 f.stats[6] += tt != DCT_DCT;
                 for (int i = 0; i < w4; i++)
@@ -2398,15 +2912,16 @@ struct Decoder::Tile {
         int tw = imin(32, w), th = imin(32, h);
         int area = w * h;
         int dq_shift = (area > 256) + (area > 1024);
-        int qi = f.base_q_idx;
+        int qi = qindex;
         int dcq = p == 0 ? dc_q(qi + f.dq_y_dc) : p == 1 ? dc_q(qi + f.dq_u_dc) : dc_q(qi + f.dq_v_dc);
         int acq = p == 0 ? ac_q(qi) : p == 1 ? ac_q(qi + f.dq_u_ac) : ac_q(qi + f.dq_v_ac);
         static thread_local int32_t coef[32 * 32];
         // the quantizer matrix of a 2-D transform (the adjusted size's; none
         // at level 15 or for the identity-bearing types)
         const uint8_t* qm = nullptr;
-        if (f.qm_level[p] < 15 && plane_tx_type < IDTX)
-            qm = &av1_qm[f.qm_level[p]][p > 0][qm_offset(adjusted_tx(t))];
+        int qm_level = f.seg_qm[seg_id][p];
+        if (qm_level < 15 && plane_tx_type < IDTX)
+            qm = &av1_qm[qm_level][p > 0][qm_offset(adjusted_tx(t))];
         for (int i = 0; i < th; i++)
             for (int j = 0; j < tw; j++) {
                 int32_t qv = quant[i * tw + j];
@@ -2419,7 +2934,7 @@ struct Decoder::Tile {
                 int64_t dq = qv < 0 ? -mag : mag;
                 coef[i * tw + j] = int32_t(dq < -32768 ? -32768 : dq > 32767 ? 32767 : dq);
             }
-        if (plane_tx_type == DCT_DCT && eob == 1 && !f.lossless) {
+        if (plane_tx_type == DCT_DCT && eob == 1 && !lossless) {
             // dav1d's DC-only route: the DCT of a lone DC coefficient without
             // the intermediate clamps (the same bits as the full route on
             // a conformant stream)
@@ -2444,12 +2959,12 @@ struct Decoder::Tile {
         int w = kTw[t], h = kTh[t];
         int tw = imin(32, w), th = imin(32, h);
         int log2w = floorlog2(uint32_t(w)), log2h = floorlog2(uint32_t(h));
-        int row_shift = f.lossless ? 0 : kRowShift[t];
-        int col_shift = f.lossless ? 0 : 4;
+        int row_shift = lossless ? 0 : kRowShift[t];
+        int col_shift = lossless ? 0 : 4;
         Clamp cl{-32768, 32767};
         static thread_local int32_t res[64 * 64];
-        int vk, hk;
-        tx_kinds(plane_tx_type, &vk, &hk);
+        int vk, hk, flip_ud, flip_lr;
+        tx_kinds(plane_tx_type, &vk, &hk, &flip_ud, &flip_lr);
         int32_t T[64];
         for (int i = 0; i < h; i++) {
             if (i >= th) {
@@ -2465,19 +2980,19 @@ struct Decoder::Tile {
             for (int j = 0; j < w; j++) T[j] = j < tw ? coef[i * tw + j] : 0;
             if (abs(log2w - log2h) == 1)
                 for (int j = 0; j < w; j++) T[j] = int32_t((int64_t(T[j]) * 2896 + 2048) >> 12);
-            if (f.lossless) iwht4(T, 2);
+            if (lossless) iwht4(T, 2);
             else itx1d(T, w, hk, cl);
             for (int j = 0; j < w; j++) {
-                int32_t v = round2(T[j], row_shift);
-                if (!f.lossless) v = cl(v);
+                int32_t v = round2(T[flip_lr ? w - 1 - j : j], row_shift);
+                if (!lossless) v = cl(v);
                 res[i * 64 + j] = v;
             }
         }
         for (int j = 0; j < w; j++) {
             for (int i = 0; i < h; i++) T[i] = res[i * 64 + j];
-            if (f.lossless) iwht4(T, 0);
+            if (lossless) iwht4(T, 0);
             else itx1d(T, h, vk, cl);
-            for (int i = 0; i < h; i++) res[i * 64 + j] = round2(T[i], col_shift);
+            for (int i = 0; i < h; i++) res[i * 64 + j] = round2(T[flip_ud ? h - 1 - i : i], col_shift);
         }
         Plane& pl = f.plane[p];
         for (int i = 0; i < h; i++) {
@@ -2500,18 +3015,10 @@ void Decoder::decode_tile(int tile_row, int tile_col, const uint8_t* data, int64
 
 // ---- deblocking
 
-void Decoder::filter_level(int p, int pass, int* lvl, int* limit, int* blimit, int* thresh) {
-    int i = p == 0 ? pass : p + 1;
-    int base = clip3(0, 63, lf_level[i]);
-    int l = base;
-    if (lf_delta_enabled) {
-        int nshift = l >> 5;
-        l = l + (lf_ref_deltas[0] * (1 << nshift));
-        l = clip3(0, 63, l);
-    }
+// the limits of a level
+void Decoder::filter_level(int l, int* limit, int* blimit, int* thresh) {
     int shift = lf_sharpness > 4 ? 2 : (lf_sharpness > 0 ? 1 : 0);
     int lim = lf_sharpness > 0 ? clip3(1, 9 - lf_sharpness, l >> shift) : imax(1, l >> shift);
-    *lvl = l;
     *limit = lim;
     *blimit = 2 * (l + 2) + lim;
     *thresh = l >> 4;
@@ -2534,14 +3041,19 @@ void Decoder::edge_filter(int p, int pass, int row, int col) {
     int prev_row = row - (dy << sy), prev_col = col - (dx << sx);
     int t = lf_tx_size[p][size_t(row >> sy) * lf_stride[p] + (col >> sx)];
     int prev_t = lf_tx_size[p][size_t(prev_row >> sy) * lf_stride[p] + (prev_col >> sx)];
-    // every block is intra, so every transform edge is filtered, block edge
-    // or not, skipped or not
+    // every block is intra (a frame with intra block copies is not
+    // deblocked), so every transform edge is filtered, block edge or not,
+    // skipped or not
     bool apply = pass == 0 ? (xp % kTw[t] == 0) : (yp % kTh[t] == 0);
     int base_size = pass == 0 ? imin(kTw[prev_t], kTw[t]) : imin(kTh[prev_t], kTh[t]);
     int filter_size = p == 0 ? imin(16, base_size) : imin(8, base_size);
-    int lvl, limit, blimit, thresh;
-    filter_level(p, pass, &lvl, &limit, &blimit, &thresh);
+    // the block's level, else the level of the block before the edge
+    int li = p == 0 ? pass : p + 1;
+    int lvl = lf_lvl[4 * size_t(mi(row, col)) + li];
+    if (!lvl) lvl = lf_lvl[4 * size_t(mi(prev_row, prev_col)) + li];
     if (!apply || lvl == 0) return;
+    int limit, blimit, thresh;
+    filter_level(lvl, &limit, &blimit, &thresh);
     Plane& pl = plane[p];
     int across = dx ? 1 : pl.stride;  // across the edge
     for (int i = 0; i < 4; i++) {
@@ -2765,7 +3277,7 @@ void Decoder::cdef() {
             }
         }
     });
-    for (int64_t n : filtered) stats[8] += n;
+    for (int64_t n : filtered) stats[11] += n;
 }
 
 // ---- loop restoration (specification 7.17): 64-row stripes offset by 8
@@ -2891,7 +3403,7 @@ void Decoder::loop_restoration(const Plane* pre) {
                 }
             }
         });
-        for (int64_t n : filtered) stats[9] += n;
+        for (int64_t n : filtered) stats[12] += n;
         plane[p] = std::move(out);
     }
 }
@@ -3052,7 +3564,7 @@ void Decoder::film_grain(uint8_t* const out[3]) {
         maxc = mc == 0 ? 235 : 240;
     }
     int sshift = g.scaling_shift;
-    stats[10] = (g.num_y > 0) + (mono ? 0 : (g.num_uv[0] || g.csfl) + (g.num_uv[1] || g.csfl));
+    stats[13] = (g.num_y > 0) + (mono ? 0 : (g.num_uv[0] || g.csfl) + (g.num_uv[1] || g.csfl));
     if (!mono) {
         for (int y = 0; y < chh; y++)
             for (int x = 0; x < cw; x++) {
@@ -3259,16 +3771,17 @@ extern "C" int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info, c
         if (d.cdef_on)
             for (int i = 0; i < (1 << d.cdef_bits); i++)
                 for (int k = 0; k < 4; k++) cdef_nonzero += d.cdef_strength[i][k] != 0;
-        int32_t v[24] = {d.W, d.H, d.bitdepth, d.mono, d.ssx, d.ssy, d.color_range, d.cp,
+        int32_t v[28] = {d.W, d.H, d.bitdepth, d.mono, d.ssx, d.ssy, d.color_range, d.cp,
                          d.tc, d.mc, d.csp, d.profile, d.use128, d.tx_mode,
-                         d.allow_screen_content_tools, d.tile_cols, d.tile_rows, d.lossless,
+                         d.allow_screen_content_tools, d.tile_cols, d.tile_rows, d.coded_lossless,
                          d.lf_level[0] | (d.lf_level[1] << 8) | (d.lf_level[2] << 16) |
                              (d.lf_level[3] << 24),
                          d.base_q_idx,
                          d.qm_level[0] | (d.qm_level[1] << 4) | (d.qm_level[2] << 8),
                          cdef_nonzero,
                          d.lr_type[0] | (d.lr_type[1] << 2) | (d.lr_type[2] << 4),
-                         d.fg.apply};
+                         d.fg.apply, d.seg_enabled, d.delta_q_present, d.delta_lf_present,
+                         d.allow_intrabc};
         memcpy(info, v, sizeof v);
         return 0;
     } catch (const std::exception& e) {
@@ -3434,5 +3947,408 @@ extern "C" void akr_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t
         up_linear(su, u1, w);
         up_linear(sv, v1, w);
         yuv_row(y + size_t(r) * w, u1, v1, rgb + r * row, w, k);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// libavif 1.3.0's avifImageScale: a frame (or alpha plane) whose size
+// differs from its item's ispe or its track's tkhd is scaled to it, plane by
+// plane, with libyuv's ScalePlane(kFilterBox) (scale.cc) as its x86-64 build
+// runs it. ScaleFilterReduce turns the box filter into bilinear where an
+// axis keeps half its size or more, bilinear into linear where the height
+// is kept or divided by 3 (or is 1), linear into none where the width is
+// (or 1); then the routes, in ScalePlane's order:
+//
+// - the width kept: ScalePlaneVertical (rows blended by InterpolateRow);
+// - down by 3/4, 1/2, 3/8 or (box) 1/4 in both axes: ScalePlaneDown34 /
+//   Down2 / Down38 / Down4 (the 3/4 and 3/8 rows of whole groups of 24 and
+//   6 outputs by the SSSE3 rows, which average vertically first, the rest by
+//   the C rows);
+// - box, the height under half: ScalePlaneBox (sums of whole source
+//   pixels times 65536 / area, >> 16);
+// - up by 2 (linear, or bilinear in both axes): ScalePlaneUp2_Linear /
+//   Up2_Bilinear (3:1 and 9:3:3:1);
+// - bilinear up or down (ScalePlaneBilinearUp / Down): 16.16 steps,
+//   InterpolateRow across rows, ScaleFilterCols_SSSE3 across columns (7-bit
+//   fractions);
+// - none: ScalePlaneSimple (nearest).
+//
+//   void akr_scale_plane(const uint8_t* src, int32_t src_w, int32_t src_h,
+//                        uint8_t* dst, int32_t dst_w, int32_t dst_h);
+// (planes packed, rows of their width)
+
+namespace {
+namespace yuv_scale {
+
+enum Filter { kNone, kLinear, kBilinear, kBox };
+
+int fixed_div(int num, int div) { return int((int64_t(num) << 16) / div); }
+int fixed_div1(int num, int div) { return int(((int64_t(num) << 16) - 0x00010001) / (div - 1)); }
+int center_start(int dx, int s) { return dx < 0 ? -((-dx >> 1) + s) : ((dx >> 1) + s); }
+inline int avg(int a, int b) { return (a + b + 1) >> 1; }
+
+Filter filter_reduce(int sw, int sh, int dw, int dh, Filter f) {
+    if (f == kBox && (dw * 2 >= sw || dh * 2 >= sh)) f = kBilinear;
+    if (f == kBilinear) {
+        if (sh == 1 || dh == sh || dh * 3 == sh) f = kLinear;
+        if (sw == 1) f = kNone;
+    }
+    if (f == kLinear && (sw == 1 || dw == sw || dw * 3 == sw)) f = kNone;
+    return f;
+}
+
+void slope(int sw, int sh, int dw, int dh, Filter f, int* x, int* y, int* dx, int* dy) {
+    *x = *y = *dx = *dy = 0;
+    if (dw == 1 && sw >= 32768) dw = sw;
+    if (dh == 1 && sh >= 32768) dh = sh;
+    if (f == kBox) {
+        *dx = fixed_div(sw, dw);
+        *dy = fixed_div(sh, dh);
+    } else if (f == kBilinear || f == kLinear) {
+        if (dw <= sw) {
+            *dx = fixed_div(sw, dw);
+            *x = center_start(*dx, -32768);
+        } else if (sw > 1 && dw > 1) {
+            *dx = fixed_div1(sw, dw);
+        }
+        if (f == kLinear) {
+            *dy = fixed_div(sh, dh);
+            *y = *dy >> 1;
+        } else if (dh <= sh) {
+            *dy = fixed_div(sh, dh);
+            *y = center_start(*dy, -32768);
+        } else if (sh > 1 && dh > 1) {
+            *dy = fixed_div1(sh, dh);
+        }
+    } else {
+        *dx = fixed_div(sw, dw);
+        *dy = fixed_div(sh, dh);
+        *x = center_start(*dx, 0);
+        *y = center_start(*dy, 0);
+    }
+}
+
+// InterpolateRow: rows a and b blended by f / 256 (f = 0: a)
+void interpolate_row(uint8_t* d, const uint8_t* a, const uint8_t* b, int w, int f) {
+    if (!f) { memcpy(d, a, size_t(w)); return; }
+    for (int x = 0; x < w; x++) d[x] = uint8_t((a[x] * (256 - f) + b[x] * f + 128) >> 8);
+}
+
+// ScaleFilterCols_SSSE3: 7-bit fractions of the 16.16 positions
+void filter_cols(uint8_t* d, const uint8_t* s, int dw, int x, int dx) {
+    for (int j = 0; j < dw; j++, x += dx) {
+        int xi = x >> 16, f = (x >> 9) & 127;
+        d[j] = uint8_t(((128 - f) * s[xi] + f * s[xi + 1] + 64) >> 7);
+    }
+}
+
+void vertical(const uint8_t* src, int sw, int sh, uint8_t* dst, int dh, Filter f) {
+    int y = 0, dy = 0;
+    if (dh <= sh) {
+        dy = fixed_div(sh, dh);
+        y = center_start(dy, -32768);
+    } else if (sh > 1 && dh > 1) {
+        dy = fixed_div1(sh, dh);
+    }
+    const int max_y = sh > 1 ? ((sh - 1) << 16) - 1 : 0;
+    for (int j = 0; j < dh; j++, y += dy) {
+        if (y > max_y) y = max_y;
+        const uint8_t* a = src + size_t(y >> 16) * sw;
+        interpolate_row(dst + size_t(j) * sw, a, a + sw, sw, f ? (y >> 8) & 255 : 0);
+    }
+}
+
+void down2(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
+    for (int j = 0; j < dh; j++) {
+        const uint8_t *s = src + size_t(2 * j) * sw, *t = s + sw;
+        for (int x = 0; x < dw; x++)
+            dst[size_t(j) * dw + x] = uint8_t((s[2 * x] + s[2 * x + 1] + t[2 * x] + t[2 * x + 1] + 2) >> 2);
+    }
+}
+
+void down4(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
+    for (int j = 0; j < dh; j++)
+        for (int x = 0; x < dw; x++) {
+            int sum = 0;
+            for (int r = 0; r < 4; r++)
+                for (int c = 0; c < 4; c++) sum += src[size_t(4 * j + r) * sw + 4 * x + c];
+            dst[size_t(j) * dw + x] = uint8_t((sum + 8) >> 4);
+        }
+}
+
+// a 3/4 row from rows s and t: rows 3:1 (w31) or 1:1; the first simd_n
+// outputs as the SSSE3 row (vertically first), the rest as the C row
+void down34_row(const uint8_t* s, const uint8_t* t, uint8_t* d, int dw, bool w31) {
+    int simd_n = dw - dw % 24;
+    for (int x = 0, i = 0; x < dw; x += 3, i += 4) {
+        if (x < simd_n) {
+            int v[4];
+            for (int k = 0; k < 4; k++) v[k] = w31 ? avg(s[i + k], avg(s[i + k], t[i + k])) : avg(s[i + k], t[i + k]);
+            d[x] = uint8_t((3 * v[0] + v[1] + 2) >> 2);
+            d[x + 1] = uint8_t((2 * v[1] + 2 * v[2] + 2) >> 2);
+            d[x + 2] = uint8_t((v[2] + 3 * v[3] + 2) >> 2);
+        } else {
+            int a0 = (s[i] * 3 + s[i + 1] + 2) >> 2, a1 = (s[i + 1] + s[i + 2] + 1) >> 1,
+                a2 = (s[i + 2] + s[i + 3] * 3 + 2) >> 2;
+            int b0 = (t[i] * 3 + t[i + 1] + 2) >> 2, b1 = (t[i + 1] + t[i + 2] + 1) >> 1,
+                b2 = (t[i + 2] + t[i + 3] * 3 + 2) >> 2;
+            if (w31) {
+                d[x] = uint8_t((a0 * 3 + b0 + 2) >> 2);
+                d[x + 1] = uint8_t((a1 * 3 + b1 + 2) >> 2);
+                d[x + 2] = uint8_t((a2 * 3 + b2 + 2) >> 2);
+            } else {
+                d[x] = uint8_t((a0 + b0 + 1) >> 1);
+                d[x + 1] = uint8_t((a1 + b1 + 1) >> 1);
+                d[x + 2] = uint8_t((a2 + b2 + 1) >> 1);
+            }
+        }
+    }
+}
+
+void down34(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
+    const uint8_t* s = src;
+    uint8_t* d = dst;
+    int y = 0;
+    for (; y < dh - 2; y += 3) {
+        down34_row(s, s + sw, d, dw, true);
+        s += sw;
+        d += dw;
+        down34_row(s, s + sw, d, dw, false);
+        s += sw;
+        d += dw;
+        down34_row(s + sw, s, d, dw, true);  // rows 3 and 2, 3:1
+        s += 2 * sw;
+        d += dw;
+    }
+    if (dh % 3 == 2) {
+        down34_row(s, s + sw, d, dw, true);
+        s += sw;
+        d += dw;
+        down34_row(s, s, d, dw, false);
+    } else if (dh % 3 == 1) {
+        down34_row(s, s, d, dw, true);
+    }
+}
+
+// a 3/8 row from 3 rows (s, s + st, s + 2 st) or 2 (s, s + st); the first
+// simd_n outputs of a 2-row box as the SSSE3 row (rows averaged first)
+void down38_row(const uint8_t* s, ptrdiff_t st, uint8_t* d, int dw, bool three) {
+    int simd_n = dw - dw % 6;
+    for (int x = 0, i = 0; x < dw; x += 3, i += 8) {
+        if (three) {
+            int c[8];
+            for (int k = 0; k < 8; k++) c[k] = s[i + k] + s[i + k + st] + s[i + k + 2 * st];
+            d[x] = uint8_t(((c[0] + c[1] + c[2]) * (65536 / 9)) >> 16);
+            d[x + 1] = uint8_t(((c[3] + c[4] + c[5]) * (65536 / 9)) >> 16);
+            d[x + 2] = uint8_t(((c[6] + c[7]) * (65536 / 6)) >> 16);
+        } else if (x < simd_n) {
+            int v[8];
+            for (int k = 0; k < 8; k++) v[k] = avg(s[i + k], s[i + k + st]);
+            d[x] = uint8_t(((v[0] + v[1] + v[2]) * (65536 / 3)) >> 16);
+            d[x + 1] = uint8_t(((v[3] + v[4] + v[5]) * (65536 / 3)) >> 16);
+            d[x + 2] = uint8_t(((v[6] + v[7]) * (65536 / 2)) >> 16);
+        } else {
+            int c[8];
+            for (int k = 0; k < 8; k++) c[k] = s[i + k] + s[i + k + st];
+            d[x] = uint8_t(((c[0] + c[1] + c[2]) * (65536 / 6)) >> 16);
+            d[x + 1] = uint8_t(((c[3] + c[4] + c[5]) * (65536 / 6)) >> 16);
+            d[x + 2] = uint8_t(((c[6] + c[7]) * (65536 / 4)) >> 16);
+        }
+    }
+}
+
+void down38(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
+    const uint8_t* s = src;
+    uint8_t* d = dst;
+    int y = 0;
+    for (; y < dh - 2; y += 3) {
+        down38_row(s, sw, d, dw, true);
+        s += 3 * sw;
+        d += dw;
+        down38_row(s, sw, d, dw, true);
+        s += 3 * sw;
+        d += dw;
+        down38_row(s, sw, d, dw, false);
+        s += 2 * sw;
+        d += dw;
+    }
+    if (dh % 3 == 2) {
+        down38_row(s, sw, d, dw, true);
+        s += 3 * sw;
+        d += dw;
+        down38_row(s, 0, d, dw, true);
+    } else if (dh % 3 == 1) {
+        down38_row(s, 0, d, dw, true);
+    }
+}
+
+void box(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+    int x0, y, dx, dy;
+    slope(sw, sh, dw, dh, kBox, &x0, &y, &dx, &dy);
+    const int max_y = sh << 16;
+    std::vector<uint32_t> row(size_t(sw) + 1);
+    auto min1 = [](int v) { return v < 1 ? 1 : v; };
+    for (int j = 0; j < dh; j++) {
+        int iy = y >> 16;
+        y += dy;
+        if (y > max_y) y = max_y;
+        int bh = min1((y >> 16) - iy);
+        std::fill(row.begin(), row.end(), 0u);
+        for (int k = 0; k < bh; k++)
+            for (int c = 0; c < sw; c++) row[c] = uint16_t(row[c] + src[size_t(iy + k) * sw + c]);
+        uint8_t* d = dst + size_t(j) * dw;
+        if (dx & 0xffff) {  // ScaleAddCols2_C
+            int minw = dx >> 16, x = x0;
+            int tbl[2] = {65536 / (min1(minw) * bh), 65536 / (min1(minw + 1) * bh)};
+            for (int i = 0; i < dw; i++) {
+                int ix = x >> 16;
+                x += dx;
+                int bw = min1((x >> 16) - ix);
+                uint32_t sum = 0;
+                for (int k = 0; k < bw; k++) sum += row[ix + k];
+                d[i] = uint8_t((sum * uint32_t(tbl[bw - minw])) >> 16);
+            }
+        } else if (dx != 0x10000) {  // ScaleAddCols1_C
+            int bw = min1(dx >> 16), scale = 65536 / (bw * bh), x = x0 >> 16;
+            for (int i = 0; i < dw; i++, x += bw) {
+                uint32_t sum = 0;
+                for (int k = 0; k < bw; k++) sum += row[x + k];
+                d[i] = uint8_t((sum * uint32_t(scale)) >> 16);
+            }
+        } else {  // ScaleAddCols0_C
+            int scale = 65536 / bh;
+            for (int i = 0; i < dw; i++) d[i] = uint8_t((row[(x0 >> 16) + i] * uint32_t(scale)) >> 16);
+        }
+    }
+}
+
+// ScaleRowUp2_Linear / ScaleRowUp2_Bilinear (the rows of the YUV -> RGB
+// chroma upsampling above)
+void up2_linear(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+    if (dh == 1) {
+        up_linear(src + size_t((sh - 1) / 2) * sw, dst, dw);
+        return;
+    }
+    int dy = fixed_div(sh - 1, dh - 1), y = (1 << 15) - 1;
+    for (int i = 0; i < dh; i++, y += dy) up_linear(src + size_t(y >> 16) * sw, dst + size_t(i) * dw, dw);
+}
+
+void up2_bilinear(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+    up_linear(src, dst, dw);
+    uint8_t* d = dst + dw;
+    const uint8_t* s = src;
+    for (int x = 0; x < sh - 1; x++) {
+        up_bilinear(s, s + sw, d, d + dw, dw);
+        s += sw;
+        d += 2 * size_t(dw);
+    }
+    if (!(dh & 1)) up_linear(s, d, dw);
+}
+
+void bilinear_up(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh, Filter f) {
+    int x, y, dx, dy;
+    slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
+    const int max_y = (sh - 1) << 16;
+    if (y > max_y) y = max_y;
+    const int row_size = (dw + 31) & ~31;
+    std::vector<uint8_t> rows(size_t(row_size) * 2 + 64);
+    uint8_t* rowptr = rows.data();
+    int rowstride = row_size;
+    int yi = y >> 16, lasty = yi;
+    const uint8_t* s = src + size_t(yi) * sw;
+    filter_cols(rowptr, s, dw, x, dx);
+    if (sh > 1) s += sw;
+    filter_cols(rowptr + rowstride, s, dw, x, dx);
+    if (sh > 2) s += sw;
+    for (int j = 0; j < dh; j++) {
+        yi = y >> 16;
+        if (yi != lasty) {
+            if (y > max_y) {
+                y = max_y;
+                yi = y >> 16;
+                s = src + size_t(yi) * sw;
+            }
+            if (yi != lasty) {
+                filter_cols(rowptr, s, dw, x, dx);
+                rowptr += rowstride;
+                rowstride = -rowstride;
+                lasty = yi;
+                if ((y + 65536) < max_y) s += sw;
+            }
+        }
+        uint8_t* d = dst + size_t(j) * dw;
+        if (f == kLinear) interpolate_row(d, rowptr, rowptr, dw, 0);
+        else interpolate_row(d, rowptr, rowptr + rowstride, dw, (y >> 8) & 255);
+        y += dy;
+    }
+}
+
+void bilinear_down(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh, Filter f) {
+    int x, y, dx, dy;
+    slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
+    const int max_y = (sh - 1) << 16;
+    std::vector<uint8_t> row(size_t(sw) + 64);
+    if (y > max_y) y = max_y;
+    for (int j = 0; j < dh; j++) {
+        const uint8_t* s = src + size_t(y >> 16) * sw;
+        uint8_t* d = dst + size_t(j) * dw;
+        if (f == kLinear) {
+            filter_cols(d, s, dw, x, dx);
+        } else {
+            interpolate_row(row.data(), s, s + sw, sw, (y >> 8) & 255);
+            filter_cols(d, row.data(), dw, x, dx);
+        }
+        y += dy;
+        if (y > max_y) y = max_y;
+    }
+}
+
+void simple(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+    int x0, y, dx, dy;
+    slope(sw, sh, dw, dh, kNone, &x0, &y, &dx, &dy);
+    bool up2 = sw * 2 == dw && x0 < 0x8000;
+    for (int i = 0; i < dh; i++, y += dy) {
+        const uint8_t* s = src + size_t(y >> 16) * sw;
+        uint8_t* d = dst + size_t(i) * dw;
+        if (up2) {
+            for (int j = 0; j < dw; j++) d[j] = s[j >> 1];
+        } else {
+            int x = x0;
+            for (int j = 0; j < dw; j++, x += dx) d[j] = s[x >> 16];
+        }
+    }
+}
+
+}  // namespace yuv_scale
+}  // namespace
+
+extern "C" void akr_scale_plane(const uint8_t* src, int32_t sw, int32_t sh, uint8_t* dst, int32_t dw,
+                                int32_t dh) {
+    using namespace yuv_scale;
+    Filter f = filter_reduce(sw, sh, dw, dh, kBox);
+    if (dw == sw && dh == sh) {
+        memcpy(dst, src, size_t(sw) * sh);
+    } else if (dw == sw && f != kBox) {
+        vertical(src, sw, sh, dst, dh, f);
+    } else if (dw <= sw && dh <= sh && 4 * dw == 3 * sw && 4 * dh == 3 * sh) {
+        down34(src, sw, dst, dw, dh);
+    } else if (dw <= sw && dh <= sh && 2 * dw == sw && 2 * dh == sh) {
+        down2(src, sw, dst, dw, dh);
+    } else if (dw <= sw && dh <= sh && 8 * dw == 3 * sw && 8 * dh == 3 * sh) {
+        down38(src, sw, dst, dw, dh);
+    } else if (dw <= sw && dh <= sh && 4 * dw == sw && 4 * dh == sh && (f == kBox || f == kNone)) {
+        down4(src, sw, dst, dw, dh);
+    } else if (f == kBox && dh * 2 < sh) {
+        box(src, sw, sh, dst, dw, dh);
+    } else if ((dw + 1) / 2 == sw && f == kLinear) {
+        up2_linear(src, sw, sh, dst, dw, dh);
+    } else if ((dh + 1) / 2 == sh && (dw + 1) / 2 == sw && (f == kBilinear || f == kBox)) {
+        up2_bilinear(src, sw, sh, dst, dw, dh);
+    } else if (f != kNone && dh > sh) {
+        bilinear_up(src, sw, sh, dst, dw, dh, f);
+    } else if (f != kNone) {
+        bilinear_down(src, sw, sh, dst, dw, dh, f);
+    } else {
+        simple(src, sw, sh, dst, dw, dh);
     }
 }

@@ -33,8 +33,9 @@ by a hash of the source, the compiler and the flags, and loaded with
 - ``lcms``: ``lcms_lab.cpp``, LittleCMS's tetrahedral interpolation of 8-bit
   Lab pixels on the Lab -> sRGB table (``core/lcms.py``);
 - ``av1``: ``av1_decode.cpp``, the AV1 intra frames of AVIF images to YUV
-  planes, and libavif's (libyuv's) YUV -> RGB (``core/avif.py``); its
-  default CDFs and lookup tables are in ``av1_tables.h``.
+  planes, libavif's (libyuv's) plane scaling and YUV -> RGB
+  (``core/avif.py``); its default CDFs and lookup tables are in
+  ``av1_tables.h``.
 
 Unlike the reference loader, a failed build raises: the Python BVH builder
 would give another triangle storage order, and the JPEG (Huffman and
@@ -243,7 +244,7 @@ def _bind_av1(lib):
     i32, p = ctypes.c_int32, ctypes.c_void_p
     lib.akr_av1_probe.restype = ctypes.c_int
     lib.akr_av1_probe.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[24]
+        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[28]
         ctypes.c_char_p, i32,                              # err, errlen
     ]
     lib.akr_av1_sequence_header.restype = ctypes.c_int
@@ -253,13 +254,15 @@ def _bind_av1(lib):
     lib.akr_av1_decode.restype = ctypes.c_int
     lib.akr_av1_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, p, p, p,          # data, size, y, u, v
-        p, ctypes.c_char_p, i32,                           # stats[11], err, errlen
+        p, ctypes.c_char_p, i32,                           # stats[14], err, errlen
     ]
     lib.akr_yuv_to_rgb.restype = None
     lib.akr_yuv_to_rgb.argtypes = [
         p, p, p, i32, i32,                                 # y, u, v, width, height
         i32, i32, i32, p, p,                               # ssx, ssy, mono, k[6], rgb
     ]
+    lib.akr_scale_plane.restype = None
+    lib.akr_scale_plane.argtypes = [p, i32, i32, p, i32, i32]  # src, w, h, dst, w, h
 
 
 # name -> (source, library file, what needs it, ctypes binding)

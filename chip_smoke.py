@@ -235,18 +235,19 @@ Phases (each checks its results; any failure exits non-zero):
     palettes, alpha, animations, a random VP8 frame); the 2048^2 albedo as
     the committed lossy WebP and as a lossless one written here by
     ``vp8l_bytes`` (the machine has no encoder), each decode's median of 3
-    no slower than the PNG route's; the config-3 CLI on a PNG of the lossy
-    WebP's pixels, on the lossy WebP and on the lossless WebP (frames
-    bit-equal pairwise, the lossless one's to phase 51's PNG route of the
-    same pixels, 6 tree closest launches each);
+    no slower than the PNG route's; the config-3 CLI on the lossy WebP and
+    on the lossless WebP (6 tree closest launches each, the lossless one's
+    frame bit-equal to phase 51's PNG route of the same pixels; the lossy
+    one's PNG route of its pixels is held on the CPU by
+    ``tests/test_torch_image_webp.py``, as phase 54 took its run);
 45. the DDS, BLP and FTEX decoders: their fixtures' digests (every BCn
     form, the DX10 header, the mask, luminance and palette forms, BLP1
     JPEG and palette, BLP2 palette and DXT, FTEX); the 2048^2 albedo
     written here by ``tools/dds_writers.py`` as BC1 (FourCC DXT1) and as
     BC7 (DX10, BC7_UNORM_SRGB), each with its full mip chain, each
     decode's median of 3 no slower than the PNG route's; the config-3 CLI
-    on a PNG of each DDS's decoded pixels and on the DDS (frames bit-equal
-    pairwise, 6 tree closest launches each);
+    on each DDS (6 tree closest launches each; the PNG route of a DDS's
+    pixels is held on the CPU by ``tests/test_torch_image_dds.py``);
 46. the ICO / CUR, QOI, SGI and PCX decoders and the LZMA / ZSTD TIFF
     strips: their fixtures' digests; the 2048^2 albedo written here as
     QOI, RLE SGI and 24-bit RLE PCX by ``tools/legacy_writers.py`` and as
@@ -270,11 +271,11 @@ Phases (each checks its results; any failure exits non-zero):
     (written here by ``tools/tiff_writers.py`` over spawned processes,
     decoding to what was written) and the committed JPEG wrapped as an
     old-style JPEG TIFF, each decode's median of 3 beside the PNG route's;
-    the config-3 CLI on a PNG of the Group 4 file's pixels, on the Group 4
-    file, on a PNG of the old-style JPEG's pixels and on the old-style JPEG
-    (frames bit-equal pairwise, 6 tree closest launches each; no launch
-    held to the plain walk since phase 53 came: phase 51 and the path
-    phases hold the tree kernel to it);
+    the config-3 CLI on the Group 4 file and on the old-style JPEG (6 tree
+    closest launches each; the PNG route of a TIFF's pixels is held on the
+    CPU by ``tests/test_torch_image_tiff.py``; no launch held to the plain
+    walk since phase 53 came: phase 51 and the path phases hold the tree
+    kernel to it);
 49. the JPEG 2000 decoder: the J2K / JP2 fixtures' digests (both
     wavelets, the five progressions, tiles, tile-parts, precincts, POC,
     every code-block style, ROI, subsampled, signed and 1-16-bit
@@ -331,11 +332,16 @@ Phases (each checks its results; any failure exits non-zero):
     bit-equal to phase 49's on the J2K of the same pixels (no launch held);
 54. AVIF: the fixtures of ``tests/data/torch_port_avif`` (format, PIL's
     mode and digest; 4:2:0 / 4:2:2 / 4:4:4 / grey, alpha, tiles, palettes,
-    lossless, idat, nclx matrices); the committed 2048^2 albedo at quality
-    60, speed 6 (287,591 bytes: 128x128 superblocks, 4 x 2 tiles), its
-    decode's median of 3 beside phase 41's PNG median; the config-3 CLI on
-    a PNG of its decoded pixels and on the AVIF (frames bit-equal, 6 tree
-    closest launches each);
+    lossless, idat, nclx matrices, the tools of PIL's writer's speeds 0-4 and
+    ``advanced`` options: CDEF, quantizer matrices, film grain, loop
+    restoration, delta q / lf, intra block copy, segmentation; sequences
+    and a grid); three committed 2048^2 albedos, each decode's median of 3
+    beside phase 41's PNG median: quality 60, speed 6 (287,591 bytes:
+    128x128 superblocks, 4 x 2 tiles), speed 4 with CDEF, quantizer
+    matrices, film grain and loop restoration, and frame 0 of a two-frame
+    ``aq-mode=1`` ``avis`` sequence (153,394 bytes, segmented); the
+    config-3 CLI on a PNG of the sequence's decoded frame 0 and on the
+    sequence (frames bit-equal, 6 tree closest launches each);
 55. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
@@ -3096,16 +3102,17 @@ def webp_phase(card, traversal, cli_render):
     """Phase 44: the WebP decoder on this machine (no PIL here): the WebP
     fixtures' digests, the 2048^2 albedo as the committed lossy WebP and as
     a lossless one written here (``vp8l_bytes``), each decode's median of 3
-    no slower than the PNG route's, and the config-3 CLI on both against
-    the PNG route of their decoded pixels (bit-equal frames, 6 tree closest
-    launches each; main holds the lossless one's to phase 51's PNG-route
-    frame of the same pixels); returns the figures it logs and that
-    frame."""
+    no slower than the PNG route's, and the config-3 CLI on both (6 tree
+    closest launches each; main holds the lossless one's frame to phase
+    51's PNG-route frame of the same pixels; the lossy one's PNG route is
+    held on the CPU, ``tests/test_torch_image_webp.py::
+    test_obj_map_kd_webp_renders_equal_to_the_png_route``); returns the
+    figures it logs and that frame."""
     import hashlib
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, encode_png
+    from akari_torch.core.image import decode_image
 
     t_phase = time.perf_counter()
     log(f"phase 44: WebP decoding without PIL: the fixtures' digests, the 2048^2 albedo as "
@@ -3130,7 +3137,6 @@ def webp_phase(card, traversal, cli_render):
     lossless = vp8l_bytes(albedo)
     log(f"  wrote the 2048^2 lossless WebP in {time.perf_counter() - t0:.2f} s ({len(lossless)} "
         "bytes: subtract-green, prefix codes from the histograms)")
-    lossy_px = decode_image(lossy, ALBEDO_WEBP)
     check(np.array_equal(decode_image(lossless, "lossless"), albedo),
           "the lossless 2048^2 WebP decodes to other pixels than it was written from")
     out = {}
@@ -3149,14 +3155,10 @@ def webp_phase(card, traversal, cli_render):
 
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
-        {"albedo_q85.webp": lossy, "albedo_lossless.webp": lossless,
-         "lossy_decoded.png": encode_png(lossy_px)},
-        ("lossy_decoded.png", "albedo_q85.webp", "albedo_lossless.webp"), set())
+        {"albedo_q85.webp": lossy, "albedo_lossless.webp": lossless},
+        ("albedo_q85.webp", "albedo_lossless.webp"), set())
     out.update(cli)
-    check(np.array_equal(frames["albedo_q85.webp"], frames["lossy_decoded.png"]),
-          "the frame on the lossy WebP differs from the frame on a PNG of its decoded pixels")
-    log("  the lossy WebP albedo frame is bit-equal to the frame on a PNG of its decoded pixels "
-        "(phase 51 holds the lossless one to the PNG route's)")
+    log("  phase 51 holds the lossless WebP albedo's frame to the PNG route's")
     out["frame"] = frames["albedo_lossless.webp"]
     log(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -3167,14 +3169,16 @@ def dds_phase(card, traversal, cli_render):
     here): their fixtures' digests; the 2048^2 albedo written by
     ``tools/dds_writers.py`` as BC1 (FourCC DXT1) and as BC7 (DX10,
     BC7_UNORM_SRGB), each with its full mip chain, each decode's median of
-    3 no slower than the PNG route's; and the config-3 CLI on a PNG of each
-    DDS's decoded pixels and on the DDS (frames bit-equal pairwise, 6 tree
-    closest launches each); returns the figures it logs."""
+    3 no slower than the PNG route's; and the config-3 CLI on each DDS (6
+    tree closest launches each; the PNG route of a DDS's pixels is held on
+    the CPU, ``tests/test_torch_image_dds.py::
+    test_obj_map_kd_dds_renders_equal_to_the_png_route``); returns the
+    figures it logs."""
     import hashlib
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, encode_png
+    from akari_torch.core.image import decode_image
     from tools.dds_writers import dds_albedo
 
     t_phase = time.perf_counter()
@@ -3219,17 +3223,10 @@ def dds_phase(card, traversal, cli_render):
         check(med <= png_s, f"the {form} DDS decodes the albedo slower than the PNG route: "
               f"{med:.4f} s against {png_s:.4f} s")
 
-    frames, cli, _ = config3_cli_runs(
-        card, traversal, cli_render,
-        {**{f"albedo_{form}.dds": data for form, data in files.items()},
-         **{f"{form}_decoded.png": encode_png(px) for form, px in decoded.items()}},
-        ("BC1_decoded.png", "albedo_BC1.dds", "BC7_decoded.png", "albedo_BC7.dds"), set())
+    _, cli, _ = config3_cli_runs(
+        card, traversal, cli_render, {f"albedo_{form}.dds": data for form, data in files.items()},
+        ("albedo_BC1.dds", "albedo_BC7.dds"), set())
     out.update(cli)
-    for form in files:
-        check(np.array_equal(frames[f"albedo_{form}.dds"], frames[f"{form}_decoded.png"]),
-              f"the frame on the {form} DDS differs from the frame on a PNG of its pixels")
-    log("  the BC1 and BC7 DDS albedo frames are bit-equal to the frames on PNGs of their "
-        "decoded pixels")
     log(f"  phase 45: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3461,17 +3458,18 @@ def fax_phase(card, traversal, cli_render):
     ``tools/tiff_writers.py``; the first two must decode to the pixels
     written, the third to the committed JPEG's stream as libtiff's RGBA
     reader converts it), each decode's median of 3 beside the PNG route's;
-    and the config-3 CLI on a PNG of the Group 4 file's pixels, on the
-    Group 4 file, on a PNG of the old-style JPEG's pixels and on the
-    old-style JPEG (frames bit-equal pairwise, 6 tree closest launches
-    each); returns the figures it logs."""
+    and the config-3 CLI on the Group 4 file and on the old-style JPEG (6
+    tree closest launches each; the PNG route of a TIFF's pixels is held on
+    the CPU, ``tests/test_torch_image_tiff.py::
+    test_obj_map_kd_tiff_renders_equal_to_the_png_route``); returns the
+    figures it logs."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
 
-    from akari_torch.core.image import decode_image, encode_png
+    from akari_torch.core.image import decode_image
 
     t_phase = time.perf_counter()
     log(f"phase 48: CCITT, ThunderScan and old-style JPEG TIFF decoding without PIL: the "
@@ -3521,18 +3519,11 @@ def fax_phase(card, traversal, cli_render):
         log(f"  2048^2 {form} TIFF decode on the host, median of 3: {med:.4f} s ({len(data)} "
             f"bytes; runs {', '.join(f'{t:.4f}' for t in runs)}) [card: {card}]")
 
-    frames, cli, _ = config3_cli_runs(
+    _, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
-        {"albedo_g4.png": encode_png(decoded["group4"]), "albedo_g4.tif": files["group4"],
-         "albedo_oj.png": encode_png(decoded["old-style JPEG"]),
-         "albedo_oj.tif": files["old-style JPEG"]},
-        ("albedo_g4.png", "albedo_g4.tif", "albedo_oj.png", "albedo_oj.tif"), set())
+        {"albedo_g4.tif": files["group4"], "albedo_oj.tif": files["old-style JPEG"]},
+        ("albedo_g4.tif", "albedo_oj.tif"), set())
     out.update(cli)
-    for name in ("g4", "oj"):
-        check(np.array_equal(frames[f"albedo_{name}.tif"], frames[f"albedo_{name}.png"]),
-              f"the frame on albedo_{name}.tif differs from the PNG route's of its pixels")
-    log("  the Group 4 and old-style JPEG albedos' frames are bit-equal to the PNG route's of "
-        "their pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 48: {out['phase_s']:.1f} s")
     return out
@@ -3712,17 +3703,21 @@ AVIF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_avif")
 ALBEDO_AVIF = "albedo2048_q60.avif"   # envtex_texture(2048, 0), quality 60, speed 6, 4:2:0
 # the same at speed 4 with CDEF, quantizer matrices, film grain and loop restoration
 ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
+# frame 0 of a two-frame avis sequence (the albedo, then its vertical flip) at
+# speed 6 with aq-mode=1: a segmented frame
+ALBEDO_AVIF_AQ = "albedo2048_q60_s6_aq1.avis.avif"
 
 
 def avif_phase(card, traversal, cli_render):
     """Phase 54: AVIF on this machine (no PIL, no AV1 encoder here): the
     fixtures of ``tests/data/torch_port_avif`` (format, PIL's mode and
     SHA-256 in their ``digests.json``: the tools of every writer speed and
-    option, a sequence and a grid among them); the committed 2048^2 albedo
-    at quality 60, speed 6 (128x128 superblocks, 4 x 2 tiles) and at speed
-    4 with CDEF, quantizer matrices, film grain and loop restoration, each
+    option, sequences and a grid among them); the committed 2048^2 albedo
+    at quality 60, speed 6 (128x128 superblocks, 4 x 2 tiles), at speed 4
+    with CDEF, quantizer matrices, film grain and loop restoration, and as
+    frame 0 of a two-frame ``aq-mode=1`` sequence (segmented), each
     decode's median of 3 beside phase 41's PNG median; and the config-3
-    CLI on a PNG of the tools albedo's decoded pixels and on that AVIF
+    CLI on a PNG of the sequence's decoded frame 0 and on that AVIF
     (frames bit-equal, 6 tree closest launches each); returns the figures
     it logs."""
     import hashlib
@@ -3734,8 +3729,8 @@ def avif_phase(card, traversal, cli_render):
 
     t_phase = time.perf_counter()
     log(f"phase 54: AVIF decoding without PIL: the fixtures' digests, the 2048^2 albedos as "
-        f"AVIF (speed 6; speed 4 with CDEF, quantizer matrices, film grain, loop restoration), "
-        f"the config-3 CLI on the tools albedo [card: {card}]")
+        f"AVIF (speed 6; speed 4 with CDEF, quantizer matrices, film grain, loop restoration; "
+        f"a segmented aq-mode=1 sequence), the config-3 CLI on the sequence [card: {card}]")
     with open(os.path.join(AVIF_FIXTURES, "digests.json")) as f:
         digests = json.load(f)
     albedo, first_s = {}, {}
@@ -3750,21 +3745,22 @@ def avif_phase(card, traversal, cli_render):
               and digest == rec["sha256"],
               f"{fname}: read as {fmt} {mode} {px.shape}, sha256 {digest[:16]}..., PIL's "
               f"{rec['mode']} {rec['sha256'][:16]}...")
-        if fname in (ALBEDO_AVIF, ALBEDO_AVIF_TOOLS):
+        if fname in (ALBEDO_AVIF, ALBEDO_AVIF_TOOLS, ALBEDO_AVIF_AQ):
             albedo[fname], first_s[fname] = (data, px), decode_s
     pil = sorted({rec["pil"] for rec in digests.values()})
-    check(len(digests) >= 26 and len(albedo) == 2,
+    check(len(digests) >= 36 and len(albedo) == 3,
           f"{len(digests)} AVIF fixtures, the albedos {sorted(albedo)} in them")
     log(f"  {len(digests)} fixtures decoded (RGB and RGBA, 4:2:0 / 4:2:2 / 4:4:4 / grey, tiles, "
         f"palettes, lossless, CDEF, quantizer matrices, film grain, Wiener and self-guided "
-        f"restoration, a 3-frame sequence, a 3 x 2 grid); every SHA-256 and mode equals PIL "
-        f"{', '.join(pil)}'s in digests.json")
+        f"restoration, delta q / lf, intra block copy, segmentation, sequences, a 3 x 2 grid); "
+        f"every SHA-256 and mode equals PIL {', '.join(pil)}'s in digests.json")
     out = {}
     png_s, png_runs = png_decode_median()  # phase 41's
     out["png_decode_s"] = png_s
     log(f"  2048^2 PNG decode on the host, median of 3 (phase 41's): {png_s:.4f} s "
         f"(runs {', '.join(f'{t:.4f}' for t in png_runs)}) [card: {card}]")
-    for fname, key in ((ALBEDO_AVIF, "avif_decode_s"), (ALBEDO_AVIF_TOOLS, "avif_tools_decode_s")):
+    for fname, key in ((ALBEDO_AVIF, "avif_decode_s"), (ALBEDO_AVIF_TOOLS, "avif_tools_decode_s"),
+                       (ALBEDO_AVIF_AQ, "avif_aq_decode_s")):
         data = albedo[fname][0]
         info = avif_frame_info(data)
         log(f"  {fname}: {len(data)} bytes, {info['width']} x {info['height']}, "
@@ -3772,14 +3768,15 @@ def avif_phase(card, traversal, cli_render):
             f"{info['tile_rows']} tiles, base_q_idx {info['base_q_idx']}, quantizer-matrix "
             f"levels 0x{info['qm_levels']:03x} (fff: none), {info['cdef_strengths']} nonzero CDEF "
             f"strengths, restoration types 0b{info['lr_types']:06b} (v u y), film grain "
-            f"{info['film_grain']}")
+            f"{info['film_grain']}, segmentation {info['segmentation']}, delta q "
+            f"{info['delta_q']}, intra block copy {info['intrabc']}")
         # the digest's decode is the first of the three runs
         runs = [first_s[fname]] + _median_s(lambda: decode_with_mode(data, fname), 2)[1]
         med = sorted(runs)[1]
         out[key] = med
         log(f"  2048^2 AVIF decode on the host ({fname}), median of 3: {med:.4f} s (runs "
             f"{', '.join(f'{t:.4f}' for t in runs)}; {med / png_s:.2f}x the PNG's) [card: {card}]")
-    tools_data, tools_px = albedo[ALBEDO_AVIF_TOOLS]
+    tools_data = albedo[ALBEDO_AVIF_TOOLS][0]
     filters = {}
     avif_planes(tools_data, ALBEDO_AVIF_TOOLS, filters=filters)
     info = avif_frame_info(tools_data)
@@ -3790,14 +3787,23 @@ def avif_phase(card, traversal, cli_render):
     log(f"  the tools albedo's filters: {filters['cdef_blocks']} 8x8 blocks CDEF-filtered, "
         f"{filters['lr_stripes']} restoration unit stripes, grain on {filters['grain_planes']} "
         f"planes")
+    aq_data, aq_px = albedo[ALBEDO_AVIF_AQ]
+    stats = {}
+    avif_planes(aq_data, ALBEDO_AVIF_AQ, stats)
+    info = avif_frame_info(aq_data)
+    check(info["segmentation"] and stats["segmented_blocks"] > 0,
+          f"the aq-mode albedo's frame 0 is not segmented: {info}, {stats}")
+    log(f"  the aq-mode albedo's frame 0: {stats['segmented_blocks']} of {stats['blocks']} blocks "
+        f"in a nonzero segment, {stats['delta_q_superblocks']} superblocks with a delta q, "
+        f"{stats['intrabc_blocks']} intra block copies")
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
-        {"albedo_avif.png": encode_png(tools_px), "albedo.avif": tools_data},
+        {"albedo_avif.png": encode_png(aq_px), "albedo.avif": aq_data},
         ("albedo_avif.png", "albedo.avif"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo.avif"], frames["albedo_avif.png"]),
-          "the frame on the tools AVIF albedo differs from the PNG route's of its pixels")
-    log("  the tools AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
+          "the frame on the aq-mode AVIF albedo differs from the PNG route's of its pixels")
+    log("  the aq-mode AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 54: {out['phase_s']:.1f} s")
     return out

@@ -6,8 +6,10 @@ threads as libavif runs it, so that every OBU of the data is parsed before
 the frame is output) and returns its planes; ``libavif_rgb`` runs libavif's
 ``avifImageYUVToRGB`` on planes the test gives (an ``avifImage`` made by
 ``avifImageCreate`` and filled through its field offsets, RGB or RGBA
-out, libavif's default chroma upsampling). PIL is imported first, so that
-the bundled libraries resolve.
+out, libavif's default chroma upsampling); ``libavif_scale`` runs
+``avifImageScale`` (libyuv's ScalePlane with the box filter, as libavif
+scales a frame to its item's size) on such an image. PIL is imported
+first, so that the bundled libraries resolve.
 
 The structure offsets are libavif 1.3.0's and dav1d 1.5.1's on x86-64
 (``avifImage``: yuvRange at 16, yuvPlanes at 24, yuvRowBytes at 48,
@@ -16,7 +18,8 @@ colorPrimaries / transferCharacteristics / matrixCoefficients at 104 /
 106 / 108; ``avifRGBImage``: format at 12, pixels / rowBytes at 48 / 56;
 ``Dav1dSettings``: n_threads / max_frame_delay at 0 / 4; ``Dav1dPicture``: data at 16, stride at 40,
 p.w / p.h / p.layout at 56 / 60 / 64); ``check_layout`` reads a fresh image's defaults back through
-them.
+them, ``check_scale_layout`` the size and row bytes ``avifImageScale``
+writes back.
 """
 
 import ctypes
@@ -46,6 +49,7 @@ def lib():
         a.avifRGBImageAllocatePixels.argtypes = [p]
         a.avifRGBImageFreePixels.argtypes = [p]
         a.avifImageYUVToRGB.argtypes = [p, p]
+        a.avifImageScale.argtypes = [p, ctypes.c_uint32, ctypes.c_uint32, p]
         a.avifVersion.restype = ctypes.c_char_p
         a.dav1d_default_settings.argtypes = [p]
         a.dav1d_open.argtypes = [ctypes.POINTER(p), p]
@@ -77,6 +81,25 @@ def check_layout():
         rgb = ctypes.create_string_buffer(128)
         a.avifRGBImageSetDefaults(rgb, im)
         assert struct.unpack_from("<4I", rgb.raw, 0) == (4, 4, 8, 1)
+    finally:
+        a.avifImageDestroy(im)
+
+
+def check_scale_layout():
+    """A 4x4 4:2:0 image with alpha scaled to 6x2: width and height at 0 /
+    4, the planes' row bytes at 48 and the alpha's at 72 at least their
+    widths (6, 3, 3, 6), every plane pointer set."""
+    a = lib()
+    im = a.avifImageCreate(4, 4, 8, 3)
+    try:
+        a.avifImageAllocatePlanes(im, 0xFF)
+        diag = ctypes.create_string_buffer(512)
+        assert a.avifImageScale(im, 6, 2, diag) == 0
+        raw = ctypes.string_at(im, 112)
+        assert struct.unpack_from("<2I", raw, 0) == (6, 2)
+        rows = struct.unpack_from("<3I", raw, 48) + struct.unpack_from("<I", raw, 72)
+        assert all(r >= w for r, w in zip(rows, (6, 3, 3, 6))), rows
+        assert all(struct.unpack_from("<3Q", raw, 24)) and struct.unpack_from("<Q", raw, 64)[0]
     finally:
         a.avifImageDestroy(im)
 
@@ -122,6 +145,50 @@ def libavif_rgb(y, u, v, fmt, full, matrix, primaries=1, transfer=13, alpha=None
             out = out[:, :w * ch].reshape(h, w, ch).copy()
         finally:
             a.avifRGBImageFreePixels(rgb)
+        return res, out
+    finally:
+        a.avifImageDestroy(im)
+
+
+def libavif_scale(planes, fmt, width, height, dst_width, dst_height):
+    """avifImageScale of an 8-bit image of ``width`` x ``height`` with
+    ``planes`` ([Y, U, V] of their sizes, or [Y] for 4:0:0; plus the alpha
+    plane last, where given beyond them) to ``dst_width`` x ``dst_height``:
+    (result, its planes in the same order)."""
+    a = lib()
+    n_yuv = 1 if fmt == "400" else 3
+    im = a.avifImageCreate(width, height, 8, _FORMATS[fmt])
+    try:
+        has_alpha = len(planes) > n_yuv
+        a.avifImageAllocatePlanes(im, 0xFF if has_alpha else 1)
+
+        def slots():
+            raw = ctypes.string_at(im, 112)
+            ptrs = list(struct.unpack_from("<3Q", raw, 24))[:n_yuv]
+            rows = list(struct.unpack_from("<3I", raw, 48))[:n_yuv]
+            if has_alpha:
+                ap, ar = struct.unpack_from("<QI", raw, 64)
+                ptrs.append(ap)
+                rows.append(ar)
+            return ptrs, rows
+
+        ptrs, rows = slots()
+        for k, arr in enumerate(planes):
+            arr = np.ascontiguousarray(arr, np.uint8)
+            for r in range(arr.shape[0]):
+                ctypes.memmove(ptrs[k] + r * rows[k], arr[r].tobytes(), arr.shape[1])
+        diag = ctypes.create_string_buffer(512)
+        res = a.avifImageScale(im, dst_width, dst_height, diag)
+        if res != 0:
+            return res, None
+        ptrs, rows = slots()
+        ssx, ssy = {"444": (0, 0), "422": (1, 0), "420": (1, 1), "400": (0, 0)}[fmt]
+        out = []
+        for k in range(len(planes)):
+            sx, sy = (ssx, ssy) if 0 < k < n_yuv else (0, 0)
+            w, h = (dst_width + sx) >> sx, (dst_height + sy) >> sy
+            px = np.frombuffer(ctypes.string_at(ptrs[k], rows[k] * h), np.uint8)
+            out.append(px.reshape(h, rows[k])[:, :w].copy())
         return res, out
     finally:
         a.avifImageDestroy(im)

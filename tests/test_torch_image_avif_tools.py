@@ -173,7 +173,7 @@ def test_speeds_0_and_1_with_every_tool_read_as_pil(tmp_path):
 @pytest.mark.parametrize("seed", range(4))
 def test_seeded_corruption_of_tool_files_reads_as_pil_or_is_refused(seed):
     """Bytes changed anywhere in tool-bearing files: each read equals PIL's,
-    or both fail, or the port refuses a form of slice 24 naming it."""
+    or both fail, or the port refuses a form still out of scope naming it."""
     r = np.random.default_rng(2350 + seed)
     bases = [_save(_tex(40, 56, k), quality=40, speed=2 + k % 3, subsampling=SUBSAMPLINGS[k],
                    advanced={"enable-cdef": "1", "enable-qm": "1", "denoise-noise-level": "10"})
@@ -376,13 +376,12 @@ def test_boxes_after_the_last_box_libavif_needs_are_not_read(kind, tail):
 
 def test_a_track_of_another_size_is_refused_naming_it():
     """A track header of another size than the frame's: libavif scales the
-    frame (slice 24); the port refuses it."""
+    frame to it (avifImageScale), and so does the port, as PIL reads it."""
     s = Sequence(_sequence(2, False))
     _set((), b"tkhd", ">II", 88, 48 << 16, 34 << 16)(s)
     data = s.build()
-    assert _pil(data)[0] == "ok"
-    with pytest.raises(ValueError, match="AV1 frame of 24 x 17 in an AVIF item of 48 x 34"):
-        port_image.decode_image(data)
+    assert _agree(data) == "ok"
+    assert port_image.decode_image(data).shape == (34, 48, 3)
 
 
 @pytest.mark.parametrize("seed", range(3))

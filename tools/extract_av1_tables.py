@@ -102,6 +102,27 @@ MODE_CDFS = {
     "restoration_type": ((), 3, 4, 0x1190, 4),        # switchable: none, Wiener, self-guided
     "use_wiener": ((), 2, 2, 0x1198, 2),
     "use_sgrproj": ((), 2, 2, 0x119C, 2),
+    # segmentation, delta q / lf, intra block copy and its transforms
+    "seg_id": ((3,), 8, 8, 0xB90, 8),
+    "delta_q": ((), 4, 4, 0x1160, 4),
+    "delta_lf": ((5,), 4, 4, 0x1168, 4),              # single, then multi (4)
+    "inter_tx_set1": ((2,), 16, 16, 0x680, 16),
+    "inter_tx_set2": ((), 12, 16, 0x6C0, 16),
+    "inter_tx_set3": ((4,), 2, 2, 0x11A0, 2),
+    "txfm_split": ((7, 3), 2, 2, 0x1208, 2),          # the specification's 21 contexts
+    "intrabc": ((), 2, 2, 0x12C4, 2),
+}
+# dav1d's default_mv_component_cdf (its classes row, then sign and class0
+# inverted: 128 * 128 and 216 * 128) and default_mv_joint_cdf, the CDFs of
+# an intra block copy's vector: name -> (shape, symbols, stride, byte
+# offset in the component, dav1d's stride)
+MV_ANCHOR = (4096, 1792, 910, 448, 217, 112, 28, 11, 6, 1, 0, 0, 0, 0, 0, 0, 16384, 0, 5120, 0)
+MV_JOINT_ANCHOR = (28672, 21504, 13440, 0)
+MV_CDFS = {
+    "mv_classes": ((), 11, 16, 0x00, 16),
+    "mv_sign": ((), 2, 2, 0x20, 2),
+    "mv_class0": ((), 2, 2, 0x24, 2),
+    "mv_bits": ((10,), 2, 2, 0x3C, 2),
 }
 # CdfCoefContext tables: name -> (shape within one qindex context, symbols,
 # stride, byte offset in the structure, dav1d's stride, dav1d's shape)
@@ -249,6 +270,15 @@ def tables(blob=None):
         if name == "use_filter_intra":  # dav1d's block-size order -> the spec's
             arr = arr[[DAV1D_BSIZES.index(b) for b in SPEC_BSIZES]]
         out[name] = (arr, "uint16_t", f"dav1d CdfModeContext at 0x{off:x}")
+    mv = _find_one(blob, MV_ANCHOR, "<H", "dav1d's default_mv_component_cdf")
+    for name, (shape, nsym, stride, rel, src) in MV_CDFS.items():
+        arr, off = _take(blob, mv + rel, shape, nsym, stride, src, name)
+        out[name] = (arr, "uint16_t", f"dav1d default_mv_component_cdf at 0x{off:x}")
+    joint = [h for h in _find(blob, MV_JOINT_ANCHOR, "<H") if mv < h < mv + 0x100]
+    if len(joint) != 1:
+        raise RuntimeError("dav1d's default_mv_joint_cdf not found after its component CDFs")
+    arr, _ = _take(blob, joint[0], (), 4, 4, 4, "mv_joint")
+    out["mv_joint"] = (arr, "uint16_t", f"dav1d default_mv_joint_cdf at 0x{joint[0]:x}")
     kf = _find_one(blob, KF_ANCHOR, "<H", "dav1d's key-frame y-mode CDF")
     arr, _ = _take(blob, kf, (5, 5), 13, 16, 16, "kf_y_mode")
     out["kf_y_mode"] = (arr, "uint16_t", f"dav1d default_kf_y_mode_cdf at 0x{kf:x}")

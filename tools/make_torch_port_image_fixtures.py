@@ -90,7 +90,9 @@ Writes into ``tests/data/torch_port_images/``:
   by ``tools/avif_writers.py`` (the item in ``idat``, BT.709, FCC and
   identity nclx matrices), a few KB each; and ``ALBEDO_AVIF``:
   ``envtex_texture(2048, 0)`` at quality 60, speed 6, 4:2:0 (287,591
-  bytes), which the card's machine, without an AV1 encoder, decodes;
+  bytes), which the card's machine, without an AV1 encoder, decodes; the
+  AV1 tools PIL's writer makes through ``advanced=`` (``avif_tool_fixtures``,
+  ``avif_seg_ibc_fixtures``) and their 2048^2 albedos;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them;
@@ -111,7 +113,11 @@ Usage: python tools/make_torch_port_image_fixtures.py [-o DIR]
            [--only jpeg2000|htj2k|lab_pnm_dib_icns|plugins|rasters|avif]
 
 ``--only avif`` rewrites ``tests/data/torch_port_avif/`` (files and
-digests) and nothing else.
+digests) and nothing else. Each AVIF file is written by PIL in a process
+of its own (``_avif``): aom, which PIL's writer runs, can crash the process
+(SIGSEGV) on some ``advanced`` settings, e.g. the 2048^2 albedo at
+``quality=60, speed=6, advanced={"deltaq-mode": "3", "delta-lf-mode":
+"1"}``, and a 160 x 120 pattern at quality 78, speed 7 with the same two.
 """
 
 from __future__ import annotations
@@ -132,6 +138,7 @@ DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_images")
 AVIF_OUT = os.path.join(ROOT, "tests", "data", "torch_port_avif")
 ALBEDO_AVIF = "albedo2048_q60.avif"
 ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
+ALBEDO_AVIF_AQ = "albedo2048_q60_s6_aq1.avis.avif"
 ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
 ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
@@ -1533,12 +1540,40 @@ def htj2k_albedo():
 # AVIF
 
 
-def _avif(px, **kw):
-    from PIL import Image
+_AVIF_WRITER = """
+import io, pickle, sys
+from PIL import Image
+frames, kw = pickle.load(sys.stdin.buffer)
+ims = [Image.fromarray(f) for f in frames]
+b = io.BytesIO()
+ims[0].save(b, "AVIF", append_images=ims[1:], **kw)
+sys.stdout.buffer.write(b.getvalue())
+"""
 
-    b = io.BytesIO()
-    Image.fromarray(px).save(b, "AVIF", **kw)
-    return b.getvalue()
+
+def _avif(px, **kw):
+    """PIL's AVIF file of ``px`` (an array, or a list of frames for
+    ``save_all=True``), written in a subprocess; None where the writer
+    crashes or fails."""
+    import pickle
+    import subprocess
+
+    frames = px if isinstance(px, list) else [px]
+    r = subprocess.run([sys.executable, "-c", _AVIF_WRITER], input=pickle.dumps((frames, kw)),
+                       capture_output=True)
+    return r.stdout if r.returncode == 0 else None
+
+
+def glyphs(h, w, seed):
+    """Screen content: one seeded 8 x 8 glyph stamped in four rotations on a
+    flat background, so aom's screen tools copy blocks (intra block copy)."""
+    r = np.random.default_rng(seed)
+    g = (r.random((8, 8, 3)) > 0.5).astype(np.uint8) * 255
+    c = np.full((h, w, 3), int(r.integers(0, 256)), np.uint8)
+    for y in range(0, h - 8, 10 + seed % 3):
+        for x in range(0, w - 8, 9 + seed % 4):
+            c[y:y + 8, x:x + 8] = np.rot90(g, int(r.integers(0, 4)))
+    return c
 
 
 def _flat_colours(h, w, n, seed, cell=16):
@@ -1597,7 +1632,52 @@ def avif_fixtures():
     out["avif_nclx_identity_26x18.avif"] = _edited_colr(base, 0, True)
     out[ALBEDO_AVIF] = _avif(envtex_texture(2048, 0), quality=60, speed=6)
     out.update(avif_tool_fixtures())
+    out.update(avif_seg_ibc_fixtures())
     return out
+
+
+def avif_seg_ibc_fixtures():
+    """The AVIF fixtures of the AV1 tools PIL's writer makes through its
+    ``advanced`` options that slice 24 reads: delta q (``deltaq-mode=3``),
+    delta q with delta lf (``delta-lf-mode=1``), intra block copy
+    (``tune-content=screen`` on ``glyphs``) at 4:2:0, 4:2:2, 4:4:4 and
+    4:0:0, segmentation (``aq-mode=1``: frame 0 of two-frame ``avis``
+    sequences at speeds 0, 4 and 6); and ``ALBEDO_AVIF_AQ``, the 2048^2
+    albedo and its vertical flip as such a sequence at speed 6 (its frame 0
+    segmented; delta q and intra block copy leave that albedo's frames
+    alone)."""
+    from akari_torch.scene.builtin import envtex_texture
+
+    tex = envtex_texture(256, 0)
+    tex1 = envtex_texture(256, 1)
+    text = glyphs(120, 160, 1)
+    screen = {"tune-content": "screen"}
+    albedo = envtex_texture(2048, 0)
+    return {
+        "avif_deltaq_q60_128x96.avif": _avif(pattern(96, 128, 7), quality=60,
+                                             advanced={"deltaq-mode": "3"}),
+        "avif_deltaq_deltalf_q60_160x120.avif": _avif(
+            pattern(120, 160, 3), quality=60,
+            advanced={"deltaq-mode": "3", "delta-lf-mode": "1"}),
+        "avif_intrabc_screen_160x120.avif": _avif(text, quality=60, advanced=screen),
+        "avif_intrabc_screen_422_160x120.avif": _avif(text, quality=60, subsampling="4:2:2",
+                                                      advanced=screen),
+        "avif_intrabc_screen_444_160x120.avif": _avif(text, quality=60, subsampling="4:4:4",
+                                                      advanced=screen),
+        "avif_intrabc_screen_400_160x120.avif": _avif(text, quality=60, subsampling="4:0:0",
+                                                      advanced=screen),
+        "avis_aq1_s0_96x72.avif": _avif([pattern(72, 96, 5), pattern(72, 96, 5)[::-1].copy()],
+                                        save_all=True, quality=60, speed=0,
+                                        advanced={"aq-mode": "1"}),
+        "avis_aq1_s4_128x96.avif": _avif([tex[:96, :128].copy(), tex[:96, :128][::-1].copy()],
+                                         save_all=True, quality=60, speed=4,
+                                         advanced={"aq-mode": "1"}),
+        "avis_aq1_s6_128x96.avif": _avif([tex1[:96, :128].copy(), tex1[:96, :128][::-1].copy()],
+                                         save_all=True, quality=60, speed=6,
+                                         advanced={"aq-mode": "1"}),
+        ALBEDO_AVIF_AQ: _avif([albedo, albedo[::-1].copy()], save_all=True, quality=60, speed=6,
+                              advanced={"aq-mode": "1"}),
+    }
 
 
 def avif_tool_fixtures():
@@ -1607,17 +1687,12 @@ def avif_tool_fixtures():
     a 3 x 2 ``grid`` cropped to its output size, and ``ALBEDO_AVIF_TOOLS``
     (the 2048^2 albedo with CDEF, quantizer matrices, film grain and, at
     speed 4, switchable loop restoration)."""
-    from PIL import Image
-
     from akari_torch.scene.builtin import envtex_texture
     from tools.avif_writers import grid
 
     tex = envtex_texture(256, 0)
     rgba = [np.concatenate([pattern(17, 24, i), pattern(17, 24, 9 + i)[..., :1]], axis=-1)
             for i in range(3)]
-    b = io.BytesIO()
-    Image.fromarray(rgba[0]).save(b, "AVIF", save_all=True, quality=70,
-                                  append_images=[Image.fromarray(x) for x in rgba[1:]])
     out = {
         "avif_cdef_q30_96x72.avif": _avif(tex[:72, :96].copy(), quality=30,
                                           advanced={"enable-cdef": "1"}),
@@ -1632,7 +1707,7 @@ def avif_tool_fixtures():
                                                   subsampling="4:4:4"),
         "avif_lr_sgrproj_s1_444_64x48.avif": _avif(tex[:48, :64].copy(), quality=70, speed=1,
                                                    subsampling="4:4:4"),
-        "avis_3frames_rgba_24x17.avif": b.getvalue(),
+        "avis_3frames_rgba_24x17.avif": _avif(rgba, save_all=True, quality=70),
         "avif_grid_3x2_180x100.avif": grid([_avif(pattern(64, 64, 60 + k), quality=50)
                                             for k in range(6)], 2, 3, 180, 100),
         ALBEDO_AVIF_TOOLS: _avif(envtex_texture(2048, 0), quality=60, speed=4,
@@ -1653,6 +1728,8 @@ def write_avif_fixtures(out_dir=AVIF_OUT):
         os.remove(os.path.join(out_dir, name))
     digests = {}
     for name, data in avif_fixtures().items():
+        if data is None:
+            raise RuntimeError(f"PIL's AVIF writer failed on {name}")
         with open(os.path.join(out_dir, name), "wb") as f:
             f.write(data)
         im = Image.open(os.path.join(out_dir, name))
