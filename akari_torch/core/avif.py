@@ -41,26 +41,35 @@ does; where PIL's open or load fails otherwise, ``ValueError``:
   sample laid out as libavif lays it out, sample 0 of the colour track
   and of its alpha track decoded;
 - the AV1 OBUs, decoded by ``native/av1_decode.cpp`` (bit for bit dav1d
-  1.5.1's planes, film grain applied; segmentation, delta q / lf and intra
-  block copy among the tools), and the alpha's, which decides PIL's mode
+  1.5.1's planes, uint8 at 8 bits and uint16 at 10 and 12, film grain
+  applied; segmentation, delta q / lf, intra block copy and superres among
+  the tools; a key frame hidden in a sequence's sample 0 and shown by
+  ``show_existing_frame``), and the alpha's, which decides PIL's mode
   (``RGBA``) and, for a premultiplied image (``prem``), is divided out of
   the colour as libavif does (``unpremultiply``);
 - a frame, alpha plane or track whose size differs from its ``ispe`` or
   ``tkhd``, scaled to it as libavif's avifImageScale does (libyuv's
-  ScalePlane with the box filter, ``scale_plane``; a source side over
-  16384 refused, an alpha plane then not the colour's size failing the
-  decode);
+  ScalePlane, or ScalePlane_16 above 8 bits, with the box filter,
+  ``scale_plane``; a source side over 16384 refused, an alpha plane then
+  not the colour's size failing the decode);
 - YUV -> RGB as ``avifImageYUVToRGB`` runs it (``yuv_to_rgb``): libyuv's
   fixed point for BT.601 / BT.470BG / unspecified, BT.709 and BT.2020 NCL
   with its bilinear chroma upsampling, libavif's float route for FCC,
   SMPTE 240M, IPT-C2, the chromaticity-derived matrix 12 (kr, kb from the
   primaries), YCgCo (full range) and identity (4:4:4), either range; the
-  nclx of the ``colr`` property, else the sequence header's.
+  nclx of the ``colr`` property, else the sequence header's; at 10 and 12
+  bits libavif's routes to PIL's 8-bit pixels (``yuv_to_rgb_alpha``: the
+  planes shifted to 8 bits for libyuv's 8-bit rows, libyuv's own 10-bit
+  and 12-bit rows for some RGBA images, libavif's float route at the
+  planes' depth), the alpha reduced to 8 bits as each route reduces it.
 
-Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 25):
-bit depths above 8, superres, non-key or hidden frames, and AV1 streams
-whose transforms leave the 16-bit range the specification requires
-(dav1d's x86 assembly, which PIL runs, saturates its lanes there).
+The 10- and 12-bit, superres and hidden-frame files are made here by
+header rewrites of PIL's writer's files (``tools/av1_rewrite.py``).
+Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 26):
+a palette above 8 bits, superres with loop restoration, non-key frames, a
+hidden key frame that no ``show_existing_frame`` shows, and AV1 streams
+whose transforms leave the range the specification requires (dav1d's x86
+assembly, which PIL runs, saturates its lanes there).
 """
 
 from __future__ import annotations
@@ -135,7 +144,7 @@ INFO_NAMES = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "full_range"
               "transfer", "matrix", "chroma_position", "profile", "sb128", "tx_mode",
               "screen_content", "tile_cols", "tile_rows", "lossless", "lf_levels", "base_q_idx",
               "qm_levels", "cdef_strengths", "lr_types", "film_grain", "segmentation", "delta_q",
-              "delta_lf", "intrabc")
+              "delta_lf", "intrabc", "superres_denom", "hidden")
 STAT_NAMES = ("blocks", "palette_y", "palette_uv", "filter_intra", "cfl", "tx_split",
               "tx_type_not_dct", "angle_delta", "segmented_blocks", "delta_q_superblocks",
               "intrabc_blocks")
@@ -1027,8 +1036,8 @@ def _image_planes(c, item, what, size=None):
     if not mono and ((ssx and (ow % 2 or tw % 2)) or (ssy and (oh % 2 or th % 2))):
         raise ValueError(f"{what}: Invalid image grid (odd sizes with subsampled chroma)")
     cw, ch = (ow + ssx) >> ssx, (oh + ssy) >> ssy
-    out = [np.zeros((oh, ow), np.uint8), np.zeros((ch, cw), np.uint8),
-           np.zeros((ch, cw), np.uint8)]
+    out = [np.zeros((oh, ow), y0.dtype), np.zeros((ch, cw), y0.dtype),
+           np.zeros((ch, cw), y0.dtype)]
     for k, (planes, _) in enumerate(decoded):
         r, col = divmod(k, cols)
         for p, pl in enumerate(planes):
@@ -1047,19 +1056,24 @@ def _native():
 
 def scale_plane(p, width, height):
     """libyuv's ScalePlane with the box filter, as libavif's avifImageScale
-    runs it (``akr_scale_plane``): an [H, W] uint8 plane to [height, width]."""
-    p = np.ascontiguousarray(p, np.uint8)
-    out = np.zeros((height, width), np.uint8)
-    _native().akr_scale_plane(p.ctypes.data, p.shape[1], p.shape[0], out.ctypes.data, width, height)
+    runs it (``akr_scale_plane``): an [H, W] uint8 plane to [height, width];
+    a uint16 plane (a high bit depth's) through ScalePlane_16
+    (``akr_scale_plane16``)."""
+    wide = np.asarray(p).dtype == np.uint16
+    dt = np.uint16 if wide else np.uint8
+    p = np.ascontiguousarray(p, dt)
+    out = np.zeros((height, width), dt)
+    fn = _native().akr_scale_plane16 if wide else _native().akr_scale_plane
+    fn(p.ctypes.data, p.shape[1], p.shape[0], out.ctypes.data, width, height)
     return out
 
 
 def _decode_planes(obus, what, stats=None, size=None, filters=None):
-    """Decode the OBUs: (Y, U, V) and the header values; ``size`` (the
-    item's ``ispe`` or the track's ``tkhd`` size), when given and not the
-    frame's, is the size libavif scales the planes to (avifImageScale: a
-    frame more than 16384 wide or high it refuses, which is checked before
-    the planes are allocated)."""
+    """Decode the OBUs: (Y, U, V: uint8 at 8 bits, uint16 above) and the
+    header values; ``size`` (the item's ``ispe`` or the track's ``tkhd``
+    size), when given and not the frame's, is the size libavif scales the
+    planes to (avifImageScale: a frame more than 16384 wide or high it
+    refuses, which is checked before the planes are allocated)."""
     lib = _native()
     info = (ctypes.c_int32 * len(INFO_NAMES))()
     err = ctypes.create_string_buffer(256)
@@ -1070,14 +1084,16 @@ def _decode_planes(obus, what, stats=None, size=None, filters=None):
     if scale and (w > 16384 or h > 16384):
         raise ValueError(f"{what}: libavif does not scale an AV1 frame of {w} x {h} to its item's "
                          f"{size[0]} x {size[1]} (a side over 16384)")
-    y = np.zeros((h, w), np.uint8)
+    y = np.zeros((h, w), np.uint16)
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
-    u = np.zeros((ch, cw), np.uint8)
-    v = np.zeros((ch, cw), np.uint8)
+    u = np.zeros((ch, cw), np.uint16)
+    v = np.zeros((ch, cw), np.uint16)
     st = np.zeros(len(STAT_NAMES) + len(FILTER_NAMES), np.int64)
     if lib.akr_av1_decode(obus, len(obus), y.ctypes.data, u.ctypes.data, v.ctypes.data,
                           st.ctypes.data, err, 256):
         raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
+    if depth == 8:
+        y, u, v = (p.astype(np.uint8) for p in (y, u, v))
     if stats is not None:
         stats.update(zip(STAT_NAMES, st.tolist()))
     if filters is not None:
@@ -1087,7 +1103,7 @@ def _decode_planes(obus, what, stats=None, size=None, filters=None):
         sw, sh = size
         cw, ch = (sw + ssx) >> ssx, (sh + ssy) >> ssy
         y = scale_plane(y, sw, sh)
-        u, v = ((np.zeros((ch, cw), np.uint8),) * 2 if mono else
+        u, v = ((np.zeros((ch, cw), y.dtype),) * 2 if mono else
                 (scale_plane(u, cw, ch), scale_plane(v, cw, ch)))
         info[:2] = sw, sh
     return (y, u, v), info
@@ -1133,8 +1149,9 @@ def avif_frame_info(data, what="image"):
 
 
 def avif_planes(data, what="image", stats=None, filters=None):
-    """The primary item's decoded planes (Y, U, V as [H, W] uint8; U and V
-    of the chroma size, zeros for a monochrome image), as dav1d gives them
+    """The primary item's decoded planes (Y, U, V as [H, W] uint8, uint16 at
+    10 and 12 bits; U and V of the chroma size, zeros for a monochrome
+    image), as dav1d gives them
     to libavif, and the frame's header values (``INFO_NAMES``); ``stats``,
     a dict, receives what the frame used (``STAT_NAMES``), ``filters`` what
     its loop filters did (``FILTER_NAMES``). A grid's planes are its
@@ -1147,28 +1164,43 @@ def avif_planes(data, what="image", stats=None, filters=None):
     return planes, dict(zip(INFO_NAMES, info))
 
 
-def _float_route(y, u, v, ssx, ssy, mode, full, kr, kb):
+def _float_route(y, u, v, ssx, ssy, mode, full, kr, kb, depth=8, unmultiply=None):
     """libavif's own YUV -> RGB (reformat.c, avifImageYUVAnyToRGBAnySlow and
     its 8-bit fast paths, which give the same bits): float32 lookups of
-    (x - bias) / range, chroma upsampled bilinearly with weights 9, 3, 3, 1
-    / 16 summed in that order (the column neighbour before the row
-    neighbour; edge samples repeated), then R, G, B by the matrix's kr, kb
-    (or identity, or YCgCo), clamped to [0, 1] and truncated from
-    0.5 + 255 x."""
+    (x - bias) / range (at the planes' depth: a range of 2^depth - 1, or
+    219 and 224 shifted up at limited range; a chroma bias of
+    2^(depth - 1)), chroma upsampled bilinearly with weights 9, 3, 3, 1 /
+    16 summed in that order (the column neighbour before the row neighbour;
+    edge samples repeated), then R, G, B by the matrix's kr, kb (or
+    identity, or YCgCo), clamped to [0, 1] and truncated from 0.5 + 255 x.
+    ``unmultiply`` (an alpha plane of ``depth`` bits) divides the clamped
+    colour by the alpha in float (0 where it is 0, at most 1), as the slow
+    route does for a premultiplied image."""
     f32 = np.float32
-    i = np.arange(256, dtype=f32)
+    i = np.arange(1 << depth, dtype=f32)
+    s, mx = depth - 8, (1 << depth) - 1
     if full:
-        by, ry, buv, ruv = f32(0), f32(255), f32(128), f32(255)
+        by, ry, buv, ruv = f32(0), f32(mx), f32(1 << (depth - 1)), f32(mx)
     else:
-        by, ry, buv, ruv = f32(16), f32(219), f32(128), f32(224)
+        by, ry, buv, ruv = f32(16 << s), f32(219 << s), f32(1 << (depth - 1)), f32(224 << s)
     if mode == "identity":
         buv, ruv = by, ry
     ty, tuv = (i - by) / ry, (i - buv) / ruv
     h, w = y.shape
     yf = ty[y]
+    if unmultiply is not None:
+        a = np.clip(np.asarray(unmultiply).astype(f32) / f32(mx), f32(0), f32(1))
+
+        def out(c):
+            c = np.clip(c, f32(0), f32(1))
+            c = np.where(a == 0, f32(0), np.where(a < 1, np.minimum(c / np.where(a == 0, f32(1), a),
+                                                                     f32(1)), c))
+            return (f32(0.5) + c * f32(255)).astype(np.uint8)
+    else:
+        def out(c):
+            return (f32(0.5) + np.clip(c, f32(0), f32(1)) * f32(255)).astype(np.uint8)
     if mode == "grey":
-        return np.repeat((f32(0.5) + np.clip(yf, f32(0), f32(1)) * f32(255)).astype(np.uint8)[..., None],
-                         3, axis=-1)
+        return np.repeat(out(yf)[..., None], 3, axis=-1)
     jj, ii = np.arange(h)[:, None], np.arange(w)[None, :]
     cj, ci = jj >> ssy, ii >> ssx
     if ssx or ssy:
@@ -1194,11 +1226,154 @@ def _float_route(y, u, v, ssx, ssy, mode, full, kr, kb):
         r = yf + (f32(2) * (f32(1) - kr)) * cr
         b = yf + (f32(2) * (f32(1) - kb)) * cb
         g = yf - ((f32(2) * ((kr * (f32(1) - kr) * cr) + (kb * (f32(1) - kb) * cb))) / kg)
-    return np.stack([(f32(0.5) + np.clip(c, f32(0), f32(1)) * f32(255)).astype(np.uint8)
-                     for c in (r, g, b)], -1)
+    return np.stack([out(c) for c in (r, g, b)], -1)
 
 
-def yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what="image"):
+def _up16(c, h, w, ssx, ssy):
+    """libyuv's 16-bit chroma upsampling of its high-bit-depth ARGB rows
+    (I210's ScaleRowUp2_Linear_16, I010's ScaleRowUp2_Bilinear_16: 3:1
+    and 9:3:3:1 of the neighbours, rounded; the first and last columns
+    the edge sample's, blended vertically only; the first row and the last
+    of an even height blended horizontally only)."""
+    c = c.astype(np.int64)
+    if ssx:
+        n = c.shape[1]
+        jx = np.arange(w)
+        k = (jx - 1) >> 1
+        near = np.clip(np.where(jx % 2 == 1, k, k + 1), 0, n - 1)
+        far = np.clip(np.where(jx % 2 == 1, k + 1, k), 0, n - 1)
+        edge = (jx == 0) | (jx == w - 1)
+        near = np.where(edge, np.minimum(jx >> 1, n - 1), near)
+        far = np.where(edge, near, far)
+    else:
+        near = far = np.arange(w)
+    if not ssy:
+        rows = c[np.arange(h) >> ssy]
+        return (3 * rows[:, near] + rows[:, far] + 2) >> 2
+    m = c.shape[0]
+    jy = np.arange(h)
+    k = (jy - 1) >> 1
+    rn = np.clip(np.where(jy % 2 == 1, k, k + 1), 0, m - 1)
+    rf = np.clip(np.where(jy % 2 == 1, k + 1, k), 0, m - 1)
+    redge = (jy == 0) | ((h % 2 == 0) & (jy == h - 1))
+    rn = np.where(redge, jy >> 1, rn)
+    rf = np.where(redge, rn, rf)
+    a, b = c[rn][:, near], c[rn][:, far]
+    cc, d = c[rf][:, near], c[rf][:, far]
+    two = (9 * a + 3 * b + 3 * cc + d + 8) >> 4
+    one = (3 * a + b + 2) >> 2
+    return np.where(redge[:, None], one, two)
+
+
+def _libyuv16(y, u, v, depth, ssx, ssy, k, nearest):
+    """libyuv's high-bit-depth YUV -> 8-bit ARGB rows (I410 / I210 / I010,
+    the bilinear filter, at 10 bits; I012 with nearest chroma at 12):
+    YuvPixel10 / YuvPixel12, luma's bits repeated to 16, chroma shifted to
+    8 bits with saturation, then libyuv's 8-bit arithmetic."""
+    yg, yb, ub, ug, vg, vr = k
+    h, w = y.shape
+    if nearest:
+        jj, ii = np.arange(h)[:, None] >> ssy, np.arange(w)[None, :] >> ssx
+        u, v = u[jj, ii].astype(np.int64), v[jj, ii].astype(np.int64)
+    elif ssx or ssy:
+        u, v = _up16(u, h, w, ssx, ssy), _up16(v, h, w, ssx, ssy)
+    y = y.astype(np.int64)
+    y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
+    ui = np.minimum(u.astype(np.int64) >> (depth - 8), 255) - 128
+    vi = np.minimum(v.astype(np.int64) >> (depth - 8), 255) - 128
+    y1 = ((y32 * yg) >> 16) + yb
+    return np.stack([np.clip(c >> 6, 0, 255).astype(np.uint8)
+                     for c in (y1 + vi * vr, y1 - (ui * ug + vi * vg), y1 + ui * ub)], -1)
+
+
+def yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what="image", depth=8):
+    """[H, W, 3] uint8 RGB from planes of ``depth`` bits (``yuv_to_rgb_alpha``
+    of an image with or without alpha, its values aside)."""
+    if depth == 8:
+        return _yuv8_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what)
+    alpha = np.zeros(np.shape(y), np.uint16) if has_alpha else None
+    return yuv_to_rgb_alpha(y, u, v, alpha, mono, ssx, ssy, mc, full, cp, False, what, depth)[0]
+
+
+def yuv_to_rgb_alpha(y, u, v, alpha, mono, ssx, ssy, mc, full, cp, premultiplied=False,
+                     what="image", depth=8):
+    """[H, W, 3] uint8 RGB and the [H, W] uint8 alpha (None without one) from
+    planes of ``depth`` bits (8, 10 or 12), as libavif 1.3.0's
+    avifImageYUVToRGB gives them to PIL (RGB, or RGBA with alpha), the
+    colour divided by a ``premultiplied`` alpha. At 8 bits: ``yuv_to_rgb``,
+    the alpha as it is, ``unpremultiply``. Above 8 bits libavif shifts the
+    planes to 8 bits for libyuv's 8-bit routes (libyuv's Convert16To8Plane,
+    the alpha with them) but where an RGBA image takes libyuv's own
+    high-bit-depth rows (10-bit colour: ``_libyuv16``, the alpha shifted;
+    12-bit 4:2:0: I012 with nearest chroma, the alpha rounded) or is grey
+    (the alpha rounded, a * 255 / (2^depth - 1)); it runs its float route at
+    the planes' depth for the matrices libyuv does not have (the alpha
+    rounded; a premultiplied image unmultiplied in float where its chroma
+    is subsampled or its matrix YCgCo or identity) and a monochrome image
+    without alpha."""
+    has_alpha = alpha is not None
+    if depth == 8:
+        rgb = _yuv8_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what)
+        a8, unmultiplied = None if alpha is None else np.asarray(alpha).astype(np.uint8), False
+    else:
+        rgb, rounded, unmultiplied = _depth_to_rgb(np.asarray(y), np.asarray(u), np.asarray(v),
+                                                   mono, ssx, ssy, mc, full, cp, alpha,
+                                                   premultiplied, what, depth)
+        a8 = None
+        if has_alpha:
+            a, mx = np.asarray(alpha).astype(np.int64), (1 << depth) - 1
+            a8 = ((a * 255 + mx // 2) // mx if rounded else a >> (depth - 8)).astype(np.uint8)
+    if premultiplied and has_alpha and not unmultiplied:
+        rgb = unpremultiply(rgb, a8)
+    return rgb, a8
+
+
+def _depth_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, alpha, premultiplied, what, depth):
+    """``yuv_to_rgb_alpha`` above 8 bits: (RGB, whether the route rounds the
+    alpha to 8 bits rather than shifting it, whether it unmultiplied the
+    colour itself)."""
+    y, u, v = (p.astype(np.uint16) for p in (y, u, v))
+    has_alpha = alpha is not None
+    name = f"{mc} ({_MATRIX_NAMES.get(mc, 'reserved')})"
+    lmc = (1 if cp == 2 else cp) if mc == 12 and cp in (1, 2, 5, 6, 9) else mc
+    s = depth - 8
+    if mono:
+        if mc not in _MONO_MATRICES or (mc == 8 and not full):
+            raise ValueError(f"{what}: the AVIF nclx matrix {name} on a monochrome image")
+        if has_alpha and (lmc in _LIBYUV or mc == 0):
+            return _yuv8_to_rgb(y >> s, u >> s, v >> s, mono, ssx, ssy, mc, full, cp, True,
+                               what), True, False
+        inner = premultiplied and has_alpha and mc == 8
+        return _float_route(y, u, v, 0, 0, "grey", full, 0, 0, depth,
+                            unmultiply=alpha if inner else None), True, inner
+    if lmc in _LIBYUV:
+        if has_alpha and depth == 10:
+            return _libyuv16(y, u, v, 10, ssx, ssy, _LIBYUV[lmc][1 if full else 0], False), \
+                False, False
+        if has_alpha and ssx and ssy:
+            return _libyuv16(y, u, v, 12, ssx, ssy, _LIBYUV[lmc][1 if full else 0], True), \
+                True, False
+        return _yuv8_to_rgb(y >> s, u >> s, v >> s, mono, ssx, ssy, mc, full, cp, has_alpha,
+                           what), False, False
+    if mc in _FLOAT_KRKB:
+        mode, krkb = "yuv", _FLOAT_KRKB[mc]
+    elif mc == 12:
+        mode, krkb = "yuv", chroma_derived_krkb(cp)
+    elif mc == 8 and full:
+        mode, krkb = "ycgco", (0, 0)
+    elif mc == 0 and not ssx and not ssy:
+        mode, krkb = "identity", (0, 0)
+    else:
+        raise ValueError(f"{what}: the AVIF nclx matrix {name}"
+                         + (" on subsampled chroma" if mc == 0 else "")
+                         + (" at limited range" if mc == 8 else ""))
+    inner = premultiplied and has_alpha and bool(ssx or ssy or mode != "yuv")
+    rgb = _float_route(y, u, v, ssx, ssy, mode, full, *krkb, depth,
+                       unmultiply=alpha if inner else None)
+    return rgb, True, inner
+
+
+def _yuv8_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, has_alpha, what="image"):
     """[H, W, 3] uint8 from 8-bit planes, as libavif 1.3.0's
     avifImageYUVToRGB gives them to PIL (RGB, or RGBA when the image has
     alpha): libyuv's fixed point for the matrices it has (BT.601 /
@@ -1265,10 +1440,10 @@ def decode_avif(data, what="image"):
     _check_size(w, h, what, "AVIF")
     note_mode("RGBA" if alpha is not None else "RGB")
     (y, u, v), info = _image_planes(c, item, what)
-    _, _, _, mono, ssx, ssy, full, cp, tc, mc = info[:10]
+    _, _, depth, mono, ssx, ssy, full, cp, tc, mc = info[:10]
     if nclx is not None:
         _, cp, tc, mc, full = nclx
-    rgb = yuv_to_rgb(y, u, v, mono, ssx, ssy, mc, full, cp, alpha is not None, what)
+    a, prem = None, False
     if alpha is not None:
         # scaled to its own ispe (the colour's where it has none), as libavif
         # does; then its size must be the colour's
@@ -1277,10 +1452,15 @@ def decode_avif(data, what="image"):
             raise ValueError(f"{what}: Decoding of alpha plane failed (an AVIF alpha plane of "
                              f"{a.shape[1]} x {a.shape[0]} in an image of {y.shape[1]} x "
                              f"{y.shape[0]})")
-        if item.premultiplied_by == alpha.id:
-            if not ainfo[6]:  # libavif's avifLimitedToFullY
-                a = np.clip(((a.astype(np.int64) - 16) * 255 / 219).astype(np.int64), 0, 255)
-            rgb = unpremultiply(rgb, a)
+        if ainfo[2] != depth:
+            raise ValueError(f"{what}: Decoding of alpha plane failed (an AVIF alpha plane of "
+                             f"{ainfo[2]} bits in an image of {depth})")
+        prem = item.premultiplied_by == alpha.id
+        if prem and not ainfo[6]:  # libavif's avifLimitedToFullY
+            s = depth - 8
+            a = np.clip(((a.astype(np.int64) - (16 << s)) * ((1 << depth) - 1)
+                         / (219 << s)).astype(np.int64), 0, (1 << depth) - 1)
+    rgb, a = yuv_to_rgb_alpha(y, u, v, a, mono, ssx, ssy, mc, full, cp, prem, what, depth)
     if rgb.shape[:2] != (h, w):
         # a grid whose output size is not its ispe: PIL reads the first
         # h x w pixels of libavif's buffer as rows of w

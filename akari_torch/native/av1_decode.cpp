@@ -1,5 +1,6 @@
 // AV1 still-image decoding (the intra key frame of an AVIF image item) to
-// YUV planes, and the YUV -> RGB conversion, for akari_torch/core/avif.py.
+// YUV planes at 8, 10 or 12 bits, and the YUV -> RGB conversion, for
+// akari_torch/core/avif.py.
 //
 // The JAX package reads AVIF through PIL, which hands the item to libavif
 // 1.3.0; libavif decodes it with dav1d 1.5.1 and converts it to RGB with
@@ -9,9 +10,19 @@
 //
 // - OBUs: temporal delimiters, padding and metadata skipped; the sequence
 //   header (reduced or full, timing / decoder-model / operating-point
-//   fields parsed and ignored), the frame header of a shown key frame, and
-//   the frame's tile groups (OBU_FRAME, or OBU_FRAME_HEADER with
-//   OBU_TILE_GROUPs), uniform and non-uniform tile spacing;
+//   fields parsed and ignored; profiles 0-2, 8, 10 and 12 bits), the frame
+//   header of a key frame, and the frame's tile groups (OBU_FRAME, or
+//   OBU_FRAME_HEADER with OBU_TILE_GROUPs), uniform and non-uniform tile
+//   spacing; a hidden (showable) key frame is output when a later
+//   show_existing_frame header of the data names a slot it refreshed;
+// - every pixel is 16-bit; at 10 and 12 bits the dequantisation tables,
+//   the coefficient and transform ranges, intra prediction's base value,
+//   the deblocking limits, CDEF's strengths and damping, loop
+//   restoration's rounding and scaling and film grain's ranges and
+//   scaling follow the specification at BitDepth (dav1d's 16 bpc code);
+// - superres (7.16): the frame decoded, deblocked and CDEF-filtered at its
+//   downscaled width, then upscaled (Upscale_Filter, dav1d's resize_c)
+//   before film grain;
 // - the symbol decoder, with CDF adaptation unless the frame disables it;
 //   each tile starts from the default CDFs (av1_tables.h), the coefficient
 //   CDFs of the frame's qindex context;
@@ -54,20 +65,25 @@
 //   sequence and the AR filter, scaling lookups, 32x32 blocks at random
 //   offsets with overlap, chroma from luma) applied to the output only.
 //
-// Anything else a header turns on is refused with a message naming it:
-// bit depths above 8, non-key or hidden frames and superres; so is a stream
-// whose transforms leave the 16-bit range (see g_itx_overflow).
+// Anything else a header turns on is refused with a message naming it: a
+// palette above 8 bits (its colours are literals of the depth, and no file
+// made here holds one), superres with loop restoration (units counted on
+// the upscaled width), non-key frames, a hidden key frame that no
+// show_existing_frame shows; so is a stream whose transforms leave the
+// range the specification requires (see g_itx_overflow).
 //
 // C ABI (ctypes):
 //   int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info,
 //                     char* err, int32_t errlen);
-//   int akr_av1_decode(const uint8_t* data, int64_t size, uint8_t* y,
-//                      uint8_t* u, uint8_t* v, int64_t* stats, char* err,
+//   int akr_av1_decode(const uint8_t* data, int64_t size, uint16_t* y,
+//                      uint16_t* u, uint16_t* v, int64_t* stats, char* err,
 //                      int32_t errlen);
 //   int akr_av1_sequence_header(const uint8_t* data, int64_t size, char* err,
 //                               int32_t errlen);
-//   void akr_yuv_to_rgb(...), akr_scale_plane(...)  (see the end of the file)
-// data: the item's OBUs. info receives 28 values: width, height, bit depth,
+//   void akr_yuv_to_rgb(...), akr_scale_plane(...), akr_scale_plane16(...)
+//        (see the end of the file)
+// data: the item's OBUs. info receives 30 values: width (the upscaled
+// width under superres), height, bit depth,
 // mono, subsampling x, subsampling y, colour range, colour primaries,
 // transfer, matrix, chroma sample position, profile, 128x128 superblocks,
 // tx mode (0 only 4x4, 1 largest, 2 select), screen content tools, tile
@@ -76,7 +92,8 @@
 // base_q_idx, the quantizer-matrix levels (y, u, v, four bits each; 15:
 // none), the number of nonzero CDEF strengths, the restoration type per
 // plane (two bits each: none, Wiener, self-guided, switchable),
-// apply_grain, segmentation, delta q, delta lf and allow_intrabc. The
+// apply_grain, segmentation, delta q, delta lf, allow_intrabc, the superres
+// denominator (8: none) and whether the frame was hidden. The 16-bit
 // planes are written at the frame's size, chroma at ((width + ssx) >> ssx)
 // x ((height + ssy) >> ssy); stats (may be null) receives 14 counts:
 // blocks, luma palettes, chroma palettes, filter intra, CfL, tx_depth > 0
@@ -466,19 +483,23 @@ const int g_cospi[65] = {
     1842, 1751, 1660, 1567, 1474, 1380, 1285, 1189, 1092, 995, 897, 799, 700, 601, 501, 401,
     301, 201, 101, 0};
 
-// Set when a transform's intermediate value leaves the 16-bit range the
-// specification requires of a conformant 8-bit stream: dav1d's C clamps
-// only its sums there, its x86 assembly (which PIL runs) saturates every
-// 16-bit lane, so their pixels part on such (corrupt) streams.
+// Set when a transform's intermediate value leaves the range the
+// specification requires of a conformant stream (BitDepth + 8 bits in the
+// row transforms, Max(BitDepth + 6, 16) in the column transforms: 16 and
+// 16 at 8 bits): dav1d's C clamps only its sums there, its x86 assembly
+// (which PIL runs) saturates its lanes (16-bit ones at 8 bits, 16- or
+// 32-bit ones at 10 and 12), so their pixels part on such (corrupt)
+// streams. g_itx_max is the current pass's bound.
 thread_local bool g_itx_overflow = false;
+thread_local int32_t g_itx_max = 32767;
 
-inline int32_t chk16(int64_t v) {
-    if (v < -32768 || v > 32767) g_itx_overflow = true;
+inline int32_t chk_range(int64_t v) {
+    if (v < -int64_t(g_itx_max) - 1 || v > g_itx_max) g_itx_overflow = true;
     return int32_t(v);
 }
 
 inline int32_t hb(int w0, int32_t x0, int w1, int32_t x1) {
-    return chk16((int64_t(w0) * x0 + int64_t(w1) * x1 + 2048) >> 12);
+    return chk_range((int64_t(w0) * x0 + int64_t(w1) * x1 + 2048) >> 12);
 }
 
 struct Clamp {
@@ -605,10 +626,10 @@ void iadst4(int32_t* x) {
     a0 = a0 + a5;
     a1 = a1 - a6;
     int64_t o0 = a0 + a3, o1 = a1 + a3, o2 = a2, o3 = a0 + a1 - a3;
-    x[0] = chk16((o0 + 2048) >> 12);
-    x[1] = chk16((o1 + 2048) >> 12);
-    x[2] = chk16((o2 + 2048) >> 12);
-    x[3] = chk16((o3 + 2048) >> 12);
+    x[0] = chk_range((o0 + 2048) >> 12);
+    x[1] = chk_range((o1 + 2048) >> 12);
+    x[2] = chk_range((o2 + 2048) >> 12);
+    x[3] = chk_range((o3 + 2048) >> 12);
 }
 
 void iadst8(int32_t* x, const Clamp& cl) {
@@ -640,8 +661,8 @@ void iadst8(int32_t* x, const Clamp& cl) {
     o[4] = b[4]; o[5] = b[5];
     o[6] = hb(c[32], b[6], c[32], b[7]);
     o[7] = hb(c[32], b[6], -c[32], b[7]);
-    x[0] = o[0]; x[1] = chk16(-int64_t(o[4])); x[2] = o[6]; x[3] = chk16(-int64_t(o[2]));
-    x[4] = o[3]; x[5] = chk16(-int64_t(o[7])); x[6] = o[5]; x[7] = chk16(-int64_t(o[1]));
+    x[0] = o[0]; x[1] = chk_range(-int64_t(o[4])); x[2] = o[6]; x[3] = chk_range(-int64_t(o[2]));
+    x[4] = o[3]; x[5] = chk_range(-int64_t(o[7])); x[6] = o[5]; x[7] = chk_range(-int64_t(o[1]));
 }
 
 void iadst16(int32_t* x, const Clamp& cl) {
@@ -693,16 +714,16 @@ void iadst16(int32_t* x, const Clamp& cl) {
         o[k + 3] = hb(c[32], b[k + 2], -c[32], b[k + 3]);
     }
     static const int out[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7, 5, 13, 9, 1};
-    for (int i = 0; i < 16; i++) x[i] = (i & 1) ? chk16(-int64_t(o[out[i]])) : o[out[i]];
+    for (int i = 0; i < 16; i++) x[i] = (i & 1) ? chk_range(-int64_t(o[out[i]])) : o[out[i]];
 }
 
 void iidentity(int32_t* x, int n) {
     for (int i = 0; i < n; i++) {
         int64_t v = x[i];
-        if (n == 4) x[i] = chk16((v * 5793 + 2048) >> 12);
-        else if (n == 8) x[i] = chk16(v * 2);
-        else if (n == 16) x[i] = chk16((v * 11586 + 2048) >> 12);
-        else x[i] = chk16(v * 4);
+        if (n == 4) x[i] = chk_range((v * 5793 + 2048) >> 12);
+        else if (n == 8) x[i] = chk_range(v * 2);
+        else if (n == 16) x[i] = chk_range((v * 11586 + 2048) >> 12);
+        else x[i] = chk_range(v * 4);
     }
 }
 
@@ -716,23 +737,26 @@ void itx1d(int32_t* x, int n, int kind, const Clamp& cl) {
 
 void iwht4(int32_t* t, int shift) {
     int32_t a = t[0] >> shift, c = t[1] >> shift, d = t[2] >> shift, b = t[3] >> shift;
-    a = chk16(int64_t(a) + c);
-    d = chk16(int64_t(d) - b);
+    a = chk_range(int64_t(a) + c);
+    d = chk_range(int64_t(d) - b);
     int32_t e = (a - d) >> 1;
-    b = chk16(int64_t(e) - b);
-    c = chk16(int64_t(e) - c);
-    a = chk16(int64_t(a) - b);
-    d = chk16(int64_t(d) + c);
+    b = chk_range(int64_t(e) - b);
+    c = chk_range(int64_t(e) - c);
+    a = chk_range(int64_t(a) - b);
+    d = chk_range(int64_t(d) + c);
     t[0] = a; t[1] = b; t[2] = c; t[3] = d;
 }
 
 // ---------------------------------------------------------------------------
 // the decoder
 
+// pixels are 16-bit at every depth (8-bit values at 8 bits)
+typedef uint16_t pixel;
+
 struct Plane {
-    std::vector<uint8_t> px;
+    std::vector<pixel> px;
     int stride = 0, rows = 0;
-    uint8_t* at(int y, int x) { return &px[size_t(y) * stride + x]; }
+    pixel* at(int y, int x) { return &px[size_t(y) * stride + x]; }
 };
 
 struct Decoder {
@@ -748,13 +772,18 @@ struct Decoder {
         seq_force_screen_content_tools = 2, seq_force_integer_mv = 2, op_count = 0;
     int op_idc[32] = {0}, op_decoder_model_present[32] = {0};
     bool have_seq = false;
-    // frame header
-    int W = 0, H = 0, MiCols = 0, MiRows = 0, num_planes = 3;
+    // frame header: W the coded (superres-downscaled) width, UpW the
+    // output width (W where superres is off)
+    int W = 0, H = 0, UpW = 0, MiCols = 0, MiRows = 0, num_planes = 3;
+    int use_superres = 0, superres_denom = 8;
+    // a hidden key frame (show_frame 0, showable): its refresh_frame_flags;
+    // shown_existing once a show_existing_frame header names one of them
+    int show_frame = 1, showable_frame = 0, refresh_frame_flags = 0xFF, shown_existing = 0;
     int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
     int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0, dq_v_ac = 0;
     int tx_mode = 0, reduced_tx_set = 0;
     // lossless: each segment's (LosslessArray), every segment's
-    // (CodedLossless; AllLossless, there being no superres)
+    // (CodedLossless; AllLossless is it without superres)
     int lossless_seg[8] = {0}, coded_lossless = 0;
     // segmentation (a key frame updates the map and the data): the
     // features of each segment and their values, SegIdPreSkip,
@@ -949,23 +978,35 @@ struct Decoder {
 
     int read_delta_q(BitReader& br) { return br.f(1) ? br.su(7) : 0; }
 
+    // a show_existing_frame header (its first bit read): the slot it shows
+    int parse_show_existing(BitReader& br) {
+        int idx = int(br.f(3));
+        if (decoder_model_info_present && !equal_picture_interval)
+            br.f(frame_presentation_time_length);
+        if (frame_id_numbers_present) br.f(id_len);  // display_frame_id
+        return idx;
+    }
+
     void parse_frame_header(BitReader& br, int temporal_id, int spatial_id) {
         if (!have_seq) fail("a frame header before any sequence header");
-        if (bitdepth != 8) unported(bitdepth == 10 ? "a bit depth of 10 (the port reads 8-bit AV1)" : "a bit depth of 12 (the port reads 8-bit AV1)");
-        int show_frame = 1, showable_frame = 0, frame_type = 0, error_resilient = 1;
+        int frame_type = 0, error_resilient = 1;
+        show_frame = 1;
+        showable_frame = 0;
+        refresh_frame_flags = 0xFF;
         if (!reduced) {
-            if (br.f(1)) unported("show_existing_frame (an AV1 sequence, not a still image)");
+            if (br.f(1)) unported("show_existing_frame of a frame not decoded before it");
             frame_type = int(br.f(2));
-            if (frame_type != 0) unported("a non-key AV1 frame");
+            if (frame_type != 0) unported("a non-key AV1 frame (the port reads key frames)");
             show_frame = int(br.f(1));
-            if (!show_frame) unported("a hidden AV1 key frame");
-            if (decoder_model_info_present && !equal_picture_interval)
+            if (show_frame && decoder_model_info_present && !equal_picture_interval)
                 br.f(frame_presentation_time_length);
-            showable_frame = 0;
-            error_resilient = 1;
+            if (!show_frame) {
+                // a hidden key frame, shown later by show_existing_frame
+                showable_frame = int(br.f(1));
+                if (!showable_frame) unported("a hidden AV1 key frame that no later frame may show");
+                error_resilient = int(br.f(1));
+            }
         }
-        (void)showable_frame;
-        (void)error_resilient;
         disable_cdf_update = int(br.f(1));
         allow_screen_content_tools = seq_force_screen_content_tools == 2
                                          ? int(br.f(1)) : seq_force_screen_content_tools;
@@ -986,20 +1027,27 @@ struct Decoder {
             }
         }
         // refresh_frame_flags: all for a shown key frame
-        // frame size
+        if (!show_frame) {
+            refresh_frame_flags = int(br.f(8));
+            if (refresh_frame_flags != 0xFF && error_resilient)
+                for (int i = 0; i < 8; i++) br.f(order_hint_bits);  // ref_order_hint
+        }
+        // frame size, superres (7.21: FrameWidth the downscaled width)
         if (frame_size_override) {
-            W = int(br.f(frame_width_bits)) + 1;
+            UpW = int(br.f(frame_width_bits)) + 1;
             H = int(br.f(frame_height_bits)) + 1;
         } else {
-            W = max_w;
+            UpW = max_w;
             H = max_h;
         }
-        if (enable_superres && br.f(1)) unported("AV1 superres");
+        use_superres = enable_superres ? int(br.f(1)) : 0;
+        superres_denom = use_superres ? int(br.f(3)) + 9 : 8;
+        W = imax((UpW * 8 + superres_denom / 2) / superres_denom, imin(16, UpW));
         MiCols = 2 * ((W + 7) >> 3);
         MiRows = 2 * ((H + 7) >> 3);
         if (br.f(1)) { br.f(16); br.f(16); }  // render size
         allow_intrabc = 0;
-        if (allow_screen_content_tools) allow_intrabc = int(br.f(1));
+        if (allow_screen_content_tools && UpW == W) allow_intrabc = int(br.f(1));
         // disable_frame_end_update_cdf
         if (!(reduced || disable_cdf_update)) br.f(1);
         // tile info
@@ -1161,7 +1209,8 @@ struct Decoder {
         // loop restoration: FrameRestorationType per plane and the unit sizes
         uses_lr = 0;
         for (int i = 0; i < 3; i++) { lr_type[i] = RESTORE_NONE; lr_unit_size[i] = 64; }
-        if (!coded_lossless && !allow_intrabc && enable_restoration) {
+        // (AllLossless: CodedLossless without superres)
+        if (!(coded_lossless && !use_superres) && !allow_intrabc && enable_restoration) {
             static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
                                          RESTORE_SGRPROJ};
             int uses_chroma = 0;
@@ -1184,6 +1233,9 @@ struct Decoder {
         reduced_tx_set = int(br.f(1));
         parse_film_grain(br);
         have_frame_header = true;
+        if (use_superres && uses_lr)
+            unported("superres with loop restoration (its units are counted on the upscaled "
+                     "width)");
         if (header_only) return;
         frame_cdfs.init(base_q_idx);
         alloc_frame();
@@ -1259,7 +1311,7 @@ struct Decoder {
     // ---- film grain parameters (dav1d's parse_film_grain_data checks)
     void parse_film_grain(BitReader& br) {
         fg = FilmGrain();
-        if (!film_grain_present) return;  // a shown key frame: show_frame is 1
+        if (!film_grain_present || (!show_frame && !showable_frame)) return;
         fg.apply = int(br.f(1));
         if (!fg.apply) return;
         fg.seed = int(br.f(16));
@@ -1349,7 +1401,8 @@ struct Decoder {
     // ---- loop filter, CDEF, loop restoration, film grain
     void cdef();
     void loop_restoration(const Plane* pre_cdef);
-    void film_grain(uint8_t* const out[3]);
+    void film_grain(pixel* const out[3]);
+    void superres_upscale();
     void loop_filter();
     void edge_filter(int p, int pass, int row, int col);
     void filter_level(int l, int* limit, int* blimit, int* thresh);
@@ -1889,6 +1942,13 @@ struct Decoder::Tile {
         return n;
     }
 
+    // a palette's colours are literals of BitDepth bits: no file made here
+    // holds one above 8 bits, so the port reads 8-bit palettes only
+    [[noreturn]] void unported_palette() {
+        unported(f.bitdepth == 10 ? "a palette at a bit depth of 10 (the port reads 8-bit palettes)"
+                                  : "a palette at a bit depth of 12 (the port reads 8-bit palettes)");
+    }
+
     void palette_mode_info() {
         int bctx = mi_wlog2(mi_sz) + mi_hlog2(mi_sz) - 2;
         const int bd = 8;
@@ -1896,6 +1956,7 @@ struct Decoder::Tile {
             int ctx = (avail_u && f.pal_size[0][f.mi(mi_row - 1, mi_col)] > 0) +
                       (avail_l && f.pal_size[0][f.mi(mi_row, mi_col - 1)] > 0);
             if (sd.read(cdf.palette_y_mode[bctx][ctx], 2)) {
+                if (f.bitdepth > 8) unported_palette();
                 pal_size_y = sd.read(cdf.palette_y_size[bctx], 7) + 2;
                 uint8_t cache[16];
                 int cn = palette_cache(0, cache), idx = 0;
@@ -1917,6 +1978,7 @@ struct Decoder::Tile {
         if (has_chroma && uvmode == DC_PRED) {
             int ctx = pal_size_y > 0;
             if (sd.read(cdf.palette_uv_mode[ctx], 2)) {
+                if (f.bitdepth > 8) unported_palette();
                 pal_size_uv = sd.read(cdf.palette_uv_size[bctx], 7) + 2;
                 uint8_t cache[16];
                 int cn = palette_cache(1, cache), idx = 0;
@@ -2227,7 +2289,8 @@ struct Decoder::Tile {
     // the half-pel chroma positions of subsampled planes (dav1d's put_bilin;
     // samples past the frame's 8x8 grid repeat its edge)
     void predict_intrabc() {
-        static thread_local uint8_t buf[128 * 128];
+        static thread_local pixel buf[128 * 128];
+        const int ib = f.bitdepth == 12 ? 2 : 4, maxv = (1 << f.bitdepth) - 1;
         for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
             int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
             int psz = residual_size(mi_sz, p), w = kBw[psz], h = kBh[psz];
@@ -2243,19 +2306,22 @@ struct Decoder::Tile {
                 for (int j = 0; j < w; j++) {
                     int y = iy + i, x = ix + j, v;
                     if (mx && my) {
-                        int m0 = 16 * P(y, x) + mx * (P(y, x + 1) - P(y, x));
-                        int m1 = 16 * P(y + 1, x) + mx * (P(y + 1, x + 1) - P(y + 1, x));
-                        v = (16 * m0 + my * (m1 - m0) + 128) >> 8;
+                        int sh = 4 - ib, rnd = (1 << sh) >> 1;
+                        int m0 = (16 * P(y, x) + mx * (P(y, x + 1) - P(y, x)) + rnd) >> sh;
+                        int m1 = (16 * P(y + 1, x) + mx * (P(y + 1, x + 1) - P(y + 1, x)) + rnd) >> sh;
+                        v = clip3(0, maxv, (16 * m0 + my * (m1 - m0) + (1 << (3 + ib))) >> (4 + ib));
                     } else if (mx) {
-                        v = (16 * P(y, x) + mx * (P(y, x + 1) - P(y, x)) + 8) >> 4;
+                        int sh = 4 - ib, rnd = (1 << sh) >> 1;
+                        int m = (16 * P(y, x) + mx * (P(y, x + 1) - P(y, x)) + rnd) >> sh;
+                        v = clip3(0, maxv, (m + ((1 << ib) >> 1)) >> ib);
                     } else if (my) {
                         v = (16 * P(y, x) + my * (P(y + 1, x) - P(y, x)) + 8) >> 4;
                     } else {
                         v = P(y, x);
                     }
-                    buf[i * 128 + j] = uint8_t(v);
+                    buf[i * 128 + j] = pixel(v);
                 }
-            for (int i = 0; i < h; i++) memcpy(pl.at(y0 + i, x0), &buf[i * 128], size_t(w));
+            for (int i = 0; i < h; i++) memcpy(pl.at(y0 + i, x0), &buf[i * 128], sizeof(pixel) * size_t(w));
         }
     }
 
@@ -2418,7 +2484,7 @@ struct Decoder::Tile {
             buf[i - 1] = (s + 8) >> 4;
         }
     }
-    static void upsample(int* buf, int num_px) {
+    static void upsample(int* buf, int num_px, int maxv) {
         int dup[300];
         dup[0] = buf[-1];
         for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
@@ -2426,7 +2492,7 @@ struct Decoder::Tile {
         buf[-2] = dup[0];
         for (int i = 0; i < num_px; i++) {
             int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-            s = clip3(0, 255, round2(s, 4));
+            s = clip3(0, maxv, round2(s, 4));
             buf[2 * i - 1] = s;
             buf[2 * i] = dup[i + 2];
         }
@@ -2442,11 +2508,12 @@ struct Decoder::Tile {
         int* above = above_buf + 16;
         int* left = left_buf + 16;
         int n = w + h;
+        const int base = 1 << (f.bitdepth - 1), maxv = (1 << f.bitdepth) - 1;
         if (!have_above && have_left) {
             int v = *pl.at(y, x - 1);
             for (int i = -1; i < n; i++) above[i] = v;
         } else if (!have_above && !have_left) {
-            for (int i = -1; i < n; i++) above[i] = 127;
+            for (int i = -1; i < n; i++) above[i] = base - 1;
         } else {
             int lim = imin(max_x, x + (have_ar ? 2 * w : w) - 1);
             for (int i = 0; i < n; i++) above[i] = *pl.at(y - 1, imin(lim, x + i));
@@ -2455,7 +2522,7 @@ struct Decoder::Tile {
             int v = *pl.at(y - 1, x);
             for (int i = -1; i < n; i++) left[i] = v;
         } else if (!have_left && !have_above) {
-            for (int i = -1; i < n; i++) left[i] = 129;
+            for (int i = -1; i < n; i++) left[i] = base + 1;
         } else {
             int lim = imin(max_y, y + (have_bl ? 2 * h : h) - 1);
             for (int i = 0; i < n; i++) left[i] = *pl.at(imin(lim, y + i), x - 1);
@@ -2463,10 +2530,10 @@ struct Decoder::Tile {
         if (have_above && have_left) above[-1] = *pl.at(y - 1, x - 1);
         else if (have_above) above[-1] = *pl.at(y - 1, x);
         else if (have_left) above[-1] = *pl.at(y, x - 1);
-        else above[-1] = 128;
+        else above[-1] = base;
         left[-1] = above[-1];
 
-        uint8_t* dst = pl.at(y, x);
+        pixel* dst = pl.at(y, x);
         int st = pl.stride;
         if (p == 0 && use_filter_intra) {
             int w4 = w >> 2, h2 = h >> 1;
@@ -2487,7 +2554,7 @@ struct Decoder::Tile {
                         int pr = 0;
                         for (int j = 0; j < 7; j++) pr += av1_filter_intra_taps[filter_intra_mode][i][j] * pv[j];
                         dst[((i2 << 1) + (i >> 2)) * st + (j4 << 2) + (i & 3)] =
-                            uint8_t(clip3(0, 255, round2signed(pr, 4)));
+                            pixel(clip3(0, maxv, round2signed(pr, 4)));
                     }
                 }
             return;
@@ -2515,9 +2582,9 @@ struct Decoder::Tile {
                     }
                 }
                 up_above = use_upsample(w, h, ftype, pangle - 90);
-                if (up_above) upsample(above, w + (pangle < 90 ? h : 0));
+                if (up_above) upsample(above, w + (pangle < 90 ? h : 0), maxv);
                 up_left = use_upsample(w, h, ftype, pangle - 180);
-                if (up_left) upsample(left, h + (pangle > 180 ? w : 0));
+                if (up_left) upsample(left, h + (pangle > 180 ? w : 0), maxv);
             }
             int dx = 0, dy = 0;
             if (pangle < 90) dx = av1_dr_intra_derivative[pangle];
@@ -2562,7 +2629,7 @@ struct Decoder::Tile {
                     } else {
                         pred = left[i];
                     }
-                    dst[i * st + j] = uint8_t(pred);
+                    dst[i * st + j] = pixel(pred);
                 }
             return;
         }
@@ -2574,7 +2641,7 @@ struct Decoder::Tile {
                     for (int j = 0; j < w; j++) {
                         int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] +
                                 (256 - wx[j]) * above[w - 1];
-                        dst[i * st + j] = uint8_t(round2(s, 9));
+                        dst[i * st + j] = pixel(round2(s, 9));
                     }
                 break;
             }
@@ -2582,14 +2649,14 @@ struct Decoder::Tile {
                 const uint8_t* wy = av1_sm_weights + h;
                 for (int i = 0; i < h; i++)
                     for (int j = 0; j < w; j++)
-                        dst[i * st + j] = uint8_t(round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8));
+                        dst[i * st + j] = pixel(round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8));
                 break;
             }
             case SMOOTH_H_PRED: {
                 const uint8_t* wx = av1_sm_weights + w;
                 for (int i = 0; i < h; i++)
                     for (int j = 0; j < w; j++)
-                        dst[i * st + j] = uint8_t(round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8));
+                        dst[i * st + j] = pixel(round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8));
                 break;
             }
             case PAETH_PRED:
@@ -2601,7 +2668,7 @@ struct Decoder::Tile {
                         if (pl_ <= pt && pl_ <= ptl) v = left[i];
                         else if (pt <= ptl) v = above[j];
                         else v = above[-1];
-                        dst[i * st + j] = uint8_t(v);
+                        dst[i * st + j] = pixel(v);
                     }
                 break;
             default: {  // DC
@@ -2620,10 +2687,10 @@ struct Decoder::Tile {
                     for (int k = 0; k < w; k++) sum += above[k];
                     avg = (sum + (w >> 1)) >> log2w;
                 } else {
-                    avg = 128;
+                    avg = base;
                 }
                 for (int i = 0; i < h; i++)
-                    for (int j = 0; j < w; j++) dst[i * st + j] = uint8_t(avg);
+                    for (int j = 0; j < w; j++) dst[i * st + j] = pixel(avg);
             }
         }
     }
@@ -2651,9 +2718,9 @@ struct Decoder::Tile {
         int lavg = round2(avg, floorlog2(uint32_t(w)) + floorlog2(uint32_t(h)));
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) {
-                uint8_t* d = pl.at(sy0 + i, sx0 + j);
+                pixel* d = pl.at(sy0 + i, sx0 + j);
                 int scaled = round2signed(alpha * (L[i * w + j] - lavg), 6);
-                *d = uint8_t(clip3(0, 255, *d + scaled));
+                *d = pixel(clip3(0, (1 << f.bitdepth) - 1, *d + scaled));
             }
     }
 
@@ -2904,8 +2971,14 @@ struct Decoder::Tile {
         return off;
     }
 
-    int dc_q(int b) { return av1_dc_qlookup[clip3(0, 255, b)]; }
-    int ac_q(int b) { return av1_ac_qlookup[clip3(0, 255, b)]; }
+    int dc_q(int b) {
+        const int16_t* t = f.bitdepth == 12 ? av1_dc_qlookup12 : f.bitdepth == 10 ? av1_dc_qlookup10 : av1_dc_qlookup;
+        return t[clip3(0, 255, b)];
+    }
+    int ac_q(int b) {
+        const int16_t* t = f.bitdepth == 12 ? av1_ac_qlookup12 : f.bitdepth == 10 ? av1_ac_qlookup10 : av1_ac_qlookup;
+        return t[clip3(0, 255, b)];
+    }
 
     void reconstruct(int p, int x, int y, int t, int eob) {
         int w = kTw[t], h = kTh[t];
@@ -2916,6 +2989,8 @@ struct Decoder::Tile {
         int dcq = p == 0 ? dc_q(qi + f.dq_y_dc) : p == 1 ? dc_q(qi + f.dq_u_dc) : dc_q(qi + f.dq_v_dc);
         int acq = p == 0 ? ac_q(qi) : p == 1 ? ac_q(qi + f.dq_u_ac) : ac_q(qi + f.dq_v_ac);
         static thread_local int32_t coef[32 * 32];
+        // the dequantised coefficient's range: 7 + BitDepth bits and a sign
+        const int64_t cmax = (int64_t(1) << (7 + f.bitdepth)) - 1;
         // the quantizer matrix of a 2-D transform (the adjusted size's; none
         // at level 15 or for the identity-bearing types)
         const uint8_t* qm = nullptr;
@@ -2932,7 +3007,7 @@ struct Decoder::Tile {
                 mag &= 0xFFFFFF;
                 mag >>= dq_shift;
                 int64_t dq = qv < 0 ? -mag : mag;
-                coef[i * tw + j] = int32_t(dq < -32768 ? -32768 : dq > 32767 ? 32767 : dq);
+                coef[i * tw + j] = int32_t(dq < -cmax - 1 ? -cmax - 1 : dq > cmax ? cmax : dq);
             }
         if (plane_tx_type == DCT_DCT && eob == 1 && !lossless) {
             // dav1d's DC-only route: the DCT of a lone DC coefficient without
@@ -2940,20 +3015,28 @@ struct Decoder::Tile {
             // a conformant stream)
             int dc = coef[0];
             if (w == 2 * h || h == 2 * w) dc = (dc * 181 + 128) >> 8;
-            dc = chk16((dc * 181 + 128) >> 8);
+            g_itx_max = row_max();
+            dc = chk_range((int64_t(dc) * 181 + 128) >> 8);
             int sh = kRowShift[t];
             dc = (dc + ((1 << sh) >> 1)) >> sh;
-            dc = chk16((dc * 181 + 128) >> 8);
+            g_itx_max = col_max();
+            dc = chk_range((int64_t(dc) * 181 + 128) >> 8);
             dc = (dc + 8) >> 4;
             Plane& pl = f.plane[p];
+            const int maxv = (1 << f.bitdepth) - 1;
             for (int i = 0; i < h; i++) {
-                uint8_t* d = pl.at(y + i, x);
-                for (int j = 0; j < w; j++) d[j] = uint8_t(clip3(0, 255, d[j] + dc));
+                pixel* d = pl.at(y + i, x);
+                for (int j = 0; j < w; j++) d[j] = pixel(clip3(0, maxv, d[j] + dc));
             }
             return;
         }
         inverse_transform_add(p, x, y, t, coef);
     }
+
+    // the largest intermediate value of the row and column transforms
+    // (BitDepth + 8 bits, Max(BitDepth + 6, 16) bits; dav1d's clip ranges)
+    int32_t row_max() const { return (1 << (f.bitdepth + 7)) - 1; }
+    int32_t col_max() const { return (1 << imax(f.bitdepth + 5, 15)) - 1; }
 
     void inverse_transform_add(int p, int x, int y, int t, const int32_t* coef) {
         int w = kTw[t], h = kTh[t];
@@ -2961,11 +3044,12 @@ struct Decoder::Tile {
         int log2w = floorlog2(uint32_t(w)), log2h = floorlog2(uint32_t(h));
         int row_shift = lossless ? 0 : kRowShift[t];
         int col_shift = lossless ? 0 : 4;
-        Clamp cl{-32768, 32767};
+        Clamp rcl{-row_max() - 1, row_max()}, ccl{-col_max() - 1, col_max()};
         static thread_local int32_t res[64 * 64];
         int vk, hk, flip_ud, flip_lr;
         tx_kinds(plane_tx_type, &vk, &hk, &flip_ud, &flip_lr);
         int32_t T[64];
+        g_itx_max = row_max();
         for (int i = 0; i < h; i++) {
             if (i >= th) {
                 for (int j = 0; j < w; j++) res[i * 64 + j] = 0;
@@ -2981,23 +3065,25 @@ struct Decoder::Tile {
             if (abs(log2w - log2h) == 1)
                 for (int j = 0; j < w; j++) T[j] = int32_t((int64_t(T[j]) * 2896 + 2048) >> 12);
             if (lossless) iwht4(T, 2);
-            else itx1d(T, w, hk, cl);
+            else itx1d(T, w, hk, rcl);
             for (int j = 0; j < w; j++) {
                 int32_t v = round2(T[flip_lr ? w - 1 - j : j], row_shift);
-                if (!lossless) v = cl(v);
+                if (!lossless) v = ccl(v);
                 res[i * 64 + j] = v;
             }
         }
+        g_itx_max = col_max();
         for (int j = 0; j < w; j++) {
             for (int i = 0; i < h; i++) T[i] = res[i * 64 + j];
             if (lossless) iwht4(T, 0);
-            else itx1d(T, h, vk, cl);
+            else itx1d(T, h, vk, ccl);
             for (int i = 0; i < h; i++) res[i * 64 + j] = round2(T[flip_ud ? h - 1 - i : i], col_shift);
         }
         Plane& pl = f.plane[p];
+        const int maxv = (1 << f.bitdepth) - 1;
         for (int i = 0; i < h; i++) {
-            uint8_t* d = pl.at(y + i, x);
-            for (int j = 0; j < w; j++) d[j] = uint8_t(clip3(0, 255, d[j] + res[i * 64 + j]));
+            pixel* d = pl.at(y + i, x);
+            for (int j = 0; j < w; j++) d[j] = pixel(clip3(0, maxv, d[j] + res[i * 64 + j]));
         }
     }
 };
@@ -3054,10 +3140,17 @@ void Decoder::edge_filter(int p, int pass, int row, int col) {
     if (!apply || lvl == 0) return;
     int limit, blimit, thresh;
     filter_level(lvl, &limit, &blimit, &thresh);
+    // at depth: the limits and the flatness threshold shifted up, the
+    // narrow filter about (0x80 << shift) clamped to BitDepth signed bits
+    const int bs = bitdepth - 8, one = 1 << bs, half = 0x80 << bs;
+    limit <<= bs;
+    blimit <<= bs;
+    thresh <<= bs;
+    const int c4lo = -(1 << (bitdepth - 1)), c4hi = (1 << (bitdepth - 1)) - 1;
     Plane& pl = plane[p];
     int across = dx ? 1 : pl.stride;  // across the edge
     for (int i = 0; i < 4; i++) {
-        uint8_t* s = pl.at(yp, xp) + (dx ? i * pl.stride : i);  // the i-th sample along it
+        pixel* s = pl.at(yp, xp) + (dx ? i * pl.stride : i);  // the i-th sample along it
         auto S = [&](int k) -> int { return s[k * across]; };
         int q0 = S(0), q1 = S(1), q2 = S(2), q3 = S(3);
         int p0 = S(-1), p1 = S(-2), p2 = S(-3), p3 = S(-4);
@@ -3070,26 +3163,26 @@ void Decoder::edge_filter(int p, int pass, int row, int col) {
         if (!mask) continue;
         bool flat = false, flat2 = false;
         if (filter_size >= 8) {
-            flat = abs(p1 - p0) <= 1 && abs(q1 - q0) <= 1 && abs(p2 - p0) <= 1 && abs(q2 - q0) <= 1;
-            if (flen >= 8) flat = flat && abs(p3 - p0) <= 1 && abs(q3 - q0) <= 1;
+            flat = abs(p1 - p0) <= one && abs(q1 - q0) <= one && abs(p2 - p0) <= one && abs(q2 - q0) <= one;
+            if (flen >= 8) flat = flat && abs(p3 - p0) <= one && abs(q3 - q0) <= one;
         }
         if (filter_size >= 16) {
             int q4 = S(4), q5 = S(5), q6 = S(6), p4 = S(-5), p5 = S(-6), p6 = S(-7);
-            flat2 = abs(p6 - p0) <= 1 && abs(q6 - q0) <= 1 && abs(p5 - p0) <= 1 &&
-                    abs(q5 - q0) <= 1 && abs(p4 - p0) <= 1 && abs(q4 - q0) <= 1;
+            flat2 = abs(p6 - p0) <= one && abs(q6 - q0) <= one && abs(p5 - p0) <= one &&
+                    abs(q5 - q0) <= one && abs(p4 - p0) <= one && abs(q4 - q0) <= one;
         }
         if (filter_size == 4 || !flat) {
-            auto c4 = [](int v) { return clip3(-128, 127, v); };
-            int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+            auto c4 = [&](int v) { return clip3(c4lo, c4hi, v); };
+            int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half, qs1 = q1 - half;
             int fl = hev ? c4(ps1 - qs1) : 0;
             fl = c4(fl + 3 * (qs0 - ps0));
             int f1 = c4(fl + 4) >> 3, f2 = c4(fl + 3) >> 3;
-            s[0] = uint8_t(c4(qs0 - f1) + 128);
-            s[-across] = uint8_t(c4(ps0 + f2) + 128);
+            s[0] = pixel(c4(qs0 - f1) + half);
+            s[-across] = pixel(c4(ps0 + f2) + half);
             if (!hev) {
                 int fv = round2(f1, 1);
-                s[across] = uint8_t(c4(qs1 - fv) + 128);
-                s[-2 * across] = uint8_t(c4(ps1 + fv) + 128);
+                s[across] = pixel(c4(qs1 - fv) + half);
+                s[-2 * across] = pixel(c4(ps1 + fv) + half);
             }
         } else {
             int log2size = (filter_size == 8 || !flat2) ? 3 : 4;
@@ -3106,7 +3199,7 @@ void Decoder::edge_filter(int p, int pass, int row, int col) {
                 }
                 F[i2 + 8] = round2(tsum, log2size);
             }
-            for (int i2 = -n; i2 < n; i2++) s[i2 * across] = uint8_t(F[i2 + 8]);
+            for (int i2 = -n; i2 < n; i2++) s[i2 * across] = pixel(F[i2 + 8]);
         }
     }
 }
@@ -3147,12 +3240,12 @@ const int kDir[8][2][2] = {{{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2
 const int kUvDir[2][2][8] = {{{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
                              {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
 
-int find_dir(const uint8_t* img, int stride, int* var) {
+int find_dir(const pixel* img, int stride, int bitdepth, int* var) {
     static const int div_table[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
     int partial[8][15] = {{0}};
     for (int i = 0; i < 8; i++)
         for (int j = 0; j < 8; j++) {
-            int x = int(img[i * stride + j]) - 128;
+            int x = (int(img[i * stride + j]) >> (bitdepth - 8)) - 128;
             partial[0][i + j] += x;
             partial[1][i + j / 2] += x;
             partial[2][i] += x;
@@ -3221,12 +3314,14 @@ void Decoder::cdef() {
             if (skip_[mi(r, c)] && skip_[mi(r + 1, c)] && skip_[mi(r, c + 1)] && skip_[mi(r + 1, c + 1)])
                 continue;
             int var = 0;
-            int ydir = find_dir(src[0].at(r * 4, c * 4), src[0].stride, &var);
+            int ydir = find_dir(src[0].at(r * 4, c * 4), src[0].stride, bitdepth, &var);
             for (int p = 0; p < num_planes; p++) {
                 int sx = p ? ssx : 0, sy = p ? ssy : 0;
-                int pri = cdef_strength[idx][p ? 2 : 0], sec = cdef_strength[idx][p ? 3 : 1];
+                // strengths and damping shifted up at depth (coeff_shift)
+                const int cs = bitdepth - 8;
+                int pri = cdef_strength[idx][p ? 2 : 0] << cs, sec = cdef_strength[idx][p ? 3 : 1] << cs;
                 int dir = pri ? (p ? kUvDir[ssx][ssy][ydir] : ydir) : 0;
-                int damping = cdef_damping - (p ? 1 : 0);
+                int damping = cdef_damping + cs - (p ? 1 : 0);
                 if (p == 0) {
                     int var_str = (var >> 6) ? imin(floorlog2(uint32_t(var >> 6)), 12) : 0;
                     pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
@@ -3250,11 +3345,11 @@ void Decoder::cdef() {
                     so1[k] = kDir[(dir + 2) & 7][k][0] * S + kDir[(dir + 2) & 7][k][1];
                     so2[k] = kDir[(dir + 6) & 7][k][0] * S + kDir[(dir + 6) & 7][k][1];
                 }
-                const int* pri_taps = pri_tap_sets[pri & 1];
+                const int* pri_taps = pri_tap_sets[(pri >> cs) & 1];
                 int pri_shift = pri ? imax(0, damping - floorlog2(uint32_t(pri))) : 0;
                 int sec_shift = sec ? imax(0, damping - floorlog2(uint32_t(sec))) : 0;
                 for (int i = 0; i < h; i++) {
-                    uint8_t* out = plane[p].at(y0 + i, x0);
+                    pixel* out = plane[p].at(y0 + i, x0);
                     for (int j = 0; j < w; j++) {
                         const int* b = &buf[(i + 2) * S + j + 2];
                         int px = b[0], sum = 0, mx = px;
@@ -3271,7 +3366,7 @@ void Decoder::cdef() {
                                 mx = imax(mx, imax(s1, s2));
                                 mn = std::min(mn, std::min(unsigned(s1), unsigned(s2)));
                             }
-                        out[j] = uint8_t(clip3(int(mn), mx, px + ((8 + sum - (sum < 0)) >> 4)));
+                        out[j] = pixel(clip3(int(mn), mx, px + ((8 + sum - (sum < 0)) >> 4)));
                     }
                 }
             }
@@ -3291,6 +3386,7 @@ void Decoder::loop_restoration(const Plane* pre) {
         int sx = p ? ssx : 0, sy = p ? ssy : 0;
         int pw = round2(W, sx), ph = round2(H, sy);
         int unit = lr_unit_size[p];
+        const int maxv = (1 << bitdepth) - 1;
         Plane out = plane[p];
         const Plane& cd = plane[p];
         const Plane& dbk = pre[p];
@@ -3315,7 +3411,7 @@ void Decoder::loop_restoration(const Plane* pre) {
                     const Plane* srcp = &cd;
                     if (y < sstart) { y = imax(sstart - 2, y); srcp = &dbk; }
                     else if (y > send) { y = imin(send + 2, y); srcp = &dbk; }
-                    const uint8_t* row = &srcp->px[size_t(y) * srcp->stride];
+                    const pixel* row = &srcp->px[size_t(y) * srcp->stride];
                     for (int j = 0; j < bw; j++) buf[size_t(i) * bw + j] = row[clip3(0, pw - 1, x0 - PAD + j)];
                 }
                 auto S = [&](int i, int j) { return buf[size_t(i + PAD) * bw + j + PAD]; };
@@ -3331,20 +3427,22 @@ void Decoder::loop_restoration(const Plane* pre) {
                             fl[3] -= 2 * cf;
                         }
                     }
-                    // 8-bit: InterRound0 3, InterRound1 11
-                    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+                    // InterRound0 3 and InterRound1 11, 5 and 9 at 12 bits
+                    const int r0 = bitdepth == 12 ? 5 : 3, r1 = bitdepth == 12 ? 9 : 11;
+                    const int offset = 1 << (bitdepth + 7 - r0 - 1),
+                              limit = (1 << (bitdepth + 1 + 7 - r0)) - 1;
                     std::vector<int> inter(size_t(h + 6) * w);
                     for (int r = 0; r < h + 6; r++)
                         for (int c = 0; c < w; c++) {
                             int sum = 0;
                             for (int t = 0; t < 7; t++) sum += hf[t] * S(r - 3, c + t - 3);
-                            inter[size_t(r) * w + c] = clip3(-offset, limit - offset, round2(sum, 3));
+                            inter[size_t(r) * w + c] = clip3(-offset, limit - offset, round2(sum, r0));
                         }
                     for (int r = 0; r < h; r++)
                         for (int c = 0; c < w; c++) {
                             int sum = 0;
                             for (int t = 0; t < 7; t++) sum += vf[t] * inter[size_t(r + t) * w + c];
-                            *out.at(y0 + r, x0 + c) = uint8_t(clip3(0, 255, round2(sum, 11)));
+                            *out.at(y0 + r, x0 + c) = pixel(clip3(0, maxv, round2(sum, r1)));
                         }
                 } else {
                     const int* prm = av1_sgr_params[u.set];
@@ -3365,7 +3463,9 @@ void Decoder::loop_restoration(const Plane* pre) {
                                         a += cv * cv;
                                         b += cv;
                                     }
-                                int pv = imax(0, a * n - b * b);
+                                // at depth: a and b scaled back to 8 bits
+                                int as = round2(a, 2 * (bitdepth - 8)), bs = round2(b, bitdepth - 8);
+                                int pv = imax(0, as * n - bs * bs);
                                 int z = int((int64_t(pv) * sc + (1 << 19)) >> 20);
                                 int a2 = 256 - av1_sgr_x_by_x[imin(z, 255)];
                                 int64_t b2 = int64_t(256 - a2) * b * one_over_n;
@@ -3398,12 +3498,50 @@ void Decoder::loop_restoration(const Plane* pre) {
                             int v = w1 * uu;
                             v += prm[0] ? w0 * flt[0][size_t(i) * w + j] : w0 * uu;
                             v += prm[2] ? w2 * flt[1][size_t(i) * w + j] : w2 * uu;
-                            *out.at(y0 + i, x0 + j) = uint8_t(clip3(0, 255, round2(v, 4 + 7)));
+                            *out.at(y0 + i, x0 + j) = pixel(clip3(0, maxv, round2(v, 4 + 7)));
                         }
                 }
             }
         });
         for (int64_t n : filtered) stats[12] += n;
+        plane[p] = std::move(out);
+    }
+}
+
+// ---- superres upscaling (specification 7.16, as dav1d's resize_c runs
+// it): each plane from its downscaled width to its upscaled one, 8-tap
+// Upscale_Filter phases stepped in 1/16384 pixels from the initial
+// position, samples past the frame's 4x4 grid clamped to its edge; after
+// CDEF, before loop restoration and film grain
+
+void Decoder::superres_upscale() {
+    if (!use_superres) return;
+    const int maxv = (1 << bitdepth) - 1;
+    for (int p = 0; p < num_planes; p++) {
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int in_w = (W + sx) >> sx, out_w = (UpW + sx) >> sx, h = (H + sy) >> sy;
+        int src_w = (4 * MiCols + sx) >> sx;
+        int step = ((in_w << 14) + (out_w >> 1)) / out_w;
+        int err = out_w * step - (in_w << 14);
+        int x0 = ((-((out_w - in_w) << 13) + (out_w >> 1)) / out_w + 128 - err / 2) & 0x3fff;
+        Plane out;
+        out.stride = out_w + 16;
+        out.rows = h;
+        out.px.assign(size_t(out.stride) * out.rows, 0);
+        for (int y = 0; y < h; y++) {
+            const pixel* src = plane[p].at(y, 0);
+            pixel* dst = out.at(y, 0);
+            int mx = x0, src_x = -1;
+            for (int x = 0; x < out_w; x++) {
+                const int16_t* F = av1_upscale_filter[mx >> 8];
+                int sum = 0;
+                for (int k = 0; k < 8; k++) sum += F[k] * src[clip3(0, src_w - 1, src_x - 3 + k)];
+                dst[x] = pixel(clip3(0, maxv, (sum + 64) >> 7));
+                mx += step;
+                src_x += mx >> 14;
+                mx &= 0x3fff;
+            }
+        }
         plane[p] = std::move(out);
     }
 }
@@ -3432,15 +3570,16 @@ void scaling_lut(const int (*pts)[2], int n, uint8_t* lut) {
 }
 }  // namespace grain_detail
 
-void Decoder::film_grain(uint8_t* const out[3]) {
+void Decoder::film_grain(pixel* const out[3]) {
     using namespace grain_detail;
     const FilmGrain& g = fg;
     if (!g.apply) return;
-    const int gmin = -128, gmax = 127;
+    const int bs = bitdepth - 8;
+    const int gmin = -(128 << bs), gmax = (128 << bs) - 1;
     // grain templates
     static thread_local int luma[73][82], cb[73][82], cr[73][82];
     Rng rng{g.seed};
-    int shift = 12 - 8 + g.grain_scale_shift;
+    int shift = 12 - bitdepth + g.grain_scale_shift;
     for (int y = 0; y < 73; y++)
         for (int x = 0; x < 82; x++)
             luma[y][x] = g.num_y ? round2(av1_gaussian_sequence[rng.next(11)], shift) : 0;
@@ -3498,8 +3637,17 @@ void Decoder::film_grain(uint8_t* const out[3]) {
         if (g.csfl) memcpy(lut[1 + pl], lut[0], 256);
         else scaling_lut(g.uv_points[pl], g.num_uv[pl], lut[1 + pl]);
     }
+    // the scaling at depth: between two of the 256 entries, interpolated
+    // (the specification's scale_lut; dav1d's high-bit-depth scaling table)
+    auto scale = [&](int pl, int index) -> int {
+        if (!bs) return lut[pl][index];
+        int x = index >> bs, rem = index - (x << bs);
+        if (x == 255) return lut[pl][255];
+        int start = lut[pl][x], end = lut[pl][x + 1];
+        return start + round2((end - start) * rem, bs);
+    };
     // the noise image: 32x32 blocks (of luma) at random offsets, overlapped
-    int w = W, h = H;
+    int w = UpW, h = H;
     int cw = (w + ssx) >> ssx, chh = (h + ssy) >> ssy;
     int nstripes = (h + 31) / 32;
     int np = mono ? 1 : 3;
@@ -3557,12 +3705,13 @@ void Decoder::film_grain(uint8_t* const out[3]) {
         }
         return gv;
     };
-    int minv = 0, maxl = 255, maxc = 255;
+    int minv = 0, maxl = (256 << bs) - 1, maxc = (256 << bs) - 1;
     if (g.clip_restricted) {
-        minv = 16;
-        maxl = 235;
-        maxc = mc == 0 ? 235 : 240;
+        minv = 16 << bs;
+        maxl = 235 << bs;
+        maxc = (mc == 0 ? 235 : 240) << bs;
     }
+    const int maxv = (1 << bitdepth) - 1;
     int sshift = g.scaling_shift;
     stats[13] = (g.num_y > 0) + (mono ? 0 : (g.num_uv[0] || g.csfl) + (g.num_uv[1] || g.csfl));
     if (!mono) {
@@ -3570,25 +3719,25 @@ void Decoder::film_grain(uint8_t* const out[3]) {
             for (int x = 0; x < cw; x++) {
                 int lx = x << ssx, ly = y << ssy;
                 int lnx = imin(lx + 1, w - 1);
-                const uint8_t* yr = out[0] + size_t(ly) * w;
+                const pixel* yr = out[0] + size_t(ly) * w;
                 int avg = ssx ? (yr[lx] + yr[lnx] + 1) >> 1 : yr[lx];
                 for (int pl = 0; pl < 2; pl++) {
                     if (!(g.num_uv[pl] || g.csfl)) continue;
-                    uint8_t* o = out[1 + pl] + size_t(y) * cw + x;
+                    pixel* o = out[1 + pl] + size_t(y) * cw + x;
                     int orig = *o, merged;
                     if (g.csfl) merged = avg;
-                    else merged = clip3(0, 255, ((avg * g.uv_luma_mult[pl] + orig * g.uv_mult[pl]) >> 6) + g.uv_offset[pl]);
-                    int nz = round2(lut[1 + pl][merged] * noise_at(1 + pl, y, x), sshift);
-                    *o = uint8_t(clip3(minv, maxc, orig + nz));
+                    else merged = clip3(0, maxv, ((avg * g.uv_luma_mult[pl] + orig * g.uv_mult[pl]) >> 6) + g.uv_offset[pl] * (1 << bs));
+                    int nz = round2(scale(1 + pl, merged) * noise_at(1 + pl, y, x), sshift);
+                    *o = pixel(clip3(minv, maxc, orig + nz));
                 }
             }
     }
     if (g.num_y)
         for (int y = 0; y < h; y++)
             for (int x = 0; x < w; x++) {
-                uint8_t* o = out[0] + size_t(y) * w + x;
-                int nz = round2(lut[0][*o] * noise_at(0, y, x), sshift);
-                *o = uint8_t(clip3(minv, maxl, *o + nz));
+                pixel* o = out[0] + size_t(y) * w + x;
+                int nz = round2(scale(0, *o) * noise_at(0, y, x), sshift);
+                *o = pixel(clip3(minv, maxl, *o + nz));
             }
 }
 
@@ -3631,6 +3780,21 @@ struct Obus {
             }
             case 3: case 6: case 7: {
                 if (!later.have_seq) fail("an AV1 frame header without a sequence header");
+                if (!later.reduced && size && (body[0] & 0x80)) {
+                    // show_existing_frame: of the hidden key frame, it shows it
+                    // (with its film grain, load_grain_params)
+                    BitReader br(body, size);
+                    br.f(1);
+                    int idx = later.parse_show_existing(br);
+                    if (type != 6) br.trailing_bit();
+                    if (!dec.show_frame && !dec.shown_existing) {
+                        if (!dec.showable_frame || !((dec.refresh_frame_flags >> idx) & 1))
+                            fail("show_existing_frame of AV1 slot %d, which holds no showable frame", idx);
+                        dec.shown_existing = 1;
+                    }
+                    later_frame = false;
+                    break;
+                }
                 later.header_only = true;
                 later.have_frame_header = false;
                 BitReader br(body, size);
@@ -3750,6 +3914,8 @@ struct Obus {
         if (!dec.have_frame_header) fail("no AV1 frame header");
         if (!probe_only && !frame_done)
             fail("AV1 frame data end after %d of %d tiles", dec.tiles_decoded, dec.tile_cols * dec.tile_rows);
+        if (!probe_only && !dec.show_frame && !dec.shown_existing)
+            unported("a hidden AV1 key frame that no show_existing_frame of its sample shows");
     }
 };
 
@@ -3771,7 +3937,7 @@ extern "C" int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info, c
         if (d.cdef_on)
             for (int i = 0; i < (1 << d.cdef_bits); i++)
                 for (int k = 0; k < 4; k++) cdef_nonzero += d.cdef_strength[i][k] != 0;
-        int32_t v[28] = {d.W, d.H, d.bitdepth, d.mono, d.ssx, d.ssy, d.color_range, d.cp,
+        int32_t v[30] = {d.UpW, d.H, d.bitdepth, d.mono, d.ssx, d.ssy, d.color_range, d.cp,
                          d.tc, d.mc, d.csp, d.profile, d.use128, d.tx_mode,
                          d.allow_screen_content_tools, d.tile_cols, d.tile_rows, d.coded_lossless,
                          d.lf_level[0] | (d.lf_level[1] << 8) | (d.lf_level[2] << 16) |
@@ -3781,7 +3947,7 @@ extern "C" int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info, c
                          cdef_nonzero,
                          d.lr_type[0] | (d.lr_type[1] << 2) | (d.lr_type[2] << 4),
                          d.fg.apply, d.seg_enabled, d.delta_q_present, d.delta_lf_present,
-                         d.allow_intrabc};
+                         d.allow_intrabc, d.superres_denom, !d.show_frame};
         memcpy(info, v, sizeof v);
         return 0;
     } catch (const std::exception& e) {
@@ -3804,29 +3970,36 @@ extern "C" int akr_av1_sequence_header(const uint8_t* data, int64_t size, char* 
     }
 }
 
-extern "C" int akr_av1_decode(const uint8_t* data, int64_t size, uint8_t* y, uint8_t* u,
-                              uint8_t* v, int64_t* stats, char* err, int32_t errlen) {
+extern "C" int akr_av1_decode(const uint8_t* data, int64_t size, uint16_t* y, uint16_t* u,
+                              uint16_t* v, int64_t* stats, char* err, int32_t errlen) {
     try {
         g_itx_overflow = false;
         Obus o;
         o.run(data, size_t(size), false);
         Decoder& d = o.dec;
-        if (g_itx_overflow)
-            fail("an AV1 transform whose intermediate values leave the 16-bit range the "
-                 "specification requires (a non-conformant stream, on which dav1d's x86 "
-                 "assembly gives pixels of its own)");
+        if (g_itx_overflow) {
+            if (d.bitdepth == 8)
+                fail("an AV1 transform whose intermediate values leave the 16-bit range the "
+                     "specification requires (a non-conformant stream, on which dav1d's x86 "
+                     "assembly gives pixels of its own)");
+            fail("an AV1 transform whose intermediate values leave the range the "
+                 "specification requires at a bit depth of %d (a non-conformant stream, on "
+                 "which dav1d's x86 assembly gives pixels of its own)", d.bitdepth);
+        }
         d.loop_filter();
         Plane pre_cdef[3];
         if (d.uses_lr)
             for (int p = 0; p < d.num_planes; p++) pre_cdef[p] = d.plane[p];
         d.cdef();
+        d.superres_upscale();
         d.loop_restoration(pre_cdef);
         if (stats) memcpy(stats, d.stats, sizeof d.stats);
-        uint8_t* out[3] = {y, u, v};
+        pixel* out[3] = {y, u, v};
         for (int p = 0; p < d.num_planes; p++) {
             int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
-            int w = (d.W + sx) >> sx, h = (d.H + sy) >> sy;
-            for (int r = 0; r < h; r++) memcpy(out[p] + size_t(r) * w, d.plane[p].at(r, 0), size_t(w));
+            int w = (d.UpW + sx) >> sx, h = (d.H + sy) >> sy;
+            for (int r = 0; r < h; r++)
+                memcpy(out[p] + size_t(r) * w, d.plane[p].at(r, 0), sizeof(pixel) * size_t(w));
         }
         d.film_grain(out);
         if (stats) memcpy(stats, d.stats, sizeof d.stats);
@@ -3861,30 +4034,32 @@ extern "C" int akr_av1_decode(const uint8_t* data, int64_t size, uint8_t* y, uin
 
 namespace {
 
-void up_linear(const uint8_t* s, uint8_t* d, int w) {
+template <class T>
+void up_linear(const T* s, T* d, int w) {
     int work = (w - 1) & ~1;
     d[0] = s[0];
     for (int k = 0; k < work / 2; k++) {
-        d[1 + 2 * k] = uint8_t((3 * s[k] + s[k + 1] + 2) >> 2);
-        d[2 + 2 * k] = uint8_t((s[k] + 3 * s[k + 1] + 2) >> 2);
+        d[1 + 2 * k] = T((3 * s[k] + s[k + 1] + 2) >> 2);
+        d[2 + 2 * k] = T((s[k] + 3 * s[k + 1] + 2) >> 2);
     }
     d[w - 1] = s[(w - 1) / 2];
 }
 
-void up_bilinear(const uint8_t* sa, const uint8_t* sb, uint8_t* da, uint8_t* db, int w) {
+template <class T>
+void up_bilinear(const T* sa, const T* sb, T* da, T* db, int w) {
     int work = (w - 1) & ~1;
-    da[0] = uint8_t((3 * sa[0] + sb[0] + 2) >> 2);
-    db[0] = uint8_t((sa[0] + 3 * sb[0] + 2) >> 2);
+    da[0] = T((3 * sa[0] + sb[0] + 2) >> 2);
+    db[0] = T((sa[0] + 3 * sb[0] + 2) >> 2);
     for (int k = 0; k < work / 2; k++) {
         int a0 = sa[k], a1 = sa[k + 1], b0 = sb[k], b1 = sb[k + 1];
-        da[1 + 2 * k] = uint8_t((9 * a0 + 3 * a1 + 3 * b0 + b1 + 8) >> 4);
-        da[2 + 2 * k] = uint8_t((3 * a0 + 9 * a1 + b0 + 3 * b1 + 8) >> 4);
-        db[1 + 2 * k] = uint8_t((3 * a0 + a1 + 9 * b0 + 3 * b1 + 8) >> 4);
-        db[2 + 2 * k] = uint8_t((a0 + 3 * a1 + 3 * b0 + 9 * b1 + 8) >> 4);
+        da[1 + 2 * k] = T((9 * a0 + 3 * a1 + 3 * b0 + b1 + 8) >> 4);
+        da[2 + 2 * k] = T((3 * a0 + 9 * a1 + b0 + 3 * b1 + 8) >> 4);
+        db[1 + 2 * k] = T((3 * a0 + a1 + 9 * b0 + 3 * b1 + 8) >> 4);
+        db[2 + 2 * k] = T((a0 + 3 * a1 + 3 * b0 + 9 * b1 + 8) >> 4);
     }
     int last = (w - 1) / 2;
-    da[w - 1] = uint8_t((3 * sa[last] + sb[last] + 2) >> 2);
-    db[w - 1] = uint8_t((sa[last] + 3 * sb[last] + 2) >> 2);
+    da[w - 1] = T((3 * sa[last] + sb[last] + 2) >> 2);
+    db[w - 1] = T((sa[last] + 3 * sb[last] + 2) >> 2);
 }
 
 inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v)); }
@@ -3973,8 +4148,13 @@ extern "C" void akr_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t
 //   fractions);
 // - none: ScalePlaneSimple (nearest).
 //
+// The 16-bit planes of a high bit depth take ScalePlane_16's same routes
+// with its C rows: the 3/4 and 3/8 rows without the SSSE3 rounding, 16-bit
+// fractions across columns (ScaleFilterCols_16_C), 32-bit box sums.
+//
 //   void akr_scale_plane(const uint8_t* src, int32_t src_w, int32_t src_h,
 //                        uint8_t* dst, int32_t dst_w, int32_t dst_h);
+//   void akr_scale_plane16(...)  (the same of uint16_t planes)
 // (planes packed, rows of their width)
 
 namespace {
@@ -4029,20 +4209,30 @@ void slope(int sw, int sh, int dw, int dh, Filter f, int* x, int* y, int* dx, in
 }
 
 // InterpolateRow: rows a and b blended by f / 256 (f = 0: a)
-void interpolate_row(uint8_t* d, const uint8_t* a, const uint8_t* b, int w, int f) {
-    if (!f) { memcpy(d, a, size_t(w)); return; }
-    for (int x = 0; x < w; x++) d[x] = uint8_t((a[x] * (256 - f) + b[x] * f + 128) >> 8);
+template <class T>
+void interpolate_row(T* d, const T* a, const T* b, int w, int f) {
+    if (!f) { memcpy(d, a, sizeof(T) * size_t(w)); return; }
+    for (int x = 0; x < w; x++) d[x] = T((a[x] * (256 - f) + b[x] * f + 128) >> 8);
 }
 
-// ScaleFilterCols_SSSE3: 7-bit fractions of the 16.16 positions
-void filter_cols(uint8_t* d, const uint8_t* s, int dw, int x, int dx) {
+// ScaleFilterCols_SSSE3: 7-bit fractions of the 16.16 positions; 16-bit
+// planes ScaleFilterCols_16_C: 16-bit fractions
+template <class T>
+void filter_cols(T* d, const T* s, int dw, int x, int dx) {
     for (int j = 0; j < dw; j++, x += dx) {
-        int xi = x >> 16, f = (x >> 9) & 127;
-        d[j] = uint8_t(((128 - f) * s[xi] + f * s[xi + 1] + 64) >> 7);
+        int xi = x >> 16;
+        if (sizeof(T) == 1) {
+            int f = (x >> 9) & 127;
+            d[j] = T(((128 - f) * s[xi] + f * s[xi + 1] + 64) >> 7);
+        } else {
+            int a = s[xi], b = s[xi + 1];
+            d[j] = T(a + int((int64_t(x & 0xffff) * (b - a) + 0x8000) >> 16));
+        }
     }
 }
 
-void vertical(const uint8_t* src, int sw, int sh, uint8_t* dst, int dh, Filter f) {
+template <class T>
+void vertical(const T* src, int sw, int sh, T* dst, int dh, Filter f) {
     int y = 0, dy = 0;
     if (dh <= sh) {
         dy = fixed_div(sh, dh);
@@ -4053,61 +4243,65 @@ void vertical(const uint8_t* src, int sw, int sh, uint8_t* dst, int dh, Filter f
     const int max_y = sh > 1 ? ((sh - 1) << 16) - 1 : 0;
     for (int j = 0; j < dh; j++, y += dy) {
         if (y > max_y) y = max_y;
-        const uint8_t* a = src + size_t(y >> 16) * sw;
+        const T* a = src + size_t(y >> 16) * sw;
         interpolate_row(dst + size_t(j) * sw, a, a + sw, sw, f ? (y >> 8) & 255 : 0);
     }
 }
 
-void down2(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
+template <class T>
+void down2(const T* src, int sw, T* dst, int dw, int dh) {
     for (int j = 0; j < dh; j++) {
-        const uint8_t *s = src + size_t(2 * j) * sw, *t = s + sw;
+        const T *s = src + size_t(2 * j) * sw, *t = s + sw;
         for (int x = 0; x < dw; x++)
-            dst[size_t(j) * dw + x] = uint8_t((s[2 * x] + s[2 * x + 1] + t[2 * x] + t[2 * x + 1] + 2) >> 2);
+            dst[size_t(j) * dw + x] = T((s[2 * x] + s[2 * x + 1] + t[2 * x] + t[2 * x + 1] + 2) >> 2);
     }
 }
 
-void down4(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
+template <class T>
+void down4(const T* src, int sw, T* dst, int dw, int dh) {
     for (int j = 0; j < dh; j++)
         for (int x = 0; x < dw; x++) {
             int sum = 0;
             for (int r = 0; r < 4; r++)
                 for (int c = 0; c < 4; c++) sum += src[size_t(4 * j + r) * sw + 4 * x + c];
-            dst[size_t(j) * dw + x] = uint8_t((sum + 8) >> 4);
+            dst[size_t(j) * dw + x] = T((sum + 8) >> 4);
         }
 }
 
 // a 3/4 row from rows s and t: rows 3:1 (w31) or 1:1; the first simd_n
 // outputs as the SSSE3 row (vertically first), the rest as the C row
-void down34_row(const uint8_t* s, const uint8_t* t, uint8_t* d, int dw, bool w31) {
-    int simd_n = dw - dw % 24;
+template <class T>
+void down34_row(const T* s, const T* t, T* d, int dw, bool w31) {
+    int simd_n = sizeof(T) == 1 ? dw - dw % 24 : 0;  // 16-bit planes: C rows only
     for (int x = 0, i = 0; x < dw; x += 3, i += 4) {
         if (x < simd_n) {
             int v[4];
             for (int k = 0; k < 4; k++) v[k] = w31 ? avg(s[i + k], avg(s[i + k], t[i + k])) : avg(s[i + k], t[i + k]);
-            d[x] = uint8_t((3 * v[0] + v[1] + 2) >> 2);
-            d[x + 1] = uint8_t((2 * v[1] + 2 * v[2] + 2) >> 2);
-            d[x + 2] = uint8_t((v[2] + 3 * v[3] + 2) >> 2);
+            d[x] = T((3 * v[0] + v[1] + 2) >> 2);
+            d[x + 1] = T((2 * v[1] + 2 * v[2] + 2) >> 2);
+            d[x + 2] = T((v[2] + 3 * v[3] + 2) >> 2);
         } else {
             int a0 = (s[i] * 3 + s[i + 1] + 2) >> 2, a1 = (s[i + 1] + s[i + 2] + 1) >> 1,
                 a2 = (s[i + 2] + s[i + 3] * 3 + 2) >> 2;
             int b0 = (t[i] * 3 + t[i + 1] + 2) >> 2, b1 = (t[i + 1] + t[i + 2] + 1) >> 1,
                 b2 = (t[i + 2] + t[i + 3] * 3 + 2) >> 2;
             if (w31) {
-                d[x] = uint8_t((a0 * 3 + b0 + 2) >> 2);
-                d[x + 1] = uint8_t((a1 * 3 + b1 + 2) >> 2);
-                d[x + 2] = uint8_t((a2 * 3 + b2 + 2) >> 2);
+                d[x] = T((a0 * 3 + b0 + 2) >> 2);
+                d[x + 1] = T((a1 * 3 + b1 + 2) >> 2);
+                d[x + 2] = T((a2 * 3 + b2 + 2) >> 2);
             } else {
-                d[x] = uint8_t((a0 + b0 + 1) >> 1);
-                d[x + 1] = uint8_t((a1 + b1 + 1) >> 1);
-                d[x + 2] = uint8_t((a2 + b2 + 1) >> 1);
+                d[x] = T((a0 + b0 + 1) >> 1);
+                d[x + 1] = T((a1 + b1 + 1) >> 1);
+                d[x + 2] = T((a2 + b2 + 1) >> 1);
             }
         }
     }
 }
 
-void down34(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
-    const uint8_t* s = src;
-    uint8_t* d = dst;
+template <class T>
+void down34(const T* src, int sw, T* dst, int dw, int dh) {
+    const T* s = src;
+    T* d = dst;
     int y = 0;
     for (; y < dh - 2; y += 3) {
         down34_row(s, s + sw, d, dw, true);
@@ -4132,34 +4326,36 @@ void down34(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
 
 // a 3/8 row from 3 rows (s, s + st, s + 2 st) or 2 (s, s + st); the first
 // simd_n outputs of a 2-row box as the SSSE3 row (rows averaged first)
-void down38_row(const uint8_t* s, ptrdiff_t st, uint8_t* d, int dw, bool three) {
-    int simd_n = dw - dw % 6;
+template <class T>
+void down38_row(const T* s, ptrdiff_t st, T* d, int dw, bool three) {
+    int simd_n = sizeof(T) == 1 ? dw - dw % 6 : 0;
     for (int x = 0, i = 0; x < dw; x += 3, i += 8) {
         if (three) {
             int c[8];
             for (int k = 0; k < 8; k++) c[k] = s[i + k] + s[i + k + st] + s[i + k + 2 * st];
-            d[x] = uint8_t(((c[0] + c[1] + c[2]) * (65536 / 9)) >> 16);
-            d[x + 1] = uint8_t(((c[3] + c[4] + c[5]) * (65536 / 9)) >> 16);
-            d[x + 2] = uint8_t(((c[6] + c[7]) * (65536 / 6)) >> 16);
+            d[x] = T(((c[0] + c[1] + c[2]) * (65536 / 9)) >> 16);
+            d[x + 1] = T(((c[3] + c[4] + c[5]) * (65536 / 9)) >> 16);
+            d[x + 2] = T(((c[6] + c[7]) * (65536 / 6)) >> 16);
         } else if (x < simd_n) {
             int v[8];
             for (int k = 0; k < 8; k++) v[k] = avg(s[i + k], s[i + k + st]);
-            d[x] = uint8_t(((v[0] + v[1] + v[2]) * (65536 / 3)) >> 16);
-            d[x + 1] = uint8_t(((v[3] + v[4] + v[5]) * (65536 / 3)) >> 16);
-            d[x + 2] = uint8_t(((v[6] + v[7]) * (65536 / 2)) >> 16);
+            d[x] = T(((v[0] + v[1] + v[2]) * (65536 / 3)) >> 16);
+            d[x + 1] = T(((v[3] + v[4] + v[5]) * (65536 / 3)) >> 16);
+            d[x + 2] = T(((v[6] + v[7]) * (65536 / 2)) >> 16);
         } else {
             int c[8];
             for (int k = 0; k < 8; k++) c[k] = s[i + k] + s[i + k + st];
-            d[x] = uint8_t(((c[0] + c[1] + c[2]) * (65536 / 6)) >> 16);
-            d[x + 1] = uint8_t(((c[3] + c[4] + c[5]) * (65536 / 6)) >> 16);
-            d[x + 2] = uint8_t(((c[6] + c[7]) * (65536 / 4)) >> 16);
+            d[x] = T(((c[0] + c[1] + c[2]) * (65536 / 6)) >> 16);
+            d[x + 1] = T(((c[3] + c[4] + c[5]) * (65536 / 6)) >> 16);
+            d[x + 2] = T(((c[6] + c[7]) * (65536 / 4)) >> 16);
         }
     }
 }
 
-void down38(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
-    const uint8_t* s = src;
-    uint8_t* d = dst;
+template <class T>
+void down38(const T* src, int sw, T* dst, int dw, int dh) {
+    const T* s = src;
+    T* d = dst;
     int y = 0;
     for (; y < dh - 2; y += 3) {
         down38_row(s, sw, d, dw, true);
@@ -4182,7 +4378,8 @@ void down38(const uint8_t* src, int sw, uint8_t* dst, int dw, int dh) {
     }
 }
 
-void box(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+template <class T>
+void box(const T* src, int sw, int sh, T* dst, int dw, int dh) {
     int x0, y, dx, dy;
     slope(sw, sh, dw, dh, kBox, &x0, &y, &dx, &dy);
     const int max_y = sh << 16;
@@ -4195,8 +4392,10 @@ void box(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
         int bh = min1((y >> 16) - iy);
         std::fill(row.begin(), row.end(), 0u);
         for (int k = 0; k < bh; k++)
-            for (int c = 0; c < sw; c++) row[c] = uint16_t(row[c] + src[size_t(iy + k) * sw + c]);
-        uint8_t* d = dst + size_t(j) * dw;
+            for (int c = 0; c < sw; c++)  // ScaleAddRow_C's 16-bit sums, ScaleAddRow_16_C's 32
+                row[c] = sizeof(T) == 1 ? uint16_t(row[c] + src[size_t(iy + k) * sw + c])
+                                        : row[c] + src[size_t(iy + k) * sw + c];
+        T* d = dst + size_t(j) * dw;
         if (dx & 0xffff) {  // ScaleAddCols2_C
             int minw = dx >> 16, x = x0;
             int tbl[2] = {65536 / (min1(minw) * bh), 65536 / (min1(minw + 1) * bh)};
@@ -4206,25 +4405,26 @@ void box(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
                 int bw = min1((x >> 16) - ix);
                 uint32_t sum = 0;
                 for (int k = 0; k < bw; k++) sum += row[ix + k];
-                d[i] = uint8_t((sum * uint32_t(tbl[bw - minw])) >> 16);
+                d[i] = T((sum * uint32_t(tbl[bw - minw])) >> 16);
             }
         } else if (dx != 0x10000) {  // ScaleAddCols1_C
             int bw = min1(dx >> 16), scale = 65536 / (bw * bh), x = x0 >> 16;
             for (int i = 0; i < dw; i++, x += bw) {
                 uint32_t sum = 0;
                 for (int k = 0; k < bw; k++) sum += row[x + k];
-                d[i] = uint8_t((sum * uint32_t(scale)) >> 16);
+                d[i] = T((sum * uint32_t(scale)) >> 16);
             }
         } else {  // ScaleAddCols0_C
             int scale = 65536 / bh;
-            for (int i = 0; i < dw; i++) d[i] = uint8_t((row[(x0 >> 16) + i] * uint32_t(scale)) >> 16);
+            for (int i = 0; i < dw; i++) d[i] = T((row[(x0 >> 16) + i] * uint32_t(scale)) >> 16);
         }
     }
 }
 
 // ScaleRowUp2_Linear / ScaleRowUp2_Bilinear (the rows of the YUV -> RGB
 // chroma upsampling above)
-void up2_linear(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+template <class T>
+void up2_linear(const T* src, int sw, int sh, T* dst, int dw, int dh) {
     if (dh == 1) {
         up_linear(src + size_t((sh - 1) / 2) * sw, dst, dw);
         return;
@@ -4233,10 +4433,11 @@ void up2_linear(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh
     for (int i = 0; i < dh; i++, y += dy) up_linear(src + size_t(y >> 16) * sw, dst + size_t(i) * dw, dw);
 }
 
-void up2_bilinear(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+template <class T>
+void up2_bilinear(const T* src, int sw, int sh, T* dst, int dw, int dh) {
     up_linear(src, dst, dw);
-    uint8_t* d = dst + dw;
-    const uint8_t* s = src;
+    T* d = dst + dw;
+    const T* s = src;
     for (int x = 0; x < sh - 1; x++) {
         up_bilinear(s, s + sw, d, d + dw, dw);
         s += sw;
@@ -4245,17 +4446,18 @@ void up2_bilinear(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int 
     if (!(dh & 1)) up_linear(s, d, dw);
 }
 
-void bilinear_up(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh, Filter f) {
+template <class T>
+void bilinear_up(const T* src, int sw, int sh, T* dst, int dw, int dh, Filter f) {
     int x, y, dx, dy;
     slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
     const int max_y = (sh - 1) << 16;
     if (y > max_y) y = max_y;
     const int row_size = (dw + 31) & ~31;
-    std::vector<uint8_t> rows(size_t(row_size) * 2 + 64);
-    uint8_t* rowptr = rows.data();
+    std::vector<T> rows(size_t(row_size) * 2 + 64);
+    T* rowptr = rows.data();
     int rowstride = row_size;
     int yi = y >> 16, lasty = yi;
-    const uint8_t* s = src + size_t(yi) * sw;
+    const T* s = src + size_t(yi) * sw;
     filter_cols(rowptr, s, dw, x, dx);
     if (sh > 1) s += sw;
     filter_cols(rowptr + rowstride, s, dw, x, dx);
@@ -4276,22 +4478,23 @@ void bilinear_up(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int d
                 if ((y + 65536) < max_y) s += sw;
             }
         }
-        uint8_t* d = dst + size_t(j) * dw;
+        T* d = dst + size_t(j) * dw;
         if (f == kLinear) interpolate_row(d, rowptr, rowptr, dw, 0);
         else interpolate_row(d, rowptr, rowptr + rowstride, dw, (y >> 8) & 255);
         y += dy;
     }
 }
 
-void bilinear_down(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh, Filter f) {
+template <class T>
+void bilinear_down(const T* src, int sw, int sh, T* dst, int dw, int dh, Filter f) {
     int x, y, dx, dy;
     slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
     const int max_y = (sh - 1) << 16;
-    std::vector<uint8_t> row(size_t(sw) + 64);
+    std::vector<T> row(size_t(sw) + 64);
     if (y > max_y) y = max_y;
     for (int j = 0; j < dh; j++) {
-        const uint8_t* s = src + size_t(y >> 16) * sw;
-        uint8_t* d = dst + size_t(j) * dw;
+        const T* s = src + size_t(y >> 16) * sw;
+        T* d = dst + size_t(j) * dw;
         if (f == kLinear) {
             filter_cols(d, s, dw, x, dx);
         } else {
@@ -4303,13 +4506,14 @@ void bilinear_down(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int
     }
 }
 
-void simple(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+template <class T>
+void simple(const T* src, int sw, int sh, T* dst, int dw, int dh) {
     int x0, y, dx, dy;
     slope(sw, sh, dw, dh, kNone, &x0, &y, &dx, &dy);
     bool up2 = sw * 2 == dw && x0 < 0x8000;
     for (int i = 0; i < dh; i++, y += dy) {
-        const uint8_t* s = src + size_t(y >> 16) * sw;
-        uint8_t* d = dst + size_t(i) * dw;
+        const T* s = src + size_t(y >> 16) * sw;
+        T* d = dst + size_t(i) * dw;
         if (up2) {
             for (int j = 0; j < dw; j++) d[j] = s[j >> 1];
         } else {
@@ -4322,12 +4526,13 @@ void simple(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
 }  // namespace yuv_scale
 }  // namespace
 
-extern "C" void akr_scale_plane(const uint8_t* src, int32_t sw, int32_t sh, uint8_t* dst, int32_t dw,
-                                int32_t dh) {
+namespace {
+template <class T>
+void scale_plane(const T* src, int sw, int sh, T* dst, int dw, int dh) {
     using namespace yuv_scale;
     Filter f = filter_reduce(sw, sh, dw, dh, kBox);
     if (dw == sw && dh == sh) {
-        memcpy(dst, src, size_t(sw) * sh);
+        memcpy(dst, src, sizeof(T) * size_t(sw) * sh);
     } else if (dw == sw && f != kBox) {
         vertical(src, sw, sh, dst, dh, f);
     } else if (dw <= sw && dh <= sh && 4 * dw == 3 * sw && 4 * dh == 3 * sh) {
@@ -4351,4 +4556,16 @@ extern "C" void akr_scale_plane(const uint8_t* src, int32_t sw, int32_t sh, uint
     } else {
         simple(src, sw, sh, dst, dw, dh);
     }
+}
+}  // namespace
+
+extern "C" void akr_scale_plane(const uint8_t* src, int32_t sw, int32_t sh, uint8_t* dst, int32_t dw,
+                                int32_t dh) {
+    scale_plane(src, sw, sh, dst, dw, dh);
+}
+
+// the same for the 16-bit planes of a high bit depth (libyuv's ScalePlane_16)
+extern "C" void akr_scale_plane16(const uint16_t* src, int32_t sw, int32_t sh, uint16_t* dst,
+                                  int32_t dw, int32_t dh) {
+    scale_plane(src, sw, sh, dst, dw, dh);
 }

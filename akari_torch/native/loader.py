@@ -244,7 +244,7 @@ def _bind_av1(lib):
     i32, p = ctypes.c_int32, ctypes.c_void_p
     lib.akr_av1_probe.restype = ctypes.c_int
     lib.akr_av1_probe.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[28]
+        ctypes.c_char_p, ctypes.c_int64, p,                # data, size, info[30]
         ctypes.c_char_p, i32,                              # err, errlen
     ]
     lib.akr_av1_sequence_header.restype = ctypes.c_int
@@ -253,7 +253,7 @@ def _bind_av1(lib):
     ]
     lib.akr_av1_decode.restype = ctypes.c_int
     lib.akr_av1_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, p, p, p,          # data, size, y, u, v
+        ctypes.c_char_p, ctypes.c_int64, p, p, p,          # data, size, y, u, v (uint16)
         p, ctypes.c_char_p, i32,                           # stats[14], err, errlen
     ]
     lib.akr_yuv_to_rgb.restype = None
@@ -263,6 +263,8 @@ def _bind_av1(lib):
     ]
     lib.akr_scale_plane.restype = None
     lib.akr_scale_plane.argtypes = [p, i32, i32, p, i32, i32]  # src, w, h, dst, w, h
+    lib.akr_scale_plane16.restype = None
+    lib.akr_scale_plane16.argtypes = [p, i32, i32, p, i32, i32]
 
 
 # name -> (source, library file, what needs it, ctypes binding)

@@ -335,13 +335,17 @@ Phases (each checks its results; any failure exits non-zero):
     lossless, idat, nclx matrices, the tools of PIL's writer's speeds 0-4 and
     ``advanced`` options: CDEF, quantizer matrices, film grain, loop
     restoration, delta q / lf, intra block copy, segmentation; sequences
-    and a grid); three committed 2048^2 albedos, each decode's median of 3
-    beside phase 41's PNG median: quality 60, speed 6 (287,591 bytes:
-    128x128 superblocks, 4 x 2 tiles), speed 4 with CDEF, quantizer
-    matrices, film grain and loop restoration, and frame 0 of a two-frame
-    ``aq-mode=1`` ``avis`` sequence (153,394 bytes, segmented); the
-    config-3 CLI on a PNG of the sequence's decoded frame 0 and on the
-    sequence (frames bit-equal, 6 tree closest launches each);
+    and a grid; 10- and 12-bit, superres and hidden-frame rewrites); three
+    committed 2048^2 albedos, each decode's median of 3 beside phase 41's
+    PNG median: quality 60, speed 6 (287,591 bytes: 128x128 superblocks,
+    4 x 2 tiles), speed 4 with CDEF, quantizer matrices, film grain and
+    loop restoration, and frame 0 of a two-frame ``aq-mode=1`` ``avis``
+    sequence (153,394 bytes, segmented); header rewrites of them made here
+    (``tools/av1_rewrite.py``): the speed-4 albedo at 10 and 12 bits and
+    the speed-6 one at superres 12/8 (3,072 wide), each file and decode
+    held to PIL's recorded read, each decode's median of 3; the config-3
+    CLI on a PNG of the 12-bit albedo's pixels and on that AVIF (frames
+    bit-equal, 6 tree closest launches each);
 55. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
@@ -3716,21 +3720,27 @@ def avif_phase(card, traversal, cli_render):
     at quality 60, speed 6 (128x128 superblocks, 4 x 2 tiles), at speed 4
     with CDEF, quantizer matrices, film grain and loop restoration, and as
     frame 0 of a two-frame ``aq-mode=1`` sequence (segmented), each
-    decode's median of 3 beside phase 41's PNG median; and the config-3
-    CLI on a PNG of the sequence's decoded frame 0 and on that AVIF
-    (frames bit-equal, 6 tree closest launches each); returns the figures
-    it logs."""
+    decode's median of 3 beside phase 41's PNG median; the forms of slice
+    25, made here from the committed albedos by header rewrites
+    (``tools/av1_rewrite.py``): the tools albedo at 10 and 12 bits and the
+    speed-6 albedo at superres denominator 12 (3,072 wide), each file and
+    decode held to the record of PIL's read (``AVIF_REWRITES``), each
+    decode's median of 3; and the config-3 CLI on a PNG of the 12-bit tools
+    albedo's decoded pixels and on that AVIF (frames bit-equal, 6 tree
+    closest launches each); returns the figures it logs."""
     import hashlib
 
     import numpy as np
 
     from akari_torch.core.avif import avif_frame_info, avif_planes
     from akari_torch.core.image import decode_with_mode, encode_png
+    from tools.make_torch_port_image_fixtures import AVIF_REWRITES, avif_rewrite_albedo_files
 
     t_phase = time.perf_counter()
     log(f"phase 54: AVIF decoding without PIL: the fixtures' digests, the 2048^2 albedos as "
         f"AVIF (speed 6; speed 4 with CDEF, quantizer matrices, film grain, loop restoration; "
-        f"a segmented aq-mode=1 sequence), the config-3 CLI on the sequence [card: {card}]")
+        f"a segmented aq-mode=1 sequence; the tools albedo at 10 and 12 bits, superres 12/8), "
+        f"the config-3 CLI on the 12-bit tools albedo [card: {card}]")
     with open(os.path.join(AVIF_FIXTURES, "digests.json")) as f:
         digests = json.load(f)
     albedo, first_s = {}, {}
@@ -3787,7 +3797,7 @@ def avif_phase(card, traversal, cli_render):
     log(f"  the tools albedo's filters: {filters['cdef_blocks']} 8x8 blocks CDEF-filtered, "
         f"{filters['lr_stripes']} restoration unit stripes, grain on {filters['grain_planes']} "
         f"planes")
-    aq_data, aq_px = albedo[ALBEDO_AVIF_AQ]
+    aq_data = albedo[ALBEDO_AVIF_AQ][0]
     stats = {}
     avif_planes(aq_data, ALBEDO_AVIF_AQ, stats)
     info = avif_frame_info(aq_data)
@@ -3796,14 +3806,52 @@ def avif_phase(card, traversal, cli_render):
     log(f"  the aq-mode albedo's frame 0: {stats['segmented_blocks']} of {stats['blocks']} blocks "
         f"in a nonzero segment, {stats['delta_q_superblocks']} superblocks with a delta q, "
         f"{stats['intrabc_blocks']} intra block copies")
+    # slice 25: header rewrites of the committed albedos, held to PIL's read
+    with open(AVIF_REWRITES) as f:
+        rec = json.load(f)
+    t0 = time.perf_counter()
+    rewrites = avif_rewrite_albedo_files(AVIF_FIXTURES)
+    log(f"  the slice-25 albedos rewritten from the committed files in "
+        f"{time.perf_counter() - t0:.3f} s (host clock)")
+    check(sorted(rewrites) == sorted(rec), f"rewrites {sorted(rewrites)}, recorded {sorted(rec)}")
+    deep_px = None
+    for fname, key in (("albedo2048_q60_s4_tools_10bit.avif", "avif_tools10_decode_s"),
+                       ("albedo2048_q60_s4_tools_12bit.avif", "avif_tools12_decode_s"),
+                       ("albedo2048_q60_superres12.avif", "avif_superres12_decode_s")):
+        data, want = rewrites[fname], rec[fname]
+        file_digest = hashlib.sha256(data).hexdigest()
+        check(file_digest == want["file_sha256"],
+              f"{fname}: rewritten as sha256 {file_digest[:16]}..., recorded "
+              f"{want['file_sha256'][:16]}...")
+        info = avif_frame_info(data)
+        runs, px = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fmt, mode, px, _ = decode_with_mode(data, fname)
+            runs.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        check(fmt == "AVIF" and mode == "RGB" and list(px.shape) == want["shape"]
+              and digest == want["sha256"],
+              f"{fname}: read as {fmt} {mode} {px.shape}, sha256 {digest[:16]}..., PIL's "
+              f"{want['sha256'][:16]}...")
+        med = sorted(runs)[1]
+        out[key] = med
+        base = out["avif_tools_decode_s"] if "tools" in fname else out["avif_decode_s"]
+        log(f"  {fname}: {len(data)} bytes, {info['width']} x {info['height']}, "
+            f"{info['bit_depth']} bits, profile {info['profile']}, superres "
+            f"{info['superres_denom']}/8; SHA-256 equals PIL {want['pil']}'s; decode on the host, "
+            f"median of 3: {med:.4f} s (runs {', '.join(f'{t:.4f}' for t in runs)}; "
+            f"{med / base:.2f}x its 8-bit source's) [card: {card}]")
+        if fname.endswith("12bit.avif"):
+            deep_data, deep_px = data, px
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
-        {"albedo_avif.png": encode_png(aq_px), "albedo.avif": aq_data},
+        {"albedo_avif.png": encode_png(deep_px), "albedo.avif": deep_data},
         ("albedo_avif.png", "albedo.avif"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo.avif"], frames["albedo_avif.png"]),
-          "the frame on the aq-mode AVIF albedo differs from the PNG route's of its pixels")
-    log("  the aq-mode AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
+          "the frame on the 12-bit AVIF albedo differs from the PNG route's of its pixels")
+    log("  the 12-bit tools AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 54: {out['phase_s']:.1f} s")
     return out

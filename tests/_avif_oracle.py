@@ -15,9 +15,9 @@ The structure offsets are libavif 1.3.0's and dav1d 1.5.1's on x86-64
 (``avifImage``: yuvRange at 16, yuvPlanes at 24, yuvRowBytes at 48,
 alphaPlane / alphaRowBytes at 64 / 72, alphaPremultiplied at 80,
 colorPrimaries / transferCharacteristics / matrixCoefficients at 104 /
-106 / 108; ``avifRGBImage``: format at 12, pixels / rowBytes at 48 / 56;
+106 / 108; ``avifRGBImage``: depth / format at 8 / 12, pixels / rowBytes at 48 / 56;
 ``Dav1dSettings``: n_threads / max_frame_delay at 0 / 4; ``Dav1dPicture``: data at 16, stride at 40,
-p.w / p.h / p.layout at 56 / 60 / 64); ``check_layout`` reads a fresh image's defaults back through
+p.w / p.h / p.layout / p.bpc at 56 / 60 / 64 / 68); ``check_layout`` reads a fresh image's defaults back through
 them, ``check_scale_layout`` the size and row bytes ``avifImageScale``
 writes back.
 """
@@ -108,26 +108,28 @@ _FORMATS = {"444": 1, "422": 2, "420": 3, "400": 4}
 
 
 def libavif_rgb(y, u, v, fmt, full, matrix, primaries=1, transfer=13, alpha=None,
-                premultiplied=False):
-    """avifImageYUVToRGB of 8-bit planes: (result, [H, W, 3 or 4] uint8);
-    RGBA when ``alpha`` is given, as PIL converts an image with alpha."""
+                premultiplied=False, depth=8):
+    """avifImageYUVToRGB of planes of ``depth`` bits to 8-bit RGB, as PIL
+    asks for it: (result, [H, W, 3 or 4] uint8); RGBA when ``alpha`` is
+    given, as PIL converts an image with alpha."""
     a = lib()
     h, w = y.shape
-    im = a.avifImageCreate(w, h, 8, _FORMATS[fmt])
+    dt = np.uint8 if depth == 8 else np.dtype("<u2")
+    im = a.avifImageCreate(w, h, depth, _FORMATS[fmt])
     try:
         a.avifImageAllocatePlanes(im, 1 if alpha is None else 0xFF)
         raw = ctypes.string_at(im, 112)
         planes = struct.unpack_from("<3Q", raw, 24)
         rows = struct.unpack_from("<3I", raw, 48)
         for k, arr in enumerate([y] + ([] if fmt == "400" else [u, v])):
-            arr = np.ascontiguousarray(arr, np.uint8)
+            arr = np.ascontiguousarray(arr, dt)
             for r in range(arr.shape[0]):
-                ctypes.memmove(planes[k] + r * rows[k], arr[r].tobytes(), arr.shape[1])
+                ctypes.memmove(planes[k] + r * rows[k], arr[r].tobytes(), arr.nbytes // arr.shape[0])
         if alpha is not None:
             ap, ar = struct.unpack_from("<QI", raw, 64)
-            al = np.ascontiguousarray(alpha, np.uint8)
+            al = np.ascontiguousarray(alpha, dt)
             for r in range(h):
-                ctypes.memmove(ap + r * ar, al[r].tobytes(), w)
+                ctypes.memmove(ap + r * ar, al[r].tobytes(), al.nbytes // h)
             ctypes.c_int.from_address(im + 80).value = int(premultiplied)
         ctypes.c_int.from_address(im + 16).value = int(full)
         ctypes.c_uint16.from_address(im + 104).value = primaries
@@ -136,7 +138,7 @@ def libavif_rgb(y, u, v, fmt, full, matrix, primaries=1, transfer=13, alpha=None
         rgb = ctypes.create_string_buffer(128)
         a.avifRGBImageSetDefaults(rgb, im)
         ch = 3 if alpha is None else 4
-        struct.pack_into("<I", rgb, 12, 0 if alpha is None else 1)
+        struct.pack_into("<II", rgb, 8, 8, 0 if alpha is None else 1)  # depth 8, RGB / RGBA
         a.avifRGBImageAllocatePixels(rgb)
         try:
             res = a.avifImageYUVToRGB(im, rgb)
@@ -150,14 +152,16 @@ def libavif_rgb(y, u, v, fmt, full, matrix, primaries=1, transfer=13, alpha=None
         a.avifImageDestroy(im)
 
 
-def libavif_scale(planes, fmt, width, height, dst_width, dst_height):
-    """avifImageScale of an 8-bit image of ``width`` x ``height`` with
-    ``planes`` ([Y, U, V] of their sizes, or [Y] for 4:0:0; plus the alpha
-    plane last, where given beyond them) to ``dst_width`` x ``dst_height``:
-    (result, its planes in the same order)."""
+def libavif_scale(planes, fmt, width, height, dst_width, dst_height, depth=8):
+    """avifImageScale of an image of ``depth`` bits and ``width`` x
+    ``height`` with ``planes`` ([Y, U, V] of their sizes, or [Y] for 4:0:0;
+    plus the alpha plane last, where given beyond them) to ``dst_width`` x
+    ``dst_height``: (result, its planes in the same order, uint8 or
+    uint16)."""
     a = lib()
     n_yuv = 1 if fmt == "400" else 3
-    im = a.avifImageCreate(width, height, 8, _FORMATS[fmt])
+    dt = np.uint8 if depth == 8 else np.dtype("<u2")
+    im = a.avifImageCreate(width, height, depth, _FORMATS[fmt])
     try:
         has_alpha = len(planes) > n_yuv
         a.avifImageAllocatePlanes(im, 0xFF if has_alpha else 1)
@@ -174,9 +178,9 @@ def libavif_scale(planes, fmt, width, height, dst_width, dst_height):
 
         ptrs, rows = slots()
         for k, arr in enumerate(planes):
-            arr = np.ascontiguousarray(arr, np.uint8)
+            arr = np.ascontiguousarray(arr, dt)
             for r in range(arr.shape[0]):
-                ctypes.memmove(ptrs[k] + r * rows[k], arr[r].tobytes(), arr.shape[1])
+                ctypes.memmove(ptrs[k] + r * rows[k], arr[r].tobytes(), arr.nbytes // arr.shape[0])
         diag = ctypes.create_string_buffer(512)
         res = a.avifImageScale(im, dst_width, dst_height, diag)
         if res != 0:
@@ -187,16 +191,17 @@ def libavif_scale(planes, fmt, width, height, dst_width, dst_height):
         for k in range(len(planes)):
             sx, sy = (ssx, ssy) if 0 < k < n_yuv else (0, 0)
             w, h = (dst_width + sx) >> sx, (dst_height + sy) >> sy
-            px = np.frombuffer(ctypes.string_at(ptrs[k], rows[k] * h), np.uint8)
-            out.append(px.reshape(h, rows[k])[:, :w].copy())
+            px = np.frombuffer(ctypes.string_at(ptrs[k], rows[k] * h), dt)
+            out.append(px.reshape(h, rows[k] // np.dtype(dt).itemsize)[:, :w].copy())
         return res, out
     finally:
         a.avifImageDestroy(im)
 
 
 def dav1d_planes(obus):
-    """dav1d's decode of an AV1 item's OBUs: [Y] or [Y, U, V] as uint8
-    arrays of the frame's (chroma) size, or None where dav1d fails."""
+    """dav1d's decode of an AV1 item's OBUs: [Y] or [Y, U, V] as arrays of
+    the frame's (chroma) size, uint8 at 8 bits and uint16 above, or None
+    where dav1d fails."""
     a = lib()
     settings = ctypes.create_string_buffer(1024)
     a.dav1d_default_settings(settings)
@@ -222,11 +227,12 @@ def dav1d_planes(obus):
         raw = pic.raw
         ptrs = struct.unpack_from("<3Q", raw, 16)
         strides = struct.unpack_from("<2q", raw, 40)
-        w, h, layout = struct.unpack_from("<3i", raw, 56)
+        w, h, layout, bpc = struct.unpack_from("<4i", raw, 56)
+        dt = np.uint8 if bpc == 8 else np.dtype("<u2")
 
         def plane(ptr, stride, pw, ph):
-            rows = np.frombuffer(ctypes.string_at(ptr, stride * ph), np.uint8)
-            return rows.reshape(ph, stride)[:, :pw].copy()
+            rows = np.frombuffer(ctypes.string_at(ptr, stride * ph), dt)
+            return rows.reshape(ph, stride // dt.itemsize if bpc > 8 else stride)[:, :pw].copy()
 
         out = [plane(ptrs[0], strides[0], w, h)]
         if layout != 0:  # I400, I420, I422, I444

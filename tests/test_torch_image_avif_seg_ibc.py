@@ -448,12 +448,31 @@ def _headers(form, width=64):
     return s.obu(1) + f.obu(3, pad=64)
 
 
-@pytest.mark.parametrize("form,words", [("bit10", "bit depth of 10"),
-                                        ("bit12", "bit depth of 12"), ("superres", "superres"),
+def _out_of_scope(form):
+    """The AV1 data of ``form``: crafted headers, or a header rewrite of a
+    fixture (``tools/av1_rewrite.py``): a palette at 10 or 12 bits, superres
+    with loop restoration."""
+    from tools.av1_rewrite import to_high_bitdepth, to_superres
+
+    if form in ("bit10", "bit12"):
+        with open(os.path.join(AVIF_OUT, "avif_palette_screen_128x96.avif"), "rb") as f:
+            data = to_high_bitdepth(f.read(), int(form[3:]), screen_content_ok=True)
+    elif form == "superres":
+        with open(os.path.join(AVIF_OUT, "avif_lr_wiener_s1_444_96x72.avif"), "rb") as f:
+            data = to_superres(f.read(), 16, restoration_ok=True)
+    else:
+        return _headers(form)
+    c, item, _, _ = port_avif.parse(data)
+    return c.item_data(item)
+
+
+@pytest.mark.parametrize("form,words", [("bit10", "palette at a bit depth of 10"),
+                                        ("bit12", "palette at a bit depth of 12"),
+                                        ("superres", "superres with loop restoration"),
                                         ("non_key", "non-key"), ("hidden", "hidden")])
 def test_forms_still_out_of_scope_are_refused_naming_them(form, words):
     with pytest.raises(ValueError, match=words) as e:
-        port_avif._decode_planes(_headers(form), "x")
+        port_avif._decode_planes(_out_of_scope(form), "x")
     assert any(t in str(e.value) for t in OUT_OF_SCOPE)
 
 

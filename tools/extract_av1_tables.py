@@ -8,7 +8,9 @@ copies of the default tables).
   second, one per coefficient qindex context) and its key-frame y-mode
   table; the values are stored inverted (32768 - cdf) as dav1d and aom
   store them, the slot after a CDF's last value is its adaptation counter;
-- ``Dc_Qlookup`` / ``Ac_Qlookup`` for 8 bits (aom's), ``Sm_Weights``
+- ``Dc_Qlookup`` / ``Ac_Qlookup`` for 8 bits (aom's) and for 10 and 12
+  (dav1d's ``dq_tbl``, checked against aom's), the superres
+  ``Upscale_Filter`` (aom's, checked against dav1d's), ``Sm_Weights``
   (dav1d's ``dav1d_sm_weights``), ``Dr_Intra_Derivative`` and
   ``Mode_To_Angle`` (aom's), the filter-intra taps (aom's) and the
   coefficient-context offsets of the three block shapes (dav1d's
@@ -305,6 +307,19 @@ def tables(blob=None):
         raise RuntimeError("dav1d's 8-bit dq_tbl differs from aom's dc / ac qlookup")
     out["dc_qlookup"] = (dcq, "int16_t", f"aom dc_qlookup_QTX at 0x{dc:x} (dav1d 0x{dq:x})")
     out["ac_qlookup"] = (acq, "int16_t", f"aom ac_qlookup_QTX at 0x{ac:x} (dav1d 0x{dq:x})")
+    # 10 and 12 bits: dav1d's dq_tbl[1], [2] (dc, ac pairs), checked against aom's copies
+    for k, depth in ((1, 10), (2, 12)):
+        pairs = np.frombuffer(blob[dq + 1024 * k:dq + 1024 * (k + 1)], "<u2").reshape(256, 2)
+        for j, kind in enumerate(("dc", "ac")):
+            col = pairs[:, j].astype(np.int16)
+            hit = _find_one(blob, tuple(int(v) for v in col[:8]), "<h",
+                            f"aom's {kind}_qlookup_{depth}")
+            if not (np.frombuffer(blob[hit:hit + 512], "<i2") == col).all():
+                raise RuntimeError(f"dav1d's {depth}-bit dq_tbl differs from aom's {kind} lookup")
+            out[f"{kind}_qlookup{depth}"] = (
+                col.copy(), "int16_t",
+                f"dav1d dq_tbl[{k}] at 0x{dq + 1024 * k:x} (aom {kind}_qlookup_{depth}_QTX at "
+                f"0x{hit:x})")
     sm = _find_one(blob, (0, 0, 255, 128, 255, 149, 85, 64), "B", "dav1d's sm_weights")
     out["sm_weights"] = (np.frombuffer(blob[sm:sm + 128], "u1").copy(), "uint8_t",
                          f"dav1d dav1d_sm_weights at 0x{sm:x} (weights of size n at n)")
@@ -325,6 +340,17 @@ def tables(blob=None):
     out["lo_ctx_offsets"] = (np.frombuffer(blob[lo:lo + 75], "u1").reshape(3, 5, 5).copy(),
                              "uint8_t", f"dav1d dav1d_lo_ctx_offsets at 0x{lo:x} (w == h, "
                              "w > h, w < h)")
+    # superres: aom's av1_resize_filter_normative (the specification's
+    # Upscale_Filter), checked against dav1d's negated dav1d_resize_filter
+    up = _find_one(blob, (0, 0, 0, 128, 0, 0, 0, 0, 0, 0, -1, 128, 2, -1, 0, 0), "<h",
+                   "aom's av1_resize_filter_normative")
+    filt = np.frombuffer(blob[up:up + 1024], "<i2").reshape(64, 8)
+    rz = _find_one(blob, (0, 0, 0, -128, 0, 0, 0, 0, 0, 0, 1, -128, -2, 1, 0, 0), "b",
+                   "dav1d's resize_filter")
+    if not (np.frombuffer(blob[rz:rz + 512], "i1").reshape(64, 8) == -filt).all():
+        raise RuntimeError("dav1d's resize_filter is not aom's upscale filter negated")
+    out["upscale_filter"] = (filt.copy(), "int16_t",
+                             f"aom av1_resize_filter_normative at 0x{up:x} (dav1d 0x{rz:x})")
     _restoration_and_grain(blob, out)
     _check_aom(blob, out)
     return out

@@ -92,7 +92,14 @@ Writes into ``tests/data/torch_port_images/``:
   ``envtex_texture(2048, 0)`` at quality 60, speed 6, 4:2:0 (287,591
   bytes), which the card's machine, without an AV1 encoder, decodes; the
   AV1 tools PIL's writer makes through ``advanced=`` (``avif_tool_fixtures``,
-  ``avif_seg_ibc_fixtures``) and their 2048^2 albedos;
+  ``avif_seg_ibc_fixtures``) and their 2048^2 albedos; and the 10- and
+  12-bit, superres and hidden-frame forms PIL's writer does not make,
+  header rewrites of those files (``avif_rewrite_fixtures``,
+  ``tools/av1_rewrite.py``);
+- ``tests/data/torch_port_avif_rewrites.json`` (``AVIF_REWRITES``): the
+  2048^2 rewrites of the albedos (``avif_rewrite_albedo_files``), which
+  ``chip_smoke.py`` phase 54 makes at run time: each file's SHA-256 and
+  PIL's decode of it;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
   (``Image.open(path).convert("RGB")``), their shape and the version of
   PIL that decoded them;
@@ -139,6 +146,9 @@ AVIF_OUT = os.path.join(ROOT, "tests", "data", "torch_port_avif")
 ALBEDO_AVIF = "albedo2048_q60.avif"
 ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
 ALBEDO_AVIF_AQ = "albedo2048_q60_s6_aq1.avis.avif"
+# the 2048^2 albedos of slice 25, made from the committed ones by header
+# rewrites (avif_rewrite_albedo_files): each file's SHA-256 and PIL's decode
+AVIF_REWRITES = os.path.join(ROOT, "tests", "data", "torch_port_avif_rewrites.json")
 ALBEDO = "albedo2048_q85_420.jpg"
 ALBEDO_WEBP = "albedo2048_q85.webp"
 ZSTD_ALBEDO = "albedo2048_x32_zstd_pred2.tiff"
@@ -1633,6 +1643,43 @@ def avif_fixtures():
     out[ALBEDO_AVIF] = _avif(envtex_texture(2048, 0), quality=60, speed=6)
     out.update(avif_tool_fixtures())
     out.update(avif_seg_ibc_fixtures())
+    out.update(avif_rewrite_fixtures(out))
+    return out
+
+
+def avif_rewrite_fixtures(base):
+    """The AVIF fixtures of slice 25, header rewrites (``tools/av1_rewrite.py``)
+    of fixtures in ``base``: 10- and 12-bit AV1 (4:2:0, 4:2:2 limited,
+    4:4:4 with alpha, premultiplied alpha, 4:0:0, film grain, loop
+    restoration, quantizer matrices, segmentation), superres at
+    denominators 9, 12 and 16 (odd widths among them), and key frames
+    hidden in sample 0 of ``avis`` sequences and shown by
+    ``show_existing_frame`` (one of them at 10 bits)."""
+    from tools.av1_rewrite import hide_key_frame, to_high_bitdepth, to_superres
+
+    hbd = {"avif_hbd10_q75_420_61x47.avif": ("avif_q75_420_61x47.avif", 10),
+           "avif_hbd12_q75_420_61x47.avif": ("avif_q75_420_61x47.avif", 12),
+           "avif_hbd12_q40_422_limited_50x30.avif": ("avif_q40_422_limited_50x30.avif", 12),
+           "avif_hbd10_rgba_q90_444_30x20.avif": ("avif_rgba_q90_444_30x20.avif", 10),
+           "avif_hbd12_rgba_q90_444_30x20.avif": ("avif_rgba_q90_444_30x20.avif", 12),
+           "avif_hbd10_rgba_premultiplied_30x20.avif": ("avif_rgba_premultiplied_30x20.avif", 10),
+           "avif_hbd12_q60_400_40x32.avif": ("avif_q60_400_40x32.avif", 12),
+           "avif_hbd10_grain_q30_128x96.avif": ("avif_grain_q30_128x96.avif", 10),
+           "avif_hbd12_grain_test5_422_66x35.avif": ("avif_grain_test5_422_66x35.avif", 12),
+           "avif_hbd10_lr_wiener_s1_444_96x72.avif": ("avif_lr_wiener_s1_444_96x72.avif", 10),
+           "avif_hbd12_lr_sgrproj_s1_444_64x48.avif": ("avif_lr_sgrproj_s1_444_64x48.avif", 12),
+           "avif_hbd12_qm_q40_444_64x48.avif": ("avif_qm_q40_444_64x48.avif", 12),
+           "avif_hbd10_cdef_q30_96x72.avif": ("avif_cdef_q30_96x72.avif", 10),
+           "avis_hbd12_aq1_s6_128x96.avif": ("avis_aq1_s6_128x96.avif", 12)}
+    out = {name: to_high_bitdepth(base[src], depth) for name, (src, depth) in hbd.items()}
+    out["avif_superres9_q75_420_61x47.avif"] = to_superres(base["avif_q75_420_61x47.avif"], 9)
+    out["avif_superres12_q60_400_40x32.avif"] = to_superres(base["avif_q60_400_40x32.avif"], 12)
+    out["avif_superres16_cdef_q30_96x72.avif"] = to_superres(base["avif_cdef_q30_96x72.avif"], 16)
+    out["avif_superres13_hbd10_grain_q30_128x96.avif"] = to_superres(
+        out["avif_hbd10_grain_q30_128x96.avif"], 13)
+    out["avis_hidden_aq1_s6_128x96.avif"] = hide_key_frame(base["avis_aq1_s6_128x96.avif"])
+    out["avis_hidden_hbd10_3frames_rgba_24x17.avif"] = to_high_bitdepth(
+        hide_key_frame(base["avis_3frames_rgba_24x17.avif"]), 10)
     return out
 
 
@@ -1715,6 +1762,32 @@ def avif_tool_fixtures():
                                            "denoise-noise-level": "10"}),
     }
     return out
+
+
+def avif_rewrite_albedo_files(avif_dir=AVIF_OUT):
+    """The 2048^2 AVIF albedos ``chip_smoke.py`` phase 54 makes at run time
+    from the committed 8-bit ones by header rewrites
+    (``tools/av1_rewrite.py``; too large to commit, so recorded in
+    ``AVIF_REWRITES``): ``ALBEDO_AVIF_TOOLS`` at 10 and 12 bits, and
+    ``ALBEDO_AVIF`` coded at superres denominator 12 (3,072 wide)."""
+    from tools.av1_rewrite import to_high_bitdepth, to_superres
+
+    def read(name):
+        with open(os.path.join(avif_dir, name), "rb") as f:
+            return f.read()
+
+    tools, base = read(ALBEDO_AVIF_TOOLS), read(ALBEDO_AVIF)
+    return {"albedo2048_q60_s4_tools_10bit.avif": to_high_bitdepth(tools, 10),
+            "albedo2048_q60_s4_tools_12bit.avif": to_high_bitdepth(tools, 12),
+            "albedo2048_q60_superres12.avif": to_superres(base, 12)}
+
+
+def write_avif_rewrites(avif_dir=AVIF_OUT):
+    """Record ``avif_rewrite_albedo_files`` in ``AVIF_REWRITES``."""
+    with open(AVIF_REWRITES, "w") as f:
+        json.dump(generated_record(avif_rewrite_albedo_files(avif_dir)), f, indent=1,
+                  sort_keys=True)
+        f.write("\n")
 
 
 def write_avif_fixtures(out_dir=AVIF_OUT):
@@ -2146,7 +2219,9 @@ def main(argv=None):
 
     if args.only == "avif":
         digests = write_avif_fixtures()
-        print(f"wrote {len(digests)} AVIF fixtures and their digests.json to {AVIF_OUT}")
+        write_avif_rewrites()
+        print(f"wrote {len(digests)} AVIF fixtures and their digests.json to {AVIF_OUT}, "
+              f"the rewritten albedos' record to {AVIF_REWRITES}")
         return
     if args.only:
         path = os.path.join(args.output, "digests.json")
