@@ -42,9 +42,13 @@ does; where PIL's open or load fails otherwise, ``ValueError``:
   and of its alpha track decoded;
 - the AV1 OBUs, decoded by ``native/av1_decode.cpp`` (bit for bit dav1d
   1.5.1's planes, uint8 at 8 bits and uint16 at 10 and 12, film grain
-  applied; segmentation, delta q / lf, intra block copy and superres among
-  the tools; a key frame hidden in a sequence's sample 0 and shown by
-  ``show_existing_frame``), and the alpha's, which decides PIL's mode
+  applied; segmentation, delta q / lf, intra block copy and superres with
+  loop restoration among the tools; a key frame hidden in a sequence's
+  sample 0 and shown by ``show_existing_frame``; a sample whose shown frame
+  is an inter or intra-only frame decoded through the frames before it:
+  motion vector prediction with temporal candidates, compound and
+  inter-intra masks, OBMC, local and global warps, the dual filters), and
+  the alpha's, which decides PIL's mode
   (``RGBA``) and, for a premultiplied image (``prem``), is divided out of
   the colour as libavif does (``unpremultiply``);
 - a frame, alpha plane or track whose size differs from its ``ispe`` or
@@ -63,13 +67,22 @@ does; where PIL's open or load fails otherwise, ``ValueError``:
   and 12-bit rows for some RGBA images, libavif's float route at the
   planes' depth), the alpha reduced to 8 bits as each route reduces it.
 
-The 10- and 12-bit, superres and hidden-frame files are made here by
-header rewrites of PIL's writer's files (``tools/av1_rewrite.py``).
-Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 26):
-a palette above 8 bits, superres with loop restoration, non-key frames, a
-hidden key frame that no ``show_existing_frame`` shows, and AV1 streams
-whose transforms leave the range the specification requires (dav1d's x86
-assembly, which PIL runs, saturates its lanes there).
+The 10- and 12-bit, superres, hidden-frame, intra-only and inter-frame-0
+files are made here by header rewrites of PIL's writer's files
+(``tools/av1_rewrite.py``: ``splice_frames`` puts the frames of samples 1
+to n - 1 of a sequence into sample 0 behind its hidden key frame).
+Refused with a ``ValueError`` naming the form (``ROADMAP.md``, slice 27):
+a palette above 8 bits; switch frames, frame ids on an inter frame and
+references of another size (scaled prediction, superres on an inter
+frame); the inter tools no file made here holds (segment ids predicted
+from the previous map, a frame size taken from a reference,
+frame_refs_short_signaling, error-resilient inter frames, global motion of
+type TRANSLATION); a hidden key frame no later frame may show, a sample
+whose frames are all hidden, and AV1 streams whose transforms leave the
+range the specification requires (dav1d's x86 assembly, which PIL runs,
+saturates its lanes there). An inter frame whose reference slots hold no
+frame fails, as it does in PIL; a sequence header that differs from the
+one before it empties every slot first, as dav1d does.
 """
 
 from __future__ import annotations
@@ -151,6 +164,19 @@ STAT_NAMES = ("blocks", "palette_y", "palette_uv", "filter_intra", "cfl", "tx_sp
 # and the filters the frame ran: 8x8 blocks CDEF changed, stripes of
 # restoration units filtered, planes given film grain
 FILTER_NAMES = ("cdef_blocks", "lr_stripes", "grain_planes")
+# and the inter frames' tools (counts over every frame of the sample): inter
+# blocks, intra blocks of inter frames, skip-mode blocks, compound blocks by
+# type,
+# OBMC blocks, local and global warps (luma predictions), inter-intra
+# (smooth masks, wedges), temporal candidates used, blocks of two filters,
+# NEWMV modes, chroma predicted from several luma blocks, frames decoded,
+# intra-only frames, film grain loaded from a reference, GLOBALMV blocks of
+# a global motion, palettes in inter frames, lossless inter blocks
+INTER_NAMES = ("inter_blocks", "intra_in_inter", "skip_mode", "compound_average",
+               "compound_distance", "compound_wedge", "compound_diffwtd", "obmc", "local_warp",
+               "global_warp", "interintra", "interintra_wedge", "temporal_mvs", "dual_filter",
+               "new_mv", "sub8x8_chroma", "frames", "intra_only_frames", "grain_loaded",
+               "global_mv", "palette_in_inter", "lossless_inter")
 
 
 class _Bad(Exception):
@@ -1088,7 +1114,7 @@ def _decode_planes(obus, what, stats=None, size=None, filters=None):
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     u = np.zeros((ch, cw), np.uint16)
     v = np.zeros((ch, cw), np.uint16)
-    st = np.zeros(len(STAT_NAMES) + len(FILTER_NAMES), np.int64)
+    st = np.zeros(len(STAT_NAMES) + len(FILTER_NAMES) + len(INTER_NAMES), np.int64)
     if lib.akr_av1_decode(obus, len(obus), y.ctypes.data, u.ctypes.data, v.ctypes.data,
                           st.ctypes.data, err, 256):
         raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
@@ -1096,6 +1122,7 @@ def _decode_planes(obus, what, stats=None, size=None, filters=None):
         y, u, v = (p.astype(np.uint8) for p in (y, u, v))
     if stats is not None:
         stats.update(zip(STAT_NAMES, st.tolist()))
+        stats.update(zip(INTER_NAMES, st[len(STAT_NAMES) + len(FILTER_NAMES):].tolist()))
     if filters is not None:
         filters.update(zip(FILTER_NAMES, st[len(STAT_NAMES):].tolist()))
     info = list(info)
@@ -1153,9 +1180,10 @@ def avif_planes(data, what="image", stats=None, filters=None):
     10 and 12 bits; U and V of the chroma size, zeros for a monochrome
     image), as dav1d gives them
     to libavif, and the frame's header values (``INFO_NAMES``); ``stats``,
-    a dict, receives what the frame used (``STAT_NAMES``), ``filters`` what
-    its loop filters did (``FILTER_NAMES``). A grid's planes are its
-    composed tiles', its header values its first tile's."""
+    a dict, receives what the frame used (``STAT_NAMES``) and what the
+    inter frames of the sample used (``INTER_NAMES``), ``filters`` what its
+    loop filters did (``FILTER_NAMES``). A grid's planes are its composed
+    tiles', its header values its first tile's."""
     c, item, _, _ = _parse_or_raise(data, what)
     if item.type == b"grid":
         planes, info = _image_planes(c, item, what)

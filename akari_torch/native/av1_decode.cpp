@@ -1,6 +1,7 @@
-// AV1 still-image decoding (the intra key frame of an AVIF image item) to
-// YUV planes at 8, 10 or 12 bits, and the YUV -> RGB conversion, for
-// akari_torch/core/avif.py.
+// AV1 decoding of an AVIF item's or sample's OBUs (its shown frame: a key
+// frame, or a frame decoded through the inter and intra-only frames of the
+// sample) to YUV planes at 8, 10 or 12 bits, and the YUV -> RGB conversion,
+// for akari_torch/core/avif.py.
 //
 // The JAX package reads AVIF through PIL, which hands the item to libavif
 // 1.3.0; libavif decodes it with dav1d 1.5.1 and converts it to RGB with
@@ -11,27 +12,56 @@
 // - OBUs: temporal delimiters, padding and metadata skipped; the sequence
 //   header (reduced or full, timing / decoder-model / operating-point
 //   fields parsed and ignored; profiles 0-2, 8, 10 and 12 bits), the frame
-//   header of a key frame, and the frame's tile groups (OBU_FRAME, or
-//   OBU_FRAME_HEADER with OBU_TILE_GROUPs), uniform and non-uniform tile
-//   spacing; a hidden (showable) key frame is output when a later
-//   show_existing_frame header of the data names a slot it refreshed;
+//   headers of key, intra-only and inter frames, and the frames' tile
+//   groups (OBU_FRAME, or OBU_FRAME_HEADER with OBU_TILE_GROUPs), uniform
+//   and non-uniform tile spacing; the frames of the data decoded in turn
+//   until one is shown (show_frame, or a show_existing_frame header naming
+//   a showable slot), each refreshing its reference slots (7.20: the frame
+//   after its loop filters, its sizes and order hints, the CDFs the context
+//   tile ends with, counters cleared, unless disable_frame_end_update_cdf,
+//   the loop-filter deltas, segmentation features and map, global motion
+//   and film grain parameters, the motion field of 7.19);
 // - every pixel is 16-bit; at 10 and 12 bits the dequantisation tables,
 //   the coefficient and transform ranges, intra prediction's base value,
-//   the deblocking limits, CDEF's strengths and damping, loop
-//   restoration's rounding and scaling and film grain's ranges and
-//   scaling follow the specification at BitDepth (dav1d's 16 bpc code);
+//   the sub-pixel filters' rounding (InterRound0 5 at 12 bits), the
+//   deblocking limits, CDEF's strengths and damping, loop restoration's
+//   rounding and scaling and film grain's ranges and scaling follow the
+//   specification at BitDepth (dav1d's 16 bpc code);
 // - superres (7.16): the frame decoded, deblocked and CDEF-filtered at its
-//   downscaled width, then upscaled (Upscale_Filter, dav1d's resize_c)
-//   before film grain;
+//   downscaled width, then upscaled (Upscale_Filter, dav1d's resize_c),
+//   with the deblocked rows loop restoration reads, before loop
+//   restoration (units counted on the upscaled width, a superblock's
+//   through SuperresDenom) and film grain; a frame superres leaves at its
+//   width (under 16) is not upscaled, as in dav1d;
 // - the symbol decoder, with CDF adaptation unless the frame disables it;
-//   each tile starts from the default CDFs (av1_tables.h), the coefficient
-//   CDFs of the frame's qindex context;
+//   each tile starts from the primary reference frame's CDFs (load_cdfs),
+//   or the default ones (av1_tables.h) with the coefficient CDFs of the
+//   frame's qindex context;
 // - partitions of 64x64 and 128x128 superblocks, intra mode info (key-frame
-//   y modes with their above / left contexts, uv modes with CfL, angle
-//   deltas, filter intra, palettes with their colour cache and colour
-//   index maps, tx_size depth under TX_MODE_SELECT), the skip flag;
+//   y modes with their above / left contexts, an inter frame's by block
+//   size, uv modes with CfL, angle deltas, filter intra, palettes with
+//   their colour cache and colour index maps, tx_size depth under
+//   TX_MODE_SELECT), the skip flag;
+// - inter frames (5.9.2, 5.11.18-5.11.33, 7.9-7.11): the header's
+//   references, sizes, interpolation filter, motion modes, reference
+//   select, skip mode (its two references), warped motion, global motion
+//   against the primary reference's parameters, loop-filter deltas,
+//   segmentation and film grain carried from it (update_grain 0 with the
+//   frame's seed); skip_mode, is_inter, single and compound references
+//   with every context; find_mv_stack (the spatial
+//   scan, temporal candidates from the motion field projected from the
+//   references' saved fields, the extra search, sorting, the contexts);
+//   NEWMV / NEARESTMV / NEARMV / GLOBALMV and the compound modes with
+//   drl_mode and read_mv; inter-intra (smooth masks and wedges), OBMC,
+//   local warp (find_warp_samples, the least-squares fit, setupShear),
+//   global warp, compound average, distance, wedge and difference-weighted
+//   masks; the 8-tap (4-tap at 4 wide or high) sub-pixel filters with the
+//   dual filters, chroma of sub-8x8 blocks from each luma block's vector;
+//   inter residuals through the txfm_split tree and the inter transform
+//   sets; intra-only frames read like key frames;
 // - segmentation (the features of each segment, segment ids predicted from
 //   the above, left and above-left blocks and read before or after skip,
+//   or taken from the previous frame's map where the map is not updated;
 //   the skip feature, each segment's q index, lossless and quantizer-matrix
 //   level), delta q and delta lf (read at a superblock's first block;
 //   CurrentQIndex and DeltaLF start each tile afresh, as in dav1d);
@@ -52,8 +82,9 @@
 // - quantizer matrices (levels 0-14 of 2-D transforms; av1_tables.h);
 // - the deblocking filter (4, 6, 8 and 14 taps; levels per block, plane
 //   and direction with the block's delta lf, its segment's ALT_LF feature
-//   and the reference-delta term, the level before the edge where the
-//   block's is 0; sharpness);
+//   and the reference and mode deltas, the level before the edge where the
+//   block's is 0; sharpness; no inner transform edges in a skipped inter
+//   block);
 // - CDEF (the cdef_idx of each 64x64 block read in the tile, direction
 //   search, primary and secondary taps, the chroma direction map, skipped
 //   8x8 blocks, the frame edge);
@@ -67,10 +98,17 @@
 //
 // Anything else a header turns on is refused with a message naming it: a
 // palette above 8 bits (its colours are literals of the depth, and no file
-// made here holds one), superres with loop restoration (units counted on
-// the upscaled width), non-key frames, a hidden key frame that no
-// show_existing_frame shows; so is a stream whose transforms leave the
-// range the specification requires (see g_itx_overflow).
+// made here holds one), switch frames, frame ids on an inter frame, a
+// reference of another size (scaled prediction, superres on an inter
+// frame), and the tools no file made here holds
+// (segmentation_temporal_update, a frame size taken from a reference
+// (found_ref), frame_refs_short_signaling, error-resilient inter frames,
+// global motion of type TRANSLATION); a hidden key frame that no later
+// frame may show; a sample whose frames are all hidden; so is a stream
+// whose transforms leave the range the specification requires (see
+// g_itx_overflow). An inter frame whose reference slots hold no frame
+// fails, as it does in dav1d; a sequence header that differs from the one
+// before it (its operating parameters aside) empties every slot first.
 //
 // C ABI (ctypes):
 //   int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info,
@@ -82,7 +120,10 @@
 //                               int32_t errlen);
 //   void akr_yuv_to_rgb(...), akr_scale_plane(...), akr_scale_plane16(...)
 //        (see the end of the file)
-// data: the item's OBUs. info receives 30 values: width (the upscaled
+// data: the item's OBUs. info receives 30 values, of the header of the
+// shown frame (of the last frame parsed where a show_existing_frame header
+// shows a slot; of the first shown one where only headers are parsed, the
+// frames hidden before it followed through): width (the upscaled
 // width under superres), height, bit depth,
 // mono, subsampling x, subsampling y, colour range, colour primaries,
 // transfer, matrix, chroma sample position, profile, 128x128 superblocks,
@@ -93,14 +134,15 @@
 // none), the number of nonzero CDEF strengths, the restoration type per
 // plane (two bits each: none, Wiener, self-guided, switchable),
 // apply_grain, segmentation, delta q, delta lf, allow_intrabc, the superres
-// denominator (8: none) and whether the frame was hidden. The 16-bit
+// denominator (8: none) and whether the sample's first frame was hidden. The 16-bit
 // planes are written at the frame's size, chroma at ((width + ssx) >> ssx)
-// x ((height + ssy) >> ssy); stats (may be null) receives 14 counts:
-// blocks, luma palettes, chroma palettes, filter intra, CfL, tx_depth > 0
-// (or transform splits), luma transforms other than DCT_DCT, angle deltas,
-// blocks of a nonzero segment, superblocks with a nonzero delta q, intra
-// block copies, 8x8 blocks CDEF filtered, stripes of restoration units
-// filtered, planes given grain.
+// x ((height + ssy) >> ssy); stats (may be null) receives N_STATS (35)
+// counts over the frames decoded: blocks, luma palettes, chroma palettes,
+// filter intra, CfL, tx_depth > 0 (or transform splits), luma transforms
+// other than DCT_DCT, angle deltas, blocks of a nonzero segment,
+// superblocks with a nonzero delta q, intra block copies, 8x8 blocks CDEF
+// filtered, stripes of restoration units filtered, planes given grain;
+// then the inter tools (the STAT_ enumeration).
 // Returns 0, or -1 with a message in err.
 //
 // Build: akari_torch/native/loader.py (g++ -O3 -shared -fPIC -std=c++17).
@@ -111,9 +153,11 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <stdexcept>
 #include <string>
 #include <thread>
+#include <utility>
 #include <vector>
 
 #include "av1_tables.h"
@@ -370,8 +414,20 @@ struct Cdfs {
     uint16_t seg_id[3][8], delta_q[4], delta_lf[5][4], intrabc[2], txfm_split[21][2],
         inter_tx_set1[2][16], inter_tx_set2[16], inter_tx_set3[4][2], mv_joint[4];
     struct MvComponent {
-        uint16_t classes[16], sign[2], class0[2], bits[10][2];
+        uint16_t classes[16], sign[2], class0[2], bits[10][2], class0_fr[2][4], class0_hp[2],
+            fr[4], hp[2];
     } mv[2];
+    // inter frames: an intra block's y mode, the inter modes and their
+    // references, vectors (MvCtx 0: imv_joint, imv), filters and masks;
+    // single_ref [p1..p6][ctx], comp_ref [comp_ref, p1, p2][ctx],
+    // comp_bwd_ref [comp_bwdref, p1][ctx], uni_comp_ref [uni_comp_ref, p1, p2][ctx]
+    uint16_t y_mode[4][16], wedge_index[9][16], compound_mode[8][8], interp_filter[2][8][4],
+        interintra_mode[4][4], motion_mode[22][4], skip_mode[3][2], new_mv[6][2], zero_mv[2][2],
+        ref_mv[6][2], drl_mode[3][2], is_inter[4][2], comp_mode[5][2], comp_ref_type[5][2],
+        compound_idx[6][2], comp_group_idx[6][2], compound_type[9][2], single_ref[6][3][2],
+        comp_ref[3][3][2], comp_bwd_ref[2][3][2], uni_comp_ref[3][3][2],
+        interintra[4][2], wedge_interintra[7][2], use_obmc[22][2], imv_joint[4];
+    MvComponent imv[2];
 
     void init(int base_q_idx) {
 #define CP(name) memcpy(name, av1_##name, sizeof name)
@@ -384,20 +440,80 @@ struct Cdfs {
         CP(restoration_type); CP(use_wiener); CP(use_sgrproj);
         CP(seg_id); CP(delta_q); CP(delta_lf); CP(intrabc); CP(inter_tx_set1); CP(inter_tx_set2);
         CP(inter_tx_set3); CP(mv_joint);
+        CP(y_mode); CP(wedge_index); CP(compound_mode); CP(interp_filter); CP(interintra_mode);
+        CP(motion_mode); CP(skip_mode); CP(new_mv); CP(zero_mv); CP(ref_mv); CP(drl_mode);
+        CP(is_inter); CP(comp_mode); CP(comp_ref_type); CP(compound_idx); CP(comp_group_idx);
+        CP(compound_type); CP(single_ref); CP(comp_ref); CP(comp_bwd_ref); CP(uni_comp_ref);
+        CP(interintra); CP(wedge_interintra); CP(use_obmc);
 #undef CP
+        memcpy(imv_joint, av1_mv_joint, sizeof imv_joint);
         memcpy(txfm_split, av1_txfm_split, sizeof txfm_split);
-        for (auto& c : mv) {
-            memcpy(c.classes, av1_mv_classes, sizeof c.classes);
-            memcpy(c.sign, av1_mv_sign, sizeof c.sign);
-            memcpy(c.class0, av1_mv_class0, sizeof c.class0);
-            memcpy(c.bits, av1_mv_bits, sizeof c.bits);
-        }
+        for (auto* set : {mv, imv})
+            for (int k = 0; k < 2; k++) {
+                MvComponent& c = set[k];
+                memcpy(c.classes, av1_mv_classes, sizeof c.classes);
+                memcpy(c.sign, av1_mv_sign, sizeof c.sign);
+                memcpy(c.class0, av1_mv_class0, sizeof c.class0);
+                memcpy(c.bits, av1_mv_bits, sizeof c.bits);
+                memcpy(c.class0_fr, av1_mv_class0_fr, sizeof c.class0_fr);
+                memcpy(c.class0_hp, av1_mv_class0_hp, sizeof c.class0_hp);
+                memcpy(c.fr, av1_mv_fr, sizeof c.fr);
+                memcpy(c.hp, av1_mv_hp, sizeof c.hp);
+            }
         int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
 #define CQ(name) memcpy(name, av1_##name[q], sizeof name)
         CQ(eob_pt16); CQ(eob_pt32); CQ(eob_pt64); CQ(eob_pt128); CQ(eob_pt256); CQ(eob_pt512);
         CQ(eob_pt1024); CQ(coeff_base_eob); CQ(coeff_base); CQ(coeff_br); CQ(eob_extra);
         CQ(txb_skip); CQ(dc_sign);
 #undef CQ
+    }
+
+    // the adaptation counters (each CDF's slot after its last value) set to
+    // 0, as the CDFs a frame saves for the frames after it are
+    static void zero_counts(uint16_t* base, size_t bytes, int stride, int nsym) {
+        for (size_t r = 0; r < bytes / (2 * size_t(stride)); r++) base[r * stride + nsym - 1] = 0;
+    }
+    void clear_counts() {
+#define ZC(name, stride, nsym) zero_counts(&name[0], sizeof name, stride, nsym)
+#define ZCN(name, stride, nsym) zero_counts(reinterpret_cast<uint16_t*>(name), sizeof name, stride, nsym)
+        ZCN(kf_y_mode, 16, 13); ZCN(uv_mode_cfl_not_allowed, 16, 13); ZCN(uv_mode_cfl_allowed, 16, 14);
+        ZCN(partition128, 8, 8); ZCN(partition64, 16, 10); ZCN(partition32, 16, 10);
+        ZCN(partition16, 16, 10); ZCN(partition8, 4, 4); ZCN(cfl_alpha, 16, 16);
+        ZCN(intra_tx_set1, 8, 7); ZCN(intra_tx_set2, 8, 5); ZC(cfl_sign, 8, 8);
+        ZCN(angle_delta, 8, 7); ZC(filter_intra_mode, 8, 5); ZCN(palette_y_size, 8, 7);
+        ZCN(palette_uv_size, 8, 7);
+        for (int i = 0; i < 7; i++)
+            for (int c = 0; c < 5; c++) {
+                palette_y_color[i][c][i + 1] = 0;
+                palette_uv_color[i][c][i + 1] = 0;
+            }
+        ZCN(tx_size8, 4, 2); ZCN(tx_size16, 4, 3); ZCN(tx_size32, 4, 3); ZCN(tx_size64, 4, 3);
+        ZCN(use_filter_intra, 2, 2); ZCN(skip, 2, 2); ZCN(palette_y_mode, 2, 2);
+        ZCN(palette_uv_mode, 2, 2); ZC(restoration_type, 4, 3); ZC(use_wiener, 2, 2);
+        ZC(use_sgrproj, 2, 2);
+        ZCN(eob_pt16, 8, 5); ZCN(eob_pt32, 8, 6); ZCN(eob_pt64, 8, 7); ZCN(eob_pt128, 8, 8);
+        ZCN(eob_pt256, 16, 9); ZCN(eob_pt512, 16, 10); ZCN(eob_pt1024, 16, 11);
+        ZCN(coeff_base_eob, 4, 3); ZCN(coeff_base, 4, 4); ZCN(coeff_br, 4, 4);
+        ZCN(eob_extra, 2, 2); ZCN(txb_skip, 2, 2); ZCN(dc_sign, 2, 2);
+        ZCN(seg_id, 8, 8); ZC(delta_q, 4, 4); ZCN(delta_lf, 4, 4); ZC(intrabc, 2, 2);
+        ZCN(txfm_split, 2, 2); ZCN(inter_tx_set1, 16, 16); ZC(inter_tx_set2, 16, 12);
+        ZCN(inter_tx_set3, 2, 2); ZC(mv_joint, 4, 4); ZC(imv_joint, 4, 4);
+        for (auto* set : {mv, imv})
+            for (int k = 0; k < 2; k++) {
+                MvComponent& c = set[k];
+                ZC(c.classes, 16, 11); ZC(c.sign, 2, 2); ZC(c.class0, 2, 2); ZCN(c.bits, 2, 2);
+                ZCN(c.class0_fr, 4, 4); ZC(c.class0_hp, 2, 2); ZC(c.fr, 4, 4); ZC(c.hp, 2, 2);
+            }
+        ZCN(y_mode, 16, 13); ZCN(wedge_index, 16, 16); ZCN(compound_mode, 8, 8);
+        ZCN(interp_filter, 4, 3); ZCN(interintra_mode, 4, 4); ZCN(motion_mode, 4, 3);
+        ZCN(skip_mode, 2, 2); ZCN(new_mv, 2, 2); ZCN(zero_mv, 2, 2); ZCN(ref_mv, 2, 2);
+        ZCN(drl_mode, 2, 2); ZCN(is_inter, 2, 2); ZCN(comp_mode, 2, 2); ZCN(comp_ref_type, 2, 2);
+        ZCN(compound_idx, 2, 2); ZCN(comp_group_idx, 2, 2); ZCN(compound_type, 2, 2);
+        ZCN(single_ref, 2, 2); ZCN(comp_ref, 2, 2); ZCN(comp_bwd_ref, 2, 2);
+        ZCN(uni_comp_ref, 2, 2); ZCN(interintra, 2, 2);
+        ZCN(wedge_interintra, 2, 2); ZCN(use_obmc, 2, 2);
+#undef ZC
+#undef ZCN
     }
 };
 
@@ -759,6 +875,65 @@ struct Plane {
     pixel* at(int y, int x) { return &px[size_t(y) * stride + x]; }
 };
 
+// frame types, reference frames (NONE: -1), the inter modes after the
+// intra ones, global motion types, interpolation filters
+enum { KEY_FRAME, INTER_FRAME, INTRA_ONLY_FRAME, SWITCH_FRAME };
+enum { INTRA_FRAME, LAST_FRAME, LAST2_FRAME, LAST3_FRAME, GOLDEN_FRAME, BWDREF_FRAME,
+       ALTREF2_FRAME, ALTREF_FRAME };
+const int PRIMARY_REF_NONE = 7;
+enum { NEARESTMV = 13, NEARMV, GLOBALMV, NEWMV, NEAREST_NEARESTMV, NEAR_NEARMV, NEAREST_NEWMV,
+       NEW_NEARESTMV, NEAR_NEWMV, NEW_NEARMV, GLOBAL_GLOBALMV, NEW_NEWMV };
+enum { GM_IDENTITY, GM_TRANSLATION, GM_ROTZOOM, GM_AFFINE };
+enum { EIGHTTAP, EIGHTTAP_SMOOTH, EIGHTTAP_SHARP, BILINEAR, SWITCHABLE };
+enum { SIMPLE, OBMC, LOCALWARP };
+enum { COMPOUND_WEDGE, COMPOUND_DIFFWTD, COMPOUND_AVERAGE, COMPOUND_INTRA, COMPOUND_DISTANCE };
+const int INVALID_MV = -32768;
+
+// the counts akr_av1_decode reports after its first 14 (inter frames)
+enum { STAT_INTER = 14, STAT_INTRA_IN_INTER, STAT_SKIP_MODE, STAT_COMP_AVERAGE, STAT_COMP_DISTANCE,
+       STAT_COMP_WEDGE, STAT_COMP_DIFFWTD, STAT_OBMC, STAT_LOCALWARP, STAT_GLOBALWARP,
+       STAT_INTERINTRA, STAT_INTERINTRA_WEDGE, STAT_TEMPORAL, STAT_DUAL_FILTER, STAT_NEWMV,
+       STAT_SUB8X8, STAT_FRAMES, STAT_INTRA_ONLY, STAT_GRAIN_LOADED, STAT_GLOBAL_MV,
+       STAT_PALETTE_IN_INTER, STAT_LOSSLESS_INTER, N_STATS };
+
+struct FilmGrain {
+    int apply = 0, seed = 0, num_y = 0, y_points[14][2] = {{0}}, csfl = 0,
+        num_uv[2] = {0}, uv_points[2][10][2] = {{{0}}}, scaling_shift = 8, ar_lag = 0,
+        ar_y[24] = {0}, ar_uv[2][25] = {{0}}, ar_shift = 6, grain_scale_shift = 0,
+        uv_mult[2] = {0}, uv_luma_mult[2] = {0}, uv_offset[2] = {0}, overlap = 0,
+        clip_restricted = 0;
+};
+
+// a decoded frame's planes, after the loop filters and superres (film
+// grain is applied to the output only)
+struct Pixels {
+    Plane p[3];
+};
+
+// the motion field a frame saves (7.19): per 8x8 block, the reference
+// frame (0: none) and vector of its bottom-right 4x4 block
+struct MotionField {
+    std::vector<int8_t> ref;
+    std::vector<int16_t> mv;  // row, column
+};
+
+// a reference slot (7.20): the frame and what later frames load from it
+// (its sequence's subsampling, planes and depth with it)
+struct RefSlot {
+    bool valid = false;
+    int order_hint = 0, upw = 0, h = 0, mi_cols = 0, mi_rows = 0, showable = 0;
+    int ssx = 0, ssy = 0, mono = 0, bitdepth = 0;
+    int saved_order_hints[8] = {0};
+    int gm[8][6] = {{0}};
+    int lf_ref_deltas[8] = {0}, lf_mode_deltas[2] = {0};
+    int seg_feature[8][8] = {{0}}, seg_data[8][8] = {{0}};
+    FilmGrain fg;
+    std::shared_ptr<Cdfs> cdfs;
+    std::shared_ptr<std::vector<uint8_t>> seg_map;
+    std::shared_ptr<Pixels> px;
+    std::shared_ptr<MotionField> mf;
+};
+
 struct Decoder {
     // sequence header
     int profile = 0, still = 0, reduced = 0, use128 = 0, enable_filter_intra = 0,
@@ -771,14 +946,38 @@ struct Decoder {
         frame_presentation_time_length = 0, order_hint_bits = 0,
         seq_force_screen_content_tools = 2, seq_force_integer_mv = 2, op_count = 0;
     int op_idc[32] = {0}, op_decoder_model_present[32] = {0};
+    // the header's bits but each operating point's operating_parameters_info
+    // (which may change within a sequence): dav1d starts a new sequence,
+    // every reference dropped, where the rest differs from the header before
+    std::vector<uint8_t> seq_bits;
+    int enable_interintra = 0, enable_masked_compound = 0, enable_warped_motion = 0,
+        enable_dual_filter = 0, enable_order_hint = 0, enable_jnt_comp = 0,
+        enable_ref_frame_mvs = 0;
     bool have_seq = false;
+    // the reference slots; refs_enabled: frames other than key frames are
+    // decoded (not where only the headers after the shown frame are read)
+    RefSlot refs[8];
+    bool refs_enabled = true;
+    // the frame's type and references: ref_frame_idx, OrderHints and the
+    // sign biases per reference frame, the global motion (gm_type, gm, the
+    // primary reference's prev_gm)
+    int frame_type = 0, frame_is_intra = 1, error_resilient = 1, primary_ref_frame = 7,
+        order_hint = 0, ref_frame_idx[7] = {0}, order_hints[8] = {0}, sign_bias[8] = {0};
+    int force_integer_mv = 0, allow_high_precision_mv = 0, interpolation_filter = 0,
+        is_motion_mode_switchable = 0, use_ref_frame_mvs = 0, reference_select = 0,
+        skip_mode_present = 0, skip_mode_frame[2] = {0}, allow_warped_motion = 0;
+    int gm_type[8] = {0}, gm[8][6] = {{0}}, prev_gm[8][6] = {{0}};
+    int disable_frame_end_update_cdf = 1, context_update_tile_id = 0;
+    int seg_update_map = 0, seg_temporal_update = 0;
+    std::vector<uint8_t> prev_seg_ids;
+    // the context tile's CDFs at its end
+    Cdfs end_cdfs;
     // frame header: W the coded (superres-downscaled) width, UpW the
     // output width (W where superres is off)
     int W = 0, H = 0, UpW = 0, MiCols = 0, MiRows = 0, num_planes = 3;
     int use_superres = 0, superres_denom = 8;
-    // a hidden key frame (show_frame 0, showable): its refresh_frame_flags;
-    // shown_existing once a show_existing_frame header names one of them
-    int show_frame = 1, showable_frame = 0, refresh_frame_flags = 0xFF, shown_existing = 0;
+    // show_frame, showable_frame, the slots the frame refreshes
+    int show_frame = 1, showable_frame = 0, refresh_frame_flags = 0xFF;
     int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
     int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0, dq_v_ac = 0;
     int tx_mode = 0, reduced_tx_set = 0;
@@ -788,7 +987,8 @@ struct Decoder {
     // segmentation (a key frame updates the map and the data): the
     // features of each segment and their values, SegIdPreSkip,
     // LastActiveSegId (-1: no feature on)
-    enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_SKIP = 6 };
+    enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5, SEG_LVL_SKIP = 6,
+           SEG_LVL_GLOBALMV = 7 };
     int seg_enabled = 0, seg_feature[8][8] = {{0}}, seg_data[8][8] = {{0}}, seg_preskip = 0,
         last_active_seg = -1;
     // delta q / delta lf
@@ -806,7 +1006,7 @@ struct Decoder {
     // CfL, tx_depth > 0, non-DCT_DCT luma transforms, angle deltas
     // (then blocks of a nonzero segment, superblocks with a nonzero delta q,
     // intra block copies; then the filters' counts)
-    int64_t stats[14] = {0};
+    int64_t stats[N_STATS] = {0};
     Cdfs frame_cdfs;
     // frame state
     Plane plane[3];
@@ -817,7 +1017,12 @@ struct Decoder {
     // the block vectors (1/8 pel; row, column), deblocking levels (luma
     // vertical, luma horizontal, u, v edges)
     std::vector<uint8_t> seg_ids, is_inter_, decoded_, lf_lvl;
+    // the vectors (1/8 pel; list 0 row, column, list 1 row, column), the
+    // reference frames (RefFrames: two per 4x4, -1 none), the filters (y,
+    // x), skip_mode, comp_group_idx and compound_idx of each 4x4
     std::vector<int32_t> mvs;
+    std::vector<int8_t> ref_frames;
+    std::vector<uint8_t> interp_filter_, skip_mode_, comp_group_, compound_idx_;
     std::vector<uint8_t> pal_colors[2];  // 8 per mi
     std::vector<uint8_t> lf_tx_size[3];
     int lf_stride[3] = {0};
@@ -837,24 +1042,20 @@ struct Decoder {
     };
     std::vector<LrUnit> lr_units[3];
     // film grain (the frame's parameters; applied to the output only)
-    struct FilmGrain {
-        int apply = 0, seed = 0, num_y = 0, y_points[14][2] = {{0}}, csfl = 0,
-            num_uv[2] = {0}, uv_points[2][10][2] = {{{0}}}, scaling_shift = 8, ar_lag = 0,
-            ar_y[24] = {0}, ar_uv[2][25] = {{0}}, ar_shift = 6, grain_scale_shift = 0,
-            uv_mult[2] = {0}, uv_luma_mult[2] = {0}, uv_offset[2] = {0}, overlap = 0,
-            clip_restricted = 0;
-    } fg;
+    FilmGrain fg;
 
     int mi(int r, int c) const { return r * MiCols + c; }
 
     // ---- sequence header
     void parse_sequence_header(BitReader& br) {
+        size_t start = br.pos;
+        std::vector<std::pair<size_t, size_t>> op_params;  // bit ranges left out of seq_bits
         profile = int(br.f(3));
         if (profile > 2) fail("AV1 sequence profile %d", profile);
         still = int(br.f(1));
         reduced = int(br.f(1));
         if (reduced && !still) fail("a reduced still-picture header on a sequence that is not a still picture");
-        decoder_model_info_present = 0;
+        decoder_model_info_present = equal_picture_interval = 0;
         int initial_display_delay_present = 0, buffer_delay_length = 0;
         if (reduced) {
             op_count = 1;
@@ -888,9 +1089,11 @@ struct Decoder {
                 if (decoder_model_info_present) {
                     op_decoder_model_present[i] = int(br.f(1));
                     if (op_decoder_model_present[i]) {
+                        size_t from = br.pos;
                         br.f(buffer_delay_length);
                         br.f(buffer_delay_length);
                         br.f(1);
+                        op_params.push_back({from, br.pos});
                     }
                 }
                 if (initial_display_delay_present)
@@ -914,10 +1117,19 @@ struct Decoder {
             seq_force_screen_content_tools = 2;
             seq_force_integer_mv = 2;
             order_hint_bits = 0;
+            enable_interintra = enable_masked_compound = enable_warped_motion = 0;
+            enable_dual_filter = enable_order_hint = enable_jnt_comp = enable_ref_frame_mvs = 0;
         } else {
-            br.f(4);  // interintra, masked compound, warped motion, dual filter
-            int enable_order_hint = int(br.f(1));
-            if (enable_order_hint) br.f(2);  // jnt_comp, ref_frame_mvs
+            enable_interintra = int(br.f(1));
+            enable_masked_compound = int(br.f(1));
+            enable_warped_motion = int(br.f(1));
+            enable_dual_filter = int(br.f(1));
+            enable_order_hint = int(br.f(1));
+            enable_jnt_comp = enable_ref_frame_mvs = 0;
+            if (enable_order_hint) {
+                enable_jnt_comp = int(br.f(1));
+                enable_ref_frame_mvs = int(br.f(1));
+            }
             int seq_choose_sct = int(br.f(1));
             seq_force_screen_content_tools = seq_choose_sct ? 2 : int(br.f(1));
             if (seq_force_screen_content_tools > 0) {
@@ -971,6 +1183,24 @@ struct Decoder {
         film_grain_present = int(br.f(1));
         num_planes = mono ? 1 : 3;
         have_seq = true;
+        seq_bits.clear();
+        size_t k = 0;
+        for (size_t p = start; p < br.pos; p++) {
+            if (k < op_params.size() && p == op_params[k].first) {
+                p = op_params[k++].second - 1;
+                continue;
+            }
+            seq_bits.push_back((br.d[p >> 3] >> (7 - (p & 7))) & 1);
+        }
+    }
+
+    // dav1d on a sequence header that differs from the one before it: no
+    // reference slot holds a frame, and a frame header awaiting its tiles
+    // is dropped
+    void new_sequence() {
+        for (auto& r : refs) r = RefSlot();
+        for (int i = 0; i < 8; i++) order_hints[i] = 0;
+        have_frame_header = false;
     }
 
     // ---- frame header
@@ -987,34 +1217,82 @@ struct Decoder {
         return idx;
     }
 
+    // ---- frame header (5.9): key, intra-only and inter frames
+    int rel_dist(int a, int b) const {
+        if (!enable_order_hint) return 0;
+        int diff = a - b, m = 1 << (order_hint_bits - 1);
+        return (diff & (m - 1)) - (diff & m);
+    }
+
+    // frame_size (with superres_params and compute_image_size): W the
+    // superres-downscaled width, UpW the upscaled one
+    void frame_size(BitReader& br, int override_flag) {
+        if (override_flag) {
+            UpW = int(br.f(frame_width_bits)) + 1;
+            H = int(br.f(frame_height_bits)) + 1;
+        } else {
+            UpW = max_w;
+            H = max_h;
+        }
+        superres_params(br);
+    }
+    void superres_params(BitReader& br) {
+        use_superres = enable_superres ? int(br.f(1)) : 0;
+        superres_denom = use_superres ? int(br.f(3)) + 9 : 8;
+        W = imax((UpW * 8 + superres_denom / 2) / superres_denom, imin(16, UpW));
+        MiCols = 2 * ((W + 7) >> 3);
+        MiRows = 2 * ((H + 7) >> 3);
+    }
+    void render_size(BitReader& br) {
+        if (br.f(1)) br.f(32);  // render_width_minus_1, render_height_minus_1
+    }
+
     void parse_frame_header(BitReader& br, int temporal_id, int spatial_id) {
         if (!have_seq) fail("a frame header before any sequence header");
-        int frame_type = 0, error_resilient = 1;
+        frame_type = KEY_FRAME;
+        error_resilient = 1;
         show_frame = 1;
         showable_frame = 0;
         refresh_frame_flags = 0xFF;
         if (!reduced) {
             if (br.f(1)) unported("show_existing_frame of a frame not decoded before it");
             frame_type = int(br.f(2));
-            if (frame_type != 0) unported("a non-key AV1 frame (the port reads key frames)");
+            if (frame_type == SWITCH_FRAME) unported("an AV1 switch frame (frame_type 3)");
+            if (frame_type != KEY_FRAME && !refs_enabled)
+                unported("a non-key AV1 frame after the shown frame");
             show_frame = int(br.f(1));
             if (show_frame && decoder_model_info_present && !equal_picture_interval)
                 br.f(frame_presentation_time_length);
-            if (!show_frame) {
-                // a hidden key frame, shown later by show_existing_frame
+            if (show_frame) {
+                showable_frame = frame_type != KEY_FRAME;
+            } else {
                 showable_frame = int(br.f(1));
-                if (!showable_frame) unported("a hidden AV1 key frame that no later frame may show");
-                error_resilient = int(br.f(1));
+                if (!showable_frame && frame_type == KEY_FRAME)
+                    unported("a hidden AV1 key frame that no later frame may show");
             }
+            error_resilient = frame_type == KEY_FRAME && show_frame ? 1 : int(br.f(1));
+            if (error_resilient && frame_type == INTER_FRAME)
+                unported("an error-resilient AV1 inter frame (no file made here holds one)");
+        }
+        frame_is_intra = frame_type == KEY_FRAME || frame_type == INTRA_ONLY_FRAME;
+        if (frame_type == KEY_FRAME && show_frame) {
+            for (auto& r : refs) r = RefSlot();
+            for (int i = 0; i < 8; i++) order_hints[i] = 0;
         }
         disable_cdf_update = int(br.f(1));
         allow_screen_content_tools = seq_force_screen_content_tools == 2
                                          ? int(br.f(1)) : seq_force_screen_content_tools;
-        if (allow_screen_content_tools && seq_force_integer_mv == 2) br.f(1);  // force_integer_mv
-        if (frame_id_numbers_present) br.f(id_len);
+        force_integer_mv = 0;
+        if (allow_screen_content_tools)
+            force_integer_mv = seq_force_integer_mv == 2 ? int(br.f(1)) : seq_force_integer_mv;
+        if (frame_is_intra) force_integer_mv = 1;
+        if (frame_id_numbers_present) {
+            if (!frame_is_intra) unported("frame ids on an AV1 inter frame");
+            br.f(id_len);
+        }
         int frame_size_override = reduced ? 0 : int(br.f(1));
-        br.f(order_hint_bits);
-        // primary_ref_frame: none for a key frame
+        order_hint = int(br.f(order_hint_bits));
+        primary_ref_frame = frame_is_intra || error_resilient ? PRIMARY_REF_NONE : int(br.f(3));
         if (decoder_model_info_present) {
             int present = int(br.f(1));
             if (present) {
@@ -1026,30 +1304,66 @@ struct Decoder {
                 }
             }
         }
-        // refresh_frame_flags: all for a shown key frame
-        if (!show_frame) {
-            refresh_frame_flags = int(br.f(8));
-            if (refresh_frame_flags != 0xFF && error_resilient)
-                for (int i = 0; i < 8; i++) br.f(order_hint_bits);  // ref_order_hint
-        }
-        // frame size, superres (7.21: FrameWidth the downscaled width)
-        if (frame_size_override) {
-            UpW = int(br.f(frame_width_bits)) + 1;
-            H = int(br.f(frame_height_bits)) + 1;
+        allow_high_precision_mv = use_ref_frame_mvs = allow_intrabc = 0;
+        if (!(frame_type == KEY_FRAME && show_frame)) refresh_frame_flags = int(br.f(8));
+        if (frame_type == INTRA_ONLY_FRAME && refresh_frame_flags == 0xFF)
+            fail("an intra-only AV1 frame that refreshes every slot");
+        if ((!frame_is_intra || refresh_frame_flags != 0xFF) && error_resilient && enable_order_hint)
+            for (int i = 0; i < 8; i++) br.f(order_hint_bits);  // ref_order_hint (dav1d skips them)
+        if (frame_is_intra) {
+            frame_size(br, frame_size_override);
+            render_size(br);
+            if (allow_screen_content_tools && UpW == W) allow_intrabc = int(br.f(1));
         } else {
-            UpW = max_w;
-            H = max_h;
+            if (enable_order_hint && br.f(1))
+                unported("frame_refs_short_signaling (no file made here holds it)");
+            for (int i = 0; i < 7; i++) {
+                ref_frame_idx[i] = int(br.f(3));
+                if (!refs[ref_frame_idx[i]].valid)
+                    fail("an AV1 inter frame whose reference slot %d holds no frame", ref_frame_idx[i]);
+            }
+            if (frame_size_override && !error_resilient)  // frame_size_with_refs
+                for (int i = 0; i < 7; i++)
+                    if (br.f(1))
+                        unported("an AV1 frame size taken from a reference (found_ref; no file "
+                                 "made here holds it)");
+            frame_size(br, frame_size_override);
+            render_size(br);
+            allow_high_precision_mv = force_integer_mv ? 0 : int(br.f(1));
+            interpolation_filter = br.f(1) ? SWITCHABLE : int(br.f(2));
+            is_motion_mode_switchable = int(br.f(1));
+            use_ref_frame_mvs = error_resilient || !enable_ref_frame_mvs ? 0 : int(br.f(1));
+            for (int i = 0; i < 7; i++) {
+                const RefSlot& r = refs[ref_frame_idx[i]];
+                if (r.upw != UpW || r.h != H || W != UpW)
+                    unported("an AV1 inter frame with a reference of another size (scaled "
+                             "prediction)");
+                if (r.ssx != ssx || r.ssy != ssy || r.mono != mono || r.bitdepth != bitdepth)
+                    fail("an AV1 inter frame whose reference slot %d holds a frame of another "
+                         "subsampling or depth", ref_frame_idx[i]);
+                order_hints[LAST_FRAME + i] = r.order_hint;
+                sign_bias[LAST_FRAME + i] = rel_dist(r.order_hint, order_hint) > 0;
+            }
         }
-        use_superres = enable_superres ? int(br.f(1)) : 0;
-        superres_denom = use_superres ? int(br.f(3)) + 9 : 8;
-        W = imax((UpW * 8 + superres_denom / 2) / superres_denom, imin(16, UpW));
-        MiCols = 2 * ((W + 7) >> 3);
-        MiRows = 2 * ((H + 7) >> 3);
-        if (br.f(1)) { br.f(16); br.f(16); }  // render size
-        allow_intrabc = 0;
-        if (allow_screen_content_tools && UpW == W) allow_intrabc = int(br.f(1));
-        // disable_frame_end_update_cdf
-        if (!(reduced || disable_cdf_update)) br.f(1);
+        disable_frame_end_update_cdf = reduced || disable_cdf_update ? 1 : int(br.f(1));
+        // the primary reference frame's state (load_cdfs, load_previous), or
+        // the defaults (setup_past_independence)
+        const RefSlot* prev = primary_ref_frame == PRIMARY_REF_NONE
+                                  ? nullptr : &refs[ref_frame_idx[primary_ref_frame]];
+        static const int ref_defaults[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+        memcpy(lf_ref_deltas, ref_defaults, sizeof lf_ref_deltas);
+        lf_mode_deltas[0] = lf_mode_deltas[1] = 0;
+        memset(seg_feature, 0, sizeof seg_feature);
+        memset(seg_data, 0, sizeof seg_data);
+        for (int r = 0; r < 8; r++)
+            for (int i = 0; i < 6; i++) prev_gm[r][i] = i % 3 == 2 ? 1 << 16 : 0;
+        if (prev) {
+            memcpy(lf_ref_deltas, prev->lf_ref_deltas, sizeof lf_ref_deltas);
+            memcpy(lf_mode_deltas, prev->lf_mode_deltas, sizeof lf_mode_deltas);
+            memcpy(seg_feature, prev->seg_feature, sizeof seg_feature);
+            memcpy(seg_data, prev->seg_data, sizeof seg_data);
+            memcpy(prev_gm, prev->gm, sizeof prev_gm);
+        }
         // tile info
         int sb_cols = use128 ? ((MiCols + 31) >> 5) : ((MiCols + 15) >> 4);
         int sb_rows = use128 ? ((MiRows + 31) >> 5) : ((MiRows + 15) >> 4);
@@ -1112,8 +1426,12 @@ struct Decoder {
             tile_rows = i;
             tile_rows_log2 = tile_log2(1, tile_rows);
         }
+        context_update_tile_id = 0;
         if (tile_cols_log2 > 0 || tile_rows_log2 > 0) {
-            br.f(tile_rows_log2 + tile_cols_log2);  // context_update_tile_id
+            context_update_tile_id = int(br.f(tile_rows_log2 + tile_cols_log2));
+            if (context_update_tile_id >= tile_cols * tile_rows)
+                fail("AV1 context_update_tile_id %d of %d tiles", context_update_tile_id,
+                     tile_cols * tile_rows);
             tile_size_bytes = int(br.f(2)) + 1;
         }
         // quantisation
@@ -1160,14 +1478,14 @@ struct Decoder {
             for (int p = 0; p < 3; p++) seg_qm[s][p] = lossless_seg[s] ? 15 : qm_level[p];
         }
         // loop filter (none where every segment is lossless or intra block
-        // copy is on)
+        // copy is on); the deltas carried from the primary reference frame
         for (int i = 0; i < 4; i++) lf_level[i] = 0;
         lf_sharpness = 0;
         lf_delta_enabled = 0;
-        static const int ref_defaults[8] = {1, 0, 0, 0, -1, 0, -1, -1};
-        memcpy(lf_ref_deltas, ref_defaults, sizeof lf_ref_deltas);
-        lf_mode_deltas[0] = lf_mode_deltas[1] = 0;
-        if (!coded_lossless && !allow_intrabc) {
+        if (coded_lossless || allow_intrabc) {
+            memcpy(lf_ref_deltas, ref_defaults, sizeof lf_ref_deltas);
+            lf_mode_deltas[0] = lf_mode_deltas[1] = 0;
+        } else {
             lf_level[0] = int(br.f(6));
             lf_level[1] = int(br.f(6));
             if (num_planes > 1 && (lf_level[0] || lf_level[1])) {
@@ -1209,8 +1527,8 @@ struct Decoder {
         // loop restoration: FrameRestorationType per plane and the unit sizes
         uses_lr = 0;
         for (int i = 0; i < 3; i++) { lr_type[i] = RESTORE_NONE; lr_unit_size[i] = 64; }
-        // (AllLossless: CodedLossless without superres)
-        if (!(coded_lossless && !use_superres) && !allow_intrabc && enable_restoration) {
+        // (AllLossless: CodedLossless at the upscaled width)
+        if (!(coded_lossless && W == UpW) && !allow_intrabc && enable_restoration) {
             static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
                                          RESTORE_SGRPROJ};
             int uses_chroma = 0;
@@ -1230,37 +1548,172 @@ struct Decoder {
         // tx mode
         if (coded_lossless) tx_mode = 0;
         else tx_mode = br.f(1) ? 2 : 1;
+        reference_select = frame_is_intra ? 0 : int(br.f(1));
+        skip_mode_params(br);
+        allow_warped_motion = frame_is_intra || error_resilient || !enable_warped_motion
+                                  ? 0 : int(br.f(1));
         reduced_tx_set = int(br.f(1));
+        global_motion_params(br);
         parse_film_grain(br);
         have_frame_header = true;
-        if (use_superres && uses_lr)
-            unported("superres with loop restoration (its units are counted on the upscaled "
-                     "width)");
         if (header_only) return;
-        frame_cdfs.init(base_q_idx);
+        if (prev) frame_cdfs = *prev->cdfs;
+        else frame_cdfs.init(base_q_idx);
         alloc_frame();
+        // PrevSegmentIds (load_previous_segment_ids)
+        prev_seg_ids.assign(size_t(MiRows) * MiCols, 0);
+        if (prev && seg_enabled && prev->mi_cols == MiCols && prev->mi_rows == MiRows && prev->seg_map)
+            prev_seg_ids = *prev->seg_map;
+        if (!frame_is_intra) {
+            interp_filter_.assign(size_t(MiRows) * MiCols * 2, 0);
+            if (use_ref_frame_mvs) motion_field_estimation();
+        }
     }
 
-    // segmentation_params of a key frame (primary_ref_frame none: the map
-    // and the data are updated); values clamped to the features' ranges
+    // skip_mode_params (5.9.22): the nearest forward reference and the
+    // nearest backward one (else the second nearest forward one)
+    void skip_mode_params(BitReader& br) {
+        skip_mode_present = 0;
+        if (frame_is_intra || !reference_select || !enable_order_hint) return;
+        int fwd = -1, bwd = -1, fwd_hint = 0, bwd_hint = 0;
+        for (int i = 0; i < 7; i++) {
+            int h = refs[ref_frame_idx[i]].order_hint;
+            if (rel_dist(h, order_hint) < 0) {
+                if (fwd < 0 || rel_dist(h, fwd_hint) > 0) { fwd = i; fwd_hint = h; }
+            } else if (rel_dist(h, order_hint) > 0) {
+                if (bwd < 0 || rel_dist(h, bwd_hint) < 0) { bwd = i; bwd_hint = h; }
+            }
+        }
+        if (fwd < 0) return;
+        if (bwd < 0) {
+            int fwd2_hint = 0;
+            for (int i = 0; i < 7; i++) {
+                int h = refs[ref_frame_idx[i]].order_hint;
+                if (rel_dist(h, fwd_hint) < 0 && (bwd < 0 || rel_dist(h, fwd2_hint) > 0)) {
+                    bwd = i;
+                    fwd2_hint = h;
+                }
+            }
+            if (bwd < 0) return;
+        }
+        skip_mode_frame[0] = LAST_FRAME + imin(fwd, bwd);
+        skip_mode_frame[1] = LAST_FRAME + imax(fwd, bwd);
+        skip_mode_present = int(br.f(1));
+    }
+
+    // global_motion_params (5.9.24), each coded against the primary
+    // reference frame's
+    static int decode_subexp(BitReader& br, int num_syms) {
+        int i = 0, mk = 0, k = 3;
+        for (;;) {
+            int b2 = i ? k + i - 1 : k, a = 1 << b2;
+            if (num_syms <= mk + 3 * a) return br.ns(num_syms - mk) + mk;
+            if (!br.f(1)) return int(br.f(b2)) + mk;
+            i++;
+            mk += a;
+        }
+    }
+    static int inverse_recenter(int r, int v) {
+        if (v > 2 * r) return v;
+        return (v & 1) ? r - ((v + 1) >> 1) : r + (v >> 1);
+    }
+    void read_global_param(BitReader& br, int type, int ref, int idx) {
+        int abs_bits = 12, prec_bits = 15;
+        if (idx < 2) {
+            if (type == GM_TRANSLATION) {
+                abs_bits = 9 - !allow_high_precision_mv;
+                prec_bits = 3 - !allow_high_precision_mv;
+            } else {
+                abs_bits = 12;
+                prec_bits = 6;
+            }
+        }
+        int prec_diff = 16 - prec_bits;
+        int round = idx % 3 == 2 ? 1 << 16 : 0, sub = idx % 3 == 2 ? 1 << prec_bits : 0;
+        int mx = 1 << abs_bits;
+        int r = (prev_gm[ref][idx] >> prec_diff) - sub;
+        // decode_signed_subexp_with_ref(-mx, mx + 1, r)
+        int low = -mx, high = mx + 1, n = high - low, rr = r - low;
+        int v = decode_subexp(br, n);
+        int x = (rr << 1) <= n ? inverse_recenter(rr, v) : n - 1 - inverse_recenter(n - 1 - rr, v);
+        gm[ref][idx] = ((x + low) * (1 << prec_diff)) + round;
+    }
+    void global_motion_params(BitReader& br) {
+        for (int ref = 0; ref < 8; ref++) {
+            gm_type[ref] = GM_IDENTITY;
+            for (int i = 0; i < 6; i++) gm[ref][i] = i % 3 == 2 ? 1 << 16 : 0;
+        }
+        if (frame_is_intra) return;
+        for (int ref = LAST_FRAME; ref <= ALTREF_FRAME; ref++) {
+            int type = GM_IDENTITY;
+            if (br.f(1)) {
+                if (br.f(1)) type = GM_ROTZOOM;
+                else type = br.f(1) ? GM_TRANSLATION : GM_AFFINE;
+            }
+            if (type == GM_TRANSLATION)
+                unported("an AV1 global motion of type TRANSLATION (no file made here holds one)");
+            gm_type[ref] = type;
+            if (type >= GM_ROTZOOM) {
+                read_global_param(br, type, ref, 2);
+                read_global_param(br, type, ref, 3);
+                if (type == GM_AFFINE) {
+                    read_global_param(br, type, ref, 4);
+                    read_global_param(br, type, ref, 5);
+                } else {
+                    gm[ref][4] = -gm[ref][3];
+                    gm[ref][5] = gm[ref][2];
+                }
+            }
+            if (type >= GM_TRANSLATION) {
+                read_global_param(br, type, ref, 0);
+                read_global_param(br, type, ref, 1);
+            }
+        }
+    }
+
+    // segmentation_params: the map and the data updated, or carried from
+    // the primary reference frame (load_previous); values clamped to the
+    // features' ranges
     void parse_segmentation(BitReader& br) {
         static const int bits[8] = {8, 6, 6, 6, 6, 3, 0, 0}, sgn[8] = {1, 1, 1, 1, 1, 0, 0, 0},
                          mx[8] = {255, 63, 63, 63, 63, 7, 0, 0};
-        memset(seg_feature, 0, sizeof seg_feature);
-        memset(seg_data, 0, sizeof seg_data);
         seg_enabled = int(br.f(1));
+        seg_update_map = seg_temporal_update = 0;
+        int update_data = 0;
+        if (seg_enabled) {
+            if (primary_ref_frame == PRIMARY_REF_NONE) {
+                seg_update_map = 1;
+                update_data = 1;
+            } else {
+                seg_update_map = int(br.f(1));
+                if (seg_update_map) seg_temporal_update = int(br.f(1));
+                if (seg_temporal_update)
+                    unported("AV1 segment ids predicted from the previous frame's map "
+                             "(segmentation_temporal_update; no file made here holds it)");
+                update_data = int(br.f(1));
+            }
+        }
+        if (!seg_enabled || update_data) {
+            memset(seg_feature, 0, sizeof seg_feature);
+            memset(seg_data, 0, sizeof seg_data);
+        }
+        if (update_data) {
+            for (int i = 0; i < 8; i++)
+                for (int j = 0; j < 8; j++) {
+                    if (!br.f(1)) continue;
+                    seg_feature[i][j] = 1;
+                    int v = sgn[j] ? br.su(1 + bits[j]) : int(br.f(bits[j]));
+                    seg_data[i][j] = clip3(sgn[j] ? -mx[j] : 0, mx[j], v);
+                }
+        }
         seg_preskip = 0;
         last_active_seg = -1;
-        if (!seg_enabled) return;
         for (int i = 0; i < 8; i++)
-            for (int j = 0; j < 8; j++) {
-                if (!br.f(1)) continue;
-                seg_feature[i][j] = 1;
-                int v = sgn[j] ? br.su(1 + bits[j]) : int(br.f(bits[j]));
-                seg_data[i][j] = clip3(sgn[j] ? -mx[j] : 0, mx[j], v);
-                last_active_seg = i;
-                if (j >= 5) seg_preskip = 1;
-            }
+            for (int j = 0; j < 8; j++)
+                if (seg_feature[i][j]) {
+                    last_active_seg = i;
+                    if (j >= SEG_LVL_REF_FRAME) seg_preskip = 1;
+                }
     }
     bool seg_active(int s, int feature) const { return seg_enabled && seg_feature[s][feature]; }
     // get_qindex of a segment from a q index (base_q_idx, or CurrentQIndex
@@ -1270,12 +1723,21 @@ struct Decoder {
     }
     // a block's deblocking level for edges i (luma vertical, luma
     // horizontal, u, v; 7.14.4): the frame's level with the block's delta
-    // lf, the segment's ALT_LF feature, the intra reference delta
-    int block_lf_level(int s, int i, const int* delta_lf) const {
+    // lf, the segment's ALT_LF feature, the reference and mode deltas
+    int block_lf_level(int s, int i, const int* delta_lf, int ref, int mode) const {
         int delta = delta_lf[delta_lf_multi ? i : 0];
         int l = clip3(0, 63, delta + lf_level[i]);
         if (seg_active(s, SEG_LVL_ALT_LF_Y_V + i)) l = clip3(0, 63, l + seg_data[s][SEG_LVL_ALT_LF_Y_V + i]);
-        if (lf_delta_enabled) l = clip3(0, 63, l + lf_ref_deltas[0] * (1 << (l >> 5)));
+        if (lf_delta_enabled) {
+            int sh = l >> 5;
+            if (ref <= INTRA_FRAME) {
+                l += lf_ref_deltas[INTRA_FRAME] * (1 << sh);
+            } else {
+                int mode_type = mode >= NEARESTMV && mode != GLOBALMV && mode != GLOBAL_GLOBALMV;
+                l += lf_ref_deltas[ref] * (1 << sh) + lf_mode_deltas[mode_type] * (1 << sh);
+            }
+            l = clip3(0, 63, l);
+        }
         return l;
     }
 
@@ -1292,7 +1754,8 @@ struct Decoder {
         mi_size.assign(n, 0); y_mode.assign(n, 0); uv_mode.assign(n, 0); skip_.assign(n, 0);
         tx_size_.assign(n, 0); tx_type.assign(n, 0);
         seg_ids.assign(n, 0); is_inter_.assign(n, 0); decoded_.assign(n, 0);
-        lf_lvl.assign(n * 4, 0); mvs.assign(n * 2, 0);
+        lf_lvl.assign(n * 4, 0); mvs.assign(n * 4, 0); ref_frames.assign(n * 2, -1);
+        skip_mode_.assign(n, 0); comp_group_.assign(n, 0); compound_idx_.assign(n, 0);
         for (int p = 0; p < 2; p++) { pal_size[p].assign(n, 0); pal_colors[p].assign(n * 8, 0); }
         tiles_decoded = 0;
         cdef_idx.assign(size_t((MiRows + 15) >> 4) * ((MiCols + 15) >> 4), -1);
@@ -1302,7 +1765,7 @@ struct Decoder {
             if (lr_type[p] == RESTORE_NONE) continue;
             int sx = p ? ssx : 0, sy = p ? ssy : 0;
             lr_rows[p] = lr_count(lr_unit_size[p], round2(H, sy));
-            lr_cols[p] = lr_count(lr_unit_size[p], round2(W, sx));
+            lr_cols[p] = lr_count(lr_unit_size[p], round2(UpW, sx));
             lr_units[p].assign(size_t(lr_rows[p]) * lr_cols[p], LrUnit());
         }
     }
@@ -1315,6 +1778,20 @@ struct Decoder {
         fg.apply = int(br.f(1));
         if (!fg.apply) return;
         fg.seed = int(br.f(16));
+        if (frame_type == INTER_FRAME && !br.f(1)) {
+            // update_grain 0: the parameters of a reference (load_grain_params)
+            // with this frame's seed
+            int idx = int(br.f(3)), k = 0;
+            while (k < 7 && ref_frame_idx[k] != idx) k++;
+            if (k == 7 || !refs[idx].valid)
+                fail("AV1 film grain parameters of slot %d, not a reference of the frame", idx);
+            int seed = fg.seed;
+            stats[STAT_GRAIN_LOADED]++;
+            fg = refs[idx].fg;
+            fg.apply = 1;
+            fg.seed = seed;
+            return;
+        }
         fg.num_y = int(br.f(4));
         if (fg.num_y > 14) fail("AV1 film grain of %d luma points", fg.num_y);
         for (int i = 0; i < fg.num_y; i++) {
@@ -1402,7 +1879,17 @@ struct Decoder {
     void cdef();
     void loop_restoration(const Plane* pre_cdef);
     void film_grain(pixel* const out[3]);
-    void superres_upscale();
+    void superres_upscale(Plane* planes);
+    // the motion field of the references (7.9): per 8x8 block, the vector
+    // projected onto the frame and its reference offset (0: none)
+    std::vector<int16_t> tpl_mv;
+    std::vector<int8_t> tpl_off;
+    void motion_field_estimation();
+    bool projection(int src, int dst_sign);
+    // after the last tile: the loop filters, then the reference slots the
+    // frame refreshes; out_px the frame's planes
+    std::shared_ptr<Pixels> out_px;
+    void finish_frame();
     void loop_filter();
     void edge_filter(int p, int pass, int row, int col);
     void filter_level(int l, int* limit, int* blimit, int* thresh);
@@ -1482,6 +1969,7 @@ struct Decoder::Tile {
             // more read past the end of the tile's data is an error
             if (sd.maxbits <= -15) fail("AV1 tile data end inside superblock row %d", r);
         }
+        if (tr * f.tile_cols + tc == f.context_update_tile_id) f.end_cdfs = cdf;
     }
 
     // ---- CDEF indices: one per 64x64 block that holds a non-skip block
@@ -1541,8 +2029,11 @@ struct Decoder::Tile {
             int unit = f.lr_unit_size[p];
             int row0 = (r * (4 >> sy) + unit - 1) / unit;
             int row1 = imin(f.lr_rows[p], ((r + h) * (4 >> sy) + unit - 1) / unit);
-            int col0 = (c * (4 >> sx) + unit - 1) / unit;
-            int col1 = imin(f.lr_cols[p], ((c + w) * (4 >> sx) + unit - 1) / unit);
+            // units are counted on the upscaled width (5.11.57)
+            bool up = f.W != f.UpW;
+            int num = (4 >> sx) * (up ? f.superres_denom : 1), den = unit * (up ? 8 : 1);
+            int col0 = (c * num + den - 1) / den;
+            int col1 = imin(f.lr_cols[p], ((c + w) * num + den - 1) / den);
             for (int ur = row0; ur < row1; ur++)
                 for (int uc = col0; uc < col1; uc++) read_lr_unit(p, f.lr_units[p][size_t(ur) * f.lr_cols[p] + uc]);
         }
@@ -1729,32 +2220,46 @@ struct Decoder::Tile {
         } else {
             avail_u_chroma = avail_l_chroma = false;
         }
-        intra_frame_mode_info();
+        if (f.frame_is_intra) {
+            intra_frame_mode_info();
+            mvv[0][0] = mv_r;
+            mvv[0][1] = mv_c;
+        } else {
+            inter_frame_mode_info();
+        }
         palette_tokens();
-        if (use_intrabc) read_block_tx_size_inter();
+        if (is_inter) read_block_tx_size_inter();
         else read_tx_size();
         // store the block's mode info
         int lvl[4];
-        for (int i = 0; i < 4; i++) lvl[i] = f.block_lf_level(seg_id, i, delta_lf);
+        for (int i = 0; i < 4; i++) lvl[i] = f.block_lf_level(seg_id, i, delta_lf, ref_frame[0], ymode);
         for (int y = 0; y < bh4; y++) {
             if (r + y >= f.MiRows) break;
             for (int x = 0; x < bw4; x++) {
                 if (c + x >= f.MiCols) break;
                 int i = f.mi(r + y, c + x);
                 f.y_mode[i] = uint8_t(ymode);
-                if (has_chroma) f.uv_mode[i] = uint8_t(uvmode);
+                if (has_chroma && !is_inter) f.uv_mode[i] = uint8_t(uvmode);
                 f.mi_size[i] = uint8_t(b);
                 f.skip_[i] = uint8_t(skip);
-                if (!use_intrabc) f.tx_size_[i] = uint8_t(txsz);  // else written by its tree
+                if (!is_inter) f.tx_size_[i] = uint8_t(txsz);  // else written by its tree
                 f.pal_size[0][i] = uint8_t(pal_size_y);
                 f.pal_size[1][i] = uint8_t(pal_size_uv);
                 memcpy(&f.pal_colors[0][size_t(i) * 8], pal_y, 8);
                 memcpy(&f.pal_colors[1][size_t(i) * 8], pal_u, 8);
                 f.seg_ids[i] = uint8_t(seg_id);
-                f.is_inter_[i] = uint8_t(use_intrabc);
+                f.is_inter_[i] = uint8_t(is_inter);
                 f.decoded_[i] = 1;
-                f.mvs[2 * size_t(i)] = mv_r;
-                f.mvs[2 * size_t(i) + 1] = mv_c;
+                memcpy(&f.mvs[4 * size_t(i)], mvv, sizeof(int32_t) * 4);
+                f.ref_frames[2 * size_t(i)] = int8_t(ref_frame[0]);
+                f.ref_frames[2 * size_t(i) + 1] = int8_t(ref_frame[1]);
+                f.skip_mode_[i] = uint8_t(skip_mode);
+                f.comp_group_[i] = uint8_t(comp_group_idx);
+                f.compound_idx_[i] = uint8_t(compound_idx);
+                if (!f.frame_is_intra) {
+                    f.interp_filter_[2 * size_t(i)] = uint8_t(interp[0]);
+                    f.interp_filter_[2 * size_t(i) + 1] = uint8_t(interp[1]);
+                }
                 for (int k = 0; k < 4; k++) f.lf_lvl[4 * size_t(i) + k] = uint8_t(lvl[k]);
             }
         }
@@ -1767,7 +2272,23 @@ struct Decoder::Tile {
         f.stats[7] += angle_delta_y != 0 || angle_delta_uv != 0;
         f.stats[8] += seg_id != 0;
         f.stats[10] += use_intrabc;
+        if (!f.frame_is_intra) {
+            f.stats[STAT_INTER] += is_inter;
+            f.stats[STAT_INTRA_IN_INTER] += !is_inter;
+            f.stats[STAT_SKIP_MODE] += skip_mode;
+            if (ref_frame[1] > INTRA_FRAME) f.stats[compound_type == COMPOUND_AVERAGE ? STAT_COMP_AVERAGE
+                                                     : compound_type == COMPOUND_DISTANCE ? STAT_COMP_DISTANCE
+                                                     : compound_type == COMPOUND_WEDGE ? STAT_COMP_WEDGE
+                                                     : STAT_COMP_DIFFWTD]++;
+            f.stats[STAT_INTERINTRA] += interintra && !wedge_interintra;
+            f.stats[STAT_GLOBAL_MV] += (ymode == GLOBALMV || ymode == GLOBAL_GLOBALMV) &&
+                                       f.gm_type[ref_frame[0]] > GM_IDENTITY;
+            f.stats[STAT_PALETTE_IN_INTER] += pal_size_y > 0 || pal_size_uv > 0;
+            f.stats[STAT_LOSSLESS_INTER] += is_inter && lossless;
+            f.stats[STAT_INTERINTRA_WEDGE] += interintra && wedge_interintra;
+        }
         if (use_intrabc) predict_intrabc();
+        else if (is_inter) predict_inter_block();
         residual();
     }
 
@@ -1800,6 +2321,15 @@ struct Decoder::Tile {
         read_deltas = false;
         qindex = f.seg_qindex(seg_id, f.delta_q_present ? cur_qidx : f.base_q_idx);
         use_intrabc = f.allow_intrabc ? sd.read(cdf.intrabc, 2) : 0;
+        is_inter = use_intrabc;
+        skip_mode = 0;
+        ref_frame[0] = INTRA_FRAME;
+        ref_frame[1] = -1;
+        interp[0] = interp[1] = 0;
+        motion_mode = SIMPLE;
+        compound_type = COMPOUND_AVERAGE;
+        comp_group_idx = 0;
+        compound_idx = 1;
         mv_r = mv_c = 0;
         if (use_intrabc) {
             // an inter block of the current frame: no intra modes, palettes
@@ -1817,6 +2347,12 @@ struct Decoder::Tile {
         int am = kIntraModeContext[avail_u ? int(f.y_mode[f.mi(mi_row - 1, mi_col)]) : 0];
         int lm = kIntraModeContext[avail_l ? int(f.y_mode[f.mi(mi_row, mi_col - 1)]) : 0];
         ymode = sd.read(cdf.kf_y_mode[am][lm], 13);
+        intra_modes_after_y();
+    }
+
+    // an intra block's modes after its y mode: angle deltas, the uv mode
+    // and CfL, palettes, filter intra
+    void intra_modes_after_y() {
         angle_delta_y = 0;
         if (mi_sz >= BLOCK_8X8 && ymode >= V_PRED && ymode <= D67_PRED)
             angle_delta_y = sd.read(cdf.angle_delta[ymode - V_PRED], 7) - 3;
@@ -1846,6 +2382,1332 @@ struct Decoder::Tile {
         }
     }
 
+    // ==== inter frames: mode info (5.11.18-5.11.33)
+    int is_inter = 0, skip_mode = 0, ref_frame[2] = {INTRA_FRAME, -1}, mvv[2][2] = {{0, 0}, {0, 0}};
+    int interp[2] = {0, 0}, motion_mode = SIMPLE, interintra = 0, interintra_mode = 0,
+        wedge_interintra = 0, wedge_index = 0, wedge_sign = 0, mask_type = 0,
+        compound_type = COMPOUND_AVERAGE, comp_group_idx = 0, compound_idx = 1, ref_mv_idx = 0;
+    int above_ref[2] = {INTRA_FRAME, -1}, left_ref[2] = {INTRA_FRAME, -1};
+    bool above_intra = true, left_intra = true, above_single = true, left_single = true;
+    static constexpr int kSizeGroup[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0,
+                                           1, 1, 2, 2};
+    static constexpr int kWedgeBits[22] = {0, 0, 0, 4, 4, 4, 4, 4, 4, 4, 0, 0, 0, 0, 0, 0, 0, 0,
+                                           4, 4, 0, 0};
+
+    int mi_ref(int r, int c, int list) const { return f.ref_frames[2 * size_t(f.mi(r, c)) + list]; }
+    const int32_t* mi_mv(int r, int c, int list) const {
+        return &f.mvs[4 * size_t(f.mi(r, c)) + 2 * list];
+    }
+
+    void inter_frame_mode_info() {
+        use_intrabc = 0;
+        above_ref[0] = avail_u ? mi_ref(mi_row - 1, mi_col, 0) : INTRA_FRAME;
+        above_ref[1] = avail_u ? mi_ref(mi_row - 1, mi_col, 1) : -1;
+        left_ref[0] = avail_l ? mi_ref(mi_row, mi_col - 1, 0) : INTRA_FRAME;
+        left_ref[1] = avail_l ? mi_ref(mi_row, mi_col - 1, 1) : -1;
+        above_intra = above_ref[0] <= INTRA_FRAME;
+        left_intra = left_ref[0] <= INTRA_FRAME;
+        above_single = above_ref[1] <= INTRA_FRAME;
+        left_single = left_ref[1] <= INTRA_FRAME;
+        skip = 0;
+        seg_id = 0;
+        inter_segment_id(true);
+        read_skip_mode();
+        if (skip_mode) {
+            skip = 1;
+        } else if (f.seg_preskip && f.seg_active(seg_id, Decoder::SEG_LVL_SKIP)) {
+            skip = 1;
+        } else {
+            int ctx = (avail_u ? f.skip_[f.mi(mi_row - 1, mi_col)] : 0) +
+                      (avail_l ? f.skip_[f.mi(mi_row, mi_col - 1)] : 0);
+            skip = sd.read(cdf.skip[ctx], 2);
+        }
+        if (!f.seg_preskip) inter_segment_id(false);
+        lossless = f.lossless_seg[seg_id];
+        read_cdef();
+        read_delta_qindex();
+        read_delta_lf();
+        read_deltas = false;
+        qindex = f.seg_qindex(seg_id, f.delta_q_present ? cur_qidx : f.base_q_idx);
+        read_is_inter();
+        // defaults of the inter syntax (an intra block reads none of it)
+        motion_mode = SIMPLE;
+        interintra = wedge_interintra = 0;
+        compound_type = COMPOUND_AVERAGE;
+        comp_group_idx = 0;
+        compound_idx = 1;
+        interp[0] = interp[1] = 0;
+        mvv[0][0] = mvv[0][1] = mvv[1][0] = mvv[1][1] = 0;
+        if (is_inter) {
+            inter_block_mode_info();
+        } else {
+            ref_frame[0] = INTRA_FRAME;
+            ref_frame[1] = -1;
+            ymode = sd.read(cdf.y_mode[kSizeGroup[mi_sz]], 13);
+            intra_modes_after_y();
+        }
+    }
+
+    // get_segment_id: the least of PrevSegmentIds over the block
+    int predicted_segment_id() {
+        int seg = 7;
+        for (int y = 0; y < imin(bh4, f.MiRows - mi_row); y++)
+            for (int x = 0; x < imin(bw4, f.MiCols - mi_col); x++)
+                seg = imin(seg, f.prev_seg_ids[f.mi(mi_row + y, mi_col + x)]);
+        return seg;
+    }
+    void inter_segment_id(bool pre_skip) {
+        if (!f.seg_enabled) {
+            seg_id = 0;
+            return;
+        }
+        int pred = predicted_segment_id();
+        if (!f.seg_update_map) {
+            seg_id = pred;
+            return;
+        }
+        if (pre_skip && !f.seg_preskip) {
+            seg_id = 0;
+            return;
+        }
+        if (!pre_skip && skip) {
+            read_segment_id();
+            return;
+        }
+        read_segment_id();  // (segmentation_temporal_update is refused)
+    }
+
+    void read_skip_mode() {
+        skip_mode = 0;
+        if (f.seg_active(seg_id, Decoder::SEG_LVL_SKIP) || f.seg_active(seg_id, Decoder::SEG_LVL_REF_FRAME) ||
+            f.seg_active(seg_id, Decoder::SEG_LVL_GLOBALMV) || !f.skip_mode_present ||
+            kBw[mi_sz] < 8 || kBh[mi_sz] < 8)
+            return;
+        int ctx = (avail_u ? f.skip_mode_[f.mi(mi_row - 1, mi_col)] : 0) +
+                  (avail_l ? f.skip_mode_[f.mi(mi_row, mi_col - 1)] : 0);
+        skip_mode = sd.read(cdf.skip_mode[ctx], 2);
+    }
+
+    void read_is_inter() {
+        if (skip_mode) {
+            is_inter = 1;
+        } else if (f.seg_active(seg_id, Decoder::SEG_LVL_REF_FRAME)) {
+            is_inter = f.seg_data[seg_id][Decoder::SEG_LVL_REF_FRAME] != INTRA_FRAME;
+        } else if (f.seg_active(seg_id, Decoder::SEG_LVL_GLOBALMV)) {
+            is_inter = 1;
+        } else {
+            int ctx;
+            if (avail_u && avail_l) ctx = left_intra && above_intra ? 3 : (left_intra || above_intra ? 1 : 0);
+            else if (avail_u || avail_l) ctx = 2 * (avail_u ? above_intra : left_intra);
+            else ctx = 0;
+            is_inter = sd.read(cdf.is_inter[ctx], 2);
+        }
+    }
+
+    // ---- reference frames (read_ref_frames) and their contexts (8.3.2)
+    int count_refs(int t) const {
+        int c = 0;
+        if (avail_u) c += (above_ref[0] == t) + (above_ref[1] == t);
+        if (avail_l) c += (left_ref[0] == t) + (left_ref[1] == t);
+        return c;
+    }
+    static int ref_count_ctx(int c0, int c1) { return c0 < c1 ? 0 : (c0 == c1 ? 1 : 2); }
+    static bool check_backward(int r) { return r >= BWDREF_FRAME && r <= ALTREF_FRAME; }
+    int comp_mode_ctx() const {
+        if (avail_u && avail_l) {
+            if (above_single && left_single)
+                return check_backward(above_ref[0]) ^ check_backward(left_ref[0]);
+            if (above_single) return 2 + (check_backward(above_ref[0]) || above_intra);
+            if (left_single) return 2 + (check_backward(left_ref[0]) || left_intra);
+            return 4;
+        }
+        if (avail_u) return above_single ? check_backward(above_ref[0]) : 3;
+        if (avail_l) return left_single ? check_backward(left_ref[0]) : 3;
+        return 1;
+    }
+    int comp_ref_type_ctx() const {
+        auto samedir = [](int a, int b) { return (a >= BWDREF_FRAME) == (b >= BWDREF_FRAME); };
+        int a0 = above_ref[0], a1 = above_ref[1], l0 = left_ref[0], l1 = left_ref[1];
+        bool above_comp = avail_u && !above_intra && !above_single;
+        bool left_comp = avail_l && !left_intra && !left_single;
+        bool above_uni = above_comp && samedir(a0, a1);
+        bool left_uni = left_comp && samedir(l0, l1);
+        if (avail_u && !above_intra && avail_l && !left_intra) {
+            int same = samedir(a0, l0);
+            if (!above_comp && !left_comp) return 1 + 2 * same;
+            if (!above_comp) return left_uni ? 3 + same : 1;
+            if (!left_comp) return above_uni ? 3 + same : 1;
+            if (!above_uni && !left_uni) return 0;
+            if (!above_uni || !left_uni) return 2;
+            return 3 + ((a0 == BWDREF_FRAME) == (l0 == BWDREF_FRAME));
+        }
+        if (avail_u && avail_l) {
+            if (above_comp) return 1 + 2 * above_uni;
+            if (left_comp) return 1 + 2 * left_uni;
+            return 2;
+        }
+        if (above_comp) return 4 * above_uni;
+        if (left_comp) return 4 * left_uni;
+        return 2;
+    }
+    int fwd_bwd_ctx() const {
+        return ref_count_ctx(count_refs(LAST_FRAME) + count_refs(LAST2_FRAME) + count_refs(LAST3_FRAME) +
+                                 count_refs(GOLDEN_FRAME),
+                             count_refs(BWDREF_FRAME) + count_refs(ALTREF2_FRAME) + count_refs(ALTREF_FRAME));
+    }
+    int last12_ctx() const {
+        return ref_count_ctx(count_refs(LAST_FRAME) + count_refs(LAST2_FRAME),
+                             count_refs(LAST3_FRAME) + count_refs(GOLDEN_FRAME));
+    }
+    int bwd_alt2_ctx() const {
+        return ref_count_ctx(count_refs(BWDREF_FRAME) + count_refs(ALTREF2_FRAME), count_refs(ALTREF_FRAME));
+    }
+
+    void read_ref_frames() {
+        if (skip_mode) {
+            ref_frame[0] = f.skip_mode_frame[0];
+            ref_frame[1] = f.skip_mode_frame[1];
+            return;
+        }
+        ref_frame[1] = -1;
+        if (f.seg_active(seg_id, Decoder::SEG_LVL_REF_FRAME)) {
+            ref_frame[0] = f.seg_data[seg_id][Decoder::SEG_LVL_REF_FRAME];
+            return;
+        }
+        if (f.seg_active(seg_id, Decoder::SEG_LVL_SKIP) || f.seg_active(seg_id, Decoder::SEG_LVL_GLOBALMV)) {
+            ref_frame[0] = LAST_FRAME;
+            return;
+        }
+        int comp = f.reference_select && imin(bw4, bh4) >= 2 ? sd.read(cdf.comp_mode[comp_mode_ctx()], 2) : 0;
+        if (comp) {
+            int type = sd.read(cdf.comp_ref_type[comp_ref_type_ctx()], 2);
+            if (type == 0) {  // UNIDIR_COMP_REFERENCE
+                if (sd.read(cdf.uni_comp_ref[0][fwd_bwd_ctx()], 2)) {
+                    ref_frame[0] = BWDREF_FRAME;
+                    ref_frame[1] = ALTREF_FRAME;
+                } else {
+                    int c1 = ref_count_ctx(count_refs(LAST2_FRAME), count_refs(LAST3_FRAME) + count_refs(GOLDEN_FRAME));
+                    ref_frame[0] = LAST_FRAME;
+                    if (sd.read(cdf.uni_comp_ref[1][c1], 2)) {
+                        int c2 = ref_count_ctx(count_refs(LAST3_FRAME), count_refs(GOLDEN_FRAME));
+                        ref_frame[1] = sd.read(cdf.uni_comp_ref[2][c2], 2) ? GOLDEN_FRAME : LAST3_FRAME;
+                    } else {
+                        ref_frame[1] = LAST2_FRAME;
+                    }
+                }
+            } else {
+                if (sd.read(cdf.comp_ref[0][last12_ctx()], 2) == 0) {
+                    int c = ref_count_ctx(count_refs(LAST_FRAME), count_refs(LAST2_FRAME));
+                    ref_frame[0] = sd.read(cdf.comp_ref[1][c], 2) ? LAST2_FRAME : LAST_FRAME;
+                } else {
+                    int c = ref_count_ctx(count_refs(LAST3_FRAME), count_refs(GOLDEN_FRAME));
+                    ref_frame[0] = sd.read(cdf.comp_ref[2][c], 2) ? GOLDEN_FRAME : LAST3_FRAME;
+                }
+                if (sd.read(cdf.comp_bwd_ref[0][bwd_alt2_ctx()], 2) == 0) {
+                    int c = ref_count_ctx(count_refs(BWDREF_FRAME), count_refs(ALTREF2_FRAME));
+                    ref_frame[1] = sd.read(cdf.comp_bwd_ref[1][c], 2) ? ALTREF2_FRAME : BWDREF_FRAME;
+                } else {
+                    ref_frame[1] = ALTREF_FRAME;
+                }
+            }
+            return;
+        }
+        if (sd.read(cdf.single_ref[0][fwd_bwd_ctx()], 2)) {
+            if (sd.read(cdf.single_ref[1][bwd_alt2_ctx()], 2) == 0) {
+                int c = ref_count_ctx(count_refs(BWDREF_FRAME), count_refs(ALTREF2_FRAME));
+                ref_frame[0] = sd.read(cdf.single_ref[5][c], 2) ? ALTREF2_FRAME : BWDREF_FRAME;
+            } else {
+                ref_frame[0] = ALTREF_FRAME;
+            }
+        } else if (sd.read(cdf.single_ref[2][last12_ctx()], 2)) {
+            int c = ref_count_ctx(count_refs(LAST3_FRAME), count_refs(GOLDEN_FRAME));
+            ref_frame[0] = sd.read(cdf.single_ref[4][c], 2) ? GOLDEN_FRAME : LAST3_FRAME;
+        } else {
+            int c = ref_count_ctx(count_refs(LAST_FRAME), count_refs(LAST2_FRAME));
+            ref_frame[0] = sd.read(cdf.single_ref[3][c], 2) ? LAST2_FRAME : LAST_FRAME;
+        }
+    }
+
+    // ---- the modes (inter_block_mode_info)
+    static bool has_newmv(int m) {
+        return m == NEWMV || m == NEW_NEWMV || m == NEAR_NEWMV || m == NEW_NEARMV ||
+               m == NEAREST_NEWMV || m == NEW_NEARESTMV;
+    }
+    int get_mode(int list) const {
+        if (list == 0) {
+            if (ymode < NEAREST_NEARESTMV) return ymode;
+            if (ymode == NEW_NEWMV || ymode == NEW_NEARESTMV || ymode == NEW_NEARMV) return NEWMV;
+            if (ymode == NEAREST_NEARESTMV || ymode == NEAREST_NEWMV) return NEARESTMV;
+            if (ymode == NEAR_NEARMV || ymode == NEAR_NEWMV) return NEARMV;
+            return GLOBALMV;
+        }
+        if (ymode == NEW_NEWMV || ymode == NEAREST_NEWMV || ymode == NEAR_NEWMV) return NEWMV;
+        if (ymode == NEAREST_NEARESTMV || ymode == NEW_NEARESTMV) return NEARESTMV;
+        if (ymode == NEAR_NEARMV || ymode == NEW_NEARMV) return NEARMV;
+        return GLOBALMV;
+    }
+
+    void inter_block_mode_info() {
+        pal_size_y = pal_size_uv = 0;
+        memset(pal_y, 0, 8); memset(pal_u, 0, 8); memset(pal_v, 0, 8);
+        use_filter_intra = 0;
+        angle_delta_y = angle_delta_uv = 0;
+        uvmode = DC_PRED;
+        read_ref_frames();
+        bool comp = ref_frame[1] > INTRA_FRAME;
+        find_mv_stack(comp);
+        if (skip_mode) {
+            ymode = NEAREST_NEARESTMV;
+        } else if (f.seg_active(seg_id, Decoder::SEG_LVL_SKIP) || f.seg_active(seg_id, Decoder::SEG_LVL_GLOBALMV)) {
+            ymode = GLOBALMV;
+        } else if (comp) {
+            static const int ctx_map[3][5] = {{0, 1, 1, 1, 1}, {1, 2, 3, 4, 4}, {4, 4, 5, 6, 7}};
+            int ctx = ctx_map[ref_mv_ctx >> 1][imin(new_mv_ctx, 4)];
+            ymode = NEAREST_NEARESTMV + sd.read(cdf.compound_mode[ctx], 8);
+        } else if (sd.read(cdf.new_mv[new_mv_ctx], 2) == 0) {
+            ymode = NEWMV;
+        } else if (sd.read(cdf.zero_mv[zero_mv_ctx], 2) == 0) {
+            ymode = GLOBALMV;
+        } else {
+            ymode = sd.read(cdf.ref_mv[ref_mv_ctx], 2) == 0 ? NEARESTMV : NEARMV;
+        }
+        ref_mv_idx = 0;
+        if (ymode == NEWMV || ymode == NEW_NEWMV) {
+            for (int idx = 0; idx < 2; idx++) {
+                if (num_mv_found > idx + 1) {
+                    int drl = sd.read(cdf.drl_mode[drl_ctx[idx]], 2);
+                    if (drl == 0) { ref_mv_idx = idx; break; }
+                    ref_mv_idx = idx + 1;
+                }
+            }
+        } else if (ymode == NEARMV || ymode == NEAR_NEARMV || ymode == NEAR_NEWMV || ymode == NEW_NEARMV) {
+            ref_mv_idx = 1;
+            for (int idx = 1; idx < 3; idx++) {
+                if (num_mv_found > idx + 1) {
+                    int drl = sd.read(cdf.drl_mode[drl_ctx[idx]], 2);
+                    if (drl == 0) { ref_mv_idx = idx; break; }
+                    ref_mv_idx = idx + 1;
+                }
+            }
+        }
+        // assign_mv
+        for (int i = 0; i < 1 + comp; i++) {
+            int m = get_mode(i), pred[2];
+            if (m == GLOBALMV) {
+                pred[0] = global_mvs[i][0];
+                pred[1] = global_mvs[i][1];
+            } else {
+                int pos = m == NEARESTMV ? 0 : ref_mv_idx;
+                if (m == NEWMV && num_mv_found <= 1) pos = 0;
+                pred[0] = ref_stack[pos][i][0];
+                pred[1] = ref_stack[pos][i][1];
+            }
+            if (m == NEWMV) {
+                int joint = sd.read(cdf.imv_joint, 4);
+                if (joint == 2 || joint == 3) pred[0] += read_mv_component_inter(cdf.imv[0]);
+                if (joint == 1 || joint == 3) pred[1] += read_mv_component_inter(cdf.imv[1]);
+            }
+            mvv[i][0] = pred[0];
+            mvv[i][1] = pred[1];
+        }
+        f.stats[STAT_NEWMV] += has_newmv(ymode);
+        // inter-intra
+        interintra = 0;
+        if (!skip_mode && f.enable_interintra && !comp && mi_sz >= BLOCK_8X8 && mi_sz <= BLOCK_32X32) {
+            int g = kSizeGroup[mi_sz];
+            interintra = sd.read(cdf.interintra[g], 2);
+            if (interintra) {
+                interintra_mode = sd.read(cdf.interintra_mode[g], 4);
+                ref_frame[1] = INTRA_FRAME;
+                wedge_interintra = sd.read(cdf.wedge_interintra[mi_sz - BLOCK_8X8], 2);
+                if (wedge_interintra) {
+                    wedge_index = sd.read(cdf.wedge_index[wedge_ctx(mi_sz)], 16);
+                    wedge_sign = 0;
+                }
+            }
+        }
+        read_motion_mode(comp);
+        // compound type
+        comp_group_idx = 0;
+        compound_idx = 1;
+        if (skip_mode) {
+            compound_type = COMPOUND_AVERAGE;
+        } else if (comp) {
+            int n = kWedgeBits[mi_sz];
+            if (f.enable_masked_compound) comp_group_idx = sd.read(cdf.comp_group_idx[comp_group_ctx()], 2);
+            if (comp_group_idx == 0) {
+                if (f.enable_jnt_comp) {
+                    compound_idx = sd.read(cdf.compound_idx[compound_idx_ctx()], 2);
+                    compound_type = compound_idx ? COMPOUND_AVERAGE : COMPOUND_DISTANCE;
+                } else {
+                    compound_type = COMPOUND_AVERAGE;
+                }
+            } else if (n == 0) {
+                compound_type = COMPOUND_DIFFWTD;
+            } else {
+                compound_type = sd.read(cdf.compound_type[wedge_ctx(mi_sz)], 2);
+            }
+            if (compound_type == COMPOUND_WEDGE) {
+                wedge_index = sd.read(cdf.wedge_index[wedge_ctx(mi_sz)], 16);
+                wedge_sign = sd.lit(1);
+            } else if (compound_type == COMPOUND_DIFFWTD) {
+                mask_type = sd.lit(1);
+            }
+        } else {
+            compound_type = interintra ? (wedge_interintra ? COMPOUND_WEDGE : COMPOUND_INTRA) : COMPOUND_AVERAGE;
+        }
+        // interpolation filters
+        if (f.interpolation_filter == SWITCHABLE) {
+            for (int dir = 0; dir < (f.enable_dual_filter ? 2 : 1); dir++) {
+                if (needs_interp_filter()) {
+                    int ctx = ((dir & 1) * 2 + (ref_frame[1] > INTRA_FRAME)) * 4;
+                    int lt = 3, at = 3;
+                    if (avail_l) {
+                        int r = mi_row, c = mi_col - 1;
+                        if (mi_ref(r, c, 0) == ref_frame[0] || mi_ref(r, c, 1) == ref_frame[0])
+                            lt = f.interp_filter_[2 * size_t(f.mi(r, c)) + dir];
+                    }
+                    if (avail_u) {
+                        int r = mi_row - 1, c = mi_col;
+                        if (mi_ref(r, c, 0) == ref_frame[0] || mi_ref(r, c, 1) == ref_frame[0])
+                            at = f.interp_filter_[2 * size_t(f.mi(r, c)) + dir];
+                    }
+                    if (lt == at) ctx += lt;
+                    else if (lt == 3) ctx += at;
+                    else if (at == 3) ctx += lt;
+                    else ctx += 3;
+                    interp[dir] = sd.read(cdf.interp_filter[dir][ctx & 7], 3);
+                } else {
+                    interp[dir] = EIGHTTAP;
+                }
+            }
+            if (!f.enable_dual_filter) interp[1] = interp[0];
+        } else {
+            interp[0] = interp[1] = f.interpolation_filter;
+        }
+        f.stats[STAT_DUAL_FILTER] += interp[0] != interp[1];
+    }
+
+    static int wedge_ctx(int b) {
+        switch (b) {
+            case BLOCK_8X8: return 0;
+            case BLOCK_8X16: return 1;
+            case BLOCK_16X8: return 2;
+            case BLOCK_16X16: return 3;
+            case BLOCK_16X32: return 4;
+            case BLOCK_32X16: return 5;
+            case BLOCK_32X32: return 6;
+            case BLOCK_8X32: return 7;
+            default: return 8;
+        }
+    }
+    int comp_group_ctx() const {
+        int ctx = 0;
+        if (avail_u) {
+            if (!above_single) ctx += f.comp_group_[f.mi(mi_row - 1, mi_col)];
+            else if (above_ref[0] == ALTREF_FRAME) ctx += 3;
+        }
+        if (avail_l) {
+            if (!left_single) ctx += f.comp_group_[f.mi(mi_row, mi_col - 1)];
+            else if (left_ref[0] == ALTREF_FRAME) ctx += 3;
+        }
+        return imin(5, ctx);
+    }
+    int compound_idx_ctx() const {
+        int fwd = abs(f.rel_dist(f.order_hints[ref_frame[0]], f.order_hint));
+        int bck = abs(f.rel_dist(f.order_hints[ref_frame[1]], f.order_hint));
+        int ctx = fwd == bck ? 3 : 0;
+        if (avail_u) {
+            if (!above_single) ctx += f.compound_idx_[f.mi(mi_row - 1, mi_col)];
+            else if (above_ref[0] == ALTREF_FRAME) ctx++;
+        }
+        if (avail_l) {
+            if (!left_single) ctx += f.compound_idx_[f.mi(mi_row, mi_col - 1)];
+            else if (left_ref[0] == ALTREF_FRAME) ctx++;
+        }
+        return ctx;
+    }
+    bool needs_interp_filter() const {
+        bool large = imin(kBw[mi_sz], kBh[mi_sz]) >= 8;
+        if (skip_mode || motion_mode == LOCALWARP) return false;
+        if (large && ymode == GLOBALMV) return f.gm_type[ref_frame[0]] == GM_TRANSLATION;
+        if (large && ymode == GLOBAL_GLOBALMV)
+            return f.gm_type[ref_frame[0]] == GM_TRANSLATION || f.gm_type[ref_frame[1]] == GM_TRANSLATION;
+        return true;
+    }
+
+    int read_mv_component_inter(Cdfs::MvComponent& m) {
+        int sign = sd.read(m.sign, 2);
+        int cls = sd.read(m.classes, 11), mag;
+        if (cls == 0) {
+            int c0 = sd.read(m.class0, 2);
+            int fr = f.force_integer_mv ? 3 : sd.read(m.class0_fr[c0], 4);
+            int hp = f.allow_high_precision_mv ? sd.read(m.class0_hp, 2) : 1;
+            mag = ((c0 << 3) | (fr << 1) | hp) + 1;
+        } else {
+            int d = 0;
+            for (int i = 0; i < cls; i++) d |= sd.read(m.bits[i], 2) << i;
+            mag = 2 << (cls + 2);
+            int fr = f.force_integer_mv ? 3 : sd.read(m.fr, 4);
+            int hp = f.allow_high_precision_mv ? sd.read(m.hp, 2) : 1;
+            mag += ((d << 3) | (fr << 1) | hp) + 1;
+        }
+        return sign ? -mag : mag;
+    }
+
+    // ---- motion modes (read_motion_mode; find_warp_samples, 7.10.4)
+    int num_samples = 0, num_scanned = 0, cand_list[8][4];
+
+    bool has_overlappable_candidates() {
+        if (avail_u)
+            for (int x4 = mi_col; x4 < imin(f.MiCols, mi_col + bw4); x4 += 2) {
+                int x5 = imin(x4 | 1, f.MiCols - 1);
+                if (mi_ref(mi_row - 1, x5, 0) > INTRA_FRAME) return true;
+            }
+        if (avail_l)
+            for (int y4 = mi_row; y4 < imin(f.MiRows, mi_row + bh4); y4 += 2) {
+                int y5 = imin(y4 | 1, f.MiRows - 1);
+                if (mi_ref(y5, mi_col - 1, 0) > INTRA_FRAME) return true;
+            }
+        return false;
+    }
+    void add_sample(int dr, int dc) {
+        if (num_scanned >= 8) return;
+        int r = mi_row + dr, c = mi_col + dc;
+        if (!is_inside(r, c) || !f.decoded_[f.mi(r, c)]) return;
+        if (mi_ref(r, c, 0) != ref_frame[0] || mi_ref(r, c, 1) != -1) return;
+        int sz = f.mi_size[f.mi(r, c)];
+        int w4 = kBw[sz] >> 2, h4 = kBh[sz] >> 2;
+        int cr = r & ~(h4 - 1), cc = c & ~(w4 - 1);
+        int mid_y = cr * 4 + h4 * 2 - 1, mid_x = cc * 4 + w4 * 2 - 1;
+        int thresh = clip3(16, 112, imax(kBw[mi_sz], kBh[mi_sz]));
+        const int32_t* cmv = mi_mv(cr, cc, 0);
+        int diff = abs(cmv[0] - mvv[0][0]) + abs(cmv[1] - mvv[0][1]);
+        bool valid = diff <= thresh;
+        num_scanned++;
+        if (!valid && num_scanned > 1) return;
+        cand_list[num_samples][0] = mid_y * 8;
+        cand_list[num_samples][1] = mid_x * 8;
+        cand_list[num_samples][2] = mid_y * 8 + cmv[0];
+        cand_list[num_samples][3] = mid_x * 8 + cmv[1];
+        if (valid) num_samples++;
+    }
+    void find_warp_samples() {
+        num_samples = num_scanned = 0;
+        bool top_left = true, top_right = true;
+        if (avail_u) {
+            int sw = kBw[f.mi_size[f.mi(mi_row - 1, mi_col)]] >> 2;
+            if (bw4 <= sw) {
+                int off = -(mi_col & (sw - 1));
+                if (off < 0) top_left = false;
+                if (off + sw > bw4) top_right = false;
+                add_sample(-1, 0);
+            } else {
+                for (int i = 0, step; i < imin(bw4, f.MiCols - mi_col); i += step) {
+                    step = kBw[f.mi_size[f.mi(mi_row - 1, mi_col + i)]] >> 2;
+                    add_sample(-1, i);
+                }
+            }
+        }
+        if (avail_l) {
+            int sh = kBh[f.mi_size[f.mi(mi_row, mi_col - 1)]] >> 2;
+            if (bh4 <= sh) {
+                if (-(mi_row & (sh - 1)) < 0) top_left = false;
+                add_sample(0, -1);
+            } else {
+                for (int i = 0, step; i < imin(bh4, f.MiRows - mi_row); i += step) {
+                    step = kBh[f.mi_size[f.mi(mi_row + i, mi_col - 1)]] >> 2;
+                    add_sample(i, -1);
+                }
+            }
+        }
+        if (top_left) add_sample(-1, -1);
+        if (top_right && imax(bw4, bh4) <= 16) add_sample(-1, bw4);
+        if (num_samples == 0 && num_scanned > 0) num_samples = 1;
+    }
+    void read_motion_mode(bool comp) {
+        motion_mode = SIMPLE;
+        if (skip_mode || !f.is_motion_mode_switchable) return;
+        if (imin(kBw[mi_sz], kBh[mi_sz]) < 8) return;
+        if (!f.force_integer_mv && (ymode == GLOBALMV || ymode == GLOBAL_GLOBALMV) &&
+            f.gm_type[ref_frame[0]] > GM_TRANSLATION)
+            return;
+        if (comp || ref_frame[1] == INTRA_FRAME || !has_overlappable_candidates()) return;
+        find_warp_samples();
+        if (f.force_integer_mv || num_samples == 0 || !f.allow_warped_motion) {
+            motion_mode = sd.read(cdf.use_obmc[mi_sz], 2) ? OBMC : SIMPLE;
+        } else {
+            motion_mode = sd.read(cdf.motion_mode[mi_sz], 3);
+        }
+    }
+
+    // ---- the reference vector stack (find_mv_stack, 7.10.2)
+    int num_mv_found = 0, new_mv_count = 0, ref_stack[9][2][2], weight_stack[9], global_mvs[2][2],
+        drl_ctx[9], new_mv_ctx = 0, ref_mv_ctx = 0, zero_mv_ctx = 0;
+    bool found_match = false;
+    int ref_id_count[2], ref_diff_count[2], ref_id_mvs[2][2][2], ref_diff_mvs[2][2][2];
+
+    void lower_precision(int* mv) const {
+        if (f.allow_high_precision_mv) return;
+        for (int i = 0; i < 2; i++) {
+            if (f.force_integer_mv) {
+                int a = abs(mv[i]), ai = (a + 3) >> 3;
+                mv[i] = mv[i] > 0 ? ai << 3 : -(ai << 3);
+            } else if (mv[i] & 1) {
+                mv[i] += mv[i] > 0 ? -1 : 1;
+            }
+        }
+    }
+    void setup_global_mv(int list, int* mv) {
+        int ref = ref_frame[list];
+        int typ = ref > INTRA_FRAME ? f.gm_type[ref] : GM_IDENTITY;
+        if (ref <= INTRA_FRAME || typ == GM_IDENTITY) {
+            mv[0] = mv[1] = 0;
+        } else if (typ == GM_TRANSLATION) {
+            mv[0] = f.gm[ref][0] >> 13;
+            mv[1] = f.gm[ref][1] >> 13;
+        } else {
+            int x = mi_col * 4 + kBw[mi_sz] / 2 - 1, y = mi_row * 4 + kBh[mi_sz] / 2 - 1;
+            const int* g = f.gm[ref];
+            int64_t xc = int64_t(g[2] - (1 << 16)) * x + int64_t(g[3]) * y + g[0];
+            int64_t yc = int64_t(g[4]) * x + int64_t(g[5] - (1 << 16)) * y + g[1];
+            if (f.allow_high_precision_mv) {
+                mv[0] = int(round2signed64(yc, 13));
+                mv[1] = int(round2signed64(xc, 13));
+            } else {
+                mv[0] = int(round2signed64(yc, 14)) * 2;
+                mv[1] = int(round2signed64(xc, 14)) * 2;
+            }
+        }
+        lower_precision(mv);
+    }
+    static int64_t round2signed64(int64_t x, int n) {
+        return x >= 0 ? (x + (int64_t(1) << (n - 1))) >> n : -((-x + (int64_t(1) << (n - 1))) >> n);
+    }
+
+    void push_single(const int* mv, int weight) {
+        int k = 0;
+        while (k < num_mv_found && !(ref_stack[k][0][0] == mv[0] && ref_stack[k][0][1] == mv[1])) k++;
+        if (k < num_mv_found) {
+            weight_stack[k] += weight;
+        } else if (num_mv_found < 8) {
+            ref_stack[num_mv_found][0][0] = mv[0];
+            ref_stack[num_mv_found][0][1] = mv[1];
+            weight_stack[num_mv_found++] = weight;
+        }
+    }
+    void push_compound(const int mv[2][2], int weight) {
+        int k = 0;
+        while (k < num_mv_found && !(ref_stack[k][0][0] == mv[0][0] && ref_stack[k][0][1] == mv[0][1] &&
+                                     ref_stack[k][1][0] == mv[1][0] && ref_stack[k][1][1] == mv[1][1]))
+            k++;
+        if (k < num_mv_found) {
+            weight_stack[k] += weight;
+        } else if (num_mv_found < 8) {
+            memcpy(ref_stack[num_mv_found], mv, sizeof(int) * 4);
+            weight_stack[num_mv_found++] = weight;
+        }
+    }
+    void add_ref_mv_candidate(int r, int c, bool comp, int weight) {
+        int i = f.mi(r, c);
+        if (!f.is_inter_[i]) return;
+        int cand_mode = f.y_mode[i], cand_sz = f.mi_size[i];
+        bool large = imin(kBw[cand_sz], kBh[cand_sz]) >= 8;
+        if (!comp) {
+            for (int list = 0; list < 2; list++) {
+                if (mi_ref(r, c, list) != ref_frame[0]) continue;
+                int mv[2];
+                if ((cand_mode == GLOBALMV || cand_mode == GLOBAL_GLOBALMV) &&
+                    f.gm_type[ref_frame[0]] > GM_TRANSLATION && large) {
+                    mv[0] = global_mvs[0][0];
+                    mv[1] = global_mvs[0][1];
+                } else {
+                    mv[0] = mi_mv(r, c, list)[0];
+                    mv[1] = mi_mv(r, c, list)[1];
+                }
+                lower_precision(mv);
+                new_mv_count += has_newmv(cand_mode);
+                found_match = true;
+                push_single(mv, weight);
+            }
+            return;
+        }
+        if (mi_ref(r, c, 0) != ref_frame[0] || mi_ref(r, c, 1) != ref_frame[1]) return;
+        int mv[2][2];
+        for (int list = 0; list < 2; list++) {
+            if (cand_mode == GLOBAL_GLOBALMV && f.gm_type[ref_frame[list]] > GM_TRANSLATION && large) {
+                mv[list][0] = global_mvs[list][0];
+                mv[list][1] = global_mvs[list][1];
+            } else {
+                mv[list][0] = mi_mv(r, c, list)[0];
+                mv[list][1] = mi_mv(r, c, list)[1];
+            }
+            lower_precision(mv[list]);
+        }
+        found_match = true;
+        push_compound(mv, weight);
+        new_mv_count += has_newmv(cand_mode);
+    }
+    void mv_scan_row(int dr, bool comp) {
+        int end4 = imin(imin(bw4, f.MiCols - mi_col), 16), dc = 0;
+        bool far = abs(dr) > 1;
+        if (far) { dr += mi_row & 1; dc = 1 - (mi_col & 1); }
+        for (int i = 0; i < end4;) {
+            int r = mi_row + dr, c = mi_col + dc + i;
+            if (!is_inside(r, c)) break;
+            int len = imin(bw4, kBw[f.mi_size[f.mi(r, c)]] >> 2);
+            if (far) len = imax(2, len);
+            if (bw4 >= 16) len = imax(4, len);
+            add_ref_mv_candidate(r, c, comp, 2 * len);
+            i += len;
+        }
+    }
+    void mv_scan_col(int dc, bool comp) {
+        int end4 = imin(imin(bh4, f.MiRows - mi_row), 16), dr = 0;
+        bool far = abs(dc) > 1;
+        if (far) { dr = 1 - (mi_row & 1); dc += mi_col & 1; }
+        for (int i = 0; i < end4;) {
+            int r = mi_row + dr + i, c = mi_col + dc;
+            if (!is_inside(r, c)) break;
+            int len = imin(bh4, kBh[f.mi_size[f.mi(r, c)]] >> 2);
+            if (far) len = imax(2, len);
+            if (bh4 >= 16) len = imax(4, len);
+            add_ref_mv_candidate(r, c, comp, 2 * len);
+            i += len;
+        }
+    }
+    void mv_scan_point(int dr, int dc, bool comp) {
+        int r = mi_row + dr, c = mi_col + dc;
+        if (is_inside(r, c) && f.decoded_[f.mi(r, c)]) add_ref_mv_candidate(r, c, comp, 4);
+    }
+    // a temporal candidate: the motion field's vector at the 8x8 block,
+    // projected to the reference frame(s)
+    bool tpl_mv(int y8, int x8, int ref, int* mv) const {
+        size_t k = size_t(y8) * (f.MiCols >> 1) + x8;
+        int off = f.tpl_off[k];
+        if (!off) return false;
+        int num = f.rel_dist(f.order_hint, f.order_hints[ref]);
+        int den = imin(off, 31);
+        num = clip3(-31, 31, num);
+        for (int i = 0; i < 2; i++) {
+            int64_t v = int64_t(f.tpl_mv[2 * k + i]) * num * av1_div_mult[den];
+            mv[i] = clip3(-(1 << 14) + 1, (1 << 14) - 1, int(round2signed64(v, 14)));
+        }
+        return true;
+    }
+    void add_tpl_ref_mv(int dr, int dc, bool comp) {
+        int r = (mi_row + dr) | 1, c = (mi_col + dc) | 1;
+        if (!is_inside(r, c)) return;
+        int x8 = c >> 1, y8 = r >> 1;
+        if (dr == 0 && dc == 0) zero_mv_ctx = 1;
+        if (!comp) {
+            int mv[2];
+            if (!tpl_mv(y8, x8, ref_frame[0], mv)) return;
+            f.stats[STAT_TEMPORAL]++;
+            lower_precision(mv);
+            if (dr == 0 && dc == 0)
+                zero_mv_ctx = abs(mv[0] - global_mvs[0][0]) >= 16 || abs(mv[1] - global_mvs[0][1]) >= 16;
+            push_single(mv, 2);
+        } else {
+            int mv[2][2];
+            if (!tpl_mv(y8, x8, ref_frame[0], mv[0]) || !tpl_mv(y8, x8, ref_frame[1], mv[1])) return;
+            f.stats[STAT_TEMPORAL]++;
+            lower_precision(mv[0]);
+            lower_precision(mv[1]);
+            if (dr == 0 && dc == 0)
+                zero_mv_ctx = abs(mv[0][0] - global_mvs[0][0]) >= 16 || abs(mv[0][1] - global_mvs[0][1]) >= 16 ||
+                              abs(mv[1][0] - global_mvs[1][0]) >= 16 || abs(mv[1][1] - global_mvs[1][1]) >= 16;
+            push_compound(mv, 2);
+        }
+    }
+    void temporal_scan(bool comp) {
+        int sw = bw4 >= 16 ? 4 : 2, sh = bh4 >= 16 ? 4 : 2;
+        for (int dr = 0; dr < imin(bh4, 16); dr += sh)
+            for (int dc = 0; dc < imin(bw4, 16); dc += sw) add_tpl_ref_mv(dr, dc, comp);
+        bool ext = bh4 >= 2 && bh4 < 16 && bw4 >= 2 && bw4 < 16;
+        if (ext) {
+            const int pos[3][2] = {{bh4, -2}, {bh4, bw4}, {bh4 - 2, bw4}};
+            for (int i = 0; i < 3; i++) {
+                int row = (mi_row & 15) + pos[i][0], col = (mi_col & 15) + pos[i][1];
+                if (row >= 0 && row < 16 && col >= 0 && col < 16) add_tpl_ref_mv(pos[i][0], pos[i][1], comp);
+            }
+        }
+    }
+    void sort_mv_stack(int start, int end) {
+        while (end > start) {
+            int new_end = start;
+            for (int i = start + 1; i < end; i++)
+                if (weight_stack[i - 1] < weight_stack[i]) {
+                    std::swap(weight_stack[i - 1], weight_stack[i]);
+                    int t[2][2];
+                    memcpy(t, ref_stack[i - 1], sizeof t);
+                    memcpy(ref_stack[i - 1], ref_stack[i], sizeof t);
+                    memcpy(ref_stack[i], t, sizeof t);
+                    new_end = i;
+                }
+            end = new_end;
+        }
+    }
+    void add_extra_mv_candidate(int r, int c, bool comp) {
+        for (int cl = 0; cl < 2; cl++) {
+            int cref = mi_ref(r, c, cl);
+            if (cref <= INTRA_FRAME) continue;
+            if (comp) {
+                for (int list = 0; list < 2; list++) {
+                    int mv[2] = {mi_mv(r, c, cl)[0], mi_mv(r, c, cl)[1]};
+                    if (cref == ref_frame[list] && ref_id_count[list] < 2) {
+                        memcpy(ref_id_mvs[list][ref_id_count[list]++], mv, sizeof mv);
+                    } else if (ref_diff_count[list] < 2) {
+                        if (f.sign_bias[cref] != f.sign_bias[ref_frame[list]]) { mv[0] = -mv[0]; mv[1] = -mv[1]; }
+                        memcpy(ref_diff_mvs[list][ref_diff_count[list]++], mv, sizeof mv);
+                    }
+                }
+            } else {
+                int mv[2] = {mi_mv(r, c, cl)[0], mi_mv(r, c, cl)[1]};
+                if (f.sign_bias[cref] != f.sign_bias[ref_frame[0]]) { mv[0] = -mv[0]; mv[1] = -mv[1]; }
+                int k = 0;
+                while (k < num_mv_found && !(ref_stack[k][0][0] == mv[0] && ref_stack[k][0][1] == mv[1])) k++;
+                if (k == num_mv_found) {
+                    ref_stack[k][0][0] = mv[0];
+                    ref_stack[k][0][1] = mv[1];
+                    weight_stack[k] = 2;
+                    num_mv_found++;
+                }
+            }
+        }
+    }
+    void extra_search(bool comp) {
+        ref_id_count[0] = ref_id_count[1] = ref_diff_count[0] = ref_diff_count[1] = 0;
+        int w4 = imin(imin(16, bw4), f.MiCols - mi_col), h4 = imin(imin(16, bh4), f.MiRows - mi_row);
+        int n4 = imin(w4, h4);
+        for (int pass = 0; pass < 2 && num_mv_found < 2; pass++) {
+            for (int idx = 0; idx < n4 && num_mv_found < 2;) {
+                int r = pass == 0 ? mi_row - 1 : mi_row + idx, c = pass == 0 ? mi_col + idx : mi_col - 1;
+                if (!is_inside(r, c)) break;
+                add_extra_mv_candidate(r, c, comp);
+                int sz = f.mi_size[f.mi(r, c)];
+                idx += pass == 0 ? kBw[sz] >> 2 : kBh[sz] >> 2;
+            }
+        }
+        if (comp) {
+            int combined[2][2][2];
+            for (int list = 0; list < 2; list++) {
+                int n = 0;
+                for (int k = 0; k < ref_id_count[list]; k++) memcpy(combined[n++][list], ref_id_mvs[list][k], 8);
+                for (int k = 0; k < ref_diff_count[list] && n < 2; k++)
+                    memcpy(combined[n++][list], ref_diff_mvs[list][k], 8);
+                while (n < 2) memcpy(combined[n++][list], global_mvs[list], 8);
+            }
+            if (num_mv_found == 1) {
+                int pick = combined[0][0][0] == ref_stack[0][0][0] && combined[0][0][1] == ref_stack[0][0][1] &&
+                                   combined[0][1][0] == ref_stack[0][1][0] && combined[0][1][1] == ref_stack[0][1][1]
+                               ? 1 : 0;
+                memcpy(ref_stack[1], combined[pick], sizeof(int) * 4);
+                weight_stack[1] = 2;
+                num_mv_found = 2;
+            } else {
+                for (int k = 0; k < 2; k++) {
+                    memcpy(ref_stack[num_mv_found], combined[k], sizeof(int) * 4);
+                    weight_stack[num_mv_found++] = 2;
+                }
+            }
+        } else {
+            for (int k = num_mv_found; k < 2; k++) {
+                ref_stack[k][0][0] = global_mvs[0][0];
+                ref_stack[k][0][1] = global_mvs[0][1];
+            }
+        }
+    }
+    void find_mv_stack(bool comp) {
+        num_mv_found = new_mv_count = 0;
+        global_mvs[1][0] = global_mvs[1][1] = 0;
+        setup_global_mv(0, global_mvs[0]);
+        if (comp) setup_global_mv(1, global_mvs[1]);
+        found_match = false;
+        mv_scan_row(-1, comp);
+        bool above_match = found_match;
+        found_match = false;
+        mv_scan_col(-1, comp);
+        bool left_match = found_match;
+        found_match = false;
+        if (imax(bw4, bh4) <= 16) mv_scan_point(-1, bw4, comp);
+        if (found_match) above_match = true;
+        int close_matches = above_match + left_match;
+        int num_nearest = num_mv_found, num_new = new_mv_count;
+        for (int k = 0; k < num_nearest; k++) weight_stack[k] += 640;
+        zero_mv_ctx = 0;
+        if (f.use_ref_frame_mvs) temporal_scan(comp);
+        found_match = false;
+        mv_scan_point(-1, -1, comp);
+        if (found_match) above_match = true;
+        found_match = false;
+        mv_scan_row(-3, comp);
+        if (found_match) above_match = true;
+        found_match = false;
+        mv_scan_col(-3, comp);
+        if (found_match) left_match = true;
+        found_match = false;
+        if (bh4 > 1) mv_scan_row(-5, comp);
+        if (found_match) above_match = true;
+        found_match = false;
+        if (bw4 > 1) mv_scan_col(-5, comp);
+        if (found_match) left_match = true;
+        int total_matches = above_match + left_match;
+        sort_mv_stack(0, num_nearest);
+        sort_mv_stack(num_nearest, num_mv_found);
+        if (num_mv_found < 2) extra_search(comp);
+        // context and clamping
+        for (int k = 0; k < num_mv_found; k++) {
+            int z = 0;
+            if (k + 1 < num_mv_found) {
+                int w0 = weight_stack[k], w1 = weight_stack[k + 1];
+                if (w0 >= 640) z = w1 < 640 ? 1 : 0;
+                else z = 2;
+            }
+            drl_ctx[k] = z;
+        }
+        for (int list = 0; list < 1 + comp; list++)
+            for (int k = 0; k < num_mv_found; k++) {
+                int* mv = ref_stack[k][list];
+                int border_r = 128 + bh4 * 4 * 8, border_c = 128 + bw4 * 4 * 8;
+                mv[0] = clip3(-(mi_row * 4 * 8) - border_r, (f.MiRows - bh4 - mi_row) * 4 * 8 + border_r, mv[0]);
+                mv[1] = clip3(-(mi_col * 4 * 8) - border_c, (f.MiCols - bw4 - mi_col) * 4 * 8 + border_c, mv[1]);
+            }
+        if (close_matches == 0) {
+            new_mv_ctx = imin(total_matches, 1);
+            ref_mv_ctx = total_matches;
+        } else if (close_matches == 1) {
+            new_mv_ctx = 3 - imin(num_new, 1);
+            ref_mv_ctx = 2 + total_matches;
+        } else {
+            new_mv_ctx = 5 - imin(num_new, 1);
+            ref_mv_ctx = 5;
+        }
+    }
+
+    // ==== inter prediction (7.11.3)
+    uint8_t mask_[128 * 128];
+    int mask_stride = 0, fwd_weight = 0, bck_weight = 0;
+    int local_valid = 0, local_wp[6] = {0}, local_abcd[4] = {0};
+
+    // setupShear (7.11.3.6), dav1d's and aom's checks: alpha, beta,
+    // gamma, delta of a warp's parameters, and whether it is valid
+    static bool setup_shear(const int* wp, int* abcd) {
+        if (wp[2] <= 0) return false;
+        auto clip16 = [](int64_t v) { return int(v < -32768 ? -32768 : v > 32767 ? 32767 : v); };
+        auto reduce = [](int v) { return int(round2signed64(v, 6) * 64); };
+        int alpha = clip16(wp[2] - (1 << 16)), beta = clip16(wp[3]);
+        int shift;
+        int factor = resolve_divisor(wp[2], &shift);
+        int64_t v = (int64_t(wp[4]) << 16) * factor;
+        int gamma = clip16(round2signed64(v, shift));
+        int64_t w = int64_t(wp[3]) * wp[4] * factor;
+        int delta = clip16(int64_t(wp[5]) - round2signed64(w, shift) - (1 << 16));
+        abcd[0] = reduce(alpha);
+        abcd[1] = reduce(beta);
+        abcd[2] = reduce(gamma);
+        abcd[3] = reduce(delta);
+        if (4 * abs(abcd[0]) + 7 * abs(abcd[1]) >= (1 << 16)) return false;
+        if (4 * abs(abcd[2]) + 4 * abs(abcd[3]) >= (1 << 16)) return false;
+        return true;
+    }
+    static int resolve_divisor(int64_t d, int* shift) {
+        int64_t a = d < 0 ? -d : d;
+        int n = 0;
+        while ((a >> n) > 1) n++;
+        int64_t e = a - (int64_t(1) << n);
+        int64_t fr = n > 8 ? (e + (int64_t(1) << (n - 9))) >> (n - 8) : e << (8 - n);
+        *shift = n + 14;
+        return d < 0 ? -av1_div_lut[fr] : av1_div_lut[fr];
+    }
+
+    // warp_estimation (7.11.3.8): the local warp's parameters from the
+    // samples' least squares
+    void warp_estimation() {
+        int64_t A[2][2] = {{0, 0}, {0, 0}}, bx[2] = {0, 0}, by[2] = {0, 0};
+        int bw = kBw[mi_sz], bh = kBh[mi_sz];
+        int mid_y = mi_row * 4 + bh / 2 - 1, mid_x = mi_col * 4 + bw / 2 - 1;
+        int suy = mid_y * 8, sux = mid_x * 8, duy = suy + mvv[0][0], dux = sux + mvv[0][1];
+        auto ls = [](int64_t a, int64_t b) { return ((a * b) >> 2) + (a + b); };
+        for (int i = 0; i < num_samples; i++) {
+            int sy = cand_list[i][0] - suy, sx = cand_list[i][1] - sux;
+            int dy = cand_list[i][2] - duy, dx = cand_list[i][3] - dux;
+            if (abs(sx - dx) < 256 && abs(sy - dy) < 256) {
+                A[0][0] += ls(sx, sx) + 8;
+                A[0][1] += ls(sx, sy) + 4;
+                A[1][1] += ls(sy, sy) + 8;
+                bx[0] += ls(sx, dx) + 8;
+                bx[1] += ls(sy, dx) + 4;
+                by[0] += ls(sx, dy) + 4;
+                by[1] += ls(sy, dy) + 8;
+            }
+        }
+        int64_t det = A[0][0] * A[1][1] - A[0][1] * A[0][1];
+        local_valid = det != 0;
+        if (!local_valid) return;
+        int shift;
+        int64_t factor = resolve_divisor(det, &shift);
+        shift -= 16;
+        if (shift < 0) {
+            factor <<= -shift;
+            shift = 0;
+        }
+        auto mul = [&](int64_t v) {
+            // v * factor can pass 64 bits only on streams no encoder makes
+            __int128 p = (__int128)v * factor;
+            if (shift == 0) return int64_t(p);
+            __int128 h = (__int128)1 << (shift - 1);
+            return int64_t(p >= 0 ? (p + h) >> shift : -((-p + h) >> shift));
+        };
+        auto diag = [&](int64_t v) { return int(std::min<int64_t>(std::max<int64_t>(mul(v), 0xE001), 0x11FFF)); };
+        auto nondiag = [&](int64_t v) {
+            return int(std::min<int64_t>(std::max<int64_t>(mul(v), -(1 << 13) + 1), (1 << 13) - 1));
+        };
+        local_wp[2] = diag(A[1][1] * bx[0] - A[0][1] * bx[1]);
+        local_wp[3] = nondiag(-A[0][1] * bx[0] + A[0][0] * bx[1]);
+        local_wp[4] = nondiag(A[1][1] * by[0] - A[0][1] * by[1]);
+        local_wp[5] = diag(-A[0][1] * by[0] + A[0][0] * by[1]);
+        int64_t vx = int64_t(mvv[0][1]) * (1 << 13) -
+                     (int64_t(mid_x) * (local_wp[2] - (1 << 16)) + int64_t(mid_y) * local_wp[3]);
+        int64_t vy = int64_t(mvv[0][0]) * (1 << 13) -
+                     (int64_t(mid_x) * local_wp[4] + int64_t(mid_y) * (local_wp[5] - (1 << 16)));
+        const int64_t clampv = 1 << 23;
+        local_wp[0] = int(std::min<int64_t>(std::max<int64_t>(vx, -clampv), clampv - 1));
+        local_wp[1] = int(std::min<int64_t>(std::max<int64_t>(vy, -clampv), clampv - 1));
+        local_valid = setup_shear(local_wp, local_abcd);
+    }
+
+    // block_inter_prediction (7.11.3.4) from a reference of the frame's
+    // size: 8-tap (4-tap where the block is 4 wide or high) filters, in
+    // 1/16 pel, samples past the frame clamped to its edge
+    void block_inter(const Plane& ref, int p, int x, int y, int w, int h, const int32_t* mv,
+                     int cand_r, int cand_c, int r0, int r1, int32_t* out) {
+        int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+        int last_x = ((f.UpW + sx) >> sx) - 1, last_y = ((f.H + sy) >> sy) - 1;
+        int pos_x = (x << 4) + ((2 * mv[1]) >> sx), pos_y = (y << 4) + ((2 * mv[0]) >> sy);
+        int ix = pos_x >> 4, fx = pos_x & 15, iy = pos_y >> 4, fy = pos_y & 15;
+        const uint8_t* filt = &f.interp_filter_[2 * size_t(f.mi(cand_r, cand_c))];
+        int fh = filt[1], fv = filt[0];
+        if (w <= 4) fh = fh == EIGHTTAP || fh == EIGHTTAP_SHARP ? 4 : fh == EIGHTTAP_SMOOTH ? 5 : fh;
+        if (h <= 4) fv = fv == EIGHTTAP || fv == EIGHTTAP_SHARP ? 4 : fv == EIGHTTAP_SMOOTH ? 5 : fv;
+        const int16_t* hf = av1_subpel_filters[fh][fx];
+        const int16_t* vf = av1_subpel_filters[fv][fy];
+        static thread_local int32_t mid[(128 + 7) * 128];
+        static thread_local int cols[128 + 8];
+        for (int c = 0; c < w + 7; c++) cols[c] = clip3(0, last_x, ix + c - 3);
+        for (int r = 0; r < h + 7; r++) {
+            const pixel* row = &ref.px[size_t(clip3(0, last_y, iy + r - 3)) * ref.stride];
+            int32_t* m = &mid[r * w];
+            for (int c = 0; c < w; c++) {
+                const int* cc = &cols[c];
+                int s = hf[0] * row[cc[0]] + hf[1] * row[cc[1]] + hf[2] * row[cc[2]] + hf[3] * row[cc[3]] +
+                        hf[4] * row[cc[4]] + hf[5] * row[cc[5]] + hf[6] * row[cc[6]] + hf[7] * row[cc[7]];
+                m[c] = round2(s, r0);
+            }
+        }
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++) {
+                const int32_t* m = &mid[r * w + c];
+                int64_t s = 0;
+                for (int t = 0; t < 8; t++) s += int64_t(vf[t]) * m[t * w];
+                out[r * w + c] = round2(s, r1);
+            }
+    }
+
+    // block_warp (7.11.3.5): an 8x8 block of the warp (local or global)
+    void block_warp(const Plane& ref, int p, int x, int y, int i8, int j8, int w, int h, const int* wp,
+                    const int* abcd, int r0, int r1, int32_t* out) {
+        int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+        int last_x = ((f.UpW + sx) >> sx) - 1, last_y = ((f.H + sy) >> sy) - 1;
+        int src_x = (x + j8 * 8 + 4) << sx, src_y = (y + i8 * 8 + 4) << sy;
+        int64_t dst_x = int64_t(wp[2]) * src_x + int64_t(wp[3]) * src_y + wp[0];
+        int64_t dst_y = int64_t(wp[4]) * src_x + int64_t(wp[5]) * src_y + wp[1];
+        int64_t x4 = dst_x >> sx, y4 = dst_y >> sy;
+        int ix4 = int(x4 >> 16), sx4 = int(x4 & 0xffff) & ~63;
+        int iy4 = int(y4 >> 16), sy4 = int(y4 & 0xffff) & ~63;
+        int inter[15][8];
+        for (int i1 = -7; i1 < 8; i1++) {
+            const pixel* row = &ref.px[size_t(clip3(0, last_y, iy4 + i1)) * ref.stride];
+            for (int i2 = -4; i2 < 4; i2++) {
+                int sxv = sx4 + abcd[0] * i2 + abcd[1] * i1;
+                const int16_t* wf = av1_warped_filters[round2(sxv, 10) + 64];
+                int s = 0;
+                for (int t = 0; t < 8; t++) s += wf[t] * row[clip3(0, last_x, ix4 + i2 - 3 + t)];
+                inter[i1 + 7][i2 + 4] = round2(s, r0);
+            }
+        }
+        for (int i1 = -4; i1 < imin(4, h - i8 * 8 - 4); i1++)
+            for (int i2 = -4; i2 < imin(4, w - j8 * 8 - 4); i2++) {
+                int syv = sy4 + abcd[2] * i2 + abcd[3] * i1;
+                const int16_t* wf = av1_warped_filters[round2(syv, 10) + 64];
+                int64_t s = 0;
+                for (int t = 0; t < 8; t++) s += int64_t(wf[t]) * inter[i1 + t + 4][i2 + 4];
+                out[(i8 * 8 + i1 + 4) * w + j8 * 8 + i2 + 4] = round2(s, r1);
+            }
+    }
+
+    const Plane& ref_plane(int ref, int p) const { return f.refs[f.ref_frame_idx[ref - 1]].px->p[p]; }
+
+    // the wedge masks of a block size (7.11.3.11), built once
+    struct Wedges {
+        std::vector<uint8_t> m[22][2][16];
+        Wedges() {
+            static uint8_t master[6][64][64];
+            for (int j = 0; j < 64; j++) {
+                int shift = 16;
+                for (int i = 0; i < 64; i += 2) {
+                    master[3][i][j] = av1_wedge_master[1][clip3(0, 63, j - shift)];  // OBLIQUE63, even
+                    shift--;
+                    master[3][i + 1][j] = av1_wedge_master[0][clip3(0, 63, j - shift)];
+                    master[1][i][j] = av1_wedge_master[2][j];  // VERTICAL
+                    master[1][i + 1][j] = av1_wedge_master[2][j];
+                }
+            }
+            for (int i = 0; i < 64; i++)
+                for (int j = 0; j < 64; j++) {
+                    int msk = master[3][i][j];
+                    master[2][j][i] = uint8_t(msk);               // OBLIQUE27
+                    master[4][i][63 - j] = uint8_t(64 - msk);     // OBLIQUE117
+                    master[5][63 - j][i] = uint8_t(64 - msk);     // OBLIQUE153
+                    master[0][j][i] = master[1][i][j];            // HORIZONTAL
+                }
+            for (int b = 0; b < 22; b++) {
+                if (!kWedgeBits[b]) continue;
+                int w = kBw[b], h = kBh[b];
+                int shape = h > w ? 0 : h < w ? 1 : 2;
+                for (int k = 0; k < 16; k++) {
+                    const uint8_t* cb = av1_wedge_codebook[shape][k];
+                    int dir = cb[0];
+                    int xoff = 32 - ((cb[1] * w) >> 3), yoff = 32 - ((cb[2] * h) >> 3);
+                    int sum = 0;
+                    for (int i = 0; i < w; i++) sum += master[dir][yoff][xoff + i];
+                    for (int i = 1; i < h; i++) sum += master[dir][yoff + i][xoff];
+                    int avg = (sum + (w + h - 1) / 2) / (w + h - 1);
+                    int flip = avg < 32;
+                    m[b][flip][k].resize(size_t(w) * h);
+                    m[b][!flip][k].resize(size_t(w) * h);
+                    for (int i = 0; i < h; i++)
+                        for (int j = 0; j < w; j++) {
+                            m[b][flip][k][i * w + j] = master[dir][yoff + i][xoff + j];
+                            m[b][!flip][k][i * w + j] = uint8_t(64 - master[dir][yoff + i][xoff + j]);
+                        }
+                }
+            }
+        }
+    };
+    static const Wedges& wedges() { static const Wedges w; return w; }
+
+    void predict_inter_block() {
+        int sb_mask = f.use128 ? 31 : 15;
+        int sbr = mi_row & sb_mask, sbc = mi_col & sb_mask;
+        if (motion_mode == LOCALWARP) warp_estimation();
+        for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
+            int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+            int psz = residual_size(mi_sz, p);
+            int n4w = kBw[psz] >> 2, n4h = kBh[psz] >> 2;
+            int bx = (mi_col >> sx) * 4, by = (mi_row >> sy) * 4;
+            int cand_r = (mi_row >> sy) << sy, cand_c = (mi_col >> sx) << sx;
+            if (ref_frame[1] == INTRA_FRAME) {
+                static const int ii_modes[4] = {DC_PRED, V_PRED, H_PRED, SMOOTH_PRED};
+                bool have_ar = block_decoded[p][(sbr >> sy) - 1 + 1][(sbc >> sx) + n4w + 1];
+                bool have_bl = block_decoded[p][(sbr >> sy) + n4h + 1][(sbc >> sx) - 1 + 1];
+                predict_intra(p, bx, by, p == 0 ? avail_l : avail_l_chroma,
+                              p == 0 ? avail_u : avail_u_chroma, have_ar, have_bl,
+                              ii_modes[interintra_mode], 2 + mi_wlog2(psz), 2 + mi_hlog2(psz));
+            }
+            int pw = kBw[mi_sz] >> sx, ph = kBh[mi_sz] >> sy;
+            bool some_intra = false;
+            for (int r = 0; r < (n4h << sy); r++)
+                for (int c = 0; c < (n4w << sx); c++)
+                    if (mi_ref(cand_r + r, cand_c + c, 0) == INTRA_FRAME) some_intra = true;
+            if (some_intra) {
+                pw = n4w * 4;
+                ph = n4h * 4;
+                cand_r = mi_row;
+                cand_c = mi_col;
+            }
+            f.stats[STAT_SUB8X8] += pw < n4w * 4 || ph < n4h * 4;
+            for (int y = 0, r = 0; y < n4h * 4; y += ph, r++)
+                for (int x = 0, c = 0; x < n4w * 4; x += pw, c++)
+                    predict_inter(p, bx + x, by + y, pw, ph, cand_r + r, cand_c + c);
+        }
+    }
+
+    void predict_inter(int p, int x, int y, int w, int h, int cand_r, int cand_c) {
+        static thread_local int32_t preds[2][128 * 128];
+        bool comp = mi_ref(cand_r, cand_c, 1) > INTRA_FRAME;
+        int r0 = f.bitdepth == 12 ? 5 : 3, r1 = comp ? 7 : (f.bitdepth == 12 ? 9 : 11);
+        int post = 14 - r0 - r1;
+        bool global_mode = ymode == GLOBALMV || ymode == GLOBAL_GLOBALMV;
+        for (int list = 0; list < 1 + comp; list++) {
+            int ref = mi_ref(cand_r, cand_c, list);
+            const Plane& rp = ref_plane(ref, p);
+            int abcd[4];
+            int use_warp = 0;
+            if (w < 8 || h < 8 || f.force_integer_mv) use_warp = 0;
+            else if (motion_mode == LOCALWARP && local_valid) use_warp = 1;
+            else if (global_mode && f.gm_type[ref] > GM_TRANSLATION && setup_shear(f.gm[ref], abcd)) use_warp = 2;
+            if (use_warp) {
+                const int* wp = use_warp == 1 ? local_wp : f.gm[ref];
+                const int* ab = use_warp == 1 ? local_abcd : abcd;
+                for (int i8 = 0; i8 <= (h - 1) >> 3; i8++)
+                    for (int j8 = 0; j8 <= (w - 1) >> 3; j8++)
+                        block_warp(rp, p, x, y, i8, j8, w, h, wp, ab, r0, r1, preds[list]);
+                if (p == 0) f.stats[use_warp == 1 ? STAT_LOCALWARP : STAT_GLOBALWARP]++;
+            } else {
+                block_inter(rp, p, x, y, w, h, mi_mv(cand_r, cand_c, list), cand_r, cand_c, r0, r1,
+                            preds[list]);
+            }
+        }
+        bool ii = ref_frame[1] == INTRA_FRAME;
+        if (compound_type == COMPOUND_WEDGE && p == 0) {
+            const std::vector<uint8_t>& m = wedges().m[mi_sz][wedge_sign][wedge_index];
+            memcpy(mask_, m.data(), m.size());
+            mask_stride = kBw[mi_sz];
+        } else if (compound_type == COMPOUND_INTRA) {
+            int scale = 128 / imax(h, w);
+            for (int i = 0; i < h; i++)
+                for (int j = 0; j < w; j++) {
+                    int v = 32;
+                    if (interintra_mode == 1) v = av1_ii_weights[i * scale];
+                    else if (interintra_mode == 2) v = av1_ii_weights[j * scale];
+                    else if (interintra_mode == 3) v = av1_ii_weights[imin(i, j) * scale];
+                    mask_[i * w + j] = uint8_t(v);
+                }
+            mask_stride = w;
+        } else if (compound_type == COMPOUND_DIFFWTD && p == 0) {
+            int sh = (f.bitdepth - 8) + post;
+            for (int i = 0; i < h; i++)
+                for (int j = 0; j < w; j++) {
+                    int diff = round2(abs(preds[0][i * w + j] - preds[1][i * w + j]), sh);
+                    int m = clip3(0, 64, 38 + diff / 16);
+                    mask_[i * w + j] = uint8_t(mask_type ? 64 - m : m);
+                }
+            mask_stride = w;
+        }
+        Plane& pl = f.plane[p];
+        const int maxv = (1 << f.bitdepth) - 1;
+        if (!comp && !ii) {
+            for (int i = 0; i < h; i++) {
+                pixel* d = pl.at(y + i, x);
+                for (int j = 0; j < w; j++) d[j] = pixel(clip3(0, maxv, preds[0][i * w + j]));
+            }
+        } else if (comp && compound_type == COMPOUND_AVERAGE) {
+            for (int i = 0; i < h; i++) {
+                pixel* d = pl.at(y + i, x);
+                for (int j = 0; j < w; j++)
+                    d[j] = pixel(clip3(0, maxv, round2(preds[0][i * w + j] + preds[1][i * w + j], 1 + post)));
+            }
+        } else if (comp && compound_type == COMPOUND_DISTANCE) {
+            distance_weights(cand_r, cand_c);
+            for (int i = 0; i < h; i++) {
+                pixel* d = pl.at(y + i, x);
+                for (int j = 0; j < w; j++)
+                    d[j] = pixel(clip3(0, maxv, round2(int64_t(fwd_weight) * preds[0][i * w + j] +
+                                                           int64_t(bck_weight) * preds[1][i * w + j], 4 + post)));
+            }
+        } else {
+            int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+            const uint8_t* mk = mask_;
+            int ms = mask_stride;
+            bool full = (!sx && !sy) || (ii && !wedge_interintra);
+            for (int i = 0; i < h; i++) {
+                pixel* d = pl.at(y + i, x);
+                for (int j = 0; j < w; j++) {
+                    int m;
+                    if (full) m = mk[i * ms + j];
+                    else if (sx && !sy) m = round2(mk[i * ms + 2 * j] + mk[i * ms + 2 * j + 1], 1);
+                    else if (!sx && sy) m = round2(mk[2 * i * ms + j] + mk[(2 * i + 1) * ms + j], 1);
+                    else
+                        m = round2(mk[2 * i * ms + 2 * j] + mk[2 * i * ms + 2 * j + 1] +
+                                   mk[(2 * i + 1) * ms + 2 * j] + mk[(2 * i + 1) * ms + 2 * j + 1], 2);
+                    if (ii) {
+                        int p0 = clip3(0, maxv, round2(preds[0][i * w + j], post));
+                        d[j] = pixel(round2(m * int(d[j]) + (64 - m) * p0, 6));
+                    } else {
+                        d[j] = pixel(clip3(0, maxv, round2(int64_t(m) * preds[0][i * w + j] +
+                                                               int64_t(64 - m) * preds[1][i * w + j], 6 + post)));
+                    }
+                }
+            }
+        }
+        if (motion_mode == OBMC) overlapped_mc(p, w, h);
+    }
+
+    void distance_weights(int cand_r, int cand_c) {
+        int dist[2];
+        for (int list = 0; list < 2; list++) {
+            int hnt = f.order_hints[mi_ref(cand_r, cand_c, list)];
+            dist[list] = clip3(0, 31, abs(f.rel_dist(hnt, f.order_hint)));
+        }
+        int d0 = dist[1], d1 = dist[0];
+        int order = d0 <= d1;
+        if (d0 == 0 || d1 == 0) {
+            fwd_weight = av1_quant_dist[1][3][order];
+            bck_weight = av1_quant_dist[1][3][1 - order];
+            return;
+        }
+        int i;
+        for (i = 0; i < 3; i++) {
+            int c0 = av1_quant_dist[0][i][order], c1 = av1_quant_dist[0][i][!order];
+            if (order ? d0 * c0 > d1 * c1 : d0 * c0 < d1 * c1) break;
+        }
+        fwd_weight = av1_quant_dist[1][i][order];
+        bck_weight = av1_quant_dist[1][i][1 - order];
+    }
+
+    // overlapped motion compensation (7.11.3.10): the predictions of the
+    // blocks above and to the left blended into the block's edge
+    void overlap(int p, int cand_r, int cand_c, int x4, int y4, int pw, int ph, const uint8_t* mask,
+                 bool above) {
+        static thread_local int32_t op[128 * 128];
+        int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+        int px = (x4 * 4) >> sx, py = (y4 * 4) >> sy;
+        int r0 = f.bitdepth == 12 ? 5 : 3, r1 = f.bitdepth == 12 ? 9 : 11;
+        block_inter(ref_plane(mi_ref(cand_r, cand_c, 0), p), p, px, py, pw, ph, mi_mv(cand_r, cand_c, 0),
+                    cand_r, cand_c, r0, r1, op);
+        const int maxv = (1 << f.bitdepth) - 1;
+        Plane& pl = f.plane[p];
+        for (int i = 0; i < ph; i++) {
+            pixel* d = pl.at(py + i, px);
+            for (int j = 0; j < pw; j++) {
+                int m = above ? mask[i] : mask[j];
+                int o = clip3(0, maxv, op[i * pw + j]);
+                d[j] = pixel(round2(m * int(d[j]) + (64 - m) * o, 6));
+            }
+        }
+    }
+    void overlapped_mc(int p, int w, int h) {
+        int sx = p ? f.ssx : 0, sy = p ? f.ssy : 0;
+        if (p == 0) f.stats[STAT_OBMC]++;
+        if (avail_u && residual_size(mi_sz, p) >= BLOCK_8X8) {
+            int count = 0, limit = imin(4, mi_wlog2(mi_sz));
+            for (int x4 = mi_col; count < limit && x4 < imin(f.MiCols, mi_col + bw4);) {
+                int cr = mi_row - 1, cc = x4 | 1;
+                int step = clip3(2, 16, kBw[f.mi_size[f.mi(cr, cc)]] >> 2);
+                if (mi_ref(cr, cc, 0) > INTRA_FRAME) {
+                    count++;
+                    int pw = imin(w, (step * 4) >> sx), ph = imin(h >> 1, 32 >> sy);
+                    overlap(p, cr, cc, x4, mi_row, pw, ph, &av1_obmc_masks[ph], true);
+                }
+                x4 += step;
+            }
+        }
+        if (avail_l) {
+            int count = 0, limit = imin(4, mi_hlog2(mi_sz));
+            for (int y4 = mi_row; count < limit && y4 < imin(f.MiRows, mi_row + bh4);) {
+                int cc = mi_col - 1, cr = y4 | 1;
+                int step = clip3(2, 16, kBh[f.mi_size[f.mi(cr, cc)]] >> 2);
+                if (mi_ref(cr, cc, 0) > INTRA_FRAME) {
+                    count++;
+                    int pw = imin(w >> 1, 32 >> sx), ph = imin(h, (step * 4) >> sy);
+                    overlap(p, cr, cc, mi_col, y4, pw, ph, &av1_obmc_masks[pw], false);
+                }
+                y4 += step;
+            }
+        }
+    }
+
     // ---- segment ids (5.11.9): predicted from the above, left and
     // above-left blocks; read where the block is not skipped
     static int neg_deinterleave(int diff, int ref, int max) {
@@ -1872,7 +3734,11 @@ struct Decoder::Tile {
                   : (ul == u || ul == l || u == l) ? 1 : 0;
         int diff = sd.read(cdf.seg_id[ctx], 8);
         int id = neg_deinterleave(diff, pred, f.last_active_seg + 1);
-        seg_id = id < 0 || id > f.last_active_seg ? 0 : id;  // dav1d's, where the spec clamps
+        // dav1d's, where the spec clamps: an id past LastActiveSegId is 0;
+        // with no feature on (LastActiveSegId -1, unsigned there) the coded
+        // id stands where the prediction is 0
+        if (f.last_active_seg < 0) seg_id = pred == 0 ? diff : 0;
+        else seg_id = id < 0 || id > f.last_active_seg ? 0 : id;
     }
 
     // ---- delta q and delta lf, read at a superblock's first block unless
@@ -2158,7 +4024,7 @@ struct Decoder::Tile {
     void add_candidate(int r, int c, int weight) {
         int i = f.mi(r, c);
         if (!f.is_inter_[i]) return;
-        int mr = f.mvs[2 * size_t(i)], mc = f.mvs[2 * size_t(i) + 1];
+        int mr = f.mvs[4 * size_t(i)], mc = f.mvs[4 * size_t(i) + 1];
         for (int k = 0; k < nmv; k++)
             if (stk[k][0] == mr && stk[k][1] == mc) { wgt[k] += weight; return; }
         if (nmv < 8) {
@@ -2341,7 +4207,7 @@ struct Decoder::Tile {
         for (int cy = 0; cy < hchunks; cy++)
             for (int cx = 0; cx < wchunks; cx++) {
                 for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
-                    if (use_intrabc && !lossless && p == 0) {
+                    if (is_inter && !lossless && p == 0) {
                         // the chunk's largest transforms, each down its tree
                         int t = max_tx_rect(mi_sz), tw4 = kTw[t] >> 2, th4 = kTh[t] >> 2;
                         for (int y = cy * 16; y < imin(bh4, cy * 16 + 16); y += th4)
@@ -2383,8 +4249,8 @@ struct Decoder::Tile {
         int stepx = kTw[t] >> 2, stepy = kTh[t] >> 2;
         int max_x = (f.MiCols * 4) >> sx, max_y = (f.MiRows * 4) >> sy;
         if (start_x >= max_x || start_y >= max_y) return;
-        if (use_intrabc) {
-            // predicted with the block (predict_intrabc)
+        if (is_inter) {
+            // predicted with the block (predict_intrabc, predict_inter_block)
         } else if ((p == 0 && pal_size_y) || (p != 0 && pal_size_uv)) {
             predict_palette(p, start_x, start_y, x, y, t);
         } else {
@@ -2731,7 +4597,7 @@ struct Decoder::Tile {
     int tx_set(int t) {
         int sq = tx_sqr(t), up = tx_sqr_up(t);
         if (up > TX_32X32) return 0;
-        if (use_intrabc) {
+        if (is_inter) {
             if (f.reduced_tx_set || up == TX_32X32) return 3;
             return sq == TX_16X16 ? 2 : 1;
         }
@@ -2754,7 +4620,7 @@ struct Decoder::Tile {
             {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
             {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0},
             {1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
-        if (use_intrabc) {  // the co-located luma transform's type
+        if (is_inter) {  // the co-located luma transform's type
             int tt = f.tx_type[f.mi(imax(mi_row, y4 << f.ssy), imax(mi_col, x4 << f.ssx))];
             return in_inter_set[set][tt] ? tt : DCT_DCT;
         }
@@ -2861,7 +4727,7 @@ struct Decoder::Tile {
                 int set = tx_set(t);
                 if (set > 0 && f.seg_qindex(seg_id, f.base_q_idx) > 0) {
                     int sq = tx_sqr(t);
-                    if (use_intrabc) {
+                    if (is_inter) {
                         if (set == 1) tt = kTxTypeInterInvSet1[sd.read(cdf.inter_tx_set1[sq], 16)];
                         else if (set == 2) tt = kTxTypeInterInvSet2[sd.read(cdf.inter_tx_set2, 12)];
                         else tt = sd.read(cdf.inter_tx_set3[sq], 2) ? DCT_DCT : IDTX;
@@ -3127,10 +4993,16 @@ void Decoder::edge_filter(int p, int pass, int row, int col) {
     int prev_row = row - (dy << sy), prev_col = col - (dx << sx);
     int t = lf_tx_size[p][size_t(row >> sy) * lf_stride[p] + (col >> sx)];
     int prev_t = lf_tx_size[p][size_t(prev_row >> sy) * lf_stride[p] + (prev_col >> sx)];
-    // every block is intra (a frame with intra block copies is not
-    // deblocked), so every transform edge is filtered, block edge or not,
-    // skipped or not
+    // a transform edge is filtered where it is a block edge, or the block
+    // is coded or intra (a skipped inter block has no inner transform
+    // edges; a frame with intra block copies is not deblocked)
     bool apply = pass == 0 ? (xp % kTw[t] == 0) : (yp % kTh[t] == 0);
+    int bi = mi(row, col);
+    if (apply && skip_[bi] && is_inter_[bi]) {
+        int b = mi_size[bi];
+        int pbw = imax(4, kBw[b] >> sx), pbh = imax(4, kBh[b] >> sy);
+        apply = pass == 0 ? xp % pbw == 0 : yp % pbh == 0;
+    }
     int base_size = pass == 0 ? imin(kTw[prev_t], kTw[t]) : imin(kTh[prev_t], kTh[t]);
     int filter_size = p == 0 ? imin(16, base_size) : imin(8, base_size);
     // the block's level, else the level of the block before the edge
@@ -3384,7 +5256,7 @@ void Decoder::loop_restoration(const Plane* pre) {
     for (int p = 0; p < num_planes; p++) {
         if (lr_type[p] == RESTORE_NONE) continue;
         int sx = p ? ssx : 0, sy = p ? ssy : 0;
-        int pw = round2(W, sx), ph = round2(H, sy);
+        int pw = round2(UpW, sx), ph = round2(H, sy);
         int unit = lr_unit_size[p];
         const int maxv = (1 << bitdepth) - 1;
         Plane out = plane[p];
@@ -3514,8 +5386,8 @@ void Decoder::loop_restoration(const Plane* pre) {
 // position, samples past the frame's 4x4 grid clamped to its edge; after
 // CDEF, before loop restoration and film grain
 
-void Decoder::superres_upscale() {
-    if (!use_superres) return;
+void Decoder::superres_upscale(Plane* planes) {
+    if (W == UpW) return;  // (dav1d's: superres at a width it leaves as it is)
     const int maxv = (1 << bitdepth) - 1;
     for (int p = 0; p < num_planes; p++) {
         int sx = p ? ssx : 0, sy = p ? ssy : 0;
@@ -3529,7 +5401,7 @@ void Decoder::superres_upscale() {
         out.rows = h;
         out.px.assign(size_t(out.stride) * out.rows, 0);
         for (int y = 0; y < h; y++) {
-            const pixel* src = plane[p].at(y, 0);
+            const pixel* src = planes[p].at(y, 0);
             pixel* dst = out.at(y, 0);
             int mx = x0, src_x = -1;
             for (int x = 0; x < out_w; x++) {
@@ -3542,7 +5414,7 @@ void Decoder::superres_upscale() {
                 mx &= 0x3fff;
             }
         }
-        plane[p] = std::move(out);
+        planes[p] = std::move(out);
     }
 }
 
@@ -3741,6 +5613,126 @@ void Decoder::film_grain(pixel* const out[3]) {
             }
 }
 
+// ---- the motion field of the references (7.9; the projection sources
+// counted as aom counts them)
+bool Decoder::projection(int src, int dst_sign) {
+    const RefSlot& s = refs[ref_frame_idx[src - LAST_FRAME]];
+    if (!s.mf || s.mi_rows != MiRows || s.mi_cols != MiCols) return false;
+    int w8 = MiCols >> 1, h8 = MiRows >> 1;
+    int ref_to_cur = rel_dist(order_hints[src], order_hint);
+    int offs[8] = {0};
+    for (int r = LAST_FRAME; r <= ALTREF_FRAME; r++) offs[r] = rel_dist(order_hints[src], s.saved_order_hints[r]);
+    int num = clip3(-31, 31, ref_to_cur * dst_sign);
+    for (int y8 = 0; y8 < h8; y8++)
+        for (int x8 = 0; x8 < w8; x8++) {
+            size_t k = size_t(y8) * w8 + x8;
+            int ref = s.mf->ref[k];
+            if (ref <= INTRA_FRAME) continue;
+            int off = offs[ref];
+            if (!(abs(ref_to_cur) <= 31 && abs(off) <= 31 && off > 0)) continue;
+            int proj[2];
+            for (int i = 0; i < 2; i++) {
+                int64_t v = int64_t(s.mf->mv[2 * k + i]) * num * av1_div_mult[imin(off, 31)];
+                int64_t rr = v >= 0 ? (v + 8192) >> 14 : -((-v + 8192) >> 14);
+                proj[i] = clip3(-(1 << 14) + 1, (1 << 14) - 1, int(rr));
+            }
+            int pos[2], v8[2] = {y8, x8}, max8[2] = {h8, w8}, maxoff[2] = {0, 8};
+            bool valid = true;
+            for (int i = 0; i < 2; i++) {
+                int base8 = (v8[i] >> 3) << 3;
+                int o8 = proj[i] >= 0 ? proj[i] >> 6 : -((-proj[i]) >> 6);
+                int v = v8[i] + dst_sign * o8;
+                if (v < 0 || v >= max8[i] || v < base8 - maxoff[i] || v >= base8 + 8 + maxoff[i]) valid = false;
+                pos[i] = v;
+            }
+            if (!valid) continue;
+            size_t t = size_t(pos[0]) * w8 + pos[1];
+            tpl_mv[2 * t] = s.mf->mv[2 * k];
+            tpl_mv[2 * t + 1] = s.mf->mv[2 * k + 1];
+            tpl_off[t] = int8_t(off);
+        }
+    return true;
+}
+
+void Decoder::motion_field_estimation() {
+    size_t n8 = size_t(MiCols >> 1) * (MiRows >> 1);
+    tpl_mv.assign(2 * n8, 0);
+    tpl_off.assign(n8, 0);
+    const RefSlot& last = refs[ref_frame_idx[0]];
+    if (last.saved_order_hints[ALTREF_FRAME] != order_hints[GOLDEN_FRAME]) projection(LAST_FRAME, -1);
+    int stamp = 1;
+    if (rel_dist(order_hints[BWDREF_FRAME], order_hint) > 0 && projection(BWDREF_FRAME, 1)) stamp--;
+    if (rel_dist(order_hints[ALTREF2_FRAME], order_hint) > 0 && projection(ALTREF2_FRAME, 1)) stamp--;
+    if (rel_dist(order_hints[ALTREF_FRAME], order_hint) > 0 && stamp >= 0 && projection(ALTREF_FRAME, 1))
+        stamp--;
+    if (stamp >= 0) projection(LAST2_FRAME, -1);
+}
+
+void Decoder::finish_frame() {
+    stats[STAT_FRAMES]++;
+    stats[STAT_INTRA_ONLY] += frame_type == INTRA_ONLY_FRAME;
+    RefSlot s;
+    s.valid = true;
+    s.order_hint = order_hint;
+    s.upw = UpW;
+    s.h = H;
+    s.ssx = ssx;
+    s.ssy = ssy;
+    s.mono = mono;
+    s.bitdepth = bitdepth;
+    s.mi_cols = MiCols;
+    s.mi_rows = MiRows;
+    s.showable = showable_frame;
+    memcpy(s.saved_order_hints, order_hints, sizeof order_hints);
+    memcpy(s.gm, gm, sizeof gm);
+    memcpy(s.lf_ref_deltas, lf_ref_deltas, sizeof lf_ref_deltas);
+    memcpy(s.lf_mode_deltas, lf_mode_deltas, sizeof lf_mode_deltas);
+    memcpy(s.seg_feature, seg_feature, sizeof seg_feature);
+    memcpy(s.seg_data, seg_data, sizeof seg_data);
+    s.fg = fg;
+    out_px.reset();
+    if (!header_only) {
+        loop_filter();
+        Plane pre_cdef[3];
+        if (uses_lr)
+            for (int p = 0; p < num_planes; p++) pre_cdef[p] = plane[p];
+        cdef();
+        superres_upscale(plane);
+        if (uses_lr) superres_upscale(pre_cdef);
+        loop_restoration(pre_cdef);
+        out_px = std::make_shared<Pixels>();
+        for (int p = 0; p < num_planes; p++) out_px->p[p] = std::move(plane[p]);
+        s.px = out_px;
+        s.cdfs = std::make_shared<Cdfs>(disable_frame_end_update_cdf ? frame_cdfs : end_cdfs);
+        s.cdfs->clear_counts();
+        s.seg_map = std::make_shared<std::vector<uint8_t>>(seg_ids);
+        if (!frame_is_intra) {
+            // the motion field (7.19): each 8x8 block's bottom-right 4x4,
+            // a vector to a reference before the frame, up to 2^12 - 1
+            auto mf = std::make_shared<MotionField>();
+            int w8 = MiCols >> 1, h8 = MiRows >> 1;
+            mf->ref.assign(size_t(w8) * h8, 0);
+            mf->mv.assign(size_t(w8) * h8 * 2, 0);
+            for (int y8 = 0; y8 < h8; y8++)
+                for (int x8 = 0; x8 < w8; x8++) {
+                    size_t i = size_t(mi(2 * y8 + 1, 2 * x8 + 1)), k = size_t(y8) * w8 + x8;
+                    for (int list = 0; list < 2; list++) {
+                        int r = ref_frames[2 * i + list];
+                        if (r <= INTRA_FRAME || rel_dist(order_hints[r], order_hint) >= 0) continue;
+                        int mr = mvs[4 * i + 2 * list], mc = mvs[4 * i + 2 * list + 1];
+                        if (abs(mr) > 4095 || abs(mc) > 4095) continue;
+                        mf->ref[k] = int8_t(r);
+                        mf->mv[2 * k] = int16_t(mr);
+                        mf->mv[2 * k + 1] = int16_t(mc);
+                    }
+                }
+            s.mf = mf;
+        }
+    }
+    for (int i = 0; i < 8; i++)
+        if ((refresh_frame_flags >> i) & 1) refs[i] = s;
+}
+
 // ---------------------------------------------------------------------------
 // OBU walk
 
@@ -3774,6 +5766,7 @@ struct Obus {
             case 1: {
                 BitReader br(body, size);
                 later = Decoder();
+                later.refs_enabled = false;
                 later.parse_sequence_header(br);
                 br.trailing_bit();
                 break;
@@ -3781,17 +5774,10 @@ struct Obus {
             case 3: case 6: case 7: {
                 if (!later.have_seq) fail("an AV1 frame header without a sequence header");
                 if (!later.reduced && size && (body[0] & 0x80)) {
-                    // show_existing_frame: of the hidden key frame, it shows it
-                    // (with its film grain, load_grain_params)
                     BitReader br(body, size);
                     br.f(1);
-                    int idx = later.parse_show_existing(br);
+                    later.parse_show_existing(br);
                     if (type != 6) br.trailing_bit();
-                    if (!dec.show_frame && !dec.shown_existing) {
-                        if (!dec.showable_frame || !((dec.refresh_frame_flags >> idx) & 1))
-                            fail("show_existing_frame of AV1 slot %d, which holds no showable frame", idx);
-                        dec.shown_existing = 1;
-                    }
                     later_frame = false;
                     break;
                 }
@@ -3838,7 +5824,34 @@ struct Obus {
         }
     }
 
+    // the frame the sample shows: its planes (null while probing), size,
+    // film grain; whether the first frame was hidden; frames parsed
+    std::shared_ptr<Pixels> out_px;
+    FilmGrain out_fg;
+    int out_w = 0, out_h = 0, frames = 0, key_frames_only = 1;
+    bool first_hidden = false, skip_tiles = false;
+
+    void shown(int idx) {
+        frame_done = true;
+        if (idx >= 0) {
+            const RefSlot& s = dec.refs[idx];
+            out_px = s.px;
+            out_fg = s.fg;
+            out_w = s.upw;
+            out_h = s.h;
+        } else {
+            out_px = dec.out_px;
+            out_fg = dec.fg;
+            out_w = dec.UpW;
+            out_h = dec.H;
+        }
+        BitReader br(seq_obu, seq_size);  // its sequence header reads the OBUs that follow
+        later.refs_enabled = false;
+        later.parse_sequence_header(br);
+    }
+
     void run(const uint8_t* d, size_t n, bool probe_only) {
+        dec.header_only = probe_only;
         size_t pos = 0;
         while (pos < n) {
             uint8_t h = d[pos++];
@@ -3872,8 +5885,13 @@ struct Obus {
             switch (type) {
                 case 1: {
                     BitReader br(body, size);
+                    bool had = dec.have_seq;
+                    std::vector<uint8_t> before = dec.seq_bits;
                     dec.parse_sequence_header(br);
                     br.trailing_bit();
+                    if (had && dec.seq_bits != before) dec.new_sequence();
+                    seq_obu = body;
+                    seq_size = size;
                     break;
                 }
                 case 5:
@@ -3884,10 +5902,33 @@ struct Obus {
                     [[fallthrough]];
                 case 3: case 6: {
                     if (dec.have_frame_header) fail("a second AV1 frame header before the frame's tiles");
+                    if (!dec.have_seq) fail("a frame header before any sequence header");
                     BitReader br(body, size);
+                    if (!dec.reduced && size && (body[0] & 0x80)) {
+                        // show_existing_frame: the slot's frame, with its film
+                        // grain (load_grain_params)
+                        br.f(1);
+                        int idx = dec.parse_show_existing(br);
+                        if (type != 6) br.trailing_bit();
+                        const RefSlot& s = dec.refs[idx];
+                        if (!s.valid || !s.showable)
+                            fail("show_existing_frame of AV1 slot %d, which holds no showable frame", idx);
+                        shown(idx);
+                        if (probe_only) return;
+                        break;
+                    }
                     dec.parse_frame_header(br, temporal_id, spatial_id);
                     if (type != 6) br.trailing_bit();
-                    if (probe_only) return;
+                    if (frames++ == 0) first_hidden = !dec.show_frame;
+                    key_frames_only &= dec.frame_type == KEY_FRAME;
+                    if (probe_only) {
+                        if (dec.show_frame) return;
+                        // a hidden frame: its slots, then the frames after it
+                        dec.finish_frame();
+                        dec.have_frame_header = false;
+                        skip_tiles = true;
+                        break;
+                    }
                     if (type == 6) {
                         br.byte_align();
                         size_t off = br.pos >> 3;
@@ -3897,25 +5938,32 @@ struct Obus {
                     break;
                 }
                 case 4:
-                    if (probe_only) fail("an AV1 tile group before its frame header");
+                    if (probe_only) {
+                        if (skip_tiles) break;
+                        fail("an AV1 tile group before its frame header");
+                    }
                     dec.parse_tile_group(body, size);
                     break;
                 case 2: case 8: case 15: default:
                     break;
             }
-            if (type == 1) { seq_obu = body; seq_size = size; }
-            if (dec.have_frame_header && dec.tiles_decoded == dec.tile_cols * dec.tile_rows) {
-                frame_done = true;
-                BitReader br(seq_obu, seq_size);  // its sequence header reads the OBUs that follow
-                later.parse_sequence_header(br);
+            if (!probe_only && dec.have_frame_header &&
+                dec.tiles_decoded == dec.tile_cols * dec.tile_rows) {
+                dec.finish_frame();
+                dec.have_frame_header = false;
+                if (dec.show_frame) shown(-1);
             }
         }
         if (!dec.have_seq) fail("no AV1 sequence header");
-        if (!dec.have_frame_header) fail("no AV1 frame header");
-        if (!probe_only && !frame_done)
+        if (!frames && !frame_done) fail("no AV1 frame header");
+        if (probe_only) return;
+        if (dec.have_frame_header)
             fail("AV1 frame data end after %d of %d tiles", dec.tiles_decoded, dec.tile_cols * dec.tile_rows);
-        if (!probe_only && !dec.show_frame && !dec.shown_existing)
-            unported("a hidden AV1 key frame that no show_existing_frame of its sample shows");
+        if (!frame_done) {
+            if (key_frames_only)
+                unported("a hidden AV1 key frame that no show_existing_frame of its sample shows");
+            unported("hidden AV1 frames that no shown frame of their sample follows");
+        }
     }
 };
 
@@ -3947,7 +5995,11 @@ extern "C" int akr_av1_probe(const uint8_t* data, int64_t size, int32_t* info, c
                          cdef_nonzero,
                          d.lr_type[0] | (d.lr_type[1] << 2) | (d.lr_type[2] << 4),
                          d.fg.apply, d.seg_enabled, d.delta_q_present, d.delta_lf_present,
-                         d.allow_intrabc, d.superres_denom, !d.show_frame};
+                         d.allow_intrabc, d.superres_denom, int(o.first_hidden)};
+        if (o.frame_done) {  // the shown frame's size (show_existing_frame: its slot's)
+            v[0] = o.out_w;
+            v[1] = o.out_h;
+        }
         memcpy(info, v, sizeof v);
         return 0;
     } catch (const std::exception& e) {
@@ -3986,21 +6038,17 @@ extern "C" int akr_av1_decode(const uint8_t* data, int64_t size, uint16_t* y, ui
                  "specification requires at a bit depth of %d (a non-conformant stream, on "
                  "which dav1d's x86 assembly gives pixels of its own)", d.bitdepth);
         }
-        d.loop_filter();
-        Plane pre_cdef[3];
-        if (d.uses_lr)
-            for (int p = 0; p < d.num_planes; p++) pre_cdef[p] = d.plane[p];
-        d.cdef();
-        d.superres_upscale();
-        d.loop_restoration(pre_cdef);
         if (stats) memcpy(stats, d.stats, sizeof d.stats);
         pixel* out[3] = {y, u, v};
+        d.UpW = o.out_w;
+        d.H = o.out_h;
         for (int p = 0; p < d.num_planes; p++) {
             int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
             int w = (d.UpW + sx) >> sx, h = (d.H + sy) >> sy;
             for (int r = 0; r < h; r++)
-                memcpy(out[p] + size_t(r) * w, d.plane[p].at(r, 0), sizeof(pixel) * size_t(w));
+                memcpy(out[p] + size_t(r) * w, o.out_px->p[p].at(r, 0), sizeof(pixel) * size_t(w));
         }
+        d.fg = o.out_fg;
         d.film_grain(out);
         if (stats) memcpy(stats, d.stats, sizeof d.stats);
         return 0;

@@ -342,10 +342,11 @@ Phases (each checks its results; any failure exits non-zero):
     loop restoration, and frame 0 of a two-frame ``aq-mode=1`` ``avis``
     sequence (153,394 bytes, segmented); header rewrites of them made here
     (``tools/av1_rewrite.py``): the speed-4 albedo at 10 and 12 bits and
-    the speed-6 one at superres 12/8 (3,072 wide), each file and decode
-    held to PIL's recorded read, each decode's median of 3; the config-3
-    CLI on a PNG of the 12-bit albedo's pixels and on that AVIF (frames
-    bit-equal, 6 tree closest launches each);
+    the speed-6 one at superres 12/8 (3,072 wide), and the committed
+    two-frame albedo sequence spliced into inter frame 0 (slice 26), each
+    file and decode held to PIL's recorded read, each decode's median of 3;
+    the config-3 CLI on a PNG of the inter-frame albedo's pixels and on
+    that AVIF (frames bit-equal, 6 tree closest launches each);
 55. the result: a JSON line of kernel records (the dense records on the
     captured fused rays; the any-hit records count phase 17's queries,
     phase 22's side probes and the BDPT and AO launches of phases 26-28;
@@ -3710,6 +3711,10 @@ ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
 # frame 0 of a two-frame avis sequence (the albedo, then its vertical flip) at
 # speed 6 with aq-mode=1: a segmented frame
 ALBEDO_AVIF_AQ = "albedo2048_q60_s6_aq1.avis.avif"
+# slice 26: the albedo's frame 0 decoded through an inter frame (the splice
+# of a two-frame sequence whose frame 1 is the albedo moved by (3, 5) and
+# half a pixel), made here from the committed sequence
+ALBEDO_AVIF_INTER_FRAME0 = "albedo2048_q60_s6_inter_frame0.avif"
 
 
 def avif_phase(card, traversal, cli_render):
@@ -3725,9 +3730,11 @@ def avif_phase(card, traversal, cli_render):
     (``tools/av1_rewrite.py``): the tools albedo at 10 and 12 bits and the
     speed-6 albedo at superres denominator 12 (3,072 wide), each file and
     decode held to the record of PIL's read (``AVIF_REWRITES``), each
-    decode's median of 3; and the config-3 CLI on a PNG of the 12-bit tools
-    albedo's decoded pixels and on that AVIF (frames bit-equal, 6 tree
-    closest launches each); returns the figures it logs."""
+    decode's median of 3; slice 26: the albedo's frame 0 spliced into an
+    inter frame (``tools/av1_rewrite.py``'s ``splice_frames``), held to
+    ``AVIF_REWRITES``, its decode's median of 3; and the config-3 CLI
+    on a PNG of that inter frame 0's decoded pixels and on that AVIF (frames
+    bit-equal, 6 tree closest launches each); returns the figures it logs."""
     import hashlib
 
     import numpy as np
@@ -3739,8 +3746,9 @@ def avif_phase(card, traversal, cli_render):
     t_phase = time.perf_counter()
     log(f"phase 54: AVIF decoding without PIL: the fixtures' digests, the 2048^2 albedos as "
         f"AVIF (speed 6; speed 4 with CDEF, quantizer matrices, film grain, loop restoration; "
-        f"a segmented aq-mode=1 sequence; the tools albedo at 10 and 12 bits, superres 12/8), "
-        f"the config-3 CLI on the 12-bit tools albedo [card: {card}]")
+        f"a segmented aq-mode=1 sequence; the tools albedo at 10 and 12 bits, superres 12/8; "
+        f"frame 0 through an inter frame), the config-3 CLI on the inter-frame albedo "
+        f"[card: {card}]")
     with open(os.path.join(AVIF_FIXTURES, "digests.json")) as f:
         digests = json.load(f)
     albedo, first_s = {}, {}
@@ -3811,13 +3819,14 @@ def avif_phase(card, traversal, cli_render):
         rec = json.load(f)
     t0 = time.perf_counter()
     rewrites = avif_rewrite_albedo_files(AVIF_FIXTURES)
-    log(f"  the slice-25 albedos rewritten from the committed files in "
+    log(f"  the slice-25 and slice-26 albedos rewritten from the committed files in "
         f"{time.perf_counter() - t0:.3f} s (host clock)")
     check(sorted(rewrites) == sorted(rec), f"rewrites {sorted(rewrites)}, recorded {sorted(rec)}")
-    deep_px = None
+    inter_px = None
     for fname, key in (("albedo2048_q60_s4_tools_10bit.avif", "avif_tools10_decode_s"),
                        ("albedo2048_q60_s4_tools_12bit.avif", "avif_tools12_decode_s"),
-                       ("albedo2048_q60_superres12.avif", "avif_superres12_decode_s")):
+                       ("albedo2048_q60_superres12.avif", "avif_superres12_decode_s"),
+                       (ALBEDO_AVIF_INTER_FRAME0, "avif_inter_decode_s")):
         data, want = rewrites[fname], rec[fname]
         file_digest = hashlib.sha256(data).hexdigest()
         check(file_digest == want["file_sha256"],
@@ -3842,16 +3851,16 @@ def avif_phase(card, traversal, cli_render):
             f"{info['superres_denom']}/8; SHA-256 equals PIL {want['pil']}'s; decode on the host, "
             f"median of 3: {med:.4f} s (runs {', '.join(f'{t:.4f}' for t in runs)}; "
             f"{med / base:.2f}x its 8-bit source's) [card: {card}]")
-        if fname.endswith("12bit.avif"):
-            deep_data, deep_px = data, px
+        if fname == ALBEDO_AVIF_INTER_FRAME0:
+            inter_data, inter_px = data, px
     frames, cli, _ = config3_cli_runs(
         card, traversal, cli_render,
-        {"albedo_avif.png": encode_png(deep_px), "albedo.avif": deep_data},
+        {"albedo_avif.png": encode_png(inter_px), "albedo.avif": inter_data},
         ("albedo_avif.png", "albedo.avif"), set())
     out.update(cli)
     check(np.array_equal(frames["albedo.avif"], frames["albedo_avif.png"]),
-          "the frame on the 12-bit AVIF albedo differs from the PNG route's of its pixels")
-    log("  the 12-bit tools AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
+          "the frame on the inter-frame AVIF albedo differs from the PNG route's of its pixels")
+    log("  the inter-frame AVIF albedo's frame is bit-equal to the PNG route's of its pixels")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 54: {out['phase_s']:.1f} s")
     return out

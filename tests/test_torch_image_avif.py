@@ -58,7 +58,8 @@ from tools.make_torch_port_image_fixtures import ALBEDO_AVIF, AVIF_OUT, pattern
 
 # a refusal naming a tool or form outside the port's AVIF reader
 OUT_OF_SCOPE = ("superres", "bit depth", "non-key", "hidden", "show_existing_frame",
-                "16-bit range")
+                "16-bit range", "no file made here holds", "switch frame", "scaled prediction",
+                "frame ids")
 
 
 def _save(px, **kw):
@@ -385,9 +386,9 @@ def test_drawn_files_use_every_tool_in_scope():
         data = _save(px, **kw)
         st = {}
         _, info = port_avif.avif_planes(data, "d", st)
-        for k, v in st.items():  # the slice-24 tools: tests/test_torch_image_avif_seg_ibc.py
+        for k in port_avif.STAT_NAMES:  # the slice-24 tools: tests/test_torch_image_avif_seg_ibc.py
             if k not in ("segmented_blocks", "delta_q_superblocks", "intrabc_blocks"):
-                seen[k] = seen.get(k, 0) + v
+                seen[k] = seen.get(k, 0) + st[k]
         flags |= {k for k in ("lossless", "screen_content") if info[k]}
         flags |= {"tiles"} if info["tile_cols"] * info["tile_rows"] > 1 else set()
     assert all(v > 0 for v in seen.values()), seen

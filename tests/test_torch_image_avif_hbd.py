@@ -29,9 +29,9 @@ bits), and what PIL refuses the port refuses:
   ``avifImageScale``;
 - superres at every denominator (9-16), odd widths among them;
 - the hidden key frame shown by ``show_existing_frame``;
-- the forms still refused, each named: a palette above 8 bits, superres
-  with loop restoration, a non-key shown frame, a hidden frame no header
-  shows, and a transform past its range at 10 and 12 bits;
+- the forms still refused, each named: a palette above 8 bits, a switch
+  frame, frame ids on an inter frame, a hidden frame no header shows, and
+  a transform past its range at 10 and 12 bits;
 - seeded corruption of the new fixtures.
 """
 
@@ -104,14 +104,15 @@ def test_rewriter_re_emits_every_header_bit_for_bit(name):
     assert s["bitdepth"] == port_avif.avif_frame_info(data)["bit_depth"]
 
 
-@pytest.mark.parametrize("form", ["screen_depth", "lr_superres", "screen_superres",
-                                  "sequence_superres", "still_hidden", "deep_deep",
-                                  "hidden_twice"])
+@pytest.mark.parametrize("form", ["screen_depth", "lr_superres", "lr_superres16",
+                                  "screen_superres", "sequence_superres", "still_hidden",
+                                  "deep_deep", "hidden_twice"])
 def test_rewriter_refuses_what_it_cannot_rewrite_soundly(form):
     call = {
         "screen_depth": lambda: rw.to_high_bitdepth(
             _fixture("avif_palette_screen_128x96.avif"), 10),
-        "lr_superres": lambda: rw.to_superres(_fixture("avif_lr_wiener_s1_444_96x72.avif"), 12),
+        "lr_superres": lambda: rw.to_superres(_fixture("albedo2048_q60_s4_tools.avif"), 12),
+        "lr_superres16": lambda: rw.to_superres(_fixture("albedo2048_q60_s4_tools.avif"), 16),
         "screen_superres": lambda: rw.to_superres(
             _fixture("avif_intrabc_screen_160x120.avif"), 12),
         "sequence_superres": lambda: rw.to_superres(_fixture("avis_aq1_s6_128x96.avif"), 12),
@@ -443,9 +444,6 @@ def _refused(form):
     if form in ("palette10", "palette12"):
         return _item_obus(rw.to_high_bitdepth(_fixture("avif_palette_screen_128x96.avif"),
                                               int(form[7:]), screen_content_ok=True))
-    if form == "superres_restoration":
-        return _item_obus(rw.to_superres(_fixture("avif_lr_wiener_s1_444_96x72.avif"), 16,
-                                         restoration_ok=True))
     if form == "hidden_not_shown":
         return _item_obus(_without_show_existing(_fixture("avis_hidden_aq1_s6_128x96.avif")))
     if form.startswith("overflow"):
@@ -456,7 +454,7 @@ def _refused(form):
 
 @pytest.mark.parametrize("form,words", [
     ("palette10", "palette at a bit depth of 10"), ("palette12", "palette at a bit depth of 12"),
-    ("superres_restoration", "superres with loop restoration"), ("non_key", "non-key"),
+    ("switch", "switch frame"), ("frame_ids", "frame ids"),
     ("hidden", "hidden"), ("hidden_not_shown", "hidden AV1 key frame that no show_existing"),
     ("overflow10", "range the specification requires at a bit depth of 10"),
     ("overflow12", "range the specification requires at a bit depth of 12")])

@@ -21,8 +21,8 @@ every plane dav1d's, and what PIL refuses the port refuses:
   ``avifImageScale`` through ctypes), and the nclx matrix 12 (kr, kb from
   the primaries) held to ``avifImageYUVToRGB``;
 - seeded corruption of the tool-bearing files; the forms still out of
-  scope (bit depths 10 and 12, superres, non-key and hidden frames) refused
-  naming them.
+  scope (palettes at 10 and 12 bits, switch frames, frame ids on an inter
+  frame, a hidden key frame no later frame may show) refused naming them.
 
 No 2048^2 file is decoded here (``tests/test_torch_image_avif.py`` holds
 every fixture to its digest, the 2048^2 albedos among them).
@@ -414,7 +414,10 @@ def _headers(form, width=64):
     s.f(16, width - 1)
     s.f(16, 63)
     if not reduced:
-        s.f(1, 0)   # frame ids
+        s.f(1, int(form == "frame_ids"))   # frame ids
+        if form == "frame_ids":
+            s.f(4, 5)   # delta_frame_id_length_minus_2
+            s.f(3, 2)   # additional_frame_id_length_minus_1
     s.f(3, 0)       # 64x64 superblocks, no filter intra or edge filter
     if not reduced:
         s.f(4, 0)
@@ -436,7 +439,7 @@ def _headers(form, width=64):
     f = _Bits()
     if not reduced:
         f.f(1, 0)                            # show_existing_frame
-        f.f(2, int(form == "non_key"))       # frame type
+        f.f(2, {"frame_ids": 1, "switch": 3}.get(form, 0))   # frame type
         f.f(1, int(form != "hidden"))        # show_frame
     f.f(2, 0)       # disable_cdf_update, allow_screen_content_tools
     if not reduced:
@@ -450,16 +453,12 @@ def _headers(form, width=64):
 
 def _out_of_scope(form):
     """The AV1 data of ``form``: crafted headers, or a header rewrite of a
-    fixture (``tools/av1_rewrite.py``): a palette at 10 or 12 bits, superres
-    with loop restoration."""
-    from tools.av1_rewrite import to_high_bitdepth, to_superres
+    fixture (``tools/av1_rewrite.py``): a palette at 10 or 12 bits."""
+    from tools.av1_rewrite import to_high_bitdepth
 
     if form in ("bit10", "bit12"):
         with open(os.path.join(AVIF_OUT, "avif_palette_screen_128x96.avif"), "rb") as f:
             data = to_high_bitdepth(f.read(), int(form[3:]), screen_content_ok=True)
-    elif form == "superres":
-        with open(os.path.join(AVIF_OUT, "avif_lr_wiener_s1_444_96x72.avif"), "rb") as f:
-            data = to_superres(f.read(), 16, restoration_ok=True)
     else:
         return _headers(form)
     c, item, _, _ = port_avif.parse(data)
@@ -468,8 +467,8 @@ def _out_of_scope(form):
 
 @pytest.mark.parametrize("form,words", [("bit10", "palette at a bit depth of 10"),
                                         ("bit12", "palette at a bit depth of 12"),
-                                        ("superres", "superres with loop restoration"),
-                                        ("non_key", "non-key"), ("hidden", "hidden")])
+                                        ("switch", "switch frame"),
+                                        ("frame_ids", "frame ids"), ("hidden", "hidden")])
 def test_forms_still_out_of_scope_are_refused_naming_them(form, words):
     with pytest.raises(ValueError, match=words) as e:
         port_avif._decode_planes(_out_of_scope(form), "x")

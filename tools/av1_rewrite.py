@@ -1,6 +1,7 @@
 """AV1 header rewrites of AVIF files: the forms of a stream that differ from
-an 8-bit key frame only in its uncompressed headers, made from the files of
-PIL's own writer (which makes 8-bit key frames only).
+PIL's own writer's files (8-bit key frames, and sequences whose samples
+hold one shown frame each) only in their uncompressed headers and in how
+their frame OBUs fall into samples.
 
 - ``to_high_bitdepth(data, 10 | 12)``: the sequence header's colour config
   at 10 bits (``high_bitdepth``; profiles 0, 1 and 2 keep theirs) or 12
@@ -16,24 +17,38 @@ PIL's own writer (which makes 8-bit key frames only).
   ``max_frame_width`` whose superres-downscaled width is the coded width
   (so ``MiCols`` and the tile layout stay), ``use_superres`` and
   ``coded_denom`` inserted in the key frame's header after its frame size,
-  the ``ispe`` widened to the upscaled width. Refused where the frame uses
-  loop restoration (whose units are counted on the upscaled width) or
-  allows screen content (whose ``allow_intrabc`` superres removes).
+  the ``ispe`` widened to the upscaled width. Refused where the frame
+  allows screen content (whose ``allow_intrabc`` superres removes), or
+  uses loop restoration whose units (counted on the upscaled width) a
+  superblock column reads in other numbers than without superres.
 - ``hide_key_frame(data)``: in sample 0 of an ``avis`` colour track, the
   key frame made hidden (``show_frame`` 0, ``showable_frame`` 1,
   ``error_resilient_mode`` 0, ``refresh_frame_flags`` 0xFF inserted) and
   an ``OBU_FRAME_HEADER`` with ``show_existing_frame`` 1 showing slot 0
   appended.
+- ``splice_frames(data, n)``: sample 0 of every track of an ``avis``
+  sequence (colour and alpha) made of its key frame, hidden, and the frame
+  OBUs of samples 1 to n - 1 (temporal delimiters and sequence headers
+  dropped), every frame but the last hidden (``showable_frame`` 1): the
+  sample's shown frame is the source's frame n - 1, decoded through inter
+  frames (and through the hidden frames an encoder codes ahead).
+- ``to_intra_only(data)``: sample 0's key frame hidden, then the same frame
+  again as an intra-only frame (``frame_type`` 2, ``error_resilient_mode``
+  0, ``refresh_frame_flags`` not 0xFF), whose tile data parses as the key
+  frame's.
 
-Each frame header is parsed bit by bit (key frames; the full and reduced
-sequence headers), re-emitted with its fields changed, re-aligned before
+Each frame header is parsed bit by bit (key frames, and with the reference
+slots followed through (``Slots``) intra-only and inter frames: the whole
+uncompressed header of spec 5.9; the full and reduced sequence headers),
+re-emitted with its fields changed, re-aligned before
 its tile group, and its OBU size rewritten; every AV1 payload of the file
 (``av01`` items in the ``mdat``, track samples) is rewritten and the
 ``iloc`` extents, ``stco`` / ``co64`` offsets and ``stsz`` sizes move with
 it. The standard library only.
 
-    from tools.av1_rewrite import to_high_bitdepth, to_superres, hide_key_frame
+    from tools.av1_rewrite import to_high_bitdepth, splice_frames
     ten = to_high_bitdepth(open("x.avif", "rb").read(), 10)
+    inter0 = splice_frames(open("seq.avif", "rb").read(), 2)
 """
 
 from __future__ import annotations
@@ -206,13 +221,15 @@ def parse_sequence_header(body):
     r.f(1, "enable_filter_intra")
     r.f(1, "enable_intra_edge_filter")
     s["enable_order_hint"], s["order_hint_bits"] = 0, 0
+    s["enable_warped_motion"] = s["enable_ref_frame_mvs"] = 0
     if s["reduced"]:
         s["force_sct"], s["force_imv"] = 2, 2
     else:
-        r.f(4, "inter_tools")
+        tools = r.f(4, "inter_tools")
+        s["enable_warped_motion"] = (tools >> 1) & 1
         s["enable_order_hint"] = r.f(1, "enable_order_hint")
         if s["enable_order_hint"]:
-            r.f(2, "jnt_comp_ref_frame_mvs")
+            s["enable_ref_frame_mvs"] = r.f(2, "jnt_comp_ref_frame_mvs") & 1
         s["force_sct"] = (2 if r.f(1, "seq_choose_screen_content_tools")
                           else r.f(1, "seq_force_screen_content_tools"))
         if s["force_sct"] > 0:
@@ -287,32 +304,71 @@ def _high_bitdepth_tokens(s, toks, depth):
 
 # -------------------------------------------------------- frame header -----
 
-def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
-    """(fields, field log, the bit position after the header) of a key
-    frame's uncompressed header (OBU_FRAME or OBU_FRAME_HEADER payload)."""
+class Slots:
+    """The reference slots of a stream, as far as the headers after them
+    read them: each slot's order hint, sizes (upscaled width, height,
+    render size) and segment q deltas (for CodedLossless)."""
+
+    def __init__(self):
+        self.slots = [None] * 8
+
+    def refresh(self, h):
+        for i in range(8):
+            if (h["refresh_frame_flags"] >> i) & 1:
+                self.slots[i] = {k: h[k] for k in ("order_hint", "width", "height", "render",
+                                                   "alt_q", "alt_q_on")}
+
+
+def _rel(s, a, b):
+    if not s["enable_order_hint"]:
+        return 0
+    m = 1 << (s["order_hint_bits"] - 1)
+    d = a - b
+    return (d & (m - 1)) - (d & m)
+
+
+def parse_frame_header(body, s, temporal_id=0, spatial_id=0, slots=None):
+    """(fields, field log, the bit position after the header) of a frame's
+    uncompressed header (OBU_FRAME or OBU_FRAME_HEADER payload, spec 5.9):
+    key frames, and with ``slots`` (a ``Slots``, which the caller refreshes
+    with the fields) intra-only and inter frames too."""
     r = _Reader(body)
-    h = {"show_frame": 1, "showable_frame": 0}
+    h = {"show_frame": 1, "showable_frame": 0, "frame_type": 0, "refresh_frame_flags": 0xFF,
+         "error_resilient_mode": 1, "order_hint": 0}
     if not s["reduced"]:
         if r.f(1, "show_existing_frame"):
             raise RewriteError("a show_existing_frame header")
-        if r.f(2, "frame_type") != 0:
+        h["frame_type"] = r.f(2, "frame_type")
+        if h["frame_type"] != 0 and slots is None:
             raise RewriteError("a frame that is not a key frame")
+        if h["frame_type"] == 3:
+            raise RewriteError("a switch frame")
         h["show_frame"] = r.f(1, "show_frame")
         if h["show_frame"] and s["decoder_model_info_present"] and not s["equal_picture_interval"]:
             r.f(s["frame_presentation_time_length"], "frame_presentation_time")
-        if not h["show_frame"]:
+        if h["show_frame"]:
+            h["showable_frame"] = int(h["frame_type"] != 0)
+        else:
             h["showable_frame"] = r.f(1, "showable_frame")
-            r.f(1, "error_resilient_mode")
+        if not (h["frame_type"] == 0 and h["show_frame"]):
+            h["error_resilient_mode"] = r.f(1, "error_resilient_mode")
+    intra = h["frame_type"] in (0, 2)
     r.f(1, "disable_cdf_update")
     disable_cdf_update = r.toks[-1][2]
     sct = r.f(1, "allow_screen_content_tools") if s["force_sct"] == 2 else s["force_sct"]
     h["allow_screen_content_tools"] = sct
-    if sct and s["force_imv"] == 2:
-        r.f(1, "force_integer_mv")
+    force_imv = 0
+    if sct:
+        force_imv = r.f(1, "force_integer_mv") if s["force_imv"] == 2 else s["force_imv"]
+    if intra:
+        force_imv = 1
     if s["frame_id_numbers_present"]:
+        if not intra:
+            raise RewriteError("frame ids on an inter frame")
         r.f(s["id_len"], "current_frame_id")
     override = 0 if s["reduced"] else r.f(1, "frame_size_override_flag")
-    r.f(s["order_hint_bits"], "order_hint")
+    h["order_hint"] = r.f(s["order_hint_bits"], "order_hint")
+    primary = 7 if intra or h["error_resilient_mode"] else r.f(3, "primary_ref_frame")
     if s["decoder_model_info_present"]:
         if r.f(1, "buffer_removal_time_present_flag"):
             for idc, present in zip(s["op_idc"], s["op_decoder_model_present"]):
@@ -321,15 +377,38 @@ def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
                 in_t, in_s = (idc >> temporal_id) & 1, (idc >> (spatial_id + 8)) & 1
                 if idc == 0 or (in_t and in_s):
                     r.f(s["buffer_removal_time_length"], "buffer_removal_time")
-    if not h["show_frame"]:
-        refresh = r.f(8, "refresh_frame_flags")
-        if refresh != 0xFF:
+    if not (h["frame_type"] == 0 and h["show_frame"]):
+        h["refresh_frame_flags"] = r.f(8, "refresh_frame_flags")
+        if h["frame_type"] == 0 and h["refresh_frame_flags"] != 0xFF:
             raise RewriteError("a hidden key frame that does not refresh every slot")
-    if override:
-        w = r.f(s["fwb"], "frame_width_minus_1") + 1
-        hh = r.f(s["fhb"], "frame_height_minus_1") + 1
+    if ((not intra or h["refresh_frame_flags"] != 0xFF) and h["error_resilient_mode"]
+            and s["enable_order_hint"]):
+        for _ in range(8):
+            r.f(s["order_hint_bits"], "ref_order_hint")
+    refs = []
+    found = None
+    if not intra:
+        if s["enable_order_hint"] and r.f(1, "frame_refs_short_signaling"):
+            raise RewriteError("frame_refs_short_signaling")
+        for _ in range(7):
+            i = r.f(3, "ref_frame_idx")
+            if slots.slots[i] is None:
+                raise RewriteError(f"a reference slot ({i}) that holds no frame")
+            refs.append(slots.slots[i])
+        if override and not h["error_resilient_mode"]:
+            for ref in refs:
+                if r.f(1, "found_ref"):
+                    found = ref
+                    break
+    if found is not None:
+        w, hh = found["width"], found["height"]
+        h["render"] = found["render"]
     else:
-        w, hh = s["max_w"], s["max_h"]
+        if override:
+            w = r.f(s["fwb"], "frame_width_minus_1") + 1
+            hh = r.f(s["fhb"], "frame_height_minus_1") + 1
+        else:
+            w, hh = s["max_w"], s["max_h"]
     r.toks.append(["<superres>", 0, 0])  # superres_params() go here
     h["use_superres"] = 0
     if s["enable_superres"]:
@@ -337,10 +416,19 @@ def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
         if h["use_superres"]:
             raise RewriteError("a frame that already uses superres")
     h["width"], h["height"] = w, hh
-    if r.f(1, "render_and_frame_size_different"):
-        r.f(16, "render_width_minus_1")
-        r.f(16, "render_height_minus_1")
-    intrabc = r.f(1, "allow_intrabc") if sct else 0
+    if found is None:
+        h["render"] = (w, hh)
+        if r.f(1, "render_and_frame_size_different"):
+            h["render"] = (r.f(16, "render_width_minus_1") + 1, r.f(16, "render_height_minus_1") + 1)
+    intrabc = r.f(1, "allow_intrabc") if sct and intra else 0
+    if not intra:
+        hp = 0 if force_imv else r.f(1, "allow_high_precision_mv")
+        h["allow_high_precision_mv"] = hp
+        if not r.f(1, "is_filter_switchable"):
+            r.f(2, "interpolation_filter")
+        r.f(1, "is_motion_mode_switchable")
+        if not h["error_resilient_mode"] and s["enable_ref_frame_mvs"]:
+            r.f(1, "use_ref_frame_mvs")
     if not (s["reduced"] or disable_cdf_update):
         r.f(1, "disable_frame_end_update_cdf")
     # tile info
@@ -408,9 +496,23 @@ def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
         r.f(4, "qm_u")
         if s["separate_uv_delta_q"]:
             r.f(4, "qm_v")
-    # segmentation
-    alt_q = [0] * 8
-    if r.f(1, "segmentation_enabled"):
+    # segmentation (the q deltas carried from the primary reference frame
+    # where the data is not updated)
+    prev = refs[primary] if primary != 7 else None
+    alt_q, alt_q_on = ([0] * 8, [0] * 8) if prev is None else (list(prev["alt_q"]),
+                                                                  list(prev["alt_q_on"]))
+    seg = r.f(1, "segmentation_enabled")
+    update_data = 0
+    if seg:
+        if primary == 7:
+            update_data = 1
+        else:
+            if r.f(1, "segmentation_update_map"):
+                r.f(1, "segmentation_temporal_update")
+            update_data = r.f(1, "segmentation_update_data")
+    if not seg or update_data:
+        alt_q, alt_q_on = [0] * 8, [0] * 8
+    if update_data:
         bits, sgn = (8, 6, 6, 6, 6, 3, 0, 0), (1, 1, 1, 1, 1, 0, 0, 0)
         for i in range(8):
             for j in range(8):
@@ -418,15 +520,16 @@ def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
                     v = (r.su(1 + bits[j], "feature_value") if sgn[j]
                          else r.f(bits[j], "feature_value"))
                     if j == 0:
-                        alt_q[i] = max(-255, min(255, v))
+                        alt_q[i], alt_q_on[i] = max(-255, min(255, v)), 1
+    h["alt_q"], h["alt_q_on"] = alt_q, alt_q_on
     delta_q_present = r.f(1, "delta_q_present") if base_q > 0 else 0
     if delta_q_present:
         r.f(2, "delta_q_res")
         if not intrabc and r.f(1, "delta_lf_present"):
             r.f(2, "delta_lf_res")
             r.f(1, "delta_lf_multi")
-    coded_lossless = all(max(0, min(255, base_q + alt_q[i])) == 0 for i in range(8)) \
-        and not any(deltas)
+    qi = [max(0, min(255, base_q + alt_q[i])) if seg and alt_q_on[i] else base_q for i in range(8)]
+    coded_lossless = all(q == 0 for q in qi) and not any(deltas)
     h["coded_lossless"] = coded_lossless
     if not coded_lossless and not intrabc:
         l0, l1 = r.f(6, "loop_filter_level_0"), r.f(6, "loop_filter_level_1")
@@ -448,26 +551,64 @@ def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
             r.f(6, "cdef_y_strength")
             if not s["mono"]:
                 r.f(6, "cdef_uv_strength")
-    h["lr"] = 0
+    h["lr"], h["lr_types"], h["lr_unit"] = 0, [0, 0, 0], [64, 64, 64]
     if not coded_lossless and not intrabc and s["enable_restoration"]:
         uses, chroma = 0, 0
         for p in range(1 if s["mono"] else 3):
             t = r.f(2, "lr_type")
+            h["lr_types"][p] = t
             if t:
                 uses, chroma = 1, chroma or p > 0
         h["lr"] = uses
         if uses:
             shift = r.f(1, "lr_unit_shift")
-            if not s["use128"] and shift:
-                r.f(1, "lr_unit_extra_shift")
-            if s["ssx"] and s["ssy"] and chroma:
-                r.f(1, "lr_uv_shift")
+            if s["use128"]:
+                shift += 1
+            elif shift:
+                shift += r.f(1, "lr_unit_extra_shift")
+            uv = r.f(1, "lr_uv_shift") if s["ssx"] and s["ssy"] and chroma else 0
+            h["lr_unit"] = [64 << shift, (64 << shift) >> uv, (64 << shift) >> uv]
     if not coded_lossless:
         r.f(1, "tx_mode_select")
+    reference_select = 0 if intra else r.f(1, "reference_select")
+    if not intra and reference_select and s["enable_order_hint"]:
+        # skip_mode_params: a forward and a backward (or second forward) reference
+        hints = [ref["order_hint"] for ref in refs]
+        cur = h["order_hint"]
+        fwd = [x for x in hints if _rel(s, x, cur) < 0]
+        bwd = [x for x in hints if _rel(s, x, cur) > 0]
+        allowed = bool(fwd) and bool(bwd)
+        if fwd and not bwd:
+            near = fwd[0]
+            for x in fwd:
+                if _rel(s, x, near) > 0:
+                    near = x
+            allowed = any(_rel(s, x, near) < 0 for x in hints)
+        if allowed:
+            r.f(1, "skip_mode_present")
+    if not intra and not h["error_resilient_mode"] and s["enable_warped_motion"]:
+        r.f(1, "allow_warped_motion")
     r.f(1, "reduced_tx_set")
+    if not intra:
+        hp = h["allow_high_precision_mv"]
+        for _ in range(7):
+            typ = 0
+            if r.f(1, "is_global"):
+                typ = 2 if r.f(1, "is_rot_zoom") else (1 if r.f(1, "is_translation") else 3)
+            params = ([2, 3] + ([4, 5] if typ == 3 else [])) if typ >= 2 else []
+            params += [0, 1] if typ >= 1 else []
+            for idx in params:
+                if idx < 2:
+                    absb = (9 - (not hp)) if typ == 1 else 12
+                else:
+                    absb = 12
+                _subexp(r, 2 * (1 << absb) + 1)
     if s["film_grain_present"] and (h["show_frame"] or h["showable_frame"]):
         if r.f(1, "apply_grain"):
             r.f(16, "grain_seed")
+            if h["frame_type"] == 1 and not r.f(1, "update_grain"):
+                r.f(3, "film_grain_params_ref_idx")
+                return h, r.toks, r.pos
             ny = r.f(4, "num_y_points")
             for _ in range(ny):
                 r.f(8, "point_y_value")
@@ -499,6 +640,22 @@ def parse_frame_header(body, s, temporal_id=0, spatial_id=0):
             r.f(1, "overlap_flag")
             r.f(1, "clip_to_restricted_range")
     return h, r.toks, r.pos
+
+
+def _subexp(r, num_syms):
+    """decode_subexp (5.9.26) of a global motion parameter: its bits."""
+    i, mk, k = 0, 0, 3
+    while True:
+        b2 = k + i - 1 if i else k
+        a = 1 << b2
+        if num_syms <= mk + 3 * a:
+            r.ns(num_syms - mk, "subexp_final_bits")
+            return
+        if not r.f(1, "subexp_more_bits"):
+            r.f(b2, "subexp_bits")
+            return
+        i += 1
+        mk += a
 
 
 # ----------------------------------------------------------------- OBUs -----
@@ -685,8 +842,9 @@ def _rewrite_file(data, payload_fn, av1c_fn=None, pixi_depth=None, ispe_width=No
     byte range once: an item that is a track's sample is rewritten with
     it); the av1C bodies through ``av1c_fn``, the pixi depths set to
     ``pixi_depth``, the ispe widths to ``ispe_width`` (a function of the
-    old width). ``samples``: "all", or "first" (sample 0 of the first
-    track only; items whose extent is that sample follow it)."""
+    old width). ``samples``: "all", "first" (sample 0 of the first track
+    only) or "zero" (sample 0 of every track); items whose extent is such a
+    sample follow it."""
     d = bytearray(data)
     regions = {}  # (offset, length) -> [("iloc", (length field, width)) | ("sample", stsz field)]
     chunk_fields, iloc = [], []
@@ -701,11 +859,12 @@ def _rewrite_file(data, payload_fn, av1c_fn=None, pixi_depth=None, ispe_width=No
         smp, chunks = _samples(data, stbl)
         track_samples.append(smp)
         chunk_fields += chunks
-    if samples == "first":
+    if samples in ("first", "zero"):
         if not track_samples or not track_samples[0]:
             raise RewriteError("no track sample to rewrite")
-        off, size, field = track_samples[0][0]
-        regions[(off, size)] = [("sample", field)]
+        for smp in track_samples[:1] if samples == "first" else track_samples:
+            off, size, field = smp[0]
+            regions[(off, size)] = [("sample", field)]
     else:
         for smp in track_samples:
             for off, size, field in smp:
@@ -718,7 +877,7 @@ def _rewrite_file(data, payload_fn, av1c_fn=None, pixi_depth=None, ispe_width=No
             raise RewriteError("an item in idat")
         key = (base + (int.from_bytes(data[fo:fo + osz], "big") if osz else 0),
                int.from_bytes(data[fl:fl + lsz], "big"))
-        if samples == "first" and key not in regions:
+        if samples != "all" and key not in regions:
             continue
         regions.setdefault(key, []).append(("iloc", (fl, lsz)))
     # rewrite the payloads in file order; later offsets move by the deltas
@@ -831,12 +990,32 @@ def superres_width(coded_width, denominator):
     return w
 
 
-def to_superres(data, denominator, upscaled_width=None, restoration_ok=False):
+def _lr_units_per_sb(s, h, plane, width, up, denominator):
+    """The loop-restoration units each superblock column of a frame of
+    coded ``width`` reads in ``plane`` (spec 5.11.57 ``read_lr``), upscaled
+    to ``up`` at ``denominator`` (8: none): unit columns counted on the
+    upscaled width, a superblock's through ``SuperresDenom``."""
+    unit = h["lr_unit"][plane]
+    sx = s["ssx"] if plane else 0
+    cols = max((((up + sx) >> sx) + (unit >> 1)) // unit, 1)
+    num, den = (4 >> sx) * denominator, unit * 8
+    mi_cols = 2 * ((width + 7) >> 3)
+    sb4 = 32 if s["use128"] else 16
+    out = []
+    for c in range(0, mi_cols, sb4):
+        start = (c * num + den - 1) // den
+        end = min(cols, ((c + sb4) * num + den - 1) // den)
+        out.append(max(end - start, 0))
+    return out
+
+
+def to_superres(data, denominator, upscaled_width=None):
     """``data`` (an AVIF still image) with its frame coded at superres
     ``denominator`` (9-16): the upscaled width ``upscaled_width`` (by
-    default the largest whose downscaled width is the coded width).
-    ``restoration_ok`` rewrites a frame with loop restoration all the same
-    (a stream whose tiles misparse: a decoder must refuse it before)."""
+    default the largest whose downscaled width is the coded width). A
+    frame with loop restoration is rewritten where every superblock column
+    reads as many restoration units of each plane as without superres (its
+    tile data then parses as it stands), refused otherwise."""
     if not 9 <= denominator <= 16:
         raise RewriteError(f"a superres denominator of {denominator}")
     widths = {}
@@ -859,9 +1038,14 @@ def to_superres(data, denominator, upscaled_width=None, restoration_ok=False):
         return toks
 
     def frame_fn(s, h, toks):
-        if h["lr"] and not restoration_ok:
-            raise RewriteError("a frame with loop restoration (its units are counted on the "
-                               "upscaled width)")
+        if h["lr"]:
+            w, up = s["max_w"], widths[s["max_w"]]
+            for p in range(1 if s["mono"] else 3):
+                if h["lr_types"][p] and (_lr_units_per_sb(s, h, p, w, w, 8)
+                                         != _lr_units_per_sb(s, h, p, w, up, denominator)):
+                    raise RewriteError(f"a frame whose loop restoration units of plane {p} "
+                                       "fall otherwise under superres (counted on the "
+                                       "upscaled width)")
         if h["allow_screen_content_tools"]:
             raise RewriteError("a frame that allows screen content tools (superres removes "
                                "allow_intrabc)")
@@ -892,9 +1076,8 @@ def hide_key_frame(data, slot=0):
     hidden key frame shown by an ``OBU_FRAME_HEADER`` of
     ``show_existing_frame`` (``frame_to_show_map_idx`` ``slot``)."""
     def payload(d):
-        obus = split_obus(d)
         s, out, shown = None, [], False
-        for h, ext, body in obus:
+        for h, ext, body in split_obus(d):
             typ = (h >> 3) & 15
             if typ == 1:
                 s, _ = parse_sequence_header(body)
@@ -905,21 +1088,7 @@ def hide_key_frame(data, slot=0):
                 fh, toks, end = parse_frame_header(body, s, tid, sid)
                 if not fh["show_frame"]:
                     raise RewriteError("a key frame already hidden")
-                toks = [list(t) for t in toks]
-                i = _index(toks, "show_frame")
-                toks[i][2] = 0
-                if i + 1 < len(toks) and toks[i + 1][0] == "frame_presentation_time":
-                    del toks[i + 1]
-                toks[i + 1:i + 1] = [["showable_frame", 1, 1], ["error_resilient_mode", 1, 0]]
-                j = _index(toks, "<superres>")
-                while toks[j - 1][0] in ("frame_width_minus_1", "frame_height_minus_1"):
-                    j -= 1
-                toks.insert(j, ["refresh_frame_flags", 8, 0xFF])
-                if typ == 6:
-                    body = _emit(toks, trailing=False) + body[(end + 7) >> 3:]
-                else:
-                    body = _emit(toks)
-                out.append((h, ext, body))
+                out.append((h, ext, _reheader(typ, body, _hidden(toks, fh), end)))
                 show = _Writer()
                 show.f(1, 1)
                 show.f(3, slot)
@@ -951,3 +1120,142 @@ def set_base_q_idx(data, q):
         return toks
 
     return _rewrite_file(data, lambda d: _rewrite_obus(d, None, frame_fn, strict=False))
+
+
+# ------------------------------------------------------ inter frame 0 ------
+
+def track_samples(data):
+    """The samples of each track of ``data`` (colour first, as the file
+    lists them), as bytes."""
+    out = []
+    for path, t, s, e in _walk(data, 0, len(data)):
+        if t == b"stbl":
+            smp, _ = _samples(data, (s, e))
+            out.append([bytes(data[o:o + n]) for o, n, _ in smp])
+    return out
+
+
+def _hidden(toks, h):
+    """A frame header's fields with the frame hidden (``show_frame`` 0,
+    ``showable_frame`` 1; a key frame also ``error_resilient_mode`` 0 and
+    ``refresh_frame_flags`` 0xFF, which a shown key frame implies)."""
+    toks = [list(t) for t in toks]
+    i = _index(toks, "show_frame")
+    toks[i][2] = 0
+    if i + 1 < len(toks) and toks[i + 1][0] == "frame_presentation_time":
+        del toks[i + 1]
+    if h["frame_type"] == 0:
+        toks[i + 1:i + 1] = [["showable_frame", 1, 1], ["error_resilient_mode", 1, 0]]
+        j = _index(toks, "<superres>")
+        while toks[j - 1][0] in ("frame_width_minus_1", "frame_height_minus_1"):
+            j -= 1
+        toks.insert(j, ["refresh_frame_flags", 8, 0xFF])
+    else:
+        toks.insert(i + 1, ["showable_frame", 1, 1])
+    return toks
+
+
+def _reheader(typ, body, toks, end):
+    if typ == 6:
+        return _emit(toks, trailing=False) + body[(end + 7) >> 3:]
+    return _emit(toks)
+
+
+def _splice(samples):
+    """Sample 0 of a track made of its ``samples``: the key frame hidden,
+    then the frame OBUs of the others (temporal delimiters and sequence
+    headers dropped), every frame but the last hidden (a
+    show_existing_frame header before the last dropped)."""
+    obus = list(split_obus(samples[0]))
+    for smp in samples[1:]:
+        obus += [o for o in split_obus(smp) if (o[0] >> 3) & 15 in (3, 4, 5, 6)]
+    frames = [k for k, (h, _, body) in enumerate(obus) if (h >> 3) & 15 in (3, 6)]
+    if len(frames) < 2:
+        raise RewriteError("fewer than two frames to splice")
+    last = frames[-1]
+    s, slots, out = None, Slots(), []
+    for k, (h, ext, body) in enumerate(obus):
+        typ = (h >> 3) & 15
+        if typ == 1:
+            s, _ = parse_sequence_header(body)
+            if s["reduced"]:
+                raise RewriteError("a reduced still-picture header")
+        if typ in (3, 6):
+            if body and body[0] & 0x80:  # show_existing_frame
+                if k != last:
+                    continue
+                out.append((h, ext, body))
+                continue
+            tid, sid = (ext >> 5, (ext >> 3) & 3) if ext is not None else (0, 0)
+            fh, toks, end = parse_frame_header(body, s, tid, sid, slots)
+            if k != last:
+                if not fh["show_frame"] and fh["frame_type"] == 0:
+                    raise RewriteError("a hidden key frame in the source")
+                if fh["show_frame"]:
+                    toks = _hidden(toks, fh)
+                    body = _reheader(typ, body, toks, end)
+                fh["refresh_frame_flags"] = fh["refresh_frame_flags"] if fh["frame_type"] else 0xFF
+            elif not fh["show_frame"]:
+                raise RewriteError("the last frame of the splice is hidden")
+            slots.refresh(fh)
+        out.append((h, ext, body))
+    return join_obus(out)
+
+
+def splice_frames(data, n):
+    """``data`` (an ``avis`` sequence) with sample 0 of every track (colour
+    and alpha) the hidden key frame followed by the frames of samples 1 to
+    ``n - 1``: frame 0 is then the source's frame ``n - 1``, decoded
+    through inter (or intra-only) frames."""
+    if b"moov" not in {t for t, _, _ in boxes(data, 0, len(data))}:
+        raise RewriteError("an image item (a splice needs an avis track)")
+    new = {}
+    for smp in track_samples(data):
+        if len(smp) < n:
+            raise RewriteError(f"a track of {len(smp)} samples (the splice needs {n})")
+        new[smp[0]] = _splice(smp[:n])
+    return _rewrite_file(data, lambda d: new[d], samples="zero")
+
+
+def to_intra_only(data, refresh=0x01):
+    """``data`` (an ``avis`` sequence) with sample 0 of every track the key
+    frame hidden, then the same frame as an intra-only frame (``frame_type``
+    2, ``error_resilient_mode`` 0, ``refresh_frame_flags`` ``refresh``, not
+    0xFF): its tile data parses as the key frame's, and it decodes to the
+    same pixels."""
+    if refresh == 0xFF:
+        raise RewriteError("an intra-only frame refreshes less than every slot")
+
+    def payload(d):
+        s, out, done = None, [], False
+        for h, ext, body in split_obus(d):
+            typ = (h >> 3) & 15
+            if typ == 1:
+                s, _ = parse_sequence_header(body)
+                if s["reduced"]:
+                    raise RewriteError("a reduced still-picture header")
+            if typ in (3, 6) and not done:
+                if typ == 3:
+                    raise RewriteError("a frame header OBU (the rewrite repeats an OBU_FRAME)")
+                tid, sid = (ext >> 5, (ext >> 3) & 3) if ext is not None else (0, 0)
+                fh, toks, end = parse_frame_header(body, s, tid, sid)
+                if not fh["show_frame"]:
+                    raise RewriteError("a key frame already hidden")
+                out.append((h, ext, _reheader(typ, body, _hidden(toks, fh), end)))
+                toks = [list(t) for t in toks]
+                toks[_index(toks, "frame_type")][2] = 2
+                toks.insert(_index(toks, "show_frame") + 1, ["error_resilient_mode", 1, 0])
+                j = _index(toks, "<superres>")
+                while toks[j - 1][0] in ("frame_width_minus_1", "frame_height_minus_1"):
+                    j -= 1
+                toks.insert(j, ["refresh_frame_flags", 8, refresh])
+                body = _reheader(typ, body, toks, end)
+                done = True
+            out.append((h, ext, body))
+        if not done:
+            raise RewriteError("no key frame in sample 0")
+        return join_obus(out)
+
+    if b"moov" not in {t for t, _, _ in boxes(data, 0, len(data))}:
+        raise RewriteError("an image item (the rewrite needs an avis track)")
+    return _rewrite_file(data, payload, samples="zero")

@@ -1,7 +1,7 @@
-"""Write ``akari_torch/native/av1_tables.h``: the AV1 tables an intra frame
-reads, found in the ``libavif`` that Pillow bundles (it links dav1d 1.5.1
-to decode and aom 3.12.1 to encode, so the library holds both projects'
-copies of the default tables).
+"""Write ``akari_torch/native/av1_tables.h``: the AV1 tables intra and inter
+frames read, found in the ``libavif`` that Pillow bundles (it links dav1d
+1.5.1 to decode and aom 3.12.1 to encode, so the library holds both
+projects' copies of the default tables).
 
 - every default CDF of a key frame's mode info and coefficients, from
   dav1d's ``CdfModeContext`` / ``CdfCoefContext`` (one of each, four of the
@@ -26,7 +26,19 @@ copies of the default tables).
   triangular 32x32 tables, expanded and subsampled as dav1d's
   ``dav1d_init_qm_tables`` does);
 - the film-grain Gaussian sequence (dav1d's ``dav1d_gaussian_sequence``,
-  2,048 values; the library holds no second copy).
+  2,048 values; the library holds no second copy);
+- the inter frames' CDFs (dav1d's ``CdfModeContext`` after its intra part:
+  y modes by size, wedge indices, compound modes, filters, inter-intra,
+  motion modes, the mode and reference flags, OBMC; its ``CdfMvContext``
+  fractional and high-precision parts), checked against aom's copies where
+  their rows lie alike;
+- the sub-pixel filters (aom's six sets, checked against dav1d's halved
+  ones), the warp filter (aom's, checked against dav1d's), the warp
+  divisor table and the projection's ``Div_Mult`` (each aom's and
+  dav1d's), the OBMC masks (aom's, checked against dav1d's 64 - m), the
+  three wedge codebooks and master lines (aom's, checked against dav1d's
+  copies), the inter-intra weights and the distance weights (aom's, the
+  lookup checked against dav1d's).
 
 Each table is found by anchors: a group of dav1d's tables by the first row
 of one of them (the others lie at fixed places in the same structure, and
@@ -113,7 +125,35 @@ MODE_CDFS = {
     "inter_tx_set3": ((4,), 2, 2, 0x11A0, 2),
     "txfm_split": ((7, 3), 2, 2, 0x1208, 2),          # the specification's 21 contexts
     "intrabc": ((), 2, 2, 0x12C4, 2),
+    # inter frames: the mode info of inter and intra blocks
+    "y_mode": ((4,), 13, 16, 0x12E0, 16),
+    "wedge_index": ((9,), 16, 16, 0x1360, 16),
+    "compound_mode": ((8,), 8, 8, 0x1480, 8),
+    "interp_filter": ((2, 8), 3, 4, 0x1500, 4),       # [dir][ctx & 7]
+    "interintra_mode": ((4,), 4, 4, 0x1580, 4),
+    "motion_mode": ((22,), 3, 4, 0x15A0, 4),          # dav1d's block-size order
+    "skip_mode": ((3,), 2, 2, 0x1650, 2),
+    "new_mv": ((6,), 2, 2, 0x165C, 2),
+    "zero_mv": ((2,), 2, 2, 0x1674, 2),
+    "ref_mv": ((6,), 2, 2, 0x167C, 2),
+    "drl_mode": ((3,), 2, 2, 0x1694, 2),
+    "is_inter": ((4,), 2, 2, 0x16A0, 2),
+    "comp_mode": ((5,), 2, 2, 0x16B0, 2),
+    "comp_ref_type": ((5,), 2, 2, 0x16C4, 2),
+    "compound_idx": ((6,), 2, 2, 0x16D8, 2),
+    "comp_group_idx": ((6,), 2, 2, 0x16F0, 2),
+    "compound_type": ((9,), 2, 2, 0x1708, 2),         # the nine wedge sizes
+    "single_ref": ((6, 3), 2, 2, 0x172C, 2),          # [p1..p6][ctx]
+    "comp_ref": ((3, 3), 2, 2, 0x1774, 2),            # [comp_ref, p1, p2][ctx]
+    "comp_bwd_ref": ((2, 3), 2, 2, 0x1798, 2),        # [comp_bwdref, p1][ctx]
+    "uni_comp_ref": ((3, 3), 2, 2, 0x17B0, 2),        # [uni_comp_ref, p1, p2][ctx]
+    "seg_id_predicted": ((3,), 2, 2, 0x17D4, 2),
+    "interintra": ((4,), 2, 2, 0x17E0, 2),            # by size group
+    "wedge_interintra": ((7,), 2, 2, 0x17FC, 2),      # 8x8 .. 32x32
+    "use_obmc": ((22,), 2, 2, 0x1818, 2),             # dav1d's block-size order
 }
+# block sizes (dav1d's names) that read no motion mode: their rows are zero
+NO_MOTION_MODE = ("16x4", "8x4", "4x16", "4x8", "4x4")
 # dav1d's default_mv_component_cdf (its classes row, then sign and class0
 # inverted: 128 * 128 and 216 * 128) and default_mv_joint_cdf, the CDFs of
 # an intra block copy's vector: name -> (shape, symbols, stride, byte
@@ -125,6 +165,10 @@ MV_CDFS = {
     "mv_sign": ((), 2, 2, 0x20, 2),
     "mv_class0": ((), 2, 2, 0x24, 2),
     "mv_bits": ((10,), 2, 2, 0x3C, 2),
+    "mv_class0_fr": ((2,), 4, 4, 0x28, 4),
+    "mv_class0_hp": ((), 2, 2, 0x38, 2),
+    "mv_fr": ((), 4, 4, 0x68, 4),
+    "mv_hp": ((), 2, 2, 0x70, 2),
 }
 # CdfCoefContext tables: name -> (shape within one qindex context, symbols,
 # stride, byte offset in the structure, dav1d's stride, dav1d's shape)
@@ -164,13 +208,28 @@ AOM_COPIES = {
     "palette_y_mode": ((31676, 3419, 1261), 3, 21),
     "txb_skip": ((31849, 5892, 12112, 21935), 3, 65),
     "eob_pt16": ((840, 1039, 1980, 4895), 6, 4),
+    "y_mode": ((22801, 23489, 24293, 24756, 25601, 26123, 26606, 27418, 27945, 29228, 29685,
+                30349), 14, 4),
+    "wedge_index": ((2438, 4440, 6599, 8663, 11005, 12874, 15751, 18094, 20359, 22362, 24127,
+                     25702, 27752, 29450, 31171), 17, 7),
+    "compound_mode": ((7760, 13823, 15808, 17641, 19156, 20666, 26891), 9, 8),
+    "interp_filter": ((31935, 32720), 4, 16),
+    "new_mv": ((24035, 16630, 15339, 8386, 12222, 4676), 3, 6),
+    "ref_mv": ((23974, 24188, 17848, 28622, 24312, 19923), 3, 6),
+    "comp_group_idx": ((26607, 22891, 18840, 24594, 19934, 22674), 3, 6),
+    "compound_idx": ((18244, 12865, 7053, 13259, 9334, 4644), 3, 6),
 }
+# two-symbol tables of aom's, compared value by value (one CDF a row)
+AOM_TWO_SYMBOL = ("use_filter_intra", "palette_y_mode", "txb_skip", "new_mv", "ref_mv",
+                  "comp_group_idx", "compound_idx")
 
 _PREAMBLE = """\
-// The default CDFs and lookup tables of an AV1 intra frame, as dav1d 1.5.1
-// and aom 3.12.1 hold them (src/cdf.c, src/tables.c, src/dequant_tables.c
-// of dav1d; av1/common/entropymode.c, token_cdfs.h, quant_common.c,
-// reconintra.c of aom). Written by tools/extract_av1_tables.py from the
+// The default CDFs and lookup tables of AV1 intra and inter frames, as dav1d 1.5.1
+// and aom 3.12.1 hold them (src/cdf.c, src/tables.c, src/dequant_tables.c,
+// src/wedge.c of dav1d; av1/common/entropymode.c, entropymv.c,
+// token_cdfs.h, quant_common.c, reconintra.c, reconinter.c, filter.h,
+// warped_motion.c, mvref_common.h of aom). Written by
+// tools/extract_av1_tables.py from the
 // libavif that Pillow bundles, which links both; do not edit by hand.
 //
 // A CDF row holds the symbols' inverted cumulative probabilities
@@ -245,12 +304,16 @@ def _check_cdf(row, nsym, what):
         raise RuntimeError(f"{what}: the row {row.tolist()} is not a {nsym}-symbol CDF")
 
 
-def _take(blob, off, shape, nsym, stride, src_stride, what, syms=None):
+def _take(blob, off, shape, nsym, stride, src_stride, what, syms=None, unused=()):
     n = int(np.prod(shape)) if shape else 1
     rows = _rows(blob, off, n, src_stride)
     out = np.zeros((n, stride), np.uint16)
     for i in range(n):
         k = nsym if syms is None else syms[i]
+        if i in unused:
+            if rows[i].any():
+                raise RuntimeError(f"{what}[{i}]: a row of an unused block size is not zero")
+            continue
         _check_cdf(rows[i], k, f"{what}[{i}]")
         out[i, :k - 1] = rows[i, :k - 1]
     return out.reshape(*shape, stride), off
@@ -268,8 +331,11 @@ def tables(blob=None):
         if nsym is None:  # palette colour maps: 2..8 colours, five contexts each
             syms = [2 + i // 5 for i in range(35)]
             nsym = 8
-        arr, off = _take(blob, mode + rel, shape, nsym, stride, src, name, syms)
-        if name == "use_filter_intra":  # dav1d's block-size order -> the spec's
+        unused = ()
+        if name in ("motion_mode", "use_obmc"):
+            unused = [DAV1D_BSIZES.index(b) for b in NO_MOTION_MODE]
+        arr, off = _take(blob, mode + rel, shape, nsym, stride, src, name, syms, unused)
+        if name in ("use_filter_intra", "motion_mode", "use_obmc"):  # dav1d's order -> the spec's
             arr = arr[[DAV1D_BSIZES.index(b) for b in SPEC_BSIZES]]
         out[name] = (arr, "uint16_t", f"dav1d CdfModeContext at 0x{off:x}")
     mv = _find_one(blob, MV_ANCHOR, "<H", "dav1d's default_mv_component_cdf")
@@ -352,8 +418,117 @@ def tables(blob=None):
     out["upscale_filter"] = (filt.copy(), "int16_t",
                              f"aom av1_resize_filter_normative at 0x{up:x} (dav1d 0x{rz:x})")
     _restoration_and_grain(blob, out)
+    _inter_tables(blob, out)
     _check_aom(blob, out)
     return out
+
+
+# aom's sub-pixel filters (the specification's Subpel_Filters order:
+# regular, smooth, sharp, bilinear, regular and smooth 4-tap), by their
+# phase-1 rows; each [16][8] with phase 0 first
+SUBPEL_ROW1 = ((0, 2, -6, 126, 8, -2, 0, 0), (0, 2, 28, 62, 34, 2, 0, 0),
+               (-2, 2, -6, 126, 8, -2, 2, 0), (0, 0, 0, 120, 8, 0, 0, 0),
+               (0, 0, -4, 126, 8, -2, 0, 0), (0, 0, 30, 62, 34, 2, 0, 0))
+# dav1d's halved copies: regular, smooth, sharp, regular 4-tap, smooth 4-tap, bilinear
+DAV1D_SUBPEL = (0, 1, 2, 4, 5, 3)
+
+
+def _inter_tables(blob, out):
+    """The lookups of inter prediction: the sub-pixel and warp filters, the
+    warp divisor table, the OBMC masks, the wedge codebooks and master
+    lines, the inter-intra weights, the distance weights."""
+    zero = (0, 0, 0, 128, 0, 0, 0, 0)
+    sets = []
+    for row1 in SUBPEL_ROW1:
+        hit = _find(blob, zero + row1, "<h")[0]  # every copy of aom's is the same
+        sets.append(np.frombuffer(blob[hit:hit + 256], "<i2").reshape(16, 8))
+    sub = np.stack(sets)
+    dv = _find_one(blob, (0, 1, -3, 63, 4, -1, 0, 0), "b", "dav1d's mc_subpel_filters")
+    dav = np.frombuffer(blob[dv:dv + 6 * 15 * 8], "i1").reshape(6, 15, 8)
+    for k, spec in enumerate(DAV1D_SUBPEL):
+        if not (dav[k].astype(np.int16) * 2 == sub[spec, 1:]).all():
+            raise RuntimeError(f"dav1d's sub-pixel filter {k} is not aom's {spec} halved")
+    out["subpel_filters"] = (sub.copy(), "int16_t", f"aom av1_sub_pel_filters at 0x{hit:x}.. "
+                             f"(checked against dav1d's halved dav1d_mc_subpel_filters at 0x{dv:x})")
+    first = (0, 0, 127, 1, 0, 0, 0, 0, 0, -1, 127, 2, 0, 0, 0, 0)
+    wps = [h for h in _find(blob, first, "<h")  # each of the 193 rows sums to 128
+           if (np.frombuffer(blob[h:h + 193 * 16], "<i2").reshape(193, 8).sum(1) == 128).all()]
+    if len(wps) != 1:
+        raise RuntimeError(f"aom's av1_warped_filter: found {len(wps)} times")
+    wp = wps[0]
+    warp = np.frombuffer(blob[wp:wp + 193 * 16], "<i2").reshape(193, 8)
+    dws = [h for h in _find(blob, first, "b")
+           if (np.frombuffer(blob[h:h + 193 * 8], "i1").reshape(193, 8) == warp).all()]
+    if len(dws) != 1:
+        raise RuntimeError("dav1d's mc_warp_filter, equal to aom's, not found once")
+    dw = dws[0]
+    out["warped_filters"] = (warp.copy(), "int16_t",
+                             f"aom av1_warped_filter at 0x{wp:x} (dav1d 0x{dw:x})")
+    dl = _find(blob, (16384, 16320, 16257, 16194, 16132, 16070), "<H")
+    luts = [np.frombuffer(blob[h:h + 514], "<u2") for h in dl]
+    if len(dl) != 2 or not (luts[0] == luts[1]).all() or luts[0][256] != 8192:
+        raise RuntimeError("aom's and dav1d's div_lut not found equal")
+    out["div_lut"] = (luts[0].astype(np.int32), "int32_t",
+                      f"aom div_lut at 0x{dl[0]:x} (dav1d 0x{dl[1]:x})")
+    # OBMC: aom's obmc_mask_2 .. _32, laid out as dav1d lays them out (the
+    # mask of size n at n), checked against dav1d's (64 - the weights)
+    o32 = _find_one(blob, (33, 35, 36, 38, 40, 41, 43, 44, 45, 47, 48, 50, 51, 52, 53, 55), "B",
+                    "aom's obmc_mask_32")
+    masks = np.zeros(64, np.uint8)
+    for n, off in ((32, 0), (16, 32), (8, 48), (4, 56), (2, 60)):
+        masks[n:2 * n] = np.frombuffer(blob[o32 + off:o32 + off + n], "u1")
+    do = _find_one(blob, (0, 0, 19, 0, 25, 14, 5, 0), "B", "dav1d's obmc_masks")
+    dmask = np.frombuffer(blob[do:do + 64], "u1")
+    if not (np.where(masks[2:] == 64, 0, 64 - masks[2:].astype(int)) == dmask[2:]).all():
+        raise RuntimeError("dav1d's obmc_masks are not 64 - aom's")
+    out["obmc_masks"] = (masks, "uint8_t", f"aom obmc_mask_32 .. _2 at 0x{o32:x} (the mask of "
+                         f"size n at n; dav1d's 64 - m at 0x{do:x})")
+    # wedges: aom's three codebooks (direction, x offset, y offset), in the
+    # order h > w, h < w, h == w; the master lines (odd, even, vertical)
+    books = {}
+    for hit in _find(blob, (2, 4, 4, 3, 4, 4, 4, 4, 4, 5, 4, 4), "<i"):
+        b = np.frombuffer(blob[hit:hit + 192], "<i4").reshape(16, 3)
+        horiz, vert = int((b[:, 0] == 0).sum()), int((b[:, 0] == 1).sum())
+        books[(horiz > vert) - (horiz < vert)] = (b, hit)
+    if sorted(books) != [-1, 0, 1]:
+        raise RuntimeError("aom's three wedge codebooks not found")
+    cb = np.stack([books[1][0], books[-1][0], books[0][0]]).astype(np.uint8)
+    for k in range(3):
+        if len(_find(blob, tuple(int(v) for v in cb[k].ravel()), "B")) != 1:
+            raise RuntimeError(f"dav1d's copy of wedge codebook {k} not found once")
+    out["wedge_codebook"] = (cb, "uint8_t", "aom wedge_codebook_16_hgtw / hltw / heqw at "
+                             + ", ".join(f"0x{books[k][1]:x}" for k in (1, -1, 0))
+                             + " (each checked against dav1d's)")
+    border = _find_one(blob, (1, 2, 6, 18, 37, 53, 60, 63, 1, 4, 11, 27, 46, 58, 62, 63), "B",
+                       "dav1d's wedge_master_border")
+    lines = []
+    for k in range(3):
+        mid = bytes(blob[border + 8 * k:border + 8 * k + 8])
+        hits = [h - 28 for h in _find(blob, tuple(mid), "B") if not border <= h < border + 24]
+        full = [np.frombuffer(blob[h:h + 64], "u1") for h in hits]
+        full = [f for f in full if not f[:28].any() and (f[36:] == 64).all()]
+        if len(full) != 1:
+            raise RuntimeError(f"aom's wedge master line {k} not found beside dav1d's")
+        lines.append(full[0])
+    out["wedge_master"] = (np.stack(lines).copy(), "uint8_t", "aom wedge_master_oblique_odd / "
+                           f"_even / _vertical (dav1d's wedge_master_border at 0x{border:x})")
+    dm = _find_one(blob, (0, 16384, 8192, 5461, 4096, 3276, 2730, 2340), "<i", "aom's div_mult")
+    mult = np.frombuffer(blob[dm:dm + 128], "<i4")
+    dd = _find(blob, tuple(int(v) for v in mult), "<H")
+    if not dd or not (mult[1:] == 16384 // np.arange(1, 32)).all():
+        raise RuntimeError("aom's div_mult: no dav1d copy, or not 16384 / d")
+    out["div_mult"] = (mult.copy(), "int32_t", f"aom div_mult at 0x{dm:x} (dav1d 0x{dd[0]:x})")
+    ii = _find_one(blob, (60, 58, 56, 54, 52, 50, 48, 47, 45, 44, 42, 41, 39, 38, 37, 35), "B",
+                   "aom's ii_weights1d")
+    out["ii_weights"] = (np.frombuffer(blob[ii:ii + 128], "u1").copy(), "uint8_t",
+                         f"aom ii_weights1d at 0x{ii:x}")
+    qd = _find_one(blob, (2, 3, 2, 5, 2, 7, 1, 31, 9, 7, 11, 5, 12, 4, 13, 3), "<i",
+                   "aom's quant_dist_weight / quant_dist_lookup_table")
+    q = np.frombuffer(blob[qd:qd + 64], "<i4").reshape(2, 4, 2)
+    if len(_find(blob, tuple(int(v) for v in q[1].ravel()), "B")) != 1:
+        raise RuntimeError("dav1d's quant_dist lookup not found once")
+    out["quant_dist"] = (q.astype(np.uint8), "uint8_t", f"aom quant_dist_weight and "
+                         f"quant_dist_lookup_table at 0x{qd:x} (the lookup checked against dav1d's)")
 
 
 QM_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32),
@@ -429,7 +604,7 @@ def _check_aom(blob, out):
     for name, (first, stride, n_rows) in AOM_COPIES.items():
         arr = out[name][0]
         flat = arr.reshape(-1, arr.shape[-1])[:n_rows]
-        if name not in ("use_filter_intra", "palette_y_mode", "txb_skip"):
+        if name not in AOM_TWO_SYMBOL:
             hits = _find(blob, [32768 - v for v in first] + [0, 0], "<H")
         else:  # two-symbol rows: value, 0, 0 each
             hits = _find(blob, sum([[32768 - v, 0, 0] for v in first], []), "<H")

@@ -95,9 +95,14 @@ Writes into ``tests/data/torch_port_images/``:
   ``avif_seg_ibc_fixtures``) and their 2048^2 albedos; and the 10- and
   12-bit, superres and hidden-frame forms PIL's writer does not make,
   header rewrites of those files (``avif_rewrite_fixtures``,
-  ``tools/av1_rewrite.py``);
+  ``tools/av1_rewrite.py``); the sequences of slice 26 that
+  ``splice_frames`` makes into inter frame 0, the stills with loop
+  restoration for its superres rewrite and ``ALBEDO_AVIF_INTER``
+  (``avif_inter_fixtures``; each sequence's ``digests.json`` entry holds
+  PIL's read of each splice, ``splice_digests``);
 - ``tests/data/torch_port_avif_rewrites.json`` (``AVIF_REWRITES``): the
-  2048^2 rewrites of the albedos (``avif_rewrite_albedo_files``), which
+  2048^2 rewrites of the albedos (``avif_rewrite_albedo_files``, the
+  inter-frame splice of ``ALBEDO_AVIF_INTER`` among them), which
   ``chip_smoke.py`` phase 54 makes at run time: each file's SHA-256 and
   PIL's decode of it;
 - ``digests.json``: for each file, the SHA-256 of PIL's decoded RGB bytes
@@ -146,6 +151,11 @@ AVIF_OUT = os.path.join(ROOT, "tests", "data", "torch_port_avif")
 ALBEDO_AVIF = "albedo2048_q60.avif"
 ALBEDO_AVIF_TOOLS = "albedo2048_q60_s4_tools.avif"
 ALBEDO_AVIF_AQ = "albedo2048_q60_s6_aq1.avis.avif"
+# slice 26: the albedo and its (3, 5) roll averaged with a one-pixel shift of
+# that roll (sub-pixel motion), a two-frame sequence whose frame 1 is
+# almost all motion-compensated; chip_smoke.py phase 54 splices it into
+# inter frame 0 (AVIF_REWRITES)
+ALBEDO_AVIF_INTER = "albedo2048_q60_s6_inter.avis.avif"
 # the 2048^2 albedos of slice 25, made from the committed ones by header
 # rewrites (avif_rewrite_albedo_files): each file's SHA-256 and PIL's decode
 AVIF_REWRITES = os.path.join(ROOT, "tests", "data", "torch_port_avif_rewrites.json")
@@ -1644,6 +1654,7 @@ def avif_fixtures():
     out.update(avif_tool_fixtures())
     out.update(avif_seg_ibc_fixtures())
     out.update(avif_rewrite_fixtures(out))
+    out.update(avif_inter_fixtures())
     return out
 
 
@@ -1764,13 +1775,99 @@ def avif_tool_fixtures():
     return out
 
 
+def motion_frames(kind, n, h, w, seed):
+    """``n`` frames of ``pattern`` content in motion: ``shift`` (whole
+    pixels, 3 down and 5 across a frame), ``sub`` (the shift averaged with
+    a one-pixel shift: half pixels), ``zoom`` (3 % a frame, about the
+    centre), ``occl`` (a 2-pixel pan under a flat patch moving against
+    it), ``scene`` (flat colours of another layout each frame: intra
+    blocks, palettes under screen content tools)."""
+    base = pattern(h + 40 + 6 * n, w + 40 + 6 * n, seed)
+    out = []
+    for k in range(n):
+        if kind == "shift":
+            f = base[3 * k:3 * k + h, 5 * k:5 * k + w]
+        elif kind == "sub":
+            a = base[3 * k:3 * k + h, 5 * k:5 * k + w].astype(np.uint16)
+            f = ((a + base[3 * k:3 * k + h, 5 * k + 1:5 * k + 1 + w]) // 2).astype(np.uint8)
+        elif kind == "zoom":
+            ys = (np.arange(h) * (1 - 0.03 * k) + 10 * k).astype(int)
+            xs = (np.arange(w) * (1 - 0.03 * k) + 10 * k).astype(int)
+            f = base[ys][:, xs]
+        elif kind == "occl":
+            f = base[2 * k:2 * k + h, 2 * k:2 * k + w].copy()
+            f[30 + 6 * k:60 + 6 * k, 40 + 8 * k:80 + 8 * k] = (200, 40, 90)
+        else:
+            f = _flat_colours(h, w, 5 + k, seed + k, cell=8 + 4 * k)
+        out.append(np.ascontiguousarray(f))
+    return out
+
+
+def avif_inter_fixtures():
+    """The AVIF fixtures of slice 26: ``avis`` sequences of PIL's writer
+    whose samples ``tools/av1_rewrite.py::splice_frames`` makes into inter
+    frame 0 (speeds 0-10; 4:2:0, 4:2:2, 4:4:4, 4:0:0 and alpha; whole- and
+    sub-pixel shifts, zoom, an occluding patch, a scene change; aq-mode 1
+    and 2, delta q, film grain, CDEF with quantizer matrices, screen
+    content, lossless; six frames with hidden ones coded ahead, skip
+    mode), still images with loop restoration at speeds 0-1 for the
+    superres rewrite (4:2:2, 4:2:0, 4:4:4 150 wide), and
+    ``ALBEDO_AVIF_INTER``."""
+    from akari_torch.scene.builtin import envtex_texture
+
+    def seq(kind, n, speed, h=96, w=128, seed=3, quality=60, **kw):
+        return _avif(motion_frames(kind, n, h, w, seed), save_all=True, quality=quality,
+                     speed=speed, **kw)
+
+    rgba = [np.concatenate([f, g[..., :1]], axis=-1)
+            for f, g in zip(motion_frames("occl", 3, 72, 96, 5), motion_frames("zoom", 3, 72, 96, 6))]
+    albedo = envtex_texture(2048, 0)
+    roll = np.roll(albedo, (3, 5), (0, 1))
+    moved = ((roll.astype(np.uint16) + np.roll(roll, 1, 1)) // 2).astype(np.uint8)
+    return {
+        "avis_inter_zoom_s0_5f_128x96.avif": seq("zoom", 5, 0),
+        "avis_inter_occl_s1_5f_128x96.avif": seq("occl", 5, 1),
+        "avis_inter_shift_s2_2f_128x96.avif": seq("shift", 2, 2),
+        "avis_inter_zoom_s4_3f_128x96.avif": seq("zoom", 3, 4),
+        "avis_inter_sub_s6_2f_128x96.avif": seq("sub", 2, 6),
+        "avis_inter_shift_s8_3f_128x96.avif": seq("shift", 3, 8),
+        "avis_inter_shift_s10_2f_128x96.avif": seq("shift", 2, 10),
+        "avis_inter_sub_s1_4f_128x96.avif": seq("sub", 4, 1),
+        "avis_inter_sub_s6_aq2_6f_119x93.avif": seq("sub", 6, 6, 93, 119, seed=1, quality=31,
+                                                    advanced={"aq-mode": "2"}),
+        "avis_inter_occl_s0_422_4f_128x96.avif": seq("occl", 4, 0, subsampling="4:2:2"),
+        "avis_inter_zoom_s2_444_3f_96x72.avif": seq("zoom", 3, 2, 72, 96, subsampling="4:4:4"),
+        "avis_inter_occl_s6_400_3f_128x96.avif": seq("occl", 3, 6, subsampling="4:0:0"),
+        "avis_inter_occl_s6_rgba_3f_96x72.avif": _avif(rgba, save_all=True, quality=60,
+                                                      speed=6),
+        "avis_inter_occl_s2_aq1_4f_128x96.avif": seq("occl", 4, 2, advanced={"aq-mode": "1"}),
+        "avis_inter_occl_s4_deltaq_4f_128x96.avif": seq("occl", 4, 4,
+                                                        advanced={"deltaq-mode": "1"}),
+        "avis_inter_zoom_s6_grain_4f_96x72.avif": seq("zoom", 4, 6, 72, 96,
+                                                      advanced={"film-grain-test": "5"}),
+        "avis_inter_occl_s8_cdef_qm_3f_128x96.avif": seq("occl", 3, 8, advanced={
+            "enable-cdef": "1", "enable-qm": "1"}),
+        "avis_inter_scene_s6_screen_2f_128x96.avif": seq("scene", 2, 6, advanced={
+            "tune-content": "screen"}),
+        "avis_inter_occl_s6_lossless_3f_64x48.avif": seq("occl", 3, 6, 48, 64,
+                                                         advanced={"lossless": "1"}),
+        "avif_lr_s0_422_120x60.avif": _avif(pattern(60, 120, 71), quality=30, speed=0,
+                                            subsampling="4:2:2"),
+        "avif_lr_s1_420_96x72.avif": _avif(pattern(72, 96, 73), quality=30, speed=1),
+        "avif_lr_s0_444_150x60.avif": _avif(pattern(60, 150, 72), quality=30, speed=0,
+                                            subsampling="4:4:4"),
+        ALBEDO_AVIF_INTER: _avif([albedo, moved], save_all=True, quality=60, speed=6),
+    }
+
+
 def avif_rewrite_albedo_files(avif_dir=AVIF_OUT):
     """The 2048^2 AVIF albedos ``chip_smoke.py`` phase 54 makes at run time
     from the committed 8-bit ones by header rewrites
     (``tools/av1_rewrite.py``; too large to commit, so recorded in
-    ``AVIF_REWRITES``): ``ALBEDO_AVIF_TOOLS`` at 10 and 12 bits, and
-    ``ALBEDO_AVIF`` coded at superres denominator 12 (3,072 wide)."""
-    from tools.av1_rewrite import to_high_bitdepth, to_superres
+    ``AVIF_REWRITES``): ``ALBEDO_AVIF_TOOLS`` at 10 and 12 bits,
+    ``ALBEDO_AVIF`` coded at superres denominator 12 (3,072 wide), and
+    ``ALBEDO_AVIF_INTER`` spliced into inter frame 0."""
+    from tools.av1_rewrite import splice_frames, to_high_bitdepth, to_superres
 
     def read(name):
         with open(os.path.join(avif_dir, name), "rb") as f:
@@ -1779,7 +1876,8 @@ def avif_rewrite_albedo_files(avif_dir=AVIF_OUT):
     tools, base = read(ALBEDO_AVIF_TOOLS), read(ALBEDO_AVIF)
     return {"albedo2048_q60_s4_tools_10bit.avif": to_high_bitdepth(tools, 10),
             "albedo2048_q60_s4_tools_12bit.avif": to_high_bitdepth(tools, 12),
-            "albedo2048_q60_superres12.avif": to_superres(base, 12)}
+            "albedo2048_q60_superres12.avif": to_superres(base, 12),
+            "albedo2048_q60_s6_inter_frame0.avif": splice_frames(read(ALBEDO_AVIF_INTER), 2)}
 
 
 def write_avif_rewrites(avif_dir=AVIF_OUT):
@@ -1788,6 +1886,21 @@ def write_avif_rewrites(avif_dir=AVIF_OUT):
         json.dump(generated_record(avif_rewrite_albedo_files(avif_dir)), f, indent=1,
                   sort_keys=True)
         f.write("\n")
+
+
+def splice_digests(data):
+    """n -> the SHA-256 of PIL's RGB read of ``splice_frames(data, n)``
+    (frame 0 decoded through frames 1 to n - 1; PIL reads the source's
+    frame n - 1), for n from 2 to the sequence's length."""
+    from PIL import Image
+
+    from tools.av1_rewrite import splice_frames, track_samples
+
+    out = {}
+    for n in range(2, len(track_samples(data)[0]) + 1):
+        px = np.asarray(Image.open(io.BytesIO(splice_frames(data, n))).convert("RGB"))
+        out[str(n)] = hashlib.sha256(px.tobytes()).hexdigest()
+    return out
 
 
 def write_avif_fixtures(out_dir=AVIF_OUT):
@@ -1809,6 +1922,8 @@ def write_avif_fixtures(out_dir=AVIF_OUT):
         px = np.asarray(im.convert("RGB"))
         digests[name] = {"sha256": hashlib.sha256(px.tobytes()).hexdigest(),
                          "shape": list(px.shape), "mode": im.mode, "pil": PIL.__version__}
+        if name.startswith("avis_inter_"):
+            digests[name]["splices"] = splice_digests(data)
     with open(os.path.join(out_dir, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
